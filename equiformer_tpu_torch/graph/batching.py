@@ -1,0 +1,84 @@
+"""Fixed-slot packing of molecular graphs into static-shape batches.
+
+``collate_dense`` is the counterpart of ``equiformer_tpu.graph.batching
+.collate_dense``: graph ``g`` owns node slots ``[g*M, (g+1)*M)``, so
+``batch[i] == i // M`` and the per-graph radius graph
+(``graph.radius_graph.radius_graph_dense``) needs no node sort.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class GraphsTuple:
+    """A padded batch of graphs in flat layout (all torch tensors).
+
+      pos        [N, 3] float
+      species    [N]    int64 (atom type id)
+      batch      [N]    int64 (graph index; padding slots are masked out)
+      node_mask  [N]    bool
+      graph_mask [G]    bool
+      y          [G]    float per-graph targets
+    """
+
+    pos: torch.Tensor
+    species: torch.Tensor
+    batch: torch.Tensor
+    node_mask: torch.Tensor
+    graph_mask: torch.Tensor
+    y: Optional[torch.Tensor] = None
+
+    def to(self, device=None, dtype: Optional[torch.dtype] = None) -> "GraphsTuple":
+        """Move every tensor to ``device``; ``dtype`` recasts the float fields."""
+        def mv(t):
+            if t is None:
+                return None
+            if dtype is not None and t.is_floating_point():
+                return t.to(device=device, dtype=dtype)
+            return t.to(device=device)
+
+        return GraphsTuple(**{f.name: mv(getattr(self, f.name))
+                              for f in dataclasses.fields(self)})
+
+
+def collate_dense(
+    graphs: Sequence[Dict[str, np.ndarray]],
+    max_nodes_per_graph: int,
+    graph_capacity: Optional[int] = None,
+) -> GraphsTuple:
+    """Pack graphs (dicts with 'pos', 'species', optional 'y') into G*M slots."""
+    g_cap = graph_capacity if graph_capacity is not None else len(graphs)
+    if len(graphs) > g_cap:
+        raise ValueError(f"{len(graphs)} graphs > capacity {g_cap}")
+    M = max_nodes_per_graph
+    n_cap = g_cap * M
+    pos = np.zeros((n_cap, 3), np.float32)
+    species = np.zeros((n_cap,), np.int64)
+    node_mask = np.zeros((n_cap,), bool)
+    graph_mask = np.zeros((g_cap,), bool)
+    y = np.zeros((g_cap,), np.float32)
+    for gi, g in enumerate(graphs):
+        n = int(g["pos"].shape[0])
+        if n > M:
+            raise ValueError(f"graph with {n} atoms > per-graph capacity {M}")
+        i = gi * M
+        pos[i : i + n] = g["pos"]
+        species[i : i + n] = g["species"]
+        node_mask[i : i + n] = True
+        graph_mask[gi] = True
+        if g.get("y") is not None:
+            y[gi] = g["y"]
+    return GraphsTuple(
+        pos=torch.from_numpy(pos),
+        species=torch.from_numpy(species),
+        batch=torch.arange(g_cap, dtype=torch.int64).repeat_interleave(M),
+        node_mask=torch.from_numpy(node_mask),
+        graph_mask=torch.from_numpy(graph_mask),
+        y=torch.from_numpy(y),
+    )

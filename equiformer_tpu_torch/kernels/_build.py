@@ -1,0 +1,133 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+``nvcc`` compiles every source in ``equiformer_tpu_torch/csrc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, which is
+loaded with ``ctypes``.  The library lands in ``build/torch_kernels/<hash>/``
+at the repository root, keyed by a hash of the sources and flags, so an
+unchanged tree builds once.  A failed build raises with the compiler's
+output; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources():
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless this source hash is already built; returns
+    the library path.  The compiler's register/shared-memory report goes to
+    ``ptxas.log`` beside the library."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / "libequiformer_kernels.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    # build into a temporary name and rename, so a concurrent or interrupted
+    # build never leaves a half-written library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    return lib
+
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+# C entry points: name -> argtypes (every one returns a cudaError_t as int)
+_SIGNATURES = {
+    # x, x_row_stride, sh, w, W, out, n_edges*, E, d_sh, d_w, d_out,
+    # gk table, n_gk, terms, coeffs, max_fan_stride, dtype, stream
+    "dtp_lin_fwd": [_VP, _LL, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                    _VP, _I, _VP, _VP, _I, _I, _VP],
+    # val, C, rowptr, mask, out, N, dtype, stream
+    "csr_segment_sum": [_VP, _I, _VP, _VP, _VP, _I, _I, _VP],
+    # scores, value, dropmul, shift, rowptr, out, N, H, D, dtype, stream
+    "attn_combine": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def dtype_code(t) -> int:
+    """0 for float32, 1 for bfloat16; other dtypes have no kernel."""
+    import torch
+
+    if t.dtype == torch.float32:
+        return 0
+    if t.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"no CUDA kernel for dtype {t.dtype} (float32 or bfloat16)")
+
+
+def stream_ptr() -> int:
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+def ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()

@@ -1,0 +1,214 @@
+"""Equiformer (QM9 family), inference path.
+
+Counterpart of ``equiformer_tpu.models.equiformer`` for eval mode:
+
+* ``GraphAttention`` — MLP attention with nonlinear depthwise-TP messages;
+* ``FeedForwardNetwork`` — two FCTPs against the constant node attr with a
+  gate in between;
+* ``TransBlock`` — pre-norm residual block;
+* ``GraphAttentionTransformer`` — radius graph, SH + Gaussian RBF,
+  embeddings, N blocks, norm, scalar head and scaled scatter per graph.
+
+Dropout, drop path, remat, batched radial, the linear-message path, the
+attention head, dot-product attention, ``irreps_pre_attn`` and the other
+norms are not ported: the forward runs in eval mode only and raises in
+training mode.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..core.irreps import Irreps
+from ..core.spherical import spherical_harmonics_for_irreps
+from ..graph.batching import GraphsTuple
+from ..graph.radius_graph import EdgeList, edge_vectors, radius_graph_dense
+from ..graph.segment import active_edge_bound, scaled_scatter_sum
+from ..nn.activation import Activation, normalized_activation
+from ..nn.attention_utils import heads2vec, heads_irreps, softmax_dropout_combine, vec2heads
+from ..nn.linear import IrrepsLinear, init_parameters
+from ..nn.norms import EquivariantLayerNorm
+from ..nn.radial import GaussianRadialBasis
+from ..nn.tp_modules import (
+    FCTP,
+    EdgeDegreeEmbedding,
+    FCTPSwishGate,
+    NodeEmbedding,
+    SeparableFCTP,
+)
+
+# QM9 graph statistics at r = 5 A (same constants as the JAX package)
+_AVG_NUM_NODES = 18.03065905448718
+_AVG_DEGREE = 15.57930850982666
+
+
+class GraphAttention(nn.Module):
+    def __init__(self, irreps_node_input, irreps_edge_attr, irreps_node_output,
+                 fc_neurons: Tuple[int, ...], irreps_head, num_heads: int):
+        super().__init__()
+        pre = Irreps(irreps_node_input)
+        self.irreps_head = Irreps(irreps_head)
+        self.num_heads = H = num_heads
+        self.merge_src = IrrepsLinear(pre, pre, use_bias=True)
+        self.merge_dst = IrrepsLinear(pre, pre, use_bias=False)
+
+        irreps_attn_heads = heads_irreps(self.irreps_head, H)
+        mul_alpha = irreps_attn_heads.count("0e")
+        self.mul_alpha_head = mul_alpha // H
+        irreps_alpha = Irreps(f"{mul_alpha}x0e")
+        sh = Irreps(irreps_edge_attr)
+        self.sep_act = SeparableFCTP(pre, sh, pre, fc_neurons=fc_neurons,
+                                     use_activation=True, internal_weights=False,
+                                     extra_head_irreps=(irreps_alpha,))
+        self.sep_alpha = IrrepsLinear(self.sep_act.dtp.irreps_out, irreps_alpha)
+        self.sep_value = SeparableFCTP(pre, sh, irreps_attn_heads, fc_neurons=None,
+                                       use_activation=False, internal_weights=True)
+        self.alpha_act = normalized_activation("smooth_leaky_relu:0.2")
+        self.alpha_dot = nn.Parameter(torch.empty(H, self.mul_alpha_head))
+        self.proj = IrrepsLinear(irreps_attn_heads, Irreps(irreps_node_output))
+
+    def init_(self, gen: torch.Generator) -> None:
+        bound = math.sqrt(6.0 / sum(self.alpha_dot.shape))  # glorot on [H, C]
+        with torch.no_grad():
+            self.alpha_dot.copy_(torch.rand(self.alpha_dot.shape, generator=gen) * 2 * bound - bound)
+
+    def forward(self, node_input, edges: EdgeList, edge_attr, edge_scalars, n_edges):
+        num_nodes = node_input.shape[0]
+        H = self.num_heads
+        message = self.merge_src(node_input)[edges.src] + self.merge_dst(node_input)[edges.dst]
+        w = self.sep_act.dtp_rad(edge_scalars)
+        # one fused TP evaluates both heads on the unsimplified message: the
+        # gate input and the attention scalars
+        value, alpha = self.sep_act.dtp_lin(message, edge_attr, w,
+                                            extra_heads=(self.sep_alpha,), n_edges=n_edges)
+        alpha = vec2heads(Irreps(f"{self.mul_alpha_head}x0e"), H, alpha)  # [E, H, mah]
+        value = self.sep_act.gate(value)
+        value = self.sep_value(value, edge_attr, n_edges=n_edges)
+        value = vec2heads(self.irreps_head, H, value)  # [E, H, head_dim]
+        alpha = self.alpha_act(alpha)
+        alpha = torch.einsum("ehk,hk->eh", alpha, self.alpha_dot.to(alpha.dtype))
+        attn = softmax_dropout_combine(alpha, value, edges.dst, edges.mask, num_nodes)
+        return self.proj(heads2vec(self.irreps_head, attn))
+
+
+class FeedForwardNetwork(nn.Module):
+    def __init__(self, irreps_node_input, irreps_node_attr, irreps_node_output,
+                 irreps_mlp_mid=None):
+        super().__init__()
+        mid = Irreps(irreps_mlp_mid) if irreps_mlp_mid else Irreps(irreps_node_input)
+        self.fctp_1 = FCTPSwishGate(irreps_node_input, irreps_node_attr, mid)
+        self.fctp_2 = FCTP(mid, irreps_node_attr, irreps_node_output)
+
+    def forward(self, node_input, node_attr):
+        return self.fctp_2(self.fctp_1(node_input, node_attr), node_attr)
+
+
+class TransBlock(nn.Module):
+    """Pre-norm residual block with MLP attention."""
+
+    def __init__(self, irreps_node_input, irreps_node_attr, irreps_edge_attr,
+                 irreps_node_output, fc_neurons, irreps_head, num_heads: int,
+                 irreps_mlp_mid=None):
+        super().__init__()
+        irreps_in = Irreps(irreps_node_input)
+        irreps_out = Irreps(irreps_node_output)
+        self.norm_1 = EquivariantLayerNorm(irreps_in)
+        self.ga = GraphAttention(irreps_in, irreps_edge_attr, irreps_in, fc_neurons,
+                                 irreps_head, num_heads)
+        self.norm_2 = EquivariantLayerNorm(irreps_in)
+        self.ffn = FeedForwardNetwork(irreps_in, irreps_node_attr, irreps_out, irreps_mlp_mid)
+        self.ffn_shortcut = (FCTP(irreps_in, irreps_node_attr, irreps_out)
+                             if irreps_in != irreps_out else None)
+
+    def forward(self, node_input, node_attr, edges, edge_attr, edge_scalars, n_edges):
+        x = self.ga(self.norm_1(node_input), edges, edge_attr, edge_scalars, n_edges)
+        node_output = node_input + x
+        x = self.ffn(self.norm_2(node_output), node_attr)
+        if self.ffn_shortcut is not None:
+            node_output = self.ffn_shortcut(node_output, node_attr)
+        return node_output + x
+
+
+class GraphAttentionTransformer(nn.Module):
+    """QM9-style scalar-property Equiformer with nonlinear messages, the
+    Gaussian basis and layer norms; the options keep the JAX package's names.
+    The node attribute is the constant ``1x0e``."""
+
+    def __init__(
+        self,
+        irreps_node_embedding="128x0e+64x1e+32x2e",
+        num_layers: int = 6,
+        irreps_sh="1x0e+1x1e+1x2e",
+        max_radius: float = 5.0,
+        number_of_basis: int = 128,
+        fc_neurons: Tuple[int, ...] = (64, 64),
+        irreps_feature="512x0e",
+        irreps_head="32x0e+16x1e+8x2e",
+        num_heads: int = 4,
+        irreps_mlp_mid="128x0e+64x1e+32x2e",
+        max_atom_type: int = 5,
+        avg_num_nodes: float = _AVG_NUM_NODES,
+        avg_degree: float = _AVG_DEGREE,
+        max_edges: int = 8192,
+        nodes_per_graph: int = 30,
+        compute_dtype: Optional[str] = None,
+        seed: int = 0,
+    ):
+        super().__init__()
+        if nodes_per_graph <= 0:
+            raise NotImplementedError("only the fixed-slot (collate_dense) layout is ported")
+        self.irreps_sh = Irreps(irreps_sh)
+        self.max_radius = max_radius
+        self.max_edges = max_edges
+        self.nodes_per_graph = nodes_per_graph
+        self.avg_num_nodes = avg_num_nodes
+        self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
+        emb = Irreps(irreps_node_embedding)
+        feat = Irreps(irreps_feature)
+        fc = (number_of_basis,) + tuple(fc_neurons)
+
+        self.rbf = GaussianRadialBasis(number_of_basis, max_radius)
+        self.atom_embed = NodeEmbedding(emb, max_atom_type)
+        self.edge_deg_embed = EdgeDegreeEmbedding(emb, self.irreps_sh, fc, avg_degree)
+        for i in range(num_layers):
+            self.add_module(f"block_{i}", TransBlock(
+                emb, "1x0e", self.irreps_sh, feat if i == num_layers - 1 else emb, fc,
+                irreps_head, num_heads, irreps_mlp_mid))
+        self.num_layers = num_layers
+        self.norm = EquivariantLayerNorm(feat)
+        self.head_lin1 = IrrepsLinear(feat, feat)
+        self.head_act = Activation(feat, ["silu"])
+        self.head_lin2 = IrrepsLinear(feat, Irreps("1x0e"))
+        init_parameters(self, seed)
+
+    def forward(self, graphs: GraphsTuple) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "training mode (dropout) is not ported; call model.eval()")
+        pos = graphs.pos
+        G = graphs.graph_mask.shape[0]
+        N = pos.shape[0]
+        if N != G * self.nodes_per_graph:
+            raise ValueError(f"{N} nodes != {G} graphs x {self.nodes_per_graph} slots")
+        edges = radius_graph_dense(pos, graphs.node_mask, G, self.max_radius, self.max_edges)
+        edge_vec, edge_len = edge_vectors(pos, edges)
+        edge_sh = spherical_harmonics_for_irreps(self.irreps_sh, edge_vec)
+        # geometry runs in the position dtype; features in compute_dtype
+        feat_dtype = self.compute_dtype or pos.dtype
+        edge_scalars = self.rbf(edge_len).to(feat_dtype)
+        edge_sh = edge_sh.to(feat_dtype)
+
+        atom_emb, _ = self.atom_embed(graphs.species, feat_dtype)
+        x = atom_emb + self.edge_deg_embed(edge_sh, edge_scalars, edges.dst, edges.mask, N)
+        node_attr = torch.ones((N, 1), dtype=feat_dtype, device=pos.device)
+        n_edges = active_edge_bound(edges.mask)
+        for i in range(self.num_layers):
+            x = getattr(self, f"block_{i}")(x, node_attr, edges, edge_sh, edge_scalars, n_edges)
+        x = self.head_lin2(self.head_act(self.head_lin1(self.norm(x))))
+        x = x.to(pos.dtype)  # accumulate the readout in the position dtype
+        out = scaled_scatter_sum(x, graphs.batch, G, self.avg_num_nodes, mask=graphs.node_mask)
+        return out[:, 0]

@@ -1,0 +1,216 @@
+"""Modules around the core tensor products.
+
+Counterparts of ``equiformer_tpu.nn.tp_modules``:
+
+* ``FCTP`` — fully-connected TP with internal weights and scalar bias;
+* ``FCTPSwishGate`` — FCTP into a SiLU/sigmoid Gate;
+* ``DTPLayer`` — the depthwise TP plan, and the internal weights of a
+  shared-weight DTP;
+* ``SeparableFCTP`` — depthwise TP (per-edge radial weights, or internal
+  shared ones) -> per-irrep linear heads -> optional gate.  The TP and the
+  heads always run as one fused op (``kernels/dtp_lin.py``): the CUDA kernel
+  on the card, its einsum plain version on the CPU;
+* ``NodeEmbedding`` / ``EdgeDegreeEmbedding``.
+
+Submodule and parameter names follow the flax scopes, so weight conversion
+from the JAX package is mechanical (``utils/convert_jax.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..core.irreps import Irreps
+from ..core.tensor_product import TensorProduct, depthwise_tp, fully_connected_tp
+from ..graph.segment import active_edge_bound, scaled_scatter_sum
+from ..kernels.dtp_lin import DTPLinPlan, dtp_lin
+from .activation import Activation, Gate, gate_for, irreps2gate
+from .linear import IrrepsLinear
+from .radial import RadialProfile
+
+
+def _init_tp_weight(p: nn.Parameter, tp: TensorProduct, gen: torch.Generator) -> None:
+    std = torch.as_tensor(tp.weight_std_flat(), dtype=torch.float32)
+    with torch.no_grad():
+        p.copy_(torch.randn(p.shape, generator=gen) * std)
+
+
+def _add_scalar_bias(x: torch.Tensor, bias: torch.Tensor, irreps: Irreps) -> torch.Tensor:
+    pieces = []
+    i = bi = 0
+    for mul, ir in irreps:
+        blk = x[..., i : i + mul * ir.dim]
+        if ir.is_scalar():
+            blk = blk + bias[bi : bi + mul].to(x.dtype)
+            bi += mul
+        pieces.append(blk)
+        i += mul * ir.dim
+    return torch.cat(pieces, dim=-1)
+
+
+class FCTP(nn.Module):
+    """Fully-connected tensor product with internal weights and scalar bias."""
+
+    def __init__(self, irreps_in1, irreps_in2, irreps_out):
+        super().__init__()
+        self.tp = fully_connected_tp(Irreps(irreps_in1), Irreps(irreps_in2), Irreps(irreps_out))
+        self.w = nn.Parameter(torch.empty(self.tp.weight_numel))
+        num_scalar = sum(mi.mul for mi in self.tp.irreps_out if mi.ir.is_scalar())
+        self.use_bias = num_scalar > 0
+        if self.use_bias:
+            self.bias = nn.Parameter(torch.empty(num_scalar))
+
+    def init_(self, gen: torch.Generator) -> None:
+        _init_tp_weight(self.w, self.tp, gen)
+        if self.use_bias:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x1, x2):
+        out = self.tp.apply(x1, x2, self.w.to(x1.dtype))
+        if self.use_bias:
+            out = _add_scalar_bias(out, self.bias, self.tp.irreps_out)
+        return out
+
+
+class FCTPSwishGate(nn.Module):
+    """FCTP whose output feeds a SiLU/sigmoid Gate (output irreps = target)."""
+
+    def __init__(self, irreps_in1, irreps_in2, irreps_out):
+        super().__init__()
+        self.gate, irreps_gate_in = gate_for(Irreps(irreps_out))
+        self.fctp = FCTP(irreps_in1, irreps_in2, irreps_gate_in)
+
+    def forward(self, x1, x2):
+        return self.gate(self.fctp(x1, x2))
+
+
+class DTPLayer(nn.Module):
+    """Depthwise TP plan; with ``internal_weights`` it owns the shared weight
+    ``w``.  The TP itself runs inside the fused op of ``SeparableFCTP``."""
+
+    def __init__(self, irreps_node, irreps_edge, irreps_target, internal_weights: bool = False):
+        super().__init__()
+        self.plan = depthwise_tp(Irreps(irreps_node), Irreps(irreps_edge), Irreps(irreps_target))
+        self.internal_weights = internal_weights
+        if internal_weights:
+            self.w = nn.Parameter(torch.empty(self.plan.weight_numel))
+
+    def init_(self, gen: torch.Generator) -> None:
+        if self.internal_weights:
+            _init_tp_weight(self.w, self.plan, gen)
+
+    @property
+    def irreps_out(self) -> Irreps:
+        return self.plan.irreps_out
+
+
+class SeparableFCTP(nn.Module):
+    """Depthwise TP -> per-irrep linear heads -> optional gate.
+
+    ``extra_head_irreps`` declares more linear heads that read the same
+    unsimplified TP output (the attention's ``sep_alpha``); they join the
+    fused op's product, and ``dtp_lin`` is given the bound head modules.
+    """
+
+    def __init__(self, irreps_node, irreps_edge, irreps_out,
+                 fc_neurons: Optional[Tuple[int, ...]] = None,
+                 use_activation: bool = False, internal_weights: bool = False,
+                 extra_head_irreps: Sequence = ()):
+        super().__init__()
+        irreps_out = Irreps(irreps_out)
+        self.internal_weights = internal_weights
+        self.use_activation = use_activation
+        self.dtp = DTPLayer(irreps_node, irreps_edge, irreps_out,
+                            internal_weights=internal_weights)
+        tp = self.dtp.plan
+        self.fc_neurons = fc_neurons
+        if fc_neurons is not None:
+            # fc_neurons[0] is the input width; layers fc_neurons[1:] + weights
+            self.dtp_rad = RadialProfile(fc_neurons[0],
+                                         tuple(fc_neurons[1:]) + (tp.weight_numel,))
+        scalars, gates, gated = irreps2gate(irreps_out)
+        irreps_lin_output = (scalars + gates + gated).simplify() if use_activation else irreps_out
+        self.lin = IrrepsLinear(tp.irreps_out, irreps_lin_output)
+        self.n_extra_heads = len(extra_head_irreps)
+        self.plan = DTPLinPlan(
+            tp, [irreps_lin_output] + [Irreps(h) for h in extra_head_irreps],
+            shared_weights=internal_weights,
+        )
+        self.gate = None
+        if use_activation:
+            self.gate = (Activation(irreps_out, ["silu"]) if gated.num_irreps == 0
+                         else Gate(scalars, gates, gated))
+
+    def dtp_lin(self, node_on_edge, edge_attr, weights, extra_heads=(), n_edges=None):
+        """TP -> (lin, *extra heads) as one fused op.  Returns one tensor
+        without extra heads, else the list of per-head outputs."""
+        heads = [self.lin] + list(extra_heads)
+        if len(heads) != 1 + self.n_extra_heads:
+            raise ValueError("extra_heads must match extra_head_irreps")
+        dtype = node_on_edge.dtype
+        if self.internal_weights:
+            weights = self.dtp.w.to(dtype)
+        W = self.plan.pack_weights(
+            [[None if w is None else w.to(dtype) for w in h.weight_list()] for h in heads])
+        out = dtp_lin(self.plan, node_on_edge, edge_attr, weights, W, n_edges)
+        outs = [h.add_bias(o) for h, o in zip(heads, self.plan.split_output(out))]
+        return outs if extra_heads else outs[0]
+
+    def forward(self, node_on_edge, edge_attr, edge_scalars=None, n_edges=None):
+        w = None
+        if self.fc_neurons is not None and edge_scalars is not None:
+            w = self.dtp_rad(edge_scalars)
+        out = self.dtp_lin(node_on_edge, edge_attr, w, n_edges=n_edges)
+        if self.gate is not None:
+            out = self.gate(out)
+        return out
+
+
+class NodeEmbedding(nn.Module):
+    """One-hot atom type -> irreps embedding (weights scaled by sqrt(types)).
+    Returns (embedding, onehot)."""
+
+    def __init__(self, irreps_out, max_atom_type: int):
+        super().__init__()
+        self.max_atom_type = max_atom_type
+        self.lin = IrrepsLinear(Irreps(f"{max_atom_type}x0e"), Irreps(irreps_out),
+                                weight_init_scale=float(max_atom_type) ** 0.5)
+
+    def forward(self, species: torch.Tensor, dtype: torch.dtype):
+        onehot = nn.functional.one_hot(species, self.max_atom_type).to(dtype)
+        return self.lin(onehot), onehot
+
+
+class EdgeDegreeEmbedding(nn.Module):
+    """Constant scalar -> linear -> DTP with the SH, weighted by a radial MLP
+    -> linear -> scaled scatter onto destinations."""
+
+    def __init__(self, irreps_out, irreps_edge, fc_neurons: Tuple[int, ...],
+                 avg_degree: float):
+        super().__init__()
+        irreps_out = Irreps(irreps_out)
+        self.avg_degree = avg_degree
+        self.exp = IrrepsLinear(Irreps("1x0e"), irreps_out)
+        tp = depthwise_tp(irreps_out, Irreps(irreps_edge), irreps_out)
+        self.rad = RadialProfile(fc_neurons[0], tuple(fc_neurons[1:]) + (tp.weight_numel,))
+        self.proj = IrrepsLinear(tp.irreps_out, irreps_out)
+        self.plan = DTPLinPlan(tp, [irreps_out])
+
+    def forward(self, edge_attr, edge_scalars, edge_dst, edge_mask, num_nodes: int):
+        # every node's expanded feature is the same linear image of the
+        # constant 1, so the per-edge gather is a row broadcast (stride 0)
+        E = edge_dst.shape[0]
+        feat1 = self.exp(torch.ones((1, 1), dtype=edge_attr.dtype, device=edge_attr.device))
+        feat_e = feat1.expand(E, feat1.shape[-1])
+        w = self.rad(edge_scalars)
+        dtype = edge_attr.dtype
+        W = self.plan.pack_weights(
+            [[None if w_ is None else w_.to(dtype) for w_ in self.proj.weight_list()]])
+        out = dtp_lin(self.plan, feat_e, edge_attr, w, W, active_edge_bound(edge_mask))
+        edge_feat = self.proj.add_bias(self.plan.split_output(out)[0])
+        return scaled_scatter_sum(edge_feat, edge_dst, num_nodes, self.avg_degree,
+                                  mask=edge_mask)
