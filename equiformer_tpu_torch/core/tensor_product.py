@@ -144,7 +144,8 @@ class TensorProduct:
         scale_weights: bool = False,
     ) -> torch.Tensor:
         """x1 [..., in1.dim], x2 [..., in2.dim], weights [weight_numel] or
-        [..., weight_numel].  ``scale_weights=True`` applies the fan-in rescale
+        [..., weight_numel], or None for all-ones weights (shared weights
+        folded elsewhere).  ``scale_weights=True`` applies the fan-in rescale
         to the supplied weights (raw radial-MLP outputs)."""
         dtype = x1.dtype
         b1 = split_blocks(x1, self.irreps_in1)
@@ -153,7 +154,7 @@ class TensorProduct:
         for idx, ins in enumerate(self.instructions):
             C = self._cg_tensor(idx, dtype, x1.device)
             w = None
-            if ins.has_weight:
+            if ins.has_weight and weights is not None:
                 off, shape = self._offsets[idx], self._shapes[idx]
                 w = weights[..., off : off + int(np.prod(shape))]
                 w = w.reshape(w.shape[:-1] + shape)

@@ -2,8 +2,8 @@
 
 The ``dense_slots`` path of ``equiformer_tpu.data.loader.GraphLoader``, in
 numpy: the same shuffle order for a seed, collated by
-``graph.batching.collate_dense`` into CPU tensors (``.to(device)`` moves a
-batch).
+``graph.batching.collate_dense`` into CPU tensors: collation is host work,
+and ``batch.to(device)`` moves a batch to the card.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ with the reference row by row.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -19,6 +19,7 @@ class EdgeList(NamedTuple):
     src: torch.Tensor  # [E_cap] int64
     dst: torch.Tensor  # [E_cap] int64, non-decreasing
     mask: torch.Tensor  # [E_cap] bool
+    rev: Optional[torch.Tensor] = None  # [E_cap] int64, position of each edge's twin
 
 
 def radius_graph_dense(
@@ -60,6 +61,24 @@ def radius_graph_dense(
     num = flat.sum()
     mask = torch.arange(max_edges, device=pos.device) < num
     return EdgeList(src=g * M + j, dst=g * M + i, mask=mask)
+
+
+def reverse_edge_perm_dense(edges: EdgeList, graphs: int, M: int) -> torch.Tensor:
+    """Position of each edge's reverse twin in the dense-collate edge list.
+
+    The radius adjacency is symmetric, so every real edge (g, i, j) has its
+    twin (g, j, i) in the list: ``edges.src[rev[e]] == edges.dst[e]`` for real
+    edges.  Padded edges all sit on the slot (G-1, M-1, M-1) and map to one
+    of the padded edges, as JAX's ``.at[flat].set(..., mode="drop")`` leaves
+    them; their cotangents are zero.
+    """
+    E = edges.src.shape[0]
+    g = edges.dst // M
+    i = edges.dst % M
+    j = edges.src % M
+    idx = torch.zeros(graphs * M * M, dtype=torch.int64, device=edges.dst.device)
+    idx.scatter_(0, (g * M + i) * M + j, torch.arange(E, device=edges.dst.device))
+    return idx[(g * M + j) * M + i]
 
 
 def edge_vectors(pos: torch.Tensor, edges: EdgeList, eps: float = 1e-12):

@@ -1,9 +1,10 @@
 """Masked segment reductions over padded edge/node arrays.
 
-Counterpart of ``equiformer_tpu.graph.segment`` for the inference slice.
+Counterpart of ``equiformer_tpu.graph.segment`` for the QM9 path.
 ``segment_sum`` takes the CSR kernel (``kernels/segment_csr.py``) under the
 JAX package's eligibility rule (``_csr_eligible``): first order, rank 2 or
-3, at least 128 flat columns.  The ids must be non-decreasing, as every
+3, at least 128 flat columns.  ``gather_add`` is the message gather with the
+sorted, rev-twin backward.  The ids must be non-decreasing, as every
 caller's are (edges are dst-sorted, nodes graph-sorted).  The kernel module itself
 decides by device: CPU tensors run its plain version, CUDA tensors the kernel.
 """
@@ -64,6 +65,29 @@ def segment_softmax(scores, segment_ids, num_segments: int, mask=None):
     denom = segment_sum_plain(ex, segment_ids, num_segments)
     denom = torch.clamp(denom, min=1e-16)
     return ex / denom[segment_ids]
+
+
+class _GatherAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xs, xd, src, dst, rev, num_nodes):
+        ctx.num_nodes = num_nodes
+        ctx.save_for_backward(src, dst, rev)
+        return xs[src] + xd[dst]
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst, rev = ctx.saved_tensors
+        N = ctx.num_nodes
+        return segment_sum(g[rev], dst, N), segment_sum(g, dst, N), None, None, None, None
+
+
+def gather_add(xs, xd, src, dst, num_nodes: int, rev):
+    """``xs[src] + xd[dst]`` whose backward is two segment sums over the
+    non-decreasing ``dst`` (the CSR kernel at >= 128 columns), not autograd's
+    unsorted scatter-adds: with ``rev`` the reverse-twin permutation of the
+    symmetric edge list, summing g over src equals summing g[rev] over dst.
+    Padded edges map through ``rev`` arbitrarily; their cotangents are zero."""
+    return _GatherAdd.apply(xs, xd, src, dst, rev, num_nodes)
 
 
 def active_edge_bound(mask: torch.Tensor) -> torch.Tensor:

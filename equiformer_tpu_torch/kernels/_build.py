@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
 ``nvcc`` compiles every source in ``equiformer_tpu_torch/csrc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ``ctypes``.  The library lands in ``build/torch_kernels/<hash>/``
+(``sm_90a``), one process per source, all started together, then links the
+objects into one shared library with a plain C interface, which is loaded
+with ``ctypes``.  The library lands in ``build/torch_kernels/<hash>/``
 at the repository root, keyed by a hash of the sources and flags, so an
 unchanged tree builds once.  A failed build raises with the compiler's
 output; there is no fallback.
@@ -24,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -61,20 +62,36 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    # build into a temporary name and rename, so a concurrent or interrupted
+    nvcc = _nvcc()
+    cus = [p for p in _sources() if p.suffix == ".cu"]
+    # build into temporary names and rename, so a concurrent or interrupted
     # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    procs = []
+    for cu in cus:
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(tmp / (cu.stem + ".o")),
+               str(cu)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp / lib.name), *[str(tmp / (cu.stem + ".o"))
+                                                            for cu in cus]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    (out_dir / "ptxas.log").write_text("\n".join(log))
+    if failed:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError("\n".join(failed))
+    os.replace(tmp / lib.name, lib)
+    shutil.rmtree(tmp, ignore_errors=True)
     return lib
 
 
@@ -88,10 +105,16 @@ _SIGNATURES = {
     # gk table, n_gk, terms, coeffs, max_fan_stride, dtype, stream
     "dtp_lin_fwd": [_VP, _LL, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                     _VP, _I, _VP, _VP, _I, _I, _VP],
+    # x, x_row_stride, d_x, sh, d_sh, w, d_w, W^T, g, d_out, n_edges*, E,
+    # gk table, n_gk, terms, coeffs, dwmap, dx, dw, dW partials, n_parts, dW,
+    # w_numel, span_max, cols_pad_max, max_fan_stride, dtype, stream
+    "dtp_lin_bwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
+                    _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
+                    _I, _I, _I, _I, _I, _VP],
     # val, C, rowptr, mask, out, N, dtype, stream
     "csr_segment_sum": [_VP, _I, _VP, _VP, _VP, _I, _I, _VP],
-    # scores, value, dropmul, shift, rowptr, out, N, H, D, dtype, stream
-    "attn_combine": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # scores, value, dropmul, shift, rowptr, out, den, N, H, D, dtype, stream
+    "attn_combine": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
 }
 
 

@@ -1,23 +1,28 @@
-"""Fused depthwise tensor product + per-irrep linear heads (K1, forward).
+"""Fused depthwise tensor product + per-irrep linear heads (K1 forward, K2 backward).
 
 Counterpart of ``equiformer_tpu/kernels/dtp_lin_pallas.py``
-(``make_fused_dtp_lin`` -> ``_fwd_kernel``): per edge, the depthwise ('uvu')
-TP with the SH
+(``make_fused_dtp_lin`` -> ``_fwd_kernel``, ``make_bwd_call`` ->
+``_bwd_kernel``): per edge, the depthwise ('uvu') TP with the SH
 
     z[g, k][fan col fc + u] += c * sh[col] * x[a_off + u] * w[b_off + u]
 
 followed, per irrep group ``g`` and component ``k``, by ``z[g, k] @ W_g`` for
 all linear heads reading z at once.  z (3136 wide for the flagship) never
-goes to device memory.  Two launch modes share one kernel: per-edge ``w``
-(``sep_act``, the edge-degree embedding) and shared weights folded into the
-rows of ``W`` outside the kernel (``sep_value``).  Rows at or past
-``n_edges`` (a device scalar) are written as zeros.
+goes to device memory, in the forward or the backward (which recomputes
+it).  Two launch modes share each kernel: per-edge ``w`` (``sep_act``, the
+edge-degree embedding) and shared weights folded into the rows of ``W``
+(``sep_value``).  The fold runs outside the autograd op, as in JAX, so
+autograd turns the folded ``dW`` into the gradients of ``W`` and of the
+shared ``w``.  Rows at or past ``n_edges`` (a device scalar) are written as
+zeros and get zero gradients.
 
 ``DTPLinPlan`` is the port's own plan: the term table from the port's CG
 tables, the irrep groups, weight packing and output splitting.  It keeps no
 TPU layout tricks (no 128-lane slots, fan padding or lane packing): a
 group's fan is padded only to a multiple of 4 for vector loads.
-``dtp_lin_plain`` (einsum TP + the heads' linear maps) is the plain version.
+``dtp_lin_plain`` (einsum TP + the heads' linear maps) and
+``dtp_lin_bwd_plain`` (the same backward written out per group and term)
+are the plain versions.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from ..core.irreps import Irreps
-from ..core.tensor_product import TensorProduct
+from ..core.tensor_product import TensorProduct, split_blocks
 from . import _build
 
 
@@ -250,6 +255,71 @@ class DTPLinPlan:
             self._tables[device] = tabs
         return tabs
 
+    def bwd_tables(self, device: torch.device):
+        """The backward's tables on ``device``, as csrc/dtp_lin_bwd.cu reads
+        them: (gk int32 [n_gk, 12], terms int32 [n_terms, 6], coeffs float32,
+        dwmap int32, wt_index int64, span_max, cols_pad_max).
+
+        gk per (group, component): fan_stride, cols, output column, W offset,
+        term range, W^T offset and padded column count, the group's dw span
+        (begin in ``dwmap``, length), first / last component.  A group's w
+        blocks get consecutive local dw columns (``dwmap`` maps them back to
+        w columns): every w column feeds exactly one group, so the kernel
+        keeps only one group's dw in shared memory.  ``wt_index`` gathers
+        ``cat([W_flat, 0])`` into each group's [cols_pad, fan_stride] W^T."""
+        key = ("bwd", device)
+        tabs = self._tables.get(key)
+        if tabs is not None:
+            return tabs
+        per_edge_w = not self.shared_weights
+        b_loc, spans, dwmap = [], [], []
+        for gi in range(len(self.groups)):
+            local = {}
+            begin = len(dwmap)
+            if per_edge_w:
+                for b_off, mul in sorted({(t.b_off, t.mul) for t, (tg, _, _) in self.terms
+                                          if tg == gi}):
+                    local[b_off] = len(dwmap) - begin
+                    dwmap.extend(range(b_off, b_off + mul))
+            spans.append((begin, len(dwmap) - begin))
+            # self.terms is sorted by group first, so b_loc follows its order
+            b_loc.extend(local.get(t.b_off, 0) for t, (tg, _, _) in self.terms if tg == gi)
+        gk, tt, cc, wt_index = [], [], [], []
+        by_gk: Dict[Tuple[int, int], list] = {}
+        for (t, (tg, tk, fc)), bl in zip(self.terms, b_loc):
+            by_gk.setdefault((tg, tk), []).append((t, fc, bl))
+        wt_off = 0
+        for gi, g in enumerate(self.groups):
+            cp = -(-g.cols // 4) * 4
+            j, f = np.meshgrid(np.arange(cp), np.arange(g.fan_stride), indexing="ij")
+            wt_index.append(np.where(j < g.cols, g.w_off + f * g.cols + j, self.w_numel)
+                            .reshape(-1))
+            for k in range(g.ir.dim):
+                begin = len(tt)
+                for t, fc, bl in by_gk.get((gi, k), ()):
+                    tt.append((t.a_off, t.col, t.b_off, fc, t.mul, bl))
+                    cc.append(t.coeff)
+                gk.append((g.fan_stride, g.cols, g.out_off + k * g.cols, g.w_off, begin,
+                           len(tt), wt_off, cp) + spans[gi]
+                          + (int(k == 0), int(k == g.ir.dim - 1)))
+            wt_off += cp * g.fan_stride
+        tabs = (
+            torch.tensor(gk, dtype=torch.int32, device=device),
+            torch.tensor(tt, dtype=torch.int32, device=device),
+            torch.tensor(cc, dtype=torch.float32, device=device),
+            torch.tensor(dwmap or [0], dtype=torch.int32, device=device),
+            torch.as_tensor(np.concatenate(wt_index), device=device),
+            max(n for _, n in spans),
+            max(-(-g.cols // 4) * 4 for g in self.groups),
+        )
+        self._tables[key] = tabs
+        return tabs
+
+    @property
+    def dw_has_dead_cols(self) -> bool:
+        """Whether some w column feeds no live group (its dw stays zero)."""
+        return sum(m for _, m in {(t.b_off, t.mul) for t, _ in self.terms}) != self.d_w
+
 
 def _zero_past(out: torch.Tensor, n_edges) -> torch.Tensor:
     if n_edges is None:
@@ -258,48 +328,100 @@ def _zero_past(out: torch.Tensor, n_edges) -> torch.Tensor:
     return torch.where(rows[:, None], out, torch.zeros_like(out))
 
 
+def _group_z(plan: DTPLinPlan, z: torch.Tensor, gi: int, k: int) -> torch.Tensor:
+    """Component k of group gi's fan, [E, fan], gathered from the TP output."""
+    g = plan.groups[gi]
+    slices = plan.tp.irreps_out.slices()
+    cols = []
+    for bo in g.blocks:
+        mul = plan.tp.irreps_out[bo].mul
+        s = slices[bo].start + k * mul
+        cols.append(z[:, s : s + mul])
+    return torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
+
+
 def dtp_lin_plain(plan: DTPLinPlan, x, sh, w, W_flat, n_edges=None):
     """Plain version: the einsum TP, then each group's z columns times its
-    packed linear weights.  ``w`` is [E, d_w] per edge or the shared [d_w]."""
+    packed linear weights.  ``w`` is [E, d_w] per edge, the shared [d_w], or
+    None when shared weights are already folded into ``W_flat``."""
     z = plan.tp.apply(x, sh, w, scale_weights=plan.fold_rescale)
-    slices = plan.tp.irreps_out.slices()
     pieces = []
     for gi, g in enumerate(plan.groups):
         W = plan.group_weight(W_flat, gi)[: g.fan]
         for k in range(g.ir.dim):
-            cols = []
-            for bo in g.blocks:
-                mul = plan.tp.irreps_out[bo].mul
-                s = slices[bo].start + k * mul
-                cols.append(z[:, s : s + mul])
-            zk = torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
-            pieces.append(zk @ W)
+            pieces.append(_group_z(plan, z, gi, k) @ W)
     return _zero_past(torch.cat(pieces, dim=1), n_edges)
 
 
-def dtp_lin(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
-            W_flat: torch.Tensor, n_edges=None) -> torch.Tensor:
-    """Fused DTP + linear heads: [E, plan.d_out] (split with ``plan.split_output``).
+def dtp_lin_bwd_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges=None):
+    """Plain backward of ``dtp_lin_plain`` for the cotangent ``g`` [E, d_out],
+    written out per group and TP path: returns (dx [E, d_x], dw [E, d_w] or
+    None when ``w`` is None, dW_flat [w_numel] in float32, or float64 for
+    float64 inputs).  No dsh."""
+    tp = plan.tp
+    g = _zero_past(g, n_edges)
+    E = g.shape[0]
+    z = tp.apply(x, sh, w, scale_weights=plan.fold_rescale)
+    slices = tp.irreps_out.slices()
+    dz = torch.zeros_like(z)
+    acc = torch.promote_types(g.dtype, torch.float32)
+    dW = torch.zeros((plan.w_numel,), dtype=acc, device=g.device)
+    for gi, grp in enumerate(plan.groups):
+        W = plan.group_weight(W_flat, gi)[: grp.fan]
+        dWg = torch.zeros((grp.fan_stride, grp.cols), dtype=acc, device=g.device)
+        for k in range(grp.ir.dim):
+            gk = g[:, grp.out_off + k * grp.cols : grp.out_off + (k + 1) * grp.cols]
+            dWg[: grp.fan] += _group_z(plan, z, gi, k).to(acc).T @ gk.to(acc)
+            dzk = gk @ W.T
+            for bo in grp.blocks:
+                mul = tp.irreps_out[bo].mul
+                s = slices[bo].start + k * mul
+                fc = grp.fan_slot[bo]
+                dz[:, s : s + mul] = dzk[:, fc : fc + mul]
+        dW[grp.w_off : grp.w_off + grp.fan_stride * grp.cols] = dWg.reshape(-1)
 
-    x [E, d_x] (a row-broadcast ``expand`` is read with row stride 0),
-    sh [E, d_sh], w [E, d_w] or the shared [d_w], ``W_flat`` from
-    ``plan.pack_weights``, ``n_edges`` an int32 device scalar or None.
-    CPU tensors take ``dtp_lin_plain``; CUDA tensors launch the kernel
-    (float32 or bfloat16) or raise.
-    """
-    if x.device.type == "cpu":
-        return dtp_lin_plain(plan, x, sh, w, W_flat, n_edges)
+    # transposes of each depthwise path z[e,k,u] = s * sum_ij C[i,j,k] x[e,i,u] sh[e,j] w[e,u]
+    xb = split_blocks(x, tp.irreps_in1)
+    shb = split_blocks(sh, tp.irreps_in2)
+    dzb = split_blocks(dz, tp.irreps_out)
+    dxb = [torch.zeros((E,) + b.shape[1:], dtype=dz.dtype, device=dz.device) for b in xb]
+    dw = None if w is None else torch.zeros((E, plan.d_w), dtype=dz.dtype, device=dz.device)
+    for idx, ins in enumerate(tp.instructions):
+        C = tp._cg_tensor(idx, dz.dtype, dz.device)
+        M = torch.einsum("ej,ijk->eki", shb[ins.i_in2][:, :, 0], C)
+        scale = tp.slice_sqrt_k[ins.i_out] if plan.fold_rescale else 1.0
+        d = dzb[ins.i_out] * scale  # [E, d3, mul]
+        if w is not None:
+            off, mul = tp._offsets[idx], tp.irreps_in1[ins.i_in1].mul
+            wv = w[:, off : off + mul]
+            dw[:, off : off + mul] = torch.einsum(
+                "eku,eki,eiu->eu", d, M, xb[ins.i_in1])
+            d = d * wv[:, None, :]
+        dxb[ins.i_in1] = dxb[ins.i_in1] + torch.einsum("eku,eki->eiu", d, M)
+    dx = torch.cat([b.reshape(E, -1) for b in dxb], dim=1)
+    return dx.to(x.dtype), None if dw is None else dw.to(w.dtype), dW
+
+
+def _check_n_edges(n_edges, E: int, device) -> torch.Tensor:
+    if n_edges is None:
+        return torch.full((), E, dtype=torch.int32, device=device)
+    if n_edges.dtype != torch.int32 or n_edges.numel() != 1 or n_edges.device != device:
+        raise TypeError("n_edges must be an int32 scalar tensor on x's device")
+    return n_edges
+
+
+def _check_operands(plan: DTPLinPlan, x, sh, w, W_flat):
+    """Shapes, dtypes and devices both kernels take; returns x with a row
+    stride of 0 or d_x and contiguous sh / w / W_flat."""
     E = sh.shape[0]
     if x.dim() != 2 or x.shape != (E, plan.d_x) or sh.shape != (E, plan.d_sh):
         raise ValueError(f"bad shapes x {tuple(x.shape)} sh {tuple(sh.shape)}")
-    code = _build.dtype_code(x)
+    _build.dtype_code(x)
     if plan.shared_weights:
-        if w.numel() != plan.d_w:
-            raise ValueError(f"shared w must have {plan.d_w} entries")
-        W_flat = plan.fold_shared(w, W_flat)
-        w = None
-    elif w.shape != (E, plan.d_w):
-        raise ValueError(f"per-edge w must be [{E}, {plan.d_w}], got {tuple(w.shape)}")
+        if w is not None:
+            raise ValueError("shared weights are folded into W_flat before the kernel")
+    elif w is None or w.shape != (E, plan.d_w):
+        raise ValueError(f"per-edge w must be [{E}, {plan.d_w}]")
     if W_flat.shape != (plan.w_numel,):
         raise ValueError("W_flat does not match the plan")
     for t in (sh, w, W_flat):
@@ -307,13 +429,21 @@ def dtp_lin(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor
             raise TypeError("x, sh, w and W must share a dtype and a device")
     if x.stride(1) != 1 or (x.stride(0) not in (0, plan.d_x)):
         x = x.contiguous()
-    sh = sh.contiguous()
-    w = None if w is None else w.contiguous()
-    W_flat = W_flat.contiguous()
-    if n_edges is None:
-        n_edges = torch.full((), E, dtype=torch.int32, device=x.device)
-    elif n_edges.dtype != torch.int32 or n_edges.numel() != 1 or n_edges.device != x.device:
-        raise TypeError("n_edges must be an int32 scalar tensor on x's device")
+    return x, sh.contiguous(), None if w is None else w.contiguous(), W_flat.contiguous()
+
+
+def dtp_lin_fwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: torch.Tensor,
+                n_edges=None) -> torch.Tensor:
+    """K1: [E, plan.d_out].  x [E, d_x] (a row-broadcast ``expand`` is read
+    with row stride 0), sh [E, d_sh], w [E, d_w] or None for a shared-weight
+    plan (already folded into ``W_flat``), ``n_edges`` an int32 device scalar
+    or None.  CPU tensors take ``dtp_lin_plain``; CUDA tensors launch the
+    kernel (float32 or bfloat16) or raise."""
+    if x.device.type == "cpu":
+        return dtp_lin_plain(plan, x, sh, w, W_flat, n_edges)
+    E = sh.shape[0]
+    x, sh, w, W_flat = _check_operands(plan, x, sh, w, W_flat)
+    n_edges = _check_n_edges(n_edges, E, x.device)
     gk, terms, coeffs = plan.device_tables(x.device)
     out = torch.empty((E, plan.d_out), dtype=x.dtype, device=x.device)
     if E == 0:
@@ -322,11 +452,97 @@ def dtp_lin(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor
         _build.ptr(x), x.stride(0), _build.ptr(sh), _build.ptr(w), _build.ptr(W_flat),
         _build.ptr(out), _build.ptr(n_edges), E, plan.d_sh, plan.d_w, plan.d_out,
         _build.ptr(gk), gk.shape[0], _build.ptr(terms), _build.ptr(coeffs),
-        plan.max_fan_stride, code, _build.stream_ptr(),
+        plan.max_fan_stride, _build.dtype_code(x), _build.stream_ptr(),
     )
     _build.check(err, "dtp_lin_fwd")
-    dtp_lin.launches += 1
+    dtp_lin_fwd.launches += 1
     return out
 
 
-dtp_lin.launches = 0
+def dtp_lin_bwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: torch.Tensor,
+                g: torch.Tensor, n_edges=None):
+    """K2: (dx [E, d_x], dw [E, d_w] or None, dW_flat [w_numel] float32) for
+    the cotangent ``g`` [E, d_out] of ``dtp_lin_fwd`` on the same operands.
+    CPU tensors take ``dtp_lin_bwd_plain``; CUDA tensors launch the kernel
+    (float32 or bfloat16) or raise."""
+    if x.device.type == "cpu":
+        return dtp_lin_bwd_plain(plan, x, sh, w, W_flat, g, n_edges)
+    E = sh.shape[0]
+    x, sh, w, W_flat = _check_operands(plan, x, sh, w, W_flat)
+    if g.shape != (E, plan.d_out) or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"cotangent must be [{E}, {plan.d_out}] in x's dtype and device")
+    g = g.contiguous()
+    n_edges = _check_n_edges(n_edges, E, x.device)
+    gk, terms, coeffs, dwmap, wt_index, span_max, cols_pad_max = plan.bwd_tables(x.device)
+    dev = x.device
+    dx = torch.empty((E, plan.d_x), dtype=x.dtype, device=dev)
+    dw = None
+    if w is not None:
+        dw = (torch.zeros if plan.dw_has_dead_cols else torch.empty)(
+            (E, plan.d_w), dtype=x.dtype, device=dev)
+    dW = torch.zeros((plan.w_numel,), dtype=torch.float32, device=dev)
+    if E == 0:
+        return dx, dw, dW
+    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+    n_tiles = -(-E // BWD_TILE)
+    n_parts = min(n_tiles, BWD_BLOCKS_PER_SM * _sm_count(dev))
+    part = torch.empty((n_parts, plan.w_numel), dtype=torch.float32, device=dev)
+    err = _build.library().dtp_lin_bwd(
+        _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(w),
+        plan.d_w, _build.ptr(WT), _build.ptr(g), plan.d_out, _build.ptr(n_edges), E,
+        _build.ptr(gk), gk.shape[0], _build.ptr(terms), _build.ptr(coeffs), _build.ptr(dwmap),
+        _build.ptr(dx), _build.ptr(dw), _build.ptr(part), n_parts, _build.ptr(dW),
+        plan.w_numel, span_max, cols_pad_max, plan.max_fan_stride, _build.dtype_code(x),
+        _build.stream_ptr(),
+    )
+    _build.check(err, "dtp_lin_bwd")
+    dtp_lin_bwd.launches += 1
+    return dx, dw, dW
+
+
+dtp_lin_fwd.launches = 0
+dtp_lin_bwd.launches = 0
+BWD_TILE = 16  # edges per tile of csrc/dtp_lin_bwd.cu
+BWD_BLOCKS_PER_SM = 2  # persistent blocks (and dW partial rows) per SM
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class _DTPLin(torch.autograd.Function):
+    """K1 forward, K2 backward; gradients for x, w and W_flat (not sh)."""
+
+    @staticmethod
+    def forward(ctx, plan, x, sh, w, W_flat, n_edges):
+        ctx.plan = plan
+        ctx.save_for_backward(x, sh, w, W_flat, n_edges)
+        return dtp_lin_fwd(plan, x, sh, w, W_flat, n_edges)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, sh, w, W_flat, n_edges = ctx.saved_tensors
+        dx, dw, dW = dtp_lin_bwd(ctx.plan, x, sh, w, W_flat, g, n_edges)
+        return None, dx, None, dw, dW.to(W_flat.dtype), None
+
+
+def dtp_lin(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
+            W_flat: torch.Tensor, n_edges=None) -> torch.Tensor:
+    """Fused DTP + linear heads, differentiable in x, w and W_flat:
+    [E, plan.d_out] (split with ``plan.split_output``).
+
+    ``w`` is [E, d_w] per edge, or the shared [d_w] of a shared-weight plan,
+    which is folded into the rows of ``W_flat`` here, outside the autograd
+    op, so autograd carries the folded dW back to W and w.  The forward is
+    K1 (``dtp_lin_fwd``), the backward K2 (``dtp_lin_bwd``); both take their
+    plain versions on CPU tensors.  Raises if ``sh`` needs a gradient (the
+    backward computes no dsh)."""
+    if sh.requires_grad:
+        raise ValueError("dtp_lin computes no gradient for sh (force models need the "
+                         "higher-order path, which is not ported)")
+    if plan.shared_weights:
+        if w.numel() != plan.d_w:
+            raise ValueError(f"shared w must have {plan.d_w} entries")
+        W_flat = plan.fold_shared(w, W_flat)
+        w = None
+    return _DTPLin.apply(plan, x, sh, w, W_flat, n_edges)

@@ -5,6 +5,8 @@ Counterpart of ``equiformer_tpu/kernels/segment_csr_pallas.py``
 edges with dst[e] == u``, accumulated in fp32 and written in val's dtype.
 The CUDA kernel is ``csrc/segment_csr.cu``; ``segment_sum_plain`` is its
 plain PyTorch version, used for CPU tensors and as the on-card reference.
+The op is differentiable in ``val``: the backward is the gather ``g[dst]``
+with masked rows zeroed (``segment_csr_pallas.py:135-148``).
 """
 
 from __future__ import annotations
@@ -38,18 +40,7 @@ def row_pointers(dst: torch.Tensor, num_nodes: int) -> torch.Tensor:
     return torch.searchsorted(dst, nodes, side="left").to(torch.int32)
 
 
-def csr_segment_sum(
-    val: torch.Tensor,
-    dst: torch.Tensor,
-    num_nodes: int,
-    mask: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Segment sum of ``val`` [E, C] by non-decreasing ``dst`` [E] into
-    ``num_nodes`` rows; ``mask`` [E] bool drops edges.
-
-    CPU tensors take ``segment_sum_plain``; CUDA tensors launch the kernel
-    (float32 or bfloat16) or raise.
-    """
+def _segment_sum_fwd(val, dst, num_nodes: int, mask):
     if val.device.type == "cpu":
         return segment_sum_plain(val, dst, num_nodes, mask)
     if val.dim() != 2 or dst.shape != val.shape[:1]:
@@ -72,6 +63,37 @@ def csr_segment_sum(
     _build.check(err, "csr_segment_sum")
     csr_segment_sum.launches += 1
     return out
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, val, dst, num_nodes, mask):
+        ctx.save_for_backward(dst, mask)
+        return _segment_sum_fwd(val, dst, num_nodes, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        dst, mask = ctx.saved_tensors
+        gd = g[dst]
+        if mask is not None:
+            gd = torch.where(mask[:, None], gd, torch.zeros_like(gd))
+        return gd, None, None, None
+
+
+def csr_segment_sum(
+    val: torch.Tensor,
+    dst: torch.Tensor,
+    num_nodes: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Segment sum of ``val`` [E, C] by non-decreasing ``dst`` [E] into
+    ``num_nodes`` rows; ``mask`` [E] bool drops edges.  Differentiable in
+    ``val``.
+
+    CPU tensors take ``segment_sum_plain``; CUDA tensors launch the kernel
+    (float32 or bfloat16) or raise.
+    """
+    return _SegmentSum.apply(val, dst, num_nodes, mask)
 
 
 csr_segment_sum.launches = 0

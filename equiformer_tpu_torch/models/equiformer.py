@@ -1,6 +1,6 @@
-"""Equiformer (QM9 family), inference path.
+"""Equiformer (QM9 family), training and inference.
 
-Counterpart of ``equiformer_tpu.models.equiformer`` for eval mode:
+Counterpart of ``equiformer_tpu.models.equiformer``:
 
 * ``GraphAttention`` — MLP attention with nonlinear depthwise-TP messages;
 * ``FeedForwardNetwork`` — two FCTPs against the constant node attr with a
@@ -9,10 +9,13 @@ Counterpart of ``equiformer_tpu.models.equiformer`` for eval mode:
 * ``GraphAttentionTransformer`` — radius graph, SH + Gaussian RBF,
   embeddings, N blocks, norm, scalar head and scaled scatter per graph.
 
-Dropout, drop path, remat, batched radial, the linear-message path, the
-attention head, dot-product attention, ``irreps_pre_attn`` and the other
-norms are not ported: the forward runs in eval mode only and raises in
-training mode.
+``module.training`` plays the role of JAX's ``deterministic=False``: alpha
+dropout on the attention weights, and the equivariant dropouts and drop path
+where their rates are nonzero (the QM9 entrypoints set only alpha dropout).
+Their randomness comes in explicitly as ``rng`` (``nn/dropout.py``).
+Remat, batched radial, the linear-message path, the attention head,
+dot-product attention, ``irreps_pre_attn`` and the other norms are not
+ported.
 """
 
 from __future__ import annotations
@@ -26,10 +29,16 @@ from torch import nn
 from ..core.irreps import Irreps
 from ..core.spherical import spherical_harmonics_for_irreps
 from ..graph.batching import GraphsTuple
-from ..graph.radius_graph import EdgeList, edge_vectors, radius_graph_dense
-from ..graph.segment import active_edge_bound, scaled_scatter_sum
+from ..graph.radius_graph import (
+    EdgeList,
+    edge_vectors,
+    radius_graph_dense,
+    reverse_edge_perm_dense,
+)
+from ..graph.segment import active_edge_bound, gather_add, scaled_scatter_sum
 from ..nn.activation import Activation, normalized_activation
 from ..nn.attention_utils import heads2vec, heads_irreps, softmax_dropout_combine, vec2heads
+from ..nn.dropout import EquivariantDropout, GraphDropPath
 from ..nn.linear import IrrepsLinear, init_parameters
 from ..nn.norms import EquivariantLayerNorm
 from ..nn.radial import GaussianRadialBasis
@@ -48,8 +57,10 @@ _AVG_DEGREE = 15.57930850982666
 
 class GraphAttention(nn.Module):
     def __init__(self, irreps_node_input, irreps_edge_attr, irreps_node_output,
-                 fc_neurons: Tuple[int, ...], irreps_head, num_heads: int):
+                 fc_neurons: Tuple[int, ...], irreps_head, num_heads: int,
+                 alpha_drop: float = 0.1, proj_drop: float = 0.1):
         super().__init__()
+        self.alpha_drop = alpha_drop
         pre = Irreps(irreps_node_input)
         self.irreps_head = Irreps(irreps_head)
         self.num_heads = H = num_heads
@@ -70,16 +81,19 @@ class GraphAttention(nn.Module):
         self.alpha_act = normalized_activation("smooth_leaky_relu:0.2")
         self.alpha_dot = nn.Parameter(torch.empty(H, self.mul_alpha_head))
         self.proj = IrrepsLinear(irreps_attn_heads, Irreps(irreps_node_output))
+        self.proj_dropout = (EquivariantDropout(irreps_node_output, proj_drop)
+                             if proj_drop != 0.0 else None)
 
     def init_(self, gen: torch.Generator) -> None:
         bound = math.sqrt(6.0 / sum(self.alpha_dot.shape))  # glorot on [H, C]
         with torch.no_grad():
             self.alpha_dot.copy_(torch.rand(self.alpha_dot.shape, generator=gen) * 2 * bound - bound)
 
-    def forward(self, node_input, edges: EdgeList, edge_attr, edge_scalars, n_edges):
+    def forward(self, node_input, edges: EdgeList, edge_attr, edge_scalars, n_edges, rng=None):
         num_nodes = node_input.shape[0]
         H = self.num_heads
-        message = self.merge_src(node_input)[edges.src] + self.merge_dst(node_input)[edges.dst]
+        message = gather_add(self.merge_src(node_input), self.merge_dst(node_input),
+                             edges.src, edges.dst, num_nodes, rev=edges.rev)
         w = self.sep_act.dtp_rad(edge_scalars)
         # one fused TP evaluates both heads on the unsimplified message: the
         # gate input and the attention scalars
@@ -91,20 +105,29 @@ class GraphAttention(nn.Module):
         value = vec2heads(self.irreps_head, H, value)  # [E, H, head_dim]
         alpha = self.alpha_act(alpha)
         alpha = torch.einsum("ehk,hk->eh", alpha, self.alpha_dot.to(alpha.dtype))
-        attn = softmax_dropout_combine(alpha, value, edges.dst, edges.mask, num_nodes)
-        return self.proj(heads2vec(self.irreps_head, attn))
+        attn = softmax_dropout_combine(alpha, value, edges.dst, edges.mask, num_nodes,
+                                       self.alpha_drop, self.training, rng)
+        out = self.proj(heads2vec(self.irreps_head, attn))
+        if self.proj_dropout is not None:
+            out = self.proj_dropout(out, rng)
+        return out
 
 
 class FeedForwardNetwork(nn.Module):
     def __init__(self, irreps_node_input, irreps_node_attr, irreps_node_output,
-                 irreps_mlp_mid=None):
+                 irreps_mlp_mid=None, proj_drop: float = 0.1):
         super().__init__()
         mid = Irreps(irreps_mlp_mid) if irreps_mlp_mid else Irreps(irreps_node_input)
         self.fctp_1 = FCTPSwishGate(irreps_node_input, irreps_node_attr, mid)
         self.fctp_2 = FCTP(mid, irreps_node_attr, irreps_node_output)
+        self.proj_dropout = (EquivariantDropout(irreps_node_output, proj_drop)
+                             if proj_drop != 0.0 else None)
 
-    def forward(self, node_input, node_attr):
-        return self.fctp_2(self.fctp_1(node_input, node_attr), node_attr)
+    def forward(self, node_input, node_attr, rng=None):
+        x = self.fctp_2(self.fctp_1(node_input, node_attr), node_attr)
+        if self.proj_dropout is not None:
+            x = self.proj_dropout(x, rng)
+        return x
 
 
 class TransBlock(nn.Module):
@@ -112,31 +135,43 @@ class TransBlock(nn.Module):
 
     def __init__(self, irreps_node_input, irreps_node_attr, irreps_edge_attr,
                  irreps_node_output, fc_neurons, irreps_head, num_heads: int,
-                 irreps_mlp_mid=None):
+                 irreps_mlp_mid=None, alpha_drop: float = 0.1, proj_drop: float = 0.1,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         irreps_in = Irreps(irreps_node_input)
         irreps_out = Irreps(irreps_node_output)
         self.norm_1 = EquivariantLayerNorm(irreps_in)
         self.ga = GraphAttention(irreps_in, irreps_edge_attr, irreps_in, fc_neurons,
-                                 irreps_head, num_heads)
+                                 irreps_head, num_heads, alpha_drop, proj_drop)
         self.norm_2 = EquivariantLayerNorm(irreps_in)
-        self.ffn = FeedForwardNetwork(irreps_in, irreps_node_attr, irreps_out, irreps_mlp_mid)
+        self.ffn = FeedForwardNetwork(irreps_in, irreps_node_attr, irreps_out, irreps_mlp_mid,
+                                      proj_drop)
         self.ffn_shortcut = (FCTP(irreps_in, irreps_node_attr, irreps_out)
                              if irreps_in != irreps_out else None)
+        self.drop_path_1 = self.drop_path_2 = None
+        if drop_path_rate > 0.0:
+            self.drop_path_1 = GraphDropPath(drop_path_rate)
+            self.drop_path_2 = GraphDropPath(drop_path_rate)
 
-    def forward(self, node_input, node_attr, edges, edge_attr, edge_scalars, n_edges):
-        x = self.ga(self.norm_1(node_input), edges, edge_attr, edge_scalars, n_edges)
+    def forward(self, node_input, node_attr, edges, edge_attr, edge_scalars, n_edges,
+                batch=None, num_graphs: int = 0, rng=None):
+        x = self.ga(self.norm_1(node_input), edges, edge_attr, edge_scalars, n_edges, rng)
+        if self.drop_path_1 is not None:
+            x = self.drop_path_1(x, batch, num_graphs, rng)
         node_output = node_input + x
-        x = self.ffn(self.norm_2(node_output), node_attr)
+        x = self.ffn(self.norm_2(node_output), node_attr, rng)
         if self.ffn_shortcut is not None:
             node_output = self.ffn_shortcut(node_output, node_attr)
+        if self.drop_path_2 is not None:
+            x = self.drop_path_2(x, batch, num_graphs, rng)
         return node_output + x
 
 
 class GraphAttentionTransformer(nn.Module):
     """QM9-style scalar-property Equiformer with nonlinear messages, the
-    Gaussian basis and layer norms; the options keep the JAX package's names.
-    The node attribute is the constant ``1x0e``."""
+    Gaussian basis and layer norms; the options keep the JAX package's names
+    and defaults.  The node attribute is the constant ``1x0e``.  In training
+    mode ``forward`` needs ``rng`` when a dropout rate is nonzero."""
 
     def __init__(
         self,
@@ -150,6 +185,10 @@ class GraphAttentionTransformer(nn.Module):
         irreps_head="32x0e+16x1e+8x2e",
         num_heads: int = 4,
         irreps_mlp_mid="128x0e+64x1e+32x2e",
+        alpha_drop: float = 0.2,
+        proj_drop: float = 0.0,
+        out_drop: float = 0.0,
+        drop_path_rate: float = 0.0,
         max_atom_type: int = 5,
         avg_num_nodes: float = _AVG_NUM_NODES,
         avg_degree: float = _AVG_DEGREE,
@@ -177,24 +216,27 @@ class GraphAttentionTransformer(nn.Module):
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransBlock(
                 emb, "1x0e", self.irreps_sh, feat if i == num_layers - 1 else emb, fc,
-                irreps_head, num_heads, irreps_mlp_mid))
+                irreps_head, num_heads, irreps_mlp_mid, alpha_drop, proj_drop, drop_path_rate))
         self.num_layers = num_layers
         self.norm = EquivariantLayerNorm(feat)
+        self.out_dropout = EquivariantDropout(feat, out_drop) if out_drop != 0.0 else None
         self.head_lin1 = IrrepsLinear(feat, feat)
         self.head_act = Activation(feat, ["silu"])
         self.head_lin2 = IrrepsLinear(feat, Irreps("1x0e"))
         init_parameters(self, seed)
 
-    def forward(self, graphs: GraphsTuple) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training mode (dropout) is not ported; call model.eval()")
+    def forward(self, graphs: GraphsTuple, rng=None) -> torch.Tensor:
+        """Per-graph predictions [G].  ``rng``: a ``torch.Generator`` on the
+        batch's device (or an iterator of injected keep masks) for the
+        dropout sites in training mode."""
         pos = graphs.pos
         G = graphs.graph_mask.shape[0]
         N = pos.shape[0]
         if N != G * self.nodes_per_graph:
             raise ValueError(f"{N} nodes != {G} graphs x {self.nodes_per_graph} slots")
         edges = radius_graph_dense(pos, graphs.node_mask, G, self.max_radius, self.max_edges)
+        # reverse twins: the message gather's src cotangent rides a sorted sum
+        edges = edges._replace(rev=reverse_edge_perm_dense(edges, G, self.nodes_per_graph))
         edge_vec, edge_len = edge_vectors(pos, edges)
         edge_sh = spherical_harmonics_for_irreps(self.irreps_sh, edge_vec)
         # geometry runs in the position dtype; features in compute_dtype
@@ -207,8 +249,12 @@ class GraphAttentionTransformer(nn.Module):
         node_attr = torch.ones((N, 1), dtype=feat_dtype, device=pos.device)
         n_edges = active_edge_bound(edges.mask)
         for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x, node_attr, edges, edge_sh, edge_scalars, n_edges)
-        x = self.head_lin2(self.head_act(self.head_lin1(self.norm(x))))
+            x = getattr(self, f"block_{i}")(x, node_attr, edges, edge_sh, edge_scalars, n_edges,
+                                            graphs.batch, G, rng)
+        x = self.norm(x)
+        if self.out_dropout is not None:
+            x = self.out_dropout(x, rng)
+        x = self.head_lin2(self.head_act(self.head_lin1(x)))
         x = x.to(pos.dtype)  # accumulate the readout in the position dtype
         out = scaled_scatter_sum(x, graphs.batch, G, self.avg_num_nodes, mask=graphs.node_mask)
         return out[:, 0]

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+import torch
+
 _MODEL_REGISTRY: Dict[str, Callable] = {}
 
 
@@ -19,3 +21,13 @@ def model_entrypoint(name: str) -> Callable:
         raise KeyError(f"unknown model {name!r}; available: {sorted(_MODEL_REGISTRY)}")
     return _MODEL_REGISTRY[name]
 
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the first CUDA device when it is None.  Raises when no
+    GPU is present: an entry point never falls back to the CPU on its own
+    (pass ``device="cpu"`` for that)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build on the CPU")
+    return torch.device("cuda")

@@ -12,6 +12,7 @@ import torch
 
 from ..core.irreps import Irreps
 from ..kernels.attn_csr import attn_combine, attn_combine_plain
+from .dropout import dropout_multiplier
 
 FUSED_MIN_COLS = 128  # H*D below this takes the composed ops, as in JAX
 
@@ -48,15 +49,20 @@ def heads_irreps(irreps_head: Irreps, num_heads: int) -> Irreps:
 
 
 def softmax_dropout_combine(alpha: torch.Tensor, value: torch.Tensor, dst: torch.Tensor,
-                            mask: torch.Tensor, num_nodes: int) -> torch.Tensor:
-    """``segment_sum(segment_softmax(alpha, dst) * value, dst)`` in eval mode
-    (the alpha dropout comes with the training slice).
+                            mask: torch.Tensor, num_nodes: int, alpha_drop: float = 0.0,
+                            training: bool = False, rng=None) -> torch.Tensor:
+    """``segment_sum(segment_softmax(alpha, dst) * dropmul * value, dst)``.
 
-    alpha [E, H] logits, value [E, H, D], dst-sorted edges.  H*D >= 128 takes
-    the fused combine (``kernels/attn_csr.py``), narrower ones the composed
-    ops — the JAX package's rule.
+    alpha [E, H] logits, value [E, H, D], dst-sorted edges.  In training
+    with ``alpha_drop`` > 0, ``dropmul`` = keep mask [E, H] / keep, drawn
+    from ``rng`` or injected through it (``nn/dropout.py``); else 1.
+    H*D >= 128 takes the fused combine (``kernels/attn_csr.py``), narrower
+    ones the composed ops — the JAX package's rule.
     """
     H, D = value.shape[1], value.shape[2]
+    dropmul = None
+    if training and alpha_drop != 0.0:
+        dropmul = dropout_multiplier(rng, alpha.shape, alpha_drop, alpha.dtype, alpha.device)
     if H * D >= FUSED_MIN_COLS:
-        return attn_combine(alpha, value, dst, num_nodes, mask=mask)
-    return attn_combine_plain(alpha, value, dst, num_nodes, mask=mask)
+        return attn_combine(alpha, value, dst, num_nodes, mask=mask, dropmul=dropmul)
+    return attn_combine_plain(alpha, value, dst, num_nodes, mask=mask, dropmul=dropmul)

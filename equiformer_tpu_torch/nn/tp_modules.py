@@ -8,8 +8,9 @@ Counterparts of ``equiformer_tpu.nn.tp_modules``:
   shared-weight DTP;
 * ``SeparableFCTP`` — depthwise TP (per-edge radial weights, or internal
   shared ones) -> per-irrep linear heads -> optional gate.  The TP and the
-  heads always run as one fused op (``kernels/dtp_lin.py``): the CUDA kernel
-  on the card, its einsum plain version on the CPU;
+  heads always run as one fused, differentiable op (``kernels/dtp_lin.py``):
+  the CUDA kernels on the card (K1 forward, K2 backward), their plain
+  versions on the CPU;
 * ``NodeEmbedding`` / ``EdgeDegreeEmbedding``.
 
 Submodule and parameter names follow the flax scopes, so weight conversion

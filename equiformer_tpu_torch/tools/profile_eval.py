@@ -1,24 +1,28 @@
-"""Where the time of the flagship's eval forward goes, on one GPU.
+"""Where the time of the flagship's eval forward or training step goes, on one GPU.
 
-    python -m equiformer_tpu_torch.tools.profile_eval [--out FILE]
+    python -m equiformer_tpu_torch.tools.profile_eval [--train] [--out FILE]
 
 Builds ``graph_attention_transformer_nonlinear_l2`` at full width with a
 seeded init, on 4 batches of 128 QM9-like graphs (30 node slots each,
 ``max_edges`` the largest batch's real edge count rounded up to 128, as in
-``chip_smoke.py``), and reports for float32 and bfloat16, per forward:
+``chip_smoke.py``).  The unit is one ``evaluate`` forward, or with
+``--train`` one step of ``make_qm9_steps`` (AdamW with the no-decay mask,
+``cosine_warmup_schedule(5e-4, 100, 100000)``, weight decay 5e-3, alpha
+dropout 0.2 from a CUDA generator, EMA 0.999).  For float32 and bfloat16,
+per unit:
 
-* ``wall_ms``: one pass of ``evaluate`` over the batches, ending in a
-  synchronize, divided by the batch count (median of 5 passes, no profiler);
-* ``enqueue_ms``: host time until ``evaluate`` returns, without a
-  synchronize (median over 3 x the batches, no profiler);
+* ``wall_ms``: one pass over the batches, ending in a synchronize, divided
+  by the batch count (median of 5 passes, no profiler);
+* ``enqueue_ms``: host time until the call returns, without a synchronize
+  (median over 3 x the batches, no profiler);
 * from a ``torch.profiler`` trace of one pass: ``device_busy_ms`` (union of
   the kernel, memcpy and memset intervals), ``launches`` (kernels), and the
-  12 kernels with the most device time: [name, ms, calls] per forward;
+  12 kernels with the most device time: [name, ms, calls] per unit;
 * ``idle_share``: 1 - device_busy_ms / wall_ms, the share of the unprofiled
   wall time in which the device has nothing to run.
 
 Prints the card's name and power limit, then the report as JSON (also
-written to ``--out``).  The trace itself lands in ``build/profile/``.
+written to ``--out``).  The traces land in ``build/profile/``.
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ from pathlib import Path
 
 import torch
 
-from .. import evaluate, model_entrypoint
+from .. import cosine_warmup_schedule, create_optimizer, evaluate, make_qm9_steps, model_entrypoint
 from ..data import GraphLoader, qm9_like_dataset
+from ..train import TrainState
 from ..graph.radius_graph import radius_graph_dense
 
 BATCH = 128
@@ -56,7 +61,7 @@ def _union_us(intervals) -> float:
 
 def trace_summary(path: Path, n_forwards: int) -> dict:
     """Device busy time, launches and per-kernel time of a chrome trace
-    that holds ``n_forwards`` forwards."""
+    that holds ``n_forwards`` units (forwards or steps)."""
     events = json.loads(path.read_text())["traceEvents"]
     dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
     if not dev:
@@ -76,32 +81,33 @@ def trace_summary(path: Path, n_forwards: int) -> dict:
     }
 
 
-def profile(model, batches, tag: str) -> dict:
+def profile(run, batches, tag: str) -> dict:
+    """``run(batch)`` is one unit: an eval forward or a training step."""
     n = len(batches)
     for b in batches:  # warm-up
-        evaluate(model, b)
+        run(b)
     torch.cuda.synchronize()
     walls = []
     for _ in range(5):
         t = time.perf_counter()
         for b in batches:
-            evaluate(model, b)
+            run(b)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) / n * 1e3)
     enqueue = []
     for _ in range(3):
         for b in batches:
             t = time.perf_counter()
-            evaluate(model, b)
+            run(b)
             enqueue.append((time.perf_counter() - t) * 1e3)
             torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for b in batches:
-            evaluate(model, b)
+            run(b)
         torch.cuda.synchronize()
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    path = TRACE_DIR / f"eval_{tag}.json"
+    path = TRACE_DIR / f"{tag}.json"
     prof.export_chrome_trace(str(path))
     wall = statistics.median(walls)
     trace = trace_summary(path, n)
@@ -110,8 +116,22 @@ def profile(model, batches, tag: str) -> dict:
             "idle_share": 1.0 - trace["device_busy_ms"] / wall, **trace}
 
 
+def eval_unit(model):
+    model.eval()
+    return lambda b: evaluate(model, b)
+
+
+def train_unit(model):
+    opt = create_optimizer(cosine_warmup_schedule(5e-4, 100, 100000), weight_decay=5e-3)
+    step, _ = make_qm9_steps(model, opt, 0.0, 1.0, "l1", ema_decay=0.999)
+    state = TrainState.create(model, opt)
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(SEED)
+    return lambda b: step(state, b, gen)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -131,14 +151,16 @@ def main() -> int:
     max_edges = -(-max(counts) // 128) * 128
     gpu = [b.to(dev) for b in batches]
     make = model_entrypoint("graph_attention_transformer_nonlinear_l2")
+    unit = "train" if args.train else "eval"
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "batch": BATCH, "batches": N_BATCHES, "real_edges": counts,
+              "unit": unit, "batch": BATCH, "batches": N_BATCHES, "real_edges": counts,
               "max_edges": max_edges}
     for name in ("float32", "bfloat16"):
-        model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED,
-                     compute_dtype=None if name == "float32" else name).to(dev).eval()
-        report[name] = profile(model, gpu, name)
-        del model
+        model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED, device=dev,
+                     compute_dtype=None if name == "float32" else name)
+        run = train_unit(model) if args.train else eval_unit(model)
+        report[name] = profile(run, gpu, f"{unit}_{name}")
+        del model, run
     text = json.dumps(report, indent=1)
     print(text)
     if args.out is not None:

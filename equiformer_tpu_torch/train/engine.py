@@ -1,17 +1,27 @@
-"""Evaluation step for scalar-property (QM9-style) models.
+"""Training and evaluation steps for scalar-property (QM9-style) models.
 
-``evaluate`` is the counterpart of ``eval_step`` from
-``equiformer_tpu.train.engine.make_qm9_steps``: the eval-mode forward plus
-the MAE sums over the real graphs of the batch.
+Counterpart of ``equiformer_tpu.train.engine.make_qm9_steps``: L1 (or L2)
+loss on the normalized targets, masked over the padded graph slots, AdamW,
+EMA, and the MAE.  ``evaluate`` is the eval step: the eval-mode forward plus
+the MAE sums over the real graphs of the batch.  Data parallelism is not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Optional
 
 import torch
 
 from ..graph.batching import GraphsTuple
+from .optim import ema_update
+from .state import TrainState
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    mask = mask.to(x.dtype)
+    return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def evaluate(model: torch.nn.Module, batch: GraphsTuple, task_mean: float = 0.0,
@@ -23,3 +33,41 @@ def evaluate(model: torch.nn.Module, batch: GraphsTuple, task_mean: float = 0.0,
     err = pred * task_std + task_mean - batch.y.to(pred.dtype)
     gm = batch.graph_mask.to(pred.dtype)
     return {"pred": pred, "mae_sum": torch.sum(torch.abs(err) * gm), "count": torch.sum(gm)}
+
+
+def make_qm9_steps(model: torch.nn.Module, optimizer, task_mean: float = 0.0,
+                   task_std: float = 1.0, loss_type: str = "l1",
+                   ema_decay: Optional[float] = 0.999):
+    """Returns ``(train_step, eval_step)``.
+
+    ``train_step(state, batch, generator)`` runs the training-mode forward
+    (dropout drawn from ``generator``, a ``torch.Generator`` on the model's
+    device, or an iterator of injected keep masks), the backward, one
+    optimizer update and the EMA update, all in place on ``state``; returns
+    the state and ``{"loss", "mae", "grad_norm"}`` as device scalars (no
+    host sync).  ``eval_step(model, batch)`` is ``evaluate`` with the task
+    normalization bound."""
+    if loss_type not in ("l1", "l2"):
+        raise ValueError(loss_type)
+
+    def train_step(state: TrainState, batch: GraphsTuple, generator):
+        device = next(state.model.parameters()).device
+        if isinstance(generator, torch.Generator) and generator.device.type != device.type:
+            raise ValueError(f"the generator is on {generator.device}, the model on {device}")
+        state.model.train()
+        params = state.params
+        pred = state.model(batch, rng=generator)
+        err = pred - (batch.y.to(pred.dtype) - task_mean) / task_std
+        per = torch.abs(err) if loss_type == "l1" else err * err
+        loss = masked_mean(per, batch.graph_mask)
+        mae = masked_mean(torch.abs(err).detach() * task_std, batch.graph_mask)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        optimizer.update(params, grads, state.opt_state)
+        if state.ema is not None and ema_decay is not None:
+            ema_update(state.ema, params, ema_decay)
+        state.step += 1
+        return state, {"loss": loss.detach(), "mae": mae, "grad_norm": grad_norm}
+
+    eval_step = functools.partial(evaluate, task_mean=task_mean, task_std=task_std)
+    return train_step, eval_step

@@ -1,7 +1,10 @@
 """Load a JAX-package parameter tree into the port's modules.
 
 ``params_from_jax(model, tree)`` maps the nested dicts of arrays that
-``equiformer_tpu``'s ``model.init`` returns onto ``model``'s parameters.
+``equiformer_tpu``'s ``model.init`` returns onto ``model``'s parameters;
+``ema_from_jax(state, tree)`` does the same for a ``TrainState``'s EMA copy;
+``flax_paths(model)`` gives each port parameter's flax path (the weight
+decay mask reads it).
 Module and parameter names follow the flax scopes, so the mapping is
 mechanical:
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 _SCOPE_RENAMES = {"GaussianRadialBasis_0": "rbf"}
+_SCOPE_NAMES = {v: k for k, v in _SCOPE_RENAMES.items()}
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -44,21 +48,39 @@ def torch_name(path: tuple) -> str:
     return ".".join(parts)
 
 
-def params_from_jax(model: torch.nn.Module, tree: Mapping) -> int:
-    """Copy ``tree`` (optionally wrapped in ``{'params': ...}``) into ``model``
-    in place, in the dtype of each port parameter.  Returns the number of
-    leaves used; raises ``ValueError`` on any unused leaf, unset parameter
-    or shape mismatch."""
+def flax_paths(model: torch.nn.Module) -> Dict[str, tuple]:
+    """Flax path (without the 'params' root) of every port parameter: the
+    inverse of ``torch_name``."""
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        owner = model.get_submodule(".".join(parts[:-1]))
+        leaf = parts[-1]
+        if leaf == "weight" and isinstance(owner, torch.nn.Linear):
+            leaf = "kernel"
+        elif leaf == "weight" and isinstance(owner, torch.nn.LayerNorm):
+            leaf = "scale"
+        path = tuple(_SCOPE_NAMES.get(p, p) for p in parts[:-1]) + (leaf,)
+        if torch_name(path) != name:
+            raise ValueError(f"{name}: no flax path maps back to it")
+        out[name] = path
+    return out
+
+
+def load_jax_tree(targets: Dict[str, torch.Tensor], tree: Mapping) -> int:
+    """Copy ``tree`` (optionally wrapped in ``{'params': ...}``) into the
+    named tensors ``targets`` in place, in the dtype of each target.  Returns
+    the number of leaves used; raises ``ValueError`` on any unused leaf,
+    unset target or shape mismatch."""
     if set(tree.keys()) == {"params"}:
         tree = tree["params"]
     leaves = _flatten(tree)
-    params = dict(model.named_parameters())
-    unset = set(params)
+    unset = set(targets)
     unused = []
     with torch.no_grad():
         for path, arr in leaves.items():
             name = torch_name(path)
-            p = params.get(name)
+            p = targets.get(name)
             if p is None or name not in unset:
                 unused.append("/".join(path))
                 continue
@@ -71,3 +93,14 @@ def params_from_jax(model: torch.nn.Module, tree: Mapping) -> int:
     if unused or unset:
         raise ValueError(f"unused JAX leaves {sorted(unused)}; unset port parameters {sorted(unset)}")
     return len(leaves)
+
+
+def params_from_jax(model: torch.nn.Module, tree: Mapping) -> int:
+    """Load a JAX parameter tree into ``model``'s parameters."""
+    return load_jax_tree(dict(model.named_parameters()), tree)
+
+
+def ema_from_jax(state, tree: Mapping) -> int:
+    """Load a JAX parameter tree (e.g. ``TrainState.ema_params``) into a
+    port ``TrainState``'s EMA copy."""
+    return load_jax_tree(state.ema, tree)

@@ -133,3 +133,52 @@ def test_active_edge_bound_matches():
         j = int(js.active_edge_bound(jnp.asarray(mask)))
         t = ts.active_edge_bound(torch.from_numpy(mask))
         assert t.dtype == torch.int32 and int(t) == j
+
+
+def test_reverse_edge_perm_matches_on_real_edges():
+    """Equal to JAX's on real edges, and each real edge's twin is its
+    reverse.  (Padded edges map to some padded slot in both packages: which
+    one is left to the scatter's order.)"""
+    data = j_qm9(4, seed=1)
+    b = jb.collate_dense(data, 30)
+    e_j = jr.radius_graph_dense(jnp.asarray(b.pos), jnp.asarray(b.node_mask), 4, 5.0, 2048)
+    rev_j = np.asarray(jr.reverse_edge_perm_dense(e_j, 4, 30))
+    tbat = tb.collate_dense(data, 30)
+    e_t = tr.radius_graph_dense(tbat.pos, tbat.node_mask, 4, 5.0, 2048)
+    rev_t = tr.reverse_edge_perm_dense(e_t, 4, 30)
+    real = e_t.mask.numpy()
+    assert np.array_equal(rev_t.numpy()[real], rev_j[real])
+    assert bool((e_t.src[rev_t] == e_t.dst)[e_t.mask].all())
+    assert bool((e_t.dst[rev_t] == e_t.src)[e_t.mask].all())
+    assert bool((~e_t.mask[rev_t[~e_t.mask]]).all())
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("cols", [130, 60], ids=["csr", "narrow"])
+def test_gather_add_grads_match(cols, dt):
+    """``xs[src] + xd[dst]`` and its rev-twin backward (segment sums over dst)
+    against jax.grad of the JAX package's ``gather_add(..., rev=...)``;
+    padded edges carry a zero cotangent, as the model's masks make them."""
+    import jax
+
+    npdt, tdt, tol = DTYPES[dt]
+    data = j_qm9(3, seed=6)
+    tbat = tb.collate_dense(data, 30)
+    e_t = tr.radius_graph_dense(tbat.pos, tbat.node_mask, 3, 5.0, 1024)
+    e_t = e_t._replace(rev=tr.reverse_edge_perm_dense(e_t, 3, 30))
+    N = 90
+    rng = np.random.default_rng(7)
+    xs, xd = (rng.normal(size=(N, cols)).astype(npdt) for _ in range(2))
+    g = rng.normal(size=(1024, cols)).astype(npdt) * e_t.mask.numpy()[:, None]
+    src, dst, rev = (jnp.asarray(t.numpy()) for t in (e_t.src, e_t.dst, e_t.rev))
+
+    def f(a, b):
+        return jnp.sum(js.gather_add(a, b, src, dst, N, rev=rev, higher_order=False)
+                       * jnp.asarray(g))
+
+    jgs, jgd = jax.grad(f, argnums=(0, 1))(jnp.asarray(xs), jnp.asarray(xd))
+    ts_, td_ = (torch.from_numpy(a).requires_grad_() for a in (xs, xd))
+    out = ts.gather_add(ts_, td_, e_t.src, e_t.dst, N, rev=e_t.rev)
+    assert _rel(out.detach().numpy(), xs[e_t.src.numpy()] + xd[e_t.dst.numpy()]) == 0.0
+    out.backward(torch.from_numpy(g))
+    assert _rel(ts_.grad.numpy(), jgs) < tol and _rel(td_.grad.numpy(), jgd) < tol

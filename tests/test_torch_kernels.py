@@ -2,7 +2,8 @@
 
 On the CPU every wrapper runs its plain PyTorch version; these tests hold
 those against the TPU kernels run in Pallas interpret mode (fp32) and
-against the JAX einsum composition (fp64).  The TPU DTP kernel zeroes whole
+against the JAX einsum composition (fp64), and their gradients against
+``jax.vjp`` of the same.  The TPU DTP kernel zeroes whole
 edge tiles past ``n_edges``, the port zeroes rows, so only real edges are
 compared.  Tolerances: fp32 within 1e-5 relative (float32 sums in another
 order), fp64 within 1e-12 relative.  The CUDA kernels themselves are held
@@ -27,8 +28,12 @@ from equiformer_tpu_torch.core import Irreps, depthwise_tp  # noqa: E402
 from equiformer_tpu_torch.kernels import (  # noqa: E402
     DTPLinPlan,
     attn_combine,
+    attn_combine_fwd,
     csr_segment_sum,
     dtp_lin,
+    dtp_lin_bwd_plain,
+    dtp_lin_fwd,
+    dtp_lin_plain,
     reset_launch_counts,
 )
 from equiformer_tpu_torch.kernels.dtp_lin import plan_terms  # noqa: E402
@@ -52,7 +57,7 @@ def _rel(a, b, rows=None):
     return np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30)
 
 
-def _dtp_case(case, npdt, seed=0):
+def _dtp_case(case, npdt, seed=0, E=E):
     heads, shared = CASES[case]
     rng = np.random.default_rng(seed)
     ttp = depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR))
@@ -187,4 +192,207 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     csr_segment_sum(torch.from_numpy(val), torch.from_numpy(dst).long(), N)
     attn_combine(torch.from_numpy(val[:, :4]), torch.from_numpy(val.reshape(-1, 4, 40)),
                  torch.from_numpy(dst).long(), N)
-    assert (dtp_lin.launches, csr_segment_sum.launches, attn_combine.launches) == (0, 0, 0)
+    assert (dtp_lin_fwd.launches, csr_segment_sum.launches, attn_combine.launches) == (0, 0, 0)
+
+
+# ---------------------------------------------------------------- gradients
+# The port's backward on the CPU (dtp_lin_bwd_plain inside the autograd op,
+# the K3 gather, the K4 torch-op backward) against jax.vjp of the Pallas
+# kernels in interpret mode.  The TPU DTP kernel's backward also runs on
+# padded rows inside its last edge tile, so the cotangent is zero past
+# N_REAL (as the model's masks make it) and dx / dw compare on real rows.
+# fp32 within 1e-5 relative: float32 sums in another order.  Two TPU edge
+# tiles (fp32 runs tile 64) keep the interpret-mode backward short.
+E_GRAD, N_REAL_GRAD = 128, 100
+
+
+def _port_grads(case, x, sh, w, head_ws, g, n_edges):
+    heads, shared = CASES[case]
+    tp = depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR))
+    plan = DTPLinPlan(tp, heads, shared_weights=shared)
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    tws = [[None if a is None else torch.from_numpy(a).requires_grad_() for a in ws]
+           for ws in head_ws]
+    out = dtp_lin(plan, tx, torch.from_numpy(sh), tw, plan.pack_weights(tws),
+                  torch.tensor(n_edges, dtype=torch.int32))
+    out.backward(torch.from_numpy(g))
+    return tx.grad.numpy(), tw.grad.numpy(), [[None if a is None else a.grad.numpy()
+                                               for a in ws] for ws in tws]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_dtp_lin_grads_match_pallas_interpret(case):
+    import jax
+
+    heads, shared, x, sh, w, head_ws = _dtp_case(case, np.float32, seed=2, E=E_GRAD)
+    jplan = JPlan(j_dtp(JIrreps(IRR), JIrreps(SH), JIrreps(IRR)), [JIrreps(h) for h in heads],
+                  fold_rescale=not shared, shared_weights=shared)
+    fused = make_fused_dtp_lin(jplan, tile=128, interpret=True)
+    idx = [[i for i, a in enumerate(ws) if a is not None] for ws in head_ws]
+
+    def f(x, w, hw):
+        full = [[None] * len(ws) for ws in head_ws]
+        for h, ii in enumerate(idx):
+            for i, a in zip(ii, hw[h]):
+                full[h][i] = a
+        return fused(x, jnp.asarray(sh), w, jplan.pack_weights(full), n_edges=N_REAL_GRAD)
+
+    hw = [[jnp.asarray(head_ws[h][i]) for i in ii] for h, ii in enumerate(idx)]
+    out, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(w), hw)
+    g = np.random.default_rng(3).normal(size=out.shape).astype(np.float32)
+    g[N_REAL_GRAD:] = 0.0
+    jdx, jdw, jdhw = vjp(jnp.asarray(g))
+    tdx, tdw, tdhw = _port_grads(case, x, sh, w, head_ws, g, N_REAL_GRAD)
+    assert _rel(tdx, jdx, rows=N_REAL_GRAD) < 1e-5
+    assert _rel(tdw, jdw, rows=None if shared else N_REAL_GRAD) < 1e-5
+    for h, ii in enumerate(idx):
+        for i, jd in zip(ii, jdhw[h]):
+            assert _rel(tdhw[h][i], jd) < 1e-5
+    assert np.all(tdx[N_REAL_GRAD:] == 0.0)
+
+
+BWD_CASES = {**{c: CASES[c] + (False,) for c in CASES},
+             "broadcast-x": ([LIN_OUT], False, True), "dead-w-cols": (["5x0e+3x1e"], False, False)}
+
+
+def _bwd_inputs(case, dtype, E=70, seed=4):
+    heads, shared, broadcast = BWD_CASES[case]
+    tp = depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR))
+    plan = DTPLinPlan(tp, heads, shared_weights=shared)
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=dtype)  # noqa: E731
+    x = rnd(1, plan.d_x).expand(E, plan.d_x) if broadcast else rnd(E, plan.d_x)
+    w = None if shared else rnd(E, plan.d_w)
+    return plan, x, rnd(E, plan.d_sh), w, rnd(plan.w_numel), rnd(E, plan.d_out)
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_dtp_lin_bwd_plain_matches_autograd_fp64(case):
+    """The written-out backward equals torch autograd of dtp_lin_plain (the
+    folded-weight form for the shared case) to 1e-12 relative."""
+    plan, x, sh, w, W, g = _bwd_inputs(case, torch.float64)
+    n = torch.tensor(61, dtype=torch.int32)
+    ins = [t.clone().requires_grad_() for t in (x, W) + (() if w is None else (w,))]
+    out = dtp_lin_plain(plan, ins[0], sh, None if w is None else ins[2], ins[1], n)
+    ref = torch.autograd.grad(out, ins, g)
+    dx, dw, dW = dtp_lin_bwd_plain(plan, x, sh, w, W, g, n)
+    assert dW.dtype == torch.float64
+    for got, want in zip((dx, dW, dw), ref):
+        assert _rel(got.numpy(), want.numpy()) < 1e-12
+    assert float(dx[61:].abs().max()) == 0.0
+
+
+def _emulate_bwd_kernel(plan, x, sh, w, W_flat, g, n_edges, tile=16):
+    """csrc/dtp_lin_bwd.cu's loop over ``plan.bwd_tables``, in torch, one
+    edge tile at a time with the rows vectorized: the staged cotangent, the
+    z recompute, the dW partial, dz through the packed W^T, the term
+    transposes and the per-group dw flush through ``dwmap``."""
+    gk, terms, coeffs, dwmap, wt_index, span_max, _ = plan.bwd_tables(torch.device("cpu"))
+    gk, terms, coeffs, dwmap = gk.tolist(), terms.tolist(), coeffs.tolist(), dwmap.tolist()
+    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+    E = x.shape[0]
+    dx = torch.zeros(E, plan.d_x, dtype=x.dtype)
+    dw = None if w is None else torch.zeros(E, plan.d_w, dtype=x.dtype)
+    dW = torch.zeros(plan.w_numel, dtype=x.dtype)
+    for e0 in range(0, min(E, n_edges), tile):
+        n_rows, n_live = min(tile, E - e0), min(tile, n_edges - e0)
+        rows = slice(e0, e0 + n_live)
+        dxs = torch.zeros(n_live, plan.d_x, dtype=x.dtype)
+        dws = torch.zeros(n_live, max(span_max, 1), dtype=x.dtype)
+        for fs, cols, out_col, w_off, tb, te, wt_off, cp, sb, sn, first, last in gk:
+            if first:
+                dws.zero_()
+            gt = torch.zeros(n_live, cp, dtype=x.dtype)
+            gt[:, :cols] = g[rows, out_col : out_col + cols]
+            z = torch.zeros(n_live, fs, dtype=x.dtype)
+            for (a, col, b, fc, mul, _), c in zip(terms[tb:te], coeffs[tb:te]):
+                v = c * sh[rows, col : col + 1] * x[rows, a : a + mul]
+                z[:, fc : fc + mul] += v if w is None else v * w[rows, b : b + mul]
+            dW[w_off : w_off + fs * cols] += (z.T @ gt[:, :cols]).reshape(-1)
+            dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
+            for (a, col, b, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
+                d = c * sh[rows, col : col + 1] * dz[:, fc : fc + mul]
+                if w is None:
+                    dxs[:, a : a + mul] += d
+                else:
+                    dxs[:, a : a + mul] += d * w[rows, b : b + mul]
+                    dws[:, bl : bl + mul] += d * x[rows, a : a + mul]
+            if w is not None and last:
+                dw[rows, dwmap[sb : sb + sn]] = dws[:, :sn]
+        dx[rows] = dxs
+        assert n_rows >= n_live
+    return dx, dw, dW
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_dtp_lin_bwd_tables_drive_the_plain_math(case):
+    """The CUDA backward cannot run here; its tables can.  Walking them the
+    way the kernel does gives dtp_lin_bwd_plain's gradients (fp64 inputs,
+    the tables' fp32 CG coefficients: 1e-6 relative)."""
+    plan, x, sh, w, W, g = _bwd_inputs(case, torch.float64, seed=5)
+    want = dtp_lin_bwd_plain(plan, x, sh, w, W, g, torch.tensor(53, dtype=torch.int32))
+    got = _emulate_bwd_kernel(plan, x, sh, w, W, g, 53)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert _rel(a.numpy(), b.numpy()) < 1e-6
+
+
+def test_dtp_lin_refuses_a_gradient_for_sh():
+    plan, x, sh, w, W, _ = _bwd_inputs("per-edge", torch.float32)
+    with pytest.raises(ValueError):
+        dtp_lin(plan, x, sh.requires_grad_(), w, W)
+
+
+def test_csr_segment_sum_grad_matches_pallas_interpret():
+    import jax
+
+    val, dst, mask, N = _csr_inputs(np.float32, 130)
+    gout = np.random.default_rng(6).normal(size=(N, 130)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: j_csr(v, jnp.asarray(dst), N, mask=jnp.asarray(mask),
+                                     interpret=True), jnp.asarray(val))
+    tv = torch.from_numpy(val).requires_grad_()
+    csr_segment_sum(tv, torch.from_numpy(dst).long(), N, torch.from_numpy(mask)).backward(
+        torch.from_numpy(gout))
+    assert _rel(tv.grad.numpy(), vjp(jnp.asarray(gout))[0]) < 1e-6
+    assert np.all(tv.grad.numpy()[~mask] == 0.0)
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+def test_attn_combine_grads_match_pallas_interpret(dropout):
+    import jax
+
+    H, D = 4, 40
+    val, dst, mask, N = _csr_inputs(np.float32, H * D, seed=7)
+    rng = np.random.default_rng(8)
+    scores = (2.0 * rng.normal(size=(len(dst), H))).astype(np.float32)
+    dm = ((rng.random((len(dst), H)) < 0.8) / 0.8).astype(np.float32) if dropout else None
+    value = val.reshape(-1, H, D)
+    gout = rng.normal(size=(N, H, D)).astype(np.float32)
+    _, vjp = jax.vjp(lambda s, v: csr_attention_combine(
+        s, v, jnp.asarray(dst), N, mask=jnp.asarray(mask),
+        dropmul=None if dm is None else jnp.asarray(dm), interpret=True),
+        jnp.asarray(scores), jnp.asarray(value))
+    jds, jdv = vjp(jnp.asarray(gout))
+    ts = torch.from_numpy(scores).requires_grad_()
+    tv = torch.from_numpy(value).requires_grad_()
+    attn_combine(ts, tv, torch.from_numpy(dst).long(), N, torch.from_numpy(mask),
+                 None if dm is None else torch.from_numpy(dm)).backward(torch.from_numpy(gout))
+    assert _rel(ts.grad.numpy(), jds) < 1e-5
+    assert _rel(tv.grad.numpy(), jdv) < 1e-5
+    assert np.all(ts.grad.numpy()[~mask] == 0.0)
+
+
+def test_attn_den_plain_is_the_softmax_denominator():
+    H, D = 4, 40
+    val, dst, mask, N = _csr_inputs(np.float32, H * D, seed=9)
+    scores = torch.from_numpy(val[:, :H].copy())
+    masked = torch.where(torch.from_numpy(mask)[:, None], scores, torch.full_like(scores, -1e30))
+    out, den = attn_combine_fwd(masked, torch.from_numpy(val.reshape(-1, H, D)),
+                                torch.from_numpy(dst).long(), N, torch.from_numpy(mask))
+    m = scores[torch.from_numpy(mask)].amax(0)
+    ex = torch.where(torch.from_numpy(mask)[:, None], torch.exp(scores - m), torch.zeros(()))
+    want = torch.zeros(N, H).index_add_(0, torch.from_numpy(dst).long(), ex).clamp_min(1e-16)
+    assert den.dtype == torch.float32 and out.shape == (N, H, D)
+    assert _rel(den.numpy(), want.numpy()) < 1e-6

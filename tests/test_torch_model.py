@@ -27,7 +27,8 @@ from equiformer_tpu_torch.graph.batching import collate_dense as t_collate  # no
 from equiformer_tpu_torch.kernels import (  # noqa: E402
     attn_combine,
     csr_segment_sum,
-    dtp_lin,
+    dtp_lin_bwd,
+    dtp_lin_fwd,
     reset_launch_counts,
 )
 from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer as TModel  # noqa: E402
@@ -128,21 +129,29 @@ def test_reduced_flagship_bfloat16_matches_jax(reduced):
 
 
 def test_cpu_forward_launches_no_kernel_and_eval_only(reduced):
+    """CPU tensors never launch a kernel, in eval or in training mode; the
+    training mode's alpha dropout needs an explicit generator."""
     _, tm, _, data = reduced
     reset_launch_counts()
     out = tm.float()(t_collate(data, 30))
     assert bool(out.isfinite().all())
-    assert (dtp_lin.launches, csr_segment_sum.launches, attn_combine.launches) == (0, 0, 0)
     tm.train()
     try:
-        with pytest.raises(NotImplementedError):
-            tm(t_collate(data, 30))
+        with pytest.raises(ValueError):
+            tm(t_collate(data, 30))  # alpha_drop 0.2 and no generator
+        loss = tm(t_collate(data, 30), rng=torch.Generator().manual_seed(0)).sum()
+        loss.backward()
     finally:
         tm.eval()
+        tm.zero_grad(set_to_none=True)
+    assert bool(loss.isfinite())
+    assert (dtp_lin_fwd.launches, dtp_lin_bwd.launches, csr_segment_sum.launches,
+            attn_combine.launches) == (0, 0, 0, 0)
 
 
 def test_flagship_parameter_count_and_leaves():
-    tm = pt.model_entrypoint("graph_attention_transformer_nonlinear_l2")(max_edges=1024)
+    tm = pt.model_entrypoint("graph_attention_transformer_nonlinear_l2")(max_edges=1024,
+                                                                     device="cpu")
     assert sum(p.numel() for p in tm.parameters()) == FLAGSHIP_PARAMS
     jm = j_entry("graph_attention_transformer_nonlinear_l2")(max_edges=1024, nodes_per_graph=30)
     tree = _jax_init(jm, qm9_like_dataset(2, seed=0))
@@ -164,7 +173,8 @@ def test_full_width_flagship_matches_jax(dt):
     data = qm9_like_dataset(2, seed=3)
     jm = j_entry("graph_attention_transformer_nonlinear_l2")(max_edges=1024, nodes_per_graph=30)
     tree = _jax_init(jm, data)
-    tm = pt.model_entrypoint("graph_attention_transformer_nonlinear_l2")(max_edges=1024, seed=5)
+    tm = pt.model_entrypoint("graph_attention_transformer_nonlinear_l2")(max_edges=1024, seed=5,
+                                                                     device="cpu")
     params_from_jax(tm, tree)
     p = jax.tree_util.tree_map(lambda a: np.asarray(a, npdt), tree)
     j = np.asarray(jax.jit(lambda p, b: jm.apply(p, b, deterministic=True))(

@@ -192,3 +192,81 @@ def test_heads_reshapes_match(head):
     t = tattn.vec2heads(Irreps(head), H, torch.from_numpy(x))
     assert np.array_equal(t.numpy(), j)
     assert np.array_equal(tattn.heads2vec(Irreps(head), t).numpy(), x)
+
+
+# ---------------------------------------------------------------- dropout
+# jax.random and torch draw different bits, so each JAX dropout module runs
+# with its own rng, its keep mask is read off its output (the input has no
+# zeros), and the port module replays that mask: the outputs must then be
+# equal to float32 rounding (1e-6 relative).
+
+def _irrep_copies(irreps, y):
+    """[N, num_irreps] value of each irrep copy's first component."""
+    return np.concatenate([b[:, 0, :] for b in
+                           (y[:, s].reshape(len(y), ir.dim, mul)
+                            for s, (mul, ir) in zip(irreps.slices(), irreps))], axis=1)
+
+
+@pytest.mark.parametrize("kind", ["equivariant", "scalars", "drop-path"])
+def test_dropout_with_the_jax_mask_matches(kind):
+    from equiformer_tpu.nn import dropout as jd
+    from equiformer_tpu_torch.nn import dropout as td
+
+    irr, p, N, G = "6x0e+3x1e+2x2e+2x0e", 0.3, 12, 6
+    x = (np.random.default_rng(8).uniform(0.5, 1.5, size=(N, Irreps(irr).dim))
+         * np.sign(np.random.default_rng(9).normal(size=(N, Irreps(irr).dim)))).astype(np.float32)
+    batch = np.repeat(np.arange(G), N // G)
+    key = {"dropout": jax.random.PRNGKey(3)}
+    if kind == "equivariant":
+        y = np.asarray(jd.EquivariantDropout(JIrreps(irr), p).apply(
+            {}, jnp.asarray(x), deterministic=False, rngs=key))
+        masks = [torch.from_numpy(_irrep_copies(Irreps(irr), y) != 0)]
+        mod, args = td.EquivariantDropout(irr, p), ()
+    elif kind == "scalars":
+        y = np.asarray(jd.EquivariantScalarsDropout(JIrreps(irr), p).apply(
+            {}, jnp.asarray(x), deterministic=False, rngs=key))
+        masks = [torch.from_numpy(y[:, s] != 0) for s, (_, ir) in
+                 zip(Irreps(irr).slices(), Irreps(irr)) if ir.is_scalar()]
+        mod, args = td.EquivariantScalarsDropout(irr, p), ()
+    else:
+        y = np.asarray(jd.GraphDropPath(p).apply(
+            {}, jnp.asarray(x), jnp.asarray(batch), G, deterministic=False, rngs=key))
+        masks = [torch.from_numpy(np.array([y[batch == g].any() for g in range(G)]))]
+        mod, args = td.GraphDropPath(p), (torch.from_numpy(batch), G)
+    assert 0 < sum(int((~m).sum()) for m in masks)  # something was dropped
+    t = mod.train()(torch.from_numpy(x), *args, rng=iter(masks)).numpy()
+    assert _rel(t, y) < 1e-6
+    assert np.array_equal(mod.eval()(torch.from_numpy(x), *args).numpy(), x)
+
+
+def test_drawn_dropout_masks_keep_rate_and_scale():
+    from equiformer_tpu_torch.nn.dropout import dropout_multiplier
+
+    p, n = 0.2, 200_000
+    m = dropout_multiplier(torch.Generator().manual_seed(0), (n,), p, torch.float32, "cpu")
+    assert torch.unique(m).tolist() == pytest.approx([0.0, 1 / 0.8])
+    kept = float((m > 0).float().mean())
+    assert abs(kept - 0.8) < 4 * (0.8 * 0.2 / n) ** 0.5  # binomial 4 sigma
+    assert abs(float(m.mean()) - 1.0) < 5e-3  # mask / keep has mean 1
+    again = dropout_multiplier(torch.Generator().manual_seed(0), (n,), p, torch.float32, "cpu")
+    assert torch.equal(m, again)
+
+
+@pytest.mark.parametrize("H, D", [(4, 40), (2, 12)], ids=["fused", "composed"])
+def test_softmax_dropout_combine_applies_the_alpha_dropout(H, D):
+    """Training mode multiplies the softmax weights by keep mask / keep (an
+    injected mask here) on both routes; eval mode and rate 0 do not."""
+    rng = np.random.default_rng(10)
+    E, N = 60, 9
+    dst = torch.from_numpy(np.sort(rng.integers(0, N, size=E)))
+    mask = torch.from_numpy(rng.random(E) < 0.9)
+    alpha = torch.from_numpy(rng.normal(size=(E, H)))
+    value = torch.from_numpy(rng.normal(size=(E, H, D)))
+    keep = torch.from_numpy(rng.random((E, H)) < 0.8)
+    got = tattn.softmax_dropout_combine(alpha, value, dst, mask, N, 0.2, True, iter([keep]))
+    p = tnn.attention_utils.attn_combine_plain(alpha, value, dst, N, mask, keep / 0.8)
+    assert _rel(got.numpy(), p.numpy()) < 1e-12
+    plain = tattn.softmax_dropout_combine(alpha, value, dst, mask, N)
+    assert torch.equal(tattn.softmax_dropout_combine(alpha, value, dst, mask, N, 0.2, False),
+                       plain)
+    assert _rel(got.numpy(), plain.numpy()) > 1e-3
