@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's QM9 training and inference paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's QM9 training and inference paths and its MD17
+energy + force evaluation once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -44,6 +45,37 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    first step's learning rate, 1e-4, bounds what Adam's sign-normalized
    update of a gradient that is zero up to rounding can add).
 
+6. md17     — ``graph_attention_transformer_nonlinear_exp_l3_md17`` at full
+   width from the registry with a seeded init, ``evaluate_md17`` (energies
+   and forces = -dE/dpos) on 4 batches of 8 md17-like molecules (21 atom
+   slots, seed 0) in float32 and bfloat16: the launch counts of one force
+   evaluation (13 K1, 13 K5a, 19 K3, no K2 or K4), energies [8] and forces
+   [168, 3] finite and zero on padded slots, molecules/s (median of 3
+   passes over the 4 batches), the peak memory, two evaluations bitwise
+   equal, batch 0 against the same weights on the CPU plain path, and
+   rotated positions giving rotated forces (float32, 1e-3 of max |F|).  The
+   CPU check: float32 within 1e-3 of the largest |value|; in bfloat16 the
+   card, the CPU plain path and the JAX package's own bf16 force model all
+   lie ~3e-2 from the float64 values (bf16 features, and the exp basis's
+   cancelling derivative; ``tests/test_torch_md17.py`` measures JAX's at
+   3.3e-2 on a reduced model), so the card's distance to a float64 CPU
+   evaluation must be at most MD17_BF16_FACTOR times the bfloat16 CPU plain
+   path's.
+7. md17 kernels — K1 and K5a (``dtp_lin_bwd3``) at the exp_l3 shapes of
+   batch 0 at the three call sites (sep_act; sep_value with folded shared
+   weights; the edge-degree embedding with its row-broadcast x, where K5a
+   computes no dx), and K3 at the path's width (864 columns) in its three
+   forms (the edge-degree scatter and the attention sums [E, 4, 216],
+   masked; the message gathers' backward, unmasked), float32 and bfloat16,
+   against their plain versions with the tolerances of phase 3, timed the
+   same way, with their bounds and, for K3, ``index_add_``.
+
+Phases 3 and 7 also time the model's segment sums too narrow for K3
+(``fixed_order_segment_sum``, an ``index_put_`` that repeats its bits)
+against ``index_add_`` at the shapes of the readout and the softmax
+denominators, and print what the fixed order costs per QM9 step and per
+force evaluation.
+
 The last two lines of stdout are the kernel table as JSON and
 ``{"ok": true, "device": {...}}``; before them come the compiler's register
 report, every comparison, the rates, the peak memory and the card's name and
@@ -67,19 +99,32 @@ CPU_RTOL = {"float32": 1e-3, "bfloat16": 2e-2}
 BF16_MIN_SHIFT = 1e-4
 CPU_GRAPHS = 16
 WARMUP_STEPS, TIMED_STEPS = 3, 10
-EXPECTED_EVAL = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 0, "csr_segment_sum": 1, "attn_combine": 6}
-EXPECTED_TRAIN = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 13, "csr_segment_sum": 13, "attn_combine": 6}
+EXPECTED_EVAL = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 0, "csr_segment_sum": 1,
+                 "attn_combine": 6}
+EXPECTED_TRAIN = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 13, "dtp_lin_bwd3": 0, "csr_segment_sum": 13,
+                  "attn_combine": 6}
+# one force evaluation: a K1 and a K5a per fused DTP (edge degree + 2 per
+# block); K3 for the edge-degree scatter and the 6 attention sums, and 12 in
+# the message gathers' backward; the composed attention tail, no K4
+EXPECTED_MD17 = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 13, "csr_segment_sum": 19,
+                 "attn_combine": 0}
+MD17_MODEL = "graph_attention_transformer_nonlinear_exp_l3_md17"
+MD17_BATCH, MD17_SLOTS = 8, 21
+EQUIV_TOL = 1e-3
+MD17_BF16_FACTOR = 2.0  # card / CPU distance to fp64: measured 1.1 (energies), 0.9 (forces)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TPU_KERNELS = {
     "dtp_lin_fwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:598",
     "dtp_lin_bwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:673",
+    "dtp_lin_bwd3": "equiformer_tpu/kernels/dtp_lin_ho.py:451",
     "csr_segment_sum": "equiformer_tpu/kernels/segment_csr_pallas.py:36",
     "attn_combine": "equiformer_tpu/kernels/attn_csr_pallas.py:109",
 }
 SOURCES = {
     "dtp_lin_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
     "dtp_lin_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
+    "dtp_lin_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
     "csr_segment_sum": "equiformer_tpu_torch/csrc/segment_csr.cu",
     "attn_combine": "equiformer_tpu_torch/csrc/attn_csr.cu",
 }
@@ -132,11 +177,80 @@ def dtp_work(plan) -> tuple:
             sum(g.ir.dim * g.fan * g.cols for g in plan.groups))
 
 
+def record(records, kernel, site, dt_name, shape, errs, ms, plain_ms, nbytes, flops,
+           library_ms=None):
+    err = max(e for e, _ in errs)
+    rel = max(r for _, r in errs)
+    b_ms, b_by = bound(nbytes, flops, dt_name)
+    records.append(dict(kernel=kernel, site=site, dtype=dt_name, shape=shape,
+                        max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms))
+
+
+def report_kernels(records):
+    """Print each comparison; fail if a kernel disagrees with its plain version."""
+    failed = [r for r in records if not r["rel_err"] <= TOL[r["dtype"]]]
+    for r in records:
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        print(f"kernel {r['kernel']:16s} {r['site']:9s} {r['dtype']:8s} {r['shape']}: "
+              f"max_abs_err {r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}) "
+              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms{lib}; bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    if failed:
+        raise RuntimeError(f"kernels disagree with their plain versions: {failed}")
+
+
+def dtp_sites(model):
+    """The fused DTP's call sites in block 0 and the edge-degree embedding:
+    name -> (plan, head modules, row-broadcast x)."""
+    ga = model.block_0.ga
+    return {
+        "sep_act": (ga.sep_act.plan, [ga.sep_act.lin, ga.sep_alpha], False),
+        "sep_value": (ga.sep_value.plan, [ga.sep_value.lin], False),
+        "edge_deg": (model.edge_deg_embed.plan, [model.edge_deg_embed.proj], True),
+    }
+
+
+def batch_geometry(model, batch):
+    """(edges, float32 SH, n_edges device scalar, its value) of a batch."""
+    from equiformer_tpu_torch.core.spherical import spherical_harmonics_for_irreps
+    from equiformer_tpu_torch.graph.radius_graph import (
+        edge_vectors, radius_graph_dense, reverse_edge_perm_dense,
+    )
+    from equiformer_tpu_torch.graph.segment import active_edge_bound
+
+    G = batch.graph_mask.shape[0]
+    edges = radius_graph_dense(batch.pos, batch.node_mask, G, model.max_radius, model.max_edges)
+    edges = edges._replace(rev=reverse_edge_perm_dense(edges, G, model.nodes_per_graph))
+    vec, _ = edge_vectors(batch.pos, edges)
+    n_edges = active_edge_bound(edges.mask)
+    return edges, spherical_harmonics_for_irreps(model.irreps_sh, vec), n_edges, int(n_edges)
+
+
+def dtp_operands(torch, plan, heads, broadcast_x, E, n, dt, g, dev):
+    """Random operands of one call site in ``dt``: (x, w or None, the packed
+    W with a shared w folded in as dtp_lin does, a cotangent, the bytes of
+    the inputs over the n real edges)."""
+    if broadcast_x:
+        x = torch.randn(1, plan.d_x, generator=g, device=dev).to(dt).expand(E, plan.d_x)
+    else:
+        x = torch.randn(E, plan.d_x, generator=g, device=dev).to(dt)
+    W = plan.pack_weights([[None if t is None else t.detach().to(dt)
+                            for t in h.weight_list()] for h in heads])
+    if plan.shared_weights:
+        W = plan.fold_shared(torch.randn(plan.d_w, generator=g, device=dev).to(dt), W)
+        w = None
+    else:
+        w = torch.randn(E, plan.d_w, generator=g, device=dev).to(dt)
+    cot = torch.randn(E, plan.d_out, generator=g, device=dev).to(dt)
+    size = torch.finfo(dt).bits // 8
+    in_bytes = size * ((plan.d_x if broadcast_x else n * plan.d_x) + n * plan.d_sh
+                       + (0 if w is None else n * plan.d_w) + plan.w_numel)
+    return x, w, W, cot, in_bytes
+
+
 def kernel_phase(torch, model, batch, dev, records):
     """Each kernel against its plain version at the flagship's shapes."""
-    from equiformer_tpu_torch.graph.radius_graph import radius_graph_dense, edge_vectors
-    from equiformer_tpu_torch.graph.segment import active_edge_bound
-    from equiformer_tpu_torch.core.spherical import spherical_harmonics_for_irreps
     from equiformer_tpu_torch.kernels import (
         KERNEL_WRAPPERS, attn_combine_fwd, attn_combine_plain, attn_den_plain,
         csr_segment_sum, dtp_lin_bwd, dtp_lin_bwd_plain, dtp_lin_fwd, dtp_lin_plain,
@@ -145,51 +259,20 @@ def kernel_phase(torch, model, batch, dev, records):
 
     saved = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
     g = torch.Generator(device=dev).manual_seed(SEED)
-    G = batch.graph_mask.shape[0]
     N = batch.pos.shape[0]
-    edges = radius_graph_dense(batch.pos, batch.node_mask, G, model.max_radius, model.max_edges)
-    vec, _ = edge_vectors(batch.pos, edges)
-    sh32 = spherical_harmonics_for_irreps(model.irreps_sh, vec)
-    n_edges = active_edge_bound(edges.mask)
-    n = int(n_edges)
+    edges, sh32, n_edges, n = batch_geometry(model, batch)
     n_real = int(edges.mask.sum())
     E = edges.dst.shape[0]
-    ga = model.block_0.ga
-    sites = {
-        "sep_act": (ga.sep_act.plan, [ga.sep_act.lin, ga.sep_alpha], False),
-        "sep_value": (ga.sep_value.plan, [ga.sep_value.lin], False),
-        "edge_deg": (model.edge_deg_embed.plan, [model.edge_deg_embed.proj], True),
-    }
-
-    def record(kernel, site, dt_name, shape, errs, ms, plain_ms, nbytes, flops, library_ms=None):
-        err = max(e for e, _ in errs)
-        rel = max(r for _, r in errs)
-        b_ms, b_by = bound(nbytes, flops, dt_name)
-        records.append(dict(kernel=kernel, site=site, dtype=dt_name, shape=shape,
-                            max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms))
 
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
         size = torch.finfo(dt).bits // 8
         sh = sh32.to(dt)
-        for site, (plan, heads, broadcast_x) in sites.items():
-            if broadcast_x:
-                x = torch.randn(1, plan.d_x, generator=g, device=dev).to(dt).expand(E, plan.d_x)
-            else:
-                x = torch.randn(E, plan.d_x, generator=g, device=dev).to(dt)
-            W = plan.pack_weights([[None if t is None else t.detach().to(dt)
-                                    for t in h.weight_list()] for h in heads])
-            if plan.shared_weights:  # folded into W before both kernels, as dtp_lin does
-                W = plan.fold_shared(torch.randn(plan.d_w, generator=g, device=dev).to(dt), W)
-                w = None
-            else:
-                w = torch.randn(E, plan.d_w, generator=g, device=dev).to(dt)
-            cot = torch.randn(E, plan.d_out, generator=g, device=dev).to(dt)
+        for site, (plan, heads, broadcast_x) in dtp_sites(model).items():
+            x, w, W, cot, in_bytes = dtp_operands(torch, plan, heads, broadcast_x, E, n, dt, g,
+                                                  dev)
             shape = f"E={E} d_x={plan.d_x} d_w={plan.d_w} d_out={plan.d_out}"
             tp_elems, macs = dtp_work(plan)
-            in_bytes = size * ((plan.d_x if broadcast_x else n * plan.d_x) + n * plan.d_sh
-                               + (0 if w is None else n * plan.d_w) + plan.w_numel)
 
             k = dtp_lin_fwd(plan, x, sh, w, W, n_edges)
             p = dtp_lin_plain(plan, x, sh, w, W, n_edges)
@@ -197,7 +280,7 @@ def kernel_phase(torch, model, batch, dev, records):
             errs = [rel_err(k, p)]
             ms = cuda_time_ms(lambda: dtp_lin_fwd(plan, x, sh, w, W, n_edges), torch)
             plain_ms = cuda_time_ms(lambda: dtp_lin_plain(plan, x, sh, w, W, n_edges), torch)
-            record("dtp_lin_fwd", site, dt_name, shape, errs, ms, plain_ms,
+            record(records, "dtp_lin_fwd", site, dt_name, shape, errs, ms, plain_ms,
                    in_bytes + size * E * plan.d_out, n * (2 * macs + 4 * tp_elems))
 
             k = dtp_lin_bwd(plan, x, sh, w, W, cot, n_edges)
@@ -208,7 +291,7 @@ def kernel_phase(torch, model, batch, dev, records):
             plain_ms = cuda_time_ms(
                 lambda: dtp_lin_bwd_plain(plan, x, sh, w, W, cot, n_edges), torch, reps=3, inner=3)
             out_bytes = size * E * (plan.d_x + (0 if w is None else plan.d_w)) + 4 * plan.w_numel
-            record("dtp_lin_bwd", site, dt_name, shape, errs, ms, plain_ms,
+            record(records, "dtp_lin_bwd", site, dt_name, shape, errs, ms, plain_ms,
                    in_bytes + size * n * plan.d_out + out_bytes,
                    n * (4 * macs + 10 * tp_elems))
 
@@ -223,8 +306,8 @@ def kernel_phase(torch, model, batch, dev, records):
         val_m = torch.where(edges.mask[:, None], val, torch.zeros_like(val))
         lib_ms = cuda_time_ms(
             lambda: torch.zeros(N, C, dtype=dt, device=dev).index_add_(0, edges.dst, val_m), torch)
-        record("csr_segment_sum", "edge_deg", dt_name, f"E={E} C={C} N={N}", errs, ms, plain_ms,
-               size * (n_real * C + N * C) + E + 4 * (N + 1), n_real * C, lib_ms)
+        record(records, "csr_segment_sum", "edge_deg", dt_name, f"E={E} C={C} N={N}", errs, ms,
+               plain_ms, size * (n_real * C + N * C) + E + 4 * (N + 1), n_real * C, lib_ms)
 
         H, D = 4, 120
         scores = torch.randn(E, H, generator=g, device=dev).to(dt)
@@ -242,8 +325,8 @@ def kernel_phase(torch, model, batch, dev, records):
         plain_ms = cuda_time_ms(lambda: (
             attn_combine_plain(scores, value, edges.dst, N, edges.mask, drop),
             attn_den_plain(masked, edges.dst, N)), torch)
-        record("attn_combine", "ga", dt_name, f"E={E} H={H} D={D} N={N}", errs, ms, plain_ms,
-               size * (2 * E * H + n_real * H * D + N * H * D) + 4 * N * H,
+        record(records, "attn_combine", "ga", dt_name, f"E={E} H={H} D={D} N={N}", errs, ms,
+               plain_ms, size * (2 * E * H + n_real * H * D + N * H * D) + 4 * N * H,
                n_real * H * (3 * D + 2))
         # the eval path's call, without the dropout multiplier
         k_out, k_den = attn_combine_fwd(masked, value, edges.dst, N, edges.mask)
@@ -253,20 +336,16 @@ def kernel_phase(torch, model, batch, dev, records):
         plain_ms = cuda_time_ms(lambda: (
             attn_combine_plain(scores, value, edges.dst, N, edges.mask),
             attn_den_plain(masked, edges.dst, N)), torch)
-        record("attn_combine", "ga-nodrop", dt_name, f"E={E} H={H} D={D} N={N}", errs, ms,
+        record(records, "attn_combine", "ga-nodrop", dt_name, f"E={E} H={H} D={D} N={N}", errs, ms,
                plain_ms, size * (E * H + n_real * H * D + N * H * D) + 4 * N * H,
                n_real * H * (2 * D + 2))
     for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
         fn.launches = saved[name]
-    failed = [r for r in records if not r["rel_err"] <= TOL[r["dtype"]]]
-    for r in records:
-        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
-        print(f"kernel {r['kernel']:16s} {r['site']:9s} {r['dtype']:8s} {r['shape']}: "
-              f"max_abs_err {r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}) "
-              f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms{lib}; bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
-    if failed:
-        raise RuntimeError(f"kernels disagree with their plain versions: {failed}")
+    report_kernels(records)
+    # the step's one narrow sum: the readout [N, 1] by graph
+    readout = torch.randn(N, 1, generator=g, device=dev)
+    narrow_sums(torch, "QM9 step", {"qm9-readout": (
+        readout, batch.batch, batch.graph_mask.shape[0], batch.node_mask, 1)})
 
 
 def counted(torch, fn):
@@ -435,6 +514,223 @@ def eval_phase(pt, torch, make, max_edges, batches, gpu_batches, dev, out):
     return models["float32"]
 
 
+def narrow_sums(torch, unit, cases):
+    """The model's segment sums too narrow for K3 (``fixed_order_segment_sum``:
+    ``index_put_`` on the card) against ``index_add_`` (``segment_sum_plain``)
+    on the same inputs: within TOL, the same bits in two calls, and what the
+    fixed order costs per ``unit``.  ``cases``: site -> (val, ids, rows,
+    mask, calls per unit)."""
+    from equiformer_tpu_torch.graph.segment import fixed_order_segment_sum
+    from equiformer_tpu_torch.kernels import segment_sum_plain
+
+    for site, (val, ids, rows, mask, calls) in cases.items():
+        a = fixed_order_segment_sum(val, ids, rows, mask)
+        again = fixed_order_segment_sum(val, ids, rows, mask)
+        err = rel_err(a, segment_sum_plain(val, ids, rows, mask))[1]
+        ms = cuda_time_ms(lambda: fixed_order_segment_sum(val, ids, rows, mask), torch)
+        add_ms = cuda_time_ms(lambda: segment_sum_plain(val, ids, rows, mask), torch)
+        print(f"narrow sum {site} {tuple(val.shape)} {str(val.dtype)[6:]} -> {rows} rows: "
+              f"fixed order {ms:.4f} ms vs index_add_ {add_ms:.4f} ms (rel {err:.1e}); "
+              f"{calls} per {unit}: {calls * (ms - add_ms):+.4f} ms per {unit}", flush=True)
+        if not (torch.equal(a, again) and err <= TOL[str(val.dtype)[6:]]):
+            raise RuntimeError(f"the fixed-order narrow sum {site} disagrees or repeats no bits")
+
+
+def md17_kernel_phase(torch, model, batch, dev, records):
+    """K1 and K5a against their plain versions at the exp_l3 shapes of one
+    batch of 8 md17-like molecules, at the three call sites; K3 at the
+    path's width in its edge-degree, attention and gather-backward forms;
+    the narrow sums."""
+    from equiformer_tpu_torch.kernels import (
+        KERNEL_WRAPPERS, csr_segment_sum, dtp_lin_bwd3, dtp_lin_bwd3_plain, dtp_lin_fwd,
+        dtp_lin_plain, segment_sum_plain,
+    )
+    from equiformer_tpu_torch.kernels.dtp_lin_ho import bwd3_occupancy
+
+    saved = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    edges, sh32, n_edges, n = batch_geometry(model, batch)
+    E, N = edges.dst.shape[0], batch.pos.shape[0]
+    n_real = int(edges.mask.sum())
+    C = model.edge_deg_embed.plan.d_out  # the node width, which every K3 call of the path sums
+    H = model.block_0.ga.num_heads
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        size = torch.finfo(dt).bits // 8
+        sh = sh32.to(dt)
+        for site, (plan, heads, broadcast_x) in dtp_sites(model).items():
+            x, w, W, cot, in_bytes = dtp_operands(torch, plan, heads, broadcast_x, E, n, dt, g,
+                                                  dev)
+            shape = f"E={E} d_x={plan.d_x} d_w={plan.d_w} d_out={plan.d_out}"
+            tp_elems, macs = dtp_work(plan)
+
+            k = dtp_lin_fwd(plan, x, sh, w, W, n_edges)
+            p = dtp_lin_plain(plan, x, sh, w, W, n_edges)
+            torch.cuda.synchronize()
+            ms = cuda_time_ms(lambda: dtp_lin_fwd(plan, x, sh, w, W, n_edges), torch)
+            plain_ms = cuda_time_ms(lambda: dtp_lin_plain(plan, x, sh, w, W, n_edges), torch)
+            record(records, "dtp_lin_fwd", "md17-" + site, dt_name, shape, [rel_err(k, p)], ms,
+                   plain_ms, in_bytes + size * E * plan.d_out, n * (2 * macs + 4 * tp_elems))
+
+            need_dx = not broadcast_x
+            k = dtp_lin_bwd3(plan, x, sh, w, W, cot, n_edges, need_dx=need_dx)
+            p = dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n_edges)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(k, p) if a is not None]
+            ms = cuda_time_ms(
+                lambda: dtp_lin_bwd3(plan, x, sh, w, W, cot, n_edges, need_dx=need_dx), torch)
+            plain_ms = cuda_time_ms(
+                lambda: dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n_edges), torch, reps=3,
+                inner=3)
+            # dz product, then 3 operations per term element for each of dx, dw, dsh
+            outs = int(need_dx) + int(w is not None) + 1
+            out_bytes = size * E * ((plan.d_x if need_dx else 0) + plan.d_sh
+                                    + (0 if w is None else plan.d_w))
+            record(records, "dtp_lin_bwd3", "md17-" + site, dt_name, shape, errs, ms, plain_ms,
+                   in_bytes + size * n * plan.d_out + out_bytes,
+                   n * (2 * macs + 3 * outs * tp_elems))
+            print(f"dtp_lin_bwd3 {site} {dt_name}: {bwd3_occupancy(plan, dt, need_dx)} "
+                  f"resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+
+        # K3: the edge-degree scatter [E, C] and the attention sums [E, H, D]
+        # (reshaped to [E, H*D] as segment_sum does), masked; the gathers'
+        # backward, unmasked
+        for site, shape, mask in (("md17-edge_deg", (E, C), edges.mask),
+                                  ("md17-attn", (E, H, C // H), edges.mask),
+                                  ("md17-gather", (E, C), None)):
+            val = torch.randn(*shape, generator=g, device=dev).to(dt)
+            flat = val.reshape(E, -1)
+            k = csr_segment_sum(flat, edges.dst, N, mask)
+            p = segment_sum_plain(val, edges.dst, N, mask).reshape(N, -1)
+            torch.cuda.synchronize()
+            ms = cuda_time_ms(lambda: csr_segment_sum(flat, edges.dst, N, mask), torch)
+            plain_ms = cuda_time_ms(lambda: segment_sum_plain(val, edges.dst, N, mask), torch)
+            val_m = flat if mask is None else torch.where(mask[:, None], flat,
+                                                          torch.zeros_like(flat))
+            lib_ms = cuda_time_ms(
+                lambda: torch.zeros(N, C, dtype=dt, device=dev).index_add_(0, edges.dst, val_m),
+                torch)
+            rows = E if mask is None else n_real
+            record(records, "csr_segment_sum", site, dt_name,
+                   f"E={E} C={'x'.join(map(str, shape[1:]))} N={N}", [rel_err(k, p)], ms,
+                   plain_ms, size * (rows * C + N * C) + (0 if mask is None else E) + 4 * (N + 1),
+                   rows * C, lib_ms)
+    for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
+        fn.launches = saved[name]
+
+    # the readout [N, 1] by graph (position dtype) and the 6 softmax
+    # denominators [E, H] (feature dtype) of one force evaluation
+    G = batch.graph_mask.shape[0]
+    readout = torch.randn(N, 1, generator=g, device=dev)
+    cases = {"md17-readout": (readout, batch.batch, G, batch.node_mask, 1)}
+    for dt_name in ("float32", "bfloat16"):
+        ex = torch.rand(E, H, generator=g, device=dev).to(getattr(torch, dt_name))
+        cases[f"md17-softmax-den-{dt_name}"] = (ex, edges.dst, N, None, 6)
+    narrow_sums(torch, "force evaluation", cases)
+
+
+def md17_phase(pt, torch, dev, out):
+    """Energies and forces of the exp_l3 force model on the card: launch
+    counts, rates, memory, determinism, the CPU plain path and equivariance.
+    Returns the float32 model and the card batches."""
+    import dataclasses
+
+    import numpy as np
+
+    from equiformer_tpu_torch.core.rotations import random_rotation
+    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
+
+    data = md17_like_dataset(MD17_BATCH * N_BATCHES, num_atoms=MD17_SLOTS, seed=SEED)
+    batches = list(GraphLoader(data, MD17_BATCH, MD17_SLOTS, shuffle=False, with_forces=True))
+    counts, max_edges = max_edges_for(batches, MD17_BATCH)
+    print(f"md17: {N_BATCHES} x {MD17_BATCH} molecules of {MD17_SLOTS} atoms, real edges "
+          f"{counts}, max_edges {max_edges}")
+    gpu_batches = [b.to(dev) for b in batches]
+    make = pt.model_entrypoint(MD17_MODEL)  # on the card
+    models = {name: make(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
+                         compute_dtype=None if name == "float32" else name)
+              for name in ("float32", "bfloat16")}
+    _, launches = counted(torch, lambda: pt.evaluate_md17(models["bfloat16"], gpu_batches[0]))
+    print(f"md17: launches in one force evaluation: {launches}")
+    if launches != EXPECTED_MD17:
+        raise RuntimeError(f"launch counts {launches} != expected {EXPECTED_MD17}")
+    out["md17_launches"] = launches
+    n_nodes = MD17_BATCH * MD17_SLOTS
+    results0 = {}
+    for name, model in models.items():
+        first = pt.evaluate_md17(model, gpu_batches[0])  # warm-up
+        again = pt.evaluate_md17(model, gpu_batches[0])
+        torch.cuda.synchronize()
+        same = all(torch.equal(first[k], again[k]) for k in ("energy", "forces"))
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            results = [pt.evaluate_md17(model, b) for b in gpu_batches]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        for b, r in zip(gpu_batches, results):
+            e, f = r["energy"], r["forces"]
+            if e.shape != (MD17_BATCH,) or f.shape != (n_nodes, 3) or not (
+                    bool(e.isfinite().all()) and bool(f.isfinite().all())):
+                raise RuntimeError(f"{name}: bad energies or forces {e.shape} {f.shape}")
+            if bool((f[~b.node_mask] != 0).any()) or not bool(r["mae_f_sum"].isfinite()):
+                raise RuntimeError(f"{name}: forces on padded slots or bad MAE sums")
+        if not same:
+            raise RuntimeError(f"{name}: two force evaluations of one batch differ in their bits")
+        mps = MD17_BATCH * len(gpu_batches) / statistics.median(times)
+        out[f"md17_{name}"] = mps
+        results0[name] = {k: results[0][k].float().cpu() for k in ("energy", "forces")}
+        print(f"md17 eval {name}: {mps:.1f} molecules/s at batch {MD17_BATCH} (median of 3 "
+              f"passes over {len(gpu_batches)} batches; pass seconds "
+              f"{[round(t, 4) for t in times]}), peak memory {peak:.0f} MiB, two evaluations "
+              f"bitwise equal", flush=True)
+
+    model64 = make(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
+                   device="cpu").double()
+    model64.load_state_dict({k: v.cpu() for k, v in models["float32"].state_dict().items()})
+    ref64 = pt.evaluate_md17(model64, batches[0].to(dtype=torch.float64))
+    del model64
+    for name, model in models.items():
+        cpu_model = make(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED, device="cpu",
+                         compute_dtype=None if name == "float32" else name)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        t = time.perf_counter()
+        ref = pt.evaluate_md17(cpu_model, batches[0])
+        cpu_s = time.perf_counter() - t
+        ok = True
+        for k in ("energy", "forces"):
+            card, cpu, f64 = results0[name][k], ref[k], ref64[k]
+            vs_cpu, card64, cpu64 = (rel_err(a, b)[1] for a, b in
+                                     ((card, cpu), (card, f64), (cpu, f64)))
+            if name == "float32":
+                ok &= vs_cpu <= CPU_RTOL[name]
+                rule = f"bound {CPU_RTOL[name]:.0e}"
+            else:
+                ok &= card64 <= MD17_BF16_FACTOR * cpu64
+                rule = f"card vs float64 bound {MD17_BF16_FACTOR} x CPU vs float64"
+            print(f"md17 {name} {k}: card vs CPU plain path {vs_cpu:.3e} of the largest "
+                  f"|value|; vs float64 card {card64:.3e}, CPU {cpu64:.3e} ({rule}; CPU "
+                  f"force evaluation {cpu_s:.1f} s)", flush=True)
+        if not ok:
+            raise RuntimeError(f"{name} energies or forces on the card disagree with the CPU")
+
+    R = torch.from_numpy(random_rotation(np.random.default_rng(SEED)))
+    b0 = gpu_batches[0]
+    rotated = dataclasses.replace(b0, pos=b0.pos @ R.T.to(dev, b0.pos.dtype))
+    fr = pt.evaluate_md17(models["float32"], rotated)["forces"].float().cpu()
+    f0 = results0["float32"]["forces"]
+    rel = float((fr - f0 @ R.T.float()).abs().max()) / float(f0.abs().max())
+    print(f"md17 float32 equivariance on the card: |F(R x) - R F(x)| {rel:.3e} of max |F| "
+          f"(bound {EQUIV_TOL:.0e})", flush=True)
+    if not rel <= EQUIV_TOL:
+        raise RuntimeError("forces on the card are not equivariant")
+    model32 = models["float32"]
+    del models
+    return model32, gpu_batches
+
+
 def main() -> int:
     import torch
 
@@ -483,13 +779,25 @@ def run(torch, dev) -> int:
     t = time.time()
     train_vs_cpu(pt, torch, make, data, dev)
     print(f"train vs CPU phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    md17_model, md17_batches = md17_phase(pt, torch, dev, out)
+    print(f"md17 phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    md17_records = []
+    md17_kernel_phase(torch, md17_model, md17_batches[0], dev, md17_records)
+    report_kernels(md17_records)
+    del md17_model
+    print(f"md17 kernel phase: {time.time() - t:.1f} s", flush=True)
 
     table = []
     for name in SOURCES:
-        # the bf16 row at the kernel's first (for K1/K2: the two-head) call site
-        r = next(r for r in records if r["kernel"] == name and r["dtype"] == "bfloat16")
+        # the bf16 row at the kernel's first (for K1/K2/K5a: the two-head)
+        # call site; K5a serves the force evaluation, the others training
+        path = "md17_launches" if name == "dtp_lin_bwd3" else "train_launches"
+        r = next(r for r in records + md17_records
+                 if r["kernel"] == name and r["dtype"] == "bfloat16")
         table.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                      "replaces": TPU_KERNELS[name], "launches": out["train_launches"][name],
+                      "replaces": TPU_KERNELS[name], "launches": out[path][name],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -2,17 +2,18 @@
 
 Module paths mirror the JAX package.  Features keep its component-major
 [2l+1, mul] block layout, so every activation compares with the reference
-element by element.  The kernels of the QM9 training and inference path are
-hand-written CUDA for Hopper (``csrc/``), each beside its plain PyTorch
-version (``kernels/``).
+element by element.  The kernels of the QM9 training and inference path and
+of the MD17 energy + force evaluation are hand-written CUDA for Hopper
+(``csrc/``), each beside its plain PyTorch version (``kernels/``).
 """
 
 from . import core, data, graph, kernels, models, nn, train, utils  # noqa: F401
-from .models import model_entrypoint
+from .models import energy_and_forces, model_entrypoint
 from .train import (
     TrainState,
     cosine_warmup_schedule,
     create_optimizer,
     evaluate,
+    evaluate_md17,
     make_qm9_steps,
 )

@@ -1,2 +1,3 @@
 from .loader import GraphLoader
-from .synthetic import qm9_like_dataset, random_molecule
+from .md17 import load_md17, train_val_test_split
+from .synthetic import md17_like_dataset, qm9_like_dataset, random_molecule

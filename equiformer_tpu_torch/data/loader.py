@@ -19,12 +19,14 @@ class GraphLoader:
     """Full batches only (a last partial batch is dropped)."""
 
     def __init__(self, graphs: Sequence[Dict[str, np.ndarray]], batch_size: int,
-                 dense_slots: int, shuffle: bool = True, seed: int = 0):
+                 dense_slots: int, shuffle: bool = True, seed: int = 0,
+                 with_forces: bool = False):
         self.graphs = list(graphs)
         self.batch_size = batch_size
         self.dense_slots = dense_slots
         self.shuffle = shuffle
         self.seed = seed
+        self.with_forces = with_forces
         self.epoch = 0
 
     def __len__(self):
@@ -38,4 +40,5 @@ class GraphLoader:
         bs = self.batch_size
         for i in range(0, len(order) - (bs - 1), bs):
             yield collate_dense([self.graphs[j] for j in order[i : i + bs]],
-                                max_nodes_per_graph=self.dense_slots, graph_capacity=bs)
+                                max_nodes_per_graph=self.dense_slots, graph_capacity=bs,
+                                with_forces=self.with_forces)

@@ -1,9 +1,9 @@
-"""Synthetic molecular graphs with QM9-like statistics (numpy only).
+"""Synthetic molecular graphs with QM9- and MD17-like statistics (numpy only).
 
-Same generator and draw order as ``equiformer_tpu.data.synthetic``, so a seed
-gives the same molecules in both packages: atoms placed by a short random
-walk with ~1.5 A steps, which gives radius-5 graphs with an average degree
-close to QM9's 15.6.
+Same generators and draw order as ``equiformer_tpu.data.synthetic``, so a
+seed gives the same molecules in both packages: atoms placed by a short
+random walk with ~1.5 A steps, which gives radius-5 graphs with an average
+degree close to QM9's 15.6.
 """
 
 from __future__ import annotations
@@ -35,3 +35,20 @@ def qm9_like_dataset(
         random_molecule(rng, int(rng.integers(min_atoms, max_atoms + 1)))
         for _ in range(n)
     ]
+
+
+def md17_like_dataset(n: int, num_atoms: int = 21, seed: int = 0) -> List[Dict[str, np.ndarray]]:
+    """Frames of one fixed-topology molecule, like an MD17 trajectory (aspirin
+    has 21 atoms): 0.05 A jitter of one random-walk geometry, random energy
+    and force targets."""
+    rng = np.random.default_rng(seed)
+    base = random_molecule(rng, num_atoms, num_species=4)
+    out = []
+    for _ in range(n):
+        g = dict(base)
+        g["pos"] = base["pos"] + rng.normal(scale=0.05, size=base["pos"].shape).astype(
+            np.float32)
+        g["y"] = np.float32(rng.normal())
+        g["forces"] = rng.normal(size=(num_atoms, 3)).astype(np.float32)
+        out.append(g)
+    return out

@@ -6,4 +6,5 @@ from .segment import (
     scaled_scatter_sum,
     segment_softmax,
     segment_sum,
+    take_rows,
 )

@@ -25,6 +25,7 @@ class GraphsTuple:
       node_mask  [N]    bool
       graph_mask [G]    bool
       y          [G]    float per-graph targets
+      forces     [N, 3] float per-atom force targets (MD17), or None
     """
 
     pos: torch.Tensor
@@ -33,6 +34,7 @@ class GraphsTuple:
     node_mask: torch.Tensor
     graph_mask: torch.Tensor
     y: Optional[torch.Tensor] = None
+    forces: Optional[torch.Tensor] = None
 
     def to(self, device=None, dtype: Optional[torch.dtype] = None) -> "GraphsTuple":
         """Move every tensor to ``device``; ``dtype`` recasts the float fields."""
@@ -51,8 +53,10 @@ def collate_dense(
     graphs: Sequence[Dict[str, np.ndarray]],
     max_nodes_per_graph: int,
     graph_capacity: Optional[int] = None,
+    with_forces: bool = False,
 ) -> GraphsTuple:
-    """Pack graphs (dicts with 'pos', 'species', optional 'y') into G*M slots."""
+    """Pack graphs (dicts with 'pos', 'species', optional 'y', and 'forces'
+    when ``with_forces``) into G*M slots; padded slots get zero forces."""
     g_cap = graph_capacity if graph_capacity is not None else len(graphs)
     if len(graphs) > g_cap:
         raise ValueError(f"{len(graphs)} graphs > capacity {g_cap}")
@@ -63,6 +67,7 @@ def collate_dense(
     node_mask = np.zeros((n_cap,), bool)
     graph_mask = np.zeros((g_cap,), bool)
     y = np.zeros((g_cap,), np.float32)
+    forces = np.zeros((n_cap, 3), np.float32) if with_forces else None
     for gi, g in enumerate(graphs):
         n = int(g["pos"].shape[0])
         if n > M:
@@ -74,6 +79,8 @@ def collate_dense(
         graph_mask[gi] = True
         if g.get("y") is not None:
             y[gi] = g["y"]
+        if with_forces and "forces" in g:
+            forces[i : i + n] = g["forces"]
     return GraphsTuple(
         pos=torch.from_numpy(pos),
         species=torch.from_numpy(species),
@@ -81,4 +88,5 @@ def collate_dense(
         node_mask=torch.from_numpy(node_mask),
         graph_mask=torch.from_numpy(graph_mask),
         y=torch.from_numpy(y),
+        forces=None if forces is None else torch.from_numpy(forces),
     )

@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .segment import take_rows
+
 
 class EdgeList(NamedTuple):
     src: torch.Tensor  # [E_cap] int64
@@ -83,8 +85,14 @@ def reverse_edge_perm_dense(edges: EdgeList, graphs: int, M: int) -> torch.Tenso
 
 def edge_vectors(pos: torch.Tensor, edges: EdgeList, eps: float = 1e-12):
     """Edge displacement ``pos[src] - pos[dst]`` and its length; padded edges
-    get zero vectors and zero length."""
-    vec = pos[edges.src] - pos[edges.dst]
+    get zero vectors and zero length.  The gathers are ``take_rows``, so the
+    position gradient of a force model is two sorted segment sums over dst
+    (the src side through the rev twin, which ``edges.rev`` must hold), as
+    JAX's ``take_rows`` primitives give it, and not autograd's scatter-add."""
+    if edges.rev is None:
+        raise ValueError("edge_vectors needs edges.rev (reverse_edge_perm_dense)")
+    vec = (take_rows(pos, edges.src, edges.dst, edges.rev)
+           - take_rows(pos, edges.dst, edges.dst))
     vec = torch.where(edges.mask[:, None], vec, torch.zeros_like(vec))
     length = torch.sqrt(torch.clamp(torch.sum(vec * vec, dim=-1), min=eps))
     length = torch.where(edges.mask, length, torch.zeros_like(length))

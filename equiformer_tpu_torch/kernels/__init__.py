@@ -2,6 +2,8 @@
 
 * ``dtp_lin``     — fused depthwise TP + linear heads: forward (K1,
   ``dtp_lin_fwd``) and backward (K2, ``dtp_lin_bwd``) behind one autograd op
+* ``dtp_lin_ho``  — the same op on the force path: K1 forward, and the
+  force backward (K5a, ``dtp_lin_bwd3``: dx, dsh and dw in one pass)
 * ``segment_csr`` — CSR segment sum over dst-sorted edges (K3)
 * ``attn_csr``    — fused segment softmax + dropout + weighted sum (K4 forward;
   its backward is torch ops, as in JAX)
@@ -21,11 +23,13 @@ from .dtp_lin import (
     dtp_lin_fwd,
     dtp_lin_plain,
 )
+from .dtp_lin_ho import dtp_lin_bwd3, dtp_lin_bwd3_plain, dtp_lin_ho
 from .segment_csr import csr_segment_sum, segment_sum_plain
 
 KERNEL_WRAPPERS = {
     "dtp_lin_fwd": dtp_lin_fwd,
     "dtp_lin_bwd": dtp_lin_bwd,
+    "dtp_lin_bwd3": dtp_lin_bwd3,
     "csr_segment_sum": csr_segment_sum,
     "attn_combine": attn_combine,
 }

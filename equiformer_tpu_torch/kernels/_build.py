@@ -111,6 +111,14 @@ _SIGNATURES = {
     "dtp_lin_bwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
                     _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
                     _I, _I, _I, _I, _I, _VP],
+    # x, x_row_stride, d_x, sh, d_sh, w, d_w, W^T, g, d_out, n_edges*, E,
+    # gk table, n_gk, terms, coeffs, dwmap, dx, dsh, dw (each may be null),
+    # span_max, cols_pad_max, max_fan_stride, dtype, stream
+    "dtp_lin_bwd3": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
+                     _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # d_x (0 without dx), d_sh, span (0 without dw), cols_pad_max,
+    # max_fan_stride, dtype -> resident blocks per SM (or -cudaError_t)
+    "dtp_lin_bwd3_occupancy": [_I, _I, _I, _I, _I, _I],
     # val, C, rowptr, mask, out, N, dtype, stream
     "csr_segment_sum": [_VP, _I, _VP, _VP, _VP, _I, _I, _VP],
     # scores, value, dropmul, shift, rowptr, out, den, N, H, D, dtype, stream

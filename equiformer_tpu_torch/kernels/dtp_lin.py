@@ -353,38 +353,40 @@ def dtp_lin_plain(plan: DTPLinPlan, x, sh, w, W_flat, n_edges=None):
     return _zero_past(torch.cat(pieces, dim=1), n_edges)
 
 
-def dtp_lin_bwd_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges=None):
-    """Plain backward of ``dtp_lin_plain`` for the cotangent ``g`` [E, d_out],
-    written out per group and TP path: returns (dx [E, d_x], dw [E, d_w] or
-    None when ``w`` is None, dW_flat [w_numel] in float32, or float64 for
-    float64 inputs).  No dsh."""
+def plain_dz(plan: DTPLinPlan, W_flat, g) -> torch.Tensor:
+    """dz [E, tp.irreps_out.dim]: each group's cotangent slices times its
+    packed W transposed, placed at the TP output's columns (zero where no
+    head reads them)."""
     tp = plan.tp
-    g = _zero_past(g, n_edges)
-    E = g.shape[0]
-    z = tp.apply(x, sh, w, scale_weights=plan.fold_rescale)
     slices = tp.irreps_out.slices()
-    dz = torch.zeros_like(z)
-    acc = torch.promote_types(g.dtype, torch.float32)
-    dW = torch.zeros((plan.w_numel,), dtype=acc, device=g.device)
+    dz = g.new_zeros((g.shape[0], tp.irreps_out.dim))
     for gi, grp in enumerate(plan.groups):
         W = plan.group_weight(W_flat, gi)[: grp.fan]
-        dWg = torch.zeros((grp.fan_stride, grp.cols), dtype=acc, device=g.device)
         for k in range(grp.ir.dim):
-            gk = g[:, grp.out_off + k * grp.cols : grp.out_off + (k + 1) * grp.cols]
-            dWg[: grp.fan] += _group_z(plan, z, gi, k).to(acc).T @ gk.to(acc)
-            dzk = gk @ W.T
+            dzk = g[:, grp.out_off + k * grp.cols : grp.out_off + (k + 1) * grp.cols] @ W.T
             for bo in grp.blocks:
                 mul = tp.irreps_out[bo].mul
                 s = slices[bo].start + k * mul
                 fc = grp.fan_slot[bo]
                 dz[:, s : s + mul] = dzk[:, fc : fc + mul]
-        dW[grp.w_off : grp.w_off + grp.fan_stride * grp.cols] = dWg.reshape(-1)
+    return dz
 
-    # transposes of each depthwise path z[e,k,u] = s * sum_ij C[i,j,k] x[e,i,u] sh[e,j] w[e,u]
+
+def plain_transposes(plan: DTPLinPlan, x, sh, w, dz, with_dsh: bool):
+    """The transposes of each depthwise path
+    z[e,k,u] = s * sum_ij C[i,j,k] x[e,i,u] sh[e,j] w[e,u] for the TP output
+    cotangent ``dz``: (dx, dw or None when ``w`` is None, dsh or None unless
+    ``with_dsh``), in dz's dtype."""
+    tp = plan.tp
+    E = dz.shape[0]
     xb = split_blocks(x, tp.irreps_in1)
     shb = split_blocks(sh, tp.irreps_in2)
     dzb = split_blocks(dz, tp.irreps_out)
-    dxb = [torch.zeros((E,) + b.shape[1:], dtype=dz.dtype, device=dz.device) for b in xb]
+    def zeros(b):
+        return torch.zeros((E,) + b.shape[1:], dtype=dz.dtype, device=dz.device)
+
+    dxb = [zeros(b) for b in xb]
+    dshb = [zeros(b) for b in shb] if with_dsh else None
     dw = None if w is None else torch.zeros((E, plan.d_w), dtype=dz.dtype, device=dz.device)
     for idx, ins in enumerate(tp.instructions):
         C = tp._cg_tensor(idx, dz.dtype, dz.device)
@@ -398,7 +400,30 @@ def dtp_lin_bwd_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges=None):
                 "eku,eki,eiu->eu", d, M, xb[ins.i_in1])
             d = d * wv[:, None, :]
         dxb[ins.i_in1] = dxb[ins.i_in1] + torch.einsum("eku,eki->eiu", d, M)
+        if with_dsh:
+            dshb[ins.i_in2] = dshb[ins.i_in2] + torch.einsum(
+                "eku,ijk,eiu->ej", d, C, xb[ins.i_in1])[:, :, None]
     dx = torch.cat([b.reshape(E, -1) for b in dxb], dim=1)
+    dsh = None if dshb is None else torch.cat([b.reshape(E, -1) for b in dshb], dim=1)
+    return dx, dw, dsh
+
+
+def dtp_lin_bwd_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges=None):
+    """Plain backward of ``dtp_lin_plain`` for the cotangent ``g`` [E, d_out],
+    written out per group and TP path: returns (dx [E, d_x], dw [E, d_w] or
+    None when ``w`` is None, dW_flat [w_numel] in float32, or float64 for
+    float64 inputs).  No dsh."""
+    g = _zero_past(g, n_edges)
+    z = plan.tp.apply(x, sh, w, scale_weights=plan.fold_rescale)
+    acc = torch.promote_types(g.dtype, torch.float32)
+    dW = torch.zeros((plan.w_numel,), dtype=acc, device=g.device)
+    for gi, grp in enumerate(plan.groups):
+        dWg = torch.zeros((grp.fan_stride, grp.cols), dtype=acc, device=g.device)
+        for k in range(grp.ir.dim):
+            gk = g[:, grp.out_off + k * grp.cols : grp.out_off + (k + 1) * grp.cols]
+            dWg[: grp.fan] += _group_z(plan, z, gi, k).to(acc).T @ gk.to(acc)
+        dW[grp.w_off : grp.w_off + grp.fan_stride * grp.cols] = dWg.reshape(-1)
+    dx, dw, _ = plain_transposes(plan, x, sh, w, plain_dz(plan, W_flat, g).to(z.dtype), False)
     return dx.to(x.dtype), None if dw is None else dw.to(w.dtype), dW
 
 
@@ -538,11 +563,18 @@ def dtp_lin(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor
     plain versions on CPU tensors.  Raises if ``sh`` needs a gradient (the
     backward computes no dsh)."""
     if sh.requires_grad:
-        raise ValueError("dtp_lin computes no gradient for sh (force models need the "
-                         "higher-order path, which is not ported)")
-    if plan.shared_weights:
-        if w.numel() != plan.d_w:
-            raise ValueError(f"shared w must have {plan.d_w} entries")
-        W_flat = plan.fold_shared(w, W_flat)
-        w = None
+        raise ValueError("dtp_lin computes no gradient for sh (force models take "
+                         "kernels/dtp_lin_ho.py: higher_order_grads=True)")
+    w, W_flat = fold_shared_weights(plan, w, W_flat)
     return _DTPLin.apply(plan, x, sh, w, W_flat, n_edges)
+
+
+def fold_shared_weights(plan: DTPLinPlan, w, W_flat):
+    """(w, W_flat) as the autograd ops take them: a shared-weight plan's
+    ``w`` folded into the rows of ``W_flat`` (outside the op, so autograd
+    carries the folded dW back to both) and replaced by None."""
+    if not plan.shared_weights:
+        return w, W_flat
+    if w.numel() != plan.d_w:
+        raise ValueError(f"shared w must have {plan.d_w} entries")
+    return None, plan.fold_shared(w, W_flat)

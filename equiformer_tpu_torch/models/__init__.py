@@ -5,4 +5,5 @@ from .equiformer import (
     TransBlock,
 )
 from .registry import model_entrypoint, register_model
-from . import qm9_models  # noqa: F401  (registers the entrypoints)
+from . import md17_models, qm9_models  # noqa: F401  (register the entrypoints)
+from .md17_models import energy_and_forces

@@ -1,4 +1,4 @@
-"""Equiformer (QM9 family), training and inference.
+"""Equiformer (QM9 and MD17 families), training and inference.
 
 Counterpart of ``equiformer_tpu.models.equiformer``:
 
@@ -6,8 +6,15 @@ Counterpart of ``equiformer_tpu.models.equiformer``:
 * ``FeedForwardNetwork`` — two FCTPs against the constant node attr with a
   gate in between;
 * ``TransBlock`` — pre-norm residual block;
-* ``GraphAttentionTransformer`` — radius graph, SH + Gaussian RBF,
-  embeddings, N blocks, norm, scalar head and scaled scatter per graph.
+* ``GraphAttentionTransformer`` — radius graph, SH + radial basis
+  (``basis_type``: gaussian, bessel or exp), embeddings, N blocks, norm,
+  scalar head and scaled scatter per graph.
+
+``higher_order_grads`` (default True, as in JAX) routes the fused DTPs to
+the force-path op and the attention tail to the composed segment softmax +
+sum: what a force evaluation (``models/md17_models.py``) differentiates
+through.  The QM9 entrypoints set it False: K2 and the fused attention
+combine, which compute the parameter gradients of training.
 
 ``module.training`` plays the role of JAX's ``deterministic=False``: alpha
 dropout on the attention weights, and the equivariant dropouts and drop path
@@ -41,7 +48,7 @@ from ..nn.attention_utils import heads2vec, heads_irreps, softmax_dropout_combin
 from ..nn.dropout import EquivariantDropout, GraphDropPath
 from ..nn.linear import IrrepsLinear, init_parameters
 from ..nn.norms import EquivariantLayerNorm
-from ..nn.radial import GaussianRadialBasis
+from ..nn.radial import make_rbf
 from ..nn.tp_modules import (
     FCTP,
     EdgeDegreeEmbedding,
@@ -58,9 +65,11 @@ _AVG_DEGREE = 15.57930850982666
 class GraphAttention(nn.Module):
     def __init__(self, irreps_node_input, irreps_edge_attr, irreps_node_output,
                  fc_neurons: Tuple[int, ...], irreps_head, num_heads: int,
-                 alpha_drop: float = 0.1, proj_drop: float = 0.1):
+                 alpha_drop: float = 0.1, proj_drop: float = 0.1,
+                 higher_order_grads: bool = True):
         super().__init__()
         self.alpha_drop = alpha_drop
+        self.higher_order_grads = higher_order_grads
         pre = Irreps(irreps_node_input)
         self.irreps_head = Irreps(irreps_head)
         self.num_heads = H = num_heads
@@ -74,10 +83,12 @@ class GraphAttention(nn.Module):
         sh = Irreps(irreps_edge_attr)
         self.sep_act = SeparableFCTP(pre, sh, pre, fc_neurons=fc_neurons,
                                      use_activation=True, internal_weights=False,
-                                     extra_head_irreps=(irreps_alpha,))
+                                     extra_head_irreps=(irreps_alpha,),
+                                     higher_order_grads=higher_order_grads)
         self.sep_alpha = IrrepsLinear(self.sep_act.dtp.irreps_out, irreps_alpha)
         self.sep_value = SeparableFCTP(pre, sh, irreps_attn_heads, fc_neurons=None,
-                                       use_activation=False, internal_weights=True)
+                                       use_activation=False, internal_weights=True,
+                                       higher_order_grads=higher_order_grads)
         self.alpha_act = normalized_activation("smooth_leaky_relu:0.2")
         self.alpha_dot = nn.Parameter(torch.empty(H, self.mul_alpha_head))
         self.proj = IrrepsLinear(irreps_attn_heads, Irreps(irreps_node_output))
@@ -106,7 +117,8 @@ class GraphAttention(nn.Module):
         alpha = self.alpha_act(alpha)
         alpha = torch.einsum("ehk,hk->eh", alpha, self.alpha_dot.to(alpha.dtype))
         attn = softmax_dropout_combine(alpha, value, edges.dst, edges.mask, num_nodes,
-                                       self.alpha_drop, self.training, rng)
+                                       self.alpha_drop, self.training, rng,
+                                       self.higher_order_grads)
         out = self.proj(heads2vec(self.irreps_head, attn))
         if self.proj_dropout is not None:
             out = self.proj_dropout(out, rng)
@@ -136,13 +148,14 @@ class TransBlock(nn.Module):
     def __init__(self, irreps_node_input, irreps_node_attr, irreps_edge_attr,
                  irreps_node_output, fc_neurons, irreps_head, num_heads: int,
                  irreps_mlp_mid=None, alpha_drop: float = 0.1, proj_drop: float = 0.1,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, higher_order_grads: bool = True):
         super().__init__()
         irreps_in = Irreps(irreps_node_input)
         irreps_out = Irreps(irreps_node_output)
         self.norm_1 = EquivariantLayerNorm(irreps_in)
         self.ga = GraphAttention(irreps_in, irreps_edge_attr, irreps_in, fc_neurons,
-                                 irreps_head, num_heads, alpha_drop, proj_drop)
+                                 irreps_head, num_heads, alpha_drop, proj_drop,
+                                 higher_order_grads)
         self.norm_2 = EquivariantLayerNorm(irreps_in)
         self.ffn = FeedForwardNetwork(irreps_in, irreps_node_attr, irreps_out, irreps_mlp_mid,
                                       proj_drop)
@@ -168,10 +181,10 @@ class TransBlock(nn.Module):
 
 
 class GraphAttentionTransformer(nn.Module):
-    """QM9-style scalar-property Equiformer with nonlinear messages, the
-    Gaussian basis and layer norms; the options keep the JAX package's names
-    and defaults.  The node attribute is the constant ``1x0e``.  In training
-    mode ``forward`` needs ``rng`` when a dropout rate is nonzero."""
+    """Scalar-property Equiformer with nonlinear messages and layer norms;
+    the options keep the JAX package's names and defaults.  The node
+    attribute is the constant ``1x0e``.  In training mode ``forward`` needs
+    ``rng`` when a dropout rate is nonzero."""
 
     def __init__(
         self,
@@ -180,6 +193,7 @@ class GraphAttentionTransformer(nn.Module):
         irreps_sh="1x0e+1x1e+1x2e",
         max_radius: float = 5.0,
         number_of_basis: int = 128,
+        basis_type: str = "gaussian",
         fc_neurons: Tuple[int, ...] = (64, 64),
         irreps_feature="512x0e",
         irreps_head="32x0e+16x1e+8x2e",
@@ -195,6 +209,7 @@ class GraphAttentionTransformer(nn.Module):
         max_edges: int = 8192,
         nodes_per_graph: int = 30,
         compute_dtype: Optional[str] = None,
+        higher_order_grads: bool = True,
         seed: int = 0,
     ):
         super().__init__()
@@ -210,13 +225,15 @@ class GraphAttentionTransformer(nn.Module):
         feat = Irreps(irreps_feature)
         fc = (number_of_basis,) + tuple(fc_neurons)
 
-        self.rbf = GaussianRadialBasis(number_of_basis, max_radius)
+        self.rbf = make_rbf(basis_type, number_of_basis, max_radius)
         self.atom_embed = NodeEmbedding(emb, max_atom_type)
-        self.edge_deg_embed = EdgeDegreeEmbedding(emb, self.irreps_sh, fc, avg_degree)
+        self.edge_deg_embed = EdgeDegreeEmbedding(emb, self.irreps_sh, fc, avg_degree,
+                                                  higher_order_grads)
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransBlock(
                 emb, "1x0e", self.irreps_sh, feat if i == num_layers - 1 else emb, fc,
-                irreps_head, num_heads, irreps_mlp_mid, alpha_drop, proj_drop, drop_path_rate))
+                irreps_head, num_heads, irreps_mlp_mid, alpha_drop, proj_drop, drop_path_rate,
+                higher_order_grads))
         self.num_layers = num_layers
         self.norm = EquivariantLayerNorm(feat)
         self.out_dropout = EquivariantDropout(feat, out_drop) if out_drop != 0.0 else None

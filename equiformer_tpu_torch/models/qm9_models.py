@@ -31,6 +31,7 @@ def graph_attention_transformer_nonlinear_l2(radius=5.0, num_basis=128, alpha_dr
         out_drop=out_drop,
         drop_path_rate=drop_path_rate,
         max_atom_type=5,
+        higher_order_grads=False,  # QM9 training never differentiates through pos
         **kwargs,
     )
     return model.to(resolve_device(device))

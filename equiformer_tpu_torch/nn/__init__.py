@@ -3,7 +3,13 @@ from .dropout import EquivariantDropout, EquivariantScalarsDropout, GraphDropPat
 from .attention_utils import heads2vec, heads_irreps, softmax_dropout_combine, vec2heads
 from .linear import IrrepsLinear, ScalarMLP, init_parameters
 from .norms import EquivariantLayerNorm
-from .radial import GaussianRadialBasis, RadialProfile
+from .radial import (
+    BesselRadialBasis,
+    ExpNormalBasis,
+    GaussianRadialBasis,
+    RadialProfile,
+    make_rbf,
+)
 from .tp_modules import (
     DTPLayer,
     EdgeDegreeEmbedding,

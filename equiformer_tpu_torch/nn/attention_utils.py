@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.irreps import Irreps
+from ..graph.segment import segment_softmax, segment_sum
 from ..kernels.attn_csr import attn_combine, attn_combine_plain
 from .dropout import dropout_multiplier
 
@@ -50,19 +51,27 @@ def heads_irreps(irreps_head: Irreps, num_heads: int) -> Irreps:
 
 def softmax_dropout_combine(alpha: torch.Tensor, value: torch.Tensor, dst: torch.Tensor,
                             mask: torch.Tensor, num_nodes: int, alpha_drop: float = 0.0,
-                            training: bool = False, rng=None) -> torch.Tensor:
+                            training: bool = False, rng=None,
+                            higher_order: bool = False) -> torch.Tensor:
     """``segment_sum(segment_softmax(alpha, dst) * dropmul * value, dst)``.
 
     alpha [E, H] logits, value [E, H, D], dst-sorted edges.  In training
     with ``alpha_drop`` > 0, ``dropmul`` = keep mask [E, H] / keep, drawn
     from ``rng`` or injected through it (``nn/dropout.py``); else 1.
-    H*D >= 128 takes the fused combine (``kernels/attn_csr.py``), narrower
-    ones the composed ops — the JAX package's rule.
+    With ``higher_order`` (the force models) it is always the composed
+    segment softmax and ``segment_sum`` (the CSR kernel at >= 128 columns);
+    otherwise H*D >= 128 takes the fused combine (``kernels/attn_csr.py``)
+    and narrower ones the composed ops — the JAX package's rule.
     """
     H, D = value.shape[1], value.shape[2]
     dropmul = None
     if training and alpha_drop != 0.0:
         dropmul = dropout_multiplier(rng, alpha.shape, alpha_drop, alpha.dtype, alpha.device)
+    if higher_order:
+        p = segment_softmax(alpha, dst, num_nodes, mask=mask)
+        if dropmul is not None:
+            p = p * dropmul
+        return segment_sum(value * p[..., None], dst, num_nodes, mask=mask)
     if H * D >= FUSED_MIN_COLS:
         return attn_combine(alpha, value, dst, num_nodes, mask=mask, dropmul=dropmul)
     return attn_combine_plain(alpha, value, dst, num_nodes, mask=mask, dropmul=dropmul)

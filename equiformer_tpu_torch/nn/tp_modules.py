@@ -8,9 +8,12 @@ Counterparts of ``equiformer_tpu.nn.tp_modules``:
   shared-weight DTP;
 * ``SeparableFCTP`` — depthwise TP (per-edge radial weights, or internal
   shared ones) -> per-irrep linear heads -> optional gate.  The TP and the
-  heads always run as one fused, differentiable op (``kernels/dtp_lin.py``):
-  the CUDA kernels on the card (K1 forward, K2 backward), their plain
-  versions on the CPU;
+  heads always run as one fused, differentiable op: with
+  ``higher_order_grads`` (the JAX package's default, for force models) the
+  force-path op ``kernels/dtp_lin_ho.py`` (K1 forward, K5a backward: dx, dsh
+  and dw), without it ``kernels/dtp_lin.py`` (K1 forward, K2 backward: dx,
+  dw and the head weights' gradient); the CUDA kernels on the card, their
+  plain versions on the CPU;
 * ``NodeEmbedding`` / ``EdgeDegreeEmbedding``.
 
 Submodule and parameter names follow the flax scopes, so weight conversion
@@ -28,6 +31,7 @@ from ..core.irreps import Irreps
 from ..core.tensor_product import TensorProduct, depthwise_tp, fully_connected_tp
 from ..graph.segment import active_edge_bound, scaled_scatter_sum
 from ..kernels.dtp_lin import DTPLinPlan, dtp_lin
+from ..kernels.dtp_lin_ho import dtp_lin_ho
 from .activation import Activation, Gate, gate_for, irreps2gate
 from .linear import IrrepsLinear
 from .radial import RadialProfile
@@ -120,9 +124,10 @@ class SeparableFCTP(nn.Module):
     def __init__(self, irreps_node, irreps_edge, irreps_out,
                  fc_neurons: Optional[Tuple[int, ...]] = None,
                  use_activation: bool = False, internal_weights: bool = False,
-                 extra_head_irreps: Sequence = ()):
+                 extra_head_irreps: Sequence = (), higher_order_grads: bool = True):
         super().__init__()
         irreps_out = Irreps(irreps_out)
+        self.fused_op = dtp_lin_ho if higher_order_grads else dtp_lin
         self.internal_weights = internal_weights
         self.use_activation = use_activation
         self.dtp = DTPLayer(irreps_node, irreps_edge, irreps_out,
@@ -157,7 +162,7 @@ class SeparableFCTP(nn.Module):
             weights = self.dtp.w.to(dtype)
         W = self.plan.pack_weights(
             [[None if w is None else w.to(dtype) for w in h.weight_list()] for h in heads])
-        out = dtp_lin(self.plan, node_on_edge, edge_attr, weights, W, n_edges)
+        out = self.fused_op(self.plan, node_on_edge, edge_attr, weights, W, n_edges)
         outs = [h.add_bias(o) for h, o in zip(heads, self.plan.split_output(out))]
         return outs if extra_heads else outs[0]
 
@@ -191,10 +196,11 @@ class EdgeDegreeEmbedding(nn.Module):
     -> linear -> scaled scatter onto destinations."""
 
     def __init__(self, irreps_out, irreps_edge, fc_neurons: Tuple[int, ...],
-                 avg_degree: float):
+                 avg_degree: float, higher_order_grads: bool = True):
         super().__init__()
         irreps_out = Irreps(irreps_out)
         self.avg_degree = avg_degree
+        self.fused_op = dtp_lin_ho if higher_order_grads else dtp_lin
         self.exp = IrrepsLinear(Irreps("1x0e"), irreps_out)
         tp = depthwise_tp(irreps_out, Irreps(irreps_edge), irreps_out)
         self.rad = RadialProfile(fc_neurons[0], tuple(fc_neurons[1:]) + (tp.weight_numel,))
@@ -211,7 +217,7 @@ class EdgeDegreeEmbedding(nn.Module):
         dtype = edge_attr.dtype
         W = self.plan.pack_weights(
             [[None if w_ is None else w_.to(dtype) for w_ in self.proj.weight_list()]])
-        out = dtp_lin(self.plan, feat_e, edge_attr, w, W, active_edge_bound(edge_mask))
+        out = self.fused_op(self.plan, feat_e, edge_attr, w, W, active_edge_bound(edge_mask))
         edge_feat = self.proj.add_bias(self.plan.split_output(out)[0])
         return scaled_scatter_sum(edge_feat, edge_dst, num_nodes, self.avg_degree,
                                   mask=edge_mask)

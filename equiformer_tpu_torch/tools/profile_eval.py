@@ -1,6 +1,6 @@
-"""Where the time of the flagship's eval forward or training step goes, on one GPU.
+"""Where the time of an eval forward, a training step or a force evaluation goes, on one GPU.
 
-    python -m equiformer_tpu_torch.tools.profile_eval [--train] [--out FILE]
+    python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17] [--out FILE]
 
 Builds ``graph_attention_transformer_nonlinear_l2`` at full width with a
 seeded init, on 4 batches of 128 QM9-like graphs (30 node slots each,
@@ -8,8 +8,10 @@ seeded init, on 4 batches of 128 QM9-like graphs (30 node slots each,
 ``chip_smoke.py``).  The unit is one ``evaluate`` forward, or with
 ``--train`` one step of ``make_qm9_steps`` (AdamW with the no-decay mask,
 ``cosine_warmup_schedule(5e-4, 100, 100000)``, weight decay 5e-3, alpha
-dropout 0.2 from a CUDA generator, EMA 0.999).  For float32 and bfloat16,
-per unit:
+dropout 0.2 from a CUDA generator, EMA 0.999).  With ``--md17`` the model is
+``graph_attention_transformer_nonlinear_exp_l3_md17`` on 4 batches of 8
+md17-like molecules (21 slots) and the unit one ``evaluate_md17`` (energies
+and forces).  For float32 and bfloat16, per unit:
 
 * ``wall_ms``: one pass over the batches, ending in a synchronize, divided
   by the batch count (median of 5 passes, no profiler);
@@ -36,15 +38,23 @@ from pathlib import Path
 
 import torch
 
-from .. import cosine_warmup_schedule, create_optimizer, evaluate, make_qm9_steps, model_entrypoint
-from ..data import GraphLoader, qm9_like_dataset
+from .. import (
+    cosine_warmup_schedule,
+    create_optimizer,
+    evaluate,
+    evaluate_md17,
+    make_qm9_steps,
+    model_entrypoint,
+)
+from ..data import GraphLoader, md17_like_dataset, qm9_like_dataset
 from ..train import TrainState
 from ..graph.radius_graph import radius_graph_dense
 
-BATCH = 128
 N_BATCHES = 4
-SLOTS = 30
 SEED = 0
+# model, graphs per batch, node slots per graph
+QM9 = ("graph_attention_transformer_nonlinear_l2", 128, 30)
+MD17 = ("graph_attention_transformer_nonlinear_exp_l3_md17", 8, 21)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 
@@ -82,8 +92,10 @@ def trace_summary(path: Path, n_forwards: int) -> dict:
 
 
 def profile(run, batches, tag: str) -> dict:
-    """``run(batch)`` is one unit: an eval forward or a training step."""
+    """``run(batch)`` is one unit: an eval forward, a training step or a
+    force evaluation."""
     n = len(batches)
+    graphs = int(batches[0].graph_mask.shape[0])
     for b in batches:  # warm-up
         run(b)
     torch.cuda.synchronize()
@@ -111,7 +123,7 @@ def profile(run, batches, tag: str) -> dict:
     prof.export_chrome_trace(str(path))
     wall = statistics.median(walls)
     trace = trace_summary(path, n)
-    return {"wall_ms": wall, "wall_ms_passes": walls, "graphs_per_s": BATCH * 1e3 / wall,
+    return {"wall_ms": wall, "wall_ms_passes": walls, "graphs_per_s": graphs * 1e3 / wall,
             "enqueue_ms": statistics.median(enqueue),
             "idle_share": 1.0 - trace["device_busy_ms"] / wall, **trace}
 
@@ -119,6 +131,11 @@ def profile(run, batches, tag: str) -> dict:
 def eval_unit(model):
     model.eval()
     return lambda b: evaluate(model, b)
+
+
+def md17_unit(model):
+    model.eval()
+    return lambda b: evaluate_md17(model, b)
 
 
 def train_unit(model):
@@ -131,7 +148,10 @@ def train_unit(model):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--train", action="store_true", help="profile training steps")
+    unit_arg = ap.add_mutually_exclusive_group()
+    unit_arg.add_argument("--train", action="store_true", help="profile QM9 training steps")
+    unit_arg.add_argument("--md17", action="store_true",
+                          help="profile MD17 energy + force evaluations")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -144,21 +164,30 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    data = qm9_like_dataset(BATCH * N_BATCHES, seed=SEED)
-    batches = list(GraphLoader(data, BATCH, SLOTS, shuffle=False))
-    counts = [int(radius_graph_dense(b.pos, b.node_mask, BATCH, 5.0, BATCH * SLOTS * SLOTS)
+    model_name, batch, slots = MD17 if args.md17 else QM9
+    if args.md17:
+        data = md17_like_dataset(batch * N_BATCHES, num_atoms=slots, seed=SEED)
+    else:
+        data = qm9_like_dataset(batch * N_BATCHES, seed=SEED)
+    batches = list(GraphLoader(data, batch, slots, shuffle=False, with_forces=args.md17))
+    counts = [int(radius_graph_dense(b.pos, b.node_mask, batch, 5.0, batch * slots * slots)
                   .mask.sum()) for b in batches]
     max_edges = -(-max(counts) // 128) * 128
     gpu = [b.to(dev) for b in batches]
-    make = model_entrypoint("graph_attention_transformer_nonlinear_l2")
-    unit = "train" if args.train else "eval"
+    make = model_entrypoint(model_name)
+    unit = "train" if args.train else "md17" if args.md17 else "eval"
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "unit": unit, "batch": BATCH, "batches": N_BATCHES, "real_edges": counts,
-              "max_edges": max_edges}
+              "model": model_name, "unit": unit, "batch": batch, "batches": N_BATCHES,
+              "real_edges": counts, "max_edges": max_edges}
     for name in ("float32", "bfloat16"):
-        model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED, device=dev,
+        model = make(max_edges=max_edges, nodes_per_graph=slots, seed=SEED, device=dev,
                      compute_dtype=None if name == "float32" else name)
-        run = train_unit(model) if args.train else eval_unit(model)
+        if args.train:
+            run = train_unit(model)
+        elif args.md17:
+            run = md17_unit(model)
+        else:
+            run = eval_unit(model)
         report[name] = profile(run, gpu, f"{unit}_{name}")
         del model, run
     text = json.dumps(report, indent=1)

@@ -1,10 +1,12 @@
-"""Training and evaluation steps for scalar-property (QM9-style) models.
+"""Training and evaluation steps.
 
-Counterpart of ``equiformer_tpu.train.engine.make_qm9_steps``: L1 (or L2)
-loss on the normalized targets, masked over the padded graph slots, AdamW,
-EMA, and the MAE.  ``evaluate`` is the eval step: the eval-mode forward plus
-the MAE sums over the real graphs of the batch.  Data parallelism is not
-ported yet.
+Counterpart of ``equiformer_tpu.train.engine``.  ``make_qm9_steps``: L1 (or
+L2) loss on the normalized targets, masked over the padded graph slots,
+AdamW, EMA, and the MAE.  ``evaluate`` is its eval step: the eval-mode
+forward plus the MAE sums over the real graphs of the batch.
+``evaluate_md17`` is the eval step of ``make_md17_steps``: energies and
+forces plus their MAE sums; force training (``make_md17_steps`` itself, a
+grad-of-grad) and data parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Dict, Optional
 import torch
 
 from ..graph.batching import GraphsTuple
+from ..models.md17_models import energy_and_forces
 from .optim import ema_update
 from .state import TrainState
 
@@ -33,6 +36,24 @@ def evaluate(model: torch.nn.Module, batch: GraphsTuple, task_mean: float = 0.0,
     err = pred * task_std + task_mean - batch.y.to(pred.dtype)
     gm = batch.graph_mask.to(pred.dtype)
     return {"pred": pred, "mae_sum": torch.sum(torch.abs(err) * gm), "count": torch.sum(gm)}
+
+
+def evaluate_md17(model: torch.nn.Module, batch: GraphsTuple, task_mean: float = 0.0,
+                  task_std: float = 1.0) -> Dict[str, torch.Tensor]:
+    """Energies [G] and forces [N, 3] of the eval-mode model (normalized
+    units), and ``mae_e_sum`` / ``count_e`` over the real graphs and
+    ``mae_f_sum`` / ``count_f`` over the force components of the real atoms,
+    against ``batch.y`` and ``batch.forces``.  Differentiates with respect to
+    the positions only (``energy_and_forces``), even under ``no_grad``."""
+    model.eval()
+    energy, forces = energy_and_forces(model, batch)
+    e_err = energy * task_std + task_mean - batch.y.to(energy.dtype)
+    f_err = forces * task_std - batch.forces.to(forces.dtype)
+    gm = batch.graph_mask.to(energy.dtype)
+    fmask = batch.node_mask.to(forces.dtype)[:, None].expand_as(forces)
+    return {"energy": energy, "forces": forces,
+            "mae_e_sum": torch.sum(torch.abs(e_err) * gm), "count_e": torch.sum(gm),
+            "mae_f_sum": torch.sum(torch.abs(f_err) * fmask), "count_f": torch.sum(fmask)}
 
 
 def make_qm9_steps(model: torch.nn.Module, optimizer, task_mean: float = 0.0,

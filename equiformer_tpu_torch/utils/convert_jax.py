@@ -12,7 +12,8 @@ mechanical:
   ``block_0.ga.sep_act.lin.w0``);
 * flax ``Dense`` ``kernel`` [in, out] -> torch ``Linear`` ``weight`` [out, in];
 * flax ``LayerNorm`` ``scale`` -> torch ``LayerNorm`` ``weight``;
-* the auto-named RBF scope ``GaussianRadialBasis_0`` -> ``rbf``.
+* the auto-named RBF scopes ``GaussianRadialBasis_0`` and
+  ``BesselRadialBasis_0`` -> ``rbf`` (the exp basis has no parameters).
 
 Every leaf must be used exactly once and every port parameter set.
 """
@@ -24,8 +25,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-_SCOPE_RENAMES = {"GaussianRadialBasis_0": "rbf"}
-_SCOPE_NAMES = {v: k for k, v in _SCOPE_RENAMES.items()}
+_SCOPE_RENAMES = {"GaussianRadialBasis_0": "rbf", "BesselRadialBasis_0": "rbf"}
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -60,7 +60,10 @@ def flax_paths(model: torch.nn.Module) -> Dict[str, tuple]:
             leaf = "kernel"
         elif leaf == "weight" and isinstance(owner, torch.nn.LayerNorm):
             leaf = "scale"
-        path = tuple(_SCOPE_NAMES.get(p, p) for p in parts[:-1]) + (leaf,)
+        # the RBF's auto-named flax scope is its class name
+        path = tuple(f"{type(model.get_submodule('.'.join(parts[: i + 1]))).__name__}_0"
+                     if p in _SCOPE_RENAMES.values() else p
+                     for i, p in enumerate(parts[:-1])) + (leaf,)
         if torch_name(path) != name:
             raise ValueError(f"{name}: no flax path maps back to it")
         out[name] = path

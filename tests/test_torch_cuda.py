@@ -138,7 +138,8 @@ def test_reduced_model_on_card_matches_cpu(dev):
 
     cfg = dict(irreps_node_embedding="16x0e+8x1e+4x2e", num_layers=2, number_of_basis=32,
                fc_neurons=(16, 16), irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e",
-               num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", max_edges=1024)
+               num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", max_edges=1024,
+               higher_order_grads=False)
     batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, 30, shuffle=False)))
     cpu = GraphAttentionTransformer(**cfg).eval()
     ref = pt.evaluate(cpu, batch)["pred"]
@@ -219,7 +220,8 @@ def test_reduced_train_step_on_card_matches_cpu(dev):
 
     cfg = dict(irreps_node_embedding="16x0e+8x1e+4x2e", num_layers=2, number_of_basis=32,
                fc_neurons=(16, 16), irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e",
-               num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", max_edges=1024)
+               num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", max_edges=1024,
+               higher_order_grads=False)
     batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, 30, shuffle=False)))
     keep = [torch.rand(1024, 4, generator=torch.Generator().manual_seed(i)) < 0.8
             for i in range(2)]
@@ -241,3 +243,81 @@ def test_reduced_train_step_on_card_matches_cpu(dev):
         assert abs(float(mg[k]) - float(mc[k])) < 1e-4 * abs(float(mc[k]))
     scale = max(float(p.abs().max()) for p in pc.values())
     assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-4 * scale
+
+
+# The three call sites of the force backward (K5a) at small L3 widths:
+# (head irreps, shared weights, row-broadcast x without dx)
+L3_IRR = "16x0e+8x1e+8x2e+4x3e"
+L3_SH = "1x0e+1x1e+1x2e+1x3e"
+BWD3_SITES = {
+    "sep_act": (["36x0e+8x1e+8x2e+4x3e", "8x0e"], False, False),
+    "sep_value": ([L3_IRR], True, False),
+    "edge_deg": ([L3_IRR], False, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("site", list(BWD3_SITES))
+def test_dtp_lin_bwd3_kernel_matches_plain(dev, site, dtype):
+    """K5a against dtp_lin_bwd3_plain on the same operands: dx (not asked
+    for at the broadcast site), dsh and dw; rows past n_edges get zeros; a
+    second call gives the same bits (no atomics)."""
+    from equiformer_tpu_torch.kernels import dtp_lin_bwd3, dtp_lin_bwd3_plain
+
+    heads, shared, broadcast = BWD3_SITES[site]
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(2)
+    plan = DTPLinPlan(depthwise_tp(Irreps(L3_IRR), Irreps(L3_SH), Irreps(L3_IRR)), heads,
+                      shared_weights=shared)
+    E = 300
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+    x = rnd(1, plan.d_x).expand(E, plan.d_x) if broadcast else rnd(E, plan.d_x)
+    sh, W, cot = rnd(E, plan.d_sh), rnd(plan.w_numel), rnd(E, plan.d_out)
+    w = None if shared else rnd(E, plan.d_w)
+    n = torch.tensor(250, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    k = dtp_lin_bwd3(plan, x, sh, w, W, cot, n, need_dx=not broadcast)
+    assert dtp_lin_bwd3.launches == 1
+    p = dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n)
+    torch.cuda.synchronize()
+    assert (k[0] is None) == broadcast and (k[2] is None) == shared
+    for a, b in zip(k, p):
+        if a is not None:
+            assert a.dtype == dt
+            assert _rel(a, b) < TOL[dtype]
+            assert float(a[250:].abs().max()) == 0.0
+    again = dtp_lin_bwd3(plan, x, sh, w, W, cot, n, need_dx=not broadcast)
+    for a, b in zip(k, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_reduced_md17_forces_on_card_match_cpu(dev):
+    """Energies and forces of a reduced L3 force model (2 blocks, exp basis)
+    on the card against the CPU plain path, fp32: within 1e-4 of the
+    largest; one force evaluation launches 5 K1 and 5 K5a and no K2 / K4."""
+    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
+    from equiformer_tpu_torch.kernels import dtp_lin_bwd3
+    from equiformer_tpu_torch.models import md17_models
+    from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer
+    from equiformer_tpu_torch.train import evaluate_md17
+
+    cfg = dict(irreps_node_embedding=L3_IRR, num_layers=2, irreps_sh=L3_SH,
+               number_of_basis=32, basis_type="exp", fc_neurons=(16, 16),
+               irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e+2x3e", num_heads=4,
+               irreps_mlp_mid="24x0e+12x1e+12x2e+6x3e", alpha_drop=0.0, max_atom_type=64,
+               avg_num_nodes=md17_models._AVG_NUM_NODES_MD17,
+               avg_degree=md17_models._AVG_DEGREE_MD17, max_edges=1024, nodes_per_graph=21)
+    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, 21, shuffle=False,
+                                  with_forces=True)))
+    out = []
+    for d in ("cpu", dev):
+        model = GraphAttentionTransformer(**cfg).to(d)
+        reset_launch_counts()
+        r = evaluate_md17(model, batch.to(d))
+        out.append((r["energy"].cpu(), r["forces"].cpu()))
+    assert (dtp_lin_fwd.launches, dtp_lin_bwd3.launches, dtp_lin_bwd.launches,
+            attn_combine.launches) == (5, 5, 0, 0)
+    (ec, fc), (eg, fg) = out
+    assert _rel(eg, ec) < 1e-4 and _rel(fg, fc) < 1e-4

@@ -85,6 +85,7 @@ def test_edge_vectors_match(dt):
     vj, lj = jr.edge_vectors(jnp.asarray(pos), e_j)
     tbat = tb.collate_dense(data, 30).to(dtype=tdt)
     e_t = tr.radius_graph_dense(tbat.pos, tbat.node_mask, 3, 5.0, 1024)
+    e_t = e_t._replace(rev=tr.reverse_edge_perm_dense(e_t, 3, 30))
     vt, lt = tr.edge_vectors(tbat.pos, e_t)
     assert _rel(vt.numpy(), vj) < tol and _rel(lt.numpy(), lj) < tol
     assert float(lt[~e_t.mask].abs().max()) == 0.0

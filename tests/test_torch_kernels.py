@@ -396,3 +396,167 @@ def test_attn_den_plain_is_the_softmax_denominator():
     want = torch.zeros(N, H).index_add_(0, torch.from_numpy(dst).long(), ex).clamp_min(1e-16)
     assert den.dtype == torch.float32 and out.shape == (N, H, D)
     assert _rel(den.numpy(), want.numpy()) < 1e-6
+
+
+# ------------------------------------------------------- force backward (K5a)
+# dtp_lin_bwd3_plain (dx, dsh and dw from the cotangent of the fused output)
+# against autograd of dtp_lin_plain and against jax.vjp of the higher-order
+# Pallas op in interpret mode, whose transpose binds _bwd3_kernel when two
+# or more edge operands carry tangents.
+BWD3_CASES = {**BWD_CASES, "l3": ([LIN_OUT + "+2x3e"], False, False)}
+E_BWD3, N_REAL_BWD3 = 64, 50
+
+
+def _bwd3_inputs(case, dtype, E=70, seed=4):
+    heads, shared, broadcast = BWD3_CASES[case]
+    irr, sh_irr = (IRR + "+2x3e", SH + "+1x3e") if case == "l3" else (IRR, SH)
+    plan = DTPLinPlan(depthwise_tp(Irreps(irr), Irreps(sh_irr), Irreps(irr)), heads,
+                      shared_weights=shared)
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=dtype)  # noqa: E731
+    x = rnd(1, plan.d_x).expand(E, plan.d_x) if broadcast else rnd(E, plan.d_x)
+    w = None if shared else rnd(E, plan.d_w)
+    return plan, x, rnd(E, plan.d_sh), w, rnd(plan.w_numel), rnd(E, plan.d_out)
+
+
+@pytest.mark.parametrize("case", list(BWD3_CASES))
+def test_dtp_lin_bwd3_plain_matches_autograd_fp64(case):
+    """dx, dsh and dw of the written-out force backward equal torch autograd
+    of dtp_lin_plain (the folded-weight form for the shared case) to 1e-12
+    relative; rows past n_edges get zeros."""
+    from equiformer_tpu_torch.kernels import dtp_lin_bwd3_plain
+
+    plan, x, sh, w, W, g = _bwd3_inputs(case, torch.float64)
+    n = torch.tensor(61, dtype=torch.int32)
+    ins = [t.clone().requires_grad_() for t in (x, sh) + (() if w is None else (w,))]
+    out = dtp_lin_plain(plan, ins[0], ins[1], None if w is None else ins[2], W, n)
+    ref = torch.autograd.grad(out, ins, g)
+    dx, dsh, dw = dtp_lin_bwd3_plain(plan, x, sh, w, W, g, n)
+    assert (dw is None) == (w is None)
+    for got, want in zip((dx, dsh, dw), ref):
+        assert got.dtype == torch.float64
+        assert _rel(got.numpy(), want.numpy()) < 1e-12
+    assert float(dx[61:].abs().max()) == 0.0 and float(dsh[61:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", [pytest.param("two-head", marks=pytest.mark.slow), "shared-w"])
+def test_dtp_lin_bwd3_plain_matches_pallas_interpret_vjp(case):
+    """jax.vjp of make_fused_dtp_lin_ho in interpret mode (its _bwd3_kernel
+    for the grouped x / sh / w tangents) against the port's op on the CPU,
+    dx / dsh / dw within 1e-5 relative in fp32 on the real rows.  One TPU
+    edge tile (64 in fp32); interpret mode still takes ~20 s for three
+    tangents, so the per-edge case is in the slow tier."""
+    import jax
+    from equiformer_tpu.kernels.dtp_lin_ho import make_fused_dtp_lin_ho
+    from equiformer_tpu_torch.kernels import dtp_lin_ho
+
+    heads, shared, x, sh, w, head_ws = _dtp_case(case, np.float32, seed=6, E=E_BWD3)
+    jplan = JPlan(j_dtp(JIrreps(IRR), JIrreps(SH), JIrreps(IRR)), [JIrreps(h) for h in heads],
+                  fold_rescale=not shared, shared_weights=shared, needs_dsh=True)
+    fused = make_fused_dtp_lin_ho(jplan, tile=128, interpret=True)
+    Ws = jplan.pack_weights([[None if a is None else jnp.asarray(a) for a in ws]
+                             for ws in head_ws])
+    if shared:  # the shared w is a constant: tangents on x and sh only
+        out, vjp = jax.vjp(lambda x, s: fused(x, s, jnp.asarray(w), Ws, n_edges=N_REAL_BWD3),
+                           jnp.asarray(x), jnp.asarray(sh))
+    else:
+        out, vjp = jax.vjp(lambda x, s, w: fused(x, s, w, Ws, n_edges=N_REAL_BWD3),
+                           jnp.asarray(x), jnp.asarray(sh), jnp.asarray(w))
+    g = np.random.default_rng(7).normal(size=out.shape).astype(np.float32)
+    g[N_REAL_BWD3:] = 0.0
+    jgrads = vjp(jnp.asarray(g))
+
+    tp = depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR))
+    plan = DTPLinPlan(tp, heads, shared_weights=shared)
+    W = plan.pack_weights([[None if a is None else torch.from_numpy(a) for a in ws]
+                           for ws in head_ws])
+    ins = [torch.from_numpy(a).requires_grad_() for a in ((x, sh) if shared else (x, sh, w))]
+    tw = torch.from_numpy(w) if shared else ins[2]
+    dtp_lin_ho(plan, ins[0], ins[1], tw, W, torch.tensor(N_REAL_BWD3, dtype=torch.int32)) \
+        .backward(torch.from_numpy(g))
+    for t, j in zip(ins, jgrads):
+        assert _rel(t.grad.numpy(), j, rows=N_REAL_BWD3) < 1e-5
+
+
+def _emulate_bwd3_kernel(plan, x, sh, w, W_flat, g, n_edges, tile=16, warps=8):
+    """csrc/dtp_lin_bwd3.cu's loop over ``bwd3_tables``, in torch, one edge
+    tile at a time: the staged cotangent, dz through the packed W^T, then
+    per row (warp) the terms in table order, with the running dsh sum added
+    to the row at each SH column change, and the per-group dw flush."""
+    from equiformer_tpu_torch.kernels.dtp_lin_ho import bwd3_tables
+
+    gk, terms, coeffs, dwmap, wt_index, span_max, _ = bwd3_tables(plan, torch.device("cpu"))
+    gk, terms, coeffs, dwmap = gk.tolist(), terms.tolist(), coeffs.tolist(), dwmap.tolist()
+    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+    E = x.shape[0]
+    dx = torch.zeros(E, plan.d_x, dtype=x.dtype)
+    dsh = torch.zeros(E, plan.d_sh, dtype=x.dtype)
+    dw = None if w is None else torch.zeros(E, plan.d_w, dtype=x.dtype)
+    for e0 in range(0, min(E, n_edges), tile):
+        n_live = min(tile, n_edges - e0)
+        dxs = torch.zeros(n_live, plan.d_x, dtype=x.dtype)
+        dshs = torch.zeros(n_live, plan.d_sh, dtype=x.dtype)
+        dws = torch.zeros(n_live, max(span_max, 1), dtype=x.dtype)
+        for fs, cols, out_col, _, tb, te, wt_off, cp, sb, sn, first, last in gk:
+            if first:
+                dws.zero_()
+            gt = torch.zeros(n_live, cp, dtype=x.dtype)
+            gt[:, :cols] = g[e0 : e0 + n_live, out_col : out_col + cols]
+            dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
+            for r0 in range(warps):
+                for r in range(r0, n_live, warps):
+                    e, run, cur = e0 + r, 0.0, -1
+                    for (a, col, b, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
+                        if col != cur:
+                            if cur >= 0:
+                                dshs[r, cur] += run
+                            run, cur = 0.0, col
+                        d = dz[r, fc : fc + mul]
+                        xv = x[e, a : a + mul]
+                        wv = 1.0 if w is None else w[e, b : b + mul]
+                        dxs[r, a : a + mul] += c * sh[e, col] * wv * d
+                        if w is not None:
+                            dws[r, bl : bl + mul] += c * sh[e, col] * xv * d
+                        run = run + float(torch.sum(c * xv * wv * d))
+                    if cur >= 0:
+                        dshs[r, cur] += run
+            if w is not None and last:
+                dw[e0 : e0 + n_live, dwmap[sb : sb + sn]] = dws[:, :sn]
+        dx[e0 : e0 + n_live] = dxs
+        dsh[e0 : e0 + n_live] = dshs
+    return dx, dsh, dw
+
+
+@pytest.mark.parametrize("case", ["two-head", "shared-w", "broadcast-x", "dead-w-cols", "l3"])
+def test_dtp_lin_bwd3_tables_drive_the_plain_math(case):
+    """The CUDA force backward cannot run here; its tables can.  Walking
+    them the way the kernel does gives dtp_lin_bwd3_plain's dx, dsh and dw
+    (fp64 inputs, the tables' fp32 CG coefficients: 1e-6 relative)."""
+    from equiformer_tpu_torch.kernels import dtp_lin_bwd3_plain
+
+    plan, x, sh, w, W, g = _bwd3_inputs(case, torch.float64, E=40, seed=5)
+    want = dtp_lin_bwd3_plain(plan, x, sh, w, W, g, torch.tensor(37, dtype=torch.int32))
+    got = _emulate_bwd3_kernel(plan, x, sh, w, W, g, 37)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert _rel(a.numpy(), b.numpy()) < 1e-6
+
+
+def test_dtp_lin_ho_refuses_the_training_gradients():
+    """The force op computes dx, dsh and dw only: a gradient of the packed
+    head weights, or a backward under create_graph=True, is the unported
+    grad-of-grad path and raises NotImplementedError (never a fallback)."""
+    from equiformer_tpu_torch.kernels import dtp_lin_bwd3, dtp_lin_ho
+
+    plan, x, sh, w, W, g = _bwd3_inputs("per-edge", torch.float32)
+    sh = sh.requires_grad_()
+    out = dtp_lin_ho(plan, x, sh, w, W.requires_grad_())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        torch.autograd.grad(out, sh, g)
+    out = dtp_lin_ho(plan, x, sh, w, W.detach())
+    with pytest.raises(NotImplementedError, match="create_graph"):
+        torch.autograd.grad(out, sh, g, create_graph=True)
+    reset_launch_counts()
+    (dsh,) = torch.autograd.grad(dtp_lin_ho(plan, x, sh, w, W.detach()), sh, g)
+    assert dsh.shape == sh.shape and dtp_lin_bwd3.launches == 0  # CPU: the plain version

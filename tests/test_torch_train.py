@@ -98,7 +98,7 @@ def dead(reduced):
     """{name: bool array}: elements whose float64 gradient of the first
     step's loss is zero up to rounding (1e-12 of the largest)."""
     _, tree, data = reduced
-    tm = TModel(**REDUCED, alpha_drop=0.0).double()
+    tm = TModel(**REDUCED, higher_order_grads=False, alpha_drop=0.0).double()
     params_from_jax(tm, tree)
     b = t_collate(data, 30).to(dtype=torch.float64)
     err = tm.train()(b) - (b.y - MEAN) / STD
@@ -146,7 +146,7 @@ def test_adamw_updates_match_optax_fp64(reduced):
     jcfg, tree, _ = reduced
     p64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
     opt = jopt.create_optimizer(jopt.cosine_warmup_schedule(LR, WARMUP, TOTAL), weight_decay=WD)
-    tm = TModel(**REDUCED, alpha_drop=0.0).double()
+    tm = TModel(**REDUCED, higher_order_grads=False, alpha_drop=0.0).double()
     params_from_jax(tm, p64)
     topt = pt.create_optimizer(pt.cosine_warmup_schedule(LR, WARMUP, TOTAL), weight_decay=WD)
     tstate = topt.init(tm)
@@ -177,7 +177,7 @@ def test_ema_update_matches(reduced):
 
 def test_ema_from_jax_fills_the_ema_copy_only(reduced):
     _, tree, _ = reduced
-    tm = TModel(**REDUCED)
+    tm = TModel(**REDUCED, higher_order_grads=False)
     params_from_jax(tm, tree)
     state = pt.TrainState.create(tm, pt.create_optimizer(pt.cosine_warmup_schedule(LR, 1, 2)))
     other = _random_like(tree, 8)
@@ -202,7 +202,7 @@ def test_training_steps_match_make_qm9_steps(reduced, dead, case):
     jst = jstate.TrainState.create(p, opt)
     jb = _jax_batch(data, npdt)
 
-    tm = TModel(**REDUCED, alpha_drop=0.0, compute_dtype=compute).to(tdt)
+    tm = TModel(**REDUCED, higher_order_grads=False, alpha_drop=0.0, compute_dtype=compute).to(tdt)
     params_from_jax(tm, p)
     topt = pt.create_optimizer(pt.cosine_warmup_schedule(LR, WARMUP, TOTAL), weight_decay=WD)
     tst = pt.TrainState.create(tm, topt)
@@ -248,7 +248,7 @@ def test_train_step_draws_or_replays_dropout_masks(reduced):
     batch = t_collate(data, 30)
 
     def one_step(rng):
-        tm = TModel(**REDUCED, alpha_drop=0.2)
+        tm = TModel(**REDUCED, higher_order_grads=False, alpha_drop=0.2)
         params_from_jax(tm, tree)
         opt = pt.create_optimizer(pt.cosine_warmup_schedule(LR, WARMUP, TOTAL))
         step, _ = pt.make_qm9_steps(tm, opt)
