@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's QM9 training and inference paths and its MD17
-energy + force evaluation once on one NVIDIA GPU.
+energy + force evaluation and training once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -70,6 +70,28 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    against their plain versions with the tolerances of phase 3, timed the
    same way, with their bounds and, for K3, ``index_add_``.
 
+8. md17 train kernels — K5b (``dtp_lin_leg``: the x, sh and w legs) and K5c
+   (``dtp_lin_legW``) at the three call sites at batch 0's shapes, float32
+   and bfloat16, against their plain versions with the tolerances of phase
+   3, timed the same way, with their bounds and resident blocks per SM.
+9. md17 train — the same force model in training mode through
+   ``make_md17_steps`` (``energy_weight=1``, ``force_weight=80``, AdamW with
+   the no-decay mask, ``cosine_warmup_schedule(5e-4, 100, 100000)``, weight
+   decay 1e-6, EMA 0.999; no dropout, so the step draws no random numbers)
+   at batch 8 in float32 and bfloat16: the launch counts of one step (45 K1,
+   20 K5a, 39 K5b, 45 K5c, 38 K3, no K2 or K4), finite loss, ``loss_e``,
+   ``loss_f``, ``mae_e``, ``mae_f`` and gradient norm, parameters and EMA
+   that moved, trained molecules/s (median over 10 steps after 3 warm-up
+   steps), the peak memory, and two first steps from the same weights giving
+   bitwise equal parameters.
+10. md17 train vs CPU — one full-width step on MD17_CPU_MOLECULES molecules
+   on the card and on the CPU plain path from the same weights: float32
+   loss and gradient norm within 1e-3 relative and the updated parameters
+   within 1e-3 of max |param|; bfloat16 judged as the forces of phase 6: the
+   card's distance to a float64 CPU step at most MD17_BF16_FACTOR times the
+   bfloat16 CPU plain path's, with a floor of 2e-2 for the two scalars (one
+   number of the CPU path can land near its float64 value by chance).
+
 Phases 3 and 7 also time the model's segment sums too narrow for K3
 (``fixed_order_segment_sum``, an ``index_put_`` that repeats its bits)
 against ``index_add_`` at the shapes of the readout and the softmax
@@ -99,15 +121,30 @@ CPU_RTOL = {"float32": 1e-3, "bfloat16": 2e-2}
 BF16_MIN_SHIFT = 1e-4
 CPU_GRAPHS = 16
 WARMUP_STEPS, TIMED_STEPS = 3, 10
-EXPECTED_EVAL = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 0, "csr_segment_sum": 1,
-                 "attn_combine": 6}
-EXPECTED_TRAIN = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 13, "dtp_lin_bwd3": 0, "csr_segment_sum": 13,
-                  "attn_combine": 6}
+EXPECTED_EVAL = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 0, "dtp_lin_leg": 0,
+                 "dtp_lin_legW": 0, "csr_segment_sum": 1, "attn_combine": 6}
+EXPECTED_TRAIN = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 13, "dtp_lin_bwd3": 0, "dtp_lin_leg": 0,
+                  "dtp_lin_legW": 0, "csr_segment_sum": 13, "attn_combine": 6}
 # one force evaluation: a K1 and a K5a per fused DTP (edge degree + 2 per
 # block); K3 for the edge-degree scatter and the 6 attention sums, and 12 in
 # the message gathers' backward; the composed attention tail, no K4
-EXPECTED_MD17 = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 13, "csr_segment_sum": 19,
-                 "attn_combine": 0}
+EXPECTED_MD17 = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 13, "dtp_lin_leg": 0,
+                 "dtp_lin_legW": 0, "csr_segment_sum": 19, "attn_combine": 0}
+# one training step: forward 13 K1; force pass 13 K5a; parameter pass: per
+# per-edge-w site (6 sep_act) the K5a node's backward is 3 K1 (out legs), 2 x
+# legs + 2 w legs (K5b; the sh legs are skipped: sh depends on positions
+# alone) and 3 K5c, at the edge-degree site (no dx cotangent) 2 K1, 2 x legs
+# + 1 w leg, 2 K5c, per shared-weight site (6 sep_value) 2 K1, 1 x leg, 2
+# K5c; then the 13 forward nodes again: K5a (dx, dw) + K5c at the 7
+# per-edge-w sites, one x leg + K5c at the 6 shared ones.  K3: 7 forward, 12
+# in the force pass (the message gathers' backward), and in the parameter
+# pass 7 (the backward of the force pass's gathers) + 12 (the forward
+# gathers' backward)
+EXPECTED_MD17_TRAIN = {"dtp_lin_fwd": 45, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 20,
+                       "dtp_lin_leg": 39, "dtp_lin_legW": 45, "csr_segment_sum": 38,
+                       "attn_combine": 0}
+MD17_CPU_MOLECULES = 2
+BF16_SCALAR_FLOOR = 2e-2
 MD17_MODEL = "graph_attention_transformer_nonlinear_exp_l3_md17"
 MD17_BATCH, MD17_SLOTS = 8, 21
 EQUIV_TOL = 1e-3
@@ -118,6 +155,8 @@ TPU_KERNELS = {
     "dtp_lin_fwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:598",
     "dtp_lin_bwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:673",
     "dtp_lin_bwd3": "equiformer_tpu/kernels/dtp_lin_ho.py:451",
+    "dtp_lin_leg": "equiformer_tpu/kernels/dtp_lin_ho.py:163",
+    "dtp_lin_legW": "equiformer_tpu/kernels/dtp_lin_ho.py:402",
     "csr_segment_sum": "equiformer_tpu/kernels/segment_csr_pallas.py:36",
     "attn_combine": "equiformer_tpu/kernels/attn_csr_pallas.py:109",
 }
@@ -125,6 +164,8 @@ SOURCES = {
     "dtp_lin_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
     "dtp_lin_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
+    "dtp_lin_leg": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
+    "dtp_lin_legW": "equiformer_tpu_torch/csrc/dtp_lin_legW.cu",
     "csr_segment_sum": "equiformer_tpu_torch/csrc/segment_csr.cu",
     "attn_combine": "equiformer_tpu_torch/csrc/attn_csr.cu",
 }
@@ -192,7 +233,7 @@ def report_kernels(records):
     failed = [r for r in records if not r["rel_err"] <= TOL[r["dtype"]]]
     for r in records:
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
-        print(f"kernel {r['kernel']:16s} {r['site']:9s} {r['dtype']:8s} {r['shape']}: "
+        print(f"kernel {r['kernel']:16s} {r['site']:17s} {r['dtype']:8s} {r['shape']}: "
               f"max_abs_err {r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}) "
               f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms{lib}; bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
@@ -728,7 +769,187 @@ def md17_phase(pt, torch, dev, out):
         raise RuntimeError("forces on the card are not equivariant")
     model32 = models["float32"]
     del models
-    return model32, gpu_batches
+    return model32, gpu_batches, max_edges
+
+
+def md17_train_setup(pt, model):
+    opt = pt.create_optimizer(pt.cosine_warmup_schedule(5e-4, 100, 100000), weight_decay=1e-6)
+    train_step, _ = pt.make_md17_steps(model, opt, energy_weight=1.0, force_weight=80.0,
+                                       ema_decay=0.999)
+    return train_step, pt.TrainState.create(model, opt)
+
+
+def md17_train_phase(pt, torch, max_edges, gpu_batches, dev, out):
+    """Full-width force training steps at batch 8 in fp32 and bf16 on the card."""
+    make = pt.model_entrypoint(MD17_MODEL)  # on the card
+    for name in ("float32", "bfloat16"):
+        kw = dict(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
+                  compute_dtype=None if name == "float32" else name)
+        model = make(**kw)
+        step, state = md17_train_setup(pt, model)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        (state, metrics), launches = counted(torch, lambda: step(state, gpu_batches[0]))
+        print(f"md17 train {name}: launches in one step: {launches}")
+        if launches != EXPECTED_MD17_TRAIN:
+            raise RuntimeError(f"launch counts {launches} != expected {EXPECTED_MD17_TRAIN}")
+        out["md17_train_launches"] = launches
+        # a second model from the same seed takes the same first step
+        twin = make(**kw)
+        twin_step, twin_state = md17_train_setup(pt, twin)
+        twin_step(twin_state, gpu_batches[0])
+        torch.cuda.synchronize()
+        same = all(torch.equal(p, q) for p, q in zip(model.parameters(), twin.parameters()))
+        del twin, twin_step, twin_state
+        if not same:
+            raise RuntimeError(f"{name}: two first steps from the same weights differ in "
+                               f"their bits")
+        for i in range(1, WARMUP_STEPS):
+            state, metrics = step(state, gpu_batches[i % len(gpu_batches)])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for i in range(TIMED_STEPS):
+            t = time.perf_counter()
+            state, metrics = step(state, gpu_batches[i % len(gpu_batches)])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        vals = {k: float(v) for k, v in metrics.items()}
+        if set(vals) != {"loss", "loss_e", "loss_f", "mae_e", "mae_f", "grad_norm"} or not all(
+                v == v and abs(v) < float("inf") for v in vals.values()):
+            raise RuntimeError(f"{name}: missing or non-finite training metrics {vals}")
+        moved = max(float((p.detach() - before[n]).abs().max())
+                    for n, p in model.named_parameters())
+        ema_moved = max(float((state.ema[n] - before[n]).abs().max()) for n in before)
+        if not (moved > 0 and ema_moved > 0) or state.step != WARMUP_STEPS + TIMED_STEPS:
+            raise RuntimeError(f"{name}: parameters or EMA did not move ({moved}, {ema_moved})")
+        mps = MD17_BATCH / statistics.median(times)
+        out[f"md17_train_{name}"] = mps
+        print(f"md17 train {name}: {mps:.1f} molecules/s at batch {MD17_BATCH} (median of "
+              f"{TIMED_STEPS} steps after {WARMUP_STEPS} warm-up; step seconds "
+              f"{[round(t, 4) for t in times]}), peak memory {peak:.0f} MiB, last step "
+              f"{ {k: round(v, 4) for k, v in vals.items()} }, max parameter move {moved:.3e}, "
+              f"two first steps bitwise equal", flush=True)
+        del model, state
+
+
+def md17_train_vs_cpu(pt, torch, dev):
+    """One full-width force training step of MD17_CPU_MOLECULES molecules on
+    the card and on the CPU plain path, from the same weights."""
+    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
+
+    data = md17_like_dataset(MD17_CPU_MOLECULES, num_atoms=MD17_SLOTS, seed=SEED)
+    batch = next(iter(GraphLoader(data, MD17_CPU_MOLECULES, MD17_SLOTS, shuffle=False,
+                                  with_forces=True)))
+    _, max_edges = max_edges_for([batch], MD17_CPU_MOLECULES)
+    make = pt.model_entrypoint(MD17_MODEL)
+
+    def one_step(d, name, double=False):
+        model = make(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED, device=d,
+                     compute_dtype="bfloat16" if name == "bfloat16" else None)
+        b = batch.to(d)
+        if double:
+            model, b = model.double(), b.to(dtype=torch.float64)
+        step, state = md17_train_setup(pt, model)
+        t = time.perf_counter()
+        state, m = step(state, b)
+        if d != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        return ({k: float(v) for k, v in m.items()}, secs,
+                {n: p.detach().double().cpu() for n, p in model.named_parameters()})
+
+    def dist(a, b):
+        """Relative distance of the two scalars, and of the parameters
+        against max |param|."""
+        (ma, _, pa), (mb, _, pb) = a, b
+        scale = max(float(p.abs().max()) for p in pb.values())
+        return ({k: abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30) for k in ("loss", "grad_norm")},
+                max(float((pa[n] - pb[n]).abs().max()) for n in pb) / scale)
+
+    ref64 = one_step("cpu", "float32", double=True)
+    print(f"md17 train float64 CPU step ({MD17_CPU_MOLECULES} molecules, max_edges "
+          f"{max_edges}): {ref64[1]:.1f} s, {ref64[0]}", flush=True)
+    for name in ("float32", "bfloat16"):
+        card, cpu = one_step(dev, name), one_step("cpu", name)
+        (errs, perr), (c64, pc64), (u64, pu64) = dist(card, cpu), dist(card, ref64), \
+            dist(cpu, ref64)
+        if name == "float32":
+            tol = CPU_RTOL[name]
+            ok = max(errs.values()) <= tol and perr <= tol
+            rule = f"bound {tol:.0e}"
+        else:
+            ok = pc64 <= MD17_BF16_FACTOR * pu64 and all(
+                c64[k] <= max(MD17_BF16_FACTOR * u64[k], BF16_SCALAR_FLOOR) for k in c64)
+            rule = (f"card vs float64 bound {MD17_BF16_FACTOR} x CPU vs float64, floor "
+                    f"{BF16_SCALAR_FLOOR:.0e} for the scalars")
+        print(f"md17 train {name} card vs CPU plain path: loss {card[0]['loss']:.6f} / "
+              f"{cpu[0]['loss']:.6f}, grad_norm {card[0]['grad_norm']:.6f} / "
+              f"{cpu[0]['grad_norm']:.6f}, rel {errs}, updated params {perr:.3e} of max "
+              f"|param|; vs float64: card {c64} params {pc64:.3e}, CPU {u64} params "
+              f"{pu64:.3e} ({rule}); step {card[1]:.2f} s card, {cpu[1]:.1f} s CPU",
+              flush=True)
+        if not ok:
+            raise RuntimeError(f"{name} force training step on the card disagrees with the CPU")
+
+
+def md17_train_kernel_phase(torch, model, batch, dev, records):
+    """K5b's three legs and K5c against their plain versions at the exp_l3
+    shapes of one batch of 8 md17-like molecules, at the three call sites."""
+    from equiformer_tpu_torch.kernels import (
+        KERNEL_WRAPPERS, dtp_lin_leg, dtp_lin_leg_plain, dtp_lin_legW, dtp_lin_legW_plain,
+    )
+    from equiformer_tpu_torch.kernels.dtp_lin_ho import leg_occupancy
+
+    saved = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    edges, sh32, n_edges, n = batch_geometry(model, batch)
+    E = edges.dst.shape[0]
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        size = torch.finfo(dt).bits // 8
+        sh = sh32.to(dt)
+        for site, (plan, heads, broadcast_x) in dtp_sites(model).items():
+            x, w, W, cot, _ = dtp_operands(torch, plan, heads, broadcast_x, E, n, dt, g, dev)
+            shape = f"E={E} d_x={plan.d_x} d_w={plan.d_w} d_out={plan.d_out}"
+            tp_elems, macs = dtp_work(plan)
+            # bytes of each operand over the n real edges
+            op_bytes = {"x": size * (plan.d_x if broadcast_x else n * plan.d_x),
+                        "sh": size * n * plan.d_sh, "w": 0 if w is None else size * n * plan.d_w,
+                        "out": size * n * plan.d_out, "W": size * plan.w_numel}
+            widths = {"x": plan.d_x, "sh": plan.d_sh, "w": plan.d_w}
+            for leg in ("x", "sh") + (() if w is None else ("w",)):
+                ops = {"x": x, "sh": sh, "w": w, leg: None}
+                call = lambda: dtp_lin_leg(plan, leg, cot, ops["x"], ops["sh"], ops["w"], W,  # noqa: E731
+                                           n_edges)
+                plain = lambda: dtp_lin_leg_plain(plan, leg, cot, ops["x"], ops["sh"],  # noqa: E731
+                                                  ops["w"], W, n_edges)
+                k, p = call(), plain()
+                torch.cuda.synchronize()
+                ms = cuda_time_ms(call, torch)
+                plain_ms = cuda_time_ms(plain, torch, reps=3, inner=3)
+                # every operand but the leg's own read once, the leg written once;
+                # the dz product, then 3 operations per term element
+                nbytes = sum(v for key, v in op_bytes.items() if key != leg) \
+                    + size * E * widths[leg]
+                record(records, "dtp_lin_leg", f"md17-{site}-{leg}", dt_name, shape,
+                       [rel_err(k, p)], ms, plain_ms, nbytes, n * (2 * macs + 3 * tp_elems))
+                print(f"dtp_lin_leg {leg} {site} {dt_name}: {leg_occupancy(plan, dt, leg)} "
+                      f"resident blocks per SM")
+            k = dtp_lin_legW(plan, cot, x, sh, w, n_edges)
+            p = dtp_lin_legW_plain(plan, cot, x, sh, w, n_edges)
+            torch.cuda.synchronize()
+            ms = cuda_time_ms(lambda: dtp_lin_legW(plan, cot, x, sh, w, n_edges), torch)
+            plain_ms = cuda_time_ms(lambda: dtp_lin_legW_plain(plan, cot, x, sh, w, n_edges),
+                                    torch, reps=3, inner=3)
+            # the z recompute (3 operations per term element), then z^T g; dW in fp32
+            nbytes = sum(v for key, v in op_bytes.items() if key != "W") + 4 * plan.w_numel
+            record(records, "dtp_lin_legW", f"md17-{site}", dt_name, shape, [rel_err(k, p)], ms,
+                   plain_ms, nbytes, n * (2 * macs + 3 * tp_elems))
+            print(f"dtp_lin_legW {site} {dt_name}: {leg_occupancy(plan, dt, 'W')} resident "
+                  f"blocks per SM")
+    for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
+        fn.launches = saved[name]
 
 
 def main() -> int:
@@ -780,21 +1001,35 @@ def run(torch, dev) -> int:
     train_vs_cpu(pt, torch, make, data, dev)
     print(f"train vs CPU phase: {time.time() - t:.1f} s", flush=True)
     t = time.time()
-    md17_model, md17_batches = md17_phase(pt, torch, dev, out)
+    md17_model, md17_batches, md17_max_edges = md17_phase(pt, torch, dev, out)
     print(f"md17 phase: {time.time() - t:.1f} s", flush=True)
     t = time.time()
     md17_records = []
     md17_kernel_phase(torch, md17_model, md17_batches[0], dev, md17_records)
     report_kernels(md17_records)
-    del md17_model
     print(f"md17 kernel phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    md17_train_records = []
+    md17_train_kernel_phase(torch, md17_model, md17_batches[0], dev, md17_train_records)
+    report_kernels(md17_train_records)
+    del md17_model
+    print(f"md17 train kernel phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    md17_train_phase(pt, torch, md17_max_edges, md17_batches, dev, out)
+    print(f"md17 train phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    md17_train_vs_cpu(pt, torch, dev)
+    print(f"md17 train vs CPU phase: {time.time() - t:.1f} s", flush=True)
 
     table = []
     for name in SOURCES:
-        # the bf16 row at the kernel's first (for K1/K2/K5a: the two-head)
-        # call site; K5a serves the force evaluation, the others training
-        path = "md17_launches" if name == "dtp_lin_bwd3" else "train_launches"
-        r = next(r for r in records + md17_records
+        # the bf16 row at the kernel's first (for the fused DTP's kernels: the
+        # two-head) call site (K5b: its x leg); K5a's launches are the force
+        # evaluation's, K5b's and K5c's the force training step's, the
+        # others' the QM9 training step's
+        path = {"dtp_lin_bwd3": "md17_launches", "dtp_lin_leg": "md17_train_launches",
+                "dtp_lin_legW": "md17_train_launches"}.get(name, "train_launches")
+        r = next(r for r in records + md17_records + md17_train_records
                  if r["kernel"] == name and r["dtype"] == "bfloat16")
         table.append({"name": name, "route": "cuda", "source": SOURCES[name],
                       "replaces": TPU_KERNELS[name], "launches": out[path][name],

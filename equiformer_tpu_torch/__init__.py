@@ -3,7 +3,7 @@
 Module paths mirror the JAX package.  Features keep its component-major
 [2l+1, mul] block layout, so every activation compares with the reference
 element by element.  The kernels of the QM9 training and inference path and
-of the MD17 energy + force evaluation are hand-written CUDA for Hopper
+of the MD17 energy + force evaluation and training are hand-written CUDA for Hopper
 (``csrc/``), each beside its plain PyTorch version (``kernels/``).
 """
 
@@ -15,5 +15,6 @@ from .train import (
     create_optimizer,
     evaluate,
     evaluate_md17,
+    make_md17_steps,
     make_qm9_steps,
 )

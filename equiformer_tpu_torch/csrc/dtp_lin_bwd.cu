@@ -37,8 +37,8 @@
 // dx / dw / z element is only ever touched by one thread: a term maps flat
 // index i to (row, u) by i / mul, and terms that share a column share mul.
 // So there are no atomics anywhere.  dW is a reduction across all edges:
-// each block keeps its own partial row, and dtp_lin_bwd_reduce sums the
-// rows in a fixed order, so the result does not depend on the schedule.
+// each block keeps its own partial row, and eqt::sum_partial_rows
+// (common.cuh) sums the rows in a fixed order, so the result does not depend on the schedule.
 // Everything accumulates in fp32 on the CUDA cores; tensor cores are later
 // work.
 
@@ -261,17 +261,6 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
   }
 }
 
-// dW[i] = sum over the blocks' partial rows, in block order (deterministic).
-__global__ void __launch_bounds__(kThreads)
-dtp_lin_bwd_reduce_kernel(const float* __restrict__ part, int n_parts, int w_numel,
-                          float* __restrict__ dW) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= w_numel) return;
-  float acc = 0.f;
-  for (int b = 0; b < n_parts; ++b) acc += part[(long long)b * w_numel + i];
-  dW[i] = acc;
-}
-
 template <typename T>
 int launch(const void* x, long long sx, int d_x, const void* sh, int d_sh, const void* w,
            int d_w, const void* WT, const void* G, int d_out, const void* n_edges, int E,
@@ -292,9 +281,9 @@ int launch(const void* x, long long sx, int d_x, const void* sh, int d_sh, const
       static_cast<float*>(part), w_numel, span_max, cols_pad_max);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dtp_lin_bwd_reduce_kernel<<<(w_numel + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      static_cast<const float*>(part), n_parts, w_numel, static_cast<float*>(dW));
-  return (int)cudaGetLastError();
+  // dW = the blocks' partial rows summed in block order
+  return (int)eqt::sum_partial_rows(static_cast<const float*>(part), n_parts, w_numel,
+                                    static_cast<float*>(dW), stream);
 }
 
 }  // namespace

@@ -2,8 +2,10 @@
 
 * ``dtp_lin``     — fused depthwise TP + linear heads: forward (K1,
   ``dtp_lin_fwd``) and backward (K2, ``dtp_lin_bwd``) behind one autograd op
-* ``dtp_lin_ho``  — the same op on the force path: K1 forward, and the
-  force backward (K5a, ``dtp_lin_bwd3``: dx, dsh and dw in one pass)
+* ``dtp_lin_ho``  — the same op for the force models, differentiable to any
+  order: K1 forward, the force backward (K5a, ``dtp_lin_bwd3``: dx, dsh and dw
+  in one pass), and the single legs of force training's grad-of-grad (K5b,
+  ``dtp_lin_leg``: dx or dsh or dw; K5c, ``dtp_lin_legW``: the head weights)
 * ``segment_csr`` — CSR segment sum over dst-sorted edges (K3)
 * ``attn_csr``    — fused segment softmax + dropout + weighted sum (K4 forward;
   its backward is torch ops, as in JAX)
@@ -21,15 +23,25 @@ from .dtp_lin import (
     dtp_lin_bwd,
     dtp_lin_bwd_plain,
     dtp_lin_fwd,
+    dtp_lin_legW_plain,
     dtp_lin_plain,
 )
-from .dtp_lin_ho import dtp_lin_bwd3, dtp_lin_bwd3_plain, dtp_lin_ho
+from .dtp_lin_ho import (
+    dtp_lin_bwd3,
+    dtp_lin_bwd3_plain,
+    dtp_lin_ho,
+    dtp_lin_leg,
+    dtp_lin_leg_plain,
+    dtp_lin_legW,
+)
 from .segment_csr import csr_segment_sum, segment_sum_plain
 
 KERNEL_WRAPPERS = {
     "dtp_lin_fwd": dtp_lin_fwd,
     "dtp_lin_bwd": dtp_lin_bwd,
     "dtp_lin_bwd3": dtp_lin_bwd3,
+    "dtp_lin_leg": dtp_lin_leg,
+    "dtp_lin_legW": dtp_lin_legW,
     "csr_segment_sum": csr_segment_sum,
     "attn_combine": attn_combine,
 }

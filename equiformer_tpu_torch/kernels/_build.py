@@ -119,6 +119,21 @@ _SIGNATURES = {
     # d_x (0 without dx), d_sh, span (0 without dw), cols_pad_max,
     # max_fan_stride, dtype -> resident blocks per SM (or -cudaError_t)
     "dtp_lin_bwd3_occupancy": [_I, _I, _I, _I, _I, _I],
+    # leg (0 x, 1 sh, 2 w), x, x_row_stride, d_x, sh, d_sh, w, d_w, W^T, g, d_out,
+    # n_edges*, E, gk table, n_gk, terms, coeffs, dwmap, out, span_max,
+    # cols_pad_max, max_fan_stride, dtype, stream
+    "dtp_lin_leg": [_I, _VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
+                    _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # leg, d_x, d_sh, span_max, cols_pad_max, max_fan_stride, dtype
+    # -> resident blocks per SM (or -cudaError_t)
+    "dtp_lin_leg_occupancy": [_I, _I, _I, _I, _I, _I, _I],
+    # x, x_row_stride, sh, d_sh, w, d_w, g, d_out, n_edges*, E, gk table, n_gk,
+    # terms, coeffs, dW partials, n_parts, dW, w_numel, cols_pad_max,
+    # max_fan_stride, dtype, stream
+    "dtp_lin_legW": [_VP, _LL, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I,
+                     _VP, _VP, _VP, _I, _VP, _I, _I, _I, _I, _VP],
+    # cols_pad_max, max_fan_stride, dtype -> resident blocks per SM (or -cudaError_t)
+    "dtp_lin_legW_occupancy": [_I, _I, _I],
     # val, C, rowptr, mask, out, N, dtype, stream
     "csr_segment_sum": [_VP, _I, _VP, _VP, _VP, _I, _I, _VP],
     # scores, value, dropmul, shift, rowptr, out, den, N, H, D, dtype, stream

@@ -372,47 +372,53 @@ def plain_dz(plan: DTPLinPlan, W_flat, g) -> torch.Tensor:
     return dz
 
 
-def plain_transposes(plan: DTPLinPlan, x, sh, w, dz, with_dsh: bool):
+def plain_transposes(plan: DTPLinPlan, x, sh, w, dz, want=("x", "sh", "w")):
     """The transposes of each depthwise path
     z[e,k,u] = s * sum_ij C[i,j,k] x[e,i,u] sh[e,j] w[e,u] for the TP output
-    cotangent ``dz``: (dx, dw or None when ``w`` is None, dsh or None unless
-    ``with_dsh``), in dz's dtype."""
+    cotangent ``dz``: (dx, dw, dsh) in dz's dtype, each None unless named in
+    ``want``.  ``w`` None means a weight of 1 (shared weights folded into W,
+    or the w transpose itself, which never reads w); the x transpose never
+    reads ``x`` nor the sh transpose ``sh``, which may then be None."""
     tp = plan.tp
     E = dz.shape[0]
-    xb = split_blocks(x, tp.irreps_in1)
-    shb = split_blocks(sh, tp.irreps_in2)
+    xb = None if x is None else split_blocks(x, tp.irreps_in1)
+    shb = None if sh is None else split_blocks(sh, tp.irreps_in2)
     dzb = split_blocks(dz, tp.irreps_out)
-    def zeros(b):
-        return torch.zeros((E,) + b.shape[1:], dtype=dz.dtype, device=dz.device)
 
-    dxb = [zeros(b) for b in xb]
-    dshb = [zeros(b) for b in shb] if with_dsh else None
-    dw = None if w is None else torch.zeros((E, plan.d_w), dtype=dz.dtype, device=dz.device)
+    def zeros(mul_ir):
+        return torch.zeros((E, mul_ir.ir.dim, mul_ir.mul), dtype=dz.dtype, device=dz.device)
+
+    dxb = [zeros(mi) for mi in tp.irreps_in1] if "x" in want else None
+    dshb = [zeros(mi) for mi in tp.irreps_in2] if "sh" in want else None
+    dw = (torch.zeros((E, plan.d_w), dtype=dz.dtype, device=dz.device)
+          if "w" in want else None)
     for idx, ins in enumerate(tp.instructions):
         C = tp._cg_tensor(idx, dz.dtype, dz.device)
-        M = torch.einsum("ej,ijk->eki", shb[ins.i_in2][:, :, 0], C)
+        if shb is not None:
+            M = torch.einsum("ej,ijk->eki", shb[ins.i_in2][:, :, 0], C)
         scale = tp.slice_sqrt_k[ins.i_out] if plan.fold_rescale else 1.0
         d = dzb[ins.i_out] * scale  # [E, d3, mul]
-        if w is not None:
-            off, mul = tp._offsets[idx], tp.irreps_in1[ins.i_in1].mul
-            wv = w[:, off : off + mul]
+        off, mul = tp._offsets[idx], tp.irreps_in1[ins.i_in1].mul
+        if dw is not None:
             dw[:, off : off + mul] = torch.einsum(
                 "eku,eki,eiu->eu", d, M, xb[ins.i_in1])
-            d = d * wv[:, None, :]
-        dxb[ins.i_in1] = dxb[ins.i_in1] + torch.einsum("eku,eki->eiu", d, M)
-        if with_dsh:
+        if w is not None:
+            d = d * w[:, off : off + mul][:, None, :]
+        if dxb is not None:
+            dxb[ins.i_in1] = dxb[ins.i_in1] + torch.einsum("eku,eki->eiu", d, M)
+        if dshb is not None:
             dshb[ins.i_in2] = dshb[ins.i_in2] + torch.einsum(
                 "eku,ijk,eiu->ej", d, C, xb[ins.i_in1])[:, :, None]
-    dx = torch.cat([b.reshape(E, -1) for b in dxb], dim=1)
+    dx = None if dxb is None else torch.cat([b.reshape(E, -1) for b in dxb], dim=1)
     dsh = None if dshb is None else torch.cat([b.reshape(E, -1) for b in dshb], dim=1)
     return dx, dw, dsh
 
 
-def dtp_lin_bwd_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges=None):
-    """Plain backward of ``dtp_lin_plain`` for the cotangent ``g`` [E, d_out],
-    written out per group and TP path: returns (dx [E, d_x], dw [E, d_w] or
-    None when ``w`` is None, dW_flat [w_numel] in float32, or float64 for
-    float64 inputs).  No dsh."""
+def dtp_lin_legW_plain(plan: DTPLinPlan, g, x, sh, w, n_edges=None):
+    """Plain version of the head-weight leg (K5c): the gradient of the packed
+    ``W_flat`` [w_numel] for the cotangent ``g`` [E, d_out] of
+    ``dtp_lin_plain``, dW_g = sum over edges and components of z[g,k]^T
+    g[g,k] with z the TP output; float32, or float64 for float64 inputs."""
     g = _zero_past(g, n_edges)
     z = plan.tp.apply(x, sh, w, scale_weights=plan.fold_rescale)
     acc = torch.promote_types(g.dtype, torch.float32)
@@ -423,7 +429,17 @@ def dtp_lin_bwd_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges=None):
             gk = g[:, grp.out_off + k * grp.cols : grp.out_off + (k + 1) * grp.cols]
             dWg[: grp.fan] += _group_z(plan, z, gi, k).to(acc).T @ gk.to(acc)
         dW[grp.w_off : grp.w_off + grp.fan_stride * grp.cols] = dWg.reshape(-1)
-    dx, dw, _ = plain_transposes(plan, x, sh, w, plain_dz(plan, W_flat, g).to(z.dtype), False)
+    return dW
+
+
+def dtp_lin_bwd_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges=None):
+    """Plain backward of ``dtp_lin_plain`` for the cotangent ``g`` [E, d_out],
+    written out per group and TP path: returns (dx [E, d_x], dw [E, d_w] or
+    None when ``w`` is None, dW_flat [w_numel] in float32, or float64 for
+    float64 inputs).  No dsh."""
+    dW = dtp_lin_legW_plain(plan, g, x, sh, w, n_edges)
+    dz = plain_dz(plan, W_flat, _zero_past(g, n_edges)).to(x.dtype)
+    dx, dw, _ = plain_transposes(plan, x, sh, w, dz, ("x",) if w is None else ("x", "w"))
     return dx.to(x.dtype), None if dw is None else dw.to(w.dtype), dW
 
 

@@ -5,8 +5,9 @@ Counterpart of ``equiformer_tpu/kernels/segment_csr_pallas.py``
 edges with dst[e] == u``, accumulated in fp32 and written in val's dtype.
 The CUDA kernel is ``csrc/segment_csr.cu``; ``segment_sum_plain`` is its
 plain PyTorch version, used for CPU tensors and as the on-card reference.
-The op is differentiable in ``val``: the backward is the gather ``g[dst]``
-with masked rows zeroed (``segment_csr_pallas.py:135-148``).
+The op is differentiable in ``val`` to any order: the backward is the gather
+``take_rows(g, dst)`` of ``graph/linear_prims.py`` with masked rows zeroed
+(``segment_csr_pallas.py:135-148``), whose own backward is this sum again.
 """
 
 from __future__ import annotations
@@ -73,11 +74,10 @@ class _SegmentSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from ..graph.linear_prims import masked_take  # graph imports this module
+
         dst, mask = ctx.saved_tensors
-        gd = g[dst]
-        if mask is not None:
-            gd = torch.where(mask[:, None], gd, torch.zeros_like(gd))
-        return gd, None, None, None
+        return masked_take(g, dst, mask), None, None, None
 
 
 def csr_segment_sum(

@@ -11,10 +11,12 @@ Counterpart of ``equiformer_tpu.models.equiformer``:
   scalar head and scaled scatter per graph.
 
 ``higher_order_grads`` (default True, as in JAX) routes the fused DTPs to
-the force-path op and the attention tail to the composed segment softmax +
-sum: what a force evaluation (``models/md17_models.py``) differentiates
-through.  The QM9 entrypoints set it False: K2 and the fused attention
-combine, which compute the parameter gradients of training.
+the op that is differentiable to any order (``kernels/dtp_lin_ho.py``) and
+the attention tail to the composed segment softmax + sum: what a force
+evaluation (``models/md17_models.py``) differentiates through once and
+force training (``train/engine.py::make_md17_steps``) twice.  The QM9
+entrypoints set it False: K2 and the fused attention combine, which compute
+the parameter gradients of first-order training.
 
 ``module.training`` plays the role of JAX's ``deterministic=False``: alpha
 dropout on the attention weights, and the equivariant dropouts and drop path

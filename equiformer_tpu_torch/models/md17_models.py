@@ -15,6 +15,7 @@ import dataclasses
 import torch
 
 from ..graph.batching import GraphsTuple
+from ..kernels.dtp_lin_ho import skip_leg_grads
 from .equiformer import GraphAttentionTransformer
 from .registry import register_model, resolve_device
 
@@ -24,28 +25,40 @@ _AVG_NUM_NODES_MD17 = 18.03065905448718
 _AVG_DEGREE_MD17 = 15.57930850982666
 
 
-def energy_and_forces(model: torch.nn.Module, batch: GraphsTuple, create_graph: bool = False):
+def energy_and_forces(model: torch.nn.Module, batch: GraphsTuple, create_graph: bool = False,
+                      rng=None):
     """(energy [G], forces [N, 3]) with forces = -dE/dpos, zero on padded
     nodes: ``jax.vjp`` of the energy with a ones cotangent in the JAX
     package.  Runs under ``torch.enable_grad()`` whatever the caller's mode.
 
-    The forward reads detached copies of the parameters
+    By default the forward reads detached copies of the parameters
     (``torch.func.functional_call``), so the backward is asked for the
     position gradient only, as JAX's vjp over ``pos`` is, and the returned
-    tensors carry no graph.  ``create_graph=True`` (the loss of force
-    training, a grad-of-grad through the fused DTP's W leg and leg family)
-    raises ``NotImplementedError``: that path is not ported."""
-    if create_graph:
-        raise NotImplementedError("energy_and_forces(create_graph=True), force training: the "
-                                  "grad-of-grad of the fused DTP is not ported")
+    tensors carry no graph.
+
+    ``create_graph=True`` is the force pass of training
+    (``train/engine.py::make_md17_steps``): the forward reads the live
+    parameters (``rng`` feeds the dropout sites of a model in training
+    mode) and the position gradient is taken with ``create_graph=True``, so
+    the energy and the forces carry the graph that the loss is then
+    differentiated through, a grad-of-grad on the fused DTP's leg kernels
+    (``kernels/dtp_lin_ho.py``).  This pass needs no gradient of the head
+    weights, so the fused op skips its W leg in it."""
     pos = batch.pos.detach().requires_grad_(True)
     b = dataclasses.replace(batch, pos=pos)
     with torch.enable_grad():
-        params = {n: p.detach() for n, p in model.named_parameters()}
-        energy = torch.func.functional_call(model, params, (b,))
-        (grad,) = torch.autograd.grad(energy, pos, torch.ones_like(energy))
-    forces = torch.where(batch.node_mask[:, None], -grad, torch.zeros_like(grad))
-    return energy.detach(), forces
+        if create_graph:
+            energy = model(b, rng=rng)
+            with skip_leg_grads("W"):
+                (grad,) = torch.autograd.grad(energy, pos, torch.ones_like(energy),
+                                              create_graph=True)
+        else:
+            params = {n: p.detach() for n, p in model.named_parameters()}
+            energy = torch.func.functional_call(model, params, (b,))
+            (grad,) = torch.autograd.grad(energy, pos, torch.ones_like(energy))
+            energy = energy.detach()
+        forces = torch.where(batch.node_mask[:, None], -grad, torch.zeros_like(grad))
+    return energy, forces
 
 
 def _md17(radius, num_basis, *, basis="gaussian", alpha_drop=0.2,

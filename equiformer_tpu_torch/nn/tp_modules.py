@@ -10,10 +10,12 @@ Counterparts of ``equiformer_tpu.nn.tp_modules``:
   shared ones) -> per-irrep linear heads -> optional gate.  The TP and the
   heads always run as one fused, differentiable op: with
   ``higher_order_grads`` (the JAX package's default, for force models) the
-  force-path op ``kernels/dtp_lin_ho.py`` (K1 forward, K5a backward: dx, dsh
-  and dw), without it ``kernels/dtp_lin.py`` (K1 forward, K2 backward: dx,
-  dw and the head weights' gradient); the CUDA kernels on the card, their
-  plain versions on the CPU;
+  op of ``kernels/dtp_lin_ho.py``, differentiable to any order (K1 forward;
+  K5a backward: dx, dsh and dw; K5b / K5c: the single legs and the head
+  weights' gradient of force training's grad-of-grad), without it
+  ``kernels/dtp_lin.py`` (K1 forward, K2 backward: dx, dw and the head
+  weights' gradient); the CUDA kernels on the card, their plain versions on
+  the CPU;
 * ``NodeEmbedding`` / ``EdgeDegreeEmbedding``.
 
 Submodule and parameter names follow the flax scopes, so weight conversion

@@ -1,6 +1,6 @@
 """Where the time of an eval forward, a training step or a force evaluation goes, on one GPU.
 
-    python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17] [--out FILE]
+    python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17 | --md17-train] [--out FILE]
 
 Builds ``graph_attention_transformer_nonlinear_l2`` at full width with a
 seeded init, on 4 batches of 128 QM9-like graphs (30 node slots each,
@@ -11,7 +11,11 @@ seeded init, on 4 batches of 128 QM9-like graphs (30 node slots each,
 dropout 0.2 from a CUDA generator, EMA 0.999).  With ``--md17`` the model is
 ``graph_attention_transformer_nonlinear_exp_l3_md17`` on 4 batches of 8
 md17-like molecules (21 slots) and the unit one ``evaluate_md17`` (energies
-and forces).  For float32 and bfloat16, per unit:
+and forces); with ``--md17-train`` the unit is one step of
+``make_md17_steps`` on the same model and batches (``energy_weight=1``,
+``force_weight=80``, AdamW with weight decay 1e-6 and the same schedule, EMA
+0.999: the forward, the force pass with ``create_graph=True`` and the
+grad-of-grad).  For float32 and bfloat16, per unit:
 
 * ``wall_ms``: one pass over the batches, ending in a synchronize, divided
   by the batch count (median of 5 passes, no profiler);
@@ -43,6 +47,7 @@ from .. import (
     create_optimizer,
     evaluate,
     evaluate_md17,
+    make_md17_steps,
     make_qm9_steps,
     model_entrypoint,
 )
@@ -146,12 +151,21 @@ def train_unit(model):
     return lambda b: step(state, b, gen)
 
 
+def md17_train_unit(model):
+    opt = create_optimizer(cosine_warmup_schedule(5e-4, 100, 100000), weight_decay=1e-6)
+    step, _ = make_md17_steps(model, opt, energy_weight=1.0, force_weight=80.0, ema_decay=0.999)
+    state = TrainState.create(model, opt)
+    return lambda b: step(state, b)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     unit_arg = ap.add_mutually_exclusive_group()
     unit_arg.add_argument("--train", action="store_true", help="profile QM9 training steps")
     unit_arg.add_argument("--md17", action="store_true",
                           help="profile MD17 energy + force evaluations")
+    unit_arg.add_argument("--md17-train", action="store_true",
+                          help="profile MD17 energy + force training steps")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -164,18 +178,20 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    model_name, batch, slots = MD17 if args.md17 else QM9
-    if args.md17:
+    md17 = args.md17 or args.md17_train
+    model_name, batch, slots = MD17 if md17 else QM9
+    if md17:
         data = md17_like_dataset(batch * N_BATCHES, num_atoms=slots, seed=SEED)
     else:
         data = qm9_like_dataset(batch * N_BATCHES, seed=SEED)
-    batches = list(GraphLoader(data, batch, slots, shuffle=False, with_forces=args.md17))
+    batches = list(GraphLoader(data, batch, slots, shuffle=False, with_forces=md17))
     counts = [int(radius_graph_dense(b.pos, b.node_mask, batch, 5.0, batch * slots * slots)
                   .mask.sum()) for b in batches]
     max_edges = -(-max(counts) // 128) * 128
     gpu = [b.to(dev) for b in batches]
     make = model_entrypoint(model_name)
-    unit = "train" if args.train else "md17" if args.md17 else "eval"
+    unit = ("train" if args.train else "md17" if args.md17
+            else "md17_train" if args.md17_train else "eval")
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "model": model_name, "unit": unit, "batch": batch, "batches": N_BATCHES,
               "real_edges": counts, "max_edges": max_edges}
@@ -186,6 +202,8 @@ def main() -> int:
             run = train_unit(model)
         elif args.md17:
             run = md17_unit(model)
+        elif args.md17_train:
+            run = md17_train_unit(model)
         else:
             run = eval_unit(model)
         report[name] = profile(run, gpu, f"{unit}_{name}")

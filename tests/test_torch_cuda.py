@@ -321,3 +321,95 @@ def test_reduced_md17_forces_on_card_match_cpu(dev):
             attn_combine.launches) == (5, 5, 0, 0)
     (ec, fc), (eg, fg) = out
     assert _rel(eg, ec) < 1e-4 and _rel(fg, fc) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("site", list(BWD3_SITES))
+def test_dtp_lin_leg_kernels_match_plain(dev, site, dtype):
+    """K5b (each edge leg alone, without the operand of that leg) and K5c
+    (the head-weight leg, fp32) against their plain versions on the same
+    operands; rows past n_edges give zeros; second calls give the same bits
+    (no atomics, the dW partials summed in a fixed order)."""
+    from equiformer_tpu_torch.kernels import (
+        dtp_lin_leg, dtp_lin_leg_plain, dtp_lin_legW, dtp_lin_legW_plain,
+    )
+
+    heads, shared, broadcast = BWD3_SITES[site]
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(3)
+    plan = DTPLinPlan(depthwise_tp(Irreps(L3_IRR), Irreps(L3_SH), Irreps(L3_IRR)), heads,
+                      shared_weights=shared)
+    E = 300
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+    x = rnd(1, plan.d_x).expand(E, plan.d_x) if broadcast else rnd(E, plan.d_x)
+    sh, W, cot = rnd(E, plan.d_sh), rnd(plan.w_numel), rnd(E, plan.d_out)
+    w = None if shared else rnd(E, plan.d_w)
+    n = torch.tensor(250, dtype=torch.int32, device=dev)
+    legs = ("x", "sh") if shared else ("x", "sh", "w")
+    reset_launch_counts()
+    for leg in legs:
+        ops = {"x": x, "sh": sh, "w": w, leg: None}
+        k = dtp_lin_leg(plan, leg, cot, ops["x"], ops["sh"], ops["w"], W, n)
+        p = dtp_lin_leg_plain(plan, leg, cot, ops["x"], ops["sh"], ops["w"], W, n)
+        torch.cuda.synchronize()
+        assert k.dtype == dt and k.shape == p.shape
+        assert _rel(k, p) < TOL[dtype], leg
+        assert float(k[250:].abs().max()) == 0.0
+        assert torch.equal(k, dtp_lin_leg(plan, leg, cot, ops["x"], ops["sh"], ops["w"], W, n))
+    assert dtp_lin_leg.launches == 2 * len(legs)
+    k = dtp_lin_legW(plan, cot, x, sh, w, n)
+    p = dtp_lin_legW_plain(plan, cot, x, sh, w, n)
+    torch.cuda.synchronize()
+    assert k.dtype == torch.float32 and k.shape == (plan.w_numel,)
+    assert _rel(k, p) < TOL[dtype]
+    assert torch.equal(k, dtp_lin_legW(plan, cot, x, sh, w, n))
+    assert dtp_lin_legW.launches == 2
+
+
+@pytest.mark.cuda
+def test_reduced_md17_train_step_on_card_matches_cpu(dev):
+    """One fp32 training step of a reduced L3 force model (2 blocks, exp
+    basis, force_weight 80) on the card against the CPU plain path: loss and
+    gradient norm within 1e-3 relative (fp32 forces are noisy, the exp
+    basis's derivative cancels), parameters within 1e-3 of the largest; the
+    step's launches per kernel; two steps from one state give the same bits."""
+    import copy
+
+    import equiformer_tpu_torch as pt
+    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
+    from equiformer_tpu_torch.kernels import launch_counts
+    from equiformer_tpu_torch.models import md17_models
+    from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer
+
+    cfg = dict(irreps_node_embedding=L3_IRR, num_layers=2, irreps_sh=L3_SH,
+               number_of_basis=32, basis_type="exp", fc_neurons=(16, 16),
+               irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e+2x3e", num_heads=4,
+               irreps_mlp_mid="24x0e+12x1e+12x2e+6x3e", alpha_drop=0.0, max_atom_type=64,
+               avg_num_nodes=md17_models._AVG_NUM_NODES_MD17,
+               avg_degree=md17_models._AVG_DEGREE_MD17, max_edges=1024, nodes_per_graph=21)
+    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, 21, shuffle=False,
+                                  with_forces=True)))
+    results = []
+    for d in ("cpu", dev, dev):
+        model = GraphAttentionTransformer(**cfg).to(d)
+        opt = pt.create_optimizer(pt.cosine_warmup_schedule(5e-4, 100, 100000), weight_decay=1e-6)
+        step, _ = pt.make_md17_steps(model, opt, energy_weight=1.0, force_weight=80.0)
+        reset_launch_counts()
+        _, m = step(pt.TrainState.create(model, opt), batch.to(d))
+        results.append(({k: float(v) for k, v in m.items()},
+                        copy.deepcopy({n: p.detach().cpu() for n, p in model.named_parameters()})))
+    # 5 fused DTP sites (edge degree + 2 per block): K1 5 forward + 3 per
+    # per-edge-w site's bwd3 node (2 at the edge-degree site) + 2 per shared
+    # site; K5a 5 in the force pass + the 3 per-edge-w sites again in the
+    # parameter pass; the narrow model's sums stay under K3's 128 columns
+    counts = launch_counts()
+    assert (counts["dtp_lin_fwd"], counts["dtp_lin_bwd3"], counts["dtp_lin_leg"],
+            counts["dtp_lin_legW"], counts["dtp_lin_bwd"], counts["attn_combine"]) \
+        == (17, 8, 15, 17, 0, 0)
+    (mc, pc), (mg, pg), (mg2, pg2) = results
+    for k in ("loss", "grad_norm"):
+        assert abs(mg[k] - mc[k]) < 1e-3 * abs(mc[k])
+    scale = max(float(p.abs().max()) for p in pc.values())
+    assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-3 * scale
+    assert mg == mg2 and all(torch.equal(pg[n], pg2[n]) for n in pg)

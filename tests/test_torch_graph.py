@@ -183,3 +183,166 @@ def test_gather_add_grads_match(cols, dt):
     assert _rel(out.detach().numpy(), xs[e_t.src.numpy()] + xd[e_t.dst.numpy()]) == 0.0
     out.backward(torch.from_numpy(g))
     assert _rel(ts_.grad.numpy(), jgs) < tol and _rel(td_.grad.numpy(), jgd) < tol
+
+
+# ------------------------------------------------ linear_prims, orders 1 and 2
+# take / segsum / perm against the JAX package's primitives of the same
+# names on one symmetric dst-sorted edge list with a rev involution and a
+# padded tail: values, gradients and the gradient of a gradient (the force
+# training pattern), fp64 within 1e-12 relative.
+LP_TOL = 1e-12
+
+
+def _sym_edges(num_nodes=10, num_edges=64, seed=11):
+    rng = np.random.default_rng(seed)
+    pairs = set()
+    while len(pairs) < num_edges // 2 - 4:
+        i, j = rng.integers(0, num_nodes, 2)
+        if i != j:
+            pairs.add((min(i, j), max(i, j)))
+    es = sorted([(i, j) for i, j in pairs] + [(j, i) for i, j in pairs], key=lambda e: e[1])
+    pad = num_edges - len(es)
+    src = np.array([e[0] for e in es] + [0] * pad, np.int64)
+    dst = np.array([e[1] for e in es] + [num_nodes - 1] * pad, np.int64)
+    key = {e: k for k, e in enumerate(es)}
+    rev = np.arange(num_edges, dtype=np.int64)
+    for k, (s, d) in enumerate(es):
+        rev[k] = key[(d, s)]
+    return src, dst, rev, np.arange(num_edges) < len(es)
+
+
+def _both(order, j_fn, t_fn, args):
+    """Gradients (order 1) or gradients of the summed squared gradients
+    (order 2) of a scalar function of ``args`` in both packages."""
+    import jax
+
+    n = tuple(range(len(args)))
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [torch.from_numpy(a).requires_grad_() for a in args]
+    if order == 1:
+        jg = jax.grad(j_fn, n)(*jargs)
+        tg = torch.autograd.grad(t_fn(*targs), targs)
+    else:
+        jg = jax.grad(lambda *a: sum(jnp.sum(g ** 2) for g in jax.grad(j_fn, n)(*a)), n)(*jargs)
+        first = torch.autograd.grad(t_fn(*targs), targs, create_graph=True)
+        tg = torch.autograd.grad(sum((g ** 2).sum() for g in first), targs)
+    return [np.asarray(g) for g in jg], [g.numpy() for g in tg]
+
+
+def test_linear_prims_values_match_jax():
+    from equiformer_tpu.graph import linear_prims as jlp
+
+    lp = importlib.import_module("equiformer_tpu_torch.graph.linear_prims")
+    src, dst, rev, _ = _sym_edges()
+    rng = np.random.default_rng(12)
+    x, v = rng.normal(size=(10, 7)), rng.normal(size=(64, 5))
+    T = torch.from_numpy
+    assert np.array_equal(lp.take_rows(T(x), T(src), T(dst), T(rev)).numpy(),
+                          np.asarray(jlp.take_rows(jnp.asarray(x), jnp.asarray(src))))
+    assert _rel(lp.segsum_rows(T(v), T(dst), 10).numpy(),
+                np.asarray(jlp.segsum_rows(jnp.asarray(v), jnp.asarray(dst), 10, sorted=True))) \
+        < LP_TOL
+    assert np.array_equal(lp.permute_rows(T(v), T(rev)).numpy(),
+                          np.asarray(jlp.permute_rows(jnp.asarray(v), jnp.asarray(rev))))
+
+
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("op", ["take", "segsum", "segsum-masked-wide", "perm", "gather_add",
+                                "softmax"])
+def test_linear_prims_grads_match_jax(op, order):
+    """Orders 1 and 2 of each op and of the two compositions the model
+    builds from them (the message gather with its rev twin, the composed
+    segment softmax) against jax.grad through the JAX package's primitives."""
+    from equiformer_tpu.graph import linear_prims as jlp
+
+    lp = importlib.import_module("equiformer_tpu_torch.graph.linear_prims")
+    src, dst, rev, mask = _sym_edges()
+    jsrc, jdst, jrev, jmask = (jnp.asarray(a) for a in (src, dst, rev, mask))
+    tsrc, tdst, trev, tmask = (torch.from_numpy(a) for a in (src, dst, rev, mask))
+    rng = np.random.default_rng(13)
+    if op == "take":
+        args = [rng.normal(size=(10, 7))]
+        j_fn = lambda x: jnp.sum(jnp.sin(jnp.where(  # noqa: E731
+            jmask[:, None], jlp.take_rows(x, jsrc, t_ids=jdst, t_perm=jrev, t_sorted=True),
+            0.0)) ** 2)
+        t_fn = lambda x: (torch.sin(torch.where(  # noqa: E731
+            tmask[:, None], lp.take_rows(x, tsrc, tdst, trev), torch.zeros(()).double())) ** 2
+        ).sum()
+    elif op in ("segsum", "segsum-masked-wide"):
+        wide = op != "segsum"
+        args = [rng.normal(size=(64, 130 if wide else 5))]
+
+        def j_fn(v):
+            s = jlp.segsum_rows(jnp.where(jmask[:, None], v, 0.0), jdst, 10, sorted=True)
+            return jnp.sum(jnp.cos(s) * s)
+
+        def t_fn(v):  # the wide one passes its mask to the CSR wrapper
+            s = (lp.segsum_rows(v, tdst, 10, tmask) if wide else lp.segsum_rows(
+                torch.where(tmask[:, None], v, torch.zeros(()).double()), tdst, 10))
+            return (torch.cos(s) * s).sum()
+    elif op == "perm":
+        p = np.random.default_rng(14).permutation(64)
+        p_inv = np.argsort(p)
+        args = [rng.normal(size=(64, 5))]
+        j_fn = lambda v: jnp.sum(jnp.tanh(jlp.permute_rows(  # noqa: E731
+            v, jnp.asarray(p), jnp.asarray(p_inv))) * jnp.arange(5.0))
+        t_fn = lambda v: (torch.tanh(lp.permute_rows(  # noqa: E731
+            v, torch.from_numpy(p), torch.from_numpy(p_inv))) * torch.arange(5.0).double()).sum()
+    elif op == "gather_add":
+        args = [rng.normal(size=(10, 6)), rng.normal(size=(10, 6))]
+        j_fn = lambda a, b: jnp.sum(jnp.tanh(jnp.where(  # noqa: E731
+            jmask[:, None], js.gather_add(a, b, jsrc, jdst, 10, rev=jrev, higher_order=True),
+            0.0)))
+        t_fn = lambda a, b: torch.tanh(torch.where(  # noqa: E731
+            tmask[:, None], ts.gather_add(a, b, tsrc, tdst, 10, rev=trev),
+            torch.zeros(()).double())).sum()
+    else:
+        args = [rng.normal(size=(64, 4))]
+        j_fn = lambda s: jnp.sum(js._segment_softmax_composed(  # noqa: E731
+            s, jdst, 10, mask=jmask, sorted=True, higher_order=True)
+            * jnp.arange(4.0) * jnp.cosh(s * 0.1))
+        t_fn = lambda s: (ts.segment_softmax(s, tdst, 10, mask=tmask)  # noqa: E731
+                          * torch.arange(4.0).double() * torch.cosh(s * 0.1)).sum()
+    jg, tg = _both(order, j_fn, t_fn, args)
+    # the softmaxes shift by different constants (per segment in JAX, per
+    # column here), which changes only the rounding
+    tol = 1e-9 if op == "softmax" else LP_TOL
+    for a, b in zip(tg, jg):
+        assert a.shape == b.shape and _rel(a, b) < tol
+
+
+def test_second_order_wide_sums_take_the_csr_wrapper(monkeypatch):
+    """At second order a wide sum is the CSR wrapper (K3 on the card) and a
+    narrow one the fixed-order sum: neither the gather's nor the sum's
+    double backward reaches autograd's own scatter-add."""
+    lp = importlib.import_module("equiformer_tpu_torch.graph.linear_prims")
+    calls = []
+    for name in ("csr_segment_sum", "fixed_order_segment_sum"):
+        def counting(*a, _f=getattr(lp, name), _n=name, **k):
+            calls.append(_n)
+            return _f(*a, **k)
+        monkeypatch.setattr(lp, name, counting)
+    banned = ("index_add", "index_put", "scatter", "IndexBackward", "IndexSelectBackward")
+
+    def walk(fn, seen):
+        if fn is None or fn in seen:
+            return
+        seen.add(fn)
+        assert not any(b.lower() in fn.name().lower() for b in banned), fn.name()
+        for nxt, _ in fn.next_functions:
+            walk(nxt, seen)
+
+    src, dst, rev, mask = (torch.from_numpy(a) for a in _sym_edges())
+    for cols, want in ((130, "csr_segment_sum"), (5, "fixed_order_segment_sum")):
+        xs = torch.randn(10, cols, dtype=torch.float64).requires_grad_()
+        v = torch.randn(64, cols, dtype=torch.float64).requires_grad_()
+        out = (torch.sin(ts.gather_add(xs, xs * 2, src, dst, 10, rev=rev)).sum()
+               + torch.cos(ts.segment_sum(v, dst, 10, mask=mask)).sum())
+        del calls[:]
+        g_xs, g_v = torch.autograd.grad(out, (xs, v), create_graph=True)
+        assert calls == [want] * 2  # the two takes' backward; the sum's is a take
+        second = (g_xs ** 2).sum() + (g_v ** 2).sum()
+        walk(second.grad_fn, set())
+        del calls[:]
+        torch.autograd.grad(second, (xs, v))
+        assert calls and set(calls) == {want}

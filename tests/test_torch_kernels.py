@@ -543,20 +543,336 @@ def test_dtp_lin_bwd3_tables_drive_the_plain_math(case):
             assert _rel(a.numpy(), b.numpy()) < 1e-6
 
 
-def test_dtp_lin_ho_refuses_the_training_gradients():
-    """The force op computes dx, dsh and dw only: a gradient of the packed
-    head weights, or a backward under create_graph=True, is the unported
-    grad-of-grad path and raises NotImplementedError (never a fallback)."""
-    from equiformer_tpu_torch.kernels import dtp_lin_bwd3, dtp_lin_ho
+# --------------------------------- single legs (K5b, K5c) and the grad-of-grad
+# The fused op is multilinear in its legs (out, x, sh, w, W).  Each leg's
+# plain version is the VJP of the JAX composition (tp.apply + the heads'
+# linears, fp64) with respect to that leg; the autograd family of
+# dtp_lin_ho is held to jax.grad of a scalar of (out, dx, dsh, dw).
+# case -> n_edges: one head with every row real, two heads and the shared
+# (folded) weights with an n_edges that cuts rows off
+LEG_CASES = {"per-edge": 256, "two-head-cut": 200, "shared-w-cut": 200}
+LEG_TOL = 1e-9
+
+
+def _jax_heads(heads, shared, n_real):
+    """The JAX composition as a function of jnp operands: per-head outputs
+    with the rows at or past ``n_real`` zeroed, as the port's op gives them."""
+    tp = j_dtp(JIrreps(IRR), JIrreps(SH), JIrreps(IRR))
+    slices = tp.irreps_out.slices()
+    rows = (jnp.arange(E) < n_real)[:, None]
+
+    def f(x, sh, w, head_ws):
+        z = tp.apply(x, sh, w, scale_weights=not shared)
+        outs = []
+        for h, ws in zip(heads, head_ws):
+            pieces = []
+            for oi, (mul_out, ir_out) in enumerate(JIrreps(h)):
+                blocks = [z[:, slices[i]].reshape(E, ir.dim, m)
+                          for i, (m, ir) in enumerate(tp.irreps_out) if ir == ir_out]
+                o = jnp.einsum("eiu,uw->eiw", jnp.concatenate(blocks, axis=-1), ws[oi])
+                pieces.append(o.reshape(E, -1))
+            outs.append(jnp.where(rows, jnp.concatenate(pieces, axis=-1), 0.0))
+        return outs
+
+    return f
+
+
+def _leg_case(case, seed):
+    """fp64 operands of one case in both packages, and cotangents for every
+    leg: (heads, shared, n_real, numpy operands, torch plan, torch leaves)."""
+    name = case.removesuffix("-cut")
+    heads, shared, x, sh, w, head_ws = _dtp_case(name, np.float64, seed=seed)
+    plan = DTPLinPlan(depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR)), heads,
+                      shared_weights=shared)
+    rng = np.random.default_rng(seed + 100)
+    cots = {"heads": [rng.normal(size=(E, Irreps(h).dim)) for h in heads],
+            "x": rng.normal(size=x.shape), "sh": rng.normal(size=sh.shape),
+            "w": rng.normal(size=w.shape)}
+    return heads, shared, LEG_CASES[case], (x, sh, w, head_ws), plan, cots
+
+
+def _torch_leaves(x, sh, w, head_ws):
+    leaf = lambda a: torch.from_numpy(a).requires_grad_()  # noqa: E731
+    return leaf(x), leaf(sh), leaf(w), [[None if a is None else leaf(a) for a in ws]
+                                        for ws in head_ws]
+
+
+def _flat_cot(plan, head_cots):
+    """The heads' cotangents in the fused flat output's layout."""
+    probe = torch.zeros(E, plan.d_out, dtype=torch.float64, requires_grad=True)
+    return torch.autograd.grad(plan.split_output(probe), probe,
+                               [torch.from_numpy(c) for c in head_cots])[0]
+
+
+@pytest.mark.parametrize("case", list(LEG_CASES))
+def test_dtp_lin_leg_plains_match_jax_vjps(case):
+    """F_x, F_sh, F_w (dtp_lin_leg_plain, each without its own operand) and
+    F_W (dtp_lin_legW_plain, carried from the packed layout back to the
+    heads' weights) against jax.vjp of the JAX composition with respect to
+    that leg, fp64, within 1e-9 of the largest value; one and two heads,
+    per-edge and shared (folded) weights, and an n_edges that cuts rows off."""
+    import jax
+    from equiformer_tpu_torch.kernels import dtp_lin_leg_plain, dtp_lin_legW_plain
+    from equiformer_tpu_torch.kernels.dtp_lin import fold_shared_weights
+
+    heads, shared, n_real, (x, sh, w, head_ws), plan, cots = _leg_case(case, seed=11)
+    jws = [[None if a is None else jnp.asarray(a) for a in ws] for ws in head_ws]
+    _, vjp = jax.vjp(_jax_heads(heads, shared, n_real), jnp.asarray(x), jnp.asarray(sh),
+                     jnp.asarray(w), jws)
+    jdx, jdsh, jdw, jdws = vjp([jnp.asarray(c) for c in cots["heads"]])
+
+    tx, tsh, tw, tws = _torch_leaves(x, sh, w, head_ws)
+    W = plan.pack_weights(tws)
+    fw, fW = fold_shared_weights(plan, tw, W)  # (None, folded W) when shared
+    g = _flat_cot(plan, cots["heads"])
+    n = torch.tensor(n_real, dtype=torch.int32)
+    with torch.no_grad():
+        dx = dtp_lin_leg_plain(plan, "x", g, None, tsh, fw, fW, n)
+        dsh = dtp_lin_leg_plain(plan, "sh", g, tx, None, fw, fW, n)
+        dW = dtp_lin_legW_plain(plan, g, tx, tsh, fw, n)
+    assert dW.dtype == torch.float64 and dW.shape == (plan.w_numel,)
+    assert _rel(dx.numpy(), jdx) < LEG_TOL and _rel(dsh.numpy(), jdsh) < LEG_TOL
+    assert float(dx[n_real:].abs().sum()) == 0.0 and float(dsh[n_real:].abs().sum()) == 0.0
+    leaves = [t for ws in tws for t in ws if t is not None]
+    if shared:  # the fold carries the folded dW back to the heads' weights and the shared w
+        got = torch.autograd.grad(fW, leaves + [tw], dW)
+        assert _rel(got[-1].numpy(), jdw) < LEG_TOL
+        with pytest.raises(ValueError):
+            dtp_lin_leg_plain(plan, "w", g, tx, tsh, None, fW, n)
+    else:
+        got = torch.autograd.grad(W, leaves, dW)
+        with torch.no_grad():
+            dw = dtp_lin_leg_plain(plan, "w", g, tx, tsh, None, W, n)
+        assert _rel(dw.numpy(), jdw) < LEG_TOL
+    want = [a for ws in jdws for a in ws if a is not None]
+    assert len(want) == len(leaves)
+    for t, j in zip(got, want):
+        assert _rel(t.numpy(), j) < LEG_TOL
+
+
+@pytest.mark.parametrize("case", list(LEG_CASES))
+def test_dtp_lin_ho_grad_of_grad_matches_jax(case):
+    """A scalar of (out, dx, dsh, dw), the gradients taken with
+    create_graph=True as a force pass takes them, differentiated with respect
+    to x, sh, w and every head weight (the shared w through the fold),
+    against jax.grad of the same scalar of the JAX composition: fp64, 1e-9."""
+    import jax
+    from equiformer_tpu_torch.kernels import dtp_lin_ho
+
+    heads, shared, n_real, (x, sh, w, head_ws), plan, cots = _leg_case(case, seed=12)
+    f = _jax_heads(heads, shared, n_real)
+    jc = {k: ([jnp.asarray(c) for c in v] if k == "heads" else jnp.asarray(v))
+          for k, v in cots.items()}
+
+    def j_scalar(x, sh, w, hws):
+        def first(x, sh, w):
+            return sum(jnp.vdot(o, c) for o, c in zip(f(x, sh, w, hws), jc["heads"]))
+
+        val, (dx, dsh, dw) = jax.value_and_grad(first, (0, 1, 2))(x, sh, w)
+        return val + jnp.vdot(dx, jc["x"]) + jnp.vdot(dsh, jc["sh"]) + jnp.vdot(dw, jc["w"])
+
+    jws = [[None if a is None else jnp.asarray(a) for a in ws] for ws in head_ws]
+    jval, jgrads = jax.value_and_grad(j_scalar, (0, 1, 2, 3))(
+        jnp.asarray(x), jnp.asarray(sh), jnp.asarray(w), jws)
+
+    tx, tsh, tw, tws = _torch_leaves(x, sh, w, head_ws)
+    out = dtp_lin_ho(plan, tx, tsh, tw, plan.pack_weights(tws),
+                     torch.tensor(n_real, dtype=torch.int32))
+    first = sum((o * torch.from_numpy(c)).sum()
+                for o, c in zip(plan.split_output(out), cots["heads"]))
+    dx, dsh, dw = torch.autograd.grad(first, (tx, tsh, tw), create_graph=True)
+    val = first + sum((d * torch.from_numpy(cots[k])).sum()
+                      for d, k in ((dx, "x"), (dsh, "sh"), (dw, "w")))
+    leaves = [t for ws in tws for t in ws if t is not None]
+    grads = torch.autograd.grad(val, [tx, tsh, tw] + leaves)
+    assert abs(float(val) - float(jval)) < LEG_TOL * abs(float(jval))
+    want = list(jgrads[:3]) + [a for ws in jgrads[3] for a in ws if a is not None]
+    assert len(want) == len(grads)
+    for t, j in zip(grads, want):
+        assert _rel(t.numpy(), j) < LEG_TOL
+
+
+@pytest.mark.parametrize("case", ["two-head", "shared-w", "broadcast-x"])
+def test_dtp_lin_ho_gradgradcheck(case):
+    """torch.autograd's own numeric check of the family's first and second
+    derivatives at a tiny size (fp64; 2x0e+1x1e features, SH to l=1, 3 edges,
+    2 of them real)."""
+    from equiformer_tpu_torch.kernels import dtp_lin_ho
+
+    irr = Irreps("2x0e+1x1e")
+    heads = ["3x0e+1x1e", "2x0e"] if case == "two-head" else ["3x0e+1x1e"]
+    shared = case == "shared-w"
+    plan = DTPLinPlan(depthwise_tp(irr, Irreps("1x0e+1x1e"), irr), heads, shared_weights=shared)
+    E, n = 3, torch.tensor(2, dtype=torch.int32)
+    g = torch.Generator().manual_seed(8)
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64).requires_grad_()  # noqa: E731
+    # the row-broadcast x of the edge-degree site; the shared [d_w] vector,
+    # folded inside dtp_lin_ho
+    x = rnd(1, plan.d_x) if case == "broadcast-x" else rnd(E, plan.d_x)
+    ins = [x, rnd(E, plan.d_sh), rnd(plan.d_w) if shared else rnd(E, plan.d_w),
+           rnd(plan.w_numel)]
+    f = lambda x, sh, w, W: dtp_lin_ho(plan, x.expand(E, plan.d_x), sh, w, W, n)  # noqa: E731
+    assert torch.autograd.gradcheck(f, ins)
+    assert torch.autograd.gradgradcheck(f, ins)
+
+
+def test_dtp_lin_ho_backward_runs_only_the_legs_asked_for(monkeypatch):
+    """needs_input_grad and skip_leg_grads decide which leg kernels a
+    backward calls: two or more edge legs take one K5a, a single one its
+    K5b leg, the head weights K5c unless the pass skips them; an output of
+    K5a that nobody used arrives as None and costs no leg."""
+    import importlib
+
+    ho = importlib.import_module("equiformer_tpu_torch.kernels.dtp_lin_ho")
+    calls = []
+    for name in ("dtp_lin_bwd3", "dtp_lin_leg", "dtp_lin_legW", "dtp_lin_fwd"):
+        def counting(*a, _f=getattr(ho, name), _n=name, **k):
+            calls.append(_n + (":" + a[1] if _n == "dtp_lin_leg" else ""))
+            return _f(*a, **k)
+        monkeypatch.setattr(ho, name, counting)
+
+    plan, x, sh, w, W, g = _bwd3_inputs("per-edge", torch.float64, E=8)
+    leaf = lambda t: t.clone().requires_grad_()  # noqa: E731
+    x, sh, w, W, g = leaf(x), leaf(sh), leaf(w), leaf(W), leaf(g)
+
+    def backward_calls(fn):
+        del calls[:]
+        fn()
+        return sorted(calls)
+
+    out = ho.dtp_lin_ho(plan, x.detach(), sh, w.detach(), W.detach())
+    assert backward_calls(lambda: torch.autograd.grad(out, sh, g)) == ["dtp_lin_leg:sh"]
+    out = ho.dtp_lin_ho(plan, x, sh, w, W)
+    assert backward_calls(lambda: torch.autograd.grad(out, (x, sh, w, W), g)) \
+        == ["dtp_lin_bwd3", "dtp_lin_legW"]
+    out = ho.dtp_lin_ho(plan, x, sh, w, W)
+    del calls[:]
+    with ho.skip_leg_grads("W"):
+        dsh, dw = torch.autograd.grad(out, (sh, w), g, create_graph=True)
+    assert calls == ["dtp_lin_bwd3"]
+    # dx was computed but never used: its cotangent is None in the second
+    # pass, which walks the K5a node (for dsh: out, x, w, W legs; for dw:
+    # out, x, W) and then the forward node (x and w by one K5a, W); "sh" is
+    # skipped in both
+    with ho.skip_leg_grads("sh"):
+        got = backward_calls(lambda: torch.autograd.grad(
+            out.sum() + dsh.sum() + dw.sum(), (g, x, w, W)))
+    assert got == sorted(["dtp_lin_fwd"] * 2 + ["dtp_lin_leg:x"] * 2 + ["dtp_lin_leg:w"]
+                         + ["dtp_lin_legW"] * 2 + ["dtp_lin_bwd3", "dtp_lin_legW"])
+    assert not ho._SKIPPED_LEGS
+
+
+def _emulate_leg_kernel(plan, leg, x, sh, w, W_flat, g, n_edges, tile=16, warps=8):
+    """csrc/dtp_lin_leg.cu's loop over ``bwd3_tables`` for one leg, in torch,
+    one edge tile at a time: the staged slice of g, dz through the packed
+    W^T, then per row (warp) the terms in table order.  The leg's own operand
+    is never read (the caller passes None for it); the sh leg adds its
+    running sum to the row at each SH column change; the w leg flushes a
+    group's columns through ``dwmap`` at its last component."""
+    from equiformer_tpu_torch.kernels.dtp_lin_ho import bwd3_tables
+
+    gk, terms, coeffs, dwmap, wt_index, span_max, _ = bwd3_tables(plan, torch.device("cpu"))
+    gk, terms, coeffs, dwmap = gk.tolist(), terms.tolist(), coeffs.tolist(), dwmap.tolist()
+    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+    E = g.shape[0]
+    width = {"x": plan.d_x, "sh": plan.d_sh, "w": plan.d_w}[leg]
+    out = torch.zeros(E, width, dtype=g.dtype)
+    for e0 in range(0, min(E, n_edges), tile):
+        n_live = min(tile, n_edges - e0)
+        acc = torch.zeros(n_live, max(span_max, 1) if leg == "w" else width, dtype=g.dtype)
+        for fs, cols, out_col, _, tb, te, wt_off, cp, sb, sn, first, last in gk:
+            if leg == "w" and first:
+                acc.zero_()
+            gt = torch.zeros(n_live, cp, dtype=g.dtype)
+            gt[:, :cols] = g[e0 : e0 + n_live, out_col : out_col + cols]
+            dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
+            for r0 in range(warps):
+                for r in range(r0, n_live, warps):
+                    e, run, cur = e0 + r, 0.0, -1
+                    for (a, col, b, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
+                        d = dz[r, fc : fc + mul]
+                        if leg == "sh":
+                            if col != cur:
+                                if cur >= 0:
+                                    acc[r, cur] += run
+                                run, cur = 0.0, col
+                            wv = 1.0 if w is None else w[e, b : b + mul]
+                            run = run + float(torch.sum(c * x[e, a : a + mul] * wv * d))
+                        elif leg == "x":
+                            wv = 1.0 if w is None else w[e, b : b + mul]
+                            acc[r, a : a + mul] += c * sh[e, col] * wv * d
+                        else:
+                            acc[r, bl : bl + mul] += c * sh[e, col] * x[e, a : a + mul] * d
+                    if leg == "sh" and cur >= 0:
+                        acc[r, cur] += run
+            if leg == "w" and last:
+                out[e0 : e0 + n_live, dwmap[sb : sb + sn]] = acc[:, :sn]
+        if leg != "w":
+            out[e0 : e0 + n_live] = acc
+    return out
+
+
+def _emulate_legW_kernel(plan, x, sh, w, g, n_edges, n_parts, tile=16):
+    """csrc/dtp_lin_legW.cu's loop over ``plan.bwd_tables``, in torch: block
+    b walks the tiles b, b + n_parts, ..., skips those past n_edges, stages
+    the slice of g, recomputes z from the term table and adds z^T g into its
+    own partial row; the rows are then summed in block order."""
+    gk, terms, coeffs, *_ = plan.bwd_tables(torch.device("cpu"))
+    gk, terms, coeffs = gk.tolist(), terms.tolist(), coeffs.tolist()
+    E = g.shape[0]
+    n_tiles = -(-E // tile)
+    part = torch.zeros(n_parts, plan.w_numel, dtype=g.dtype)
+    for blk in range(n_parts):
+        for t in range(blk, n_tiles, n_parts):
+            e0 = t * tile
+            n_live = max(0, min(tile, E - e0, n_edges - e0))
+            if n_live == 0:
+                continue
+            rows = slice(e0, e0 + n_live)
+            for fs, cols, out_col, w_off, tb, te, *_ in gk:
+                z = torch.zeros(n_live, fs, dtype=g.dtype)
+                for (a, col, b, fc, mul, _), c in zip(terms[tb:te], coeffs[tb:te]):
+                    v = c * sh[rows, col : col + 1] * x[rows, a : a + mul]
+                    z[:, fc : fc + mul] += v if w is None else v * w[rows, b : b + mul]
+                part[blk, w_off : w_off + fs * cols] += \
+                    (z.T @ g[rows, out_col : out_col + cols]).reshape(-1)
+    dW = torch.zeros(plan.w_numel, dtype=g.dtype)
+    for blk in range(n_parts):
+        dW += part[blk]
+    return dW
+
+
+@pytest.mark.parametrize("case", ["two-head", "shared-w", "broadcast-x", "dead-w-cols", "l3"])
+def test_dtp_lin_leg_tables_drive_the_plain_math(case):
+    """The CUDA leg kernels cannot run here; their tables can.  Walking them
+    the way csrc/dtp_lin_leg.cu (each edge leg, without its own operand) and
+    csrc/dtp_lin_legW.cu (with fewer blocks than tiles, so a block walks
+    several) do gives the plain versions' results (fp64 inputs, the tables'
+    fp32 CG coefficients: 1e-6 relative)."""
+    from equiformer_tpu_torch.kernels import dtp_lin_leg_plain, dtp_lin_legW_plain
+
+    plan, x, sh, w, W, g = _bwd3_inputs(case, torch.float64, E=40, seed=6)
+    n = torch.tensor(37, dtype=torch.int32)
+    for leg in ("x", "sh") + (() if w is None else ("w",)):
+        ops = {"x": x, "sh": sh, "w": w, leg: None}
+        want = dtp_lin_leg_plain(plan, leg, g, ops["x"], ops["sh"], ops["w"], W, n)
+        got = _emulate_leg_kernel(plan, leg, ops["x"], ops["sh"], ops["w"], W, g, 37)
+        assert got.shape == want.shape
+        assert _rel(got.numpy(), want.numpy()) < 1e-6, leg
+    want = dtp_lin_legW_plain(plan, g, x, sh, w, n)
+    got = _emulate_legW_kernel(plan, x, sh, w, g, 37, n_parts=2)
+    assert _rel(got.numpy(), want.numpy()) < 1e-6
+
+
+def test_dtp_lin_ho_on_the_cpu_launches_no_kernel():
+    """CPU tensors take the plain versions at every order: no launch count
+    moves through a forward, a force-style backward and its grad-of-grad."""
+    from equiformer_tpu_torch.kernels import dtp_lin_ho, launch_counts
 
     plan, x, sh, w, W, g = _bwd3_inputs("per-edge", torch.float32)
-    sh = sh.requires_grad_()
-    out = dtp_lin_ho(plan, x, sh, w, W.requires_grad_())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        torch.autograd.grad(out, sh, g)
-    out = dtp_lin_ho(plan, x, sh, w, W.detach())
-    with pytest.raises(NotImplementedError, match="create_graph"):
-        torch.autograd.grad(out, sh, g, create_graph=True)
+    sh, W = sh.requires_grad_(), W.requires_grad_()
     reset_launch_counts()
-    (dsh,) = torch.autograd.grad(dtp_lin_ho(plan, x, sh, w, W.detach()), sh, g)
-    assert dsh.shape == sh.shape and dtp_lin_bwd3.launches == 0  # CPU: the plain version
+    (dsh,) = torch.autograd.grad(dtp_lin_ho(plan, x, sh, w, W), sh, g, create_graph=True)
+    (dW,) = torch.autograd.grad(dsh.square().sum(), W)
+    assert dsh.shape == sh.shape and dW.shape == W.shape
+    assert set(launch_counts().values()) == {0}

@@ -212,17 +212,17 @@ def test_evaluate_md17_matches_eval_step(reduced_exp):
     assert not t["forces"].requires_grad and not t["energy"].requires_grad
 
 
-def test_force_path_raises_for_the_training_grad_of_grad(reduced_exp):
-    """create_graph=True (force training) needs the grad-of-grad of the fused
-    DTP, which is not ported: NotImplementedError, never a fallback (the op
-    itself refuses it too, ``test_dtp_lin_ho_refuses_the_training_gradients``).
-    On the CPU the evaluation launches no kernel."""
+def test_cpu_force_evaluation_launches_no_kernel(reduced_exp):
+    """On the CPU every wrapper takes its plain version: an evaluation, and
+    the force pass of training (``create_graph=True``, tested against the JAX
+    package in ``tests/test_torch_md17_train.py``), leave every launch count
+    at zero."""
     _, tm, _, data = reduced_exp
     batch = _torch_batch(data, torch.float32)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pt.energy_and_forces(tm.float(), batch, create_graph=True)
     reset_launch_counts()
-    pt.evaluate_md17(tm, batch)
+    pt.evaluate_md17(tm.float(), batch)
+    _, forces = pt.energy_and_forces(tm, batch, create_graph=True)
+    assert forces.requires_grad
     assert set(launch_counts().values()) == {0}
 
 
