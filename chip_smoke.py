@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's QM9 training and inference paths and its MD17
-energy + force evaluation and training once on one NVIDIA GPU.
+energy + force evaluation and training once on one NVIDIA GPU, on the fused
+DTP + linear route and on the unfused DTP route.
 
     python3 chip_smoke.py
 
@@ -92,6 +93,31 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    bfloat16 CPU plain path's, with a floor of 2e-2 for the two scalars (one
    number of the CPU path can land near its float64 value by chance).
 
+11. K6 kernels — the unfused DTP route's kernels at the term lists of the
+   QM9 flagship's three call sites (batch 0 of phase 2, E = max_edges) and
+   of the exp_l3 sep_act site (batch 0 of phase 6), float32 and bfloat16:
+   K6-T (``dtp_t``) on the DTP's terms and on the x and w legs'
+   permutations (a broadcast x at the edge degree, a shared w at
+   sep_value), K6-R (``dtp_r``) and K6-FB (``dtp_fused_bwd``), against their
+   plain versions with the tolerances of phase 3, timed the same way; the
+   route computes every row, so the bounds count all E rows.
+12. unfused train — the QM9 flagship built with ``fused_dtp_lin=False``:
+   the launch counts of one eval forward (13 K6-T, 1 K3, 6 K4), then phase
+   4 on that route (39 K6-T, 13 K3, 6 K4 per step) and with
+   ``dtp_first_order_bwd=True`` (13 K6-T + 13 K6-FB); one fp32 step of each
+   route from the same seed, batch and dropout masks, whose loss, gradient
+   norm and updated parameters lie within ROUTE_RTOL of the fused route's;
+   phase 5 on the unfused route.
+13. unfused md17 — phases 6, 9 and 10 with ``fused_dtp_lin=False``: 32 K6-T
+   and 13 K6-R per force evaluation, 135 K6-T and 13 K6-R per training step
+   (the parameter pass runs no R), 19 / 38 K3; equivariance, bitwise
+   repeats and the CPU checks as on the fused route, against the fused
+   phases' float64 CPU references (the same seed gives the same parameters,
+   so the same function); bf16 forces and energies are held to
+   MD17_BF16_FACTOR times the larger of the bf16 CPU path's and the fused
+   route's card distance to float64 (two samples of the model's bf16 noise,
+   ~3e-2 of the largest value on either route).
+
 Phases 3 and 7 also time the model's segment sums too narrow for K3
 (``fixed_order_segment_sum``, an ``index_put_`` that repeats its bits)
 against ``index_add_`` at the shapes of the readout and the softmax
@@ -121,15 +147,38 @@ CPU_RTOL = {"float32": 1e-3, "bfloat16": 2e-2}
 BF16_MIN_SHIFT = 1e-4
 CPU_GRAPHS = 16
 WARMUP_STEPS, TIMED_STEPS = 3, 10
-EXPECTED_EVAL = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 0, "dtp_lin_leg": 0,
-                 "dtp_lin_legW": 0, "csr_segment_sum": 1, "attn_combine": 6}
-EXPECTED_TRAIN = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 13, "dtp_lin_bwd3": 0, "dtp_lin_leg": 0,
-                  "dtp_lin_legW": 0, "csr_segment_sum": 13, "attn_combine": 6}
+TPU_KERNELS = {
+    "dtp_lin_fwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:598",
+    "dtp_lin_bwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:673",
+    "dtp_lin_bwd3": "equiformer_tpu/kernels/dtp_lin_ho.py:451",
+    "dtp_lin_leg": "equiformer_tpu/kernels/dtp_lin_ho.py:163",
+    "dtp_lin_legW": "equiformer_tpu/kernels/dtp_lin_ho.py:402",
+    "dtp_t": "equiformer_tpu/kernels/dtp_pallas.py:54",
+    "dtp_r": "equiformer_tpu/kernels/dtp_pallas.py:72",
+    "dtp_fused_bwd": "equiformer_tpu/kernels/dtp_pallas.py:405",
+    "csr_segment_sum": "equiformer_tpu/kernels/segment_csr_pallas.py:36",
+    "attn_combine": "equiformer_tpu/kernels/attn_csr_pallas.py:109",
+}
+SOURCES = {
+    "dtp_lin_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
+    "dtp_lin_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
+    "dtp_lin_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
+    "dtp_lin_leg": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
+    "dtp_lin_legW": "equiformer_tpu_torch/csrc/dtp_lin_legW.cu",
+    "dtp_t": "equiformer_tpu_torch/csrc/dtp_t.cu",
+    "dtp_r": "equiformer_tpu_torch/csrc/dtp_r.cu",
+    "dtp_fused_bwd": "equiformer_tpu_torch/csrc/dtp_fused_bwd.cu",
+    "csr_segment_sum": "equiformer_tpu_torch/csrc/segment_csr.cu",
+    "attn_combine": "equiformer_tpu_torch/csrc/attn_csr.cu",
+}
+NONE = dict.fromkeys(SOURCES, 0)
+EXPECTED_EVAL = {**NONE, "dtp_lin_fwd": 13, "csr_segment_sum": 1, "attn_combine": 6}
+EXPECTED_TRAIN = {**NONE, "dtp_lin_fwd": 13, "dtp_lin_bwd": 13, "csr_segment_sum": 13,
+                  "attn_combine": 6}
 # one force evaluation: a K1 and a K5a per fused DTP (edge degree + 2 per
 # block); K3 for the edge-degree scatter and the 6 attention sums, and 12 in
 # the message gathers' backward; the composed attention tail, no K4
-EXPECTED_MD17 = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 13, "dtp_lin_leg": 0,
-                 "dtp_lin_legW": 0, "csr_segment_sum": 19, "attn_combine": 0}
+EXPECTED_MD17 = {**NONE, "dtp_lin_fwd": 13, "dtp_lin_bwd3": 13, "csr_segment_sum": 19}
 # one training step: forward 13 K1; force pass 13 K5a; parameter pass: per
 # per-edge-w site (6 sep_act) the K5a node's backward is 3 K1 (out legs), 2 x
 # legs + 2 w legs (K5b; the sh legs are skipped: sh depends on positions
@@ -140,9 +189,27 @@ EXPECTED_MD17 = {"dtp_lin_fwd": 13, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 13, "dtp_l
 # in the force pass (the message gathers' backward), and in the parameter
 # pass 7 (the backward of the force pass's gathers) + 12 (the forward
 # gathers' backward)
-EXPECTED_MD17_TRAIN = {"dtp_lin_fwd": 45, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 20,
-                       "dtp_lin_leg": 39, "dtp_lin_legW": 45, "csr_segment_sum": 38,
-                       "attn_combine": 0}
+EXPECTED_MD17_TRAIN = {**NONE, "dtp_lin_fwd": 45, "dtp_lin_bwd3": 20, "dtp_lin_leg": 39,
+                       "dtp_lin_legW": 45, "csr_segment_sum": 38}
+# The unfused route (fused_dtp_lin=False): every DTP site (edge degree + 2
+# per block) is a K6-T forward; the linear heads are cuBLAS matmuls.  A QM9
+# step adds T's x and w legs at each site (the edge degree's x is its
+# broadcast constant feature; QM9 positions need no gradient, so no R), or
+# one K6-FB per site with dtp_first_order_bwd.  A force evaluation adds the
+# w leg at the 7 per-edge-w sites, the x leg at the 12 block sites (the
+# edge degree's feature is a function of the detached parameters) and an R
+# per site.  A force training step: 135 T and the force pass's 13 R
+# (counted on the CPU as 9 + 21 per block; the parameter pass runs no R).
+# K3 and K4 as on the fused route.
+UNFUSED = {"fused_dtp_lin": False}
+FIRST_ORDER_BWD = {"fused_dtp_lin": False, "dtp_first_order_bwd": True}
+EXPECTED_UNFUSED_EVAL = {**NONE, "dtp_t": 13, "csr_segment_sum": 1, "attn_combine": 6}
+EXPECTED_UNFUSED_TRAIN = {**NONE, "dtp_t": 39, "csr_segment_sum": 13, "attn_combine": 6}
+EXPECTED_FIRST_ORDER_TRAIN = {**NONE, "dtp_t": 13, "dtp_fused_bwd": 13, "csr_segment_sum": 13,
+                              "attn_combine": 6}
+EXPECTED_UNFUSED_MD17 = {**NONE, "dtp_t": 32, "dtp_r": 13, "csr_segment_sum": 19}
+EXPECTED_UNFUSED_MD17_TRAIN = {**NONE, "dtp_t": 135, "dtp_r": 13, "csr_segment_sum": 38}
+ROUTE_RTOL = 1e-3  # one fp32 step, unfused vs fused route on the card
 MD17_CPU_MOLECULES = 2
 BF16_SCALAR_FLOOR = 2e-2
 MD17_MODEL = "graph_attention_transformer_nonlinear_exp_l3_md17"
@@ -151,24 +218,6 @@ EQUIV_TOL = 1e-3
 MD17_BF16_FACTOR = 2.0  # card / CPU distance to fp64: measured 1.1 (energies), 0.9 (forces)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-TPU_KERNELS = {
-    "dtp_lin_fwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:598",
-    "dtp_lin_bwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:673",
-    "dtp_lin_bwd3": "equiformer_tpu/kernels/dtp_lin_ho.py:451",
-    "dtp_lin_leg": "equiformer_tpu/kernels/dtp_lin_ho.py:163",
-    "dtp_lin_legW": "equiformer_tpu/kernels/dtp_lin_ho.py:402",
-    "csr_segment_sum": "equiformer_tpu/kernels/segment_csr_pallas.py:36",
-    "attn_combine": "equiformer_tpu/kernels/attn_csr_pallas.py:109",
-}
-SOURCES = {
-    "dtp_lin_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
-    "dtp_lin_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
-    "dtp_lin_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
-    "dtp_lin_leg": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
-    "dtp_lin_legW": "equiformer_tpu_torch/csrc/dtp_lin_legW.cu",
-    "csr_segment_sum": "equiformer_tpu_torch/csrc/segment_csr.cu",
-    "attn_combine": "equiformer_tpu_torch/csrc/attn_csr.cu",
-}
 
 
 def card_line() -> str:
@@ -415,19 +464,21 @@ def train_setup(pt, model):
     return train_step, pt.TrainState.create(model, opt)
 
 
-def train_phase(pt, torch, make, max_edges, gpu_batches, dev, out):
-    """Full-width training steps at batch 128 in bf16 and fp32 on the card."""
+def train_phase(pt, torch, make, max_edges, gpu_batches, dev, out, tag="train",
+                expected=EXPECTED_TRAIN, route=None):
+    """Full-width training steps at batch 128 in bf16 and fp32 on the card;
+    ``route`` holds the DTP switches the model is built with."""
     for name in ("bfloat16", "float32"):
         model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED,
-                     compute_dtype=None if name == "float32" else name)
+                     compute_dtype=None if name == "float32" else name, **(route or {}))
         step, state = train_setup(pt, model)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
         (state, metrics), launches = counted(torch, lambda: step(state, gpu_batches[0], gen))
-        print(f"train {name}: launches in one step: {launches}")
-        if launches != EXPECTED_TRAIN:
-            raise RuntimeError(f"launch counts {launches} != expected {EXPECTED_TRAIN}")
-        out["train_launches"] = launches
+        print(f"{tag} {name}: launches in one step: {launches}")
+        if launches != expected:
+            raise RuntimeError(f"launch counts {launches} != expected {expected}")
+        out[f"{tag}_launches"] = launches
         for i in range(1, WARMUP_STEPS):
             state, metrics = step(state, gpu_batches[i % len(gpu_batches)], gen)
         torch.cuda.synchronize()
@@ -448,8 +499,8 @@ def train_phase(pt, torch, make, max_edges, gpu_batches, dev, out):
         if not (moved > 0 and ema_moved > 0) or state.step != WARMUP_STEPS + TIMED_STEPS:
             raise RuntimeError(f"{name}: parameters or EMA did not move ({moved}, {ema_moved})")
         gps = BATCH / statistics.median(times)
-        out[f"train_{name}"] = gps
-        print(f"train {name}: {gps:.1f} graphs/s at batch {BATCH} (median of {TIMED_STEPS} "
+        out[f"{tag}_{name}"] = gps
+        print(f"{tag} {name}: {gps:.1f} graphs/s at batch {BATCH} (median of {TIMED_STEPS} "
               f"steps after {WARMUP_STEPS} warm-up; step seconds "
               f"{[round(t, 4) for t in times]}), peak memory {peak:.0f} MiB, last step "
               f"loss {vals['loss']:.4f} mae {vals['mae']:.4f} grad_norm {vals['grad_norm']:.4f}, "
@@ -457,7 +508,7 @@ def train_phase(pt, torch, make, max_edges, gpu_batches, dev, out):
         del model, state
 
 
-def train_vs_cpu(pt, torch, make, data, dev):
+def train_vs_cpu(pt, torch, make, data, dev, tag="train", route=None):
     """One full-width training step of CPU_GRAPHS graphs on the card and on the
     CPU plain path, same weights and same injected dropout masks."""
     from equiformer_tpu_torch.data import GraphLoader
@@ -470,7 +521,7 @@ def train_vs_cpu(pt, torch, make, data, dev):
         results = []
         for d in (dev, "cpu"):
             model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED, device=d,
-                         compute_dtype=None if name == "float32" else name)
+                         compute_dtype=None if name == "float32" else name, **(route or {}))
             if keep is None:  # one alpha-dropout mask [E, H] per block
                 keep = [torch.rand(max_edges, model.block_0.ga.num_heads, generator=mask_gen)
                         < 0.8 for _ in range(model.num_layers)]
@@ -491,7 +542,7 @@ def train_vs_cpu(pt, torch, make, data, dev):
         errs = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in ("loss", "grad_norm")}
         scale = max(float(p.abs().max()) for p in pc.values())
         perr = max(float((pg[n] - pc[n]).abs().max()) for n in pc) / scale
-        print(f"train {name} card vs CPU plain path ({CPU_GRAPHS} graphs, max_edges "
+        print(f"{tag} {name} card vs CPU plain path ({CPU_GRAPHS} graphs, max_edges "
               f"{max_edges}): loss {mg['loss']:.6f} / {mc['loss']:.6f}, grad_norm "
               f"{mg['grad_norm']:.6f} / {mc['grad_norm']:.6f}, rel {errs}, updated params "
               f"{perr:.3e} of max |param| (bound {tol:.0e}); step {sg:.2f} s card, "
@@ -670,10 +721,16 @@ def md17_kernel_phase(torch, model, batch, dev, records):
     narrow_sums(torch, "force evaluation", cases)
 
 
-def md17_phase(pt, torch, dev, out):
+def md17_phase(pt, torch, dev, out, tag="md17", expected=EXPECTED_MD17, route=None, ref=None):
     """Energies and forces of the exp_l3 force model on the card: launch
     counts, rates, memory, determinism, the CPU plain path and equivariance.
-    Returns the float32 model and the card batches."""
+    ``route`` holds the DTP switches.  ``ref``, from an earlier call on
+    another route with the same seed (the same parameters, so the same
+    function), gives the float64 CPU evaluation of batch 0 and that route's
+    bf16 card distances to it: another bf16 sample of the function's
+    rounding noise, so bf16 is held to MD17_BF16_FACTOR times the larger of
+    the two samples' distances.  Returns the float32 model, the card
+    batches, max_edges and this call's ``ref``."""
     import dataclasses
 
     import numpy as np
@@ -687,15 +744,17 @@ def md17_phase(pt, torch, dev, out):
     print(f"md17: {N_BATCHES} x {MD17_BATCH} molecules of {MD17_SLOTS} atoms, real edges "
           f"{counts}, max_edges {max_edges}")
     gpu_batches = [b.to(dev) for b in batches]
-    make = pt.model_entrypoint(MD17_MODEL)  # on the card
+    route = route or {}
+    entry = pt.model_entrypoint(MD17_MODEL)  # on the card
+    make = lambda **kw: entry(**kw, **route)  # noqa: E731
     models = {name: make(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
                          compute_dtype=None if name == "float32" else name)
               for name in ("float32", "bfloat16")}
     _, launches = counted(torch, lambda: pt.evaluate_md17(models["bfloat16"], gpu_batches[0]))
-    print(f"md17: launches in one force evaluation: {launches}")
-    if launches != EXPECTED_MD17:
-        raise RuntimeError(f"launch counts {launches} != expected {EXPECTED_MD17}")
-    out["md17_launches"] = launches
+    print(f"{tag}: launches in one force evaluation: {launches}")
+    if launches != expected:
+        raise RuntimeError(f"launch counts {launches} != expected {expected}")
+    out[f"{tag}_launches"] = launches
     n_nodes = MD17_BATCH * MD17_SLOTS
     results0 = {}
     for name, model in models.items():
@@ -721,18 +780,21 @@ def md17_phase(pt, torch, dev, out):
         if not same:
             raise RuntimeError(f"{name}: two force evaluations of one batch differ in their bits")
         mps = MD17_BATCH * len(gpu_batches) / statistics.median(times)
-        out[f"md17_{name}"] = mps
+        out[f"{tag}_{name}"] = mps
         results0[name] = {k: results[0][k].float().cpu() for k in ("energy", "forces")}
-        print(f"md17 eval {name}: {mps:.1f} molecules/s at batch {MD17_BATCH} (median of 3 "
+        print(f"{tag} eval {name}: {mps:.1f} molecules/s at batch {MD17_BATCH} (median of 3 "
               f"passes over {len(gpu_batches)} batches; pass seconds "
               f"{[round(t, 4) for t in times]}), peak memory {peak:.0f} MiB, two evaluations "
               f"bitwise equal", flush=True)
 
-    model64 = make(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
-                   device="cpu").double()
-    model64.load_state_dict({k: v.cpu() for k, v in models["float32"].state_dict().items()})
-    ref64 = pt.evaluate_md17(model64, batches[0].to(dtype=torch.float64))
-    del model64
+    if ref is None:
+        model64 = make(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
+                       device="cpu").double()
+        model64.load_state_dict({k: v.cpu() for k, v in models["float32"].state_dict().items()})
+        ref = (pt.evaluate_md17(model64, batches[0].to(dtype=torch.float64)), {})
+        del model64
+    ref64, peer = ref
+    bf16_dist = {}
     for name, model in models.items():
         cpu_model = make(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED, device="cpu",
                          compute_dtype=None if name == "float32" else name)
@@ -749,9 +811,12 @@ def md17_phase(pt, torch, dev, out):
                 ok &= vs_cpu <= CPU_RTOL[name]
                 rule = f"bound {CPU_RTOL[name]:.0e}"
             else:
-                ok &= card64 <= MD17_BF16_FACTOR * cpu64
+                bf16_dist[k] = card64
+                ok &= card64 <= MD17_BF16_FACTOR * max(cpu64, peer.get(k, 0.0))
                 rule = f"card vs float64 bound {MD17_BF16_FACTOR} x CPU vs float64"
-            print(f"md17 {name} {k}: card vs CPU plain path {vs_cpu:.3e} of the largest "
+                if k in peer:
+                    rule += f" or x the other route's card vs float64, {peer[k]:.3e}"
+            print(f"{tag} {name} {k}: card vs CPU plain path {vs_cpu:.3e} of the largest "
                   f"|value|; vs float64 card {card64:.3e}, CPU {cpu64:.3e} ({rule}; CPU "
                   f"force evaluation {cpu_s:.1f} s)", flush=True)
         if not ok:
@@ -763,13 +828,13 @@ def md17_phase(pt, torch, dev, out):
     fr = pt.evaluate_md17(models["float32"], rotated)["forces"].float().cpu()
     f0 = results0["float32"]["forces"]
     rel = float((fr - f0 @ R.T.float()).abs().max()) / float(f0.abs().max())
-    print(f"md17 float32 equivariance on the card: |F(R x) - R F(x)| {rel:.3e} of max |F| "
+    print(f"{tag} float32 equivariance on the card: |F(R x) - R F(x)| {rel:.3e} of max |F| "
           f"(bound {EQUIV_TOL:.0e})", flush=True)
     if not rel <= EQUIV_TOL:
         raise RuntimeError("forces on the card are not equivariant")
     model32 = models["float32"]
     del models
-    return model32, gpu_batches, max_edges
+    return model32, gpu_batches, max_edges, (ref64, bf16_dist)
 
 
 def md17_train_setup(pt, model):
@@ -779,20 +844,22 @@ def md17_train_setup(pt, model):
     return train_step, pt.TrainState.create(model, opt)
 
 
-def md17_train_phase(pt, torch, max_edges, gpu_batches, dev, out):
-    """Full-width force training steps at batch 8 in fp32 and bf16 on the card."""
+def md17_train_phase(pt, torch, max_edges, gpu_batches, dev, out, tag="md17_train",
+                     expected=EXPECTED_MD17_TRAIN, route=None):
+    """Full-width force training steps at batch 8 in fp32 and bf16 on the
+    card; ``route`` holds the DTP switches."""
     make = pt.model_entrypoint(MD17_MODEL)  # on the card
     for name in ("float32", "bfloat16"):
         kw = dict(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
-                  compute_dtype=None if name == "float32" else name)
+                  compute_dtype=None if name == "float32" else name, **(route or {}))
         model = make(**kw)
         step, state = md17_train_setup(pt, model)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
         (state, metrics), launches = counted(torch, lambda: step(state, gpu_batches[0]))
-        print(f"md17 train {name}: launches in one step: {launches}")
-        if launches != EXPECTED_MD17_TRAIN:
-            raise RuntimeError(f"launch counts {launches} != expected {EXPECTED_MD17_TRAIN}")
-        out["md17_train_launches"] = launches
+        print(f"{tag} {name}: launches in one step: {launches}")
+        if launches != expected:
+            raise RuntimeError(f"launch counts {launches} != expected {expected}")
+        out[f"{tag}_launches"] = launches
         # a second model from the same seed takes the same first step
         twin = make(**kw)
         twin_step, twin_state = md17_train_setup(pt, twin)
@@ -824,8 +891,8 @@ def md17_train_phase(pt, torch, max_edges, gpu_batches, dev, out):
         if not (moved > 0 and ema_moved > 0) or state.step != WARMUP_STEPS + TIMED_STEPS:
             raise RuntimeError(f"{name}: parameters or EMA did not move ({moved}, {ema_moved})")
         mps = MD17_BATCH / statistics.median(times)
-        out[f"md17_train_{name}"] = mps
-        print(f"md17 train {name}: {mps:.1f} molecules/s at batch {MD17_BATCH} (median of "
+        out[f"{tag}_{name}"] = mps
+        print(f"{tag} {name}: {mps:.1f} molecules/s at batch {MD17_BATCH} (median of "
               f"{TIMED_STEPS} steps after {WARMUP_STEPS} warm-up; step seconds "
               f"{[round(t, 4) for t in times]}), peak memory {peak:.0f} MiB, last step "
               f"{ {k: round(v, 4) for k, v in vals.items()} }, max parameter move {moved:.3e}, "
@@ -833,9 +900,11 @@ def md17_train_phase(pt, torch, max_edges, gpu_batches, dev, out):
         del model, state
 
 
-def md17_train_vs_cpu(pt, torch, dev):
+def md17_train_vs_cpu(pt, torch, dev, tag="md17_train", route=None, ref64=None):
     """One full-width force training step of MD17_CPU_MOLECULES molecules on
-    the card and on the CPU plain path, from the same weights."""
+    the card and on the CPU plain path, from the same weights.  ``ref64``:
+    the float64 CPU step of an earlier call on another route (the same
+    function); returns the one this call used."""
     from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
 
     data = md17_like_dataset(MD17_CPU_MOLECULES, num_atoms=MD17_SLOTS, seed=SEED)
@@ -846,7 +915,7 @@ def md17_train_vs_cpu(pt, torch, dev):
 
     def one_step(d, name, double=False):
         model = make(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED, device=d,
-                     compute_dtype="bfloat16" if name == "bfloat16" else None)
+                     compute_dtype="bfloat16" if name == "bfloat16" else None, **(route or {}))
         b = batch.to(d)
         if double:
             model, b = model.double(), b.to(dtype=torch.float64)
@@ -867,8 +936,9 @@ def md17_train_vs_cpu(pt, torch, dev):
         return ({k: abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-30) for k in ("loss", "grad_norm")},
                 max(float((pa[n] - pb[n]).abs().max()) for n in pb) / scale)
 
-    ref64 = one_step("cpu", "float32", double=True)
-    print(f"md17 train float64 CPU step ({MD17_CPU_MOLECULES} molecules, max_edges "
+    if ref64 is None:
+        ref64 = one_step("cpu", "float32", double=True)
+    print(f"{tag} float64 CPU step ({MD17_CPU_MOLECULES} molecules, max_edges "
           f"{max_edges}): {ref64[1]:.1f} s, {ref64[0]}", flush=True)
     for name in ("float32", "bfloat16"):
         card, cpu = one_step(dev, name), one_step("cpu", name)
@@ -883,7 +953,7 @@ def md17_train_vs_cpu(pt, torch, dev):
                 c64[k] <= max(MD17_BF16_FACTOR * u64[k], BF16_SCALAR_FLOOR) for k in c64)
             rule = (f"card vs float64 bound {MD17_BF16_FACTOR} x CPU vs float64, floor "
                     f"{BF16_SCALAR_FLOOR:.0e} for the scalars")
-        print(f"md17 train {name} card vs CPU plain path: loss {card[0]['loss']:.6f} / "
+        print(f"{tag} {name} card vs CPU plain path: loss {card[0]['loss']:.6f} / "
               f"{cpu[0]['loss']:.6f}, grad_norm {card[0]['grad_norm']:.6f} / "
               f"{cpu[0]['grad_norm']:.6f}, rel {errs}, updated params {perr:.3e} of max "
               f"|param|; vs float64: card {c64} params {pc64:.3e}, CPU {u64} params "
@@ -891,6 +961,7 @@ def md17_train_vs_cpu(pt, torch, dev):
               flush=True)
         if not ok:
             raise RuntimeError(f"{name} force training step on the card disagrees with the CPU")
+    return ref64
 
 
 def md17_train_kernel_phase(torch, model, batch, dev, records):
@@ -952,6 +1023,115 @@ def md17_train_kernel_phase(torch, model, batch, dev, records):
         fn.launches = saved[name]
 
 
+def k6_sites(model):
+    """The DTP's term lists at block 0's two sites and the edge-degree
+    embedding: name -> (TermList, shared a, shared b)."""
+    ga = model.block_0.ga
+    return {"sep_act": (ga.sep_act.dtp.terms, False, False),
+            "sep_value": (ga.sep_value.dtp.terms, False, True),
+            "edge_deg": (model.edge_deg_embed.dw.terms, True, False)}
+
+
+def k6_kernel_phase(torch, model, batch, dev, records, sites, prefix=""):
+    """K6-T (the forward terms and the x and w legs' permutations), K6-R and
+    K6-FB against their plain versions at one batch's shapes, at the named
+    call sites, in float32 and bfloat16, timed as phase 3.  The route
+    computes every row, padding included, so the bounds count all E rows."""
+    from equiformer_tpu_torch.kernels import KERNEL_WRAPPERS
+    from equiformer_tpu_torch.kernels import dtp as kd
+
+    saved = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    edges, sh32, _, _ = batch_geometry(model, batch)
+    E = edges.dst.shape[0]
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        size = torch.finfo(dt).bits // 8
+        sh = sh32.to(dt)
+        for site, (tl, sa, sb) in k6_sites(model).items():
+            if site not in sites:
+                continue
+            rnd = lambda n, rows=E: torch.randn(rows, n, generator=g, device=dev).to(dt)  # noqa: E731
+            x = rnd(tl.d_a, 1).expand(E, tl.d_a) if sa else rnd(tl.d_a)
+            w = rnd(tl.d_b, 1) if sb else rnd(tl.d_b)
+            ct = rnd(tl.d_out)
+            elems = E * sum(t.mul for t in tl.terms)  # term elements of one call
+            shape = f"E={E} d_a={tl.d_a} d_b={tl.d_b} d_out={tl.d_out}"
+            rows = {"x": size * (1 if sa else E) * tl.d_a, "sh": size * E * tl.d_col,
+                    "w": size * (1 if sb else E) * tl.d_b, "z": size * E * tl.d_out}
+            legs = {  # name: (kernel call, plain call, bytes read + written, operations)
+                "dtp_t": (lambda: kd.dtp_t(tl, x, sh, w), lambda: kd.dtp_t_plain(tl, x, sh, w),
+                          rows["x"] + rows["sh"] + rows["w"] + rows["z"], 3 * elems),
+                "dtp_t-x": (lambda: kd.dtp_t(kd.perm_a(tl), ct, sh, w),
+                            lambda: kd.dtp_t_plain(kd.perm_a(tl), ct, sh, w),
+                            rows["z"] + rows["sh"] + rows["w"] + size * E * tl.d_a, 3 * elems),
+                "dtp_t-w": (lambda: kd.dtp_t(kd.perm_b(tl), x, sh, ct),
+                            lambda: kd.dtp_t_plain(kd.perm_b(tl), x, sh, ct),
+                            rows["x"] + rows["sh"] + rows["z"] + size * E * tl.d_b, 3 * elems),
+                "dtp_r": (lambda: kd.dtp_r(tl, x, w, ct), lambda: kd.dtp_r_plain(tl, x, w, ct),
+                          rows["x"] + rows["w"] + rows["z"] + rows["sh"], 3 * elems),
+                "dtp_fused_bwd": (lambda: kd.dtp_fused_bwd(tl, x, sh, w, ct),
+                                  lambda: kd.dtp_fused_bwd_plain(tl, x, sh, w, ct),
+                                  sum(rows.values()) + size * E * (tl.d_a + tl.d_col + tl.d_b),
+                                  9 * elems),
+            }
+            for leg, (call, plain, nbytes, flops) in legs.items():
+                k, p = call(), plain()
+                torch.cuda.synchronize()
+                pairs = zip(k, p) if isinstance(k, tuple) else [(k, p)]
+                errs = [rel_err(a, b) for a, b in pairs]
+                ms = cuda_time_ms(call, torch)
+                plain_ms = cuda_time_ms(plain, torch, reps=3, inner=3)
+                kernel, _, arg = leg.partition("-")
+                record(records, kernel, f"{prefix}{site}" + (f"-{arg}" if arg else ""), dt_name,
+                       shape, errs, ms, plain_ms, nbytes, flops)
+    for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
+        fn.launches = saved[name]
+
+
+def unfused_eval_counts(pt, torch, make, max_edges, gpu_batches, out):
+    """The launch counts of one eval forward on the unfused route, and its
+    predictions finite."""
+    model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED, compute_dtype="bfloat16",
+                 **UNFUSED).eval()
+    r, launches = counted(torch, lambda: pt.evaluate(model, gpu_batches[0]))
+    print(f"unfused eval: launches in one forward: {launches}")
+    if launches != EXPECTED_UNFUSED_EVAL or not bool(r["pred"].isfinite().all()):
+        raise RuntimeError(f"launch counts {launches} != expected {EXPECTED_UNFUSED_EVAL} or "
+                           f"non-finite predictions")
+    out["unfused_eval_launches"] = launches
+
+
+def routes_agree(pt, torch, make, max_edges, batch, dev):
+    """One fp32 QM9 training step on each DTP route from the same seed (the
+    same parameters), batch and dropout masks: loss, gradient norm and the
+    updated parameters of the unfused route (and of its one-launch backward)
+    within ROUTE_RTOL of the fused route's."""
+    keep = None
+    res, params = {}, {}
+    for label, route in (("fused", {}), ("unfused", UNFUSED), ("first_order", FIRST_ORDER_BWD)):
+        model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED, **route)
+        if keep is None:
+            gen = torch.Generator().manual_seed(SEED + 5)
+            keep = [torch.rand(max_edges, model.block_0.ga.num_heads, generator=gen) < 0.8
+                    for _ in range(model.num_layers)]
+        step, state = train_setup(pt, model)
+        _, m = step(state, batch, iter(keep))
+        res[label] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        params[label] = [p.detach().clone() for p in model.parameters()]
+        del model, state
+    errs = {label: {k: abs(v[k] - res["fused"][k]) / abs(res["fused"][k]) for k in v}
+            for label, v in res.items() if label != "fused"}
+    scale = max(float(p.abs().max()) for p in params["fused"])
+    for label in errs:
+        errs[label]["params"] = max(float((p - q).abs().max()) for p, q in
+                                    zip(params[label], params["fused"])) / scale
+    print(f"routes, one fp32 step at batch {BATCH}: {res}, rel to fused {errs} (the "
+          f"updated parameters against max |param|; bound {ROUTE_RTOL:.0e})", flush=True)
+    if not all(e <= ROUTE_RTOL for v in errs.values() for e in v.values()):
+        raise RuntimeError("the unfused route's training step disagrees with the fused route's")
+
+
 def main() -> int:
     import torch
 
@@ -1001,7 +1181,7 @@ def run(torch, dev) -> int:
     train_vs_cpu(pt, torch, make, data, dev)
     print(f"train vs CPU phase: {time.time() - t:.1f} s", flush=True)
     t = time.time()
-    md17_model, md17_batches, md17_max_edges = md17_phase(pt, torch, dev, out)
+    md17_model, md17_batches, md17_max_edges, md17_ref = md17_phase(pt, torch, dev, out)
     print(f"md17 phase: {time.time() - t:.1f} s", flush=True)
     t = time.time()
     md17_records = []
@@ -1018,8 +1198,43 @@ def run(torch, dev) -> int:
     md17_train_phase(pt, torch, md17_max_edges, md17_batches, dev, out)
     print(f"md17 train phase: {time.time() - t:.1f} s", flush=True)
     t = time.time()
-    md17_train_vs_cpu(pt, torch, dev)
+    md17_step64 = md17_train_vs_cpu(pt, torch, dev)
     print(f"md17 train vs CPU phase: {time.time() - t:.1f} s", flush=True)
+
+    # the unfused DTP route (K6): kernels, QM9 training, MD17 forces and training
+    t = time.time()
+    k6_records = []
+    qm9_model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED)
+    k6_kernel_phase(torch, qm9_model, gpu_batches[0], dev, k6_records,
+                    ("sep_act", "sep_value", "edge_deg"))
+    del qm9_model
+    l3_model = pt.model_entrypoint(MD17_MODEL)(max_edges=md17_max_edges,
+                                               nodes_per_graph=MD17_SLOTS, seed=SEED)
+    k6_kernel_phase(torch, l3_model, md17_batches[0], dev, k6_records, ("sep_act",), "md17-")
+    del l3_model
+    report_kernels(k6_records)
+    print(f"K6 kernel phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    unfused_eval_counts(pt, torch, make, max_edges, gpu_batches, out)
+    train_phase(pt, torch, make, max_edges, gpu_batches, dev, out, "unfused_train",
+                EXPECTED_UNFUSED_TRAIN, UNFUSED)
+    train_phase(pt, torch, make, max_edges, gpu_batches, dev, out, "first_order_train",
+                EXPECTED_FIRST_ORDER_TRAIN, FIRST_ORDER_BWD)
+    routes_agree(pt, torch, make, max_edges, gpu_batches[0], dev)
+    print(f"unfused train phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    train_vs_cpu(pt, torch, make, data, dev, "unfused_train", UNFUSED)
+    print(f"unfused train vs CPU phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    md17_phase(pt, torch, dev, out, "unfused_md17", EXPECTED_UNFUSED_MD17, UNFUSED, md17_ref)
+    print(f"unfused md17 phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    md17_train_phase(pt, torch, md17_max_edges, md17_batches, dev, out, "unfused_md17_train",
+                     EXPECTED_UNFUSED_MD17_TRAIN, UNFUSED)
+    print(f"unfused md17 train phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    md17_train_vs_cpu(pt, torch, dev, "unfused_md17_train", UNFUSED, md17_step64)
+    print(f"unfused md17 train vs CPU phase: {time.time() - t:.1f} s", flush=True)
 
     table = []
     for name in SOURCES:
@@ -1028,8 +1243,10 @@ def run(torch, dev) -> int:
         # evaluation's, K5b's and K5c's the force training step's, the
         # others' the QM9 training step's
         path = {"dtp_lin_bwd3": "md17_launches", "dtp_lin_leg": "md17_train_launches",
-                "dtp_lin_legW": "md17_train_launches"}.get(name, "train_launches")
-        r = next(r for r in records + md17_records + md17_train_records
+                "dtp_lin_legW": "md17_train_launches", "dtp_t": "unfused_train_launches",
+                "dtp_r": "unfused_md17_launches",
+                "dtp_fused_bwd": "first_order_train_launches"}.get(name, "train_launches")
+        r = next(r for r in records + md17_records + md17_train_records + k6_records
                  if r["kernel"] == name and r["dtype"] == "bfloat16")
         table.append({"name": name, "route": "cuda", "source": SOURCES[name],
                       "replaces": TPU_KERNELS[name], "launches": out[path][name],

@@ -6,6 +6,10 @@
   order: K1 forward, the force backward (K5a, ``dtp_lin_bwd3``: dx, dsh and dw
   in one pass), and the single legs of force training's grad-of-grad (K5b,
   ``dtp_lin_leg``: dx or dsh or dw; K5c, ``dtp_lin_legW``: the head weights)
+* ``dtp``         — the DTP as the sparse trilinear primitives T and R,
+  differentiable to any order (K6-T ``dtp_t``, K6-R ``dtp_r``), and its
+  first-order backward in one launch (K6-FB ``dtp_fused_bwd``): the unfused
+  route of every DTP call site
 * ``segment_csr`` — CSR segment sum over dst-sorted edges (K3)
 * ``attn_csr``    — fused segment softmax + dropout + weighted sum (K4 forward;
   its backward is torch ops, as in JAX)
@@ -17,6 +21,15 @@ build at first use (``kernels/_build.py``).
 """
 
 from .attn_csr import attn_combine, attn_combine_fwd, attn_combine_plain, attn_den_plain
+from .dtp import (
+    TermList,
+    dtp_fused_bwd,
+    dtp_fused_bwd_plain,
+    dtp_r,
+    dtp_r_plain,
+    dtp_t,
+    dtp_t_plain,
+)
 from .dtp_lin import (
     DTPLinPlan,
     dtp_lin,
@@ -42,6 +55,9 @@ KERNEL_WRAPPERS = {
     "dtp_lin_bwd3": dtp_lin_bwd3,
     "dtp_lin_leg": dtp_lin_leg,
     "dtp_lin_legW": dtp_lin_legW,
+    "dtp_t": dtp_t,
+    "dtp_r": dtp_r,
+    "dtp_fused_bwd": dtp_fused_bwd,
     "csr_segment_sum": csr_segment_sum,
     "attn_combine": attn_combine,
 }

@@ -134,6 +134,17 @@ _SIGNATURES = {
                      _VP, _VP, _VP, _I, _VP, _I, _I, _I, _I, _VP],
     # cols_pad_max, max_fan_stride, dtype -> resident blocks per SM (or -cudaError_t)
     "dtp_lin_legW_occupancy": [_I, _I, _I],
+    # a, a_row_stride, col, d_col, b, b_row_stride, out, d_out, E, segments,
+    # n_seg, terms, coeffs, dtype, stream
+    "dtp_t": [_VP, _LL, _VP, _I, _VP, _LL, _VP, _I, _I, _VP, _I, _VP, _VP, _I, _VP],
+    # a, a_row_stride, b, b_row_stride, d, d_d, out, d_col, E, column ranges,
+    # terms, coeffs, dtype, stream
+    "dtp_r": [_VP, _LL, _VP, _LL, _VP, _I, _VP, _I, _I, _VP, _VP, _VP, _I, _VP],
+    # x, x_row_stride, sh, d_sh, w, w_row_stride, g, d_g, dx, d_x, dsh, dw,
+    # d_w, E, dx segments, n, terms, coeffs, dw segments, n, terms, coeffs,
+    # R's column ranges, terms, coeffs, dtype, stream
+    "dtp_fused_bwd": [_VP, _LL, _VP, _I, _VP, _LL, _VP, _I, _VP, _I, _VP, _VP, _I, _I,
+                      _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
     # val, C, rowptr, mask, out, N, dtype, stream
     "csr_segment_sum": [_VP, _I, _VP, _VP, _VP, _I, _I, _VP],
     # scores, value, dropmul, shift, rowptr, out, den, N, H, D, dtype, stream

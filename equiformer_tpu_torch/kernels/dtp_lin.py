@@ -35,15 +35,7 @@ import torch
 from ..core.irreps import Irreps
 from ..core.tensor_product import TensorProduct, split_blocks
 from . import _build
-
-
-class Term(NamedTuple):
-    a_off: int  # x column of the term's first copy
-    col: int  # sh column
-    b_off: int  # w column of the term's first copy
-    out_off: int  # column of the unsimplified TP output z
-    mul: int
-    coeff: float
+from .dtp import plan_terms
 
 
 class Group(NamedTuple):
@@ -55,31 +47,6 @@ class Group(NamedTuple):
     cols: int  # output columns of all heads together
     out_off: int  # offset of the group in the fused flat output
     w_off: int  # offset of the group's [fan_stride, cols] W in the flat buffer
-
-
-def plan_terms(tp: TensorProduct, fold_rescale: bool, eps: float = 1e-10) -> List[Term]:
-    """Nonzero CG terms of a depthwise plan with mul-1 second input; with
-    ``fold_rescale`` the fan-in rescale of external weights is in ``coeff``."""
-    in_off = [s.start for s in tp.irreps_in1.slices()]
-    sh_off = [s.start for s in tp.irreps_in2.slices()]
-    out_off = [s.start for s in tp.irreps_out.slices()]
-    terms = []
-    for idx, ins in enumerate(tp.instructions):
-        if ins.mode != "uvu" or tp.irreps_in2[ins.i_in2].mul != 1:
-            raise ValueError("the DTP kernel supports depthwise uvu with mul-1 SH")
-        mul = tp.irreps_in1[ins.i_in1].mul
-        C = tp._cg[idx] * (tp.slice_sqrt_k[ins.i_out] if fold_rescale else 1.0)
-        d1, d2, d3 = C.shape
-        for i in range(d1):
-            for j in range(d2):
-                for k in range(d3):
-                    c = float(C[i, j, k])
-                    if abs(c) < eps:
-                        continue
-                    terms.append(Term(in_off[ins.i_in1] + i * mul,
-                                      sh_off[ins.i_in2] + j, tp._offsets[idx],
-                                      out_off[ins.i_out] + k * mul, mul, c))
-    return terms
 
 
 class DTPLinPlan:
@@ -242,7 +209,7 @@ class DTPLinPlan:
                     begin = len(tt)
                     for t, (tg, tk, fc) in self.terms:
                         if (tg, tk) == (gi, k):
-                            tt.append((t.a_off, t.col, t.b_off, fc, t.mul))
+                            tt.append((t.a_off, t.col_off, t.b_off, fc, t.mul))
                             cc.append(t.coeff)
                     # 8 ints per entry (two spare), as csrc/dtp_lin.cu reads them
                     gk.append((g.fan_stride, g.cols, g.out_off + k * g.cols, g.w_off,
@@ -297,7 +264,7 @@ class DTPLinPlan:
             for k in range(g.ir.dim):
                 begin = len(tt)
                 for t, fc, bl in by_gk.get((gi, k), ()):
-                    tt.append((t.a_off, t.col, t.b_off, fc, t.mul, bl))
+                    tt.append((t.a_off, t.col_off, t.b_off, fc, t.mul, bl))
                     cc.append(t.coeff)
                 gk.append((g.fan_stride, g.cols, g.out_off + k * g.cols, g.w_off, begin,
                            len(tt), wt_off, cp) + spans[gi]

@@ -39,11 +39,10 @@ to ``W`` and ``w`` at every order.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from . import _build
+from .dtp import _SKIPPED_LEGS, skip_leg_grads  # noqa: F401  (re-exported)
 from .dtp_lin import (
     BWD_TILE,
     DTPLinPlan,
@@ -279,30 +278,6 @@ def leg_occupancy(plan: DTPLinPlan, dtype: torch.dtype, out_leg: str) -> int:
     if blocks < 0:
         _build.check(-blocks, "leg_occupancy")
     return blocks
-
-
-# Legs whose gradient the running backward pass should not compute although
-# the operand requires grad.  An autograd Function learns which of its inputs
-# require grad when it is applied, not which of them the engine's current call
-# asks for, so the caller who knows says so (``skip_leg_grads``).
-_SKIPPED_LEGS: set = set()
-
-
-@contextlib.contextmanager
-def skip_leg_grads(*legs: str):
-    """While active, the backward of the fused op computes no gradient for
-    these legs (names of ``LEGS``).  The force pass of training asks for the
-    position gradient only, so it skips "W" (the parameters are live and
-    would each get a K5c launch nobody reads); the parameter pass skips "sh",
-    which depends on nothing but the positions.  The engine may run a
-    backward on another thread, so this is a module-wide set, not a
-    thread-local."""
-    added = set(legs) - _SKIPPED_LEGS
-    _SKIPPED_LEGS.update(added)
-    try:
-        yield
-    finally:
-        _SKIPPED_LEGS.difference_update(added)
 
 
 def _leg_value(plan: DTPLinPlan, out_leg: str, n_edges, ops: dict) -> torch.Tensor:

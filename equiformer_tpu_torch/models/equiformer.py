@@ -16,7 +16,13 @@ the attention tail to the composed segment softmax + sum: what a force
 evaluation (``models/md17_models.py``) differentiates through once and
 force training (``train/engine.py::make_md17_steps``) twice.  The QM9
 entrypoints set it False: K2 and the fused attention combine, which compute
-the parameter gradients of first-order training.
+the parameter gradients of first-order training.  ``fused_dtp_lin=False``
+takes every DTP call site off the fused DTP + linear op onto the unfused
+route (the T / R primitives of ``kernels/dtp.py``: JAX's
+``EQUIFORMER_TPU_FUSED_DTPLIN=0``, for force models also
+``EQUIFORMER_TPU_FUSED_HO=0``), and ``dtp_first_order_bwd`` there gives
+each DTP the one-launch first-order backward (``EQUIFORMER_TPU_FUSED_BWD=1``,
+without ``higher_order_grads`` only); the parameters are the same.
 
 ``module.training`` plays the role of JAX's ``deterministic=False``: alpha
 dropout on the attention weights, and the equivariant dropouts and drop path
@@ -68,7 +74,8 @@ class GraphAttention(nn.Module):
     def __init__(self, irreps_node_input, irreps_edge_attr, irreps_node_output,
                  fc_neurons: Tuple[int, ...], irreps_head, num_heads: int,
                  alpha_drop: float = 0.1, proj_drop: float = 0.1,
-                 higher_order_grads: bool = True):
+                 higher_order_grads: bool = True, fused_dtp_lin: bool = True,
+                 dtp_first_order_bwd: bool = False):
         super().__init__()
         self.alpha_drop = alpha_drop
         self.higher_order_grads = higher_order_grads
@@ -83,14 +90,14 @@ class GraphAttention(nn.Module):
         self.mul_alpha_head = mul_alpha // H
         irreps_alpha = Irreps(f"{mul_alpha}x0e")
         sh = Irreps(irreps_edge_attr)
+        route = dict(higher_order_grads=higher_order_grads, fused_dtp_lin=fused_dtp_lin,
+                     dtp_first_order_bwd=dtp_first_order_bwd)
         self.sep_act = SeparableFCTP(pre, sh, pre, fc_neurons=fc_neurons,
                                      use_activation=True, internal_weights=False,
-                                     extra_head_irreps=(irreps_alpha,),
-                                     higher_order_grads=higher_order_grads)
+                                     extra_head_irreps=(irreps_alpha,), **route)
         self.sep_alpha = IrrepsLinear(self.sep_act.dtp.irreps_out, irreps_alpha)
         self.sep_value = SeparableFCTP(pre, sh, irreps_attn_heads, fc_neurons=None,
-                                       use_activation=False, internal_weights=True,
-                                       higher_order_grads=higher_order_grads)
+                                       use_activation=False, internal_weights=True, **route)
         self.alpha_act = normalized_activation("smooth_leaky_relu:0.2")
         self.alpha_dot = nn.Parameter(torch.empty(H, self.mul_alpha_head))
         self.proj = IrrepsLinear(irreps_attn_heads, Irreps(irreps_node_output))
@@ -150,14 +157,15 @@ class TransBlock(nn.Module):
     def __init__(self, irreps_node_input, irreps_node_attr, irreps_edge_attr,
                  irreps_node_output, fc_neurons, irreps_head, num_heads: int,
                  irreps_mlp_mid=None, alpha_drop: float = 0.1, proj_drop: float = 0.1,
-                 drop_path_rate: float = 0.0, higher_order_grads: bool = True):
+                 drop_path_rate: float = 0.0, higher_order_grads: bool = True,
+                 fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False):
         super().__init__()
         irreps_in = Irreps(irreps_node_input)
         irreps_out = Irreps(irreps_node_output)
         self.norm_1 = EquivariantLayerNorm(irreps_in)
         self.ga = GraphAttention(irreps_in, irreps_edge_attr, irreps_in, fc_neurons,
                                  irreps_head, num_heads, alpha_drop, proj_drop,
-                                 higher_order_grads)
+                                 higher_order_grads, fused_dtp_lin, dtp_first_order_bwd)
         self.norm_2 = EquivariantLayerNorm(irreps_in)
         self.ffn = FeedForwardNetwork(irreps_in, irreps_node_attr, irreps_out, irreps_mlp_mid,
                                       proj_drop)
@@ -212,6 +220,8 @@ class GraphAttentionTransformer(nn.Module):
         nodes_per_graph: int = 30,
         compute_dtype: Optional[str] = None,
         higher_order_grads: bool = True,
+        fused_dtp_lin: bool = True,
+        dtp_first_order_bwd: bool = False,
         seed: int = 0,
     ):
         super().__init__()
@@ -229,13 +239,13 @@ class GraphAttentionTransformer(nn.Module):
 
         self.rbf = make_rbf(basis_type, number_of_basis, max_radius)
         self.atom_embed = NodeEmbedding(emb, max_atom_type)
-        self.edge_deg_embed = EdgeDegreeEmbedding(emb, self.irreps_sh, fc, avg_degree,
-                                                  higher_order_grads)
+        route = (higher_order_grads, fused_dtp_lin, dtp_first_order_bwd)
+        self.edge_deg_embed = EdgeDegreeEmbedding(emb, self.irreps_sh, fc, avg_degree, *route)
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransBlock(
                 emb, "1x0e", self.irreps_sh, feat if i == num_layers - 1 else emb, fc,
                 irreps_head, num_heads, irreps_mlp_mid, alpha_drop, proj_drop, drop_path_rate,
-                higher_order_grads))
+                *route))
         self.num_layers = num_layers
         self.norm = EquivariantLayerNorm(feat)
         self.out_dropout = EquivariantDropout(feat, out_drop) if out_drop != 0.0 else None

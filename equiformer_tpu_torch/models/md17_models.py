@@ -15,7 +15,7 @@ import dataclasses
 import torch
 
 from ..graph.batching import GraphsTuple
-from ..kernels.dtp_lin_ho import skip_leg_grads
+from ..kernels.dtp import skip_leg_grads
 from .equiformer import GraphAttentionTransformer
 from .registry import register_model, resolve_device
 
@@ -42,8 +42,9 @@ def energy_and_forces(model: torch.nn.Module, batch: GraphsTuple, create_graph: 
     mode) and the position gradient is taken with ``create_graph=True``, so
     the energy and the forces carry the graph that the loss is then
     differentiated through, a grad-of-grad on the fused DTP's leg kernels
-    (``kernels/dtp_lin_ho.py``).  This pass needs no gradient of the head
-    weights, so the fused op skips its W leg in it."""
+    (``kernels/dtp_lin_ho.py``) or, unfused, on T and R (``kernels/dtp.py``).
+    This pass needs no gradient of the parameters, so it skips the W leg:
+    the fused op's head weights, the unfused route's broadcast operands."""
     pos = batch.pos.detach().requires_grad_(True)
     b = dataclasses.replace(batch, pos=pos)
     with torch.enable_grad():

@@ -4,18 +4,22 @@ Counterparts of ``equiformer_tpu.nn.tp_modules``:
 
 * ``FCTP`` — fully-connected TP with internal weights and scalar bias;
 * ``FCTPSwishGate`` — FCTP into a SiLU/sigmoid Gate;
-* ``DTPLayer`` — the depthwise TP plan, and the internal weights of a
-  shared-weight DTP;
+* ``DTPLayer`` — the depthwise TP with internal (shared) or external
+  per-edge weights, on the T / R primitives of ``kernels/dtp.py`` (K6-T
+  forward; backward K6-T and K6-R, differentiable to any order, or one K6-FB
+  launch with ``first_order_bwd``);
 * ``SeparableFCTP`` — depthwise TP (per-edge radial weights, or internal
-  shared ones) -> per-irrep linear heads -> optional gate.  The TP and the
-  heads always run as one fused, differentiable op: with
-  ``higher_order_grads`` (the JAX package's default, for force models) the
-  op of ``kernels/dtp_lin_ho.py``, differentiable to any order (K1 forward;
-  K5a backward: dx, dsh and dw; K5b / K5c: the single legs and the head
-  weights' gradient of force training's grad-of-grad), without it
-  ``kernels/dtp_lin.py`` (K1 forward, K2 backward: dx, dw and the head
-  weights' gradient); the CUDA kernels on the card, their plain versions on
-  the CPU;
+  shared ones) -> per-irrep linear heads -> optional gate.  By default
+  (``fused_dtp_lin``, as in JAX) the TP and the heads run as one fused,
+  differentiable op: with ``higher_order_grads`` (the JAX package's default,
+  for force models) the op of ``kernels/dtp_lin_ho.py``, differentiable to
+  any order (K1 forward; K5a backward: dx, dsh and dw; K5b / K5c: the single
+  legs and the head weights' gradient of force training's grad-of-grad),
+  without it ``kernels/dtp_lin.py`` (K1 forward, K2 backward: dx, dw and the
+  head weights' gradient).  With ``fused_dtp_lin=False`` the TP is
+  ``DTPLayer`` and each head an ``IrrepsLinear`` on its output, as JAX's
+  ``SeparableFCTP.dtp_lin`` does when the fused op is off.  The CUDA kernels
+  run on the card, their plain versions on the CPU;
 * ``NodeEmbedding`` / ``EdgeDegreeEmbedding``.
 
 Submodule and parameter names follow the flax scopes, so weight conversion
@@ -32,6 +36,7 @@ from torch import nn
 from ..core.irreps import Irreps
 from ..core.tensor_product import TensorProduct, depthwise_tp, fully_connected_tp
 from ..graph.segment import active_edge_bound, scaled_scatter_sum
+from ..kernels.dtp import TermList, first_order_dtp, t_apply
 from ..kernels.dtp_lin import DTPLinPlan, dtp_lin
 from ..kernels.dtp_lin_ho import dtp_lin_ho
 from .activation import Activation, Gate, gate_for, irreps2gate
@@ -56,6 +61,13 @@ def _add_scalar_bias(x: torch.Tensor, bias: torch.Tensor, irreps: Irreps) -> tor
         pieces.append(blk)
         i += mul * ir.dim
     return torch.cat(pieces, dim=-1)
+
+
+def _fused_op(fused_dtp_lin: bool, higher_order_grads: bool):
+    """The fused DTP + linear op of a call site, or None on the unfused route."""
+    if not fused_dtp_lin:
+        return None
+    return dtp_lin_ho if higher_order_grads else dtp_lin
 
 
 class FCTP(nn.Module):
@@ -96,13 +108,22 @@ class FCTPSwishGate(nn.Module):
 
 
 class DTPLayer(nn.Module):
-    """Depthwise TP plan; with ``internal_weights`` it owns the shared weight
-    ``w``.  The TP itself runs inside the fused op of ``SeparableFCTP``."""
+    """Depthwise TP with internal weights (``w``, shared by the edges) or
+    externally supplied flat per-edge weights; no bias.  ``forward`` is T of
+    ``kernels/dtp.py`` on the plan's terms (JAX's ``PallasDTP``): internal
+    weights as they are, external ones with their fan-in rescale folded into
+    the coefficients (``scale_weights=True``).  ``first_order_bwd`` takes
+    the backward in one K6-FB launch (JAX's ``EQUIFORMER_TPU_FUSED_BWD=1``;
+    first order only).  On the fused route the TP runs inside the fused op
+    of ``SeparableFCTP`` and only the plan and ``w`` are read."""
 
-    def __init__(self, irreps_node, irreps_edge, irreps_target, internal_weights: bool = False):
+    def __init__(self, irreps_node, irreps_edge, irreps_target, internal_weights: bool = False,
+                 first_order_bwd: bool = False):
         super().__init__()
         self.plan = depthwise_tp(Irreps(irreps_node), Irreps(irreps_edge), Irreps(irreps_target))
         self.internal_weights = internal_weights
+        self.first_order_bwd = first_order_bwd
+        self.terms = TermList.for_plan(self.plan, fold_rescale=not internal_weights)
         if internal_weights:
             self.w = nn.Parameter(torch.empty(self.plan.weight_numel))
 
@@ -114,6 +135,19 @@ class DTPLayer(nn.Module):
     def irreps_out(self) -> Irreps:
         return self.plan.irreps_out
 
+    def forward(self, node_on_edge, edge_attr, weights=None):
+        """[E, irreps_out.dim].  ``node_on_edge`` [E, d] or one row broadcast
+        over the edges (the edge-degree embedding's constant feature),
+        ``edge_attr`` [E, d_sh], ``weights`` [E, weight_numel] (external
+        weights) or None (internal)."""
+        if self.internal_weights:
+            w, shared_w = self.w.to(node_on_edge.dtype)[None], True
+        else:
+            w, shared_w = weights, False
+        shared_x = node_on_edge.shape[0] == 1 and edge_attr.shape[0] != 1
+        op = first_order_dtp if self.first_order_bwd else t_apply
+        return op(self.terms, node_on_edge, edge_attr, w, shared_x, shared_w)
+
 
 class SeparableFCTP(nn.Module):
     """Depthwise TP -> per-irrep linear heads -> optional gate.
@@ -121,19 +155,27 @@ class SeparableFCTP(nn.Module):
     ``extra_head_irreps`` declares more linear heads that read the same
     unsimplified TP output (the attention's ``sep_alpha``); they join the
     fused op's product, and ``dtp_lin`` is given the bound head modules.
+    ``fused_dtp_lin=False`` (JAX's ``EQUIFORMER_TPU_FUSED_DTPLIN=0``, and
+    for force models also ``EQUIFORMER_TPU_FUSED_HO=0``) runs the TP unfused
+    (``DTPLayer``) and the heads after it; ``dtp_first_order_bwd`` (JAX's
+    ``EQUIFORMER_TPU_FUSED_BWD=1``) then takes the TP's backward in one
+    K6-FB launch, only without ``higher_order_grads``.  The parameters are
+    the same on either route.
     """
 
     def __init__(self, irreps_node, irreps_edge, irreps_out,
                  fc_neurons: Optional[Tuple[int, ...]] = None,
                  use_activation: bool = False, internal_weights: bool = False,
-                 extra_head_irreps: Sequence = (), higher_order_grads: bool = True):
+                 extra_head_irreps: Sequence = (), higher_order_grads: bool = True,
+                 fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False):
         super().__init__()
         irreps_out = Irreps(irreps_out)
-        self.fused_op = dtp_lin_ho if higher_order_grads else dtp_lin
+        self.fused_op = _fused_op(fused_dtp_lin, higher_order_grads)
         self.internal_weights = internal_weights
         self.use_activation = use_activation
         self.dtp = DTPLayer(irreps_node, irreps_edge, irreps_out,
-                            internal_weights=internal_weights)
+                            internal_weights=internal_weights,
+                            first_order_bwd=dtp_first_order_bwd and not higher_order_grads)
         tp = self.dtp.plan
         self.fc_neurons = fc_neurons
         if fc_neurons is not None:
@@ -144,21 +186,29 @@ class SeparableFCTP(nn.Module):
         irreps_lin_output = (scalars + gates + gated).simplify() if use_activation else irreps_out
         self.lin = IrrepsLinear(tp.irreps_out, irreps_lin_output)
         self.n_extra_heads = len(extra_head_irreps)
-        self.plan = DTPLinPlan(
-            tp, [irreps_lin_output] + [Irreps(h) for h in extra_head_irreps],
-            shared_weights=internal_weights,
-        )
+        self.plan = None
+        if self.fused_op is not None:
+            self.plan = DTPLinPlan(
+                tp, [irreps_lin_output] + [Irreps(h) for h in extra_head_irreps],
+                shared_weights=internal_weights,
+            )
         self.gate = None
         if use_activation:
             self.gate = (Activation(irreps_out, ["silu"]) if gated.num_irreps == 0
                          else Gate(scalars, gates, gated))
 
     def dtp_lin(self, node_on_edge, edge_attr, weights, extra_heads=(), n_edges=None):
-        """TP -> (lin, *extra heads) as one fused op.  Returns one tensor
-        without extra heads, else the list of per-head outputs."""
+        """TP -> (lin, *extra heads), as one fused op on the fused route.
+        Returns one tensor without extra heads, else the list of per-head
+        outputs.  The unfused route computes every row (``n_edges`` is the
+        fused kernels' tile skipping)."""
         heads = [self.lin] + list(extra_heads)
         if len(heads) != 1 + self.n_extra_heads:
             raise ValueError("extra_heads must match extra_head_irreps")
+        if self.fused_op is None:
+            z = self.dtp(node_on_edge, edge_attr, weights)
+            outs = [h(z) for h in heads]
+            return outs if extra_heads else outs[0]
         dtype = node_on_edge.dtype
         if self.internal_weights:
             weights = self.dtp.w.to(dtype)
@@ -195,31 +245,39 @@ class NodeEmbedding(nn.Module):
 
 class EdgeDegreeEmbedding(nn.Module):
     """Constant scalar -> linear -> DTP with the SH, weighted by a radial MLP
-    -> linear -> scaled scatter onto destinations."""
+    -> linear -> scaled scatter onto destinations.  The DTP and ``proj`` are
+    one fused op unless ``fused_dtp_lin=False`` (then ``dw`` and ``proj``,
+    with ``dtp_first_order_bwd`` as in ``SeparableFCTP``)."""
 
     def __init__(self, irreps_out, irreps_edge, fc_neurons: Tuple[int, ...],
-                 avg_degree: float, higher_order_grads: bool = True):
+                 avg_degree: float, higher_order_grads: bool = True,
+                 fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False):
         super().__init__()
         irreps_out = Irreps(irreps_out)
         self.avg_degree = avg_degree
-        self.fused_op = dtp_lin_ho if higher_order_grads else dtp_lin
+        self.fused_op = _fused_op(fused_dtp_lin, higher_order_grads)
         self.exp = IrrepsLinear(Irreps("1x0e"), irreps_out)
-        tp = depthwise_tp(irreps_out, Irreps(irreps_edge), irreps_out)
+        self.dw = DTPLayer(irreps_out, irreps_edge, irreps_out,
+                           first_order_bwd=dtp_first_order_bwd and not higher_order_grads)
+        tp = self.dw.plan
         self.rad = RadialProfile(fc_neurons[0], tuple(fc_neurons[1:]) + (tp.weight_numel,))
         self.proj = IrrepsLinear(tp.irreps_out, irreps_out)
-        self.plan = DTPLinPlan(tp, [irreps_out])
+        self.plan = DTPLinPlan(tp, [irreps_out]) if self.fused_op is not None else None
 
     def forward(self, edge_attr, edge_scalars, edge_dst, edge_mask, num_nodes: int):
         # every node's expanded feature is the same linear image of the
         # constant 1, so the per-edge gather is a row broadcast (stride 0)
         E = edge_dst.shape[0]
         feat1 = self.exp(torch.ones((1, 1), dtype=edge_attr.dtype, device=edge_attr.device))
-        feat_e = feat1.expand(E, feat1.shape[-1])
         w = self.rad(edge_scalars)
-        dtype = edge_attr.dtype
-        W = self.plan.pack_weights(
-            [[None if w_ is None else w_.to(dtype) for w_ in self.proj.weight_list()]])
-        out = self.fused_op(self.plan, feat_e, edge_attr, w, W, active_edge_bound(edge_mask))
-        edge_feat = self.proj.add_bias(self.plan.split_output(out)[0])
+        if self.fused_op is None:
+            edge_feat = self.proj(self.dw(feat1, edge_attr, w))
+        else:
+            dtype = edge_attr.dtype
+            W = self.plan.pack_weights(
+                [[None if w_ is None else w_.to(dtype) for w_ in self.proj.weight_list()]])
+            out = self.fused_op(self.plan, feat1.expand(E, feat1.shape[-1]), edge_attr, w, W,
+                                active_edge_bound(edge_mask))
+            edge_feat = self.proj.add_bias(self.plan.split_output(out)[0])
         return scaled_scatter_sum(edge_feat, edge_dst, num_nodes, self.avg_degree,
                                   mask=edge_mask)

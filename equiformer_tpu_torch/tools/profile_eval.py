@@ -1,6 +1,7 @@
 """Where the time of an eval forward, a training step or a force evaluation goes, on one GPU.
 
-    python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17 | --md17-train] [--out FILE]
+    python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17 | --md17-train] [--unfused]
+        [--out FILE]
 
 Builds ``graph_attention_transformer_nonlinear_l2`` at full width with a
 seeded init, on 4 batches of 128 QM9-like graphs (30 node slots each,
@@ -15,7 +16,10 @@ and forces); with ``--md17-train`` the unit is one step of
 ``make_md17_steps`` on the same model and batches (``energy_weight=1``,
 ``force_weight=80``, AdamW with weight decay 1e-6 and the same schedule, EMA
 0.999: the forward, the force pass with ``create_graph=True`` and the
-grad-of-grad).  For float32 and bfloat16, per unit:
+grad-of-grad).  ``--unfused`` builds the model with ``fused_dtp_lin=False``:
+every DTP call site on the T / R primitives (K6) with the linear heads
+after it, instead of the fused DTP + linear op.  For float32 and bfloat16,
+per unit:
 
 * ``wall_ms``: one pass over the batches, ending in a synchronize, divided
   by the batch count (median of 5 passes, no profiler);
@@ -166,6 +170,8 @@ def main() -> int:
                           help="profile MD17 energy + force evaluations")
     unit_arg.add_argument("--md17-train", action="store_true",
                           help="profile MD17 energy + force training steps")
+    ap.add_argument("--unfused", action="store_true",
+                    help="build the model with fused_dtp_lin=False (the DTP on K6)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -192,12 +198,14 @@ def main() -> int:
     make = model_entrypoint(model_name)
     unit = ("train" if args.train else "md17" if args.md17
             else "md17_train" if args.md17_train else "eval")
+    route = "unfused" if args.unfused else "fused"
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-              "model": model_name, "unit": unit, "batch": batch, "batches": N_BATCHES,
+              "model": model_name, "unit": unit, "route": route, "batch": batch, "batches": N_BATCHES,
               "real_edges": counts, "max_edges": max_edges}
     for name in ("float32", "bfloat16"):
         model = make(max_edges=max_edges, nodes_per_graph=slots, seed=SEED, device=dev,
-                     compute_dtype=None if name == "float32" else name)
+                     compute_dtype=None if name == "float32" else name,
+                     fused_dtp_lin=not args.unfused)
         if args.train:
             run = train_unit(model)
         elif args.md17:
@@ -206,7 +214,7 @@ def main() -> int:
             run = md17_train_unit(model)
         else:
             run = eval_unit(model)
-        report[name] = profile(run, gpu, f"{unit}_{name}")
+        report[name] = profile(run, gpu, f"{unit}_{route}_{name}")
         del model, run
     text = json.dumps(report, indent=1)
     print(text)

@@ -18,7 +18,7 @@ from typing import Dict, Optional
 import torch
 
 from ..graph.batching import GraphsTuple
-from ..kernels.dtp_lin_ho import skip_leg_grads
+from ..kernels.dtp import skip_leg_grads
 from ..models.md17_models import energy_and_forces
 from .optim import ema_update
 from .state import TrainState
@@ -135,7 +135,7 @@ def make_md17_steps(model: torch.nn.Module, optimizer, task_mean: float = 0.0,
             mae_f = masked_mean(torch.abs(f_err) * task_std,
                                 batch.node_mask[:, None].expand_as(f_err))
         # sh depends on the positions alone: no parameter gradient flows
-        # through it, so the fused op skips its sh leg in this pass
+        # through it, so the DTP ops skip its sh leg (K5b sh legs, R) here
         with skip_leg_grads("sh"):
             grads = torch.autograd.grad(loss, list(params.values()))
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))

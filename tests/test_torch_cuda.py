@@ -413,3 +413,159 @@ def test_reduced_md17_train_step_on_card_matches_cpu(dev):
     scale = max(float(p.abs().max()) for p in pc.values())
     assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-3 * scale
     assert mg == mg2 and all(torch.equal(pg[n], pg2[n]) for n in pg)
+
+
+# The unfused route's primitives (K6) on the DTP term lists of the QM9 and
+# L3 call sites at small widths: (node irreps, SH, fold_rescale)
+K6_PLANS = {"l2": (IRR, SH, True), "l2-shared-w": (IRR, SH, False), "l3": (L3_IRR, L3_SH, True)}
+
+
+def _k6_operands(tl, dev, dt, shared_a=False, shared_b=False, E=300, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+    a = rnd(1, tl.d_a).expand(E, tl.d_a) if shared_a else rnd(E, tl.d_a)
+    b = rnd(1, tl.d_b) if shared_b else rnd(E, tl.d_b)
+    return a, rnd(E, tl.d_col), b, rnd(E, tl.d_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("plan", list(K6_PLANS))
+def test_dtp_t_r_and_fused_bwd_kernels_match_plain(dev, plan, dtype):
+    """K6-T on the DTP's terms and on each transpose's permutation, K6-R and
+    K6-FB against their plain versions on the same operands, with a
+    broadcast a (an expanded row) or b (one row) where the call sites have
+    them; second calls give the same bits (one writer per element, fixed
+    reduction order)."""
+    from equiformer_tpu_torch.kernels import dtp as kd
+
+    irr, sh, fold = K6_PLANS[plan]
+    dt = getattr(torch, dtype)
+    tl = kd.TermList.for_plan(depthwise_tp(Irreps(irr), Irreps(sh), Irreps(irr)), fold)
+    reset_launch_counts()
+    n_t = n_r = 0
+    for sa, sb in ((False, False), (True, False), (False, True)):
+        a, col, b, d = _k6_operands(tl, dev, dt, sa, sb)
+        for member, ops in ((tl, (a, col, b)), (kd.perm_a(tl), (d, col, b)),
+                            (kd.perm_b(tl), (a, col, d)), (kd.perm_r_a(tl), (b, col, d))):
+            k = kd.dtp_t(member, *ops)
+            p = kd.dtp_t_plain(member, *ops)
+            torch.cuda.synchronize()
+            assert k.dtype == dt and k.shape == p.shape == (300, member.d_out)
+            assert _rel(k, p) < TOL[dtype], member.slots
+            assert torch.equal(k, kd.dtp_t(member, *ops))
+            n_t += 2
+        k = kd.dtp_r(tl, a, b, d)
+        assert _rel(k, kd.dtp_r_plain(tl, a, b, d)) < TOL[dtype]
+        assert k.shape == (300, tl.d_col) and torch.equal(k, kd.dtp_r(tl, a, b, d))
+        n_r += 2
+        k = kd.dtp_fused_bwd(tl, a, col, b, d)
+        for x, y in zip(k, kd.dtp_fused_bwd_plain(tl, a, col, b, d)):
+            assert x.dtype == dt and x.shape == y.shape and _rel(x, y) < TOL[dtype]
+    assert (kd.dtp_t.launches, kd.dtp_r.launches, kd.dtp_fused_bwd.launches) == (n_t, n_r, 3)
+
+
+@pytest.mark.cuda
+def test_k6_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from equiformer_tpu_torch.kernels import dtp as kd
+
+    tl = kd.TermList.for_plan(depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR)), True)
+    a, col, b, d = _k6_operands(tl, dev, torch.float32)
+    with pytest.raises(TypeError):
+        kd.dtp_t(tl, a.double(), col.double(), b.double())
+    with pytest.raises(ValueError):
+        kd.dtp_t(tl, a[:, 1:], col, b)
+    with pytest.raises(TypeError):
+        kd.dtp_r(tl, a, b.half(), d)
+
+
+QM9_SMALL = dict(irreps_node_embedding="16x0e+8x1e+4x2e", num_layers=2, number_of_basis=32,
+                 fc_neurons=(16, 16), irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e",
+                 num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", max_edges=1024,
+                 higher_order_grads=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first_order", [False, True], ids=["t-r", "fused-bwd"])
+def test_reduced_unfused_train_step_on_card_matches_cpu(dev, first_order):
+    """One fp32 training step of the reduced QM9 model on the unfused route
+    on the card against the CPU plain path, within 1e-4 as the fused
+    route's; per step 3 T per DTP site (forward, x and w legs), or one T and
+    one FB with dtp_first_order_bwd; no R (QM9 positions need no gradient),
+    no K1 / K2."""
+    import equiformer_tpu_torch as pt
+    from equiformer_tpu_torch.data import GraphLoader, qm9_like_dataset
+    from equiformer_tpu_torch.kernels import launch_counts
+    from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer
+
+    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, 30, shuffle=False)))
+    keep = [torch.rand(1024, 4, generator=torch.Generator().manual_seed(i)) < 0.8
+            for i in range(2)]
+    results = []
+    for d in ("cpu", dev):
+        model = GraphAttentionTransformer(**QM9_SMALL, fused_dtp_lin=False,
+                                          dtp_first_order_bwd=first_order).to(d)
+        opt = pt.create_optimizer(pt.cosine_warmup_schedule(5e-4, 100, 100000))
+        step, _ = pt.make_qm9_steps(model, opt)
+        reset_launch_counts()
+        state, m = step(pt.TrainState.create(model, opt), batch.to(d), iter(keep))
+        results.append((m, {n: p.detach().cpu() for n, p in model.named_parameters()}))
+    c = launch_counts()
+    assert (c["dtp_t"], c["dtp_r"], c["dtp_fused_bwd"], c["dtp_lin_fwd"], c["dtp_lin_bwd"],
+            c["attn_combine"]) == ((5, 0, 5, 0, 0, 2) if first_order else (15, 0, 0, 0, 0, 2))
+    (mc, pc), (mg, pg) = results
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mg[k]) - float(mc[k])) < 1e-4 * abs(float(mc[k]))
+    scale = max(float(p.abs().max()) for p in pc.values())
+    assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_reduced_unfused_md17_on_card_matches_cpu(dev):
+    """The reduced L3 force model (2 blocks) on the unfused route: a force
+    evaluation (12 T, 5 R) and a training step (51 T, 5 R: the parameter
+    pass runs no R) on the card against the CPU plain path, as the fused
+    route's tests hold them; two steps from one state give the same bits."""
+    import copy
+
+    import equiformer_tpu_torch as pt
+    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
+    from equiformer_tpu_torch.kernels import launch_counts
+    from equiformer_tpu_torch.models import md17_models
+    from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer
+
+    cfg = dict(irreps_node_embedding=L3_IRR, num_layers=2, irreps_sh=L3_SH,
+               number_of_basis=32, basis_type="exp", fc_neurons=(16, 16),
+               irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e+2x3e", num_heads=4,
+               irreps_mlp_mid="24x0e+12x1e+12x2e+6x3e", alpha_drop=0.0, max_atom_type=64,
+               avg_num_nodes=md17_models._AVG_NUM_NODES_MD17,
+               avg_degree=md17_models._AVG_DEGREE_MD17, max_edges=1024, nodes_per_graph=21,
+               fused_dtp_lin=False)
+    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, 21, shuffle=False,
+                                  with_forces=True)))
+    forces, results = [], []
+    for d in ("cpu", dev, dev):
+        model = GraphAttentionTransformer(**cfg).to(d)
+        reset_launch_counts()
+        r = pt.evaluate_md17(model, batch.to(d))
+        forces.append((r["energy"].cpu(), r["forces"].cpu()))
+        ev = launch_counts()
+        opt = pt.create_optimizer(pt.cosine_warmup_schedule(5e-4, 100, 100000), weight_decay=1e-6)
+        step, _ = pt.make_md17_steps(model, opt, energy_weight=1.0, force_weight=80.0)
+        reset_launch_counts()
+        _, m = step(pt.TrainState.create(model, opt), batch.to(d))
+        results.append(({k: float(v) for k, v in m.items()},
+                        copy.deepcopy({n: p.detach().cpu() for n, p in model.named_parameters()})))
+    tr = launch_counts()
+    assert (ev["dtp_t"], ev["dtp_r"], ev["dtp_lin_fwd"], ev["dtp_lin_bwd3"]) == (12, 5, 0, 0)
+    assert (tr["dtp_t"], tr["dtp_r"], tr["dtp_fused_bwd"], tr["dtp_lin_fwd"],
+            tr["dtp_lin_leg"], tr["dtp_lin_legW"]) == (51, 5, 0, 0, 0, 0)
+    (ec, fc), (eg, fg), (eg2, fg2) = forces
+    assert _rel(eg, ec) < 1e-4 and _rel(fg, fc) < 1e-4
+    assert torch.equal(eg, eg2) and torch.equal(fg, fg2)
+    (mc, pc), (mg, pg), (mg2, pg2) = results
+    for k in ("loss", "grad_norm"):
+        assert abs(mg[k] - mc[k]) < 1e-3 * abs(mc[k])
+    scale = max(float(p.abs().max()) for p in pc.values())
+    assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-3 * scale
+    assert mg == mg2 and all(torch.equal(pg[n], pg2[n]) for n in pg)
