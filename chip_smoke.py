@@ -93,6 +93,19 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    bfloat16 CPU plain path's, with a floor of 2e-2 for the two scalars (one
    number of the CPU path can land near its float64 value by chance).
 
+10a. K7 kernels — the radial fold's K7-F (``dtp_lin_rad_fwd``) with K7-B
+   (``dtp_lin_rad_bwd``) at the QM9 sep_act and edge-degree sites and with
+   K7-B3 (``dtp_lin_rad_bwd3``) at the exp_l3 sep_act site, float32 and
+   bfloat16, against their plain versions with the tolerances of phase 3,
+   each beside the unfolded pair on the same inputs (cuBLAS ``h @ Wr +
+   offset`` then K1; K2, K5a then cuBLAS for dh and d[Wr; offset]).
+10b. fold — the QM9 flagship and the exp_l3 force model built with
+   ``radial_fold`` (and ``radial_fold_ho``): the eval forward (7 K7-F + 6
+   K1, 1 K3, 6 K4; predictions against the fused route), phase 4 (7 K7-F +
+   6 K1, 7 K7-B + 6 K2; peak memory beside the fused step's), one fp32 step
+   against the fused route's (ROUTE_RTOL), phase 5, and phase 6 (7 K7-F + 6
+   K1, 7 K7-B3 + 6 K5a) against the fused phases' float64 references.
+
 11. K6 kernels — the unfused DTP route's kernels at the term lists of the
    QM9 flagship's three call sites (batch 0 of phase 2, E = max_edges) and
    of the exp_l3 sep_act site (batch 0 of phase 6), float32 and bfloat16:
@@ -153,6 +166,9 @@ TPU_KERNELS = {
     "dtp_lin_bwd3": "equiformer_tpu/kernels/dtp_lin_ho.py:451",
     "dtp_lin_leg": "equiformer_tpu/kernels/dtp_lin_ho.py:163",
     "dtp_lin_legW": "equiformer_tpu/kernels/dtp_lin_ho.py:402",
+    "dtp_lin_rad_fwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:604",
+    "dtp_lin_rad_bwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:675",
+    "dtp_lin_rad_bwd3": "equiformer_tpu/kernels/dtp_lin_ho.py:458",
     "dtp_t": "equiformer_tpu/kernels/dtp_pallas.py:54",
     "dtp_r": "equiformer_tpu/kernels/dtp_pallas.py:72",
     "dtp_fused_bwd": "equiformer_tpu/kernels/dtp_pallas.py:405",
@@ -165,6 +181,9 @@ SOURCES = {
     "dtp_lin_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
     "dtp_lin_leg": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
     "dtp_lin_legW": "equiformer_tpu_torch/csrc/dtp_lin_legW.cu",
+    "dtp_lin_rad_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
+    "dtp_lin_rad_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
+    "dtp_lin_rad_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
     "dtp_t": "equiformer_tpu_torch/csrc/dtp_t.cu",
     "dtp_r": "equiformer_tpu_torch/csrc/dtp_r.cu",
     "dtp_fused_bwd": "equiformer_tpu_torch/csrc/dtp_fused_bwd.cu",
@@ -209,7 +228,19 @@ EXPECTED_FIRST_ORDER_TRAIN = {**NONE, "dtp_t": 13, "dtp_fused_bwd": 13, "csr_seg
                               "attn_combine": 6}
 EXPECTED_UNFUSED_MD17 = {**NONE, "dtp_t": 32, "dtp_r": 13, "csr_segment_sum": 19}
 EXPECTED_UNFUSED_MD17_TRAIN = {**NONE, "dtp_t": 135, "dtp_r": 13, "csr_segment_sum": 38}
-ROUTE_RTOL = 1e-3  # one fp32 step, unfused vs fused route on the card
+ROUTE_RTOL = 1e-3  # one fp32 step, unfused (or folded) vs fused route on the card
+# The radial fold (K7): the radial MLP's final linear layer inside the fused
+# op at the 7 per-edge-weight sites (6 sep_act + the edge degree); the 6
+# shared-weight sep_value sites stay on K1 / K2 / K5a.  K3 and K4 as on the
+# fused route.
+FOLD = {"radial_fold": True}
+FOLD_HO = {"radial_fold": True, "radial_fold_ho": True}
+EXPECTED_FOLD_EVAL = {**NONE, "dtp_lin_fwd": 6, "dtp_lin_rad_fwd": 7, "csr_segment_sum": 1,
+                      "attn_combine": 6}
+EXPECTED_FOLD_TRAIN = {**NONE, "dtp_lin_fwd": 6, "dtp_lin_rad_fwd": 7, "dtp_lin_bwd": 6,
+                       "dtp_lin_rad_bwd": 7, "csr_segment_sum": 13, "attn_combine": 6}
+EXPECTED_FOLD_MD17 = {**NONE, "dtp_lin_fwd": 6, "dtp_lin_rad_fwd": 7, "dtp_lin_bwd3": 6,
+                      "dtp_lin_rad_bwd3": 7, "csr_segment_sum": 19}
 MD17_CPU_MOLECULES = 2
 BF16_SCALAR_FLOOR = 2e-2
 MD17_MODEL = "graph_attention_transformer_nonlinear_exp_l3_md17"
@@ -268,13 +299,15 @@ def dtp_work(plan) -> tuple:
 
 
 def record(records, kernel, site, dt_name, shape, errs, ms, plain_ms, nbytes, flops,
-           library_ms=None):
+           library_ms=None, pair_ms=None):
+    """``pair_ms``: for a radial-folded kernel, the unfolded route's kernel
+    and cuBLAS calls on the same inputs."""
     err = max(e for e, _ in errs)
     rel = max(r for _, r in errs)
     b_ms, b_by = bound(nbytes, flops, dt_name)
     records.append(dict(kernel=kernel, site=site, dtype=dt_name, shape=shape,
                         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms))
+                        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, pair_ms=pair_ms))
 
 
 def report_kernels(records):
@@ -282,6 +315,8 @@ def report_kernels(records):
     failed = [r for r in records if not r["rel_err"] <= TOL[r["dtype"]]]
     for r in records:
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        if r["pair_ms"] is not None:
+            lib += f", unfolded pair {r['pair_ms']:.4f} ms"
         print(f"kernel {r['kernel']:16s} {r['site']:17s} {r['dtype']:8s} {r['shape']}: "
               f"max_abs_err {r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}) "
               f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms{lib}; bound "
@@ -490,6 +525,7 @@ def train_phase(pt, torch, make, max_edges, gpu_batches, dev, out, tag="train",
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        out[f"{tag}_{name}_peak_mib"] = peak
         vals = {k: float(v) for k, v in metrics.items()}
         if not all(v == v and abs(v) < float("inf") for v in vals.values()):
             raise RuntimeError(f"{name}: non-finite training metrics {vals}")
@@ -770,6 +806,7 @@ def md17_phase(pt, torch, dev, out, tag="md17", expected=EXPECTED_MD17, route=No
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        out[f"{tag}_{name}_peak_mib"] = peak
         for b, r in zip(gpu_batches, results):
             e, f = r["energy"], r["forces"]
             if e.shape != (MD17_BATCH,) or f.shape != (n_nodes, 3) or not (
@@ -1102,14 +1139,16 @@ def unfused_eval_counts(pt, torch, make, max_edges, gpu_batches, out):
     out["unfused_eval_launches"] = launches
 
 
-def routes_agree(pt, torch, make, max_edges, batch, dev):
+def routes_agree(pt, torch, make, max_edges, batch, dev,
+                 routes=(("unfused", UNFUSED), ("first_order", FIRST_ORDER_BWD))):
     """One fp32 QM9 training step on each DTP route from the same seed (the
     same parameters), batch and dropout masks: loss, gradient norm and the
-    updated parameters of the unfused route (and of its one-launch backward)
-    within ROUTE_RTOL of the fused route's."""
+    updated parameters of each of ``routes`` (the unfused route and its
+    one-launch backward, or the radial fold) within ROUTE_RTOL of the fused
+    route's."""
     keep = None
     res, params = {}, {}
-    for label, route in (("fused", {}), ("unfused", UNFUSED), ("first_order", FIRST_ORDER_BWD)):
+    for label, route in (("fused", {}),) + tuple(routes):
         model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED, **route)
         if keep is None:
             gen = torch.Generator().manual_seed(SEED + 5)
@@ -1129,7 +1168,163 @@ def routes_agree(pt, torch, make, max_edges, batch, dev):
     print(f"routes, one fp32 step at batch {BATCH}: {res}, rel to fused {errs} (the "
           f"updated parameters against max |param|; bound {ROUTE_RTOL:.0e})", flush=True)
     if not all(e <= ROUTE_RTOL for v in errs.values() for e in v.values()):
-        raise RuntimeError("the unfused route's training step disagrees with the fused route's")
+        raise RuntimeError(f"the training step of {[r for r, _ in routes]} disagrees with the "
+                           f"fused route's")
+
+
+def k7_kernel_phase(torch, sites, dev, records):
+    """K7-F with K7-B (QM9 sep_act and edge degree) or K7-B3 (MD17 L3
+    sep_act) against their plain versions at one batch's shapes, fp32 and
+    bf16, timed as phase 3, beside the unfolded pair on the same inputs:
+    cuBLAS ``w = h @ Wr + offset`` then K1; K2 then cuBLAS ``dh = dw Wr^T``
+    and ``d[Wr; offset] = [h, 1]^T dw``; K5a then ``dh = dw Wr^T``.
+    ``sites``: name -> (folded plan, head modules, row-broadcast x, radial
+    profile, batch geometry, backward "bwd" or "bwd3").  The bounds add the
+    fold's products (2 * 65 * d_w operations per real edge for w, as many
+    for each transpose) to the unfolded kernel's count."""
+    from equiformer_tpu_torch.kernels import (
+        KERNEL_WRAPPERS, DTPLinPlan, dtp_lin_bwd, dtp_lin_bwd3, dtp_lin_fwd, dtp_lin_rad_bwd,
+        dtp_lin_rad_bwd3, dtp_lin_rad_bwd3_plain, dtp_lin_rad_bwd_plain, dtp_lin_rad_fwd,
+        dtp_lin_rad_plain,
+    )
+    from equiformer_tpu_torch.kernels.dtp_lin_ho import bwd3_occupancy
+
+    saved = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        size = torch.finfo(dt).bits // 8
+        for site, (plan, heads, broadcast_x, rad, geom, bwd) in sites.items():
+            edges, sh32, n_edges, n = geom
+            E, sh, hd = edges.dst.shape[0], sh32.to(dt), plan.radial_fold
+            unf = DTPLinPlan(plan.tp, plan.head_irreps)  # the same op, w given
+            x, _, W, cot, in_bytes = dtp_operands(torch, unf, heads, broadcast_x, E, n, dt, g,
+                                                  dev)
+            in_bytes -= size * n * plan.d_w  # the folded kernels read h, not w
+            in_bytes += size * (n * hd + (hd + 1) * plan.d_w)
+            h = torch.randn(E, hd, generator=g, device=dev).to(dt)
+            Wr = getattr(rad.net, f"dense{rad.net.n - 1}").weight.detach().t()
+            off = rad.offset.detach()
+            Wrs = plan.pack_radial(Wr, off + 0.1 * torch.randn(off.shape, generator=g,
+                                                               device=dev)).to(dt)
+            w = torch.addmm(Wrs[-1], h, Wrs[:-1])  # the unfolded route's cuBLAS w
+            shape = f"E={E} d_x={plan.d_x} d_w={plan.d_w} d_out={plan.d_out} hd={hd}"
+            tp_elems, macs = dtp_work(plan)
+            rad_ops = 2 * n * (hd + 1) * plan.d_w  # one product with [Wr; offset]
+
+            k = dtp_lin_rad_fwd(plan, x, sh, h, Wrs, W, n_edges)
+            p = dtp_lin_rad_plain(plan, x, sh, h, Wrs, W, n_edges)
+            torch.cuda.synchronize()
+            ms = cuda_time_ms(lambda: dtp_lin_rad_fwd(plan, x, sh, h, Wrs, W, n_edges), torch)
+            plain_ms = cuda_time_ms(lambda: dtp_lin_rad_plain(plan, x, sh, h, Wrs, W, n_edges),
+                                    torch)
+            pair_ms = cuda_time_ms(lambda: dtp_lin_fwd(
+                unf, x, sh, torch.addmm(Wrs[-1], h, Wrs[:-1]), W, n_edges), torch)
+            record(records, "dtp_lin_rad_fwd", site, dt_name, shape, [rel_err(k, p)], ms,
+                   plain_ms, in_bytes + size * E * plan.d_out,
+                   n * (2 * macs + 4 * tp_elems) + rad_ops, pair_ms=pair_ms)
+
+            if bwd == "bwd":
+                call = lambda: dtp_lin_rad_bwd(plan, x, sh, h, Wrs, W, cot, n_edges)  # noqa: E731
+                plain = lambda: dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, cot, n_edges)  # noqa: E731
+
+                def pair():
+                    dx, dw, dW = dtp_lin_bwd(unf, x, sh, w, W, cot, n_edges)
+                    return dx, dw @ Wrs[:-1].t(), torch.cat([h, torch.ones_like(h[:, :1])],
+                                                            1).t() @ dw, dW
+
+                out_bytes = size * E * (plan.d_x + hd) + 4 * ((hd + 1) * plan.d_w + plan.w_numel)
+                ops = n * (4 * macs + 10 * tp_elems) + 3 * rad_ops
+                name = "dtp_lin_rad_bwd"
+            else:
+                need_dx = not broadcast_x
+                call = lambda: dtp_lin_rad_bwd3(plan, x, sh, h, Wrs, W, cot, n_edges,  # noqa: E731
+                                                need_dx=need_dx)
+                plain = lambda: dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, cot, n_edges)  # noqa: E731
+
+                def pair():
+                    dx, dsh, dw = dtp_lin_bwd3(unf, x, sh, w, W, cot, n_edges, need_dx=need_dx)
+                    return dx, dsh, dw @ Wrs[:-1].t()
+
+                outs = int(need_dx) + 2
+                out_bytes = size * E * ((plan.d_x if need_dx else 0) + plan.d_sh + hd)
+                ops = n * (2 * macs + 3 * outs * tp_elems) + 2 * rad_ops
+                name = "dtp_lin_rad_bwd3"
+            k, p = call(), plain()
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(k, p) if a is not None]
+            ms = cuda_time_ms(call, torch)
+            plain_ms = cuda_time_ms(plain, torch, reps=3, inner=3)
+            pair_ms = cuda_time_ms(pair, torch)
+            record(records, name, site, dt_name, shape, errs, ms, plain_ms,
+                   in_bytes + size * n * plan.d_out + out_bytes, ops, pair_ms=pair_ms)
+            if bwd == "bwd3":
+                print(f"dtp_lin_rad_bwd3 {site} {dt_name}: "
+                      f"{bwd3_occupancy(plan, dt, need_dx, folded=True)} resident blocks per SM "
+                      f"(K5a: {bwd3_occupancy(unf, dt, need_dx)})")
+    for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
+        fn.launches = saved[name]
+
+
+def fold_sites(pt, make, max_edges, batch, md17_max_edges, md17_batch):
+    """The folded call sites of k7_kernel_phase, from fp32 models built with
+    the fold: QM9 sep_act (block 0) and the edge degree, MD17 L3 sep_act."""
+    qm9 = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED, **FOLD)
+    l3 = pt.model_entrypoint(MD17_MODEL)(max_edges=md17_max_edges, nodes_per_graph=MD17_SLOTS,
+                                         seed=SEED, **FOLD_HO)
+    geom, geom17 = batch_geometry(qm9, batch), batch_geometry(l3, md17_batch)
+    ga, ga17 = qm9.block_0.ga, l3.block_0.ga
+    return {
+        "sep_act": (ga.sep_act.plan, [ga.sep_act.lin, ga.sep_alpha], False,
+                    ga.sep_act.dtp_rad, geom, "bwd"),
+        "edge_deg": (qm9.edge_deg_embed.plan, [qm9.edge_deg_embed.proj], True,
+                     qm9.edge_deg_embed.rad, geom, "bwd"),
+        "md17-sep_act": (ga17.sep_act.plan, [ga17.sep_act.lin, ga17.sep_alpha], False,
+                         ga17.sep_act.dtp_rad, geom17, "bwd3"),
+    }
+
+
+def fold_eval_phase(pt, torch, make, max_edges, gpu_batches, dev, out):
+    """The QM9 eval forward with the radial fold, bf16 and fp32: launch
+    counts of one forward, finite predictions, eval graphs/s (median of 3
+    passes over the batches), peak memory, and batch 0's predictions
+    against the same-seed model on the fused route on the card (1e-5 of the
+    largest in fp32: the same function, w summed in another order; the
+    bf16 tolerance of phase 2)."""
+    for name in ("bfloat16", "float32"):
+        kw = dict(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED,
+                  compute_dtype=None if name == "float32" else name)
+        model = make(**kw, **FOLD).eval()
+        r, launches = counted(torch, lambda: pt.evaluate(model, gpu_batches[0]))
+        print(f"fold eval {name}: launches in one forward: {launches}")
+        if launches != EXPECTED_FOLD_EVAL:
+            raise RuntimeError(f"launch counts {launches} != expected {EXPECTED_FOLD_EVAL}")
+        out["fold_eval_launches"] = launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            results = [pt.evaluate(model, b) for b in gpu_batches]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        if not all(x["pred"].shape == (BATCH,) and bool(x["pred"].isfinite().all())
+                   for x in results):
+            raise RuntimeError(f"fold eval {name}: bad predictions")
+        fused = pt.evaluate(make(**kw).eval(), gpu_batches[0])["pred"].float()
+        pred = results[0]["pred"].float()
+        rel = float((pred - fused).abs().max()) / max(float(fused.abs().max()), 1.0)
+        tol = 1e-5 if name == "float32" else CPU_RTOL[name]
+        gps = BATCH * len(gpu_batches) / statistics.median(times)
+        out[f"fold_eval_{name}"] = gps
+        print(f"fold eval {name}: {gps:.1f} graphs/s at batch {BATCH} (median of 3 passes over "
+              f"{len(gpu_batches)} batches; pass seconds {[round(t, 4) for t in times]}), peak "
+              f"memory {peak:.0f} MiB; predictions vs the fused route on the card: rel "
+              f"{rel:.3e} (bound {tol:.0e})", flush=True)
+        if not rel <= tol:
+            raise RuntimeError(f"fold eval {name}: predictions disagree with the fused route")
+        del model
 
 
 def main() -> int:
@@ -1201,6 +1396,29 @@ def run(torch, dev) -> int:
     md17_step64 = md17_train_vs_cpu(pt, torch, dev)
     print(f"md17 train vs CPU phase: {time.time() - t:.1f} s", flush=True)
 
+    # the radial fold (K7): kernels, QM9 eval and training, MD17 forces
+    t = time.time()
+    k7_records = []
+    k7_kernel_phase(torch, fold_sites(pt, make, max_edges, gpu_batches[0], md17_max_edges,
+                                      md17_batches[0]), dev, k7_records)
+    report_kernels(k7_records)
+    print(f"K7 kernel phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    fold_eval_phase(pt, torch, make, max_edges, gpu_batches, dev, out)
+    train_phase(pt, torch, make, max_edges, gpu_batches, dev, out, "fold_train",
+                EXPECTED_FOLD_TRAIN, FOLD)
+    for name in ("bfloat16", "float32"):
+        print(f"train {name} peak memory: fold {out[f'fold_train_{name}_peak_mib']:.0f} MiB, "
+              f"fused {out[f'train_{name}_peak_mib']:.0f} MiB")
+    routes_agree(pt, torch, make, max_edges, gpu_batches[0], dev, (("fold", FOLD),))
+    print(f"fold train phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    train_vs_cpu(pt, torch, make, data, dev, "fold_train", FOLD)
+    print(f"fold train vs CPU phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    md17_phase(pt, torch, dev, out, "fold_md17", EXPECTED_FOLD_MD17, FOLD_HO, md17_ref)
+    print(f"fold md17 phase: {time.time() - t:.1f} s", flush=True)
+
     # the unfused DTP route (K6): kernels, QM9 training, MD17 forces and training
     t = time.time()
     k6_records = []
@@ -1245,9 +1463,11 @@ def run(torch, dev) -> int:
         path = {"dtp_lin_bwd3": "md17_launches", "dtp_lin_leg": "md17_train_launches",
                 "dtp_lin_legW": "md17_train_launches", "dtp_t": "unfused_train_launches",
                 "dtp_r": "unfused_md17_launches",
-                "dtp_fused_bwd": "first_order_train_launches"}.get(name, "train_launches")
+                "dtp_fused_bwd": "first_order_train_launches",
+                "dtp_lin_rad_fwd": "fold_train_launches", "dtp_lin_rad_bwd": "fold_train_launches",
+                "dtp_lin_rad_bwd3": "fold_md17_launches"}.get(name, "train_launches")
         r = next(r for r in records + md17_records + md17_train_records + k6_records
-                 if r["kernel"] == name and r["dtype"] == "bfloat16")
+                 + k7_records if r["kernel"] == name and r["dtype"] == "bfloat16")
         table.append({"name": name, "route": "cuda", "source": SOURCES[name],
                       "replaces": TPU_KERNELS[name], "launches": out[path][name],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -29,10 +29,22 @@
 // index i to (row, u) by i / mul, so every z element is only ever touched by
 // one thread across all terms: the FMA phase needs no atomics and no
 // barriers between terms.
+//
+// The radial-folded variant (K7-F, kRad; replaces the radial branch of
+// _fwd_kernel, dtp_lin_pallas.py:604-611 with _radial_w_fill :482) reads
+// the radial hidden activation h [E, hd] in place of w and builds each irrep
+// group's w columns in shared memory before the group's first component
+// (csrc/radial.cuh), so w [E, d_w] never goes to device memory.  It walks
+// DTPLinPlan.bwd_tables (12 ints per (g, k), 6 per term: the group's w span
+// and each term's local w column).  Shared memory per block: z [32, fs_max],
+// w [32, span_max] and h [32, hd] in fp32, 106 KB at the QM9 sites (2 blocks
+// per SM), 180 KB at MD17 L3 (1 block per SM); a full [32, d_w] w tile would
+// not fit at L3.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "radial.cuh"
 
 namespace {
 
@@ -44,18 +56,29 @@ constexpr int kThreads = 256;                  // 8 warps
 constexpr int kRows = kTile / (kThreads / 32); // edges per warp in the product
 constexpr int kColsPerLane = 2;
 constexpr int kColChunk = 32 * kColsPerLane;   // columns per pass of a warp
-constexpr int kGkFields = 8;                   // ints per (g, k) table entry
-constexpr int kTermFields = 5;                 // a_off, sh col, b_off, fan col, mul
+// ints per (g, k) table entry and per term: DTPLinPlan.device_tables
+// (a_off, sh col, b_off, fan col, mul), or with the fold bwd_tables (the
+// same first fields; the group's w span at 8-10, a term's local w column at 5)
+constexpr int kGkFields = 8;
+constexpr int kTermFields = 5;
+constexpr int kRadGkFields = 12;
+constexpr int kRadTermFields = 6;
 
-template <typename T>
+template <typename T, bool kRad>
 __global__ void __launch_bounds__(kThreads)
 dtp_lin_fwd_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ sh, int d_sh,
                    const T* __restrict__ w, int d_w, const T* __restrict__ W,
                    T* __restrict__ out, int d_out, const int* __restrict__ n_edges_ptr,
                    int E, const int* __restrict__ gk, int n_gk,
-                   const int* __restrict__ terms, const float* __restrict__ coeffs) {
+                   const int* __restrict__ terms, const float* __restrict__ coeffs, int fs_max,
+                   const T* __restrict__ h, int hd, const T* __restrict__ Wl, int n_loc,
+                   int span_max) {
+  constexpr int kGk = kRad ? kRadGkFields : kGkFields;
+  constexpr int kTf = kRad ? kRadTermFields : kTermFields;
   extern __shared__ float4 smem4[];
   float* z = reinterpret_cast<float*>(smem4);
+  float* s_w = z + kTile * fs_max;        // kRad: [kTile, span] of the current group
+  float* s_h = s_w + kTile * span_max;    // kRad: [kTile, hd]
   const int tid = threadIdx.x;
   const int e0 = blockIdx.x * kTile;
   const int n_rows = min(kTile, E - e0);  // rows of this tile inside [0, E)
@@ -70,18 +93,28 @@ dtp_lin_fwd_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ 
   }
   const int lane = tid & 31;
   const int r0 = (tid >> 5) * kRows;
+  if constexpr (kRad) {
+    eqt::load_h<kTile, kThreads>(s_h, h, hd, e0, n_live);
+    __syncthreads();
+  }
 
   for (int q = 0; q < n_gk; ++q) {
-    const int* g = gk + q * kGkFields;
+    const int* g = gk + q * kGk;
     const int fs = g[0], cols = g[1], out_col = g[2], w_off = g[3];
     const int t_begin = g[4], t_end = g[5];
+    int span = 0;
+    if constexpr (kRad) {
+      span = g[9];
+      if (g[10])  // the group's first component: build its w columns
+        eqt::build_w<kTile, kThreads>(s_w, s_h, hd, Wl, n_loc, g[8], span, n_live);
+    }
 
     for (int i = tid; i < kTile * fs; i += kThreads) z[i] = 0.f;
     __syncthreads();
 
     // ---- z[g,k] from the term table (rows >= n_live stay zero)
     for (int t = t_begin; t < t_end; ++t) {
-      const int* tt = terms + t * kTermFields;
+      const int* tt = terms + t * kTf;
       const int a = tt[0], col = tt[1], b = tt[2], fc = tt[3], mul = tt[4];
       const float c = coeffs[t];
       for (int i = tid; i < n_live * mul; i += kThreads) {
@@ -89,7 +122,11 @@ dtp_lin_fwd_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ 
         const int u = i - r * mul;
         const long long e = e0 + r;
         float v = c * to_f(sh[e * d_sh + col]) * to_f(x[e * sx + a + u]);
-        if (w != nullptr) v *= to_f(w[e * d_w + b + u]);
+        if constexpr (kRad) {
+          v *= s_w[r * span + tt[5] + u];
+        } else {
+          if (w != nullptr) v *= to_f(w[e * d_w + b + u]);
+        }
         z[r * fs + fc + u] += v;
       }
     }
@@ -146,21 +183,23 @@ dtp_lin_fwd_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ 
   }
 }
 
-template <typename T>
+template <typename T, bool kRad>
 int launch(const void* x, long long sx, const void* sh, const void* w, const void* W,
            void* out, const void* n_edges, int E, int d_sh, int d_w, int d_out,
            const void* gk, int n_gk, const void* terms, const void* coeffs, int max_fs,
+           const void* h, int hd, const void* Wl, int n_loc, int span_max,
            cudaStream_t stream) {
-  const int smem = kTile * max_fs * (int)sizeof(float);
+  const int smem = kTile * (max_fs + (kRad ? span_max + hd : 0)) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      dtp_lin_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dtp_lin_fwd_kernel<T, kRad>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (E + kTile - 1) / kTile;
-  dtp_lin_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  dtp_lin_fwd_kernel<T, kRad><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), sx, static_cast<const T*>(sh), d_sh,
       static_cast<const T*>(w), d_w, static_cast<const T*>(W), static_cast<T*>(out), d_out,
       static_cast<const int*>(n_edges), E, static_cast<const int*>(gk), n_gk,
-      static_cast<const int*>(terms), static_cast<const float*>(coeffs));
+      static_cast<const int*>(terms), static_cast<const float*>(coeffs), max_fs,
+      static_cast<const T*>(h), hd, static_cast<const T*>(Wl), n_loc, kRad ? span_max : 0);
   return (int)cudaGetLastError();
 }
 
@@ -173,10 +212,31 @@ extern "C" int dtp_lin_fwd(const void* x, long long sx, const void* sh, const vo
   if (max_fs % 4 != 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == eqt::kFloat32)
-    return launch<float>(x, sx, sh, w, W, out, n_edges, E, d_sh, d_w, d_out, gk, n_gk,
-                         terms, coeffs, max_fs, s);
+    return launch<float, false>(x, sx, sh, w, W, out, n_edges, E, d_sh, d_w, d_out, gk, n_gk,
+                                terms, coeffs, max_fs, nullptr, 0, nullptr, 0, 0, s);
   if (dtype == eqt::kBFloat16)
-    return launch<__nv_bfloat16>(x, sx, sh, w, W, out, n_edges, E, d_sh, d_w, d_out, gk,
-                                 n_gk, terms, coeffs, max_fs, s);
+    return launch<__nv_bfloat16, false>(x, sx, sh, w, W, out, n_edges, E, d_sh, d_w, d_out,
+                                        gk, n_gk, terms, coeffs, max_fs, nullptr, 0, nullptr,
+                                        0, 0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7-F: the forward with w = [h, 1] @ Wl built in the kernel.  gk / terms are
+// DTPLinPlan.bwd_tables'; Wl [hd + 1, n_loc] is [Wr; offset] with its columns
+// in the tables' local (dwmap) order.
+extern "C" int dtp_lin_rad_fwd(const void* x, long long sx, const void* sh, const void* W,
+                               void* out, const void* n_edges, int E, int d_sh, int d_out,
+                               const void* gk, int n_gk, const void* terms, const void* coeffs,
+                               int max_fs, const void* h, int hd, const void* Wl, int n_loc,
+                               int span_max, int dtype, void* stream) {
+  if (max_fs % 4 != 0 || hd % 4 != 0 || hd <= 0) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32)
+    return launch<float, true>(x, sx, sh, nullptr, W, out, n_edges, E, d_sh, 0, d_out, gk,
+                               n_gk, terms, coeffs, max_fs, h, hd, Wl, n_loc, span_max, s);
+  if (dtype == eqt::kBFloat16)
+    return launch<__nv_bfloat16, true>(x, sx, sh, nullptr, W, out, n_edges, E, d_sh, 0, d_out,
+                                       gk, n_gk, terms, coeffs, max_fs, h, hd, Wl, n_loc,
+                                       span_max, s);
   return (int)cudaErrorInvalidValue;
 }

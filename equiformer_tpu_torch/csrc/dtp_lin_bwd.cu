@@ -41,10 +41,25 @@
 // (common.cuh) sums the rows in a fixed order, so the result does not depend on the schedule.
 // Everything accumulates in fp32 on the CUDA cores; tensor cores are later
 // work.
+//
+// The radial-folded variant (K7-B, kRad; replaces the radial branch of
+// _bwd_kernel / _bwd_body, dtp_lin_pallas.py:675-745, :754-756, :865-887,
+// with _radial_write_dw :497 and _radial_dh :521) reads h [E, hd] in place
+// of w, rebuilds each group's w columns in shared memory as K7-F does
+// (csrc/radial.cuh), and keeps the group's dw there: at the group's last
+// component it adds dw Wr^T into the tile's dh (fp32, shared memory) and
+// [h, 1]^T dw into the block's partial rows of d[Wr; offset], which follow
+// the dW partial in the same row, so one fixed-order pass sums both.  dw
+// and w never go to device memory; dh does ([E, hd]).  Rows past the real
+// edges get dh = 0 and add nothing to d[Wr; offset] (their h and dw are
+// zero, so the offset's ones column adds nothing either).  Shared memory:
+// K2's plus w [16, span_max], h and dh [16, hd], 135 KB at the QM9 sep_act
+// site: one block per SM (RAD_BWD_BLOCKS_PER_SM in kernels/dtp_lin.py).
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "radial.cuh"
 
 namespace {
 
@@ -66,9 +81,18 @@ struct Smem {
   float* dw;   // [kTile, span_max]
   float* gt;   // [kTile, cols_pad]
   float* z;    // [kTile, fs_max]: z, then dz
+  float* w;    // kRad: [kTile, span_max], the current group's w
+  float* h;    // kRad: [kTile, hd]
+  float* dh;   // kRad: [kTile, hd]
 };
 
-template <typename T>
+// fp32 shared memory of one block
+__host__ __device__ inline int smem_floats(int d_x, int span_max, int cols_pad_max, int fs_max,
+                                           int rad_floats) {
+  return kTile * (d_x + span_max + cols_pad_max + fs_max) + rad_floats;
+}
+
+template <typename T, bool kRad>
 __global__ void __launch_bounds__(kThreads)
 dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh,
                    int d_sh, const T* __restrict__ w, int d_w, const T* __restrict__ WT,
@@ -76,13 +100,18 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
                    int E, const int* __restrict__ gk, int n_gk, const int* __restrict__ terms,
                    const float* __restrict__ coeffs, const int* __restrict__ dwmap,
                    T* __restrict__ dx, T* __restrict__ dw, float* __restrict__ part,
-                   int w_numel, int span_max, int cols_pad_max) {
+                   int w_numel, int span_max, int cols_pad_max, int fs_max,
+                   const T* __restrict__ h, int hd, const T* __restrict__ Wl, int n_loc,
+                   T* __restrict__ dh) {
   extern __shared__ float4 smem4[];
   Smem s;
   s.dx = reinterpret_cast<float*>(smem4);
   s.dw = s.dx + kTile * d_x;
   s.gt = s.dw + kTile * span_max;
   s.z = s.gt + kTile * cols_pad_max;
+  s.w = s.z + kTile * fs_max;
+  s.h = s.w + kTile * span_max;
+  s.dh = s.h + kTile * hd;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -91,9 +120,11 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
   const int fw = (warp / kRowGroups) * kColChunk;
   const int n_edges = __ldg(n_edges_ptr);
   const int n_tiles = (E + kTile - 1) / kTile;
-  float* my_part = part + (long long)blockIdx.x * w_numel;
+  // a partial row: dW [w_numel], then (kRad) d[Wr; offset] [hd + 1, n_loc]
+  const int part_row = w_numel + (kRad ? (hd + 1) * n_loc : 0);
+  float* my_part = part + (long long)blockIdx.x * part_row;
 
-  for (int i = tid; i < w_numel; i += kThreads) my_part[i] = 0.f;
+  for (int i = tid; i < part_row; i += kThreads) my_part[i] = 0.f;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int e0 = tile * kTile;
@@ -105,15 +136,24 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
         const int r = i / d_x;
         dx[(long long)(e0 + r) * d_x + (i - r * d_x)] = from_f<T>(0.f);
       }
-      if (w != nullptr)
+      if constexpr (kRad) {
+        for (int i = tid; i < n_rows * hd; i += kThreads)
+          dh[(long long)e0 * hd + i] = from_f<T>(0.f);
+      } else if (w != nullptr) {
         for (int i = tid; i < n_rows * d_w; i += kThreads) {
           const int r = i / d_w;
           dw[(long long)(e0 + r) * d_w + (i - r * d_w)] = from_f<T>(0.f);
         }
+      }
       continue;
     }
 
     for (int i = tid; i < kTile * d_x; i += kThreads) s.dx[i] = 0.f;
+    if constexpr (kRad) {
+      eqt::load_h<kTile, kThreads>(s.h, h, hd, e0, n_live);
+      for (int i = tid; i < kTile * hd; i += kThreads) s.dh[i] = 0.f;
+      __syncthreads();
+    }
 
     for (int q = 0; q < n_gk; ++q) {
       const int* g = gk + q * kGkFields;
@@ -121,8 +161,10 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       const int t_begin = g[4], t_end = g[5], wt_off = g[6], cp = g[7];
       const int span_begin = g[8], span = g[9], first = g[10], last = g[11];
 
-      if (w != nullptr && first)
+      if ((kRad || w != nullptr) && first)
         for (int i = tid; i < kTile * span; i += kThreads) s.dw[i] = 0.f;
+      if constexpr (kRad)
+        if (first) eqt::build_w<kTile, kThreads>(s.w, s.h, hd, Wl, n_loc, span_begin, span, n_live);
       // ---- stage G[g,k] (zero rows past the real edges, zero pad columns)
       for (int i = tid; i < kTile * cp; i += kThreads) {
         const int r = i / cp;
@@ -144,7 +186,11 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
           const int u = i - r * mul;
           const long long e = e0 + r;
           float v = c * to_f(sh[e * d_sh + col]) * to_f(x[e * sx + a + u]);
-          if (w != nullptr) v *= to_f(w[e * d_w + b + u]);
+          if constexpr (kRad) {
+            v *= s.w[r * span + tt[5] + u];
+          } else {
+            if (w != nullptr) v *= to_f(w[e * d_w + b + u]);
+          }
           s.z[r * fs + fc + u] += v;
         }
       }
@@ -232,7 +278,10 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
           const int u = i - r * mul;
           const long long e = e0 + r;
           const float d = c * to_f(sh[e * d_sh + col]) * s.z[r * fs + fc + u];
-          if (w != nullptr) {
+          if constexpr (kRad) {
+            s.dx[r * d_x + a + u] += d * s.w[r * span + bl + u];
+            s.dw[r * span + bl + u] += d * to_f(x[e * sx + a + u]);
+          } else if (w != nullptr) {
             s.dx[r * d_x + a + u] += d * to_f(w[e * d_w + b + u]);
             s.dw[r * span + bl + u] += d * to_f(x[e * sx + a + u]);
           } else {
@@ -243,7 +292,14 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       __syncthreads();
 
       // ---- a group's last component: its dw columns are complete
-      if (w != nullptr && last) {
+      if constexpr (kRad) {
+        if (last) {  // dh += dw Wr^T; partial d[Wr; offset] += [h, 1]^T dw
+          eqt::add_dh<kTile, kThreads>(s.dh, s.dw, span, hd, Wl, n_loc, span_begin);
+          eqt::add_dWr<kTile, kThreads>(my_part + w_numel, n_loc, s.h, hd, s.dw, span,
+                                        span_begin);
+          __syncthreads();
+        }
+      } else if (w != nullptr && last) {
         for (int i = tid; i < n_rows * span; i += kThreads) {
           const int r = i / span;
           const int jl = i - r * span;
@@ -257,32 +313,39 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       const int r = i / d_x;
       dx[(long long)(e0 + r) * d_x + (i - r * d_x)] = from_f<T>(s.dx[i]);
     }
-    __syncthreads();  // s.dx is zeroed for the next tile
+    if constexpr (kRad)
+      for (int i = tid; i < n_rows * hd; i += kThreads)
+        dh[(long long)e0 * hd + i] = from_f<T>(s.dh[i]);
+    __syncthreads();  // s.dx (and s.dh) are zeroed for the next tile
   }
 }
 
-template <typename T>
+template <typename T, bool kRad>
 int launch(const void* x, long long sx, int d_x, const void* sh, int d_sh, const void* w,
            int d_w, const void* WT, const void* G, int d_out, const void* n_edges, int E,
            const void* gk, int n_gk, const void* terms, const void* coeffs, const void* dwmap,
            void* dx, void* dw, void* part, int n_parts, void* dW, int w_numel, int span_max,
-           int cols_pad_max, int fs_max, cudaStream_t stream) {
+           int cols_pad_max, int fs_max, const void* h, int hd, const void* Wl, int n_loc,
+           void* dh, cudaStream_t stream) {
+  const int rad_floats = kRad ? kTile * (span_max + 2 * hd) : 0;
   const int smem =
-      kTile * (d_x + span_max + cols_pad_max + fs_max) * (int)sizeof(float);
+      smem_floats(d_x, span_max, cols_pad_max, fs_max, rad_floats) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      dtp_lin_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dtp_lin_bwd_kernel<T, kRad>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dtp_lin_bwd_kernel<T><<<n_parts, kThreads, smem, stream>>>(
+  dtp_lin_bwd_kernel<T, kRad><<<n_parts, kThreads, smem, stream>>>(
       static_cast<const T*>(x), sx, d_x, static_cast<const T*>(sh), d_sh,
       static_cast<const T*>(w), d_w, static_cast<const T*>(WT), static_cast<const T*>(G),
       d_out, static_cast<const int*>(n_edges), E, static_cast<const int*>(gk), n_gk,
       static_cast<const int*>(terms), static_cast<const float*>(coeffs),
       static_cast<const int*>(dwmap), static_cast<T*>(dx), static_cast<T*>(dw),
-      static_cast<float*>(part), w_numel, span_max, cols_pad_max);
+      static_cast<float*>(part), w_numel, span_max, cols_pad_max, fs_max,
+      static_cast<const T*>(h), hd, static_cast<const T*>(Wl), n_loc, static_cast<T*>(dh));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  // dW = the blocks' partial rows summed in block order
-  return (int)eqt::sum_partial_rows(static_cast<const float*>(part), n_parts, w_numel,
+  // dW (and d[Wr; offset]) = the blocks' partial rows summed in block order
+  const int part_row = w_numel + (kRad ? (hd + 1) * n_loc : 0);
+  return (int)eqt::sum_partial_rows(static_cast<const float*>(part), n_parts, part_row,
                                     static_cast<float*>(dW), stream);
 }
 
@@ -300,12 +363,41 @@ extern "C" int dtp_lin_bwd(const void* x, long long sx, int d_x, const void* sh,
   if (fs_max % 4 != 0 || cols_pad_max % 4 != 0 || n_parts < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == eqt::kFloat32)
-    return launch<float>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E, gk, n_gk,
-                         terms, coeffs, dwmap, dx, dw, part, n_parts, dW, w_numel, span_max,
-                         cols_pad_max, fs_max, s);
+    return launch<float, false>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E, gk,
+                                n_gk, terms, coeffs, dwmap, dx, dw, part, n_parts, dW, w_numel,
+                                span_max, cols_pad_max, fs_max, nullptr, 0, nullptr, 0,
+                                nullptr, s);
   if (dtype == eqt::kBFloat16)
-    return launch<__nv_bfloat16>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E, gk,
-                                 n_gk, terms, coeffs, dwmap, dx, dw, part, n_parts, dW,
-                                 w_numel, span_max, cols_pad_max, fs_max, s);
+    return launch<__nv_bfloat16, false>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges,
+                                        E, gk, n_gk, terms, coeffs, dwmap, dx, dw, part,
+                                        n_parts, dW, w_numel, span_max, cols_pad_max, fs_max,
+                                        nullptr, 0, nullptr, 0, nullptr, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7-B: the backward of dtp_lin_rad_fwd.  h [E, hd] and Wl [hd + 1, n_loc]
+// (columns in the tables' local order) in place of w; writes dx and dh, and
+// dWred [w_numel + (hd + 1) * n_loc] fp32: dW, then d[Wr; offset] in local
+// column order, from part [n_parts, the same width].
+extern "C" int dtp_lin_rad_bwd(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                               const void* WT, const void* G, int d_out, const void* n_edges,
+                               int E, const void* gk, int n_gk, const void* terms,
+                               const void* coeffs, void* dx, void* part, int n_parts,
+                               void* dWred, int w_numel, int span_max, int cols_pad_max,
+                               int fs_max, const void* h, int hd, const void* Wl, int n_loc,
+                               void* dh, int dtype, void* stream) {
+  if (fs_max % 4 != 0 || cols_pad_max % 4 != 0 || n_parts < 1 || hd % 4 != 0 || hd <= 0)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32)
+    return launch<float, true>(x, sx, d_x, sh, d_sh, nullptr, 0, WT, G, d_out, n_edges, E, gk,
+                               n_gk, terms, coeffs, nullptr, dx, nullptr, part, n_parts, dWred,
+                               w_numel, span_max, cols_pad_max, fs_max, h, hd, Wl, n_loc, dh,
+                               s);
+  if (dtype == eqt::kBFloat16)
+    return launch<__nv_bfloat16, true>(x, sx, d_x, sh, d_sh, nullptr, 0, WT, G, d_out, n_edges,
+                                       E, gk, n_gk, terms, coeffs, nullptr, dx, nullptr, part,
+                                       n_parts, dWred, w_numel, span_max, cols_pad_max, fs_max,
+                                       h, hd, Wl, n_loc, dh, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -42,15 +42,26 @@
 // exactly one group) and is flushed when the group's last component is
 // done, as in K2.  Everything accumulates in fp32 on the CUDA cores;
 // tensor cores and TMA are later work.
+//
+// The radial-folded variant (K7-B3, kRad; replaces the radial branch of
+// _bwd3_kernel, dtp_lin_ho.py:458-526: w rebuilt :492-493, dh :522-526)
+// reads h [E, hd] in place of w, rebuilds each group's w columns in shared
+// memory (csrc/radial.cuh), accumulates the group's dw there as the dw
+// output does, and at the group's last component adds dw Wr^T into the
+// tile's dh: it writes dx, dsh and dh [E, hd], never w or dw.  Shared
+// memory: the dw tile always, plus w [16, span_max], h and dh [16, hd];
+// 221 KB at the MD17 L3 sep_act site (one block per SM).
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "radial.cuh"
 
 namespace {
 
 using eqt::from_f;
 using eqt::to_f;
+using eqt::warp_sum;
 
 constexpr int kTile = 16;                         // edges per block
 constexpr int kThreads = 256;                     // 8 warps
@@ -64,19 +75,15 @@ constexpr int kGkFields = 12;                     // ints per (g, k) table entry
 constexpr int kTermFields = 6;                    // a_off, sh col, b_off, fan col, mul, local dw col
 
 // fp32 shared memory: dx [kTile, d_x_s], dw [kTile, span_s], G [kTile, cp],
-// dz [kTile, fs], sh [kTile, d_sh], dsh [kTile, d_sh]
+// dz [kTile, fs], sh [kTile, d_sh], dsh [kTile, d_sh]; with the fold (hd > 0)
+// also w [kTile, span_s], h [kTile, hd] and dh [kTile, hd]
 __host__ __device__ inline int smem_floats(int d_x_s, int span_s, int cols_pad_max, int fs_max,
-                                           int d_sh) {
-  return kTile * (d_x_s + span_s + cols_pad_max + fs_max + 2 * d_sh);
+                                           int d_sh, int hd) {
+  return kTile * (d_x_s + span_s + cols_pad_max + fs_max + 2 * d_sh
+                  + (hd > 0 ? span_s + 2 * hd : 0));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <typename T>
+template <typename T, bool kRad>
 __global__ void __launch_bounds__(kThreads)
 dtp_lin_bwd3_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh,
                     int d_sh, const T* __restrict__ w, int d_w, const T* __restrict__ WT,
@@ -84,16 +91,21 @@ dtp_lin_bwd3_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __r
                     int E, const int* __restrict__ gk, int n_gk, const int* __restrict__ terms,
                     const float* __restrict__ coeffs, const int* __restrict__ dwmap,
                     T* __restrict__ dx, T* __restrict__ dsh, T* __restrict__ dw, int span_max,
-                    int cols_pad_max, int fs_max) {
+                    int cols_pad_max, int fs_max, const T* __restrict__ h, int hd,
+                    const T* __restrict__ Wl, int n_loc, T* __restrict__ dh) {
   extern __shared__ float4 smem4[];
+  const bool acc_dw = kRad || dw != nullptr;  // the group's dw is accumulated
   const int d_x_s = dx != nullptr ? d_x : 0;
-  const int span_s = dw != nullptr ? span_max : 0;
+  const int span_s = acc_dw ? span_max : 0;
   float* s_dx = reinterpret_cast<float*>(smem4);
   float* s_dw = s_dx + kTile * d_x_s;
   float* s_gt = s_dw + kTile * span_s;   // offset a multiple of 16 floats: float4 rows
   float* s_dz = s_gt + kTile * cols_pad_max;
   float* s_sh = s_dz + kTile * fs_max;
   float* s_dsh = s_sh + kTile * d_sh;
+  float* s_w = s_dsh + kTile * d_sh;     // kRad: [kTile, span] of the current group
+  float* s_h = s_w + kTile * span_s;     // kRad: [kTile, hd]
+  float* s_dh = s_h + kTile * hd;        // kRad: [kTile, hd]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -113,6 +125,8 @@ dtp_lin_bwd3_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __r
         dsh[(long long)e0 * d_sh + i] = from_f<T>(0.f);
     if (dw != nullptr)
       for (int i = tid; i < n_rows * d_w; i += kThreads) dw[(long long)e0 * d_w + i] = from_f<T>(0.f);
+    if constexpr (kRad)
+      for (int i = tid; i < n_rows * hd; i += kThreads) dh[(long long)e0 * hd + i] = from_f<T>(0.f);
     return;
   }
 
@@ -122,6 +136,11 @@ dtp_lin_bwd3_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __r
     s_sh[i] = r < n_live ? to_f(sh[(long long)e0 * d_sh + i]) : 0.f;
     s_dsh[i] = 0.f;
   }
+  if constexpr (kRad) {
+    eqt::load_h<kTile, kThreads>(s_h, h, hd, e0, n_live);
+    for (int i = tid; i < kTile * hd; i += kThreads) s_dh[i] = 0.f;
+    __syncthreads();
+  }
 
   for (int q = 0; q < n_gk; ++q) {
     const int* g = gk + q * kGkFields;
@@ -129,8 +148,10 @@ dtp_lin_bwd3_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __r
     const int t_begin = g[4], t_end = g[5], wt_off = g[6], cp = g[7];
     const int span_begin = g[8], span = g[9], first = g[10], last = g[11];
 
-    if (dw != nullptr && first)
+    if (acc_dw && first)
       for (int i = tid; i < kTile * span; i += kThreads) s_dw[i] = 0.f;
+    if constexpr (kRad)
+      if (first) eqt::build_w<kTile, kThreads>(s_w, s_h, hd, Wl, n_loc, span_begin, span, n_live);
     // ---- stage G[g,k] (zero rows past the real edges, zero pad columns)
     for (int i = tid; i < kTile * cp; i += kThreads) {
       const int r = i / cp;
@@ -194,6 +215,7 @@ dtp_lin_bwd3_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __r
       const float* shr = s_sh + r * d_sh;
       float* dxr = s_dx + r * d_x_s;
       float* dwr = s_dw + r * span;
+      const float* wr = s_w + r * span;
       float run = 0.f;  // this lane's part of dsh[r, cur]
       int cur = -1;
       for (int t = t_begin; t < t_end; ++t) {
@@ -212,9 +234,14 @@ dtp_lin_bwd3_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __r
         for (int u = lane; u < mul; u += 32) {
           const float d = dzr[fc + u];
           const float xv = to_f(x[e * sx + a + u]);
-          const float wv = w != nullptr ? to_f(w[e * d_w + b + u]) : 1.f;
+          float wv;
+          if constexpr (kRad) {
+            wv = wr[bl + u];
+          } else {
+            wv = w != nullptr ? to_f(w[e * d_w + b + u]) : 1.f;
+          }
           if (dx != nullptr) dxr[a + u] += cs * wv * d;
-          if (dw != nullptr) dwr[bl + u] += cs * xv * d;
+          if (acc_dw) dwr[bl + u] += cs * xv * d;
           run = fmaf(c * xv * wv, d, run);
         }
       }
@@ -226,7 +253,12 @@ dtp_lin_bwd3_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __r
     __syncthreads();
 
     // ---- a group's last component: its dw columns are complete
-    if (dw != nullptr && last) {
+    if constexpr (kRad) {
+      if (last) {  // dh += dw Wr^T
+        eqt::add_dh<kTile, kThreads>(s_dh, s_dw, span, hd, Wl, n_loc, span_begin);
+        __syncthreads();
+      }
+    } else if (dw != nullptr && last) {
       for (int i = tid; i < n_rows * span; i += kThreads) {
         const int r = i / span;
         const int jl = i - r * span;
@@ -242,37 +274,42 @@ dtp_lin_bwd3_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __r
   if (dsh != nullptr)
     for (int i = tid; i < n_rows * d_sh; i += kThreads)
       dsh[(long long)e0 * d_sh + i] = from_f<T>(s_dsh[i]);
+  if constexpr (kRad)
+    for (int i = tid; i < n_rows * hd; i += kThreads)
+      dh[(long long)e0 * hd + i] = from_f<T>(s_dh[i]);
 }
 
-template <typename T>
+template <typename T, bool kRad>
 int launch(const void* x, long long sx, int d_x, const void* sh, int d_sh, const void* w,
            int d_w, const void* WT, const void* G, int d_out, const void* n_edges, int E,
            const void* gk, int n_gk, const void* terms, const void* coeffs, const void* dwmap,
            void* dx, void* dsh, void* dw, int span_max, int cols_pad_max, int fs_max,
-           cudaStream_t stream) {
-  const int smem = smem_floats(dx != nullptr ? d_x : 0, dw != nullptr ? span_max : 0,
-                               cols_pad_max, fs_max, d_sh) * (int)sizeof(float);
+           const void* h, int hd, const void* Wl, int n_loc, void* dh, cudaStream_t stream) {
+  const int smem = smem_floats(dx != nullptr ? d_x : 0,
+                               (kRad || dw != nullptr) ? span_max : 0, cols_pad_max, fs_max,
+                               d_sh, kRad ? hd : 0) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      dtp_lin_bwd3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dtp_lin_bwd3_kernel<T, kRad>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (E + kTile - 1) / kTile;
-  dtp_lin_bwd3_kernel<T><<<n_tiles, kThreads, smem, stream>>>(
+  dtp_lin_bwd3_kernel<T, kRad><<<n_tiles, kThreads, smem, stream>>>(
       static_cast<const T*>(x), sx, d_x, static_cast<const T*>(sh), d_sh,
       static_cast<const T*>(w), d_w, static_cast<const T*>(WT), static_cast<const T*>(G),
       d_out, static_cast<const int*>(n_edges), E, static_cast<const int*>(gk), n_gk,
       static_cast<const int*>(terms), static_cast<const float*>(coeffs),
       static_cast<const int*>(dwmap), static_cast<T*>(dx), static_cast<T*>(dsh),
-      static_cast<T*>(dw), span_max, cols_pad_max, fs_max);
+      static_cast<T*>(dw), span_max, cols_pad_max, fs_max, static_cast<const T*>(h), hd,
+      static_cast<const T*>(Wl), n_loc, static_cast<T*>(dh));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kRad>
 int occupancy(int smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      dtp_lin_bwd3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dtp_lin_bwd3_kernel<T, kRad>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -(int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dtp_lin_bwd3_kernel<T>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dtp_lin_bwd3_kernel<T, kRad>,
                                                       kThreads, smem);
   return err == cudaSuccess ? blocks : -(int)err;
 }
@@ -290,21 +327,50 @@ extern "C" int dtp_lin_bwd3(const void* x, long long sx, int d_x, const void* sh
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == eqt::kFloat32)
-    return launch<float>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E, gk, n_gk,
-                         terms, coeffs, dwmap, dx, dsh, dw, span_max, cols_pad_max, fs_max, s);
+    return launch<float, false>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E, gk,
+                                n_gk, terms, coeffs, dwmap, dx, dsh, dw, span_max, cols_pad_max,
+                                fs_max, nullptr, 0, nullptr, 0, nullptr, s);
   if (dtype == eqt::kBFloat16)
-    return launch<__nv_bfloat16>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E, gk,
-                                 n_gk, terms, coeffs, dwmap, dx, dsh, dw, span_max,
-                                 cols_pad_max, fs_max, s);
+    return launch<__nv_bfloat16, false>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges,
+                                        E, gk, n_gk, terms, coeffs, dwmap, dx, dsh, dw,
+                                        span_max, cols_pad_max, fs_max, nullptr, 0, nullptr, 0,
+                                        nullptr, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7-B3: the force backward of dtp_lin_rad_fwd, dx, dsh and dh [E, hd] in
+// one pass; h and Wl [hd + 1, n_loc] (columns in the tables' local order) in
+// place of w.  dx and dsh may each be null.
+extern "C" int dtp_lin_rad_bwd3(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                                const void* WT, const void* G, int d_out, const void* n_edges,
+                                int E, const void* gk, int n_gk, const void* terms,
+                                const void* coeffs, void* dx, void* dsh, int span_max,
+                                int cols_pad_max, int fs_max, const void* h, int hd,
+                                const void* Wl, int n_loc, void* dh, int dtype, void* stream) {
+  if (fs_max % 4 != 0 || cols_pad_max % 4 != 0 || hd % 4 != 0 || hd <= 0)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32)
+    return launch<float, true>(x, sx, d_x, sh, d_sh, nullptr, 0, WT, G, d_out, n_edges, E, gk,
+                               n_gk, terms, coeffs, nullptr, dx, dsh, nullptr, span_max,
+                               cols_pad_max, fs_max, h, hd, Wl, n_loc, dh, s);
+  if (dtype == eqt::kBFloat16)
+    return launch<__nv_bfloat16, true>(x, sx, d_x, sh, d_sh, nullptr, 0, WT, G, d_out, n_edges,
+                                       E, gk, n_gk, terms, coeffs, nullptr, dx, dsh, nullptr,
+                                       span_max, cols_pad_max, fs_max, h, hd, Wl, n_loc, dh, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // Resident blocks per SM at the shared memory of a launch with these widths
-// (d_x_s = 0 without dx, span_s = 0 without dw), or minus a cudaError_t.
+// (d_x_s = 0 without dx, span_s = 0 without dw; hd > 0: the folded K7-B3,
+// which always keeps the dw tile), or minus a cudaError_t.
 extern "C" int dtp_lin_bwd3_occupancy(int d_x_s, int d_sh, int span_s, int cols_pad_max,
-                                      int fs_max, int dtype) {
-  const int smem = smem_floats(d_x_s, span_s, cols_pad_max, fs_max, d_sh) * (int)sizeof(float);
-  if (dtype == eqt::kFloat32) return occupancy<float>(smem);
-  if (dtype == eqt::kBFloat16) return occupancy<__nv_bfloat16>(smem);
+                                      int fs_max, int hd, int dtype) {
+  const int smem =
+      smem_floats(d_x_s, span_s, cols_pad_max, fs_max, d_sh, hd) * (int)sizeof(float);
+  if (dtype == eqt::kFloat32)
+    return hd > 0 ? occupancy<float, true>(smem) : occupancy<float, false>(smem);
+  if (dtype == eqt::kBFloat16)
+    return hd > 0 ? occupancy<__nv_bfloat16, true>(smem) : occupancy<__nv_bfloat16, false>(smem);
   return -(int)cudaErrorInvalidValue;
 }

@@ -36,19 +36,36 @@ def scaled_scatter_sum(data, segment_ids, num_segments: int, avg_aggregate_num: 
     )
 
 
-def segment_softmax(scores, segment_ids, num_segments: int, mask=None):
-    """Softmax of ``scores`` [E, ...] within segments, with the global
-    per-column max as the stability shift (the JAX package's
-    ``_global_shift_softmax``): masked entries get probability 0 and empty
-    segments all zeros."""
+def segment_softmax(scores, segment_ids, num_segments: int, mask=None,
+                    higher_order: bool = False):
+    """Softmax of ``scores`` [E, ...] within segments: masked entries get
+    probability 0 and empty segments all zeros.
+
+    The stability shift follows the JAX package's two routes.  By default
+    (first order, as the fused attention combine K4) it is the global
+    per-column max (``_global_shift_softmax``).  With ``higher_order`` (the
+    force models) it is each segment's own max over its unmasked entries,
+    detached (``stop_gradient``; empty segments shift by 0), so a segment
+    whose scores all lie far below another segment's never underflows to
+    zero, and no order of differentiation runs a max's backward.  The
+    per-segment max is a scatter-``amax``, which is exact in any order, so
+    the result repeats bit for bit."""
     emask = None
     masked = scores
     if mask is not None:
         emask = mask.reshape(mask.shape + (1,) * (scores.dim() - 1))
         neg = torch.finfo(scores.dtype).min
         masked = torch.where(emask, scores, torch.full_like(scores, neg))
-    m = torch.amax(masked, dim=0)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    if higher_order:
+        with torch.no_grad():
+            idx = segment_ids.reshape(segment_ids.shape + (1,) * (scores.dim() - 1))
+            m = torch.full((num_segments,) + tuple(scores.shape[1:]), float("-inf"),
+                           dtype=scores.dtype, device=scores.device)
+            m = m.scatter_reduce(0, idx.expand_as(masked), masked, "amax")
+            m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))[segment_ids]
+    else:
+        m = torch.amax(masked, dim=0)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     shifted = scores - m
     if emask is not None:
         shifted = torch.where(emask, shifted, torch.zeros_like(shifted))

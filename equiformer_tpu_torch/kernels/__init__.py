@@ -10,6 +10,10 @@
   differentiable to any order (K6-T ``dtp_t``, K6-R ``dtp_r``), and its
   first-order backward in one launch (K6-FB ``dtp_fused_bwd``): the unfused
   route of every DTP call site
+* the radial fold of both (K7, ``radial_fold`` plans): the forward with
+  ``w = h @ Wr + offset`` built on chip (K7-F, ``dtp_lin_rad_fwd``), its
+  first-order backward (K7-B, ``dtp_lin_rad_bwd``: dx, dh, d[Wr; offset],
+  dW) and its force backward (K7-B3, ``dtp_lin_rad_bwd3``: dx, dsh, dh)
 * ``segment_csr`` — CSR segment sum over dst-sorted edges (K3)
 * ``attn_csr``    — fused segment softmax + dropout + weighted sum (K4 forward;
   its backward is torch ops, as in JAX)
@@ -38,6 +42,10 @@ from .dtp_lin import (
     dtp_lin_fwd,
     dtp_lin_legW_plain,
     dtp_lin_plain,
+    dtp_lin_rad_bwd,
+    dtp_lin_rad_bwd_plain,
+    dtp_lin_rad_fwd,
+    dtp_lin_rad_plain,
 )
 from .dtp_lin_ho import (
     dtp_lin_bwd3,
@@ -46,6 +54,8 @@ from .dtp_lin_ho import (
     dtp_lin_leg,
     dtp_lin_leg_plain,
     dtp_lin_legW,
+    dtp_lin_rad_bwd3,
+    dtp_lin_rad_bwd3_plain,
 )
 from .segment_csr import csr_segment_sum, segment_sum_plain
 
@@ -55,6 +65,9 @@ KERNEL_WRAPPERS = {
     "dtp_lin_bwd3": dtp_lin_bwd3,
     "dtp_lin_leg": dtp_lin_leg,
     "dtp_lin_legW": dtp_lin_legW,
+    "dtp_lin_rad_fwd": dtp_lin_rad_fwd,
+    "dtp_lin_rad_bwd": dtp_lin_rad_bwd,
+    "dtp_lin_rad_bwd3": dtp_lin_rad_bwd3,
     "dtp_t": dtp_t,
     "dtp_r": dtp_r,
     "dtp_fused_bwd": dtp_fused_bwd,

@@ -117,8 +117,25 @@ _SIGNATURES = {
     "dtp_lin_bwd3": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
                      _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     # d_x (0 without dx), d_sh, span (0 without dw), cols_pad_max,
-    # max_fan_stride, dtype -> resident blocks per SM (or -cudaError_t)
-    "dtp_lin_bwd3_occupancy": [_I, _I, _I, _I, _I, _I],
+    # max_fan_stride, hd (0 unfolded), dtype -> resident blocks per SM (or -cudaError_t)
+    "dtp_lin_bwd3_occupancy": [_I, _I, _I, _I, _I, _I, _I],
+    # the radial fold (K7): h [E, hd] and Wl [hd + 1, n_loc] in place of w.
+    # K7-F: x, x_row_stride, sh, W, out, n_edges*, E, d_sh, d_out, gk table
+    # (bwd_tables'), n_gk, terms, coeffs, max_fan_stride, h, hd, Wl, n_loc,
+    # span_max, dtype, stream
+    "dtp_lin_rad_fwd": [_VP, _LL, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _I,
+                        _VP, _I, _VP, _I, _I, _I, _VP],
+    # K7-B: x, x_row_stride, d_x, sh, d_sh, W^T, g, d_out, n_edges*, E, gk
+    # table, n_gk, terms, coeffs, dx, partials, n_parts, dW ++ d[Wr; offset],
+    # w_numel, span_max, cols_pad_max, max_fan_stride, h, hd, Wl, n_loc, dh,
+    # dtype, stream
+    "dtp_lin_rad_bwd": [_VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
+                        _VP, _VP, _I, _VP, _I, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I, _VP],
+    # K7-B3: x, x_row_stride, d_x, sh, d_sh, W^T, g, d_out, n_edges*, E, gk
+    # table, n_gk, terms, coeffs, dx, dsh (each may be null), span_max,
+    # cols_pad_max, max_fan_stride, h, hd, Wl, n_loc, dh, dtype, stream
+    "dtp_lin_rad_bwd3": [_VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
+                         _VP, _VP, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I, _VP],
     # leg (0 x, 1 sh, 2 w), x, x_row_stride, d_x, sh, d_sh, w, d_w, W^T, g, d_out,
     # n_edges*, E, gk table, n_gk, terms, coeffs, dwmap, out, span_max,
     # cols_pad_max, max_fan_stride, dtype, stream

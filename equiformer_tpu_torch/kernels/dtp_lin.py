@@ -23,11 +23,19 @@ group's fan is padded only to a multiple of 4 for vector loads.
 ``dtp_lin_plain`` (einsum TP + the heads' linear maps) and
 ``dtp_lin_bwd_plain`` (the same backward written out per group and term)
 are the plain versions.
+
+The radial fold (K7, JAX's ``EQUIFORMER_TPU_FOLD_RADIAL``): a plan with
+``radial_fold=hd`` takes, in place of ``w``, the radial MLP's last hidden
+activation ``h`` [E, hd] and ``Wrs = [Wr; offset]`` [hd + 1, d_w]
+(``pack_radial``), and the kernels build ``w = h @ Wr + offset`` on chip:
+K7-F ``dtp_lin_rad_fwd`` and K7-B ``dtp_lin_rad_bwd`` (dx, dh, d[Wr;
+offset], dW), with the plain versions ``dtp_lin_rad_plain`` and
+``dtp_lin_rad_bwd_plain``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,14 +65,21 @@ class DTPLinPlan:
     unsimplified TP output.  ``shared_weights`` means ``w`` is one internal
     vector, folded into the rows of ``W`` per call; otherwise ``w`` holds raw
     external per-edge weights, and their fan-in rescale is folded into the
-    CG coefficients (``fold_rescale``).
+    CG coefficients (``fold_rescale``).  ``radial_fold`` (the radial MLP's
+    last hidden width, a multiple of 4) makes the per-edge operand ``(h,
+    [Wr; offset])`` instead of ``w``; it is ignored with shared weights, as
+    in JAX.
     """
 
     def __init__(self, tp: TensorProduct, head_irreps: Sequence[Irreps],
-                 shared_weights: bool = False):
+                 shared_weights: bool = False, radial_fold: Optional[int] = None):
         self.tp = tp
         self.head_irreps = [Irreps(h) for h in head_irreps]
         self.shared_weights = shared_weights
+        self.radial_fold = None if shared_weights else radial_fold
+        if self.radial_fold is not None and (self.radial_fold <= 0 or self.radial_fold % 4):
+            raise ValueError(f"radial_fold {radial_fold}: the hidden width must be a "
+                             f"positive multiple of 4")
         self.fold_rescale = fold_rescale = not shared_weights
         self.d_x = tp.irreps_in1.dim
         self.d_sh = tp.irreps_in2.dim
@@ -282,6 +297,27 @@ class DTPLinPlan:
         self._tables[key] = tabs
         return tabs
 
+    def pack_radial(self, Wr: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+        """``[Wr; offset]`` [hd + 1, d_w] (the TP's own weight order), built
+        with ``torch.cat`` outside the fused op, so autograd splits its
+        gradient into dWr and doffset."""
+        hd = self.radial_fold
+        if hd is None or Wr.shape != (hd, self.d_w) or offset.shape != (self.d_w,):
+            raise ValueError(f"Wr must be [{hd}, {self.d_w}] and offset [{self.d_w}] "
+                             f"for this plan (radial_fold={hd})")
+        return torch.cat([Wr, offset.to(Wr.dtype)[None]])
+
+    def radial_cols(self, device: torch.device) -> torch.Tensor:
+        """int64 [n_loc]: the w columns of each group in the backward tables'
+        local order (``dwmap``), which the folded kernels read [Wr; offset]
+        in; the columns that feed no live group are left out."""
+        key = ("rad", device)
+        cols = self._tables.get(key)
+        if cols is None:
+            cols = self.bwd_tables(device)[3].long()
+            self._tables[key] = cols
+        return cols
+
     @property
     def dw_has_dead_cols(self) -> bool:
         """Whether some w column feeds no live group (its dw stays zero)."""
@@ -410,6 +446,45 @@ def dtp_lin_bwd_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges=None):
     return dx.to(x.dtype), None if dw is None else dw.to(w.dtype), dW
 
 
+def radial_w_plain(h: torch.Tensor, Wrs: torch.Tensor) -> torch.Tensor:
+    """``w = [h, 1] @ [Wr; offset]`` summed in at least fp32 and rounded to
+    h's dtype, where the folded kernels round it (in shared memory) and the
+    unfolded route stores it."""
+    acc = torch.promote_types(h.dtype, torch.float32)
+    return (h.to(acc) @ Wrs[:-1].to(acc) + Wrs[-1].to(acc)).to(h.dtype)
+
+
+def radial_dh_plain(Wrs: torch.Tensor, dw: torch.Tensor, dtype) -> torch.Tensor:
+    """``dh = dw @ Wr^T`` summed in at least fp32, in ``dtype``."""
+    acc = torch.promote_types(dw.dtype, torch.float32)
+    return (dw.to(acc) @ Wrs[:-1].to(acc).T).to(dtype)
+
+
+def radial_dWrs_plain(h: torch.Tensor, dw: torch.Tensor, n_edges=None) -> torch.Tensor:
+    """``d[Wr; offset] = [h, 1]^T @ dw`` over the rows below ``n_edges``, in
+    float32 (float64 for float64 inputs): the ones column gives doffset, so
+    padded rows must add nothing."""
+    acc = torch.promote_types(h.dtype, torch.float32)
+    hx = torch.cat([h.to(acc), torch.ones_like(h[:, :1], dtype=acc)], dim=1)
+    return _zero_past(hx, n_edges).T @ _zero_past(dw.to(acc), n_edges)
+
+
+def dtp_lin_rad_plain(plan: DTPLinPlan, x, sh, h, Wrs, W_flat, n_edges=None):
+    """Plain version of K7-F: ``dtp_lin_plain`` of ``w = radial_w_plain(h,
+    Wrs)`` (w rounded to h's dtype, as the kernel rounds it)."""
+    return dtp_lin_plain(plan, x, sh, radial_w_plain(h, Wrs), W_flat, n_edges)
+
+
+def dtp_lin_rad_bwd_plain(plan: DTPLinPlan, x, sh, h, Wrs, W_flat, g, n_edges=None):
+    """Plain version of K7-B: (dx [E, d_x], dh [E, hd] in h's dtype, d[Wr;
+    offset] [hd + 1, d_w] and dW_flat [w_numel] in float32, or float64 for
+    float64 inputs) for the cotangent ``g`` of ``dtp_lin_rad_plain``.  dz
+    and dw round to the compute dtype here; the kernel keeps them in fp32."""
+    w = radial_w_plain(h, Wrs)
+    dx, dw, dW = dtp_lin_bwd_plain(plan, x, sh, w, W_flat, g, n_edges)
+    return dx, radial_dh_plain(Wrs, dw, h.dtype), radial_dWrs_plain(h, dw, n_edges), dW
+
+
 def _check_n_edges(n_edges, E: int, device) -> torch.Tensor:
     if n_edges is None:
         return torch.full((), E, dtype=torch.int32, device=device)
@@ -419,25 +494,44 @@ def _check_n_edges(n_edges, E: int, device) -> torch.Tensor:
 
 
 def _check_operands(plan: DTPLinPlan, x, sh, w, W_flat):
-    """Shapes, dtypes and devices both kernels take; returns x with a row
-    stride of 0 or d_x and contiguous sh / w / W_flat."""
+    """Shapes, dtypes and devices the kernels take; returns x with a row
+    stride of 0 or d_x and contiguous sh / w / W_flat.  ``w`` is the
+    per-edge w, None (shared weights), or the radial fold's ``(h, Wrs)``,
+    returned as ``(h, Wl)``: Wl is [Wr; offset] with its columns in the
+    backward tables' local order (``plan.radial_cols``), as the folded
+    kernels read it."""
     E = sh.shape[0]
     if x.dim() != 2 or x.shape != (E, plan.d_x) or sh.shape != (E, plan.d_sh):
         raise ValueError(f"bad shapes x {tuple(x.shape)} sh {tuple(sh.shape)}")
     _build.dtype_code(x)
-    if plan.shared_weights:
+    folded = isinstance(w, tuple)
+    if folded:
+        hd = plan.radial_fold
+        if hd is None or w[0].shape != (E, hd) or w[1].shape != (hd + 1, plan.d_w):
+            raise ValueError(f"the radial fold takes h [{E}, {hd}] and [Wr; offset] "
+                             f"[hd + 1, {plan.d_w}] (plan radial_fold={hd})")
+        edge = w
+    elif plan.shared_weights:
         if w is not None:
             raise ValueError("shared weights are folded into W_flat before the kernel")
+        edge = ()
     elif w is None or w.shape != (E, plan.d_w):
         raise ValueError(f"per-edge w must be [{E}, {plan.d_w}]")
+    else:
+        edge = (w,)
     if W_flat.shape != (plan.w_numel,):
         raise ValueError("W_flat does not match the plan")
-    for t in (sh, w, W_flat):
-        if t is not None and (t.dtype != x.dtype or t.device != x.device):
-            raise TypeError("x, sh, w and W must share a dtype and a device")
+    for t in (sh, W_flat, *edge):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError("x, sh, w (or h and [Wr; offset]) and W must share a dtype "
+                            "and a device")
     if x.stride(1) != 1 or (x.stride(0) not in (0, plan.d_x)):
         x = x.contiguous()
-    return x, sh.contiguous(), None if w is None else w.contiguous(), W_flat.contiguous()
+    if folded:
+        w = (w[0].contiguous(), w[1][:, plan.radial_cols(x.device)].contiguous())
+    elif w is not None:
+        w = w.contiguous()
+    return x, sh.contiguous(), w, W_flat.contiguous()
 
 
 def dtp_lin_fwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: torch.Tensor,
@@ -518,6 +612,111 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+RAD_BWD_BLOCKS_PER_SM = 1  # K7-B's shared memory (135 KB at QM9) fits one block per SM
+_WORKSPACE: Dict[torch.device, torch.Tensor] = {}
+
+
+def _workspace(device: torch.device, numel: int) -> torch.Tensor:
+    """One fp32 scratch buffer per device for K7-B's partial rows, grown to
+    the largest call and reused: kernels on one stream run in order, and the
+    reduction reads the rows before the next launch writes them."""
+    buf = _WORKSPACE.get(device)
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty((numel,), dtype=torch.float32, device=device)
+        _WORKSPACE[device] = buf
+    return buf[:numel]
+
+
+def dtp_lin_rad_fwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, h: torch.Tensor,
+                    Wrs: torch.Tensor, W_flat: torch.Tensor, n_edges=None) -> torch.Tensor:
+    """K7-F: K1 with ``w = [h, 1] @ Wrs`` built in the kernel, [E, d_out].
+    ``h`` [E, hd] is the radial MLP's last hidden activation and ``Wrs`` the
+    plan's ``pack_radial(Wr, offset)`` [hd + 1, d_w].  CPU tensors take
+    ``dtp_lin_rad_plain``; CUDA tensors launch the kernel (float32 or
+    bfloat16) or raise."""
+    if x.device.type == "cpu":
+        return dtp_lin_rad_plain(plan, x, sh, h, Wrs, W_flat, n_edges)
+    E = sh.shape[0]
+    x, sh, (h, Wl), W_flat = _check_operands(plan, x, sh, (h, Wrs), W_flat)
+    n_edges = _check_n_edges(n_edges, E, x.device)
+    gk, terms, coeffs, _, _, span_max, _ = plan.bwd_tables(x.device)
+    out = torch.empty((E, plan.d_out), dtype=x.dtype, device=x.device)
+    if E == 0:
+        return out
+    err = _build.library().dtp_lin_rad_fwd(
+        _build.ptr(x), x.stride(0), _build.ptr(sh), _build.ptr(W_flat), _build.ptr(out),
+        _build.ptr(n_edges), E, plan.d_sh, plan.d_out, _build.ptr(gk), gk.shape[0],
+        _build.ptr(terms), _build.ptr(coeffs), plan.max_fan_stride, _build.ptr(h),
+        plan.radial_fold, _build.ptr(Wl), Wl.shape[1], span_max, _build.dtype_code(x),
+        _build.stream_ptr(),
+    )
+    _build.check(err, "dtp_lin_rad_fwd")
+    dtp_lin_rad_fwd.launches += 1
+    return out
+
+
+def dtp_lin_rad_bwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, h: torch.Tensor,
+                    Wrs: torch.Tensor, W_flat: torch.Tensor, g: torch.Tensor, n_edges=None):
+    """K7-B: (dx [E, d_x], dh [E, hd], d[Wr; offset] [hd + 1, d_w] float32,
+    dW_flat [w_numel] float32) for the cotangent ``g`` [E, d_out] of
+    ``dtp_lin_rad_fwd`` on the same operands, in one launch (and the
+    fixed-order sum of its partial rows); dw stays on chip.  CPU tensors
+    take ``dtp_lin_rad_bwd_plain``; CUDA tensors launch the kernel (float32
+    or bfloat16) or raise."""
+    if x.device.type == "cpu":
+        return dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W_flat, g, n_edges)
+    E = sh.shape[0]
+    x, sh, (h, Wl), W_flat = _check_operands(plan, x, sh, (h, Wrs), W_flat)
+    if g.shape != (E, plan.d_out) or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"cotangent must be [{E}, {plan.d_out}] in x's dtype and device")
+    g = g.contiguous()
+    n_edges = _check_n_edges(n_edges, E, x.device)
+    gk, terms, coeffs, _, wt_index, span_max, cols_pad_max = plan.bwd_tables(x.device)
+    dev, hd, n_loc = x.device, plan.radial_fold, Wl.shape[1]
+    dx = torch.empty((E, plan.d_x), dtype=x.dtype, device=dev)
+    dh = torch.empty((E, hd), dtype=x.dtype, device=dev)
+    row = plan.w_numel + (hd + 1) * n_loc  # a partial row: dW, then d[Wr; offset]
+    red = torch.zeros((row,), dtype=torch.float32, device=dev)
+    if E > 0:
+        WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+        n_parts = min(-(-E // BWD_TILE), RAD_BWD_BLOCKS_PER_SM * _sm_count(dev))
+        part = _workspace(dev, n_parts * row)
+        err = _build.library().dtp_lin_rad_bwd(
+            _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(WT),
+            _build.ptr(g), plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0],
+            _build.ptr(terms), _build.ptr(coeffs), _build.ptr(dx), _build.ptr(part), n_parts,
+            _build.ptr(red), plan.w_numel, span_max, cols_pad_max, plan.max_fan_stride,
+            _build.ptr(h), hd, _build.ptr(Wl), n_loc, _build.ptr(dh), _build.dtype_code(x),
+            _build.stream_ptr(),
+        )
+        _build.check(err, "dtp_lin_rad_bwd")
+        dtp_lin_rad_bwd.launches += 1
+    dWrs = torch.zeros((hd + 1, plan.d_w), dtype=torch.float32, device=dev)
+    dWrs[:, plan.radial_cols(dev)] = red[plan.w_numel:].view(hd + 1, n_loc)
+    return dx, dh, dWrs, red[: plan.w_numel]
+
+
+dtp_lin_rad_fwd.launches = 0
+dtp_lin_rad_bwd.launches = 0
+
+
+class _DTPLinRad(torch.autograd.Function):
+    """K7-F forward, K7-B backward; gradients for x, h, [Wr; offset] and
+    W_flat (not sh)."""
+
+    @staticmethod
+    def forward(ctx, plan, x, sh, h, Wrs, W_flat, n_edges):
+        ctx.plan = plan
+        ctx.save_for_backward(x, sh, h, Wrs, W_flat, n_edges)
+        return dtp_lin_rad_fwd(plan, x, sh, h, Wrs, W_flat, n_edges)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, sh, h, Wrs, W_flat, n_edges = ctx.saved_tensors
+        dx, dh, dWrs, dW = dtp_lin_rad_bwd(ctx.plan, x, sh, h, Wrs, W_flat, g, n_edges)
+        return None, dx, None, dh, dWrs.to(Wrs.dtype), dW.to(W_flat.dtype), None
+
+
 class _DTPLin(torch.autograd.Function):
     """K1 forward, K2 backward; gradients for x, w and W_flat (not sh)."""
 
@@ -543,11 +742,15 @@ def dtp_lin(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor
     which is folded into the rows of ``W_flat`` here, outside the autograd
     op, so autograd carries the folded dW back to W and w.  The forward is
     K1 (``dtp_lin_fwd``), the backward K2 (``dtp_lin_bwd``); both take their
-    plain versions on CPU tensors.  Raises if ``sh`` needs a gradient (the
-    backward computes no dsh)."""
+    plain versions on CPU tensors.  On a plan with ``radial_fold``, ``w``
+    may be the pair ``(h, plan.pack_radial(Wr, offset))``: then K7-F and
+    K7-B, differentiable in x, h, [Wr; offset] and W_flat.  Raises if ``sh``
+    needs a gradient (the backward computes no dsh)."""
     if sh.requires_grad:
         raise ValueError("dtp_lin computes no gradient for sh (force models take "
                          "kernels/dtp_lin_ho.py: higher_order_grads=True)")
+    if isinstance(w, tuple):
+        return _DTPLinRad.apply(plan, x, sh, *w, W_flat, n_edges)
     w, W_flat = fold_shared_weights(plan, w, W_flat)
     return _DTPLin.apply(plan, x, sh, w, W_flat, n_edges)
 

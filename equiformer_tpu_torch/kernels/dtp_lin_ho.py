@@ -35,6 +35,12 @@ backward of each calls other members through ``apply``, so
 stays on the fused kernels.  A shared ``w`` is folded into ``W`` outside the
 ops (``fold_shared_weights``, plain torch), which carries the folded dW back
 to ``W`` and ``w`` at every order.
+
+With the radial fold (JAX's ``EQUIFORMER_TPU_FOLD_RADIAL_HO``) the edge
+operand is ``(h, [Wr; offset])`` and ``_RadHO`` is the op: K7-F forward,
+K7-B3 backward (``dtp_lin_rad_bwd3``: dx, dsh and dh in one pass), first
+order only; its grad-of-grad and the gradients of [Wr; offset] and W need
+the folded leg kernels (K7-L, K7-LW, K7-Wr), not ported yet.
 """
 
 from __future__ import annotations
@@ -52,9 +58,12 @@ from .dtp_lin import (
     _zero_past,
     dtp_lin_fwd,
     dtp_lin_legW_plain,
+    dtp_lin_rad_fwd,
     fold_shared_weights,
     plain_dz,
     plain_transposes,
+    radial_dh_plain,
+    radial_w_plain,
 )
 
 LEGS = ("out", "x", "sh", "w", "W")  # canonical leg order of the op
@@ -138,18 +147,67 @@ dtp_lin_bwd3.launches = 0
 
 
 def bwd3_occupancy(plan: DTPLinPlan, dtype: torch.dtype, need_dx: bool = True,
-                   need_dw: bool = True) -> int:
-    """Resident blocks per SM of the K5a kernel at this plan's shared memory
+                   need_dw: bool = True, folded: bool = False) -> int:
+    """Resident blocks per SM of the K5a kernel (or with ``folded`` of
+    K7-B3, which always keeps the dw tile) at this plan's shared memory
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
     *_, span_max, cols_pad_max = bwd3_tables(plan, torch.device("cpu"))
     code = _build.dtype_code(torch.empty((), dtype=dtype))
+    keep_dw = folded or (need_dw and not plan.shared_weights)
     blocks = _build.library().dtp_lin_bwd3_occupancy(
-        plan.d_x if need_dx else 0, plan.d_sh,
-        span_max if (need_dw and not plan.shared_weights) else 0, cols_pad_max,
-        plan.max_fan_stride, code)
+        plan.d_x if need_dx else 0, plan.d_sh, span_max if keep_dw else 0, cols_pad_max,
+        plan.max_fan_stride, plan.radial_fold if folded else 0, code)
     if blocks < 0:
         _build.check(-blocks, "dtp_lin_bwd3_occupancy")
     return blocks
+
+
+def dtp_lin_rad_bwd3_plain(plan: DTPLinPlan, x, sh, h, Wrs, W_flat, g, n_edges=None):
+    """Plain version of K7-B3: (dx [E, d_x], dsh [E, d_sh], dh [E, hd]) for
+    the cotangent ``g`` of ``dtp_lin_rad_plain`` on the same operands: K5a's
+    plain version on ``w = radial_w_plain(h, Wrs)``, then ``dh = dw Wr^T``."""
+    dx, dsh, dw = dtp_lin_bwd3_plain(plan, x, sh, radial_w_plain(h, Wrs), W_flat, g, n_edges)
+    return dx, dsh, radial_dh_plain(Wrs, dw, h.dtype)
+
+
+def dtp_lin_rad_bwd3(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, h: torch.Tensor,
+                     Wrs: torch.Tensor, W_flat: torch.Tensor, g: torch.Tensor, n_edges=None,
+                     need_dx: bool = True, need_dsh: bool = True):
+    """K7-B3: (dx, dsh, dh [E, hd]) for the cotangent ``g`` [E, d_out] of
+    ``dtp_lin_rad_fwd`` on the same operands, dx and dsh None when not
+    needed; w is rebuilt and dw contracted against Wr on chip.  CPU tensors
+    take ``dtp_lin_rad_bwd3_plain``; CUDA tensors launch the kernel (float32
+    or bfloat16) or raise.  One launch per call."""
+    if x.device.type == "cpu":
+        dx, dsh, dh = dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W_flat, g, n_edges)
+        return dx if need_dx else None, dsh if need_dsh else None, dh
+    E = sh.shape[0]
+    x, sh, (h, Wl), W_flat = _check_operands(plan, x, sh, (h, Wrs), W_flat)
+    if g.shape != (E, plan.d_out) or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"cotangent must be [{E}, {plan.d_out}] in x's dtype and device")
+    g = g.contiguous()
+    n_edges = _check_n_edges(n_edges, E, x.device)
+    gk, terms, coeffs, _, wt_index, span_max, cols_pad_max = bwd3_tables(plan, x.device)
+    empty = lambda d: torch.empty((E, d), dtype=x.dtype, device=x.device)  # noqa: E731
+    dx = empty(plan.d_x) if need_dx else None
+    dsh = empty(plan.d_sh) if need_dsh else None
+    dh = empty(plan.radial_fold)
+    if E == 0:
+        return dx, dsh, dh
+    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+    err = _build.library().dtp_lin_rad_bwd3(
+        _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(WT),
+        _build.ptr(g), plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0],
+        _build.ptr(terms), _build.ptr(coeffs), _build.ptr(dx), _build.ptr(dsh), span_max,
+        cols_pad_max, plan.max_fan_stride, _build.ptr(h), plan.radial_fold, _build.ptr(Wl),
+        Wl.shape[1], _build.ptr(dh), _build.dtype_code(x), _build.stream_ptr(),
+    )
+    _build.check(err, "dtp_lin_rad_bwd3")
+    dtp_lin_rad_bwd3.launches += 1
+    return dx, dsh, dh
+
+
+dtp_lin_rad_bwd3.launches = 0
 
 
 def _check_edge_leg(plan: DTPLinPlan, out_leg: str) -> None:
@@ -367,6 +425,40 @@ class _Bwd3(torch.autograd.Function):
         return (None, None) + tuple(grads.get(leg) for leg in LEGS) + (None, None, None)
 
 
+_FOLD_NEXT = ("the radial-folded force op has K7-F and K7-B3 only: {what} needs the "
+              "folded leg kernels K7-L, K7-LW and K7-Wr, which are not ported yet "
+              "(build the model without radial_fold_ho)")
+
+
+class _RadHO(torch.autograd.Function):
+    """The radial-folded force op: K7-F forward, K7-B3 backward (dx, dsh,
+    dh); first order only.  Force evaluation differentiates the energy with
+    respect to positions with detached parameters, which is all this op
+    supports; a ``create_graph=True`` backward (force training) or a
+    gradient of [Wr; offset] or W raises."""
+
+    @staticmethod
+    def forward(ctx, plan, n_edges, x, sh, h, Wrs, W):
+        ctx.plan = plan
+        ctx.save_for_backward(n_edges, x, sh, h, Wrs, W)
+        return dtp_lin_rad_fwd(plan, x, sh, h, Wrs, W, n_edges)
+
+    @staticmethod
+    def backward(ctx, g):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(_FOLD_NEXT.format(what="create_graph=True"))
+        need = ctx.needs_input_grad
+        if need[5] or need[6]:
+            raise NotImplementedError(_FOLD_NEXT.format(
+                what="the gradient of [Wr; offset] or of the head weights"))
+        if not any(need[2:5]):
+            return (None,) * 7
+        n_edges, x, sh, h, Wrs, W = ctx.saved_tensors
+        dx, dsh, dh = dtp_lin_rad_bwd3(ctx.plan, x, sh, h, Wrs, W, g, n_edges,
+                                       need_dx=need[2], need_dsh=need[3])
+        return None, None, dx, dsh, dh if need[4] else None, None, None
+
+
 def dtp_lin_ho(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
                W_flat: torch.Tensor, n_edges=None) -> torch.Tensor:
     """Fused DTP + linear heads of the force models, differentiable to any
@@ -374,6 +466,10 @@ def dtp_lin_ho(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w: torch.Ten
     as ``dtp_lin``; a shared ``w`` is folded into ``W_flat`` here, outside
     the autograd ops.  The forward is K1; the backward K5a for the edge legs
     (one K5b leg when only one is needed) and K5c for ``W_flat``; under
-    ``create_graph=True`` their own backwards are further legs."""
+    ``create_graph=True`` their own backwards are further legs.  On a plan
+    with ``radial_fold``, ``w`` may be ``(h, plan.pack_radial(Wr, offset))``:
+    then the op is ``_RadHO`` (first order in x, sh and h)."""
+    if isinstance(w, tuple):
+        return _RadHO.apply(plan, n_edges, x, sh, *w, W_flat)
     w, W_flat = fold_shared_weights(plan, w, W_flat)
     return _Leg.apply(plan, "out", n_edges, None, x, sh, w, W_flat)

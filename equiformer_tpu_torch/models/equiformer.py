@@ -22,7 +22,12 @@ route (the T / R primitives of ``kernels/dtp.py``: JAX's
 ``EQUIFORMER_TPU_FUSED_DTPLIN=0``, for force models also
 ``EQUIFORMER_TPU_FUSED_HO=0``), and ``dtp_first_order_bwd`` there gives
 each DTP the one-launch first-order backward (``EQUIFORMER_TPU_FUSED_BWD=1``,
-without ``higher_order_grads`` only); the parameters are the same.
+without ``higher_order_grads`` only).  ``radial_fold`` (JAX's
+``EQUIFORMER_TPU_FOLD_RADIAL=1``) folds the radial MLPs' final linear layers
+of the per-edge-weight sites (the 6 ``sep_act`` and the edge degree) into the
+fused op's kernels (K7); force models fold only with ``radial_fold_ho`` too
+(``EQUIFORMER_TPU_FOLD_RADIAL_HO=1``), and then support force evaluation,
+not force training.  The parameters are the same on every route.
 
 ``module.training`` plays the role of JAX's ``deterministic=False``: alpha
 dropout on the attention weights, and the equivariant dropouts and drop path
@@ -75,7 +80,8 @@ class GraphAttention(nn.Module):
                  fc_neurons: Tuple[int, ...], irreps_head, num_heads: int,
                  alpha_drop: float = 0.1, proj_drop: float = 0.1,
                  higher_order_grads: bool = True, fused_dtp_lin: bool = True,
-                 dtp_first_order_bwd: bool = False):
+                 dtp_first_order_bwd: bool = False, radial_fold: bool = False,
+                 radial_fold_ho: bool = False):
         super().__init__()
         self.alpha_drop = alpha_drop
         self.higher_order_grads = higher_order_grads
@@ -91,7 +97,8 @@ class GraphAttention(nn.Module):
         irreps_alpha = Irreps(f"{mul_alpha}x0e")
         sh = Irreps(irreps_edge_attr)
         route = dict(higher_order_grads=higher_order_grads, fused_dtp_lin=fused_dtp_lin,
-                     dtp_first_order_bwd=dtp_first_order_bwd)
+                     dtp_first_order_bwd=dtp_first_order_bwd, radial_fold=radial_fold,
+                     radial_fold_ho=radial_fold_ho)
         self.sep_act = SeparableFCTP(pre, sh, pre, fc_neurons=fc_neurons,
                                      use_activation=True, internal_weights=False,
                                      extra_head_irreps=(irreps_alpha,), **route)
@@ -114,7 +121,7 @@ class GraphAttention(nn.Module):
         H = self.num_heads
         message = gather_add(self.merge_src(node_input), self.merge_dst(node_input),
                              edges.src, edges.dst, num_nodes, rev=edges.rev)
-        w = self.sep_act.dtp_rad(edge_scalars)
+        w = self.sep_act.dtp_weights(edge_scalars)
         # one fused TP evaluates both heads on the unsimplified message: the
         # gate input and the attention scalars
         value, alpha = self.sep_act.dtp_lin(message, edge_attr, w,
@@ -158,14 +165,16 @@ class TransBlock(nn.Module):
                  irreps_node_output, fc_neurons, irreps_head, num_heads: int,
                  irreps_mlp_mid=None, alpha_drop: float = 0.1, proj_drop: float = 0.1,
                  drop_path_rate: float = 0.0, higher_order_grads: bool = True,
-                 fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False):
+                 fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False,
+                 radial_fold: bool = False, radial_fold_ho: bool = False):
         super().__init__()
         irreps_in = Irreps(irreps_node_input)
         irreps_out = Irreps(irreps_node_output)
         self.norm_1 = EquivariantLayerNorm(irreps_in)
         self.ga = GraphAttention(irreps_in, irreps_edge_attr, irreps_in, fc_neurons,
                                  irreps_head, num_heads, alpha_drop, proj_drop,
-                                 higher_order_grads, fused_dtp_lin, dtp_first_order_bwd)
+                                 higher_order_grads, fused_dtp_lin, dtp_first_order_bwd,
+                                 radial_fold, radial_fold_ho)
         self.norm_2 = EquivariantLayerNorm(irreps_in)
         self.ffn = FeedForwardNetwork(irreps_in, irreps_node_attr, irreps_out, irreps_mlp_mid,
                                       proj_drop)
@@ -222,6 +231,8 @@ class GraphAttentionTransformer(nn.Module):
         higher_order_grads: bool = True,
         fused_dtp_lin: bool = True,
         dtp_first_order_bwd: bool = False,
+        radial_fold: bool = False,
+        radial_fold_ho: bool = False,
         seed: int = 0,
     ):
         super().__init__()
@@ -239,7 +250,8 @@ class GraphAttentionTransformer(nn.Module):
 
         self.rbf = make_rbf(basis_type, number_of_basis, max_radius)
         self.atom_embed = NodeEmbedding(emb, max_atom_type)
-        route = (higher_order_grads, fused_dtp_lin, dtp_first_order_bwd)
+        route = (higher_order_grads, fused_dtp_lin, dtp_first_order_bwd, radial_fold,
+                 radial_fold_ho)
         self.edge_deg_embed = EdgeDegreeEmbedding(emb, self.irreps_sh, fc, avg_degree, *route)
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransBlock(

@@ -68,7 +68,7 @@ def softmax_dropout_combine(alpha: torch.Tensor, value: torch.Tensor, dst: torch
     if training and alpha_drop != 0.0:
         dropmul = dropout_multiplier(rng, alpha.shape, alpha_drop, alpha.dtype, alpha.device)
     if higher_order:
-        p = segment_softmax(alpha, dst, num_nodes, mask=mask)
+        p = segment_softmax(alpha, dst, num_nodes, mask=mask, higher_order=True)
         if dropmul is not None:
             p = p * dropmul
         return segment_sum(value * p[..., None], dst, num_nodes, mask=mask)

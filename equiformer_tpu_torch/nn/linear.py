@@ -129,9 +129,16 @@ class ScalarMLP(nn.Module):
                     d.bias.zero_()
                     getattr(self, f"ln{i}").reset_parameters()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fold_final: bool = False):
+        """The MLP's output, or with ``fold_final`` the last hidden
+        activation and the final kernel ``[fan, out]`` (``dense{n-1}.weight``
+        transposed, in x's dtype) for a caller that applies it inside a
+        fused kernel (JAX's ``ScalarMLP(fold_final=True)``); the parameters
+        and their gradients are the same either way."""
         for i in range(self.n):
             d = getattr(self, f"dense{i}")
+            if fold_final and i == self.n - 1:
+                return x, d.weight.to(x.dtype).t()
             x = nn.functional.linear(
                 x, d.weight.to(x.dtype), None if d.bias is None else d.bias.to(x.dtype))
             if i < self.n - 1:

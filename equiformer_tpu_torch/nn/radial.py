@@ -32,7 +32,15 @@ class RadialProfile(nn.Module):
         with torch.no_grad():
             self.offset.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fold_final: bool = False):
+        """Per-edge weights ``net(x) + offset``, or with ``fold_final`` the
+        triple ``(h, Wr, offset)`` (last hidden activation, final kernel,
+        offset, in x's dtype) that a radial-folded fused op turns into
+        ``h @ Wr + offset`` inside its kernel (JAX's
+        ``RadialProfile(fold_final=True)``)."""
+        if fold_final:
+            h, Wr = self.net(x, fold_final=True)
+            return h, Wr, self.offset.to(x.dtype)
         return self.net(x) + self.offset.to(x.dtype)
 
 

@@ -18,7 +18,10 @@ Counterparts of ``equiformer_tpu.nn.tp_modules``:
   without it ``kernels/dtp_lin.py`` (K1 forward, K2 backward: dx, dw and the
   head weights' gradient).  With ``fused_dtp_lin=False`` the TP is
   ``DTPLayer`` and each head an ``IrrepsLinear`` on its output, as JAX's
-  ``SeparableFCTP.dtp_lin`` does when the fused op is off.  The CUDA kernels
+  ``SeparableFCTP.dtp_lin`` does when the fused op is off.  With
+  ``radial_fold`` the radial MLP's final linear layer runs inside the fused
+  op's kernels (K7): ``dtp_weights`` returns ``(h, [Wr; offset])`` and
+  ``w = h @ Wr + offset`` never reaches device memory.  The CUDA kernels
   run on the card, their plain versions on the CPU;
 * ``NodeEmbedding`` / ``EdgeDegreeEmbedding``.
 
@@ -68,6 +71,19 @@ def _fused_op(fused_dtp_lin: bool, higher_order_grads: bool):
     if not fused_dtp_lin:
         return None
     return dtp_lin_ho if higher_order_grads else dtp_lin
+
+
+def _radial_fold(fc_neurons, internal_weights: bool, fused_dtp_lin: bool,
+                 higher_order_grads: bool, radial_fold: bool, radial_fold_ho: bool):
+    """The radial MLP's last hidden width when the site folds the MLP's final
+    linear layer into the fused op, else None: JAX's rule
+    (``_make_fused_plan``): only on the fused route, only at external-weight
+    sites with a radial MLP, and on the force route only with both switches."""
+    if not (fused_dtp_lin and radial_fold and fc_neurons is not None and not internal_weights):
+        return None
+    if higher_order_grads and not radial_fold_ho:
+        return None
+    return fc_neurons[-1]
 
 
 class FCTP(nn.Module):
@@ -159,15 +175,21 @@ class SeparableFCTP(nn.Module):
     for force models also ``EQUIFORMER_TPU_FUSED_HO=0``) runs the TP unfused
     (``DTPLayer``) and the heads after it; ``dtp_first_order_bwd`` (JAX's
     ``EQUIFORMER_TPU_FUSED_BWD=1``) then takes the TP's backward in one
-    K6-FB launch, only without ``higher_order_grads``.  The parameters are
-    the same on either route.
+    K6-FB launch, only without ``higher_order_grads``.  ``radial_fold``
+    (JAX's ``EQUIFORMER_TPU_FOLD_RADIAL=1``) folds the radial MLP's final
+    linear layer into the fused op at an external-weight site (K7-F and
+    K7-B); with ``higher_order_grads`` it also needs ``radial_fold_ho``
+    (``EQUIFORMER_TPU_FOLD_RADIAL_HO=1``: K7-F and K7-B3, force evaluation
+    only).  Both default off, as in JAX.  The parameters are the same on
+    every route.
     """
 
     def __init__(self, irreps_node, irreps_edge, irreps_out,
                  fc_neurons: Optional[Tuple[int, ...]] = None,
                  use_activation: bool = False, internal_weights: bool = False,
                  extra_head_irreps: Sequence = (), higher_order_grads: bool = True,
-                 fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False):
+                 fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False,
+                 radial_fold: bool = False, radial_fold_ho: bool = False):
         super().__init__()
         irreps_out = Irreps(irreps_out)
         self.fused_op = _fused_op(fused_dtp_lin, higher_order_grads)
@@ -191,6 +213,8 @@ class SeparableFCTP(nn.Module):
             self.plan = DTPLinPlan(
                 tp, [irreps_lin_output] + [Irreps(h) for h in extra_head_irreps],
                 shared_weights=internal_weights,
+                radial_fold=_radial_fold(fc_neurons, internal_weights, fused_dtp_lin,
+                                         higher_order_grads, radial_fold, radial_fold_ho),
             )
         self.gate = None
         if use_activation:
@@ -200,8 +224,9 @@ class SeparableFCTP(nn.Module):
     def dtp_lin(self, node_on_edge, edge_attr, weights, extra_heads=(), n_edges=None):
         """TP -> (lin, *extra heads), as one fused op on the fused route.
         Returns one tensor without extra heads, else the list of per-head
-        outputs.  The unfused route computes every row (``n_edges`` is the
-        fused kernels' tile skipping)."""
+        outputs.  ``weights`` is what ``dtp_weights`` returns.  The unfused
+        route computes every row (``n_edges`` is the fused kernels' tile
+        skipping)."""
         heads = [self.lin] + list(extra_heads)
         if len(heads) != 1 + self.n_extra_heads:
             raise ValueError("extra_heads must match extra_head_irreps")
@@ -218,10 +243,19 @@ class SeparableFCTP(nn.Module):
         outs = [h.add_bias(o) for h, o in zip(heads, self.plan.split_output(out))]
         return outs if extra_heads else outs[0]
 
+    def dtp_weights(self, edge_scalars):
+        """The per-edge TP weights [E, weight_numel], or on a radial-folded
+        site the pair ``(h, [Wr; offset])`` that the fused op takes in their
+        place (JAX's ``SeparableFCTP.dtp_weights``)."""
+        if self.plan is not None and self.plan.radial_fold is not None:
+            h, Wr, offset = self.dtp_rad(edge_scalars, fold_final=True)
+            return h, self.plan.pack_radial(Wr, offset)
+        return self.dtp_rad(edge_scalars)
+
     def forward(self, node_on_edge, edge_attr, edge_scalars=None, n_edges=None):
         w = None
         if self.fc_neurons is not None and edge_scalars is not None:
-            w = self.dtp_rad(edge_scalars)
+            w = self.dtp_weights(edge_scalars)
         out = self.dtp_lin(node_on_edge, edge_attr, w, n_edges=n_edges)
         if self.gate is not None:
             out = self.gate(out)
@@ -247,11 +281,14 @@ class EdgeDegreeEmbedding(nn.Module):
     """Constant scalar -> linear -> DTP with the SH, weighted by a radial MLP
     -> linear -> scaled scatter onto destinations.  The DTP and ``proj`` are
     one fused op unless ``fused_dtp_lin=False`` (then ``dw`` and ``proj``,
-    with ``dtp_first_order_bwd`` as in ``SeparableFCTP``)."""
+    with ``dtp_first_order_bwd`` as in ``SeparableFCTP``); ``radial_fold``
+    and ``radial_fold_ho`` fold ``rad``'s final linear layer into it as in
+    ``SeparableFCTP``."""
 
     def __init__(self, irreps_out, irreps_edge, fc_neurons: Tuple[int, ...],
                  avg_degree: float, higher_order_grads: bool = True,
-                 fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False):
+                 fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False,
+                 radial_fold: bool = False, radial_fold_ho: bool = False):
         super().__init__()
         irreps_out = Irreps(irreps_out)
         self.avg_degree = avg_degree
@@ -262,14 +299,22 @@ class EdgeDegreeEmbedding(nn.Module):
         tp = self.dw.plan
         self.rad = RadialProfile(fc_neurons[0], tuple(fc_neurons[1:]) + (tp.weight_numel,))
         self.proj = IrrepsLinear(tp.irreps_out, irreps_out)
-        self.plan = DTPLinPlan(tp, [irreps_out]) if self.fused_op is not None else None
+        self.plan = None
+        if self.fused_op is not None:
+            self.plan = DTPLinPlan(tp, [irreps_out], radial_fold=_radial_fold(
+                fc_neurons, False, fused_dtp_lin, higher_order_grads, radial_fold,
+                radial_fold_ho))
 
     def forward(self, edge_attr, edge_scalars, edge_dst, edge_mask, num_nodes: int):
         # every node's expanded feature is the same linear image of the
         # constant 1, so the per-edge gather is a row broadcast (stride 0)
         E = edge_dst.shape[0]
         feat1 = self.exp(torch.ones((1, 1), dtype=edge_attr.dtype, device=edge_attr.device))
-        w = self.rad(edge_scalars)
+        if self.plan is not None and self.plan.radial_fold is not None:
+            h, Wr, offset = self.rad(edge_scalars, fold_final=True)
+            w = (h, self.plan.pack_radial(Wr, offset))
+        else:
+            w = self.rad(edge_scalars)
         if self.fused_op is None:
             edge_feat = self.proj(self.dw(feat1, edge_attr, w))
         else:

@@ -1,7 +1,7 @@
 """Where the time of an eval forward, a training step or a force evaluation goes, on one GPU.
 
-    python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17 | --md17-train] [--unfused]
-        [--out FILE]
+    python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17 | --md17-train]
+        [--unfused | --radial-fold] [--out FILE]
 
 Builds ``graph_attention_transformer_nonlinear_l2`` at full width with a
 seeded init, on 4 batches of 128 QM9-like graphs (30 node slots each,
@@ -18,8 +18,12 @@ and forces); with ``--md17-train`` the unit is one step of
 0.999: the forward, the force pass with ``create_graph=True`` and the
 grad-of-grad).  ``--unfused`` builds the model with ``fused_dtp_lin=False``:
 every DTP call site on the T / R primitives (K6) with the linear heads
-after it, instead of the fused DTP + linear op.  For float32 and bfloat16,
-per unit:
+after it, instead of the fused DTP + linear op.  ``--radial-fold`` builds
+it with ``radial_fold=True`` (and for ``--md17`` also ``radial_fold_ho``):
+the radial MLPs' final linear layers of the 7 per-edge-weight sites run
+inside the fused op (K7-F forward; K7-B, or K7-B3 for the force
+evaluation, backward); the folded force op has no grad-of-grad yet, so
+``--md17-train`` does not take it.  For float32 and bfloat16, per unit:
 
 * ``wall_ms``: one pass over the batches, ending in a synchronize, divided
   by the batch count (median of 5 passes, no profiler);
@@ -29,7 +33,8 @@ per unit:
   the kernel, memcpy and memset intervals), ``launches`` (kernels), and the
   12 kernels with the most device time: [name, ms, calls] per unit;
 * ``idle_share``: 1 - device_busy_ms / wall_ms, the share of the unprofiled
-  wall time in which the device has nothing to run.
+  wall time in which the device has nothing to run;
+* ``peak_mib``: ``torch.cuda.max_memory_allocated`` over the wall passes.
 
 Prints the card's name and power limit, then the report as JSON (also
 written to ``--out``).  The traces land in ``build/profile/``.
@@ -108,6 +113,7 @@ def profile(run, batches, tag: str) -> dict:
     for b in batches:  # warm-up
         run(b)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(5):
         t = time.perf_counter()
@@ -115,6 +121,7 @@ def profile(run, batches, tag: str) -> dict:
             run(b)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) / n * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**20
     enqueue = []
     for _ in range(3):
         for b in batches:
@@ -133,7 +140,7 @@ def profile(run, batches, tag: str) -> dict:
     wall = statistics.median(walls)
     trace = trace_summary(path, n)
     return {"wall_ms": wall, "wall_ms_passes": walls, "graphs_per_s": graphs * 1e3 / wall,
-            "enqueue_ms": statistics.median(enqueue),
+            "enqueue_ms": statistics.median(enqueue), "peak_mib": peak,
             "idle_share": 1.0 - trace["device_busy_ms"] / wall, **trace}
 
 
@@ -170,10 +177,18 @@ def main() -> int:
                           help="profile MD17 energy + force evaluations")
     unit_arg.add_argument("--md17-train", action="store_true",
                           help="profile MD17 energy + force training steps")
-    ap.add_argument("--unfused", action="store_true",
-                    help="build the model with fused_dtp_lin=False (the DTP on K6)")
+    route_arg = ap.add_mutually_exclusive_group()
+    route_arg.add_argument("--unfused", action="store_true",
+                           help="build the model with fused_dtp_lin=False (the DTP on K6)")
+    route_arg.add_argument("--radial-fold", action="store_true",
+                           help="build the model with radial_fold=True (and radial_fold_ho "
+                                "for --md17): the radial MLPs' last layers inside the fused "
+                                "op (K7)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
+    if args.radial_fold and args.md17_train:
+        ap.error("--radial-fold has no force training yet (the folded leg kernels K7-L, "
+                 "K7-LW, K7-Wr are not ported)")
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -198,14 +213,16 @@ def main() -> int:
     make = model_entrypoint(model_name)
     unit = ("train" if args.train else "md17" if args.md17
             else "md17_train" if args.md17_train else "eval")
-    route = "unfused" if args.unfused else "fused"
+    route = "unfused" if args.unfused else "fold" if args.radial_fold else "fused"
+    switches = {"fused_dtp_lin": not args.unfused}
+    if args.radial_fold:
+        switches.update(radial_fold=True, radial_fold_ho=md17)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "model": model_name, "unit": unit, "route": route, "batch": batch, "batches": N_BATCHES,
               "real_edges": counts, "max_edges": max_edges}
     for name in ("float32", "bfloat16"):
         model = make(max_edges=max_edges, nodes_per_graph=slots, seed=SEED, device=dev,
-                     compute_dtype=None if name == "float32" else name,
-                     fused_dtp_lin=not args.unfused)
+                     compute_dtype=None if name == "float32" else name, **switches)
         if args.train:
             run = train_unit(model)
         elif args.md17:

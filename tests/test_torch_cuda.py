@@ -569,3 +569,126 @@ def test_reduced_unfused_md17_on_card_matches_cpu(dev):
     scale = max(float(p.abs().max()) for p in pc.values())
     assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-3 * scale
     assert mg == mg2 and all(torch.equal(pg[n], pg2[n]) for n in pg)
+
+
+# The radial fold (K7): w = [h, 1] @ [Wr; offset] built in the kernel.
+# (irreps, SH, heads, radial hidden width): the QM9 sep_act plan at small
+# widths, a plan whose w columns partly feed no head, and an L3 sep_act plan
+RAD_PLANS = {
+    "two-head": (IRR, SH, ["14x0e+4x1e+2x2e", "6x0e"], 16),
+    "dead-w-cols": (IRR, SH, ["5x0e+3x1e"], 8),
+    "l3": (L3_IRR, L3_SH, ["36x0e+8x1e+8x2e+4x3e", "8x0e"], 16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("plan_name", list(RAD_PLANS))
+def test_radial_fold_kernels_match_plain(dev, plan_name, dtype):
+    """K7-F, K7-B and K7-B3 against dtp_lin_rad_plain, dtp_lin_rad_bwd_plain
+    and dtp_lin_rad_bwd3_plain on the same operands, with n_edges below E
+    (the padded rows get zeros and add nothing to d[Wr; offset]) and, for
+    K7-B3, without dx as at the broadcast edge-degree site; two calls give
+    the same bits."""
+    from equiformer_tpu_torch.kernels import (
+        dtp_lin_rad_bwd, dtp_lin_rad_bwd3, dtp_lin_rad_bwd3_plain, dtp_lin_rad_bwd_plain,
+        dtp_lin_rad_fwd, dtp_lin_rad_plain,
+    )
+
+    irr, sh_irr, heads, hd = RAD_PLANS[plan_name]
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(3)
+    plan = DTPLinPlan(depthwise_tp(Irreps(irr), Irreps(sh_irr), Irreps(irr)), heads,
+                      radial_fold=hd)
+    assert plan.dw_has_dead_cols == (plan_name == "dead-w-cols")
+    E = 300
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+    x, sh, h, W, cot = (rnd(E, plan.d_x), rnd(E, plan.d_sh), rnd(E, hd), rnd(plan.w_numel),
+                        rnd(E, plan.d_out))
+    Wrs = plan.pack_radial(0.3 * rnd(hd, plan.d_w), 0.3 * rnd(plan.d_w))
+    n = torch.tensor(250, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    calls = {
+        "fwd": (lambda: dtp_lin_rad_fwd(plan, x, sh, h, Wrs, W, n),
+                lambda: dtp_lin_rad_plain(plan, x, sh, h, Wrs, W, n)),
+        "bwd": (lambda: dtp_lin_rad_bwd(plan, x, sh, h, Wrs, W, cot, n),
+                lambda: dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, cot, n)),
+        "bwd3": (lambda: dtp_lin_rad_bwd3(plan, x, sh, h, Wrs, W, cot, n),
+                 lambda: dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, cot, n)),
+        "bwd3-no-dx": (lambda: dtp_lin_rad_bwd3(plan, x, sh, h, Wrs, W, cot, n, need_dx=False),
+                       lambda: (None,) + dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, cot,
+                                                                n)[1:]),
+    }
+    for name, (kernel, plain) in calls.items():
+        k, p = kernel(), plain()
+        torch.cuda.synchronize()
+        k, p = (k, p) if isinstance(k, tuple) else ((k,), (p,))
+        for a, b in zip(k, p):
+            assert (a is None) == (b is None), name
+            if a is None:
+                continue
+            assert _rel(a, b) < TOL[dtype], name
+            if a.shape[0] == E:  # per-edge outputs: zero past n_edges
+                assert float(a[250:].abs().max()) == 0.0, name
+        again = kernel()
+        again = again if isinstance(again, tuple) else (again,)
+        assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(k, again)), name
+    assert (dtp_lin_rad_fwd.launches, dtp_lin_rad_bwd.launches,
+            dtp_lin_rad_bwd3.launches) == (2, 2, 4)
+
+
+@pytest.mark.cuda
+def test_reduced_folded_units_on_card_match_cpu(dev):
+    """A reduced QM9 step with ``radial_fold`` on the card against the CPU
+    plain path (fp32, loss within 1e-4), and a reduced L3 force evaluation
+    with ``radial_fold_ho``: its fp32 energies and forces on the card no
+    farther from a float64 CPU evaluation than 3x the fp32 CPU path's
+    distance (+1e-6; fp32 forces carry ~3e-4 of max |F| of rounding noise,
+    the exp basis's derivative cancels, and the fold sums h @ Wr in another
+    order: ``tests/test_torch_md17.py``'s FP32_FACTOR rule).  The folded
+    sites launch K7-F / K7-B / K7-B3 (2 blocks: 3 folded sites, 2
+    shared-weight ones)."""
+    from equiformer_tpu_torch import evaluate_md17
+    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset, qm9_like_dataset
+    from equiformer_tpu_torch.kernels import launch_counts
+    from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer as TModel
+
+    import equiformer_tpu_torch as pt
+
+    qm9 = dict(irreps_node_embedding="16x0e+8x1e+4x2e", num_layers=2, number_of_basis=32,
+               fc_neurons=(16, 16), irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e",
+               num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", max_edges=512,
+               nodes_per_graph=30, higher_order_grads=False, alpha_drop=0.0, radial_fold=True)
+    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, 30, shuffle=False)))
+    res = []
+    for d in ("cpu", dev):
+        m = TModel(**qm9).to(d)
+        opt = pt.create_optimizer(pt.cosine_warmup_schedule(1e-3, 2, 10))
+        step, _ = pt.make_qm9_steps(m, opt)
+        reset_launch_counts()
+        _, metrics = step(pt.TrainState.create(m, opt), batch.to(d), None)
+        res.append((float(metrics["loss"]), launch_counts()))
+    assert abs(res[1][0] - res[0][0]) < 1e-4 * abs(res[0][0])
+    c = res[1][1]
+    assert (c["dtp_lin_rad_fwd"], c["dtp_lin_rad_bwd"], c["dtp_lin_fwd"], c["dtp_lin_bwd"]) == (
+        3, 3, 2, 2)
+
+    md17 = dict(irreps_node_embedding="16x0e+8x1e+8x2e+4x3e", num_layers=2,
+                irreps_sh="1x0e+1x1e+1x2e+1x3e", number_of_basis=32, fc_neurons=(16, 16),
+                irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e+2x3e", num_heads=4,
+                irreps_mlp_mid="24x0e+12x1e+12x2e+6x3e", alpha_drop=0.0, max_atom_type=64,
+                max_edges=1536, nodes_per_graph=21, basis_type="exp", radial_fold=True,
+                radial_fold_ho=True)
+    mb = next(iter(GraphLoader(md17_like_dataset(4, num_atoms=21, seed=0), 4, 21,
+                               shuffle=False, with_forces=True)))
+    out = []
+    for d in ("cpu", dev):
+        m = TModel(**md17).to(d)
+        reset_launch_counts()
+        out.append((evaluate_md17(m, mb.to(d)), launch_counts()))
+    (cpu, _), (card, c) = out
+    ref = evaluate_md17(TModel(**md17).double(), mb.to(dtype=torch.float64))
+    for k in ("energy", "forces"):
+        assert _rel(card[k], ref[k]) <= 3.0 * _rel(cpu[k], ref[k]) + 1e-6, k
+    assert (c["dtp_lin_rad_fwd"], c["dtp_lin_rad_bwd3"], c["dtp_lin_fwd"], c["dtp_lin_bwd3"]) == (
+        3, 3, 2, 2)

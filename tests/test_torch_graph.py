@@ -128,6 +128,47 @@ def test_segment_softmax_matches(dt):
     assert np.all(t[~mask] == 0.0)
 
 
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_segment_softmax_higher_order_shifts_per_segment(dt):
+    """The force path's softmax (``higher_order=True``) shifts each segment
+    by its own detached max, as JAX's does: a segment whose scores all lie
+    ~900 below another segment's keeps its true softmax (a global shift
+    underflows it to zeros).  Two segments {0, 1} and {-900, -899}, a masked
+    entry, an empty segment; the values, the gradient of a weighted sum and
+    the gradient of a weighted sum of that gradient."""
+    import jax
+
+    npdt, tdt, tol = DTYPES[dt]
+    col = np.array([0.0, 1.0, -900.0, -899.0, 5.0])
+    s = np.stack([col, -col], axis=1).astype(npdt)  # the 2nd column shifts the other way
+    ids = np.array([0, 0, 1, 1, 1])
+    mask = np.array([True, True, True, True, False])
+    rng = np.random.default_rng(12)
+    c, v = rng.normal(size=(2,) + s.shape).astype(npdt)
+
+    def j_p(x):
+        return js.segment_softmax(x, jnp.asarray(ids), 3, mask=jnp.asarray(mask), sorted=True,
+                                  higher_order=True)
+
+    j_f = lambda x: jnp.sum(j_p(x) * c)  # noqa: E731
+    j_g1 = jax.grad(j_f)
+    j_g2 = jax.grad(lambda x: jnp.sum(j_g1(x) * v))
+    ts_ = torch.from_numpy(s).requires_grad_()
+    p = ts.segment_softmax(ts_, torch.from_numpy(ids), 3, mask=torch.from_numpy(mask),
+                           higher_order=True)
+    (g1,) = torch.autograd.grad((p * torch.from_numpy(c)).sum(), ts_, create_graph=True)
+    (g2,) = torch.autograd.grad((g1 * torch.from_numpy(v)).sum(), ts_)
+    want = np.asarray(j_p(jnp.asarray(s)))
+    np.testing.assert_allclose(want[:4, 0], [0.2689414, 0.7310586] * 2, rtol=1e-6)
+    for got, ref in ((p, want), (g1, j_g1(jnp.asarray(s))), (g2, j_g2(jnp.asarray(s)))):
+        assert _rel(got.detach().numpy(), ref) < tol
+    assert np.all(p.detach().numpy()[~mask] == 0.0)
+    # the first-order route keeps the global shift of the fused combine
+    glob = ts.segment_softmax(torch.from_numpy(s), torch.from_numpy(ids), 3,
+                              mask=torch.from_numpy(mask)).numpy()
+    assert np.all(glob[2:4, 0] == 0.0)
+
+
 def test_active_edge_bound_matches():
     for mask in (np.array([1, 1, 1, 0, 0], bool), np.array([0, 1, 0, 1, 0], bool),
                  np.zeros(5, bool)):
