@@ -105,6 +105,20 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    6 K1, 7 K7-B + 6 K2; peak memory beside the fused step's), one fp32 step
    against the fused route's (ROUTE_RTOL), phase 5, and phase 6 (7 K7-F + 6
    K1, 7 K7-B3 + 6 K5a) against the fused phases' float64 references.
+10c. K7 legs — the fold's leg kernels K7-L (``dtp_lin_rad_leg``: the x, sh
+   and h legs), K7-LW (``dtp_lin_rad_legW``) and K7-Wr
+   (``dtp_lin_rad_legWr``) at the exp_l3 sep_act and edge-degree sites of
+   batch 0, float32 and bfloat16, against their plain versions with the
+   tolerances of phase 3, timed the same way, each beside the unfolded pair
+   on the same inputs (cuBLAS ``h @ Wr + offset`` then K5b or K5c; K5b's w
+   leg then cuBLAS ``dw Wr^T`` or ``[h, 1]^T dw``), with their bounds and
+   resident blocks per SM.
+10d. fold md17 train — phase 9 with ``radial_fold`` and ``radial_fold_ho``
+   (18 K1 + 27 K7-F, 6 K5a + 14 K7-B3, 12 K5b + 27 K7-L, 18 K5c + 27 K7-LW,
+   27 K7-Wr, 38 K3 per step; FOLD_TIMED_STEPS timed steps; peak memory
+   beside the fused step's), then phase 10 on the folded route against the
+   fused phase's float64 CPU step (the same seed gives the same parameters,
+   so the same function).
 
 11. K6 kernels — the unfused DTP route's kernels at the term lists of the
    QM9 flagship's three call sites (batch 0 of phase 2, E = max_edges) and
@@ -169,6 +183,9 @@ TPU_KERNELS = {
     "dtp_lin_rad_fwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:604",
     "dtp_lin_rad_bwd": "equiformer_tpu/kernels/dtp_lin_pallas.py:675",
     "dtp_lin_rad_bwd3": "equiformer_tpu/kernels/dtp_lin_ho.py:458",
+    "dtp_lin_rad_leg": "equiformer_tpu/kernels/dtp_lin_ho.py:255",
+    "dtp_lin_rad_legW": "equiformer_tpu/kernels/dtp_lin_ho.py:439",
+    "dtp_lin_rad_legWr": "equiformer_tpu/kernels/dtp_lin_ho.py:344",
     "dtp_t": "equiformer_tpu/kernels/dtp_pallas.py:54",
     "dtp_r": "equiformer_tpu/kernels/dtp_pallas.py:72",
     "dtp_fused_bwd": "equiformer_tpu/kernels/dtp_pallas.py:405",
@@ -184,6 +201,9 @@ SOURCES = {
     "dtp_lin_rad_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
     "dtp_lin_rad_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
+    "dtp_lin_rad_leg": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
+    "dtp_lin_rad_legW": "equiformer_tpu_torch/csrc/dtp_lin_legW.cu",
+    "dtp_lin_rad_legWr": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
     "dtp_t": "equiformer_tpu_torch/csrc/dtp_t.cu",
     "dtp_r": "equiformer_tpu_torch/csrc/dtp_r.cu",
     "dtp_fused_bwd": "equiformer_tpu_torch/csrc/dtp_fused_bwd.cu",
@@ -241,6 +261,19 @@ EXPECTED_FOLD_TRAIN = {**NONE, "dtp_lin_fwd": 6, "dtp_lin_rad_fwd": 7, "dtp_lin_
                        "dtp_lin_rad_bwd": 7, "csr_segment_sum": 13, "attn_combine": 6}
 EXPECTED_FOLD_MD17 = {**NONE, "dtp_lin_fwd": 6, "dtp_lin_rad_fwd": 7, "dtp_lin_bwd3": 6,
                       "dtp_lin_rad_bwd3": 7, "csr_segment_sum": 19}
+# one folded force training step (counted on the CPU with the wrappers
+# patched, 2 and 3 blocks of a reduced model): what EXPECTED_MD17_TRAIN's
+# per-edge-w sites launch moves to the folded kernels, site for site.  Per
+# sep_act site (6) the forward's K7-F, 2 K7-B3 (force pass; parameter pass
+# for x and h), 3 K7-F out legs below the K7-B3 node, 4 K7-L (2 x legs, 2 h
+# legs), 4 K7-LW; the edge degree 3 K7-F, 2 K7-B3, 3 K7-L, 3 K7-LW; and a
+# K7-Wr beside every K7-LW (27).  The 6 sep_value sites keep 3 K1, 1 K5a, 2
+# K5b x legs and 3 K5c each.  K3 as on the fused route.
+EXPECTED_FOLD_MD17_TRAIN = {**NONE, "dtp_lin_fwd": 18, "dtp_lin_rad_fwd": 27, "dtp_lin_bwd3": 6,
+                            "dtp_lin_rad_bwd3": 14, "dtp_lin_leg": 12, "dtp_lin_rad_leg": 27,
+                            "dtp_lin_legW": 18, "dtp_lin_rad_legW": 27, "dtp_lin_rad_legWr": 27,
+                            "csr_segment_sum": 38}
+FOLD_TIMED_STEPS = 5  # the folded force training phase's timed steps (3 warm-up)
 MD17_CPU_MOLECULES = 2
 BF16_SCALAR_FLOOR = 2e-2
 MD17_MODEL = "graph_attention_transformer_nonlinear_exp_l3_md17"
@@ -882,9 +915,10 @@ def md17_train_setup(pt, model):
 
 
 def md17_train_phase(pt, torch, max_edges, gpu_batches, dev, out, tag="md17_train",
-                     expected=EXPECTED_MD17_TRAIN, route=None):
+                     expected=EXPECTED_MD17_TRAIN, route=None, timed=TIMED_STEPS):
     """Full-width force training steps at batch 8 in fp32 and bf16 on the
-    card; ``route`` holds the DTP switches."""
+    card (``timed`` of them timed, after WARMUP_STEPS); ``route`` holds the
+    DTP switches."""
     make = pt.model_entrypoint(MD17_MODEL)  # on the card
     for name in ("float32", "bfloat16"):
         kw = dict(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
@@ -912,12 +946,13 @@ def md17_train_phase(pt, torch, max_edges, gpu_batches, dev, out, tag="md17_trai
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         times = []
-        for i in range(TIMED_STEPS):
+        for i in range(timed):
             t = time.perf_counter()
             state, metrics = step(state, gpu_batches[i % len(gpu_batches)])
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        out[f"{tag}_{name}_peak_mib"] = peak
         vals = {k: float(v) for k, v in metrics.items()}
         if set(vals) != {"loss", "loss_e", "loss_f", "mae_e", "mae_f", "grad_norm"} or not all(
                 v == v and abs(v) < float("inf") for v in vals.values()):
@@ -925,12 +960,12 @@ def md17_train_phase(pt, torch, max_edges, gpu_batches, dev, out, tag="md17_trai
         moved = max(float((p.detach() - before[n]).abs().max())
                     for n, p in model.named_parameters())
         ema_moved = max(float((state.ema[n] - before[n]).abs().max()) for n in before)
-        if not (moved > 0 and ema_moved > 0) or state.step != WARMUP_STEPS + TIMED_STEPS:
+        if not (moved > 0 and ema_moved > 0) or state.step != WARMUP_STEPS + timed:
             raise RuntimeError(f"{name}: parameters or EMA did not move ({moved}, {ema_moved})")
         mps = MD17_BATCH / statistics.median(times)
         out[f"{tag}_{name}"] = mps
         print(f"{tag} {name}: {mps:.1f} molecules/s at batch {MD17_BATCH} (median of "
-              f"{TIMED_STEPS} steps after {WARMUP_STEPS} warm-up; step seconds "
+              f"{timed} steps after {WARMUP_STEPS} warm-up; step seconds "
               f"{[round(t, 4) for t in times]}), peak memory {peak:.0f} MiB, last step "
               f"{ {k: round(v, 4) for k, v in vals.items()} }, max parameter move {moved:.3e}, "
               f"two first steps bitwise equal", flush=True)
@@ -1284,6 +1319,100 @@ def fold_sites(pt, make, max_edges, batch, md17_max_edges, md17_batch):
     }
 
 
+def k7_leg_kernel_phase(torch, sites, dev, records):
+    """K7-L (``dtp_lin_rad_leg``: the x, sh and h legs), K7-LW
+    (``dtp_lin_rad_legW``) and K7-Wr (``dtp_lin_rad_legWr``) against their
+    plain versions at the exp_l3 shapes of one batch, fp32 and bf16, timed
+    as phase 3, each beside the unfolded pair on the same inputs: cuBLAS
+    ``w = h @ Wr + offset`` then K5b's leg (for h: K5b's w leg, then cuBLAS
+    ``dh = dw Wr^T``) or K5c; for K7-Wr K5b's w leg, then cuBLAS ``[h, 1]^T
+    dw``; with the resident blocks per SM of the folded kernel and of the
+    unfolded one.  ``sites``: name -> (folded plan, head modules,
+    row-broadcast x, radial profile, batch geometry).  Bounds: every operand
+    but the leg's own read once over the real edges, the leg written once;
+    K5b's or K5c's operations plus 2 * (hd + 1) * d_w per real edge for the
+    one product with [Wr; offset] each leg does."""
+    from equiformer_tpu_torch.kernels import (
+        KERNEL_WRAPPERS, DTPLinPlan, dtp_lin_leg, dtp_lin_legW, dtp_lin_rad_leg,
+        dtp_lin_rad_leg_plain, dtp_lin_rad_legW, dtp_lin_rad_legW_plain, dtp_lin_rad_legWr,
+        dtp_lin_rad_legWr_plain,
+    )
+    from equiformer_tpu_torch.kernels.dtp_lin_ho import leg_occupancy
+
+    saved = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        size = torch.finfo(dt).bits // 8
+        for site, (plan, heads, broadcast_x, rad, geom) in sites.items():
+            edges, sh32, n_edges, n = geom
+            E, sh, hd = edges.dst.shape[0], sh32.to(dt), plan.radial_fold
+            unf = DTPLinPlan(plan.tp, plan.head_irreps)  # the same op, w given
+            x, _, W, cot, _ = dtp_operands(torch, unf, heads, broadcast_x, E, n, dt, g, dev)
+            h = torch.randn(E, hd, generator=g, device=dev).to(dt)
+            Wr = getattr(rad.net, f"dense{rad.net.n - 1}").weight.detach().t()
+            off = rad.offset.detach()
+            Wrs = plan.pack_radial(Wr, off + 0.1 * torch.randn(off.shape, generator=g,
+                                                               device=dev)).to(dt)
+            hx = torch.cat([h, torch.ones_like(h[:, :1])], 1)
+            shape = f"E={E} d_x={plan.d_x} d_w={plan.d_w} d_out={plan.d_out} hd={hd}"
+            tp_elems, macs = dtp_work(plan)
+            ops = n * (2 * macs + 3 * tp_elems) + 2 * n * (hd + 1) * plan.d_w
+            op_bytes = {"x": size * (plan.d_x if broadcast_x else n * plan.d_x),
+                        "sh": size * n * plan.d_sh, "h": size * n * hd,
+                        "Wr": size * (hd + 1) * plan.d_w, "out": size * n * plan.d_out,
+                        "W": size * plan.w_numel}
+            written = {"x": size * E * plan.d_x, "sh": size * E * plan.d_sh, "h": size * E * hd,
+                       "W": 4 * plan.w_numel, "Wr": 4 * (hd + 1) * plan.d_w}
+            legs = {}  # name: (kernel, (kernel call, plain call, unfolded pair))
+            for leg in ("x", "sh", "h"):
+                o = {"x": x, "sh": sh, "h": h, leg: None}
+                legs[leg] = ("dtp_lin_rad_leg", (
+                    lambda o=o, leg=leg: dtp_lin_rad_leg(plan, leg, cot, o["x"], o["sh"], o["h"],
+                                                         Wrs, W, n_edges),
+                    lambda o=o, leg=leg: dtp_lin_rad_leg_plain(plan, leg, cot, o["x"], o["sh"],
+                                                               o["h"], Wrs, W, n_edges),
+                    (lambda: dtp_lin_leg(unf, "w", cot, x, sh, None, W, n_edges) @ Wrs[:-1].t())
+                    if leg == "h" else
+                    (lambda o=o, leg=leg: dtp_lin_leg(unf, leg, cot, o["x"], o["sh"], torch.addmm(
+                        Wrs[-1], h, Wrs[:-1]), W, n_edges))))
+            legs["W"] = ("dtp_lin_rad_legW", (
+                lambda: dtp_lin_rad_legW(plan, cot, x, sh, h, Wrs, n_edges),
+                lambda: dtp_lin_rad_legW_plain(plan, cot, x, sh, h, Wrs, n_edges),
+                lambda: dtp_lin_legW(unf, cot, x, sh, torch.addmm(Wrs[-1], h, Wrs[:-1]),
+                                     n_edges)))
+            legs["Wr"] = ("dtp_lin_rad_legWr", (
+                lambda: dtp_lin_rad_legWr(plan, cot, x, sh, h, W, n_edges),
+                lambda: dtp_lin_rad_legWr_plain(plan, cot, x, sh, h, W, n_edges),
+                lambda: hx.t() @ dtp_lin_leg(unf, "w", cot, x, sh, None, W, n_edges)))
+            for leg, (kernel, (call, plain, pair)) in legs.items():
+                k, p = call(), plain()
+                torch.cuda.synchronize()
+                ms = cuda_time_ms(call, torch)
+                plain_ms = cuda_time_ms(plain, torch, reps=3, inner=3)
+                pair_ms = cuda_time_ms(pair, torch)
+                nbytes = sum(v for key, v in op_bytes.items() if key != leg) + written[leg]
+                record(records, kernel, f"md17-{site}-{leg}", dt_name, shape, [rel_err(k, p)], ms,
+                       plain_ms, nbytes, ops, pair_ms=pair_ms)
+                print(f"{kernel} {leg} {site} {dt_name}: {leg_occupancy(plan, dt, leg)} resident "
+                      f"blocks per SM (unfolded {'K5c' if leg == 'W' else 'K5b'}: "
+                      f"{leg_occupancy(unf, dt, 'w' if leg in ('h', 'Wr') else leg)})")
+    for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
+        fn.launches = saved[name]
+
+
+def fold_leg_sites(pt, md17_max_edges, md17_batch):
+    """The folded sites of k7_leg_kernel_phase, from an fp32 exp_l3 model
+    built with the fold: sep_act (block 0) and the edge degree."""
+    l3 = pt.model_entrypoint(MD17_MODEL)(max_edges=md17_max_edges, nodes_per_graph=MD17_SLOTS,
+                                         seed=SEED, **FOLD_HO)
+    geom, ga = batch_geometry(l3, md17_batch), l3.block_0.ga
+    return {"sep_act": (ga.sep_act.plan, [ga.sep_act.lin, ga.sep_alpha], False,
+                        ga.sep_act.dtp_rad, geom),
+            "edge_deg": (l3.edge_deg_embed.plan, [l3.edge_deg_embed.proj], True,
+                         l3.edge_deg_embed.rad, geom)}
+
+
 def fold_eval_phase(pt, torch, make, max_edges, gpu_batches, dev, out):
     """The QM9 eval forward with the radial fold, bf16 and fp32: launch
     counts of one forward, finite predictions, eval graphs/s (median of 3
@@ -1418,6 +1547,24 @@ def run(torch, dev) -> int:
     t = time.time()
     md17_phase(pt, torch, dev, out, "fold_md17", EXPECTED_FOLD_MD17, FOLD_HO, md17_ref)
     print(f"fold md17 phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    k7_leg_records = []
+    k7_leg_kernel_phase(torch, fold_leg_sites(pt, md17_max_edges, md17_batches[0]), dev,
+                        k7_leg_records)
+    report_kernels(k7_leg_records)
+    print(f"K7 leg kernel phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    md17_train_phase(pt, torch, md17_max_edges, md17_batches, dev, out, "fold_md17_train",
+                     EXPECTED_FOLD_MD17_TRAIN, FOLD_HO, FOLD_TIMED_STEPS)
+    for name in ("float32", "bfloat16"):
+        print(f"md17 train {name}: fold {out[f'fold_md17_train_{name}']:.1f} molecules/s, peak "
+              f"{out[f'fold_md17_train_{name}_peak_mib']:.0f} MiB; fused "
+              f"{out[f'md17_train_{name}']:.1f} molecules/s, peak "
+              f"{out[f'md17_train_{name}_peak_mib']:.0f} MiB")
+    print(f"fold md17 train phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    md17_train_vs_cpu(pt, torch, dev, "fold_md17_train", FOLD_HO, md17_step64)
+    print(f"fold md17 train vs CPU phase: {time.time() - t:.1f} s", flush=True)
 
     # the unfused DTP route (K6): kernels, QM9 training, MD17 forces and training
     t = time.time()
@@ -1457,17 +1604,22 @@ def run(torch, dev) -> int:
     table = []
     for name in SOURCES:
         # the bf16 row at the kernel's first (for the fused DTP's kernels: the
-        # two-head) call site (K5b: its x leg); K5a's launches are the force
-        # evaluation's, K5b's and K5c's the force training step's, the
+        # two-head) call site (K5b, K7-L: the x leg); K5a's launches are the
+        # force evaluation's, K5b's and K5c's the force training step's,
+        # K7-L's, K7-LW's and K7-Wr's the folded force training step's, the
         # others' the QM9 training step's
         path = {"dtp_lin_bwd3": "md17_launches", "dtp_lin_leg": "md17_train_launches",
                 "dtp_lin_legW": "md17_train_launches", "dtp_t": "unfused_train_launches",
                 "dtp_r": "unfused_md17_launches",
                 "dtp_fused_bwd": "first_order_train_launches",
                 "dtp_lin_rad_fwd": "fold_train_launches", "dtp_lin_rad_bwd": "fold_train_launches",
-                "dtp_lin_rad_bwd3": "fold_md17_launches"}.get(name, "train_launches")
+                "dtp_lin_rad_bwd3": "fold_md17_launches",
+                "dtp_lin_rad_leg": "fold_md17_train_launches",
+                "dtp_lin_rad_legW": "fold_md17_train_launches",
+                "dtp_lin_rad_legWr": "fold_md17_train_launches"}.get(name, "train_launches")
         r = next(r for r in records + md17_records + md17_train_records + k6_records
-                 + k7_records if r["kernel"] == name and r["dtype"] == "bfloat16")
+                 + k7_records + k7_leg_records
+                 if r["kernel"] == name and r["dtype"] == "bfloat16")
         table.append({"name": name, "route": "cuda", "source": SOURCES[name],
                       "replaces": TPU_KERNELS[name], "launches": out[path][name],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],

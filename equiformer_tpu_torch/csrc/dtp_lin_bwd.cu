@@ -296,7 +296,7 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
         if (last) {  // dh += dw Wr^T; partial d[Wr; offset] += [h, 1]^T dw
           eqt::add_dh<kTile, kThreads>(s.dh, s.dw, span, hd, Wl, n_loc, span_begin);
           eqt::add_dWr<kTile, kThreads>(my_part + w_numel, n_loc, s.h, hd, s.dw, span,
-                                        span_begin);
+                                        span_begin, 1.f);
           __syncthreads();
         }
       } else if (w != nullptr && last) {

@@ -34,10 +34,19 @@
 // fixed order, so there are no float atomics and the result does not
 // depend on the schedule.  Everything accumulates in fp32 on the CUDA
 // cores; tensor cores are later work.
+//
+// The radial-folded variant (K7-LW, kRad; replaces the radial branch of
+// _W_leg_kernel, dtp_lin_ho.py:402-449: the h operand :415, _radial_w_fill
+// :439-440) reads h [E, hd] in place of w and, at each group's first
+// component, builds the group's w columns from h and [Wr; offset] in shared
+// memory (csrc/radial.cuh) before the z recompute reads them: w never
+// reaches device memory.  Shared memory: K5c's plus w [16, span_max] and h
+// [16, hd].
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "radial.cuh"
 
 namespace {
 
@@ -48,21 +57,26 @@ constexpr int kThreads = 256;   // 8 warps
 constexpr int kGkFields = 12;   // ints per (g, k) table entry
 constexpr int kTermFields = 6;  // a_off, sh col, b_off, fan col, mul, local dw col
 
-// fp32 shared memory: G [kTile, cols_pad_max], z [kTile, fs_max]
-__host__ __device__ inline int smem_floats(int cols_pad_max, int fs_max) {
-  return kTile * (cols_pad_max + fs_max);
+// fp32 shared memory: G [kTile, cols_pad_max], z [kTile, fs_max]; with the
+// fold (hd > 0) also w [kTile, span_max] and h [kTile, hd]
+__host__ __device__ inline int smem_floats(int cols_pad_max, int fs_max, int span_max, int hd) {
+  return kTile * (cols_pad_max + fs_max + (hd > 0 ? span_max + hd : 0));
 }
 
-template <typename T>
+template <typename T, bool kRad>
 __global__ void __launch_bounds__(kThreads)
 dtp_lin_legW_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ sh, int d_sh,
                     const T* __restrict__ w, int d_w, const T* __restrict__ G, int d_out,
                     const int* __restrict__ n_edges_ptr, int E, const int* __restrict__ gk,
                     int n_gk, const int* __restrict__ terms, const float* __restrict__ coeffs,
-                    float* __restrict__ part, int w_numel, int cols_pad_max) {
+                    float* __restrict__ part, int w_numel, int cols_pad_max, int fs_max,
+                    int span_max, const T* __restrict__ h, int hd, const T* __restrict__ Wl,
+                    int n_loc) {
   extern __shared__ float4 smem4[];
   float* s_gt = reinterpret_cast<float*>(smem4);
-  float* s_z = s_gt + kTile * cols_pad_max;  // offset a multiple of 16 floats: float4 rows
+  float* s_z = s_gt + kTile * cols_pad_max;  // offsets multiples of 16 floats: float4 rows
+  float* s_w = s_z + kTile * fs_max;         // kRad: [kTile, span] of the current group
+  float* s_h = s_w + kTile * span_max;       // kRad: [kTile, hd]
 
   const int tid = threadIdx.x;
   const int n_edges = __ldg(n_edges_ptr);
@@ -75,11 +89,19 @@ dtp_lin_legW_kernel(const T* __restrict__ x, long long sx, const T* __restrict__
     const int e0 = tile * kTile;
     const int n_live = max(0, min(min(kTile, E - e0), n_edges - e0));
     if (n_live == 0) continue;  // past the real edges: nothing to dW
+    if constexpr (kRad) {
+      eqt::load_h<kTile, kThreads>(s_h, h, hd, e0, n_live);
+      __syncthreads();  // build_w reads s_h
+    }
 
     for (int q = 0; q < n_gk; ++q) {
       const int* g = gk + q * kGkFields;
       const int fs = g[0], cols = g[1], out_col = g[2], w_off = g[3];
       const int t_begin = g[4], t_end = g[5], cp = g[7];
+      const int span = g[9];
+
+      if constexpr (kRad)
+        if (g[10]) eqt::build_w<kTile, kThreads>(s_w, s_h, hd, Wl, n_loc, g[8], span, n_live);
 
       // ---- stage G[g,k] (zero rows past the real edges, zero pad columns)
       for (int i = tid; i < kTile * cp; i += kThreads) {
@@ -95,14 +117,18 @@ dtp_lin_legW_kernel(const T* __restrict__ x, long long sx, const T* __restrict__
       // ---- recompute z[g,k] from the term table (rows >= n_live stay zero)
       for (int t = t_begin; t < t_end; ++t) {
         const int* tt = terms + t * kTermFields;
-        const int a = tt[0], col = tt[1], b = tt[2], fc = tt[3], mul = tt[4];
+        const int a = tt[0], col = tt[1], b = tt[2], fc = tt[3], mul = tt[4], bl = tt[5];
         const float c = coeffs[t];
         for (int i = tid; i < n_live * mul; i += kThreads) {
           const int r = i / mul;
           const int u = i - r * mul;
           const long long e = e0 + r;
           float v = c * to_f(sh[e * d_sh + col]) * to_f(x[e * sx + a + u]);
-          if (w != nullptr) v *= to_f(w[e * d_w + b + u]);
+          if constexpr (kRad) {
+            v *= s_w[r * span + bl + u];
+          } else if (w != nullptr) {
+            v *= to_f(w[e * d_w + b + u]);
+          }
           s_z[r * fs + fc + u] += v;
         }
       }
@@ -137,20 +163,22 @@ dtp_lin_legW_kernel(const T* __restrict__ x, long long sx, const T* __restrict__
   }
 }
 
-template <typename T>
+template <typename T, bool kRad>
 int launch(const void* x, long long sx, const void* sh, int d_sh, const void* w, int d_w,
            const void* G, int d_out, const void* n_edges, int E, const void* gk, int n_gk,
            const void* terms, const void* coeffs, void* part, int n_parts, void* dW,
-           int w_numel, int cols_pad_max, int fs_max, cudaStream_t stream) {
-  const int smem = smem_floats(cols_pad_max, fs_max) * (int)sizeof(float);
+           int w_numel, int cols_pad_max, int fs_max, int span_max, const void* h, int hd,
+           const void* Wl, int n_loc, cudaStream_t stream) {
+  const int smem = smem_floats(cols_pad_max, fs_max, span_max, hd) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      dtp_lin_legW_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dtp_lin_legW_kernel<T, kRad>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dtp_lin_legW_kernel<T><<<n_parts, kThreads, smem, stream>>>(
+  dtp_lin_legW_kernel<T, kRad><<<n_parts, kThreads, smem, stream>>>(
       static_cast<const T*>(x), sx, static_cast<const T*>(sh), d_sh, static_cast<const T*>(w),
       d_w, static_cast<const T*>(G), d_out, static_cast<const int*>(n_edges), E,
       static_cast<const int*>(gk), n_gk, static_cast<const int*>(terms),
-      static_cast<const float*>(coeffs), static_cast<float*>(part), w_numel, cols_pad_max);
+      static_cast<const float*>(coeffs), static_cast<float*>(part), w_numel, cols_pad_max,
+      fs_max, span_max, static_cast<const T*>(h), hd, static_cast<const T*>(Wl), n_loc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // dW = the blocks' partial rows summed in block order
@@ -158,13 +186,13 @@ int launch(const void* x, long long sx, const void* sh, int d_sh, const void* w,
                                     static_cast<float*>(dW), stream);
 }
 
-template <typename T>
+template <typename T, bool kRad>
 int occupancy(int smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      dtp_lin_legW_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dtp_lin_legW_kernel<T, kRad>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -(int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dtp_lin_legW_kernel<T>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, dtp_lin_legW_kernel<T, kRad>,
                                                       kThreads, smem);
   return err == cudaSuccess ? blocks : -(int)err;
 }
@@ -182,20 +210,48 @@ extern "C" int dtp_lin_legW(const void* x, long long sx, const void* sh, int d_s
   if (fs_max % 4 != 0 || cols_pad_max % 4 != 0 || n_parts < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == eqt::kFloat32)
-    return launch<float>(x, sx, sh, d_sh, w, d_w, G, d_out, n_edges, E, gk, n_gk, terms,
-                         coeffs, part, n_parts, dW, w_numel, cols_pad_max, fs_max, s);
+    return launch<float, false>(x, sx, sh, d_sh, w, d_w, G, d_out, n_edges, E, gk, n_gk, terms,
+                                coeffs, part, n_parts, dW, w_numel, cols_pad_max, fs_max, 0,
+                                nullptr, 0, nullptr, 0, s);
   if (dtype == eqt::kBFloat16)
-    return launch<__nv_bfloat16>(x, sx, sh, d_sh, w, d_w, G, d_out, n_edges, E, gk, n_gk,
-                                 terms, coeffs, part, n_parts, dW, w_numel, cols_pad_max,
-                                 fs_max, s);
+    return launch<__nv_bfloat16, false>(x, sx, sh, d_sh, w, d_w, G, d_out, n_edges, E, gk,
+                                        n_gk, terms, coeffs, part, n_parts, dW, w_numel,
+                                        cols_pad_max, fs_max, 0, nullptr, 0, nullptr, 0, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks per SM at the shared memory of a launch with these widths,
-// or minus a cudaError_t.
-extern "C" int dtp_lin_legW_occupancy(int cols_pad_max, int fs_max, int dtype) {
-  const int smem = smem_floats(cols_pad_max, fs_max) * (int)sizeof(float);
-  if (dtype == eqt::kFloat32) return occupancy<float>(smem);
-  if (dtype == eqt::kBFloat16) return occupancy<__nv_bfloat16>(smem);
+// K7-LW: the head-weight leg of dtp_lin_rad_fwd, h [E, hd] and Wl [hd + 1,
+// n_loc] (columns in the tables' local order) in place of w; span_max the
+// widest group's w columns.
+extern "C" int dtp_lin_rad_legW(const void* x, long long sx, const void* sh, int d_sh,
+                                const void* G, int d_out, const void* n_edges, int E,
+                                const void* gk, int n_gk, const void* terms, const void* coeffs,
+                                void* part, int n_parts, void* dW, int w_numel,
+                                int cols_pad_max, int fs_max, int span_max, const void* h,
+                                int hd, const void* Wl, int n_loc, int dtype, void* stream) {
+  if (fs_max % 4 != 0 || cols_pad_max % 4 != 0 || n_parts < 1 || hd <= 0 || hd % 4 != 0 ||
+      h == nullptr || Wl == nullptr)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32)
+    return launch<float, true>(x, sx, sh, d_sh, nullptr, 0, G, d_out, n_edges, E, gk, n_gk,
+                               terms, coeffs, part, n_parts, dW, w_numel, cols_pad_max, fs_max,
+                               span_max, h, hd, Wl, n_loc, s);
+  if (dtype == eqt::kBFloat16)
+    return launch<__nv_bfloat16, true>(x, sx, sh, d_sh, nullptr, 0, G, d_out, n_edges, E, gk,
+                                       n_gk, terms, coeffs, part, n_parts, dW, w_numel,
+                                       cols_pad_max, fs_max, span_max, h, hd, Wl, n_loc, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Resident blocks per SM at the shared memory of a launch with these widths
+// (hd > 0: the folded K7-LW), or minus a cudaError_t.
+extern "C" int dtp_lin_legW_occupancy(int cols_pad_max, int fs_max, int span_max, int hd,
+                                      int dtype) {
+  const int smem = smem_floats(cols_pad_max, fs_max, span_max, hd) * (int)sizeof(float);
+  if (dtype == eqt::kFloat32)
+    return hd > 0 ? occupancy<float, true>(smem) : occupancy<float, false>(smem);
+  if (dtype == eqt::kBFloat16)
+    return hd > 0 ? occupancy<__nv_bfloat16, true>(smem) : occupancy<__nv_bfloat16, false>(smem);
   return -(int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,14 @@
 // The radial fold of the fused DTP kernels (K7): the pieces that the folded
-// variants of K1 (csrc/dtp_lin.cu), K2 (csrc/dtp_lin_bwd.cu) and K5a
-// (csrc/dtp_lin_bwd3.cu) add to their bodies.
+// variants of K1 (csrc/dtp_lin.cu), K2 (csrc/dtp_lin_bwd.cu), K5a
+// (csrc/dtp_lin_bwd3.cu), K5b (csrc/dtp_lin_leg.cu) and K5c
+// (csrc/dtp_lin_legW.cu) add to their bodies.
 //
 // Replaces: equiformer_tpu/kernels/dtp_lin_pallas.py, _radial_h_packed /
 // _radial_w_fill (w built in the kernel), _radial_write_dw / _radial_dh
 // (dh = dw Wr^T) and the d[Wr; offset] outputs of _bwd_kernel; the dh output
-// of equiformer_tpu/kernels/dtp_lin_ho.py's _bwd3_kernel.
+// of equiformer_tpu/kernels/dtp_lin_ho.py's _bwd3_kernel, and the w rebuild,
+// dh and d[Wr; offset] of its leg kernels (_edge_leg_kernel_rad,
+// _Wr_leg_kernel, the radial branch of _W_leg_kernel).
 //
 // With the fold, a kernel's per-edge operand is the radial MLP's last hidden
 // activation h [E, hd] instead of the TP weights w [E, d_w], and
@@ -107,13 +110,16 @@ __device__ __forceinline__ void add_dh(float* s_dh, const float* s_dw, int span,
   }
 }
 
-// part[j, sb + c] += sum_r [h, 1][r, j] * s_dw[r, c] for j <= hd: the block's
+// part[j, sb + c] += sum_r [h, one][r, j] * s_dw[r, c] for j <= hd: the block's
 // own fp32 partial rows of d[Wr; offset] (row stride n_loc); a thread per
 // column.  Rows past the real edges have h = 0 and dw = 0, so the ones
-// column adds nothing for them.
+// column adds nothing for them.  ``one`` is the value of h's appended
+// column: 1 for the primal h, 0 when the h slot holds a tangent or a
+// cotangent (the op is affine in h, linear in [h, 1]).
 template <int kT, int kThreads>
 __device__ __forceinline__ void add_dWr(float* __restrict__ part, int n_loc, const float* s_h,
-                                        int hd, const float* s_dw, int span, int sb) {
+                                        int hd, const float* s_dw, int span, int sb,
+                                        float one) {
   for (int c = threadIdx.x; c < span; c += kThreads) {
     float d[kT];
     float dsum = 0.f;
@@ -138,7 +144,7 @@ __device__ __forceinline__ void add_dWr(float* __restrict__ part, int n_loc, con
       pc[(long long)(j + 2) * n_loc] += a2;
       pc[(long long)(j + 3) * n_loc] += a3;
     }
-    pc[(long long)hd * n_loc] += dsum;
+    pc[(long long)hd * n_loc] += one * dsum;
   }
 }
 

@@ -13,7 +13,10 @@
 * the radial fold of both (K7, ``radial_fold`` plans): the forward with
   ``w = h @ Wr + offset`` built on chip (K7-F, ``dtp_lin_rad_fwd``), its
   first-order backward (K7-B, ``dtp_lin_rad_bwd``: dx, dh, d[Wr; offset],
-  dW) and its force backward (K7-B3, ``dtp_lin_rad_bwd3``: dx, dsh, dh)
+  dW), its force backward (K7-B3, ``dtp_lin_rad_bwd3``: dx, dsh, dh) and the
+  single legs of folded force training (K7-L ``dtp_lin_rad_leg``: dx, dsh or
+  dh; K7-LW ``dtp_lin_rad_legW``: the head weights; K7-Wr
+  ``dtp_lin_rad_legWr``: d[Wr; offset])
 * ``segment_csr`` — CSR segment sum over dst-sorted edges (K3)
 * ``attn_csr``    — fused segment softmax + dropout + weighted sum (K4 forward;
   its backward is torch ops, as in JAX)
@@ -56,6 +59,12 @@ from .dtp_lin_ho import (
     dtp_lin_legW,
     dtp_lin_rad_bwd3,
     dtp_lin_rad_bwd3_plain,
+    dtp_lin_rad_leg,
+    dtp_lin_rad_leg_plain,
+    dtp_lin_rad_legW,
+    dtp_lin_rad_legW_plain,
+    dtp_lin_rad_legWr,
+    dtp_lin_rad_legWr_plain,
 )
 from .segment_csr import csr_segment_sum, segment_sum_plain
 
@@ -68,6 +77,9 @@ KERNEL_WRAPPERS = {
     "dtp_lin_rad_fwd": dtp_lin_rad_fwd,
     "dtp_lin_rad_bwd": dtp_lin_rad_bwd,
     "dtp_lin_rad_bwd3": dtp_lin_rad_bwd3,
+    "dtp_lin_rad_leg": dtp_lin_rad_leg,
+    "dtp_lin_rad_legW": dtp_lin_rad_legW,
+    "dtp_lin_rad_legWr": dtp_lin_rad_legWr,
     "dtp_t": dtp_t,
     "dtp_r": dtp_r,
     "dtp_fused_bwd": dtp_fused_bwd,

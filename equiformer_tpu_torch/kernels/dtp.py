@@ -51,13 +51,17 @@ _SKIPPED_LEGS: set = set()
 def skip_leg_grads(*legs: str):
     """While active, the backward passes of the DTP ops compute no gradient
     for these legs: "out", "x", "sh", "w" or "W" of the fused op
-    (``dtp_lin_ho.LEGS``); of the T / R family, "W" names the broadcast
-    operands (the shared weight, the edge-degree embedding's constant
-    feature: functions of the parameters alone) and "sh" T's column.  The
-    force pass of training asks for the position gradient only, so it skips
-    "W" (the parameters are live and would each get a K5c or T launch nobody
-    reads); the parameter pass skips "sh", which depends on nothing but the
-    positions (no K5b sh leg, no R).  The engine may run a backward on
+    (``dtp_lin_ho.LEGS``), and on a radial-folded plan "out", "x", "sh", "h",
+    "Wr" (the packed [Wr; offset]) or "W" (``dtp_lin_ho.LEGS_RAD``); of the
+    T / R family, "W" names the broadcast operands (the shared weight, the
+    edge-degree embedding's constant feature: functions of the parameters
+    alone) and "sh" T's column.  The force pass of training asks for the
+    position gradient only, so it skips "W" and "Wr" (the parameters are
+    live and would each get a K5c, K7-LW, K7-Wr or T launch nobody reads),
+    but not "h", which depends on the positions through the radial basis;
+    the parameter pass skips "sh", which depends on nothing but the
+    positions (no K5b or K7-L sh leg, no R).  A leg called with a cotangent
+    in h's slot follows the ones-column rule (``dtp_lin_ho._put``).  The engine may run a backward on
     another thread, so this is a module-wide set, not a thread-local."""
     added = set(legs) - _SKIPPED_LEGS
     _SKIPPED_LEGS.update(added)

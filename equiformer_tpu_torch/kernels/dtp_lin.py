@@ -460,12 +460,14 @@ def radial_dh_plain(Wrs: torch.Tensor, dw: torch.Tensor, dtype) -> torch.Tensor:
     return (dw.to(acc) @ Wrs[:-1].to(acc).T).to(dtype)
 
 
-def radial_dWrs_plain(h: torch.Tensor, dw: torch.Tensor, n_edges=None) -> torch.Tensor:
+def radial_dWrs_plain(h: torch.Tensor, dw: torch.Tensor, n_edges=None,
+                      ones: bool = True) -> torch.Tensor:
     """``d[Wr; offset] = [h, 1]^T @ dw`` over the rows below ``n_edges``, in
     float32 (float64 for float64 inputs): the ones column gives doffset, so
-    padded rows must add nothing."""
+    padded rows must add nothing.  ``ones=False``: h's appended column is 0
+    (h holds a tangent or a cotangent), and so is the offset row."""
     acc = torch.promote_types(h.dtype, torch.float32)
-    hx = torch.cat([h.to(acc), torch.ones_like(h[:, :1], dtype=acc)], dim=1)
+    hx = torch.cat([h.to(acc), torch.full_like(h[:, :1], float(ones), dtype=acc)], dim=1)
     return _zero_past(hx, n_edges).T @ _zero_past(dw.to(acc), n_edges)
 
 
@@ -612,14 +614,17 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-RAD_BWD_BLOCKS_PER_SM = 1  # K7-B's shared memory (135 KB at QM9) fits one block per SM
+# K7-B's shared memory (135 KB at QM9) fits one block per SM, and so does
+# that of K7-LW and K7-Wr (~115 KB at MD17 L3): their persistent blocks
+RAD_BWD_BLOCKS_PER_SM = 1
 _WORKSPACE: Dict[torch.device, torch.Tensor] = {}
 
 
 def _workspace(device: torch.device, numel: int) -> torch.Tensor:
-    """One fp32 scratch buffer per device for K7-B's partial rows, grown to
-    the largest call and reused: kernels on one stream run in order, and the
-    reduction reads the rows before the next launch writes them."""
+    """One fp32 scratch buffer per device for K7-B's and K7-Wr's partial
+    rows, grown to the largest call and reused: kernels on one stream run in
+    order, and the reduction reads the rows before the next launch writes
+    them."""
     buf = _WORKSPACE.get(device)
     if buf is None or buf.numel() < numel:
         buf = torch.empty((numel,), dtype=torch.float32, device=device)

@@ -37,10 +37,26 @@ ops (``fold_shared_weights``, plain torch), which carries the folded dW back
 to ``W`` and ``w`` at every order.
 
 With the radial fold (JAX's ``EQUIFORMER_TPU_FOLD_RADIAL_HO``) the edge
-operand is ``(h, [Wr; offset])`` and ``_RadHO`` is the op: K7-F forward,
-K7-B3 backward (``dtp_lin_rad_bwd3``: dx, dsh and dh in one pass), first
-order only; its grad-of-grad and the gradients of [Wr; offset] and W need
-the folded leg kernels (K7-L, K7-LW, K7-Wr), not ported yet.
+operand is ``(h, [Wr; offset])``, ``w = [h, 1] @ [Wr; offset]``, and the op
+is multilinear in six legs (``LEGS_RAD``: out, x, sh, h, Wr, W; the edge
+legs x, sh, h), as JAX's ``_LEGS_RAD`` extends ``_LEGS``.  The same
+``_Leg`` / ``_Bwd3`` family carries it: the out leg is K7-F
+(``dtp_lin_rad_fwd``, ``csrc/dtp_lin.cu``), the x / sh / h legs K7-L
+(``dtp_lin_rad_leg``, ``csrc/dtp_lin_leg.cu``: dh = dw Wr^T with dw on
+chip), the W leg K7-LW (``dtp_lin_rad_legW``, ``csrc/dtp_lin_legW.cu``), the
+Wr leg K7-Wr (``dtp_lin_rad_legWr``, ``csrc/dtp_lin_leg.cu``: [h, 1]^T dw
+in fixed-order fp32 partial rows) and the three edge legs of one ``g``
+together K7-B3 (``dtp_lin_rad_bwd3``, ``csrc/dtp_lin_bwd3.cu``); every one
+builds w from (h, [Wr; offset]) in shared memory.  Plain versions:
+``dtp_lin_rad_leg_plain``, ``dtp_lin_rad_legW_plain``,
+``dtp_lin_rad_legWr_plain``, ``dtp_lin_rad_bwd3_plain``.
+
+The ones-column rule (``_put``).  The port's op is affine in h (the kernels
+append h's ones column themselves); JAX's is linear in the padded ``[h, 1,
+0...]`` that ``plan.pad_h`` builds outside its primitives.  So a tangent or
+a cotangent carried in h's slot has 0, not 1, in that column: the legs
+called with one there take ``[Wr; 0]`` (a ``torch.cat``, so autograd gives
+the offset nothing through them) and K7-Wr's offset row is 0.
 """
 
 from __future__ import annotations
@@ -51,10 +67,12 @@ from . import _build
 from .dtp import _SKIPPED_LEGS, skip_leg_grads  # noqa: F401  (re-exported)
 from .dtp_lin import (
     BWD_TILE,
+    RAD_BWD_BLOCKS_PER_SM,
     DTPLinPlan,
     _check_n_edges,
     _check_operands,
     _sm_count,
+    _workspace,
     _zero_past,
     dtp_lin_fwd,
     dtp_lin_legW_plain,
@@ -63,11 +81,15 @@ from .dtp_lin import (
     plain_dz,
     plain_transposes,
     radial_dh_plain,
+    radial_dWrs_plain,
     radial_w_plain,
 )
 
 LEGS = ("out", "x", "sh", "w", "W")  # canonical leg order of the op
 EDGE_LEGS = ("x", "sh", "w")
+# a radial-folded plan's legs: w = [h, 1] @ [Wr; offset] splits w's slot in two
+LEGS_RAD = ("out", "x", "sh", "h", "Wr", "W")
+EDGE_LEGS_RAD = ("x", "sh", "h")
 LEGW_BLOCKS_PER_SM = 2  # persistent blocks (and dW partial rows) per SM of K5c
 
 
@@ -231,11 +253,13 @@ def dtp_lin_leg_plain(plan: DTPLinPlan, out_leg: str, g, x, sh, w, W_flat, n_edg
 def _check_leg_operands(plan: DTPLinPlan, skip: str, g, x, sh, w, W_flat=None):
     """Shapes, dtypes and devices the leg kernels take, for every operand but
     the one named ``skip``; returns them contiguous (x with a row stride of
-    0 or d_x)."""
+    0 or d_x).  On a radial-folded plan ``w`` is h [E, hd]."""
     E = g.shape[0]
     _build.dtype_code(g)
     want = {"out": (g, plan.d_out), "x": (x, plan.d_x), "sh": (sh, plan.d_sh)}
-    if not plan.shared_weights:
+    if plan.radial_fold is not None:
+        want["h"] = (w, plan.radial_fold)
+    elif not plan.shared_weights:
         want["w"] = (w, plan.d_w)
     elif w is not None:
         raise ValueError("shared weights are folded into W_flat before the kernel")
@@ -251,7 +275,7 @@ def _check_leg_operands(plan: DTPLinPlan, skip: str, g, x, sh, w, W_flat=None):
         x = x.contiguous()
     cont = lambda t: None if t is None else t.contiguous()  # noqa: E731
     return (g.contiguous(), None if skip == "x" else x, None if skip == "sh" else cont(sh),
-            None if skip == "w" else cont(w), cont(W_flat))
+            None if skip in ("w", "h") else cont(w), cont(W_flat))
 
 
 def dtp_lin_leg(plan: DTPLinPlan, out_leg: str, g: torch.Tensor, x, sh, w,
@@ -322,141 +346,318 @@ def dtp_lin_legW(plan: DTPLinPlan, g: torch.Tensor, x: torch.Tensor, sh: torch.T
 dtp_lin_legW.launches = 0
 
 
+def _local_radial(plan: DTPLinPlan, Wrs: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """[Wr; offset] [hd + 1, d_w] checked against the plan and ``like``'s
+    dtype and device, its columns gathered into the tables' local order
+    (``plan.radial_cols``), as the folded kernels read it."""
+    if (Wrs.shape != (plan.radial_fold + 1, plan.d_w) or Wrs.dtype != like.dtype
+            or Wrs.device != like.device):
+        raise ValueError(f"[Wr; offset] must be [{plan.radial_fold + 1}, {plan.d_w}] in g's "
+                         f"dtype and device")
+    return Wrs[:, plan.radial_cols(like.device)].contiguous()
+
+
+def _check_rad_leg(plan: DTPLinPlan, out_leg: str) -> None:
+    if plan.radial_fold is None or out_leg not in EDGE_LEGS_RAD:
+        raise ValueError(f"no folded edge leg {out_leg!r} for this plan")
+
+
+def dtp_lin_rad_leg_plain(plan: DTPLinPlan, out_leg: str, g, x, sh, h, Wrs, W_flat,
+                          n_edges=None):
+    """Plain version of K7-L: the edge leg ``out_leg`` ("x", "sh" or "h") of
+    the radial-folded op for ``g`` [E, d_out] in its out leg: K5b's plain
+    version on ``w = radial_w_plain(h, Wrs)``, or for "h" its w leg and then
+    ``dh = dw Wr^T`` [E, hd].  The operand of ``out_leg`` is not read (pass
+    None)."""
+    _check_rad_leg(plan, out_leg)
+    if out_leg == "h":
+        return radial_dh_plain(Wrs, dtp_lin_leg_plain(plan, "w", g, x, sh, None, W_flat, n_edges),
+                               g.dtype)
+    return dtp_lin_leg_plain(plan, out_leg, g, x, sh, radial_w_plain(h, Wrs), W_flat, n_edges)
+
+
+def dtp_lin_rad_legW_plain(plan: DTPLinPlan, g, x, sh, h, Wrs, n_edges=None):
+    """Plain version of K7-LW: K5c's plain version on ``w = radial_w_plain(h,
+    Wrs)``, the gradient of ``W_flat`` [w_numel] in float32 (float64 for
+    float64 inputs)."""
+    return dtp_lin_legW_plain(plan, g, x, sh, radial_w_plain(h, Wrs), n_edges)
+
+
+def dtp_lin_rad_legWr_plain(plan: DTPLinPlan, g, x, sh, h, W_flat, n_edges=None,
+                            ones: bool = True):
+    """Plain version of K7-Wr: d[Wr; offset] = [h, 1]^T dw [hd + 1, d_w] in
+    float32 (float64 for float64 inputs), dw K5b's w leg; rows past
+    ``n_edges`` add nothing, to the offset row too.  ``ones=False`` when h's
+    slot holds a tangent or a cotangent: the offset row is then 0."""
+    dw = dtp_lin_leg_plain(plan, "w", g, x, sh, None, W_flat, n_edges)
+    return radial_dWrs_plain(h, dw, n_edges, ones)
+
+
+def dtp_lin_rad_leg(plan: DTPLinPlan, out_leg: str, g: torch.Tensor, x, sh, h,
+                    Wrs: torch.Tensor, W_flat: torch.Tensor, n_edges=None) -> torch.Tensor:
+    """K7-L: one edge leg of the radial-folded op, ``F_x(g, sh, h, Wrs, W)``
+    [E, d_x], ``F_sh(g, x, h, Wrs, W)`` [E, d_sh] or ``F_h(g, x, sh, Wrs, W)``
+    [E, hd]; w is built and dw contracted against Wr on chip.  The operand
+    of ``out_leg`` is not read (pass None).  CPU tensors take
+    ``dtp_lin_rad_leg_plain``; CUDA tensors launch the kernel (float32 or
+    bfloat16) or raise."""
+    if g.device.type == "cpu":
+        return dtp_lin_rad_leg_plain(plan, out_leg, g, x, sh, h, Wrs, W_flat, n_edges)
+    _check_rad_leg(plan, out_leg)
+    E, dev = g.shape[0], g.device
+    g, x, sh, h, W_flat = _check_leg_operands(plan, out_leg, g, x, sh, h, W_flat)
+    Wl = _local_radial(plan, Wrs, g)
+    n_edges = _check_n_edges(n_edges, E, dev)
+    gk, terms, coeffs, _, wt_index, span_max, cols_pad_max = bwd3_tables(plan, dev)
+    width = {"x": plan.d_x, "sh": plan.d_sh, "h": plan.radial_fold}[out_leg]
+    out = torch.empty((E, width), dtype=g.dtype, device=dev)
+    if E == 0:
+        return out
+    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+    err = _build.library().dtp_lin_rad_leg(
+        EDGE_LEGS_RAD.index(out_leg), _build.ptr(x), 0 if x is None else x.stride(0), plan.d_x,
+        _build.ptr(sh), plan.d_sh, _build.ptr(WT), _build.ptr(g), plan.d_out,
+        _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0], _build.ptr(terms),
+        _build.ptr(coeffs), _build.ptr(out), span_max, cols_pad_max, plan.max_fan_stride,
+        _build.ptr(h), plan.radial_fold, _build.ptr(Wl), Wl.shape[1], _build.dtype_code(g),
+        _build.stream_ptr(),
+    )
+    _build.check(err, "dtp_lin_rad_leg")
+    dtp_lin_rad_leg.launches += 1
+    return out
+
+
+dtp_lin_rad_leg.launches = 0
+
+
+def dtp_lin_rad_legW(plan: DTPLinPlan, g: torch.Tensor, x: torch.Tensor, sh: torch.Tensor,
+                     h: torch.Tensor, Wrs: torch.Tensor, n_edges=None) -> torch.Tensor:
+    """K7-LW: the head-weight leg of the radial-folded op, ``F_W(g, x, sh, h,
+    Wrs)``, the gradient of ``W_flat`` [w_numel] in float32; w and z are
+    recomputed on chip.  CPU tensors take ``dtp_lin_rad_legW_plain``; CUDA
+    tensors launch the kernel (float32 or bfloat16) or raise."""
+    if g.device.type == "cpu":
+        return dtp_lin_rad_legW_plain(plan, g, x, sh, h, Wrs, n_edges)
+    E, dev = g.shape[0], g.device
+    g, x, sh, h, _ = _check_leg_operands(plan, "W", g, x, sh, h)
+    Wl = _local_radial(plan, Wrs, g)
+    n_edges = _check_n_edges(n_edges, E, dev)
+    dW = torch.zeros((plan.w_numel,), dtype=torch.float32, device=dev)
+    if E == 0:
+        return dW
+    gk, terms, coeffs, _, _, span_max, cols_pad_max = plan.bwd_tables(dev)
+    n_parts = min(-(-E // BWD_TILE), RAD_BWD_BLOCKS_PER_SM * _sm_count(dev))
+    part = torch.empty((n_parts, plan.w_numel), dtype=torch.float32, device=dev)
+    err = _build.library().dtp_lin_rad_legW(
+        _build.ptr(x), x.stride(0), _build.ptr(sh), plan.d_sh, _build.ptr(g), plan.d_out,
+        _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0], _build.ptr(terms),
+        _build.ptr(coeffs), _build.ptr(part), n_parts, _build.ptr(dW), plan.w_numel,
+        cols_pad_max, plan.max_fan_stride, span_max, _build.ptr(h), plan.radial_fold,
+        _build.ptr(Wl), Wl.shape[1], _build.dtype_code(g), _build.stream_ptr(),
+    )
+    _build.check(err, "dtp_lin_rad_legW")
+    dtp_lin_rad_legW.launches += 1
+    return dW
+
+
+dtp_lin_rad_legW.launches = 0
+
+
+def dtp_lin_rad_legWr(plan: DTPLinPlan, g: torch.Tensor, x: torch.Tensor, sh: torch.Tensor,
+                      h: torch.Tensor, W_flat: torch.Tensor, n_edges=None,
+                      ones: bool = True) -> torch.Tensor:
+    """K7-Wr: the [Wr; offset] leg of the radial-folded op, ``F_Wr(g, x, sh,
+    h, W)`` = [h, 1]^T dw [hd + 1, d_w] in float32, summed over the edge
+    tiles in a fixed order; dw stays on chip.  ``ones=False`` when h's slot
+    holds a tangent or a cotangent (its appended column is 0, and so is the
+    offset row).  Columns of no live group get 0.  CPU tensors take
+    ``dtp_lin_rad_legWr_plain``; CUDA tensors launch the kernel (float32 or
+    bfloat16) or raise."""
+    if g.device.type == "cpu":
+        return dtp_lin_rad_legWr_plain(plan, g, x, sh, h, W_flat, n_edges, ones)
+    E, dev, hd = g.shape[0], g.device, plan.radial_fold
+    g, x, sh, h, W_flat = _check_leg_operands(plan, "Wr", g, x, sh, h, W_flat)
+    n_edges = _check_n_edges(n_edges, E, dev)
+    cols = plan.radial_cols(dev)
+    n_loc = cols.numel()
+    red = torch.zeros(((hd + 1) * n_loc,), dtype=torch.float32, device=dev)
+    if E > 0:
+        gk, terms, coeffs, _, wt_index, span_max, cols_pad_max = bwd3_tables(plan, dev)
+        WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+        n_parts = min(-(-E // BWD_TILE), RAD_BWD_BLOCKS_PER_SM * _sm_count(dev))
+        part = _workspace(dev, n_parts * red.numel())
+        err = _build.library().dtp_lin_rad_legWr(
+            _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(WT),
+            _build.ptr(g), plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0],
+            _build.ptr(terms), _build.ptr(coeffs), span_max, cols_pad_max, plan.max_fan_stride,
+            _build.ptr(h), hd, n_loc, _build.ptr(part), n_parts, _build.ptr(red), int(ones),
+            _build.dtype_code(g), _build.stream_ptr(),
+        )
+        _build.check(err, "dtp_lin_rad_legWr")
+        dtp_lin_rad_legWr.launches += 1
+    dWrs = torch.zeros((hd + 1, plan.d_w), dtype=torch.float32, device=dev)
+    dWrs[:, cols] = red.view(hd + 1, n_loc)
+    return dWrs
+
+
+dtp_lin_rad_legWr.launches = 0
+
+
 def leg_occupancy(plan: DTPLinPlan, dtype: torch.dtype, out_leg: str) -> int:
-    """Resident blocks per SM of K5b's ``out_leg`` kernel ("x", "sh", "w") or
-    of K5c ("W") at this plan's shared memory; needs the card."""
+    """Resident blocks per SM at this plan's shared memory of K5b's
+    ``out_leg`` kernel ("x", "sh", "w") or K5c ("W"); on a radial-folded plan
+    of K7-L's ("x", "sh", "h"), K7-Wr ("Wr") or K7-LW ("W").  Needs the card."""
     *_, span_max, cols_pad_max = bwd3_tables(plan, torch.device("cpu"))
     code = _build.dtype_code(torch.empty((), dtype=dtype))
+    hd = plan.radial_fold or 0
     if out_leg == "W":
-        blocks = _build.library().dtp_lin_legW_occupancy(cols_pad_max, plan.max_fan_stride, code)
+        blocks = _build.library().dtp_lin_legW_occupancy(cols_pad_max, plan.max_fan_stride,
+                                                         span_max, hd, code)
     else:
         blocks = _build.library().dtp_lin_leg_occupancy(
-            EDGE_LEGS.index(out_leg), plan.d_x, plan.d_sh, span_max, cols_pad_max,
-            plan.max_fan_stride, code)
+            ("x", "sh", "w", "h", "Wr").index(out_leg), plan.d_x, plan.d_sh, span_max,
+            cols_pad_max, plan.max_fan_stride, hd, code)
     if blocks < 0:
         _build.check(-blocks, "leg_occupancy")
     return blocks
 
 
-def _leg_value(plan: DTPLinPlan, out_leg: str, n_edges, ops: dict) -> torch.Tensor:
+def legs_of(plan: DTPLinPlan):
+    """(the op's legs, its per-edge legs) on this plan: JAX's ``_legs_of`` and
+    ``_edge_legs`` (a shared-weight plan's w slot stays None)."""
+    return (LEGS_RAD, EDGE_LEGS_RAD) if plan.radial_fold is not None else (LEGS, EDGE_LEGS)
+
+
+def _leg_value(plan: DTPLinPlan, out_leg: str, n_edges, ones: bool, ops: dict) -> torch.Tensor:
     """``F_out_leg`` of the other legs' operands, through the kernel wrappers."""
+    if plan.radial_fold is None:
+        if out_leg == "out":
+            return dtp_lin_fwd(plan, ops["x"], ops["sh"], ops["w"], ops["W"], n_edges)
+        if out_leg == "W":
+            return dtp_lin_legW(plan, ops["out"], ops["x"], ops["sh"], ops["w"], n_edges)
+        return dtp_lin_leg(plan, out_leg, ops["out"], ops["x"], ops["sh"], ops["w"], ops["W"],
+                           n_edges)
     if out_leg == "out":
-        return dtp_lin_fwd(plan, ops["x"], ops["sh"], ops["w"], ops["W"], n_edges)
+        return dtp_lin_rad_fwd(plan, ops["x"], ops["sh"], ops["h"], ops["Wr"], ops["W"], n_edges)
     if out_leg == "W":
-        return dtp_lin_legW(plan, ops["out"], ops["x"], ops["sh"], ops["w"], n_edges)
-    return dtp_lin_leg(plan, out_leg, ops["out"], ops["x"], ops["sh"], ops["w"], ops["W"],
-                       n_edges)
+        return dtp_lin_rad_legW(plan, ops["out"], ops["x"], ops["sh"], ops["h"], ops["Wr"],
+                                n_edges)
+    if out_leg == "Wr":
+        return dtp_lin_rad_legWr(plan, ops["out"], ops["x"], ops["sh"], ops["h"], ops["W"],
+                                 n_edges, ones)
+    return dtp_lin_rad_leg(plan, out_leg, ops["out"], ops["x"], ops["sh"], ops["h"], ops["Wr"],
+                           ops["W"], n_edges)
 
 
-def _apply_leg(plan: DTPLinPlan, out_leg: str, n_edges, ops: dict, like: torch.Tensor):
+def _put(ops: dict, ones: bool, leg: str, c: torch.Tensor):
+    """``ops`` with the cotangent ``c`` in ``leg``'s slot, and the value of
+    h's appended column that goes with them: the ones-column rule.
+
+    The port's folded op is affine in h (the kernels append h's ones column
+    themselves: w = [h, 1] @ [Wr; offset]); it is multilinear in [h, 1].  A
+    tangent or a cotangent carried in h's slot has 0 in that column, so the
+    legs called with one there see [Wr; 0] (``torch.cat`` on the tensor, so
+    autograd gives the offset no gradient through them) and K7-Wr's offset
+    row is 0 (``ones`` False, passed on to every leg below).  JAX needs no
+    rule: ``plan.pad_h`` puts [h, 1, 0...] into the operand outside its
+    primitives, and its tangents have a 0 there by construction."""
+    ops = {**ops, leg: c}
+    if leg == "h" and ones:
+        Wrs = ops["Wr"]
+        ops["Wr"] = torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])
+        ones = False
+    return ops, ones
+
+
+def _apply_leg(plan: DTPLinPlan, out_leg: str, n_edges, ones: bool, ops: dict,
+               like: torch.Tensor):
     """``_Leg.apply`` on ``ops`` cast to the op's compute dtype, its result in
-    ``like``'s dtype (the W leg comes back in float32)."""
+    ``like``'s dtype (the W and Wr legs come back in float32)."""
     dt = next(ops[leg] for leg in ("sh", "x", "out") if ops[leg] is not None).dtype
-    args = [None if leg == out_leg or ops[leg] is None else ops[leg].to(dt) for leg in LEGS]
-    return _Leg.apply(plan, out_leg, n_edges, *args).to(like.dtype)
+    args = [None if leg == out_leg or ops[leg] is None else ops[leg].to(dt)
+            for leg in legs_of(plan)[0]]
+    return _Leg.apply(plan, out_leg, n_edges, ones, *args).to(like.dtype)
 
 
 class _Leg(torch.autograd.Function):
     """One leg of the fused op as a function of the others: ``forward(plan,
-    out_leg, n_edges, out, x, sh, w, W)`` with None in ``out_leg``'s slot
-    (and in w's for a shared-weight plan).  The gradient of an operand is the
-    leg function of that operand with the cotangent in ``out_leg``'s slot;
-    the out leg's edge gradients (x, sh, w) come from one ``_Bwd3`` when at
-    least two are asked for."""
+    out_leg, n_edges, ones, *ops)``, the operands in ``legs_of(plan)``'s
+    order with None in ``out_leg``'s slot (and in w's for a shared-weight
+    plan); ``ones`` is the value of h's appended column on a folded plan
+    (``_put``).  The gradient of an operand is the leg function of that
+    operand with the cotangent in ``out_leg``'s slot; the out leg's edge
+    gradients come from one ``_Bwd3`` when at least two are asked for."""
 
     @staticmethod
-    def forward(ctx, plan, out_leg, n_edges, *ops):
-        ctx.plan, ctx.out_leg = plan, out_leg
+    def forward(ctx, plan, out_leg, n_edges, ones, *ops):
+        ctx.plan, ctx.out_leg, ctx.ones = plan, out_leg, ones
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(n_edges, *ops)
-        return _leg_value(plan, out_leg, n_edges, dict(zip(LEGS, ops)))
+        return _leg_value(plan, out_leg, n_edges, ones, dict(zip(legs_of(plan)[0], ops)))
 
     @staticmethod
     def backward(ctx, c):
-        if c is None:
-            return (None,) * 8
         plan, out_leg = ctx.plan, ctx.out_leg
+        legs, edge_legs = legs_of(plan)
+        if c is None:
+            return (None,) * (4 + len(legs))
         n_edges, *saved = ctx.saved_tensors
-        ops = dict(zip(LEGS, saved))
-        live = [leg for leg, need in zip(LEGS, ctx.needs_input_grad[3:])
+        ops = dict(zip(legs, saved))
+        live = [leg for leg, need in zip(legs, ctx.needs_input_grad[4:])
                 if need and leg not in _SKIPPED_LEGS]
         grads = {}
-        edge = [leg for leg in live if leg in EDGE_LEGS]
+        edge = [leg for leg in live if leg in edge_legs]
         if out_leg == "out" and len(edge) >= 2:
-            outs = _Bwd3.apply(plan, n_edges, c, ops["x"], ops["sh"], ops["w"], ops["W"],
-                               *(leg in edge for leg in EDGE_LEGS))
-            grads = {leg: o for leg, o in zip(EDGE_LEGS, outs) if leg in edge}
+            outs = _Bwd3.apply(plan, n_edges, ctx.ones, tuple(leg in edge for leg in edge_legs),
+                               c, *saved[1:])
+            grads = {leg: o for leg, o in zip(edge_legs, outs) if leg in edge}
             live = [leg for leg in live if leg not in edge]
+        child, ones = _put(ops, ctx.ones, out_leg, c)
         for leg in live:
-            grads[leg] = _apply_leg(plan, leg, n_edges, {**ops, out_leg: c}, ops[leg])
-        return (None, None, None) + tuple(grads.get(leg) for leg in LEGS)
+            grads[leg] = _apply_leg(plan, leg, n_edges, ones, child, ops[leg])
+        return (None,) * 4 + tuple(grads.get(leg) for leg in legs)
 
 
 class _Bwd3(torch.autograd.Function):
-    """(dx, dsh, dw) = (F_x, F_sh, F_w)(g, ...) in one K5a launch, each None
-    when not needed.  dx does not depend on x, dsh on sh, nor dw on w, so the
-    backward differentiates each output through its own leg function: for
-    the cotangent of output ``o`` and the operand ``t``, the leg function of
-    ``t`` with the cotangent in ``o``'s slot."""
+    """The out leg's edge gradients, (F_x, F_sh, F_w)(g, ...) in one K5a
+    launch, or on a folded plan (F_x, F_sh, F_h)(g, ...) in one K7-B3
+    launch; each None when not needed (``need``).  dx does not depend on x,
+    dsh on sh, nor dw (dh) on w (h), so the backward differentiates each
+    output through its own leg function: for the cotangent of output ``o``
+    and the operand ``t``, the leg function of ``t`` with the cotangent in
+    ``o``'s slot (JAX's ``_bwd3_jvp``)."""
 
     @staticmethod
-    def forward(ctx, plan, n_edges, g, x, sh, w, W, need_dx, need_dsh, need_dw):
-        ctx.plan = plan
+    def forward(ctx, plan, n_edges, ones, need, g, *ops):
+        ctx.plan, ctx.ones = plan, ones
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(n_edges, g, x, sh, w, W)
-        return dtp_lin_bwd3(plan, x, sh, w, W, g, n_edges, need_dx, need_dsh, need_dw)
+        ctx.save_for_backward(n_edges, g, *ops)
+        o = dict(zip(legs_of(plan)[0][1:], ops))
+        if plan.radial_fold is None:
+            return dtp_lin_bwd3(plan, o["x"], o["sh"], o["w"], o["W"], g, n_edges, *need)
+        dx, dsh, dh = dtp_lin_rad_bwd3(plan, o["x"], o["sh"], o["h"], o["Wr"], o["W"], g,
+                                       n_edges, *need[:2])
+        return dx, dsh, dh if need[2] else None
 
     @staticmethod
     def backward(ctx, *cots):
         plan = ctx.plan
+        legs, edge_legs = legs_of(plan)
         n_edges, *saved = ctx.saved_tensors
-        ops = dict(zip(LEGS, saved))
-        live = [leg for leg, need in zip(LEGS, ctx.needs_input_grad[2:7])
+        ops = dict(zip(legs, saved))
+        live = [leg for leg, need in zip(legs, ctx.needs_input_grad[4:])
                 if need and leg not in _SKIPPED_LEGS]
         grads = {}
-        for o, c in zip(EDGE_LEGS, cots):
+        for o, c in zip(edge_legs, cots):
             if c is None:
                 continue
+            child, ones = _put(ops, ctx.ones, o, c)
             for t in live:
                 if t == o:
                     continue
-                term = _apply_leg(plan, t, n_edges, {**ops, o: c}, ops[t])
+                term = _apply_leg(plan, t, n_edges, ones, child, ops[t])
                 grads[t] = term if t not in grads else grads[t] + term
-        return (None, None) + tuple(grads.get(leg) for leg in LEGS) + (None, None, None)
-
-
-_FOLD_NEXT = ("the radial-folded force op has K7-F and K7-B3 only: {what} needs the "
-              "folded leg kernels K7-L, K7-LW and K7-Wr, which are not ported yet "
-              "(build the model without radial_fold_ho)")
-
-
-class _RadHO(torch.autograd.Function):
-    """The radial-folded force op: K7-F forward, K7-B3 backward (dx, dsh,
-    dh); first order only.  Force evaluation differentiates the energy with
-    respect to positions with detached parameters, which is all this op
-    supports; a ``create_graph=True`` backward (force training) or a
-    gradient of [Wr; offset] or W raises."""
-
-    @staticmethod
-    def forward(ctx, plan, n_edges, x, sh, h, Wrs, W):
-        ctx.plan = plan
-        ctx.save_for_backward(n_edges, x, sh, h, Wrs, W)
-        return dtp_lin_rad_fwd(plan, x, sh, h, Wrs, W, n_edges)
-
-    @staticmethod
-    def backward(ctx, g):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(_FOLD_NEXT.format(what="create_graph=True"))
-        need = ctx.needs_input_grad
-        if need[5] or need[6]:
-            raise NotImplementedError(_FOLD_NEXT.format(
-                what="the gradient of [Wr; offset] or of the head weights"))
-        if not any(need[2:5]):
-            return (None,) * 7
-        n_edges, x, sh, h, Wrs, W = ctx.saved_tensors
-        dx, dsh, dh = dtp_lin_rad_bwd3(ctx.plan, x, sh, h, Wrs, W, g, n_edges,
-                                       need_dx=need[2], need_dsh=need[3])
-        return None, None, dx, dsh, dh if need[4] else None, None, None
+        return (None,) * 4 + tuple(grads.get(leg) for leg in legs)
 
 
 def dtp_lin_ho(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
@@ -467,9 +668,13 @@ def dtp_lin_ho(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w: torch.Ten
     the autograd ops.  The forward is K1; the backward K5a for the edge legs
     (one K5b leg when only one is needed) and K5c for ``W_flat``; under
     ``create_graph=True`` their own backwards are further legs.  On a plan
-    with ``radial_fold``, ``w`` may be ``(h, plan.pack_radial(Wr, offset))``:
-    then the op is ``_RadHO`` (first order in x, sh and h)."""
+    with ``radial_fold``, ``w`` is ``(h, plan.pack_radial(Wr, offset))`` and
+    the op is differentiable to any order in x, sh, h, [Wr; offset] and
+    ``W_flat``: K7-F forward, K7-B3 for the edge legs (one K7-L leg when
+    only one is needed), K7-Wr for [Wr; offset], K7-LW for ``W_flat``."""
     if isinstance(w, tuple):
-        return _RadHO.apply(plan, n_edges, x, sh, *w, W_flat)
+        if plan.radial_fold is None:
+            raise ValueError("(h, [Wr; offset]) needs a plan with radial_fold")
+        return _Leg.apply(plan, "out", n_edges, True, None, x, sh, *w, W_flat)
     w, W_flat = fold_shared_weights(plan, w, W_flat)
-    return _Leg.apply(plan, "out", n_edges, None, x, sh, w, W_flat)
+    return _Leg.apply(plan, "out", n_edges, True, None, x, sh, w, W_flat)

@@ -26,8 +26,9 @@ without ``higher_order_grads`` only).  ``radial_fold`` (JAX's
 ``EQUIFORMER_TPU_FOLD_RADIAL=1``) folds the radial MLPs' final linear layers
 of the per-edge-weight sites (the 6 ``sep_act`` and the edge degree) into the
 fused op's kernels (K7); force models fold only with ``radial_fold_ho`` too
-(``EQUIFORMER_TPU_FOLD_RADIAL_HO=1``), and then support force evaluation,
-not force training.  The parameters are the same on every route.
+(``EQUIFORMER_TPU_FOLD_RADIAL_HO=1``), and then run force evaluation and
+force training on the folded leg kernels.  The parameters are the same on
+every route.
 
 ``module.training`` plays the role of JAX's ``deterministic=False``: alpha
 dropout on the attention weights, and the equivariant dropouts and drop path

@@ -43,14 +43,16 @@ def energy_and_forces(model: torch.nn.Module, batch: GraphsTuple, create_graph: 
     the energy and the forces carry the graph that the loss is then
     differentiated through, a grad-of-grad on the fused DTP's leg kernels
     (``kernels/dtp_lin_ho.py``) or, unfused, on T and R (``kernels/dtp.py``).
-    This pass needs no gradient of the parameters, so it skips the W leg:
-    the fused op's head weights, the unfused route's broadcast operands."""
+    This pass needs no gradient of the parameters, so it skips the W leg
+    (the fused op's head weights, the unfused route's broadcast operands)
+    and the radial fold's Wr leg ([Wr; offset]); not h, which depends on the
+    positions through the radial basis."""
     pos = batch.pos.detach().requires_grad_(True)
     b = dataclasses.replace(batch, pos=pos)
     with torch.enable_grad():
         if create_graph:
             energy = model(b, rng=rng)
-            with skip_leg_grads("W"):
+            with skip_leg_grads("W", "Wr"):
                 (grad,) = torch.autograd.grad(energy, pos, torch.ones_like(energy),
                                               create_graph=True)
         else:

@@ -179,8 +179,9 @@ class SeparableFCTP(nn.Module):
     (JAX's ``EQUIFORMER_TPU_FOLD_RADIAL=1``) folds the radial MLP's final
     linear layer into the fused op at an external-weight site (K7-F and
     K7-B); with ``higher_order_grads`` it also needs ``radial_fold_ho``
-    (``EQUIFORMER_TPU_FOLD_RADIAL_HO=1``: K7-F and K7-B3, force evaluation
-    only).  Both default off, as in JAX.  The parameters are the same on
+    (``EQUIFORMER_TPU_FOLD_RADIAL_HO=1``: K7-F and K7-B3, and in force
+    training's grad-of-grad K7-L, K7-LW and K7-Wr).  Both default off, as
+    in JAX.  The parameters are the same on
     every route.
     """
 

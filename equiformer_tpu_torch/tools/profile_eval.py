@@ -19,11 +19,11 @@ and forces); with ``--md17-train`` the unit is one step of
 grad-of-grad).  ``--unfused`` builds the model with ``fused_dtp_lin=False``:
 every DTP call site on the T / R primitives (K6) with the linear heads
 after it, instead of the fused DTP + linear op.  ``--radial-fold`` builds
-it with ``radial_fold=True`` (and for ``--md17`` also ``radial_fold_ho``):
-the radial MLPs' final linear layers of the 7 per-edge-weight sites run
-inside the fused op (K7-F forward; K7-B, or K7-B3 for the force
-evaluation, backward); the folded force op has no grad-of-grad yet, so
-``--md17-train`` does not take it.  For float32 and bfloat16, per unit:
+it with ``radial_fold=True`` (and for ``--md17`` and ``--md17-train`` also
+``radial_fold_ho``): the radial MLPs' final linear layers of the 7
+per-edge-weight sites run inside the fused op (K7-F forward; K7-B, or K7-B3
+for the force pass, backward; in force training's grad-of-grad also the
+leg kernels K7-L, K7-LW and K7-Wr).  For float32 and bfloat16, per unit:
 
 * ``wall_ms``: one pass over the batches, ending in a synchronize, divided
   by the batch count (median of 5 passes, no profiler);
@@ -182,13 +182,10 @@ def main() -> int:
                            help="build the model with fused_dtp_lin=False (the DTP on K6)")
     route_arg.add_argument("--radial-fold", action="store_true",
                            help="build the model with radial_fold=True (and radial_fold_ho "
-                                "for --md17): the radial MLPs' last layers inside the fused "
-                                "op (K7)")
+                                "for --md17 and --md17-train): the radial MLPs' last layers "
+                                "inside the fused op (K7)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
-    if args.radial_fold and args.md17_train:
-        ap.error("--radial-fold has no force training yet (the folded leg kernels K7-L, "
-                 "K7-LW, K7-Wr are not ported)")
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False

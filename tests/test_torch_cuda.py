@@ -692,3 +692,119 @@ def test_reduced_folded_units_on_card_match_cpu(dev):
         assert _rel(card[k], ref[k]) <= 3.0 * _rel(cpu[k], ref[k]) + 1e-6, k
     assert (c["dtp_lin_rad_fwd"], c["dtp_lin_rad_bwd3"], c["dtp_lin_fwd"], c["dtp_lin_bwd3"]) == (
         3, 3, 2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("plan_name", list(RAD_PLANS))
+def test_radial_fold_leg_kernels_match_plain(dev, plan_name, dtype):
+    """K7-L (each of the x, sh and h legs, without the operand of that leg),
+    K7-LW and K7-Wr (with h's ones column 1, and 0 as when h's slot holds a
+    cotangent) against their plain versions on the same operands, with a
+    row-broadcast x and n_edges below E: rows past n_edges get zeros and add
+    nothing to d[Wr; offset]; w columns of no live group get an exact 0;
+    second calls give the same bits."""
+    from equiformer_tpu_torch.kernels import (
+        dtp_lin_rad_leg, dtp_lin_rad_leg_plain, dtp_lin_rad_legW, dtp_lin_rad_legW_plain,
+        dtp_lin_rad_legWr, dtp_lin_rad_legWr_plain,
+    )
+
+    irr, sh_irr, heads, hd = RAD_PLANS[plan_name]
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(4)
+    plan = DTPLinPlan(depthwise_tp(Irreps(irr), Irreps(sh_irr), Irreps(irr)), heads,
+                      radial_fold=hd)
+    E = 300
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+    sh, h, W, cot = rnd(E, plan.d_sh), rnd(E, hd), rnd(plan.w_numel), rnd(E, plan.d_out)
+    Wrs = plan.pack_radial(0.3 * rnd(hd, plan.d_w), 0.3 * rnd(plan.d_w))
+    n = torch.tensor(250, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    for x in (rnd(E, plan.d_x), rnd(1, plan.d_x).expand(E, plan.d_x)):
+        for leg in ("x", "sh", "h"):
+            ops = {"x": x, "sh": sh, "h": h, leg: None}
+            call = lambda: dtp_lin_rad_leg(plan, leg, cot, ops["x"], ops["sh"], ops["h"],  # noqa: E731
+                                           Wrs, W, n)
+            k = call()
+            p = dtp_lin_rad_leg_plain(plan, leg, cot, ops["x"], ops["sh"], ops["h"], Wrs, W, n)
+            torch.cuda.synchronize()
+            assert k.dtype == dt and k.shape == p.shape, leg
+            assert _rel(k, p) < TOL[dtype], leg
+            assert float(k[250:].abs().max()) == 0.0, leg
+            assert torch.equal(k, call()), leg
+        k = dtp_lin_rad_legW(plan, cot, x, sh, h, Wrs, n)
+        p = dtp_lin_rad_legW_plain(plan, cot, x, sh, h, Wrs, n)
+        torch.cuda.synchronize()
+        assert k.dtype == torch.float32 and k.shape == (plan.w_numel,)
+        assert _rel(k, p) < TOL[dtype]
+        assert torch.equal(k, dtp_lin_rad_legW(plan, cot, x, sh, h, Wrs, n))
+        dead = torch.ones(plan.d_w, dtype=torch.bool, device=dev)
+        dead[plan.radial_cols(dev)] = False
+        assert bool(dead.any()) == (plan_name == "dead-w-cols")
+        for ones in (True, False):
+            k = dtp_lin_rad_legWr(plan, cot, x, sh, h, W, n, ones)
+            p = dtp_lin_rad_legWr_plain(plan, cot, x, sh, h, W, n, ones)
+            torch.cuda.synchronize()
+            assert k.dtype == torch.float32 and k.shape == (hd + 1, plan.d_w)
+            assert _rel(k, p) < TOL[dtype]
+            assert (float(k[-1].abs().max()) == 0.0) == (not ones)
+            assert float(k[:, dead].abs().sum()) == 0.0
+            assert torch.equal(k, dtp_lin_rad_legWr(plan, cot, x, sh, h, W, n, ones))
+        # padded rows add nothing, to the offset row too
+        far = torch.where(torch.arange(E, device=dev)[:, None] < 250, cot, 100 * cot)
+        assert torch.equal(dtp_lin_rad_legWr(plan, far, x, sh, h, W, n),
+                           dtp_lin_rad_legWr(plan, cot, x, sh, h, W, n))
+    assert (dtp_lin_rad_leg.launches, dtp_lin_rad_legW.launches,
+            dtp_lin_rad_legWr.launches) == (12, 4, 12)
+
+
+@pytest.mark.cuda
+def test_reduced_folded_md17_train_step_on_card_matches_cpu(dev):
+    """One fp32 force training step of a reduced L3 model with
+    ``radial_fold`` and ``radial_fold_ho`` (2 blocks, exp basis, force_weight
+    80) on the card against the CPU plain path: loss and gradient norm
+    within 1e-3 relative and the updated parameters within 1e-3 of the
+    largest, the bounds of the unfolded step's test; the 3 folded sites run
+    on K7-F / K7-B3 / K7-L / K7-LW / K7-Wr and the 2 shared-weight ones on
+    K1 / K5a / K5b / K5c; two steps from one state give the same bits."""
+    import copy
+
+    import equiformer_tpu_torch as pt
+    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
+    from equiformer_tpu_torch.kernels import launch_counts
+    from equiformer_tpu_torch.models import md17_models
+    from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer
+
+    cfg = dict(irreps_node_embedding=L3_IRR, num_layers=2, irreps_sh=L3_SH,
+               number_of_basis=32, basis_type="exp", fc_neurons=(16, 16),
+               irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e+2x3e", num_heads=4,
+               irreps_mlp_mid="24x0e+12x1e+12x2e+6x3e", alpha_drop=0.0, max_atom_type=64,
+               avg_num_nodes=md17_models._AVG_NUM_NODES_MD17,
+               avg_degree=md17_models._AVG_DEGREE_MD17, max_edges=1024, nodes_per_graph=21,
+               radial_fold=True, radial_fold_ho=True)
+    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, 21, shuffle=False,
+                                  with_forces=True)))
+    results = []
+    for d in ("cpu", dev, dev):
+        model = GraphAttentionTransformer(**cfg).to(d)
+        opt = pt.create_optimizer(pt.cosine_warmup_schedule(5e-4, 100, 100000), weight_decay=1e-6)
+        step, _ = pt.make_md17_steps(model, opt, energy_weight=1.0, force_weight=80.0)
+        reset_launch_counts()
+        _, m = step(pt.TrainState.create(model, opt), batch.to(d))
+        results.append(({k: float(v) for k, v in m.items()},
+                        copy.deepcopy({n: p.detach().cpu() for n, p in model.named_parameters()})))
+    # per folded site (the edge degree, each block's sep_act) what the
+    # unfolded per-edge-w site launches on K1 / K5a / K5b / K5c goes to K7-F
+    # / K7-B3 / K7-L / K7-LW, and each K7-LW has a K7-Wr beside it; the 2
+    # sep_value sites keep 3 K1, 1 K5a, 2 K5b, 3 K5c each (counted on the CPU)
+    c = launch_counts()
+    assert (c["dtp_lin_fwd"], c["dtp_lin_bwd3"], c["dtp_lin_leg"], c["dtp_lin_legW"]) \
+        == (6, 2, 4, 6)
+    assert (c["dtp_lin_rad_fwd"], c["dtp_lin_rad_bwd3"], c["dtp_lin_rad_leg"],
+            c["dtp_lin_rad_legW"], c["dtp_lin_rad_legWr"]) == (11, 6, 11, 11, 11)
+    (mc, pc), (mg, pg), (mg2, pg2) = results
+    for k in ("loss", "grad_norm"):
+        assert abs(mg[k] - mc[k]) < 1e-3 * abs(mc[k])
+    scale = max(float(p.abs().max()) for p in pc.values())
+    assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-3 * scale
+    assert mg == mg2 and all(torch.equal(pg[n], pg2[n]) for n in pg)

@@ -289,8 +289,9 @@ def test_folded_first_order_op_matches_jax_composition(case):
 def test_folded_force_op_matches_jax_composition(case):
     """``dtp_lin_ho`` with ``(h, [Wr; offset])`` (K7-F forward, K7-B3
     backward): the values and dx, dsh, dh of a scalar loss; parameters
-    detached, as in a force evaluation.  A ``create_graph=True`` pass, or a
-    gradient of [Wr; offset] or W, raises ``NotImplementedError``."""
+    detached, as in a force evaluation.  A ``create_graph=True`` pass and a
+    gradient of [Wr; offset] give JAX's second-order and parameter
+    gradients (the folded leg kernels K7-L, K7-LW, K7-Wr behind them)."""
     heads = HEADS[case]
     c = _case(heads, seed=1)
     plan = _plan(heads)
@@ -311,11 +312,186 @@ def test_folded_force_op_matches_jax_composition(case):
     tg = torch.autograd.grad(tl, [lv["x"], lv["sh"], lv["h"]], retain_graph=True)
     for got, want in zip(tg, jg):
         assert _rel(got.numpy(), want) < TOL
-    with pytest.raises(NotImplementedError, match="K7-L, K7-LW and K7-Wr"):
-        torch.autograd.grad(tl, [lv["x"]], create_graph=True)
+    # second order: |dx|^2 differentiated with respect to sh and h
+    (dx,) = torch.autograd.grad(tl, [lv["x"]], create_graph=True)
+    assert _rel(dx.detach().numpy(), jg[0]) < TOL
+    second = torch.autograd.grad(dx.square().sum(), [lv["sh"], lv["h"]])
+    jsecond = jax.jit(jax.grad(lambda sh, h: jnp.sum(jax.grad(loss, 0)(jargs[0], sh, h) ** 2),
+                               argnums=(0, 1)))(*jargs[1:3])
+    for got, want in zip(second, jsecond):
+        assert _rel(got.numpy(), want) < TOL
+    # the parameter gradients: x and [Wr; offset] through its rows
     lw = _leaves(c, grad=("x", "Wr"))
-    with pytest.raises(NotImplementedError, match="K7-L, K7-LW and K7-Wr"):
-        sum(o.sum() for o in _port_out(dtp_lin_ho, plan, c, lw, N_REAL)).backward()
+    sum(o.sum() for o in _port_out(dtp_lin_ho, plan, c, lw, N_REAL)).backward()
+    jw = jax.jit(jax.grad(lambda x, Wr: sum(jnp.sum(o) for o in f(
+        x, jargs[1], jargs[2], Wr, jargs[4], jhw)), argnums=(0, 1)))(jargs[0], jargs[3])
+    assert _rel(lw["x"].grad.numpy(), jw[0]) < TOL and _rel(lw["Wr"].grad.numpy(), jw[1]) < TOL
+
+
+def _jax_vjps(heads, c, at_h, off, cots):
+    """jax.vjp of the JAX composition with the heads' cotangents, at h =
+    ``at_h`` and the given offset: (dx, dsh, dh, dWr, doffset, the heads'
+    weight gradients)."""
+    f = _jax_composed(heads, N_REAL)
+    jhw = [[None if a is None else jnp.asarray(a) for a in ws] for ws in c["head_ws"]]
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (c["x"], c["sh"], at_h, c["Wr"], off)), jhw)
+    return vjp([jnp.asarray(g) for g in cots])
+
+
+def _flat_cot(plan, head_cots):
+    """The heads' cotangents in the fused flat output's layout."""
+    probe = torch.zeros(E, plan.d_out, dtype=torch.float64, requires_grad=True)
+    return torch.autograd.grad(plan.split_output(probe), probe, [_t(g) for g in head_cots])[0]
+
+
+@pytest.mark.parametrize("case", list(HEADS))
+def test_folded_leg_plains_match_jax_vjps(case):
+    """The folded legs' plain versions (K7-L: F_x, F_sh, F_h; K7-LW: F_W,
+    carried back to the heads' weights; K7-Wr: F_Wr) against jax.vjp of the
+    unfolded composition ``w = h @ Wr + offset; lin(dtp(x, sh, w))``, fp64,
+    1e-9, with a nonzero offset and padded rows past n_edges.  With the
+    primal h in h's slot the offset row of F_Wr is doffset; with a tangent
+    there (the ones-column rule: [Wr; 0] to the other legs, ones=False to
+    F_Wr) the legs are JAX's at that h and offset 0, and the offset row is
+    0."""
+    from equiformer_tpu_torch.kernels import (
+        dtp_lin_rad_leg_plain, dtp_lin_rad_legW_plain, dtp_lin_rad_legWr_plain,
+    )
+
+    heads = HEADS[case]
+    c = _case(heads, seed=11)
+    plan = _plan(heads)
+    cots = [np.random.default_rng(12).normal(size=(E, Irreps(h).dim)) for h in heads]
+    g = _flat_cot(plan, cots)
+    n = torch.tensor(N_REAL, dtype=torch.int32)
+    tangent = np.random.default_rng(13).normal(size=c["h"].shape)
+    lv = _leaves(c, grad=("head_ws",))
+    W = plan.pack_weights(lv["head_ws"])
+    hws = [a for ws in lv["head_ws"] for a in ws if a is not None]
+    x, sh = lv["x"], lv["sh"]
+    Wrs = plan.pack_radial(lv["Wr"], lv["off"])
+    for at_h, ones in ((c["h"], True), (tangent, False)):
+        jdx, jdsh, jdh, jdWr, jdoff, jdws = _jax_vjps(
+            heads, c, at_h, c["off"] if ones else np.zeros_like(c["off"]), cots)
+        h = _t(at_h)
+        Wh = Wrs if ones else torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])
+        with torch.no_grad():
+            dx = dtp_lin_rad_leg_plain(plan, "x", g, None, sh, h, Wh, W, n)
+            dsh = dtp_lin_rad_leg_plain(plan, "sh", g, x, None, h, Wh, W, n)
+            dh = dtp_lin_rad_leg_plain(plan, "h", g, x, sh, None, Wh, W, n)
+            dWrs = dtp_lin_rad_legWr_plain(plan, g, x, sh, h, W, n, ones)
+        dW = dtp_lin_rad_legW_plain(plan, g, x, sh, h, Wh, n)
+        for got, want in ((dx, jdx), (dsh, jdsh), (dh, jdh)):
+            assert _rel(got.numpy(), want) < TOL
+            assert float(got[N_REAL:].abs().sum()) == 0.0  # padded rows
+        assert _rel(dWrs[:-1].numpy(), jdWr) < TOL
+        assert dWrs.dtype == torch.float64 and dWrs.shape == (HD + 1, plan.d_w)
+        if ones:
+            assert _rel(dWrs[-1].numpy(), jdoff) < TOL
+        else:
+            assert float(dWrs[-1].abs().max()) == 0.0
+        want = [a for ws in jdws for a in ws if a is not None]
+        for got, j in zip(torch.autograd.grad(W, hws, dW), want):
+            assert _rel(got.numpy(), j) < TOL
+
+
+def _grad_of_grad_jax(heads, c):
+    """JAX's grad of the force-training pattern on the composition: energy
+    = sum tanh(out), loss = |dE/dx|^2 + |dE/dsh|^2 + |dE/dh|^2, then
+    d loss / d(x, h, Wr, offset, head weights)."""
+    f = _jax_composed(heads, N_REAL)
+
+    def energy(x, sh, h, Wr, off, hws):
+        return sum(jnp.sum(jnp.tanh(o)) for o in f(x, sh, h, Wr, off, hws))
+
+    def train_loss(x, sh, h, Wr, off, hws):
+        fx, fsh, fh = jax.grad(energy, argnums=(0, 1, 2))(x, sh, h, Wr, off, hws)
+        return jnp.sum(fx ** 2) + jnp.sum(fsh ** 2) + jnp.sum(fh ** 2)
+
+    jhw = [[None if a is None else jnp.asarray(a) for a in ws] for ws in c["head_ws"]]
+    args = [jnp.asarray(c[k]) for k in ("x", "sh", "h", "Wr", "off")]
+    return jax.jit(jax.value_and_grad(train_loss, argnums=(0, 2, 3, 4, 5)))(*args, jhw)
+
+
+@pytest.mark.parametrize("case", list(HEADS))
+def test_folded_op_grad_of_grad_matches_jax(case):
+    """The counterpart of JAX's ``test_rad_fused_grad_of_grad``: energy =
+    sum tanh(out), train_loss = |dE/dx|^2 + |dE/dsh|^2 + |dE/dh|^2 (the
+    port's gradients taken with ``create_graph=True``), differentiated with
+    respect to x, h, Wr, offset and the head weights, against jax.grad of
+    jax.grad of the unfolded composition, fp64, 1e-9, with a nonzero offset
+    and padded rows.  The loss on dh sends a cotangent into h's slot: a
+    missed ones-column rule moves doffset by sum(dw)."""
+    heads = HEADS[case]
+    c = _case(heads, seed=14)
+    plan = _plan(heads)
+    jval, jgrads = _grad_of_grad_jax(heads, c)
+    lv = _leaves(c, grad=("x", "sh", "h", "Wr", "off", "head_ws"))
+    energy = sum(torch.tanh(o).sum() for o in _port_out(dtp_lin_ho, plan, c, lv, N_REAL))
+    fx, fsh, fh = torch.autograd.grad(energy, [lv["x"], lv["sh"], lv["h"]], create_graph=True)
+    loss = fx.square().sum() + fsh.square().sum() + fh.square().sum()
+    hws = [a for ws in lv["head_ws"] for a in ws if a is not None]
+    tg = torch.autograd.grad(loss, [lv[k] for k in ("x", "h", "Wr", "off")] + hws)
+    assert abs(float(loss.detach()) - float(jval)) < TOL * abs(float(jval))
+    want = list(jgrads[:4]) + [a for ws in jgrads[4] for a in ws if a is not None]
+    assert len(want) == len(tg)
+    for got, j in zip(tg, want):
+        assert _rel(got.numpy(), j) < TOL
+
+
+def test_folded_op_gradgradcheck():
+    """torch.autograd's numeric check of the folded family's first and
+    second derivatives in x, sh, h, Wr, offset and W at a tiny size (fp64;
+    2x0e+1x1e features, SH to l=1, two heads, hd 4, 3 edges of which 2
+    real)."""
+    irr = Irreps("2x0e+1x1e")
+    plan = DTPLinPlan(depthwise_tp(irr, Irreps("1x0e+1x1e"), irr), ["3x0e+1x1e", "2x0e"],
+                      radial_fold=4)
+    Ee, n = 3, torch.tensor(2, dtype=torch.int32)
+    g = torch.Generator().manual_seed(9)
+    rnd = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64).requires_grad_()  # noqa: E731
+    ins = [rnd(Ee, plan.d_x), rnd(Ee, plan.d_sh), rnd(Ee, 4), rnd(4, plan.d_w), rnd(plan.d_w),
+           rnd(plan.w_numel)]
+    f = lambda x, sh, h, Wr, off, W: dtp_lin_ho(plan, x, sh, (h, plan.pack_radial(Wr, off)), W,  # noqa: E731
+                                                 n)
+    assert torch.autograd.gradcheck(f, ins)
+    assert torch.autograd.gradgradcheck(f, ins)
+
+
+def test_folded_passes_call_the_folded_leg_kernels(monkeypatch):
+    """Which kernels the two passes of force training call on a folded plan
+    (counted at the wrappers): the force pass (W and Wr skipped) one K7-B3;
+    the parameter pass (sh skipped) walks the K7-B3 node, whose dx, dsh and
+    dh cotangents each go through the leg functions of the other operands
+    (K7-F, K7-L, K7-Wr, K7-LW), and the forward node (K7-B3 for x and h,
+    K7-Wr, K7-LW).  K7-Wr sees h's ones column 0 only below dh's cotangent
+    (the ones-column rule); no unfolded kernel runs."""
+    calls = []
+    names = ("dtp_lin_rad_fwd", "dtp_lin_rad_bwd3", "dtp_lin_rad_leg", "dtp_lin_rad_legW",
+             "dtp_lin_rad_legWr", "dtp_lin_fwd", "dtp_lin_bwd3", "dtp_lin_leg", "dtp_lin_legW")
+    for name in names:
+        def counting(*a, _f=getattr(kho, name), _n=name, **k):
+            tag = {"dtp_lin_rad_leg": lambda: ":" + a[1],
+                   "dtp_lin_rad_legWr": lambda: f":ones={a[7]}"}.get(_n, lambda: "")()
+            calls.append(_n + tag)
+            return _f(*a, **k)
+        monkeypatch.setattr(kho, name, counting)
+    plan, x, sh, h, Wrs, W, g = _kernel_inputs("two-head")
+    x, sh, h, Wrs, W, g = (t.requires_grad_() for t in (x, sh, h, Wrs, W, g))
+    out = kho.dtp_lin_ho(plan, x, sh, (h, Wrs), W)
+    assert calls == ["dtp_lin_rad_fwd"]
+    del calls[:]
+    with kho.skip_leg_grads("W", "Wr"):
+        dx, dsh, dh = torch.autograd.grad(out, (x, sh, h), g, create_graph=True)
+    assert calls == ["dtp_lin_rad_bwd3"]
+    del calls[:]
+    with kho.skip_leg_grads("sh"):
+        torch.autograd.grad(out.sum() + dx.sum() + dsh.sum() + dh.sum(), (g, x, h, Wrs, W))
+    assert sorted(calls) == sorted(
+        ["dtp_lin_rad_fwd"] * 3 + ["dtp_lin_rad_leg:h"] * 2 + ["dtp_lin_rad_leg:x"] * 2
+        + ["dtp_lin_rad_legWr:ones=True"] * 3 + ["dtp_lin_rad_legWr:ones=False"]
+        + ["dtp_lin_rad_legW"] * 4 + ["dtp_lin_rad_bwd3"])
+    assert not kho._SKIPPED_LEGS
 
 
 def test_plan_checks_the_fold():
@@ -437,6 +613,101 @@ def test_rad_kernel_tables_drive_the_plain_math(case):
     for got, want in zip(_emulate_rad_bwd(plan, x, sh, h, Wrs, W, g, N_REAL, bwd3=True),
                          dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, g, n)):
         assert got.shape == want.shape and _rel(got, want) < 1e-6
+
+
+def _emulate_rad_leg(plan, leg, x, sh, h, Wrs, W_flat, g, n_edges, ones=True, n_parts=3,
+                     tile=16):
+    """The folded legs of csrc/dtp_lin_leg.cu (K7-L's "x", "sh", "h"; K7-Wr,
+    "Wr") and csrc/dtp_lin_legW.cu (K7-LW, "W") in torch: per tile the
+    group's w built from the local [Wr; offset] at its first component (x,
+    sh and W legs), then either the z recompute and the block's dW partial
+    row (W) or dz and the leg's term transpose, the group's dw tile
+    contracted at its last component (h: dh += dw Wr^T; Wr: the block's
+    partial rows += [h, one]^T dw); ``n_parts`` blocks walk the tiles, their
+    partial rows summed in block order."""
+    cpu = torch.device("cpu")
+    tabs = plan.bwd_tables(cpu) if leg == "W" else kho.bwd3_tables(plan, cpu)
+    gk, terms, coeffs, _, wt_index, *_ = tabs
+    gk, terms, coeffs = gk.tolist(), terms.tolist(), coeffs.tolist()
+    cols_loc = plan.radial_cols(cpu)
+    Wl, hd, n_loc = Wrs[:, cols_loc], plan.radial_fold, len(cols_loc)
+    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+    E_ = g.shape[0]
+    out = torch.zeros(E_, {"x": plan.d_x, "sh": plan.d_sh, "h": hd}.get(leg, 0), dtype=g.dtype)
+    part = torch.zeros(n_parts, plan.w_numel if leg == "W" else (hd + 1) * n_loc, dtype=g.dtype)
+    for b in range(n_parts):
+        for t in range(b, -(-E_ // tile), n_parts):
+            e0 = t * tile
+            n_live = max(0, min(tile, n_edges - e0, E_ - e0))
+            if n_live == 0:
+                continue
+            rows = slice(e0, e0 + n_live)
+            for fs, cols, out_col, w_off, tb, te, wt_off, cp, sb, sn, first, last in gk:
+                if first:
+                    if leg in ("x", "sh", "W"):
+                        ws = _tile_w(Wl, hd, h[rows], sb, sn)
+                    dws = torch.zeros(n_live, sn, dtype=g.dtype)
+                gt = torch.zeros(n_live, cp, dtype=g.dtype)
+                gt[:, :cols] = g[rows, out_col : out_col + cols]
+                tt = list(zip(terms[tb:te], coeffs[tb:te]))
+                if leg == "W":
+                    z = torch.zeros(n_live, fs, dtype=g.dtype)
+                    for (a, col, _, fc, mul, bl), c in tt:
+                        z[:, fc : fc + mul] += c * sh[rows, col : col + 1] \
+                            * x[rows, a : a + mul] * ws[:, bl : bl + mul]
+                    part[b, w_off : w_off + fs * cols] += (z.T @ gt[:, :cols]).reshape(-1)
+                    continue
+                dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
+                for (a, col, _, fc, mul, bl), c in tt:
+                    d = c * dz[:, fc : fc + mul]
+                    if leg == "x":
+                        out[rows, a : a + mul] += sh[rows, col : col + 1] * d * ws[:, bl : bl + mul]
+                    elif leg == "sh":
+                        out[rows, col] += (d * x[rows, a : a + mul] * ws[:, bl : bl + mul]).sum(1)
+                    else:
+                        dws[:, bl : bl + mul] += sh[rows, col : col + 1] * d * x[rows, a : a + mul]
+                if last and leg == "h":
+                    out[rows] += dws @ Wl[:hd, sb : sb + sn].T
+                if last and leg == "Wr":
+                    hx = torch.cat([h[rows], torch.full_like(h[rows, :1], float(ones))], 1)
+                    part[b].view(hd + 1, n_loc)[:, sb : sb + sn] += hx.T @ dws
+    if leg in ("x", "sh", "h"):
+        return out
+    red = part[0].clone()
+    for b in range(1, n_parts):
+        red += part[b]
+    if leg == "W":
+        return red
+    dWrs = torch.zeros(hd + 1, plan.d_w, dtype=g.dtype)
+    dWrs[:, cols_loc] = red.view(hd + 1, n_loc)
+    return dWrs
+
+
+@pytest.mark.parametrize("case", list(HEADS))
+def test_rad_leg_kernel_tables_drive_the_plain_math(case):
+    """K7-L (x, sh, h legs), K7-LW and K7-Wr (h's ones column 1 and 0) walk
+    the tables with each group's w and dw in local columns; walking them in
+    torch gives dtp_lin_rad_leg_plain, dtp_lin_rad_legW_plain and
+    dtp_lin_rad_legWr_plain (1e-6: the tables' fp32 CG coefficients), with
+    padded rows past n_edges."""
+    from equiformer_tpu_torch.kernels import (
+        dtp_lin_rad_leg_plain, dtp_lin_rad_legW_plain, dtp_lin_rad_legWr_plain,
+    )
+
+    plan, x, sh, h, Wrs, W, g = _kernel_inputs(case, seed=5)
+    n = torch.tensor(N_REAL, dtype=torch.int32)
+    for leg in ("x", "sh", "h"):
+        ops = {"x": x, "sh": sh, "h": h, leg: None}
+        want = dtp_lin_rad_leg_plain(plan, leg, g, ops["x"], ops["sh"], ops["h"], Wrs, W, n)
+        got = _emulate_rad_leg(plan, leg, ops["x"], ops["sh"], ops["h"], Wrs, W, g, N_REAL)
+        assert got.shape == want.shape and _rel(got, want) < 1e-6, leg
+    want = dtp_lin_rad_legW_plain(plan, g, x, sh, h, Wrs, n)
+    assert _rel(_emulate_rad_leg(plan, "W", x, sh, h, Wrs, W, g, N_REAL), want) < 1e-6
+    for ones in (True, False):
+        want = dtp_lin_rad_legWr_plain(plan, g, x, sh, h, W, n, ones)
+        got = _emulate_rad_leg(plan, "Wr", x, sh, h, Wrs, W, g, N_REAL, ones)
+        assert got.shape == want.shape and _rel(got, want) < 1e-6
+        assert (float(got[-1].abs().max()) == 0.0) == (not ones)
 
 
 def test_ctypes_signatures_match_the_c_entry_points():

@@ -160,15 +160,65 @@ def test_reduced_md17_fold_forces_match_jax():
     assert float(tf.abs().max()) > 0.0
 
 
-def _count(monkeypatch, names):
+MD17_LR, MD17_WD, MD17_EMA, MD17_MEAN, MD17_STD = 2e-3, 1e-6, 0.5, 0.5, 2.0
+METRICS = ("loss", "loss_e", "loss_f", "mae_e", "mae_f", "grad_norm")
+
+
+def test_reduced_md17_fold_training_steps_match_make_md17_steps():
+    """Three force training steps of a reduced exp-L3 model with
+    ``radial_fold`` and ``radial_fold_ho`` (the folded force op's
+    grad-of-grad on the plain versions of K7-F, K7-B3, K7-L, K7-LW and
+    K7-Wr) against ``jax.jit`` of JAX's ``train_step`` from
+    ``make_md17_steps`` on the same JAX tree (unfolded: the same function),
+    fp64: the six metrics of every step within 1e-9, then every parameter
+    and the EMA within 1e-9 of max |param|; the steps move the parameters.
+    The counterpart of ``tests/test_torch_md17_train.py``'s fast case."""
+    data = j_md17_like(4, seed=0)
+    jm = JModel(**_jcfg(MD17_REDUCED), nonlinear_message=True, higher_order_grads=True)
+    jb = j_collate(data, 21, with_forces=True)
+    tree = jax.jit(lambda b: jm.init(jax.random.PRNGKey(1), b, deterministic=True))(jb)
+    tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
+    jb64 = jb.__class__(**{**jb.__dict__, **{k: np.asarray(getattr(jb, k), np.float64)
+                                            for k in ("pos", "y", "forces")}})
+    kw = dict(task_mean=MD17_MEAN, task_std=MD17_STD, energy_weight=1.0, force_weight=80.0,
+              ema_decay=MD17_EMA)
+    jopt_ = jopt.create_optimizer(jopt.cosine_warmup_schedule(MD17_LR, WARMUP, TOTAL),
+                                  weight_decay=MD17_WD)
+    j_step = jax.jit(jeng.make_md17_steps(jm, jopt_, **kw)[0])
+    jst = jstate.TrainState.create(tree, jopt_)
+    tm = TModel(**MD17_REDUCED, radial_fold=True, radial_fold_ho=True).double()
+    assert params_from_jax(tm, tree) == len(jax.tree_util.tree_leaves(tree))
+    topt = pt.create_optimizer(pt.cosine_warmup_schedule(MD17_LR, WARMUP, TOTAL),
+                               weight_decay=MD17_WD)
+    t_step, _ = pt.make_md17_steps(tm, topt, **kw)
+    tst = pt.TrainState.create(tm, topt)
+    tb = t_collate(data, 21, with_forces=True).to(dtype=torch.float64)
+    for i in range(3):
+        jst, jm_ = j_step(jst, jb64, jax.random.PRNGKey(i))
+        tst, tm_ = t_step(tst, tb)
+        for k in METRICS:
+            assert _rel(float(tm_[k]), float(jm_[k])) < TOL, (i, k)
+    want, want_ema = _leaves(jst.params), _leaves(jst.ema_params)
+    scale = max(np.abs(v).max() for v in want.values())
+    for n, p in tst.params.items():
+        assert np.abs(_flip(n, p.detach().numpy()) - want[n]).max() < TOL * scale, n
+        assert np.abs(_flip(n, tst.ema[n].numpy()) - want_ema[n]).max() < TOL * scale, n
+    init = _leaves(tree)
+    assert max(np.abs(want[n] - init[n]).max() for n in init) > 1e4 * TOL * scale
+
+
+def _count(monkeypatch, names, plans=None):
     """Count the calls of the named wrappers (the CPU wrappers count no
-    launches), patched where the autograd ops look them up."""
+    launches), patched where the autograd ops look them up; ``plans``, a
+    dict, collects each call's plan under the wrapper's name."""
     calls = dict.fromkeys(names, 0)
     for mod in (kdl, kho):
         for name in names:
             if hasattr(mod, name):
                 def counting(*a, _f=getattr(mod, name), _n=name, **k):
                     calls[_n] += 1
+                    if plans is not None:
+                        plans.setdefault(_n, []).append(a[0])
                     return _f(*a, **k)
                 monkeypatch.setattr(mod, name, counting)
     return calls
@@ -177,21 +227,44 @@ def _count(monkeypatch, names):
 def test_reduced_units_call_the_folded_kernels(qm9, monkeypatch):
     """Per reduced QM9 step (2 blocks): 3 K7-F + 2 K1 forward, 3 K7-B + 2 K2
     backward; per reduced force evaluation: 3 K7-F + 2 K1, 3 K7-B3 + 2 K5a
-    (the folded sites: each block's sep_act and the edge degree)."""
+    (the folded sites: each block's sep_act and the edge degree); per
+    reduced force training step: K7-L, K7-LW and K7-Wr at the folded sites,
+    and K5b / K5c only at the 2 shared-weight sep_value sites."""
     names = ("dtp_lin_fwd", "dtp_lin_bwd", "dtp_lin_bwd3", "dtp_lin_rad_fwd",
              "dtp_lin_rad_bwd", "dtp_lin_rad_bwd3")
-    calls = _count(monkeypatch, names)
+    names_train = ("dtp_lin_leg", "dtp_lin_legW", "dtp_lin_rad_leg", "dtp_lin_rad_legW",
+                   "dtp_lin_rad_legWr")
+    plans = {}
+    calls = _count(monkeypatch, names + names_train, plans)
     _, tree, data = qm9
     tm = _qm9_port(tree, radial_fold=True).float()
     opt = pt.create_optimizer(pt.cosine_warmup_schedule(LR, WARMUP, TOTAL))
     step, _ = pt.make_qm9_steps(tm, opt)
     step(pt.TrainState.create(tm, opt), t_collate(data, 30), None)
     assert calls == {"dtp_lin_fwd": 2, "dtp_lin_bwd": 2, "dtp_lin_bwd3": 0,
-                     "dtp_lin_rad_fwd": 3, "dtp_lin_rad_bwd": 3, "dtp_lin_rad_bwd3": 0}
-    calls.update(dict.fromkeys(names, 0))
+                     "dtp_lin_rad_fwd": 3, "dtp_lin_rad_bwd": 3, "dtp_lin_rad_bwd3": 0,
+                     **dict.fromkeys(names_train, 0)}
+    calls.update(dict.fromkeys(calls, 0))
     tm = TModel(**MD17_REDUCED, radial_fold=True, radial_fold_ho=True)
     mb = next(iter(GraphLoader(md17_like_dataset(2, num_atoms=21, seed=0), 2, 21,
                                with_forces=True)))
     pt.evaluate_md17(tm, mb)
     assert calls == {"dtp_lin_fwd": 2, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 2,
-                     "dtp_lin_rad_fwd": 3, "dtp_lin_rad_bwd": 0, "dtp_lin_rad_bwd3": 3}
+                     "dtp_lin_rad_fwd": 3, "dtp_lin_rad_bwd": 0, "dtp_lin_rad_bwd3": 3,
+                     **dict.fromkeys(names_train, 0)}
+    calls.update(dict.fromkeys(calls, 0))
+    plans.clear()
+    opt = pt.create_optimizer(pt.cosine_warmup_schedule(LR, WARMUP, TOTAL))
+    step, _ = pt.make_md17_steps(tm, opt, energy_weight=1.0, force_weight=80.0)
+    step(pt.TrainState.create(tm, opt), mb)
+    # per folded site what the unfolded per-edge-w site launches on K1 /
+    # K5a / K5b / K5c goes to K7-F / K7-B3 / K7-L / K7-LW, and each K7-LW
+    # has a K7-Wr beside it; each sep_value site keeps 3 K1, 1 K5a, 2 K5b
+    # (x legs), 3 K5c
+    assert calls == {"dtp_lin_fwd": 6, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 2,
+                     "dtp_lin_rad_fwd": 11, "dtp_lin_rad_bwd": 0, "dtp_lin_rad_bwd3": 6,
+                     "dtp_lin_leg": 4, "dtp_lin_legW": 6, "dtp_lin_rad_leg": 11,
+                     "dtp_lin_rad_legW": 11, "dtp_lin_rad_legWr": 11}
+    assert all(p.shared_weights for n in ("dtp_lin_fwd", "dtp_lin_bwd3", "dtp_lin_leg",
+                                          "dtp_lin_legW") for p in plans[n])
+    assert all(p.radial_fold == 16 for n in names_train[2:] for p in plans[n])
