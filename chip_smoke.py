@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's QM9 training and inference paths and its MD17
 energy + force evaluation and training once on one NVIDIA GPU, on the fused
-DTP + linear route and on the unfused DTP route.
+DTP + linear route, the unfused DTP route, the radial fold and (QM9) the
+kron-basis route.
 
     python3 chip_smoke.py
 
@@ -145,6 +146,21 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    route's card distance to float64 (two samples of the model's bf16 noise,
    ~3e-2 of the largest value on either route).
 
+14. K8 kernels — the kron-basis op's K8-F (``dtp_lin_kron_fwd``) and K8-B
+   (``dtp_lin_kron_bwd``: dx, dw and dG) at the QM9 flagship's three sites
+   (batch 0 of phase 2, n_edges below E), float32 and bfloat16, against their
+   plain versions with the tolerances of phase 3 (out, dx, dw, dG), timed the
+   same way, each beside K1 or K2 on the same inputs (the same function on
+   the fused route; no single PyTorch call computes it).  The bounds count
+   the contraction with G (2 operations per G element and real edge forward,
+   4 backward) and Kop's products.
+15. kron — the QM9 flagship built with ``kron_g=True``: the eval forward (13
+   K8-F, 1 K3, 6 K4; predictions against the fused route), phase 4 (13 K8-F,
+   13 K8-B, 13 K3, 6 K4 per step; peak memory beside the fused step's), one
+   fp32 step against the fused route's (ROUTE_RTOL), two first steps from one
+   seed bitwise equal (dG is summed in a fixed order), phase 5, and a model
+   built with ``kron_g`` and ``radial_fold`` that warns and launches no K7.
+
 Phases 3 and 7 also time the model's segment sums too narrow for K3
 (``fixed_order_segment_sum``, an ``index_put_`` that repeats its bits)
 against ``index_add_`` at the shapes of the readout and the softmax
@@ -186,6 +202,8 @@ TPU_KERNELS = {
     "dtp_lin_rad_leg": "equiformer_tpu/kernels/dtp_lin_ho.py:255",
     "dtp_lin_rad_legW": "equiformer_tpu/kernels/dtp_lin_ho.py:439",
     "dtp_lin_rad_legWr": "equiformer_tpu/kernels/dtp_lin_ho.py:344",
+    "dtp_lin_kron_fwd": "equiformer_tpu/kernels/dtp_lin_kron.py:191",
+    "dtp_lin_kron_bwd": "equiformer_tpu/kernels/dtp_lin_kron.py:231",
     "dtp_t": "equiformer_tpu/kernels/dtp_pallas.py:54",
     "dtp_r": "equiformer_tpu/kernels/dtp_pallas.py:72",
     "dtp_fused_bwd": "equiformer_tpu/kernels/dtp_pallas.py:405",
@@ -204,6 +222,8 @@ SOURCES = {
     "dtp_lin_rad_leg": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
     "dtp_lin_rad_legW": "equiformer_tpu_torch/csrc/dtp_lin_legW.cu",
     "dtp_lin_rad_legWr": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
+    "dtp_lin_kron_fwd": "equiformer_tpu_torch/csrc/dtp_lin_kron.cu",
+    "dtp_lin_kron_bwd": "equiformer_tpu_torch/csrc/dtp_lin_kron.cu",
     "dtp_t": "equiformer_tpu_torch/csrc/dtp_t.cu",
     "dtp_r": "equiformer_tpu_torch/csrc/dtp_r.cu",
     "dtp_fused_bwd": "equiformer_tpu_torch/csrc/dtp_fused_bwd.cu",
@@ -274,6 +294,12 @@ EXPECTED_FOLD_MD17_TRAIN = {**NONE, "dtp_lin_fwd": 18, "dtp_lin_rad_fwd": 27, "d
                             "dtp_lin_legW": 18, "dtp_lin_rad_legW": 27, "dtp_lin_rad_legWr": 27,
                             "csr_segment_sum": 38}
 FOLD_TIMED_STEPS = 5  # the folded force training phase's timed steps (3 warm-up)
+# The kron route (K8): all 13 fused DTP sites of the QM9 flagship on K8-F /
+# K8-B in place of K1 / K2; K3 and K4 as on the fused route.
+KRON = {"kron_g": True}
+EXPECTED_KRON_EVAL = {**NONE, "dtp_lin_kron_fwd": 13, "csr_segment_sum": 1, "attn_combine": 6}
+EXPECTED_KRON_TRAIN = {**NONE, "dtp_lin_kron_fwd": 13, "dtp_lin_kron_bwd": 13,
+                       "csr_segment_sum": 13, "attn_combine": 6}
 MD17_CPU_MOLECULES = 2
 BF16_SCALAR_FLOOR = 2e-2
 MD17_MODEL = "graph_attention_transformer_nonlinear_exp_l3_md17"
@@ -332,15 +358,17 @@ def dtp_work(plan) -> tuple:
 
 
 def record(records, kernel, site, dt_name, shape, errs, ms, plain_ms, nbytes, flops,
-           library_ms=None, pair_ms=None):
-    """``pair_ms``: for a radial-folded kernel, the unfolded route's kernel
-    and cuBLAS calls on the same inputs."""
+           library_ms=None, pair_ms=None, pair="unfolded pair"):
+    """``pair_ms``: the time of the same function on another route and the
+    same inputs, named ``pair``: for a radial-folded kernel the unfolded
+    route's kernel and cuBLAS calls, for a kron kernel K1 or K2."""
     err = max(e for e, _ in errs)
     rel = max(r for _, r in errs)
     b_ms, b_by = bound(nbytes, flops, dt_name)
     records.append(dict(kernel=kernel, site=site, dtype=dt_name, shape=shape,
                         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, pair_ms=pair_ms))
+                        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, pair_ms=pair_ms,
+                        pair=pair))
 
 
 def report_kernels(records):
@@ -349,7 +377,7 @@ def report_kernels(records):
     for r in records:
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         if r["pair_ms"] is not None:
-            lib += f", unfolded pair {r['pair_ms']:.4f} ms"
+            lib += f", {r['pair']} {r['pair_ms']:.4f} ms"
         print(f"kernel {r['kernel']:16s} {r['site']:17s} {r['dtype']:8s} {r['shape']}: "
               f"max_abs_err {r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}) "
               f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms{lib}; bound "
@@ -1413,22 +1441,23 @@ def fold_leg_sites(pt, md17_max_edges, md17_batch):
                          l3.edge_deg_embed.rad, geom)}
 
 
-def fold_eval_phase(pt, torch, make, max_edges, gpu_batches, dev, out):
-    """The QM9 eval forward with the radial fold, bf16 and fp32: launch
-    counts of one forward, finite predictions, eval graphs/s (median of 3
-    passes over the batches), peak memory, and batch 0's predictions
-    against the same-seed model on the fused route on the card (1e-5 of the
-    largest in fp32: the same function, w summed in another order; the
-    bf16 tolerance of phase 2)."""
+def route_eval_phase(pt, torch, make, max_edges, gpu_batches, dev, out, tag="fold", route=FOLD,
+                     expected=EXPECTED_FOLD_EVAL):
+    """The QM9 eval forward on another route (the radial fold, the kron
+    route), bf16 and fp32: launch counts of one forward, finite predictions,
+    eval graphs/s (median of 3 passes over the batches), peak memory, and
+    batch 0's predictions against the same-seed model on the fused route on
+    the card (1e-5 of the largest in fp32: the same function, summed in
+    another order; the bf16 tolerance of phase 2)."""
     for name in ("bfloat16", "float32"):
         kw = dict(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED,
                   compute_dtype=None if name == "float32" else name)
-        model = make(**kw, **FOLD).eval()
+        model = make(**kw, **route).eval()
         r, launches = counted(torch, lambda: pt.evaluate(model, gpu_batches[0]))
-        print(f"fold eval {name}: launches in one forward: {launches}")
-        if launches != EXPECTED_FOLD_EVAL:
-            raise RuntimeError(f"launch counts {launches} != expected {EXPECTED_FOLD_EVAL}")
-        out["fold_eval_launches"] = launches
+        print(f"{tag} eval {name}: launches in one forward: {launches}")
+        if launches != expected:
+            raise RuntimeError(f"launch counts {launches} != expected {expected}")
+        out[f"{tag}_eval_launches"] = launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         times = []
@@ -1440,20 +1469,127 @@ def fold_eval_phase(pt, torch, make, max_edges, gpu_batches, dev, out):
         peak = torch.cuda.max_memory_allocated(dev) / 2**20
         if not all(x["pred"].shape == (BATCH,) and bool(x["pred"].isfinite().all())
                    for x in results):
-            raise RuntimeError(f"fold eval {name}: bad predictions")
+            raise RuntimeError(f"{tag} eval {name}: bad predictions")
         fused = pt.evaluate(make(**kw).eval(), gpu_batches[0])["pred"].float()
         pred = results[0]["pred"].float()
         rel = float((pred - fused).abs().max()) / max(float(fused.abs().max()), 1.0)
         tol = 1e-5 if name == "float32" else CPU_RTOL[name]
         gps = BATCH * len(gpu_batches) / statistics.median(times)
-        out[f"fold_eval_{name}"] = gps
-        print(f"fold eval {name}: {gps:.1f} graphs/s at batch {BATCH} (median of 3 passes over "
+        out[f"{tag}_eval_{name}"] = gps
+        out[f"{tag}_eval_{name}_peak_mib"] = peak
+        print(f"{tag} eval {name}: {gps:.1f} graphs/s at batch {BATCH} (median of 3 passes over "
               f"{len(gpu_batches)} batches; pass seconds {[round(t, 4) for t in times]}), peak "
               f"memory {peak:.0f} MiB; predictions vs the fused route on the card: rel "
               f"{rel:.3e} (bound {tol:.0e})", flush=True)
         if not rel <= tol:
-            raise RuntimeError(f"fold eval {name}: predictions disagree with the fused route")
+            raise RuntimeError(f"{tag} eval {name}: predictions disagree with the fused route")
         del model
+
+
+def k8_kernel_phase(torch, model, batch, dev, records):
+    """K8-F and K8-B against their plain versions at the three sites of a
+    kron model (batch 0's shapes, n_edges below E), fp32 and bf16, timed as
+    phase 3, each beside K1 or K2 on the same inputs (W in place of G).
+    Bounds: x, sh, w and G read once over the real edges, the outputs
+    written once (dG in fp32); 2 operations per G element and real edge
+    forward and 4 backward, Kop's products (2 per Kop column and real edge,
+    1 with a shared w in G) and the backward's per-column updates of dx and
+    dw (5, or 3)."""
+    from equiformer_tpu_torch.kernels import (
+        KERNEL_WRAPPERS, dtp_lin_bwd, dtp_lin_fwd, dtp_lin_kron_bwd, dtp_lin_kron_bwd_plain,
+        dtp_lin_kron_fwd, dtp_lin_kron_plain, kron_meta,
+    )
+
+    saved = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    edges, sh32, n_edges, n = batch_geometry(model, batch)
+    E = edges.dst.shape[0]
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        size = torch.finfo(dt).bits // 8
+        sh = sh32.to(dt)
+        for site, (plan, heads, broadcast_x) in dtp_sites(model).items():
+            meta = kron_meta(plan)
+            x, w, W, cot, in_bytes = dtp_operands(torch, plan, heads, broadcast_x, E, n, dt, g,
+                                                  dev)
+            G = meta.build_G(W)
+            in_bytes += size * (meta.numel - plan.w_numel)  # the kernels read G, not W
+            shape = (f"E={E} d_x={plan.d_x} d_w={plan.d_w} d_out={plan.d_out} "
+                     f"G={meta.numel} rows={meta.n_rows}")
+            kop_ops = (1 if w is None else 2) * meta.n_rows
+
+            k = dtp_lin_kron_fwd(meta, x, sh, w, G, n_edges)
+            p = dtp_lin_kron_plain(meta, x, sh, w, G, n_edges)
+            torch.cuda.synchronize()
+            ms = cuda_time_ms(lambda: dtp_lin_kron_fwd(meta, x, sh, w, G, n_edges), torch)
+            plain_ms = cuda_time_ms(lambda: dtp_lin_kron_plain(meta, x, sh, w, G, n_edges), torch,
+                                    reps=3, inner=3)
+            k1_ms = cuda_time_ms(lambda: dtp_lin_fwd(plan, x, sh, w, W, n_edges), torch)
+            record(records, "dtp_lin_kron_fwd", site, dt_name, shape, [rel_err(k, p)], ms,
+                   plain_ms, in_bytes + size * E * plan.d_out, n * (2 * meta.numel + kop_ops),
+                   pair_ms=k1_ms, pair="K1")
+
+            k = dtp_lin_kron_bwd(meta, x, sh, w, G, cot, n_edges)
+            p = dtp_lin_kron_bwd_plain(meta, x, sh, w, G, cot, n_edges)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(k, p) if a is not None]
+            ms = cuda_time_ms(lambda: dtp_lin_kron_bwd(meta, x, sh, w, G, cot, n_edges), torch)
+            plain_ms = cuda_time_ms(
+                lambda: dtp_lin_kron_bwd_plain(meta, x, sh, w, G, cot, n_edges), torch, reps=3,
+                inner=3)
+            k2_ms = cuda_time_ms(lambda: dtp_lin_bwd(plan, x, sh, w, W, cot, n_edges), torch)
+            out_bytes = size * E * (plan.d_x + (0 if w is None else plan.d_w)) + 4 * meta.numel
+            record(records, "dtp_lin_kron_bwd", site, dt_name, shape, errs, ms, plain_ms,
+                   in_bytes + size * n * plan.d_out + out_bytes,
+                   n * (4 * meta.numel + kop_ops + (3 if w is None else 5) * meta.n_rows),
+                   pair_ms=k2_ms, pair="K2")
+    for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
+        fn.launches = saved[name]
+
+
+def first_steps_bitwise(pt, torch, make, max_edges, batch, route, tag):
+    """Two models from one seed on ``route`` take one training step each on
+    the same batch with the same injected dropout masks, in bf16 and fp32:
+    the metrics and every updated parameter must be the same bits."""
+    for name in ("bfloat16", "float32"):
+        res = []
+        for _ in range(2):
+            model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED,
+                         compute_dtype=None if name == "float32" else name, **route)
+            keep = [torch.rand(max_edges, model.block_0.ga.num_heads,
+                               generator=torch.Generator().manual_seed(SEED + 9 + i)) < 0.8
+                    for i in range(model.num_layers)]
+            step, state = train_setup(pt, model)
+            _, m = step(state, batch, iter(keep))
+            torch.cuda.synchronize()
+            res.append(({k: float(v) for k, v in m.items()},
+                        [p.detach().clone() for p in model.parameters()]))
+            del model, state
+        (m1, p1), (m2, p2) = res
+        same = m1 == m2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
+        print(f"{tag} {name}: two first steps from one seed bitwise equal: {same} "
+              f"(loss {m1['loss']:.6f} / {m2['loss']:.6f})", flush=True)
+        if not same:
+            raise RuntimeError(f"{tag} {name}: two first steps from one seed differ in their bits")
+
+
+def kron_fold_override(pt, torch, make, max_edges, gpu_batches):
+    """A model built with ``kron_g`` and ``radial_fold`` warns that the kron
+    route wins, and its eval forward launches the kron route's kernels and
+    no K7."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED,
+                     compute_dtype="bfloat16", **KRON, **FOLD).eval()
+    n_warn = sum("kron_g overrides radial_fold" in str(r.message) for r in rec)
+    r, launches = counted(torch, lambda: pt.evaluate(model, gpu_batches[0]))
+    print(f"kron + radial_fold: {n_warn} warnings (one per per-edge-weight site); launches in "
+          f"one forward: {launches}", flush=True)
+    if n_warn != 7 or launches != EXPECTED_KRON_EVAL or not bool(r["pred"].isfinite().all()):
+        raise RuntimeError(f"kron_g with radial_fold: {n_warn} warnings (7 expected), launch "
+                           f"counts {launches} != {EXPECTED_KRON_EVAL} or bad predictions")
 
 
 def main() -> int:
@@ -1533,7 +1669,7 @@ def run(torch, dev) -> int:
     report_kernels(k7_records)
     print(f"K7 kernel phase: {time.time() - t:.1f} s", flush=True)
     t = time.time()
-    fold_eval_phase(pt, torch, make, max_edges, gpu_batches, dev, out)
+    route_eval_phase(pt, torch, make, max_edges, gpu_batches, dev, out)
     train_phase(pt, torch, make, max_edges, gpu_batches, dev, out, "fold_train",
                 EXPECTED_FOLD_TRAIN, FOLD)
     for name in ("bfloat16", "float32"):
@@ -1601,13 +1737,41 @@ def run(torch, dev) -> int:
     md17_train_vs_cpu(pt, torch, dev, "unfused_md17_train", UNFUSED, md17_step64)
     print(f"unfused md17 train vs CPU phase: {time.time() - t:.1f} s", flush=True)
 
+    # the kron route (K8): kernels, QM9 eval and training
+    t = time.time()
+    k8_records = []
+    kron32 = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED, **KRON)
+    k8_kernel_phase(torch, kron32, gpu_batches[0], dev, k8_records)
+    del kron32
+    report_kernels(k8_records)
+    print(f"K8 kernel phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    route_eval_phase(pt, torch, make, max_edges, gpu_batches, dev, out, "kron", KRON,
+                     EXPECTED_KRON_EVAL)
+    train_phase(pt, torch, make, max_edges, gpu_batches, dev, out, "kron_train",
+                EXPECTED_KRON_TRAIN, KRON)
+    for name in ("bfloat16", "float32"):
+        print(f"{name}: kron eval {out[f'kron_eval_{name}']:.1f} graphs/s, peak "
+              f"{out[f'kron_eval_{name}_peak_mib']:.0f} MiB; kron train "
+              f"{out[f'kron_train_{name}']:.1f} graphs/s, peak "
+              f"{out[f'kron_train_{name}_peak_mib']:.0f} MiB; fused eval {out[f'eval_{name}']:.1f}, "
+              f"train {out[f'train_{name}']:.1f} graphs/s, peak "
+              f"{out[f'train_{name}_peak_mib']:.0f} MiB")
+    routes_agree(pt, torch, make, max_edges, gpu_batches[0], dev, (("kron", KRON),))
+    first_steps_bitwise(pt, torch, make, max_edges, gpu_batches[0], KRON, "kron_train")
+    kron_fold_override(pt, torch, make, max_edges, gpu_batches)
+    print(f"kron train phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    train_vs_cpu(pt, torch, make, data, dev, "kron_train", KRON)
+    print(f"kron train vs CPU phase: {time.time() - t:.1f} s", flush=True)
+
     table = []
     for name in SOURCES:
         # the bf16 row at the kernel's first (for the fused DTP's kernels: the
         # two-head) call site (K5b, K7-L: the x leg); K5a's launches are the
         # force evaluation's, K5b's and K5c's the force training step's,
-        # K7-L's, K7-LW's and K7-Wr's the folded force training step's, the
-        # others' the QM9 training step's
+        # K7-L's, K7-LW's and K7-Wr's the folded force training step's, K8's
+        # the kron QM9 training step's, the others' the QM9 training step's
         path = {"dtp_lin_bwd3": "md17_launches", "dtp_lin_leg": "md17_train_launches",
                 "dtp_lin_legW": "md17_train_launches", "dtp_t": "unfused_train_launches",
                 "dtp_r": "unfused_md17_launches",
@@ -1616,9 +1780,11 @@ def run(torch, dev) -> int:
                 "dtp_lin_rad_bwd3": "fold_md17_launches",
                 "dtp_lin_rad_leg": "fold_md17_train_launches",
                 "dtp_lin_rad_legW": "fold_md17_train_launches",
-                "dtp_lin_rad_legWr": "fold_md17_train_launches"}.get(name, "train_launches")
+                "dtp_lin_rad_legWr": "fold_md17_train_launches",
+                "dtp_lin_kron_fwd": "kron_train_launches",
+                "dtp_lin_kron_bwd": "kron_train_launches"}.get(name, "train_launches")
         r = next(r for r in records + md17_records + md17_train_records + k6_records
-                 + k7_records + k7_leg_records
+                 + k7_records + k7_leg_records + k8_records
                  if r["kernel"] == name and r["dtype"] == "bfloat16")
         table.append({"name": name, "route": "cuda", "source": SOURCES[name],
                       "replaces": TPU_KERNELS[name], "launches": out[path][name],

@@ -17,6 +17,10 @@
   single legs of folded force training (K7-L ``dtp_lin_rad_leg``: dx, dsh or
   dh; K7-LW ``dtp_lin_rad_legW``: the head weights; K7-Wr
   ``dtp_lin_rad_legWr``: d[Wr; offset])
+* ``dtp_lin_kron`` — the fused op in the kron basis (``kron_g`` models, the
+  first-order route): Kop = sh x w times G, the CG coefficients folded into
+  the packed W (K8-F ``dtp_lin_kron_fwd``; K8-B ``dtp_lin_kron_bwd``: dx, dw
+  and dG)
 * ``segment_csr`` — CSR segment sum over dst-sorted edges (K3)
 * ``attn_csr``    — fused segment softmax + dropout + weighted sum (K4 forward;
   its backward is torch ops, as in JAX)
@@ -66,6 +70,15 @@ from .dtp_lin_ho import (
     dtp_lin_rad_legWr,
     dtp_lin_rad_legWr_plain,
 )
+from .dtp_lin_kron import (
+    KronMeta,
+    dtp_lin_kron,
+    dtp_lin_kron_bwd,
+    dtp_lin_kron_bwd_plain,
+    dtp_lin_kron_fwd,
+    dtp_lin_kron_plain,
+    kron_meta,
+)
 from .segment_csr import csr_segment_sum, segment_sum_plain
 
 KERNEL_WRAPPERS = {
@@ -80,6 +93,8 @@ KERNEL_WRAPPERS = {
     "dtp_lin_rad_leg": dtp_lin_rad_leg,
     "dtp_lin_rad_legW": dtp_lin_rad_legW,
     "dtp_lin_rad_legWr": dtp_lin_rad_legWr,
+    "dtp_lin_kron_fwd": dtp_lin_kron_fwd,
+    "dtp_lin_kron_bwd": dtp_lin_kron_bwd,
     "dtp_t": dtp_t,
     "dtp_r": dtp_r,
     "dtp_fused_bwd": dtp_fused_bwd,

@@ -179,6 +179,17 @@ _SIGNATURES = {
     # R's column ranges, terms, coeffs, dtype, stream
     "dtp_fused_bwd": [_VP, _LL, _VP, _I, _VP, _LL, _VP, _I, _VP, _I, _VP, _VP, _I, _I,
                       _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
+    # K8-F: x, x_row_stride, sh, d_sh, w, d_w, G, out, d_out, n_edges*, E, gk
+    # table, n_gk, rows, dtype, stream (KronMeta.device_tables)
+    "dtp_lin_kron_fwd": [_VP, _LL, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,
+                         _VP],
+    # K8-B: x, x_row_stride, d_x, sh, d_sh, w, d_w, G^T, g, d_out, n_edges*, E,
+    # gk table, n_gk, rows, chunks, trips, dwmap, dx, dw, span_max,
+    # cols_pad_max, chunk_max, dG tiles, n_tiles, n_split, partials, dG, numel,
+    # dtype, stream
+    "dtp_lin_kron_bwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP,
+                         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _I, _I, _VP, _VP, _I, _I,
+                         _VP],
     # val, C, rowptr, mask, out, N, dtype, stream
     "csr_segment_sum": [_VP, _I, _VP, _VP, _VP, _I, _I, _VP],
     # scores, value, dropmul, shift, rowptr, out, den, N, H, D, dtype, stream

@@ -1,0 +1,418 @@
+"""The fused DTP + linear heads in the kron basis (K8-F forward, K8-B backward).
+
+Counterpart of ``equiformer_tpu/kernels/dtp_lin_kron.py``
+(``make_fused_dtp_lin_kron`` -> ``_fwd_kernel``, ``_bwd_kernel``), the route
+of JAX's ``EQUIFORMER_TPU_KRON_G=1``.  It computes the function of
+``dtp_lin`` (K1 / K2) with the TP's definition substituted into the heads'
+product:
+
+    out[e, out_col(g, k) + c] = sum_q sum_u Kop[e, (q, u)] * G[(q, u), c]
+    Kop[e, (q, u)]            = sh[e, col_q] * x[e, a_q + u] * w[e, b_q + u]
+    G[(q, u), c]              = coeff_q * W_g[fc_q + u, c]
+
+where q runs over the plan's CG triples (x component, SH column, weight
+path) feeding component k of irrep group g.  ``KronMeta`` lays the triples
+of each (g, k) out as one contiguous range of Kop columns ("K rows" of G);
+the port pads nothing (JAX pads each triple to 16 rows for the TPU's
+sublanes), so its G is not JAX's and the two packages compare through the
+heads' weights.  ``KronMeta.build_G`` makes G from the packed W with one
+gather and one product in plain PyTorch, outside the autograd op, so
+autograd carries the op's dG back to W and, through ``fold_shared_weights``,
+to a shared w (JAX's ``build_G``, ``:143``).
+
+The op has no dsh (JAX's kron plans are ``needs_dsh=False``) and is first
+order only: its backward is not differentiable, as JAX's ``custom_vjp``
+bwd is not.  It rounds its fp32 dG to G's dtype before autograd chains it to
+dW (JAX's precision caveat, ``:56-60``, ``:456``, ``:485``).
+
+``dtp_lin_kron_plain`` and ``dtp_lin_kron_bwd_plain`` are the plain
+versions: Kop built with torch ops per (g, k) and contracted with
+``torch.matmul``; like the plain versions of ``dtp_lin.py`` they round Kop
+and dkop to the compute dtype, where the kernels keep them in fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import _build
+from .dtp_lin import (
+    DTPLinPlan,
+    _check_n_edges,
+    _sm_count,
+    _workspace,
+    _zero_past,
+    fold_shared_weights,
+)
+
+CHUNK_ROWS = 128  # K8-B's dkop chunk: whole triples, at most this many rows (or one triple)
+DG_TILE_ROWS, DG_TILE_COLS = 64, 32  # K8-B's dG tile, as csrc/dtp_lin_kron.cu reads it
+DG_SPLITS_PER_SM = 6  # dG tiles x edge ranges per SM, at most MAX_DG_SPLITS ranges
+MAX_DG_SPLITS = 16
+
+
+class Triple(NamedTuple):
+    a_off: int  # first x column of the x component
+    col_off: int  # SH column
+    b_off: int  # first w column of the weight path
+    coeff: float  # CG coefficient (with the fan-in rescale of external weights)
+    fc: int  # first fan row of the group's packed W
+    mul: int  # rows of G (columns of Kop) the triple takes
+
+
+class KronMeta:
+    """The kron layout of a ``DTPLinPlan`` without radial fold.
+
+    ``qcols[(gi, k)]``: the triples feeding component k of group gi, in the
+    plan's term order; ``k_ranges[(gi, k)]``: their contiguous row range in
+    the group's G [g_rows[gi], cols]; ``g_off[gi]``: where the group's G
+    starts in the flat G (``numel`` elements, ``n_rows`` rows in all)."""
+
+    def __init__(self, plan: DTPLinPlan):
+        if plan.radial_fold is not None:
+            raise ValueError("the kron route folds W into G and takes no radial fold")
+        self.plan = plan
+        qcols: Dict[Tuple[int, int], list] = {}
+        for t, (gi, k, fc) in plan.terms:
+            qs = qcols.setdefault((gi, k), [])
+            if any((q.a_off, q.col_off, q.b_off) == (t.a_off, t.col_off, t.b_off) for q in qs):
+                raise ValueError("duplicate CG entry")
+            qs.append(Triple(t.a_off, t.col_off, t.b_off, t.coeff, fc, t.mul))
+        self.qcols: Dict[Tuple[int, int], Tuple[Triple, ...]] = {}
+        self.k_ranges: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self.g_rows, self.g_off = [], []
+        numel = 0
+        for gi, g in enumerate(plan.groups):
+            acc = 0
+            for k in range(g.ir.dim):
+                qs = qcols.get((gi, k))
+                if not qs:
+                    raise ValueError("an output component with no CG terms")
+                self.qcols[(gi, k)] = tuple(qs)
+                self.k_ranges[(gi, k)] = (acc, acc + sum(q.mul for q in qs))
+                acc += sum(q.mul for q in qs)
+            self.g_rows.append(acc)
+            self.g_off.append(numel)
+            numel += acc * g.cols
+        self.numel = numel
+        self.n_rows = sum(self.g_rows)
+        self._cache: Dict[tuple, object] = {}
+
+    def blocks(self):
+        """(gi, k, first flat row, row count, cols, output column, G element
+        offset) of each (group, component), in order."""
+        row = 0
+        for gi, g in enumerate(self.plan.groups):
+            for k in range(g.ir.dim):
+                rs, re = self.k_ranges[(gi, k)]
+                yield gi, k, row, re - rs, g.cols, g.out_off + k * g.cols, \
+                    self.g_off[gi] + rs * g.cols
+                row += re - rs
+
+    def _host(self):
+        """numpy tables, built once: per flat row (x column, SH column, w
+        column), and per G element its W_flat element and coefficient."""
+        tabs = self._cache.get("host")
+        if tabs is None:
+            rows, gidx, gcoef = [], [], []
+            for gi, k, _, _, cols, _, _ in self.blocks():
+                g = self.plan.groups[gi]
+                for q in self.qcols[(gi, k)]:
+                    for u in range(q.mul):
+                        rows.append((q.a_off + u, q.col_off, q.b_off + u))
+                        gidx.append(g.w_off + (q.fc + u) * cols + np.arange(cols))
+                        gcoef.append(np.full(cols, q.coeff))
+            tabs = (np.asarray(rows, np.int64).reshape(-1, 3), np.concatenate(gidx),
+                    np.concatenate(gcoef))
+            self._cache["host"] = tabs
+        return tabs
+
+    def _on(self, key, device, make):
+        k = (key, device)
+        t = self._cache.get(k)
+        if t is None:
+            t = self._cache[k] = make()
+        return t
+
+    def row_index(self, device: torch.device):
+        """(x column, SH column, w column) int64 [n_rows] each: the operands
+        of each Kop column."""
+        rows = self._host()[0]
+        return self._on("rows", device,
+                        lambda: tuple(torch.as_tensor(rows[:, i], device=device) for i in range(3)))
+
+    def build_G(self, W_flat: torch.Tensor) -> torch.Tensor:
+        """The flat G [numel] in W_flat's dtype: each (g, k) block [rows,
+        cols] row-major, a triple's rows its coefficient times the fan rows
+        of the packed W.  One gather and one product, differentiable in
+        W_flat."""
+        _, gidx, gcoef = self._host()
+        dev = W_flat.device
+        idx = self._on("gidx", dev, lambda: torch.as_tensor(gidx, device=dev))
+        coef = self._on(("gcoef", W_flat.dtype), dev,
+                        lambda: torch.as_tensor(gcoef, device=dev).to(W_flat.dtype))
+        return W_flat[idx] * coef
+
+    # ------------------------------------------------------- device tables
+    def device_tables(self, device: torch.device):
+        """The kernels' int32 tables on ``device``, as csrc/dtp_lin_kron.cu
+        reads them: (gk [n_gk, 12], rows [n_rows, 4], chunks [n_chunks, 4],
+        trips [n_trips, 8], dwmap, tiles [n_tiles, 8], gt_index int64,
+        span_max, cols_pad_max, chunk_max).
+
+        gk per (g, k): first flat row, end row, cols, output column, G
+        element offset, chunk range, the group's dw span (begin in dwmap,
+        length), first / last component.  rows: x, SH and w column and local
+        dw column of each Kop column.  chunks: K8-B's dkop chunks, whole
+        triples of one (g, k): triple range, first flat row, row count.
+        trips: x column, SH column, w column, local dw column, mul, first row
+        in its chunk.  A group's w columns get consecutive local dw columns
+        (every w column feeds one group, ``DTPLinPlan.bwd_tables``); dwmap
+        maps them back.  tiles: K8-B's dG tiles (first flat row, rows, first
+        column, columns, the block's cols, the G element of (first row,
+        column 0), output column).  gt_index gathers each (g, k) block of G
+        into its transpose [cols, rows] at the same offset."""
+        return self._on("tables", device, lambda: self._tables(device))
+
+    def _tables(self, device):
+        plan = self.plan
+        dwmap, spans, local = [], [], {}
+        for gi in range(len(plan.groups)):
+            begin = len(dwmap)
+            if not plan.shared_weights:
+                for b_off, mul in sorted({(q.b_off, q.mul) for (g_, _), qs in self.qcols.items()
+                                          if g_ == gi for q in qs}):
+                    local[b_off] = len(dwmap) - begin
+                    dwmap.extend(range(b_off, b_off + mul))
+            spans.append((begin, len(dwmap) - begin))
+        gk, rows, chunks, trips, tiles, gt_index = [], [], [], [], [], []
+        for gi, k, row0, n, cols, out_col, g_off in self.blocks():
+            qs = self.qcols[(gi, k)]
+            c_begin, r, i = len(chunks), row0, 0
+            while i < len(qs):  # greedy: whole triples up to CHUNK_ROWS rows
+                j, width = i + 1, qs[i].mul
+                while j < len(qs) and width + qs[j].mul <= CHUNK_ROWS:
+                    width += qs[j].mul
+                    j += 1
+                off = 0
+                for q in qs[i:j]:
+                    trips.append((q.a_off, q.col_off, q.b_off, local.get(q.b_off, 0), q.mul, off,
+                                  0, 0))
+                    off += q.mul
+                chunks.append((len(trips) - (j - i), len(trips), r, width))
+                r += width
+                i = j
+            for q in qs:
+                rows.extend((q.a_off + u, q.col_off, q.b_off + u, local.get(q.b_off, 0) + u)
+                            for u in range(q.mul))
+            gk.append((row0, row0 + n, cols, out_col, g_off, c_begin, len(chunks)) + spans[gi]
+                      + (int(k == 0), int(k == plan.groups[gi].ir.dim - 1), 0))
+            for r0 in range(0, n, DG_TILE_ROWS):
+                for c0 in range(0, cols, DG_TILE_COLS):
+                    tiles.append((row0 + r0, min(DG_TILE_ROWS, n - r0), c0,
+                                  min(DG_TILE_COLS, cols - c0), cols, g_off + r0 * cols, out_col,
+                                  0))
+            gt_index.append(g_off + (np.arange(n)[None, :] * cols
+                                     + np.arange(cols)[:, None]).reshape(-1))
+        i32 = lambda t: torch.tensor(t, dtype=torch.int32, device=device)  # noqa: E731
+        return (i32(gk), i32(rows), i32(chunks), i32(trips), i32(dwmap or [0]), i32(tiles),
+                torch.as_tensor(np.concatenate(gt_index), device=device),
+                max(n for _, n in spans), max(-(-g.cols // 4) * 4 for g in plan.groups),
+                max(c[3] for c in chunks))
+
+
+def kron_meta(plan: DTPLinPlan) -> KronMeta:
+    """The plan's ``KronMeta``, built once and kept on the plan."""
+    meta = getattr(plan, "_kron_meta", None)
+    if meta is None:
+        meta = plan._kron_meta = KronMeta(plan)
+    return meta
+
+
+def _kop(meta: KronMeta, x, sh, w, r0: int, n: int) -> torch.Tensor:
+    """Kop [E, n] for the flat rows r0..r0+n, in x's dtype."""
+    xi, col, wi = (t[r0 : r0 + n] for t in meta.row_index(x.device))
+    k = sh[:, col] * x[:, xi]
+    return k if w is None else k * w[:, wi]
+
+
+def dtp_lin_kron_plain(meta, x, sh, w, G, n_edges=None):
+    """Plain version of K8-F: [E, d_out].  ``w`` [E, d_w], or None when the
+    plan's shared weights are folded into G; ``G`` the flat ``build_G``."""
+    out = x.new_empty((sh.shape[0], meta.plan.d_out))
+    for _, _, row0, n, cols, oc, g_off in meta.blocks():
+        out[:, oc : oc + cols] = _kop(meta, x, sh, w, row0, n) @ G[g_off : g_off + n * cols] \
+            .view(n, cols)
+    return _zero_past(out, n_edges)
+
+
+def dtp_lin_kron_bwd_plain(meta, x, sh, w, G, g, n_edges=None):
+    """Plain version of K8-B for the cotangent ``g`` [E, d_out] of
+    ``dtp_lin_kron_plain``: (dx [E, d_x], dw [E, d_w] or None when ``w`` is
+    None, dG [numel] in float32, or float64 for float64 inputs), written out
+    per (g, k): dkop = g G^T, dG = Kop^T g, and per Kop column dx += sh dkop
+    w, dw += sh dkop x."""
+    plan = meta.plan
+    g = _zero_past(g, n_edges)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    E = sh.shape[0]
+    dx = torch.zeros((E, plan.d_x), dtype=acc, device=x.device)
+    dw = None if w is None else torch.zeros((E, plan.d_w), dtype=acc, device=x.device)
+    dG = torch.zeros((meta.numel,), dtype=acc, device=x.device)
+    xi_all, col_all, wi_all = meta.row_index(x.device)
+    for _, _, row0, n, cols, oc, g_off in meta.blocks():
+        gb = g[:, oc : oc + cols]
+        Gb = G[g_off : g_off + n * cols].view(n, cols)
+        kop = _kop(meta, x, sh, w, row0, n)
+        dG[g_off : g_off + n * cols] = (kop.to(acc).T @ gb.to(acc)).reshape(-1)
+        xi, col, wi = (t[row0 : row0 + n] for t in (xi_all, col_all, wi_all))
+        d = (gb @ Gb.T).to(x.dtype).to(acc) * sh[:, col].to(acc)
+        if w is None:
+            dx.index_add_(1, xi, d)
+        else:
+            dx.index_add_(1, xi, d * w[:, wi].to(acc))
+            dw.index_add_(1, wi, d * x[:, xi].to(acc))
+    return dx.to(x.dtype), None if dw is None else dw.to(x.dtype), dG
+
+
+def _check_operands(meta: KronMeta, x, sh, w, G):
+    """Shapes, dtypes and devices the kernels take; returns x with a row
+    stride of 0 or d_x and contiguous sh / w / G."""
+    plan = meta.plan
+    E = sh.shape[0]
+    if x.dim() != 2 or x.shape != (E, plan.d_x) or sh.shape != (E, plan.d_sh):
+        raise ValueError(f"bad shapes x {tuple(x.shape)} sh {tuple(sh.shape)}")
+    _build.dtype_code(x)
+    if plan.shared_weights:
+        if w is not None:
+            raise ValueError("shared weights are folded into G before the kernel")
+    elif w is None or w.shape != (E, plan.d_w):
+        raise ValueError(f"per-edge w must be [{E}, {plan.d_w}]")
+    if G.shape != (meta.numel,):
+        raise ValueError("G does not match the plan's kron layout")
+    for t in (sh, G) + (() if w is None else (w,)):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError("x, sh, w and G must share a dtype and a device")
+    if x.stride(1) != 1 or (x.stride(0) not in (0, plan.d_x)):
+        x = x.contiguous()
+    return x, sh.contiguous(), None if w is None else w.contiguous(), G.contiguous()
+
+
+def dtp_lin_kron_fwd(meta, x: torch.Tensor, sh: torch.Tensor, w, G: torch.Tensor,
+                     n_edges=None) -> torch.Tensor:
+    """K8-F: [E, d_out].  ``meta`` the plan's ``KronMeta``; x [E, d_x]
+    (a row-broadcast ``expand`` is read with row stride 0), sh [E, d_sh], w
+    [E, d_w] or None for a shared-weight plan (folded into G), G the flat
+    ``build_G``, ``n_edges`` an int32 device scalar or None.  CPU tensors
+    take ``dtp_lin_kron_plain``; CUDA tensors launch the kernel (float32 or
+    bfloat16) or raise."""
+    if x.device.type == "cpu":
+        return dtp_lin_kron_plain(meta, x, sh, w, G, n_edges)
+    plan, E = meta.plan, sh.shape[0]
+    x, sh, w, G = _check_operands(meta, x, sh, w, G)
+    n_edges = _check_n_edges(n_edges, E, x.device)
+    gk, rows = meta.device_tables(x.device)[:2]
+    out = torch.empty((E, plan.d_out), dtype=x.dtype, device=x.device)
+    if E == 0:
+        return out
+    err = _build.library().dtp_lin_kron_fwd(
+        _build.ptr(x), x.stride(0), _build.ptr(sh), plan.d_sh, _build.ptr(w), plan.d_w,
+        _build.ptr(G), _build.ptr(out), plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk),
+        gk.shape[0], _build.ptr(rows), _build.dtype_code(x), _build.stream_ptr(),
+    )
+    _build.check(err, "dtp_lin_kron_fwd")
+    dtp_lin_kron_fwd.launches += 1
+    return out
+
+
+def dtp_lin_kron_bwd(meta, x: torch.Tensor, sh: torch.Tensor, w, G: torch.Tensor,
+                     g: torch.Tensor, n_edges=None):
+    """K8-B: (dx [E, d_x], dw [E, d_w] or None, dG [numel] float32) for the
+    cotangent ``g`` [E, d_out] of ``dtp_lin_kron_fwd`` on the same
+    operands: one launch for dx and dw per edge tile, one for dG on tiles
+    that each walk a range of the edges in order, and the fixed-order sum of
+    the ranges' partial copies.  CPU tensors take
+    ``dtp_lin_kron_bwd_plain``; CUDA tensors launch the kernels (float32 or
+    bfloat16) or raise."""
+    if x.device.type == "cpu":
+        return dtp_lin_kron_bwd_plain(meta, x, sh, w, G, g, n_edges)
+    plan, E = meta.plan, sh.shape[0]
+    x, sh, w, G = _check_operands(meta, x, sh, w, G)
+    if g.shape != (E, plan.d_out) or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"cotangent must be [{E}, {plan.d_out}] in x's dtype and device")
+    g = g.contiguous()
+    n_edges = _check_n_edges(n_edges, E, x.device)
+    (gk, rows, chunks, trips, dwmap, tiles, gt_index, span_max, cols_pad_max,
+     chunk_max) = meta.device_tables(x.device)
+    dev = x.device
+    dx = torch.empty((E, plan.d_x), dtype=x.dtype, device=dev)
+    dw = None
+    if w is not None:
+        dw = (torch.zeros if plan.dw_has_dead_cols else torch.empty)(
+            (E, plan.d_w), dtype=x.dtype, device=dev)
+    dG = torch.empty((meta.numel,), dtype=torch.float32, device=dev)
+    if E == 0:
+        return dx, dw, dG.zero_()
+    n_split = dg_splits(tiles.shape[0], _sm_count(dev))
+    part = _workspace(dev, n_split * meta.numel) if n_split > 1 else dG
+    GT = G[gt_index]  # each (g, k) block of G transposed, for coalesced reads of G^T
+    err = _build.library().dtp_lin_kron_bwd(
+        _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(w),
+        plan.d_w, _build.ptr(GT), _build.ptr(g), plan.d_out, _build.ptr(n_edges), E,
+        _build.ptr(gk), gk.shape[0], _build.ptr(rows), _build.ptr(chunks), _build.ptr(trips),
+        _build.ptr(dwmap), _build.ptr(dx), _build.ptr(dw), span_max, cols_pad_max, chunk_max,
+        _build.ptr(tiles), tiles.shape[0], n_split, _build.ptr(part), _build.ptr(dG),
+        meta.numel, _build.dtype_code(x), _build.stream_ptr(),
+    )
+    _build.check(err, "dtp_lin_kron_bwd")
+    dtp_lin_kron_bwd.launches += 1
+    return dx, dw, dG
+
+
+dtp_lin_kron_fwd.launches = 0
+dtp_lin_kron_bwd.launches = 0
+
+
+def dg_splits(n_tiles: int, n_sm: int) -> int:
+    """Edge ranges of K8-B's dG launch: enough tiles x ranges to fill the
+    card, each range summed into its own partial copy of dG."""
+    return max(1, min(MAX_DG_SPLITS, -(-DG_SPLITS_PER_SM * n_sm // n_tiles)))
+
+
+class _DTPLinKron(torch.autograd.Function):
+    """K8-F forward, K8-B backward; gradients for x, w and G (not sh).
+    First order only: the backward is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, meta, x, sh, w, G, n_edges):
+        ctx.meta = meta
+        ctx.save_for_backward(x, sh, w, G, n_edges)
+        return dtp_lin_kron_fwd(meta, x, sh, w, G, n_edges)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, sh, w, G, n_edges = ctx.saved_tensors
+        dx, dw, dG = dtp_lin_kron_bwd(ctx.meta, x, sh, w, G, g, n_edges)
+        # JAX's precision caveat: dG is rounded to G's dtype before it
+        # chains to dW through build_G
+        return None, dx, None, dw, dG.to(G.dtype), None
+
+
+def dtp_lin_kron(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w,
+                 W_flat: torch.Tensor, n_edges=None) -> torch.Tensor:
+    """The fused DTP + linear heads on the kron route, with the call
+    signature of ``dtp_lin``: [E, plan.d_out], differentiable (first order)
+    in x, w (per-edge or shared) and W_flat.  A shared w is folded into
+    W_flat and G is built from W_flat here, outside the autograd op.
+    Raises if ``sh`` needs a gradient."""
+    if sh.requires_grad:
+        raise ValueError("dtp_lin_kron computes no gradient for sh (the kron route is "
+                         "first order and takes no position gradient)")
+    meta = kron_meta(plan)
+    w, W_flat = fold_shared_weights(plan, w, W_flat)
+    return _DTPLinKron.apply(meta, x, sh, w, meta.build_G(W_flat), n_edges)

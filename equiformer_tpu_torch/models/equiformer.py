@@ -27,8 +27,11 @@ without ``higher_order_grads`` only).  ``radial_fold`` (JAX's
 of the per-edge-weight sites (the 6 ``sep_act`` and the edge degree) into the
 fused op's kernels (K7); force models fold only with ``radial_fold_ho`` too
 (``EQUIFORMER_TPU_FOLD_RADIAL_HO=1``), and then run force evaluation and
-force training on the folded leg kernels.  The parameters are the same on
-every route.
+force training on the folded leg kernels.  ``kron_g`` (JAX's
+``EQUIFORMER_TPU_KRON_G=1``) takes all 13 fused DTP sites of a first-order
+model onto the kron-basis op (K8-F / K8-B); it is ignored with
+``higher_order_grads`` or ``fused_dtp_lin=False`` and overrides
+``radial_fold`` with a warning.  The parameters are the same on every route.
 
 ``module.training`` plays the role of JAX's ``deterministic=False``: alpha
 dropout on the attention weights, and the equivariant dropouts and drop path
@@ -82,7 +85,7 @@ class GraphAttention(nn.Module):
                  alpha_drop: float = 0.1, proj_drop: float = 0.1,
                  higher_order_grads: bool = True, fused_dtp_lin: bool = True,
                  dtp_first_order_bwd: bool = False, radial_fold: bool = False,
-                 radial_fold_ho: bool = False):
+                 radial_fold_ho: bool = False, kron_g: bool = False):
         super().__init__()
         self.alpha_drop = alpha_drop
         self.higher_order_grads = higher_order_grads
@@ -99,7 +102,7 @@ class GraphAttention(nn.Module):
         sh = Irreps(irreps_edge_attr)
         route = dict(higher_order_grads=higher_order_grads, fused_dtp_lin=fused_dtp_lin,
                      dtp_first_order_bwd=dtp_first_order_bwd, radial_fold=radial_fold,
-                     radial_fold_ho=radial_fold_ho)
+                     radial_fold_ho=radial_fold_ho, kron_g=kron_g)
         self.sep_act = SeparableFCTP(pre, sh, pre, fc_neurons=fc_neurons,
                                      use_activation=True, internal_weights=False,
                                      extra_head_irreps=(irreps_alpha,), **route)
@@ -167,7 +170,7 @@ class TransBlock(nn.Module):
                  irreps_mlp_mid=None, alpha_drop: float = 0.1, proj_drop: float = 0.1,
                  drop_path_rate: float = 0.0, higher_order_grads: bool = True,
                  fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False,
-                 radial_fold: bool = False, radial_fold_ho: bool = False):
+                 radial_fold: bool = False, radial_fold_ho: bool = False, kron_g: bool = False):
         super().__init__()
         irreps_in = Irreps(irreps_node_input)
         irreps_out = Irreps(irreps_node_output)
@@ -175,7 +178,7 @@ class TransBlock(nn.Module):
         self.ga = GraphAttention(irreps_in, irreps_edge_attr, irreps_in, fc_neurons,
                                  irreps_head, num_heads, alpha_drop, proj_drop,
                                  higher_order_grads, fused_dtp_lin, dtp_first_order_bwd,
-                                 radial_fold, radial_fold_ho)
+                                 radial_fold, radial_fold_ho, kron_g)
         self.norm_2 = EquivariantLayerNorm(irreps_in)
         self.ffn = FeedForwardNetwork(irreps_in, irreps_node_attr, irreps_out, irreps_mlp_mid,
                                       proj_drop)
@@ -234,6 +237,7 @@ class GraphAttentionTransformer(nn.Module):
         dtp_first_order_bwd: bool = False,
         radial_fold: bool = False,
         radial_fold_ho: bool = False,
+        kron_g: bool = False,
         seed: int = 0,
     ):
         super().__init__()
@@ -252,7 +256,7 @@ class GraphAttentionTransformer(nn.Module):
         self.rbf = make_rbf(basis_type, number_of_basis, max_radius)
         self.atom_embed = NodeEmbedding(emb, max_atom_type)
         route = (higher_order_grads, fused_dtp_lin, dtp_first_order_bwd, radial_fold,
-                 radial_fold_ho)
+                 radial_fold_ho, kron_g)
         self.edge_deg_embed = EdgeDegreeEmbedding(emb, self.irreps_sh, fc, avg_degree, *route)
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransBlock(

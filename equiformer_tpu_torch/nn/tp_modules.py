@@ -21,8 +21,11 @@ Counterparts of ``equiformer_tpu.nn.tp_modules``:
   ``SeparableFCTP.dtp_lin`` does when the fused op is off.  With
   ``radial_fold`` the radial MLP's final linear layer runs inside the fused
   op's kernels (K7): ``dtp_weights`` returns ``(h, [Wr; offset])`` and
-  ``w = h @ Wr + offset`` never reaches device memory.  The CUDA kernels
-  run on the card, their plain versions on the CPU;
+  ``w = h @ Wr + offset`` never reaches device memory.  With ``kron_g``
+  (first-order route only) the fused op is ``kernels/dtp_lin_kron.py``: the
+  CG coefficients folded into the packed W as G, K8-F forward, K8-B
+  backward.  The CUDA kernels run on the card, their plain versions on the
+  CPU;
 * ``NodeEmbedding`` / ``EdgeDegreeEmbedding``.
 
 Submodule and parameter names follow the flax scopes, so weight conversion
@@ -31,6 +34,7 @@ from the JAX package is mechanical (``utils/convert_jax.py``).
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -42,6 +46,7 @@ from ..graph.segment import active_edge_bound, scaled_scatter_sum
 from ..kernels.dtp import TermList, first_order_dtp, t_apply
 from ..kernels.dtp_lin import DTPLinPlan, dtp_lin
 from ..kernels.dtp_lin_ho import dtp_lin_ho
+from ..kernels.dtp_lin_kron import dtp_lin_kron
 from .activation import Activation, Gate, gate_for, irreps2gate
 from .linear import IrrepsLinear
 from .radial import RadialProfile
@@ -66,22 +71,35 @@ def _add_scalar_bias(x: torch.Tensor, bias: torch.Tensor, irreps: Irreps) -> tor
     return torch.cat(pieces, dim=-1)
 
 
-def _fused_op(fused_dtp_lin: bool, higher_order_grads: bool):
-    """The fused DTP + linear op of a call site, or None on the unfused route."""
+def _fused_op(fused_dtp_lin: bool, higher_order_grads: bool, kron_g: bool = False):
+    """The fused DTP + linear op of a call site, or None on the unfused route.
+    ``kron_g`` takes the kron route only where JAX's ``EQUIFORMER_TPU_KRON_G``
+    does: on the fused first-order route."""
     if not fused_dtp_lin:
         return None
-    return dtp_lin_ho if higher_order_grads else dtp_lin
+    if higher_order_grads:
+        return dtp_lin_ho
+    return dtp_lin_kron if kron_g else dtp_lin
+
+
+KRON_OVERRIDES_FOLD = ("kron_g overrides radial_fold: the kron path folds the packed W into G "
+                       "and cannot also fold the radial linear; radial folding is disabled.")
 
 
 def _radial_fold(fc_neurons, internal_weights: bool, fused_dtp_lin: bool,
-                 higher_order_grads: bool, radial_fold: bool, radial_fold_ho: bool):
+                 higher_order_grads: bool, radial_fold: bool, radial_fold_ho: bool,
+                 kron_g: bool = False):
     """The radial MLP's last hidden width when the site folds the MLP's final
     linear layer into the fused op, else None: JAX's rule
     (``_make_fused_plan``): only on the fused route, only at external-weight
-    sites with a radial MLP, and on the force route only with both switches."""
+    sites with a radial MLP, and on the force route only with both switches.
+    The kron route wins over the fold, with JAX's warning."""
     if not (fused_dtp_lin and radial_fold and fc_neurons is not None and not internal_weights):
         return None
     if higher_order_grads and not radial_fold_ho:
+        return None
+    if kron_g and not higher_order_grads:
+        warnings.warn(KRON_OVERRIDES_FOLD, stacklevel=3)
         return None
     return fc_neurons[-1]
 
@@ -180,9 +198,11 @@ class SeparableFCTP(nn.Module):
     linear layer into the fused op at an external-weight site (K7-F and
     K7-B); with ``higher_order_grads`` it also needs ``radial_fold_ho``
     (``EQUIFORMER_TPU_FOLD_RADIAL_HO=1``: K7-F and K7-B3, and in force
-    training's grad-of-grad K7-L, K7-LW and K7-Wr).  Both default off, as
-    in JAX.  The parameters are the same on
-    every route.
+    training's grad-of-grad K7-L, K7-LW and K7-Wr).  ``kron_g`` (JAX's
+    ``EQUIFORMER_TPU_KRON_G=1``) takes the fused op in the kron basis (K8-F
+    and K8-B) on the fused route without ``higher_order_grads`` and is
+    ignored elsewhere; it overrides ``radial_fold`` with a warning.  All
+    default off, as in JAX.  The parameters are the same on every route.
     """
 
     def __init__(self, irreps_node, irreps_edge, irreps_out,
@@ -190,10 +210,10 @@ class SeparableFCTP(nn.Module):
                  use_activation: bool = False, internal_weights: bool = False,
                  extra_head_irreps: Sequence = (), higher_order_grads: bool = True,
                  fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False,
-                 radial_fold: bool = False, radial_fold_ho: bool = False):
+                 radial_fold: bool = False, radial_fold_ho: bool = False, kron_g: bool = False):
         super().__init__()
         irreps_out = Irreps(irreps_out)
-        self.fused_op = _fused_op(fused_dtp_lin, higher_order_grads)
+        self.fused_op = _fused_op(fused_dtp_lin, higher_order_grads, kron_g)
         self.internal_weights = internal_weights
         self.use_activation = use_activation
         self.dtp = DTPLayer(irreps_node, irreps_edge, irreps_out,
@@ -215,7 +235,7 @@ class SeparableFCTP(nn.Module):
                 tp, [irreps_lin_output] + [Irreps(h) for h in extra_head_irreps],
                 shared_weights=internal_weights,
                 radial_fold=_radial_fold(fc_neurons, internal_weights, fused_dtp_lin,
-                                         higher_order_grads, radial_fold, radial_fold_ho),
+                                         higher_order_grads, radial_fold, radial_fold_ho, kron_g),
             )
         self.gate = None
         if use_activation:
@@ -283,17 +303,17 @@ class EdgeDegreeEmbedding(nn.Module):
     -> linear -> scaled scatter onto destinations.  The DTP and ``proj`` are
     one fused op unless ``fused_dtp_lin=False`` (then ``dw`` and ``proj``,
     with ``dtp_first_order_bwd`` as in ``SeparableFCTP``); ``radial_fold``
-    and ``radial_fold_ho`` fold ``rad``'s final linear layer into it as in
-    ``SeparableFCTP``."""
+    and ``radial_fold_ho`` fold ``rad``'s final linear layer into it and
+    ``kron_g`` takes the kron route, as in ``SeparableFCTP``."""
 
     def __init__(self, irreps_out, irreps_edge, fc_neurons: Tuple[int, ...],
                  avg_degree: float, higher_order_grads: bool = True,
                  fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False,
-                 radial_fold: bool = False, radial_fold_ho: bool = False):
+                 radial_fold: bool = False, radial_fold_ho: bool = False, kron_g: bool = False):
         super().__init__()
         irreps_out = Irreps(irreps_out)
         self.avg_degree = avg_degree
-        self.fused_op = _fused_op(fused_dtp_lin, higher_order_grads)
+        self.fused_op = _fused_op(fused_dtp_lin, higher_order_grads, kron_g)
         self.exp = IrrepsLinear(Irreps("1x0e"), irreps_out)
         self.dw = DTPLayer(irreps_out, irreps_edge, irreps_out,
                            first_order_bwd=dtp_first_order_bwd and not higher_order_grads)
@@ -304,7 +324,7 @@ class EdgeDegreeEmbedding(nn.Module):
         if self.fused_op is not None:
             self.plan = DTPLinPlan(tp, [irreps_out], radial_fold=_radial_fold(
                 fc_neurons, False, fused_dtp_lin, higher_order_grads, radial_fold,
-                radial_fold_ho))
+                radial_fold_ho, kron_g))
 
     def forward(self, edge_attr, edge_scalars, edge_dst, edge_mask, num_nodes: int):
         # every node's expanded feature is the same linear image of the

@@ -1,7 +1,7 @@
 """Where the time of an eval forward, a training step or a force evaluation goes, on one GPU.
 
     python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17 | --md17-train]
-        [--unfused | --radial-fold] [--out FILE]
+        [--unfused | --radial-fold | --kron-g] [--out FILE]
 
 Builds ``graph_attention_transformer_nonlinear_l2`` at full width with a
 seeded init, on 4 batches of 128 QM9-like graphs (30 node slots each,
@@ -23,7 +23,10 @@ it with ``radial_fold=True`` (and for ``--md17`` and ``--md17-train`` also
 ``radial_fold_ho``): the radial MLPs' final linear layers of the 7
 per-edge-weight sites run inside the fused op (K7-F forward; K7-B, or K7-B3
 for the force pass, backward; in force training's grad-of-grad also the
-leg kernels K7-L, K7-LW and K7-Wr).  For float32 and bfloat16, per unit:
+leg kernels K7-L, K7-LW and K7-Wr).  ``--kron-g`` (QM9 only: the force
+models ignore the switch) builds it with ``kron_g=True``: all 13 fused DTP
+sites on the kron-basis op (K8-F forward, K8-B backward).  For float32 and
+bfloat16, per unit:
 
 * ``wall_ms``: one pass over the batches, ending in a synchronize, divided
   by the batch count (median of 5 passes, no profiler);
@@ -184,8 +187,12 @@ def main() -> int:
                            help="build the model with radial_fold=True (and radial_fold_ho "
                                 "for --md17 and --md17-train): the radial MLPs' last layers "
                                 "inside the fused op (K7)")
+    route_arg.add_argument("--kron-g", action="store_true",
+                           help="build the QM9 model with kron_g=True (the fused DTPs on K8)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
+    if args.kron_g and (args.md17 or args.md17_train):
+        ap.error("--kron-g takes the QM9 model: the force models ignore kron_g")
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -210,8 +217,9 @@ def main() -> int:
     make = model_entrypoint(model_name)
     unit = ("train" if args.train else "md17" if args.md17
             else "md17_train" if args.md17_train else "eval")
-    route = "unfused" if args.unfused else "fold" if args.radial_fold else "fused"
-    switches = {"fused_dtp_lin": not args.unfused}
+    route = ("unfused" if args.unfused else "fold" if args.radial_fold
+             else "kron" if args.kron_g else "fused")
+    switches = {"fused_dtp_lin": not args.unfused, "kron_g": args.kron_g}
     if args.radial_fold:
         switches.update(radial_fold=True, radial_fold_ho=md17)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,

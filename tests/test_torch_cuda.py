@@ -808,3 +808,96 @@ def test_reduced_folded_md17_train_step_on_card_matches_cpu(dev):
     scale = max(float(p.abs().max()) for p in pc.values())
     assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-3 * scale
     assert mg == mg2 and all(torch.equal(pg[n], pg2[n]) for n in pg)
+
+
+# The kron-basis op (K8): Kop = sh x w times G, the CG coefficients folded
+# into the packed W.  (heads, shared weights, row-broadcast x) of the QM9
+# flagship's three sites at small widths, and a plan whose w columns partly
+# feed no head
+KRON_SITES = {
+    "sep_act": (["14x0e+4x1e+2x2e", "6x0e"], False, False),
+    "sep_value": (["14x0e+4x1e+2x2e"], True, False),
+    "edge_deg": (["14x0e+4x1e+2x2e"], False, True),
+    "dead-w-cols": (["5x0e+3x1e"], False, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("site", list(KRON_SITES))
+def test_kron_kernels_match_plain(dev, site, dtype):
+    """K8-F and K8-B against dtp_lin_kron_plain and dtp_lin_kron_bwd_plain on
+    the same operands (G from build_G), E = 300 with n_edges 250: out, dx,
+    dw and dG within the dtype's bound, rows past n_edges zero (the last
+    live tile is partly dead, the tiles past it skipped), dG fp32 and the
+    same bits in a second call."""
+    from equiformer_tpu_torch.kernels import (
+        dtp_lin_kron_bwd, dtp_lin_kron_bwd_plain, dtp_lin_kron_fwd, dtp_lin_kron_plain, kron_meta,
+    )
+
+    heads, shared, broadcast = KRON_SITES[site]
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(4)
+    plan = DTPLinPlan(depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR)), heads,
+                      shared_weights=shared)
+    meta = kron_meta(plan)
+    E = 300
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+    x = rnd(1, plan.d_x).expand(E, plan.d_x) if broadcast else rnd(E, plan.d_x)
+    sh, cot = rnd(E, plan.d_sh), rnd(E, plan.d_out)
+    w = None if shared else rnd(E, plan.d_w)  # shared weights: folded into W, so into G
+    G = meta.build_G(rnd(plan.w_numel))
+    n = torch.tensor(250, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    k = dtp_lin_kron_fwd(meta, x, sh, w, G, n)
+    p = dtp_lin_kron_plain(meta, x, sh, w, G, n)
+    torch.cuda.synchronize()
+    assert _rel(k, p) < TOL[dtype] and float(k[250:].abs().max()) == 0.0
+    k = dtp_lin_kron_bwd(meta, x, sh, w, G, cot, n)
+    p = dtp_lin_kron_bwd_plain(meta, x, sh, w, G, cot, n)
+    torch.cuda.synchronize()
+    assert k[2].dtype == torch.float32 and (k[1] is None) == shared
+    for a, b in zip(k, p):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert _rel(a, b) < TOL[dtype]
+            if a.shape[0] == E:
+                assert float(a[250:].abs().max()) == 0.0
+    again = dtp_lin_kron_bwd(meta, x, sh, w, G, cot, n)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(k, again))
+    assert (dtp_lin_kron_fwd.launches, dtp_lin_kron_bwd.launches) == (1, 2)
+
+
+@pytest.mark.cuda
+def test_reduced_kron_train_step_on_card_matches_cpu(dev):
+    """One fp32 training step of the reduced QM9 model with ``kron_g=True``
+    (alpha dropout from injected masks) on the card against the CPU plain
+    path, within 1e-4 as the fused route's; per step one K8-F and one K8-B at
+    each of the 5 fused sites, no K1 / K2; a second step from the same
+    weights gives the same bits."""
+    import equiformer_tpu_torch as pt
+    from equiformer_tpu_torch.data import GraphLoader, qm9_like_dataset
+    from equiformer_tpu_torch.kernels import launch_counts
+    from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer
+
+    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, 30, shuffle=False)))
+    keep = [torch.rand(1024, 4, generator=torch.Generator().manual_seed(i)) < 0.8
+            for i in range(2)]
+    results = []
+    for d in ("cpu", dev, dev):
+        model = GraphAttentionTransformer(**QM9_SMALL, kron_g=True).to(d)
+        opt = pt.create_optimizer(pt.cosine_warmup_schedule(5e-4, 100, 100000))
+        step, _ = pt.make_qm9_steps(model, opt)
+        reset_launch_counts()
+        state, m = step(pt.TrainState.create(model, opt), batch.to(d), iter(keep))
+        results.append(({k: float(v) for k, v in m.items()},
+                        {n: p.detach().cpu() for n, p in model.named_parameters()}))
+    c = launch_counts()
+    assert (c["dtp_lin_kron_fwd"], c["dtp_lin_kron_bwd"], c["dtp_lin_fwd"], c["dtp_lin_bwd"],
+            c["attn_combine"]) == (5, 5, 0, 0, 2)
+    (mc, pc), (mg, pg), (mg2, pg2) = results
+    for k in ("loss", "grad_norm"):
+        assert abs(mg[k] - mc[k]) < 1e-4 * abs(mc[k])
+    scale = max(float(p.abs().max()) for p in pc.values())
+    assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-4 * scale
+    assert mg == mg2 and all(torch.equal(pg[n], pg2[n]) for n in pg)
