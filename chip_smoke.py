@@ -161,6 +161,25 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    seed bitwise equal (dG is summed in a fixed order), phase 5, and a model
    built with ``kron_g`` and ``radial_fold`` that warns and launches no K7.
 
+16. measurement — the port's tools and their kernels (S1-S3), which no model
+   path launches (every phase above expects 0 of them).  Each tool's
+   ``main`` at its default sizes, with the launch counts set to 0 just
+   before and read just after (the kernels' launches): ``chip_peaks`` (the
+   CUDA-core FMA probe ``fma_probe`` in fp32 and bf16, HBM streaming, the
+   bf16 tensor cores, K6-T's byte floor ``dtp_t_floor``), ``kbench`` in
+   bf16 and fp32 (K6-T beside ``dtp_t_floor``, the staged T
+   ``dtp_t_staged`` in both layouts, K1 and the unfused composition) and
+   ``bwd_attr --qm9`` (K2 cut after each phase, ``dtp_lin_bwd_stage``, on
+   batch 0's QM9 geometry); the measured peaks and K2's stage times are
+   printed.  Then each kernel against its plain version on the same inputs
+   in float32 and bfloat16: the probe at both of the script's shapes within
+   1e-5 (fp32) and 1e-2 (bf16) of max |plain|, the floor and the staged T
+   at kbench's shapes (E = 40960) with phase 3's tolerances (the dense
+   staged T also bitwise equal to K6-T), and ``dtp_lin_bwd_stage`` at the
+   QM9 sep_act site: its full stage bitwise equal to ``dtp_lin_bwd``, its
+   dW and dz stages K2's dW bitwise with dx = dw = 0, the earlier stages
+   zeros; timed as phase 3.
+
 Phases 3 and 7 also time the model's segment sums too narrow for K3
 (``fixed_order_segment_sum``, an ``index_put_`` that repeats its bits)
 against ``index_add_`` at the shapes of the readout and the softmax
@@ -209,6 +228,10 @@ TPU_KERNELS = {
     "dtp_fused_bwd": "equiformer_tpu/kernels/dtp_pallas.py:405",
     "csr_segment_sum": "equiformer_tpu/kernels/segment_csr_pallas.py:36",
     "attn_combine": "equiformer_tpu/kernels/attn_csr_pallas.py:109",
+    "fma_probe": "scripts/chip_peaks.py:62",
+    "dtp_t_floor": "scripts/kbench.py:125",
+    "dtp_t_staged": "scripts/kbench.py:175",
+    "dtp_lin_bwd_stage": "scripts/bwd_attr.py:200",
 }
 SOURCES = {
     "dtp_lin_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
@@ -229,6 +252,10 @@ SOURCES = {
     "dtp_fused_bwd": "equiformer_tpu_torch/csrc/dtp_fused_bwd.cu",
     "csr_segment_sum": "equiformer_tpu_torch/csrc/segment_csr.cu",
     "attn_combine": "equiformer_tpu_torch/csrc/attn_csr.cu",
+    "fma_probe": "equiformer_tpu_torch/csrc/peaks.cu",
+    "dtp_t_floor": "equiformer_tpu_torch/csrc/dtp_t_variants.cu",
+    "dtp_t_staged": "equiformer_tpu_torch/csrc/dtp_t_variants.cu",
+    "dtp_lin_bwd_stage": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
 }
 NONE = dict.fromkeys(SOURCES, 0)
 EXPECTED_EVAL = {**NONE, "dtp_lin_fwd": 13, "csr_segment_sum": 1, "attn_combine": 6}
@@ -306,6 +333,15 @@ MD17_MODEL = "graph_attention_transformer_nonlinear_exp_l3_md17"
 MD17_BATCH, MD17_SLOTS = 8, 21
 EQUIV_TOL = 1e-3
 MD17_BF16_FACTOR = 2.0  # card / CPU distance to fp64: measured 1.1 (energies), 0.9 (forces)
+# The measurement kernels (S1-S3) of the port's tools, each launched by the
+# tool named; no model path launches them.  The probe's plain version rounds
+# each product and sum where the kernel's FMA rounds once.
+MEASURE_TOOLS = {"chip_peaks": [], "kbench": [], "kbench-fp32": ["--fp32"],
+                 "bwd_attr": ["--qm9"]}
+MEASURE_KERNELS = {"fma_probe": "chip_peaks", "dtp_t_floor": "kbench",
+                   "dtp_t_staged": "kbench", "dtp_lin_bwd_stage": "bwd_attr"}
+FMA_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+FMA_GRID, KBENCH_EDGES = 64, 40960  # the tools' default sizes
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
@@ -358,22 +394,23 @@ def dtp_work(plan) -> tuple:
 
 
 def record(records, kernel, site, dt_name, shape, errs, ms, plain_ms, nbytes, flops,
-           library_ms=None, pair_ms=None, pair="unfolded pair"):
+           library_ms=None, pair_ms=None, pair="unfolded pair", tol=None):
     """``pair_ms``: the time of the same function on another route and the
     same inputs, named ``pair``: for a radial-folded kernel the unfolded
-    route's kernel and cuBLAS calls, for a kron kernel K1 or K2."""
+    route's kernel and cuBLAS calls, for a kron kernel K1 or K2.  ``tol``:
+    the bound on the error relative to max |plain| (TOL by default)."""
     err = max(e for e, _ in errs)
     rel = max(r for _, r in errs)
     b_ms, b_by = bound(nbytes, flops, dt_name)
     records.append(dict(kernel=kernel, site=site, dtype=dt_name, shape=shape,
                         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, pair_ms=pair_ms,
-                        pair=pair))
+                        pair=pair, tol=TOL[dt_name] if tol is None else tol))
 
 
 def report_kernels(records):
     """Print each comparison; fail if a kernel disagrees with its plain version."""
-    failed = [r for r in records if not r["rel_err"] <= TOL[r["dtype"]]]
+    failed = [r for r in records if not r["rel_err"] <= r["tol"]]
     for r in records:
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         if r["pair_ms"] is not None:
@@ -1592,6 +1629,149 @@ def kron_fold_override(pt, torch, make, max_edges, gpu_batches):
                            f"counts {launches} != {EXPECTED_KRON_EVAL} or bad predictions")
 
 
+def measure_tools(torch, out):
+    """Each tool's ``main`` at its default sizes (its own printout
+    dropped), with the launch counts set to 0 just before it and read just
+    after; prints the measured peaks and K2's stage times.  Returns the
+    tools' reports."""
+    import contextlib
+    import io
+
+    from equiformer_tpu_torch.tools import bwd_attr, chip_peaks, kbench
+
+    mains = {"chip_peaks": chip_peaks.main, "kbench": kbench.main, "kbench-fp32": kbench.main,
+             "bwd_attr": bwd_attr.main}
+    reports, total = {}, dict.fromkeys(MEASURE_KERNELS, 0)
+    for tool, argv in MEASURE_TOOLS.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            reports[tool], launches = counted(torch, lambda: mains[tool](argv))
+        mine = {k: launches[k] for k in MEASURE_KERNELS}
+        print(f"measure {tool} {' '.join(argv)}: launches {mine}", flush=True)
+        for k in MEASURE_KERNELS:
+            total[k] += launches[k]
+        for k, owner in MEASURE_KERNELS.items():
+            if tool == owner and launches[k] == 0:
+                raise RuntimeError(f"{tool} launched no {k}")
+    out["measure_launches"] = total
+
+    peaks = reports["chip_peaks"]
+    for r in peaks["fma"]:
+        print(f"peak CUDA-core FMA {r['dtype']:8s} {r['shape']} x K{r['k']}: "
+              f"{r['tflops']:.2f} TFLOP/s ({r['ms']:.4f} ms)")
+    for r in peaks["hbm"]:
+        print(f"peak HBM stream {r['mb']} MB bf16 (read + write): {r['gb_per_s']:.1f} GB/s")
+    for r in peaks["tensor_cores"]:
+        print(f"peak bf16 matmul {r['n']}: {r['tflops']:.1f} TFLOP/s")
+    for r in peaks["dtp_t_floor"]:
+        print(f"peak S1-F stream {r['dtype']}: {r['gb_per_s']:.1f} GB/s")
+    print(f"published: {HBM_BYTES_PER_S / 1e9:.0f} GB/s, {PEAK_FLOPS['float32'] / 1e12:.0f} "
+          f"TFLOP/s fp32, {PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 (tensor cores)")
+    for tool in ("kbench", "kbench-fp32"):
+        rep = reports[tool]
+        print(f"{tool} {rep['dtype']} E={rep['edges']}: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms ({v['gb_per_s']:.0f} GB/s)" for k, v in rep["variants"].items()))
+    s3 = reports["bwd_attr"]
+    for name, rows in s3["times"].items():
+        print(f"K2 by stage, QM9 sep_act, {s3['edges']} real edges, {name}: " + ", ".join(
+            f"{r['name']} {r['ms']:.4f} ms ({r['delta_ms']:+.4f})" for r in rows), flush=True)
+    return reports
+
+
+def measure_kernel_phase(torch, model, batch, dev, records):
+    """The four measurement kernels against their plain versions on the
+    same inputs, fp32 and bf16, timed as phase 3 (no PyTorch call computes
+    their functions): the probe at chip_peaks' shapes, the floor and the
+    staged T at kbench's, the staged K2 at the QM9 sep_act site."""
+    from equiformer_tpu_torch.kernels import (
+        KERNEL_WRAPPERS, TermList, dtp_lin_bwd, dtp_lin_bwd_stage, dtp_lin_bwd_stage_plain,
+        dtp_t, dtp_t_floor, dtp_t_floor_plain, dtp_t_staged, dtp_t_staged_plain, fma_probe,
+        fma_probe_plain, make_layouts,
+    )
+    from equiformer_tpu_torch.kernels.dtp_lin import FULL_STAGE
+    from equiformer_tpu_torch.tools.chip_peaks import FMA_SHAPES
+    from equiformer_tpu_torch.tools.kbench import flagship_tp
+
+    saved = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    tp = flagship_tp()
+    tl = TermList.for_plan(tp, fold_rescale=True)
+    z_slots = make_layouts(tp)[4]
+    E_kb = KBENCH_EDGES
+    plan, heads, _ = dtp_sites(model)["sep_act"]
+    edges, sh32, n_edges, n = batch_geometry(model, batch)
+    E = edges.dst.shape[0]
+    tp_elems, macs = dtp_work(plan)
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        size = torch.finfo(dt).bits // 8
+        for variant, t, width, k in FMA_SHAPES:
+            x = (1.0 + 0.1 * torch.randn(FMA_GRID * t, width, generator=g, device=dev)).to(dt)
+            got, want = fma_probe(x, k), fma_probe_plain(x, k)
+            torch.cuda.synchronize()
+            record(records, "fma_probe", variant, dt_name, f"[{FMA_GRID * t}, {width}] x K{k}",
+                   [rel_err(got, want)], cuda_time_ms(lambda: fma_probe(x, k), torch),
+                   cuda_time_ms(lambda: fma_probe_plain(x, k), torch, reps=3, inner=3),
+                   2 * size * x.numel(), 2 * k * x.numel(), tol=FMA_TOL[dt_name])
+
+        x, sh, w = (torch.randn(E_kb, d, generator=g, device=dev).to(dt)
+                    for d in (tl.d_a, tl.d_col, tl.d_b))
+        in_bytes = size * E_kb * (tl.d_a + tl.d_col + tl.d_b)
+        shape = f"E={E_kb} d_x={tl.d_a} d_w={tl.d_b} d_z={tl.d_out}"
+        got, want = dtp_t_floor(x, sh, w, tl.d_out), dtp_t_floor_plain(x, sh, w, tl.d_out)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"dtp_t_floor {dt_name} differs from its plain version")
+        record(records, "dtp_t_floor", "kbench", dt_name, shape, [rel_err(got, want)],
+               cuda_time_ms(lambda: dtp_t_floor(x, sh, w, tl.d_out), torch),
+               cuda_time_ms(lambda: dtp_t_floor_plain(x, sh, w, tl.d_out), torch),
+               in_bytes + size * E_kb * tl.d_out, 2 * E_kb * 128)
+        for layout, slots in (("kbench-dense", None), ("kbench-slots", z_slots)):
+            got, want = dtp_t_staged(tl, x, sh, w, slots), dtp_t_staged_plain(tl, x, sh, w, slots)
+            torch.cuda.synchronize()
+            record(records, "dtp_t_staged", layout, dt_name, f"{shape} d_out={got.shape[1]}",
+                   [rel_err(got, want)],
+                   cuda_time_ms(lambda: dtp_t_staged(tl, x, sh, w, slots), torch),
+                   cuda_time_ms(lambda: dtp_t_staged_plain(tl, x, sh, w, slots), torch, reps=3,
+                                inner=3),
+                   in_bytes + size * E_kb * got.shape[1],
+                   3 * E_kb * sum(t.mul for t in tl.terms))
+        same = torch.equal(dtp_t_staged(tl, x, sh, w), dtp_t(tl, x, sh, w))
+        print(f"dtp_t_staged {dt_name} dense bitwise equal to K6-T: {same}", flush=True)
+        if not same:
+            raise RuntimeError(f"dtp_t_staged {dt_name} (dense) differs from K6-T in its bits")
+
+        x, w, W, cot, in_bytes = dtp_operands(torch, plan, heads, False, E, n, dt, g, dev)
+        sh = sh32.to(dt)
+        ref = dtp_lin_bwd(plan, x, sh, w, W, cot, n_edges)
+        for stage in range(FULL_STAGE + 1):
+            got = dtp_lin_bwd_stage(plan, x, sh, w, W, cot, stage, n_edges)
+            torch.cuda.synchronize()
+            if stage == FULL_STAGE:
+                ok = all(torch.equal(a, b) for a, b in zip(got, ref))
+            else:
+                ok = (float(got[0].abs().max()) == 0.0 and float(got[1].abs().max()) == 0.0
+                      and (torch.equal(got[2], ref[2]) if stage >= 3
+                           else float(got[2].abs().max()) == 0.0))
+            print(f"dtp_lin_bwd_stage {dt_name} stage {stage}: "
+                  + ("bitwise equal to dtp_lin_bwd" if stage == FULL_STAGE else
+                     "dx = dw = 0, dW " + ("K2's bits" if stage >= 3 else "0")) + f": {ok}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"dtp_lin_bwd_stage {dt_name} stage {stage} is not as K2")
+        want = dtp_lin_bwd_stage_plain(plan, x, sh, w, W, cot, FULL_STAGE, n_edges)
+        out_bytes = size * E * (plan.d_x + plan.d_w) + 4 * plan.w_numel
+        record(records, "dtp_lin_bwd_stage", "sep_act", dt_name,
+               f"E={E} d_x={plan.d_x} d_w={plan.d_w} d_out={plan.d_out} stage {FULL_STAGE}",
+               [rel_err(a, b) for a, b in zip(got, want)],
+               cuda_time_ms(lambda: dtp_lin_bwd_stage(plan, x, sh, w, W, cot, FULL_STAGE,
+                                                      n_edges), torch),
+               cuda_time_ms(lambda: dtp_lin_bwd_stage_plain(plan, x, sh, w, W, cot, FULL_STAGE,
+                                                            n_edges), torch, reps=3, inner=3),
+               in_bytes + size * n * plan.d_out + out_bytes, n * (4 * macs + 10 * tp_elems))
+    for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
+        fn.launches = saved[name]
+
+
 def main() -> int:
     import torch
 
@@ -1765,13 +1945,24 @@ def run(torch, dev) -> int:
     train_vs_cpu(pt, torch, make, data, dev, "kron_train", KRON)
     print(f"kron train vs CPU phase: {time.time() - t:.1f} s", flush=True)
 
+    # the measurement kernels (S1-S3): the tools, then each kernel against its plain version
+    t = time.time()
+    measure_tools(torch, out)
+    measure_records = []
+    qm9_model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED)
+    measure_kernel_phase(torch, qm9_model, gpu_batches[0], dev, measure_records)
+    del qm9_model
+    report_kernels(measure_records)
+    print(f"measurement phase: {time.time() - t:.1f} s", flush=True)
+
     table = []
     for name in SOURCES:
         # the bf16 row at the kernel's first (for the fused DTP's kernels: the
         # two-head) call site (K5b, K7-L: the x leg); K5a's launches are the
         # force evaluation's, K5b's and K5c's the force training step's,
         # K7-L's, K7-LW's and K7-Wr's the folded force training step's, K8's
-        # the kron QM9 training step's, the others' the QM9 training step's
+        # the kron QM9 training step's, the measurement kernels' their tools'
+        # runs, the others' the QM9 training step's
         path = {"dtp_lin_bwd3": "md17_launches", "dtp_lin_leg": "md17_train_launches",
                 "dtp_lin_legW": "md17_train_launches", "dtp_t": "unfused_train_launches",
                 "dtp_r": "unfused_md17_launches",
@@ -1782,9 +1973,10 @@ def run(torch, dev) -> int:
                 "dtp_lin_rad_legW": "fold_md17_train_launches",
                 "dtp_lin_rad_legWr": "fold_md17_train_launches",
                 "dtp_lin_kron_fwd": "kron_train_launches",
-                "dtp_lin_kron_bwd": "kron_train_launches"}.get(name, "train_launches")
+                "dtp_lin_kron_bwd": "kron_train_launches",
+                **dict.fromkeys(MEASURE_KERNELS, "measure_launches")}.get(name, "train_launches")
         r = next(r for r in records + md17_records + md17_train_records + k6_records
-                 + k7_records + k7_leg_records + k8_records
+                 + k7_records + k7_leg_records + k8_records + measure_records
                  if r["kernel"] == name and r["dtype"] == "bfloat16")
         table.append({"name": name, "route": "cuda", "source": SOURCES[name],
                       "replaces": TPU_KERNELS[name], "launches": out[path][name],

@@ -55,6 +55,13 @@
 // zero, so the offset's ones column adds nothing either).  Shared memory:
 // K2's plus w [16, span_max], h and dh [16, hd], 135 KB at the QM9 sep_act
 // site: one block per SM (RAD_BWD_BLOCKS_PER_SM in kernels/dtp_lin.py).
+//
+// The staged variant (S3, dtp_lin_bwd_stage; replaces scripts/bwd_attr.py's
+// kernels, build(stage)): kStage cuts the kernel after one of its phases, to
+// time each (equiformer_tpu_torch/tools/bwd_attr.py).  The cut phases are
+// left out at compile time, and the zeroed shared-memory accumulators are
+// still flushed, so dx and dw come out zero before the last stage; the
+// default, kFullStage, is the kernel above, instruction for instruction.
 
 #include <stdint.h>
 
@@ -92,7 +99,14 @@ __host__ __device__ inline int smem_floats(int d_x, int span_max, int cols_pad_m
   return kTile * (d_x + span_max + cols_pad_max + fs_max) + rad_floats;
 }
 
-template <typename T, bool kRad>
+// kStage < kFullStage cuts the kernel after one of its phases, for timing
+// them (dtp_lin_bwd_stage below; tools/bwd_attr.py): 0 the tile loop and
+// the zeroing (dx, dw written as zeros), 1 + the staging of G, 2 + the z
+// recompute, 3 + the dW product (dW complete), 4 + the dz product, 5 (the
+// default) + the term transposes: the whole kernel.
+constexpr int kFullStage = 5;
+
+template <typename T, bool kRad, int kStage = kFullStage>
 __global__ void __launch_bounds__(kThreads)
 dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh,
                    int d_sh, const T* __restrict__ w, int d_w, const T* __restrict__ WT,
@@ -166,17 +180,19 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       if constexpr (kRad)
         if (first) eqt::build_w<kTile, kThreads>(s.w, s.h, hd, Wl, n_loc, span_begin, span, n_live);
       // ---- stage G[g,k] (zero rows past the real edges, zero pad columns)
-      for (int i = tid; i < kTile * cp; i += kThreads) {
-        const int r = i / cp;
-        const int c = i - r * cp;
-        float v = 0.f;
-        if (r < n_live && c < cols) v = to_f(G[(long long)(e0 + r) * d_out + out_col + c]);
-        s.gt[i] = v;
-      }
+      if constexpr (kStage >= 1)
+        for (int i = tid; i < kTile * cp; i += kThreads) {
+          const int r = i / cp;
+          const int c = i - r * cp;
+          float v = 0.f;
+          if (r < n_live && c < cols) v = to_f(G[(long long)(e0 + r) * d_out + out_col + c]);
+          s.gt[i] = v;
+        }
       for (int i = tid; i < kTile * fs; i += kThreads) s.z[i] = 0.f;
       __syncthreads();
 
       // ---- recompute z[g,k] from the term table (rows >= n_live stay zero)
+      if constexpr (kStage >= 2)
       for (int t = t_begin; t < t_end; ++t) {
         const int* tt = terms + t * kTermFields;
         const int a = tt[0], col = tt[1], b = tt[2], fc = tt[3], mul = tt[4];
@@ -197,7 +213,7 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       __syncthreads();
 
       // ---- dW_g[f, j] += sum_r z[r, f] G[r, j]: a thread owns 4 fan rows x 1 column
-      {
+      if constexpr (kStage >= 3) {
         float* pg = my_part + w_off;
         const int items = (fs / 4) * cols;
         for (int o = tid; o < items; o += kThreads) {
@@ -223,7 +239,7 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       __syncthreads();  // z is overwritten by dz below
 
       // ---- dz[r, f] = sum_j G[r, j] W_g^T[j, f]  (W_g^T: [cp, fs], zero pad rows)
-      {
+      if constexpr (kStage >= 4) {
         const T* Wt = WT + wt_off;
         for (int f0 = fw; f0 < fs; f0 += kColGroups * kColChunk) {
           float acc[kRows][kColsPerLane];
@@ -268,7 +284,8 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       }
       __syncthreads();
 
-      // ---- term transposes off dz
+      // ---- term transposes off dz (before the last stage, dx and dw stay zero)
+      if constexpr (kStage >= 5)
       for (int t = t_begin; t < t_end; ++t) {
         const int* tt = terms + t * kTermFields;
         const int a = tt[0], col = tt[1], b = tt[2], fc = tt[3], mul = tt[4], bl = tt[5];
@@ -320,7 +337,7 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
   }
 }
 
-template <typename T, bool kRad>
+template <typename T, bool kRad, int kStage = kFullStage>
 int launch(const void* x, long long sx, int d_x, const void* sh, int d_sh, const void* w,
            int d_w, const void* WT, const void* G, int d_out, const void* n_edges, int E,
            const void* gk, int n_gk, const void* terms, const void* coeffs, const void* dwmap,
@@ -331,9 +348,9 @@ int launch(const void* x, long long sx, int d_x, const void* sh, int d_sh, const
   const int smem =
       smem_floats(d_x, span_max, cols_pad_max, fs_max, rad_floats) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      dtp_lin_bwd_kernel<T, kRad>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dtp_lin_bwd_kernel<T, kRad, kStage>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dtp_lin_bwd_kernel<T, kRad><<<n_parts, kThreads, smem, stream>>>(
+  dtp_lin_bwd_kernel<T, kRad, kStage><<<n_parts, kThreads, smem, stream>>>(
       static_cast<const T*>(x), sx, d_x, static_cast<const T*>(sh), d_sh,
       static_cast<const T*>(w), d_w, static_cast<const T*>(WT), static_cast<const T*>(G),
       d_out, static_cast<const int*>(n_edges), E, static_cast<const int*>(gk), n_gk,
@@ -399,5 +416,58 @@ extern "C" int dtp_lin_rad_bwd(const void* x, long long sx, int d_x, const void*
                                        E, gk, n_gk, terms, coeffs, nullptr, dx, nullptr, part,
                                        n_parts, dWred, w_numel, span_max, cols_pad_max, fs_max,
                                        h, hd, Wl, n_loc, dh, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2 cut after phase `stage` (0-5, kStage above; 5 is dtp_lin_bwd itself), on
+// dtp_lin_bwd's arguments: the phases' times for tools/bwd_attr.py.  The
+// outputs: before stage 3 dx = dw = 0 and dW = 0; stages 3 and 4 dx = dw =
+// 0 and K2's dW; stage 5 K2's outputs.
+namespace {
+
+template <typename T>
+int launch_stage(int stage, const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                 const void* w, int d_w, const void* WT, const void* G, int d_out,
+                 const void* n_edges, int E, const void* gk, int n_gk, const void* terms,
+                 const void* coeffs, const void* dwmap, void* dx, void* dw, void* part,
+                 int n_parts, void* dW, int w_numel, int span_max, int cols_pad_max,
+                 int fs_max, cudaStream_t s) {
+#define EQT_STAGE(S)                                                                          \
+  case S:                                                                                     \
+    return launch<T, false, S>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E, gk,    \
+                               n_gk, terms, coeffs, dwmap, dx, dw, part, n_parts, dW,         \
+                               w_numel, span_max, cols_pad_max, fs_max, nullptr, 0, nullptr,  \
+                               0, nullptr, s);
+  switch (stage) {
+    EQT_STAGE(0)
+    EQT_STAGE(1)
+    EQT_STAGE(2)
+    EQT_STAGE(3)
+    EQT_STAGE(4)
+    EQT_STAGE(5)
+  }
+#undef EQT_STAGE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int dtp_lin_bwd_stage(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                                 const void* w, int d_w, const void* WT, const void* G,
+                                 int d_out, const void* n_edges, int E, const void* gk, int n_gk,
+                                 const void* terms, const void* coeffs, const void* dwmap,
+                                 void* dx, void* dw, void* part, int n_parts, void* dW,
+                                 int w_numel, int span_max, int cols_pad_max, int fs_max,
+                                 int stage, int dtype, void* stream) {
+  if (fs_max % 4 != 0 || cols_pad_max % 4 != 0 || n_parts < 1) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32)
+    return launch_stage<float>(stage, x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E,
+                               gk, n_gk, terms, coeffs, dwmap, dx, dw, part, n_parts, dW,
+                               w_numel, span_max, cols_pad_max, fs_max, s);
+  if (dtype == eqt::kBFloat16)
+    return launch_stage<__nv_bfloat16>(stage, x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out,
+                                       n_edges, E, gk, n_gk, terms, coeffs, dwmap, dx, dw, part,
+                                       n_parts, dW, w_numel, span_max, cols_pad_max, fs_max, s);
   return (int)cudaErrorInvalidValue;
 }

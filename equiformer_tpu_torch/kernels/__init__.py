@@ -21,6 +21,11 @@
   first-order route): Kop = sh x w times G, the CG coefficients folded into
   the packed W (K8-F ``dtp_lin_kron_fwd``; K8-B ``dtp_lin_kron_bwd``: dx, dw
   and dG)
+* the measurement kernels of the port's tools (``tools/``): K2 cut after
+  each of its phases (S3, ``dtp_lin_bwd_stage``), K6-T's byte floor and a
+  variant that stages the edge tile in shared memory (S1,
+  ``dtp_t_variants``: ``dtp_t_floor``, ``dtp_t_staged``), and the CUDA-core
+  FMA probe (S2, ``peaks``: ``fma_probe``); no model path launches them
 * ``segment_csr`` — CSR segment sum over dst-sorted edges (K3)
 * ``attn_csr``    — fused segment softmax + dropout + weighted sum (K4 forward;
   its backward is torch ops, as in JAX)
@@ -46,6 +51,8 @@ from .dtp_lin import (
     dtp_lin,
     dtp_lin_bwd,
     dtp_lin_bwd_plain,
+    dtp_lin_bwd_stage,
+    dtp_lin_bwd_stage_plain,
     dtp_lin_fwd,
     dtp_lin_legW_plain,
     dtp_lin_plain,
@@ -79,6 +86,14 @@ from .dtp_lin_kron import (
     dtp_lin_kron_plain,
     kron_meta,
 )
+from .dtp_t_variants import (
+    dtp_t_floor,
+    dtp_t_floor_plain,
+    dtp_t_staged,
+    dtp_t_staged_plain,
+    make_layouts,
+)
+from .peaks import fma_probe, fma_probe_plain
 from .segment_csr import csr_segment_sum, segment_sum_plain
 
 KERNEL_WRAPPERS = {
@@ -100,6 +115,10 @@ KERNEL_WRAPPERS = {
     "dtp_fused_bwd": dtp_fused_bwd,
     "csr_segment_sum": csr_segment_sum,
     "attn_combine": attn_combine,
+    "fma_probe": fma_probe,
+    "dtp_t_floor": dtp_t_floor,
+    "dtp_t_staged": dtp_t_staged,
+    "dtp_lin_bwd_stage": dtp_lin_bwd_stage,
 }
 
 

@@ -98,6 +98,7 @@ def build() -> Path:
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 _SIGNATURES = {
@@ -111,6 +112,10 @@ _SIGNATURES = {
     "dtp_lin_bwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
                     _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
                     _I, _I, _I, _I, _I, _VP],
+    # S3: dtp_lin_bwd's arguments, then the stage (0-5) before the dtype
+    "dtp_lin_bwd_stage": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
+                          _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
+                          _I, _I, _I, _I, _I, _I, _VP],
     # x, x_row_stride, d_x, sh, d_sh, w, d_w, W^T, g, d_out, n_edges*, E,
     # gk table, n_gk, terms, coeffs, dwmap, dx, dsh, dw (each may be null),
     # span_max, cols_pad_max, max_fan_stride, dtype, stream
@@ -190,6 +195,13 @@ _SIGNATURES = {
     "dtp_lin_kron_bwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP,
                          _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _I, _I, _VP, _VP, _I, _I,
                          _VP],
+    # S1-F: x, d_x, sh, d_sh, w, d_w, out, d_out, E, dtype, stream
+    "dtp_t_floor": [_VP, _I, _VP, _I, _VP, _I, _VP, _I, _I, _I, _VP],
+    # S1-A: a, d_a, col, d_col, b, d_b, out, d_out, E, segments, n_seg, terms,
+    # coeffs, dtype, stream
+    "dtp_t_staged": [_VP, _I, _VP, _I, _VP, _I, _VP, _I, _I, _VP, _I, _VP, _VP, _I, _VP],
+    # S2: x, out, n, k, m, c, dtype, stream
+    "fma_probe": [_VP, _VP, _LL, _I, _F, _F, _I, _VP],
     # val, C, rowptr, mask, out, N, dtype, stream
     "csr_segment_sum": [_VP, _I, _VP, _VP, _VP, _I, _I, _VP],
     # scores, value, dropmul, shift, rowptr, out, den, N, H, D, dtype, stream

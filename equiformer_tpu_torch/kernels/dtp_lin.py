@@ -563,14 +563,10 @@ def dtp_lin_fwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: 
     return out
 
 
-def dtp_lin_bwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: torch.Tensor,
-                g: torch.Tensor, n_edges=None):
-    """K2: (dx [E, d_x], dw [E, d_w] or None, dW_flat [w_numel] float32) for
-    the cotangent ``g`` [E, d_out] of ``dtp_lin_fwd`` on the same operands.
-    CPU tensors take ``dtp_lin_bwd_plain``; CUDA tensors launch the kernel
-    (float32 or bfloat16) or raise."""
-    if x.device.type == "cpu":
-        return dtp_lin_bwd_plain(plan, x, sh, w, W_flat, g, n_edges)
+def _k2_launch(entry: str, plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges, *extra):
+    """K2's operands checked and laid out, its outputs allocated, and the C
+    entry ``entry`` (``dtp_lin_bwd`` or ``dtp_lin_bwd_stage``, whose stage
+    is ``extra``) launched on them: (dx, dw or None, dW, launched)."""
     E = sh.shape[0]
     x, sh, w, W_flat = _check_operands(plan, x, sh, w, W_flat)
     if g.shape != (E, plan.d_out) or g.dtype != x.dtype or g.device != x.device:
@@ -586,26 +582,80 @@ def dtp_lin_bwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: 
             (E, plan.d_w), dtype=x.dtype, device=dev)
     dW = torch.zeros((plan.w_numel,), dtype=torch.float32, device=dev)
     if E == 0:
-        return dx, dw, dW
+        return dx, dw, dW, False
     WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
     n_tiles = -(-E // BWD_TILE)
     n_parts = min(n_tiles, BWD_BLOCKS_PER_SM * _sm_count(dev))
     part = torch.empty((n_parts, plan.w_numel), dtype=torch.float32, device=dev)
-    err = _build.library().dtp_lin_bwd(
+    err = getattr(_build.library(), entry)(
         _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(w),
         plan.d_w, _build.ptr(WT), _build.ptr(g), plan.d_out, _build.ptr(n_edges), E,
         _build.ptr(gk), gk.shape[0], _build.ptr(terms), _build.ptr(coeffs), _build.ptr(dwmap),
         _build.ptr(dx), _build.ptr(dw), _build.ptr(part), n_parts, _build.ptr(dW),
-        plan.w_numel, span_max, cols_pad_max, plan.max_fan_stride, _build.dtype_code(x),
-        _build.stream_ptr(),
+        plan.w_numel, span_max, cols_pad_max, plan.max_fan_stride, *extra,
+        _build.dtype_code(x), _build.stream_ptr(),
     )
-    _build.check(err, "dtp_lin_bwd")
-    dtp_lin_bwd.launches += 1
+    _build.check(err, entry)
+    return dx, dw, dW, True
+
+
+def dtp_lin_bwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: torch.Tensor,
+                g: torch.Tensor, n_edges=None):
+    """K2: (dx [E, d_x], dw [E, d_w] or None, dW_flat [w_numel] float32) for
+    the cotangent ``g`` [E, d_out] of ``dtp_lin_fwd`` on the same operands.
+    CPU tensors take ``dtp_lin_bwd_plain``; CUDA tensors launch the kernel
+    (float32 or bfloat16) or raise."""
+    if x.device.type == "cpu":
+        return dtp_lin_bwd_plain(plan, x, sh, w, W_flat, g, n_edges)
+    dx, dw, dW, launched = _k2_launch("dtp_lin_bwd", plan, x, sh, w, W_flat, g, n_edges)
+    dtp_lin_bwd.launches += launched
+    return dx, dw, dW
+
+
+# K2 cut after each of its phases, in the kernel's order (S3,
+# tools/bwd_attr.py): the tile loop and zeroing, + G staged, + z
+# recomputed, + the dW product, + the dz product, + the term transposes
+# (the whole kernel).
+BWD_STAGES = ("loop", "+G", "+z", "+dW", "+dz", "+transposes")
+FULL_STAGE = len(BWD_STAGES) - 1
+
+
+def dtp_lin_bwd_stage_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, stage: int, n_edges=None):
+    """Plain version of ``dtp_lin_bwd_stage``: ``dtp_lin_bwd_plain``'s
+    outputs at the full stage; dx = dw = 0 before it, dW from stage 3 on
+    (zero before)."""
+    if not 0 <= stage <= FULL_STAGE:
+        raise ValueError(f"stage must be 0..{FULL_STAGE}, got {stage}")
+    if stage == FULL_STAGE:
+        return dtp_lin_bwd_plain(plan, x, sh, w, W_flat, g, n_edges)
+    E = sh.shape[0]
+    dx = x.new_zeros((E, plan.d_x))
+    dw = None if w is None else w.new_zeros((E, plan.d_w))
+    if stage >= BWD_STAGES.index("+dW"):
+        return dx, dw, dtp_lin_legW_plain(plan, g, x, sh, w, n_edges)
+    acc = torch.promote_types(g.dtype, torch.float32)
+    return dx, dw, torch.zeros((plan.w_numel,), dtype=acc, device=g.device)
+
+
+def dtp_lin_bwd_stage(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w,
+                      W_flat: torch.Tensor, g: torch.Tensor, stage: int, n_edges=None):
+    """S3: K2 (``dtp_lin_bwd``, same operands and outputs) with the phases
+    after ``stage`` (``BWD_STAGES``) left out, to time each phase; the full
+    stage is K2's own code.  CPU tensors take ``dtp_lin_bwd_stage_plain``;
+    CUDA tensors launch the kernel (float32 or bfloat16) or raise."""
+    if not 0 <= stage <= FULL_STAGE:
+        raise ValueError(f"stage must be 0..{FULL_STAGE}, got {stage}")
+    if x.device.type == "cpu":
+        return dtp_lin_bwd_stage_plain(plan, x, sh, w, W_flat, g, stage, n_edges)
+    dx, dw, dW, launched = _k2_launch("dtp_lin_bwd_stage", plan, x, sh, w, W_flat, g, n_edges,
+                                      stage)
+    dtp_lin_bwd_stage.launches += launched
     return dx, dw, dW
 
 
 dtp_lin_fwd.launches = 0
 dtp_lin_bwd.launches = 0
+dtp_lin_bwd_stage.launches = 0
 BWD_TILE = 16  # edges per tile of csrc/dtp_lin_bwd.cu
 BWD_BLOCKS_PER_SM = 2  # persistent blocks (and dW partial rows) per SM
 

@@ -19,7 +19,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import statistics
 import subprocess
 from pathlib import Path
 
@@ -36,24 +35,10 @@ from ..kernels import (
     kron_meta,
 )
 from ..nn.tp_modules import SeparableFCTP
+from ..utils.profiling import card_line, device_time_ms
 
 E, N_LIVE, SEED = 36352, 34000, 0
 IRR, SH = "128x0e+64x1e+32x2e", "1x0e+1x1e+1x2e"
-
-
-def time_ms(fn, reps: int = 5, inner: int = 5) -> float:
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop) / inner)
-    return statistics.median(times)
 
 
 def rel(a, b) -> float:
@@ -86,10 +71,9 @@ def main() -> int:
         raise SystemExit("kron_ab: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
+    time_ms = lambda fn: device_time_ms(fn, dev)  # noqa: E731
     original = _build.library
     libs = {"package": original()}
     if args.against is not None:

@@ -48,7 +48,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import time
 from pathlib import Path
 
@@ -66,6 +65,7 @@ from .. import (
 from ..data import GraphLoader, md17_like_dataset, qm9_like_dataset
 from ..train import TrainState
 from ..graph.radius_graph import radius_graph_dense
+from ..utils.profiling import card_line
 
 N_BATCHES = 4
 SEED = 0
@@ -198,9 +198,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
 
     md17 = args.md17 or args.md17_train

@@ -1,1 +1,2 @@
 from .convert_jax import ema_from_jax, flax_paths, load_jax_tree, params_from_jax, torch_name
+from .profiling import StepTimer, trace

@@ -901,3 +901,123 @@ def test_reduced_kron_train_step_on_card_matches_cpu(dev):
     scale = max(float(p.abs().max()) for p in pc.values())
     assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-4 * scale
     assert mg == mg2 and all(torch.equal(pg[n], pg2[n]) for n in pg)
+
+
+# ------------------------------------------------------ measurement kernels
+# S2: fp32 within 1e-5 relative (the kernel's FMA rounds once where the plain
+# version rounds the product and the sum), bf16 within 1e-2; S1-F exact up
+# to the dtype's bound; S1-A dense gives K6-T's bits; S3's full stage gives
+# K2's bits, its dW stages K2's dW.
+FMA_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+FMA_SHAPES = {"narrow": (512, 128, 512), "ragged-tail": (37, 129, 64)}
+FLOOR_SHAPES = {"flagship": (300, 480, 9, 960, 3136), "unaligned": (77, 131, 4, 133, 201)}
+L2_FLAGSHIP = "128x0e+64x1e+32x2e"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("shape", list(FMA_SHAPES))
+def test_fma_probe_matches_plain(dev, shape, dtype):
+    from equiformer_tpu_torch.kernels import fma_probe, fma_probe_plain
+
+    rows, width, k = FMA_SHAPES[shape]
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(6)
+    x = (1.0 + 0.1 * torch.randn(rows, width, generator=g)).to(dev, dt)
+    reset_launch_counts()
+    got = fma_probe(x, k)
+    want = fma_probe_plain(x, k)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == dt
+    assert _rel(got, want) < FMA_TOL[dtype]
+    assert fma_probe.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("shape", list(FLOOR_SHAPES))
+def test_dtp_t_floor_matches_plain(dev, shape, dtype):
+    """S1-F equals its plain version; a NaN in one edge's inputs (past the
+    128 columns the output reads) turns that edge tile's output to NaN and
+    leaves the other tiles alone."""
+    from equiformer_tpu_torch.kernels import dtp_t_floor, dtp_t_floor_plain
+
+    E, d_x, d_sh, d_w, d_z = FLOOR_SHAPES[shape]
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(7)
+    x, sh, w = (torch.randn(E, d, generator=g).to(dev, dt) for d in (d_x, d_sh, d_w))
+    reset_launch_counts()
+    got = dtp_t_floor(x, sh, w, d_z)
+    want = dtp_t_floor_plain(x, sh, w, d_z)
+    torch.cuda.synchronize()
+    assert got.shape == (E, d_z) and torch.equal(got, want)
+    x[20, d_x - 1] = float("nan")  # edge 20 lies in the tile of edges 16-31
+    got = dtp_t_floor(x, sh, w, d_z)
+    assert bool(got[16:32].isnan().all())
+    assert torch.equal(got[:16], want[:16]) and torch.equal(got[32:], want[32:])
+    assert dtp_t_floor.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("irreps", [IRR, L2_FLAGSHIP])
+def test_dtp_t_staged_matches_plain_and_k6t(dev, irreps, dtype):
+    """S1-A in both layouts against its plain version; the dense layout is
+    K6-T's function summed in K6-T's order: the same bits as dtp_t."""
+    from equiformer_tpu_torch.kernels import dtp as kd
+    from equiformer_tpu_torch.kernels import dtp_t_staged, dtp_t_staged_plain, make_layouts
+
+    dt = getattr(torch, dtype)
+    tp = depthwise_tp(Irreps(irreps), Irreps(SH), Irreps(irreps))
+    tl = kd.TermList.for_plan(tp, True)
+    z_slots = make_layouts(tp)[4]
+    a, col, b, _ = _k6_operands(tl, dev, dt, seed=8)
+    reset_launch_counts()
+    for slots in (None, z_slots):
+        got = dtp_t_staged(tl, a, col, b, slots)
+        want = dtp_t_staged_plain(tl, a, col, b, slots)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and _rel(got, want) < TOL[dtype]
+    assert got.shape[1] == 128 * len(z_slots)
+    assert torch.equal(dtp_t_staged(tl, a, col, b), kd.dtp_t(tl, a, col, b))
+    assert dtp_t_staged.launches == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("case", ["two-head", "shared-w", "flagship"])
+def test_dtp_lin_bwd_stages_match_k2(dev, case, dtype):
+    """S3: the full stage gives dtp_lin_bwd's bits; the dW and dz stages
+    K2's dW with dx = dw = 0; the earlier stages zeros; every stage within
+    the dtype's bound of its plain version."""
+    from equiformer_tpu_torch.kernels import dtp_lin_bwd_stage, dtp_lin_bwd_stage_plain
+
+    irreps, (heads, shared, _) = ((L2_FLAGSHIP, (["224x0e+64x1e+32x2e", "128x0e"], False, False))
+                                  if case == "flagship" else (IRR, HEADS[case]))
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(9)
+    plan = DTPLinPlan(depthwise_tp(Irreps(irreps), Irreps(SH), Irreps(irreps)), heads,
+                      shared_weights=shared)
+    E = 300
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+    x, sh, cot = rnd(E, plan.d_x), rnd(E, plan.d_sh), rnd(E, plan.d_out)
+    w = None if shared else rnd(E, plan.d_w)
+    W = 0.2 * rnd(plan.w_numel)
+    n = torch.tensor(250, dtype=torch.int32, device=dev)
+    ref = dtp_lin_bwd(plan, x, sh, w, W, cot, n)
+    reset_launch_counts()
+    for stage in range(6):
+        got = dtp_lin_bwd_stage(plan, x, sh, w, W, cot, stage, n)
+        want = dtp_lin_bwd_stage_plain(plan, x, sh, w, W, cot, stage, n)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.shape == b.shape and _rel(a, b) < TOL[dtype]
+        if stage == 5:
+            assert all(a is None or torch.equal(a, b) for a, b in zip(got, ref))
+        else:
+            assert float(got[0].abs().max()) == 0.0
+            assert got[1] is None or float(got[1].abs().max()) == 0.0
+            assert torch.equal(got[2], ref[2]) if stage >= 3 else float(got[2].abs().max()) == 0.0
+    assert dtp_lin_bwd_stage.launches == 6

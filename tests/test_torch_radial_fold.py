@@ -713,8 +713,9 @@ def test_rad_leg_kernel_tables_drive_the_plain_math(case):
 def test_ctypes_signatures_match_the_c_entry_points():
     """Every ``extern "C"`` entry point of csrc/ has a ctypes signature in
     kernels/_build.py of the same length, pointers as c_void_p, long long
-    as c_longlong and int as c_int (ctypes would pass a pointer given as an
-    int cut to 32 bits)."""
+    as c_longlong, float as c_float and int as c_int (ctypes would pass a
+    pointer given as an int cut to 32 bits, and a float as its integer
+    part)."""
     import ctypes
 
     found = {}
@@ -724,7 +725,7 @@ def test_ctypes_signatures_match_the_c_entry_points():
     assert set(found) == set(_build._SIGNATURES)
     for name, args in found.items():
         want = [ctypes.c_void_p if "*" in a else ctypes.c_longlong if "long long" in a
-                else ctypes.c_int for a in args]
+                else ctypes.c_float if a.startswith("float ") else ctypes.c_int for a in args]
         assert _build._SIGNATURES[name] == want, name
 
 
