@@ -26,11 +26,15 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    round intermediates such as the TP output z and dz to bf16, the kernels
    keep them in fp32).  K1 and K2 at the three call sites (sep_act,
    sep_value with folded shared weights, the edge-degree embedding with its
-   row-broadcast x), K2 on dx, dw and dW; K3; K4 with an alpha-dropout
+   row-broadcast x), K2 on dx, dw and dW; K3 masked (the edge-degree
+   scatter) and unmasked (the gathers' backward, which sums the padding
+   edges on the last node); K4 with an alpha-dropout
    multiplier (the train path) and without (the eval path), on its output
-   and its denominator.  Times both with CUDA events (median of 7 runs of
+   and its denominator.  Two K2 calls on the same inputs must give equal
+   dx, dw and dW bits.  Times both with CUDA events (median of 7 runs of
    10 calls), and the one PyTorch call that computes K3's function
-   (``index_add_``).  Each kernel's bound is the
+   (``index_add_``); K3's device time per call (its one launch, from a
+   profiler trace) is printed beside its wrapper's.  Each kernel's bound is the
    larger of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s
    (bf16 inputs) or 67 TFLOP/s (fp32), counted for this run's real edges.
 4. train  — the same model in training mode through ``make_qm9_steps``
@@ -177,8 +181,8 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    at kbench's shapes (E = 40960) with phase 3's tolerances (the dense
    staged T also bitwise equal to K6-T), and ``dtp_lin_bwd_stage`` at the
    QM9 sep_act site: its full stage bitwise equal to ``dtp_lin_bwd``, its
-   dW and dz stages K2's dW bitwise with dx = dw = 0, the earlier stages
-   zeros; timed as phase 3.
+   stages from the transposes on (K2's first launch whole) K2's dx and dw
+   bitwise with dW = 0, the earlier stages zeros; timed as phase 3.
 
 Phases 3 and 7 also time the model's segment sums too narrow for K3
 (``fixed_order_segment_sum``, an ``index_put_`` that repeats its bits)
@@ -199,7 +203,9 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
+ROOT = Path(__file__).resolve().parent
 BATCH = 128
 SLOTS = 30
 N_BATCHES = 4
@@ -423,6 +429,23 @@ def report_kernels(records):
         raise RuntimeError(f"kernels disagree with their plain versions: {failed}")
 
 
+def k3_device_line(torch, site, dt_name, ms, lib_ms, call, lib_call):
+    """Print K3's device time per call (its one kernel, from a profiler
+    trace of 20 calls) beside the wrapper's time, and ``index_add_``'s
+    (zeros + add) in both regimes."""
+    from equiformer_tpu_torch.utils.profiling import kernel_ms
+
+    def device(fn, tag):
+        per_kernel = kernel_ms(fn, 20, ROOT / "build" / "profile" / f"smoke_k3_{tag}.json")
+        return sum(t for t, _ in per_kernel.values()), sum(n for _, n in per_kernel.values())
+
+    dev_ms, launches = device(call, f"{site}_{dt_name}")
+    lib_dev_ms, _ = device(lib_call, f"{site}_{dt_name}_index_add")
+    print(f"K3 {site} {dt_name}: wrapper {ms:.4f} ms, device {dev_ms:.4f} ms in {launches:g} "
+          f"launch(es) a call; index_add_ {lib_ms:.4f} ms, device {lib_dev_ms:.4f} ms",
+          flush=True)
+
+
 def dtp_sites(model):
     """The fused DTP's call sites in block 0 and the edge-degree embedding:
     name -> (plan, head modules, row-broadcast x)."""
@@ -508,7 +531,13 @@ def kernel_phase(torch, model, batch, dev, records):
 
             k = dtp_lin_bwd(plan, x, sh, w, W, cot, n_edges)
             p = dtp_lin_bwd_plain(plan, x, sh, w, W, cot, n_edges)
+            again = dtp_lin_bwd(plan, x, sh, w, W, cot, n_edges)
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(k, again) if a is not None)
+            print(f"dtp_lin_bwd {site} {dt_name}: two calls bitwise equal (dx, dw, dW): {same}",
+                  flush=True)
+            if not same:
+                raise RuntimeError(f"dtp_lin_bwd {site} {dt_name} does not repeat its bits")
             errs = [rel_err(a, b) for a, b in zip(k, p) if a is not None]
             ms = cuda_time_ms(lambda: dtp_lin_bwd(plan, x, sh, w, W, cot, n_edges), torch)
             plain_ms = cuda_time_ms(
@@ -527,10 +556,24 @@ def kernel_phase(torch, model, batch, dev, records):
         ms = cuda_time_ms(lambda: csr_segment_sum(val, edges.dst, N, edges.mask), torch)
         plain_ms = cuda_time_ms(lambda: segment_sum_plain(val, edges.dst, N, edges.mask), torch)
         val_m = torch.where(edges.mask[:, None], val, torch.zeros_like(val))
-        lib_ms = cuda_time_ms(
-            lambda: torch.zeros(N, C, dtype=dt, device=dev).index_add_(0, edges.dst, val_m), torch)
+        lib = lambda: torch.zeros(N, C, dtype=dt, device=dev).index_add_(0, edges.dst, val_m)  # noqa: E731
+        lib_ms = cuda_time_ms(lib, torch)
         record(records, "csr_segment_sum", "edge_deg", dt_name, f"E={E} C={C} N={N}", errs, ms,
-               plain_ms, size * (n_real * C + N * C) + E + 4 * (N + 1), n_real * C, lib_ms)
+               plain_ms, size * (n_real * C + N * C) + E + 8 * E, n_real * C, lib_ms)
+        k3_device_line(torch, "edge_deg", dt_name, ms, lib_ms,
+                       lambda: csr_segment_sum(val, edges.dst, N, edges.mask), lib)
+        # the gathers' backward: unmasked, so the padding edges on the last node are summed
+        k = csr_segment_sum(val, edges.dst, N)
+        p = segment_sum_plain(val, edges.dst, N)
+        torch.cuda.synchronize()
+        ms = cuda_time_ms(lambda: csr_segment_sum(val, edges.dst, N), torch)
+        plain_ms = cuda_time_ms(lambda: segment_sum_plain(val, edges.dst, N), torch)
+        lib = lambda: torch.zeros(N, C, dtype=dt, device=dev).index_add_(0, edges.dst, val)  # noqa: E731
+        lib_ms = cuda_time_ms(lib, torch)
+        record(records, "csr_segment_sum", "gather", dt_name, f"E={E} C={C} N={N}", [rel_err(k, p)],
+               ms, plain_ms, size * (E * C + N * C) + 8 * E, E * C, lib_ms)
+        k3_device_line(torch, "gather", dt_name, ms, lib_ms,
+                       lambda: csr_segment_sum(val, edges.dst, N), lib)
 
         H, D = 4, 120
         scores = torch.randn(E, H, generator=g, device=dev).to(dt)
@@ -833,14 +876,16 @@ def md17_kernel_phase(torch, model, batch, dev, records):
             plain_ms = cuda_time_ms(lambda: segment_sum_plain(val, edges.dst, N, mask), torch)
             val_m = flat if mask is None else torch.where(mask[:, None], flat,
                                                           torch.zeros_like(flat))
-            lib_ms = cuda_time_ms(
-                lambda: torch.zeros(N, C, dtype=dt, device=dev).index_add_(0, edges.dst, val_m),
-                torch)
+            lib = lambda: torch.zeros(N, C, dtype=dt, device=dev).index_add_(  # noqa: E731
+                0, edges.dst, val_m)
+            lib_ms = cuda_time_ms(lib, torch)
             rows = E if mask is None else n_real
             record(records, "csr_segment_sum", site, dt_name,
                    f"E={E} C={'x'.join(map(str, shape[1:]))} N={N}", [rel_err(k, p)], ms,
-                   plain_ms, size * (rows * C + N * C) + (0 if mask is None else E) + 4 * (N + 1),
+                   plain_ms, size * (rows * C + N * C) + (0 if mask is None else E) + 8 * E,
                    rows * C, lib_ms)
+            k3_device_line(torch, site, dt_name, ms, lib_ms,
+                           lambda: csr_segment_sum(flat, edges.dst, N, mask), lib)
     for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
         fn.launches = saved[name]
 
@@ -1670,6 +1715,9 @@ def measure_tools(torch, out):
         rep = reports[tool]
         print(f"{tool} {rep['dtype']} E={rep['edges']}: " + ", ".join(
             f"{k} {v['ms']:.4f} ms ({v['gb_per_s']:.0f} GB/s)" for k, v in rep["variants"].items()))
+        fl = rep["variants"]["fusedlin"]
+        print(f"{tool} {rep['dtype']}: S1-P (fusedlin, K1) bound {fl['bound_ms']:.4f} ms "
+              f"({fl['bound_by']})")
     s3 = reports["bwd_attr"]
     for name, rows in s3["times"].items():
         print(f"K2 by stage, QM9 sep_act, {s3['edges']} real edges, {name}: " + ", ".join(
@@ -1687,7 +1735,7 @@ def measure_kernel_phase(torch, model, batch, dev, records):
         dtp_t, dtp_t_floor, dtp_t_floor_plain, dtp_t_staged, dtp_t_staged_plain, fma_probe,
         fma_probe_plain, make_layouts,
     )
-    from equiformer_tpu_torch.kernels.dtp_lin import FULL_STAGE
+    from equiformer_tpu_torch.kernels.dtp_lin import DXDW_STAGE, FULL_STAGE
     from equiformer_tpu_torch.tools.chip_peaks import FMA_SHAPES
     from equiformer_tpu_torch.tools.kbench import flagship_tp
 
@@ -1748,14 +1796,15 @@ def measure_kernel_phase(torch, model, batch, dev, records):
             torch.cuda.synchronize()
             if stage == FULL_STAGE:
                 ok = all(torch.equal(a, b) for a, b in zip(got, ref))
+            elif stage >= DXDW_STAGE:
+                ok = (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+                      and float(got[2].abs().max()) == 0.0)
             else:
-                ok = (float(got[0].abs().max()) == 0.0 and float(got[1].abs().max()) == 0.0
-                      and (torch.equal(got[2], ref[2]) if stage >= 3
-                           else float(got[2].abs().max()) == 0.0))
+                ok = all(float(t.abs().max()) == 0.0 for t in got)
             print(f"dtp_lin_bwd_stage {dt_name} stage {stage}: "
                   + ("bitwise equal to dtp_lin_bwd" if stage == FULL_STAGE else
-                     "dx = dw = 0, dW " + ("K2's bits" if stage >= 3 else "0")) + f": {ok}",
-                  flush=True)
+                     ("dx, dw K2's bits" if stage >= DXDW_STAGE else "dx = dw = 0")
+                     + ", dW = 0") + f": {ok}", flush=True)
             if not ok:
                 raise RuntimeError(f"dtp_lin_bwd_stage {dt_name} stage {stage} is not as K2")
         want = dtp_lin_bwd_stage_plain(plan, x, sh, w, W, cot, FULL_STAGE, n_edges)

@@ -2,7 +2,7 @@
 //
 // Replaces: equiformer_tpu/kernels/dtp_lin_pallas.py, _bwd_kernel / _bwd_body
 // (built by make_bwd_call).  Plan, term tables and weight packing:
-// equiformer_tpu_torch/kernels/dtp_lin.py (DTPLinPlan.bwd_tables).
+// equiformer_tpu_torch/kernels/dtp_lin.py (DTPLinPlan.bwd_tables, k2_tables).
 //
 // What it computes, for the forward of csrc/dtp_lin.cu
 //   z[g,k][fc+u] = sum over the (g,k) terms of c * sh[e,col] * x[e,a+u] * w[e,b+u]
@@ -18,34 +18,64 @@
 // (the wrapper raises when sh needs a gradient).  Rows e >= *n_edges get
 // zero dx / dw and add nothing to dW.
 //
-// What bounds it on the card: arithmetic.  Per real edge of the flagship's
-// sep_act site, the dz product and the dW product each repeat the forward's
-// ~209k multiply-adds (the z recompute and the term transposes add ~15k),
-// against ~11 KB of operands read and written per edge.
+// What bounds it on the card.  Per real edge of the flagship's sep_act site
+// the dz product and the dW product each repeat the forward's 208,896
+// multiply-adds (the z recompute and the term transposes add ~15k) against
+// ~11 KB of operands read and written: by the table's rates (67 TFLOP/s
+// fp32, 989 bf16) fp32 is bound by operations (0.44 ms at QM9) and bf16 by
+// bytes (0.074 ms).  What held the first design back was neither:
+// its dW product read and wrote a 121 MB set of fp32 partial rows in device
+// memory every 16 edges (~3.4 GB a call), its dz product re-read W_g^T
+// from L2 for every 4 edges on the CUDA cores, and its bf16 transposes read
+// x and w one 2-byte value at a time.
 //
-// Design: persistent blocks of 256 threads, each walking edge tiles of 16
-// (tile t = blockIdx.x + i * gridDim.x).  Per tile and (g, k) the block
-// stages the cotangent slice G[g,k] (16 x cols) in shared memory, recomputes
-// z[g,k] there from the term table (z is never saved by the forward: the
-// 3136-wide z would be ~228 MB bf16 per call at the flagship's edge count),
-// adds z^T G into the block's own fp32 partial of dW in device memory, then
-// overwrites z with dz = G W_g^T (W_g^T is packed by the wrapper so lanes
-// read it coalesced) and applies the term transposes.  dx of the tile
-// accumulates in shared memory over all (g, k); dw over the components of
-// one group, since every w column feeds exactly one group (its path has one
-// output irrep), and is flushed when the group ends.  Within one (g, k) a
-// dx / dw / z element is only ever touched by one thread: a term maps flat
-// index i to (row, u) by i / mul, and terms that share a column share mul.
-// So there are no atomics anywhere.  dW is a reduction across all edges:
-// each block keeps its own partial row, and eqt::sum_partial_rows
-// (common.cuh) sums the rows in a fixed order, so the result does not depend on the schedule.
-// Everything accumulates in fp32 on the CUDA cores; tensor cores are later
-// work.
+// Design (two launches and the fixed-order reduction; no atomics):
+// - Launch 1, dx and dw: one block of 512 threads per 16-edge tile (an mma
+//   M tile).  It stages the tile's x, sh and, per irrep group, the group's
+//   w columns in shared memory with 16-byte loads, then per (g, k) the
+//   cotangent slice G[g,k] [16, cols padded to 16], and computes dz = G
+//   W_g^T on the tensor cores (mma.sync): warp i takes the fan's 8-wide
+//   n-tiles i, i + 16, ..., and reads W_g in fragment order (packed by the
+//   wrapper, DTPLinPlan.k2_tables: one 16-byte load a lane and K step in
+//   fp32, 8 bytes in bf16, coalesced), each W element once per tile.  The
+//   term transposes then read dz, x and w from shared memory (a thread
+//   steps over rows with a fixed u when mul, a power of two, divides the
+//   block: no division an element).  dx of the tile accumulates in shared
+//   memory over all (g, k), dw over the components of one group (every w
+//   column feeds exactly one group), and each is flushed once with 16-byte
+//   stores.  Within one (g, k) a dx / dw element is only ever touched by
+//   one thread: element (row, u) of a term goes to thread (row * mul + u)
+//   % 512, and terms that share a column share mul.  (Summing each
+//   column's terms in one thread instead, so that every element is written
+//   once, took twice as long: it leaves fewer independent elements in
+//   flight.)
+// - Launch 2, dW: block (tile, range) owns a 64 x 128 tile of one group's
+//   dW (fan rows x columns) and walks one edge range in steps of 64 edges.
+//   Per step and component it recomputes z's fan slice from the terms that
+//   reach it (the forward never saves z: 3136 x 32888 values at sep_act,
+//   206 MB bf16, would be written and read once; the recompute costs each
+//   z column 1.14 times, the 0e group being cut in 3 column tiles), stages
+//   G's column slice, and adds z^T G on the tensor cores into registers.
+//   The fp32 partial goes to device memory once per range, to row `range`
+//   of part [n_ranges, w_numel]; eqt::sum_partial_rows (common.cuh) sums
+//   the rows in order, so dW does not depend on the schedule.
+// - Precision: bf16 takes bf16 operands with fp32 accumulators (the plain
+//   version rounds z and dz to bf16 too).  fp32 must stay within 1e-4 of
+//   the plain version, which plain TF32 (10-bit mantissa) would not: each
+//   operand is split into tf32 hi + lo and three products are summed (lo *
+//   hi, hi * lo, hi * hi), which keeps about fp32's accuracy at 3x the
+//   tensor-core work (still ~0.1 ms at QM9).  The same inputs give the same
+//   bits: each sum has one fixed order.
+// Rows e >= *n_edges: launch 1 writes zero dx / dw; launch 2 stops its
+// ranges at *n_edges.
 //
-// The radial-folded variant (K7-B, kRad; replaces the radial branch of
-// _bwd_kernel / _bwd_body, dtp_lin_pallas.py:675-745, :754-756, :865-887,
-// with _radial_write_dw :497 and _radial_dh :521) reads h [E, hd] in place
-// of w, rebuilds each group's w columns in shared memory as K7-F does
+// The radial-folded variant (K7-B, dtp_lin_bwd_kernel<T, kRad = true>
+// below; replaces the radial branch of _bwd_kernel / _bwd_body,
+// dtp_lin_pallas.py:675-745, :754-756, :865-887, with _radial_write_dw :497
+// and _radial_dh :521) is still the first design (the first K2 with
+// kRad), kept instruction for instruction until its own redesign; its
+// kRad = false paths are no longer instantiated.  It reads h [E, hd] in
+// place of w, rebuilds each group's w columns in shared memory as K7-F does
 // (csrc/radial.cuh), and keeps the group's dw there: at the group's last
 // component it adds dw Wr^T into the tile's dh (fp32, shared memory) and
 // [h, 1]^T dw into the block's partial rows of d[Wr; offset], which follow
@@ -53,15 +83,18 @@
 // and w never go to device memory; dh does ([E, hd]).  Rows past the real
 // edges get dh = 0 and add nothing to d[Wr; offset] (their h and dw are
 // zero, so the offset's ones column adds nothing either).  Shared memory:
-// K2's plus w [16, span_max], h and dh [16, hd], 135 KB at the QM9 sep_act
-// site: one block per SM (RAD_BWD_BLOCKS_PER_SM in kernels/dtp_lin.py).
+// 135 KB at the QM9 sep_act site: one block per SM (RAD_BWD_BLOCKS_PER_SM
+// in kernels/dtp_lin.py).  In it, per tile and (g, k): G staged, z
+// recomputed, z^T G added to the block's partial row in device memory, dz
+// = G W_g^T on the CUDA cores, the term transposes.
 //
 // The staged variant (S3, dtp_lin_bwd_stage; replaces scripts/bwd_attr.py's
-// kernels, build(stage)): kStage cuts the kernel after one of its phases, to
-// time each (equiformer_tpu_torch/tools/bwd_attr.py).  The cut phases are
-// left out at compile time, and the zeroed shared-memory accumulators are
-// still flushed, so dx and dw come out zero before the last stage; the
-// default, kFullStage, is the kernel above, instruction for instruction.
+// kernels, build(stage)): kStage cuts K2 after one of its phases (k2::
+// kFullStage below), to time each (equiformer_tpu_torch/tools/bwd_attr.py).
+// The cut phases are left out at compile time; the zeroed shared-memory
+// accumulators are still flushed, so dx and dw come out zero before stage
+// 3, and dW stays zero before the last stage.  Launch 1 from stage 3 on,
+// and both launches at the last stage, are K2's own instantiations.
 
 #include <stdint.h>
 
@@ -99,14 +132,7 @@ __host__ __device__ inline int smem_floats(int d_x, int span_max, int cols_pad_m
   return kTile * (d_x + span_max + cols_pad_max + fs_max) + rad_floats;
 }
 
-// kStage < kFullStage cuts the kernel after one of its phases, for timing
-// them (dtp_lin_bwd_stage below; tools/bwd_attr.py): 0 the tile loop and
-// the zeroing (dx, dw written as zeros), 1 + the staging of G, 2 + the z
-// recompute, 3 + the dW product (dW complete), 4 + the dz product, 5 (the
-// default) + the term transposes: the whole kernel.
-constexpr int kFullStage = 5;
-
-template <typename T, bool kRad, int kStage = kFullStage>
+template <typename T, bool kRad>
 __global__ void __launch_bounds__(kThreads)
 dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh,
                    int d_sh, const T* __restrict__ w, int d_w, const T* __restrict__ WT,
@@ -180,8 +206,7 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       if constexpr (kRad)
         if (first) eqt::build_w<kTile, kThreads>(s.w, s.h, hd, Wl, n_loc, span_begin, span, n_live);
       // ---- stage G[g,k] (zero rows past the real edges, zero pad columns)
-      if constexpr (kStage >= 1)
-        for (int i = tid; i < kTile * cp; i += kThreads) {
+      for (int i = tid; i < kTile * cp; i += kThreads) {
           const int r = i / cp;
           const int c = i - r * cp;
           float v = 0.f;
@@ -192,7 +217,6 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       __syncthreads();
 
       // ---- recompute z[g,k] from the term table (rows >= n_live stay zero)
-      if constexpr (kStage >= 2)
       for (int t = t_begin; t < t_end; ++t) {
         const int* tt = terms + t * kTermFields;
         const int a = tt[0], col = tt[1], b = tt[2], fc = tt[3], mul = tt[4];
@@ -213,7 +237,7 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       __syncthreads();
 
       // ---- dW_g[f, j] += sum_r z[r, f] G[r, j]: a thread owns 4 fan rows x 1 column
-      if constexpr (kStage >= 3) {
+      {
         float* pg = my_part + w_off;
         const int items = (fs / 4) * cols;
         for (int o = tid; o < items; o += kThreads) {
@@ -239,7 +263,7 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       __syncthreads();  // z is overwritten by dz below
 
       // ---- dz[r, f] = sum_j G[r, j] W_g^T[j, f]  (W_g^T: [cp, fs], zero pad rows)
-      if constexpr (kStage >= 4) {
+      {
         const T* Wt = WT + wt_off;
         for (int f0 = fw; f0 < fs; f0 += kColGroups * kColChunk) {
           float acc[kRows][kColsPerLane];
@@ -284,8 +308,7 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
       }
       __syncthreads();
 
-      // ---- term transposes off dz (before the last stage, dx and dw stay zero)
-      if constexpr (kStage >= 5)
+      // ---- term transposes off dz
       for (int t = t_begin; t < t_end; ++t) {
         const int* tt = terms + t * kTermFields;
         const int a = tt[0], col = tt[1], b = tt[2], fc = tt[3], mul = tt[4], bl = tt[5];
@@ -337,7 +360,7 @@ dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __re
   }
 }
 
-template <typename T, bool kRad, int kStage = kFullStage>
+template <typename T, bool kRad>
 int launch(const void* x, long long sx, int d_x, const void* sh, int d_sh, const void* w,
            int d_w, const void* WT, const void* G, int d_out, const void* n_edges, int E,
            const void* gk, int n_gk, const void* terms, const void* coeffs, const void* dwmap,
@@ -348,9 +371,9 @@ int launch(const void* x, long long sx, int d_x, const void* sh, int d_sh, const
   const int smem =
       smem_floats(d_x, span_max, cols_pad_max, fs_max, rad_floats) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      dtp_lin_bwd_kernel<T, kRad, kStage>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dtp_lin_bwd_kernel<T, kRad>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dtp_lin_bwd_kernel<T, kRad, kStage><<<n_parts, kThreads, smem, stream>>>(
+  dtp_lin_bwd_kernel<T, kRad><<<n_parts, kThreads, smem, stream>>>(
       static_cast<const T*>(x), sx, d_x, static_cast<const T*>(sh), d_sh,
       static_cast<const T*>(w), d_w, static_cast<const T*>(WT), static_cast<const T*>(G),
       d_out, static_cast<const int*>(n_edges), E, static_cast<const int*>(gk), n_gk,
@@ -367,30 +390,6 @@ int launch(const void* x, long long sx, int d_x, const void* sh, int d_sh, const
 }
 
 }  // namespace
-
-// n_parts blocks (at most the number of tiles) each own one fp32 partial row
-// of part [n_parts, w_numel]; dW [w_numel] fp32 receives their sum.
-extern "C" int dtp_lin_bwd(const void* x, long long sx, int d_x, const void* sh, int d_sh,
-                           const void* w, int d_w, const void* WT, const void* G, int d_out,
-                           const void* n_edges, int E, const void* gk, int n_gk,
-                           const void* terms, const void* coeffs, const void* dwmap, void* dx,
-                           void* dw, void* part, int n_parts, void* dW, int w_numel,
-                           int span_max, int cols_pad_max, int fs_max, int dtype,
-                           void* stream) {
-  if (fs_max % 4 != 0 || cols_pad_max % 4 != 0 || n_parts < 1) return (int)cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == eqt::kFloat32)
-    return launch<float, false>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E, gk,
-                                n_gk, terms, coeffs, dwmap, dx, dw, part, n_parts, dW, w_numel,
-                                span_max, cols_pad_max, fs_max, nullptr, 0, nullptr, 0,
-                                nullptr, s);
-  if (dtype == eqt::kBFloat16)
-    return launch<__nv_bfloat16, false>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges,
-                                        E, gk, n_gk, terms, coeffs, dwmap, dx, dw, part,
-                                        n_parts, dW, w_numel, span_max, cols_pad_max, fs_max,
-                                        nullptr, 0, nullptr, 0, nullptr, s);
-  return (int)cudaErrorInvalidValue;
-}
 
 // K7-B: the backward of dtp_lin_rad_fwd.  h [E, hd] and Wl [hd + 1, n_loc]
 // (columns in the tables' local order) in place of w; writes dx and dh, and
@@ -419,55 +418,713 @@ extern "C" int dtp_lin_rad_bwd(const void* x, long long sx, int d_x, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// K2 cut after phase `stage` (0-5, kStage above; 5 is dtp_lin_bwd itself), on
-// dtp_lin_bwd's arguments: the phases' times for tools/bwd_attr.py.  The
-// outputs: before stage 3 dx = dw = 0 and dW = 0; stages 3 and 4 dx = dw =
-// 0 and K2's dW; stage 5 K2's outputs.
-namespace {
+// ======================================================================
+// K2: dtp_lin_bwd, and S3: dtp_lin_bwd_stage (design in the header note)
+// ======================================================================
+namespace k2 {
+
+using eqt::from_f;
+using eqt::to_f;
+
+constexpr int kTile = 16;                // edges per block of launch 1: one mma M tile
+constexpr int kWarps1 = 16;
+constexpr int kThreads1 = 32 * kWarps1;
+constexpr int kNT = 4;                   // fan n-tiles (8 wide) a warp holds at once
+constexpr int kGkFields = 12;            // ints per (g, k) entry of DTPLinPlan.k2_tables
+constexpr int kTermFields = 6;           // a_off, sh col, b_off, fan col, mul, local dw col
+constexpr int kTileFields = 6;           // dW tile: gk row of component 0, k count, f0, fm, j0, fn
+constexpr int kEdges2 = 64;              // edges per step of launch 2: four mma K steps of 16
+constexpr int kFanTile = 64;             // dW tile rows (fan): 4 mma M tiles
+constexpr int kColTile = 128;            // dW tile columns: 16 mma N tiles
+constexpr int kThreads2 = 256;
+constexpr int kLdz2 = kFanTile + 4;      // row strides = 4 mod 32 words: the fragment loads of
+constexpr int kLdg2 = kColTile + 4;      // lanes (q, g) hit banks 8q + g, conflict-free
+constexpr int kRowPad = 8;               // staged x / w / dw rows: multiples of 8 elements
+
+// phases, in order (kernels/dtp_lin.py BWD_STAGES): launch 1: 0 loop, zeroing,
+// x / w staged; 1 + G staged; 2 + the dz product; 3 + the term transposes and
+// the dx / dw flush (launch 1 whole); launch 2: 4 loop and G staged; 5 + z
+// recomputed; 6 + the dW product (K2 whole)
+constexpr int kFullStage = 6;
 
 template <typename T>
-int launch_stage(int stage, const void* x, long long sx, int d_x, const void* sh, int d_sh,
-                 const void* w, int d_w, const void* WT, const void* G, int d_out,
-                 const void* n_edges, int E, const void* gk, int n_gk, const void* terms,
-                 const void* coeffs, const void* dwmap, void* dx, void* dw, void* part,
-                 int n_parts, void* dW, int w_numel, int span_max, int cols_pad_max,
-                 int fs_max, cudaStream_t s) {
-#define EQT_STAGE(S)                                                                          \
-  case S:                                                                                     \
-    return launch<T, false, S>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E, gk,    \
-                               n_gk, terms, coeffs, dwmap, dx, dw, part, n_parts, dW,         \
-                               w_numel, span_max, cols_pad_max, fs_max, nullptr, 0, nullptr,  \
-                               0, nullptr, s);
-  switch (stage) {
-    EQT_STAGE(0)
-    EQT_STAGE(1)
-    EQT_STAGE(2)
-    EQT_STAGE(3)
-    EQT_STAGE(4)
-    EQT_STAGE(5)
+constexpr int kVec = 16 / (int)sizeof(T);  // elements in a 16-byte load
+
+__host__ __device__ inline int align16(int bytes) { return (bytes + 15) & ~15; }
+__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+// the least stride >= n that is r modulo m
+__host__ __device__ inline int stride_mod(int n, int m, int r) { return n + ((r - n % m) + m) % m; }
+
+// launch 1's row strides, so that a warp's fragment loads and stores hit 32
+// distinct banks: G 8 words mod 32 in fp32 (float2 per lane), 4 in bf16 (one
+// word per lane); dz (fp32, float2 stores) 8 words mod 32
+template <typename T>
+__host__ __device__ inline int ld_g1(int cp_max) {
+  return sizeof(T) == 4 ? stride_mod(cp_max, 32, 8) : stride_mod(cp_max, 64, 8);
+}
+__host__ __device__ inline int ld_dz1(int fd_max) { return stride_mod(fd_max, 32, 8); }
+
+// byte offsets of launch 1's shared memory: dx, dw (fp32), dz (fp32), G, x, w
+// (dtype), sh (fp32)
+struct Layout1 {
+  int dx, dw, dz, g, x, w, sh, total;
+};
+
+template <typename T>
+__host__ __device__ inline Layout1 layout1(int d_x, int d_sh, int span_max, int cp_max,
+                                           int fd_max, bool has_w, bool x_rows) {
+  const int dxs = round_up(d_x, kRowPad), sps = round_up(span_max, kRowPad);
+  Layout1 l;
+  l.dx = 0;
+  l.dw = l.dx + align16(kTile * dxs * 4);
+  l.dz = l.dw + (has_w ? align16(kTile * sps * 4) : 0);
+  l.g = l.dz + align16(kTile * ld_dz1(fd_max) * 4);
+  l.x = l.g + align16(kTile * ld_g1<T>(cp_max) * (int)sizeof(T));
+  l.w = l.x + align16((x_rows ? kTile : 1) * dxs * (int)sizeof(T));
+  l.sh = l.w + (has_w ? align16(kTile * sps * (int)sizeof(T)) : 0);
+  l.total = l.sh + align16(kTile * d_sh * 4);
+  return l;
+}
+
+// ---------------------------------------------------------------- mma
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo, both tf32: hi*hi + hi*lo + lo*hi keeps ~fp32's accuracy (3xTF32)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One K = 16 step of C[i][16 x 8] += A[16 x 16] B_i[16 x 8] for the n-tiles
+// i < n (n <= kN, warp-uniform) sharing one A, with fp32 fragments.  Lane
+// (g, q) = (lane / 4, lane % 4) holds, for s = 0, 1 and k_s = 2q + 8s,
+//   a[s]    = {A[g][k_s], A[g + 8][k_s], A[g][k_s + 1], A[g + 8][k_s + 1]},
+//   b[i][s] = {B_i[k_s][g], B_i[k_s + 1][g]};
+// that is m16n8k16's bf16 layout, and for tf32 the two m16n8k8 halves with
+// their k permuted the same way in A and B (a sum over k does not see the
+// order).  bf16: the operands rounded to bf16, one mma per n-tile.  fp32:
+// 3xTF32, A split once; each kind of product (lo * hi, hi * lo, hi * hi)
+// is issued across the n-tiles in turn, so the mma's that share an
+// accumulator are n apart.
+template <typename T, int kN>
+__device__ __forceinline__ void mma16n(float (&c)[kN][4], const float (&a)[2][4],
+                                       const float (&b)[kN][2][2], int n) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint32_t ah[4], al[4], bh[kN][2], bl[kN][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split_tf32(a[s][j], ah[j], al[j]);
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        if (i < n) {
+          split_tf32(b[i][s][0], bh[i][0], bl[i][0]);
+          split_tf32(b[i][s][1], bh[i][1], bl[i][1]);
+        }
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        if (i < n) mma_tf32(c[i], al, bh[i][0], bh[i][1]);
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        if (i < n) mma_tf32(c[i], ah, bl[i][0], bl[i][1]);
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        if (i < n) mma_tf32(c[i], ah, bh[i][0], bh[i][1]);
+    }
+  } else {
+    const uint32_t A[4] = {pack_bf16(a[0][0], a[0][2]), pack_bf16(a[0][1], a[0][3]),
+                           pack_bf16(a[1][0], a[1][2]), pack_bf16(a[1][1], a[1][3])};
+#pragma unroll
+    for (int i = 0; i < kN; ++i)
+      if (i < n)
+        mma_bf16(c[i], A, pack_bf16(b[i][0][0], b[i][0][1]), pack_bf16(b[i][1][0], b[i][1][1]));
   }
-#undef EQT_STAGE
+}
+
+// ------------------------------------------------------ 16-byte staging
+template <typename T>
+__device__ __forceinline__ bool aligned16(const T* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
+// dst[r * ld_dst + c] = src[r * ld_src + c] (src row stride 0: one row), r <
+// rows, c < n, dtype T on both sides; 16 bytes a thread when vec
+template <typename T, int kThreads>
+__device__ __forceinline__ void copy_rows(T* __restrict__ dst, int ld_dst,
+                                          const T* __restrict__ src, long long ld_src, int rows,
+                                          int n, bool vec) {
+  if (vec) {
+    const int nv = n / kVec<T>;
+    for (int i = threadIdx.x; i < rows * nv; i += kThreads) {
+      const int r = i / nv;
+      const int c = (i - r * nv) * kVec<T>;
+      *reinterpret_cast<uint4*>(dst + r * ld_dst + c) =
+          __ldg(reinterpret_cast<const uint4*>(src + r * ld_src + c));
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * n; i += kThreads) {
+      const int r = i / n;
+      const int c = i - r * n;
+      dst[r * ld_dst + c] = src[r * ld_src + c];
+    }
+  }
+}
+
+// the dw span of a group in local order: columns dwmap[sb + jl] of w (or dw);
+// a chunk of kVec local columns moves with one 16-byte access when its w
+// columns are consecutive and aligned
+template <typename T>
+__device__ __forceinline__ bool span_chunk_vec(const int* __restrict__ dwmap, int sb, int jl,
+                                               int span, bool row_vec) {
+  constexpr int V = kVec<T>;
+  if (!row_vec || jl + V > span) return false;
+  const int g0 = __ldg(dwmap + sb + jl);
+  return g0 % V == 0 && __ldg(dwmap + sb + jl + V - 1) == g0 + V - 1;
+}
+
+// ----------------------------------------------------------- launch 1
+// dx and dw of one 16-edge tile a block: G[g,k] staged, dz = G W_g^T on the
+// tensor cores (W_g packed in fragment order by the wrapper, read from L2
+// with one 16-byte (fp32) or 8-byte (bf16) load per lane and step), then
+// the term transposes off dz in shared memory.
+template <typename T, int kStage>
+__global__ void __launch_bounds__(kThreads1, 1)
+dxdw_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh, int d_sh,
+            const T* __restrict__ w, int d_w, const T* __restrict__ Wp, const T* __restrict__ G,
+            int d_out, const int* __restrict__ n_edges_ptr, int E, const int* __restrict__ gk,
+            int n_gk, const int* __restrict__ terms, const float* __restrict__ coeffs,
+            const int* __restrict__ dwmap, T* __restrict__ dx, T* __restrict__ dw, int span_max,
+            int cp_max, int fd_max) {
+  constexpr int V = kVec<T>;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const bool has_w = w != nullptr;
+  const Layout1 L = layout1<T>(d_x, d_sh, span_max, cp_max, fd_max, has_w, sx != 0);
+  float* s_dx = reinterpret_cast<float*>(smem + L.dx);
+  float* s_dw = reinterpret_cast<float*>(smem + L.dw);
+  float* s_dz = reinterpret_cast<float*>(smem + L.dz);
+  T* s_g = reinterpret_cast<T*>(smem + L.g);
+  T* s_x = reinterpret_cast<T*>(smem + L.x);
+  T* s_w = reinterpret_cast<T*>(smem + L.w);
+  float* s_sh = reinterpret_cast<float*>(smem + L.sh);
+  const int dxs = round_up(d_x, kRowPad), sps = round_up(span_max, kRowPad);
+  const int ldg = ld_g1<T>(cp_max), ldz = ld_dz1(fd_max);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int e0 = blockIdx.x * kTile;
+  const int n_rows = min(kTile, E - e0);
+  const int n_live = max(0, min(n_rows, __ldg(n_edges_ptr) - e0));
+  const bool dx_vec = d_x % V == 0 && aligned16(dx);
+  const bool dw_vec = d_w % V == 0 && aligned16(dw) && aligned16(w);
+
+  if (n_live == 0) {  // past the real edges: zero gradients
+    for (int i = tid; i < n_rows * d_x; i += kThreads1)
+      dx[(long long)e0 * d_x + i] = from_f<T>(0.f);
+    if (has_w)
+      for (int i = tid; i < n_rows * d_w; i += kThreads1)
+        dw[(long long)e0 * d_w + i] = from_f<T>(0.f);
+    return;
+  }
+
+  for (int i = tid; i < kTile * dxs; i += kThreads1) s_dx[i] = 0.f;
+  for (int i = tid; i < n_live * d_sh; i += kThreads1) {
+    const int r = i / d_sh;
+    s_sh[r * d_sh + (i - r * d_sh)] = to_f(sh[(long long)(e0 + r) * d_sh + (i - r * d_sh)]);
+  }
+  copy_rows<T, kThreads1>(s_x, dxs, x + (long long)e0 * sx, sx, sx ? n_live : 1, d_x,
+                          d_x % V == 0 && sx % V == 0 && aligned16(x));
+
+  for (int qi = 0; qi < n_gk; ++qi) {
+    const int* gr = gk + qi * kGkFields;
+    const int fs = gr[0], cols = gr[1], out_col = gr[2];
+    const int t_begin = gr[4], t_end = gr[5], wp_off = gr[6], cp = gr[7];
+    const int sb = gr[8], span = gr[9], first = gr[10], last = gr[11];
+    const int n_nt = round_up(fs, 8) / 8, n_ks = cp / 16;
+
+    if (has_w && first) {  // the group's w columns, and its dw accumulator
+      for (int i = tid; i < kTile * sps; i += kThreads1) s_dw[i] = 0.f;
+      const int nv = sps / V;
+      for (int i = tid; i < n_live * nv; i += kThreads1) {
+        const int r = i / nv;
+        const int jl = (i - r * nv) * V;
+        if (jl >= span) continue;
+        const T* wr = w + (long long)(e0 + r) * d_w;
+        T* sw = s_w + r * sps + jl;
+        if (span_chunk_vec<T>(dwmap, sb, jl, span, dw_vec)) {
+          *reinterpret_cast<uint4*>(sw) =
+              __ldg(reinterpret_cast<const uint4*>(wr + __ldg(dwmap + sb + jl)));
+        } else {
+          for (int j = 0; j < V && jl + j < span; ++j) sw[j] = wr[__ldg(dwmap + sb + jl + j)];
+        }
+      }
+    }
+    // ---- stage G[g,k] [16, cp] (zero rows past the real edges, zero pad columns)
+    if constexpr (kStage >= 1) {
+      const bool g_vec = out_col % V == 0 && d_out % V == 0 && aligned16(G);
+      const int nv = cp / V;
+      for (int i = tid; i < kTile * nv; i += kThreads1) {
+        const int r = i / nv;
+        const int c = (i - r * nv) * V;
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (r < n_live) {
+          const T* gp = G + (long long)(e0 + r) * d_out + out_col + c;
+          if (g_vec && c + V <= cols) {
+            u = __ldg(reinterpret_cast<const uint4*>(gp));
+          } else {
+            T* t = reinterpret_cast<T*>(&u);
+            for (int j = 0; j < V && c + j < cols; ++j) t[j] = gp[j];
+          }
+        }
+        *reinterpret_cast<uint4*>(s_g + r * ldg + c) = u;
+      }
+    }
+    __syncthreads();
+
+    // ---- dz[16, fan] = G[16, cp] W_g^T[cp, fan]: warp w takes n-tiles w, w + 16, ...
+    if constexpr (kStage >= 2) {
+      for (int nt0 = warp; nt0 < n_nt; nt0 += kWarps1 * kNT) {
+        const int n_mine = min(kNT, (n_nt - nt0 + kWarps1 - 1) / kWarps1);  // live n-tiles
+        float acc[kNT][4];
+#pragma unroll
+        for (int i = 0; i < kNT; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        for (int ks = 0; ks < n_ks; ++ks) {
+          const int c0 = ks * 16 + 2 * q;
+          if constexpr (sizeof(T) == 4) {
+            float a[2][4];
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              const float2 lo = *reinterpret_cast<const float2*>(s_g + gq * ldg + c0 + 8 * s);
+              const float2 hi =
+                  *reinterpret_cast<const float2*>(s_g + (gq + 8) * ldg + c0 + 8 * s);
+              a[s][0] = lo.x;
+              a[s][1] = hi.x;
+              a[s][2] = lo.y;
+              a[s][3] = hi.y;
+            }
+            float b[kNT][2][2];
+#pragma unroll
+            for (int i = 0; i < kNT; ++i)
+              if (i < n_mine) {
+                const float4 v = __ldg(reinterpret_cast<const float4*>(
+                    Wp + wp_off + ((long long)((nt0 + i * kWarps1) * n_ks + ks) * 32 + lane) * 4));
+                b[i][0][0] = v.x;
+                b[i][0][1] = v.y;
+                b[i][1][0] = v.z;
+                b[i][1][1] = v.w;
+              }
+            mma16n<T, kNT>(acc, a, b, n_mine);
+          } else {
+            const uint32_t* g32 = reinterpret_cast<const uint32_t*>(s_g);
+            const uint32_t a[4] = {g32[(gq * ldg + c0) / 2], g32[((gq + 8) * ldg + c0) / 2],
+                                   g32[(gq * ldg + c0 + 8) / 2],
+                                   g32[((gq + 8) * ldg + c0 + 8) / 2]};
+            uint2 v[kNT];
+#pragma unroll
+            for (int i = 0; i < kNT; ++i)
+              if (i < n_mine)
+                v[i] = __ldg(reinterpret_cast<const uint2*>(
+                    Wp + wp_off + ((long long)((nt0 + i * kWarps1) * n_ks + ks) * 32 + lane) * 4));
+#pragma unroll
+            for (int i = 0; i < kNT; ++i)
+              if (i < n_mine) mma_bf16(acc[i], a, v[i].x, v[i].y);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kNT; ++i) {
+          if (i < n_mine) {
+            const int f = (nt0 + i * kWarps1) * 8 + 2 * q;
+            *reinterpret_cast<float2*>(s_dz + gq * ldz + f) = make_float2(acc[i][0], acc[i][1]);
+            *reinterpret_cast<float2*>(s_dz + (gq + 8) * ldz + f) =
+                make_float2(acc[i][2], acc[i][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- term transposes off dz: within one (g, k) a dx / dw element is only
+    // touched by one thread: element (row, u) of a term goes to thread
+    // (row * mul + u) % kThreads1, and terms that share a column share mul
+    if constexpr (kStage >= 3) {
+      for (int t = t_begin; t < t_end; ++t) {
+        const int* tt = terms + t * kTermFields;
+        const int a = tt[0], col = tt[1], fc = tt[3], mul = tt[4], bl = tt[5];
+        const float c = coeffs[t];
+        if ((mul & (mul - 1)) == 0 && mul <= kThreads1) {  // a power of two: no division
+          const int lg = __ffs(mul) - 1, u = tid & (mul - 1);
+          const float* dz = s_dz + fc + u;
+          const float* shc = s_sh + col;
+          float* dxp = s_dx + a + u;
+          float* dwp = s_dw + bl + u;
+          const T* wp = s_w + bl + u;
+          const T* xp = s_x + a + u;
+          for (int r = tid >> lg; r < n_live; r += kThreads1 >> lg) {
+            const float d = c * shc[r * d_sh] * dz[r * ldz];
+            if (has_w) {
+              dxp[r * dxs] += d * to_f(wp[r * sps]);
+              dwp[r * sps] += d * to_f(xp[(sx ? r : 0) * dxs]);
+            } else {
+              dxp[r * dxs] += d;
+            }
+          }
+        } else {
+          for (int i = tid; i < n_live * mul; i += kThreads1) {
+            const int r = i / mul, u = i - r * mul;
+            const float d = c * s_sh[r * d_sh + col] * s_dz[r * ldz + fc + u];
+            if (has_w) {
+              s_dx[r * dxs + a + u] += d * to_f(s_w[r * sps + bl + u]);
+              s_dw[r * sps + bl + u] += d * to_f(s_x[(sx ? r : 0) * dxs + a + u]);
+            } else {
+              s_dx[r * dxs + a + u] += d;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    if (has_w && last) {  // the group's dw columns are complete
+      const int nv = sps / V;
+      for (int i = tid; i < n_rows * nv; i += kThreads1) {
+        const int r = i / nv;
+        const int jl = (i - r * nv) * V;
+        if (jl >= span) continue;
+        T* dr = dw + (long long)(e0 + r) * d_w;
+        const float* sd = s_dw + r * sps + jl;
+        if (span_chunk_vec<T>(dwmap, sb, jl, span, dw_vec)) {
+          uint4 u;
+          T* t = reinterpret_cast<T*>(&u);
+#pragma unroll
+          for (int j = 0; j < V; ++j) t[j] = from_f<T>(sd[j]);
+          *reinterpret_cast<uint4*>(dr + __ldg(dwmap + sb + jl)) = u;
+        } else {
+          for (int j = 0; j < V && jl + j < span; ++j)
+            dr[__ldg(dwmap + sb + jl + j)] = from_f<T>(sd[j]);
+        }
+      }
+      __syncthreads();  // s_dw is zeroed by the next group
+    }
+  }
+
+  const int nv = dx_vec ? d_x / V : 0;
+  for (int i = tid; i < n_rows * nv; i += kThreads1) {
+    const int r = i / nv;
+    const int c = (i - r * nv) * V;
+    uint4 u;
+    T* t = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int j = 0; j < V; ++j) t[j] = from_f<T>(s_dx[r * dxs + c + j]);
+    *reinterpret_cast<uint4*>(dx + (long long)(e0 + r) * d_x + c) = u;
+  }
+  if (!dx_vec)
+    for (int i = tid; i < n_rows * d_x; i += kThreads1) {
+      const int r = i / d_x;
+      dx[(long long)(e0 + r) * d_x + (i - r * d_x)] = from_f<T>(s_dx[r * dxs + (i - r * d_x)]);
+    }
+}
+
+// ----------------------------------------------------------- launch 2
+// Block (tile, range): the fp32 partial of dW_g[f0 : f0 + fm, j0 : j0 + fn]
+// over the edges of one range, summed on the tensor cores in registers:
+// per step of 64 edges and component k, z[g,k]'s fan slice is recomputed
+// from the terms that reach it and G[g,k]'s column slice staged (16-byte
+// loads), then acc += z^T G.  The partial is written once, to row `range`
+// of part.
+template <typename T, int kStage>
+__global__ void __launch_bounds__(kThreads2)
+dW_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ sh, int d_sh,
+          const T* __restrict__ w, int d_w, const T* __restrict__ G, int d_out,
+          const int* __restrict__ n_edges_ptr, int E, const int* __restrict__ gk,
+          const int* __restrict__ tiles, const int* __restrict__ terms,
+          const float* __restrict__ coeffs, float* __restrict__ part, int w_numel,
+          int range_len) {
+  constexpr int V = kVec<T>;
+  extern __shared__ float4 smem4[];
+  float* s_z = reinterpret_cast<float*>(smem4);  // [kEdges2][kLdz2]: z[e][f - f0]
+  float* s_g = s_z + kEdges2 * kLdz2;              // [kEdges2][kLdg2]: G[e][j - j0]
+  float* s_sh = s_g + kEdges2 * kLdg2;             // [kEdges2][d_sh]
+
+  const int* tl = tiles + blockIdx.x * kTileFields;
+  const int q0 = tl[0], n_comp = tl[1], f0 = tl[2], fm = tl[3], j0 = tl[4], fn = tl[5];
+  const int cols = gk[q0 * kGkFields + 1], w_off = gk[q0 * kGkFields + 3];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int mt = warp & 3;          // 16 fan rows
+  const int nt0 = (warp >> 2) * 8;  // 8 n-tiles: 64 columns, in two halves of 4
+  const bool live_m = mt * 16 < fm;
+  const int n_mine = min(8, max(0, (fn - nt0 * 8 + 7) / 8));  // live n-tiles
+  const int r_begin = blockIdx.y * range_len;
+  const int r_end = min(min(E, r_begin + range_len), __ldg(n_edges_ptr));
+  const bool g_vec = d_out % V == 0 && fn % V == 0 && aligned16(G);
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[h][i][j] = 0.f;
+
+  for (int e0 = r_begin; e0 < r_end; e0 += kEdges2) {
+    const int n_live = min(kEdges2, r_end - e0);
+    for (int i = tid; i < n_live * d_sh; i += kThreads2)
+      s_sh[i] = to_f(sh[(long long)e0 * d_sh + i]);
+    for (int k = 0; k < n_comp; ++k) {
+      const int* gr = gk + (q0 + k) * kGkFields;
+      const int out_col = gr[2], t_begin = gr[4], t_end = gr[5];
+      for (int i = tid; i < kEdges2 * kFanTile / 4; i += kThreads2) {
+        const int r = i / (kFanTile / 4);
+        *reinterpret_cast<float4*>(s_z + r * kLdz2 + (i - r * (kFanTile / 4)) * 4) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      // G[e, out_col + j0 + c] as fp32, zero past n_live and fn
+      const bool vec = g_vec && (out_col + j0) % V == 0;
+      for (int i = tid; i < kEdges2 * (kColTile / V); i += kThreads2) {
+        const int r = i / (kColTile / V);
+        const int c = (i - r * (kColTile / V)) * V;
+        float v[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = 0.f;
+        if (r < n_live && c < fn) {
+          const T* gp = G + (long long)(e0 + r) * d_out + out_col + j0 + c;
+          if (vec) {
+            const uint4 u = __ldg(reinterpret_cast<const uint4*>(gp));
+            const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+            for (int j = 0; j < V; ++j) v[j] = to_f(t[j]);
+          } else {
+            for (int j = 0; j < V && c + j < fn; ++j) v[j] = to_f(gp[j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < V; j += 4)
+          *reinterpret_cast<float4*>(s_g + r * kLdg2 + c + j) =
+              make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+      }
+      __syncthreads();
+
+      // ---- z[g,k][e, f0 : f0 + fm] from the terms that reach the slice (a
+      // fan column is written by terms of one fc and mul: one thread each;
+      // stepping over rows with a fixed column, as the transposes do, made
+      // this phase ~25% slower)
+      if constexpr (kStage >= 5) {
+        for (int t = t_begin; t < t_end; ++t) {
+          const int* tt = terms + t * kTermFields;
+          const int fc = tt[3], mul = tt[4];
+          const int lo = max(fc, f0), hi = min(fc + mul, f0 + fm);
+          if (lo >= hi) continue;
+          const int a = tt[0], col = tt[1], b = tt[2];
+          const float c = coeffs[t];
+          const int cnt = hi - lo;
+          for (int i = tid; i < n_live * cnt; i += kThreads2) {
+            const int r = i / cnt;
+            const int f = lo + (i - r * cnt);
+            const long long e = e0 + r;
+            float v = c * s_sh[r * d_sh + col] * to_f(x[e * sx + a + f - fc]);
+            if (w != nullptr) v *= to_f(w[e * d_w + b + f - fc]);
+            s_z[r * kLdz2 + f - f0] += v;
+          }
+        }
+      }
+      __syncthreads();
+
+      // ---- acc[f, j] += sum_e z[e, f] G[e, j]: M = fan, N = columns, K = edges
+      if constexpr (kStage >= 6) {
+        if (live_m) {
+#pragma unroll
+          for (int ks = 0; ks < kEdges2 / 16; ++ks) {
+            float a[2][4];
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              const float* z0 = s_z + (ks * 16 + 2 * q + 8 * s) * kLdz2 + mt * 16 + gq;
+              a[s][0] = z0[0];
+              a[s][1] = z0[8];
+              a[s][2] = z0[kLdz2];
+              a[s][3] = z0[kLdz2 + 8];
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int n_h = min(4, max(0, n_mine - 4 * h));
+              if (n_h == 0) continue;
+              float b[4][2][2];
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                if (i < n_h)
+#pragma unroll
+                  for (int s = 0; s < 2; ++s) {
+                    const float* g0 =
+                        s_g + (ks * 16 + 2 * q + 8 * s) * kLdg2 + (nt0 + 4 * h + i) * 8 + gq;
+                    b[i][s][0] = g0[0];
+                    b[i][s][1] = g0[kLdg2];
+                  }
+              mma16n<T, 4>(acc[h], a, b, n_h);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // ---- the partial, once per range: row blockIdx.y, this tile's slice
+  if (!live_m) return;
+  float* pr = part + (long long)blockIdx.y * w_numel + w_off;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = (nt0 + 4 * h + i) * 8 + 2 * q;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int f = mt * 16 + gq + 8 * u;
+        if (f >= fm) continue;
+        if (j < fn) pr[(long long)(f0 + f) * cols + j0 + j] = acc[h][i][2 * u];
+        if (j + 1 < fn) pr[(long long)(f0 + f) * cols + j0 + j + 1] = acc[h][i][2 * u + 1];
+      }
+    }
+}
+
+struct Args {
+  const void *x, *sh, *w, *Wp, *G, *n_edges, *gk, *terms, *coeffs, *dwmap, *tiles;
+  long long sx;
+  int d_x, d_sh, d_w, d_out, E, n_gk, span_max, cp_max, fd_max, n_tiles, n_ranges, range_len,
+      w_numel;
+  void *dx, *dw, *part, *dW;
+};
+
+template <typename T, int kStage1>
+int launch1(const Args& a, cudaStream_t stream) {
+  const Layout1 L =
+      layout1<T>(a.d_x, a.d_sh, a.span_max, a.cp_max, a.fd_max, a.w != nullptr, a.sx != 0);
+  cudaError_t err = cudaFuncSetAttribute(dxdw_kernel<T, kStage1>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return (int)err;
+  dxdw_kernel<T, kStage1><<<(a.E + kTile - 1) / kTile, kThreads1, L.total, stream>>>(
+      static_cast<const T*>(a.x), a.sx, a.d_x, static_cast<const T*>(a.sh), a.d_sh,
+      static_cast<const T*>(a.w), a.d_w, static_cast<const T*>(a.Wp),
+      static_cast<const T*>(a.G), a.d_out, static_cast<const int*>(a.n_edges), a.E,
+      static_cast<const int*>(a.gk), a.n_gk, static_cast<const int*>(a.terms),
+      static_cast<const float*>(a.coeffs), static_cast<const int*>(a.dwmap),
+      static_cast<T*>(a.dx), static_cast<T*>(a.dw), a.span_max, a.cp_max, a.fd_max);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int kStage2>
+int launch2(const Args& a, cudaStream_t stream) {
+  const int smem = (kEdges2 * (kLdz2 + kLdg2) + kEdges2 * a.d_sh) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(dW_kernel<T, kStage2>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dW_kernel<T, kStage2><<<dim3(a.n_tiles, a.n_ranges), kThreads2, smem, stream>>>(
+      static_cast<const T*>(a.x), a.sx, static_cast<const T*>(a.sh), a.d_sh,
+      static_cast<const T*>(a.w), a.d_w, static_cast<const T*>(a.G), a.d_out,
+      static_cast<const int*>(a.n_edges), a.E, static_cast<const int*>(a.gk),
+      static_cast<const int*>(a.tiles), static_cast<const int*>(a.terms),
+      static_cast<const float*>(a.coeffs), static_cast<float*>(a.part), a.w_numel,
+      a.range_len);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // dW = the ranges' partial rows summed in range order
+  return (int)eqt::sum_partial_rows(static_cast<const float*>(a.part), a.n_ranges, a.w_numel,
+                                    static_cast<float*>(a.dW), stream);
+}
+
+// K2 cut after phase `stage` (kFullStage: K2 itself).  Launch 1 is K2's own
+// from stage 3 on; launch 2 (and the reduction) runs from stage 4 on, so dW
+// stays the wrapper's zeros before it.
+template <typename T>
+int launch_stage(int stage, const Args& a, cudaStream_t s) {
+  int err = 0;
+  switch (stage) {
+    case 0: return launch1<T, 0>(a, s);
+    case 1: return launch1<T, 1>(a, s);
+    case 2: return launch1<T, 2>(a, s);
+    case 3: return launch1<T, kFullStage>(a, s);
+    case 4: err = launch1<T, kFullStage>(a, s); return err ? err : launch2<T, 4>(a, s);
+    case 5: err = launch1<T, kFullStage>(a, s); return err ? err : launch2<T, 5>(a, s);
+    case 6: err = launch1<T, kFullStage>(a, s); return err ? err : launch2<T, kFullStage>(a, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-extern "C" int dtp_lin_bwd_stage(const void* x, long long sx, int d_x, const void* sh, int d_sh,
-                                 const void* w, int d_w, const void* WT, const void* G,
-                                 int d_out, const void* n_edges, int E, const void* gk, int n_gk,
-                                 const void* terms, const void* coeffs, const void* dwmap,
-                                 void* dx, void* dw, void* part, int n_parts, void* dW,
-                                 int w_numel, int span_max, int cols_pad_max, int fs_max,
-                                 int stage, int dtype, void* stream) {
-  if (fs_max % 4 != 0 || cols_pad_max % 4 != 0 || n_parts < 1) return (int)cudaErrorInvalidValue;
+int run(int stage, const Args& a, int dtype, void* stream) {
+  if (a.cp_max % 16 != 0 || a.n_ranges < 1 || a.range_len % kEdges2 != 0 ||
+      (long long)a.n_ranges * a.range_len < a.E)
+    return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == eqt::kFloat32)
-    return launch_stage<float>(stage, x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E,
-                               gk, n_gk, terms, coeffs, dwmap, dx, dw, part, n_parts, dW,
-                               w_numel, span_max, cols_pad_max, fs_max, s);
-  if (dtype == eqt::kBFloat16)
-    return launch_stage<__nv_bfloat16>(stage, x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out,
-                                       n_edges, E, gk, n_gk, terms, coeffs, dwmap, dx, dw, part,
-                                       n_parts, dW, w_numel, span_max, cols_pad_max, fs_max, s);
+  if (dtype == eqt::kFloat32) return launch_stage<float>(stage, a, s);
+  if (dtype == eqt::kBFloat16) return launch_stage<__nv_bfloat16>(stage, a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace k2
+
+// K2: dx [E, d_x], dw [E, d_w] (null without a per-edge w) and dW [w_numel]
+// fp32 for the cotangent G of dtp_lin_fwd.  Wp: each group's W_g in mma
+// fragment order (DTPLinPlan.k2_tables' wp_index); gk: [n_gk, 12] per (g,
+// k); tiles: [n_tiles, 6] dW tiles; part: [n_ranges, w_numel] fp32 scratch
+// (each edge range of range_len edges writes one row, every element once).
+extern "C" int dtp_lin_bwd(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                           const void* w, int d_w, const void* Wp, const void* G, int d_out,
+                           const void* n_edges, int E, const void* gk, int n_gk,
+                           const void* terms, const void* coeffs, const void* dwmap, void* dx,
+                           void* dw, int span_max, int cp_max, int fd_max, const void* tiles,
+                           int n_tiles, void* part, int n_ranges, int range_len, void* dW,
+                           int w_numel, int dtype, void* stream) {
+  const k2::Args a{x,      sh,     w,        Wp,       G,      n_edges,   gk,
+                   terms,  coeffs, dwmap,    tiles,    sx,     d_x,       d_sh,
+                   d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
+                   n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
+  return k2::run(k2::kFullStage, a, dtype, stream);
+}
+
+// S3: K2 cut after phase `stage` (0-6, k2::kFullStage is dtp_lin_bwd itself),
+// on dtp_lin_bwd's arguments: the phases' times for tools/bwd_attr.py.  The
+// outputs: stages 0-2 dx = dw = 0 and dW = 0; stages 3-5 K2's dx and dw, dW
+// = 0; stage 6 K2's outputs.
+extern "C" int dtp_lin_bwd_stage(const void* x, long long sx, int d_x, const void* sh,
+                                 int d_sh, const void* w, int d_w, const void* Wp,
+                                 const void* G, int d_out, const void* n_edges, int E,
+                                 const void* gk, int n_gk, const void* terms, const void* coeffs,
+                                 const void* dwmap, void* dx, void* dw, int span_max, int cp_max,
+                                 int fd_max, const void* tiles, int n_tiles, void* part,
+                                 int n_ranges, int range_len, void* dW, int w_numel, int stage,
+                                 int dtype, void* stream) {
+  const k2::Args a{x,      sh,     w,        Wp,       G,      n_edges,   gk,
+                   terms,  coeffs, dwmap,    tiles,    sx,     d_x,       d_sh,
+                   d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
+                   n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
+  return k2::run(stage, a, dtype, stream);
 }

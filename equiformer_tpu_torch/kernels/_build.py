@@ -106,16 +106,17 @@ _SIGNATURES = {
     # gk table, n_gk, terms, coeffs, max_fan_stride, dtype, stream
     "dtp_lin_fwd": [_VP, _LL, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                     _VP, _I, _VP, _VP, _I, _I, _VP],
-    # x, x_row_stride, d_x, sh, d_sh, w, d_w, W^T, g, d_out, n_edges*, E,
-    # gk table, n_gk, terms, coeffs, dwmap, dx, dw, dW partials, n_parts, dW,
-    # w_numel, span_max, cols_pad_max, max_fan_stride, dtype, stream
+    # K2: x, x_row_stride, d_x, sh, d_sh, w, d_w, packed W, g, d_out, n_edges*,
+    # E, gk table (k2_tables'), n_gk, terms, coeffs, dwmap, dx, dw, span_max,
+    # cp_max, fd_max, dW tiles, n_tiles, dW partials, n_ranges, range_len, dW,
+    # w_numel, dtype, stream
     "dtp_lin_bwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
-                    _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
-                    _I, _I, _I, _I, _I, _VP],
-    # S3: dtp_lin_bwd's arguments, then the stage (0-5) before the dtype
+                    _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                    _VP, _I, _VP, _I, _I, _VP, _I, _I, _VP],
+    # S3: dtp_lin_bwd's arguments, then the stage (0-6) before the dtype
     "dtp_lin_bwd_stage": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
-                          _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
-                          _I, _I, _I, _I, _I, _I, _VP],
+                          _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                          _VP, _I, _VP, _I, _I, _VP, _I, _I, _I, _VP],
     # x, x_row_stride, d_x, sh, d_sh, w, d_w, W^T, g, d_out, n_edges*, E,
     # gk table, n_gk, terms, coeffs, dwmap, dx, dsh, dw (each may be null),
     # span_max, cols_pad_max, max_fan_stride, dtype, stream
@@ -202,8 +203,9 @@ _SIGNATURES = {
     "dtp_t_staged": [_VP, _I, _VP, _I, _VP, _I, _VP, _I, _I, _VP, _I, _VP, _VP, _I, _VP],
     # S2: x, out, n, k, m, c, dtype, stream
     "fma_probe": [_VP, _VP, _LL, _I, _F, _F, _I, _VP],
-    # val, C, rowptr, mask, out, N, dtype, stream
-    "csr_segment_sum": [_VP, _I, _VP, _VP, _VP, _I, _I, _VP],
+    # val, C, dst, dst's bytes per index (8 or 4), E, mask, out, N, vec (1 or
+    # 16 bytes' worth), nodes per block, dtype, stream
+    "csr_segment_sum": [_VP, _I, _VP, _I, _I, _VP, _VP, _I, _I, _I, _I, _VP],
     # scores, value, dropmul, shift, rowptr, out, den, N, H, D, dtype, stream
     "attn_combine": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
 }
@@ -238,9 +240,12 @@ def dtype_code(t) -> int:
 
 
 def stream_ptr() -> int:
+    """The current device's current CUDA stream as a pointer: what
+    ``torch.cuda.current_stream().cuda_stream`` gives, without building the
+    Stream object (host time is what the small launches pay)."""
     import torch
 
-    return torch.cuda.current_stream().cuda_stream
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def ptr(t) -> int:

@@ -57,6 +57,47 @@ class Group(NamedTuple):
     w_off: int  # offset of the group's [fan_stride, cols] W in the flat buffer
 
 
+K2_FAN_TILE, K2_COL_TILE = 64, 128  # a dW tile of launch 2 (csrc/dtp_lin_bwd.cu k2::)
+K2_EDGES = 64  # edges per step of launch 2 (k2::kEdges2): edge ranges are multiples
+K2_DW_BLOCKS_PER_SM = 8  # launch 2's blocks (dW tiles x edge ranges) per SM
+BWD_TILE = 16  # edges per tile of K2's launch 1 (k2::kTile), and of K5c, K7-B and the K7 legs
+
+
+class K2Tables(NamedTuple):
+    gk: torch.Tensor  # int32 [n_gk, 12]
+    tiles: torch.Tensor  # int32 [n_tiles, 6]
+    wp_index: torch.Tensor  # int64: the packed W as a gather of cat([W_flat, 0])
+    cp_max: int  # the widest group's columns padded to 16
+    fd_max: int  # the widest group's fan_stride padded to 8
+
+
+def k2_pack_index(fan: int, fan_stride: int, cols: int, w_off: int, zero: int) -> np.ndarray:
+    """Where each value of one group's packed W comes from in ``W_flat``
+    (``zero`` for a pad value): [fan8 / 8, cols16 / 16, 32, 4] flattened,
+    fan8 and cols16 being fan_stride and cols rounded up to 8 and 16.  For
+    n-tile nt, K step ks and lane (g, q) = (lane // 4, lane % 4) the four
+    values are W_g[f, j] for f = 8 nt + g and j = 16 ks + 2q + (0, 1, 8, 9):
+    the B fragment of one mma K step of dz = G W_g^T (``k2::mma16n``), read
+    with one 16-byte (fp32) or 8-byte (bf16) load a lane.  Rows at or past
+    ``fan`` and columns past ``cols`` are zero."""
+    n_nt, n_ks = -(-fan_stride // 8), -(-cols // 16)
+    nt, ks, lane, v = np.meshgrid(np.arange(n_nt), np.arange(n_ks), np.arange(32), np.arange(4),
+                                  indexing="ij")
+    f = 8 * nt + lane // 4
+    j = 16 * ks + 2 * (lane % 4) + (v & 1) + 8 * (v >> 1)
+    return np.where((f < fan) & (j < cols), w_off + f * cols + j, zero).reshape(-1)
+
+
+def k2_ranges(E: int, n_tiles: int, sm_count: int) -> Tuple[int, int]:
+    """(n_ranges, range_len) of K2's launch 2: about ``K2_DW_BLOCKS_PER_SM``
+    blocks per SM over the dW tiles, ranges of whole ``K2_EDGES`` steps,
+    none empty; each range adds one fp32 partial row of dW."""
+    n_steps = -(-E // K2_EDGES)
+    want = -(-K2_DW_BLOCKS_PER_SM * sm_count // max(n_tiles, 1))
+    range_len = -(-n_steps // max(1, min(n_steps, want))) * K2_EDGES
+    return -(-E // range_len), range_len
+
+
 class DTPLinPlan:
     """Static metadata for the fused DTP + linear heads.
 
@@ -293,6 +334,51 @@ class DTPLinPlan:
             torch.as_tensor(np.concatenate(wt_index), device=device),
             max(n for _, n in spans),
             max(-(-g.cols // 4) * 4 for g in self.groups),
+        )
+        self._tables[key] = tabs
+        return tabs
+
+    def k2_tables(self, device: torch.device) -> "K2Tables":
+        """K2's tables on ``device``, as ``csrc/dtp_lin_bwd.cu`` (namespace
+        k2) reads them; the terms, coefficients and ``dwmap`` are
+        ``bwd_tables``'.
+
+        gk per (group, component), 12 ints: fan_stride, cols, output column,
+        W offset, term range, the group's offset in the packed W and its
+        columns padded to 16 (the mma K step), its dw span (begin in
+        ``dwmap``, length), first / last component.  tiles: launch 2's dW
+        tiles, 6 ints each: the gk row of the group's component 0, the
+        group's components, fan rows [f0, f0 + fm), columns [j0, j0 + fn)
+        (``K2_FAN_TILE`` x ``K2_COL_TILE`` at most); together they cover
+        every element of ``W_flat`` once.  ``wp_index`` gathers ``cat([W_flat,
+        0])`` into each group's W_g in mma fragment order
+        (``k2_pack_index``)."""
+        key = ("k2", device)
+        tabs = self._tables.get(key)
+        if tabs is not None:
+            return tabs
+        bgk = self.bwd_tables(torch.device("cpu"))[0].tolist()
+        gk, tiles, index = [], [], []
+        wp_off, row = 0, 0
+        for g in self.groups:
+            cp = -(-g.cols // 16) * 16
+            for k in range(g.ir.dim):
+                r = bgk[row + k]
+                gk.append(r[:6] + [wp_off, cp] + r[8:])
+            for f0 in range(0, g.fan_stride, K2_FAN_TILE):
+                for j0 in range(0, g.cols, K2_COL_TILE):
+                    tiles.append((row, g.ir.dim, f0, min(K2_FAN_TILE, g.fan_stride - f0), j0,
+                                  min(K2_COL_TILE, g.cols - j0)))
+            idx = k2_pack_index(g.fan, g.fan_stride, g.cols, g.w_off, self.w_numel)
+            index.append(idx)
+            wp_off += idx.size
+            row += g.ir.dim
+        tabs = K2Tables(
+            torch.tensor(gk, dtype=torch.int32, device=device),
+            torch.tensor(tiles, dtype=torch.int32, device=device),
+            torch.as_tensor(np.concatenate(index), device=device),
+            max(-(-g.cols // 16) * 16 for g in self.groups),
+            max(-(-g.fan_stride // 8) * 8 for g in self.groups),
         )
         self._tables[key] = tabs
         return tabs
@@ -564,17 +650,19 @@ def dtp_lin_fwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: 
 
 
 def _k2_launch(entry: str, plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges, *extra):
-    """K2's operands checked and laid out, its outputs allocated, and the C
-    entry ``entry`` (``dtp_lin_bwd`` or ``dtp_lin_bwd_stage``, whose stage
-    is ``extra``) launched on them: (dx, dw or None, dW, launched)."""
+    """K2's operands checked and laid out, its outputs and scratch allocated,
+    and the C entry ``entry`` (``dtp_lin_bwd`` or ``dtp_lin_bwd_stage``,
+    whose stage is ``extra``) launched on them: (dx, dw or None, dW,
+    launched)."""
     E = sh.shape[0]
     x, sh, w, W_flat = _check_operands(plan, x, sh, w, W_flat)
     if g.shape != (E, plan.d_out) or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"cotangent must be [{E}, {plan.d_out}] in x's dtype and device")
     g = g.contiguous()
     n_edges = _check_n_edges(n_edges, E, x.device)
-    gk, terms, coeffs, dwmap, wt_index, span_max, cols_pad_max = plan.bwd_tables(x.device)
     dev = x.device
+    _, terms, coeffs, dwmap, _, span_max, _ = plan.bwd_tables(dev)
+    kt = plan.k2_tables(dev)
     dx = torch.empty((E, plan.d_x), dtype=x.dtype, device=dev)
     dw = None
     if w is not None:
@@ -583,17 +671,17 @@ def _k2_launch(entry: str, plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges, *extr
     dW = torch.zeros((plan.w_numel,), dtype=torch.float32, device=dev)
     if E == 0:
         return dx, dw, dW, False
-    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
-    n_tiles = -(-E // BWD_TILE)
-    n_parts = min(n_tiles, BWD_BLOCKS_PER_SM * _sm_count(dev))
-    part = torch.empty((n_parts, plan.w_numel), dtype=torch.float32, device=dev)
+    Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[kt.wp_index]
+    n_tiles = kt.tiles.shape[0]
+    n_ranges, range_len = k2_ranges(E, n_tiles, _sm_count(dev))
+    part = torch.empty((n_ranges, plan.w_numel), dtype=torch.float32, device=dev)
     err = getattr(_build.library(), entry)(
         _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(w),
-        plan.d_w, _build.ptr(WT), _build.ptr(g), plan.d_out, _build.ptr(n_edges), E,
-        _build.ptr(gk), gk.shape[0], _build.ptr(terms), _build.ptr(coeffs), _build.ptr(dwmap),
-        _build.ptr(dx), _build.ptr(dw), _build.ptr(part), n_parts, _build.ptr(dW),
-        plan.w_numel, span_max, cols_pad_max, plan.max_fan_stride, *extra,
-        _build.dtype_code(x), _build.stream_ptr(),
+        plan.d_w, _build.ptr(Wp), _build.ptr(g), plan.d_out, _build.ptr(n_edges), E,
+        _build.ptr(kt.gk), kt.gk.shape[0], _build.ptr(terms), _build.ptr(coeffs),
+        _build.ptr(dwmap), _build.ptr(dx), _build.ptr(dw), span_max, kt.cp_max, kt.fd_max,
+        _build.ptr(kt.tiles), n_tiles, _build.ptr(part), n_ranges, range_len, _build.ptr(dW),
+        plan.w_numel, *extra, _build.dtype_code(x), _build.stream_ptr(),
     )
     _build.check(err, entry)
     return dx, dw, dW, True
@@ -612,29 +700,29 @@ def dtp_lin_bwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: 
     return dx, dw, dW
 
 
-# K2 cut after each of its phases, in the kernel's order (S3,
-# tools/bwd_attr.py): the tile loop and zeroing, + G staged, + z
-# recomputed, + the dW product, + the dz product, + the term transposes
-# (the whole kernel).
-BWD_STAGES = ("loop", "+G", "+z", "+dW", "+dz", "+transposes")
+# K2 cut after each of its phases, in the kernels' order (S3,
+# tools/bwd_attr.py).  Launch 1 (dx, dw): the tile loop, zeroing and the x /
+# w staging, + G staged, + the dz product, + the term transposes and the dx
+# / dw flush; launch 2 (dW): the loop and G staged, + z recomputed, + the dW
+# product (the whole of K2).
+BWD_STAGES = ("x, w staged", "+G", "+dz", "+transposes", "+dW: G", "+z", "+dW product")
 FULL_STAGE = len(BWD_STAGES) - 1
+DXDW_STAGE = BWD_STAGES.index("+transposes")  # launch 1 whole: dx and dw as K2's
 
 
 def dtp_lin_bwd_stage_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, stage: int, n_edges=None):
     """Plain version of ``dtp_lin_bwd_stage``: ``dtp_lin_bwd_plain``'s
-    outputs at the full stage; dx = dw = 0 before it, dW from stage 3 on
-    (zero before)."""
+    outputs at the full stage; before it dW = 0, and dx, dw are
+    ``dtp_lin_bwd_plain``'s from ``DXDW_STAGE`` on (zero before)."""
     if not 0 <= stage <= FULL_STAGE:
         raise ValueError(f"stage must be 0..{FULL_STAGE}, got {stage}")
+    dx, dw, dW = dtp_lin_bwd_plain(plan, x, sh, w, W_flat, g, n_edges)
     if stage == FULL_STAGE:
-        return dtp_lin_bwd_plain(plan, x, sh, w, W_flat, g, n_edges)
-    E = sh.shape[0]
-    dx = x.new_zeros((E, plan.d_x))
-    dw = None if w is None else w.new_zeros((E, plan.d_w))
-    if stage >= BWD_STAGES.index("+dW"):
-        return dx, dw, dtp_lin_legW_plain(plan, g, x, sh, w, n_edges)
-    acc = torch.promote_types(g.dtype, torch.float32)
-    return dx, dw, torch.zeros((plan.w_numel,), dtype=acc, device=g.device)
+        return dx, dw, dW
+    if stage < DXDW_STAGE:
+        dx = torch.zeros_like(dx)
+        dw = None if dw is None else torch.zeros_like(dw)
+    return dx, dw, torch.zeros_like(dW)
 
 
 def dtp_lin_bwd_stage(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w,
@@ -656,8 +744,6 @@ def dtp_lin_bwd_stage(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w,
 dtp_lin_fwd.launches = 0
 dtp_lin_bwd.launches = 0
 dtp_lin_bwd_stage.launches = 0
-BWD_TILE = 16  # edges per tile of csrc/dtp_lin_bwd.cu
-BWD_BLOCKS_PER_SM = 2  # persistent blocks (and dW partial rows) per SM
 
 
 def _sm_count(device: torch.device) -> int:

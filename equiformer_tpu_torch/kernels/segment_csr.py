@@ -3,10 +3,17 @@
 Counterpart of ``equiformer_tpu/kernels/segment_csr_pallas.py``
 (``csr_segment_sum``, Pallas ``_kernel``): ``out[u] = sum of val[e] over the
 edges with dst[e] == u``, accumulated in fp32 and written in val's dtype.
-The CUDA kernel is ``csrc/segment_csr.cu``; ``segment_sum_plain`` is its
-plain PyTorch version, used for CPU tensors and as the on-card reference.
-The op is differentiable in ``val`` to any order: the backward is the gather
-``take_rows(g, dst)`` of ``graph/linear_prims.py`` with masked rows zeroed
+The CUDA kernel is ``csrc/segment_csr.cu``: one launch per call, in which
+each block finds its node range's edges by a search over the sorted
+``dst`` (read in its own int64 or int32 type), cuts them into equal slices
+across its warps whatever the degrees, and sums the live rows with 16-byte
+loads, four edges in flight.  The wrapper only checks shapes and picks the
+vector width (``vector_width``) and the node range of a block
+(``nodes_per_block``); it builds no row pointers.
+``segment_sum_plain`` is its plain PyTorch version, used for CPU tensors
+and as the on-card reference.  The op is differentiable in ``val`` to any
+order: the backward is the gather ``take_rows(g, dst)`` of
+``graph/linear_prims.py`` with masked rows zeroed
 (``segment_csr_pallas.py:135-148``), whose own backward is this sum again.
 """
 
@@ -35,31 +42,61 @@ def segment_sum_plain(val, dst, num_nodes: int, mask=None):
 
 def row_pointers(dst: torch.Tensor, num_nodes: int) -> torch.Tensor:
     """int32 [num_nodes + 1]: edges of node u are ``[rp[u], rp[u+1])`` in a
-    non-decreasing ``dst`` (the per-node form of the Pallas kernel's tile
-    starts, ``segment_csr_pallas.py:128-130``)."""
+    non-decreasing ``dst``, as K4 (``attn_csr.py``) reads them (the per-node
+    form of the Pallas kernel's tile starts, ``segment_csr_pallas.py:128-130``)."""
     nodes = torch.arange(num_nodes + 1, device=dst.device, dtype=dst.dtype)
     return torch.searchsorted(dst, nodes, side="left").to(torch.int32)
 
 
+VECTOR_BYTES = 16  # one load a lane in csrc/segment_csr.cu
+_INDEX_DTYPES = (torch.int64, torch.int32)  # dst as the kernel reads it
+EDGES_PER_BLOCK = 256  # a block's edges on average: 16 warps' slices of 16
+
+
+def vector_width(C: int, itemsize: int, val_ptr: int, out_ptr: int) -> int:
+    """Elements a lane of K3 loads at once: 16 bytes' worth when every row
+    of the [E, C] operand and of the output starts on a 16-byte boundary
+    (``C * itemsize`` and both base pointers multiples of 16), else 1 (one
+    scalar column a lane: a tail of C or an unaligned row)."""
+    if (C * itemsize) % VECTOR_BYTES or val_ptr % VECTOR_BYTES or out_ptr % VECTOR_BYTES:
+        return 1
+    return VECTOR_BYTES // itemsize
+
+
+def nodes_per_block(num_nodes: int, E: int) -> int:
+    """The node range of one K3 block: about ``EDGES_PER_BLOCK`` edges at
+    the batch's mean degree (E / num_nodes), at least 1 node."""
+    return max(1, min(num_nodes, -(-EDGES_PER_BLOCK * num_nodes // max(E, 1))))
+
+
 def _segment_sum_fwd(val, dst, num_nodes: int, mask):
-    if val.device.type == "cpu":
+    if not val.is_cuda:
         return segment_sum_plain(val, dst, num_nodes, mask)
-    if val.dim() != 2 or dst.shape != val.shape[:1]:
+    # the checks are few and cheap: at the MD17 shapes the host work is what a call costs
+    if val.dim() != 2 or dst.dim() != 1 or dst.shape[0] != val.shape[0]:
         raise ValueError(f"val must be [E, C] and dst [E], got {val.shape}, {dst.shape}")
-    if mask is not None and (mask.dtype != torch.bool or mask.shape != dst.shape):
-        raise ValueError("mask must be bool [E]")
-    if any(t is not None and t.device != val.device for t in (dst, mask)):
-        raise ValueError("val, dst and mask must share a device")
+    dev = val.get_device()
+    if dst.dtype not in _INDEX_DTYPES or dst.get_device() != dev:
+        raise ValueError("dst must be int64 or int32 on val's device")
+    if mask is not None and (mask.dtype != torch.bool or mask.shape != dst.shape
+                             or mask.get_device() != dev):
+        raise ValueError("mask must be bool [E] on val's device")
     code = _build.dtype_code(val)
-    val = val.contiguous()
-    rp = row_pointers(dst.contiguous(), num_nodes)
-    mask = None if mask is None else mask.contiguous()
-    out = torch.empty((num_nodes, val.shape[1]), dtype=val.dtype, device=val.device)
-    if num_nodes == 0 or val.shape[1] == 0:
+    if not val.is_contiguous():
+        val = val.contiguous()
+    if not dst.is_contiguous():
+        dst = dst.contiguous()
+    if mask is not None and not mask.is_contiguous():
+        mask = mask.contiguous()
+    E, C = val.shape
+    out = val.new_empty((num_nodes, C))
+    if num_nodes == 0 or C == 0:
         return out
+    vp, op = val.data_ptr(), out.data_ptr()
     err = _build.library().csr_segment_sum(
-        _build.ptr(val), val.shape[1], _build.ptr(rp), _build.ptr(mask),
-        _build.ptr(out), num_nodes, code, _build.stream_ptr(),
+        vp, C, dst.data_ptr(), dst.element_size(), E, 0 if mask is None else mask.data_ptr(),
+        op, num_nodes, vector_width(C, val.element_size(), vp, op),
+        nodes_per_block(num_nodes, E), code, _build.stream_ptr(),
     )
     _build.check(err, "csr_segment_sum")
     csr_segment_sum.launches += 1
@@ -91,9 +128,12 @@ def csr_segment_sum(
     ``val``.
 
     CPU tensors take ``segment_sum_plain``; CUDA tensors launch the kernel
-    (float32 or bfloat16) or raise.
+    (float32 or bfloat16) or raise.  Without a gradient to track the call
+    skips the autograd node (the host work is what the small MD17 sums pay).
     """
-    return _SegmentSum.apply(val, dst, num_nodes, mask)
+    if torch.is_grad_enabled() and val.requires_grad:
+        return _SegmentSum.apply(val, dst, num_nodes, mask)
+    return _segment_sum_fwd(val, dst, num_nodes, mask)
 
 
 csr_segment_sum.launches = 0

@@ -4,11 +4,14 @@
         [--qm9] [--out FILE]
 
 Counterpart of ``scripts/bwd_attr.py``.  ``dtp_lin_bwd_stage`` (S3) is K2
-cut after each of its phases, in the kernel's order (``BWD_STAGES``): the
-tile loop and zeroing, + G staged in shared memory, + z recomputed, + the
-dW product, + the dz product, + the term transposes and the dx / dw flush
-(the whole kernel).  Each stage is timed with CUDA events (median of 5 runs
-of 5 calls) in float32 and bfloat16 on the flagship's ``sep_act`` plan
+cut after each of its phases, in the kernels' order (``BWD_STAGES``).
+K2's first launch (dx, dw): the tile loop, zeroing and the x / w staging,
++ G staged in shared memory, + the dz product on the tensor cores, + the
+term transposes and the dx / dw flush; its second launch (dW): the loop
+and G's column slices staged, + z recomputed, + the dW product and the
+partial rows' fixed-order sum (the whole of K2).  Each stage is timed with
+CUDA events (median of 5 runs of 5 calls) in float32 and bfloat16 on the
+flagship's ``sep_act`` plan
 (irreps ``128x0e+64x1e+32x2e``, heads ``224x0e+64x1e+32x2e`` and the
 attention's ``128x0e``), and printed with its delta from the stage before.
 The TPU script's first stage (copying x and w into 128-lane slots) has no

@@ -23,6 +23,11 @@ time:
 * ``cur+xla-lin``: K6-T and then ``IrrepsLinear``: the composition K1
   replaces.
 
+``fusedlin`` (the script's fused prototype, S1-P) also gets its bound: the
+larger of its bytes (plus the packed heads' weights) over 3.35 TB/s and its
+operations (2 a multiply-add of the heads, 4 a TP term element) over 67
+TFLOP/s fp32 or 989 bf16, the H100's published rates.
+
 The script's ``--tile`` and ``--interpret`` are TPU settings and have no
 counterpart: the CUDA kernels choose their own tiles, and ``--device cpu``
 runs the plain versions.  Prints the card's name and power limit, then the
@@ -52,6 +57,8 @@ from ..utils.profiling import card_line, device_time_ms, resolve_device
 
 IRR, SH, LIN_OUT = "128x0e+64x1e+32x2e", "1x0e+1x1e+1x2e", "224x0e+64x1e+32x2e"
 VARIANTS = ("current", "dmafloor", "aligned-in", "aligned-i/o", "fusedlin", "cur+xla-lin")
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 
 def flagship_tp():
@@ -108,6 +115,12 @@ def main(argv=None) -> dict:
             report["variants"][name] = {"ms": ms, "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6}
             print(f"{name:12s}: {ms:9.4f} ms  ({nbytes / 1e6:.0f} MB, {nbytes / ms / 1e6:.0f} GB/s)",
                   flush=True)
+        fl = report["variants"]["fusedlin"]
+        flops = E * (2 * sum(g.ir.dim * g.fan * g.cols for g in plan.groups)
+                     + 4 * sum(t.mul for t, _ in plan.terms))
+        t_mem = (fl["bytes"] + plan.w_numel * size) / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dt] * 1e3
+        fl["bound_ms"], fl["bound_by"] = max((t_mem, "bytes"), (t_ops, "operations"))
         # the fused op and the composition it replaces compute one function
         fused = plan.split_output(dtp_lin_fwd(plan, x, sh, w, W))[0].float()
         comp = lin(dtp_t(tl, x, sh, w)).float()

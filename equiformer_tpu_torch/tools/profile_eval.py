@@ -33,8 +33,12 @@ bfloat16, per unit:
 * ``enqueue_ms``: host time until the call returns, without a synchronize
   (median over 3 x the batches, no profiler);
 * from a ``torch.profiler`` trace of one pass: ``device_busy_ms`` (union of
-  the kernel, memcpy and memset intervals), ``launches`` (kernels), and the
-  12 kernels with the most device time: [name, ms, calls] per unit;
+  the kernel, memcpy and memset intervals), ``launches`` (kernels), the 12
+  kernels with the most device time: [name, ms, calls] per unit, and
+  ``kernel_groups``: [ms, calls] per unit of every kernel whose name holds
+  one of ``KERNEL_GROUPS`` (K2's two launches, the fixed-order partial-row
+  sum that K2, K5c and the K7 kernels share, K3, and the first K2 design's
+  template, which K7-B still is);
 * ``idle_share``: 1 - device_busy_ms / wall_ms, the share of the unprofiled
   wall time in which the device has nothing to run;
 * ``peak_mib``: ``torch.cuda.max_memory_allocated`` over the wall passes.
@@ -74,6 +78,8 @@ QM9 = ("graph_attention_transformer_nonlinear_l2", 128, 30)
 MD17 = ("graph_attention_transformer_nonlinear_exp_l3_md17", 8, 21)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
+KERNEL_GROUPS = ("k2::dxdw_kernel", "k2::dW_kernel", "sum_partial_rows_kernel",
+                 "csr_segment_sum_kernel", "dtp_lin_bwd_kernel<")
 
 
 def _union_us(intervals) -> float:
@@ -100,11 +106,17 @@ def trace_summary(path: Path, n_forwards: int) -> dict:
             us, calls = by_name.get(e["name"], (0.0, 0))
             by_name[e["name"]] = (us + float(e["dur"]), calls + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    groups = {}
+    for pattern in KERNEL_GROUPS:
+        hits = [v for name, v in by_name.items() if pattern in name]
+        groups[pattern] = [sum(us for us, _ in hits) / 1e3 / n_forwards,
+                           sum(c for _, c in hits) / n_forwards]
     return {
         "device_busy_ms": _union_us(spans) / 1e3 / n_forwards,
         "launches": sum(e["cat"] == "kernel" for e in dev) / n_forwards,
         "kernels": [[name, us / 1e3 / n_forwards, calls / n_forwards]
                     for name, (us, calls) in top],
+        "kernel_groups": groups,
     }
 
 

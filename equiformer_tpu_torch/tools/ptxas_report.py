@@ -2,17 +2,19 @@
 them, and the difference from another tree's sources.
 
     python -m equiformer_tpu_torch.tools.ptxas_report [--sources a.cu ...]
-        [--against DIR] [--out FILE]
+        [--against DIR [--match REGEX]] [--out FILE]
 
 Compiles the package's ``csrc/*.cu`` (or the named ones) with the build's
 flags (``kernels/_build.py``: ``-Xptxas -v``, sm_90a) and prints one line
 per entry function: the demangled name, then the ``Used N registers`` and
 stack / spill lines.  With ``--against DIR`` (another tree's ``csrc``) the
 same sources are compiled from there too, and every kernel of the other
-tree is matched to this tree's (a template argument added with a default,
-such as K2's ``kStage``, is matched at its default) and reported as equal
-or different; the exit code is 1 if any differs.  Needs nvcc (the machine
-with the card).
+tree is matched to this tree's (the first design's ``kStage`` argument,
+which one tree may have and the other not, is matched at its default 5)
+and reported as equal or different; ``--match`` compares only the kernels
+whose names it finds (for K7-B alone, when K2 itself was redesigned:
+``'dtp_lin_bwd_kernel<[^,]*, .bool.1>'``).  The exit code is 1 if a
+compared kernel differs.  Needs nvcc (the machine with the card).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from pathlib import Path
 
 from ..kernels import _build
 
-# a kernel template's trailing stage argument at its default (K2's kStage)
+# the first K2 design's trailing stage argument at its default (kStage = 5)
 _DEFAULT_STAGE = re.compile(r"(dtp_lin_bwd_kernel<[^,<>]+, [^,<>]+), (?:\(int\))?5>")
 
 
@@ -65,6 +67,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sources", nargs="+", default=None, help="file names in csrc/ (default: all)")
     ap.add_argument("--against", type=Path, default=None, help="another tree's csrc directory")
+    ap.add_argument("--match", default=None,
+                    help="compare only the kernels whose names this regex finds")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     sources = args.sources or sorted(p.name for p in _build.CSRC.glob("*.cu"))
@@ -73,7 +77,9 @@ def main(argv=None) -> int:
         print(f"{name}: {'; '.join(lines)}")
     report, differs = {"kernels": mine}, []
     if args.against is not None:
-        other = entries(args.against, sources)
+        other = {_DEFAULT_STAGE.sub(r"\1>", n): v
+                 for n, v in entries(args.against, sources).items()
+                 if args.match is None or re.search(args.match, _DEFAULT_STAGE.sub(r"\1>", n))}
         at_default = {_DEFAULT_STAGE.sub(r"\1>", n): v for n, v in mine.items()}
         for name, lines in other.items():
             same = at_default.get(name) == lines

@@ -10,10 +10,12 @@ Counterpart of ``equiformer_tpu/utils/profiling.py``: ``trace`` is a
 from __future__ import annotations
 
 import contextlib
+import json
 import statistics
 import subprocess
 import time
-from typing import Callable, Optional
+from pathlib import Path
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -102,6 +104,35 @@ def device_time_ms(fn: Callable[[], object], device: torch.device, reps: int = 5
             wait_for(out)
             times.append((time.perf_counter() - t0) * 1e3 / inner)
     return statistics.median(times)
+
+
+def kernel_ms(fn: Callable[[], object], calls: int, path: Path) -> Dict[str, Tuple[float, float]]:
+    """Device time and launches per call of each kernel that ``calls``
+    back-to-back calls of ``fn`` launch, {kernel name: (ms, launches)}, from
+    a ``torch.profiler`` trace of them written to ``path`` (after one
+    warm-up call).  Launches per call are rounded to whole numbers and the
+    time per call is the mean launch's times that: the trace can miss the
+    first kernel of the window.  Raises when the trace holds no kernel."""
+    wait_for(fn())
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    seen: Dict[str, Tuple[float, int]] = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel" and "dur" in e:
+            us, n = seen.get(e["name"], (0.0, 0))
+            seen[e["name"]] = (us + float(e["dur"]), n + 1)
+    if not seen:
+        raise RuntimeError(f"the trace {path} holds no kernel")
+    out = {}
+    for name, (us, n) in seen.items():
+        per_call = max(1, round(n / calls))
+        out[name] = (us / n / 1e3 * per_call, float(per_call))
+    return out
 
 
 def card_line() -> str:

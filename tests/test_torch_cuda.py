@@ -987,10 +987,12 @@ def test_dtp_t_staged_matches_plain_and_k6t(dev, irreps, dtype):
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("case", ["two-head", "shared-w", "flagship"])
 def test_dtp_lin_bwd_stages_match_k2(dev, case, dtype):
-    """S3: the full stage gives dtp_lin_bwd's bits; the dW and dz stages
-    K2's dW with dx = dw = 0; the earlier stages zeros; every stage within
-    the dtype's bound of its plain version."""
+    """S3: the full stage gives dtp_lin_bwd's bits; the stages from the
+    transposes on (K2's first launch whole) K2's dx and dw bits with dW =
+    0; the earlier stages zeros; every stage within the dtype's bound of
+    its plain version."""
     from equiformer_tpu_torch.kernels import dtp_lin_bwd_stage, dtp_lin_bwd_stage_plain
+    from equiformer_tpu_torch.kernels.dtp_lin import DXDW_STAGE, FULL_STAGE
 
     irreps, (heads, shared, _) = ((L2_FLAGSHIP, (["224x0e+64x1e+32x2e", "128x0e"], False, False))
                                   if case == "flagship" else (IRR, HEADS[case]))
@@ -1006,7 +1008,7 @@ def test_dtp_lin_bwd_stages_match_k2(dev, case, dtype):
     n = torch.tensor(250, dtype=torch.int32, device=dev)
     ref = dtp_lin_bwd(plan, x, sh, w, W, cot, n)
     reset_launch_counts()
-    for stage in range(6):
+    for stage in range(FULL_STAGE + 1):
         got = dtp_lin_bwd_stage(plan, x, sh, w, W, cot, stage, n)
         want = dtp_lin_bwd_stage_plain(plan, x, sh, w, W, cot, stage, n)
         torch.cuda.synchronize()
@@ -1014,10 +1016,122 @@ def test_dtp_lin_bwd_stages_match_k2(dev, case, dtype):
             assert (a is None) == (b is None)
             if a is not None:
                 assert a.shape == b.shape and _rel(a, b) < TOL[dtype]
-        if stage == 5:
+        if stage == FULL_STAGE:
             assert all(a is None or torch.equal(a, b) for a, b in zip(got, ref))
         else:
-            assert float(got[0].abs().max()) == 0.0
-            assert got[1] is None or float(got[1].abs().max()) == 0.0
-            assert torch.equal(got[2], ref[2]) if stage >= 3 else float(got[2].abs().max()) == 0.0
-    assert dtp_lin_bwd_stage.launches == 6
+            assert float(got[2].abs().max()) == 0.0
+            if stage >= DXDW_STAGE:
+                assert torch.equal(got[0], ref[0])
+                assert got[1] is None or torch.equal(got[1], ref[1])
+            else:
+                assert float(got[0].abs().max()) == 0.0
+                assert got[1] is None or float(got[1].abs().max()) == 0.0
+    assert dtp_lin_bwd_stage.launches == FULL_STAGE + 1
+
+
+def _sorted_dst(E, N, n_real, seed, long_node=None):
+    """A dst-sorted edge list with its mask, as the radius graph lays it
+    out: n_real live edges over nodes 0..N-2 (some nodes without edges; the
+    node ``long_node``, if given, with 2000 of them, masked every 7th),
+    then the padding edges, masked, on the last node."""
+    g = torch.Generator().manual_seed(seed)
+    live = torch.sort(torch.randint(0, N - 1, (n_real,), generator=g)).values
+    live = live[(live % 11) != 5]  # nodes without edges
+    mask = torch.ones(live.shape[0], dtype=torch.bool)
+    if long_node is not None:
+        live = torch.sort(torch.cat([live, torch.full((2000,), long_node)])).values
+        mask = torch.ones(live.shape[0], dtype=torch.bool)
+        first = int((live < long_node).sum())
+        mask[first : first + 2000 : 7] = False
+    dst = torch.cat([live, torch.full((E - live.shape[0],), N - 1)])
+    mask = torch.cat([mask, torch.zeros(E - live.shape[0], dtype=torch.bool)])
+    return dst, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("shape", [
+    "qm9-edge_deg", "qm9-gather", "md17-edge_deg", "md17-attn", "md17-gather", "odd-C",
+    "unaligned", "long", "int32-dst",
+])
+def test_csr_segment_sum_matches_plain_at_path_shapes(dev, shape, dtype):
+    """K3 at the QM9 shapes (E = 36352, C = 480, N = 3840; masked, and the
+    gathers' backward unmasked with ~6400 edges on the last node) and the
+    three MD17 ones (E = 2944, C = 864 or [4, 216], N = 168), an odd C and
+    an unaligned val (one scalar column a lane), a node with more edges
+    than a warp's 512-edge round, int32 dst:
+    within the dtype's bound of its plain version, one launch a call, the
+    same bits twice."""
+    from equiformer_tpu_torch.kernels.segment_csr import vector_width
+
+    dt = getattr(torch, dtype)
+    E, N, C, n_real = (36352, 3840, 480, 32888) if shape.startswith("qm9") else (
+        2944, 168, 864, 2800)
+    if shape == "odd-C":
+        C = 161
+    if shape == "long":
+        n_real = 800  # + the long node's 2000
+    dst, mask = _sorted_dst(E, N, n_real, 11, long_node=50 if shape == "long" else None)
+    if shape.endswith("gather"):
+        mask = None  # the padding edges on the last node are summed too
+    if shape == "int32-dst":
+        dst = dst.int()
+    g = torch.Generator().manual_seed(12)
+    val = torch.randn(E, C, generator=g).to(dev, dt)
+    if shape == "unaligned":
+        buf = torch.empty(E * C + 1, dtype=dt, device=dev)
+        buf[1:].copy_(val.reshape(-1))
+        val = buf[1:].view(E, C)
+    assert (vector_width(C, val.element_size(), val.data_ptr(), 0) == 1) == (
+        shape in ("odd-C", "unaligned"))
+    dst = dst.to(dev)
+    mask = None if mask is None else mask.to(dev)
+    reset_launch_counts()
+    got = csr_segment_sum(val, dst, N, mask)
+    again = csr_segment_sum(val, dst, N, mask)
+    want = segment_sum_plain(val, dst.long(), N, mask)
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches == 2 and torch.equal(got, again)
+    assert _rel(got, want) < TOL[dtype]
+    if mask is not None:
+        assert float(got[N - 1].abs().max()) == 0.0  # the padding node: all masked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("site", ["sep_act", "sep_value", "edge_deg"])
+@pytest.mark.parametrize("rows", ["qm9", "ragged", "none-live"])
+def test_dtp_lin_bwd_at_the_qm9_sites(dev, site, rows, dtype):
+    """K2 at the QM9 flagship's three sites: E = 36352 with the batch's
+    32888 live rows; E = 1013 (a multiple of neither tile, 16 or 64 edges)
+    with n_edges = 997; n_edges = 0.  dx, dw, dW within the dtype's bound
+    of the plain version, rows past n_edges zero, two calls bitwise equal."""
+    emb = Irreps(L2_FLAGSHIP)
+    heads = ["224x0e+64x1e+32x2e", "128x0e"] if site == "sep_act" else [L2_FLAGSHIP]
+    plan = DTPLinPlan(depthwise_tp(emb, Irreps(SH), emb), heads,
+                      shared_weights=site == "sep_value")
+    E, n_live = {"qm9": (36352, 32888), "ragged": (1013, 997), "none-live": (1013, 0)}[rows]
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(13)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+    x = rnd(1, plan.d_x).expand(E, plan.d_x) if site == "edge_deg" else rnd(E, plan.d_x)
+    sh, cot, W = rnd(E, plan.d_sh), rnd(E, plan.d_out), 0.05 * rnd(plan.w_numel)
+    w = None if plan.shared_weights else rnd(E, plan.d_w)
+    n = torch.tensor(n_live, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    k = dtp_lin_bwd(plan, x, sh, w, W, cot, n)
+    again = dtp_lin_bwd(plan, x, sh, w, W, cot, n)
+    p = dtp_lin_bwd_plain(plan, x, sh, w, W, cot, n)
+    torch.cuda.synchronize()
+    assert dtp_lin_bwd.launches == 2
+    for a, b, c in zip(k, p, again):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        assert torch.equal(a, c)
+        if n_live:
+            assert _rel(a, b) < TOL[dtype]
+        else:
+            assert float(a.abs().max()) == 0.0
+    assert float(k[0][n_live:].abs().max()) == 0.0
+    assert k[1] is None or float(k[1][n_live:].abs().max()) == 0.0

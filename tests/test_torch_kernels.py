@@ -35,8 +35,15 @@ from equiformer_tpu_torch.kernels import (  # noqa: E402
     dtp_lin_fwd,
     dtp_lin_plain,
     reset_launch_counts,
+    segment_sum_plain,
 )
-from equiformer_tpu_torch.kernels.dtp_lin import plan_terms  # noqa: E402
+from equiformer_tpu_torch.kernels.dtp_lin import (  # noqa: E402
+    K2_COL_TILE,
+    K2_EDGES,
+    K2_FAN_TILE,
+    k2_ranges,
+    plan_terms,
+)
 
 IRR = "8x0e+4x1e+2x2e"
 SH = "1x0e+1x1e+1x2e"
@@ -166,6 +173,180 @@ def test_csr_segment_sum_plain_matches_pallas_interpret():
     assert _rel(t, j) < 1e-5
 
 
+def _csr_md17_case(case):
+    """K3's inputs at the MD17 path's shapes (E = 2944 dst-sorted edges, N =
+    168 nodes, C = 864 columns: the node width every K3 call of the force
+    path sums) and at its edge cases, as the radius graph lays them out:
+    live edges first, the padding edges masked on the last node."""
+    rng = np.random.default_rng(7)
+    E, N, C = {"E=0": (0, 5, 128), "N=1": (40, 1, 136)}.get(case, (2944, 168, 864))
+    dst = np.sort(rng.integers(0, max(N - 1, 1), size=E)).astype(np.int32)
+    mask = np.ones(E, bool)
+    if case == "empty-segments":
+        dst = np.where(dst % 5 == 2, dst - 1, dst)  # nodes 2, 7, 12, ... get no edge
+    if case == "all-masked-segment":
+        mask[dst == 40] = False
+    if E:
+        dst[-150:] = N - 1  # the padding tail
+        mask[-150:] = False
+    val = rng.normal(size=(E, C)).astype(np.float32)
+    return val, dst, mask, N
+
+
+@pytest.mark.parametrize("case", ["md17", "empty-segments", "all-masked-segment", "E=0", "N=1"])
+def test_csr_segment_sum_plain_matches_pallas_interpret_at_md17_shapes(case):
+    """K3's plain contract (the CPU path of ``csr_segment_sum``) against JAX's
+    ``csr_segment_sum`` in interpret mode at the MD17 shapes and their edge
+    cases: empty segments and an all-masked one sum to zero, the padding
+    edges on the last node add nothing, E = 0 gives zeros (the Pallas call
+    takes no empty operand: its definition, a sum over no edges, is the
+    reference there), N = 1 one row.  fp32, 1e-5 of max |value|."""
+    val, dst, mask, N = _csr_md17_case(case)
+    t = csr_segment_sum(torch.from_numpy(val), torch.from_numpy(dst).long(), N,
+                        torch.from_numpy(mask)).numpy()
+    assert t.shape == (N, val.shape[1])
+    if case == "E=0":
+        assert not t.any()
+        return
+    j = np.asarray(j_csr(jnp.asarray(val), jnp.asarray(dst), N, mask=jnp.asarray(mask),
+                         interpret=True))
+    assert _rel(t, j) < 1e-5
+    if case == "empty-segments":
+        assert not t[2::5].any()
+    if case == "all-masked-segment":
+        assert not t[40].any()
+    if N > 1:
+        assert not t[N - 1].any()
+
+
+def _emulate_k3(val, dst, mask, N, warps=16):
+    """csrc/segment_csr.cu's walk in torch (fp64, all columns at once): per
+    block of ``nodes_per_block`` nodes, the edge range by search, cut into
+    ``warps`` equal slices; per slice its node runs, whole nodes written,
+    the pieces of nodes cut by slice boundaries kept and added, in slice
+    order, by the slice where the node starts; the zero rows of nodes
+    without edges.  Returns (out, how often each row was written)."""
+    from equiformer_tpu_torch.kernels.segment_csr import nodes_per_block
+
+    E, dl = dst.shape[0], dst.tolist()
+    live = torch.ones(E, dtype=torch.bool) if mask is None else mask
+    out = torch.full((N, val.shape[1]), float("nan"), dtype=val.dtype)
+    writes = [0] * N
+
+    def put(m, row):
+        out[m] = row
+        writes[m] += 1
+
+    npb = nodes_per_block(N, E)
+    for n0 in range(0, N, npb):
+        n1 = min(N, n0 + npb)
+        lo, hi = int(np.searchsorted(dl, n0)), int(np.searchsorted(dl, n1))
+        if lo == hi:
+            for m in range(n0, n1):
+                put(m, 0.0)
+            continue
+        length = -(-(hi - lo) // warps)
+        meta, part = [], []
+        for w in range(warps):
+            sb = min(hi, lo + w * length)
+            se = min(hi, sb + length)
+            if sb >= se:
+                meta.append((-1, -1, False, False))
+                part.append([None, None])
+                continue
+            first, last = dl[sb], dl[se - 1]
+            prev = dl[sb - 1] if sb > lo else n0 - 1
+            cb, ca = prev == first, se < hi and dl[se] == last
+            slots = [None, None]
+            for m in range(prev + 1, first):
+                put(m, 0.0)
+            e = sb
+            while e < se:
+                node = dl[e]
+                re = e
+                while re < se and dl[re] == node:
+                    re += 1
+                rows = torch.arange(e, re)
+                ssum = val[rows][live[rows]].sum(0)
+                if node == first and cb:
+                    slots[0] = ssum
+                elif re == se and ca:
+                    slots[1] = ssum
+                else:
+                    put(node, ssum)
+                if re < se:
+                    for m in range(node + 1, dl[re]):
+                        put(m, 0.0)
+                e = re
+            if se == hi:
+                for m in range(last + 1, n1):
+                    put(m, 0.0)
+            meta.append((first, last, cb, ca))
+            part.append(slots)
+        for w, (first, last, cb, ca) in enumerate(meta):
+            if ca and not (cb and first == last):
+                ssum = part[w][1].clone()
+                for w2 in range(w + 1, warps):
+                    ssum += part[w2][0]
+                    if not (meta[w2][3] and meta[w2][1] == last):
+                        break
+                put(last, ssum)
+    return out, writes
+
+
+@pytest.mark.parametrize("case", ["qm9-padded", "md17-gather", "few-edges", "one-long", "E=0"])
+def test_csr_block_walk_sums_each_node_once(case):
+    """K3's block and slice walk, emulated: every output row is written
+    exactly once (whole by its slice, or by the slice where a node cut by
+    slice boundaries starts) and the rows equal the plain sum in fp64, with
+    a 3464-edge padding node, empty nodes and masked edges."""
+    rng = np.random.default_rng(8)
+    E, N, n_real = {"qm9-padded": (4000, 420, 3500), "md17-gather": (2944, 168, 2800),
+                    "few-edges": (30, 200, 30), "one-long": (3464, 3, 3000),
+                    "E=0": (0, 7, 0)}[case]
+    dst = np.sort(rng.integers(0, max(N - 1, 1), size=n_real))
+    dst = np.concatenate([dst[dst % 9 != 4], np.full(E, N - 1)])[:E]  # nodes without edges
+    dst = torch.from_numpy(np.sort(dst)).long()
+    mask = None if case == "md17-gather" else torch.from_numpy(rng.random(E) > 0.1)
+    val = torch.from_numpy(rng.normal(size=(E, 6)))
+    got, writes = _emulate_k3(val, dst, mask, N)
+    assert writes == [1] * N
+    want = segment_sum_plain(val, dst, N, mask)
+    assert torch.allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("N, E, npb", [
+    (3840, 36352, 28),  # QM9: ~9.5 edges a node
+    (168, 2944, 15),  # MD17: ~17.5
+    (1, 40, 1),
+    (5, 0, 5),  # no edges: one block
+    (100, 10, 100),
+])
+def test_csr_nodes_per_block(N, E, npb):
+    """K3's block covers about 256 edges at the batch's mean degree, at
+    least one node and at most all of them."""
+    from equiformer_tpu_torch.kernels.segment_csr import nodes_per_block
+
+    assert nodes_per_block(N, E) == npb
+
+
+@pytest.mark.parametrize("C, itemsize, ptrs, vec", [
+    (480, 4, (0, 256), 4),
+    (864, 2, (1024, 4096), 8),
+    (161, 4, (0, 0), 1),  # a tail of C: rows not 16-byte aligned
+    (480, 4, (4, 0), 1),  # an unaligned val
+    (480, 2, (0, 8), 1),  # an unaligned out
+    (132, 2, (0, 0), 1),  # 264-byte rows
+    (136, 2, (0, 0), 8),
+])
+def test_csr_vector_width(C, itemsize, ptrs, vec):
+    """K3 loads 16 bytes a lane only where every row starts on a 16-byte
+    boundary; otherwise one scalar column a lane."""
+    from equiformer_tpu_torch.kernels.segment_csr import vector_width
+
+    assert vector_width(C, itemsize, *ptrs) == vec
+
+
 @pytest.mark.parametrize("dropout", [False, True])
 def test_attn_combine_plain_matches_pallas_interpret(dropout):
     H, D = 4, 40  # H*D >= 128: the fused path
@@ -283,60 +464,185 @@ def test_dtp_lin_bwd_plain_matches_autograd_fp64(case):
     assert float(dx[61:].abs().max()) == 0.0
 
 
-def _emulate_bwd_kernel(plan, x, sh, w, W_flat, g, n_edges, tile=16):
-    """csrc/dtp_lin_bwd.cu's loop over ``plan.bwd_tables``, in torch, one
-    edge tile at a time with the rows vectorized: the staged cotangent, the
-    z recompute, the dW partial, dz through the packed W^T, the term
-    transposes and the per-group dw flush through ``dwmap``."""
-    gk, terms, coeffs, dwmap, wt_index, span_max, _ = plan.bwd_tables(torch.device("cpu"))
-    gk, terms, coeffs, dwmap = gk.tolist(), terms.tolist(), coeffs.tolist(), dwmap.tolist()
-    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+def _unpack_k2(packed, fan_stride, cols):
+    """W_g [fan8, cols16] from one group's values in mma fragment order, by
+    the fragment layout itself (lane (g, q) holds W_g[8 nt + g, 16 ks + 2q
+    + (0, 1, 8, 9)]), not by ``k2_pack_index``."""
+    n_nt, n_ks = -(-fan_stride // 8), -(-cols // 16)
+    packed = packed.reshape(n_nt, n_ks, 32, 4)
+    out = packed.new_zeros(8 * n_nt, 16 * n_ks)
+    for lane in range(32):
+        gq, q = divmod(lane, 4)
+        for v, dj in enumerate((0, 1, 8, 9)):
+            for nt in range(n_nt):
+                out[8 * nt + gq, 16 * np.arange(n_ks) + 2 * q + dj] = packed[nt, :, lane, v]
+    return out
+
+
+def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16):
+    """csrc/dtp_lin_bwd.cu's launch 1 (k2::dxdw_kernel) over
+    ``plan.k2_tables``, in torch: per 16-edge tile the staged x / w span /
+    G (padded to the K step), dz through the packed W (unpacked by the
+    fragment layout), the term transposes and the per-group dw flush through
+    ``dwmap``; tiles past ``n_edges`` write zeros."""
+    _, terms, coeffs, dwmap, _, span_max, _ = plan.bwd_tables(torch.device("cpu"))
+    kt = plan.k2_tables(torch.device("cpu"))
+    terms, coeffs, dwmap = terms.tolist(), coeffs.tolist(), dwmap.tolist()
+    gk = kt.gk.tolist()
+    Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[kt.wp_index]
     E = x.shape[0]
-    dx = torch.zeros(E, plan.d_x, dtype=x.dtype)
-    dw = None if w is None else torch.zeros(E, plan.d_w, dtype=x.dtype)
-    dW = torch.zeros(plan.w_numel, dtype=x.dtype)
-    for e0 in range(0, min(E, n_edges), tile):
-        n_rows, n_live = min(tile, E - e0), min(tile, n_edges - e0)
+    dx = torch.full((E, plan.d_x), float("nan"), dtype=x.dtype)
+    dw = None if w is None else torch.full((E, plan.d_w), float("nan"), dtype=x.dtype)
+    if w is not None and plan.dw_has_dead_cols:
+        dw.zero_()  # the wrapper's zeros: dead columns are never written
+    for e0 in range(0, E, tile):
+        n_rows, n_live = min(tile, E - e0), max(0, min(tile, E - e0, n_edges - e0))
         rows = slice(e0, e0 + n_live)
-        dxs = torch.zeros(n_live, plan.d_x, dtype=x.dtype)
-        dws = torch.zeros(n_live, max(span_max, 1), dtype=x.dtype)
-        for fs, cols, out_col, w_off, tb, te, wt_off, cp, sb, sn, first, last in gk:
-            if first:
-                dws.zero_()
-            gt = torch.zeros(n_live, cp, dtype=x.dtype)
-            gt[:, :cols] = g[rows, out_col : out_col + cols]
-            z = torch.zeros(n_live, fs, dtype=x.dtype)
-            for (a, col, b, fc, mul, _), c in zip(terms[tb:te], coeffs[tb:te]):
-                v = c * sh[rows, col : col + 1] * x[rows, a : a + mul]
-                z[:, fc : fc + mul] += v if w is None else v * w[rows, b : b + mul]
-            dW[w_off : w_off + fs * cols] += (z.T @ gt[:, :cols]).reshape(-1)
-            dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
+        if n_live == 0:
+            dx[e0 : e0 + n_rows] = 0.0
+            if w is not None:
+                dw[e0 : e0 + n_rows] = 0.0
+            continue
+        s_dx = torch.zeros(tile, plan.d_x, dtype=x.dtype)
+        for fs, cols, out_col, w_off, tb, te, wp_off, cp, sb, sn, first, last in gk:
+            if w is not None and first:
+                s_dw = torch.zeros(tile, max(span_max, 1), dtype=x.dtype)
+                s_w = w[rows][:, dwmap[sb : sb + sn]]
+            s_g = torch.zeros(tile, cp, dtype=x.dtype)
+            s_g[:n_live, :cols] = g[rows, out_col : out_col + cols]
+            n_packed = -(-fs // 8) * 8 * cp
+            dz = s_g @ _unpack_k2(Wp[wp_off : wp_off + n_packed], fs, cols).T
             for (a, col, b, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
-                d = c * sh[rows, col : col + 1] * dz[:, fc : fc + mul]
+                d = c * sh[rows, col : col + 1] * dz[:n_live, fc : fc + mul]
                 if w is None:
-                    dxs[:, a : a + mul] += d
+                    s_dx[:n_live, a : a + mul] += d
                 else:
-                    dxs[:, a : a + mul] += d * w[rows, b : b + mul]
-                    dws[:, bl : bl + mul] += d * x[rows, a : a + mul]
+                    s_dx[:n_live, a : a + mul] += d * s_w[:, bl : bl + mul]
+                    s_dw[:n_live, bl : bl + mul] += d * x[rows, a : a + mul]
             if w is not None and last:
-                dw[rows, dwmap[sb : sb + sn]] = dws[:, :sn]
-        dx[rows] = dxs
-        assert n_rows >= n_live
-    return dx, dw, dW
+                dw[e0 : e0 + n_rows, dwmap[sb : sb + sn]] = s_dw[:n_rows, :sn]
+        dx[e0 : e0 + n_rows] = s_dx[:n_rows]
+    return dx, dw
+
+
+def _emulate_k2_launch2(plan, x, sh, w, g, n_edges, sm_count=3):
+    """csrc/dtp_lin_bwd.cu's launch 2 (k2::dW_kernel) over
+    ``plan.k2_tables`` and ``k2_ranges``, in torch: block (tile, range)
+    recomputes z's fan slice per step of K2_EDGES and component from the terms
+    that reach it, adds z^T G into its accumulator and writes its partial
+    once, to its range's row.  Returns (the partial rows, how often each
+    element was written)."""
+    _, terms, coeffs, _, _, _, _ = plan.bwd_tables(torch.device("cpu"))
+    kt = plan.k2_tables(torch.device("cpu"))
+    terms, coeffs, gk = terms.tolist(), coeffs.tolist(), kt.gk.tolist()
+    E = x.shape[0]
+    n_ranges, range_len = k2_ranges(E, kt.tiles.shape[0], sm_count)
+    part = torch.zeros(n_ranges, plan.w_numel, dtype=x.dtype)
+    writes = torch.zeros(n_ranges, plan.w_numel, dtype=torch.int64)
+    for ri in range(n_ranges):
+        rb = ri * range_len
+        re = min(E, rb + range_len, n_edges)
+        for q0, n_comp, f0, fm, j0, fn in kt.tiles.tolist():
+            cols, w_off = gk[q0][1], gk[q0][3]
+            acc = torch.zeros(K2_FAN_TILE, K2_COL_TILE, dtype=x.dtype)
+            for e0 in range(rb, re, K2_EDGES):
+                live = slice(e0, min(re, e0 + K2_EDGES))
+                for k in range(n_comp):
+                    out_col, tb, te = gk[q0 + k][2], gk[q0 + k][4], gk[q0 + k][5]
+                    z = torch.zeros(K2_EDGES, K2_FAN_TILE, dtype=x.dtype)
+                    n = live.stop - live.start
+                    for (a, col, b, fc, mul, _), c in zip(terms[tb:te], coeffs[tb:te]):
+                        lo, hi = max(fc, f0), min(fc + mul, f0 + fm)
+                        if lo >= hi:
+                            continue
+                        u = slice(lo - fc, hi - fc)
+                        v = c * sh[live, col : col + 1] * x[live, a + u.start : a + u.stop]
+                        if w is not None:
+                            v = v * w[live, b + u.start : b + u.stop]
+                        z[:n, lo - f0 : hi - f0] += v
+                    gs = torch.zeros(K2_EDGES, K2_COL_TILE, dtype=x.dtype)
+                    gs[:n, :fn] = g[live, out_col + j0 : out_col + j0 + fn]
+                    acc += z.T @ gs
+            f = torch.arange(fm)[:, None]
+            j = torch.arange(fn)[None, :]
+            idx = (w_off + (f0 + f) * cols + j0 + j).reshape(-1)
+            part[ri, idx] = acc[:fm, :fn].reshape(-1)
+            writes[ri, idx] += 1
+    return part, writes
 
 
 @pytest.mark.parametrize("case", list(BWD_CASES))
 def test_dtp_lin_bwd_tables_drive_the_plain_math(case):
     """The CUDA backward cannot run here; its tables can.  Walking them the
-    way the kernel does gives dtp_lin_bwd_plain's gradients (fp64 inputs,
-    the tables' fp32 CG coefficients: 1e-6 relative)."""
+    way its two launches do (dx / dw per 16-edge tile through the packed W;
+    dW per tile and edge range, the ranges' partial rows summed in order)
+    gives dtp_lin_bwd_plain's gradients (fp64 inputs, the tables' fp32 CG
+    coefficients: 1e-6 relative)."""
     plan, x, sh, w, W, g = _bwd_inputs(case, torch.float64, seed=5)
     want = dtp_lin_bwd_plain(plan, x, sh, w, W, g, torch.tensor(53, dtype=torch.int32))
-    got = _emulate_bwd_kernel(plan, x, sh, w, W, g, 53)
-    for a, b in zip(got, want):
+    dx, dw = _emulate_k2_launch1(plan, x, sh, w, W, g, 53)
+    part, _ = _emulate_k2_launch2(plan, x, sh, w, g, 53)
+    dW = part[0].clone()
+    for row in part[1:]:
+        dW += row
+    for a, b in zip((dx, dw, dW), want):
         assert (a is None) == (b is None)
         if a is not None:
             assert _rel(a.numpy(), b.numpy()) < 1e-6
+
+
+@pytest.mark.parametrize("sm_count", [1, 3, 40])
+@pytest.mark.parametrize("case", ["two-head", "shared-w", "broadcast-x"])
+def test_k2_dW_tiles_cover_each_element_once_per_range(case, sm_count):
+    """K2's dW decomposition: every element of W_flat is written exactly
+    once in each edge range's partial row (so the scratch needs no zeroing),
+    ranges are whole steps of K2_EDGES covering all rows, and the rows summed
+    in range order give the plain dW (fp64 inputs, the tables' fp32 CG
+    coefficients: 1e-6 relative; rows past n_edges add nothing)."""
+    plan, x, sh, w, W, g = _bwd_inputs(case, torch.float64, E=150, seed=6)
+    kt = plan.k2_tables(torch.device("cpu"))
+    n_ranges, range_len = k2_ranges(150, kt.tiles.shape[0], sm_count)
+    assert range_len % K2_EDGES == 0 and (n_ranges - 1) * range_len < 150 <= n_ranges * range_len
+    part, writes = _emulate_k2_launch2(plan, x, sh, w, g, 131, sm_count)
+    assert bool((writes == 1).all())
+    dW = part[0] + sum(part[1:]) if n_ranges > 1 else part[0]
+    want = dtp_lin_bwd_plain(plan, x, sh, w, W, g, torch.tensor(131, dtype=torch.int32))[2]
+    assert _rel(dW.numpy(), want.numpy()) < 1e-6
+
+
+@pytest.mark.parametrize("site", ["sep_act", "sep_value", "edge_deg", "small", "dead-w-cols"])
+def test_k2_packed_W_unpacks_to_each_group(site):
+    """K2's packing of W for the dz product (``k2_pack_index``, fragment
+    order) unpacks, by the mma fragment layout, to each group's W_g with
+    zero pad rows and columns; every element of W_flat is used once."""
+    emb = Irreps("128x0e+64x1e+32x2e")
+    if site in ("small", "dead-w-cols"):
+        tp = depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR))
+        plan = DTPLinPlan(tp, [LIN_OUT] if site == "small" else ["5x0e+3x1e"])
+    else:  # the QM9 flagship's sites (the edge degree's x is a broadcast row)
+        tp = depthwise_tp(emb, Irreps(SH), emb)
+        heads = {"sep_act": ["224x0e+64x1e+32x2e", "128x0e"]}.get(site, [str(emb)])
+        plan = DTPLinPlan(tp, heads, shared_weights=site == "sep_value")
+    W = torch.arange(1, plan.w_numel + 1, dtype=torch.float64)
+    kt = plan.k2_tables(torch.device("cpu"))
+    Wp = torch.cat([W, W.new_zeros(1)])[kt.wp_index]
+    gk = kt.gk.tolist()
+    used = torch.zeros(plan.w_numel + 1, dtype=torch.int64)
+    used.index_add_(0, kt.wp_index, torch.ones_like(kt.wp_index))
+    assert bool((used[:-1] <= 1).all())
+    row = 0
+    for gi, grp in enumerate(plan.groups):
+        wp_off, cp = gk[row][6], gk[row][7]
+        assert cp % 16 == 0 and cp - 16 < grp.cols <= cp
+        n_packed = -(-grp.fan_stride // 8) * 8 * cp
+        got = _unpack_k2(Wp[wp_off : wp_off + n_packed], grp.fan_stride, grp.cols)
+        want = torch.zeros_like(got)
+        want[: grp.fan, : grp.cols] = plan.group_weight(W, gi)[: grp.fan]
+        assert torch.equal(got, want)
+        assert bool((used[grp.w_off : grp.w_off + grp.fan * grp.cols] == 1).all())
+        row += grp.ir.dim
+    assert kt.wp_index.numel() == sum(-(-g.fan_stride // 8) * 8 * -(-g.cols // 16) * 16
+                                      for g in plan.groups)
 
 
 def test_dtp_lin_refuses_a_gradient_for_sh():

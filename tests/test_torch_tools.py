@@ -41,3 +41,26 @@ def test_trace_without_device_events_raises(tmp_path):
     path.write_text(json.dumps({"traceEvents": [{"cat": "cpu_op", "ts": 0, "dur": 1}]}))
     with pytest.raises(RuntimeError):
         trace_summary(path, 1)
+
+
+def test_trace_summary_sums_kernel_groups(tmp_path):
+    """``kernel_groups`` sums the time and calls of every kernel whose name
+    holds a group's pattern (K2's two launches apart, K3), per unit."""
+    events = [
+        {"cat": "kernel", "name": "void k2::dxdw_kernel<float, 6>(float const*)", "ts": 0,
+         "dur": 30},
+        {"cat": "kernel", "name": "void k2::dW_kernel<float, 6>(float const*)", "ts": 30,
+         "dur": 20},
+        {"cat": "kernel", "name": "void k2::dxdw_kernel<__nv_bfloat16, 6>(bf16 const*)",
+         "ts": 50, "dur": 10},
+        {"cat": "kernel", "name": "void csr_segment_sum_kernel<float, long long, 4>()",
+         "ts": 60, "dur": 4},
+        {"cat": "kernel", "name": "attn_combine_kernel", "ts": 70, "dur": 8},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    groups = trace_summary(path, n_forwards=2)["kernel_groups"]
+    assert groups["k2::dxdw_kernel"] == pytest.approx([20e-3, 1.0])
+    assert groups["k2::dW_kernel"] == pytest.approx([10e-3, 0.5])
+    assert groups["csr_segment_sum_kernel"] == pytest.approx([2e-3, 0.5])
+    assert groups["sum_partial_rows_kernel"] == [0.0, 0.0]
