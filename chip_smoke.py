@@ -30,11 +30,12 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    scatter) and unmasked (the gathers' backward, which sums the padding
    edges on the last node); K4 with an alpha-dropout
    multiplier (the train path) and without (the eval path), on its output
-   and its denominator.  Two K2 calls on the same inputs must give equal
-   dx, dw and dW bits.  Times both with CUDA events (median of 7 runs of
+   and its denominator.  Two K2 calls, and two K4 calls, on the same inputs
+   must give equal bits.  Times both with CUDA events (median of 7 runs of
    10 calls), and the one PyTorch call that computes K3's function
-   (``index_add_``); K3's device time per call (its one launch, from a
-   profiler trace) is printed beside its wrapper's.  Each kernel's bound is the
+   (``index_add_``); K3's and K4's device time per call (from a profiler
+   trace: K3's one launch, K4's with the shift's) is printed beside the
+   wrapper's.  Each kernel's bound is the
    larger of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s
    (bf16 inputs) or 67 TFLOP/s (fp32), counted for this run's real edges.
 4. train  — the same model in training mode through ``make_qm9_steps``
@@ -429,21 +430,24 @@ def report_kernels(records):
         raise RuntimeError(f"kernels disagree with their plain versions: {failed}")
 
 
-def k3_device_line(torch, site, dt_name, ms, lib_ms, call, lib_call):
-    """Print K3's device time per call (its one kernel, from a profiler
-    trace of 20 calls) beside the wrapper's time, and ``index_add_``'s
-    (zeros + add) in both regimes."""
+def device_line(torch, kernel, site, dt_name, ms, call, lib_ms=None, lib_call=None):
+    """Print a kernel's device time per call (its launches, from a profiler
+    trace of 20 calls) beside its wrapper's time, and, where there is one
+    (K3's ``index_add_``, zeros + add), the library call's in both
+    regimes."""
     from equiformer_tpu_torch.utils.profiling import kernel_ms
 
     def device(fn, tag):
-        per_kernel = kernel_ms(fn, 20, ROOT / "build" / "profile" / f"smoke_k3_{tag}.json")
+        per_kernel = kernel_ms(fn, 20, ROOT / "build" / "profile" / f"smoke_{tag}.json")
         return sum(t for t, _ in per_kernel.values()), sum(n for _, n in per_kernel.values())
 
-    dev_ms, launches = device(call, f"{site}_{dt_name}")
-    lib_dev_ms, _ = device(lib_call, f"{site}_{dt_name}_index_add")
-    print(f"K3 {site} {dt_name}: wrapper {ms:.4f} ms, device {dev_ms:.4f} ms in {launches:g} "
-          f"launch(es) a call; index_add_ {lib_ms:.4f} ms, device {lib_dev_ms:.4f} ms",
-          flush=True)
+    dev_ms, launches = device(call, f"{kernel}_{site}_{dt_name}")
+    lib = ""
+    if lib_call is not None:
+        lib_dev_ms, _ = device(lib_call, f"{kernel}_{site}_{dt_name}_library")
+        lib = f"; index_add_ {lib_ms:.4f} ms, device {lib_dev_ms:.4f} ms"
+    print(f"{kernel} {site} {dt_name}: wrapper {ms:.4f} ms, device {dev_ms:.4f} ms in "
+          f"{launches:g} launch(es) a call{lib}", flush=True)
 
 
 def dtp_sites(model):
@@ -560,8 +564,8 @@ def kernel_phase(torch, model, batch, dev, records):
         lib_ms = cuda_time_ms(lib, torch)
         record(records, "csr_segment_sum", "edge_deg", dt_name, f"E={E} C={C} N={N}", errs, ms,
                plain_ms, size * (n_real * C + N * C) + E + 8 * E, n_real * C, lib_ms)
-        k3_device_line(torch, "edge_deg", dt_name, ms, lib_ms,
-                       lambda: csr_segment_sum(val, edges.dst, N, edges.mask), lib)
+        device_line(torch, "K3", "edge_deg", dt_name, ms,
+                    lambda: csr_segment_sum(val, edges.dst, N, edges.mask), lib_ms, lib)
         # the gathers' backward: unmasked, so the padding edges on the last node are summed
         k = csr_segment_sum(val, edges.dst, N)
         p = segment_sum_plain(val, edges.dst, N)
@@ -572,8 +576,8 @@ def kernel_phase(torch, model, batch, dev, records):
         lib_ms = cuda_time_ms(lib, torch)
         record(records, "csr_segment_sum", "gather", dt_name, f"E={E} C={C} N={N}", [rel_err(k, p)],
                ms, plain_ms, size * (E * C + N * C) + 8 * E, E * C, lib_ms)
-        k3_device_line(torch, "gather", dt_name, ms, lib_ms,
-                       lambda: csr_segment_sum(val, edges.dst, N), lib)
+        device_line(torch, "K3", "gather", dt_name, ms,
+                    lambda: csr_segment_sum(val, edges.dst, N), lib_ms, lib)
 
         H, D = 4, 120
         scores = torch.randn(E, H, generator=g, device=dev).to(dt)
@@ -581,30 +585,28 @@ def kernel_phase(torch, model, batch, dev, records):
         keep = torch.rand(E, H, generator=g, device=dev) < 0.8
         drop = keep.to(dt) / 0.8
         masked = torch.where(edges.mask[:, None], scores, torch.full_like(scores, -1e30))
-        k_out, k_den = attn_combine_fwd(masked, value, edges.dst, N, edges.mask, drop)
-        p_out = attn_combine_plain(scores, value, edges.dst, N, edges.mask, drop)
         p_den = attn_den_plain(masked, edges.dst, N)
-        torch.cuda.synchronize()
-        errs = [rel_err(k_out, p_out), rel_err(k_den, p_den)]
-        ms = cuda_time_ms(
-            lambda: attn_combine_fwd(masked, value, edges.dst, N, edges.mask, drop), torch)
-        plain_ms = cuda_time_ms(lambda: (
-            attn_combine_plain(scores, value, edges.dst, N, edges.mask, drop),
-            attn_den_plain(masked, edges.dst, N)), torch)
-        record(records, "attn_combine", "ga", dt_name, f"E={E} H={H} D={D} N={N}", errs, ms,
-               plain_ms, size * (2 * E * H + n_real * H * D + N * H * D) + 4 * N * H,
-               n_real * H * (3 * D + 2))
-        # the eval path's call, without the dropout multiplier
-        k_out, k_den = attn_combine_fwd(masked, value, edges.dst, N, edges.mask)
-        errs = [rel_err(k_out, attn_combine_plain(scores, value, edges.dst, N, edges.mask)),
-                rel_err(k_den, p_den)]
-        ms = cuda_time_ms(lambda: attn_combine_fwd(masked, value, edges.dst, N, edges.mask), torch)
-        plain_ms = cuda_time_ms(lambda: (
-            attn_combine_plain(scores, value, edges.dst, N, edges.mask),
-            attn_den_plain(masked, edges.dst, N)), torch)
-        record(records, "attn_combine", "ga-nodrop", dt_name, f"E={E} H={H} D={D} N={N}", errs, ms,
-               plain_ms, size * (E * H + n_real * H * D + N * H * D) + 4 * N * H,
-               n_real * H * (2 * D + 2))
+        # the train path's call (the alpha-dropout multiplier), then the eval
+        # path's (none); the kernel reads the live edges' scores, multipliers
+        # and values, the mask and dst
+        for site, dm in (("ga", drop), ("ga-nodrop", None)):
+            call = lambda: attn_combine_fwd(masked, value, edges.dst, N, edges.mask, dm)  # noqa: E731
+            k_out, k_den = call()
+            again = call()
+            p_out = attn_combine_plain(scores, value, edges.dst, N, edges.mask, dm)
+            torch.cuda.synchronize()
+            if not (torch.equal(k_out, again[0]) and torch.equal(k_den, again[1])):
+                raise RuntimeError(f"attn_combine {site} {dt_name} does not repeat its bits")
+            errs = [rel_err(k_out, p_out), rel_err(k_den, p_den)]
+            ms = cuda_time_ms(call, torch)
+            plain_ms = cuda_time_ms(lambda: (
+                attn_combine_plain(scores, value, edges.dst, N, edges.mask, dm),
+                attn_den_plain(masked, edges.dst, N)), torch)
+            per_edge = (2 if dm is not None else 1) * H + H * D
+            record(records, "attn_combine", site, dt_name, f"E={E} H={H} D={D} N={N}", errs, ms,
+                   plain_ms, size * (n_real * per_edge + N * H * D) + 4 * N * H + 9 * E,
+                   n_real * H * ((3 if dm is not None else 2) * D + 2))
+            device_line(torch, "K4", site, dt_name, ms, call)
     for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
         fn.launches = saved[name]
     report_kernels(records)
@@ -884,8 +886,8 @@ def md17_kernel_phase(torch, model, batch, dev, records):
                    f"E={E} C={'x'.join(map(str, shape[1:]))} N={N}", [rel_err(k, p)], ms,
                    plain_ms, size * (rows * C + N * C) + (0 if mask is None else E) + 8 * E,
                    rows * C, lib_ms)
-            k3_device_line(torch, site, dt_name, ms, lib_ms,
-                           lambda: csr_segment_sum(flat, edges.dst, N, mask), lib)
+            device_line(torch, "K3", site, dt_name, ms,
+                        lambda: csr_segment_sum(flat, edges.dst, N, mask), lib_ms, lib)
     for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
         fn.launches = saved[name]
 

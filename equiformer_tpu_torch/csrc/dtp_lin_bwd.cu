@@ -99,6 +99,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "radial.cuh"
 
 namespace {
@@ -423,6 +424,7 @@ extern "C" int dtp_lin_rad_bwd(const void* x, long long sx, int d_x, const void*
 // ======================================================================
 namespace k2 {
 
+using namespace eqt::mma;
 using eqt::from_f;
 using eqt::to_f;
 
@@ -446,14 +448,6 @@ constexpr int kRowPad = 8;               // staged x / w / dw rows: multiples of
 // the dx / dw flush (launch 1 whole); launch 2: 4 loop and G staged; 5 + z
 // recomputed; 6 + the dW product (K2 whole)
 constexpr int kFullStage = 6;
-
-template <typename T>
-constexpr int kVec = 16 / (int)sizeof(T);  // elements in a 16-byte load
-
-__host__ __device__ inline int align16(int bytes) { return (bytes + 15) & ~15; }
-__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
-// the least stride >= n that is r modulo m
-__host__ __device__ inline int stride_mod(int n, int m, int r) { return n + ((r - n % m) + m) % m; }
 
 // launch 1's row strides, so that a warp's fragment loads and stores hit 32
 // distinct banks: G 8 words mod 32 in fp32 (float2 per lane), 4 in bf16 (one
@@ -484,117 +478,6 @@ __host__ __device__ inline Layout1 layout1(int d_x, int d_sh, int span_max, int 
   l.sh = l.w + (has_w ? align16(kTile * sps * (int)sizeof(T)) : 0);
   l.total = l.sh + align16(kTile * d_sh * 4);
   return l;
-}
-
-// ---------------------------------------------------------------- mma
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo, both tf32: hi*hi + hi*lo + lo*hi keeps ~fp32's accuracy (3xTF32)
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// One K = 16 step of C[i][16 x 8] += A[16 x 16] B_i[16 x 8] for the n-tiles
-// i < n (n <= kN, warp-uniform) sharing one A, with fp32 fragments.  Lane
-// (g, q) = (lane / 4, lane % 4) holds, for s = 0, 1 and k_s = 2q + 8s,
-//   a[s]    = {A[g][k_s], A[g + 8][k_s], A[g][k_s + 1], A[g + 8][k_s + 1]},
-//   b[i][s] = {B_i[k_s][g], B_i[k_s + 1][g]};
-// that is m16n8k16's bf16 layout, and for tf32 the two m16n8k8 halves with
-// their k permuted the same way in A and B (a sum over k does not see the
-// order).  bf16: the operands rounded to bf16, one mma per n-tile.  fp32:
-// 3xTF32, A split once; each kind of product (lo * hi, hi * lo, hi * hi)
-// is issued across the n-tiles in turn, so the mma's that share an
-// accumulator are n apart.
-template <typename T, int kN>
-__device__ __forceinline__ void mma16n(float (&c)[kN][4], const float (&a)[2][4],
-                                       const float (&b)[kN][2][2], int n) {
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      uint32_t ah[4], al[4], bh[kN][2], bl[kN][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) split_tf32(a[s][j], ah[j], al[j]);
-#pragma unroll
-      for (int i = 0; i < kN; ++i)
-        if (i < n) {
-          split_tf32(b[i][s][0], bh[i][0], bl[i][0]);
-          split_tf32(b[i][s][1], bh[i][1], bl[i][1]);
-        }
-#pragma unroll
-      for (int i = 0; i < kN; ++i)
-        if (i < n) mma_tf32(c[i], al, bh[i][0], bh[i][1]);
-#pragma unroll
-      for (int i = 0; i < kN; ++i)
-        if (i < n) mma_tf32(c[i], ah, bl[i][0], bl[i][1]);
-#pragma unroll
-      for (int i = 0; i < kN; ++i)
-        if (i < n) mma_tf32(c[i], ah, bh[i][0], bh[i][1]);
-    }
-  } else {
-    const uint32_t A[4] = {pack_bf16(a[0][0], a[0][2]), pack_bf16(a[0][1], a[0][3]),
-                           pack_bf16(a[1][0], a[1][2]), pack_bf16(a[1][1], a[1][3])};
-#pragma unroll
-    for (int i = 0; i < kN; ++i)
-      if (i < n)
-        mma_bf16(c[i], A, pack_bf16(b[i][0][0], b[i][0][1]), pack_bf16(b[i][1][0], b[i][1][1]));
-  }
-}
-
-// ------------------------------------------------------ 16-byte staging
-template <typename T>
-__device__ __forceinline__ bool aligned16(const T* p) {
-  return ((uintptr_t)p & 15) == 0;
-}
-
-// dst[r * ld_dst + c] = src[r * ld_src + c] (src row stride 0: one row), r <
-// rows, c < n, dtype T on both sides; 16 bytes a thread when vec
-template <typename T, int kThreads>
-__device__ __forceinline__ void copy_rows(T* __restrict__ dst, int ld_dst,
-                                          const T* __restrict__ src, long long ld_src, int rows,
-                                          int n, bool vec) {
-  if (vec) {
-    const int nv = n / kVec<T>;
-    for (int i = threadIdx.x; i < rows * nv; i += kThreads) {
-      const int r = i / nv;
-      const int c = (i - r * nv) * kVec<T>;
-      *reinterpret_cast<uint4*>(dst + r * ld_dst + c) =
-          __ldg(reinterpret_cast<const uint4*>(src + r * ld_src + c));
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * n; i += kThreads) {
-      const int r = i / n;
-      const int c = i - r * n;
-      dst[r * ld_dst + c] = src[r * ld_src + c];
-    }
-  }
 }
 
 // the dw span of a group in local order: columns dwmap[sb + jl] of w (or dw);

@@ -102,10 +102,11 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 _SIGNATURES = {
-    # x, x_row_stride, sh, w, W, out, n_edges*, E, d_sh, d_w, d_out,
-    # gk table, n_gk, terms, coeffs, max_fan_stride, dtype, stream
-    "dtp_lin_fwd": [_VP, _LL, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                    _VP, _I, _VP, _VP, _I, _I, _VP],
+    # K1: x, x_row_stride, d_x, sh, d_sh, w, d_w, packed W, out, d_out,
+    # n_edges*, E, gk table (k1_tables'), groups, n_groups, runs, terms,
+    # coeffs, fz_max, tile (32 or 16), vec (4 or 1), dtype, stream
+    "dtp_lin_fwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
+                    _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     # K2: x, x_row_stride, d_x, sh, d_sh, w, d_w, packed W, g, d_out, n_edges*,
     # E, gk table (k2_tables'), n_gk, terms, coeffs, dwmap, dx, dw, span_max,
     # cp_max, fd_max, dW tiles, n_tiles, dW partials, n_ranges, range_len, dW,
@@ -206,8 +207,11 @@ _SIGNATURES = {
     # val, C, dst, dst's bytes per index (8 or 4), E, mask, out, N, vec (1 or
     # 16 bytes' worth), nodes per block, dtype, stream
     "csr_segment_sum": [_VP, _I, _VP, _I, _I, _VP, _VP, _I, _I, _I, _I, _VP],
-    # scores, value, dropmul, shift, rowptr, out, den, N, H, D, dtype, stream
-    "attn_combine": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    # K4: scores, value, dropmul, shift, dst, dst's bytes per index (8 or 4),
+    # mask, E, out, den, N, H, D, vec (1 or 16 bytes' worth), nodes per
+    # block, dtype, stream
+    "attn_combine": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I,
+                     _I, _VP],
 }
 
 

@@ -19,7 +19,10 @@ zeros and get zero gradients.
 ``DTPLinPlan`` is the port's own plan: the term table from the port's CG
 tables, the irrep groups, weight packing and output splitting.  It keeps no
 TPU layout tricks (no 128-lane slots, fan padding or lane packing): a
-group's fan is padded only to a multiple of 4 for vector loads.
+group's fan is padded only to a multiple of 4 for vector loads.  K1 and K2
+run their head products on the tensor cores from each group's W_g packed in
+``mma.sync`` fragment order by one gather a call (``k1_tables``,
+``k2_tables``).
 ``dtp_lin_plain`` (einsum TP + the heads' linear maps) and
 ``dtp_lin_bwd_plain`` (the same backward written out per group and term)
 are the plain versions.
@@ -61,6 +64,14 @@ K2_FAN_TILE, K2_COL_TILE = 64, 128  # a dW tile of launch 2 (csrc/dtp_lin_bwd.cu
 K2_EDGES = 64  # edges per step of launch 2 (k2::kEdges2): edge ranges are multiples
 K2_DW_BLOCKS_PER_SM = 8  # launch 2's blocks (dW tiles x edge ranges) per SM
 BWD_TILE = 16  # edges per tile of K2's launch 1 (k2::kTile), and of K5c, K7-B and the K7 legs
+K1_TILES = (32, 16)  # K1's edge tiles (csrc/dtp_lin.cu k1::): fp32's where it pays, the rest
+# the shared memory a K1 block may take so that two share an SM: (228 KB - 1 KB
+# reserved per block) / 2
+K1_TWO_BLOCKS_SMEM = (233472 - 2 * 1024) // 2
+K1_VEC = 4  # u elements a thread of K1's z walk takes at once, where the tables allow
+# the waves of two blocks an SM that K1's 32-edge tile must fill: MD17's 2944
+# edges make 368 blocks of 32 edges (1.4 waves), slower than 736 of 16
+K1_MIN_WAVES = 4
 
 
 class K2Tables(NamedTuple):
@@ -71,21 +82,81 @@ class K2Tables(NamedTuple):
     fd_max: int  # the widest group's fan_stride padded to 8
 
 
-def k2_pack_index(fan: int, fan_stride: int, cols: int, w_off: int, zero: int) -> np.ndarray:
-    """Where each value of one group's packed W comes from in ``W_flat``
-    (``zero`` for a pad value): [fan8 / 8, cols16 / 16, 32, 4] flattened,
-    fan8 and cols16 being fan_stride and cols rounded up to 8 and 16.  For
-    n-tile nt, K step ks and lane (g, q) = (lane // 4, lane % 4) the four
-    values are W_g[f, j] for f = 8 nt + g and j = 16 ks + 2q + (0, 1, 8, 9):
-    the B fragment of one mma K step of dz = G W_g^T (``k2::mma16n``), read
-    with one 16-byte (fp32) or 8-byte (bf16) load a lane.  Rows at or past
-    ``fan`` and columns past ``cols`` are zero."""
-    n_nt, n_ks = -(-fan_stride // 8), -(-cols // 16)
+class K1Tables(NamedTuple):
+    gk: torch.Tensor  # int32 [n_gk, 8]
+    groups: torch.Tensor  # int32 [n_groups, 2]: first gk row, components
+    runs: torch.Tensor  # int32 [n_runs, 5]
+    wp_index: torch.Tensor  # int64: the packed W as a gather of cat([W_flat, 0])
+    fz_max: int  # the widest group's fan padded to 16
+    vec: int  # K1_VEC where every run and term offset is a multiple of it, else 1
+
+
+def b_fragment_index(K: int, N: int, k_valid: int, n_valid: int, flat, zero: int) -> np.ndarray:
+    """Where each value of a K x N matrix B packed in mma B-fragment order
+    comes from: [N8 / 8, K16 / 16, 32, 4] flattened (N8, K16: N and K
+    rounded up to 8 and 16).  For n-tile nt, K step ks and lane (g, q) =
+    (lane // 4, lane % 4) the four values are B[k][n] for n = 8 nt + g and k
+    = 16 ks + 2q + (0, 1, 8, 9): one K step's B fragment of ``mma.sync``
+    m16n8k16 (and of 3xTF32's two m16n8k8 halves, ``eqt::mma::mma16n``),
+    read with one 16-byte (fp32) or 8-byte (bf16) load a lane.  ``flat(k,
+    n)`` gives the source index of B[k][n]; k >= k_valid or n >= n_valid
+    take ``zero``."""
+    n_nt, n_ks = -(-N // 8), -(-K // 16)
     nt, ks, lane, v = np.meshgrid(np.arange(n_nt), np.arange(n_ks), np.arange(32), np.arange(4),
                                   indexing="ij")
-    f = 8 * nt + lane // 4
-    j = 16 * ks + 2 * (lane % 4) + (v & 1) + 8 * (v >> 1)
-    return np.where((f < fan) & (j < cols), w_off + f * cols + j, zero).reshape(-1)
+    n = 8 * nt + lane // 4
+    k = 16 * ks + 2 * (lane % 4) + (v & 1) + 8 * (v >> 1)
+    return np.where((k < k_valid) & (n < n_valid), flat(k, n), zero).reshape(-1)
+
+
+def k2_pack_index(fan: int, fan_stride: int, cols: int, w_off: int, zero: int) -> np.ndarray:
+    """One group's W_g^T [cols, fan] (K2's dz = G W_g^T: K = cols, N = the
+    fan rounded to 8) in B-fragment order (``b_fragment_index``) as indices
+    into ``W_flat``: the four values of a lane are W_g[f, j] for f = 8 nt +
+    g and j = 16 ks + 2q + (0, 1, 8, 9).  Rows at or past ``fan`` and
+    columns past ``cols`` are zero."""
+    return b_fragment_index(cols, fan_stride, cols, fan, lambda j, f: w_off + f * cols + j, zero)
+
+
+def k1_pack_index(fan: int, cols: int, w_off: int, zero: int) -> np.ndarray:
+    """One group's W_g [fan, cols] (K1's out = z W_g: K = the fan rounded to
+    16, N = cols) in B-fragment order (``b_fragment_index``) as indices into
+    ``W_flat``: the four values of a lane are W_g[f, j] for j = 8 nt + g and
+    f = 16 ks + 2q + (0, 1, 8, 9).  Rows at or past ``fan`` and columns past
+    ``cols`` are zero."""
+    return b_fragment_index(fan, cols, fan, cols, lambda f, j: w_off + f * cols + j, zero)
+
+
+def _stride_mod(n: int, m: int, r: int) -> int:
+    """The least stride >= n that is r modulo m (``eqt::mma::stride_mod``)."""
+    return n + ((r - n % m) + m) % m
+
+
+def k1_smem_bytes(plan: "DTPLinPlan", tile: int, itemsize: int, x_rows: bool) -> int:
+    """Shared memory of one K1 block (``k1::layout``): x [tile or 1, d_x
+    rounded to 8] in the dtype, sh [tile, d_sh] fp32, z [tile, ld] in the
+    dtype, each 16-byte aligned."""
+    def a16(b):
+        return -(-b // 16) * 16
+
+    fz = max(-(-g.fan // 16) * 16 for g in plan.groups)
+    ldz = _stride_mod(fz, 32, 8) if itemsize == 4 else _stride_mod(fz, 64, 8)
+    return (a16((tile if x_rows else 1) * -(-plan.d_x // 8) * 8 * itemsize)
+            + a16(tile * plan.d_sh * 4) + a16(tile * ldz * itemsize))
+
+
+def k1_tile(plan: "DTPLinPlan", itemsize: int, x_rows: bool, E: int, sm_count: int) -> int:
+    """K1's edge tile: 32 in fp32 where a block leaves room for a second on
+    its SM and the grid (tiles x groups) fills the card's two blocks an SM
+    ``K1_MIN_WAVES`` times (QM9), so that two m-tiles share each B
+    fragment's 3xTF32 split; else 16 (MD17 L3's 864-wide x tile and its
+    2944 edges in fp32; bf16, whose product is cheap and whose twice as
+    many 16-edge blocks run faster)."""
+    tile = K1_TILES[0]
+    if (itemsize == 4 and k1_smem_bytes(plan, tile, itemsize, x_rows) <= K1_TWO_BLOCKS_SMEM
+            and -(-E // tile) * len(plan.groups) >= K1_MIN_WAVES * 2 * sm_count):
+        return tile
+    return K1_TILES[-1]
 
 
 def k2_ranges(E: int, n_tiles: int, sm_count: int) -> Tuple[int, int]:
@@ -255,25 +326,17 @@ class DTPLinPlan:
 
     # -------------------------------------------------------- device tables
     def device_tables(self, device: torch.device):
-        """(gk int32 [n_gk, 8], terms int32 [n_terms, 5], coeffs float32) on
-        ``device``; terms sorted by (group, component, fan column)."""
+        """(terms int32 [n_terms, 5], coeffs float32) on ``device``, as K1
+        reads them (``k1_tables``' runs index them): per term a_off, sh
+        column, b_off, fan column, mul, sorted by (group, component, fan
+        column)."""
         tabs = self._tables.get(device)
         if tabs is None:
-            gk, tt, cc = [], [], []
-            for gi, g in enumerate(self.groups):
-                for k in range(g.ir.dim):
-                    begin = len(tt)
-                    for t, (tg, tk, fc) in self.terms:
-                        if (tg, tk) == (gi, k):
-                            tt.append((t.a_off, t.col_off, t.b_off, fc, t.mul))
-                            cc.append(t.coeff)
-                    # 8 ints per entry (two spare), as csrc/dtp_lin.cu reads them
-                    gk.append((g.fan_stride, g.cols, g.out_off + k * g.cols, g.w_off,
-                               begin, len(tt), 0, 0))
             tabs = (
-                torch.tensor(gk, dtype=torch.int32, device=device),
-                torch.tensor(tt, dtype=torch.int32, device=device),
-                torch.tensor(cc, dtype=torch.float32, device=device),
+                torch.tensor([(t.a_off, t.col_off, t.b_off, fc, t.mul)
+                              for t, (_, _, fc) in self.terms], dtype=torch.int32, device=device),
+                torch.tensor([t.coeff for t, _ in self.terms], dtype=torch.float32,
+                             device=device),
             )
             self._tables[device] = tabs
         return tabs
@@ -379,6 +442,61 @@ class DTPLinPlan:
             torch.as_tensor(np.concatenate(index), device=device),
             max(-(-g.cols // 16) * 16 for g in self.groups),
             max(-(-g.fan_stride // 8) * 8 for g in self.groups),
+        )
+        self._tables[key] = tabs
+        return tabs
+
+    def k1_tables(self, device: torch.device) -> "K1Tables":
+        """K1's tables on ``device``, as ``csrc/dtp_lin.cu`` (namespace k1)
+        reads them; the terms and coefficients are ``device_tables'``.
+
+        gk per (group, component), 8 ints: the fan padded to 16, cols, output
+        column, the group's offset in the packed W, its run range, its column
+        n-tiles (cols rounded up to 8, over 8), the fan.  groups: per group
+        its first gk row and its components (a block's group).  runs: per
+        fan block of a (group, component) (the terms of one TP path, sorted
+        by fan column in ``device_tables``), 5 ints: the fan column, mul, the
+        w column, the term range; a run's elements are written once, so z
+        needs no zeroing.  ``wp_index`` gathers ``cat([W_flat, 0])`` into
+        each group's W_g in B-fragment order (``k1_pack_index``)."""
+        key = ("k1", device)
+        tabs = self._tables.get(key)
+        if tabs is not None:
+            return tabs
+        terms = self.device_tables(torch.device("cpu"))[0].tolist()
+        gk_of = [loc[:2] for _, loc in self.terms]  # each term's (group, component)
+        gk, groups, runs, index = [], [], [], []
+        wp_off = row = t = 0
+        vec = K1_VEC if self.d_x % K1_VEC == 0 and self.d_w % K1_VEC == 0 else 1
+        for gi, g in enumerate(self.groups):
+            f16 = -(-g.fan // 16) * 16
+            groups.append((row, g.ir.dim))
+            for k in range(g.ir.dim):
+                run_begin = len(runs)
+                while t < len(terms) and gk_of[t] == (gi, k):
+                    a_off, _, b_off, fc, mul = terms[t]
+                    if len(runs) > run_begin and runs[-1][0] == fc:
+                        if runs[-1][1:3] != [mul, b_off]:
+                            raise ValueError("terms of one fan column differ in mul or w block")
+                        runs[-1][4] = t + 1
+                    else:
+                        runs.append([fc, mul, b_off, t, t + 1])
+                    if (a_off | b_off | fc | mul) % K1_VEC:
+                        vec = 1
+                    t += 1
+                gk.append((f16, g.cols, g.out_off + k * g.cols, wp_off, run_begin, len(runs),
+                           -(-g.cols // 8), g.fan))
+            idx = k1_pack_index(g.fan, g.cols, g.w_off, self.w_numel)
+            index.append(idx)
+            wp_off += idx.size
+            row += g.ir.dim
+        tabs = K1Tables(
+            torch.tensor(gk, dtype=torch.int32, device=device),
+            torch.tensor(groups, dtype=torch.int32, device=device),
+            torch.tensor(runs, dtype=torch.int32, device=device),
+            torch.as_tensor(np.concatenate(index), device=device),
+            max(-(-g.fan // 16) * 16 for g in self.groups),
+            vec,
         )
         self._tables[key] = tabs
         return tabs
@@ -634,15 +752,21 @@ def dtp_lin_fwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: 
     E = sh.shape[0]
     x, sh, w, W_flat = _check_operands(plan, x, sh, w, W_flat)
     n_edges = _check_n_edges(n_edges, E, x.device)
-    gk, terms, coeffs = plan.device_tables(x.device)
+    terms, coeffs = plan.device_tables(x.device)
+    kt = plan.k1_tables(x.device)
     out = torch.empty((E, plan.d_out), dtype=x.dtype, device=x.device)
     if E == 0:
         return out
+    Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[kt.wp_index]
+    vec = kt.vec if w is None or w.data_ptr() % 16 == 0 else 1
     err = _build.library().dtp_lin_fwd(
-        _build.ptr(x), x.stride(0), _build.ptr(sh), _build.ptr(w), _build.ptr(W_flat),
-        _build.ptr(out), _build.ptr(n_edges), E, plan.d_sh, plan.d_w, plan.d_out,
-        _build.ptr(gk), gk.shape[0], _build.ptr(terms), _build.ptr(coeffs),
-        plan.max_fan_stride, _build.dtype_code(x), _build.stream_ptr(),
+        _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(w),
+        plan.d_w, _build.ptr(Wp), _build.ptr(out), plan.d_out, _build.ptr(n_edges), E,
+        _build.ptr(kt.gk), _build.ptr(kt.groups), kt.groups.shape[0], _build.ptr(kt.runs),
+        _build.ptr(terms), _build.ptr(coeffs), kt.fz_max,
+        k1_tile(plan, x.element_size(), x.stride(0) != 0, E, _sm_count(x.device)), vec,
+        _build.dtype_code(x),
+        _build.stream_ptr(),
     )
     _build.check(err, "dtp_lin_fwd")
     dtp_lin_fwd.launches += 1

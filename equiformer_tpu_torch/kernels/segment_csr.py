@@ -9,7 +9,8 @@ each block finds its node range's edges by a search over the sorted
 across its warps whatever the degrees, and sums the live rows with 16-byte
 loads, four edges in flight.  The wrapper only checks shapes and picks the
 vector width (``vector_width``) and the node range of a block
-(``nodes_per_block``); it builds no row pointers.
+(``nodes_per_block``); it builds no row pointers.  K4
+(``attn_csr.py``) walks the edges the same way (``csrc/csr_walk.cuh``).
 ``segment_sum_plain`` is its plain PyTorch version, used for CPU tensors
 and as the on-card reference.  The op is differentiable in ``val`` to any
 order: the backward is the gather ``take_rows(g, dst)`` of
@@ -40,21 +41,13 @@ def segment_sum_plain(val, dst, num_nodes: int, mask=None):
     return out.to(val.dtype)
 
 
-def row_pointers(dst: torch.Tensor, num_nodes: int) -> torch.Tensor:
-    """int32 [num_nodes + 1]: edges of node u are ``[rp[u], rp[u+1])`` in a
-    non-decreasing ``dst``, as K4 (``attn_csr.py``) reads them (the per-node
-    form of the Pallas kernel's tile starts, ``segment_csr_pallas.py:128-130``)."""
-    nodes = torch.arange(num_nodes + 1, device=dst.device, dtype=dst.dtype)
-    return torch.searchsorted(dst, nodes, side="left").to(torch.int32)
-
-
-VECTOR_BYTES = 16  # one load a lane in csrc/segment_csr.cu
+VECTOR_BYTES = 16  # one load a lane in csrc/segment_csr.cu and csrc/attn_csr.cu
 _INDEX_DTYPES = (torch.int64, torch.int32)  # dst as the kernel reads it
 EDGES_PER_BLOCK = 256  # a block's edges on average: 16 warps' slices of 16
 
 
 def vector_width(C: int, itemsize: int, val_ptr: int, out_ptr: int) -> int:
-    """Elements a lane of K3 loads at once: 16 bytes' worth when every row
+    """Elements a lane of K3 (or K4) loads at once: 16 bytes' worth when every row
     of the [E, C] operand and of the output starts on a 16-byte boundary
     (``C * itemsize`` and both base pointers multiples of 16), else 1 (one
     scalar column a lane: a tail of C or an unaligned row)."""
@@ -64,7 +57,7 @@ def vector_width(C: int, itemsize: int, val_ptr: int, out_ptr: int) -> int:
 
 
 def nodes_per_block(num_nodes: int, E: int) -> int:
-    """The node range of one K3 block: about ``EDGES_PER_BLOCK`` edges at
+    """The node range of one K3 (or K4) block: about ``EDGES_PER_BLOCK`` edges at
     the batch's mean degree (E / num_nodes), at least 1 node."""
     return max(1, min(num_nodes, -(-EDGES_PER_BLOCK * num_nodes // max(E, 1))))
 

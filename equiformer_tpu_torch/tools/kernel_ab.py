@@ -1,14 +1,19 @@
-"""K3 (the CSR segment sum) and K2 (the fused DTP + linear backward) of this
-package against another tree's, in turns, on one GPU.
+"""K1 (the fused DTP + linear forward), K2 (its backward), K3 (the CSR
+segment sum), K4 (the attention combine) and K7-F (the radial-folded
+forward) of this package against another tree's, in turns, on one GPU.
 
-    python -m equiformer_tpu_torch.tools.kernel_ab [--against DIR] [--out FILE]
+    python -m equiformer_tpu_torch.tools.kernel_ab [--against DIR [DIR ...]]
+        [--kernels K1,K4] [--out FILE]
 
-``DIR`` is the root of another checkout of the repository (for example the
-parent commit unpacked with ``git archive``); its ``equiformer_tpu_torch``
-is loaded as a second package, whose wrappers build their own kernels
-(into ``DIR/build/``) and launch them, so each side runs its own wrapper
-and kernel on the same input tensors.  The sides run in turns (package,
-other, other, package), so the two compare within one call on one card.
+Each ``DIR`` is the root of another copy of the repository (the parent
+commit unpacked with ``git archive``, or a variant of a kernel's source);
+its ``equiformer_tpu_torch`` is loaded as another package, whose wrappers
+build their own kernels (into ``DIR/build/``) and launch them, so each
+side runs its own wrapper and kernel on the same input tensors.  The sides
+run in turns (package, the DIRs in order, then back: package, a, b, b, a,
+package), so they compare within one call on one card; a side is named
+by its directory.  ``--kernels`` picks the sections (all five by
+default).
 
 The shapes are ``chip_smoke.py``'s: batch 0 of the QM9 geometry (128
 QM9-like graphs of 30 slots, seed 0, radius 5; ``max_edges`` the largest
@@ -17,17 +22,20 @@ md17-like molecules of 21 slots).  K3 runs at its shapes: at QM9 the
 edge-degree scatter [E, 480] (masked) and the message gathers' backward
 [E, 480] (unmasked: the 3464 padding edges on the last node are summed),
 at MD17 the edge-degree scatter [E, 864], the attention sums [E, 4, 216]
-(both masked) and the gathers' backward [E, 864]; K2 at the QM9 flagship's three sites
-(sep_act, sep_value with shared weights folded into W, the edge-degree
-embedding with its row-broadcast x), random operands from seed 0, the
-batch's real edges live.  Per shape and dtype (float32, bfloat16):
+(both masked) and the gathers' backward [E, 864]; K1 and K2 at the QM9
+flagship's three sites (sep_act, sep_value with shared weights folded into
+W, the edge-degree embedding with its row-broadcast x), K1 also at MD17
+L3's sep_act; K4 at QM9's [E, 4, 120] with and without the alpha-dropout
+multiplier, the padding edges masked; K7-F at the folded flagship's
+sep_act.  Random operands from seed 0, the batch's real edges live.  Per
+shape and dtype (float32, bfloat16):
 
 * ``ms``: each side's wrapper, CUDA events (median of 5 runs of 5 calls);
   ``host_us`` (K3): its host time a call (median of 5 runs of 100 calls
   without a synchronize), which bounds ``ms`` at the small MD17 shapes;
-* ``device_ms``: each side's device time per call, all its kernels, and
-  ``kernel_ms`` the segment-sum kernel alone (K3), from a profiler trace of
-  20 calls;
+* ``device_ms`` (K3, K4): each side's device time per call, all its
+  kernels, and ``kernel_ms`` the kernel alone, from a profiler trace of 20
+  calls;
 * ``rel_err``: each side against this package's plain version (max |diff| /
   max |plain|); ``index_add_`` (K3's one-call equivalent, zeros + add: its
   time as the wrapper's, and its device time) and the plain version's
@@ -53,10 +61,13 @@ import torch
 from .. import model_entrypoint
 from ..data import GraphLoader, md17_like_dataset, qm9_like_dataset
 from ..graph.radius_graph import radius_graph_dense
+from .. import kernels
 from ..kernels import (
-    csr_segment_sum,
-    dtp_lin_bwd,
+    attn_combine_plain,
+    attn_den_plain,
     dtp_lin_bwd_plain,
+    dtp_lin_plain,
+    dtp_lin_rad_plain,
     segment_sum_plain,
 )
 from ..utils.profiling import card_line, device_time_ms, kernel_ms, resolve_device
@@ -67,9 +78,11 @@ QM9 = ("graph_attention_transformer_nonlinear_l2", 128, 30)
 MD17 = ("graph_attention_transformer_nonlinear_exp_l3_md17", 8, 21)
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 K3_KERNEL = "csr_segment_sum_kernel"
+K4_KERNEL = "attn_combine_kernel"
+SECTIONS = ("K3", "K2", "K1", "K4", "K7F")
 
 
-def load_tree(root: Path, name: str = "eqt_other"):
+def load_tree(root: Path, name: str):
     """``root/equiformer_tpu_torch`` imported as the package ``name``."""
     pkg = root / "equiformer_tpu_torch"
     spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
@@ -100,6 +113,26 @@ def dtp_plans(model):
     ga = model.block_0.ga
     return {"sep_act": ga.sep_act.plan, "sep_value": ga.sep_value.plan,
             "edge_deg": model.edge_deg_embed.plan}
+
+
+def dtp_operands(plan, site, E, dt, dev):
+    """Random (x, sh, w or None, W, cotangent) of one fused DTP site, seed 0;
+    the edge degree's x is a broadcast row."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)  # noqa: E731
+    x = rnd(1, plan.d_x).expand(E, plan.d_x) if site.endswith("edge_deg") else rnd(E, plan.d_x)
+    sh, cot, W = rnd(E, plan.d_sh), rnd(E, plan.d_out), 0.05 * rnd(plan.w_numel)
+    w = None if plan.shared_weights else rnd(E, plan.d_w)
+    return x, sh, w, W, cot
+
+
+def traced_run(call, tag, kernel):
+    """Device time and launches per call of ``call``, and of its ``kernel``
+    alone, from a trace of 20 calls."""
+    per_kernel = kernel_ms(call, 20, TRACE_DIR / f"ab_{tag}.json")
+    return {"device_ms": sum(ms for ms, _ in per_kernel.values()),
+            "kernel_ms": sum(ms for k, (ms, _) in per_kernel.items() if kernel in k),
+            "launches": sum(n for _, n in per_kernel.values())}
 
 
 def host_us(fn, reps: int = 5, inner: int = 100) -> float:
@@ -141,24 +174,8 @@ def k3_cases(dev):
             "md17-gather": (mdst, None, mN, (mE, 864))}
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--against", type=Path, default=None,
-                    help="the root of another checkout whose K3 and K2 run in turns with these")
-    ap.add_argument("--out", type=Path, default=None)
-    args = ap.parse_args(argv)
-    dev = resolve_device(None)
-    card = card_line()
-    print(card, flush=True)
-    sides = {"package": (csr_segment_sum, dtp_lin_bwd, model_entrypoint)}
-    if args.against is not None:
-        other = load_tree(args.against.resolve())
-        sides["other"] = (other.kernels.csr_segment_sum, other.kernels.dtp_lin_bwd,
-                          other.model_entrypoint)
-    order = ["package", "other", "other", "package"] if len(sides) > 1 else ["package"]
-    report = {"card": card, "torch": torch.__version__, "order": order, "K3": {}, "K2": {}}
-
-    cases, host_calls = k3_cases(dev), {}
+def k3_section(sides, order, cases, dev, report):
+    host_calls = {}
     for case, (dst, mask, N, shape) in cases.items():
         for dt in (torch.float32, torch.bfloat16):
             g = torch.Generator(device=dev).manual_seed(SEED)
@@ -174,19 +191,15 @@ def main(argv=None) -> dict:
                      "plain_ms": device_time_ms(lambda: segment_sum_plain(val, dst, N, mask), dev),
                      "runs": []}
             for i, side in enumerate(order):
-                fn = sides[side][0]
+                fn = sides[side][0].csr_segment_sum
                 call = lambda: fn(val, dst, N, mask)  # noqa: E731
-                per_kernel = kernel_ms(call, 20, TRACE_DIR / f"ab_k3_{case}_{side}_{i}.json")
-                entry["runs"].append({
-                    "side": side, "ms": device_time_ms(call, dev),
-                    "device_ms": sum(ms for ms, _ in per_kernel.values()),
-                    "kernel_ms": sum(ms for k, (ms, _) in per_kernel.items() if K3_KERNEL in k),
-                    "launches": sum(n for _, n in per_kernel.values()),
-                    "rel_err": rel(call(), want)})
+                entry["runs"].append({"side": side, "ms": device_time_ms(call, dev),
+                                      **traced_run(call, f"k3_{case}_{side}_{i}", K3_KERNEL),
+                                      "rel_err": rel(call(), want)})
             name = f"{case}/{str(dt)[6:]}"
             report["K3"][name] = entry
-            host_calls[name] = (lib, [(run, sides[run["side"]][0], (val, dst, N, mask))
-                                      for run in entry["runs"]])
+            host_calls[name] = (lib, [(run, sides[run["side"]][0].csr_segment_sum,
+                                       (val, dst, N, mask)) for run in entry["runs"]])
     # host times after every trace: a trace taken after many unsynchronized
     # calls has come back without kernels
     for name, (lib, runs) in host_calls.items():
@@ -195,32 +208,126 @@ def main(argv=None) -> dict:
             run["host_us"] = host_us(lambda: fn(*call_args))
         print("K3", name, json.dumps(report["K3"][name]), flush=True)
 
-    _, mask, _, (E, _) = cases["qm9-edge_deg"]
-    n_live = int(mask.sum())
-    plans = {side: dtp_plans(make(QM9[0])(max_edges=E, nodes_per_graph=QM9[2], seed=SEED,
-                                            device=dev))
-             for side, (_, _, make) in sides.items()}
+
+def dtp_section(key, sides, order, plans, rows, dev, report, run_fn, plain_fn, extra=None):
+    """One fused DTP kernel (``run_fn(kernels module)``) at each site of
+    ``plans[side]``, against ``plain_fn`` of this package, both dtypes."""
     for site, plan in plans["package"].items():
+        E, n_live = rows[site]
         for dt in (torch.float32, torch.bfloat16):
-            g = torch.Generator(device=dev).manual_seed(SEED)
-            rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)  # noqa: E731
-            x = rnd(1, plan.d_x).expand(E, plan.d_x) if site == "edge_deg" else rnd(E, plan.d_x)
-            sh, cot, W = rnd(E, plan.d_sh), rnd(E, plan.d_out), 0.05 * rnd(plan.w_numel)
-            w = None if plan.shared_weights else rnd(E, plan.d_w)
+            ops = dtp_operands(plan, site, E, dt, dev)
             n = torch.tensor(n_live, dtype=torch.int32, device=dev)
-            want = dtp_lin_bwd_plain(plan, x, sh, w, W, cot, n)
+            want = plain_fn(plan, ops, n)
             entry = {"E": E, "n_live": n_live, "runs": []}
             for side in order:
-                fn, p = sides[side][1], plans[side][site]
-                call = lambda: fn(p, x, sh, w, W, cot, n)  # noqa: E731
+                fn, p = run_fn(sides[side][0]), plans[side][site]
+                call = lambda: fn(p, ops, n)  # noqa: E731
                 got = call()
+                got = got if isinstance(got, tuple) else (got,)
+                want_t = want if isinstance(want, tuple) else (want,)
+                run = {"side": side, "ms": device_time_ms(call, dev),
+                       "rel_err": max(rel(a, b) for a, b in zip(got, want_t) if a is not None)}
+                if extra is not None:
+                    run.update(extra(call))
+                entry["runs"].append(run)
+            name = f"{site}/{str(dt)[6:]}"
+            report[key][name] = entry
+            print(key, name, json.dumps(entry), flush=True)
+
+
+def k4_section(sides, order, case, dev, report):
+    dst, mask, N, (E, _) = case
+    n_live, H, D = int(mask.sum()), 4, 120
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        scores = torch.randn(E, H, generator=g, device=dev).to(dt)
+        value = torch.randn(E, H, D, generator=g, device=dev).to(dt)
+        drop = (torch.rand(E, H, generator=g, device=dev) < 0.8).to(dt) / 0.8
+        masked = torch.where(mask[:, None], scores, torch.full_like(scores, -1e30))
+        for site, dm in (("qm9-drop", drop), ("qm9-nodrop", None)):
+            want = (attn_combine_plain(scores, value, dst, N, mask, dm),
+                    attn_den_plain(masked, dst, N))
+            entry = {"E": E, "n_live": n_live, "N": N, "H": H, "D": D,
+                     "plain_ms": device_time_ms(lambda: (
+                         attn_combine_plain(scores, value, dst, N, mask, dm),
+                         attn_den_plain(masked, dst, N)), dev), "runs": []}
+            for i, side in enumerate(order):
+                fn = sides[side][0].attn_combine_fwd
+                call = lambda: fn(masked, value, dst, N, mask, dm)  # noqa: E731
                 entry["runs"].append({
                     "side": side, "ms": device_time_ms(call, dev),
-                    "scratch_mib": scratch_mib(call, dev),
-                    "rel_err": max(rel(a, b) for a, b in zip(got, want) if a is not None)})
+                    **traced_run(call, f"k4_{site}_{str(dt)[6:]}_{side}_{i}", K4_KERNEL),
+                    "rel_err": max(rel(a, b) for a, b in zip(call(), want))})
             name = f"{site}/{str(dt)[6:]}"
-            report["K2"][name] = entry
-            print("K2", name, json.dumps(entry), flush=True)
+            report["K4"][name] = entry
+            print("K4", name, json.dumps(entry), flush=True)
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", type=Path, nargs="+", default=[],
+                    help="roots of other copies whose kernels run in turns with these")
+    ap.add_argument("--kernels", default=",".join(SECTIONS),
+                    help=f"comma-separated sections, of {', '.join(SECTIONS)}")
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args(argv)
+    want = args.kernels.split(",")
+    if not set(want) <= set(SECTIONS):
+        ap.error(f"--kernels takes {', '.join(SECTIONS)}")
+    dev = resolve_device(None)
+    card = card_line()
+    print(card, flush=True)
+    sides = {"package": (kernels, model_entrypoint)}
+    for i, root in enumerate(args.against):
+        other = load_tree(root.resolve(), f"eqt_other{i}")
+        sides[root.name] = (other.kernels, other.model_entrypoint)
+    names = list(sides)[1:]
+    if len(names) != len(args.against) or "package" in names:
+        ap.error("the --against directories need distinct names other than 'package'")
+    order = ["package", *names, *names[::-1], "package"] if names else ["package"]
+    report = {"card": card, "torch": torch.__version__, "order": order,
+              **{k: {} for k in SECTIONS if k in want}}
+
+    cases = k3_cases(dev)
+    if "K3" in want:
+        k3_section(sides, order, cases, dev, report)
+    _, mask, _, (E, _) = cases["qm9-edge_deg"]
+    _, mmask, _, (mE, _) = cases["md17-edge_deg"]
+    rows = {**dict.fromkeys(("sep_act", "sep_value", "edge_deg"), (E, int(mask.sum()))),
+            "md17-sep_act": (mE, int(mmask.sum()))}
+    if {"K1", "K2"} & set(want):
+        plans = {side: dtp_plans(make(QM9[0])(max_edges=E, nodes_per_graph=QM9[2], seed=SEED,
+                                              device=dev))
+                 for side, (_, make) in sides.items()}
+    if "K2" in want:
+        dtp_section("K2", sides, order, plans, rows, dev, report, lambda m: (
+            lambda p, o, n: m.dtp_lin_bwd(p, o[0], o[1], o[2], o[3], o[4], n)),
+            lambda p, o, n: dtp_lin_bwd_plain(p, o[0], o[1], o[2], o[3], o[4], n),
+            lambda call: {"scratch_mib": scratch_mib(call, dev)})
+    if "K1" in want:
+        for side, (_, make) in sides.items():
+            md17 = make(MD17[0])(max_edges=mE, nodes_per_graph=MD17[2], seed=SEED, device=dev)
+            plans[side]["md17-sep_act"] = md17.block_0.ga.sep_act.plan
+        dtp_section("K1", sides, order, plans, rows, dev, report, lambda m: (
+            lambda p, o, n: m.dtp_lin_fwd(p, o[0], o[1], o[2], o[3], n)),
+            lambda p, o, n: dtp_lin_plain(p, o[0], o[1], o[2], o[3], n))
+    if "K4" in want:
+        k4_section(sides, order, cases["qm9-edge_deg"], dev, report)
+    if "K7F" in want:
+        fold = {side: {"sep_act": make(QM9[0])(max_edges=E, nodes_per_graph=QM9[2], seed=SEED,
+                                               device=dev, radial_fold=True).block_0.ga
+                       .sep_act.plan} for side, (_, make) in sides.items()}
+
+        def rad_ops(p, o):  # h [E, hd] from x's generator, [Wr; offset] small
+            hd = p.radial_fold
+            g = torch.Generator(device=dev).manual_seed(SEED + 1)
+            h = torch.randn(o[0].shape[0], hd, generator=g, device=dev).to(o[0].dtype)
+            Wrs = 0.1 * torch.randn(hd + 1, p.d_w, generator=g, device=dev).to(o[0].dtype)
+            return h, Wrs
+
+        dtp_section("K7F", sides, order, fold, rows, dev, report, lambda m: (
+            lambda p, o, n: m.dtp_lin_rad_fwd(p, o[0], o[1], *rad_ops(p, o), o[3], n)),
+            lambda p, o, n: dtp_lin_rad_plain(p, o[0], o[1], *rad_ops(p, o), o[3], n))
 
     text = json.dumps(report, indent=1)
     print(text)

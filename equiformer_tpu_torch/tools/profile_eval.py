@@ -37,8 +37,10 @@ bfloat16, per unit:
   kernels with the most device time: [name, ms, calls] per unit, and
   ``kernel_groups``: [ms, calls] per unit of every kernel whose name holds
   one of ``KERNEL_GROUPS`` (K2's two launches, the fixed-order partial-row
-  sum that K2, K5c and the K7 kernels share, K3, and the first K2 design's
-  template, which K7-B still is);
+  sum that K2, K5c and the K7 kernels share, K3, the first K2 design's
+  template, which K7-B still is, K1 and K4), and ``annotated``: [ms, calls]
+  per unit of the kernels inside each ``record_function`` range of
+  ``ANNOTATIONS`` (K4's backward, torch ops);
 * ``idle_share``: 1 - device_busy_ms / wall_ms, the share of the unprofiled
   wall time in which the device has nothing to run;
 * ``peak_mib``: ``torch.cuda.max_memory_allocated`` over the wall passes.
@@ -69,6 +71,7 @@ from .. import (
 from ..data import GraphLoader, md17_like_dataset, qm9_like_dataset
 from ..train import TrainState
 from ..graph.radius_graph import radius_graph_dense
+from ..kernels.attn_csr import ATTN_BWD_RANGE
 from ..utils.profiling import card_line
 
 N_BATCHES = 4
@@ -79,7 +82,9 @@ MD17 = ("graph_attention_transformer_nonlinear_exp_l3_md17", 8, 21)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 KERNEL_GROUPS = ("k2::dxdw_kernel", "k2::dW_kernel", "sum_partial_rows_kernel",
-                 "csr_segment_sum_kernel", "dtp_lin_bwd_kernel<")
+                 "csr_segment_sum_kernel", "dtp_lin_bwd_kernel<", "k1::fwd_kernel",
+                 "attn_combine_kernel")
+ANNOTATIONS = (ATTN_BWD_RANGE,)
 
 
 def _union_us(intervals) -> float:
@@ -111,12 +116,20 @@ def trace_summary(path: Path, n_forwards: int) -> dict:
         hits = [v for name, v in by_name.items() if pattern in name]
         groups[pattern] = [sum(us for us, _ in hits) / 1e3 / n_forwards,
                            sum(c for _, c in hits) / n_forwards]
+    annotated = {}
+    for name in ANNOTATIONS:  # the kernels that ran inside the range's spans on the card
+        ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                  if e.get("cat") == "gpu_user_annotation" and e.get("name") == name]
+        hits = [float(e["dur"]) for e in dev if e["cat"] == "kernel" and any(
+            a <= float(e["ts"]) and float(e["ts"]) + float(e["dur"]) <= b for a, b in ranges)]
+        annotated[name] = [sum(hits) / 1e3 / n_forwards, len(hits) / n_forwards]
     return {
         "device_busy_ms": _union_us(spans) / 1e3 / n_forwards,
         "launches": sum(e["cat"] == "kernel" for e in dev) / n_forwards,
         "kernels": [[name, us / 1e3 / n_forwards, calls / n_forwards]
                     for name, (us, calls) in top],
         "kernel_groups": groups,
+        "annotated": annotated,
     }
 
 

@@ -1135,3 +1135,88 @@ def test_dtp_lin_bwd_at_the_qm9_sites(dev, site, rows, dtype):
             assert float(a.abs().max()) == 0.0
     assert float(k[0][n_live:].abs().max()) == 0.0
     assert k[1] is None or float(k[1][n_live:].abs().max()) == 0.0
+
+
+MD17_L3 = "128x0e+64x1e+64x2e+32x3e"
+# the fused DTP's sites on the two paths at full width: (node irreps, SH,
+# heads, shared weights, row-broadcast x, E and live rows of the path)
+K1_SITES = {
+    "qm9-sep_act": (L2_FLAGSHIP, SH, ["224x0e+64x1e+32x2e", "128x0e"], False, False,
+                    (36352, 32888)),
+    "qm9-sep_value": (L2_FLAGSHIP, SH, [L2_FLAGSHIP], True, False, (36352, 32888)),
+    "qm9-edge_deg": (L2_FLAGSHIP, SH, [L2_FLAGSHIP], False, True, (36352, 32888)),
+    "md17-sep_act": (MD17_L3, L3_SH, ["288x0e+64x1e+64x2e+32x3e", "128x0e"], False, False,
+                     (2944, 2922)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("site", list(K1_SITES))
+@pytest.mark.parametrize("rows", ["path", "ragged"])
+def test_dtp_lin_fwd_at_the_path_sites(dev, site, rows, dtype):
+    """K1 at the QM9 flagship's three sites and MD17 L3's sep_act (32-edge
+    tiles in fp32 at QM9, 16 elsewhere): the path's E and live rows, and E =
+    1013 (a multiple of neither tile) with n_edges = 997.  Within the dtype's
+    bound of the plain version, rows past n_edges zero, one launch a call,
+    two calls bitwise equal."""
+    irr, sh_irr, heads, shared, broadcast, path_rows = K1_SITES[site]
+    emb = Irreps(irr)
+    plan = DTPLinPlan(depthwise_tp(emb, Irreps(sh_irr), emb), heads, shared_weights=shared)
+    E, n_live = path_rows if rows == "path" else (1013, 997)
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(14)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+    x = rnd(1, plan.d_x).expand(E, plan.d_x) if broadcast else rnd(E, plan.d_x)
+    sh, W = rnd(E, plan.d_sh), 0.05 * rnd(plan.w_numel)
+    w = None if shared else rnd(E, plan.d_w)
+    n = torch.tensor(n_live, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    got = dtp_lin_fwd(plan, x, sh, w, W, n)
+    again = dtp_lin_fwd(plan, x, sh, w, W, n)
+    want = dtp_lin_plain(plan, x, sh, w, W, n)
+    torch.cuda.synchronize()
+    assert dtp_lin_fwd.launches == 2 and torch.equal(got, again)
+    assert _rel(got, want) < TOL[dtype]
+    assert float(got[n_live:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("case", ["qm9-drop", "qm9-nodrop", "no-mask", "long", "int32-dst",
+                                  "odd-D", "no-edges"])
+def test_attn_combine_at_the_qm9_shape(dev, case, dtype):
+    """K4 at the QM9 shape (E = 36352 with 32888 live edges, N = 3840, H =
+    4, D = 120; the masked padding edges on the last node), with and without
+    the dropout multiplier; without a mask (the padding edges combined), a
+    node with 2000 edges, int32 dst, D = 30 (one scalar column a lane), E =
+    0.  out and den within the dtype's bound of the plain versions, one
+    launch a call, the same bits in two calls."""
+    E, N, n_real = (0, 3840, 0) if case == "no-edges" else (36352, 3840, 32888)
+    H, D = 4, 30 if case == "odd-D" else 120
+    dst, mask = _sorted_dst(E, N, n_real, 21, long_node=50 if case == "long" else None)
+    if case == "no-edges":
+        dst, mask = dst[:0], mask[:0]
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(22)
+    scores = torch.randn(E, H, generator=g).to(dev, dt)
+    value = torch.randn(E, H, D, generator=g).to(dev, dt)
+    drop = None if case == "qm9-nodrop" else (
+        (torch.rand(E, H, generator=g) < 0.8).to(dt) / 0.8).to(dev)
+    dst = (dst.int() if case == "int32-dst" else dst).to(dev)
+    mask = None if case == "no-mask" else mask.to(dev)
+    masked = scores if mask is None else torch.where(mask[:, None], scores,
+                                                     torch.full_like(scores, -1e30))
+    reset_launch_counts()
+    out, den = attn_combine_fwd(masked, value, dst, N, mask, drop)
+    out2, den2 = attn_combine_fwd(masked, value, dst, N, mask, drop)
+    torch.cuda.synchronize()
+    assert attn_combine.launches == 2
+    assert torch.equal(out, out2) and torch.equal(den, den2)
+    assert _rel(den, attn_den_plain(masked, dst.long(), N)) < TOL[dtype]
+    if E == 0:
+        assert float(out.abs().max()) == 0.0
+        return
+    assert _rel(out, attn_combine_plain(scores, value, dst.long(), N, mask, drop)) < TOL[dtype]
+    if mask is not None:
+        assert float(out[N - 1].abs().max()) == 0.0  # the padding node: all masked

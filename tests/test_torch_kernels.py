@@ -29,6 +29,8 @@ from equiformer_tpu_torch.kernels import (  # noqa: E402
     DTPLinPlan,
     attn_combine,
     attn_combine_fwd,
+    attn_combine_plain,
+    attn_den_plain,
     csr_segment_sum,
     dtp_lin,
     dtp_lin_bwd_plain,
@@ -37,10 +39,16 @@ from equiformer_tpu_torch.kernels import (  # noqa: E402
     reset_launch_counts,
     segment_sum_plain,
 )
+from equiformer_tpu_torch.kernels.attn_csr import NEG, _shift  # noqa: E402
 from equiformer_tpu_torch.kernels.dtp_lin import (  # noqa: E402
+    K1_MIN_WAVES,
+    K1_TILES,
+    K1_TWO_BLOCKS_SMEM,
     K2_COL_TILE,
     K2_EDGES,
     K2_FAN_TILE,
+    k1_smem_bytes,
+    k1_tile,
     k2_ranges,
     plan_terms,
 )
@@ -49,6 +57,8 @@ IRR = "8x0e+4x1e+2x2e"
 SH = "1x0e+1x1e+1x2e"
 LIN_OUT = "14x0e+4x1e+2x2e"
 ALPHA_OUT = "6x0e"
+L2_EMB = "128x0e+64x1e+32x2e"  # the QM9 flagship's node irreps
+L3_EMB, L3_SH = "128x0e+64x1e+64x2e+32x3e", "1x0e+1x1e+1x2e+1x3e"  # MD17 L3's
 E, N_REAL = 256, 200
 CASES = {
     "per-edge": ([LIN_OUT], False),
@@ -219,18 +229,20 @@ def test_csr_segment_sum_plain_matches_pallas_interpret_at_md17_shapes(case):
         assert not t[N - 1].any()
 
 
-def _emulate_k3(val, dst, mask, N, warps=16):
-    """csrc/segment_csr.cu's walk in torch (fp64, all columns at once): per
-    block of ``nodes_per_block`` nodes, the edge range by search, cut into
-    ``warps`` equal slices; per slice its node runs, whole nodes written,
-    the pieces of nodes cut by slice boundaries kept and added, in slice
-    order, by the slice where the node starts; the zero rows of nodes
-    without edges.  Returns (out, how often each row was written)."""
+def _emulate_csr_walk(dst, mask, N, run_sum, width, warps=16):
+    """csrc/csr_walk.cuh's block walk in torch (fp64, all columns at once):
+    per block of ``nodes_per_block`` nodes, the edge range by search, cut
+    into ``warps`` equal slices; per slice its node runs, whole nodes
+    written, the pieces of nodes cut by slice boundaries kept and added, in
+    slice order, by the slice where the node starts; the zero rows of nodes
+    without edges.  ``run_sum(edges)`` gives the [width] sums of one run's
+    live edges.  Returns (each node's sums, how often each row was
+    written)."""
     from equiformer_tpu_torch.kernels.segment_csr import nodes_per_block
 
     E, dl = dst.shape[0], dst.tolist()
     live = torch.ones(E, dtype=torch.bool) if mask is None else mask
-    out = torch.full((N, val.shape[1]), float("nan"), dtype=val.dtype)
+    out = torch.full((N, width), float("nan"), dtype=torch.float64)
     writes = [0] * N
 
     def put(m, row):
@@ -267,7 +279,7 @@ def _emulate_k3(val, dst, mask, N, warps=16):
                 while re < se and dl[re] == node:
                     re += 1
                 rows = torch.arange(e, re)
-                ssum = val[rows][live[rows]].sum(0)
+                ssum = run_sum(rows[live[rows]])
                 if node == first and cb:
                     slots[0] = ssum
                 elif re == se and ca:
@@ -294,6 +306,11 @@ def _emulate_k3(val, dst, mask, N, warps=16):
     return out, writes
 
 
+def _emulate_k3(val, dst, mask, N, warps=16):
+    """csrc/segment_csr.cu: the shared walk summing val's live rows."""
+    return _emulate_csr_walk(dst, mask, N, lambda e: val[e].sum(0), val.shape[1], warps)
+
+
 @pytest.mark.parametrize("case", ["qm9-padded", "md17-gather", "few-edges", "one-long", "E=0"])
 def test_csr_block_walk_sums_each_node_once(case):
     """K3's block and slice walk, emulated: every output row is written
@@ -313,6 +330,61 @@ def test_csr_block_walk_sums_each_node_once(case):
     assert writes == [1] * N
     want = segment_sum_plain(val, dst, N, mask)
     assert torch.allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+def _emulate_k4(scores, value, dropmul, dst, mask, N):
+    """csrc/attn_csr.cu in torch (fp64): the shared walk over the live
+    edges (masked ones skipped by the mask), each run's numerators ex * drop
+    * v and denominator ex per head, ex = exp(s - m) with the wrapper's
+    global shift; then out = num / max(den, 1e-16).  Returns (out, den, how
+    often each row was written)."""
+    E, H, D = value.shape
+    ex = torch.exp(scores - _shift(scores))
+    p = ex if dropmul is None else ex * dropmul
+
+    def run_sum(e):
+        return torch.cat([(p[e][:, :, None] * value[e]).sum(0).reshape(-1), ex[e].sum(0)])
+
+    sums, writes = _emulate_csr_walk(dst, mask, N, run_sum, H * D + H)
+    den = torch.clamp(sums[:, H * D:], min=1e-16)
+    return sums[:, : H * D].reshape(N, H, D) / den[:, :, None], den, writes
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("case", ["qm9-padded", "all-masked-node", "no-mask", "few-edges", "E=0"])
+def test_attn_block_walk_combines_each_node_once(case, dropout):
+    """K4's walk, emulated: masked edges skipped by the mask, long segments
+    (the 3464-edge masked padding node) split over warp slices, every row of
+    out and den written once, equal to ``attn_combine_plain`` and
+    ``attn_den_plain`` in fp64; an all-masked node and nodes without edges
+    get out = 0 and den = 1e-16."""
+    rng = np.random.default_rng(9)
+    E, N, n_real = {"qm9-padded": (4000, 420, 536), "all-masked-node": (600, 40, 600),
+                    "no-mask": (4000, 420, 536), "few-edges": (30, 200, 30),
+                    "E=0": (0, 7, 0)}[case]
+    dst = np.sort(rng.integers(0, max(N - 1, 1), size=n_real))
+    dst = np.concatenate([dst[dst % 9 != 4], np.full(E, N - 1)])[:E]  # nodes without edges
+    dst = torch.from_numpy(np.sort(dst)).long()
+    mask = torch.from_numpy(rng.random(E) > 0.1) & (dst < N - 1)  # the padding node: masked
+    if case == "all-masked-node":
+        mask &= dst != 20
+    H, D = 4, 6
+    scores = torch.from_numpy(2.0 * rng.normal(size=(E, H)))
+    value = torch.from_numpy(rng.normal(size=(E, H, D)))
+    drop = torch.from_numpy((rng.random((E, H)) < 0.8) / 0.8) if dropout else None
+    if case == "no-mask":
+        mask = None
+    masked = scores if mask is None else torch.where(mask[:, None], scores,
+                                                     torch.full_like(scores, NEG))
+    out, den, writes = _emulate_k4(masked, value, drop, dst, mask, N)
+    assert writes == [1] * N
+    # without edges the plain softmax has no max to take: every node is empty
+    want = (torch.zeros_like(out) if E == 0
+            else attn_combine_plain(scores, value, dst, N, mask, drop))
+    assert torch.allclose(out, want, rtol=1e-12, atol=1e-12)
+    assert torch.allclose(den, attn_den_plain(masked, dst, N), rtol=1e-12, atol=1e-30)
+    if case == "all-masked-node":
+        assert float(out[20].abs().max()) == 0.0 and bool((den[20] == 1e-16).all())
 
 
 @pytest.mark.parametrize("N, E, npb", [
@@ -643,6 +715,206 @@ def test_k2_packed_W_unpacks_to_each_group(site):
         row += grp.ir.dim
     assert kt.wp_index.numel() == sum(-(-g.fan_stride // 8) * 8 * -(-g.cols // 16) * 16
                                       for g in plan.groups)
+
+
+# the fused DTP's sites at full width, and a small one: (node irreps, SH,
+# heads, shared weights)
+K1_SITES = {
+    "qm9-sep_act": (L2_EMB, SH, ["224x0e+64x1e+32x2e", "128x0e"], False),
+    "qm9-sep_value": (L2_EMB, SH, [L2_EMB], True),
+    "qm9-edge_deg": (L2_EMB, SH, [L2_EMB], False),
+    "md17-sep_act": (L3_EMB, L3_SH, ["288x0e+64x1e+64x2e+32x3e", "128x0e"], False),
+    "small": (IRR, SH, [LIN_OUT, ALPHA_OUT], False),
+}
+
+
+def _k1_plan(site):
+    irr, sh, heads, shared = K1_SITES[site]
+    return DTPLinPlan(depthwise_tp(Irreps(irr), Irreps(sh), Irreps(irr)), heads,
+                      shared_weights=shared)
+
+
+def _unpack_k1(packed, fan, cols):
+    """W_g [fan16, cols8] from one group's values in B-fragment order, by
+    the fragment layout itself (lane (g, q) holds W_g[16 ks + 2q + (0, 1, 8,
+    9), 8 nt + g]), not by ``k1_pack_index``."""
+    n_nt, n_ks = -(-cols // 8), -(-fan // 16)
+    packed = packed.reshape(n_nt, n_ks, 32, 4)
+    out = packed.new_zeros(16 * n_ks, 8 * n_nt)
+    for lane in range(32):
+        gq, q = divmod(lane, 4)
+        for v, df in enumerate((0, 1, 8, 9)):
+            for nt in range(n_nt):
+                out[16 * np.arange(n_ks) + 2 * q + df, 8 * nt + gq] = packed[nt, :, lane, v]
+    return out
+
+
+@pytest.mark.parametrize("site", list(K1_SITES))
+def test_k1_packed_W_unpacks_to_each_group(site):
+    """K1's packing of W for the head product (``k1_pack_index``, B-fragment
+    order) unpacks, by the fragment layout, to each group's W_g with zero
+    pad rows and columns; every element of W_flat is used once."""
+    plan = _k1_plan(site)
+    W = torch.arange(1, plan.w_numel + 1, dtype=torch.float64)
+    kt = plan.k1_tables(torch.device("cpu"))
+    Wp = torch.cat([W, W.new_zeros(1)])[kt.wp_index]
+    gk = kt.gk.tolist()
+    used = torch.zeros(plan.w_numel + 1, dtype=torch.int64)
+    used.index_add_(0, kt.wp_index, torch.ones_like(kt.wp_index))
+    assert bool((used[:-1] <= 1).all())
+    for gi, (grp, (row, n_comp)) in enumerate(zip(plan.groups, kt.groups.tolist())):
+        assert n_comp == grp.ir.dim
+        f16, cols, _, wp_off, _, _, n_nt, fan = gk[row]
+        assert (fan, cols, n_nt) == (grp.fan, grp.cols, -(-grp.cols // 8))
+        assert f16 % 16 == 0 and f16 - 16 < fan <= f16 <= kt.fz_max
+        got = _unpack_k1(Wp[wp_off : wp_off + f16 * 8 * n_nt], fan, cols)
+        want = torch.zeros_like(got)
+        want[:fan, :cols] = plan.group_weight(W, gi)[:fan]
+        assert torch.equal(got, want)
+        assert bool((used[grp.w_off : grp.w_off + grp.fan * grp.cols] == 1).all())
+    assert kt.wp_index.numel() == sum(-(-g.fan // 16) * 16 * -(-g.cols // 8) * 8
+                                      for g in plan.groups)
+
+
+def _k1_fragment_product(Wp, z, cols, kind):
+    """out = z W_g as K1's warps compute it, in fp64: per m-tile of 16 rows,
+    K step of 16 fan columns and column n-tile, each lane's A registers
+    loaded from z and its B registers from the packed W as the kernel loads
+    them, placed into the tiles by the PTX fragment layouts (``bf16``:
+    m16n8k16; ``tf32``: two m16n8k8 halves), multiplied, and each lane's C
+    registers stored where the kernel stores them."""
+    T, f16 = z.shape
+    n_ks, n_nt = f16 // 16, -(-cols // 8)
+    P = Wp.reshape(n_nt, n_ks, 32, 4)
+    lane = np.arange(32)
+    g, q = lane // 4, lane % 4
+    out = np.zeros((T, 8 * n_nt))
+    for m in range(T // 16):
+        zr = z[16 * m : 16 * m + 16]
+        c = np.zeros((n_nt, 32, 4))
+        for ks in range(n_ks):
+            c0 = 16 * ks + 2 * q
+            if kind == "bf16":  # a[0..3]: pairs at (g, c0), (g + 8, c0), (g, c0 + 8), (g + 8, c0 + 8)
+                A = np.zeros((16, 16))
+                B = np.zeros((n_nt, 16, 8))
+                for dr, dc, reg in ((0, 0, 0), (8, 0, 1), (0, 8, 2), (8, 8, 3)):
+                    # PTX: a0 = A[g][2q, 2q+1], a1 = A[g+8][..], a2 = A[g][2q+8, 2q+9], a3 = A[g+8][..]
+                    A[g + dr, 2 * q + dc] = zr[g + dr, c0 + dc]
+                    A[g + dr, 2 * q + dc + 1] = zr[g + dr, c0 + dc + 1]
+                for v, dk in enumerate((0, 1, 8, 9)):  # b0 = B[2q, 2q+1][g], b1 = B[2q+8, 2q+9][g]
+                    B[:, 2 * q + dk, g] = P[:, ks, lane, v]
+                C = A @ B
+            else:  # half s: a = (g, c0 + 8s), (g + 8, c0 + 8s), (g, c0 + 8s + 1), (g + 8, ..)
+                C = 0.0
+                for s in (0, 1):
+                    A = np.zeros((16, 8))
+                    B = np.zeros((n_nt, 8, 8))
+                    # PTX m16n8k8 tf32: a0 = A[g][q], a1 = A[g+8][q], a2 = A[g][q+4],
+                    # a3 = A[g+8][q+4]; b0 = B[q][g], b1 = B[q+4][g]
+                    A[g, q], A[g + 8, q] = zr[g, c0 + 8 * s], zr[g + 8, c0 + 8 * s]
+                    A[g, q + 4], A[g + 8, q + 4] = zr[g, c0 + 8 * s + 1], zr[g + 8, c0 + 8 * s + 1]
+                    B[:, q, g], B[:, q + 4, g] = P[:, ks, lane, 2 * s], P[:, ks, lane, 2 * s + 1]
+                    C = C + A @ B
+            # c0 = C[g][2q], c1 = C[g][2q+1], c2 = C[g+8][2q], c3 = C[g+8][2q+1]
+            for reg, (dr, dc) in enumerate(((0, 0), (0, 1), (8, 0), (8, 1))):
+                c[:, lane, reg] += C[:, g + dr, 2 * q + dc]
+        for nt in range(n_nt):
+            for reg, (dr, dc) in enumerate(((0, 0), (0, 1), (8, 0), (8, 1))):
+                out[16 * m + g + dr, 8 * nt + 2 * q + dc] = c[nt, lane, reg]
+    return out[:, :cols]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "tf32"])
+@pytest.mark.parametrize("site", list(K1_SITES))
+def test_k1_fragment_product_equals_z_W(site, kind):
+    """A numpy emulation of K1's product in fragment order (K steps over the
+    fan, n-tiles over the columns, both m-tiles of a 32-edge tile) equals z
+    W_g in fp64 for every group."""
+    plan = _k1_plan(site)
+    rng = np.random.default_rng(10)
+    W = torch.from_numpy(rng.normal(size=plan.w_numel))
+    kt = plan.k1_tables(torch.device("cpu"))
+    Wp = torch.cat([W, W.new_zeros(1)])[kt.wp_index].numpy()
+    gk = kt.gk.tolist()
+    for gi, (grp, (row, _)) in enumerate(zip(plan.groups, kt.groups.tolist())):
+        f16, cols, _, wp_off, _, _, n_nt, fan = gk[row]
+        z = np.zeros((32, f16))
+        z[:, :fan] = rng.normal(size=(32, fan))  # the pad columns are zero, as in the kernel
+        got = _k1_fragment_product(Wp[wp_off : wp_off + f16 * 8 * n_nt], z, cols, kind)
+        want = z[:, :fan] @ plan.group_weight(W, gi)[:fan].numpy()
+        assert np.allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+def _emulate_k1(plan, x, sh, w, W_flat, n_edges, tile=32):
+    """csrc/dtp_lin.cu's K1 in torch (fp64) from ``k1_tables``: per (edge
+    tile, group) and component, z written run by run (each fan column once,
+    rows past n_edges zero, the pad columns zero), then z times W_g unpacked
+    from the packed W.  Returns (out, how often each element was written)."""
+    cpu = torch.device("cpu")
+    kt = plan.k1_tables(cpu)
+    terms, coeffs = plan.device_tables(cpu)
+    gk, runs, tt, cc = kt.gk.tolist(), kt.runs.tolist(), terms.tolist(), coeffs.tolist()
+    Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[kt.wp_index]
+    E = sh.shape[0]
+    out = torch.full((E, plan.d_out), float("nan"), dtype=torch.float64)
+    writes = torch.zeros((E, plan.d_out), dtype=torch.int64)
+    for q0, n_comp in kt.groups.tolist():
+        for e0 in range(0, E, tile):
+            n_rows = min(tile, E - e0)
+            n_live = max(0, min(n_rows, n_edges - e0))
+            live = slice(e0, e0 + n_live)
+            for k in range(n_comp):
+                f16, cols, out_col, wp_off, rb, re, n_nt, fan = gk[q0 + k]
+                z = torch.zeros((n_rows, f16), dtype=torch.float64)
+                seen = torch.zeros(f16, dtype=torch.int64)
+                for fc, mul, b, t0, t1 in runs[rb:re]:
+                    acc = torch.zeros((n_live, mul), dtype=torch.float64)
+                    for t in range(t0, t1):
+                        a, col = tt[t][:2]
+                        acc += cc[t] * sh[live, col : col + 1] * x[live, a : a + mul]
+                    if w is not None:
+                        acc *= w[live, b : b + mul]
+                    z[:n_live, fc : fc + mul] = acc
+                    seen[fc : fc + mul] += 1
+                assert bool((seen[:fan] == 1).all()) and bool((seen[fan:] == 0).all())
+                Wg = _unpack_k1(Wp[wp_off : wp_off + f16 * 8 * n_nt], fan, cols)
+                out[e0 : e0 + n_rows, out_col : out_col + cols] = (z @ Wg)[:, :cols]
+                writes[e0 : e0 + n_rows, out_col : out_col + cols] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("tile", [32, 16])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_k1_tables_drive_the_plain_math(case, tile):
+    """K1 walked from its tables (``k1_tables``: runs of terms per fan
+    block, the packed W) as the kernel walks them gives ``dtp_lin_plain``
+    (fp64 inputs, the tables' fp32 CG coefficients: 1e-6 relative), every
+    output element written once, rows past n_edges zero, with a partial last
+    tile."""
+    plan, x, sh, w, W, _ = _bwd_inputs(case, torch.float64, E=75, seed=7)
+    got, writes = _emulate_k1(plan, x, sh, w, W, 61, tile)
+    assert bool((writes == 1).all())
+    want = dtp_lin_plain(plan, x, sh, w, W, torch.tensor(61, dtype=torch.int32))
+    assert _rel(got.numpy(), want.numpy()) < 1e-6
+    assert float(got[61:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("site, itemsize, E, tile", [
+    ("qm9-sep_act", 4, 36352, 32), ("qm9-sep_act", 2, 36352, 16), ("md17-sep_act", 4, 2944, 16),
+    ("md17-sep_act", 4, 36352, 16), ("md17-sep_act", 2, 2944, 16), ("qm9-sep_act", 4, 1013, 16),
+])
+def test_k1_tile_fits_two_blocks_and_fills_the_card(site, itemsize, E, tile):
+    """K1's edge tile: 32 in fp32 where two blocks share an SM's shared
+    memory and the grid fills the card's two blocks an SM ``K1_MIN_WAVES``
+    times (132 SMs), else 16 (MD17 L3's 864-wide x tile in fp32, its 2944
+    edges, bf16)."""
+    plan = _k1_plan(site)
+    assert k1_tile(plan, itemsize, True, E, 132) == tile
+    assert k1_smem_bytes(plan, tile, itemsize, True) <= K1_TWO_BLOCKS_SMEM
+    big = K1_TILES[0]
+    assert (tile == big) == (itemsize == 4
+                             and k1_smem_bytes(plan, big, itemsize, True) <= K1_TWO_BLOCKS_SMEM
+                             and -(-E // big) * len(plan.groups) >= K1_MIN_WAVES * 2 * 132)
 
 
 def test_dtp_lin_refuses_a_gradient_for_sh():

@@ -64,3 +64,23 @@ def test_trace_summary_sums_kernel_groups(tmp_path):
     assert groups["k2::dW_kernel"] == pytest.approx([10e-3, 0.5])
     assert groups["csr_segment_sum_kernel"] == pytest.approx([2e-3, 0.5])
     assert groups["sum_partial_rows_kernel"] == [0.0, 0.0]
+    assert groups["attn_combine_kernel"] == pytest.approx([4e-3, 0.5])
+
+
+def test_trace_summary_sums_the_kernels_inside_a_range(tmp_path):
+    """``annotated`` sums the kernels that ran on the card inside the spans
+    of a ``record_function`` range (K4's backward), per unit."""
+    from equiformer_tpu_torch.kernels.attn_csr import ATTN_BWD_RANGE
+
+    events = [
+        {"cat": "gpu_user_annotation", "name": ATTN_BWD_RANGE, "ts": 10, "dur": 20},
+        {"cat": "gpu_user_annotation", "name": ATTN_BWD_RANGE, "ts": 100, "dur": 10},
+        {"cat": "kernel", "name": "elementwise_kernel", "ts": 12, "dur": 5},
+        {"cat": "kernel", "name": "index_kernel", "ts": 20, "dur": 8},
+        {"cat": "kernel", "name": "reduce_kernel", "ts": 101, "dur": 3},
+        {"cat": "kernel", "name": "attn_combine_kernel", "ts": 40, "dur": 8},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert trace_summary(path, n_forwards=2)["annotated"][ATTN_BWD_RANGE] == pytest.approx(
+        [8e-3, 1.5])
