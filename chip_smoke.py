@@ -77,10 +77,13 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    against their plain versions with the tolerances of phase 3, timed the
    same way, with their bounds and, for K3, ``index_add_``.
 
-8. md17 train kernels — K5b (``dtp_lin_leg``: the x, sh and w legs) and K5c
-   (``dtp_lin_legW``) at the three call sites at batch 0's shapes, float32
-   and bfloat16, against their plain versions with the tolerances of phase
-   3, timed the same way, with their bounds and resident blocks per SM.
+8. md17 train kernels — K5b (``dtp_lin_leg``: the x and w legs on K2's
+   launch 1, the sh leg) and K5c (``dtp_lin_legW``, K2's launch 2) at the
+   three call sites at batch 0's shapes, float32 and bfloat16, against their
+   plain versions with the tolerances of phase 3, timed the same way, with
+   their bounds, each call's device time (a profiler trace of 20 calls)
+   beside its wrapper time, two calls giving equal bits, and the x / w legs'
+   grid of (tile, irrep group) blocks (the sh leg's resident blocks per SM).
 9. md17 train — the same force model in training mode through
    ``make_md17_steps`` (``energy_weight=1``, ``force_weight=80``, AdamW with
    the no-decay mask, ``cosine_warmup_schedule(5e-4, 100, 100000)``, weight
@@ -244,8 +247,8 @@ SOURCES = {
     "dtp_lin_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
     "dtp_lin_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
-    "dtp_lin_leg": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
-    "dtp_lin_legW": "equiformer_tpu_torch/csrc/dtp_lin_legW.cu",
+    "dtp_lin_leg": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",  # the x and w legs (sh: dtp_lin_leg.cu)
+    "dtp_lin_legW": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
     "dtp_lin_rad_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
@@ -1150,7 +1153,10 @@ def md17_train_vs_cpu(pt, torch, dev, tag="md17_train", route=None, ref64=None):
 
 def md17_train_kernel_phase(torch, model, batch, dev, records):
     """K5b's three legs and K5c against their plain versions at the exp_l3
-    shapes of one batch of 8 md17-like molecules, at the three call sites."""
+    shapes of one batch of 8 md17-like molecules, at the three call sites;
+    each call's device time beside its wrapper time, and two calls for
+    equal bits (no float atomics: the dW partials and the x leg's split
+    partials are summed in a fixed order)."""
     from equiformer_tpu_torch.kernels import (
         KERNEL_WRAPPERS, dtp_lin_leg, dtp_lin_leg_plain, dtp_lin_legW, dtp_lin_legW_plain,
     )
@@ -1179,8 +1185,10 @@ def md17_train_kernel_phase(torch, model, batch, dev, records):
                                            n_edges)
                 plain = lambda: dtp_lin_leg_plain(plan, leg, cot, ops["x"], ops["sh"],  # noqa: E731
                                                   ops["w"], W, n_edges)
-                k, p = call(), plain()
+                k, p, again = call(), plain(), call()
                 torch.cuda.synchronize()
+                if not torch.equal(k, again):
+                    raise RuntimeError(f"K5b's {leg} leg at {site} {dt_name} repeats no bits")
                 ms = cuda_time_ms(call, torch)
                 plain_ms = cuda_time_ms(plain, torch, reps=3, inner=3)
                 # every operand but the leg's own read once, the leg written once;
@@ -1189,20 +1197,23 @@ def md17_train_kernel_phase(torch, model, batch, dev, records):
                     + size * E * widths[leg]
                 record(records, "dtp_lin_leg", f"md17-{site}-{leg}", dt_name, shape,
                        [rel_err(k, p)], ms, plain_ms, nbytes, n * (2 * macs + 3 * tp_elems))
-                print(f"dtp_lin_leg {leg} {site} {dt_name}: {leg_occupancy(plan, dt, leg)} "
-                      f"resident blocks per SM")
-            k = dtp_lin_legW(plan, cot, x, sh, w, n_edges)
-            p = dtp_lin_legW_plain(plan, cot, x, sh, w, n_edges)
+                device_line(torch, "K5b", f"{site}-{leg}", dt_name, ms, call)
+                print(f"dtp_lin_leg {leg} {site} {dt_name}: " + (
+                    f"{leg_occupancy(plan, dt, leg)} resident blocks per SM" if leg == "sh" else
+                    f"{-(-E // 16)} tiles x {len(plan.groups)} irrep groups"))
+            call = lambda: dtp_lin_legW(plan, cot, x, sh, w, n_edges)  # noqa: E731
+            k, p, again = call(), dtp_lin_legW_plain(plan, cot, x, sh, w, n_edges), call()
             torch.cuda.synchronize()
-            ms = cuda_time_ms(lambda: dtp_lin_legW(plan, cot, x, sh, w, n_edges), torch)
+            if not torch.equal(k, again):
+                raise RuntimeError(f"K5c at {site} {dt_name} repeats no bits")
+            ms = cuda_time_ms(call, torch)
             plain_ms = cuda_time_ms(lambda: dtp_lin_legW_plain(plan, cot, x, sh, w, n_edges),
                                     torch, reps=3, inner=3)
             # the z recompute (3 operations per term element), then z^T g; dW in fp32
             nbytes = sum(v for key, v in op_bytes.items() if key != "W") + 4 * plan.w_numel
             record(records, "dtp_lin_legW", f"md17-{site}", dt_name, shape, [rel_err(k, p)], ms,
                    plain_ms, nbytes, n * (2 * macs + 3 * tp_elems))
-            print(f"dtp_lin_legW {site} {dt_name}: {leg_occupancy(plan, dt, 'W')} resident "
-                  f"blocks per SM")
+            device_line(torch, "K5c", site, dt_name, ms, call)
     for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
         fn.launches = saved[name]
 
@@ -1506,9 +1517,10 @@ def k7_leg_kernel_phase(torch, sites, dev, records):
                 nbytes = sum(v for key, v in op_bytes.items() if key != leg) + written[leg]
                 record(records, kernel, f"md17-{site}-{leg}", dt_name, shape, [rel_err(k, p)], ms,
                        plain_ms, nbytes, ops, pair_ms=pair_ms)
+                unf_occ = (f"K5b's sh leg: {leg_occupancy(unf, dt, 'sh')}" if leg == "sh" else
+                           "the unfolded leg runs on K2's launches")
                 print(f"{kernel} {leg} {site} {dt_name}: {leg_occupancy(plan, dt, leg)} resident "
-                      f"blocks per SM (unfolded {'K5c' if leg == 'W' else 'K5b'}: "
-                      f"{leg_occupancy(unf, dt, 'w' if leg in ('h', 'Wr') else leg)})")
+                      f"blocks per SM ({unf_occ})")
     for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
         fn.launches = saved[name]
 

@@ -69,6 +69,29 @@
 // Rows e >= *n_edges: launch 1 writes zero dx / dw; launch 2 stops its
 // ranges at *n_edges.
 //
+// The single legs of the force models' fused op (k2::edge_leg_kernel and
+// k2::W_leg_kernel below; replace equiformer_tpu/kernels/dtp_lin_ho.py,
+// _edge_leg_kernel :163 for the x and w legs and _W_leg_kernel :402, built
+// by _leg_call :562-633) compute the same functions on the operands of the
+// grad-of-grad, where the operand of the output leg does not exist:
+// - K5b's x leg, F_x(g, sh, w, W) = launch 1 with dx alone (x never staged
+//   or read, no dw); its w leg, F_w(g, x, sh, W) = launch 1 with dw alone
+//   (w never staged or read, no dx).  The leg is a compile-time argument of
+//   launch 1's body, so K2's own instantiation is the code it was.  At
+//   MD17's 2944 edges one 16-edge tile a block gives 184 blocks of one per
+//   SM (132 SMs: 1.4 waves), so a leg launch cuts its tiles by irrep group
+//   (grid.y; the wrapper takes one split a group, 15-25% faster than whole
+//   tiles at MD17's sites): a w column feeds one group, so the w leg's
+//   blocks write disjoint dw columns; the x leg's dx sums over groups, so
+//   each (tile, group) block writes an fp32 partial [n_split, E, d_x] and a
+//   second kernel sums the partials in split order (rows past *n_edges:
+//   zeros).
+// - K5c's F_W(g, x, sh, w) = launch 2 and the row sum (dW in the packed
+//   [fan_stride, cols] layout at each group's w_off, pad rows zero), under
+//   a kernel name of its own so that a profile tells it from K2's.
+// They share K2's tables (DTPLinPlan.k2_tables), its fragment-packed W and
+// its edge ranges, and keep its numerics: no float atomics anywhere.
+//
 // The radial-folded variant (K7-B, dtp_lin_bwd_kernel<T, kRad = true>
 // below; replaces the radial branch of _bwd_kernel / _bwd_body,
 // dtp_lin_pallas.py:675-745, :754-756, :865-887, with _radial_write_dw :497
@@ -449,6 +472,11 @@ constexpr int kRowPad = 8;               // staged x / w / dw rows: multiples of
 // recomputed; 6 + the dW product (K2 whole)
 constexpr int kFullStage = 6;
 
+// what launch 1's code computes: an edge leg of the fused op (K5b, in
+// EDGE_LEGS' order of kernels/dtp_lin_ho.py: the x leg 0, the w leg 2), or
+// K2's dx and dw together
+enum Leg1 : int { kLegX = 0, kLegW = 2, kDxDw = 3 };
+
 // launch 1's row strides, so that a warp's fragment loads and stores hit 32
 // distinct banks: G 8 words mod 32 in fp32 (float2 per lane), 4 in bf16 (one
 // word per lane); dz (fp32, float2 stores) 8 words mod 32
@@ -459,23 +487,24 @@ __host__ __device__ inline int ld_g1(int cp_max) {
 __host__ __device__ inline int ld_dz1(int fd_max) { return stride_mod(fd_max, 32, 8); }
 
 // byte offsets of launch 1's shared memory: dx, dw (fp32), dz (fp32), G, x, w
-// (dtype), sh (fp32)
+// (dtype), sh (fp32); the x leg keeps no dw and stages no x, the w leg keeps
+// no dx and stages no w.  has_w: the plan has per-edge w.
 struct Layout1 {
   int dx, dw, dz, g, x, w, sh, total;
 };
 
-template <typename T>
+template <typename T, int kLeg = kDxDw>
 __host__ __device__ inline Layout1 layout1(int d_x, int d_sh, int span_max, int cp_max,
                                            int fd_max, bool has_w, bool x_rows) {
   const int dxs = round_up(d_x, kRowPad), sps = round_up(span_max, kRowPad);
   Layout1 l;
   l.dx = 0;
-  l.dw = l.dx + align16(kTile * dxs * 4);
-  l.dz = l.dw + (has_w ? align16(kTile * sps * 4) : 0);
+  l.dw = l.dx + (kLeg != kLegW ? align16(kTile * dxs * 4) : 0);
+  l.dz = l.dw + (kLeg != kLegX && has_w ? align16(kTile * sps * 4) : 0);
   l.g = l.dz + align16(kTile * ld_dz1(fd_max) * 4);
   l.x = l.g + align16(kTile * ld_g1<T>(cp_max) * (int)sizeof(T));
-  l.w = l.x + align16((x_rows ? kTile : 1) * dxs * (int)sizeof(T));
-  l.sh = l.w + (has_w ? align16(kTile * sps * (int)sizeof(T)) : 0);
+  l.w = l.x + (kLeg != kLegX ? align16((x_rows ? kTile : 1) * dxs * (int)sizeof(T)) : 0);
+  l.sh = l.w + (kLeg != kLegW && has_w ? align16(kTile * sps * (int)sizeof(T)) : 0);
   l.total = l.sh + align16(kTile * d_sh * 4);
   return l;
 }
@@ -493,23 +522,45 @@ __device__ __forceinline__ bool span_chunk_vec(const int* __restrict__ dwmap, in
 }
 
 // ----------------------------------------------------------- launch 1
+// the gk rows of the irrep groups that split s of n_split takes: groups
+// [s * n / n_split, (s + 1) * n / n_split) of the plan's n (a group's rows
+// are consecutive, its first flagged)
+__device__ __forceinline__ void group_rows(const int* __restrict__ gk, int n_gk, int s,
+                                           int n_split, int& begin, int& end) {
+  int n_groups = 0;
+  for (int qi = 0; qi < n_gk; ++qi) n_groups += __ldg(gk + qi * kGkFields + 10);
+  const int g0 = s * n_groups / n_split, g1 = (s + 1) * n_groups / n_split;
+  begin = end = n_gk;
+  for (int qi = 0, gi = -1; qi < n_gk; ++qi) {
+    gi += __ldg(gk + qi * kGkFields + 10);
+    if (gi >= g0 && begin == n_gk) begin = qi;
+    if (gi >= g1) {
+      end = qi;
+      break;
+    }
+  }
+}
+
 // dx and dw of one 16-edge tile a block: G[g,k] staged, dz = G W_g^T on the
 // tensor cores (W_g packed in fragment order by the wrapper, read from L2
 // with one 16-byte (fp32) or 8-byte (bf16) load per lane and step), then
-// the term transposes off dz in shared memory.
-template <typename T, int kStage>
-__global__ void __launch_bounds__(kThreads1, 1)
-dxdw_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh, int d_sh,
-            const T* __restrict__ w, int d_w, const T* __restrict__ Wp, const T* __restrict__ G,
-            int d_out, const int* __restrict__ n_edges_ptr, int E, const int* __restrict__ gk,
-            int n_gk, const int* __restrict__ terms, const float* __restrict__ coeffs,
-            const int* __restrict__ dwmap, T* __restrict__ dx, T* __restrict__ dw, int span_max,
-            int cp_max, int fd_max) {
+// the term transposes off dz in shared memory.  kLeg: K2's dx and dw
+// (kDxDw), or one edge leg (K5b) that never reads its own operand; a leg
+// block takes the groups of its split blockIdx.y, and the x leg cut in
+// more than one split writes its fp32 dx partial to part [n_split, E, d_x].
+template <typename T, int kStage, int kLeg>
+__device__ __forceinline__ void dxdw_body(
+    const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh, int d_sh,
+    const T* __restrict__ w, int d_w, const T* __restrict__ Wp, const T* __restrict__ G,
+    int d_out, const int* __restrict__ n_edges_ptr, int E, const int* __restrict__ gk, int n_gk,
+    const int* __restrict__ terms, const float* __restrict__ coeffs,
+    const int* __restrict__ dwmap, T* __restrict__ dx, T* __restrict__ dw, int span_max,
+    int cp_max, int fd_max, float* __restrict__ part) {
   constexpr int V = kVec<T>;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const bool has_w = w != nullptr;
-  const Layout1 L = layout1<T>(d_x, d_sh, span_max, cp_max, fd_max, has_w, sx != 0);
+  const bool has_w = kLeg == kLegW || w != nullptr;  // the plan has per-edge w
+  const Layout1 L = layout1<T, kLeg>(d_x, d_sh, span_max, cp_max, fd_max, has_w, sx != 0);
   float* s_dx = reinterpret_cast<float*>(smem + L.dx);
   float* s_dw = reinterpret_cast<float*>(smem + L.dw);
   float* s_dz = reinterpret_cast<float*>(smem + L.dz);
@@ -528,34 +579,50 @@ dxdw_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict_
   const int n_live = max(0, min(n_rows, __ldg(n_edges_ptr) - e0));
   const bool dx_vec = d_x % V == 0 && aligned16(dx);
   const bool dw_vec = d_w % V == 0 && aligned16(dw) && aligned16(w);
+  const bool split = kLeg == kLegX && gridDim.y > 1;  // dx as fp32 partials
 
   if (n_live == 0) {  // past the real edges: zero gradients
-    for (int i = tid; i < n_rows * d_x; i += kThreads1)
-      dx[(long long)e0 * d_x + i] = from_f<T>(0.f);
-    if (has_w)
-      for (int i = tid; i < n_rows * d_w; i += kThreads1)
-        dw[(long long)e0 * d_w + i] = from_f<T>(0.f);
+    if constexpr (kLeg == kDxDw) {
+      for (int i = tid; i < n_rows * d_x; i += kThreads1)
+        dx[(long long)e0 * d_x + i] = from_f<T>(0.f);
+      if (has_w)
+        for (int i = tid; i < n_rows * d_w; i += kThreads1)
+          dw[(long long)e0 * d_w + i] = from_f<T>(0.f);
+    } else if constexpr (kLeg == kLegX) {
+      if (!split)  // else the sum of the partials writes them
+        for (int i = tid; i < n_rows * d_x; i += kThreads1)
+          dx[(long long)e0 * d_x + i] = from_f<T>(0.f);
+    } else {
+      if (blockIdx.y == 0)
+        for (int i = tid; i < n_rows * d_w; i += kThreads1)
+          dw[(long long)e0 * d_w + i] = from_f<T>(0.f);
+    }
     return;
   }
 
-  for (int i = tid; i < kTile * dxs; i += kThreads1) s_dx[i] = 0.f;
+  if constexpr (kLeg != kLegW)
+    for (int i = tid; i < kTile * dxs; i += kThreads1) s_dx[i] = 0.f;
   for (int i = tid; i < n_live * d_sh; i += kThreads1) {
     const int r = i / d_sh;
     s_sh[r * d_sh + (i - r * d_sh)] = to_f(sh[(long long)(e0 + r) * d_sh + (i - r * d_sh)]);
   }
-  copy_rows<T, kThreads1>(s_x, dxs, x + (long long)e0 * sx, sx, sx ? n_live : 1, d_x,
-                          d_x % V == 0 && sx % V == 0 && aligned16(x));
+  if constexpr (kLeg != kLegX)
+    copy_rows<T, kThreads1>(s_x, dxs, x + (long long)e0 * sx, sx, sx ? n_live : 1, d_x,
+                            d_x % V == 0 && sx % V == 0 && aligned16(x));
+  int q_begin = 0, q_end = n_gk;
+  if constexpr (kLeg != kDxDw) group_rows(gk, n_gk, blockIdx.y, gridDim.y, q_begin, q_end);
 
-  for (int qi = 0; qi < n_gk; ++qi) {
+  for (int qi = q_begin; qi < q_end; ++qi) {
     const int* gr = gk + qi * kGkFields;
     const int fs = gr[0], cols = gr[1], out_col = gr[2];
     const int t_begin = gr[4], t_end = gr[5], wp_off = gr[6], cp = gr[7];
     const int sb = gr[8], span = gr[9], first = gr[10], last = gr[11];
     const int n_nt = round_up(fs, 8) / 8, n_ks = cp / 16;
 
-    if (has_w && first) {  // the group's w columns, and its dw accumulator
-      for (int i = tid; i < kTile * sps; i += kThreads1) s_dw[i] = 0.f;
-      const int nv = sps / V;
+    if (has_w && first) {  // the group's w columns (not the w leg's), its dw accumulator
+      if constexpr (kLeg != kLegX)
+        for (int i = tid; i < kTile * sps; i += kThreads1) s_dw[i] = 0.f;
+      const int nv = kLeg != kLegW ? sps / V : 0;
       for (int i = tid; i < n_live * nv; i += kThreads1) {
         const int r = i / nv;
         const int jl = (i - r * nv) * V;
@@ -674,7 +741,11 @@ dxdw_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict_
           const T* xp = s_x + a + u;
           for (int r = tid >> lg; r < n_live; r += kThreads1 >> lg) {
             const float d = c * shc[r * d_sh] * dz[r * ldz];
-            if (has_w) {
+            if constexpr (kLeg == kLegX) {
+              dxp[r * dxs] += has_w ? d * to_f(wp[r * sps]) : d;
+            } else if constexpr (kLeg == kLegW) {
+              dwp[r * sps] += d * to_f(xp[(sx ? r : 0) * dxs]);
+            } else if (has_w) {
               dxp[r * dxs] += d * to_f(wp[r * sps]);
               dwp[r * sps] += d * to_f(xp[(sx ? r : 0) * dxs]);
             } else {
@@ -685,7 +756,11 @@ dxdw_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict_
           for (int i = tid; i < n_live * mul; i += kThreads1) {
             const int r = i / mul, u = i - r * mul;
             const float d = c * s_sh[r * d_sh + col] * s_dz[r * ldz + fc + u];
-            if (has_w) {
+            if constexpr (kLeg == kLegX) {
+              s_dx[r * dxs + a + u] += has_w ? d * to_f(s_w[r * sps + bl + u]) : d;
+            } else if constexpr (kLeg == kLegW) {
+              s_dw[r * sps + bl + u] += d * to_f(s_x[(sx ? r : 0) * dxs + a + u]);
+            } else if (has_w) {
               s_dx[r * dxs + a + u] += d * to_f(s_w[r * sps + bl + u]);
               s_dw[r * sps + bl + u] += d * to_f(s_x[(sx ? r : 0) * dxs + a + u]);
             } else {
@@ -697,7 +772,7 @@ dxdw_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict_
     }
     __syncthreads();
 
-    if (has_w && last) {  // the group's dw columns are complete
+    if (kLeg != kLegX && has_w && last) {  // the group's dw columns are complete
       const int nv = sps / V;
       for (int i = tid; i < n_rows * nv; i += kThreads1) {
         const int r = i / nv;
@@ -720,6 +795,15 @@ dxdw_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict_
     }
   }
 
+  if constexpr (kLeg == kLegW) return;
+  if (split) {  // this split's fp32 partial of dx
+    float* pr = part + ((long long)blockIdx.y * E + e0) * d_x;
+    for (int i = tid; i < n_rows * d_x; i += kThreads1) {
+      const int r = i / d_x;
+      pr[i] = s_dx[r * dxs + (i - r * d_x)];
+    }
+    return;
+  }
   const int nv = dx_vec ? d_x / V : 0;
   for (int i = tid; i < n_rows * nv; i += kThreads1) {
     const int r = i / nv;
@@ -737,6 +821,46 @@ dxdw_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict_
     }
 }
 
+#define EQT_K2_DXDW_PARAMS                                                                       \
+  const T *__restrict__ x, long long sx, int d_x, const T *__restrict__ sh, int d_sh,            \
+      const T *__restrict__ w, int d_w, const T *__restrict__ Wp, const T *__restrict__ G,       \
+      int d_out, const int *__restrict__ n_edges_ptr, int E, const int *__restrict__ gk,         \
+      int n_gk, const int *__restrict__ terms, const float *__restrict__ coeffs,                 \
+      const int *__restrict__ dwmap, T *__restrict__ dx, T *__restrict__ dw, int span_max,       \
+      int cp_max, int fd_max
+#define EQT_K2_DXDW_ARGS                                                                         \
+  x, sx, d_x, sh, d_sh, w, d_w, Wp, G, d_out, n_edges_ptr, E, gk, n_gk, terms, coeffs, dwmap,    \
+      dx, dw, span_max, cp_max, fd_max
+
+// K2's launch 1 (S3: cut after phase kStage)
+template <typename T, int kStage>
+__global__ void __launch_bounds__(kThreads1, 1) dxdw_kernel(EQT_K2_DXDW_PARAMS) {
+  dxdw_body<T, kStage, kDxDw>(EQT_K2_DXDW_ARGS, nullptr);
+}
+
+// K5b: the x leg (x null, dw null) or the w leg (w null, dx null), grid
+// (tiles, splits)
+template <typename T, int kLeg>
+__global__ void __launch_bounds__(kThreads1, 1)
+edge_leg_kernel(EQT_K2_DXDW_PARAMS, float* __restrict__ part) {
+  dxdw_body<T, kFullStage, kLeg>(EQT_K2_DXDW_ARGS, part);
+}
+
+// dx[e, c] = the x leg's split partials summed in split order (zeros at or
+// past *n_edges, whose tiles wrote no partial)
+template <typename T>
+__global__ void __launch_bounds__(eqt::kReduceThreads)
+sum_dx_kernel(const float* __restrict__ part, int n_split, int E, int d_x,
+              const int* __restrict__ n_edges_ptr, T* __restrict__ dx) {
+  const long long numel = (long long)E * d_x;
+  const long long i = (long long)blockIdx.x * eqt::kReduceThreads + threadIdx.x;
+  if (i >= numel) return;
+  float acc = 0.f;
+  if (i / d_x < __ldg(n_edges_ptr))
+    for (int s = 0; s < n_split; ++s) acc += part[s * numel + i];
+  dx[i] = from_f<T>(acc);
+}
+
 // ----------------------------------------------------------- launch 2
 // Block (tile, range): the fp32 partial of dW_g[f0 : f0 + fm, j0 : j0 + fn]
 // over the edges of one range, summed on the tensor cores in registers:
@@ -744,14 +868,17 @@ dxdw_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict_
 // from the terms that reach it and G[g,k]'s column slice staged (16-byte
 // loads), then acc += z^T G.  The partial is written once, to row `range`
 // of part.
+#define EQT_K2_DW_PARAMS                                                                         \
+  const T *__restrict__ x, long long sx, const T *__restrict__ sh, int d_sh,                     \
+      const T *__restrict__ w, int d_w, const T *__restrict__ G, int d_out,                      \
+      const int *__restrict__ n_edges_ptr, int E, const int *__restrict__ gk,                    \
+      const int *__restrict__ tiles, const int *__restrict__ terms,                              \
+      const float *__restrict__ coeffs, float *__restrict__ part, int w_numel, int range_len
+#define EQT_K2_DW_ARGS \
+  x, sx, sh, d_sh, w, d_w, G, d_out, n_edges_ptr, E, gk, tiles, terms, coeffs, part, w_numel, range_len
+
 template <typename T, int kStage>
-__global__ void __launch_bounds__(kThreads2)
-dW_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ sh, int d_sh,
-          const T* __restrict__ w, int d_w, const T* __restrict__ G, int d_out,
-          const int* __restrict__ n_edges_ptr, int E, const int* __restrict__ gk,
-          const int* __restrict__ tiles, const int* __restrict__ terms,
-          const float* __restrict__ coeffs, float* __restrict__ part, int w_numel,
-          int range_len) {
+__device__ __forceinline__ void dW_body(EQT_K2_DW_PARAMS) {
   constexpr int V = kVec<T>;
   extern __shared__ float4 smem4[];
   float* s_z = reinterpret_cast<float*>(smem4);  // [kEdges2][kLdz2]: z[e][f - f0]
@@ -899,6 +1026,21 @@ dW_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ sh, int d
     }
 }
 
+// K2's launch 2 (S3: cut after phase kStage)
+template <typename T, int kStage>
+__global__ void __launch_bounds__(kThreads2) dW_kernel(EQT_K2_DW_PARAMS) {
+  dW_body<T, kStage>(EQT_K2_DW_ARGS);
+}
+
+// K5c: launch 2 on the head-weight leg's operands (x with any row stride, w
+// null for shared weights folded into W).  Three blocks an SM (80 registers,
+// ~300 bytes of spills in fp32) take 6-7% off K2's two at MD17's sites: the
+// z recompute waits on its loads, and more warps hide them
+template <typename T>
+__global__ void __launch_bounds__(kThreads2, 3) W_leg_kernel(EQT_K2_DW_PARAMS) {
+  dW_body<T, kFullStage>(EQT_K2_DW_ARGS);
+}
+
 struct Args {
   const void *x, *sh, *w, *Wp, *G, *n_edges, *gk, *terms, *coeffs, *dwmap, *tiles;
   long long sx;
@@ -924,13 +1066,44 @@ int launch1(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kStage2>
+// K5b: one edge leg on launch 1's code, the tiles cut by irrep group into
+// n_split (the x leg's partials then summed in split order into dx)
+template <typename T, int kLeg>
+int launch_leg(const Args& a, int n_split, cudaStream_t stream) {
+  const Layout1 L = layout1<T, kLeg>(a.d_x, a.d_sh, a.span_max, a.cp_max, a.fd_max,
+                                     kLeg == kLegW || a.w != nullptr, a.sx != 0);
+  cudaError_t err = cudaFuncSetAttribute(edge_leg_kernel<T, kLeg>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return (int)err;
+  edge_leg_kernel<T, kLeg><<<dim3((a.E + kTile - 1) / kTile, n_split), kThreads1, L.total,
+                             stream>>>(
+      static_cast<const T*>(a.x), a.sx, a.d_x, static_cast<const T*>(a.sh), a.d_sh,
+      static_cast<const T*>(a.w), a.d_w, static_cast<const T*>(a.Wp),
+      static_cast<const T*>(a.G), a.d_out, static_cast<const int*>(a.n_edges), a.E,
+      static_cast<const int*>(a.gk), a.n_gk, static_cast<const int*>(a.terms),
+      static_cast<const float*>(a.coeffs), static_cast<const int*>(a.dwmap),
+      static_cast<T*>(a.dx), static_cast<T*>(a.dw), a.span_max, a.cp_max, a.fd_max,
+      static_cast<float*>(a.part));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || kLeg != kLegX || n_split == 1) return (int)err;
+  const long long numel = (long long)a.E * a.d_x;
+  sum_dx_kernel<T><<<(unsigned)((numel + eqt::kReduceThreads - 1) / eqt::kReduceThreads),
+                     eqt::kReduceThreads, 0, stream>>>(
+      static_cast<const float*>(a.part), n_split, a.E, a.d_x,
+      static_cast<const int*>(a.n_edges), static_cast<T*>(a.dx));
+  return (int)cudaGetLastError();
+}
+
+// launch 2 and the row sum: K2's (S3: cut after phase kStage2), or with
+// kWLeg K5c's own kernel
+template <typename T, int kStage2, bool kWLeg = false>
 int launch2(const Args& a, cudaStream_t stream) {
   const int smem = (kEdges2 * (kLdz2 + kLdg2) + kEdges2 * a.d_sh) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(dW_kernel<T, kStage2>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = kWLeg ? &W_leg_kernel<T> : &dW_kernel<T, kStage2>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dW_kernel<T, kStage2><<<dim3(a.n_tiles, a.n_ranges), kThreads2, smem, stream>>>(
+  kernel<<<dim3(a.n_tiles, a.n_ranges), kThreads2, smem, stream>>>(
       static_cast<const T*>(a.x), a.sx, static_cast<const T*>(a.sh), a.d_sh,
       static_cast<const T*>(a.w), a.d_w, static_cast<const T*>(a.G), a.d_out,
       static_cast<const int*>(a.n_edges), a.E, static_cast<const int*>(a.gk),
@@ -962,13 +1135,40 @@ int launch_stage(int stage, const Args& a, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
+// launch 2's edge ranges: whole steps, covering every row
+bool ranges_ok(const Args& a) {
+  return a.cp_max % 16 == 0 && a.n_ranges >= 1 && a.range_len % kEdges2 == 0 &&
+         (long long)a.n_ranges * a.range_len >= a.E;
+}
+
 int run(int stage, const Args& a, int dtype, void* stream) {
-  if (a.cp_max % 16 != 0 || a.n_ranges < 1 || a.range_len % kEdges2 != 0 ||
-      (long long)a.n_ranges * a.range_len < a.E)
-    return (int)cudaErrorInvalidValue;
+  if (!ranges_ok(a)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == eqt::kFloat32) return launch_stage<float>(stage, a, s);
   if (dtype == eqt::kBFloat16) return launch_stage<__nv_bfloat16>(stage, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int run_leg(int leg, int n_split, const Args& a, int dtype, void* stream) {
+  if (a.cp_max % 16 != 0 || n_split < 1 ||
+      !(leg == kLegX ? a.dx != nullptr && (n_split == 1 || a.part != nullptr)
+                     : leg == kLegW && a.dw != nullptr && a.x != nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32)
+    return leg == kLegX ? launch_leg<float, kLegX>(a, n_split, s)
+                        : launch_leg<float, kLegW>(a, n_split, s);
+  if (dtype == eqt::kBFloat16)
+    return leg == kLegX ? launch_leg<__nv_bfloat16, kLegX>(a, n_split, s)
+                        : launch_leg<__nv_bfloat16, kLegW>(a, n_split, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int run_legW(const Args& a, int dtype, void* stream) {
+  if (!ranges_ok(a)) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32) return launch2<float, kFullStage, true>(a, s);
+  if (dtype == eqt::kBFloat16) return launch2<__nv_bfloat16, kFullStage, true>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1010,4 +1210,40 @@ extern "C" int dtp_lin_bwd_stage(const void* x, long long sx, int d_x, const voi
                    d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
                    n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
   return k2::run(stage, a, dtype, stream);
+}
+
+// K5b's x and w legs on dtp_lin_bwd's arguments (tiles, n_ranges, range_len,
+// dW and w_numel unused).  leg 0: dx alone (x and dw null); leg 2: dw alone
+// (w and dx null).  n_split: the irrep-group splits of each tile; the x leg
+// cut in more than one needs part [n_split, E, d_x] fp32.
+extern "C" int dtp_lin_edge_leg(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                                const void* w, int d_w, const void* Wp, const void* G, int d_out,
+                                const void* n_edges, int E, const void* gk, int n_gk,
+                                const void* terms, const void* coeffs, const void* dwmap,
+                                void* dx, void* dw, int span_max, int cp_max, int fd_max,
+                                const void* tiles, int n_tiles, void* part, int n_ranges,
+                                int range_len, void* dW, int w_numel, int leg, int n_split,
+                                int dtype, void* stream) {
+  const k2::Args a{x,      sh,     w,        Wp,       G,      n_edges,   gk,
+                   terms,  coeffs, dwmap,    tiles,    sx,     d_x,       d_sh,
+                   d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
+                   n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
+  return k2::run_leg(leg, n_split, a, dtype, stream);
+}
+
+// K5c: dW [w_numel] fp32 of the head-weight leg F_W(G, x, sh, w) on
+// dtp_lin_bwd's arguments (Wp, dwmap, dx, dw, span_max and fd_max unused;
+// w null for shared weights folded into W); part [n_ranges, w_numel].
+extern "C" int dtp_lin_legW(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                            const void* w, int d_w, const void* Wp, const void* G, int d_out,
+                            const void* n_edges, int E, const void* gk, int n_gk,
+                            const void* terms, const void* coeffs, const void* dwmap, void* dx,
+                            void* dw, int span_max, int cp_max, int fd_max, const void* tiles,
+                            int n_tiles, void* part, int n_ranges, int range_len, void* dW,
+                            int w_numel, int dtype, void* stream) {
+  const k2::Args a{x,      sh,     w,        Wp,       G,      n_edges,   gk,
+                   terms,  coeffs, dwmap,    tiles,    sx,     d_x,       d_sh,
+                   d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
+                   n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
+  return k2::run_legW(a, dtype, stream);
 }

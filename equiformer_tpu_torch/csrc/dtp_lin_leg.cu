@@ -1,9 +1,13 @@
-// Fused depthwise tensor product + per-irrep linear heads: one edge leg
-// (K5b), dx or dsh or dw alone; and its radial-folded variants (K7-L: dx,
-// dsh or dh; K7-Wr: d[Wr; offset]).
+// Fused depthwise tensor product + per-irrep linear heads: the sh edge leg
+// of K5b (dsh alone), and the radial-folded edge legs (K7-L: dx, dsh or dh;
+// K7-Wr: d[Wr; offset]).  K5b's x and w legs run on K2's launch 1
+// (csrc/dtp_lin_bwd.cu, k2::edge_leg_kernel); this file keeps the first
+// K5b design for the legs no default path launches, instruction for
+// instruction until their own redesign (its unfolded x and w legs are no
+// longer instantiated).
 //
 // Replaces: equiformer_tpu/kernels/dtp_lin_ho.py, _edge_leg_kernel (built by
-// _leg_call for the legs x, sh and w; bound through _leg_p by the JVP of
+// _leg_call for the leg sh; bound through _leg_p by the JVP of
 // _bwd3_p and by the transposes of the other legs in the grad-of-grad of
 // force training), _edge_leg_kernel_rad (:255, the legs x, sh and h of a
 // radial-folded plan; _leg_call :613-621) and _Wr_leg_kernel (:344, the leg
@@ -379,10 +383,8 @@ int dispatch(int leg, bool rad, const LegArgs& a, int n_blocks, int smem, cudaSt
     if (leg == kLegSh) EQT_LEG(kLegSh, true);
     if (leg == kLegH) EQT_LEG(kLegH, true);
     if (leg == kLegWr) EQT_LEG(kLegWr, true);
-  } else {
-    if (leg == kLegX) EQT_LEG(kLegX, false);
-    if (leg == kLegSh) EQT_LEG(kLegSh, false);
-    if (leg == kLegW) EQT_LEG(kLegW, false);
+  } else if (leg == kLegSh) {
+    EQT_LEG(kLegSh, false);
   }
 #undef EQT_LEG
   return n_blocks > 0 ? (int)cudaErrorInvalidValue : -(int)cudaErrorInvalidValue;
@@ -414,20 +416,18 @@ LegArgs edge_args(const void* x, long long sx, int d_x, const void* sh, int d_sh
 
 }  // namespace
 
-// K5b.  One block per 16-edge tile.  leg: 0 = x (out [E, d_x]; x is not
-// read and may be null), 1 = sh (out [E, d_sh]; sh may be null), 2 = w (out
-// [E, d_w]; w is not read, and the plan must have per-edge weights).
-extern "C" int dtp_lin_leg(int leg, const void* x, long long sx, int d_x, const void* sh,
-                           int d_sh, const void* w, int d_w, const void* WT, const void* G,
-                           int d_out, const void* n_edges, int E, const void* gk, int n_gk,
-                           const void* terms, const void* coeffs, const void* dwmap, void* out,
-                           int span_max, int cols_pad_max, int fs_max, int dtype,
-                           void* stream) {
-  if (leg < kLegX || leg > kLegW || out == nullptr) return (int)cudaErrorInvalidValue;
-  LegArgs a = edge_args(x, sx, d_x, sh, d_sh, WT, G, d_out, n_edges, E, gk, n_gk, terms, coeffs,
-                        span_max, cols_pad_max, fs_max);
-  a.w = w; a.d_w = d_w; a.dwmap = static_cast<const int*>(dwmap); a.out = out;
-  return run(leg, false, a, (E + kTile - 1) / kTile, dtype, stream);
+// K5b's sh leg: out [E, d_sh] (sh is not read and may be null; w null for a
+// shared-weight plan).  One block per 16-edge tile.
+extern "C" int dtp_lin_sh_leg(const void* x, long long sx, int d_x, const void* w, int d_w,
+                              const void* WT, const void* G, int d_out, const void* n_edges,
+                              int E, const void* gk, int n_gk, const void* terms,
+                              const void* coeffs, void* out, int d_sh, int cols_pad_max,
+                              int fs_max, int dtype, void* stream) {
+  if (out == nullptr) return (int)cudaErrorInvalidValue;
+  LegArgs a = edge_args(x, sx, d_x, nullptr, d_sh, WT, G, d_out, n_edges, E, gk, n_gk, terms,
+                        coeffs, 0, cols_pad_max, fs_max);
+  a.w = w; a.d_w = d_w; a.out = out;
+  return run(kLegSh, false, a, (E + kTile - 1) / kTile, dtype, stream);
 }
 
 // K7-L.  One block per 16-edge tile; h [E, hd] and Wl [hd + 1, n_loc] (the
@@ -469,12 +469,12 @@ extern "C" int dtp_lin_rad_legWr(const void* x, long long sx, int d_x, const voi
 }
 
 // Resident blocks per SM of one leg's kernel at the shared memory of a launch
-// with these widths, or minus a cudaError_t.  leg: 0 x, 1 sh, 2 w (hd == 0),
-// or with the fold (hd > 0) 0 x, 1 sh, 3 h, 4 Wr.
+// with these widths, or minus a cudaError_t.  leg: 1 sh (hd == 0), or with
+// the fold (hd > 0) 0 x, 1 sh, 3 h, 4 Wr.
 extern "C" int dtp_lin_leg_occupancy(int leg, int d_x, int d_sh, int span_max,
                                      int cols_pad_max, int fs_max, int hd, int dtype) {
   const bool rad = hd > 0;
-  if (leg < kLegX || leg > kLegWr || (rad && leg == kLegW) || (!rad && leg > kLegW))
+  if (leg < kLegX || leg > kLegWr || (rad && leg == kLegW) || (!rad && leg != kLegSh))
     return -(int)cudaErrorInvalidValue;
   const int smem = smem_floats(leg, rad, d_x, d_sh, span_max, cols_pad_max, fs_max, hd) *
                    (int)sizeof(float);

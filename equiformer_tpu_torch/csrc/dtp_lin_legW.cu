@@ -1,47 +1,42 @@
-// Fused depthwise tensor product + per-irrep linear heads: the head-weight
-// leg (K5c), dW alone.
+// Fused depthwise tensor product + per-irrep linear heads, radial-folded:
+// the head-weight leg (K7-LW), dW alone.
 //
-// Replaces: equiformer_tpu/kernels/dtp_lin_ho.py, _W_leg_kernel (built by
-// _leg_call for the leg W; bound through _legW_p by the transpose of the out
-// leg in the parameter pass of force training, and by the JVP of _bwd3_p in
-// its grad-of-grad).  Plan, term tables and weight packing:
-// equiformer_tpu_torch/kernels/dtp_lin.py (DTPLinPlan.bwd_tables), the
-// tables of csrc/dtp_lin_bwd.cu.
+// Replaces: the radial branch of equiformer_tpu/kernels/dtp_lin_ho.py,
+// _W_leg_kernel (:402-449: the h operand :415, _radial_w_fill :439-440;
+// built by _leg_call for the leg W of a radial-folded plan).  Plan and
+// term tables: equiformer_tpu_torch/kernels/dtp_lin.py
+// (DTPLinPlan.bwd_tables), the tables of the first K2 design.  The
+// unfolded leg (K5c) runs on K2's launch 2 (csrc/dtp_lin_bwd.cu,
+// k2::W_leg_kernel); this is the first K5c design with kRad, kept
+// instruction for instruction until its own redesign (its kRad = false
+// paths are no longer instantiated).
 //
 // What it computes, with G in the out leg of out = Linear_W(DTP(x, sh, w)),
-// over the edges e < *n_edges:
+// w = [h, 1] @ [Wr; offset], over the edges e < *n_edges:
 //   z[g,k][fc+u] = sum over the (g,k) terms of c * sh[e,col] * x[e,a+u] * w[e,b+u]
 //   dW_g[f, j]  += sum_k z[g,k][f] * G[e, out_col(g,k) + j]        (fp32)
 // in the packed layout of W ([fan_stride, cols] per group, pad rows zero).
-// With shared weights folded into W_g there is no w (taken as 1).  z is
-// recomputed from the operands and never written to device memory.  Tiles
-// past *n_edges are skipped.
+// z and w are recomputed from the operands and never written to device
+// memory.  Tiles past *n_edges are skipped.
 //
 // What bounds it on the card: arithmetic.  Per real edge of the MD17 L3
 // sep_act site the z^T G product is ~0.6M multiply-adds and the z recompute
-// ~32k, against ~6 KB of operands read.
+// ~32k, against ~6 KB of operands read; the fold adds 2 * (hd + 1) * d_w.
 //
-// Design: csrc/dtp_lin_bwd.cu without dx, dw and dz.  Persistent blocks of
-// 256 threads, each walking edge tiles of 16 (tile t = blockIdx.x + i *
-// gridDim.x).  Per tile and (g, k) the block stages the slice G[g,k]
-// (16 x cols) in shared memory, recomputes z[g,k] there from the term table
-// (within one (g, k) a z element is only ever touched by one thread: a term
-// maps flat index i to (row, u) by i / mul, and terms that share a column
-// share mul), and adds z^T G into the block's own fp32 partial of dW in
-// device memory, a thread owning 4 fan rows of one column.  dW is a
-// reduction across all edges: each block keeps its own partial row, and
-// eqt::sum_partial_rows (common.cuh, shared with K2) sums the rows in a
-// fixed order, so there are no float atomics and the result does not
-// depend on the schedule.  Everything accumulates in fp32 on the CUDA
-// cores; tensor cores are later work.
-//
-// The radial-folded variant (K7-LW, kRad; replaces the radial branch of
-// _W_leg_kernel, dtp_lin_ho.py:402-449: the h operand :415, _radial_w_fill
-// :439-440) reads h [E, hd] in place of w and, at each group's first
-// component, builds the group's w columns from h and [Wr; offset] in shared
-// memory (csrc/radial.cuh) before the z recompute reads them: w never
-// reaches device memory.  Shared memory: K5c's plus w [16, span_max] and h
-// [16, hd].
+// Design: persistent blocks of 256 threads, each walking edge tiles of 16
+// (tile t = blockIdx.x + i * gridDim.x).  Per tile the block loads h [16,
+// hd]; at each group's first component it builds the group's w columns
+// from h and [Wr; offset] in shared memory (csrc/radial.cuh).  Per (g, k)
+// it stages the slice G[g,k] (16 x cols) in shared memory, recomputes
+// z[g,k] there from the term table (within one (g, k) a z element is only
+// ever touched by one thread: a term maps flat index i to (row, u) by i /
+// mul, and terms that share a column share mul), and adds z^T G into the
+// block's own fp32 partial of dW in device memory, a thread owning 4 fan
+// rows of one column.  eqt::sum_partial_rows (common.cuh) sums the blocks'
+// rows in a fixed order: no float atomics, and the result does not depend
+// on the schedule.  Everything accumulates in fp32 on the CUDA cores.
+// Shared memory: G [16, cols_pad_max], z [16, fs_max], w [16, span_max]
+// and h [16, hd].
 
 #include <stdint.h>
 
@@ -199,27 +194,6 @@ int occupancy(int smem) {
 
 }  // namespace
 
-// n_parts blocks (at most the number of tiles) each own one fp32 partial row
-// of part [n_parts, w_numel]; dW [w_numel] fp32 receives their sum.
-extern "C" int dtp_lin_legW(const void* x, long long sx, const void* sh, int d_sh,
-                            const void* w, int d_w, const void* G, int d_out,
-                            const void* n_edges, int E, const void* gk, int n_gk,
-                            const void* terms, const void* coeffs, void* part, int n_parts,
-                            void* dW, int w_numel, int cols_pad_max, int fs_max, int dtype,
-                            void* stream) {
-  if (fs_max % 4 != 0 || cols_pad_max % 4 != 0 || n_parts < 1) return (int)cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == eqt::kFloat32)
-    return launch<float, false>(x, sx, sh, d_sh, w, d_w, G, d_out, n_edges, E, gk, n_gk, terms,
-                                coeffs, part, n_parts, dW, w_numel, cols_pad_max, fs_max, 0,
-                                nullptr, 0, nullptr, 0, s);
-  if (dtype == eqt::kBFloat16)
-    return launch<__nv_bfloat16, false>(x, sx, sh, d_sh, w, d_w, G, d_out, n_edges, E, gk,
-                                        n_gk, terms, coeffs, part, n_parts, dW, w_numel,
-                                        cols_pad_max, fs_max, 0, nullptr, 0, nullptr, 0, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 // K7-LW: the head-weight leg of dtp_lin_rad_fwd, h [E, hd] and Wl [hd + 1,
 // n_loc] (columns in the tables' local order) in place of w; span_max the
 // widest group's w columns.
@@ -244,14 +218,13 @@ extern "C" int dtp_lin_rad_legW(const void* x, long long sx, const void* sh, int
   return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks per SM at the shared memory of a launch with these widths
-// (hd > 0: the folded K7-LW), or minus a cudaError_t.
+// Resident blocks per SM of K7-LW at the shared memory of a launch with these
+// widths (hd > 0), or minus a cudaError_t.
 extern "C" int dtp_lin_legW_occupancy(int cols_pad_max, int fs_max, int span_max, int hd,
                                       int dtype) {
   const int smem = smem_floats(cols_pad_max, fs_max, span_max, hd) * (int)sizeof(float);
-  if (dtype == eqt::kFloat32)
-    return hd > 0 ? occupancy<float, true>(smem) : occupancy<float, false>(smem);
-  if (dtype == eqt::kBFloat16)
-    return hd > 0 ? occupancy<__nv_bfloat16, true>(smem) : occupancy<__nv_bfloat16, false>(smem);
+  if (hd <= 0) return -(int)cudaErrorInvalidValue;
+  if (dtype == eqt::kFloat32) return occupancy<float, true>(smem);
+  if (dtype == eqt::kBFloat16) return occupancy<__nv_bfloat16, true>(smem);
   return -(int)cudaErrorInvalidValue;
 }

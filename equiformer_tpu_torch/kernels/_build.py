@@ -143,12 +143,21 @@ _SIGNATURES = {
     # cols_pad_max, max_fan_stride, h, hd, Wl, n_loc, dh, dtype, stream
     "dtp_lin_rad_bwd3": [_VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
                          _VP, _VP, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I, _VP],
-    # leg (0 x, 1 sh, 2 w), x, x_row_stride, d_x, sh, d_sh, w, d_w, W^T, g, d_out,
-    # n_edges*, E, gk table, n_gk, terms, coeffs, dwmap, out, span_max,
-    # cols_pad_max, max_fan_stride, dtype, stream
-    "dtp_lin_leg": [_I, _VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
-                    _VP, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    # leg (0 x, 1 sh, 2 w; folded: 0 x, 1 sh, 3 h, 4 Wr), d_x, d_sh, span_max,
+    # K5b's x and w legs: dtp_lin_bwd's arguments, then the leg (0 x, 2 w) and
+    # the irrep-group splits of a tile before the dtype
+    "dtp_lin_edge_leg": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
+                         _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                         _VP, _I, _VP, _I, _I, _VP, _I, _I, _I, _I, _VP],
+    # K5c: dtp_lin_bwd's arguments
+    "dtp_lin_legW": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
+                     _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                     _VP, _I, _VP, _I, _I, _VP, _I, _I, _VP],
+    # K5b's sh leg: x, x_row_stride, d_x, w, d_w, W^T, g, d_out, n_edges*, E,
+    # gk table (bwd3_tables'), n_gk, terms, coeffs, out, d_sh, cols_pad_max,
+    # max_fan_stride, dtype, stream
+    "dtp_lin_sh_leg": [_VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
+                       _VP, _I, _I, _I, _I, _VP],
+    # leg (1 sh; folded: 0 x, 1 sh, 3 h, 4 Wr), d_x, d_sh, span_max,
     # cols_pad_max, max_fan_stride, hd (0 unfolded), dtype
     # -> resident blocks per SM (or -cudaError_t)
     "dtp_lin_leg_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I],
@@ -162,17 +171,12 @@ _SIGNATURES = {
     # hd, n_loc, partials, n_parts, d[Wr; offset], one (0 or 1), dtype, stream
     "dtp_lin_rad_legWr": [_VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
                           _I, _I, _I, _VP, _I, _I, _VP, _I, _VP, _I, _I, _VP],
-    # x, x_row_stride, sh, d_sh, w, d_w, g, d_out, n_edges*, E, gk table, n_gk,
-    # terms, coeffs, dW partials, n_parts, dW, w_numel, cols_pad_max,
-    # max_fan_stride, dtype, stream
-    "dtp_lin_legW": [_VP, _LL, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _I,
-                     _VP, _VP, _VP, _I, _VP, _I, _I, _I, _I, _VP],
     # K7-LW: x, x_row_stride, sh, d_sh, g, d_out, n_edges*, E, gk table, n_gk,
     # terms, coeffs, dW partials, n_parts, dW, w_numel, cols_pad_max,
     # max_fan_stride, span_max, h, hd, Wl, n_loc, dtype, stream
     "dtp_lin_rad_legW": [_VP, _LL, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _VP, _VP, _I,
                          _VP, _I, _I, _I, _I, _VP, _I, _VP, _I, _I, _VP],
-    # cols_pad_max, max_fan_stride, span_max, hd (0 unfolded), dtype
+    # K7-LW: cols_pad_max, max_fan_stride, span_max, hd, dtype
     # -> resident blocks per SM (or -cudaError_t)
     "dtp_lin_legW_occupancy": [_I, _I, _I, _I, _I],
     # a, a_row_stride, col, d_col, b, b_row_stride, out, d_out, E, segments,

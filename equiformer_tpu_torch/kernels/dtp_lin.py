@@ -159,12 +159,13 @@ def k1_tile(plan: "DTPLinPlan", itemsize: int, x_rows: bool, E: int, sm_count: i
     return K1_TILES[-1]
 
 
-def k2_ranges(E: int, n_tiles: int, sm_count: int) -> Tuple[int, int]:
-    """(n_ranges, range_len) of K2's launch 2: about ``K2_DW_BLOCKS_PER_SM``
+def k2_ranges(E: int, n_tiles: int, sm_count: int,
+              blocks_per_sm: int = K2_DW_BLOCKS_PER_SM) -> Tuple[int, int]:
+    """(n_ranges, range_len) of K2's launch 2: about ``blocks_per_sm``
     blocks per SM over the dW tiles, ranges of whole ``K2_EDGES`` steps,
     none empty; each range adds one fp32 partial row of dW."""
     n_steps = -(-E // K2_EDGES)
-    want = -(-K2_DW_BLOCKS_PER_SM * sm_count // max(n_tiles, 1))
+    want = -(-blocks_per_sm * sm_count // max(n_tiles, 1))
     range_len = -(-n_steps // max(1, min(n_steps, want))) * K2_EDGES
     return -(-E // range_len), range_len
 
@@ -773,11 +774,44 @@ def dtp_lin_fwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: 
     return out
 
 
+def k2_packed_W(plan: DTPLinPlan, W_flat: torch.Tensor) -> torch.Tensor:
+    """Each group's W_g in mma fragment order, as K2's dz product and K5b's
+    x and w legs read it (``k2_tables().wp_index``)."""
+    return torch.cat([W_flat, W_flat.new_zeros(1)])[plan.k2_tables(W_flat.device).wp_index]
+
+
+def _k2_call(entry: str, plan: DTPLinPlan, g, x, sh, w, Wp, n_edges, dx, dw, dW, part, *extra,
+             blocks_per_sm: int = K2_DW_BLOCKS_PER_SM):
+    """The C entry ``entry`` of ``csrc/dtp_lin_bwd.cu`` launched on checked
+    operands, K2's argument list on K2's tables: ``dtp_lin_bwd`` (K2),
+    ``dtp_lin_bwd_stage`` (S3), ``dtp_lin_edge_leg`` (K5b's x and w legs) or
+    ``dtp_lin_legW`` (K5c), with None for what it does not read or write and
+    its own trailing arguments in ``extra``.  With ``dW`` the launch-2
+    partial rows [n_ranges, w_numel] are allocated here (``k2_ranges`` at
+    ``blocks_per_sm``); else ``part`` is the entry's scratch or None."""
+    E, dev = g.shape[0], g.device
+    _, terms, coeffs, dwmap, _, span_max, _ = plan.bwd_tables(dev)
+    kt = plan.k2_tables(dev)
+    n_tiles = kt.tiles.shape[0]
+    n_ranges, range_len = k2_ranges(E, n_tiles, _sm_count(dev), blocks_per_sm)
+    if dW is not None:
+        part = torch.empty((n_ranges, plan.w_numel), dtype=torch.float32, device=dev)
+    err = getattr(_build.library(), entry)(
+        _build.ptr(x), 0 if x is None else x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh,
+        _build.ptr(w), plan.d_w, _build.ptr(Wp), _build.ptr(g), plan.d_out,
+        _build.ptr(n_edges), E, _build.ptr(kt.gk), kt.gk.shape[0], _build.ptr(terms),
+        _build.ptr(coeffs), _build.ptr(dwmap), _build.ptr(dx), _build.ptr(dw), span_max,
+        kt.cp_max, kt.fd_max, _build.ptr(kt.tiles), n_tiles, _build.ptr(part), n_ranges,
+        range_len, _build.ptr(dW), plan.w_numel, *extra, _build.dtype_code(g),
+        _build.stream_ptr(),
+    )
+    _build.check(err, entry)
+
+
 def _k2_launch(entry: str, plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges, *extra):
-    """K2's operands checked and laid out, its outputs and scratch allocated,
-    and the C entry ``entry`` (``dtp_lin_bwd`` or ``dtp_lin_bwd_stage``,
-    whose stage is ``extra``) launched on them: (dx, dw or None, dW,
-    launched)."""
+    """K2's operands checked and laid out, its outputs allocated, and the C
+    entry ``entry`` (``dtp_lin_bwd`` or ``dtp_lin_bwd_stage``, whose stage
+    is ``extra``) launched on them: (dx, dw or None, dW, launched)."""
     E = sh.shape[0]
     x, sh, w, W_flat = _check_operands(plan, x, sh, w, W_flat)
     if g.shape != (E, plan.d_out) or g.dtype != x.dtype or g.device != x.device:
@@ -785,8 +819,6 @@ def _k2_launch(entry: str, plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges, *extr
     g = g.contiguous()
     n_edges = _check_n_edges(n_edges, E, x.device)
     dev = x.device
-    _, terms, coeffs, dwmap, _, span_max, _ = plan.bwd_tables(dev)
-    kt = plan.k2_tables(dev)
     dx = torch.empty((E, plan.d_x), dtype=x.dtype, device=dev)
     dw = None
     if w is not None:
@@ -795,19 +827,8 @@ def _k2_launch(entry: str, plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges, *extr
     dW = torch.zeros((plan.w_numel,), dtype=torch.float32, device=dev)
     if E == 0:
         return dx, dw, dW, False
-    Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[kt.wp_index]
-    n_tiles = kt.tiles.shape[0]
-    n_ranges, range_len = k2_ranges(E, n_tiles, _sm_count(dev))
-    part = torch.empty((n_ranges, plan.w_numel), dtype=torch.float32, device=dev)
-    err = getattr(_build.library(), entry)(
-        _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(w),
-        plan.d_w, _build.ptr(Wp), _build.ptr(g), plan.d_out, _build.ptr(n_edges), E,
-        _build.ptr(kt.gk), kt.gk.shape[0], _build.ptr(terms), _build.ptr(coeffs),
-        _build.ptr(dwmap), _build.ptr(dx), _build.ptr(dw), span_max, kt.cp_max, kt.fd_max,
-        _build.ptr(kt.tiles), n_tiles, _build.ptr(part), n_ranges, range_len, _build.ptr(dW),
-        plan.w_numel, *extra, _build.dtype_code(x), _build.stream_ptr(),
-    )
-    _build.check(err, entry)
+    _k2_call(entry, plan, g, x, sh, w, k2_packed_W(plan, W_flat), n_edges, dx, dw, dW, None,
+             *extra)
     return dx, dw, dW, True
 
 

@@ -23,9 +23,10 @@ and component,
 (w = 1 when shared weights are folded into W).  Rows at or past ``n_edges``
 give zeros and add nothing to dW.  On the card each is one hand-written
 kernel: F_out is K1 (``dtp_lin_fwd``, ``csrc/dtp_lin.cu``), an edge leg K5b
-(``dtp_lin_leg``, ``csrc/dtp_lin_leg.cu``), F_W K5c (``dtp_lin_legW``,
-``csrc/dtp_lin_legW.cu``), and the three edge legs of one ``g`` together K5a
-(``dtp_lin_bwd3``, ``csrc/dtp_lin_bwd3.cu``), the force backward.  Each has
+(``dtp_lin_leg``: the x and w legs on K2's launch 1, ``csrc/dtp_lin_bwd.cu``,
+the sh leg ``csrc/dtp_lin_leg.cu``), F_W K5c (``dtp_lin_legW``, K2's launch
+2), and the three edge legs of one ``g`` together K5a (``dtp_lin_bwd3``,
+``csrc/dtp_lin_bwd3.cu``), the force backward.  Each has
 its plain version here (``dtp_lin_leg_plain``, ``dtp_lin_legW_plain``,
 ``dtp_lin_bwd3_plain``), which CPU tensors take.
 
@@ -71,6 +72,7 @@ from .dtp_lin import (
     DTPLinPlan,
     _check_n_edges,
     _check_operands,
+    _k2_call,
     _sm_count,
     _workspace,
     _zero_past,
@@ -78,6 +80,7 @@ from .dtp_lin import (
     dtp_lin_legW_plain,
     dtp_lin_rad_fwd,
     fold_shared_weights,
+    k2_packed_W,
     plain_dz,
     plain_transposes,
     radial_dh_plain,
@@ -90,7 +93,9 @@ EDGE_LEGS = ("x", "sh", "w")
 # a radial-folded plan's legs: w = [h, 1] @ [Wr; offset] splits w's slot in two
 LEGS_RAD = ("out", "x", "sh", "h", "Wr", "W")
 EDGE_LEGS_RAD = ("x", "sh", "h")
-LEGW_BLOCKS_PER_SM = 2  # persistent blocks (and dW partial rows) per SM of K5c
+# K5c's launch-2 blocks per SM (``k2_ranges``), apart from K2's: at MD17's
+# 2944 edges one 64-edge step a range
+LEGW_DW_BLOCKS_PER_SM = 32
 
 
 def bwd3_tables(plan: DTPLinPlan, device: torch.device):
@@ -282,30 +287,42 @@ def dtp_lin_leg(plan: DTPLinPlan, out_leg: str, g: torch.Tensor, x, sh, w,
                 W_flat: torch.Tensor, n_edges=None) -> torch.Tensor:
     """K5b: one edge leg of the fused op, ``F_x(g, sh, w, W)`` [E, d_x],
     ``F_sh(g, x, w, W)`` [E, d_sh] or ``F_w(g, x, sh, W)`` [E, d_w]; the
-    operand of ``out_leg`` is not read (pass None).  CPU tensors take
-    ``dtp_lin_leg_plain``; CUDA tensors launch the kernel (float32 or
-    bfloat16) or raise."""
+    operand of ``out_leg`` is not read (pass None).  The x and w legs run
+    on K2's launch 1 (``csrc/dtp_lin_bwd.cu``, ``k2::edge_leg_kernel``), a
+    block per (16-edge tile, irrep group): at MD17's 2944 edges the tiles
+    alone fill 1.4 waves of one block an SM; the x leg's per-group dx
+    partials are summed in group order.  The sh leg runs on
+    ``csrc/dtp_lin_leg.cu``.  CPU tensors take ``dtp_lin_leg_plain``; CUDA
+    tensors launch the kernel (float32 or bfloat16) or raise."""
     if g.device.type == "cpu":
         return dtp_lin_leg_plain(plan, out_leg, g, x, sh, w, W_flat, n_edges)
     _check_edge_leg(plan, out_leg)
     E, dev = g.shape[0], g.device
     g, x, sh, w, W_flat = _check_leg_operands(plan, out_leg, g, x, sh, w, W_flat)
     n_edges = _check_n_edges(n_edges, E, dev)
-    gk, terms, coeffs, dwmap, wt_index, span_max, cols_pad_max = bwd3_tables(plan, dev)
     width = {"x": plan.d_x, "sh": plan.d_sh, "w": plan.d_w}[out_leg]
     alloc = torch.zeros if out_leg == "w" and plan.dw_has_dead_cols else torch.empty
     out = alloc((E, width), dtype=g.dtype, device=dev)
     if E == 0:
         return out
-    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
-    err = _build.library().dtp_lin_leg(
-        EDGE_LEGS.index(out_leg), _build.ptr(x), 0 if x is None else x.stride(0), plan.d_x,
-        _build.ptr(sh), plan.d_sh, _build.ptr(w), plan.d_w, _build.ptr(WT), _build.ptr(g),
-        plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0], _build.ptr(terms),
-        _build.ptr(coeffs), _build.ptr(dwmap), _build.ptr(out), span_max, cols_pad_max,
-        plan.max_fan_stride, _build.dtype_code(g), _build.stream_ptr(),
-    )
-    _build.check(err, "dtp_lin_leg")
+    if out_leg == "sh":
+        gk, terms, coeffs, _, wt_index, _, cols_pad_max = bwd3_tables(plan, dev)
+        WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+        err = _build.library().dtp_lin_sh_leg(
+            _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(w), plan.d_w, _build.ptr(WT),
+            _build.ptr(g), plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0],
+            _build.ptr(terms), _build.ptr(coeffs), _build.ptr(out), plan.d_sh, cols_pad_max,
+            plan.max_fan_stride, _build.dtype_code(g), _build.stream_ptr(),
+        )
+        _build.check(err, "dtp_lin_sh_leg")
+    else:
+        n_split = len(plan.groups)
+        part = None  # the x leg's dx partials, one [E, d_x] per group
+        if out_leg == "x" and n_split > 1:
+            part = torch.empty((n_split, E, plan.d_x), dtype=torch.float32, device=dev)
+        _k2_call("dtp_lin_edge_leg", plan, g, x, sh, w, k2_packed_W(plan, W_flat), n_edges,
+                 out if out_leg == "x" else None, out if out_leg == "w" else None, None, part,
+                 EDGE_LEGS.index(out_leg), n_split)
     dtp_lin_leg.launches += 1
     return out
 
@@ -317,9 +334,10 @@ def dtp_lin_legW(plan: DTPLinPlan, g: torch.Tensor, x: torch.Tensor, sh: torch.T
                  n_edges=None) -> torch.Tensor:
     """K5c: the head-weight leg ``F_W(g, x, sh, w)``, the gradient of the
     packed ``W_flat`` [w_numel] in float32 for ``g`` [E, d_out] in the out
-    leg; z is recomputed and never written to device memory.  CPU tensors
-    take ``dtp_lin_legW_plain``; CUDA tensors launch the kernel (float32 or
-    bfloat16) or raise."""
+    leg: K2's launch 2 (``k2::W_leg_kernel``: z recomputed per dW tile and
+    edge range, z^T g on the tensor cores) and the fixed-order sum of the
+    ranges' partial rows.  CPU tensors take ``dtp_lin_legW_plain``; CUDA
+    tensors launch the kernel (float32 or bfloat16) or raise."""
     if g.device.type == "cpu":
         return dtp_lin_legW_plain(plan, g, x, sh, w, n_edges)
     E, dev = g.shape[0], g.device
@@ -328,17 +346,8 @@ def dtp_lin_legW(plan: DTPLinPlan, g: torch.Tensor, x: torch.Tensor, sh: torch.T
     dW = torch.zeros((plan.w_numel,), dtype=torch.float32, device=dev)
     if E == 0:
         return dW
-    gk, terms, coeffs, _, _, _, cols_pad_max = plan.bwd_tables(dev)
-    n_parts = min(-(-E // BWD_TILE), LEGW_BLOCKS_PER_SM * _sm_count(dev))
-    part = torch.empty((n_parts, plan.w_numel), dtype=torch.float32, device=dev)
-    err = _build.library().dtp_lin_legW(
-        _build.ptr(x), x.stride(0), _build.ptr(sh), plan.d_sh, _build.ptr(w), plan.d_w,
-        _build.ptr(g), plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0],
-        _build.ptr(terms), _build.ptr(coeffs), _build.ptr(part), n_parts, _build.ptr(dW),
-        plan.w_numel, cols_pad_max, plan.max_fan_stride, _build.dtype_code(g),
-        _build.stream_ptr(),
-    )
-    _build.check(err, "dtp_lin_legW")
+    _k2_call("dtp_lin_legW", plan, g, x, sh, w, None, n_edges, None, None, dW, None,
+             blocks_per_sm=LEGW_DW_BLOCKS_PER_SM)
     dtp_lin_legW.launches += 1
     return dW
 
@@ -504,12 +513,16 @@ dtp_lin_rad_legWr.launches = 0
 
 
 def leg_occupancy(plan: DTPLinPlan, dtype: torch.dtype, out_leg: str) -> int:
-    """Resident blocks per SM at this plan's shared memory of K5b's
-    ``out_leg`` kernel ("x", "sh", "w") or K5c ("W"); on a radial-folded plan
-    of K7-L's ("x", "sh", "h"), K7-Wr ("Wr") or K7-LW ("W").  Needs the card."""
+    """Resident blocks per SM at this plan's shared memory of K5b's sh leg
+    kernel ("sh"), or on a radial-folded plan of K7-L's ("x", "sh", "h"),
+    K7-Wr ("Wr") or K7-LW ("W").  Needs the card.  (K5b's x and w legs and
+    K5c run on K2's launches: one 16-edge tile a block, and dW tiles by edge
+    ranges.)"""
     *_, span_max, cols_pad_max = bwd3_tables(plan, torch.device("cpu"))
     code = _build.dtype_code(torch.empty((), dtype=dtype))
     hd = plan.radial_fold or 0
+    if not hd and out_leg != "sh":
+        raise ValueError(f"the unfolded {out_leg!r} leg runs on K2's launches")
     if out_leg == "W":
         blocks = _build.library().dtp_lin_legW_occupancy(cols_pad_max, plan.max_fan_stride,
                                                          span_max, hd, code)

@@ -1,6 +1,8 @@
 """K1 (the fused DTP + linear forward), K2 (its backward), K3 (the CSR
-segment sum), K4 (the attention combine) and K7-F (the radial-folded
-forward) of this package against another tree's, in turns, on one GPU.
+segment sum), K4 (the attention combine), K7-F (the radial-folded
+forward), K5b (the x and w edge legs of the force models' fused op) and K5c
+(its head-weight leg) of this package against another tree's, in turns, on
+one GPU.
 
     python -m equiformer_tpu_torch.tools.kernel_ab [--against DIR [DIR ...]]
         [--kernels K1,K4] [--out FILE]
@@ -27,15 +29,17 @@ flagship's three sites (sep_act, sep_value with shared weights folded into
 W, the edge-degree embedding with its row-broadcast x), K1 also at MD17
 L3's sep_act; K4 at QM9's [E, 4, 120] with and without the alpha-dropout
 multiplier, the padding edges masked; K7-F at the folded flagship's
-sep_act.  Random operands from seed 0, the batch's real edges live.  Per
-shape and dtype (float32, bfloat16):
+sep_act; K5b's x leg and w leg (none at sep_value, whose weights are
+shared) and K5c at MD17 exp_l3's three sites (sep_act, sep_value, the
+edge degree), the leg's own operand None.  Random operands from seed 0,
+the batch's real edges live.  Per shape and dtype (float32, bfloat16):
 
 * ``ms``: each side's wrapper, CUDA events (median of 5 runs of 5 calls);
   ``host_us`` (K3): its host time a call (median of 5 runs of 100 calls
   without a synchronize), which bounds ``ms`` at the small MD17 shapes;
-* ``device_ms`` (K3, K4): each side's device time per call, all its
-  kernels, and ``kernel_ms`` the kernel alone, from a profiler trace of 20
-  calls;
+* ``device_ms`` (K3, K4, K5b, K5c): each side's device time per call, all
+  its kernels, and ``kernel_ms`` the kernel alone, from a profiler trace of
+  20 calls;
 * ``rel_err``: each side against this package's plain version (max |diff| /
   max |plain|); ``index_add_`` (K3's one-call equivalent, zeros + add: its
   time as the wrapper's, and its device time) and the plain version's
@@ -79,7 +83,10 @@ MD17 = ("graph_attention_transformer_nonlinear_exp_l3_md17", 8, 21)
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 K3_KERNEL = "csr_segment_sum_kernel"
 K4_KERNEL = "attn_combine_kernel"
-SECTIONS = ("K3", "K2", "K1", "K4", "K7F")
+# the K5b / K5c kernels of this design (k2::) and of the first one
+K5B_KERNELS = ("edge_leg_kernel", "sum_dx_kernel", "dtp_lin_leg_kernel")
+K5C_KERNELS = ("W_leg_kernel", "dtp_lin_legW_kernel", "sum_partial_rows_kernel")
+SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K5b", "K5c")
 
 
 def load_tree(root: Path, name: str):
@@ -120,7 +127,7 @@ def dtp_operands(plan, site, E, dt, dev):
     the edge degree's x is a broadcast row."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)  # noqa: E731
-    x = rnd(1, plan.d_x).expand(E, plan.d_x) if site.endswith("edge_deg") else rnd(E, plan.d_x)
+    x = rnd(1, plan.d_x).expand(E, plan.d_x) if "edge_deg" in site else rnd(E, plan.d_x)
     sh, cot, W = rnd(E, plan.d_sh), rnd(E, plan.d_out), 0.05 * rnd(plan.w_numel)
     w = None if plan.shared_weights else rnd(E, plan.d_w)
     return x, sh, w, W, cot
@@ -128,10 +135,12 @@ def dtp_operands(plan, site, E, dt, dev):
 
 def traced_run(call, tag, kernel):
     """Device time and launches per call of ``call``, and of its ``kernel``
-    alone, from a trace of 20 calls."""
+    (a name, or a tuple of names) alone, from a trace of 20 calls."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     per_kernel = kernel_ms(call, 20, TRACE_DIR / f"ab_{tag}.json")
     return {"device_ms": sum(ms for ms, _ in per_kernel.values()),
-            "kernel_ms": sum(ms for k, (ms, _) in per_kernel.items() if kernel in k),
+            "kernel_ms": sum(ms for k, (ms, _) in per_kernel.items()
+                             if any(n in k for n in names)),
             "launches": sum(n for _, n in per_kernel.values())}
 
 
@@ -263,6 +272,42 @@ def k4_section(sides, order, case, dev, report):
             print("K4", name, json.dumps(entry), flush=True)
 
 
+def k5_section(key, sides, order, plans, rows, dev, report):
+    """K5b's x and w legs (``key`` "K5b") or K5c ("K5c") at each site of
+    ``plans[side]``, against this package's plain versions, both dtypes."""
+    legs = ("x", "w") if key == "K5b" else ("W",)
+    for site, plan in plans["package"].items():
+        E, n_live = rows[site]
+        for leg in legs:
+            if leg == "w" and plan.shared_weights:
+                continue
+            for dt in (torch.float32, torch.bfloat16):
+                x, sh, w, W, cot = dtp_operands(plan, site, E, dt, dev)
+                n = torch.tensor(n_live, dtype=torch.int32, device=dev)
+                ops = {"x": x, "sh": sh, "w": w, leg: None}
+                if leg == "W":
+                    want = kernels.dtp_lin_legW_plain(plan, cot, x, sh, w, n)
+                else:
+                    want = kernels.dtp_lin_leg_plain(plan, leg, cot, ops["x"], ops["sh"],
+                                                     ops["w"], W, n)
+                entry = {"E": E, "n_live": n_live, "runs": []}
+                for i, side in enumerate(order):
+                    m, p = sides[side][0], plans[side][site]
+                    if leg == "W":
+                        call = lambda m=m, p=p: m.dtp_lin_legW(p, cot, x, sh, w, n)  # noqa: E731
+                    else:
+                        call = lambda m=m, p=p: m.dtp_lin_leg(  # noqa: E731
+                            p, leg, cot, ops["x"], ops["sh"], ops["w"], W, n)
+                    tag = f"{key}_{site}_{leg}_{str(dt)[6:]}_{side}_{i}"
+                    entry["runs"].append({
+                        "side": side, "ms": device_time_ms(call, dev),
+                        **traced_run(call, tag, K5B_KERNELS if key == "K5b" else K5C_KERNELS),
+                        "rel_err": rel(call(), want)})
+                name = f"{site}/{leg}/{str(dt)[6:]}"
+                report[key][name] = entry
+                print(key, name, json.dumps(entry), flush=True)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, nargs="+", default=[],
@@ -328,6 +373,17 @@ def main(argv=None) -> dict:
         dtp_section("K7F", sides, order, fold, rows, dev, report, lambda m: (
             lambda p, o, n: m.dtp_lin_rad_fwd(p, o[0], o[1], *rad_ops(p, o), o[3], n)),
             lambda p, o, n: dtp_lin_rad_plain(p, o[0], o[1], *rad_ops(p, o), o[3], n))
+
+    if {"K5b", "K5c"} & set(want):
+        mrows = {f"md17-{site}": (mE, int(mmask.sum())) for site in ("sep_act", "sep_value",
+                                                                      "edge_deg")}
+        mplans = {}
+        for side, (_, make) in sides.items():
+            md17 = make(MD17[0])(max_edges=mE, nodes_per_graph=MD17[2], seed=SEED, device=dev)
+            mplans[side] = {f"md17-{k}": v for k, v in dtp_plans(md17).items()}
+        for key in ("K5b", "K5c"):
+            if key in want:
+                k5_section(key, sides, order, mplans, mrows, dev, report)
 
     text = json.dumps(report, indent=1)
     print(text)

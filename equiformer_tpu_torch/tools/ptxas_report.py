@@ -83,7 +83,8 @@ def main(argv=None) -> int:
         at_default = {_DEFAULT_STAGE.sub(r"\1>", n): v for n, v in mine.items()}
         for name, lines in other.items():
             same = at_default.get(name) == lines
-            print(f"against {args.against}: {name}: {'equal' if same else 'DIFFERS'}")
+            print(f"against {args.against}: {name}: "
+                  + ("equal" if same else f"DIFFERS (there: {'; '.join(lines)})"))
             if not same:
                 differs.append(name)
         report["against"] = {"dir": str(args.against), "compared": len(other), "differ": differs}

@@ -367,6 +367,70 @@ def test_dtp_lin_leg_kernels_match_plain(dev, site, dtype):
     assert dtp_lin_legW.launches == 2
 
 
+# MD17 exp_l3's three fused sites at full width (block 0's sep_act with its
+# two heads, sep_value with shared weights, the edge-degree embedding with
+# its row-broadcast x): (heads, shared weights, broadcast x)
+MD17_EMB = "128x0e+64x1e+64x2e+32x3e"
+MD17_SITES = {
+    "sep_act": (["288x0e+64x1e+64x2e+32x3e", "128x0e"], False, False),
+    "sep_value": ([MD17_EMB], True, False),
+    "edge_deg": ([MD17_EMB], False, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("site", list(MD17_SITES))
+def test_k5b_k5c_on_k2_launches_at_md17_sites(dev, site, dtype):
+    """K5b's x and w legs (K2's launch 1, a block per tile and irrep group)
+    and K5c (K2's launch 2) at MD17 exp_l3's full-width sites
+    against their plain versions: E = 2941 (a multiple of neither 16 nor 64)
+    with 2600 real rows, whose tail gives zeros, and E = 0; two calls give
+    the same bits (no float atomics; the x leg's per-group partials and the
+    dW partial rows are summed in a fixed order)."""
+    from equiformer_tpu_torch.kernels import (
+        dtp_lin_leg, dtp_lin_leg_plain, dtp_lin_legW, dtp_lin_legW_plain,
+    )
+
+    heads, shared, broadcast = MD17_SITES[site]
+    dt = getattr(torch, dtype)
+    plan = DTPLinPlan(depthwise_tp(Irreps(MD17_EMB), Irreps(L3_SH), Irreps(MD17_EMB)), heads,
+                      shared_weights=shared)
+    legs = ("x",) if shared else ("x", "w")
+    g = torch.Generator().manual_seed(9)
+    for E, n_live in ((2941, 2600), (0, 0)):
+        rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+        x = rnd(1, plan.d_x).expand(E, plan.d_x) if broadcast else rnd(E, plan.d_x)
+        sh, W, cot = rnd(E, plan.d_sh), rnd(plan.w_numel), rnd(E, plan.d_out)
+        w = None if shared else rnd(E, plan.d_w)
+        n = torch.tensor(n_live, dtype=torch.int32, device=dev)
+        reset_launch_counts()
+        for leg in legs:
+            ops = {"x": x, "sh": sh, "w": w, leg: None}
+            call = lambda: dtp_lin_leg(plan, leg, cot, ops["x"], ops["sh"], ops["w"], W, n)  # noqa: E731
+            k = call()
+            width = plan.d_x if leg == "x" else plan.d_w
+            assert k.dtype == dt and k.shape == (E, width)
+            if E == 0:
+                continue
+            p = dtp_lin_leg_plain(plan, leg, cot, ops["x"], ops["sh"], ops["w"], W, n)
+            torch.cuda.synchronize()
+            assert _rel(k, p) < TOL[dtype], leg
+            assert float(k[n_live:].abs().max()) == 0.0
+            assert torch.equal(k, call())
+        k = dtp_lin_legW(plan, cot, x, sh, w, n)
+        assert k.dtype == torch.float32 and k.shape == (plan.w_numel,)
+        if E == 0:
+            assert float(k.abs().max()) == 0.0
+            assert (dtp_lin_leg.launches, dtp_lin_legW.launches) == (0, 0)
+            continue
+        p = dtp_lin_legW_plain(plan, cot, x, sh, w, n)
+        torch.cuda.synchronize()
+        assert _rel(k, p) < TOL[dtype]
+        assert torch.equal(k, dtp_lin_legW(plan, cot, x, sh, w, n))
+        assert (dtp_lin_leg.launches, dtp_lin_legW.launches) == (2 * len(legs), 2)
+
+
 @pytest.mark.cuda
 def test_reduced_md17_train_step_on_card_matches_cpu(dev):
     """One fp32 training step of a reduced L3 force model (2 blocks, exp

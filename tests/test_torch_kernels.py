@@ -10,6 +10,8 @@ order), fp64 within 1e-12 relative.  The CUDA kernels themselves are held
 to these plain versions on the card by ``tests/test_torch_cuda.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -541,60 +543,81 @@ def _unpack_k2(packed, fan_stride, cols):
     the fragment layout itself (lane (g, q) holds W_g[8 nt + g, 16 ks + 2q
     + (0, 1, 8, 9)]), not by ``k2_pack_index``."""
     n_nt, n_ks = -(-fan_stride // 8), -(-cols // 16)
-    packed = packed.reshape(n_nt, n_ks, 32, 4)
+    nt, ks, lane, v = torch.meshgrid(torch.arange(n_nt), torch.arange(n_ks), torch.arange(32),
+                                     torch.arange(4), indexing="ij")
     out = packed.new_zeros(8 * n_nt, 16 * n_ks)
-    for lane in range(32):
-        gq, q = divmod(lane, 4)
-        for v, dj in enumerate((0, 1, 8, 9)):
-            for nt in range(n_nt):
-                out[8 * nt + gq, 16 * np.arange(n_ks) + 2 * q + dj] = packed[nt, :, lane, v]
+    out[8 * nt + lane // 4, 16 * ks + 2 * (lane % 4) + torch.tensor([0, 1, 8, 9])[v]] = \
+        packed.reshape(n_nt, n_ks, 32, 4)
     return out
 
 
-def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16):
+def _group_rows(gk, n_split, s):
+    """The gk rows of the irrep groups of split ``s`` of ``n_split``
+    (csrc/dtp_lin_bwd.cu, k2::group_rows): groups [s n / n_split, (s + 1) n
+    / n_split) of the plan's n, a group's rows consecutive, its first
+    flagged."""
+    bounds = [q for q, r in enumerate(gk) if r[10]] + [len(gk)]
+    n = len(bounds) - 1
+    return range(bounds[s * n // n_split], bounds[(s + 1) * n // n_split])
+
+
+def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n_split=1):
     """csrc/dtp_lin_bwd.cu's launch 1 (k2::dxdw_kernel) over
     ``plan.k2_tables``, in torch: per 16-edge tile the staged x / w span /
     G (padded to the K step), dz through the packed W (unpacked by the
     fragment layout), the term transposes and the per-group dw flush through
-    ``dwmap``; tiles past ``n_edges`` write zeros."""
+    ``dwmap``; tiles past ``n_edges`` write zeros.  ``leg`` "x" or "w": one
+    edge leg as K5b runs it on the same code (k2::edge_leg_kernel), dx alone
+    without reading x (pass None) or dw alone without reading w (pass None),
+    each tile's block cut by irrep group into ``n_split``: the w leg's
+    splits write disjoint dw columns, the x leg's fp32 dx partials are summed
+    in split order.  Returns (dx, dw), or the leg's output."""
     _, terms, coeffs, dwmap, _, span_max, _ = plan.bwd_tables(torch.device("cpu"))
     kt = plan.k2_tables(torch.device("cpu"))
     terms, coeffs, dwmap = terms.tolist(), coeffs.tolist(), dwmap.tolist()
     gk = kt.gk.tolist()
     Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[kt.wp_index]
-    E = x.shape[0]
-    dx = torch.full((E, plan.d_x), float("nan"), dtype=x.dtype)
-    dw = None if w is None else torch.full((E, plan.d_w), float("nan"), dtype=x.dtype)
-    if w is not None and plan.dw_has_dead_cols:
+    E = g.shape[0]
+    want_dx, want_dw = leg != "w", leg == "w" or (leg is None and w is not None)
+    dx = torch.full((E, plan.d_x), float("nan"), dtype=g.dtype) if want_dx else None
+    dw = torch.full((E, plan.d_w), float("nan"), dtype=g.dtype) if want_dw else None
+    if want_dw and plan.dw_has_dead_cols:
         dw.zero_()  # the wrapper's zeros: dead columns are never written
     for e0 in range(0, E, tile):
         n_rows, n_live = min(tile, E - e0), max(0, min(tile, E - e0, n_edges - e0))
         rows = slice(e0, e0 + n_live)
         if n_live == 0:
-            dx[e0 : e0 + n_rows] = 0.0
-            if w is not None:
-                dw[e0 : e0 + n_rows] = 0.0
+            for out in (dx, dw):
+                if out is not None:
+                    out[e0 : e0 + n_rows] = 0.0
             continue
-        s_dx = torch.zeros(tile, plan.d_x, dtype=x.dtype)
-        for fs, cols, out_col, w_off, tb, te, wp_off, cp, sb, sn, first, last in gk:
-            if w is not None and first:
-                s_dw = torch.zeros(tile, max(span_max, 1), dtype=x.dtype)
-                s_w = w[rows][:, dwmap[sb : sb + sn]]
-            s_g = torch.zeros(tile, cp, dtype=x.dtype)
-            s_g[:n_live, :cols] = g[rows, out_col : out_col + cols]
-            n_packed = -(-fs // 8) * 8 * cp
-            dz = s_g @ _unpack_k2(Wp[wp_off : wp_off + n_packed], fs, cols).T
-            for (a, col, b, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
-                d = c * sh[rows, col : col + 1] * dz[:n_live, fc : fc + mul]
-                if w is None:
-                    s_dx[:n_live, a : a + mul] += d
-                else:
-                    s_dx[:n_live, a : a + mul] += d * s_w[:, bl : bl + mul]
-                    s_dw[:n_live, bl : bl + mul] += d * x[rows, a : a + mul]
-            if w is not None and last:
-                dw[e0 : e0 + n_rows, dwmap[sb : sb + sn]] = s_dw[:n_rows, :sn]
-        dx[e0 : e0 + n_rows] = s_dx[:n_rows]
-    return dx, dw
+        parts = []
+        for s in range(n_split):
+            s_dx = torch.zeros(tile, plan.d_x, dtype=g.dtype)
+            for q in _group_rows(gk, n_split, s):
+                fs, cols, out_col, w_off, tb, te, wp_off, cp, sb, sn, first, last = gk[q]
+                if first:
+                    s_dw = torch.zeros(tile, max(span_max, 1), dtype=g.dtype)
+                    s_w = None if w is None else w[rows][:, dwmap[sb : sb + sn]]
+                s_g = torch.zeros(tile, cp, dtype=g.dtype)
+                s_g[:n_live, :cols] = g[rows, out_col : out_col + cols]
+                n_packed = -(-fs // 8) * 8 * cp
+                dz = s_g @ _unpack_k2(Wp[wp_off : wp_off + n_packed], fs, cols).T
+                for (a, col, b, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
+                    d = c * sh[rows, col : col + 1] * dz[:n_live, fc : fc + mul]
+                    if want_dx:
+                        s_dx[:n_live, a : a + mul] += d if s_w is None else d * s_w[:, bl : bl + mul]
+                    if want_dw:
+                        s_dw[:n_live, bl : bl + mul] += d * x[rows, a : a + mul]
+                if want_dw and last:
+                    dw[e0 : e0 + n_rows, dwmap[sb : sb + sn]] = s_dw[:n_rows, :sn]
+            parts.append(s_dx)
+        if want_dx:
+            acc = parts[0]
+            for part in parts[1:]:
+                acc = acc + part
+            dx[e0 : e0 + n_rows] = acc[:n_rows]
+    return {"x": dx, "w": dw}[leg] if leg else (dx, dw)
 
 
 def _emulate_k2_launch2(plan, x, sh, w, g, n_edges, sm_count=3):
@@ -664,14 +687,19 @@ def test_dtp_lin_bwd_tables_drive_the_plain_math(case):
 
 
 @pytest.mark.parametrize("sm_count", [1, 3, 40])
-@pytest.mark.parametrize("case", ["two-head", "shared-w", "broadcast-x"])
+@pytest.mark.parametrize("case", ["two-head", "shared-w", "broadcast-x", "md17-sep_act",
+                                  "md17-sep_value", "md17-edge_deg"])
 def test_k2_dW_tiles_cover_each_element_once_per_range(case, sm_count):
-    """K2's dW decomposition: every element of W_flat is written exactly
-    once in each edge range's partial row (so the scratch needs no zeroing),
-    ranges are whole steps of K2_EDGES covering all rows, and the rows summed
-    in range order give the plain dW (fp64 inputs, the tables' fp32 CG
-    coefficients: 1e-6 relative; rows past n_edges add nothing)."""
-    plan, x, sh, w, W, g = _bwd_inputs(case, torch.float64, E=150, seed=6)
+    """K2's dW decomposition, which K5c shares: every element of W_flat is
+    written exactly once in each edge range's partial row (so the scratch
+    needs no zeroing), ranges are whole steps of K2_EDGES covering all rows,
+    and the rows summed in range order give the plain dW (fp64 inputs, the
+    tables' fp32 CG coefficients: 1e-6 relative; rows past n_edges add
+    nothing); at small widths and at MD17 exp_l3's three sites."""
+    if case.startswith("md17"):
+        plan, x, sh, w, W, g = _md17_inputs(case, 150, seed=6)
+    else:
+        plan, x, sh, w, W, g = _bwd_inputs(case, torch.float64, E=150, seed=6)
     kt = plan.k2_tables(torch.device("cpu"))
     n_ranges, range_len = k2_ranges(150, kt.tiles.shape[0], sm_count)
     assert range_len % K2_EDGES == 0 and (n_ranges - 1) * range_len < 150 <= n_ranges * range_len
@@ -1340,106 +1368,145 @@ def test_dtp_lin_ho_backward_runs_only_the_legs_asked_for(monkeypatch):
     assert not ho._SKIPPED_LEGS
 
 
-def _emulate_leg_kernel(plan, leg, x, sh, w, W_flat, g, n_edges, tile=16, warps=8):
-    """csrc/dtp_lin_leg.cu's loop over ``bwd3_tables`` for one leg, in torch,
-    one edge tile at a time: the staged slice of g, dz through the packed
-    W^T, then per row (warp) the terms in table order.  The leg's own operand
-    is never read (the caller passes None for it); the sh leg adds its
-    running sum to the row at each SH column change; the w leg flushes a
-    group's columns through ``dwmap`` at its last component."""
+def _emulate_sh_leg_kernel(plan, x, w, W_flat, g, n_edges, tile=16, warps=8):
+    """csrc/dtp_lin_leg.cu's loop over ``bwd3_tables`` for K5b's sh leg, in
+    torch, one edge tile at a time: the staged slice of g, dz through the
+    packed W^T, then per row (warp) the terms in table order, the running
+    sum added to the row's dsh at each SH column change; sh is never read."""
     from equiformer_tpu_torch.kernels.dtp_lin_ho import bwd3_tables
 
-    gk, terms, coeffs, dwmap, wt_index, span_max, _ = bwd3_tables(plan, torch.device("cpu"))
-    gk, terms, coeffs, dwmap = gk.tolist(), terms.tolist(), coeffs.tolist(), dwmap.tolist()
+    gk, terms, coeffs, _, wt_index, _, _ = bwd3_tables(plan, torch.device("cpu"))
+    gk, terms, coeffs = gk.tolist(), terms.tolist(), coeffs.tolist()
     WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
     E = g.shape[0]
-    width = {"x": plan.d_x, "sh": plan.d_sh, "w": plan.d_w}[leg]
-    out = torch.zeros(E, width, dtype=g.dtype)
+    out = torch.zeros(E, plan.d_sh, dtype=g.dtype)
     for e0 in range(0, min(E, n_edges), tile):
         n_live = min(tile, n_edges - e0)
-        acc = torch.zeros(n_live, max(span_max, 1) if leg == "w" else width, dtype=g.dtype)
-        for fs, cols, out_col, _, tb, te, wt_off, cp, sb, sn, first, last in gk:
-            if leg == "w" and first:
-                acc.zero_()
+        acc = torch.zeros(n_live, plan.d_sh, dtype=g.dtype)
+        for fs, cols, out_col, _, tb, te, wt_off, cp, *_ in gk:
             gt = torch.zeros(n_live, cp, dtype=g.dtype)
             gt[:, :cols] = g[e0 : e0 + n_live, out_col : out_col + cols]
             dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
             for r0 in range(warps):
                 for r in range(r0, n_live, warps):
                     e, run, cur = e0 + r, 0.0, -1
-                    for (a, col, b, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
-                        d = dz[r, fc : fc + mul]
-                        if leg == "sh":
-                            if col != cur:
-                                if cur >= 0:
-                                    acc[r, cur] += run
-                                run, cur = 0.0, col
-                            wv = 1.0 if w is None else w[e, b : b + mul]
-                            run = run + float(torch.sum(c * x[e, a : a + mul] * wv * d))
-                        elif leg == "x":
-                            wv = 1.0 if w is None else w[e, b : b + mul]
-                            acc[r, a : a + mul] += c * sh[e, col] * wv * d
-                        else:
-                            acc[r, bl : bl + mul] += c * sh[e, col] * x[e, a : a + mul] * d
-                    if leg == "sh" and cur >= 0:
+                    for (a, col, b, fc, mul, _), c in zip(terms[tb:te], coeffs[tb:te]):
+                        if col != cur:
+                            if cur >= 0:
+                                acc[r, cur] += run
+                            run, cur = 0.0, col
+                        wv = 1.0 if w is None else w[e, b : b + mul]
+                        run = run + float(torch.sum(c * x[e, a : a + mul] * wv
+                                                    * dz[r, fc : fc + mul]))
+                    if cur >= 0:
                         acc[r, cur] += run
-            if leg == "w" and last:
-                out[e0 : e0 + n_live, dwmap[sb : sb + sn]] = acc[:, :sn]
-        if leg != "w":
-            out[e0 : e0 + n_live] = acc
+        out[e0 : e0 + n_live] = acc
     return out
 
 
-def _emulate_legW_kernel(plan, x, sh, w, g, n_edges, n_parts, tile=16):
-    """csrc/dtp_lin_legW.cu's loop over ``plan.bwd_tables``, in torch: block
-    b walks the tiles b, b + n_parts, ..., skips those past n_edges, stages
-    the slice of g, recomputes z from the term table and adds z^T g into its
-    own partial row; the rows are then summed in block order."""
-    gk, terms, coeffs, *_ = plan.bwd_tables(torch.device("cpu"))
-    gk, terms, coeffs = gk.tolist(), terms.tolist(), coeffs.tolist()
-    E = g.shape[0]
-    n_tiles = -(-E // tile)
-    part = torch.zeros(n_parts, plan.w_numel, dtype=g.dtype)
-    for blk in range(n_parts):
-        for t in range(blk, n_tiles, n_parts):
-            e0 = t * tile
-            n_live = max(0, min(tile, E - e0, n_edges - e0))
-            if n_live == 0:
-                continue
-            rows = slice(e0, e0 + n_live)
-            for fs, cols, out_col, w_off, tb, te, *_ in gk:
-                z = torch.zeros(n_live, fs, dtype=g.dtype)
-                for (a, col, b, fc, mul, _), c in zip(terms[tb:te], coeffs[tb:te]):
-                    v = c * sh[rows, col : col + 1] * x[rows, a : a + mul]
-                    z[:, fc : fc + mul] += v if w is None else v * w[rows, b : b + mul]
-                part[blk, w_off : w_off + fs * cols] += \
-                    (z.T @ g[rows, out_col : out_col + cols]).reshape(-1)
-    dW = torch.zeros(plan.w_numel, dtype=g.dtype)
-    for blk in range(n_parts):
-        dW += part[blk]
+def _k2_dW(plan, x, sh, w, g, n_edges, sm_count=3):
+    """K5c (and K2's dW) as csrc/dtp_lin_bwd.cu's launch 2 computes it: the
+    ranges' partial rows summed in range order."""
+    part, _ = _emulate_k2_launch2(plan, x, sh, w, g, n_edges, sm_count)
+    dW = part[0].clone()
+    for row in part[1:]:
+        dW += row
     return dW
 
 
 @pytest.mark.parametrize("case", ["two-head", "shared-w", "broadcast-x", "dead-w-cols", "l3"])
 def test_dtp_lin_leg_tables_drive_the_plain_math(case):
     """The CUDA leg kernels cannot run here; their tables can.  Walking them
-    the way csrc/dtp_lin_leg.cu (each edge leg, without its own operand) and
-    csrc/dtp_lin_legW.cu (with fewer blocks than tiles, so a block walks
-    several) do gives the plain versions' results (fp64 inputs, the tables'
-    fp32 CG coefficients: 1e-6 relative)."""
+    the way K5b's x and w legs run on K2's launch 1 (each without its own
+    operand, each tile whole and cut by irrep group), its sh leg on
+    csrc/dtp_lin_leg.cu, and K5c on K2's launch 2 (with fewer blocks than
+    ranges' steps) gives the plain versions' results (fp64 inputs, the
+    tables' fp32 CG coefficients: 1e-6 relative)."""
     from equiformer_tpu_torch.kernels import dtp_lin_leg_plain, dtp_lin_legW_plain
 
     plan, x, sh, w, W, g = _bwd3_inputs(case, torch.float64, E=40, seed=6)
     n = torch.tensor(37, dtype=torch.int32)
-    for leg in ("x", "sh") + (() if w is None else ("w",)):
+    for leg in ("x",) + (() if w is None else ("w",)):
         ops = {"x": x, "sh": sh, "w": w, leg: None}
         want = dtp_lin_leg_plain(plan, leg, g, ops["x"], ops["sh"], ops["w"], W, n)
-        got = _emulate_leg_kernel(plan, leg, ops["x"], ops["sh"], ops["w"], W, g, 37)
-        assert got.shape == want.shape
-        assert _rel(got.numpy(), want.numpy()) < 1e-6, leg
+        for n_split in (1, len(plan.groups)):
+            got = _emulate_k2_launch1(plan, ops["x"], ops["sh"], ops["w"], W, g, 37, leg=leg,
+                                      n_split=n_split)
+            assert got.shape == want.shape
+            assert _rel(got.numpy(), want.numpy()) < 1e-6, (leg, n_split)
+    want = dtp_lin_leg_plain(plan, "sh", g, x, None, w, W, n)
+    got = _emulate_sh_leg_kernel(plan, x, w, W, g, 37)
+    assert got.shape == want.shape and _rel(got.numpy(), want.numpy()) < 1e-6
     want = dtp_lin_legW_plain(plan, g, x, sh, w, n)
-    got = _emulate_legW_kernel(plan, x, sh, w, g, 37, n_parts=2)
+    assert _rel(_k2_dW(plan, x, sh, w, g, 37).numpy(), want.numpy()) < 1e-6
+
+
+# MD17 exp_l3's three fused sites at full width: block 0's sep_act (two heads,
+# per-edge w), sep_value (shared w folded into W) and the edge-degree
+# embedding (a row-broadcast x): (heads, shared weights, broadcast x)
+MD17_SITES = {
+    "md17-sep_act": (["288x0e+64x1e+64x2e+32x3e", "128x0e"], False, False),
+    "md17-sep_value": ([L3_EMB], True, False),
+    "md17-edge_deg": ([L3_EMB], False, True),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _md17_plan(site):
+    heads, shared, _ = MD17_SITES[site]
+    return DTPLinPlan(depthwise_tp(Irreps(L3_EMB), Irreps(L3_SH), Irreps(L3_EMB)), heads,
+                      shared_weights=shared)
+
+
+def _md17_inputs(site, E, seed):
+    """fp64 operands of one MD17 site from a numpy seed: (plan, x (a
+    row-broadcast view at the edge degree), sh, w or None, W, cotangent)."""
+    plan, broadcast = _md17_plan(site), MD17_SITES[site][2]
+    rng = np.random.default_rng(seed)
+    rnd = lambda *s: torch.from_numpy(rng.normal(size=s))  # noqa: E731
+    x = rnd(1, plan.d_x).expand(E, plan.d_x) if broadcast else rnd(E, plan.d_x)
+    w = None if plan.shared_weights else rnd(E, plan.d_w)
+    return plan, x, rnd(E, plan.d_sh), w, rnd(plan.w_numel), rnd(E, plan.d_out)
+
+
+@pytest.mark.parametrize("split", ["tile", "groups"])
+@pytest.mark.parametrize("site,leg", [(s, leg) for s, (_, shared, _) in MD17_SITES.items()
+                                      for leg in ("x",) + (() if shared else ("w",))])
+def test_k5b_legs_walk_k2_launch1_at_md17_plans(site, leg, split):
+    """K5b's x and w legs as K2's launch 1 runs them (k2::edge_leg_kernel),
+    at MD17 exp_l3's full-width plans, 37 edges of which 29 real (a partial
+    last tile and a tile past the real edges), each tile's block whole or cut
+    by irrep group, None in the leg's own slot: the plain leg within 1e-6
+    (fp64 inputs, the tables' fp32 CG coefficients); rows past n_edges 0."""
+    from equiformer_tpu_torch.kernels import dtp_lin_leg_plain
+
+    plan, x, sh, w, W, g = _md17_inputs(site, 37, seed=21)
+    ops = {"x": x, "sh": sh, "w": w, leg: None}
+    want = dtp_lin_leg_plain(plan, leg, g, ops["x"], ops["sh"], ops["w"], W,
+                             torch.tensor(29, dtype=torch.int32))
+    got = _emulate_k2_launch1(plan, ops["x"], ops["sh"], ops["w"], W, g, 29, leg=leg,
+                              n_split=1 if split == "tile" else len(plan.groups))
+    assert got.shape == want.shape
     assert _rel(got.numpy(), want.numpy()) < 1e-6
+    assert float(got[29:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("site", list(MD17_SITES))
+def test_k5c_walks_k2_launch2_at_md17_plans(site):
+    """K5c as K2's launch 2 runs it (k2::W_leg_kernel: z recomputed per dW
+    tile and edge range from x, of row stride 0 at the edge degree, and w,
+    None for the shared weights), at MD17 exp_l3's full-width plans with 37
+    edges of which 29 real: the plain head-weight leg within 1e-6; the tiles
+    cover each element of W_flat once per range, pad rows included."""
+    from equiformer_tpu_torch.kernels import dtp_lin_legW_plain
+
+    plan, x, sh, w, _, g = _md17_inputs(site, 37, seed=22)
+    assert x.stride(0) == (0 if MD17_SITES[site][2] else plan.d_x)
+    want = dtp_lin_legW_plain(plan, g, x, sh, w, torch.tensor(29, dtype=torch.int32))
+    part, writes = _emulate_k2_launch2(plan, x, sh, w, g, 29)
+    assert bool((writes == 1).all())
+    dW = part[0] + sum(part[1:]) if part.shape[0] > 1 else part[0]
+    assert _rel(dW.numpy(), want.numpy()) < 1e-6
 
 
 def test_dtp_lin_ho_on_the_cpu_launches_no_kernel():
