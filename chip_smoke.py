@@ -68,22 +68,24 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    3.3e-2 on a reduced model), so the card's distance to a float64 CPU
    evaluation must be at most MD17_BF16_FACTOR times the bfloat16 CPU plain
    path's.
-7. md17 kernels — K1 and K5a (``dtp_lin_bwd3``) at the exp_l3 shapes of
-   batch 0 at the three call sites (sep_act; sep_value with folded shared
-   weights; the edge-degree embedding with its row-broadcast x, where K5a
-   computes no dx), and K3 at the path's width (864 columns) in its three
+7. md17 kernels — K1 and K5a (``dtp_lin_bwd3``, on K2's launch 1) at the
+   exp_l3 shapes of batch 0 at the three call sites (sep_act; sep_value
+   with folded shared weights; the edge-degree embedding with its
+   row-broadcast x), K5a with each caller's outputs (``K5A_NEEDS``: the
+   force pass's, and the training parameter pass's dx and dw), two calls
+   giving equal bits, and K3 at the path's width (864 columns) in its three
    forms (the edge-degree scatter and the attention sums [E, 4, 216],
    masked; the message gathers' backward, unmasked), float32 and bfloat16,
    against their plain versions with the tolerances of phase 3, timed the
    same way, with their bounds and, for K3, ``index_add_``.
 
-8. md17 train kernels — K5b (``dtp_lin_leg``: the x and w legs on K2's
-   launch 1, the sh leg) and K5c (``dtp_lin_legW``, K2's launch 2) at the
+8. md17 train kernels — K5b (``dtp_lin_leg``: the x, sh and w legs on K2's
+   launch 1) and K5c (``dtp_lin_legW``, K2's launch 2) at the
    three call sites at batch 0's shapes, float32 and bfloat16, against their
    plain versions with the tolerances of phase 3, timed the same way, with
    their bounds, each call's device time (a profiler trace of 20 calls)
-   beside its wrapper time, two calls giving equal bits, and the x / w legs'
-   grid of (tile, irrep group) blocks (the sh leg's resident blocks per SM).
+   beside its wrapper time, two calls giving equal bits, and the legs' grid
+   of (tile, irrep group) blocks (and the sh leg's resident blocks per SM).
 9. md17 train — the same force model in training mode through
    ``make_md17_steps`` (``energy_weight=1``, ``force_weight=80``, AdamW with
    the no-decay mask, ``cosine_warmup_schedule(5e-4, 100, 100000)``, weight
@@ -246,8 +248,8 @@ TPU_KERNELS = {
 SOURCES = {
     "dtp_lin_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
     "dtp_lin_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
-    "dtp_lin_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
-    "dtp_lin_leg": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",  # the x and w legs (sh: dtp_lin_leg.cu)
+    "dtp_lin_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
+    "dtp_lin_leg": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_legW": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
     "dtp_lin_rad_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
@@ -337,6 +339,12 @@ KRON = {"kron_g": True}
 EXPECTED_KRON_EVAL = {**NONE, "dtp_lin_kron_fwd": 13, "csr_segment_sum": 1, "attn_combine": 6}
 EXPECTED_KRON_TRAIN = {**NONE, "dtp_lin_kron_fwd": 13, "dtp_lin_kron_bwd": 13,
                        "csr_segment_sum": 13, "attn_combine": 6}
+# the outputs each caller of K5a asks for at MD17's three sites: the force
+# pass first (no dw at sep_value, whose weights are shared; no dx at the edge
+# degree, whose x is a constant row), then the parameter pass of training
+# (dx, dw at the per-edge-w sites)
+K5A_NEEDS = {"sep_act": (("x", "sh", "w"), ("x", "w")), "sep_value": (("x", "sh"),),
+             "edge_deg": (("sh", "w"), ("x", "w"))}
 MD17_CPU_MOLECULES = 2
 BF16_SCALAR_FLOOR = 2e-2
 MD17_MODEL = "graph_attention_transformer_nonlinear_exp_l3_md17"
@@ -846,25 +854,36 @@ def md17_kernel_phase(torch, model, batch, dev, records):
             record(records, "dtp_lin_fwd", "md17-" + site, dt_name, shape, [rel_err(k, p)], ms,
                    plain_ms, in_bytes + size * E * plan.d_out, n * (2 * macs + 4 * tp_elems))
 
-            need_dx = not broadcast_x
-            k = dtp_lin_bwd3(plan, x, sh, w, W, cot, n_edges, need_dx=need_dx)
-            p = dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n_edges)
-            torch.cuda.synchronize()
-            errs = [rel_err(a, b) for a, b in zip(k, p) if a is not None]
-            ms = cuda_time_ms(
-                lambda: dtp_lin_bwd3(plan, x, sh, w, W, cot, n_edges, need_dx=need_dx), torch)
-            plain_ms = cuda_time_ms(
-                lambda: dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n_edges), torch, reps=3,
-                inner=3)
-            # dz product, then 3 operations per term element for each of dx, dw, dsh
-            outs = int(need_dx) + int(w is not None) + 1
-            out_bytes = size * E * ((plan.d_x if need_dx else 0) + plan.d_sh
-                                    + (0 if w is None else plan.d_w))
-            record(records, "dtp_lin_bwd3", "md17-" + site, dt_name, shape, errs, ms, plain_ms,
-                   in_bytes + size * n * plan.d_out + out_bytes,
-                   n * (2 * macs + 3 * outs * tp_elems))
-            print(f"dtp_lin_bwd3 {site} {dt_name}: {bwd3_occupancy(plan, dt, need_dx)} "
-                  f"resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+            plain = lambda: dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n_edges)  # noqa: E731
+            p = dict(zip(("x", "sh", "w"), plain()))
+            plain_ms = cuda_time_ms(plain, torch, reps=3, inner=3)
+            widths = {"x": plan.d_x, "sh": plan.d_sh, "w": plan.d_w}
+            for need in K5A_NEEDS[site]:
+                flags = {f"need_d{key}": key in need for key in widths}
+                call = lambda flags=flags: dtp_lin_bwd3(  # noqa: E731
+                    plan, x, sh, w, W, cot, n_edges, **flags)
+                k, again = dict(zip(widths, call())), call()
+                torch.cuda.synchronize()
+                if sorted(key for key, v in k.items() if v is not None) != sorted(need):
+                    raise RuntimeError(f"K5a at {site} returned other outputs than {need}")
+                if not all(torch.equal(k[key], b) for key, b in zip(widths, again)
+                           if key in need):
+                    raise RuntimeError(f"K5a at {site} {dt_name} {need} repeats no bits")
+                errs = [rel_err(k[key], p[key]) for key in need]
+                ms = cuda_time_ms(call, torch)
+                # dz product, then 3 operations per term element for each output
+                record(records, "dtp_lin_bwd3",
+                       f"md17-{site}" + ("" if need == K5A_NEEDS[site][0] else
+                                         "-" + "".join("d" + key for key in need)),
+                       dt_name, shape, errs, ms, plain_ms,
+                       in_bytes + size * n * plan.d_out
+                       + size * E * sum(widths[key] for key in need),
+                       n * (2 * macs + 3 * len(need) * tp_elems))
+                occ = bwd3_occupancy(plan, dt, "x" in need, "w" in need, need_dsh="sh" in need,
+                                     x_rows=not broadcast_x)
+                print(f"dtp_lin_bwd3 {site} {dt_name} {'/'.join(need)}: {occ} resident blocks "
+                      f"per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+                      f"{-(-E // 16)} tiles x {len(plan.groups)} irrep groups")
 
         # K3: the edge-degree scatter [E, C] and the attention sums [E, H, D]
         # (reshaped to [E, H*D] as segment_sum does), masked; the gathers'
@@ -1198,9 +1217,10 @@ def md17_train_kernel_phase(torch, model, batch, dev, records):
                 record(records, "dtp_lin_leg", f"md17-{site}-{leg}", dt_name, shape,
                        [rel_err(k, p)], ms, plain_ms, nbytes, n * (2 * macs + 3 * tp_elems))
                 device_line(torch, "K5b", f"{site}-{leg}", dt_name, ms, call)
-                print(f"dtp_lin_leg {leg} {site} {dt_name}: " + (
-                    f"{leg_occupancy(plan, dt, leg)} resident blocks per SM" if leg == "sh" else
-                    f"{-(-E // 16)} tiles x {len(plan.groups)} irrep groups"))
+                print(f"dtp_lin_leg {leg} {site} {dt_name}: {-(-E // 16)} tiles x "
+                      f"{len(plan.groups)} irrep groups" + (
+                          f", {leg_occupancy(plan, dt, leg)} resident blocks per SM"
+                          if leg == "sh" else ""))
             call = lambda: dtp_lin_legW(plan, cot, x, sh, w, n_edges)  # noqa: E731
             k, p, again = call(), dtp_lin_legW_plain(plan, cot, x, sh, w, n_edges), call()
             torch.cuda.synchronize()

@@ -14,9 +14,10 @@
 //   dw[e, b+u]  += c * sh[e,col] * x[e,a+u] * dz[g,k][fc+u]       per term (per-edge w only)
 // With shared weights folded into W_g there is no w (taken as 1) and no dw:
 // autograd takes dW of the folded W back to W and w outside the kernel.
-// dsh is not computed: the QM9 path never differentiates through positions
-// (the wrapper raises when sh needs a gradient).  Rows e >= *n_edges get
-// zero dx / dw and add nothing to dW.
+// dsh is not computed by K2: the QM9 path never differentiates through
+// positions (the wrapper raises when sh needs a gradient); the force
+// models' K5a below adds it.  Rows e >= *n_edges get zero dx / dw and add
+// nothing to dW.
 //
 // What bounds it on the card.  Per real edge of the flagship's sep_act site
 // the dz product and the dW product each repeat the forward's 208,896
@@ -69,23 +70,47 @@
 // Rows e >= *n_edges: launch 1 writes zero dx / dw; launch 2 stops its
 // ranges at *n_edges.
 //
-// The single legs of the force models' fused op (k2::edge_leg_kernel and
-// k2::W_leg_kernel below; replace equiformer_tpu/kernels/dtp_lin_ho.py,
-// _edge_leg_kernel :163 for the x and w legs and _W_leg_kernel :402, built
-// by _leg_call :562-633) compute the same functions on the operands of the
-// grad-of-grad, where the operand of the output leg does not exist:
+// The force models' fused op (k2::edge_leg_kernel, k2::sh_leg_kernel,
+// k2::bwd3_kernel and k2::W_leg_kernel below; replace
+// equiformer_tpu/kernels/dtp_lin_ho.py, _edge_leg_kernel :163 for the x, sh
+// and w legs, _W_leg_kernel :402, built by _leg_call :562-633, and
+// _bwd3_kernel :451, built by _bwd3_pallas :647) computes the same
+// functions on the operands of the grad-of-grad, where the operand of the
+// output leg does not exist, and the force backward's dsh:
 // - K5b's x leg, F_x(g, sh, w, W) = launch 1 with dx alone (x never staged
 //   or read, no dw); its w leg, F_w(g, x, sh, W) = launch 1 with dw alone
-//   (w never staged or read, no dx).  The leg is a compile-time argument of
-//   launch 1's body, so K2's own instantiation is the code it was.  At
-//   MD17's 2944 edges one 16-edge tile a block gives 184 blocks of one per
-//   SM (132 SMs: 1.4 waves), so a leg launch cuts its tiles by irrep group
-//   (grid.y; the wrapper takes one split a group, 15-25% faster than whole
-//   tiles at MD17's sites): a w column feeds one group, so the w leg's
-//   blocks write disjoint dw columns; the x leg's dx sums over groups, so
-//   each (tile, group) block writes an fp32 partial [n_split, E, d_x] and a
-//   second kernel sums the partials in split order (rows past *n_edges:
-//   zeros).
+//   (w never staged or read, no dx); its sh leg, F_sh(g, x, w, W) = launch
+//   1 with dsh alone (sh never staged or read, no dx or dw):
+//     dsh[e, col] += c * sum_u x[e,a+u] * w[e,b+u] * dz[g,k][fc+u].
+//   The leg is a compile-time argument of launch 1's body, so K2's own
+//   instantiation is the code it was.
+// - K5a, the force backward, (F_x, F_sh, F_w)(g, ...) of one g = launch 1
+//   with dx, dsh and dw together, one dz product for all three; the set of
+//   outputs a caller asks for is a template argument (kNeed: the two- and
+//   three-output sets; null pointers for the rest were 9-22% slower on an
+//   H100).  Its fp32 tile at MD17's sep_act (dx, dw, dz, G, x, w: ~270 KB)
+//   does not fit a block's 227 KB, so there it reads x through L2 (kXg)
+//   instead of staging it.
+// - The dsh sum has one fixed order and no float atomics.  In the dsh legs'
+//   term pass a term of mul a multiple of 32 goes a row a warp (warp r takes
+//   row r, lane l its u = l, l + 32, ...: the lane sums them in order, a
+//   fixed __shfl_xor butterfly sums the lanes); a power-of-two mul < 32
+//   keeps K2's element (row, u) on thread row * mul + u, a row's u in
+//   consecutive lanes summed by a butterfly; any other mul takes K2's
+//   mapping for dx / dw and one thread a row for dsh.  Either way dx and dw
+//   stay owned by one thread within a (g, k) (the mapping depends on (row,
+//   u, mul) alone, and terms that share an x or w column share mul).  Each
+//   row sum goes once to the term's slot of the row; after the term pass's
+//   barrier one thread per (row, column) adds the slots of its column's
+//   terms in term order.  (Terms of one column need not share mul, so no
+//   thread owns a dsh element across terms.)
+// - At MD17's 2944 edges one 16-edge tile a block gives 184 blocks of one
+//   per SM (132 SMs: 1.4 waves), so a leg launch cuts its tiles by irrep
+//   group (grid.y; the wrapper takes one split a group): a w column feeds
+//   one group, so the blocks of one tile write disjoint dw columns; dx and
+//   dsh sum over groups, so each (tile, group) block writes fp32 partials
+//   [n_split, E, d_x] and [n_split, E, d_sh] and one more launch sums the
+//   partials in split order (rows past *n_edges: zeros).
 // - K5c's F_W(g, x, sh, w) = launch 2 and the row sum (dW in the packed
 //   [fan_stride, cols] layout at each group's w_off, pad rows zero), under
 //   a kernel name of its own so that a profile tells it from K2's.
@@ -473,9 +498,29 @@ constexpr int kRowPad = 8;               // staged x / w / dw rows: multiples of
 constexpr int kFullStage = 6;
 
 // what launch 1's code computes: an edge leg of the fused op (K5b, in
-// EDGE_LEGS' order of kernels/dtp_lin_ho.py: the x leg 0, the w leg 2), or
-// K2's dx and dw together
-enum Leg1 : int { kLegX = 0, kLegW = 2, kDxDw = 3 };
+// EDGE_LEGS' order of kernels/dtp_lin_ho.py: the x leg 0, the sh leg 1, the
+// w leg 2), K2's dx and dw together, or K5a's dx, dsh and dw together (each
+// null when not asked for)
+enum Leg1 : int { kLegX = 0, kLegSh = 1, kLegW = 2, kDxDw = 3, kBwd3 = 4 };
+
+// the legs with a dsh accumulator
+__host__ __device__ constexpr bool sums_dsh(int leg) { return leg == kLegSh || leg == kBwd3; }
+
+// K5a's outputs asked for (bits of `need`)
+constexpr int kNeedDx = 1, kNeedDsh = 2, kNeedDw = 4, kNeedAll = 7;
+
+// one term of the backward tables (DTPLinPlan.bwd_tables: a_off, sh col,
+// b_off, fan col, mul, local dw col) and its coefficient
+struct Term {
+  int a, col, fc, mul, bl;
+  float c;
+};
+
+__device__ __forceinline__ Term load_term(const int* __restrict__ terms,
+                                          const float* __restrict__ coeffs, int t) {
+  const int* tt = terms + t * kTermFields;
+  return {__ldg(tt), __ldg(tt + 1), __ldg(tt + 3), __ldg(tt + 4), __ldg(tt + 5), __ldg(coeffs + t)};
+}
 
 // launch 1's row strides, so that a warp's fragment loads and stores hit 32
 // distinct banks: G 8 words mod 32 in fp32 (float2 per lane), 4 in bf16 (one
@@ -487,25 +532,37 @@ __host__ __device__ inline int ld_g1(int cp_max) {
 __host__ __device__ inline int ld_dz1(int fd_max) { return stride_mod(fd_max, 32, 8); }
 
 // byte offsets of launch 1's shared memory: dx, dw (fp32), dz (fp32), G, x, w
-// (dtype), sh (fp32); the x leg keeps no dw and stages no x, the w leg keeps
-// no dx and stages no w.  has_w: the plan has per-edge w.
+// (dtype), sh, dsh and the dsh slots (fp32); the x leg keeps no dw and stages
+// no x, the w leg keeps no dx and stages no w, the sh leg keeps neither and
+// stages no sh; K5a keeps what `need` asks for, and with x_global reads x
+// through L2 instead of staging it.  has_w: the plan has per-edge w.
 struct Layout1 {
-  int dx, dw, dz, g, x, w, sh, total;
+  int dx, dw, dz, g, x, w, sh, dsh, slot, total;
 };
 
 template <typename T, int kLeg = kDxDw>
 __host__ __device__ inline Layout1 layout1(int d_x, int d_sh, int span_max, int cp_max,
-                                           int fd_max, bool has_w, bool x_rows) {
+                                           int fd_max, bool has_w, bool x_rows,
+                                           int need = kNeedAll, int slot_max = 0,
+                                           bool x_global = false) {
   const int dxs = round_up(d_x, kRowPad), sps = round_up(span_max, kRowPad);
+  const bool dsh = sums_dsh(kLeg) && (need & kNeedDsh);
   Layout1 l;
   l.dx = 0;
-  l.dw = l.dx + (kLeg != kLegW ? align16(kTile * dxs * 4) : 0);
-  l.dz = l.dw + (kLeg != kLegX && has_w ? align16(kTile * sps * 4) : 0);
+  l.dw = l.dx + (kLeg != kLegW && kLeg != kLegSh && (need & kNeedDx) ? align16(kTile * dxs * 4)
+                                                                      : 0);
+  l.dz = l.dw + (kLeg != kLegX && kLeg != kLegSh && (need & kNeedDw) && has_w
+                     ? align16(kTile * sps * 4)
+                     : 0);
   l.g = l.dz + align16(kTile * ld_dz1(fd_max) * 4);
   l.x = l.g + align16(kTile * ld_g1<T>(cp_max) * (int)sizeof(T));
-  l.w = l.x + (kLeg != kLegX ? align16((x_rows ? kTile : 1) * dxs * (int)sizeof(T)) : 0);
+  l.w = l.x + (kLeg != kLegX && !x_global
+                   ? align16((x_rows ? kTile : 1) * dxs * (int)sizeof(T))
+                   : 0);
   l.sh = l.w + (kLeg != kLegW && has_w ? align16(kTile * sps * (int)sizeof(T)) : 0);
-  l.total = l.sh + align16(kTile * d_sh * 4);
+  l.dsh = l.sh + (kLeg != kLegSh ? align16(kTile * d_sh * 4) : 0);
+  l.slot = l.dsh + (dsh ? align16(kTile * d_sh * 4) : 0);
+  l.total = l.slot + (dsh ? align16(kTile * slot_max * 4) : 0);
   return l;
 }
 
@@ -548,19 +605,34 @@ __device__ __forceinline__ void group_rows(const int* __restrict__ gk, int n_gk,
 // (kDxDw), or one edge leg (K5b) that never reads its own operand; a leg
 // block takes the groups of its split blockIdx.y, and the x leg cut in
 // more than one split writes its fp32 dx partial to part [n_split, E, d_x].
-template <typename T, int kStage, int kLeg>
+// The sh leg (kLegSh, sh never staged or read) and K5a (kBwd3: the outputs
+// in kNeed, the others null) also sum dsh: each term's row sum goes once to
+// its slot of s_slot [kTile, slot_max] (a warp a row for a mul that is a
+// multiple of 32, then a fixed butterfly of shuffles), and after the term
+// pass one thread per (row, column) adds its column's slots in term order;
+// cut in more than one split, dsh goes to part_sh [n_split, E, d_sh].  With
+// kXg K5a reads x through L2 (its fp32 tile does not fit beside the rest).
+template <typename T, int kStage, int kLeg, bool kXg = false, int kNeed = kNeedAll>
 __device__ __forceinline__ void dxdw_body(
     const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh, int d_sh,
     const T* __restrict__ w, int d_w, const T* __restrict__ Wp, const T* __restrict__ G,
     int d_out, const int* __restrict__ n_edges_ptr, int E, const int* __restrict__ gk, int n_gk,
     const int* __restrict__ terms, const float* __restrict__ coeffs,
     const int* __restrict__ dwmap, T* __restrict__ dx, T* __restrict__ dw, int span_max,
-    int cp_max, int fd_max, float* __restrict__ part) {
+    int cp_max, int fd_max, float* __restrict__ part, T* __restrict__ dsh = nullptr,
+    float* __restrict__ part_sh = nullptr, int slot_max = 0) {
   constexpr int V = kVec<T>;
+  constexpr bool kSh = sums_dsh(kLeg);
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   const bool has_w = kLeg == kLegW || w != nullptr;  // the plan has per-edge w
-  const Layout1 L = layout1<T, kLeg>(d_x, d_sh, span_max, cp_max, fd_max, has_w, sx != 0);
+  // what K5a keeps (the other legs: what their leg computes)
+  constexpr int need = kLeg == kBwd3 ? kNeed : kNeedAll;
+  constexpr bool keep_dx = kLeg == kBwd3 ? (kNeed & kNeedDx) != 0 : kLeg != kLegW && !kSh;
+  constexpr bool keep_dw = kLeg == kBwd3 ? (kNeed & kNeedDw) != 0 : kLeg != kLegX && !kSh;
+  constexpr bool keep_dsh = kSh && (need & kNeedDsh) != 0;
+  const Layout1 L = layout1<T, kLeg>(d_x, d_sh, span_max, cp_max, fd_max, has_w, sx != 0, need,
+                                     slot_max, kXg);
   float* s_dx = reinterpret_cast<float*>(smem + L.dx);
   float* s_dw = reinterpret_cast<float*>(smem + L.dw);
   float* s_dz = reinterpret_cast<float*>(smem + L.dz);
@@ -568,6 +640,8 @@ __device__ __forceinline__ void dxdw_body(
   T* s_x = reinterpret_cast<T*>(smem + L.x);
   T* s_w = reinterpret_cast<T*>(smem + L.w);
   float* s_sh = reinterpret_cast<float*>(smem + L.sh);
+  float* s_dsh = reinterpret_cast<float*>(smem + L.dsh);
+  float* s_slot = reinterpret_cast<float*>(smem + L.slot);
   const int dxs = round_up(d_x, kRowPad), sps = round_up(span_max, kRowPad);
   const int ldg = ld_g1<T>(cp_max), ldz = ld_dz1(fd_max);
 
@@ -579,7 +653,8 @@ __device__ __forceinline__ void dxdw_body(
   const int n_live = max(0, min(n_rows, __ldg(n_edges_ptr) - e0));
   const bool dx_vec = d_x % V == 0 && aligned16(dx);
   const bool dw_vec = d_w % V == 0 && aligned16(dw) && aligned16(w);
-  const bool split = kLeg == kLegX && gridDim.y > 1;  // dx as fp32 partials
+  // dx (and dsh) as fp32 partials
+  const bool split = (kLeg == kLegX || kSh) && gridDim.y > 1;
 
   if (n_live == 0) {  // past the real edges: zero gradients
     if constexpr (kLeg == kDxDw) {
@@ -592,6 +667,18 @@ __device__ __forceinline__ void dxdw_body(
       if (!split)  // else the sum of the partials writes them
         for (int i = tid; i < n_rows * d_x; i += kThreads1)
           dx[(long long)e0 * d_x + i] = from_f<T>(0.f);
+    } else if constexpr (kSh) {
+      if (!split) {  // else the sum of the partials writes them
+        if (keep_dx)
+          for (int i = tid; i < n_rows * d_x; i += kThreads1)
+            dx[(long long)e0 * d_x + i] = from_f<T>(0.f);
+        if (keep_dsh)
+          for (int i = tid; i < n_rows * d_sh; i += kThreads1)
+            dsh[(long long)e0 * d_sh + i] = from_f<T>(0.f);
+      }
+      if (keep_dw && blockIdx.y == 0)
+        for (int i = tid; i < n_rows * d_w; i += kThreads1)
+          dw[(long long)e0 * d_w + i] = from_f<T>(0.f);
     } else {
       if (blockIdx.y == 0)
         for (int i = tid; i < n_rows * d_w; i += kThreads1)
@@ -600,13 +687,20 @@ __device__ __forceinline__ void dxdw_body(
     return;
   }
 
-  if constexpr (kLeg != kLegW)
+  if constexpr (kSh) {
+    if (keep_dx)
+      for (int i = tid; i < kTile * dxs; i += kThreads1) s_dx[i] = 0.f;
+    if (keep_dsh)
+      for (int i = tid; i < kTile * d_sh; i += kThreads1) s_dsh[i] = 0.f;
+  } else if constexpr (kLeg != kLegW) {
     for (int i = tid; i < kTile * dxs; i += kThreads1) s_dx[i] = 0.f;
-  for (int i = tid; i < n_live * d_sh; i += kThreads1) {
-    const int r = i / d_sh;
-    s_sh[r * d_sh + (i - r * d_sh)] = to_f(sh[(long long)(e0 + r) * d_sh + (i - r * d_sh)]);
   }
-  if constexpr (kLeg != kLegX)
+  if constexpr (kLeg != kLegSh)
+    for (int i = tid; i < n_live * d_sh; i += kThreads1) {
+      const int r = i / d_sh;
+      s_sh[r * d_sh + (i - r * d_sh)] = to_f(sh[(long long)(e0 + r) * d_sh + (i - r * d_sh)]);
+    }
+  if constexpr (kLeg != kLegX && !kXg)
     copy_rows<T, kThreads1>(s_x, dxs, x + (long long)e0 * sx, sx, sx ? n_live : 1, d_x,
                             d_x % V == 0 && sx % V == 0 && aligned16(x));
   int q_begin = 0, q_end = n_gk;
@@ -620,8 +714,12 @@ __device__ __forceinline__ void dxdw_body(
     const int n_nt = round_up(fs, 8) / 8, n_ks = cp / 16;
 
     if (has_w && first) {  // the group's w columns (not the w leg's), its dw accumulator
-      if constexpr (kLeg != kLegX)
+      if constexpr (kSh) {
+        if (keep_dw)
+          for (int i = tid; i < kTile * sps; i += kThreads1) s_dw[i] = 0.f;
+      } else if constexpr (kLeg != kLegX) {
         for (int i = tid; i < kTile * sps; i += kThreads1) s_dw[i] = 0.f;
+      }
       const int nv = kLeg != kLegW ? sps / V : 0;
       for (int i = tid; i < n_live * nv; i += kThreads1) {
         const int r = i / nv;
@@ -725,8 +823,89 @@ __device__ __forceinline__ void dxdw_body(
 
     // ---- term transposes off dz: within one (g, k) a dx / dw element is only
     // touched by one thread: element (row, u) of a term goes to thread
-    // (row * mul + u) % kThreads1, and terms that share a column share mul
-    if constexpr (kStage >= 3) {
+    // (row * mul + u) % kThreads1, and terms that share a column share mul.
+    // The dsh legs add each term's row sums (c x w dz over u) to the term's
+    // slots of s_slot, each slot written once.
+    if constexpr (kStage >= 3 && kSh) {
+      // x[r, col]: staged, or (kXg) through L2
+      auto x_at = [&](int r, int col) -> float {
+        if constexpr (kXg)
+          return to_f(__ldg(x + (long long)(e0 + r) * sx + col));
+        else
+          return to_f(s_x[(sx ? r * dxs : 0) + col]);
+      };
+      // the next term's fields, loaded a term ahead (a warp takes only a few
+      // elements of a term: the loads' latency would stall it)
+      Term nx = t_begin < t_end ? load_term(terms, coeffs, t_begin) : Term{};
+      for (int t = t_begin; t < t_end; ++t) {
+        const Term tm = nx;
+        if (t + 1 < t_end) nx = load_term(terms, coeffs, t + 1);
+        const int a = tm.a, col = tm.col, fc = tm.fc, mul = tm.mul, bl = tm.bl;
+        const float c = tm.c;
+        float* slot = s_slot + (t - t_begin);  // the term's slot in each row
+        if (mul % 32 == 0) {
+          // warp r takes row r, lane l its u = l, l + 32, ...: the lane sums
+          // them in order, then one butterfly sums the row
+          const int r = warp;
+          if (r < n_live) {  // warp-uniform
+            float s = 0.f;
+            for (int u = lane; u < mul; u += 32) {
+              const float dzv = s_dz[r * ldz + fc + u];
+              const float xv = x_at(r, a + u);
+              const float wv = has_w ? to_f(s_w[r * sps + bl + u]) : 1.f;
+              if constexpr (keep_dx || keep_dw) {
+                const float d = c * s_sh[r * d_sh + col] * dzv;
+                if constexpr (keep_dx) s_dx[r * dxs + a + u] += d * wv;
+                if constexpr (keep_dw) s_dw[r * sps + bl + u] += d * xv;
+              }
+              if constexpr (keep_dsh) s = fmaf(c * xv * wv, dzv, s);
+            }
+            if constexpr (keep_dsh) {
+              for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+              if (lane == 0) slot[r * slot_max] = s;
+            }
+          }
+        } else if ((mul & (mul - 1)) == 0) {
+          // a power of two below 32: K2's element (row, u) on thread row *
+          // mul + u, one pass, a row's u in mul consecutive lanes
+          const int lg = __ffs(mul) - 1, u = tid & (mul - 1), r = tid >> lg;
+          float s = 0.f;
+          if (r < n_live) {
+            const float dzv = s_dz[r * ldz + fc + u];
+            const float xv = x_at(r, a + u);
+            const float wv = has_w ? to_f(s_w[r * sps + bl + u]) : 1.f;
+            if constexpr (keep_dx || keep_dw) {
+              const float d = c * s_sh[r * d_sh + col] * dzv;
+              if constexpr (keep_dx) s_dx[r * dxs + a + u] += d * wv;
+              if constexpr (keep_dw) s_dw[r * sps + bl + u] += d * xv;
+            }
+            if constexpr (keep_dsh) s = c * xv * wv * dzv;
+          }
+          if constexpr (keep_dsh) {  // the row's sum over its lanes: a fixed butterfly
+            for (int o = mul >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+            if (r < n_live && u == 0) slot[r * slot_max] = s;
+          }
+        } else {
+          if constexpr (keep_dx || keep_dw)
+            for (int i = tid; i < n_live * mul; i += kThreads1) {
+              const int r = i / mul, u = i - r * mul;
+              const float d = c * s_sh[r * d_sh + col] * s_dz[r * ldz + fc + u];
+              if constexpr (keep_dx)
+                s_dx[r * dxs + a + u] += has_w ? d * to_f(s_w[r * sps + bl + u]) : d;
+              if constexpr (keep_dw) s_dw[r * sps + bl + u] += d * x_at(r, a + u);
+            }
+          if constexpr (keep_dsh)  // one thread a row sums its u in order
+            for (int r = tid; r < n_live; r += kThreads1) {
+              float s = 0.f;
+              for (int u = 0; u < mul; ++u) {
+                const float wv = has_w ? to_f(s_w[r * sps + bl + u]) : 1.f;
+                s = fmaf(c * x_at(r, a + u) * wv, s_dz[r * ldz + fc + u], s);
+              }
+              slot[r * slot_max] = s;
+            }
+        }
+      }
+    } else if constexpr (kStage >= 3) {
       for (int t = t_begin; t < t_end; ++t) {
         const int* tt = terms + t * kTermFields;
         const int a = tt[0], col = tt[1], fc = tt[3], mul = tt[4], bl = tt[5];
@@ -772,7 +951,20 @@ __device__ __forceinline__ void dxdw_body(
     }
     __syncthreads();
 
-    if (kLeg != kLegX && has_w && last) {  // the group's dw columns are complete
+    if constexpr (keep_dsh && kStage >= 3) {
+      // dsh[r, col] += the slots of the terms of column col, in term order
+      for (int i = tid; i < n_live * d_sh; i += kThreads1) {
+        const int r = i / d_sh, col = i - r * d_sh;
+        const float* sr = s_slot + r * slot_max;
+        float acc = s_dsh[i];
+#pragma unroll 4
+        for (int t = t_begin; t < t_end; ++t)
+          if (__ldg(terms + t * kTermFields + 1) == col) acc += sr[t - t_begin];
+        s_dsh[i] = acc;
+      }
+    }
+
+    if (kLeg != kLegX && (kSh ? keep_dw : true) && has_w && last) {  // the group's dw is complete
       const int nv = sps / V;
       for (int i = tid; i < n_rows * nv; i += kThreads1) {
         const int r = i / nv;
@@ -796,6 +988,18 @@ __device__ __forceinline__ void dxdw_body(
   }
 
   if constexpr (kLeg == kLegW) return;
+  if constexpr (kSh) {
+    if (keep_dsh) {
+      if (split) {  // this split's fp32 partial of dsh
+        float* pr = part_sh + ((long long)blockIdx.y * E + e0) * d_sh;
+        for (int i = tid; i < n_rows * d_sh; i += kThreads1) pr[i] = s_dsh[i];
+      } else {
+        for (int i = tid; i < n_rows * d_sh; i += kThreads1)
+          dsh[(long long)e0 * d_sh + i] = from_f<T>(s_dsh[i]);
+      }
+    }
+    if (!keep_dx) return;
+  }
   if (split) {  // this split's fp32 partial of dx
     float* pr = part + ((long long)blockIdx.y * E + e0) * d_x;
     for (int i = tid; i < n_rows * d_x; i += kThreads1) {
@@ -846,19 +1050,61 @@ edge_leg_kernel(EQT_K2_DXDW_PARAMS, float* __restrict__ part) {
   dxdw_body<T, kFullStage, kLeg>(EQT_K2_DXDW_ARGS, part);
 }
 
-// dx[e, c] = the x leg's split partials summed in split order (zeros at or
-// past *n_edges, whose tiles wrote no partial)
+// K5a: the outputs in kNeed (two or three of dx, dsh, dw; the others
+// null), grid (tiles, splits); kXg: x read through L2
+template <typename T, bool kXg, int kNeed>
+__global__ void __launch_bounds__(kThreads1, 1)
+bwd3_kernel(EQT_K2_DXDW_PARAMS, float* __restrict__ part, T* __restrict__ dsh,
+            float* __restrict__ part_sh, int slot_max) {
+  dxdw_body<T, kFullStage, kBwd3, kXg, kNeed>(EQT_K2_DXDW_ARGS, part, dsh, part_sh, slot_max);
+}
+
+// K5b's sh leg: dsh alone (sh, dx and dw null), grid (tiles, splits)
+template <typename T>
+__global__ void __launch_bounds__(kThreads1, 1)
+sh_leg_kernel(EQT_K2_DXDW_PARAMS, T* __restrict__ dsh, float* __restrict__ part_sh,
+              int slot_max) {
+  dxdw_body<T, kFullStage, kLegSh>(EQT_K2_DXDW_ARGS, nullptr, dsh, part_sh, slot_max);
+}
+
+// the split partials of a leg launch summed in split order, rows at or past
+// *n_edges zeros (their tiles wrote no partial): out_a [E, d_a] from part_a
+// [n_split, E, d_a], then out_b [E, d_b] from part_b (each pair null when the
+// launch keeps no such output), one thread an element
+template <typename T>
+__device__ __forceinline__ void sum_split(const float* __restrict__ part_a, int d_a,
+                                          T* __restrict__ out_a, const float* __restrict__ part_b,
+                                          int d_b, T* __restrict__ out_b, int n_split, int E,
+                                          const int* __restrict__ n_edges_ptr) {
+  const long long n_a = out_a != nullptr ? (long long)E * d_a : 0;
+  const long long n_b = out_b != nullptr ? (long long)E * d_b : 0;
+  long long i = (long long)blockIdx.x * eqt::kReduceThreads + threadIdx.x;
+  if (i >= n_a + n_b) return;
+  const bool in_a = i < n_a;
+  const float* part = in_a ? part_a : part_b;
+  const long long numel = in_a ? n_a : n_b;
+  i -= in_a ? 0 : n_a;
+  float acc = 0.f;
+  if (i / (in_a ? d_a : d_b) < __ldg(n_edges_ptr))
+    for (int s = 0; s < n_split; ++s) acc += part[s * numel + i];
+  (in_a ? out_a : out_b)[i] = from_f<T>(acc);
+}
+
+// dx of K5b's x leg
 template <typename T>
 __global__ void __launch_bounds__(eqt::kReduceThreads)
 sum_dx_kernel(const float* __restrict__ part, int n_split, int E, int d_x,
               const int* __restrict__ n_edges_ptr, T* __restrict__ dx) {
-  const long long numel = (long long)E * d_x;
-  const long long i = (long long)blockIdx.x * eqt::kReduceThreads + threadIdx.x;
-  if (i >= numel) return;
-  float acc = 0.f;
-  if (i / d_x < __ldg(n_edges_ptr))
-    for (int s = 0; s < n_split; ++s) acc += part[s * numel + i];
-  dx[i] = from_f<T>(acc);
+  sum_split<T>(part, d_x, dx, nullptr, 0, nullptr, n_split, E, n_edges_ptr);
+}
+
+// dx and dsh of K5a, or dsh of the sh leg, in one launch
+template <typename T>
+__global__ void __launch_bounds__(eqt::kReduceThreads)
+bwd3_sum_kernel(const float* __restrict__ part, int d_x, T* __restrict__ dx,
+                const float* __restrict__ part_sh, int d_sh, T* __restrict__ dsh, int n_split,
+                int E, const int* __restrict__ n_edges_ptr) {
+  sum_split<T>(part, d_x, dx, part_sh, d_sh, dsh, n_split, E, n_edges_ptr);
 }
 
 // ----------------------------------------------------------- launch 2
@@ -1094,6 +1340,139 @@ int launch_leg(const Args& a, int n_split, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the dsh legs' outputs and scratch: dsh [E, d_sh] (null: not asked for),
+// part_sh [n_split, E, d_sh] fp32, slot_max dsh slots a row
+struct DshArgs {
+  void *dsh, *part_sh;
+  int slot_max;
+};
+
+// K5a's outputs asked for: the non-null ones
+int need_of(const Args& a, const DshArgs& d) {
+  return (a.dx != nullptr ? kNeedDx : 0) | (d.dsh != nullptr ? kNeedDsh : 0) |
+         (a.dw != nullptr ? kNeedDw : 0);
+}
+
+// the shared memory of a dsh leg's launch (kLegSh reads x, w and G, K5a
+// what kNeed asks for; x_global: K5a's x through L2)
+template <typename T, int kLeg, int kNeed>
+Layout1 dsh_layout(const Args& a, const DshArgs& d, bool x_global) {
+  return layout1<T, kLeg>(a.d_x, a.d_sh, a.span_max, a.cp_max, a.fd_max, a.w != nullptr,
+                          a.sx != 0, kNeed, d.slot_max, x_global);
+}
+
+// K5a stages x in shared memory where the whole tile fits the block's limit
+// (bf16 at MD17's sites), else (fp32 at sep_act) reads it through L2
+template <typename T, int kLeg, int kNeed>
+bool x_global(const Args& a, const DshArgs& d) {
+  if (kLeg != kBwd3) return false;
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return false;  // the launch then reports the error
+  return dsh_layout<T, kLeg, kNeed>(a, d, false).total > limit;
+}
+
+// the kernel of a dsh leg's launch
+template <typename T, int kLeg, bool kXg, int kNeed>
+auto dsh_kernel() {
+  if constexpr (kLeg == kLegSh)
+    return &sh_leg_kernel<T>;
+  else
+    return &bwd3_kernel<T, kXg, kNeed>;
+}
+
+// K5a (kBwd3) or the sh leg (kLegSh) on launch 1's code, the tiles cut by
+// irrep group into n_split (the dx and dsh partials then summed in split
+// order by one launch)
+template <typename T, int kLeg, bool kXg, int kNeed>
+int launch_dsh(const Args& a, const DshArgs& d, int n_split, cudaStream_t stream) {
+  const int smem = dsh_layout<T, kLeg, kNeed>(a, d, kXg).total;
+  cudaError_t err = cudaFuncSetAttribute(dsh_kernel<T, kLeg, kXg, kNeed>(),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.E + kTile - 1) / kTile, n_split);
+  const T* x = static_cast<const T*>(a.x);
+  const T* sh = static_cast<const T*>(a.sh);
+  const T* w = static_cast<const T*>(a.w);
+  const T* Wp = static_cast<const T*>(a.Wp);
+  const T* G = static_cast<const T*>(a.G);
+  const int* n_edges = static_cast<const int*>(a.n_edges);
+  const int* gk = static_cast<const int*>(a.gk);
+  const int* terms = static_cast<const int*>(a.terms);
+  const float* coeffs = static_cast<const float*>(a.coeffs);
+  const int* dwmap = static_cast<const int*>(a.dwmap);
+  T* dx = static_cast<T*>(a.dx);
+  T* dw = static_cast<T*>(a.dw);
+  T* dsh = static_cast<T*>(d.dsh);
+  float* part_sh = static_cast<float*>(d.part_sh);
+  if constexpr (kLeg == kLegSh)
+    sh_leg_kernel<T><<<grid, kThreads1, smem, stream>>>(
+        x, a.sx, a.d_x, sh, a.d_sh, w, a.d_w, Wp, G, a.d_out, n_edges, a.E, gk, a.n_gk, terms,
+        coeffs, dwmap, dx, dw, a.span_max, a.cp_max, a.fd_max, dsh, part_sh, d.slot_max);
+  else
+    bwd3_kernel<T, kXg, kNeed><<<grid, kThreads1, smem, stream>>>(
+        x, a.sx, a.d_x, sh, a.d_sh, w, a.d_w, Wp, G, a.d_out, n_edges, a.E, gk, a.n_gk, terms,
+        coeffs, dwmap, dx, dw, a.span_max, a.cp_max, a.fd_max, static_cast<float*>(a.part), dsh,
+        part_sh, d.slot_max);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  const long long numel =
+      (long long)a.E * ((dx != nullptr ? a.d_x : 0) + (dsh != nullptr ? a.d_sh : 0));
+  if (numel == 0) return 0;
+  bwd3_sum_kernel<T><<<(unsigned)((numel + eqt::kReduceThreads - 1) / eqt::kReduceThreads),
+                       eqt::kReduceThreads, 0, stream>>>(
+      static_cast<const float*>(a.part), a.d_x, dx, part_sh, a.d_sh, dsh, n_split, a.E, n_edges);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int kLeg, int kNeed = kNeedAll>
+int dispatch_dsh(const Args& a, const DshArgs& d, int n_split, cudaStream_t s) {
+  if constexpr (kLeg == kBwd3)
+    if (x_global<T, kLeg, kNeed>(a, d)) return launch_dsh<T, kLeg, true, kNeed>(a, d, n_split, s);
+  return launch_dsh<T, kLeg, false, kNeed>(a, d, n_split, s);
+}
+
+// K5a with the outputs asked for: each two- and three-output set on its own
+// compile-time code (one output alone is that edge leg's launch, which the
+// Python wrapper calls)
+template <typename T>
+int dispatch_bwd3(const Args& a, const DshArgs& d, int n_split, cudaStream_t s) {
+  switch (need_of(a, d)) {
+    case kNeedAll: return dispatch_dsh<T, kBwd3, kNeedAll>(a, d, n_split, s);
+    case kNeedDx | kNeedDsh: return dispatch_dsh<T, kBwd3, kNeedDx | kNeedDsh>(a, d, n_split, s);
+    case kNeedDsh | kNeedDw: return dispatch_dsh<T, kBwd3, kNeedDsh | kNeedDw>(a, d, n_split, s);
+    case kNeedDx | kNeedDw: return dispatch_dsh<T, kBwd3, kNeedDx | kNeedDw>(a, d, n_split, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// resident blocks per SM of a dsh leg's launch, or minus a cudaError_t
+template <typename T, int kLeg, int kNeed = kNeedAll>
+int dsh_occupancy(const Args& a, const DshArgs& d) {
+  const bool xg = x_global<T, kLeg, kNeed>(a, d);
+  const int smem = dsh_layout<T, kLeg, kNeed>(a, d, xg).total;
+  const auto kernel =
+      xg ? dsh_kernel<T, kLeg, true, kNeed>() : dsh_kernel<T, kLeg, false, kNeed>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads1, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+template <typename T>
+int occupancy_bwd3(const Args& a, const DshArgs& d) {
+  switch (need_of(a, d)) {
+    case kNeedAll: return dsh_occupancy<T, kBwd3, kNeedAll>(a, d);
+    case kNeedDx | kNeedDsh: return dsh_occupancy<T, kBwd3, kNeedDx | kNeedDsh>(a, d);
+    case kNeedDsh | kNeedDw: return dsh_occupancy<T, kBwd3, kNeedDsh | kNeedDw>(a, d);
+    case kNeedDx | kNeedDw: return dsh_occupancy<T, kBwd3, kNeedDx | kNeedDw>(a, d);
+  }
+  return -(int)cudaErrorInvalidValue;
+}
+
 // launch 2 and the row sum: K2's (S3: cut after phase kStage2), or with
 // kWLeg K5c's own kernel
 template <typename T, int kStage2, bool kWLeg = false>
@@ -1172,6 +1551,43 @@ int run_legW(const Args& a, int dtype, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// the operands a dsh leg's launch takes: the sh leg dsh alone (x read, sh,
+// dx and dw null); K5a two or three outputs, x and sh read, dw only with w;
+// the partials of each output kept when the tiles are cut
+bool dsh_args_ok(int leg, int n_split, const Args& a, const DshArgs& d) {
+  const bool dsh = d.dsh != nullptr;
+  const int n_out = (int)dsh + (int)(a.dx != nullptr) + (int)(a.dw != nullptr);
+  const bool outs = leg == kLegSh ? dsh && a.dx == nullptr && a.dw == nullptr && a.sh == nullptr
+                                  : leg == kBwd3 && a.sh != nullptr &&
+                                        (a.dw == nullptr || a.w != nullptr) && n_out >= 2;
+  return outs && a.x != nullptr && a.cp_max % 16 == 0 && n_split >= 1 &&
+         (!dsh || d.slot_max >= 1) &&
+         (n_split == 1 || ((a.dx == nullptr || a.part != nullptr) &&
+                           (!dsh || d.part_sh != nullptr)));
+}
+
+int run_dsh(int leg, int n_split, const Args& a, const DshArgs& d, int dtype, void* stream) {
+  if (!dsh_args_ok(leg, n_split, a, d)) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32)
+    return leg == kLegSh ? dispatch_dsh<float, kLegSh>(a, d, n_split, s)
+                         : dispatch_bwd3<float>(a, d, n_split, s);
+  if (dtype == eqt::kBFloat16)
+    return leg == kLegSh ? dispatch_dsh<__nv_bfloat16, kLegSh>(a, d, n_split, s)
+                         : dispatch_bwd3<__nv_bfloat16>(a, d, n_split, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int run_dsh_occupancy(int leg, const Args& a, const DshArgs& d, int dtype) {
+  if (!dsh_args_ok(leg, 1, a, d)) return -(int)cudaErrorInvalidValue;
+  if (dtype == eqt::kFloat32)
+    return leg == kLegSh ? dsh_occupancy<float, kLegSh>(a, d) : occupancy_bwd3<float>(a, d);
+  if (dtype == eqt::kBFloat16)
+    return leg == kLegSh ? dsh_occupancy<__nv_bfloat16, kLegSh>(a, d)
+                         : occupancy_bwd3<__nv_bfloat16>(a, d);
+  return -(int)cudaErrorInvalidValue;
+}
+
 }  // namespace k2
 
 // K2: dx [E, d_x], dw [E, d_w] (null without a per-edge w) and dW [w_numel]
@@ -1246,4 +1662,44 @@ extern "C" int dtp_lin_legW(const void* x, long long sx, int d_x, const void* sh
                    d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
                    n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
   return k2::run_legW(a, dtype, stream);
+}
+
+// K5a (leg 4) and K5b's sh leg (leg 1) on dtp_lin_bwd's arguments (tiles,
+// n_ranges, range_len, dW and w_numel unused), then dsh [E, d_sh], its
+// partials part_sh and slot_max, the most terms of a (group, component)
+// (DTPLinPlan.k2_dsh_slots: a dsh slot a term and row).  K5a: two or three of
+// dx, dsh and dw, each null when not asked for (dw only with w); the sh leg:
+// dsh alone, sh null.
+// n_split: the irrep-group splits of each tile; cut in more than one, dx
+// needs part [n_split, E, d_x] and dsh part_sh [n_split, E, d_sh] fp32.
+extern "C" int dtp_lin_bwd3(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                            const void* w, int d_w, const void* Wp, const void* G, int d_out,
+                            const void* n_edges, int E, const void* gk, int n_gk,
+                            const void* terms, const void* coeffs, const void* dwmap, void* dx,
+                            void* dw, int span_max, int cp_max, int fd_max, const void* tiles,
+                            int n_tiles, void* part, int n_ranges, int range_len, void* dW,
+                            int w_numel, void* dsh, void* part_sh, int slot_max, int leg,
+                            int n_split, int dtype, void* stream) {
+  const k2::Args a{x,      sh,     w,        Wp,       G,      n_edges,   gk,
+                   terms,  coeffs, dwmap,    tiles,    sx,     d_x,       d_sh,
+                   d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
+                   n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
+  return k2::run_dsh(leg, n_split, a, k2::DshArgs{dsh, part_sh, slot_max}, dtype, stream);
+}
+
+// Resident blocks per SM of dtp_lin_bwd3's launch at these widths (leg 4
+// K5a with the outputs in need: 1 dx, 2 dsh, 4 dw; leg 1 the sh leg), or
+// minus a cudaError_t.
+extern "C" int dtp_lin_dsh_occupancy(int leg, int d_x, int d_sh, int span_max, int cp_max,
+                                     int fd_max, int has_w, int x_rows, int need, int slot_max,
+                                     int dtype) {
+  void* some = reinterpret_cast<void*>(16);  // a non-null pointer: the operand exists
+  const bool k5a = leg == k2::kBwd3;
+  const k2::Args a{some, k5a ? some : nullptr, has_w ? some : nullptr, some, some, some, some,
+                   some, some, some, nullptr, x_rows ? (long long)d_x : 0, d_x, d_sh, 0, 0, 0,
+                   0, span_max, cp_max, fd_max, 0, 0, 0, 0,
+                   k5a && (need & k2::kNeedDx) ? some : nullptr,
+                   k5a && (need & k2::kNeedDw) ? some : nullptr, some, nullptr};
+  const k2::DshArgs d{!k5a || (need & k2::kNeedDsh) ? some : nullptr, some, slot_max};
+  return k2::run_dsh_occupancy(leg, a, d, dtype);
 }

@@ -1,55 +1,54 @@
-// Fused depthwise tensor product + per-irrep linear heads: the force
-// backward (K5a), dx, dsh and dw in one pass.
+// Fused depthwise tensor product + per-irrep linear heads, radial-folded:
+// the force backward K7-B3 (dx, dsh and dh in one pass), on the first K5a
+// design.  K5a itself (dx, dsh and dw) runs on K2's launch 1
+// (csrc/dtp_lin_bwd.cu, k2::bwd3_kernel); this file keeps the first design
+// for the fold, instruction for instruction until its own redesign (its
+// unfolded kRad = false path is no longer instantiated).
 //
-// Replaces: equiformer_tpu/kernels/dtp_lin_ho.py, _bwd3_kernel (built by
+// Replaces: equiformer_tpu/kernels/dtp_lin_ho.py, the radial branch of
+// _bwd3_kernel (:458-526: w rebuilt :492-493, dh :522-526; built by
 // _bwd3_pallas, bound through _bwd3_p by the transpose of the grouped edge
 // tangents of the higher-order DTP).  Plan and tables:
 // equiformer_tpu_torch/kernels/dtp_lin.py (DTPLinPlan.bwd_tables) with the
 // term rows of each (group, component) sorted by SH column
 // (kernels/dtp_lin_ho.py, bwd3_tables).
 //
-// What it computes, for the forward of csrc/dtp_lin.cu and the cotangent G
-// of its output, per edge e < *n_edges:
+// What it computes, for the forward of csrc/dtp_lin.cu on w = [h, 1] @ [Wr;
+// offset] and the cotangent G of its output, per edge e < *n_edges:
 //   dz[g,k][f]   = sum_j G[e, out_col(g,k) + j] * W_g[f, j]
 //   and per term (c, a, col, b, fc, mul), u < mul:
 //   dx[e, a+u]  += c * sh[e,col] * w[e,b+u] * dz[g,k][fc+u]
 //   dw[e, b+u]  += c * sh[e,col] * x[e,a+u] * dz[g,k][fc+u]
 //   dsh[e, col] += c * x[e,a+u] * w[e,b+u] * dz[g,k][fc+u]
-// With shared weights folded into W_g there is no w (taken as 1) and no dw.
+//   dh[e, :]     = dw[e, :] Wr^T
 // There is no z and no dW: the force path never asks for the gradient of
-// the head weights.  Rows e >= *n_edges get zeros.  Each of dx, dsh and dw
-// may be null (not needed); the launch is the same.
+// the head weights.  Rows e >= *n_edges get zeros.  dx and dsh may each be
+// null (not needed); the launch is the same.
 //
 // What bounds it on the card: arithmetic.  Per real edge of the MD17 L3
 // sep_act site the dz product is ~0.6M multiply-adds and the term
-// transposes ~32k x 3, against ~12 KB of operands read and written.
+// transposes ~32k x 3, plus 2 * (hd + 1) * d_w for each product with [Wr;
+// offset], against ~12 KB of operands read and written.
 //
 // Design: one block of 256 threads per tile of 16 edges.  Per (g, k) the
 // block stages the cotangent slice G[g,k] in shared memory and computes
-// dz = G W_g^T there with the same loop as K2 (csrc/dtp_lin_bwd.cu; W_g^T is
-// packed by the wrapper so lanes read it coalesced).  In the term pass warp
-// w owns rows w and w + 8 of the tile and lane l the copies u = l (mod 32)
-// of every term.  A dx or dw element is touched only by terms of one x
-// block component (one a_off and mul) or one TP path (one b_off and mul),
-// so it always falls to the same lane of the same warp: every accumulator
-// in shared memory has one writer, and the term pass needs no barrier.
-// dsh is a reduction over u and over terms: each lane keeps a running sum
-// while the terms share an SH column (the table is sorted so they do), and
-// at a column change the warp adds it up with a fixed butterfly of
-// shuffles and lane 0 adds it to the row's dsh in shared memory.  No
-// atomics anywhere, so the result is the same bits on every run.  dx
-// accumulates over the whole tile, dw over one group (every w column feeds
-// exactly one group) and is flushed when the group's last component is
-// done, as in K2.  Everything accumulates in fp32 on the CUDA cores;
-// tensor cores and TMA are later work.
-//
-// The radial-folded variant (K7-B3, kRad; replaces the radial branch of
-// _bwd3_kernel, dtp_lin_ho.py:458-526: w rebuilt :492-493, dh :522-526)
-// reads h [E, hd] in place of w, rebuilds each group's w columns in shared
-// memory (csrc/radial.cuh), accumulates the group's dw there as the dw
-// output does, and at the group's last component adds dw Wr^T into the
-// tile's dh: it writes dx, dsh and dh [E, hd], never w or dw.  Shared
-// memory: the dw tile always, plus w [16, span_max], h and dh [16, hd];
+// dz = G W_g^T there on the CUDA cores (W_g^T packed by the wrapper so lanes
+// read it coalesced).  It reads h [E, hd] in place of w, rebuilds each
+// group's w columns in shared memory (csrc/radial.cuh) and accumulates the
+// group's dw there.  In the term pass warp w owns rows w and w + 8 of the
+// tile and lane l the copies u = l (mod 32) of every term.  A dx or dw
+// element is touched only by terms of one x block component (one a_off and
+// mul) or one TP path (one b_off and mul), so it always falls to the same
+// lane of the same warp: every accumulator in shared memory has one writer,
+// and the term pass needs no barrier.  dsh is a reduction over u and over
+// terms: each lane keeps a running sum while the terms share an SH column
+// (the table is sorted so they do), and at a column change the warp adds it
+// up with a fixed butterfly of shuffles and lane 0 adds it to the row's dsh
+// in shared memory.  No atomics anywhere, so the result is the same bits on
+// every run.  dx accumulates over the whole tile, dw over one group (every
+// w column feeds exactly one group); at the group's last component dw Wr^T
+// is added into the tile's dh.  It writes dx, dsh and dh [E, hd], never w
+// or dw.  Shared memory: the dw tile, w [16, span_max], h and dh [16, hd];
 // 221 KB at the MD17 L3 sep_act site (one block per SM).
 
 #include <stdint.h>
@@ -316,28 +315,6 @@ int occupancy(int smem) {
 
 }  // namespace
 
-// One block per 16-edge tile.  dx, dsh and dw may each be null.
-extern "C" int dtp_lin_bwd3(const void* x, long long sx, int d_x, const void* sh, int d_sh,
-                            const void* w, int d_w, const void* WT, const void* G, int d_out,
-                            const void* n_edges, int E, const void* gk, int n_gk,
-                            const void* terms, const void* coeffs, const void* dwmap, void* dx,
-                            void* dsh, void* dw, int span_max, int cols_pad_max, int fs_max,
-                            int dtype, void* stream) {
-  if (fs_max % 4 != 0 || cols_pad_max % 4 != 0 || (dw != nullptr && w == nullptr))
-    return (int)cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == eqt::kFloat32)
-    return launch<float, false>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges, E, gk,
-                                n_gk, terms, coeffs, dwmap, dx, dsh, dw, span_max, cols_pad_max,
-                                fs_max, nullptr, 0, nullptr, 0, nullptr, s);
-  if (dtype == eqt::kBFloat16)
-    return launch<__nv_bfloat16, false>(x, sx, d_x, sh, d_sh, w, d_w, WT, G, d_out, n_edges,
-                                        E, gk, n_gk, terms, coeffs, dwmap, dx, dsh, dw,
-                                        span_max, cols_pad_max, fs_max, nullptr, 0, nullptr, 0,
-                                        nullptr, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 // K7-B3: the force backward of dtp_lin_rad_fwd, dx, dsh and dh [E, hd] in
 // one pass; h and Wl [hd + 1, n_loc] (columns in the tables' local order) in
 // place of w.  dx and dsh may each be null.
@@ -361,16 +338,15 @@ extern "C" int dtp_lin_rad_bwd3(const void* x, long long sx, int d_x, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks per SM at the shared memory of a launch with these widths
-// (d_x_s = 0 without dx, span_s = 0 without dw; hd > 0: the folded K7-B3,
-// which always keeps the dw tile), or minus a cudaError_t.
+// Resident blocks per SM of K7-B3 at the shared memory of a launch with
+// these widths (d_x_s = 0 without dx; span_s the dw tile, which K7-B3 always
+// keeps; hd > 0), or minus a cudaError_t.
 extern "C" int dtp_lin_bwd3_occupancy(int d_x_s, int d_sh, int span_s, int cols_pad_max,
                                       int fs_max, int hd, int dtype) {
+  if (hd <= 0) return -(int)cudaErrorInvalidValue;
   const int smem =
       smem_floats(d_x_s, span_s, cols_pad_max, fs_max, d_sh, hd) * (int)sizeof(float);
-  if (dtype == eqt::kFloat32)
-    return hd > 0 ? occupancy<float, true>(smem) : occupancy<float, false>(smem);
-  if (dtype == eqt::kBFloat16)
-    return hd > 0 ? occupancy<__nv_bfloat16, true>(smem) : occupancy<__nv_bfloat16, false>(smem);
+  if (dtype == eqt::kFloat32) return occupancy<float, true>(smem);
+  if (dtype == eqt::kBFloat16) return occupancy<__nv_bfloat16, true>(smem);
   return -(int)cudaErrorInvalidValue;
 }

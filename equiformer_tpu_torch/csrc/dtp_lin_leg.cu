@@ -1,19 +1,18 @@
-// Fused depthwise tensor product + per-irrep linear heads: the sh edge leg
-// of K5b (dsh alone), and the radial-folded edge legs (K7-L: dx, dsh or dh;
-// K7-Wr: d[Wr; offset]).  K5b's x and w legs run on K2's launch 1
-// (csrc/dtp_lin_bwd.cu, k2::edge_leg_kernel); this file keeps the first
-// K5b design for the legs no default path launches, instruction for
-// instruction until their own redesign (its unfolded x and w legs are no
-// longer instantiated).
+// Fused depthwise tensor product + per-irrep linear heads: the
+// radial-folded edge legs (K7-L: dx, dsh or dh; K7-Wr: d[Wr; offset]), on
+// the first K5b design.  K5b's x, sh and w legs run on K2's launch 1
+// (csrc/dtp_lin_bwd.cu, k2::edge_leg_kernel and k2::sh_leg_kernel); this
+// file keeps the first design for the fold's legs, instruction for
+// instruction until their own redesign (its unfolded legs are no longer
+// instantiated).
 //
-// Replaces: equiformer_tpu/kernels/dtp_lin_ho.py, _edge_leg_kernel (built by
-// _leg_call for the leg sh; bound through _leg_p by the JVP of
-// _bwd3_p and by the transposes of the other legs in the grad-of-grad of
-// force training), _edge_leg_kernel_rad (:255, the legs x, sh and h of a
-// radial-folded plan; _leg_call :613-621) and _Wr_leg_kernel (:344, the leg
-// Wr; _leg_call :594-603, primitive _legWr_p).  Plan and tables:
-// equiformer_tpu_torch/kernels/dtp_lin.py (DTPLinPlan.bwd_tables) with the
-// term rows of each (group, component) sorted by SH column
+// Replaces: equiformer_tpu/kernels/dtp_lin_ho.py, _edge_leg_kernel_rad
+// (:255, the legs x, sh and h of a radial-folded plan; _leg_call :613-621;
+// bound through _leg_p by the JVP of _bwd3_p and by the transposes of the
+// other legs in the grad-of-grad of force training) and _Wr_leg_kernel
+// (:344, the leg Wr; _leg_call :594-603, primitive _legWr_p).  Plan and
+// tables: equiformer_tpu_torch/kernels/dtp_lin.py (DTPLinPlan.bwd_tables)
+// with the term rows of each (group, component) sorted by SH column
 // (kernels/dtp_lin_ho.py, bwd3_tables), the tables of csrc/dtp_lin_bwd3.cu.
 //
 // What it computes.  The fused op out = Linear_W(DTP(x, sh, w)) is
@@ -24,11 +23,10 @@
 //   x leg:   dx[e, a+u]  += c * sh[e,col] * w[e,b+u] * dz[g,k][fc+u]
 //   sh leg:  dsh[e, col] += c * x[e,a+u] * w[e,b+u] * dz[g,k][fc+u]
 //   w leg:   dw[e, b+u]  += c * sh[e,col] * x[e,a+u] * dz[g,k][fc+u]
-// With shared weights folded into W_g there is no w (taken as 1) and no w
-// leg.  The x leg never reads x, the sh leg never sh, the w leg never w:
-// the operand of the output leg does not exist for the caller (in the
-// grad-of-grad its slot holds the cotangent that became G or another
-// operand).  Rows e >= *n_edges get zeros.
+// The x leg never reads x, the sh leg never sh: the operand of the output
+// leg does not exist for the caller (in the grad-of-grad its slot holds the
+// cotangent that became G or another operand).  Rows e >= *n_edges get
+// zeros.
 //
 // With the radial fold (kRad) w = [h, one] @ [Wr; offset] and the legs are
 // (out, x, sh, h, Wr, W): the x and sh legs build each group's w columns in
@@ -64,10 +62,9 @@
 // do), and at a column change the warp adds it up with a fixed butterfly of
 // shuffles and lane 0 adds it to the row's dsh.  No atomics anywhere: the
 // same bits on every run.  dx and dsh accumulate over the whole tile, dw
-// over one group (every w column feeds exactly one group) and is flushed,
-// or contracted against Wr, at the group's last component.  Everything
-// accumulates in fp32 on the CUDA cores; tensor cores and TMA are later
-// work.
+// over one group (every w column feeds exactly one group) and is contracted
+// against Wr at the group's last component.  Everything accumulates in fp32
+// on the CUDA cores; tensor cores and TMA are later work.
 
 #include <stdint.h>
 
@@ -383,8 +380,6 @@ int dispatch(int leg, bool rad, const LegArgs& a, int n_blocks, int smem, cudaSt
     if (leg == kLegSh) EQT_LEG(kLegSh, true);
     if (leg == kLegH) EQT_LEG(kLegH, true);
     if (leg == kLegWr) EQT_LEG(kLegWr, true);
-  } else if (leg == kLegSh) {
-    EQT_LEG(kLegSh, false);
   }
 #undef EQT_LEG
   return n_blocks > 0 ? (int)cudaErrorInvalidValue : -(int)cudaErrorInvalidValue;
@@ -415,20 +410,6 @@ LegArgs edge_args(const void* x, long long sx, int d_x, const void* sh, int d_sh
 }
 
 }  // namespace
-
-// K5b's sh leg: out [E, d_sh] (sh is not read and may be null; w null for a
-// shared-weight plan).  One block per 16-edge tile.
-extern "C" int dtp_lin_sh_leg(const void* x, long long sx, int d_x, const void* w, int d_w,
-                              const void* WT, const void* G, int d_out, const void* n_edges,
-                              int E, const void* gk, int n_gk, const void* terms,
-                              const void* coeffs, void* out, int d_sh, int cols_pad_max,
-                              int fs_max, int dtype, void* stream) {
-  if (out == nullptr) return (int)cudaErrorInvalidValue;
-  LegArgs a = edge_args(x, sx, d_x, nullptr, d_sh, WT, G, d_out, n_edges, E, gk, n_gk, terms,
-                        coeffs, 0, cols_pad_max, fs_max);
-  a.w = w; a.d_w = d_w; a.out = out;
-  return run(kLegSh, false, a, (E + kTile - 1) / kTile, dtype, stream);
-}
 
 // K7-L.  One block per 16-edge tile; h [E, hd] and Wl [hd + 1, n_loc] (the
 // tables' local column order) in place of w.  leg: 0 = x (out [E, d_x]), 1
@@ -469,12 +450,12 @@ extern "C" int dtp_lin_rad_legWr(const void* x, long long sx, int d_x, const voi
 }
 
 // Resident blocks per SM of one leg's kernel at the shared memory of a launch
-// with these widths, or minus a cudaError_t.  leg: 1 sh (hd == 0), or with
-// the fold (hd > 0) 0 x, 1 sh, 3 h, 4 Wr.
+// with these widths, or minus a cudaError_t.  leg, with the fold (hd > 0): 0
+// x, 1 sh, 3 h, 4 Wr.
 extern "C" int dtp_lin_leg_occupancy(int leg, int d_x, int d_sh, int span_max,
                                      int cols_pad_max, int fs_max, int hd, int dtype) {
   const bool rad = hd > 0;
-  if (leg < kLegX || leg > kLegWr || (rad && leg == kLegW) || (!rad && leg != kLegSh))
+  if (leg < kLegX || leg > kLegWr || leg == kLegW || !rad)
     return -(int)cudaErrorInvalidValue;
   const int smem = smem_floats(leg, rad, d_x, d_sh, span_max, cols_pad_max, fs_max, hd) *
                    (int)sizeof(float);

@@ -118,13 +118,18 @@ _SIGNATURES = {
     "dtp_lin_bwd_stage": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
                           _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                           _VP, _I, _VP, _I, _I, _VP, _I, _I, _I, _VP],
-    # x, x_row_stride, d_x, sh, d_sh, w, d_w, W^T, g, d_out, n_edges*, E,
-    # gk table, n_gk, terms, coeffs, dwmap, dx, dsh, dw (each may be null),
-    # span_max, cols_pad_max, max_fan_stride, dtype, stream
+    # K5a and K5b's sh leg: dtp_lin_bwd's arguments, then dsh, its split
+    # partials, the dsh slots a row, the leg (4 K5a, 1 sh) and the
+    # irrep-group splits of a tile before the dtype
     "dtp_lin_bwd3": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
-                     _VP, _I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    # d_x (0 without dx), d_sh, span (0 without dw), cols_pad_max,
-    # max_fan_stride, hd (0 unfolded), dtype -> resident blocks per SM (or -cudaError_t)
+                     _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                     _VP, _I, _VP, _I, _I, _VP, _I, _VP, _VP, _I, _I, _I, _I, _VP],
+    # leg (4 K5a, 1 sh), d_x, d_sh, span_max, cp_max, fd_max, has_w, x rows
+    # (0 broadcast), need (1 dx, 2 dsh, 4 dw), dsh slots, dtype
+    # -> resident blocks per SM (or -cudaError_t)
+    "dtp_lin_dsh_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I],
+    # K7-B3: d_x (0 without dx), d_sh, span, cols_pad_max, max_fan_stride,
+    # hd (> 0), dtype -> resident blocks per SM (or -cudaError_t)
     "dtp_lin_bwd3_occupancy": [_I, _I, _I, _I, _I, _I, _I],
     # the radial fold (K7): h [E, hd] and Wl [hd + 1, n_loc] in place of w.
     # K7-F: x, x_row_stride, sh, W, out, n_edges*, E, d_sh, d_out, gk table
@@ -152,13 +157,8 @@ _SIGNATURES = {
     "dtp_lin_legW": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
                      _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                      _VP, _I, _VP, _I, _I, _VP, _I, _I, _VP],
-    # K5b's sh leg: x, x_row_stride, d_x, w, d_w, W^T, g, d_out, n_edges*, E,
-    # gk table (bwd3_tables'), n_gk, terms, coeffs, out, d_sh, cols_pad_max,
-    # max_fan_stride, dtype, stream
-    "dtp_lin_sh_leg": [_VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
-                       _VP, _I, _I, _I, _I, _VP],
-    # leg (1 sh; folded: 0 x, 1 sh, 3 h, 4 Wr), d_x, d_sh, span_max,
-    # cols_pad_max, max_fan_stride, hd (0 unfolded), dtype
+    # K7-L / K7-Wr: leg (0 x, 1 sh, 3 h, 4 Wr), d_x, d_sh, span_max,
+    # cols_pad_max, max_fan_stride, hd (> 0), dtype
     # -> resident blocks per SM (or -cudaError_t)
     "dtp_lin_leg_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I],
     # K7-L: leg (0 x, 1 sh, 2 h), x, x_row_stride, d_x, sh, d_sh, W^T, g,

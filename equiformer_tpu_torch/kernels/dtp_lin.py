@@ -447,6 +447,17 @@ class DTPLinPlan:
         self._tables[key] = tabs
         return tabs
 
+    def k2_dsh_slots(self) -> int:
+        """The width of the dsh slot rows of K5a and K5b's sh leg on K2's
+        launch 1: a slot a term and row, so the most terms of a (group,
+        component)."""
+        slots = self._tables.get("k2_dsh_slots")
+        if slots is None:
+            gk = self.bwd_tables(torch.device("cpu"))[0]
+            slots = int((gk[:, 5] - gk[:, 4]).max())
+            self._tables["k2_dsh_slots"] = slots
+        return slots
+
     def k1_tables(self, device: torch.device) -> "K1Tables":
         """K1's tables on ``device``, as ``csrc/dtp_lin.cu`` (namespace k1)
         reads them; the terms and coefficients are ``device_tables'``.

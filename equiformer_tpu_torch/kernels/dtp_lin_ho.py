@@ -22,13 +22,15 @@ and component,
 
 (w = 1 when shared weights are folded into W).  Rows at or past ``n_edges``
 give zeros and add nothing to dW.  On the card each is one hand-written
-kernel: F_out is K1 (``dtp_lin_fwd``, ``csrc/dtp_lin.cu``), an edge leg K5b
-(``dtp_lin_leg``: the x and w legs on K2's launch 1, ``csrc/dtp_lin_bwd.cu``,
-the sh leg ``csrc/dtp_lin_leg.cu``), F_W K5c (``dtp_lin_legW``, K2's launch
-2), and the three edge legs of one ``g`` together K5a (``dtp_lin_bwd3``,
-``csrc/dtp_lin_bwd3.cu``), the force backward.  Each has
-its plain version here (``dtp_lin_leg_plain``, ``dtp_lin_legW_plain``,
-``dtp_lin_bwd3_plain``), which CPU tensors take.
+kernel: F_out is K1 (``dtp_lin_fwd``, ``csrc/dtp_lin.cu``); every edge leg
+runs on K2's launch 1 (``csrc/dtp_lin_bwd.cu``), a block per (16-edge tile,
+irrep group): an edge leg alone K5b (``dtp_lin_leg``: the x and w legs
+``k2::edge_leg_kernel``, the sh leg ``k2::sh_leg_kernel``) and the three
+edge legs of one ``g`` together K5a (``dtp_lin_bwd3``, ``k2::bwd3_kernel``),
+the force backward, whose dsh sum has one fixed order; F_W is K5c
+(``dtp_lin_legW``, K2's launch 2).  Each has its plain version here
+(``dtp_lin_leg_plain``, ``dtp_lin_legW_plain``, ``dtp_lin_bwd3_plain``),
+which CPU tensors take.
 
 ``_Leg`` and ``_Bwd3`` are the ``torch.autograd.Function`` family: the
 backward of each calls other members through ``apply``, so
@@ -47,8 +49,8 @@ legs x, sh, h), as JAX's ``_LEGS_RAD`` extends ``_LEGS``.  The same
 chip), the W leg K7-LW (``dtp_lin_rad_legW``, ``csrc/dtp_lin_legW.cu``), the
 Wr leg K7-Wr (``dtp_lin_rad_legWr``, ``csrc/dtp_lin_leg.cu``: [h, 1]^T dw
 in fixed-order fp32 partial rows) and the three edge legs of one ``g``
-together K7-B3 (``dtp_lin_rad_bwd3``, ``csrc/dtp_lin_bwd3.cu``); every one
-builds w from (h, [Wr; offset]) in shared memory.  Plain versions:
+together K7-B3 (``dtp_lin_rad_bwd3``, ``csrc/dtp_lin_bwd3.cu``, the first
+K5a design); every one builds w from (h, [Wr; offset]) in shared memory.  Plain versions:
 ``dtp_lin_rad_leg_plain``, ``dtp_lin_rad_legW_plain``,
 ``dtp_lin_rad_legWr_plain``, ``dtp_lin_rad_bwd3_plain``.
 
@@ -96,13 +98,16 @@ EDGE_LEGS_RAD = ("x", "sh", "h")
 # K5c's launch-2 blocks per SM (``k2_ranges``), apart from K2's: at MD17's
 # 2944 edges one 64-edge step a range
 LEGW_DW_BLOCKS_PER_SM = 32
+# the leg argument of the dsh launches on K2's launch 1 (csrc/dtp_lin_bwd.cu
+# k2::Leg1): K5b's sh leg, K5a
+DSH_LEGS = {"sh": 1, "bwd3": 4}
 
 
 def bwd3_tables(plan: DTPLinPlan, device: torch.device):
     """``plan.bwd_tables`` with the term rows of each (group, component)
-    stably sorted by SH column, so the kernel's running dsh sum is flushed
-    once per column rather than once per term: (gk, terms, coeffs, dwmap,
-    wt_index, span_max, cols_pad_max)."""
+    stably sorted by SH column, so the running dsh sum of the first K5a /
+    K5b design (K7-B3, K7-L) is flushed once per column rather than once per
+    term: (gk, terms, coeffs, dwmap, wt_index, span_max, cols_pad_max)."""
     key = ("bwd3", device)
     tabs = plan._tables.get(key)
     if tabs is not None:
@@ -128,14 +133,36 @@ def dtp_lin_bwd3_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges=None):
     return dx.to(x.dtype), dsh.to(sh.dtype), None if dw is None else dw.to(w.dtype)
 
 
+def _dsh_launch(plan: DTPLinPlan, leg: str, g, x, sh, w, W_flat, n_edges, dx, dsh,
+                dw) -> None:
+    """K5a (``leg`` "bwd3": two or three of dx, dsh, dw, each None when not
+    asked for) or K5b's sh leg ("sh": dsh alone, sh None) on K2's launch 1,
+    on checked operands and K2's tables, a block per (16-edge tile, irrep
+    group): at MD17's 2944 edges the tiles alone make 184 blocks of one an
+    SM (1.4 waves on 132 SMs).  With more than one group the dx and dsh
+    partials, one [E, width] fp32 per group, are summed in group order."""
+    E, dev, n_split = g.shape[0], g.device, len(plan.groups)
+    scratch = lambda out, width: (  # noqa: E731
+        torch.empty((n_split, E, width), dtype=torch.float32, device=dev)
+        if out is not None and n_split > 1 else None)
+    part, part_sh = scratch(dx, plan.d_x), scratch(dsh, plan.d_sh)
+    _k2_call("dtp_lin_bwd3", plan, g, x, sh, w, k2_packed_W(plan, W_flat), n_edges, dx, dw, None,
+             part, _build.ptr(dsh), _build.ptr(part_sh), plan.k2_dsh_slots(), DSH_LEGS[leg],
+             n_split)
+
+
 def dtp_lin_bwd3(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: torch.Tensor,
                  g: torch.Tensor, n_edges=None, need_dx: bool = True, need_dsh: bool = True,
                  need_dw: bool = True):
     """K5a: (dx, dsh, dw) for the cotangent ``g`` [E, d_out] of
     ``dtp_lin_fwd`` on the same operands, each None when not needed (dw is
     None for a shared-weight plan).  CPU tensors take ``dtp_lin_bwd3_plain``;
-    CUDA tensors launch the kernel (float32 or bfloat16) or raise.  One
-    launch per call, whatever is needed."""
+    CUDA tensors launch the kernel (float32 or bfloat16) or raise: K2's
+    launch 1 with a dsh accumulator (``csrc/dtp_lin_bwd.cu``,
+    ``k2::bwd3_kernel``, compiled for each set of two or three outputs), a
+    block per (16-edge tile, irrep group), then the dx and dsh partials
+    summed in group order (``k2::bwd3_sum_kernel``).  One output alone is
+    that edge leg of K5b (``dtp_lin_leg``, which counts the launch)."""
     need_dw = need_dw and w is not None
     if x.device.type == "cpu":
         dx, dsh, dw = dtp_lin_bwd3_plain(plan, x, sh, w, W_flat, g, n_edges)
@@ -146,7 +173,6 @@ def dtp_lin_bwd3(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat:
         raise ValueError(f"cotangent must be [{E}, {plan.d_out}] in x's dtype and device")
     g = g.contiguous()
     n_edges = _check_n_edges(n_edges, E, x.device)
-    gk, terms, coeffs, dwmap, wt_index, span_max, cols_pad_max = bwd3_tables(plan, x.device)
     dev = x.device
     empty = lambda d: torch.empty((E, d), dtype=x.dtype, device=dev)  # noqa: E731
     dx = empty(plan.d_x) if need_dx else None
@@ -155,17 +181,14 @@ def dtp_lin_bwd3(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat:
     if need_dw:
         dw = (torch.zeros if plan.dw_has_dead_cols else torch.empty)(
             (E, plan.d_w), dtype=x.dtype, device=dev)
-    if E == 0:
+    if E == 0 or not (need_dx or need_dsh or need_dw):
         return dx, dsh, dw
-    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
-    err = _build.library().dtp_lin_bwd3(
-        _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(w),
-        plan.d_w, _build.ptr(WT), _build.ptr(g), plan.d_out, _build.ptr(n_edges), E,
-        _build.ptr(gk), gk.shape[0], _build.ptr(terms), _build.ptr(coeffs), _build.ptr(dwmap),
-        _build.ptr(dx), _build.ptr(dsh), _build.ptr(dw), span_max, cols_pad_max,
-        plan.max_fan_stride, _build.dtype_code(x), _build.stream_ptr(),
-    )
-    _build.check(err, "dtp_lin_bwd3")
+    if need_dx + need_dsh + need_dw == 1:
+        leg = "x" if need_dx else "sh" if need_dsh else "w"
+        ops = {"x": x, "sh": sh, "w": w, leg: None}
+        out = dtp_lin_leg(plan, leg, g, ops["x"], ops["sh"], ops["w"], W_flat, n_edges)
+        return tuple(out if k == leg else None for k in ("x", "sh", "w"))
+    _dsh_launch(plan, "bwd3", g, x, sh, w, W_flat, n_edges, dx, dsh, dw)
     dtp_lin_bwd3.launches += 1
     return dx, dsh, dw
 
@@ -174,19 +197,37 @@ dtp_lin_bwd3.launches = 0
 
 
 def bwd3_occupancy(plan: DTPLinPlan, dtype: torch.dtype, need_dx: bool = True,
-                   need_dw: bool = True, folded: bool = False) -> int:
-    """Resident blocks per SM of the K5a kernel (or with ``folded`` of
-    K7-B3, which always keeps the dw tile) at this plan's shared memory
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs the card."""
-    *_, span_max, cols_pad_max = bwd3_tables(plan, torch.device("cpu"))
+                   need_dw: bool = True, folded: bool = False, need_dsh: bool = True,
+                   x_rows: bool = True) -> int:
+    """Resident blocks per SM of the K5a launch with the two or three
+    outputs asked for (x a row-broadcast without ``x_rows``), or with
+    ``folded`` of K7-B3 (which always keeps the dw tile), at this plan's
+    shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs
+    the card."""
     code = _build.dtype_code(torch.empty((), dtype=dtype))
-    keep_dw = folded or (need_dw and not plan.shared_weights)
-    blocks = _build.library().dtp_lin_bwd3_occupancy(
-        plan.d_x if need_dx else 0, plan.d_sh, span_max if keep_dw else 0, cols_pad_max,
-        plan.max_fan_stride, plan.radial_fold if folded else 0, code)
+    if folded:
+        *_, span_max, cols_pad_max = bwd3_tables(plan, torch.device("cpu"))
+        blocks = _build.library().dtp_lin_bwd3_occupancy(
+            plan.d_x if need_dx else 0, plan.d_sh, span_max, cols_pad_max,
+            plan.max_fan_stride, plan.radial_fold, code)
+    else:
+        has_w = not plan.shared_weights
+        need = (int(need_dx) | 2 * int(need_dsh) | 4 * int(need_dw and has_w))
+        if need in (0, 1, 2, 4):
+            raise ValueError("K5a takes two or three outputs: one alone is K5b's edge leg")
+        blocks = _dsh_occupancy(plan, DSH_LEGS["bwd3"], has_w, x_rows, need, code)
     if blocks < 0:
         _build.check(-blocks, "dtp_lin_bwd3_occupancy")
     return blocks
+
+
+def _dsh_occupancy(plan: DTPLinPlan, leg: int, has_w: bool, x_rows: bool, need: int,
+                   code: int) -> int:
+    span_max = plan.bwd_tables(torch.device("cpu"))[5]
+    kt = plan.k2_tables(torch.device("cpu"))
+    return _build.library().dtp_lin_dsh_occupancy(
+        leg, plan.d_x, plan.d_sh, span_max, kt.cp_max, kt.fd_max, int(has_w), int(x_rows), need,
+        plan.k2_dsh_slots(), code)
 
 
 def dtp_lin_rad_bwd3_plain(plan: DTPLinPlan, x, sh, h, Wrs, W_flat, g, n_edges=None):
@@ -287,13 +328,14 @@ def dtp_lin_leg(plan: DTPLinPlan, out_leg: str, g: torch.Tensor, x, sh, w,
                 W_flat: torch.Tensor, n_edges=None) -> torch.Tensor:
     """K5b: one edge leg of the fused op, ``F_x(g, sh, w, W)`` [E, d_x],
     ``F_sh(g, x, w, W)`` [E, d_sh] or ``F_w(g, x, sh, W)`` [E, d_w]; the
-    operand of ``out_leg`` is not read (pass None).  The x and w legs run
-    on K2's launch 1 (``csrc/dtp_lin_bwd.cu``, ``k2::edge_leg_kernel``), a
-    block per (16-edge tile, irrep group): at MD17's 2944 edges the tiles
-    alone fill 1.4 waves of one block an SM; the x leg's per-group dx
-    partials are summed in group order.  The sh leg runs on
-    ``csrc/dtp_lin_leg.cu``.  CPU tensors take ``dtp_lin_leg_plain``; CUDA
-    tensors launch the kernel (float32 or bfloat16) or raise."""
+    operand of ``out_leg`` is not read (pass None).  Each runs on K2's
+    launch 1 (``csrc/dtp_lin_bwd.cu``: the x and w legs
+    ``k2::edge_leg_kernel``, the sh leg ``k2::sh_leg_kernel``), a block per
+    (16-edge tile, irrep group): at MD17's 2944 edges the tiles alone fill
+    1.4 waves of one block an SM; the x and sh legs' per-group partials are
+    summed in group order.  CPU
+    tensors take ``dtp_lin_leg_plain``; CUDA tensors launch the kernel
+    (float32 or bfloat16) or raise."""
     if g.device.type == "cpu":
         return dtp_lin_leg_plain(plan, out_leg, g, x, sh, w, W_flat, n_edges)
     _check_edge_leg(plan, out_leg)
@@ -306,15 +348,7 @@ def dtp_lin_leg(plan: DTPLinPlan, out_leg: str, g: torch.Tensor, x, sh, w,
     if E == 0:
         return out
     if out_leg == "sh":
-        gk, terms, coeffs, _, wt_index, _, cols_pad_max = bwd3_tables(plan, dev)
-        WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
-        err = _build.library().dtp_lin_sh_leg(
-            _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(w), plan.d_w, _build.ptr(WT),
-            _build.ptr(g), plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0],
-            _build.ptr(terms), _build.ptr(coeffs), _build.ptr(out), plan.d_sh, cols_pad_max,
-            plan.max_fan_stride, _build.dtype_code(g), _build.stream_ptr(),
-        )
-        _build.check(err, "dtp_lin_sh_leg")
+        _dsh_launch(plan, "sh", g, x, None, w, W_flat, n_edges, None, out, None)
     else:
         n_split = len(plan.groups)
         part = None  # the x leg's dx partials, one [E, d_x] per group
@@ -514,16 +548,18 @@ dtp_lin_rad_legWr.launches = 0
 
 def leg_occupancy(plan: DTPLinPlan, dtype: torch.dtype, out_leg: str) -> int:
     """Resident blocks per SM at this plan's shared memory of K5b's sh leg
-    kernel ("sh"), or on a radial-folded plan of K7-L's ("x", "sh", "h"),
-    K7-Wr ("Wr") or K7-LW ("W").  Needs the card.  (K5b's x and w legs and
-    K5c run on K2's launches: one 16-edge tile a block, and dW tiles by edge
-    ranges.)"""
-    *_, span_max, cols_pad_max = bwd3_tables(plan, torch.device("cpu"))
+    ("sh", on K2's launch 1), or on a radial-folded plan of K7-L's ("x",
+    "sh", "h"), K7-Wr ("Wr") or K7-LW ("W").  Needs the card.  (K5b's x and
+    w legs and K5c run on K2's launches: one 16-edge tile a block, and dW
+    tiles by edge ranges.)"""
     code = _build.dtype_code(torch.empty((), dtype=dtype))
     hd = plan.radial_fold or 0
     if not hd and out_leg != "sh":
         raise ValueError(f"the unfolded {out_leg!r} leg runs on K2's launches")
-    if out_leg == "W":
+    *_, span_max, cols_pad_max = bwd3_tables(plan, torch.device("cpu"))
+    if not hd:
+        blocks = _dsh_occupancy(plan, DSH_LEGS["sh"], not plan.shared_weights, True, 7, code)
+    elif out_leg == "W":
         blocks = _build.library().dtp_lin_legW_occupancy(cols_pad_max, plan.max_fan_stride,
                                                          span_max, hd, code)
     else:

@@ -1,8 +1,8 @@
 """K1 (the fused DTP + linear forward), K2 (its backward), K3 (the CSR
 segment sum), K4 (the attention combine), K7-F (the radial-folded
-forward), K5b (the x and w edge legs of the force models' fused op) and K5c
-(its head-weight leg) of this package against another tree's, in turns, on
-one GPU.
+forward), K5a (the force backward: dx, dsh and dw of the force models'
+fused op), K5b (its edge legs) and K5c (its head-weight leg) of this
+package against another tree's, in turns, on one GPU.
 
     python -m equiformer_tpu_torch.tools.kernel_ab [--against DIR [DIR ...]]
         [--kernels K1,K4] [--out FILE]
@@ -29,15 +29,18 @@ flagship's three sites (sep_act, sep_value with shared weights folded into
 W, the edge-degree embedding with its row-broadcast x), K1 also at MD17
 L3's sep_act; K4 at QM9's [E, 4, 120] with and without the alpha-dropout
 multiplier, the padding edges masked; K7-F at the folded flagship's
-sep_act; K5b's x leg and w leg (none at sep_value, whose weights are
-shared) and K5c at MD17 exp_l3's three sites (sep_act, sep_value, the
-edge degree), the leg's own operand None.  Random operands from seed 0,
-the batch's real edges live.  Per shape and dtype (float32, bfloat16):
+sep_act; K5a with each caller's outputs (``K5A_NEEDS``), K5b's x, sh and
+w legs (no w leg at sep_value, whose weights are shared) and K5c at MD17
+exp_l3's three sites (sep_act, sep_value, the edge degree), a leg's own
+operand None.  K5a's (dx, dw) runs beside K2's own launch 1 on the same
+inputs (S3 ``dtp_lin_bwd_stage`` at ``DXDW_STAGE``: the compile-time dx /
+dw code, whole tiles), where its shared memory fits.  Random operands from
+seed 0, the batch's real edges live.  Per shape and dtype (float32, bfloat16):
 
 * ``ms``: each side's wrapper, CUDA events (median of 5 runs of 5 calls);
   ``host_us`` (K3): its host time a call (median of 5 runs of 100 calls
   without a synchronize), which bounds ``ms`` at the small MD17 shapes;
-* ``device_ms`` (K3, K4, K5b, K5c): each side's device time per call, all
+* ``device_ms`` (K3, K4, K5a-c): each side's device time per call, all
   its kernels, and ``kernel_ms`` the kernel alone, from a profiler trace of
   20 calls;
 * ``rel_err``: each side against this package's plain version (max |diff| /
@@ -66,6 +69,7 @@ from .. import model_entrypoint
 from ..data import GraphLoader, md17_like_dataset, qm9_like_dataset
 from ..graph.radius_graph import radius_graph_dense
 from .. import kernels
+from ..kernels.dtp_lin import DXDW_STAGE
 from ..kernels import (
     attn_combine_plain,
     attn_den_plain,
@@ -83,10 +87,16 @@ MD17 = ("graph_attention_transformer_nonlinear_exp_l3_md17", 8, 21)
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 K3_KERNEL = "csr_segment_sum_kernel"
 K4_KERNEL = "attn_combine_kernel"
-# the K5b / K5c kernels of this design (k2::) and of the first one
-K5B_KERNELS = ("edge_leg_kernel", "sum_dx_kernel", "dtp_lin_leg_kernel")
+# the K5a-c kernels of this design (k2::) and of the first one
+K5A_KERNELS = ("bwd3_kernel", "bwd3_sum_kernel")
+K5B_KERNELS = ("edge_leg_kernel", "sum_dx_kernel", "sh_leg_kernel", "bwd3_sum_kernel",
+               "dtp_lin_leg_kernel")
 K5C_KERNELS = ("W_leg_kernel", "dtp_lin_legW_kernel", "sum_partial_rows_kernel")
-SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K5b", "K5c")
+SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K5a", "K5b", "K5c")
+# the outputs each caller of K5a asks for at MD17's sites: the force pass and
+# (dx, dw) the parameter pass of training
+K5A_NEEDS = {"md17-sep_act": (("x", "sh", "w"), ("x", "w")), "md17-sep_value": (("x", "sh"),),
+             "md17-edge_deg": (("sh", "w"), ("x", "w"))}
 
 
 def load_tree(root: Path, name: str):
@@ -272,10 +282,46 @@ def k4_section(sides, order, case, dev, report):
             print("K4", name, json.dumps(entry), flush=True)
 
 
+def k5a_section(sides, order, plans, rows, dev, report):
+    """K5a at each site of ``plans[side]`` with each caller's outputs,
+    against this package's plain version, both dtypes; with (dx, dw) also
+    K2's own launch 1 on this package (where its shared memory fits)."""
+    for site, plan in plans["package"].items():
+        E, n_live = rows[site]
+        for need in K5A_NEEDS[site]:
+            flags = {f"need_d{k}": k in need for k in ("x", "sh", "w")}
+            for dt in (torch.float32, torch.bfloat16):
+                x, sh, w, W, cot = dtp_operands(plan, site, E, dt, dev)
+                n = torch.tensor(n_live, dtype=torch.int32, device=dev)
+                want = [o for o, k in zip(kernels.dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n),
+                                          ("x", "sh", "w")) if k in need]
+                entry = {"E": E, "n_live": n_live, "runs": []}
+                for i, side in enumerate(order):
+                    m, p = sides[side][0], plans[side][site]
+                    call = lambda m=m, p=p: m.dtp_lin_bwd3(  # noqa: E731
+                        p, x, sh, w, W, cot, n, **flags)
+                    tag = f"K5a_{site}_{''.join(need)}_{str(dt)[6:]}_{side}_{i}"
+                    got = [o for o in call() if o is not None]
+                    entry["runs"].append({
+                        "side": side, "ms": device_time_ms(call, dev),
+                        **traced_run(call, tag, K5A_KERNELS),
+                        "rel_err": max(rel(a, b) for a, b in zip(got, want))})
+                if need == ("x", "w"):
+                    call = lambda: kernels.dtp_lin_bwd_stage(  # noqa: E731
+                        plan, x, sh, w, W, cot, DXDW_STAGE, n)
+                    try:
+                        entry["k2_launch1_ms"] = device_time_ms(call, dev)
+                    except RuntimeError as err:  # a yardstick only: its tile may not fit
+                        entry["k2_launch1_ms"] = f"not run: {err}"
+                name = f"{site}/{''.join(need)}/{str(dt)[6:]}"
+                report["K5a"][name] = entry
+                print("K5a", name, json.dumps(entry), flush=True)
+
+
 def k5_section(key, sides, order, plans, rows, dev, report):
-    """K5b's x and w legs (``key`` "K5b") or K5c ("K5c") at each site of
+    """K5b's x, sh and w legs (``key`` "K5b") or K5c ("K5c") at each site of
     ``plans[side]``, against this package's plain versions, both dtypes."""
-    legs = ("x", "w") if key == "K5b" else ("W",)
+    legs = ("x", "sh", "w") if key == "K5b" else ("W",)
     for site, plan in plans["package"].items():
         E, n_live = rows[site]
         for leg in legs:
@@ -374,13 +420,15 @@ def main(argv=None) -> dict:
             lambda p, o, n: m.dtp_lin_rad_fwd(p, o[0], o[1], *rad_ops(p, o), o[3], n)),
             lambda p, o, n: dtp_lin_rad_plain(p, o[0], o[1], *rad_ops(p, o), o[3], n))
 
-    if {"K5b", "K5c"} & set(want):
+    if {"K5a", "K5b", "K5c"} & set(want):
         mrows = {f"md17-{site}": (mE, int(mmask.sum())) for site in ("sep_act", "sep_value",
                                                                       "edge_deg")}
         mplans = {}
         for side, (_, make) in sides.items():
             md17 = make(MD17[0])(max_edges=mE, nodes_per_graph=MD17[2], seed=SEED, device=dev)
             mplans[side] = {f"md17-{k}": v for k, v in dtp_plans(md17).items()}
+        if "K5a" in want:
+            k5a_section(sides, order, mplans, mrows, dev, report)
         for key in ("K5b", "K5c"):
             if key in want:
                 k5_section(key, sides, order, mplans, mrows, dev, report)

@@ -39,7 +39,8 @@ bfloat16, per unit:
   one of ``KERNEL_GROUPS`` (K2's two launches, the fixed-order partial-row
   sum that K2, K5c and the K7 kernels share, K3, the first K2 design's
   template, which K7-B still is, K1, K4, K5b's x and w legs and K5c apart
-  from K2, and the first K5b / K5c templates, which K5b's sh leg and the K7
+  from K2, K5a and its partial sum, K5b's sh leg, the first K5a design,
+  which K7-B3 still is, and the first K5b / K5c templates, which the K7
   legs still are), and ``annotated``: [ms, calls]
   per unit of the kernels inside each ``record_function`` range of
   ``ANNOTATIONS`` (K4's backward, torch ops);
@@ -86,7 +87,9 @@ TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 KERNEL_GROUPS = ("k2::dxdw_kernel", "k2::dW_kernel", "sum_partial_rows_kernel",
                  "csr_segment_sum_kernel", "dtp_lin_bwd_kernel<", "k1::fwd_kernel",
                  "attn_combine_kernel", "k2::edge_leg_kernel", "k2::sum_dx_kernel",
-                 "k2::W_leg_kernel", "dtp_lin_leg_kernel<", "dtp_lin_legW_kernel<")
+                 "k2::W_leg_kernel", "k2::bwd3_kernel", "k2::bwd3_sum_kernel",
+                 "k2::sh_leg_kernel", "dtp_lin_bwd3_kernel<", "dtp_lin_leg_kernel<",
+                 "dtp_lin_legW_kernel<")
 ANNOTATIONS = (ATTN_BWD_RANGE,)
 
 

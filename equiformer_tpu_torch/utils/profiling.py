@@ -9,10 +9,12 @@ Counterpart of ``equiformer_tpu/utils/profiling.py``: ``trace`` is a
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import statistics
 import subprocess
+import sys
 import time
 from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
@@ -106,26 +108,42 @@ def device_time_ms(fn: Callable[[], object], device: torch.device, reps: int = 5
     return statistics.median(times)
 
 
+# profiler traces kernel_ms takes before it gives up on one that holds no kernel
+KERNEL_MS_TRACES = 3
+
+
 def kernel_ms(fn: Callable[[], object], calls: int, path: Path) -> Dict[str, Tuple[float, float]]:
     """Device time and launches per call of each kernel that ``calls``
     back-to-back calls of ``fn`` launch, {kernel name: (ms, launches)}, from
     a ``torch.profiler`` trace of them written to ``path`` (after one
     warm-up call).  Launches per call are rounded to whole numbers and the
     time per call is the mean launch's times that: the trace can miss the
-    first kernel of the window.  Raises when the trace holds no kernel."""
+    first kernel of the window.  A trace now and then comes back without
+    any kernel: each retake is reported on stderr with what that trace held
+    (its events by category), up to ``KERNEL_MS_TRACES`` traces, then this
+    raises."""
     wait_for(fn())
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
     seen: Dict[str, Tuple[float, int]] = {}
-    for e in json.loads(path.read_text())["traceEvents"]:
-        if e.get("cat") == "kernel" and "dur" in e:
-            us, n = seen.get(e["name"], (0.0, 0))
-            seen[e["name"]] = (us + float(e["dur"]), n + 1)
+    for attempt in range(1, KERNEL_MS_TRACES + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        for e in events:
+            if e.get("cat") == "kernel" and "dur" in e:
+                us, n = seen.get(e["name"], (0.0, 0))
+                seen[e["name"]] = (us + float(e["dur"]), n + 1)
+        if seen:
+            break
+        if attempt < KERNEL_MS_TRACES:
+            cats = collections.Counter(str(e.get("cat")) for e in events)
+            print(f"kernel_ms: trace {attempt} of {KERNEL_MS_TRACES} at {path} holds no kernel "
+                  f"(events by category: {dict(cats)}); taking it again", file=sys.stderr,
+                  flush=True)
     if not seen:
         raise RuntimeError(f"the trace {path} holds no kernel")
     out = {}

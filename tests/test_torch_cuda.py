@@ -245,25 +245,47 @@ def test_reduced_train_step_on_card_matches_cpu(dev):
     assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-4 * scale
 
 
-# The three call sites of the force backward (K5a) at small L3 widths:
-# (head irreps, shared weights, row-broadcast x without dx)
+# The three call sites of the force backward (K5a) at small L3 widths, and a
+# plan whose one head reads one irrep group (its edge-leg launches keep each
+# 16-edge tile whole: grid.y = 1): (head irreps, shared weights,
+# row-broadcast x without dx)
 L3_IRR = "16x0e+8x1e+8x2e+4x3e"
 L3_SH = "1x0e+1x1e+1x2e+1x3e"
 BWD3_SITES = {
     "sep_act": (["36x0e+8x1e+8x2e+4x3e", "8x0e"], False, False),
     "sep_value": ([L3_IRR], True, False),
     "edge_deg": ([L3_IRR], False, True),
+    "one_group": (["8x0e"], False, False),
 }
+
+
+# every subset of K5a's outputs: (dx, dsh, dw) and the pairs, which the
+# callers ask for, and each output alone (K5b's edge leg); no dw where the
+# weights are shared
+K5A_SUBSETS = (("x", "sh", "w"), ("x", "sh"), ("sh", "w"), ("x", "w"), ("x",), ("sh",), ("w",))
+
+
+def _k5a_cases(plan, x, sh, w, W, cot, n):
+    """(need, K5a's outputs) of every subset of dx, dsh and dw at this plan
+    (none with dw where the weights are shared)."""
+    from equiformer_tpu_torch.kernels import dtp_lin_bwd3
+
+    for need in K5A_SUBSETS:
+        if w is None and "w" in need:
+            continue
+        flags = {f"need_d{k}": k in need for k in ("x", "sh", "w")}
+        yield need, lambda flags=flags: dtp_lin_bwd3(plan, x, sh, w, W, cot, n, **flags)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("site", list(BWD3_SITES))
 def test_dtp_lin_bwd3_kernel_matches_plain(dev, site, dtype):
-    """K5a against dtp_lin_bwd3_plain on the same operands: dx (not asked
-    for at the broadcast site), dsh and dw; rows past n_edges get zeros; a
-    second call gives the same bits (no atomics)."""
-    from equiformer_tpu_torch.kernels import dtp_lin_bwd3, dtp_lin_bwd3_plain
+    """K5a (K2's launch 1 with the dsh sum) against dtp_lin_bwd3_plain on the
+    same operands, with every subset of dx, dsh and dw (one alone on K5b's
+    leg): what is not asked for comes back None, rows past n_edges get
+    zeros, a second call gives the same bits (no atomics)."""
+    from equiformer_tpu_torch.kernels import dtp_lin_bwd3, dtp_lin_bwd3_plain, dtp_lin_leg
 
     heads, shared, broadcast = BWD3_SITES[site]
     dt = getattr(torch, dtype)
@@ -276,20 +298,22 @@ def test_dtp_lin_bwd3_kernel_matches_plain(dev, site, dtype):
     sh, W, cot = rnd(E, plan.d_sh), rnd(plan.w_numel), rnd(E, plan.d_out)
     w = None if shared else rnd(E, plan.d_w)
     n = torch.tensor(250, dtype=torch.int32, device=dev)
+    p = dict(zip(("x", "sh", "w"), dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n)))
     reset_launch_counts()
-    k = dtp_lin_bwd3(plan, x, sh, w, W, cot, n, need_dx=not broadcast)
-    assert dtp_lin_bwd3.launches == 1
-    p = dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n)
-    torch.cuda.synchronize()
-    assert (k[0] is None) == broadcast and (k[2] is None) == shared
-    for a, b in zip(k, p):
-        if a is not None:
-            assert a.dtype == dt
-            assert _rel(a, b) < TOL[dtype]
-            assert float(a[250:].abs().max()) == 0.0
-    again = dtp_lin_bwd3(plan, x, sh, w, W, cot, n, need_dx=not broadcast)
-    for a, b in zip(k, again):
-        assert (a is None and b is None) or torch.equal(a, b)
+    n_calls = [0, 0]  # two or three outputs, one alone
+    for need, call in _k5a_cases(plan, x, sh, w, W, cot, n):
+        k = dict(zip(("x", "sh", "w"), call()))
+        again = dict(zip(("x", "sh", "w"), call()))
+        n_calls[len(need) == 1] += 2
+        torch.cuda.synchronize()
+        for key, a in k.items():
+            assert (a is None) == (key not in need), (need, key)
+            if a is not None:
+                assert a.dtype == dt
+                assert _rel(a, p[key]) < TOL[dtype], (need, key)
+                assert float(a[250:].abs().max()) == 0.0
+                assert torch.equal(a, again[key])
+    assert [dtp_lin_bwd3.launches, dtp_lin_leg.launches] == n_calls
 
 
 @pytest.mark.cuda
@@ -327,10 +351,11 @@ def test_reduced_md17_forces_on_card_match_cpu(dev):
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("site", list(BWD3_SITES))
 def test_dtp_lin_leg_kernels_match_plain(dev, site, dtype):
-    """K5b (each edge leg alone, without the operand of that leg) and K5c
+    """K5b (each edge leg alone, without the operand of that leg, on K2's
+    launch 1: the one-group plan keeps each tile whole) and K5c
     (the head-weight leg, fp32) against their plain versions on the same
     operands; rows past n_edges give zeros; second calls give the same bits
-    (no atomics, the dW partials summed in a fixed order)."""
+    (no atomics, the dW and dsh partials summed in a fixed order)."""
     from equiformer_tpu_torch.kernels import (
         dtp_lin_leg, dtp_lin_leg_plain, dtp_lin_legW, dtp_lin_legW_plain,
     )
@@ -350,8 +375,8 @@ def test_dtp_lin_leg_kernels_match_plain(dev, site, dtype):
     reset_launch_counts()
     for leg in legs:
         ops = {"x": x, "sh": sh, "w": w, leg: None}
-        k = dtp_lin_leg(plan, leg, cot, ops["x"], ops["sh"], ops["w"], W, n)
         p = dtp_lin_leg_plain(plan, leg, cot, ops["x"], ops["sh"], ops["w"], W, n)
+        k = dtp_lin_leg(plan, leg, cot, ops["x"], ops["sh"], ops["w"], W, n)
         torch.cuda.synchronize()
         assert k.dtype == dt and k.shape == p.shape
         assert _rel(k, p) < TOL[dtype], leg
@@ -429,6 +454,57 @@ def test_k5b_k5c_on_k2_launches_at_md17_sites(dev, site, dtype):
         assert _rel(k, p) < TOL[dtype]
         assert torch.equal(k, dtp_lin_legW(plan, cot, x, sh, w, n))
         assert (dtp_lin_leg.launches, dtp_lin_legW.launches) == (2 * len(legs), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("site", list(MD17_SITES))
+def test_k5a_and_sh_leg_on_k2_launch1_at_md17_sites(dev, site, dtype):
+    """K5a with every subset of its outputs, and K5b's sh leg, on K2's
+    launch 1 at MD17 exp_l3's full-width sites (fp32 sep_act reads x through
+    L2: its tile does not fit the block's shared memory), each tile cut by
+    irrep group, against their plain versions: E = 2941
+    with 2600 real rows, whose tail gives zeros, and E = 0; two calls give
+    the same bits (the dsh sum has one fixed order)."""
+    from equiformer_tpu_torch.kernels import (
+        dtp_lin_bwd3, dtp_lin_bwd3_plain, dtp_lin_leg, dtp_lin_leg_plain,
+    )
+
+    heads, shared, broadcast = MD17_SITES[site]
+    dt = getattr(torch, dtype)
+    plan = DTPLinPlan(depthwise_tp(Irreps(MD17_EMB), Irreps(L3_SH), Irreps(MD17_EMB)), heads,
+                      shared_weights=shared)
+    g = torch.Generator().manual_seed(10)
+    for E, n_live in ((2941, 2600), (0, 0)):
+        rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+        x = rnd(1, plan.d_x).expand(E, plan.d_x) if broadcast else rnd(E, plan.d_x)
+        sh, W, cot = rnd(E, plan.d_sh), rnd(plan.w_numel), rnd(E, plan.d_out)
+        w = None if shared else rnd(E, plan.d_w)
+        n = torch.tensor(n_live, dtype=torch.int32, device=dev)
+        p = {}
+        if E:  # the plain versions take no empty tensors
+            p = dict(zip(("x", "sh", "w"), dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n)))
+            p["sh-leg"] = dtp_lin_leg_plain(plan, "sh", cot, x, None, w, W, n)
+        reset_launch_counts()
+        cases = list(_k5a_cases(plan, x, sh, w, W, cot, n))
+        cases.append((("sh-leg",), lambda: (dtp_lin_leg(plan, "sh", cot, x, None, w, W, n),)))
+        for need, call in cases:
+            k = dict(zip(need if need == ("sh-leg",) else ("x", "sh", "w"), call()))
+            again = dict(zip(k, call()))
+            torch.cuda.synchronize()
+            for key, a in k.items():
+                assert (a is None) == (key not in need), (need, key)
+                if a is None:
+                    continue
+                assert a.dtype == dt and a.shape[0] == E
+                if E == 0:
+                    continue
+                assert a.shape == p[key].shape
+                assert _rel(a, p[key]) < TOL[dtype], (need, key)
+                assert float(a[n_live:].abs().max()) == 0.0
+                assert torch.equal(a, again[key])
+        if E == 0:
+            assert (dtp_lin_bwd3.launches, dtp_lin_leg.launches) == (0, 0)
 
 
 @pytest.mark.cuda

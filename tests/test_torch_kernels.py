@@ -561,39 +561,90 @@ def _group_rows(gk, n_split, s):
     return range(bounds[s * n // n_split], bounds[(s + 1) * n // n_split])
 
 
-def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n_split=1):
+def _butterfly_sum(v):
+    """What lane 0 holds after a fixed xor butterfly over the last dim
+    (``s += __shfl_xor_sync(s, o)`` for o = width / 2, ..., 1)."""
+    o = v.shape[-1] // 2
+    while o:
+        v = v + v[..., torch.arange(v.shape[-1]) ^ o]
+        o //= 2
+    return v[..., 0]
+
+
+def _k2_dsh_slots(terms, coeffs, x, w, dz, n_live):
+    """The dsh slots [n_live, terms] of one (group, component) as the dsh
+    legs' term pass on K2's launch 1 writes them (csrc/dtp_lin_bwd.cu), a
+    slot a term and row: a mul that is a multiple of 32 a row a warp (lane l
+    sums its u = l, l + 32, ... in order, then ``_butterfly_sum`` over the
+    32 lanes), a power of two below 32 on K2's threads row * mul + u (a
+    butterfly over the row's mul lanes), any other mul one thread a row in
+    order.  ``x`` and ``w`` are the tile's rows (w None: 1), ``dz`` [rows,
+    fan]."""
+    slots = torch.zeros(n_live, len(terms), dtype=dz.dtype)
+    for t, ((a, col, b, fc, mul, bl), c) in enumerate(zip(terms, coeffs)):
+        wv = 1.0 if w is None else w[:, bl : bl + mul]
+        vals = c * x[:n_live, a : a + mul] * wv * dz[:n_live, fc : fc + mul]
+        if mul % 32 == 0:
+            lanes = torch.zeros(n_live, 32, dtype=dz.dtype)
+            for k in range(mul // 32):
+                lanes = lanes + vals[:, 32 * k : 32 * (k + 1)]
+            slots[:, t] = _butterfly_sum(lanes)
+        elif mul & (mul - 1) == 0:
+            slots[:, t] = _butterfly_sum(vals)
+        else:
+            s = torch.zeros(n_live, dtype=dz.dtype)
+            for u in range(mul):
+                s = s + vals[:, u]
+            slots[:, t] = s
+    return slots
+
+
+def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n_split=1,
+                        need=("x", "sh", "w")):
     """csrc/dtp_lin_bwd.cu's launch 1 (k2::dxdw_kernel) over
     ``plan.k2_tables``, in torch: per 16-edge tile the staged x / w span /
     G (padded to the K step), dz through the packed W (unpacked by the
     fragment layout), the term transposes and the per-group dw flush through
-    ``dwmap``; tiles past ``n_edges`` write zeros.  ``leg`` "x" or "w": one
-    edge leg as K5b runs it on the same code (k2::edge_leg_kernel), dx alone
-    without reading x (pass None) or dw alone without reading w (pass None),
-    each tile's block cut by irrep group into ``n_split``: the w leg's
-    splits write disjoint dw columns, the x leg's fp32 dx partials are summed
-    in split order.  Returns (dx, dw), or the leg's output."""
+    ``dwmap``; tiles past ``n_edges`` write zeros.  ``leg`` "x", "w" or
+    "sh": one edge leg as K5b runs it on the same code (k2::edge_leg_kernel,
+    k2::sh_leg_kernel), dx alone without reading x, dw alone without reading
+    w, or dsh alone without reading sh (pass None); "bwd3": K5a
+    (k2::bwd3_kernel), the outputs named in ``need``.  Each tile's block is
+    cut by irrep group into ``n_split``: the dw of the splits lands in
+    disjoint columns, their fp32 dx and dsh partials are summed in split
+    order.  dsh in the kernel's order: each term's slots per row
+    (``_k2_dsh_slots``), then per (row, column) the column's slots in term
+    order, per (group, component).  Returns (dx, dw), the leg's output, or
+    K5a's (dx, dsh, dw) with None for what ``need`` leaves out."""
     _, terms, coeffs, dwmap, _, span_max, _ = plan.bwd_tables(torch.device("cpu"))
     kt = plan.k2_tables(torch.device("cpu"))
     terms, coeffs, dwmap = terms.tolist(), coeffs.tolist(), dwmap.tolist()
     gk = kt.gk.tolist()
     Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[kt.wp_index]
     E = g.shape[0]
-    want_dx, want_dw = leg != "w", leg == "w" or (leg is None and w is not None)
-    dx = torch.full((E, plan.d_x), float("nan"), dtype=g.dtype) if want_dx else None
-    dw = torch.full((E, plan.d_w), float("nan"), dtype=g.dtype) if want_dw else None
+    if leg == "bwd3":
+        want_dx, want_dsh, want_dw = "x" in need, "sh" in need, "w" in need and w is not None
+    else:
+        want_dx, want_dsh = leg in (None, "x"), leg == "sh"
+        want_dw = leg == "w" or (leg is None and w is not None)
+    nan = lambda d: torch.full((E, d), float("nan"), dtype=g.dtype)  # noqa: E731
+    dx = nan(plan.d_x) if want_dx else None
+    dsh = nan(plan.d_sh) if want_dsh else None
+    dw = nan(plan.d_w) if want_dw else None
     if want_dw and plan.dw_has_dead_cols:
         dw.zero_()  # the wrapper's zeros: dead columns are never written
     for e0 in range(0, E, tile):
         n_rows, n_live = min(tile, E - e0), max(0, min(tile, E - e0, n_edges - e0))
         rows = slice(e0, e0 + n_live)
         if n_live == 0:
-            for out in (dx, dw):
+            for out in (dx, dsh, dw):
                 if out is not None:
                     out[e0 : e0 + n_rows] = 0.0
             continue
-        parts = []
+        parts, parts_sh = [], []
         for s in range(n_split):
             s_dx = torch.zeros(tile, plan.d_x, dtype=g.dtype)
+            s_dsh = torch.zeros(tile, plan.d_sh, dtype=g.dtype)
             for q in _group_rows(gk, n_split, s):
                 fs, cols, out_col, w_off, tb, te, wp_off, cp, sb, sn, first, last = gk[q]
                 if first:
@@ -604,20 +655,34 @@ def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n
                 n_packed = -(-fs // 8) * 8 * cp
                 dz = s_g @ _unpack_k2(Wp[wp_off : wp_off + n_packed], fs, cols).T
                 for (a, col, b, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
-                    d = c * sh[rows, col : col + 1] * dz[:n_live, fc : fc + mul]
-                    if want_dx:
-                        s_dx[:n_live, a : a + mul] += d if s_w is None else d * s_w[:, bl : bl + mul]
-                    if want_dw:
-                        s_dw[:n_live, bl : bl + mul] += d * x[rows, a : a + mul]
+                    dzt = dz[:n_live, fc : fc + mul]
+                    wv = 1.0 if s_w is None else s_w[:, bl : bl + mul]
+                    if want_dx or want_dw:
+                        d = c * sh[rows, col : col + 1] * dzt
+                        if want_dx:
+                            s_dx[:n_live, a : a + mul] += d * wv
+                        if want_dw:
+                            s_dw[:n_live, bl : bl + mul] += d * x[rows, a : a + mul]
+                if want_dsh:  # the slots, then per (row, column) its terms' slots in order
+                    slots = _k2_dsh_slots(terms[tb:te], coeffs[tb:te], x[rows], s_w, dz,
+                                          n_live)
+                    for col in range(plan.d_sh):
+                        for j, t in enumerate(terms[tb:te]):
+                            if t[1] == col:
+                                s_dsh[:n_live, col] += slots[:, j]
                 if want_dw and last:
                     dw[e0 : e0 + n_rows, dwmap[sb : sb + sn]] = s_dw[:n_rows, :sn]
             parts.append(s_dx)
-        if want_dx:
-            acc = parts[0]
-            for part in parts[1:]:
-                acc = acc + part
-            dx[e0 : e0 + n_rows] = acc[:n_rows]
-    return {"x": dx, "w": dw}[leg] if leg else (dx, dw)
+            parts_sh.append(s_dsh)
+        for out, ps in ((dx, parts), (dsh, parts_sh)):
+            if out is not None:
+                acc = ps[0]
+                for part in ps[1:]:
+                    acc = acc + part
+                out[e0 : e0 + n_rows] = acc[:n_rows]
+    if leg == "bwd3":
+        return dx, dsh, dw
+    return {"x": dx, "w": dw, "sh": dsh}[leg] if leg else (dx, dw)
 
 
 def _emulate_k2_launch2(plan, x, sh, w, g, n_edges, sm_count=3):
@@ -1085,7 +1150,8 @@ def test_dtp_lin_bwd3_plain_matches_pallas_interpret_vjp(case):
 
 
 def _emulate_bwd3_kernel(plan, x, sh, w, W_flat, g, n_edges, tile=16, warps=8):
-    """csrc/dtp_lin_bwd3.cu's loop over ``bwd3_tables``, in torch, one edge
+    """csrc/dtp_lin_bwd3.cu's loop over ``bwd3_tables`` (the first K5a
+    design, K7-B3's on an unfolded w), in torch, one edge
     tile at a time: the staged cotangent, dz through the packed W^T, then
     per row (warp) the terms in table order, with the running dsh sum added
     to the row at each SH column change, and the per-group dw flush."""
@@ -1136,8 +1202,12 @@ def _emulate_bwd3_kernel(plan, x, sh, w, W_flat, g, n_edges, tile=16, warps=8):
 @pytest.mark.parametrize("case", ["two-head", "shared-w", "broadcast-x", "dead-w-cols", "l3"])
 def test_dtp_lin_bwd3_tables_drive_the_plain_math(case):
     """The CUDA force backward cannot run here; its tables can.  Walking
-    them the way the kernel does gives dtp_lin_bwd3_plain's dx, dsh and dw
-    (fp64 inputs, the tables' fp32 CG coefficients: 1e-6 relative)."""
+    them the way K5a does on K2's launch 1 (k2::bwd3_kernel: every subset
+    of its outputs, each tile whole and cut by irrep group), and
+    ``bwd3_tables`` the way the first design does (csrc/dtp_lin_bwd3.cu,
+    which K7-B3 still is, here on an unfolded w), gives dtp_lin_bwd3_plain's
+    dx, dsh and dw (fp64 inputs, the tables' fp32 CG coefficients: 1e-6
+    relative)."""
     from equiformer_tpu_torch.kernels import dtp_lin_bwd3_plain
 
     plan, x, sh, w, W, g = _bwd3_inputs(case, torch.float64, E=40, seed=5)
@@ -1147,6 +1217,15 @@ def test_dtp_lin_bwd3_tables_drive_the_plain_math(case):
         assert (a is None) == (b is None)
         if a is not None:
             assert _rel(a.numpy(), b.numpy()) < 1e-6
+    for need in (("x", "sh", "w"), ("x", "sh"), ("sh", "w"), ("x", "w")):
+        for n_split in (1, len(plan.groups)):
+            got = _emulate_k2_launch1(plan, x, sh, w, W, g, 37, leg="bwd3", n_split=n_split,
+                                      need=need)
+            for leg, a, b in zip(("x", "sh", "w"), got, want):
+                assert (a is None) == (b is None or leg not in need), (need, leg)
+                if a is not None:
+                    assert _rel(a.numpy(), b.numpy()) < 1e-6, (need, n_split, leg)
+                    assert float(a[37:].abs().max()) == 0.0
 
 
 # --------------------------------- single legs (K5b, K5c) and the grad-of-grad
@@ -1369,7 +1448,8 @@ def test_dtp_lin_ho_backward_runs_only_the_legs_asked_for(monkeypatch):
 
 
 def _emulate_sh_leg_kernel(plan, x, w, W_flat, g, n_edges, tile=16, warps=8):
-    """csrc/dtp_lin_leg.cu's loop over ``bwd3_tables`` for K5b's sh leg, in
+    """csrc/dtp_lin_leg.cu's loop over ``bwd3_tables`` for the first design's
+    sh leg (K7-L's on an unfolded w), in
     torch, one edge tile at a time: the staged slice of g, dz through the
     packed W^T, then per row (warp) the terms in table order, the running
     sum added to the row's dsh at each SH column change; sh is never read."""
@@ -1417,11 +1497,12 @@ def _k2_dW(plan, x, sh, w, g, n_edges, sm_count=3):
 @pytest.mark.parametrize("case", ["two-head", "shared-w", "broadcast-x", "dead-w-cols", "l3"])
 def test_dtp_lin_leg_tables_drive_the_plain_math(case):
     """The CUDA leg kernels cannot run here; their tables can.  Walking them
-    the way K5b's x and w legs run on K2's launch 1 (each without its own
-    operand, each tile whole and cut by irrep group), its sh leg on
-    csrc/dtp_lin_leg.cu, and K5c on K2's launch 2 (with fewer blocks than
-    ranges' steps) gives the plain versions' results (fp64 inputs, the
-    tables' fp32 CG coefficients: 1e-6 relative)."""
+    the way K5b's x, w and sh legs run on K2's launch 1 (each without its own
+    operand, each tile whole and cut by irrep group), the sh leg on the
+    first design's ``bwd3_tables`` walk (csrc/dtp_lin_leg.cu, which K7-L
+    still is, here on an unfolded w), and K5c on K2's launch 2 (with fewer
+    blocks than ranges' steps) gives the plain versions' results (fp64
+    inputs, the tables' fp32 CG coefficients: 1e-6 relative)."""
     from equiformer_tpu_torch.kernels import dtp_lin_leg_plain, dtp_lin_legW_plain
 
     plan, x, sh, w, W, g = _bwd3_inputs(case, torch.float64, E=40, seed=6)
@@ -1437,6 +1518,9 @@ def test_dtp_lin_leg_tables_drive_the_plain_math(case):
     want = dtp_lin_leg_plain(plan, "sh", g, x, None, w, W, n)
     got = _emulate_sh_leg_kernel(plan, x, w, W, g, 37)
     assert got.shape == want.shape and _rel(got.numpy(), want.numpy()) < 1e-6
+    for n_split in (1, len(plan.groups)):
+        got = _emulate_k2_launch1(plan, x, None, w, W, g, 37, leg="sh", n_split=n_split)
+        assert got.shape == want.shape and _rel(got.numpy(), want.numpy()) < 1e-6, n_split
     want = dtp_lin_legW_plain(plan, g, x, sh, w, n)
     assert _rel(_k2_dW(plan, x, sh, w, g, 37).numpy(), want.numpy()) < 1e-6
 
@@ -1489,6 +1573,47 @@ def test_k5b_legs_walk_k2_launch1_at_md17_plans(site, leg, split):
     assert got.shape == want.shape
     assert _rel(got.numpy(), want.numpy()) < 1e-6
     assert float(got[29:].abs().max()) == 0.0
+
+
+# the outputs each caller of K5a asks for at MD17's sites: the force pass
+# (dx, dsh, dw at sep_act; dx, dsh at sep_value; dsh, dw at the edge degree)
+# and the parameter pass of training (dx, dw at the per-edge-w sites); "sh":
+# K5b's sh leg alone
+K5A_NEEDS = {
+    "md17-sep_act": [("x", "sh", "w"), ("x", "w"), "sh"],
+    "md17-sep_value": [("x", "sh"), "sh"],
+    "md17-edge_deg": [("sh", "w"), ("x", "w"), "sh"],
+}
+
+
+@pytest.mark.parametrize("split", ["tile", "groups"])
+@pytest.mark.parametrize("site,need", [(s, n) for s, needs in K5A_NEEDS.items() for n in needs])
+def test_k5a_walks_k2_launch1_at_md17_plans(site, need, split):
+    """K5a (k2::bwd3_kernel, each caller's subset of dx, dsh, dw) and K5b's
+    sh leg (k2::sh_leg_kernel, sh None) as K2's launch 1 runs them, with the
+    dsh sum in the kernel's fixed order, at MD17 exp_l3's full-width plans:
+    37 edges of which 29 real (a partial last tile and a tile past the real
+    edges), each tile's block whole or cut by irrep group: the plain
+    versions within 1e-6 (fp64 inputs, the tables' fp32 CG coefficients);
+    rows past n_edges exactly 0."""
+    from equiformer_tpu_torch.kernels import dtp_lin_bwd3_plain, dtp_lin_leg_plain
+
+    plan, x, sh, w, W, g = _md17_inputs(site, 37, seed=23)
+    n = torch.tensor(29, dtype=torch.int32)
+    n_split = 1 if split == "tile" else len(plan.groups)
+    if need == "sh":
+        want = [dtp_lin_leg_plain(plan, "sh", g, x, None, w, W, n)]
+        got = [_emulate_k2_launch1(plan, x, None, w, W, g, 29, leg="sh", n_split=n_split)]
+    else:
+        plain = dict(zip(("x", "sh", "w"), dtp_lin_bwd3_plain(plan, x, sh, w, W, g, n)))
+        out = dict(zip(("x", "sh", "w"), _emulate_k2_launch1(
+            plan, x, sh, w, W, g, 29, leg="bwd3", n_split=n_split, need=need)))
+        assert all((out[k] is None) == (k not in need) for k in out)
+        want, got = [plain[k] for k in need], [out[k] for k in need]
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _rel(a.numpy(), b.numpy()) < 1e-6
+        assert float(a[29:].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("site", list(MD17_SITES))
