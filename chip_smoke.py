@@ -123,7 +123,8 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    tolerances of phase 3, timed the same way, each beside the unfolded pair
    on the same inputs (cuBLAS ``h @ Wr + offset`` then K5b or K5c; K5b's w
    leg then cuBLAS ``dw Wr^T`` or ``[h, 1]^T dw``), with their bounds and
-   resident blocks per SM.
+   resident blocks per SM (K7-Wr runs on K2's launches: K5b's w leg, then
+   the d[Wr; offset] tiles).
 10d. fold md17 train — phase 9 with ``radial_fold`` and ``radial_fold_ho``
    (18 K1 + 27 K7-F, 6 K5a + 14 K7-B3, 12 K5b + 27 K7-L, 18 K5c + 27 K7-LW,
    27 K7-Wr, 38 K3 per step; FOLD_TIMED_STEPS timed steps; peak memory
@@ -256,7 +257,7 @@ SOURCES = {
     "dtp_lin_rad_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
     "dtp_lin_rad_leg": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
     "dtp_lin_rad_legW": "equiformer_tpu_torch/csrc/dtp_lin_legW.cu",
-    "dtp_lin_rad_legWr": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
+    "dtp_lin_rad_legWr": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_kron_fwd": "equiformer_tpu_torch/csrc/dtp_lin_kron.cu",
     "dtp_lin_kron_bwd": "equiformer_tpu_torch/csrc/dtp_lin_kron.cu",
     "dtp_t": "equiformer_tpu_torch/csrc/dtp_t.cu",
@@ -1537,6 +1538,10 @@ def k7_leg_kernel_phase(torch, sites, dev, records):
                 nbytes = sum(v for key, v in op_bytes.items() if key != leg) + written[leg]
                 record(records, kernel, f"md17-{site}-{leg}", dt_name, shape, [rel_err(k, p)], ms,
                        plain_ms, nbytes, ops, pair_ms=pair_ms)
+                if leg == "Wr":  # K5b's w leg, then the d[Wr; offset] tiles
+                    print(f"{kernel} {leg} {site} {dt_name}: runs on K2's launches, as the "
+                          "unfolded leg does")
+                    continue
                 unf_occ = (f"K5b's sh leg: {leg_occupancy(unf, dt, 'sh')}" if leg == "sh" else
                            "the unfolded leg runs on K2's launches")
                 print(f"{kernel} {leg} {site} {dt_name}: {leg_occupancy(plan, dt, leg)} resident "

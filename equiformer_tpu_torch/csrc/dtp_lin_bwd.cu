@@ -117,24 +117,56 @@
 // They share K2's tables (DTPLinPlan.k2_tables), its fragment-packed W and
 // its edge ranges, and keep its numerics: no float atomics anywhere.
 //
-// The radial-folded variant (K7-B, dtp_lin_bwd_kernel<T, kRad = true>
-// below; replaces the radial branch of _bwd_kernel / _bwd_body,
-// dtp_lin_pallas.py:675-745, :754-756, :865-887, with _radial_write_dw :497
-// and _radial_dh :521) is still the first design (the first K2 with
-// kRad), kept instruction for instruction until its own redesign; its
-// kRad = false paths are no longer instantiated.  It reads h [E, hd] in
-// place of w, rebuilds each group's w columns in shared memory as K7-F does
-// (csrc/radial.cuh), and keeps the group's dw there: at the group's last
-// component it adds dw Wr^T into the tile's dh (fp32, shared memory) and
-// [h, 1]^T dw into the block's partial rows of d[Wr; offset], which follow
-// the dW partial in the same row, so one fixed-order pass sums both.  dw
-// and w never go to device memory; dh does ([E, hd]).  Rows past the real
-// edges get dh = 0 and add nothing to d[Wr; offset] (their h and dw are
-// zero, so the offset's ones column adds nothing either).  Shared memory:
-// 135 KB at the QM9 sep_act site: one block per SM (RAD_BWD_BLOCKS_PER_SM
-// in kernels/dtp_lin.py).  In it, per tile and (g, k): G staged, z
-// recomputed, z^T G added to the block's partial row in device memory, dz
-// = G W_g^T on the CUDA cores, the term transposes.
+// The radial fold (K7-B, replaces the radial branch of _bwd_kernel /
+// _bwd_body, dtp_lin_pallas.py:675-745, :754-756, :865-887, with
+// _radial_write_dw :497 and _radial_dh :521; K7-Wr, replaces
+// equiformer_tpu/kernels/dtp_lin_ho.py's _Wr_leg_kernel :344, built by
+// _leg_call :594-603).  The per-edge operand is h [E, hd], and w = [h, 1]
+// @ [Wr; offset] (Wl [hd + 1, n_loc], columns in the tables' local order,
+// row hd the offset).  Every w column feeds one group, and a group's fan
+// column f is its local w column sb + f (DTPLinPlan.k7_tables checks it),
+// so one packing of each group's Wr in fragment order serves every product
+// below (k7_tables: [hd, span] for w, [span, hd] for dh).
+// - K7-B, launch 1 (k2::rad_dxdw_kernel): K2's launch 1 with the fold as
+//   its leg (kRadB).  It stages the tile's h; at each group's first
+//   component w_g = [h, 1] Wl_g goes into the group's w tile on mma.sync,
+//   rounded to T as the plain version rounds it; then K2's dz product and
+//   term transposes, unchanged; at the group's last component dh += dw_g
+//   Wr_g^T on mma.sync into an fp32 [16, hd] tile (the span's K steps in
+//   two halves on the two halves of the warps, added in turn), and the
+//   group's dw columns go to a workspace [E, d_w] in T through dwmap, as K2
+//   writes dw.  dx and dh are written once a tile.
+// - K7-B, launch 2 (k2::rad_dW_kernel): K2's dW tiles with w rebuilt per
+//   64-edge step from h on mma.sync (h staged over G's buffer, the tile's w
+//   fan slice [64, 64] in T), so that w never reaches device memory, at two
+//   blocks an SM; and in the same grid the tiles of d[Wr; offset] = [h,
+//   one]^T dw (dWr_body):
+//   per (64-row hd slice, 128 local columns) and edge range, h^T and the
+//   dw slice staged per 64-edge step, their product on mma.sync into
+//   registers, the offset row a column sum of dw in edge order.  The
+//   d[Wr; offset] partial follows dW's in the range's partial row, so one
+//   eqt::sum_partial_rows gives both.
+// - K7-Wr (dtp_lin_rad_legWr): K5b's w leg (k2::edge_leg_kernel<T, kLegW>,
+//   the instantiation K5b runs) writes dw [E, d_w] in T to a workspace;
+//   the d[Wr; offset] tiles alone (k2::Wr_leg_kernel) and the row sum.
+// What bounds them: K2's and K5b's work plus three products of [E, hd + 1]
+// by [hd + 1, d_w] (the w build, dh, d[Wr; offset]) and the rebuild of w
+// in launch 2 (~2.2 more at QM9: each fan slice is rebuilt for every
+// column tile of its group); the dw workspace costs its write and one read.
+// On an H100 at QM9 sep_act K7-B took 5.47-5.62 / 3.54-3.57 ms fp32 /
+// bf16 (launch 1 2.14-2.19 / 1.48, launch 2 3.32-3.42 / 2.06-2.07; the
+// first design 15.4 / 14.7), K7-Wr at MD17 sep_act 0.61 / 0.43 (2.77 /
+// 2.42).  Writing w from launch 1 to a workspace read by launch 2 took
+// 4.89-4.94 / 3.51-3.52; it would put w in device memory and was 1% slower
+// in bf16.  Rebuilding w on the CUDA cores, staging the tile's Wr in shared
+// memory (less L1 for the z recompute) and one n-tile at a time were each
+// slower.
+// Products: bf16 operands and fp32 accumulators; fp32 as 3xTF32 split by
+// masking (eqt::mma::split_tf32_mask).  No float atomics: each sum has one
+// order.  Rows past the real edges: launch 1 writes zero dx and dh; launch
+// 2 stops its ranges at *n_edges, so they add nothing to either partial;
+// ``one`` is 1 for the primal h, 0 when h's slot holds a tangent or a
+// cotangent (the offset row is then 0).
 //
 // The staged variant (S3, dtp_lin_bwd_stage; replaces scripts/bwd_attr.py's
 // kernels, build(stage)): kStage cuts K2 after one of its phases (k2::
@@ -148,324 +180,6 @@
 
 #include "common.cuh"
 #include "mma.cuh"
-#include "radial.cuh"
-
-namespace {
-
-using eqt::from_f;
-using eqt::to_f;
-
-constexpr int kTile = 16;                         // edges per tile
-constexpr int kThreads = 256;                     // 8 warps
-constexpr int kRows = 4;                          // edges per warp in the dz product
-constexpr int kRowGroups = kTile / kRows;         // 4 warps cover the tile's rows
-constexpr int kColGroups = (kThreads / 32) / kRowGroups;  // 2 column groups of warps
-constexpr int kColsPerLane = 2;
-constexpr int kColChunk = 32 * kColsPerLane;      // fan columns per pass of a warp
-constexpr int kGkFields = 12;                     // ints per (g, k) table entry
-constexpr int kTermFields = 6;                    // a_off, sh col, b_off, fan col, mul, local dw col
-
-struct Smem {
-  float* dx;   // [kTile, d_x]
-  float* dw;   // [kTile, span_max]
-  float* gt;   // [kTile, cols_pad]
-  float* z;    // [kTile, fs_max]: z, then dz
-  float* w;    // kRad: [kTile, span_max], the current group's w
-  float* h;    // kRad: [kTile, hd]
-  float* dh;   // kRad: [kTile, hd]
-};
-
-// fp32 shared memory of one block
-__host__ __device__ inline int smem_floats(int d_x, int span_max, int cols_pad_max, int fs_max,
-                                           int rad_floats) {
-  return kTile * (d_x + span_max + cols_pad_max + fs_max) + rad_floats;
-}
-
-template <typename T, bool kRad>
-__global__ void __launch_bounds__(kThreads)
-dtp_lin_bwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh,
-                   int d_sh, const T* __restrict__ w, int d_w, const T* __restrict__ WT,
-                   const T* __restrict__ G, int d_out, const int* __restrict__ n_edges_ptr,
-                   int E, const int* __restrict__ gk, int n_gk, const int* __restrict__ terms,
-                   const float* __restrict__ coeffs, const int* __restrict__ dwmap,
-                   T* __restrict__ dx, T* __restrict__ dw, float* __restrict__ part,
-                   int w_numel, int span_max, int cols_pad_max, int fs_max,
-                   const T* __restrict__ h, int hd, const T* __restrict__ Wl, int n_loc,
-                   T* __restrict__ dh) {
-  extern __shared__ float4 smem4[];
-  Smem s;
-  s.dx = reinterpret_cast<float*>(smem4);
-  s.dw = s.dx + kTile * d_x;
-  s.gt = s.dw + kTile * span_max;
-  s.z = s.gt + kTile * cols_pad_max;
-  s.w = s.z + kTile * fs_max;
-  s.h = s.w + kTile * span_max;
-  s.dh = s.h + kTile * hd;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int r0 = (warp % kRowGroups) * kRows;
-  const int fw = (warp / kRowGroups) * kColChunk;
-  const int n_edges = __ldg(n_edges_ptr);
-  const int n_tiles = (E + kTile - 1) / kTile;
-  // a partial row: dW [w_numel], then (kRad) d[Wr; offset] [hd + 1, n_loc]
-  const int part_row = w_numel + (kRad ? (hd + 1) * n_loc : 0);
-  float* my_part = part + (long long)blockIdx.x * part_row;
-
-  for (int i = tid; i < part_row; i += kThreads) my_part[i] = 0.f;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int e0 = tile * kTile;
-    const int n_rows = min(kTile, E - e0);
-    const int n_live = max(0, min(n_rows, n_edges - e0));
-
-    if (n_live == 0) {  // past the real edges: zero gradients, nothing to dW
-      for (int i = tid; i < n_rows * d_x; i += kThreads) {
-        const int r = i / d_x;
-        dx[(long long)(e0 + r) * d_x + (i - r * d_x)] = from_f<T>(0.f);
-      }
-      if constexpr (kRad) {
-        for (int i = tid; i < n_rows * hd; i += kThreads)
-          dh[(long long)e0 * hd + i] = from_f<T>(0.f);
-      } else if (w != nullptr) {
-        for (int i = tid; i < n_rows * d_w; i += kThreads) {
-          const int r = i / d_w;
-          dw[(long long)(e0 + r) * d_w + (i - r * d_w)] = from_f<T>(0.f);
-        }
-      }
-      continue;
-    }
-
-    for (int i = tid; i < kTile * d_x; i += kThreads) s.dx[i] = 0.f;
-    if constexpr (kRad) {
-      eqt::load_h<kTile, kThreads>(s.h, h, hd, e0, n_live);
-      for (int i = tid; i < kTile * hd; i += kThreads) s.dh[i] = 0.f;
-      __syncthreads();
-    }
-
-    for (int q = 0; q < n_gk; ++q) {
-      const int* g = gk + q * kGkFields;
-      const int fs = g[0], cols = g[1], out_col = g[2], w_off = g[3];
-      const int t_begin = g[4], t_end = g[5], wt_off = g[6], cp = g[7];
-      const int span_begin = g[8], span = g[9], first = g[10], last = g[11];
-
-      if ((kRad || w != nullptr) && first)
-        for (int i = tid; i < kTile * span; i += kThreads) s.dw[i] = 0.f;
-      if constexpr (kRad)
-        if (first) eqt::build_w<kTile, kThreads>(s.w, s.h, hd, Wl, n_loc, span_begin, span, n_live);
-      // ---- stage G[g,k] (zero rows past the real edges, zero pad columns)
-      for (int i = tid; i < kTile * cp; i += kThreads) {
-          const int r = i / cp;
-          const int c = i - r * cp;
-          float v = 0.f;
-          if (r < n_live && c < cols) v = to_f(G[(long long)(e0 + r) * d_out + out_col + c]);
-          s.gt[i] = v;
-        }
-      for (int i = tid; i < kTile * fs; i += kThreads) s.z[i] = 0.f;
-      __syncthreads();
-
-      // ---- recompute z[g,k] from the term table (rows >= n_live stay zero)
-      for (int t = t_begin; t < t_end; ++t) {
-        const int* tt = terms + t * kTermFields;
-        const int a = tt[0], col = tt[1], b = tt[2], fc = tt[3], mul = tt[4];
-        const float c = coeffs[t];
-        for (int i = tid; i < n_live * mul; i += kThreads) {
-          const int r = i / mul;
-          const int u = i - r * mul;
-          const long long e = e0 + r;
-          float v = c * to_f(sh[e * d_sh + col]) * to_f(x[e * sx + a + u]);
-          if constexpr (kRad) {
-            v *= s.w[r * span + tt[5] + u];
-          } else {
-            if (w != nullptr) v *= to_f(w[e * d_w + b + u]);
-          }
-          s.z[r * fs + fc + u] += v;
-        }
-      }
-      __syncthreads();
-
-      // ---- dW_g[f, j] += sum_r z[r, f] G[r, j]: a thread owns 4 fan rows x 1 column
-      {
-        float* pg = my_part + w_off;
-        const int items = (fs / 4) * cols;
-        for (int o = tid; o < items; o += kThreads) {
-          const int fq = o / cols;
-          const int j = o - fq * cols;
-          const int f = fq * 4;
-          float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll 4
-          for (int r = 0; r < kTile; ++r) {
-            const float4 zq = *reinterpret_cast<const float4*>(s.z + r * fs + f);
-            const float gv = s.gt[r * cp + j];
-            a0 = fmaf(zq.x, gv, a0);
-            a1 = fmaf(zq.y, gv, a1);
-            a2 = fmaf(zq.z, gv, a2);
-            a3 = fmaf(zq.w, gv, a3);
-          }
-          pg[(f + 0) * cols + j] += a0;
-          pg[(f + 1) * cols + j] += a1;
-          pg[(f + 2) * cols + j] += a2;
-          pg[(f + 3) * cols + j] += a3;
-        }
-      }
-      __syncthreads();  // z is overwritten by dz below
-
-      // ---- dz[r, f] = sum_j G[r, j] W_g^T[j, f]  (W_g^T: [cp, fs], zero pad rows)
-      {
-        const T* Wt = WT + wt_off;
-        for (int f0 = fw; f0 < fs; f0 += kColGroups * kColChunk) {
-          float acc[kRows][kColsPerLane];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-#pragma unroll
-            for (int jj = 0; jj < kColsPerLane; ++jj) acc[r][jj] = 0.f;
-          for (int j = 0; j < cp; j += 4) {
-            float4 gq[kRows];
-#pragma unroll
-            for (int r = 0; r < kRows; ++r)
-              gq[r] = *reinterpret_cast<const float4*>(s.gt + (r0 + r) * cp + j);
-#pragma unroll
-            for (int jj = 0; jj < kColsPerLane; ++jj) {
-              const int f = f0 + lane + 32 * jj;
-              if (f < fs) {
-                const T* wp = Wt + (long long)j * fs + f;
-                const float w0 = to_f(wp[0]);
-                const float w1 = to_f(wp[fs]);
-                const float w2 = to_f(wp[2 * fs]);
-                const float w3 = to_f(wp[3 * fs]);
-#pragma unroll
-                for (int r = 0; r < kRows; ++r) {
-                  float v = acc[r][jj];
-                  v = fmaf(gq[r].x, w0, v);
-                  v = fmaf(gq[r].y, w1, v);
-                  v = fmaf(gq[r].z, w2, v);
-                  v = fmaf(gq[r].w, w3, v);
-                  acc[r][jj] = v;
-                }
-              }
-            }
-          }
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-#pragma unroll
-            for (int jj = 0; jj < kColsPerLane; ++jj) {
-              const int f = f0 + lane + 32 * jj;
-              if (f < fs) s.z[(r0 + r) * fs + f] = acc[r][jj];
-            }
-        }
-      }
-      __syncthreads();
-
-      // ---- term transposes off dz
-      for (int t = t_begin; t < t_end; ++t) {
-        const int* tt = terms + t * kTermFields;
-        const int a = tt[0], col = tt[1], b = tt[2], fc = tt[3], mul = tt[4], bl = tt[5];
-        const float c = coeffs[t];
-        for (int i = tid; i < n_live * mul; i += kThreads) {
-          const int r = i / mul;
-          const int u = i - r * mul;
-          const long long e = e0 + r;
-          const float d = c * to_f(sh[e * d_sh + col]) * s.z[r * fs + fc + u];
-          if constexpr (kRad) {
-            s.dx[r * d_x + a + u] += d * s.w[r * span + bl + u];
-            s.dw[r * span + bl + u] += d * to_f(x[e * sx + a + u]);
-          } else if (w != nullptr) {
-            s.dx[r * d_x + a + u] += d * to_f(w[e * d_w + b + u]);
-            s.dw[r * span + bl + u] += d * to_f(x[e * sx + a + u]);
-          } else {
-            s.dx[r * d_x + a + u] += d;
-          }
-        }
-      }
-      __syncthreads();
-
-      // ---- a group's last component: its dw columns are complete
-      if constexpr (kRad) {
-        if (last) {  // dh += dw Wr^T; partial d[Wr; offset] += [h, 1]^T dw
-          eqt::add_dh<kTile, kThreads>(s.dh, s.dw, span, hd, Wl, n_loc, span_begin);
-          eqt::add_dWr<kTile, kThreads>(my_part + w_numel, n_loc, s.h, hd, s.dw, span,
-                                        span_begin, 1.f);
-          __syncthreads();
-        }
-      } else if (w != nullptr && last) {
-        for (int i = tid; i < n_rows * span; i += kThreads) {
-          const int r = i / span;
-          const int jl = i - r * span;
-          dw[(long long)(e0 + r) * d_w + dwmap[span_begin + jl]] = from_f<T>(s.dw[i]);
-        }
-        __syncthreads();
-      }
-    }
-
-    for (int i = tid; i < n_rows * d_x; i += kThreads) {
-      const int r = i / d_x;
-      dx[(long long)(e0 + r) * d_x + (i - r * d_x)] = from_f<T>(s.dx[i]);
-    }
-    if constexpr (kRad)
-      for (int i = tid; i < n_rows * hd; i += kThreads)
-        dh[(long long)e0 * hd + i] = from_f<T>(s.dh[i]);
-    __syncthreads();  // s.dx (and s.dh) are zeroed for the next tile
-  }
-}
-
-template <typename T, bool kRad>
-int launch(const void* x, long long sx, int d_x, const void* sh, int d_sh, const void* w,
-           int d_w, const void* WT, const void* G, int d_out, const void* n_edges, int E,
-           const void* gk, int n_gk, const void* terms, const void* coeffs, const void* dwmap,
-           void* dx, void* dw, void* part, int n_parts, void* dW, int w_numel, int span_max,
-           int cols_pad_max, int fs_max, const void* h, int hd, const void* Wl, int n_loc,
-           void* dh, cudaStream_t stream) {
-  const int rad_floats = kRad ? kTile * (span_max + 2 * hd) : 0;
-  const int smem =
-      smem_floats(d_x, span_max, cols_pad_max, fs_max, rad_floats) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      dtp_lin_bwd_kernel<T, kRad>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dtp_lin_bwd_kernel<T, kRad><<<n_parts, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), sx, d_x, static_cast<const T*>(sh), d_sh,
-      static_cast<const T*>(w), d_w, static_cast<const T*>(WT), static_cast<const T*>(G),
-      d_out, static_cast<const int*>(n_edges), E, static_cast<const int*>(gk), n_gk,
-      static_cast<const int*>(terms), static_cast<const float*>(coeffs),
-      static_cast<const int*>(dwmap), static_cast<T*>(dx), static_cast<T*>(dw),
-      static_cast<float*>(part), w_numel, span_max, cols_pad_max, fs_max,
-      static_cast<const T*>(h), hd, static_cast<const T*>(Wl), n_loc, static_cast<T*>(dh));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // dW (and d[Wr; offset]) = the blocks' partial rows summed in block order
-  const int part_row = w_numel + (kRad ? (hd + 1) * n_loc : 0);
-  return (int)eqt::sum_partial_rows(static_cast<const float*>(part), n_parts, part_row,
-                                    static_cast<float*>(dW), stream);
-}
-
-}  // namespace
-
-// K7-B: the backward of dtp_lin_rad_fwd.  h [E, hd] and Wl [hd + 1, n_loc]
-// (columns in the tables' local order) in place of w; writes dx and dh, and
-// dWred [w_numel + (hd + 1) * n_loc] fp32: dW, then d[Wr; offset] in local
-// column order, from part [n_parts, the same width].
-extern "C" int dtp_lin_rad_bwd(const void* x, long long sx, int d_x, const void* sh, int d_sh,
-                               const void* WT, const void* G, int d_out, const void* n_edges,
-                               int E, const void* gk, int n_gk, const void* terms,
-                               const void* coeffs, void* dx, void* part, int n_parts,
-                               void* dWred, int w_numel, int span_max, int cols_pad_max,
-                               int fs_max, const void* h, int hd, const void* Wl, int n_loc,
-                               void* dh, int dtype, void* stream) {
-  if (fs_max % 4 != 0 || cols_pad_max % 4 != 0 || n_parts < 1 || hd % 4 != 0 || hd <= 0)
-    return (int)cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == eqt::kFloat32)
-    return launch<float, true>(x, sx, d_x, sh, d_sh, nullptr, 0, WT, G, d_out, n_edges, E, gk,
-                               n_gk, terms, coeffs, nullptr, dx, nullptr, part, n_parts, dWred,
-                               w_numel, span_max, cols_pad_max, fs_max, h, hd, Wl, n_loc, dh,
-                               s);
-  if (dtype == eqt::kBFloat16)
-    return launch<__nv_bfloat16, true>(x, sx, d_x, sh, d_sh, nullptr, 0, WT, G, d_out, n_edges,
-                                       E, gk, n_gk, terms, coeffs, nullptr, dx, nullptr, part,
-                                       n_parts, dWred, w_numel, span_max, cols_pad_max, fs_max,
-                                       h, hd, Wl, n_loc, dh, s);
-  return (int)cudaErrorInvalidValue;
-}
 
 // ======================================================================
 // K2: dtp_lin_bwd, and S3: dtp_lin_bwd_stage (design in the header note)
@@ -499,12 +213,22 @@ constexpr int kFullStage = 6;
 
 // what launch 1's code computes: an edge leg of the fused op (K5b, in
 // EDGE_LEGS' order of kernels/dtp_lin_ho.py: the x leg 0, the sh leg 1, the
-// w leg 2), K2's dx and dw together, or K5a's dx, dsh and dw together (each
-// null when not asked for)
-enum Leg1 : int { kLegX = 0, kLegSh = 1, kLegW = 2, kDxDw = 3, kBwd3 = 4 };
+// w leg 2), K2's dx and dw together, K5a's dx, dsh and dw together (each
+// null when not asked for), or K7-B's dx, dw and dh with w built from h
+enum Leg1 : int { kLegX = 0, kLegSh = 1, kLegW = 2, kDxDw = 3, kBwd3 = 4, kRadB = 5 };
 
 // the legs with a dsh accumulator
 __host__ __device__ constexpr bool sums_dsh(int leg) { return leg == kLegSh || leg == kBwd3; }
+// the legs that compute dx and dw together over whole tiles (K2, K7-B)
+__host__ __device__ constexpr bool pairs_dxdw(int leg) { return leg == kDxDw || leg == kRadB; }
+
+// the row stride of launch 1's w and dw tiles: multiples of 8 elements; K7-B
+// reads dw as the A operand of its dh product, K steps of 16, float2 a lane
+// (8 words mod 32: conflict-free)
+template <int kLeg>
+__host__ __device__ inline int span_stride(int span_max) {
+  return kLeg == kRadB ? stride_mod(round_up(span_max, 16), 32, 8) : round_up(span_max, kRowPad);
+}
 
 // K5a's outputs asked for (bits of `need`)
 constexpr int kNeedDx = 1, kNeedDsh = 2, kNeedDw = 4, kNeedAll = 7;
@@ -532,20 +256,27 @@ __host__ __device__ inline int ld_g1(int cp_max) {
 __host__ __device__ inline int ld_dz1(int fd_max) { return stride_mod(fd_max, 32, 8); }
 
 // byte offsets of launch 1's shared memory: dx, dw (fp32), dz (fp32), G, x, w
-// (dtype), sh, dsh and the dsh slots (fp32); the x leg keeps no dw and stages
-// no x, the w leg keeps no dx and stages no w, the sh leg keeps neither and
-// stages no sh; K5a keeps what `need` asks for, and with x_global reads x
-// through L2 instead of staging it.  has_w: the plan has per-edge w.
+// (dtype), sh, dsh and the dsh slots (fp32), h (dtype) and dh (fp32); the x
+// leg keeps no dw and stages no x, the w leg keeps no dx and stages no w,
+// the sh leg keeps neither and stages no sh; K5a keeps what `need` asks for,
+// and with x_global reads x through L2 instead of staging it; only K7-B
+// keeps h and dh.  has_w: the plan has per-edge w.
 struct Layout1 {
-  int dx, dw, dz, g, x, w, sh, dsh, slot, total;
+  int dx, dw, dz, g, x, w, sh, dsh, slot, h, dh, total;
 };
+
+// K7-B's h tile: [kTile, hd rounded to 16] in the dtype, G's strides
+template <typename T>
+__host__ __device__ inline int ld_h(int hd) {
+  return ld_g1<T>(round_up(hd, 16));
+}
 
 template <typename T, int kLeg = kDxDw>
 __host__ __device__ inline Layout1 layout1(int d_x, int d_sh, int span_max, int cp_max,
                                            int fd_max, bool has_w, bool x_rows,
                                            int need = kNeedAll, int slot_max = 0,
-                                           bool x_global = false) {
-  const int dxs = round_up(d_x, kRowPad), sps = round_up(span_max, kRowPad);
+                                           bool x_global = false, int hd = 0) {
+  const int dxs = round_up(d_x, kRowPad), sps = span_stride<kLeg>(span_max);
   const bool dsh = sums_dsh(kLeg) && (need & kNeedDsh);
   Layout1 l;
   l.dx = 0;
@@ -562,7 +293,9 @@ __host__ __device__ inline Layout1 layout1(int d_x, int d_sh, int span_max, int 
   l.sh = l.w + (kLeg != kLegW && has_w ? align16(kTile * sps * (int)sizeof(T)) : 0);
   l.dsh = l.sh + (kLeg != kLegSh ? align16(kTile * d_sh * 4) : 0);
   l.slot = l.dsh + (dsh ? align16(kTile * d_sh * 4) : 0);
-  l.total = l.slot + (dsh ? align16(kTile * slot_max * 4) : 0);
+  l.h = l.slot + (dsh ? align16(kTile * slot_max * 4) : 0);
+  l.dh = l.h + (kLeg == kRadB ? align16(kTile * ld_h<T>(hd) * (int)sizeof(T)) : 0);
+  l.total = l.dh + (kLeg == kRadB ? align16(2 * kTile * hd * 4) : 0);  // dh, its scratch
   return l;
 }
 
@@ -576,6 +309,113 @@ __device__ __forceinline__ bool span_chunk_vec(const int* __restrict__ dwmap, in
   if (!row_vec || jl + V > span) return false;
   const int g0 = __ldg(dwmap + sb + jl);
   return g0 % V == 0 && __ldg(dwmap + sb + jl + V - 1) == g0 + V - 1;
+}
+
+// ------------------------------------------------- the radial fold (K7)
+// The fold's operands (kernel parameters by value): both launches build w
+// from h, Wl, pk and rgk; launch 1 writes dh; launch 2's first n_dw_tiles
+// blocks are dW tiles, the rest d[Wr; offset] tiles of dw, written at
+// `base` of a partial row of part_ld floats (K7-Wr: those tiles alone).
+struct RadOps {
+  const void* h;        // [E, hd] in T
+  int hd;
+  const void* Wl;       // [hd + 1, n_loc] in T: [Wr; offset], columns in local order
+  int n_loc;
+  const void* pk;       // each group's Wr in fragment order, for w, then for dh (k7_tables)
+  const int* rgk;       // [n_gk, 2]: the offsets in pk of the row's group's two packings
+  void* dh;             // launch 1: [E, hd] in T
+  const void* dw;       // launch 2: the dw workspace [E, d_w] in T
+  const int* dwmap;     // local column -> dw column
+  int n_dw_tiles, base, part_ld;
+  float one;            // h's ones column: 1, or 0 for a tangent or cotangent in h's slot
+};
+
+// the d[Wr; offset] tiles: 64 hd rows (kFanTile) by 128 local columns (kColTile)
+__host__ __device__ inline int wr_tiles(int hd, int n_loc) {
+  return ((hd + kFanTile - 1) / kFanTile) * ((n_loc + kColTile - 1) / kColTile);
+}
+
+// the A fragment (m16n8k16 layout, fp32 values) of rows [0, 16) and K step
+// at column c0 = 16 ks + 2q of a row-major tile in shared memory (row stride
+// ld, even): a[s] = {A[g][k], A[g + 8][k], A[g][k + 1], A[g + 8][k + 1]}, k =
+// c0 + 8s
+template <typename TA>
+__device__ __forceinline__ void load_a(float (&a)[2][4], const TA* s_a, int ld, int c0, int gq) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const TA* lo = s_a + gq * ld + c0 + 8 * s;
+    const TA* hi = lo + 8 * ld;
+    if constexpr (sizeof(TA) == 4) {
+      const float2 l = *reinterpret_cast<const float2*>(lo);
+      const float2 h = *reinterpret_cast<const float2*>(hi);
+      a[s][0] = l.x;
+      a[s][1] = h.x;
+      a[s][2] = l.y;
+      a[s][3] = h.y;
+    } else {
+      const float2 l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(lo));
+      const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hi));
+      a[s][0] = l.x;
+      a[s][1] = h.x;
+      a[s][2] = l.y;
+      a[s][3] = h.y;
+    }
+  }
+}
+
+// a lane's B fragment of one (n-tile, K step) packed in fragment order
+// (b_fragment_index): 16 bytes in fp32, 8 in bf16, read through L2
+template <typename T>
+__device__ __forceinline__ void load_b(float (&b)[2][2], const T* __restrict__ p) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    b[0][0] = v.x;
+    b[0][1] = v.y;
+    b[1][0] = v.z;
+    b[1][1] = v.w;
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    b[0][0] = lo.x;
+    b[0][1] = lo.y;
+    b[1][0] = hi.x;
+    b[1][1] = hi.y;
+  }
+}
+
+// one K step of C[i] += A B_i for the n-tiles i < n: bf16 operands, or fp32
+// as 3xTF32 split by masking
+template <typename T, int kN>
+__device__ __forceinline__ void mma_fold(float (&c)[kN][4], const float (&a)[2][4],
+                                         const float (&b)[kN][2][2], int n) {
+  if constexpr (sizeof(T) == 4)
+    mma16mn_tf32<1, kN>(reinterpret_cast<float (&)[1][kN][4]>(c),
+                        reinterpret_cast<const float (&)[1][2][4]>(a), b, n);
+  else
+    mma16n<T, kN>(c, a, b, n);
+}
+
+// out[16, n-tiles nt0 + i * step (i < n)] = A[16, K] B over n_ks K steps:
+// A a row-major tile in shared memory (row stride ld), B packed in fragment
+// order with ks_ld K steps an n-tile
+template <typename T, int kN, typename TA>
+__device__ __forceinline__ void mma_tile(float (&acc)[kN][4], const TA* s_a, int ld,
+                                         const T* __restrict__ Bp, int n_ks, int ks_ld, int nt0,
+                                         int step, int n, int lane) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int ks = 0; ks < n_ks; ++ks) {
+    float a[2][4], b[kN][2][2];
+    load_a(a, s_a, ld, ks * 16 + 2 * (lane & 3), lane >> 2);
+#pragma unroll
+    for (int i = 0; i < kN; ++i)
+      if (i < n) load_b(b[i], Bp + ((long long)((nt0 + i * step) * ks_ld + ks) * 32 + lane) * 4);
+    mma_fold<T, kN>(acc, a, b, n);
+  }
 }
 
 // ----------------------------------------------------------- launch 1
@@ -605,6 +445,8 @@ __device__ __forceinline__ void group_rows(const int* __restrict__ gk, int n_gk,
 // (kDxDw), or one edge leg (K5b) that never reads its own operand; a leg
 // block takes the groups of its split blockIdx.y, and the x leg cut in
 // more than one split writes its fp32 dx partial to part [n_split, E, d_x].
+// K7-B (kRadB) builds each group's w from the staged h instead of reading
+// w, and adds dw Wr^T into its dh tile at the group's last component.
 // The sh leg (kLegSh, sh never staged or read) and K5a (kBwd3: the outputs
 // in kNeed, the others null) also sum dsh: each term's row sum goes once to
 // its slot of s_slot [kTile, slot_max] (a warp a row for a mul that is a
@@ -620,19 +462,20 @@ __device__ __forceinline__ void dxdw_body(
     const int* __restrict__ terms, const float* __restrict__ coeffs,
     const int* __restrict__ dwmap, T* __restrict__ dx, T* __restrict__ dw, int span_max,
     int cp_max, int fd_max, float* __restrict__ part, T* __restrict__ dsh = nullptr,
-    float* __restrict__ part_sh = nullptr, int slot_max = 0) {
+    float* __restrict__ part_sh = nullptr, int slot_max = 0, const RadOps rad = {}) {
   constexpr int V = kVec<T>;
   constexpr bool kSh = sums_dsh(kLeg);
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const bool has_w = kLeg == kLegW || w != nullptr;  // the plan has per-edge w
+  // the plan has per-edge w (K7-B: built from h)
+  const bool has_w = kLeg == kLegW || kLeg == kRadB || w != nullptr;
   // what K5a keeps (the other legs: what their leg computes)
   constexpr int need = kLeg == kBwd3 ? kNeed : kNeedAll;
   constexpr bool keep_dx = kLeg == kBwd3 ? (kNeed & kNeedDx) != 0 : kLeg != kLegW && !kSh;
   constexpr bool keep_dw = kLeg == kBwd3 ? (kNeed & kNeedDw) != 0 : kLeg != kLegX && !kSh;
   constexpr bool keep_dsh = kSh && (need & kNeedDsh) != 0;
   const Layout1 L = layout1<T, kLeg>(d_x, d_sh, span_max, cp_max, fd_max, has_w, sx != 0, need,
-                                     slot_max, kXg);
+                                     slot_max, kXg, rad.hd);
   float* s_dx = reinterpret_cast<float*>(smem + L.dx);
   float* s_dw = reinterpret_cast<float*>(smem + L.dw);
   float* s_dz = reinterpret_cast<float*>(smem + L.dz);
@@ -642,8 +485,12 @@ __device__ __forceinline__ void dxdw_body(
   float* s_sh = reinterpret_cast<float*>(smem + L.sh);
   float* s_dsh = reinterpret_cast<float*>(smem + L.dsh);
   float* s_slot = reinterpret_cast<float*>(smem + L.slot);
-  const int dxs = round_up(d_x, kRowPad), sps = round_up(span_max, kRowPad);
+  const int dxs = round_up(d_x, kRowPad), sps = span_stride<kLeg>(span_max);
   const int ldg = ld_g1<T>(cp_max), ldz = ld_dz1(fd_max);
+  // K7-B: h [kTile, ldh] (dtype), dh and a scratch tile [kTile, hd] (fp32)
+  const int hd = rad.hd, hd16 = round_up(hd, 16), ldh = ld_h<T>(hd);
+  T* s_h = reinterpret_cast<T*>(smem + L.h);
+  float* s_dh = reinterpret_cast<float*>(smem + L.dh);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -657,7 +504,13 @@ __device__ __forceinline__ void dxdw_body(
   const bool split = (kLeg == kLegX || kSh) && gridDim.y > 1;
 
   if (n_live == 0) {  // past the real edges: zero gradients
-    if constexpr (kLeg == kDxDw) {
+    if constexpr (kLeg == kRadB) {  // (no dw: the workspace's rows past *n_edges are not read)
+      for (int i = tid; i < n_rows * d_x; i += kThreads1)
+        dx[(long long)e0 * d_x + i] = from_f<T>(0.f);
+      T* dh = static_cast<T*>(rad.dh);
+      for (int i = tid; i < n_rows * hd; i += kThreads1)
+        dh[(long long)e0 * hd + i] = from_f<T>(0.f);
+    } else if constexpr (kLeg == kDxDw) {
       for (int i = tid; i < n_rows * d_x; i += kThreads1)
         dx[(long long)e0 * d_x + i] = from_f<T>(0.f);
       if (has_w)
@@ -704,7 +557,16 @@ __device__ __forceinline__ void dxdw_body(
     copy_rows<T, kThreads1>(s_x, dxs, x + (long long)e0 * sx, sx, sx ? n_live : 1, d_x,
                             d_x % V == 0 && sx % V == 0 && aligned16(x));
   int q_begin = 0, q_end = n_gk;
-  if constexpr (kLeg != kDxDw) group_rows(gk, n_gk, blockIdx.y, gridDim.y, q_begin, q_end);
+  if constexpr (!pairs_dxdw(kLeg)) group_rows(gk, n_gk, blockIdx.y, gridDim.y, q_begin, q_end);
+  if constexpr (kLeg == kRadB) {  // the tile's h (zero past the real edges and hd), dh = 0
+    const T* h = static_cast<const T*>(rad.h);
+    for (int i = tid; i < kTile * hd16; i += kThreads1) {
+      const int r = i / hd16, c = i - r * hd16;
+      s_h[r * ldh + c] = r < n_live && c < hd ? h[(long long)(e0 + r) * hd + c] : from_f<T>(0.f);
+    }
+    for (int i = tid; i < kTile * hd; i += kThreads1) s_dh[i] = 0.f;
+    __syncthreads();  // the w build reads s_h
+  }
 
   for (int qi = q_begin; qi < q_end; ++qi) {
     const int* gr = gk + qi * kGkFields;
@@ -720,7 +582,7 @@ __device__ __forceinline__ void dxdw_body(
       } else if constexpr (kLeg != kLegX) {
         for (int i = tid; i < kTile * sps; i += kThreads1) s_dw[i] = 0.f;
       }
-      const int nv = kLeg != kLegW ? sps / V : 0;
+      const int nv = kLeg != kLegW && kLeg != kRadB ? sps / V : 0;
       for (int i = tid; i < n_live * nv; i += kThreads1) {
         const int r = i / nv;
         const int jl = (i - r * nv) * V;
@@ -732,6 +594,26 @@ __device__ __forceinline__ void dxdw_body(
               __ldg(reinterpret_cast<const uint4*>(wr + __ldg(dwmap + sb + jl)));
         } else {
           for (int j = 0; j < V && jl + j < span; ++j) sw[j] = wr[__ldg(dwmap + sb + jl + j)];
+        }
+      }
+      if constexpr (kLeg == kRadB) {
+        // w[16, span] = h Wr_g + offset_g on the tensor cores, rounded to the
+        // dtype: warp w takes the span's n-tiles w, w + 16, ...
+        const T* Bp = static_cast<const T*>(rad.pk) + __ldg(rad.rgk + 2 * qi);
+        const T* off = static_cast<const T*>(rad.Wl) + (long long)hd * rad.n_loc + sb;
+        const int n_wt = round_up(span, 8) / 8;
+        for (int nt0 = warp; nt0 < n_wt; nt0 += kWarps1 * kNT) {
+          const int n_mine = min(kNT, (n_wt - nt0 + kWarps1 - 1) / kWarps1);
+          float acc[kNT][4];
+          mma_tile<T, kNT>(acc, s_h, ldh, Bp, hd16 / 16, hd16 / 16, nt0, kWarps1, n_mine, lane);
+#pragma unroll
+          for (int i = 0; i < kNT; ++i)
+            if (i < n_mine)
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const int r = gq + 8 * (u >> 1), c = (nt0 + i * kWarps1) * 8 + 2 * q + (u & 1);
+                if (c < span) s_w[r * sps + c] = from_f<T>(acc[i][u] + to_f(off[c]));
+              }
         }
       }
     }
@@ -983,11 +865,43 @@ __device__ __forceinline__ void dxdw_body(
             dr[__ldg(dwmap + sb + jl + j)] = from_f<T>(sd[j]);
         }
       }
+      if constexpr (kLeg == kRadB) {
+        // dh[16, hd] += dw_g Wr_g^T on the tensor cores: dh's n-tile i goes
+        // to warps i and i + 8, which take the first and the second half of
+        // the span's K steps; the second half's sum goes through a scratch
+        // tile and is added after the first's (each dh element one lane's,
+        // one order)
+        const T* Bp = static_cast<const T*>(rad.pk) + __ldg(rad.rgk + 2 * qi + 1);
+        const int n_ht = round_up(hd, 8) / 8, n_kd = round_up(span, 16) / 16;
+        const int half = warp / (kWarps1 / 2), k_lo = half ? n_kd / 2 : 0;
+        const int k_n = half ? n_kd - n_kd / 2 : n_kd / 2;
+        float acc[1][4];
+        for (int nt = warp % (kWarps1 / 2); nt < n_ht; nt += kWarps1 / 2) {
+          mma_tile<T, 1>(acc, s_dw + 16 * k_lo, sps, Bp + (long long)k_lo * 128, k_n, n_kd, nt,
+                         0, 1, lane);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int r = gq + 8 * (u >> 1), j = nt * 8 + 2 * q + (u & 1);
+            if (j >= hd) continue;
+            if (half)
+              s_dh[(kTile + r) * hd + j] = acc[0][u];
+            else
+              s_dh[r * hd + j] += acc[0][u];
+          }
+        }
+        __syncthreads();
+        for (int i = tid; i < kTile * hd; i += kThreads1) s_dh[i] += s_dh[kTile * hd + i];
+      }
       __syncthreads();  // s_dw is zeroed by the next group
     }
   }
 
   if constexpr (kLeg == kLegW) return;
+  if constexpr (kLeg == kRadB) {  // dh once a tile (rows past the real edges: zero dw, zero dh)
+    T* dh = static_cast<T*>(rad.dh);
+    for (int i = tid; i < n_rows * hd; i += kThreads1)
+      dh[(long long)e0 * hd + i] = from_f<T>(s_dh[i]);
+  }
   if constexpr (kSh) {
     if (keep_dsh) {
       if (split) {  // this split's fp32 partial of dsh
@@ -1067,6 +981,13 @@ sh_leg_kernel(EQT_K2_DXDW_PARAMS, T* __restrict__ dsh, float* __restrict__ part_
   dxdw_body<T, kFullStage, kLegSh>(EQT_K2_DXDW_ARGS, nullptr, dsh, part_sh, slot_max);
 }
 
+// K7-B's launch 1: dx, dw (to the workspace) and dh, w built from h
+template <typename T>
+__global__ void __launch_bounds__(kThreads1, 1)
+rad_dxdw_kernel(EQT_K2_DXDW_PARAMS, const RadOps rad) {
+  dxdw_body<T, kFullStage, kRadB>(EQT_K2_DXDW_ARGS, nullptr, nullptr, nullptr, 0, rad);
+}
+
 // the split partials of a leg launch summed in split order, rows at or past
 // *n_edges zeros (their tiles wrote no partial): out_a [E, d_a] from part_a
 // [n_split, E, d_a], then out_b [E, d_b] from part_b (each pair null when the
@@ -1123,13 +1044,28 @@ bwd3_sum_kernel(const float* __restrict__ part, int d_x, T* __restrict__ dx,
 #define EQT_K2_DW_ARGS \
   x, sx, sh, d_sh, w, d_w, G, d_out, n_edges_ptr, E, gk, tiles, terms, coeffs, part, w_numel, range_len
 
-template <typename T, int kStage>
-__device__ __forceinline__ void dW_body(EQT_K2_DW_PARAMS) {
+// K7-B's w fan slice of a dW tile: [kEdges2][kLdw2] in the dtype
+constexpr int kLdw2 = kFanTile + 8;
+
+// the shared memory of a launch-2 block (bytes): K2's; with the fold also
+// the w fan slice
+template <typename T>
+__host__ __device__ inline int smem2(int d_sh, bool rad) {
+  return (kEdges2 * (kLdz2 + kLdg2) + kEdges2 * d_sh) * 4 +
+         (rad ? kEdges2 * kLdw2 * (int)sizeof(T) : 0);
+}
+
+template <typename T, int kStage, bool kRad = false>
+__device__ __forceinline__ void dW_body(EQT_K2_DW_PARAMS, const RadOps* rad = nullptr) {
   constexpr int V = kVec<T>;
   extern __shared__ float4 smem4[];
   float* s_z = reinterpret_cast<float*>(smem4);  // [kEdges2][kLdz2]: z[e][f - f0]
   float* s_g = s_z + kEdges2 * kLdz2;              // [kEdges2][kLdg2]: G[e][j - j0]
   float* s_sh = s_g + kEdges2 * kLdg2;             // [kEdges2][d_sh]
+  // K7-B: the step's h [kEdges2][ldh] (dtype) over G's buffer before G, and
+  // w's fan slice [kEdges2][kLdw2] (dtype) after sh
+  T* s_h = reinterpret_cast<T*>(s_g);
+  T* s_w = reinterpret_cast<T*>(s_sh + kEdges2 * d_sh);
 
   const int* tl = tiles + blockIdx.x * kTileFields;
   const int q0 = tl[0], n_comp = tl[1], f0 = tl[2], fm = tl[3], j0 = tl[4], fn = tl[5];
@@ -1144,6 +1080,7 @@ __device__ __forceinline__ void dW_body(EQT_K2_DW_PARAMS) {
   const int r_begin = blockIdx.y * range_len;
   const int r_end = min(min(E, r_begin + range_len), __ldg(n_edges_ptr));
   const bool g_vec = d_out % V == 0 && fn % V == 0 && aligned16(G);
+  const int hd = kRad ? rad->hd : 0, hd16 = round_up(hd, 16), ldh = ld_h<T>(hd);
 
   float acc[2][4][4];
 #pragma unroll
@@ -1157,6 +1094,40 @@ __device__ __forceinline__ void dW_body(EQT_K2_DW_PARAMS) {
     const int n_live = min(kEdges2, r_end - e0);
     for (int i = tid; i < n_live * d_sh; i += kThreads2)
       s_sh[i] = to_f(sh[(long long)e0 * d_sh + i]);
+    if constexpr (kRad) {
+      // w[e, f0 : f0 + fm] = [h, 1] Wl on the tensor cores, rounded to the
+      // dtype: warp (mt, half) takes 16 edges by 4 n-tiles, 2 at a time
+      // (fewer live registers: two blocks an SM), fan column f the group's
+      // local w column sb + f
+      const T* h = static_cast<const T*>(rad->h);
+      for (int i = tid; i < kEdges2 * hd16; i += kThreads2) {
+        const int r = i / hd16, c = i - r * hd16;
+        s_h[r * ldh + c] = r < n_live && c < hd ? h[(long long)(e0 + r) * hd + c] : from_f<T>(0.f);
+      }
+      __syncthreads();
+      const int sb = gk[q0 * kGkFields + 8], span = gk[q0 * kGkFields + 9];
+      const T* Bp = static_cast<const T*>(rad->pk) + __ldg(rad->rgk + 2 * q0);
+      const T* off = static_cast<const T*>(rad->Wl) + (long long)hd * rad->n_loc + sb + f0;
+      for (int p2 = 0; p2 < 2; ++p2) {
+        const int n_wt = min(2, max(0, (fm - (warp >> 2) * 32 - p2 * 16 + 7) / 8));
+        if (n_wt == 0) continue;
+        float acc[2][4];
+        mma_tile<T, 2>(acc, s_h + mt * 16 * ldh, ldh, Bp, hd16 / 16, hd16 / 16,
+                       f0 / 8 + (warp >> 2) * 4 + 2 * p2, 1, n_wt, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          if (i < n_wt)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int r = mt * 16 + gq + 8 * (u >> 1);
+              const int c = ((warp >> 2) * 4 + 2 * p2 + i) * 8 + 2 * q + (u & 1);
+              if (c < fm)  // (fan pad rows past the span: no term reads them)
+                s_w[r * kLdw2 + c] = f0 + c < span ? from_f<T>(acc[i][u] + to_f(off[c]))
+                                                   : from_f<T>(0.f);
+            }
+      }
+      __syncthreads();  // G is staged over h below
+    }
     for (int k = 0; k < n_comp; ++k) {
       const int* gr = gk + (q0 + k) * kGkFields;
       const int out_col = gr[2], t_begin = gr[4], t_end = gr[5];
@@ -1209,7 +1180,10 @@ __device__ __forceinline__ void dW_body(EQT_K2_DW_PARAMS) {
             const int f = lo + (i - r * cnt);
             const long long e = e0 + r;
             float v = c * s_sh[r * d_sh + col] * to_f(x[e * sx + a + f - fc]);
-            if (w != nullptr) v *= to_f(w[e * d_w + b + f - fc]);
+            if constexpr (kRad)
+              v *= to_f(s_w[r * kLdw2 + f - f0]);
+            else if (w != nullptr)
+              v *= to_f(w[e * d_w + b + f - fc]);
             s_z[r * kLdz2 + f - f0] += v;
           }
         }
@@ -1256,7 +1230,7 @@ __device__ __forceinline__ void dW_body(EQT_K2_DW_PARAMS) {
 
   // ---- the partial, once per range: row blockIdx.y, this tile's slice
   if (!live_m) return;
-  float* pr = part + (long long)blockIdx.y * w_numel + w_off;
+  float* pr = part + (long long)blockIdx.y * (kRad ? rad->part_ld : w_numel) + w_off;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -1285,6 +1259,136 @@ __global__ void __launch_bounds__(kThreads2) dW_kernel(EQT_K2_DW_PARAMS) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads2, 3) W_leg_kernel(EQT_K2_DW_PARAMS) {
   dW_body<T, kFullStage>(EQT_K2_DW_ARGS);
+}
+
+// d[Wr; offset] tile t (rows j0 = 64 (t / column tiles) + [0, 64) of hd,
+// local columns c0 = 128 (t % column tiles) + [0, 128)) of [h, one]^T dw over
+// the edges of range blockIdx.y, below *n_edges: per step of 64 edges h's
+// slice (A^T, as launch 2's z) and dw's (B, through dwmap, as launch 2's G)
+// staged in fp32, the product on the tensor cores into registers (launch
+// 2's warp tiles); the offset row, one x the column sums of dw, added in
+// edge order by a thread a column of the tiles with j0 = 0.  Written once
+// per range to row blockIdx.y of part at rad.base: [hd + 1, n_loc].
+template <typename T>
+__device__ __forceinline__ void dWr_body(const RadOps& rad, const int* __restrict__ n_edges_ptr,
+                                         int E, int d_w, float* __restrict__ part, int range_len,
+                                         int t) {
+  extern __shared__ float4 smem4[];
+  float* s_z = reinterpret_cast<float*>(smem4);  // [kEdges2][kLdz2]: h[e][j0 + f]
+  float* s_g = s_z + kEdges2 * kLdz2;              // [kEdges2][kLdg2]: dw[e][c0 + j]
+  const T* __restrict__ h = static_cast<const T*>(rad.h);
+  const T* __restrict__ dw = static_cast<const T*>(rad.dw);
+  const int hd = rad.hd, n_loc = rad.n_loc;
+  const int n_ct = (n_loc + kColTile - 1) / kColTile;
+  const int j0 = (t / n_ct) * kFanTile, c0 = (t % n_ct) * kColTile;
+  const int fm = min(kFanTile, hd - j0), fn = min(kColTile, n_loc - c0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int mt = warp & 3;          // 16 hd rows
+  const int nt0 = (warp >> 2) * 8;  // 8 n-tiles: 64 columns, in two halves of 4
+  const bool live_m = mt * 16 < fm;
+  const int n_mine = min(8, max(0, (fn - nt0 * 8 + 7) / 8));
+  const int r_begin = blockIdx.y * range_len;
+  const int r_end = min(min(E, r_begin + range_len), __ldg(n_edges_ptr));
+  // each thread stages one column of each slice (tid % 64 of h's, tid % 128
+  // of dw's), stepping over rows
+  const int hc = tid & (kFanTile - 1), dc = tid & (kColTile - 1);
+  const int dcol = dc < fn ? __ldg(rad.dwmap + c0 + dc) : 0;
+  const bool offset_row = j0 == 0 && tid < fn;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[hh][i][j] = 0.f;
+  float dsum = 0.f;
+
+  for (int e0 = r_begin; e0 < r_end; e0 += kEdges2) {
+    const int n_live = min(kEdges2, r_end - e0);
+    for (int r = tid / kFanTile; r < kEdges2; r += kThreads2 / kFanTile)
+      s_z[r * kLdz2 + hc] =
+          r < n_live && hc < fm ? to_f(h[(long long)(e0 + r) * hd + j0 + hc]) : 0.f;
+    for (int r = tid / kColTile; r < kEdges2; r += kThreads2 / kColTile)
+      s_g[r * kLdg2 + dc] = r < n_live && dc < fn ? to_f(dw[(long long)(e0 + r) * d_w + dcol]) : 0.f;
+    __syncthreads();
+
+    // ---- acc[j, c] += sum_e h[e, j] dw[e, c]: M = hd, N = columns, K = edges
+    if (live_m) {
+#pragma unroll
+      for (int ks = 0; ks < kEdges2 / 16; ++ks) {
+        float a[2][4];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const float* z0 = s_z + (ks * 16 + 2 * q + 8 * s) * kLdz2 + mt * 16 + gq;
+          a[s][0] = z0[0];
+          a[s][1] = z0[8];
+          a[s][2] = z0[kLdz2];
+          a[s][3] = z0[kLdz2 + 8];
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int n_h = min(4, max(0, n_mine - 4 * hh));
+          if (n_h == 0) continue;
+          float b[4][2][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (i < n_h)
+#pragma unroll
+              for (int s = 0; s < 2; ++s) {
+                const float* g0 =
+                    s_g + (ks * 16 + 2 * q + 8 * s) * kLdg2 + (nt0 + 4 * hh + i) * 8 + gq;
+                b[i][s][0] = g0[0];
+                b[i][s][1] = g0[kLdg2];
+              }
+          mma_fold<T, 4>(acc[hh], a, b, n_h);
+        }
+      }
+    }
+    if (offset_row)  // the offset row: dw's column sum, in edge order
+      for (int r = 0; r < n_live; ++r) dsum += s_g[r * kLdg2 + tid];
+    __syncthreads();
+  }
+
+  // ---- the partial, once per range: row blockIdx.y, this tile's slice
+  float* pr = part + (long long)blockIdx.y * rad.part_ld + rad.base;
+  if (offset_row) pr[(long long)hd * n_loc + c0 + tid] = rad.one * dsum;
+  if (!live_m) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = (nt0 + 4 * hh + i) * 8 + 2 * q;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int f = mt * 16 + gq + 8 * u;
+        if (f >= fm) continue;
+        if (j < fn) pr[(long long)(j0 + f) * n_loc + c0 + j] = acc[hh][i][2 * u];
+        if (j + 1 < fn) pr[(long long)(j0 + f) * n_loc + c0 + j + 1] = acc[hh][i][2 * u + 1];
+      }
+    }
+}
+
+// K7-B's launch 2: K2's dW tiles with w rebuilt from h (the first
+// rad.n_dw_tiles blocks of x), then the d[Wr; offset] tiles; two blocks an
+// SM (at most 128 registers: at one, 213 in fp32, it took 4.2 ms at QM9
+// sep_act against 3.4)
+template <typename T>
+__global__ void __launch_bounds__(kThreads2, 2) rad_dW_kernel(EQT_K2_DW_PARAMS, const RadOps rad) {
+  if ((int)blockIdx.x < rad.n_dw_tiles)
+    dW_body<T, kFullStage, true>(EQT_K2_DW_ARGS, &rad);
+  else
+    dWr_body<T>(rad, n_edges_ptr, E, d_w, part, range_len, blockIdx.x - rad.n_dw_tiles);
+}
+
+// K7-Wr: the d[Wr; offset] tiles alone, on K5b's w leg's dw
+template <typename T>
+__global__ void __launch_bounds__(kThreads2)
+Wr_leg_kernel(const RadOps rad, const int* __restrict__ n_edges_ptr, int E, int d_w,
+              float* __restrict__ part, int range_len) {
+  dWr_body<T>(rad, n_edges_ptr, E, d_w, part, range_len, blockIdx.x);
 }
 
 struct Args {
@@ -1551,6 +1655,107 @@ int run_legW(const Args& a, int dtype, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// K7-B: launch 1 (dx, dh, dw into the workspace a.dw, w built from h), launch
+// 2 (the dW tiles with w rebuilt, then the d[Wr; offset] tiles: their
+// partials in one row [w_numel + (hd + 1) n_loc] per range) and the row sum
+// into a.dW
+template <typename T>
+int launch_rad(const Args& a, RadOps r, cudaStream_t stream) {
+  const Layout1 L = layout1<T, kRadB>(a.d_x, a.d_sh, a.span_max, a.cp_max, a.fd_max, true,
+                                      a.sx != 0, kNeedAll, 0, false, r.hd);
+  cudaError_t err = cudaFuncSetAttribute(rad_dxdw_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return (int)err;
+  rad_dxdw_kernel<T><<<(a.E + kTile - 1) / kTile, kThreads1, L.total, stream>>>(
+      static_cast<const T*>(a.x), a.sx, a.d_x, static_cast<const T*>(a.sh), a.d_sh, nullptr,
+      a.d_w, static_cast<const T*>(a.Wp), static_cast<const T*>(a.G), a.d_out,
+      static_cast<const int*>(a.n_edges), a.E, static_cast<const int*>(a.gk), a.n_gk,
+      static_cast<const int*>(a.terms), static_cast<const float*>(a.coeffs),
+      static_cast<const int*>(a.dwmap), static_cast<T*>(a.dx), static_cast<T*>(a.dw),
+      a.span_max, a.cp_max, a.fd_max, r);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  r.dw = a.dw;
+  r.dwmap = static_cast<const int*>(a.dwmap);
+  r.n_dw_tiles = a.n_tiles;
+  r.base = a.w_numel;
+  r.part_ld = a.w_numel + (r.hd + 1) * r.n_loc;
+  r.one = 1.f;
+  const int smem = smem2<T>(a.d_sh, true);
+  err = cudaFuncSetAttribute(rad_dW_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  rad_dW_kernel<T><<<dim3(a.n_tiles + wr_tiles(r.hd, r.n_loc), a.n_ranges), kThreads2, smem,
+                     stream>>>(
+      static_cast<const T*>(a.x), a.sx, static_cast<const T*>(a.sh), a.d_sh, nullptr, a.d_w,
+      static_cast<const T*>(a.G), a.d_out, static_cast<const int*>(a.n_edges), a.E,
+      static_cast<const int*>(a.gk), static_cast<const int*>(a.tiles),
+      static_cast<const int*>(a.terms), static_cast<const float*>(a.coeffs),
+      static_cast<float*>(a.part), a.w_numel, a.range_len, r);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)eqt::sum_partial_rows(static_cast<const float*>(a.part), a.n_ranges, r.part_ld,
+                                    static_cast<float*>(a.dW), stream);
+}
+
+// K7-Wr: K5b's w leg into the workspace a.dw, the d[Wr; offset] tiles alone
+// (partial rows [(hd + 1) n_loc] per range), the row sum into a.dW
+template <typename T>
+int launch_legWr(const Args& a, RadOps r, int n_split, cudaStream_t stream) {
+  int status = launch_leg<T, kLegW>(a, n_split, stream);
+  if (status != 0) return status;
+  r.dw = a.dw;
+  r.dwmap = static_cast<const int*>(a.dwmap);
+  r.base = 0;
+  r.part_ld = (r.hd + 1) * r.n_loc;
+  const int smem = smem2<T>(0, false);
+  cudaError_t err = cudaFuncSetAttribute(Wr_leg_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  Wr_leg_kernel<T><<<dim3(wr_tiles(r.hd, r.n_loc), a.n_ranges), kThreads2, smem, stream>>>(
+      r, static_cast<const int*>(a.n_edges), a.E, a.d_w, static_cast<float*>(a.part),
+      a.range_len);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)eqt::sum_partial_rows(static_cast<const float*>(a.part), a.n_ranges, r.part_ld,
+                                    static_cast<float*>(a.dW), stream);
+}
+
+// the fold's operands: h with hd a positive multiple of 4 whose staged
+// slice fits launch 2's G buffer, the dw workspace, the partials
+template <typename T>
+bool rad_ok(const Args& a, const RadOps& r) {
+  return r.h != nullptr && r.hd > 0 && r.hd % 4 == 0 && r.n_loc > 0 &&
+         a.dw != nullptr && a.dwmap != nullptr && a.part != nullptr && a.dW != nullptr &&
+         ld_h<T>(r.hd) * (int)sizeof(T) <= kLdg2 * 4;
+}
+
+int run_rad(const Args& a, const RadOps& r, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool ops = a.dx != nullptr && r.dh != nullptr && r.Wl != nullptr && r.pk != nullptr &&
+                   r.rgk != nullptr;
+  if (!ranges_ok(a) || !ops) return (int)cudaErrorInvalidValue;
+  if (dtype == eqt::kFloat32)
+    return rad_ok<float>(a, r) ? launch_rad<float>(a, r, s) : (int)cudaErrorInvalidValue;
+  if (dtype == eqt::kBFloat16)
+    return rad_ok<__nv_bfloat16>(a, r) ? launch_rad<__nv_bfloat16>(a, r, s)
+                                       : (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;
+}
+
+int run_legWr(const Args& a, const RadOps& r, int n_split, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (!ranges_ok(a) || n_split < 1 || a.x == nullptr || a.w != nullptr || a.dx != nullptr ||
+      (r.one != 0.f && r.one != 1.f))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == eqt::kFloat32)
+    return rad_ok<float>(a, r) ? launch_legWr<float>(a, r, n_split, s)
+                               : (int)cudaErrorInvalidValue;
+  if (dtype == eqt::kBFloat16)
+    return rad_ok<__nv_bfloat16>(a, r) ? launch_legWr<__nv_bfloat16>(a, r, n_split, s)
+                                       : (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;
+}
+
 // the operands a dsh leg's launch takes: the sh leg dsh alone (x read, sh,
 // dx and dw null); K5a two or three outputs, x and sh read, dw only with w;
 // the partials of each output kept when the tiles are cut
@@ -1626,6 +1831,56 @@ extern "C" int dtp_lin_bwd_stage(const void* x, long long sx, int d_x, const voi
                    d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
                    n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
   return k2::run(stage, a, dtype, stream);
+}
+
+// K7-B: the backward of dtp_lin_rad_fwd on dtp_lin_bwd's arguments (w null:
+// w = [h, 1] @ [Wr; offset] is built on chip; dw the workspace [E, d_w] in
+// the dtype; part [n_ranges, w_numel + (hd + 1) * n_loc] fp32; dW [w_numel +
+// (hd + 1) * n_loc] fp32: dW, then d[Wr; offset] in local column order),
+// then h [E, hd], Wl [hd + 1, n_loc] ([Wr; offset] in local column order),
+// pk and rgk (DTPLinPlan.k7_tables: each group's Wr in fragment order, and
+// the offsets of a gk row's group in it), dh [E, hd].
+extern "C" int dtp_lin_rad_bwd(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                               const void* w, int d_w, const void* Wp, const void* G, int d_out,
+                               const void* n_edges, int E, const void* gk, int n_gk,
+                               const void* terms, const void* coeffs, const void* dwmap,
+                               void* dx, void* dw, int span_max, int cp_max, int fd_max,
+                               const void* tiles, int n_tiles, void* part, int n_ranges,
+                               int range_len, void* dW, int w_numel, const void* h, int hd,
+                               const void* Wl, int n_loc, const void* pk, const void* rgk,
+                               void* dh, int dtype, void* stream) {
+  if (w != nullptr) return (int)cudaErrorInvalidValue;
+  const k2::Args a{x,      sh,     w,        Wp,       G,      n_edges,   gk,
+                   terms,  coeffs, dwmap,    tiles,    sx,     d_x,       d_sh,
+                   d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
+                   n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
+  k2::RadOps r{};
+  r.h = h; r.hd = hd; r.Wl = Wl; r.n_loc = n_loc; r.pk = pk;
+  r.rgk = static_cast<const int*>(rgk); r.dh = dh;
+  return k2::run_rad(a, r, dtype, stream);
+}
+
+// K7-Wr: d[Wr; offset] = [h, one]^T F_w(G, x, sh, W) [(hd + 1) * n_loc] fp32
+// (local column order) into dW, on dtp_lin_bwd's arguments (w null, dx null,
+// dw the workspace [E, d_w] in the dtype, part [n_ranges, (hd + 1) * n_loc]
+// fp32; tiles, n_tiles and w_numel unused), then h [E, hd], hd, n_loc, one
+// (1, or 0 when h's slot holds a tangent or cotangent) and n_split, the
+// irrep-group splits of the w leg's tiles.
+extern "C" int dtp_lin_rad_legWr(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                                 const void* w, int d_w, const void* Wp, const void* G, int d_out,
+                                 const void* n_edges, int E, const void* gk, int n_gk,
+                                 const void* terms, const void* coeffs, const void* dwmap,
+                                 void* dx, void* dw, int span_max, int cp_max, int fd_max,
+                                 const void* tiles, int n_tiles, void* part, int n_ranges,
+                                 int range_len, void* dW, int w_numel, const void* h, int hd,
+                                 int n_loc, int one, int n_split, int dtype, void* stream) {
+  const k2::Args a{x,      sh,     w,        Wp,       G,      n_edges,   gk,
+                   terms,  coeffs, dwmap,    tiles,    sx,     d_x,       d_sh,
+                   d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
+                   n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
+  k2::RadOps r{};
+  r.h = h; r.hd = hd; r.n_loc = n_loc; r.one = (float)one;
+  return k2::run_legWr(a, r, n_split, dtype, stream);
 }
 
 // K5b's x and w legs on dtp_lin_bwd's arguments (tiles, n_ranges, range_len,

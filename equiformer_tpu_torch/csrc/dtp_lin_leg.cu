@@ -1,18 +1,18 @@
 // Fused depthwise tensor product + per-irrep linear heads: the
-// radial-folded edge legs (K7-L: dx, dsh or dh; K7-Wr: d[Wr; offset]), on
-// the first K5b design.  K5b's x, sh and w legs run on K2's launch 1
-// (csrc/dtp_lin_bwd.cu, k2::edge_leg_kernel and k2::sh_leg_kernel); this
-// file keeps the first design for the fold's legs, instruction for
-// instruction until their own redesign (its unfolded legs are no longer
-// instantiated).
+// radial-folded edge legs x, sh and h (K7-L: dx, dsh or dh), on the first
+// K5b design.  K5b's x, sh and w legs run on K2's launch 1
+// (csrc/dtp_lin_bwd.cu, k2::edge_leg_kernel and k2::sh_leg_kernel), and so
+// does the fold's Wr leg (K7-Wr: K5b's w leg, then the d[Wr; offset] tiles
+// of k2::Wr_leg_kernel); this file keeps the first design for K7-L,
+// instruction for instruction until its own redesign (its unfolded legs
+// are no longer instantiated).
 //
 // Replaces: equiformer_tpu/kernels/dtp_lin_ho.py, _edge_leg_kernel_rad
 // (:255, the legs x, sh and h of a radial-folded plan; _leg_call :613-621;
 // bound through _leg_p by the JVP of _bwd3_p and by the transposes of the
-// other legs in the grad-of-grad of force training) and _Wr_leg_kernel
-// (:344, the leg Wr; _leg_call :594-603, primitive _legWr_p).  Plan and
-// tables: equiformer_tpu_torch/kernels/dtp_lin.py (DTPLinPlan.bwd_tables)
-// with the term rows of each (group, component) sorted by SH column
+// other legs in the grad-of-grad of force training).  Plan and tables:
+// equiformer_tpu_torch/kernels/dtp_lin.py (DTPLinPlan.bwd_tables) with the
+// term rows of each (group, component) sorted by SH column
 // (kernels/dtp_lin_ho.py, bwd3_tables), the tables of csrc/dtp_lin_bwd3.cu.
 //
 // What it computes.  The fused op out = Linear_W(DTP(x, sh, w)) is
@@ -28,17 +28,12 @@
 // cotangent that became G or another operand).  Rows e >= *n_edges get
 // zeros.
 //
-// With the radial fold (kRad) w = [h, one] @ [Wr; offset] and the legs are
+// With the radial fold (kRad) w = [h, 1] @ [Wr; offset] and the legs are
 // (out, x, sh, h, Wr, W): the x and sh legs build each group's w columns in
 // shared memory (csrc/radial.cuh) instead of reading w; the h leg
 // accumulates the group's dw as the w leg does and at the group's last
 // component adds dh += dw Wr^T into a [16, hd] fp32 tile (written as dh
-// [E, hd]); the Wr leg accumulates dw the same way and adds [h, one]^T dw
-// into the block's own fp32 partial rows [hd + 1, n_loc] of d[Wr; offset],
-// which eqt::sum_partial_rows sums in block order.  ``one`` is 1 for the
-// primal h and 0 when the h slot holds a tangent or cotangent (the wrapper
-// passes [Wr; 0] to the other legs then).  w and dw never reach device
-// memory.
+// [E, hd]).  w and dw never reach device memory.
 //
 // What bounds it on the card: arithmetic.  Per real edge of the MD17 L3
 // sep_act site the dz product is ~0.6M multiply-adds and one term
@@ -47,24 +42,23 @@
 //
 // Design: csrc/dtp_lin_bwd3.cu with two of its three accumulators removed
 // and the leg fixed at compile time, so the loads a leg does not need are
-// not in its code.  Blocks of 256 threads walk tiles of 16 edges (tile t =
-// blockIdx.x + i * gridDim.x: one tile per block for the per-edge legs,
-// persistent blocks for the Wr leg, whose partial rows are per block); per
-// (g, k) the block stages the slice G[g,k] in shared memory and computes
-// dz = G W_g^T there (W_g^T packed by the wrapper so lanes read it
-// coalesced); in the term pass warp w owns rows w and w + 8 of the tile and
-// lane l the copies u = l (mod 32) of every term.  A dx or dw element is
-// touched only by terms of one x block component (one a_off and mul) or one
-// TP path (one b_off and mul), so it always falls to the same lane of the
-// same warp: one writer per accumulator, no barrier inside the term pass.
-// dsh is a reduction over u and over terms: each lane keeps a running sum
-// while consecutive terms share an SH column (the table is sorted so they
-// do), and at a column change the warp adds it up with a fixed butterfly of
-// shuffles and lane 0 adds it to the row's dsh.  No atomics anywhere: the
-// same bits on every run.  dx and dsh accumulate over the whole tile, dw
-// over one group (every w column feeds exactly one group) and is contracted
-// against Wr at the group's last component.  Everything accumulates in fp32
-// on the CUDA cores; tensor cores and TMA are later work.
+// not in its code.  Blocks of 256 threads walk tiles of 16 edges, one tile
+// a block; per (g, k) the block stages the slice G[g,k] in shared memory
+// and computes dz = G W_g^T there (W_g^T packed by the wrapper so lanes
+// read it coalesced); in the term pass warp w owns rows w and w + 8 of the
+// tile and lane l the copies u = l (mod 32) of every term.  A dx or dw
+// element is touched only by terms of one x block component (one a_off and
+// mul) or one TP path (one b_off and mul), so it always falls to the same
+// lane of the same warp: one writer per accumulator, no barrier inside the
+// term pass.  dsh is a reduction over u and over terms: each lane keeps a
+// running sum while consecutive terms share an SH column (the table is
+// sorted so they do), and at a column change the warp adds it up with a
+// fixed butterfly of shuffles and lane 0 adds it to the row's dsh.  No
+// atomics anywhere: the same bits on every run.  dx and dsh accumulate over
+// the whole tile, dw over one group (every w column feeds exactly one
+// group) and is contracted against Wr at the group's last component.
+// Everything accumulates in fp32 on the CUDA cores; tensor cores and TMA
+// are later work.
 
 #include <stdint.h>
 
@@ -88,8 +82,8 @@ constexpr int kColChunk = 32 * kColsPerLane;      // fan columns per pass of a w
 constexpr int kGkFields = 12;                     // ints per (g, k) table entry
 constexpr int kTermFields = 6;                    // a_off, sh col, b_off, fan col, mul, local dw col
 
-// the legs; h and Wr exist only with the radial fold
-enum Leg : int { kLegX = 0, kLegSh = 1, kLegW = 2, kLegH = 3, kLegWr = 4 };
+// the legs; h exists only with the radial fold
+enum Leg : int { kLegX = 0, kLegSh = 1, kLegW = 2, kLegH = 3 };
 
 // the operands of one launch (kernel parameters by value)
 struct LegArgs {
@@ -103,11 +97,10 @@ struct LegArgs {
   int span_max, cols_pad_max, fs_max;
   const void* h; int hd;       // the fold: h [E, hd], Wl [hd + 1, n_loc]
   const void* Wl; int n_loc;
-  float* part; float one;      // the Wr leg: partial rows [gridDim.x, (hd + 1) * n_loc]
 };
 
 __host__ __device__ constexpr bool accumulates_dw(int leg) {
-  return leg == kLegW || leg == kLegH || leg == kLegWr;
+  return leg == kLegW || leg == kLegH;
 }
 __host__ __device__ constexpr bool builds_w(int leg, bool rad) {
   return rad && (leg == kLegX || leg == kLegSh);
@@ -123,8 +116,7 @@ __host__ __device__ inline int acc_width(int leg, int d_x, int d_sh, int span_ma
 
 // fp32 shared memory: acc [kTile, acc_w], G [kTile, cp], dz [kTile, fs],
 // sh [kTile, d_sh] for the legs that read it; with the fold w [kTile,
-// span_max] (x, sh legs), h [kTile, hd] (x, sh, Wr legs), dh [kTile, hd]
-// (h leg)
+// span_max] and h [kTile, hd] (x, sh legs), dh [kTile, hd] (h leg)
 __host__ __device__ inline int smem_floats(int leg, bool rad, int d_x, int d_sh, int span_max,
                                            int cols_pad_max, int fs_max, int hd) {
   return kTile * (acc_width(leg, d_x, d_sh, span_max) + cols_pad_max + fs_max +
@@ -147,7 +139,7 @@ __global__ void __launch_bounds__(kThreads) dtp_lin_leg_kernel(const LegArgs p) 
   const long long sx = p.sx;
   const int d_sh = p.d_sh, d_w = p.d_w, d_out = p.d_out, hd = p.hd, E = p.E;
   const int acc_w = acc_width(LEG, p.d_x, d_sh, p.span_max);
-  // output row width of the per-edge legs (the Wr leg has none)
+  // output row width of the leg
   const int d_leg = LEG == kLegX ? p.d_x : LEG == kLegSh ? d_sh : LEG == kLegW ? d_w : hd;
   float* s_acc = reinterpret_cast<float*>(smem4);
   float* s_gt = s_acc + kTile * acc_w;   // offsets multiples of 16 floats: float4 rows
@@ -164,21 +156,15 @@ __global__ void __launch_bounds__(kThreads) dtp_lin_leg_kernel(const LegArgs p) 
   const int fw = (warp / kRowGroups) * kColChunk;
   const int n_edges = __ldg(p.n_edges);
   const int n_tiles = (E + kTile - 1) / kTile;
-  const int row_dWr = (hd + 1) * p.n_loc;
-  float* my_part = LEG == kLegWr ? p.part + (long long)blockIdx.x * row_dWr : nullptr;
-
-  if constexpr (LEG == kLegWr)
-    for (int i = tid; i < row_dWr; i += kThreads) my_part[i] = 0.f;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int e0 = tile * kTile;
     const int n_rows = min(kTile, E - e0);
     const int n_live = max(0, min(n_rows, n_edges - e0));
 
-    if (n_live == 0) {  // past the real edges: zeros (nothing to d[Wr; offset])
-      if constexpr (LEG != kLegWr)
-        for (int i = tid; i < n_rows * d_leg; i += kThreads)
-          out[(long long)e0 * d_leg + i] = from_f<T>(0.f);
+    if (n_live == 0) {  // past the real edges: zeros
+      for (int i = tid; i < n_rows * d_leg; i += kThreads)
+        out[(long long)e0 * d_leg + i] = from_f<T>(0.f);
       continue;
     }
 
@@ -306,7 +292,7 @@ __global__ void __launch_bounds__(kThreads) dtp_lin_leg_kernel(const LegArgs p) 
               }
               accr[a + u] += cs * wv * dzr[fc + u];
             }
-          } else {  // dw: the w, h and Wr legs
+          } else {  // dw: the w and h legs
             const float cs = c * shr[col];
             for (int u = lane; u < mul; u += 32)
               accr[bl + u] += cs * to_f(x[e * sx + a + u]) * dzr[fc + u];
@@ -329,9 +315,6 @@ __global__ void __launch_bounds__(kThreads) dtp_lin_leg_kernel(const LegArgs p) 
           }
         } else if constexpr (LEG == kLegH) {  // dh += dw Wr^T
           eqt::add_dh<kTile, kThreads>(s_dh, s_acc, span, hd, Wl, p.n_loc, span_begin);
-        } else if constexpr (LEG == kLegWr) {  // partial d[Wr; offset] += [h, one]^T dw
-          eqt::add_dWr<kTile, kThreads>(my_part, p.n_loc, s_h, hd, s_acc, span, span_begin,
-                                        p.one);
         }
         __syncthreads();
       }
@@ -379,7 +362,6 @@ int dispatch(int leg, bool rad, const LegArgs& a, int n_blocks, int smem, cudaSt
     if (leg == kLegX) EQT_LEG(kLegX, true);
     if (leg == kLegSh) EQT_LEG(kLegSh, true);
     if (leg == kLegH) EQT_LEG(kLegH, true);
-    if (leg == kLegWr) EQT_LEG(kLegWr, true);
   }
 #undef EQT_LEG
   return n_blocks > 0 ? (int)cudaErrorInvalidValue : -(int)cudaErrorInvalidValue;
@@ -428,34 +410,13 @@ extern "C" int dtp_lin_rad_leg(int leg, const void* x, long long sx, int d_x, co
   return run(leg == 2 ? kLegH : leg, true, a, (E + kTile - 1) / kTile, dtype, stream);
 }
 
-// K7-Wr.  n_parts persistent blocks (at most the number of tiles) each own
-// one fp32 partial row of part [n_parts, (hd + 1) * n_loc]; dWrs [(hd + 1) *
-// n_loc] fp32 (rows of [Wr; offset], columns in the tables' local order)
-// receives their sum.  one: the value of h's appended column (1 or 0).
-extern "C" int dtp_lin_rad_legWr(const void* x, long long sx, int d_x, const void* sh, int d_sh,
-                                 const void* WT, const void* G, int d_out, const void* n_edges,
-                                 int E, const void* gk, int n_gk, const void* terms,
-                                 const void* coeffs, int span_max, int cols_pad_max, int fs_max,
-                                 const void* h, int hd, int n_loc, void* part, int n_parts,
-                                 void* dWrs, int one, int dtype, void* stream) {
-  if (n_parts < 1 || part == nullptr || dWrs == nullptr || (one != 0 && one != 1))
-    return (int)cudaErrorInvalidValue;
-  LegArgs a = edge_args(x, sx, d_x, sh, d_sh, WT, G, d_out, n_edges, E, gk, n_gk, terms, coeffs,
-                        span_max, cols_pad_max, fs_max);
-  a.h = h; a.hd = hd; a.n_loc = n_loc; a.part = static_cast<float*>(part); a.one = (float)one;
-  const int err = run(kLegWr, true, a, n_parts, dtype, stream);
-  if (err != 0) return err;
-  return (int)eqt::sum_partial_rows(static_cast<const float*>(part), n_parts, (hd + 1) * n_loc,
-                                    static_cast<float*>(dWrs), static_cast<cudaStream_t>(stream));
-}
-
 // Resident blocks per SM of one leg's kernel at the shared memory of a launch
 // with these widths, or minus a cudaError_t.  leg, with the fold (hd > 0): 0
-// x, 1 sh, 3 h, 4 Wr.
+// x, 1 sh, 3 h.
 extern "C" int dtp_lin_leg_occupancy(int leg, int d_x, int d_sh, int span_max,
                                      int cols_pad_max, int fs_max, int hd, int dtype) {
   const bool rad = hd > 0;
-  if (leg < kLegX || leg > kLegWr || leg == kLegW || !rad)
+  if (leg < kLegX || leg > kLegH || leg == kLegW || !rad)
     return -(int)cudaErrorInvalidValue;
   const int smem = smem_floats(leg, rad, d_x, d_sh, span_max, cols_pad_max, fs_max, hd) *
                    (int)sizeof(float);

@@ -1,14 +1,14 @@
 // The radial fold of the fused DTP kernels (K7): the pieces that the folded
-// variants of K1 (csrc/dtp_lin.cu), K2 (csrc/dtp_lin_bwd.cu), K5a
-// (csrc/dtp_lin_bwd3.cu), K5b (csrc/dtp_lin_leg.cu) and K5c
-// (csrc/dtp_lin_legW.cu) add to their bodies.
+// variants of K1 (csrc/dtp_lin.cu), K5a (csrc/dtp_lin_bwd3.cu), K5b
+// (csrc/dtp_lin_leg.cu) and K5c (csrc/dtp_lin_legW.cu) of the first
+// designs add to their bodies (K7-B and K7-Wr run on K2's launches,
+// csrc/dtp_lin_bwd.cu, with their products on the tensor cores).
 //
 // Replaces: equiformer_tpu/kernels/dtp_lin_pallas.py, _radial_h_packed /
-// _radial_w_fill (w built in the kernel), _radial_write_dw / _radial_dh
-// (dh = dw Wr^T) and the d[Wr; offset] outputs of _bwd_kernel; the dh output
-// of equiformer_tpu/kernels/dtp_lin_ho.py's _bwd3_kernel, and the w rebuild,
-// dh and d[Wr; offset] of its leg kernels (_edge_leg_kernel_rad,
-// _Wr_leg_kernel, the radial branch of _W_leg_kernel).
+// _radial_w_fill (w built in the kernel); the dh output of
+// equiformer_tpu/kernels/dtp_lin_ho.py's _bwd3_kernel, and the w rebuild
+// and dh of its leg kernels (_edge_leg_kernel_rad, the radial branch of
+// _W_leg_kernel).
 //
 // With the fold, a kernel's per-edge operand is the radial MLP's last hidden
 // activation h [E, hd] instead of the TP weights w [E, d_w], and
@@ -21,10 +21,8 @@
 // kernels read Wl rows contiguously.  w is rounded to the storage type
 // before use, as the unfolded route's w is stored, and rows past the real
 // edges are zero.  The backward keeps dw in shared memory and contracts it
-// there: dh = dw Wr^T into a [tile, hd] fp32 tile, and [h, 1]^T dw into the
-// block's own fp32 partial rows of d[Wr; offset], which a fixed-order
-// second pass sums (eqt::sum_partial_rows).  No atomics: each dh element
-// has one warp, each partial element one thread.
+// there: dh = dw Wr^T into a [tile, hd] fp32 tile.  No atomics: each dh
+// element has one warp.
 //
 // What bounds it: the h @ Wr product adds 2 * 65 * d_w operations per edge
 // (QM9: 125k against K1's 420k); the fold removes w's write and read
@@ -107,44 +105,6 @@ __device__ __forceinline__ void add_dh(float* s_dh, const float* s_dw, int span,
       const float v = warp_sum(acc[r]);
       if (lane == 0) s_dh[r * hd + j] += v;
     }
-  }
-}
-
-// part[j, sb + c] += sum_r [h, one][r, j] * s_dw[r, c] for j <= hd: the block's
-// own fp32 partial rows of d[Wr; offset] (row stride n_loc); a thread per
-// column.  Rows past the real edges have h = 0 and dw = 0, so the ones
-// column adds nothing for them.  ``one`` is the value of h's appended
-// column: 1 for the primal h, 0 when the h slot holds a tangent or a
-// cotangent (the op is affine in h, linear in [h, 1]).
-template <int kT, int kThreads>
-__device__ __forceinline__ void add_dWr(float* __restrict__ part, int n_loc, const float* s_h,
-                                        int hd, const float* s_dw, int span, int sb,
-                                        float one) {
-  for (int c = threadIdx.x; c < span; c += kThreads) {
-    float d[kT];
-    float dsum = 0.f;
-#pragma unroll
-    for (int r = 0; r < kT; ++r) {
-      d[r] = s_dw[r * span + c];
-      dsum += d[r];
-    }
-    float* pc = part + sb + c;
-    for (int j = 0; j < hd; j += 4) {
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-      for (int r = 0; r < kT; ++r) {
-        const float4 hq = *reinterpret_cast<const float4*>(s_h + r * hd + j);
-        a0 = fmaf(hq.x, d[r], a0);
-        a1 = fmaf(hq.y, d[r], a1);
-        a2 = fmaf(hq.z, d[r], a2);
-        a3 = fmaf(hq.w, d[r], a3);
-      }
-      pc[(long long)j * n_loc] += a0;
-      pc[(long long)(j + 1) * n_loc] += a1;
-      pc[(long long)(j + 2) * n_loc] += a2;
-      pc[(long long)(j + 3) * n_loc] += a3;
-    }
-    pc[(long long)hd * n_loc] += one * dsum;
   }
 }
 

@@ -137,12 +137,13 @@ _SIGNATURES = {
     # span_max, dtype, stream
     "dtp_lin_rad_fwd": [_VP, _LL, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _I,
                         _VP, _I, _VP, _I, _I, _I, _VP],
-    # K7-B: x, x_row_stride, d_x, sh, d_sh, W^T, g, d_out, n_edges*, E, gk
-    # table, n_gk, terms, coeffs, dx, partials, n_parts, dW ++ d[Wr; offset],
-    # w_numel, span_max, cols_pad_max, max_fan_stride, h, hd, Wl, n_loc, dh,
-    # dtype, stream
-    "dtp_lin_rad_bwd": [_VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
-                        _VP, _VP, _I, _VP, _I, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I, _VP],
+    # K7-B: dtp_lin_bwd's arguments (w null, dw the workspace, dW ++ d[Wr;
+    # offset]), then h, hd, Wl, n_loc, the packed Wr (k7_tables), its gk
+    # offsets, dh before the dtype
+    "dtp_lin_rad_bwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
+                        _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                        _VP, _I, _VP, _I, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _VP, _VP,
+                        _I, _VP],
     # K7-B3: x, x_row_stride, d_x, sh, d_sh, W^T, g, d_out, n_edges*, E, gk
     # table, n_gk, terms, coeffs, dx, dsh (each may be null), span_max,
     # cols_pad_max, max_fan_stride, h, hd, Wl, n_loc, dh, dtype, stream
@@ -157,7 +158,7 @@ _SIGNATURES = {
     "dtp_lin_legW": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
                      _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                      _VP, _I, _VP, _I, _I, _VP, _I, _I, _VP],
-    # K7-L / K7-Wr: leg (0 x, 1 sh, 3 h, 4 Wr), d_x, d_sh, span_max,
+    # K7-L: leg (0 x, 1 sh, 3 h), d_x, d_sh, span_max,
     # cols_pad_max, max_fan_stride, hd (> 0), dtype
     # -> resident blocks per SM (or -cudaError_t)
     "dtp_lin_leg_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I],
@@ -166,11 +167,12 @@ _SIGNATURES = {
     # cols_pad_max, max_fan_stride, h, hd, Wl, n_loc, dtype, stream
     "dtp_lin_rad_leg": [_I, _VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
                         _VP, _I, _I, _I, _VP, _I, _VP, _I, _I, _VP],
-    # K7-Wr: x, x_row_stride, d_x, sh, d_sh, W^T, g, d_out, n_edges*, E, gk
-    # table, n_gk, terms, coeffs, span_max, cols_pad_max, max_fan_stride, h,
-    # hd, n_loc, partials, n_parts, d[Wr; offset], one (0 or 1), dtype, stream
-    "dtp_lin_rad_legWr": [_VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
-                          _I, _I, _I, _VP, _I, _I, _VP, _I, _VP, _I, _I, _VP],
+    # K7-Wr: dtp_lin_bwd's arguments (w and dx null, dw the workspace, dW
+    # the d[Wr; offset]), then h, hd, n_loc, one (0 or 1) and the w leg's
+    # irrep-group splits before the dtype
+    "dtp_lin_rad_legWr": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
+                          _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                          _VP, _I, _VP, _I, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP],
     # K7-LW: x, x_row_stride, sh, d_sh, g, d_out, n_edges*, E, gk table, n_gk,
     # terms, coeffs, dW partials, n_parts, dW, w_numel, cols_pad_max,
     # max_fan_stride, span_max, h, hd, Wl, n_loc, dtype, stream

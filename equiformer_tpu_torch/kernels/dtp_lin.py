@@ -32,7 +32,8 @@ The radial fold (K7, JAX's ``EQUIFORMER_TPU_FOLD_RADIAL``): a plan with
 activation ``h`` [E, hd] and ``Wrs = [Wr; offset]`` [hd + 1, d_w]
 (``pack_radial``), and the kernels build ``w = h @ Wr + offset`` on chip:
 K7-F ``dtp_lin_rad_fwd`` and K7-B ``dtp_lin_rad_bwd`` (dx, dh, d[Wr;
-offset], dW), with the plain versions ``dtp_lin_rad_plain`` and
+offset], dW: K2's two launches with the fold a compile-time variant, w
+built on chip in both), with the plain versions ``dtp_lin_rad_plain`` and
 ``dtp_lin_rad_bwd_plain``.
 """
 
@@ -80,6 +81,11 @@ class K2Tables(NamedTuple):
     wp_index: torch.Tensor  # int64: the packed W as a gather of cat([W_flat, 0])
     cp_max: int  # the widest group's columns padded to 16
     fd_max: int  # the widest group's fan_stride padded to 8
+
+
+class K7Tables(NamedTuple):
+    index: torch.Tensor  # int64: each group's Wr packed twice, a gather of cat([Wl_flat, 0])
+    rgk: torch.Tensor  # int32 [n_gk, 2]: the offsets of a gk row's group's packings in it
 
 
 class K1Tables(NamedTuple):
@@ -447,6 +453,46 @@ class DTPLinPlan:
         self._tables[key] = tabs
         return tabs
 
+    def k7_tables(self, device: torch.device) -> "K7Tables":
+        """The radial fold's tables for K7-B on K2's launches
+        (``csrc/dtp_lin_bwd.cu``, k2::RadOps) on ``device``.  A group's fan
+        column f is its local w column sb + f (checked here: each fan block
+        is one TP path, and both orders follow the paths), so per group one
+        B operand in fragment order (``b_fragment_index``) of its columns of
+        Wl = [Wr; offset] in local order ([hd + 1, n_loc], row hd the
+        offset, not packed) serves the w build of both launches, ``w = h
+        Wr_g`` (K = hd, N = span), and a second one ``dh = dw Wr_g^T`` (K =
+        span, N = hd).  ``index`` gathers ``cat([Wl.reshape(-1), 0])`` into
+        both packings of every group; ``rgk`` gives per gk row of
+        ``k2_tables`` the offsets of its group's two packings."""
+        hd = self.radial_fold
+        if hd is None:
+            raise ValueError("k7_tables needs a plan with radial_fold")
+        key = ("k7", device)
+        tabs = self._tables.get(key)
+        if tabs is not None:
+            return tabs
+        gk, terms, *_ = self.bwd_tables(torch.device("cpu"))
+        if not bool((terms[:, 3] == terms[:, 5]).all()):
+            raise ValueError("the fold's kernels need each group's fan columns in its local "
+                             "w column order")
+        n_loc = int(self.radial_cols(torch.device("cpu")).numel())
+        zero = (hd + 1) * n_loc
+        index, rgk, off = [], [], 0
+        for row in gk.tolist():
+            sb, span, first = row[8], row[9], row[10]
+            if first:
+                wb = b_fragment_index(hd, span, hd, span, lambda k, n: k * n_loc + sb + n, zero)
+                wd = b_fragment_index(span, hd, span, hd, lambda k, n: n * n_loc + sb + k, zero)
+                index += [wb, wd]
+                group = (off, off + wb.size)
+                off += wb.size + wd.size
+            rgk.append(group)
+        tabs = K7Tables(torch.as_tensor(np.concatenate(index), device=device),
+                        torch.tensor(rgk, dtype=torch.int32, device=device))
+        self._tables[key] = tabs
+        return tabs
+
     def k2_dsh_slots(self) -> int:
         """The width of the dsh slot rows of K5a and K5b's sh leg on K2's
         launch 1: a slot a term and row, so the most terms of a (group,
@@ -792,21 +838,27 @@ def k2_packed_W(plan: DTPLinPlan, W_flat: torch.Tensor) -> torch.Tensor:
 
 
 def _k2_call(entry: str, plan: DTPLinPlan, g, x, sh, w, Wp, n_edges, dx, dw, dW, part, *extra,
-             blocks_per_sm: int = K2_DW_BLOCKS_PER_SM):
+             blocks_per_sm: int = K2_DW_BLOCKS_PER_SM, row: Optional[int] = None,
+             range_tiles: Optional[int] = None):
     """The C entry ``entry`` of ``csrc/dtp_lin_bwd.cu`` launched on checked
     operands, K2's argument list on K2's tables: ``dtp_lin_bwd`` (K2),
-    ``dtp_lin_bwd_stage`` (S3), ``dtp_lin_edge_leg`` (K5b's x and w legs) or
-    ``dtp_lin_legW`` (K5c), with None for what it does not read or write and
-    its own trailing arguments in ``extra``.  With ``dW`` the launch-2
-    partial rows [n_ranges, w_numel] are allocated here (``k2_ranges`` at
-    ``blocks_per_sm``); else ``part`` is the entry's scratch or None."""
+    ``dtp_lin_bwd_stage`` (S3), ``dtp_lin_edge_leg`` (K5b's x and w legs),
+    ``dtp_lin_legW`` (K5c), ``dtp_lin_rad_bwd`` (K7-B) or
+    ``dtp_lin_rad_legWr`` (K7-Wr), with None for what it does not read or
+    write and its own trailing arguments in ``extra``.  With ``dW`` the
+    launch-2 partial rows [n_ranges, row] (``row`` w_numel by default) are
+    allocated here (``k2_ranges`` at ``blocks_per_sm`` over ``range_tiles``
+    tiles, the dW tiles by default); else ``part`` is the entry's scratch
+    or None."""
     E, dev = g.shape[0], g.device
     _, terms, coeffs, dwmap, _, span_max, _ = plan.bwd_tables(dev)
     kt = plan.k2_tables(dev)
     n_tiles = kt.tiles.shape[0]
-    n_ranges, range_len = k2_ranges(E, n_tiles, _sm_count(dev), blocks_per_sm)
+    n_ranges, range_len = k2_ranges(E, n_tiles if range_tiles is None else range_tiles,
+                                    _sm_count(dev), blocks_per_sm)
     if dW is not None:
-        part = torch.empty((n_ranges, plan.w_numel), dtype=torch.float32, device=dev)
+        part = torch.empty((n_ranges, plan.w_numel if row is None else row),
+                           dtype=torch.float32, device=dev)
     err = getattr(_build.library(), entry)(
         _build.ptr(x), 0 if x is None else x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh,
         _build.ptr(w), plan.d_w, _build.ptr(Wp), _build.ptr(g), plan.d_out,
@@ -906,17 +958,16 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-# K7-B's shared memory (135 KB at QM9) fits one block per SM, and so does
-# that of K7-LW and K7-Wr (~115 KB at MD17 L3): their persistent blocks
+# K7-LW's shared memory (~115 KB at MD17 L3) fits one block per SM: its
+# persistent blocks
 RAD_BWD_BLOCKS_PER_SM = 1
 _WORKSPACE: Dict[torch.device, torch.Tensor] = {}
 
 
 def _workspace(device: torch.device, numel: int) -> torch.Tensor:
-    """One fp32 scratch buffer per device for K7-B's and K7-Wr's partial
-    rows, grown to the largest call and reused: kernels on one stream run in
-    order, and the reduction reads the rows before the next launch writes
-    them."""
+    """One fp32 scratch buffer per device for K8-B's split partials, grown
+    to the largest call and reused: kernels on one stream run in order, and
+    the reduction reads the rows before the next launch writes them."""
     buf = _WORKSPACE.get(device)
     if buf is None or buf.numel() < numel:
         buf = torch.empty((numel,), dtype=torch.float32, device=device)
@@ -952,14 +1003,25 @@ def dtp_lin_rad_fwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, h: torc
     return out
 
 
+def k7_wr_tiles(hd: int, n_loc: int) -> int:
+    """The d[Wr; offset] tiles of K7-B's launch 2 and of K7-Wr: 64 rows of
+    hd (``K2_FAN_TILE``) by 128 local columns (``K2_COL_TILE``), as
+    ``k2::wr_tiles``."""
+    return -(-hd // K2_FAN_TILE) * -(-n_loc // K2_COL_TILE)
+
+
 def dtp_lin_rad_bwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, h: torch.Tensor,
                     Wrs: torch.Tensor, W_flat: torch.Tensor, g: torch.Tensor, n_edges=None):
     """K7-B: (dx [E, d_x], dh [E, hd], d[Wr; offset] [hd + 1, d_w] float32,
     dW_flat [w_numel] float32) for the cotangent ``g`` [E, d_out] of
-    ``dtp_lin_rad_fwd`` on the same operands, in one launch (and the
-    fixed-order sum of its partial rows); dw stays on chip.  CPU tensors
-    take ``dtp_lin_rad_bwd_plain``; CUDA tensors launch the kernel (float32
-    or bfloat16) or raise."""
+    ``dtp_lin_rad_fwd`` on the same operands, on K2's two launches with the
+    fold (``csrc/dtp_lin_bwd.cu``, k2::rad_dxdw_kernel and
+    k2::rad_dW_kernel) and the fixed-order sum of the ranges' partial rows
+    (dW, then d[Wr; offset]).  w is built on chip in both launches and never
+    reaches device memory; dw goes to a workspace [E, d_w] in x's dtype,
+    which launch 2's d[Wr; offset] tiles read.  CPU tensors take
+    ``dtp_lin_rad_bwd_plain``; CUDA tensors launch the kernels (float32 or
+    bfloat16) or raise."""
     if x.device.type == "cpu":
         return dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W_flat, g, n_edges)
     E = sh.shape[0]
@@ -968,25 +1030,19 @@ def dtp_lin_rad_bwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, h: torc
         raise ValueError(f"cotangent must be [{E}, {plan.d_out}] in x's dtype and device")
     g = g.contiguous()
     n_edges = _check_n_edges(n_edges, E, x.device)
-    gk, terms, coeffs, _, wt_index, span_max, cols_pad_max = plan.bwd_tables(x.device)
     dev, hd, n_loc = x.device, plan.radial_fold, Wl.shape[1]
     dx = torch.empty((E, plan.d_x), dtype=x.dtype, device=dev)
     dh = torch.empty((E, hd), dtype=x.dtype, device=dev)
     row = plan.w_numel + (hd + 1) * n_loc  # a partial row: dW, then d[Wr; offset]
     red = torch.zeros((row,), dtype=torch.float32, device=dev)
     if E > 0:
-        WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
-        n_parts = min(-(-E // BWD_TILE), RAD_BWD_BLOCKS_PER_SM * _sm_count(dev))
-        part = _workspace(dev, n_parts * row)
-        err = _build.library().dtp_lin_rad_bwd(
-            _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(WT),
-            _build.ptr(g), plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0],
-            _build.ptr(terms), _build.ptr(coeffs), _build.ptr(dx), _build.ptr(part), n_parts,
-            _build.ptr(red), plan.w_numel, span_max, cols_pad_max, plan.max_fan_stride,
-            _build.ptr(h), hd, _build.ptr(Wl), n_loc, _build.ptr(dh), _build.dtype_code(x),
-            _build.stream_ptr(),
-        )
-        _build.check(err, "dtp_lin_rad_bwd")
+        kr = plan.k7_tables(dev)
+        pk = torch.cat([Wl.reshape(-1), Wl.new_zeros(1)])[kr.index]
+        dw = torch.empty((E, plan.d_w), dtype=x.dtype, device=dev)  # the dw workspace
+        _k2_call("dtp_lin_rad_bwd", plan, g, x, sh, None, k2_packed_W(plan, W_flat), n_edges,
+                 dx, dw, red, None, _build.ptr(h), hd, _build.ptr(Wl), n_loc, _build.ptr(pk),
+                 _build.ptr(kr.rgk), _build.ptr(dh), row=row,
+                 range_tiles=plan.k2_tables(dev).tiles.shape[0] + k7_wr_tiles(hd, n_loc))
         dtp_lin_rad_bwd.launches += 1
     dWrs = torch.zeros((hd + 1, plan.d_w), dtype=torch.float32, device=dev)
     dWrs[:, plan.radial_cols(dev)] = red[plan.w_numel:].view(hd + 1, n_loc)

@@ -47,10 +47,12 @@ legs x, sh, h), as JAX's ``_LEGS_RAD`` extends ``_LEGS``.  The same
 (``dtp_lin_rad_fwd``, ``csrc/dtp_lin.cu``), the x / sh / h legs K7-L
 (``dtp_lin_rad_leg``, ``csrc/dtp_lin_leg.cu``: dh = dw Wr^T with dw on
 chip), the W leg K7-LW (``dtp_lin_rad_legW``, ``csrc/dtp_lin_legW.cu``), the
-Wr leg K7-Wr (``dtp_lin_rad_legWr``, ``csrc/dtp_lin_leg.cu``: [h, 1]^T dw
-in fixed-order fp32 partial rows) and the three edge legs of one ``g``
+Wr leg K7-Wr (``dtp_lin_rad_legWr``, ``csrc/dtp_lin_bwd.cu``: K5b's w leg,
+then [h, 1]^T dw on the tensor cores over K2's edge ranges, their fp32
+partial rows summed in order) and the three edge legs of one ``g``
 together K7-B3 (``dtp_lin_rad_bwd3``, ``csrc/dtp_lin_bwd3.cu``, the first
-K5a design); every one builds w from (h, [Wr; offset]) in shared memory.  Plain versions:
+K5a design); all but K7-Wr, which reads no [Wr; offset], build w from (h,
+[Wr; offset]) in shared memory.  Plain versions:
 ``dtp_lin_rad_leg_plain``, ``dtp_lin_rad_legW_plain``,
 ``dtp_lin_rad_legWr_plain``, ``dtp_lin_rad_bwd3_plain``.
 
@@ -76,13 +78,13 @@ from .dtp_lin import (
     _check_operands,
     _k2_call,
     _sm_count,
-    _workspace,
     _zero_past,
     dtp_lin_fwd,
     dtp_lin_legW_plain,
     dtp_lin_rad_fwd,
     fold_shared_weights,
     k2_packed_W,
+    k7_wr_tiles,
     plain_dz,
     plain_transposes,
     radial_dh_plain,
@@ -510,12 +512,15 @@ def dtp_lin_rad_legWr(plan: DTPLinPlan, g: torch.Tensor, x: torch.Tensor, sh: to
                       h: torch.Tensor, W_flat: torch.Tensor, n_edges=None,
                       ones: bool = True) -> torch.Tensor:
     """K7-Wr: the [Wr; offset] leg of the radial-folded op, ``F_Wr(g, x, sh,
-    h, W)`` = [h, 1]^T dw [hd + 1, d_w] in float32, summed over the edge
-    tiles in a fixed order; dw stays on chip.  ``ones=False`` when h's slot
-    holds a tangent or a cotangent (its appended column is 0, and so is the
-    offset row).  Columns of no live group get 0.  CPU tensors take
-    ``dtp_lin_rad_legWr_plain``; CUDA tensors launch the kernel (float32 or
-    bfloat16) or raise."""
+    h, W)`` = [h, 1]^T dw [hd + 1, d_w] in float32, dw K5b's w leg: that
+    leg's own launch (``k2::edge_leg_kernel``, cut by irrep group) writes dw
+    to a workspace [E, d_w] in g's dtype, then the d[Wr; offset] tiles
+    (``k2::Wr_leg_kernel``: [h, one]^T dw on the tensor cores per tile and
+    K2 edge range) and the fixed-order sum of the ranges' partial rows.
+    ``ones=False`` when h's slot holds a tangent or a cotangent (its
+    appended column is 0, and so is the offset row).  Columns of no live
+    group get 0.  CPU tensors take ``dtp_lin_rad_legWr_plain``; CUDA
+    tensors launch the kernels (float32 or bfloat16) or raise."""
     if g.device.type == "cpu":
         return dtp_lin_rad_legWr_plain(plan, g, x, sh, h, W_flat, n_edges, ones)
     E, dev, hd = g.shape[0], g.device, plan.radial_fold
@@ -525,18 +530,10 @@ def dtp_lin_rad_legWr(plan: DTPLinPlan, g: torch.Tensor, x: torch.Tensor, sh: to
     n_loc = cols.numel()
     red = torch.zeros(((hd + 1) * n_loc,), dtype=torch.float32, device=dev)
     if E > 0:
-        gk, terms, coeffs, _, wt_index, span_max, cols_pad_max = bwd3_tables(plan, dev)
-        WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
-        n_parts = min(-(-E // BWD_TILE), RAD_BWD_BLOCKS_PER_SM * _sm_count(dev))
-        part = _workspace(dev, n_parts * red.numel())
-        err = _build.library().dtp_lin_rad_legWr(
-            _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(WT),
-            _build.ptr(g), plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0],
-            _build.ptr(terms), _build.ptr(coeffs), span_max, cols_pad_max, plan.max_fan_stride,
-            _build.ptr(h), hd, n_loc, _build.ptr(part), n_parts, _build.ptr(red), int(ones),
-            _build.dtype_code(g), _build.stream_ptr(),
-        )
-        _build.check(err, "dtp_lin_rad_legWr")
+        dw = torch.empty((E, plan.d_w), dtype=g.dtype, device=dev)  # the dw workspace
+        _k2_call("dtp_lin_rad_legWr", plan, g, x, sh, None, k2_packed_W(plan, W_flat), n_edges,
+                 None, dw, red, None, _build.ptr(h), hd, n_loc, int(ones), len(plan.groups),
+                 row=red.numel(), range_tiles=k7_wr_tiles(hd, n_loc))
         dtp_lin_rad_legWr.launches += 1
     dWrs = torch.zeros((hd + 1, plan.d_w), dtype=torch.float32, device=dev)
     dWrs[:, cols] = red.view(hd + 1, n_loc)
@@ -549,13 +546,13 @@ dtp_lin_rad_legWr.launches = 0
 def leg_occupancy(plan: DTPLinPlan, dtype: torch.dtype, out_leg: str) -> int:
     """Resident blocks per SM at this plan's shared memory of K5b's sh leg
     ("sh", on K2's launch 1), or on a radial-folded plan of K7-L's ("x",
-    "sh", "h"), K7-Wr ("Wr") or K7-LW ("W").  Needs the card.  (K5b's x and
-    w legs and K5c run on K2's launches: one 16-edge tile a block, and dW
-    tiles by edge ranges.)"""
+    "sh", "h") or K7-LW ("W").  Needs the card.  (K5b's x and w legs, K5c
+    and K7-Wr run on K2's launches: one 16-edge tile a block, and tiles by
+    edge ranges.)"""
     code = _build.dtype_code(torch.empty((), dtype=dtype))
     hd = plan.radial_fold or 0
-    if not hd and out_leg != "sh":
-        raise ValueError(f"the unfolded {out_leg!r} leg runs on K2's launches")
+    if (not hd and out_leg != "sh") or out_leg == "Wr":
+        raise ValueError(f"the {out_leg!r} leg runs on K2's launches")
     *_, span_max, cols_pad_max = bwd3_tables(plan, torch.device("cpu"))
     if not hd:
         blocks = _dsh_occupancy(plan, DSH_LEGS["sh"], not plan.shared_weights, True, 7, code)
@@ -564,7 +561,7 @@ def leg_occupancy(plan: DTPLinPlan, dtype: torch.dtype, out_leg: str) -> int:
                                                          span_max, hd, code)
     else:
         blocks = _build.library().dtp_lin_leg_occupancy(
-            ("x", "sh", "w", "h", "Wr").index(out_leg), plan.d_x, plan.d_sh, span_max,
+            ("x", "sh", "w", "h").index(out_leg), plan.d_x, plan.d_sh, span_max,
             cols_pad_max, plan.max_fan_stride, hd, code)
     if blocks < 0:
         _build.check(-blocks, "leg_occupancy")

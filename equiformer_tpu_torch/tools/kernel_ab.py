@@ -1,8 +1,9 @@
 """K1 (the fused DTP + linear forward), K2 (its backward), K3 (the CSR
 segment sum), K4 (the attention combine), K7-F (the radial-folded
-forward), K5a (the force backward: dx, dsh and dw of the force models'
-fused op), K5b (its edge legs) and K5c (its head-weight leg) of this
-package against another tree's, in turns, on one GPU.
+forward), K7-B (its backward), K5a (the force backward: dx, dsh and dw of
+the force models' fused op), K5b (its edge legs), K5c (its head-weight
+leg) and K7-Wr (the folded op's [Wr; offset] leg) of this package against
+another tree's, in turns, on one GPU.
 
     python -m equiformer_tpu_torch.tools.kernel_ab [--against DIR [DIR ...]]
         [--kernels K1,K4] [--out FILE]
@@ -14,8 +15,7 @@ build their own kernels (into ``DIR/build/``) and launch them, so each
 side runs its own wrapper and kernel on the same input tensors.  The sides
 run in turns (package, the DIRs in order, then back: package, a, b, b, a,
 package), so they compare within one call on one card; a side is named
-by its directory.  ``--kernels`` picks the sections (all five by
-default).
+by its directory.  ``--kernels`` picks the sections (all by default).
 
 The shapes are ``chip_smoke.py``'s: batch 0 of the QM9 geometry (128
 QM9-like graphs of 30 slots, seed 0, radius 5; ``max_edges`` the largest
@@ -29,7 +29,8 @@ flagship's three sites (sep_act, sep_value with shared weights folded into
 W, the edge-degree embedding with its row-broadcast x), K1 also at MD17
 L3's sep_act; K4 at QM9's [E, 4, 120] with and without the alpha-dropout
 multiplier, the padding edges masked; K7-F at the folded flagship's
-sep_act; K5a with each caller's outputs (``K5A_NEEDS``), K5b's x, sh and
+sep_act; K7-B at the folded flagship's sep_act and edge degree; K7-Wr (h's
+ones column 1) at the folded exp_l3's sep_act and edge degree; K5a with each caller's outputs (``K5A_NEEDS``), K5b's x, sh and
 w legs (no w leg at sep_value, whose weights are shared) and K5c at MD17
 exp_l3's three sites (sep_act, sep_value, the edge degree), a leg's own
 operand None.  K5a's (dx, dw) runs beside K2's own launch 1 on the same
@@ -40,9 +41,10 @@ seed 0, the batch's real edges live.  Per shape and dtype (float32, bfloat16):
 * ``ms``: each side's wrapper, CUDA events (median of 5 runs of 5 calls);
   ``host_us`` (K3): its host time a call (median of 5 runs of 100 calls
   without a synchronize), which bounds ``ms`` at the small MD17 shapes;
-* ``device_ms`` (K3, K4, K5a-c): each side's device time per call, all
-  its kernels, and ``kernel_ms`` the kernel alone, from a profiler trace of
-  20 calls;
+* ``device_ms`` (K3, K4, K5a-c, K7-B, K7-Wr): each side's device time per
+  call, all its kernels, ``kernel_ms`` the kernel alone (K5a-c, K7-B,
+  K7-Wr: their launches and sums) and ``by_kernel`` each of those by name,
+  from a profiler trace of 20 calls;
 * ``rel_err``: each side against this package's plain version (max |diff| /
   max |plain|); ``index_add_`` (K3's one-call equivalent, zeros + add: its
   time as the wrapper's, and its device time) and the plain version's
@@ -92,7 +94,12 @@ K5A_KERNELS = ("bwd3_kernel", "bwd3_sum_kernel")
 K5B_KERNELS = ("edge_leg_kernel", "sum_dx_kernel", "sh_leg_kernel", "bwd3_sum_kernel",
                "dtp_lin_leg_kernel")
 K5C_KERNELS = ("W_leg_kernel", "dtp_lin_legW_kernel", "sum_partial_rows_kernel")
-SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K5a", "K5b", "K5c")
+# K7-B's and K7-Wr's kernels, of this design (k2::) and of the first one
+K7_KERNELS = {"K7B": ("rad_dxdw_kernel", "rad_dW_kernel", "sum_partial_rows_kernel",
+                      "dtp_lin_bwd_kernel"),
+              "K7Wr": ("edge_leg_kernel", "Wr_leg_kernel", "sum_partial_rows_kernel",
+                       "dtp_lin_leg_kernel")}
+SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K7B", "K5a", "K5b", "K5c", "K7Wr")
 # the outputs each caller of K5a asks for at MD17's sites: the force pass and
 # (dx, dw) the parameter pass of training
 K5A_NEEDS = {"md17-sep_act": (("x", "sh", "w"), ("x", "w")), "md17-sep_value": (("x", "sh"),),
@@ -145,13 +152,17 @@ def dtp_operands(plan, site, E, dt, dev):
 
 def traced_run(call, tag, kernel):
     """Device time and launches per call of ``call``, and of its ``kernel``
-    (a name, or a tuple of names) alone, from a trace of 20 calls."""
+    (a name, or a tuple of names) alone, and ``by_kernel`` each of those
+    names' ms a call (the sum over the kernels whose names hold it), from a
+    trace of 20 calls."""
     names = (kernel,) if isinstance(kernel, str) else kernel
     per_kernel = kernel_ms(call, 20, TRACE_DIR / f"ab_{tag}.json")
     return {"device_ms": sum(ms for ms, _ in per_kernel.values()),
             "kernel_ms": sum(ms for k, (ms, _) in per_kernel.items()
                              if any(n in k for n in names)),
-            "launches": sum(n for _, n in per_kernel.values())}
+            "launches": sum(n for _, n in per_kernel.values()),
+            "by_kernel": {n: sum(ms for k, (ms, _) in per_kernel.items() if n in k)
+                          for n in names if any(n in k for k in per_kernel)}}
 
 
 def host_us(fn, reps: int = 5, inner: int = 100) -> float:
@@ -354,6 +365,43 @@ def k5_section(key, sides, order, plans, rows, dev, report):
                 print(key, name, json.dumps(entry), flush=True)
 
 
+def k7_section(key, sides, order, plans, rows, dev, report):
+    """K7-B (``key`` "K7B": dx, dh, d[Wr; offset], dW) or K7-Wr ("K7Wr",
+    h's ones column 1) at each folded site of ``plans[side]``, against
+    this package's plain version, both dtypes; h and [Wr; offset] random
+    from seed 1, made once per site and dtype."""
+    for site, plan in plans["package"].items():
+        E, n_live = rows[site]
+        hd = plan.radial_fold
+        for dt in (torch.float32, torch.bfloat16):
+            x, sh, _, W, cot = dtp_operands(plan, site, E, dt, dev)
+            g = torch.Generator(device=dev).manual_seed(SEED + 1)
+            h = torch.randn(E, hd, generator=g, device=dev).to(dt)
+            Wrs = 0.1 * torch.randn(hd + 1, plan.d_w, generator=g, device=dev).to(dt)
+            n = torch.tensor(n_live, dtype=torch.int32, device=dev)
+            if key == "K7B":
+                want = kernels.dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, cot, n)
+            else:
+                want = (kernels.dtp_lin_rad_legWr_plain(plan, cot, x, sh, h, W, n),)
+            entry = {"E": E, "n_live": n_live, "runs": []}
+            for i, side in enumerate(order):
+                m, p = sides[side][0], plans[side][site]
+                if key == "K7B":
+                    call = lambda m=m, p=p: m.dtp_lin_rad_bwd(  # noqa: E731
+                        p, x, sh, h, Wrs, W, cot, n)
+                else:
+                    call = lambda m=m, p=p: (m.dtp_lin_rad_legWr(  # noqa: E731
+                        p, cot, x, sh, h, W, n),)
+                tag = f"{key}_{site}_{str(dt)[6:]}_{side}_{i}"
+                entry["runs"].append({
+                    "side": side, "ms": device_time_ms(call, dev),
+                    **traced_run(call, tag, K7_KERNELS[key]),
+                    "rel_err": max(rel(a, b) for a, b in zip(call(), want))})
+            name = f"{site}/{str(dt)[6:]}"
+            report[key][name] = entry
+            print(key, name, json.dumps(entry), flush=True)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, nargs="+", default=[],
@@ -419,6 +467,22 @@ def main(argv=None) -> dict:
         dtp_section("K7F", sides, order, fold, rows, dev, report, lambda m: (
             lambda p, o, n: m.dtp_lin_rad_fwd(p, o[0], o[1], *rad_ops(p, o), o[3], n)),
             lambda p, o, n: dtp_lin_rad_plain(p, o[0], o[1], *rad_ops(p, o), o[3], n))
+
+    if "K7B" in want:
+        fold = {}
+        for side, (_, make) in sides.items():
+            m = make(QM9[0])(max_edges=E, nodes_per_graph=QM9[2], seed=SEED, device=dev,
+                             radial_fold=True)
+            fold[side] = {k: v for k, v in dtp_plans(m).items() if k != "sep_value"}
+        k7_section("K7B", sides, order, fold, rows, dev, report)
+    if "K7Wr" in want:
+        fold = {}
+        for side, (_, make) in sides.items():
+            m = make(MD17[0])(max_edges=mE, nodes_per_graph=MD17[2], seed=SEED, device=dev,
+                              radial_fold=True, radial_fold_ho=True)
+            fold[side] = {f"md17-{k}": v for k, v in dtp_plans(m).items() if k != "sep_value"}
+        md17_rows = {site: (mE, int(mmask.sum())) for site in fold["package"]}
+        k7_section("K7Wr", sides, order, fold, md17_rows, dev, report)
 
     if {"K5a", "K5b", "K5c"} & set(want):
         mrows = {f"md17-{site}": (mE, int(mmask.sum())) for site in ("sep_act", "sep_value",

@@ -9,12 +9,10 @@ flags (``kernels/_build.py``: ``-Xptxas -v``, sm_90a) and prints one line
 per entry function: the demangled name, then the ``Used N registers`` and
 stack / spill lines.  With ``--against DIR`` (another tree's ``csrc``) the
 same sources are compiled from there too, and every kernel of the other
-tree is matched to this tree's (the first design's ``kStage`` argument,
-which one tree may have and the other not, is matched at its default 5)
-and reported as equal or different; ``--match`` compares only the kernels
-whose names it finds (for K7-B alone, when K2 itself was redesigned:
-``'dtp_lin_bwd_kernel<[^,]*, .bool.1>'``).  The exit code is 1 if a
-compared kernel differs.  Needs nvcc (the machine with the card).
+tree is matched by name to this tree's and reported as equal, different,
+or not in this tree (a retired kernel); ``--match`` compares only the
+kernels whose names it finds.  The exit code is 1 if a kernel that both
+trees have differs.  Needs nvcc (the machine with the card).
 """
 
 from __future__ import annotations
@@ -26,10 +24,6 @@ import subprocess
 from pathlib import Path
 
 from ..kernels import _build
-
-# the first K2 design's trailing stage argument at its default (kStage = 5)
-_DEFAULT_STAGE = re.compile(r"(dtp_lin_bwd_kernel<[^,<>]+, [^,<>]+), (?:\(int\))?5>")
-
 
 def entries(csrc: Path, sources) -> dict:
     """{demangled kernel name: [ptxas property lines]} of the sources."""
@@ -63,6 +57,19 @@ def _short(name: str) -> str:
     return name.removeprefix("void ")
 
 
+def compare(mine: dict, other: dict, match=None) -> dict:
+    """The other tree's kernels (those whose names ``match`` finds) against
+    this tree's, by name: {"equal", "differ", "not_here", "new_here"}, each
+    a list of names (``new_here``: this tree's kernels the other lacks)."""
+    other = {n: v for n, v in other.items() if match is None or re.search(match, n)}
+    out = {"equal": [], "differ": [], "not_here": [],
+           "new_here": [n for n in mine if n not in other]}
+    for name, lines in other.items():
+        key = "not_here" if name not in mine else "equal" if mine[name] == lines else "differ"
+        out[key].append(name)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sources", nargs="+", default=None, help="file names in csrc/ (default: all)")
@@ -77,17 +84,15 @@ def main(argv=None) -> int:
         print(f"{name}: {'; '.join(lines)}")
     report, differs = {"kernels": mine}, []
     if args.against is not None:
-        other = {_DEFAULT_STAGE.sub(r"\1>", n): v
-                 for n, v in entries(args.against, sources).items()
-                 if args.match is None or re.search(args.match, _DEFAULT_STAGE.sub(r"\1>", n))}
-        at_default = {_DEFAULT_STAGE.sub(r"\1>", n): v for n, v in mine.items()}
-        for name, lines in other.items():
-            same = at_default.get(name) == lines
-            print(f"against {args.against}: {name}: "
-                  + ("equal" if same else f"DIFFERS (there: {'; '.join(lines)})"))
-            if not same:
-                differs.append(name)
-        report["against"] = {"dir": str(args.against), "compared": len(other), "differ": differs}
+        other = entries(args.against, sources)
+        res = compare(mine, other, args.match)
+        for key, verdict in (("equal", "equal"), ("differ", "DIFFERS"),
+                             ("not_here", "not in this tree"), ("new_here", "new in this tree")):
+            for name in res[key]:
+                there = f" (there: {'; '.join(other[name])})" if key == "differ" else ""
+                print(f"against {args.against}: {name}: {verdict}{there}")
+        differs = res["differ"]
+        report["against"] = {"dir": str(args.against), **res}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1) + "\n")

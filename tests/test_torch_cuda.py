@@ -719,23 +719,35 @@ RAD_PLANS = {
     "dead-w-cols": (IRR, SH, ["5x0e+3x1e"], 8),
     "l3": (L3_IRR, L3_SH, ["36x0e+8x1e+8x2e+4x3e", "8x0e"], 16),
 }
+# the folded sites of the two paths at full width (hd 64): K7-B runs at
+# QM9's (the edge degree with its row-broadcast x), the K7 legs at MD17's
+RAD_QM9_SITES = {
+    "qm9-sep_act": ("128x0e+64x1e+32x2e", SH, ["224x0e+64x1e+32x2e", "128x0e"], 64),
+    "qm9-edge_deg": ("128x0e+64x1e+32x2e", SH, ["128x0e+64x1e+32x2e"], 64),
+}
+RAD_MD17_SITES = {
+    "md17-sep_act": ("128x0e+64x1e+64x2e+32x3e", L3_SH, ["288x0e+64x1e+64x2e+32x3e", "128x0e"],
+                     64),
+    "md17-edge_deg": ("128x0e+64x1e+64x2e+32x3e", L3_SH, ["128x0e+64x1e+64x2e+32x3e"], 64),
+}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(TOL))
-@pytest.mark.parametrize("plan_name", list(RAD_PLANS))
+@pytest.mark.parametrize("plan_name", list(RAD_PLANS) + list(RAD_QM9_SITES))
 def test_radial_fold_kernels_match_plain(dev, plan_name, dtype):
     """K7-F, K7-B and K7-B3 against dtp_lin_rad_plain, dtp_lin_rad_bwd_plain
-    and dtp_lin_rad_bwd3_plain on the same operands, with n_edges below E
-    (the padded rows get zeros and add nothing to d[Wr; offset]) and, for
-    K7-B3, without dx as at the broadcast edge-degree site; two calls give
-    the same bits."""
+    and dtp_lin_rad_bwd3_plain on the same operands, at small plans and the
+    QM9 flagship's folded sites (the edge degree's x a broadcast row), with
+    n_edges below E (the padded rows get zeros and add nothing to d[Wr;
+    offset]) and, for K7-B3, without dx as at the broadcast edge-degree
+    site; two calls give the same bits."""
     from equiformer_tpu_torch.kernels import (
         dtp_lin_rad_bwd, dtp_lin_rad_bwd3, dtp_lin_rad_bwd3_plain, dtp_lin_rad_bwd_plain,
         dtp_lin_rad_fwd, dtp_lin_rad_plain,
     )
 
-    irr, sh_irr, heads, hd = RAD_PLANS[plan_name]
+    irr, sh_irr, heads, hd = {**RAD_PLANS, **RAD_QM9_SITES}[plan_name]
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(3)
     plan = DTPLinPlan(depthwise_tp(Irreps(irr), Irreps(sh_irr), Irreps(irr)), heads,
@@ -743,8 +755,9 @@ def test_radial_fold_kernels_match_plain(dev, plan_name, dtype):
     assert plan.dw_has_dead_cols == (plan_name == "dead-w-cols")
     E = 300
     rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
-    x, sh, h, W, cot = (rnd(E, plan.d_x), rnd(E, plan.d_sh), rnd(E, hd), rnd(plan.w_numel),
-                        rnd(E, plan.d_out))
+    x = rnd(1, plan.d_x).expand(E, plan.d_x) if plan_name.endswith("edge_deg") else \
+        rnd(E, plan.d_x)
+    sh, h, W, cot = rnd(E, plan.d_sh), rnd(E, hd), rnd(plan.w_numel), rnd(E, plan.d_out)
     Wrs = plan.pack_radial(0.3 * rnd(hd, plan.d_w), 0.3 * rnd(plan.d_w))
     n = torch.tensor(250, dtype=torch.int32, device=dev)
     reset_launch_counts()
@@ -836,20 +849,21 @@ def test_reduced_folded_units_on_card_match_cpu(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(TOL))
-@pytest.mark.parametrize("plan_name", list(RAD_PLANS))
+@pytest.mark.parametrize("plan_name", list(RAD_PLANS) + list(RAD_MD17_SITES))
 def test_radial_fold_leg_kernels_match_plain(dev, plan_name, dtype):
     """K7-L (each of the x, sh and h legs, without the operand of that leg),
     K7-LW and K7-Wr (with h's ones column 1, and 0 as when h's slot holds a
-    cotangent) against their plain versions on the same operands, with a
-    row-broadcast x and n_edges below E: rows past n_edges get zeros and add
-    nothing to d[Wr; offset]; w columns of no live group get an exact 0;
-    second calls give the same bits."""
+    cotangent) against their plain versions on the same operands, at small
+    plans and MD17 exp_l3's folded sites, with a row-broadcast x and n_edges
+    below E: rows past n_edges get zeros and add nothing to d[Wr; offset];
+    w columns of no live group get an exact 0; second calls give the same
+    bits."""
     from equiformer_tpu_torch.kernels import (
         dtp_lin_rad_leg, dtp_lin_rad_leg_plain, dtp_lin_rad_legW, dtp_lin_rad_legW_plain,
         dtp_lin_rad_legWr, dtp_lin_rad_legWr_plain,
     )
 
-    irr, sh_irr, heads, hd = RAD_PLANS[plan_name]
+    irr, sh_irr, heads, hd = {**RAD_PLANS, **RAD_MD17_SITES}[plan_name]
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(4)
     plan = DTPLinPlan(depthwise_tp(Irreps(irr), Irreps(sh_irr), Irreps(irr)), heads,

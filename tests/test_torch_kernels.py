@@ -50,6 +50,7 @@ from equiformer_tpu_torch.kernels.dtp_lin import (  # noqa: E402
     K2_EDGES,
     K2_FAN_TILE,
     k1_smem_bytes,
+    k7_wr_tiles,
     k1_tile,
     k2_ranges,
     plan_terms,
@@ -599,8 +600,30 @@ def _k2_dsh_slots(terms, coeffs, x, w, dz, n_live):
     return slots
 
 
+def _k7_packs(plan, Wrs):
+    """The radial fold's operands as K7-B reads them: Wl = [Wr; offset] in
+    the tables' local column order [hd + 1, n_loc], and per gk row that
+    starts a group the group's two packings of ``plan.k7_tables`` unpacked
+    by the fragment layout (``_unpack_k2``), each as Wr_g [hd, span]: the w
+    build's B (K = hd, N = span) and dh's (K = span, N = hd)."""
+    cpu = torch.device("cpu")
+    hd = plan.radial_fold
+    Wl = Wrs[:, plan.radial_cols(cpu)]
+    kr = plan.k7_tables(cpu)
+    pk = torch.cat([Wl.reshape(-1), Wl.new_zeros(1)])[kr.index]
+    packs = {}
+    for q, row in enumerate(plan.k2_tables(cpu).gk.tolist()):
+        if row[10]:
+            sn, (ob, od) = row[9], kr.rgk[q].tolist()
+            nb = -(-sn // 8) * 8 * -(-hd // 16) * 16
+            nd = -(-hd // 8) * 8 * -(-sn // 16) * 16
+            packs[q] = (_unpack_k2(pk[ob : ob + nb], sn, hd)[:sn, :hd].T,
+                        _unpack_k2(pk[od : od + nd], hd, sn)[:hd, :sn])
+    return Wl, packs
+
+
 def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n_split=1,
-                        need=("x", "sh", "w")):
+                        need=("x", "sh", "w"), fold=None):
     """csrc/dtp_lin_bwd.cu's launch 1 (k2::dxdw_kernel) over
     ``plan.k2_tables``, in torch: per 16-edge tile the staged x / w span /
     G (padded to the K step), dz through the packed W (unpacked by the
@@ -614,8 +637,13 @@ def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n
     disjoint columns, their fp32 dx and dsh partials are summed in split
     order.  dsh in the kernel's order: each term's slots per row
     (``_k2_dsh_slots``), then per (row, column) the column's slots in term
-    order, per (group, component).  Returns (dx, dw), the leg's output, or
-    K5a's (dx, dsh, dw) with None for what ``need`` leaves out."""
+    order, per (group, component).  ``fold``: K7-B's launch 1
+    (k2::rad_dxdw_kernel) on (h, [Wr; offset]) with ``w`` None: per tile
+    the group's w built at its first component from the w packing, rounded
+    to h's dtype; at its last dw flushed through ``dwmap`` to the workspace
+    (rows past ``n_edges`` left unwritten, NaN here) and dh += dw Wr_g^T
+    from the dh packing, the span's K steps in two halves added in turn.  Returns (dx, dw), the leg's output, K5a's (dx,
+    dsh, dw) with None for what ``need`` leaves out, or K7-B's (dx, dw, dh)."""
     _, terms, coeffs, dwmap, _, span_max, _ = plan.bwd_tables(torch.device("cpu"))
     kt = plan.k2_tables(torch.device("cpu"))
     terms, coeffs, dwmap = terms.tolist(), coeffs.tolist(), dwmap.tolist()
@@ -626,21 +654,27 @@ def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n
         want_dx, want_dsh, want_dw = "x" in need, "sh" in need, "w" in need and w is not None
     else:
         want_dx, want_dsh = leg in (None, "x"), leg == "sh"
-        want_dw = leg == "w" or (leg is None and w is not None)
+        want_dw = leg == "w" or (leg is None and (w is not None or fold is not None))
+    if fold is not None:
+        h, hd = fold[0], plan.radial_fold
+        Wl, packs = _k7_packs(plan, fold[1])
+        dh = torch.full((E, hd), float("nan"), dtype=g.dtype)
     nan = lambda d: torch.full((E, d), float("nan"), dtype=g.dtype)  # noqa: E731
     dx = nan(plan.d_x) if want_dx else None
     dsh = nan(plan.d_sh) if want_dsh else None
     dw = nan(plan.d_w) if want_dw else None
-    if want_dw and plan.dw_has_dead_cols:
+    if want_dw and plan.dw_has_dead_cols and fold is None:
         dw.zero_()  # the wrapper's zeros: dead columns are never written
     for e0 in range(0, E, tile):
         n_rows, n_live = min(tile, E - e0), max(0, min(tile, E - e0, n_edges - e0))
         rows = slice(e0, e0 + n_live)
         if n_live == 0:
-            for out in (dx, dsh, dw):
+            for out in (dx, dsh) + ((dh,) if fold is not None else (dw,)):
                 if out is not None:
                     out[e0 : e0 + n_rows] = 0.0
             continue
+        if fold is not None:
+            s_dh = torch.zeros(tile, hd, dtype=g.dtype)
         parts, parts_sh = [], []
         for s in range(n_split):
             s_dx = torch.zeros(tile, plan.d_x, dtype=g.dtype)
@@ -650,6 +684,9 @@ def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n
                 if first:
                     s_dw = torch.zeros(tile, max(span_max, 1), dtype=g.dtype)
                     s_w = None if w is None else w[rows][:, dwmap[sb : sb + sn]]
+                    if fold is not None:
+                        pw, pd = packs[q]
+                        s_w = (h[rows] @ pw + Wl[hd, sb : sb + sn]).to(h.dtype)
                 s_g = torch.zeros(tile, cp, dtype=g.dtype)
                 s_g[:n_live, :cols] = g[rows, out_col : out_col + cols]
                 n_packed = -(-fs // 8) * 8 * cp
@@ -672,6 +709,10 @@ def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n
                                 s_dsh[:n_live, col] += slots[:, j]
                 if want_dw and last:
                     dw[e0 : e0 + n_rows, dwmap[sb : sb + sn]] = s_dw[:n_rows, :sn]
+                    if fold is not None:  # the span's K steps in two halves, added in turn
+                        cut = min(sn, 16 * (-(-sn // 16) // 2))
+                        s_dh += s_dw[:, :cut] @ pd[:, :cut].T
+                        s_dh += s_dw[:, cut:sn] @ pd[:, cut:].T
             parts.append(s_dx)
             parts_sh.append(s_dsh)
         for out, ps in ((dx, parts), (dsh, parts_sh)):
@@ -680,25 +721,101 @@ def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n
                 for part in ps[1:]:
                     acc = acc + part
                 out[e0 : e0 + n_rows] = acc[:n_rows]
+        if fold is not None:
+            dh[e0 : e0 + n_rows] = s_dh[:n_rows]
+    if fold is not None:
+        return dx, dw, dh
     if leg == "bwd3":
         return dx, dsh, dw
     return {"x": dx, "w": dw, "sh": dsh}[leg] if leg else (dx, dw)
 
 
-def _emulate_k2_launch2(plan, x, sh, w, g, n_edges, sm_count=3):
+def _k7_wr_partials(plan, h, dw, n_edges, ones, range_len, step=K2_EDGES):
+    """The d[Wr; offset] tiles of csrc/dtp_lin_bwd.cu (k2::dWr_body: K7-B's
+    launch 2 and K7-Wr's k2::Wr_leg_kernel) in torch: tile (64 rows of hd,
+    128 local columns) and edge range of ``range_len`` (whole steps of
+    ``step`` edges, K2_EDGES in the kernel), stopped at ``n_edges``; per
+    step h's slice and dw's (read through ``dwmap`` from the workspace [E,
+    d_w]) staged with zero rows past the real edges, their product added to
+    the accumulator, and on the tiles of hd's first rows the offset row,
+    ``ones`` x dw's column sums in edge order.  Each range writes its
+    partial row once.  Returns (the partial rows [n_ranges, (hd + 1) n_loc],
+    how often each element was written)."""
+    dwmap = plan.bwd_tables(torch.device("cpu"))[3].tolist()
+    hd, n_loc, E = plan.radial_fold, len(plan.radial_cols(torch.device("cpu"))), h.shape[0]
+    n_ranges, n_ct = -(-E // range_len), -(-n_loc // K2_COL_TILE)
+    part = torch.zeros(n_ranges, (hd + 1) * n_loc, dtype=h.dtype)
+    writes = torch.zeros(n_ranges, (hd + 1) * n_loc, dtype=torch.int64)
+    for ri in range(n_ranges):
+        rb = ri * range_len
+        re = min(E, rb + range_len, n_edges)
+        pr, wr = part[ri].view(hd + 1, n_loc), writes[ri].view(hd + 1, n_loc)
+        for t in range(k7_wr_tiles(hd, n_loc)):
+            j0, c0 = (t // n_ct) * K2_FAN_TILE, (t % n_ct) * K2_COL_TILE
+            fm, fn = min(K2_FAN_TILE, hd - j0), min(K2_COL_TILE, n_loc - c0)
+            acc = torch.zeros(K2_FAN_TILE, K2_COL_TILE, dtype=h.dtype)
+            dsum = torch.zeros(K2_COL_TILE, dtype=h.dtype)
+            for e0 in range(rb, re, step):
+                n = min(step, re - e0)
+                hs = torch.zeros(step, K2_FAN_TILE, dtype=h.dtype)
+                hs[:n, :fm] = h[e0 : e0 + n, j0 : j0 + fm]
+                ds = torch.zeros(step, K2_COL_TILE, dtype=h.dtype)
+                ds[:n, :fn] = dw[e0 : e0 + n][:, dwmap[c0 : c0 + fn]]
+                acc += hs.T @ ds
+                for r in range(n):
+                    dsum += ds[r]
+            pr[j0 : j0 + fm, c0 : c0 + fn] = acc[:fm, :fn]
+            wr[j0 : j0 + fm, c0 : c0 + fn] += 1
+            if j0 == 0:
+                pr[hd, c0 : c0 + fn] = float(ones) * dsum[:fn]
+                wr[hd, c0 : c0 + fn] += 1
+    return part, writes
+
+
+def _sum_rows(part):
+    """eqt::sum_partial_rows: the rows added in row order."""
+    out = part[0].clone()
+    for row in part[1:]:
+        out += row
+    return out
+
+
+def _k7_dWrs(plan, red):
+    """d[Wr; offset] [hd + 1, d_w] from its local-order rows (the wrappers'
+    scatter through ``radial_cols``; dead columns 0)."""
+    hd, cols = plan.radial_fold, plan.radial_cols(torch.device("cpu"))
+    out = red.new_zeros(hd + 1, plan.d_w)
+    out[:, cols] = red.view(hd + 1, len(cols))
+    return out
+
+
+def _emulate_k2_launch2(plan, x, sh, w, g, n_edges, sm_count=3, fold=None):
     """csrc/dtp_lin_bwd.cu's launch 2 (k2::dW_kernel) over
     ``plan.k2_tables`` and ``k2_ranges``, in torch: block (tile, range)
     recomputes z's fan slice per step of K2_EDGES and component from the terms
     that reach it, adds z^T G into its accumulator and writes its partial
-    once, to its range's row.  Returns (the partial rows, how often each
-    element was written)."""
+    once, to its range's row.  ``fold`` (h, [Wr; offset], launch 1's dw
+    workspace), with ``w`` None: K7-B's launch 2 (k2::rad_dW_kernel), each
+    step's w fan slice rebuilt from h through the w packing and rounded to
+    h's dtype (zero past the group's span), and the d[Wr; offset] tiles
+    (``_k7_wr_partials``) in the same grid and rows, after dW.  Returns (the
+    partial rows, how often each element was written)."""
     _, terms, coeffs, _, _, _, _ = plan.bwd_tables(torch.device("cpu"))
     kt = plan.k2_tables(torch.device("cpu"))
     terms, coeffs, gk = terms.tolist(), coeffs.tolist(), kt.gk.tolist()
     E = x.shape[0]
-    n_ranges, range_len = k2_ranges(E, kt.tiles.shape[0], sm_count)
-    part = torch.zeros(n_ranges, plan.w_numel, dtype=x.dtype)
-    writes = torch.zeros(n_ranges, plan.w_numel, dtype=torch.int64)
+    n_tiles, width = kt.tiles.shape[0], plan.w_numel
+    if fold is not None:
+        h, hd = fold[0], plan.radial_fold
+        Wl, packs = _k7_packs(plan, fold[1])
+        n_tiles += k7_wr_tiles(hd, Wl.shape[1])
+        width += (hd + 1) * Wl.shape[1]
+    n_ranges, range_len = k2_ranges(E, n_tiles, sm_count)
+    part = torch.zeros(n_ranges, width, dtype=x.dtype)
+    writes = torch.zeros(n_ranges, width, dtype=torch.int64)
+    if fold is not None:
+        part[:, plan.w_numel :], writes[:, plan.w_numel :] = _k7_wr_partials(
+            plan, h, fold[2], n_edges, True, range_len)
     for ri in range(n_ranges):
         rb = ri * range_len
         re = min(E, rb + range_len, n_edges)
@@ -707,6 +824,12 @@ def _emulate_k2_launch2(plan, x, sh, w, g, n_edges, sm_count=3):
             acc = torch.zeros(K2_FAN_TILE, K2_COL_TILE, dtype=x.dtype)
             for e0 in range(rb, re, K2_EDGES):
                 live = slice(e0, min(re, e0 + K2_EDGES))
+                if fold is not None:  # w's fan slice of this step
+                    sb, sn = gk[q0][8], gk[q0][9]
+                    m = max(0, min(fm, sn - f0))
+                    ws = torch.zeros(K2_EDGES, K2_FAN_TILE, dtype=x.dtype)
+                    ws[: live.stop - e0, :m] = (h[live] @ packs[q0][0][:, f0 : f0 + m]
+                                                + Wl[hd, sb + f0 : sb + f0 + m]).to(h.dtype)
                 for k in range(n_comp):
                     out_col, tb, te = gk[q0 + k][2], gk[q0 + k][4], gk[q0 + k][5]
                     z = torch.zeros(K2_EDGES, K2_FAN_TILE, dtype=x.dtype)
@@ -717,7 +840,9 @@ def _emulate_k2_launch2(plan, x, sh, w, g, n_edges, sm_count=3):
                             continue
                         u = slice(lo - fc, hi - fc)
                         v = c * sh[live, col : col + 1] * x[live, a + u.start : a + u.stop]
-                        if w is not None:
+                        if fold is not None:
+                            v = v * ws[: live.stop - e0, lo - f0 : hi - f0]
+                        elif w is not None:
                             v = v * w[live, b + u.start : b + u.stop]
                         z[:n, lo - f0 : hi - f0] += v
                     gs = torch.zeros(K2_EDGES, K2_COL_TILE, dtype=x.dtype)
@@ -1487,11 +1612,31 @@ def _emulate_sh_leg_kernel(plan, x, w, W_flat, g, n_edges, tile=16, warps=8):
 def _k2_dW(plan, x, sh, w, g, n_edges, sm_count=3):
     """K5c (and K2's dW) as csrc/dtp_lin_bwd.cu's launch 2 computes it: the
     ranges' partial rows summed in range order."""
-    part, _ = _emulate_k2_launch2(plan, x, sh, w, g, n_edges, sm_count)
-    dW = part[0].clone()
-    for row in part[1:]:
-        dW += row
-    return dW
+    return _sum_rows(_emulate_k2_launch2(plan, x, sh, w, g, n_edges, sm_count)[0])
+
+
+def _emulate_k7b(plan, x, sh, h, Wrs, W_flat, g, n_edges, sm_count=3):
+    """K7-B as its two launches and the row sum compute it (fold emulations
+    of ``_emulate_k2_launch1`` and ``_emulate_k2_launch2``): (dx, dh, d[Wr;
+    offset] [hd + 1, d_w], dW_flat), with how often launch 2 wrote each
+    partial element."""
+    dx, dw, dh = _emulate_k2_launch1(plan, x, sh, None, W_flat, g, n_edges, fold=(h, Wrs))
+    part, writes = _emulate_k2_launch2(plan, x, sh, None, g, n_edges, sm_count,
+                                       fold=(h, Wrs, dw))
+    red = _sum_rows(part)
+    return (dx, dh, _k7_dWrs(plan, red[plan.w_numel :]), red[: plan.w_numel]), writes
+
+
+def _emulate_k7wr(plan, g, x, sh, h, W_flat, n_edges, ones=True, sm_count=3):
+    """K7-Wr as it runs: K5b's w leg on K2's launch 1 cut by irrep group
+    into the dw workspace, the d[Wr; offset] tiles over ``k2_ranges`` of
+    their own count, the row sum: d[Wr; offset] [hd + 1, d_w]."""
+    dw = _emulate_k2_launch1(plan, x, sh, None, W_flat, g, n_edges, leg="w",
+                             n_split=len(plan.groups))
+    n_loc = len(plan.radial_cols(torch.device("cpu")))
+    _, range_len = k2_ranges(g.shape[0], k7_wr_tiles(plan.radial_fold, n_loc), sm_count)
+    part, _ = _k7_wr_partials(plan, h, dw, n_edges, ones, range_len)
+    return _k7_dWrs(plan, _sum_rows(part))
 
 
 @pytest.mark.parametrize("case", ["two-head", "shared-w", "broadcast-x", "dead-w-cols", "l3"])

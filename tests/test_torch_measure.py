@@ -407,20 +407,24 @@ def test_step_timer_and_trace(tmp_path):
     assert any(p.suffix == ".json" for p in tmp_path.rglob("*"))
 
 
-@pytest.mark.parametrize("name, short, at_default", [
-    ("void <unnamed>::dtp_lin_bwd_kernel<float, (bool)0, 5>(const T1 *, long long)",
-     "dtp_lin_bwd_kernel<float, (bool)0, 5>", "dtp_lin_bwd_kernel<float, (bool)0>"),
-    ("void (anonymous namespace)::dtp_lin_bwd_kernel<__nv_bfloat16, (bool)1, (int)3>(const T1 *)",
-     "dtp_lin_bwd_kernel<__nv_bfloat16, (bool)1, (int)3>",
-     "dtp_lin_bwd_kernel<__nv_bfloat16, (bool)1, (int)3>"),
+@pytest.mark.parametrize("name, short, there", [
+    ("void <unnamed>::dtp_lin_leg_kernel<float, 3, (bool)1>(const T1 *, long long)",
+     "dtp_lin_leg_kernel<float, 3, (bool)1>", "equal"),
+    ("void k2::rad_dW_kernel<__nv_bfloat16>(const T1 *)", "k2::rad_dW_kernel<__nv_bfloat16>",
+     "differ"),
     ("eqt::sum_partial_rows_kernel(const float *, int, int, float *)",
-     "eqt::sum_partial_rows_kernel", "eqt::sum_partial_rows_kernel"),
+     "eqt::sum_partial_rows_kernel", "not_here"),
 ])
-def test_ptxas_report_matches_kernels_across_trees(name, short, at_default):
-    """The ptxas report names a kernel without its parameters, and matches
-    K2's full stage (kStage = 5, a defaulted template argument) to the
-    kernel of a tree without the argument."""
-    from equiformer_tpu_torch.tools.ptxas_report import _DEFAULT_STAGE, _short
+def test_ptxas_report_matches_kernels_across_trees(name, short, there):
+    """The ptxas report names a kernel without its parameters, and sorts
+    the other tree's kernels by name into equal, differing and absent here
+    (a retired kernel: no difference); this tree's others are new."""
+    from equiformer_tpu_torch.tools.ptxas_report import _short, compare
 
     assert _short(name) == short
-    assert _DEFAULT_STAGE.sub(r"\1>", short) == at_default
+    mine = {} if there == "not_here" else {short: ["Used 40 registers"], "k2::new": ["x"]}
+    other = {short: ["Used 40 registers" if there == "equal" else "Used 48 registers"]}
+    res = compare(mine, other)
+    assert res[there] == [short]
+    assert res["new_here"] == ([] if there == "not_here" else ["k2::new"])
+    assert compare(mine, other, match="no such kernel")["new_here"] == list(mine)

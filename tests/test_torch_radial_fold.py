@@ -39,7 +39,16 @@ from equiformer_tpu_torch.kernels import (  # noqa: E402
     dtp_lin_rad_bwd_plain,
     dtp_lin_rad_plain,
 )
+from equiformer_tpu_torch.kernels.dtp_lin import radial_dWrs_plain  # noqa: E402
 from equiformer_tpu_torch.utils import params_from_jax, torch_name  # noqa: E402
+from tests.test_torch_kernels import (  # noqa: E402
+    _k7_dWrs,
+    _k7_packs,
+    _k7_wr_partials,
+    _sum_rows,
+    _emulate_k7b,
+    _emulate_k7wr,
+)
 
 # the module (the package's name dtp_lin_ho is the function)
 kho = importlib.import_module("equiformer_tpu_torch.kernels.dtp_lin_ho")
@@ -534,22 +543,18 @@ def _emulate_rad_fwd(plan, x, sh, h, Wrs, W_flat, n_edges, tile=32):
     return out
 
 
-def _emulate_rad_bwd(plan, x, sh, h, Wrs, W_flat, g, n_edges, bwd3=False, n_parts=3,
-                     tile=16):
-    """csrc/dtp_lin_bwd.cu's (or with ``bwd3`` csrc/dtp_lin_bwd3.cu's)
-    folded loop: w built per group, dz, the term transposes into the local
-    dw tile, and at the group's last component dh += dw Wr^T and (K7-B) the
-    block's partial rows of dW and d[Wr; offset]; ``n_parts`` persistent
-    blocks walking the tiles, their rows summed in order."""
-    gk, terms, coeffs, _, wt_index, *_ = (kho.bwd3_tables(plan, torch.device("cpu")) if bwd3
-                                          else plan.bwd_tables(torch.device("cpu")))
+def _emulate_rad_bwd3(plan, x, sh, h, Wrs, W_flat, g, n_edges, n_parts=3, tile=16):
+    """csrc/dtp_lin_bwd3.cu's folded loop (K7-B3, the first K5a design): w
+    built per group, dz, the term transposes into the local dw tile, and at
+    the group's last component dh += dw Wr^T; ``n_parts`` persistent blocks
+    walking the tiles."""
+    gk, terms, coeffs, _, wt_index, *_ = kho.bwd3_tables(plan, torch.device("cpu"))
     gk, terms, coeffs = gk.tolist(), terms.tolist(), coeffs.tolist()
     cols_loc = plan.radial_cols(torch.device("cpu"))
-    Wl, hd, n_loc = Wrs[:, cols_loc], plan.radial_fold, len(cols_loc)
+    Wl, hd = Wrs[:, cols_loc], plan.radial_fold
     WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
     E_ = x.shape[0]
     dx, dsh, dh = (torch.zeros(E_, n, dtype=x.dtype) for n in (plan.d_x, plan.d_sh, hd))
-    part = torch.zeros(n_parts, plan.w_numel + (hd + 1) * n_loc, dtype=x.dtype)
     for b in range(n_parts):
         for t in range(b, -(-E_ // tile), n_parts):
             e0 = t * tile
@@ -564,12 +569,6 @@ def _emulate_rad_bwd(plan, x, sh, h, Wrs, W_flat, g, n_edges, bwd3=False, n_part
                     dws = torch.zeros(n_live, sn, dtype=x.dtype)
                 gt = torch.zeros(n_live, cp, dtype=x.dtype)
                 gt[:, :cols] = g[rows, out_col : out_col + cols]
-                if not bwd3:
-                    z = torch.zeros(n_live, fs, dtype=x.dtype)
-                    for (a, col, _, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
-                        z[:, fc : fc + mul] += c * sh[rows, col : col + 1] \
-                            * x[rows, a : a + mul] * ws[:, bl : bl + mul]
-                    part[b, w_off : w_off + fs * cols] += (z.T @ gt[:, :cols]).reshape(-1)
                 dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
                 for (a, col, _, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
                     d = c * dz[:, fc : fc + mul]
@@ -579,14 +578,7 @@ def _emulate_rad_bwd(plan, x, sh, h, Wrs, W_flat, g, n_edges, bwd3=False, n_part
                     dsh[rows, col] += (d * xw).sum(1)
                 if last:
                     dh[rows] += dws @ Wl[:hd, sb : sb + sn].T
-                    pr = part[b, plan.w_numel :].view(hd + 1, n_loc)
-                    pr[:, sb : sb + sn] += torch.cat([hs, torch.ones_like(hs[:, :1])], 1).T @ dws
-    red = part.sum(0)
-    dWrs = torch.zeros(hd + 1, plan.d_w, dtype=x.dtype)
-    dWrs[:, cols_loc] = red[plan.w_numel :].view(hd + 1, n_loc)
-    if bwd3:
-        return dx, dsh, dh
-    return dx, dh, dWrs, red[: plan.w_numel]
+    return dx, dsh, dh
 
 
 def _kernel_inputs(case, seed=4):
@@ -599,42 +591,43 @@ def _kernel_inputs(case, seed=4):
 
 @pytest.mark.parametrize("case", list(HEADS))
 def test_rad_kernel_tables_drive_the_plain_math(case):
-    """K7-F, K7-B and K7-B3 walk DTPLinPlan.bwd_tables with each group's w
-    columns in local order; walking them in torch gives dtp_lin_rad_plain,
-    dtp_lin_rad_bwd_plain and dtp_lin_rad_bwd3_plain (1e-6: the tables'
-    fp32 CG coefficients)."""
+    """K7-F and K7-B3 walk DTPLinPlan.bwd_tables with each group's w columns
+    in local order, and K7-B K2's two launches with the fold (w built from
+    the packed Wr in both, dh on chip, dw through the workspace into the
+    d[Wr; offset] tiles, every partial element written once per range);
+    walking them in torch gives dtp_lin_rad_plain, dtp_lin_rad_bwd_plain
+    and dtp_lin_rad_bwd3_plain (1e-6: the tables' fp32 CG coefficients)."""
     plan, x, sh, h, Wrs, W, g = _kernel_inputs(case)
     n = torch.tensor(N_REAL, dtype=torch.int32)
     assert _rel(_emulate_rad_fwd(plan, x, sh, h, Wrs, W, N_REAL),
                 dtp_lin_rad_plain(plan, x, sh, h, Wrs, W, n)) < 1e-6
-    for got, want in zip(_emulate_rad_bwd(plan, x, sh, h, Wrs, W, g, N_REAL),
-                         dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, g, n)):
-        assert got.shape == want.shape and _rel(got, want) < 1e-6
-    for got, want in zip(_emulate_rad_bwd(plan, x, sh, h, Wrs, W, g, N_REAL, bwd3=True),
-                         dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, g, n)):
-        assert got.shape == want.shape and _rel(got, want) < 1e-6
+    got, writes = _emulate_k7b(plan, x, sh, h, Wrs, W, g, N_REAL)
+    assert bool((writes == 1).all())
+    for a, b in zip(got, dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, g, n)):
+        assert a.shape == b.shape and _rel(a, b) < 1e-6
+    for a, b in zip(_emulate_rad_bwd3(plan, x, sh, h, Wrs, W, g, N_REAL),
+                    dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, g, n)):
+        assert a.shape == b.shape and _rel(a, b) < 1e-6
 
 
-def _emulate_rad_leg(plan, leg, x, sh, h, Wrs, W_flat, g, n_edges, ones=True, n_parts=3,
-                     tile=16):
-    """The folded legs of csrc/dtp_lin_leg.cu (K7-L's "x", "sh", "h"; K7-Wr,
-    "Wr") and csrc/dtp_lin_legW.cu (K7-LW, "W") in torch: per tile the
-    group's w built from the local [Wr; offset] at its first component (x,
-    sh and W legs), then either the z recompute and the block's dW partial
-    row (W) or dz and the leg's term transpose, the group's dw tile
-    contracted at its last component (h: dh += dw Wr^T; Wr: the block's
-    partial rows += [h, one]^T dw); ``n_parts`` blocks walk the tiles, their
-    partial rows summed in block order."""
+def _emulate_rad_leg(plan, leg, x, sh, h, Wrs, W_flat, g, n_edges, n_parts=3, tile=16):
+    """The folded legs of csrc/dtp_lin_leg.cu (K7-L's "x", "sh", "h") and
+    csrc/dtp_lin_legW.cu (K7-LW, "W") in torch: per tile the group's w
+    built from the local [Wr; offset] at its first component (x, sh and W
+    legs), then either the z recompute and the block's dW partial row (W)
+    or dz and the leg's term transpose, the group's dw tile contracted at
+    its last component (h: dh += dw Wr^T); ``n_parts`` blocks walk the
+    tiles, the W leg's partial rows summed in block order."""
     cpu = torch.device("cpu")
     tabs = plan.bwd_tables(cpu) if leg == "W" else kho.bwd3_tables(plan, cpu)
     gk, terms, coeffs, _, wt_index, *_ = tabs
     gk, terms, coeffs = gk.tolist(), terms.tolist(), coeffs.tolist()
     cols_loc = plan.radial_cols(cpu)
-    Wl, hd, n_loc = Wrs[:, cols_loc], plan.radial_fold, len(cols_loc)
+    Wl, hd = Wrs[:, cols_loc], plan.radial_fold
     WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
     E_ = g.shape[0]
     out = torch.zeros(E_, {"x": plan.d_x, "sh": plan.d_sh, "h": hd}.get(leg, 0), dtype=g.dtype)
-    part = torch.zeros(n_parts, plan.w_numel if leg == "W" else (hd + 1) * n_loc, dtype=g.dtype)
+    part = torch.zeros(n_parts, plan.w_numel, dtype=g.dtype)
     for b in range(n_parts):
         for t in range(b, -(-E_ // tile), n_parts):
             e0 = t * tile
@@ -668,26 +661,17 @@ def _emulate_rad_leg(plan, leg, x, sh, h, Wrs, W_flat, g, n_edges, ones=True, n_
                         dws[:, bl : bl + mul] += sh[rows, col : col + 1] * d * x[rows, a : a + mul]
                 if last and leg == "h":
                     out[rows] += dws @ Wl[:hd, sb : sb + sn].T
-                if last and leg == "Wr":
-                    hx = torch.cat([h[rows], torch.full_like(h[rows, :1], float(ones))], 1)
-                    part[b].view(hd + 1, n_loc)[:, sb : sb + sn] += hx.T @ dws
     if leg in ("x", "sh", "h"):
         return out
-    red = part[0].clone()
-    for b in range(1, n_parts):
-        red += part[b]
-    if leg == "W":
-        return red
-    dWrs = torch.zeros(hd + 1, plan.d_w, dtype=g.dtype)
-    dWrs[:, cols_loc] = red.view(hd + 1, n_loc)
-    return dWrs
+    return _sum_rows(part)
 
 
 @pytest.mark.parametrize("case", list(HEADS))
 def test_rad_leg_kernel_tables_drive_the_plain_math(case):
-    """K7-L (x, sh, h legs), K7-LW and K7-Wr (h's ones column 1 and 0) walk
-    the tables with each group's w and dw in local columns; walking them in
-    torch gives dtp_lin_rad_leg_plain, dtp_lin_rad_legW_plain and
+    """K7-L (x, sh, h legs) and K7-LW walk the tables with each group's w
+    and dw in local columns, K7-Wr (h's ones column 1 and 0) K5b's w leg on
+    K2's launch 1 and the d[Wr; offset] tiles over its edge ranges; walking
+    them in torch gives dtp_lin_rad_leg_plain, dtp_lin_rad_legW_plain and
     dtp_lin_rad_legWr_plain (1e-6: the tables' fp32 CG coefficients), with
     padded rows past n_edges."""
     from equiformer_tpu_torch.kernels import (
@@ -705,9 +689,67 @@ def test_rad_leg_kernel_tables_drive_the_plain_math(case):
     assert _rel(_emulate_rad_leg(plan, "W", x, sh, h, Wrs, W, g, N_REAL), want) < 1e-6
     for ones in (True, False):
         want = dtp_lin_rad_legWr_plain(plan, g, x, sh, h, W, n, ones)
-        got = _emulate_rad_leg(plan, "Wr", x, sh, h, Wrs, W, g, N_REAL, ones)
+        got = _emulate_k7wr(plan, g, x, sh, h, W, N_REAL, ones)
         assert got.shape == want.shape and _rel(got, want) < 1e-6
         assert (float(got[-1].abs().max()) == 0.0) == (not ones)
+
+
+# the fold's full-width plans (hd 64): the QM9 flagship's sep_act (two heads)
+# and edge degree, MD17 exp_l3's sep_act
+K7_PLANS = {
+    "qm9-sep_act": ("128x0e+64x1e+32x2e", SH, ["224x0e+64x1e+32x2e", "128x0e"]),
+    "qm9-edge_deg": ("128x0e+64x1e+32x2e", SH, ["128x0e+64x1e+32x2e"]),
+    "md17-sep_act": ("128x0e+64x1e+64x2e+32x3e", "1x0e+1x1e+1x2e+1x3e",
+                     ["288x0e+64x1e+64x2e+32x3e", "128x0e"]),
+}
+
+
+def _k7_plan(site):
+    irr, sh_irr, heads = K7_PLANS[site]
+    return DTPLinPlan(depthwise_tp(Irreps(irr), Irreps(sh_irr), Irreps(irr)), heads,
+                      radial_fold=64)
+
+
+@pytest.mark.parametrize("n_ranges", [1, 2, 3])
+@pytest.mark.parametrize("ones", [True, False])
+@pytest.mark.parametrize("site", list(K7_PLANS))
+def test_k7_contraction_matches_radial_dWrs_plain(site, ones, n_ranges):
+    """The d[Wr; offset] tiles that K7-B's launch 2 and K7-Wr share
+    (k2::dWr_body), walked in torch over edge ranges of whole 16-edge steps
+    (64 in the kernel) and summed in range order, give radial_dWrs_plain in
+    fp64 within 1e-6 at the fold's full-width plans, with h's ones column 1
+    and 0: 37 edges of which 29 are real, each partial element written once
+    per range, and rows past n_edges (NaN here) adding exactly 0."""
+    plan = _k7_plan(site)
+    rng = np.random.default_rng(11)
+    h, dw = _t(rng.normal(size=(37, 64))), _t(rng.normal(size=(37, plan.d_w)))
+    range_len = -(-37 // n_ranges // 16) * 16
+    assert -(-37 // range_len) == n_ranges
+    part, writes = _k7_wr_partials(plan, h, dw, 29, ones, range_len, step=16)
+    assert part.shape[0] == n_ranges and bool((writes == 1).all())
+    got = _k7_dWrs(plan, _sum_rows(part))
+    want = radial_dWrs_plain(h, dw, torch.tensor(29, dtype=torch.int32), ones)
+    assert _rel(got, want) < 1e-6
+    assert (float(got[-1].abs().max()) == 0.0) == (not ones)
+    h[29:], dw[29:] = float("nan"), float("nan")
+    again = _k7_dWrs(plan, _sum_rows(_k7_wr_partials(plan, h, dw, 29, ones, range_len, step=16)[0]))
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("site", list(K7_PLANS) + ["dead-w-cols"])
+def test_k7_packed_Wr_unpacks_to_each_group(site):
+    """The fold's packings of [Wr; offset] for K7-B (DTPLinPlan.k7_tables),
+    unpacked by the mma fragment layout, are each group's columns of Wr in
+    local order, for the w build (K = hd, N = span) and for dh (K = span, N
+    = hd); the plan's fan order is its local w order."""
+    plan = _plan(HEADS["dead-w-cols"]) if site == "dead-w-cols" else _k7_plan(site)
+    Wrs = _t(np.random.default_rng(12).normal(size=(plan.radial_fold + 1, plan.d_w)))
+    Wl, packs = _k7_packs(plan, Wrs)
+    gk = plan.k2_tables(torch.device("cpu")).gk.tolist()
+    assert sorted(packs) == [q for q, r in enumerate(gk) if r[10]]
+    for q, (pw, pd) in packs.items():
+        sb, sn = gk[q][8], gk[q][9]
+        assert torch.equal(pw, Wl[:-1, sb : sb + sn]) and torch.equal(pd, Wl[:-1, sb : sb + sn])
 
 
 def test_ctypes_signatures_match_the_c_entry_points():
