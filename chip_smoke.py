@@ -123,8 +123,8 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    tolerances of phase 3, timed the same way, each beside the unfolded pair
    on the same inputs (cuBLAS ``h @ Wr + offset`` then K5b or K5c; K5b's w
    leg then cuBLAS ``dw Wr^T`` or ``[h, 1]^T dw``), with their bounds and
-   resident blocks per SM (K7-Wr runs on K2's launches: K5b's w leg, then
-   the d[Wr; offset] tiles).
+   resident blocks per SM (K7-LW and K7-Wr run on K2's launches: K5c's dW
+   tiles with w rebuilt from h; K5b's w leg, then the d[Wr; offset] tiles).
 10d. fold md17 train — phase 9 with ``radial_fold`` and ``radial_fold_ho``
    (18 K1 + 27 K7-F, 6 K5a + 14 K7-B3, 12 K5b + 27 K7-L, 18 K5c + 27 K7-LW,
    27 K7-Wr, 38 K3 per step; FOLD_TIMED_STEPS timed steps; peak memory
@@ -158,7 +158,8 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    ~3e-2 of the largest value on either route).
 
 14. K8 kernels — the kron-basis op's K8-F (``dtp_lin_kron_fwd``) and K8-B
-   (``dtp_lin_kron_bwd``: dx, dw and dG) at the QM9 flagship's three sites
+   (``dtp_lin_kron_bwd``: dx, dw and dG on K2's two launches over the kron
+   tables) at the QM9 flagship's three sites
    (batch 0 of phase 2, n_edges below E), float32 and bfloat16, against their
    plain versions with the tolerances of phase 3 (out, dx, dw, dG), timed the
    same way, each beside K1 or K2 on the same inputs (the same function on
@@ -256,10 +257,10 @@ SOURCES = {
     "dtp_lin_rad_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
     "dtp_lin_rad_leg": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
-    "dtp_lin_rad_legW": "equiformer_tpu_torch/csrc/dtp_lin_legW.cu",
+    "dtp_lin_rad_legW": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_legWr": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_kron_fwd": "equiformer_tpu_torch/csrc/dtp_lin_kron.cu",
-    "dtp_lin_kron_bwd": "equiformer_tpu_torch/csrc/dtp_lin_kron.cu",
+    "dtp_lin_kron_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_t": "equiformer_tpu_torch/csrc/dtp_t.cu",
     "dtp_r": "equiformer_tpu_torch/csrc/dtp_r.cu",
     "dtp_fused_bwd": "equiformer_tpu_torch/csrc/dtp_fused_bwd.cu",
@@ -1538,7 +1539,7 @@ def k7_leg_kernel_phase(torch, sites, dev, records):
                 nbytes = sum(v for key, v in op_bytes.items() if key != leg) + written[leg]
                 record(records, kernel, f"md17-{site}-{leg}", dt_name, shape, [rel_err(k, p)], ms,
                        plain_ms, nbytes, ops, pair_ms=pair_ms)
-                if leg == "Wr":  # K5b's w leg, then the d[Wr; offset] tiles
+                if leg in ("W", "Wr"):  # K5c's dW tiles; K5b's w leg and the d[Wr; offset] tiles
                     print(f"{kernel} {leg} {site} {dt_name}: runs on K2's launches, as the "
                           "unfolded leg does")
                     continue

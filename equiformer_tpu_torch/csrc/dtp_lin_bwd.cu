@@ -149,6 +149,15 @@
 // - K7-Wr (dtp_lin_rad_legWr): K5b's w leg (k2::edge_leg_kernel<T, kLegW>,
 //   the instantiation K5b runs) writes dw [E, d_w] in T to a workspace;
 //   the d[Wr; offset] tiles alone (k2::Wr_leg_kernel) and the row sum.
+// - K7-LW (dtp_lin_rad_legW; replaces the radial branch of
+//   dtp_lin_ho.py's _W_leg_kernel :402-449, h :415, _radial_w_fill
+//   :439-440): K7-B's launch 2 without the d[Wr; offset] tiles
+//   (k2::rad_W_leg_kernel: K5c's dW tiles with each step's w fan slice
+//   rebuilt from h on mma.sync, the offset read from Wl's row hd, which the
+//   caller zeroes when h's slot holds a tangent) and the row sum; its fp32
+//   dW product split by masking (7% off the conversion split at MD17's
+//   sep_act: 0.72 ms against 0.78; the first design, csrc/dtp_lin_legW.cu,
+//   CUDA cores with a device-memory partial per tile, 2.6 ms).
 // What bounds them: K2's and K5b's work plus three products of [E, hd + 1]
 // by [hd + 1, d_w] (the w build, dh, d[Wr; offset]) and the rebuild of w
 // in launch 2 (~2.2 more at QM9: each fan slice is rebuilt for every
@@ -167,6 +176,33 @@
 // 2 stops its ranges at *n_edges, so they add nothing to either partial;
 // ``one`` is 1 for the primal h, 0 when h's slot holds a tangent or a
 // cotangent (the offset row is then 0).
+//
+// The kron route's backward (K8-B, dtp_lin_kron_bwd; replaces
+// equiformer_tpu/kernels/dtp_lin_kron.py, _bwd_kernel :231, built by
+// bwd_call :431) is K2's two launches on other tables (KronMeta.bwd_tables,
+// kernels/dtp_lin_kron.py), under kernel names of their own
+// (k2::kron_dxdw_kernel, k2::kron_dG_kernel).  In the kron basis
+//   out[e, out_col(g,k) + c] = sum_r Kop[e, r] G[r, c],
+//   Kop[e, r] = sh[e, col_r] x[e, xi_r] w[e, wi_r],
+// r over the rows of (g, k)'s block of G, the CG coefficients folded into G.
+// That is K2's function with each (g, k) a group of one component whose
+// fan is its Kop rows and whose W is its block of G, and with each CG
+// triple a term of coefficient 1 whose fan column is its first Kop row: so
+// launch 1 computes dkop = g G^T on the tensor cores (each (g, k)'s G^T in
+// fragment order, packed by one gather a call) and the triples' transposes
+// into dx and dw, and launch 2 dG = Kop^T g per (64 Kop rows x 128 columns)
+// tile of one (g, k) and edge range, Kop rebuilt per 64-edge step, one fp32
+// partial row per range and the fixed-order row sum.  A 128-column (g, k)
+// builds its Kop slice once a step.  Both fp32 products split by masking
+// (13% off the conversion split at the QM9 flagship's sep_act), launch 2 at
+// three blocks an SM.  What bounds it: 4 operations per G element and real
+// edge (2.17x K2's products at the QM9 flagship's sep_act: 453,632
+// multiply-adds an edge against 208,896) against ~12 KB of operands an
+// edge, so fp32 by operations, bf16 by bytes (0.914 / 0.074 ms at QM9
+// sep_act); on an H100 it took 4.47-4.53 / 3.26-3.27 ms there (launch 1
+// 2.08-2.13 / 1.50, launch 2 2.39 / 1.76), K2 on the same inputs 4.14 /
+// 3.06.  The first design (csrc/dtp_lin_kron.cu) ran both products on the
+// fp32 CUDA cores and read G^T through a transposed copy: 8.2 / 7.9 ms.
 //
 // The staged variant (S3, dtp_lin_bwd_stage; replaces scripts/bwd_attr.py's
 // kernels, build(stage)): kStage cuts K2 after one of its phases (k2::
@@ -454,7 +490,10 @@ __device__ __forceinline__ void group_rows(const int* __restrict__ gk, int n_gk,
 // pass one thread per (row, column) adds its column's slots in term order;
 // cut in more than one split, dsh goes to part_sh [n_split, E, d_sh].  With
 // kXg K5a reads x through L2 (its fp32 tile does not fit beside the rest).
-template <typename T, int kStage, int kLeg, bool kXg = false, int kNeed = kNeedAll>
+// kMask: the fp32 dz product's 3xTF32 split by masking (mma_fold; K8-B),
+// else by conversion (mma16n; K2 and the instantiations that share its code).
+template <typename T, int kStage, int kLeg, bool kXg = false, int kNeed = kNeedAll,
+          bool kMask = false>
 __device__ __forceinline__ void dxdw_body(
     const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh, int d_sh,
     const T* __restrict__ w, int d_w, const T* __restrict__ Wp, const T* __restrict__ G,
@@ -673,7 +712,10 @@ __device__ __forceinline__ void dxdw_body(
                 b[i][1][0] = v.z;
                 b[i][1][1] = v.w;
               }
-            mma16n<T, kNT>(acc, a, b, n_mine);
+            if constexpr (kMask)
+              mma_fold<T, kNT>(acc, a, b, n_mine);
+            else
+              mma16n<T, kNT>(acc, a, b, n_mine);
           } else {
             const uint32_t* g32 = reinterpret_cast<const uint32_t*>(s_g);
             const uint32_t a[4] = {g32[(gq * ldg + c0) / 2], g32[((gq + 8) * ldg + c0) / 2],
@@ -956,6 +998,12 @@ __global__ void __launch_bounds__(kThreads1, 1) dxdw_kernel(EQT_K2_DXDW_PARAMS) 
   dxdw_body<T, kStage, kDxDw>(EQT_K2_DXDW_ARGS, nullptr);
 }
 
+// K8-B's launch 1 (dx, dw): K2's on the kron tables, under its own name
+template <typename T>
+__global__ void __launch_bounds__(kThreads1, 1) kron_dxdw_kernel(EQT_K2_DXDW_PARAMS) {
+  dxdw_body<T, kFullStage, kDxDw, false, kNeedAll, true>(EQT_K2_DXDW_ARGS, nullptr);
+}
+
 // K5b: the x leg (x null, dw null) or the w leg (w null, dx null), grid
 // (tiles, splits)
 template <typename T, int kLeg>
@@ -1055,7 +1103,9 @@ __host__ __device__ inline int smem2(int d_sh, bool rad) {
          (rad ? kEdges2 * kLdw2 * (int)sizeof(T) : 0);
 }
 
-template <typename T, int kStage, bool kRad = false>
+// kMask: the fp32 dW product's 3xTF32 split by masking (mma_fold; K8-B,
+// K7-LW), else by conversion (mma16n; K2, K5c, K7-B)
+template <typename T, int kStage, bool kRad = false, bool kMask = false>
 __device__ __forceinline__ void dW_body(EQT_K2_DW_PARAMS, const RadOps* rad = nullptr) {
   constexpr int V = kVec<T>;
   extern __shared__ float4 smem4[];
@@ -1219,7 +1269,10 @@ __device__ __forceinline__ void dW_body(EQT_K2_DW_PARAMS, const RadOps* rad = nu
                     b[i][s][0] = g0[0];
                     b[i][s][1] = g0[kLdg2];
                   }
-              mma16n<T, 4>(acc[h], a, b, n_h);
+              if constexpr (kMask)
+                mma_fold<T, 4>(acc[h], a, b, n_h);
+              else
+                mma16n<T, 4>(acc[h], a, b, n_h);
             }
           }
         }
@@ -1259,6 +1312,14 @@ __global__ void __launch_bounds__(kThreads2) dW_kernel(EQT_K2_DW_PARAMS) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads2, 3) W_leg_kernel(EQT_K2_DW_PARAMS) {
   dW_body<T, kFullStage>(EQT_K2_DW_ARGS);
+}
+
+// K8-B's launch 2 (dG): K2's dW tiles on the kron tables, under its own
+// name; three blocks an SM (80 registers, ~400 bytes of spills in fp32)
+// took 5-6% off two at the QM9 flagship's sep_act and edge degree
+template <typename T>
+__global__ void __launch_bounds__(kThreads2, 3) kron_dG_kernel(EQT_K2_DW_PARAMS) {
+  dW_body<T, kFullStage, false, true>(EQT_K2_DW_ARGS);
 }
 
 // d[Wr; offset] tile t (rows j0 = 64 (t / column tiles) + [0, 64) of hd,
@@ -1383,6 +1444,15 @@ __global__ void __launch_bounds__(kThreads2, 2) rad_dW_kernel(EQT_K2_DW_PARAMS, 
     dWr_body<T>(rad, n_edges_ptr, E, d_w, part, range_len, blockIdx.x - rad.n_dw_tiles);
 }
 
+// K7-LW: K7-B's launch 2 without the d[Wr; offset] tiles, under its own
+// name; two blocks an SM (at most 128 registers), as rad_dW_kernel: three
+// (K5c's) took 12% more in fp32 at MD17's sep_act and the same in bf16
+template <typename T>
+__global__ void __launch_bounds__(kThreads2, 2)
+rad_W_leg_kernel(EQT_K2_DW_PARAMS, const RadOps rad) {
+  dW_body<T, kFullStage, true, true>(EQT_K2_DW_ARGS, &rad);
+}
+
 // K7-Wr: the d[Wr; offset] tiles alone, on K5b's w leg's dw
 template <typename T>
 __global__ void __launch_bounds__(kThreads2)
@@ -1399,14 +1469,16 @@ struct Args {
   void *dx, *dw, *part, *dW;
 };
 
-template <typename T, int kStage1>
+// K2's launch 1 (S3: cut after phase kStage1), or with kKron K8-B's
+template <typename T, int kStage1, bool kKron = false>
 int launch1(const Args& a, cudaStream_t stream) {
   const Layout1 L =
       layout1<T>(a.d_x, a.d_sh, a.span_max, a.cp_max, a.fd_max, a.w != nullptr, a.sx != 0);
-  cudaError_t err = cudaFuncSetAttribute(dxdw_kernel<T, kStage1>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  const auto kernel = kKron ? &kron_dxdw_kernel<T> : &dxdw_kernel<T, kStage1>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return (int)err;
-  dxdw_kernel<T, kStage1><<<(a.E + kTile - 1) / kTile, kThreads1, L.total, stream>>>(
+  kernel<<<(a.E + kTile - 1) / kTile, kThreads1, L.total, stream>>>(
       static_cast<const T*>(a.x), a.sx, a.d_x, static_cast<const T*>(a.sh), a.d_sh,
       static_cast<const T*>(a.w), a.d_w, static_cast<const T*>(a.Wp),
       static_cast<const T*>(a.G), a.d_out, static_cast<const int*>(a.n_edges), a.E,
@@ -1577,12 +1649,17 @@ int occupancy_bwd3(const Args& a, const DshArgs& d) {
   return -(int)cudaErrorInvalidValue;
 }
 
-// launch 2 and the row sum: K2's (S3: cut after phase kStage2), or with
-// kWLeg K5c's own kernel
-template <typename T, int kStage2, bool kWLeg = false>
+// the kernel of a launch 2: K2's (S3: cut after phase kStage2), K5c's or
+// K8-B's, each under its own name
+enum Dw2 : int { kDwK2 = 0, kDwLegW = 1, kDwKron = 2 };
+
+// launch 2 and the row sum
+template <typename T, int kStage2, int kKind = kDwK2>
 int launch2(const Args& a, cudaStream_t stream) {
   const int smem = (kEdges2 * (kLdz2 + kLdg2) + kEdges2 * a.d_sh) * (int)sizeof(float);
-  const auto kernel = kWLeg ? &W_leg_kernel<T> : &dW_kernel<T, kStage2>;
+  const auto kernel = kKind == kDwLegW   ? &W_leg_kernel<T>
+                      : kKind == kDwKron ? &kron_dG_kernel<T>
+                                         : &dW_kernel<T, kStage2>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1650,8 +1727,24 @@ int run_leg(int leg, int n_split, const Args& a, int dtype, void* stream) {
 int run_legW(const Args& a, int dtype, void* stream) {
   if (!ranges_ok(a)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == eqt::kFloat32) return launch2<float, kFullStage, true>(a, s);
-  if (dtype == eqt::kBFloat16) return launch2<__nv_bfloat16, kFullStage, true>(a, s);
+  if (dtype == eqt::kFloat32) return launch2<float, kFullStage, kDwLegW>(a, s);
+  if (dtype == eqt::kBFloat16) return launch2<__nv_bfloat16, kFullStage, kDwLegW>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K8-B: K2's two launches and the row sum on the kron tables
+template <typename T>
+int launch_kron(const Args& a, cudaStream_t stream) {
+  const int err = launch1<T, kFullStage, true>(a, stream);
+  return err != 0 ? err : launch2<T, kFullStage, kDwKron>(a, stream);
+}
+
+int run_kron(const Args& a, int dtype, void* stream) {
+  if (!ranges_ok(a) || a.dx == nullptr || (a.w == nullptr) != (a.dw == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32) return launch_kron<float>(a, s);
+  if (dtype == eqt::kBFloat16) return launch_kron<__nv_bfloat16>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1720,13 +1813,54 @@ int launch_legWr(const Args& a, RadOps r, int n_split, cudaStream_t stream) {
                                     static_cast<float*>(a.dW), stream);
 }
 
-// the fold's operands: h with hd a positive multiple of 4 whose staged
-// slice fits launch 2's G buffer, the dw workspace, the partials
+// K7-LW: the w-rebuilding dW tiles alone (partial rows [w_numel] per
+// range), the row sum into a.dW
+template <typename T>
+int launch_legW_rad(const Args& a, RadOps r, cudaStream_t stream) {
+  r.part_ld = a.w_numel;
+  const int smem = smem2<T>(a.d_sh, true);
+  cudaError_t err = cudaFuncSetAttribute(rad_W_leg_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  rad_W_leg_kernel<T><<<dim3(a.n_tiles, a.n_ranges), kThreads2, smem, stream>>>(
+      static_cast<const T*>(a.x), a.sx, static_cast<const T*>(a.sh), a.d_sh, nullptr, a.d_w,
+      static_cast<const T*>(a.G), a.d_out, static_cast<const int*>(a.n_edges), a.E,
+      static_cast<const int*>(a.gk), static_cast<const int*>(a.tiles),
+      static_cast<const int*>(a.terms), static_cast<const float*>(a.coeffs),
+      static_cast<float*>(a.part), a.w_numel, a.range_len, r);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)eqt::sum_partial_rows(static_cast<const float*>(a.part), a.n_ranges, a.w_numel,
+                                    static_cast<float*>(a.dW), stream);
+}
+
+// h with hd a positive multiple of 4 whose staged slice fits launch 2's G
+// buffer, and [Wr; offset] of n_loc local columns
+template <typename T>
+bool rad_h_ok(const RadOps& r) {
+  return r.h != nullptr && r.hd > 0 && r.hd % 4 == 0 && r.n_loc > 0 &&
+         ld_h<T>(r.hd) * (int)sizeof(T) <= kLdg2 * 4;
+}
+
+// the fold's operands: h and [Wr; offset] (rad_h_ok), the dw workspace, the
+// partials
 template <typename T>
 bool rad_ok(const Args& a, const RadOps& r) {
-  return r.h != nullptr && r.hd > 0 && r.hd % 4 == 0 && r.n_loc > 0 &&
-         a.dw != nullptr && a.dwmap != nullptr && a.part != nullptr && a.dW != nullptr &&
-         ld_h<T>(r.hd) * (int)sizeof(T) <= kLdg2 * 4;
+  return rad_h_ok<T>(r) && a.dw != nullptr && a.dwmap != nullptr && a.part != nullptr &&
+         a.dW != nullptr;
+}
+
+int run_legW_rad(const Args& a, const RadOps& r, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (!ranges_ok(a) || a.x == nullptr || a.w != nullptr || a.part == nullptr ||
+      a.dW == nullptr || r.Wl == nullptr || r.pk == nullptr || r.rgk == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == eqt::kFloat32)
+    return rad_h_ok<float>(r) ? launch_legW_rad<float>(a, r, s) : (int)cudaErrorInvalidValue;
+  if (dtype == eqt::kBFloat16)
+    return rad_h_ok<__nv_bfloat16>(r) ? launch_legW_rad<__nv_bfloat16>(a, r, s)
+                                      : (int)cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;
 }
 
 int run_rad(const Args& a, const RadOps& r, int dtype, void* stream) {
@@ -1917,6 +2051,50 @@ extern "C" int dtp_lin_legW(const void* x, long long sx, int d_x, const void* sh
                    d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
                    n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
   return k2::run_legW(a, dtype, stream);
+}
+
+// K7-LW: dW [w_numel] fp32 of the radial-folded head-weight leg F_W(G, x,
+// sh, h, [Wr; offset]) on dtp_lin_bwd's arguments (w null: w = [h, 1] @
+// [Wr; offset] is rebuilt on chip; Wp, dwmap, dx, dw, span_max and fd_max
+// unused; part [n_ranges, w_numel]), then h [E, hd], hd, Wl [hd + 1, n_loc]
+// ([Wr; offset] in local column order: the offset is read from its row hd,
+// 0 when h's slot holds a tangent), n_loc, pk and rgk (DTPLinPlan.k7_tables).
+extern "C" int dtp_lin_rad_legW(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                                const void* w, int d_w, const void* Wp, const void* G, int d_out,
+                                const void* n_edges, int E, const void* gk, int n_gk,
+                                const void* terms, const void* coeffs, const void* dwmap,
+                                void* dx, void* dw, int span_max, int cp_max, int fd_max,
+                                const void* tiles, int n_tiles, void* part, int n_ranges,
+                                int range_len, void* dW, int w_numel, const void* h, int hd,
+                                const void* Wl, int n_loc, const void* pk, const void* rgk,
+                                int dtype, void* stream) {
+  const k2::Args a{x,      sh,     w,        Wp,       G,      n_edges,   gk,
+                   terms,  coeffs, dwmap,    tiles,    sx,     d_x,       d_sh,
+                   d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
+                   n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
+  k2::RadOps r{};
+  r.h = h; r.hd = hd; r.Wl = Wl; r.n_loc = n_loc; r.pk = pk;
+  r.rgk = static_cast<const int*>(rgk);
+  return k2::run_legW_rad(a, r, dtype, stream);
+}
+
+// K8-B: dx [E, d_x], dw [E, d_w] (w and dw null when a shared w is folded
+// into G) and dG [numel] fp32 for the cotangent g of dtp_lin_kron_fwd, on
+// dtp_lin_bwd's arguments over KronMeta.bwd_tables: Wp each (g, k)'s G^T
+// packed in fragment order, gk / terms / coeffs / tiles the kron tables in
+// K2's layout, w_numel the numel of G, part [n_ranges, numel].
+extern "C" int dtp_lin_kron_bwd(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                                const void* w, int d_w, const void* Wp, const void* G, int d_out,
+                                const void* n_edges, int E, const void* gk, int n_gk,
+                                const void* terms, const void* coeffs, const void* dwmap,
+                                void* dx, void* dw, int span_max, int cp_max, int fd_max,
+                                const void* tiles, int n_tiles, void* part, int n_ranges,
+                                int range_len, void* dW, int w_numel, int dtype, void* stream) {
+  const k2::Args a{x,      sh,     w,        Wp,       G,      n_edges,   gk,
+                   terms,  coeffs, dwmap,    tiles,    sx,     d_x,       d_sh,
+                   d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
+                   n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
+  return k2::run_kron(a, dtype, stream);
 }
 
 // K5a (leg 4) and K5b's sh leg (leg 1) on dtp_lin_bwd's arguments (tiles,

@@ -1,14 +1,13 @@
 // The radial fold of the fused DTP kernels (K7): the pieces that the folded
-// variants of K1 (csrc/dtp_lin.cu), K5a (csrc/dtp_lin_bwd3.cu), K5b
-// (csrc/dtp_lin_leg.cu) and K5c (csrc/dtp_lin_legW.cu) of the first
-// designs add to their bodies (K7-B and K7-Wr run on K2's launches,
-// csrc/dtp_lin_bwd.cu, with their products on the tensor cores).
+// variants of K1 (csrc/dtp_lin.cu), K5a (csrc/dtp_lin_bwd3.cu) and K5b
+// (csrc/dtp_lin_leg.cu) of the first designs add to their bodies (K7-B,
+// K7-Wr and K7-LW run on K2's launches, csrc/dtp_lin_bwd.cu, with their
+// products on the tensor cores).
 //
 // Replaces: equiformer_tpu/kernels/dtp_lin_pallas.py, _radial_h_packed /
 // _radial_w_fill (w built in the kernel); the dh output of
 // equiformer_tpu/kernels/dtp_lin_ho.py's _bwd3_kernel, and the w rebuild
-// and dh of its leg kernels (_edge_leg_kernel_rad, the radial branch of
-// _W_leg_kernel).
+// and dh of its leg kernel _edge_leg_kernel_rad.
 //
 // With the fold, a kernel's per-edge operand is the radial MLP's last hidden
 // activation h [E, hd] instead of the TP weights w [E, d_w], and

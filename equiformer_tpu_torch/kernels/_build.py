@@ -101,29 +101,28 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
+# K2's arguments (csrc/dtp_lin_bwd.cu, k2::Args), which every entry on its
+# launches takes first: x, x_row_stride, d_x, sh, d_sh, w, d_w, packed W,
+# g, d_out, n_edges*, E, gk table (k2_tables'), n_gk, terms, coeffs, dwmap,
+# dx, dw, span_max, cp_max, fd_max, dW tiles, n_tiles, dW partials,
+# n_ranges, range_len, dW, w_numel
+_K2 = [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP, _VP, _VP, _VP,
+       _I, _I, _I, _VP, _I, _VP, _I, _I, _VP, _I]
+
 _SIGNATURES = {
     # K1: x, x_row_stride, d_x, sh, d_sh, w, d_w, packed W, out, d_out,
     # n_edges*, E, gk table (k1_tables'), groups, n_groups, runs, terms,
     # coeffs, fz_max, tile (32 or 16), vec (4 or 1), dtype, stream
     "dtp_lin_fwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
                     _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    # K2: x, x_row_stride, d_x, sh, d_sh, w, d_w, packed W, g, d_out, n_edges*,
-    # E, gk table (k2_tables'), n_gk, terms, coeffs, dwmap, dx, dw, span_max,
-    # cp_max, fd_max, dW tiles, n_tiles, dW partials, n_ranges, range_len, dW,
-    # w_numel, dtype, stream
-    "dtp_lin_bwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
-                    _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                    _VP, _I, _VP, _I, _I, _VP, _I, _I, _VP],
-    # S3: dtp_lin_bwd's arguments, then the stage (0-6) before the dtype
-    "dtp_lin_bwd_stage": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
-                          _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                          _VP, _I, _VP, _I, _I, _VP, _I, _I, _I, _VP],
-    # K5a and K5b's sh leg: dtp_lin_bwd's arguments, then dsh, its split
-    # partials, the dsh slots a row, the leg (4 K5a, 1 sh) and the
-    # irrep-group splits of a tile before the dtype
-    "dtp_lin_bwd3": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
-                     _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                     _VP, _I, _VP, _I, _I, _VP, _I, _VP, _VP, _I, _I, _I, _I, _VP],
+    # K2: K2's arguments, dtype, stream
+    "dtp_lin_bwd": _K2 + [_I, _VP],
+    # S3: K2's arguments, then the stage (0-6) before the dtype
+    "dtp_lin_bwd_stage": _K2 + [_I, _I, _VP],
+    # K5a and K5b's sh leg: K2's arguments, then dsh, its split partials,
+    # the dsh slots a row, the leg (4 K5a, 1 sh) and the irrep-group splits
+    # of a tile before the dtype
+    "dtp_lin_bwd3": _K2 + [_VP, _VP, _I, _I, _I, _I, _VP],
     # leg (4 K5a, 1 sh), d_x, d_sh, span_max, cp_max, fd_max, has_w, x rows
     # (0 broadcast), need (1 dx, 2 dsh, 4 dw), dsh slots, dtype
     # -> resident blocks per SM (or -cudaError_t)
@@ -137,27 +136,23 @@ _SIGNATURES = {
     # span_max, dtype, stream
     "dtp_lin_rad_fwd": [_VP, _LL, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _I,
                         _VP, _I, _VP, _I, _I, _I, _VP],
-    # K7-B: dtp_lin_bwd's arguments (w null, dw the workspace, dW ++ d[Wr;
-    # offset]), then h, hd, Wl, n_loc, the packed Wr (k7_tables), its gk
-    # offsets, dh before the dtype
-    "dtp_lin_rad_bwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
-                        _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                        _VP, _I, _VP, _I, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _VP, _VP,
-                        _I, _VP],
+    # K7-B: K2's arguments (w null, dw the workspace, dW ++ d[Wr; offset]),
+    # then h, hd, Wl, n_loc, the packed Wr (k7_tables), its gk offsets, dh
+    # before the dtype
+    "dtp_lin_rad_bwd": _K2 + [_VP, _I, _VP, _I, _VP, _VP, _VP, _I, _VP],
+    # K7-LW: K2's arguments (w null), then h, hd, Wl, n_loc, the packed Wr
+    # (k7_tables) and its gk offsets before the dtype
+    "dtp_lin_rad_legW": _K2 + [_VP, _I, _VP, _I, _VP, _VP, _I, _VP],
     # K7-B3: x, x_row_stride, d_x, sh, d_sh, W^T, g, d_out, n_edges*, E, gk
     # table, n_gk, terms, coeffs, dx, dsh (each may be null), span_max,
     # cols_pad_max, max_fan_stride, h, hd, Wl, n_loc, dh, dtype, stream
     "dtp_lin_rad_bwd3": [_VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
                          _VP, _VP, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I, _VP],
-    # K5b's x and w legs: dtp_lin_bwd's arguments, then the leg (0 x, 2 w) and
-    # the irrep-group splits of a tile before the dtype
-    "dtp_lin_edge_leg": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
-                         _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                         _VP, _I, _VP, _I, _I, _VP, _I, _I, _I, _I, _VP],
-    # K5c: dtp_lin_bwd's arguments
-    "dtp_lin_legW": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
-                     _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                     _VP, _I, _VP, _I, _I, _VP, _I, _I, _VP],
+    # K5b's x and w legs: K2's arguments, then the leg (0 x, 2 w) and the
+    # irrep-group splits of a tile before the dtype
+    "dtp_lin_edge_leg": _K2 + [_I, _I, _I, _VP],
+    # K5c: K2's arguments
+    "dtp_lin_legW": _K2 + [_I, _VP],
     # K7-L: leg (0 x, 1 sh, 3 h), d_x, d_sh, span_max,
     # cols_pad_max, max_fan_stride, hd (> 0), dtype
     # -> resident blocks per SM (or -cudaError_t)
@@ -167,20 +162,10 @@ _SIGNATURES = {
     # cols_pad_max, max_fan_stride, h, hd, Wl, n_loc, dtype, stream
     "dtp_lin_rad_leg": [_I, _VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
                         _VP, _I, _I, _I, _VP, _I, _VP, _I, _I, _VP],
-    # K7-Wr: dtp_lin_bwd's arguments (w and dx null, dw the workspace, dW
-    # the d[Wr; offset]), then h, hd, n_loc, one (0 or 1) and the w leg's
-    # irrep-group splits before the dtype
-    "dtp_lin_rad_legWr": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
-                          _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                          _VP, _I, _VP, _I, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP],
-    # K7-LW: x, x_row_stride, sh, d_sh, g, d_out, n_edges*, E, gk table, n_gk,
-    # terms, coeffs, dW partials, n_parts, dW, w_numel, cols_pad_max,
-    # max_fan_stride, span_max, h, hd, Wl, n_loc, dtype, stream
-    "dtp_lin_rad_legW": [_VP, _LL, _VP, _I, _VP, _I, _VP, _I, _VP, _I, _VP, _VP, _VP, _I,
-                         _VP, _I, _I, _I, _I, _VP, _I, _VP, _I, _I, _VP],
-    # K7-LW: cols_pad_max, max_fan_stride, span_max, hd, dtype
-    # -> resident blocks per SM (or -cudaError_t)
-    "dtp_lin_legW_occupancy": [_I, _I, _I, _I, _I],
+    # K7-Wr: K2's arguments (w and dx null, dw the workspace, dW the d[Wr;
+    # offset]), then h, hd, n_loc, one (0 or 1) and the w leg's irrep-group
+    # splits before the dtype
+    "dtp_lin_rad_legWr": _K2 + [_VP, _I, _I, _I, _I, _I, _VP],
     # a, a_row_stride, col, d_col, b, b_row_stride, out, d_out, E, segments,
     # n_seg, terms, coeffs, dtype, stream
     "dtp_t": [_VP, _LL, _VP, _I, _VP, _LL, _VP, _I, _I, _VP, _I, _VP, _VP, _I, _VP],
@@ -196,13 +181,9 @@ _SIGNATURES = {
     # table, n_gk, rows, dtype, stream (KronMeta.device_tables)
     "dtp_lin_kron_fwd": [_VP, _LL, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,
                          _VP],
-    # K8-B: x, x_row_stride, d_x, sh, d_sh, w, d_w, G^T, g, d_out, n_edges*, E,
-    # gk table, n_gk, rows, chunks, trips, dwmap, dx, dw, span_max,
-    # cols_pad_max, chunk_max, dG tiles, n_tiles, n_split, partials, dG, numel,
-    # dtype, stream
-    "dtp_lin_kron_bwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP,
-                         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _I, _I, _VP, _VP, _I, _I,
-                         _VP],
+    # K8-B: K2's arguments on KronMeta.bwd_tables (the packed G^T in the
+    # packed W's place, dG and G's numel in dW's and w_numel's), dtype, stream
+    "dtp_lin_kron_bwd": _K2 + [_I, _VP],
     # S1-F: x, d_x, sh, d_sh, w, d_w, out, d_out, E, dtype, stream
     "dtp_t_floor": [_VP, _I, _VP, _I, _VP, _I, _VP, _I, _I, _I, _VP],
     # S1-A: a, d_a, col, d_col, b, d_b, out, d_out, E, segments, n_seg, terms,

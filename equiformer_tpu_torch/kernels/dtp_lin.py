@@ -64,7 +64,6 @@ class Group(NamedTuple):
 K2_FAN_TILE, K2_COL_TILE = 64, 128  # a dW tile of launch 2 (csrc/dtp_lin_bwd.cu k2::)
 K2_EDGES = 64  # edges per step of launch 2 (k2::kEdges2): edge ranges are multiples
 K2_DW_BLOCKS_PER_SM = 8  # launch 2's blocks (dW tiles x edge ranges) per SM
-BWD_TILE = 16  # edges per tile of K2's launch 1 (k2::kTile), and of K5c, K7-B and the K7 legs
 K1_TILES = (32, 16)  # K1's edge tiles (csrc/dtp_lin.cu k1::): fp32's where it pays, the rest
 # the shared memory a K1 block may take so that two share an SM: (228 KB - 1 KB
 # reserved per block) / 2
@@ -843,8 +842,8 @@ def _k2_call(entry: str, plan: DTPLinPlan, g, x, sh, w, Wp, n_edges, dx, dw, dW,
     """The C entry ``entry`` of ``csrc/dtp_lin_bwd.cu`` launched on checked
     operands, K2's argument list on K2's tables: ``dtp_lin_bwd`` (K2),
     ``dtp_lin_bwd_stage`` (S3), ``dtp_lin_edge_leg`` (K5b's x and w legs),
-    ``dtp_lin_legW`` (K5c), ``dtp_lin_rad_bwd`` (K7-B) or
-    ``dtp_lin_rad_legWr`` (K7-Wr), with None for what it does not read or
+    ``dtp_lin_legW`` (K5c), ``dtp_lin_rad_bwd`` (K7-B), ``dtp_lin_rad_legW``
+    (K7-LW) or ``dtp_lin_rad_legWr`` (K7-Wr), with None for what it does not read or
     write and its own trailing arguments in ``extra``.  With ``dW`` the
     launch-2 partial rows [n_ranges, row] (``row`` w_numel by default) are
     allocated here (``k2_ranges`` at ``blocks_per_sm`` over ``range_tiles``
@@ -956,23 +955,6 @@ dtp_lin_bwd_stage.launches = 0
 
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-# K7-LW's shared memory (~115 KB at MD17 L3) fits one block per SM: its
-# persistent blocks
-RAD_BWD_BLOCKS_PER_SM = 1
-_WORKSPACE: Dict[torch.device, torch.Tensor] = {}
-
-
-def _workspace(device: torch.device, numel: int) -> torch.Tensor:
-    """One fp32 scratch buffer per device for K8-B's split partials, grown
-    to the largest call and reused: kernels on one stream run in order, and
-    the reduction reads the rows before the next launch writes them."""
-    buf = _WORKSPACE.get(device)
-    if buf is None or buf.numel() < numel:
-        buf = torch.empty((numel,), dtype=torch.float32, device=device)
-        _WORKSPACE[device] = buf
-    return buf[:numel]
 
 
 def dtp_lin_rad_fwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, h: torch.Tensor,

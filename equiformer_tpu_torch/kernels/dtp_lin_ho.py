@@ -46,13 +46,14 @@ legs x, sh, h), as JAX's ``_LEGS_RAD`` extends ``_LEGS``.  The same
 ``_Leg`` / ``_Bwd3`` family carries it: the out leg is K7-F
 (``dtp_lin_rad_fwd``, ``csrc/dtp_lin.cu``), the x / sh / h legs K7-L
 (``dtp_lin_rad_leg``, ``csrc/dtp_lin_leg.cu``: dh = dw Wr^T with dw on
-chip), the W leg K7-LW (``dtp_lin_rad_legW``, ``csrc/dtp_lin_legW.cu``), the
-Wr leg K7-Wr (``dtp_lin_rad_legWr``, ``csrc/dtp_lin_bwd.cu``: K5b's w leg,
-then [h, 1]^T dw on the tensor cores over K2's edge ranges, their fp32
-partial rows summed in order) and the three edge legs of one ``g``
-together K7-B3 (``dtp_lin_rad_bwd3``, ``csrc/dtp_lin_bwd3.cu``, the first
-K5a design); all but K7-Wr, which reads no [Wr; offset], build w from (h,
-[Wr; offset]) in shared memory.  Plain versions:
+chip), the W leg K7-LW (``dtp_lin_rad_legW``, ``csrc/dtp_lin_bwd.cu``: K5c's
+launch with each step's w rebuilt from h on the tensor cores), the Wr leg
+K7-Wr (``dtp_lin_rad_legWr``, ``csrc/dtp_lin_bwd.cu``: K5b's w leg, then
+[h, 1]^T dw on the tensor cores over K2's edge ranges, their fp32 partial
+rows summed in order) and the three edge legs of one ``g`` together K7-B3
+(``dtp_lin_rad_bwd3``, ``csrc/dtp_lin_bwd3.cu``, the first K5a design);
+all but K7-Wr, which reads no [Wr; offset], build w from (h, [Wr;
+offset]) on chip.  Plain versions:
 ``dtp_lin_rad_leg_plain``, ``dtp_lin_rad_legW_plain``,
 ``dtp_lin_rad_legWr_plain``, ``dtp_lin_rad_bwd3_plain``.
 
@@ -71,13 +72,10 @@ import torch
 from . import _build
 from .dtp import _SKIPPED_LEGS, skip_leg_grads  # noqa: F401  (re-exported)
 from .dtp_lin import (
-    BWD_TILE,
-    RAD_BWD_BLOCKS_PER_SM,
     DTPLinPlan,
     _check_n_edges,
     _check_operands,
     _k2_call,
-    _sm_count,
     _zero_past,
     dtp_lin_fwd,
     dtp_lin_legW_plain,
@@ -97,8 +95,8 @@ EDGE_LEGS = ("x", "sh", "w")
 # a radial-folded plan's legs: w = [h, 1] @ [Wr; offset] splits w's slot in two
 LEGS_RAD = ("out", "x", "sh", "h", "Wr", "W")
 EDGE_LEGS_RAD = ("x", "sh", "h")
-# K5c's launch-2 blocks per SM (``k2_ranges``), apart from K2's: at MD17's
-# 2944 edges one 64-edge step a range
+# K5c's and K7-LW's launch-2 blocks per SM (``k2_ranges``), apart from K2's:
+# at MD17's 2944 edges one 64-edge step a range
 LEGW_DW_BLOCKS_PER_SM = 32
 # the leg argument of the dsh launches on K2's launch 1 (csrc/dtp_lin_bwd.cu
 # k2::Leg1): K5b's sh leg, K5a
@@ -478,9 +476,14 @@ dtp_lin_rad_leg.launches = 0
 def dtp_lin_rad_legW(plan: DTPLinPlan, g: torch.Tensor, x: torch.Tensor, sh: torch.Tensor,
                      h: torch.Tensor, Wrs: torch.Tensor, n_edges=None) -> torch.Tensor:
     """K7-LW: the head-weight leg of the radial-folded op, ``F_W(g, x, sh, h,
-    Wrs)``, the gradient of ``W_flat`` [w_numel] in float32; w and z are
-    recomputed on chip.  CPU tensors take ``dtp_lin_rad_legW_plain``; CUDA
-    tensors launch the kernel (float32 or bfloat16) or raise."""
+    Wrs)``, the gradient of ``W_flat`` [w_numel] in float32: K5c's launch
+    with w rebuilt from h (``k2::rad_W_leg_kernel``: per dW tile and 64-edge
+    step the w fan slice [h, 1] Wl on the tensor cores, each group's Wr
+    packed in fragment order by ``plan.k7_tables``, the offset read from
+    ``Wrs``' last row), then z^T g on the tensor cores and the fixed-order
+    sum of the ranges' partial rows; w and z never reach device memory.
+    CPU tensors take ``dtp_lin_rad_legW_plain``; CUDA tensors launch the
+    kernel (float32 or bfloat16) or raise."""
     if g.device.type == "cpu":
         return dtp_lin_rad_legW_plain(plan, g, x, sh, h, Wrs, n_edges)
     E, dev = g.shape[0], g.device
@@ -490,17 +493,11 @@ def dtp_lin_rad_legW(plan: DTPLinPlan, g: torch.Tensor, x: torch.Tensor, sh: tor
     dW = torch.zeros((plan.w_numel,), dtype=torch.float32, device=dev)
     if E == 0:
         return dW
-    gk, terms, coeffs, _, _, span_max, cols_pad_max = plan.bwd_tables(dev)
-    n_parts = min(-(-E // BWD_TILE), RAD_BWD_BLOCKS_PER_SM * _sm_count(dev))
-    part = torch.empty((n_parts, plan.w_numel), dtype=torch.float32, device=dev)
-    err = _build.library().dtp_lin_rad_legW(
-        _build.ptr(x), x.stride(0), _build.ptr(sh), plan.d_sh, _build.ptr(g), plan.d_out,
-        _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0], _build.ptr(terms),
-        _build.ptr(coeffs), _build.ptr(part), n_parts, _build.ptr(dW), plan.w_numel,
-        cols_pad_max, plan.max_fan_stride, span_max, _build.ptr(h), plan.radial_fold,
-        _build.ptr(Wl), Wl.shape[1], _build.dtype_code(g), _build.stream_ptr(),
-    )
-    _build.check(err, "dtp_lin_rad_legW")
+    kr = plan.k7_tables(dev)
+    pk = torch.cat([Wl.reshape(-1), Wl.new_zeros(1)])[kr.index]
+    _k2_call("dtp_lin_rad_legW", plan, g, x, sh, None, None, n_edges, None, None, dW, None,
+             _build.ptr(h), plan.radial_fold, _build.ptr(Wl), Wl.shape[1], _build.ptr(pk),
+             _build.ptr(kr.rgk), blocks_per_sm=LEGW_DW_BLOCKS_PER_SM)
     dtp_lin_rad_legW.launches += 1
     return dW
 
@@ -546,19 +543,16 @@ dtp_lin_rad_legWr.launches = 0
 def leg_occupancy(plan: DTPLinPlan, dtype: torch.dtype, out_leg: str) -> int:
     """Resident blocks per SM at this plan's shared memory of K5b's sh leg
     ("sh", on K2's launch 1), or on a radial-folded plan of K7-L's ("x",
-    "sh", "h") or K7-LW ("W").  Needs the card.  (K5b's x and w legs, K5c
-    and K7-Wr run on K2's launches: one 16-edge tile a block, and tiles by
-    edge ranges.)"""
+    "sh", "h").  Needs the card.  (K5b's x and w legs, K5c, K7-LW and K7-Wr
+    run on K2's launches: one 16-edge tile a block, and tiles by edge
+    ranges.)"""
     code = _build.dtype_code(torch.empty((), dtype=dtype))
     hd = plan.radial_fold or 0
-    if (not hd and out_leg != "sh") or out_leg == "Wr":
+    if (not hd and out_leg != "sh") or out_leg in ("W", "Wr"):
         raise ValueError(f"the {out_leg!r} leg runs on K2's launches")
     *_, span_max, cols_pad_max = bwd3_tables(plan, torch.device("cpu"))
     if not hd:
         blocks = _dsh_occupancy(plan, DSH_LEGS["sh"], not plan.shared_weights, True, 7, code)
-    elif out_leg == "W":
-        blocks = _build.library().dtp_lin_legW_occupancy(cols_pad_max, plan.max_fan_stride,
-                                                         span_max, hd, code)
     else:
         blocks = _build.library().dtp_lin_leg_occupancy(
             ("x", "sh", "w", "h").index(out_leg), plan.d_x, plan.d_sh, span_max,

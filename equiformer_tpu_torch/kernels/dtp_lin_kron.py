@@ -20,6 +20,12 @@ gather and one product in plain PyTorch, outside the autograd op, so
 autograd carries the op's dG back to W and, through ``fold_shared_weights``,
 to a shared w (JAX's ``build_G``, ``:143``).
 
+K8-F is ``csrc/dtp_lin_kron.cu`` over ``KronMeta.device_tables``.  K8-B is
+K2's two launches (``csrc/dtp_lin_bwd.cu``) over ``KronMeta.bwd_tables``:
+the kron op is K2's function with each (g, k) a group of one component,
+its Kop rows the fan and its block of G the heads' weight, each triple a
+term of coefficient 1.
+
 The op has no dsh (JAX's kron plans are ``needs_dsh=False``) and is first
 order only: its backward is not differentiable, as JAX's ``custom_vjp``
 bwd is not.  It rounds its fp32 dG to G's dtype before autograd chains it to
@@ -28,7 +34,8 @@ dW (JAX's precision caveat, ``:56-60``, ``:456``, ``:485``).
 ``dtp_lin_kron_plain`` and ``dtp_lin_kron_bwd_plain`` are the plain
 versions: Kop built with torch ops per (g, k) and contracted with
 ``torch.matmul``; like the plain versions of ``dtp_lin.py`` they round Kop
-and dkop to the compute dtype, where the kernels keep them in fp32.
+and dkop to the compute dtype, where K8-F keeps both in fp32 and K8-B keeps
+dkop in fp32 (its bf16 products round Kop, as the plain version does).
 """
 
 from __future__ import annotations
@@ -41,18 +48,16 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 from .dtp_lin import (
+    K2_COL_TILE,
+    K2_FAN_TILE,
     DTPLinPlan,
     _check_n_edges,
     _sm_count,
-    _workspace,
     _zero_past,
     fold_shared_weights,
+    k2_pack_index,
+    k2_ranges,
 )
-
-CHUNK_ROWS = 128  # K8-B's dkop chunk: whole triples, at most this many rows (or one triple)
-DG_TILE_ROWS, DG_TILE_COLS = 64, 32  # K8-B's dG tile, as csrc/dtp_lin_kron.cu reads it
-DG_SPLITS_PER_SM = 6  # dG tiles x edge ranges per SM, at most MAX_DG_SPLITS ranges
-MAX_DG_SPLITS = 16
 
 
 class Triple(NamedTuple):
@@ -62,6 +67,21 @@ class Triple(NamedTuple):
     coeff: float  # CG coefficient (with the fan-in rescale of external weights)
     fc: int  # first fan row of the group's packed W
     mul: int  # rows of G (columns of Kop) the triple takes
+
+
+class KronBwdTables(NamedTuple):
+    """K8-B's tables in K2's layout (``csrc/dtp_lin_bwd.cu``, k2::): each
+    (g, k) a group of one component, its Kop rows the fan, its block of G
+    the W, each triple a term of coefficient 1."""
+    gk: torch.Tensor  # int32 [n_gk, 12]
+    terms: torch.Tensor  # int32 [n_triples, 6]
+    coeffs: torch.Tensor  # float32 [n_triples]: ones (G holds the CG coefficients)
+    dwmap: torch.Tensor  # int32: local dw column -> w column
+    tiles: torch.Tensor  # int32 [n_tiles, 6]: launch 2's dG tiles
+    gp_index: torch.Tensor  # int64: each (g, k)'s G^T in fragment order, a gather of cat([G, 0])
+    span_max: int  # the widest group's dw span
+    cp_max: int  # the widest (g, k)'s columns padded to 16
+    fd_max: int  # the most Kop rows of a (g, k), padded to 8
 
 
 class KronMeta:
@@ -159,26 +179,17 @@ class KronMeta:
 
     # ------------------------------------------------------- device tables
     def device_tables(self, device: torch.device):
-        """The kernels' int32 tables on ``device``, as csrc/dtp_lin_kron.cu
-        reads them: (gk [n_gk, 12], rows [n_rows, 4], chunks [n_chunks, 4],
-        trips [n_trips, 8], dwmap, tiles [n_tiles, 8], gt_index int64,
-        span_max, cols_pad_max, chunk_max).
+        """K8-F's int32 tables on ``device``, as csrc/dtp_lin_kron.cu reads
+        them: (gk [n_gk, 12], rows [n_rows, 4]).  gk per (g, k): first flat
+        row, end row, cols, output column, G element offset, then zeros.
+        rows: x, SH and w column and local dw column of each Kop column."""
+        return self._on("tables", device, lambda: self._fwd_tables(device))
 
-        gk per (g, k): first flat row, end row, cols, output column, G
-        element offset, chunk range, the group's dw span (begin in dwmap,
-        length), first / last component.  rows: x, SH and w column and local
-        dw column of each Kop column.  chunks: K8-B's dkop chunks, whole
-        triples of one (g, k): triple range, first flat row, row count.
-        trips: x column, SH column, w column, local dw column, mul, first row
-        in its chunk.  A group's w columns get consecutive local dw columns
-        (every w column feeds one group, ``DTPLinPlan.bwd_tables``); dwmap
-        maps them back.  tiles: K8-B's dG tiles (first flat row, rows, first
-        column, columns, the block's cols, the G element of (first row,
-        column 0), output column).  gt_index gathers each (g, k) block of G
-        into its transpose [cols, rows] at the same offset."""
-        return self._on("tables", device, lambda: self._tables(device))
-
-    def _tables(self, device):
+    def _local_dw(self):
+        """(dwmap, per group its dw span (begin in dwmap, length), per w
+        block its local dw column): a group's w blocks get consecutive local
+        columns (every w column feeds one group, ``DTPLinPlan.bwd_tables``);
+        none with shared weights."""
         plan = self.plan
         dwmap, spans, local = [], [], {}
         for gi in range(len(plan.groups)):
@@ -189,40 +200,61 @@ class KronMeta:
                     local[b_off] = len(dwmap) - begin
                     dwmap.extend(range(b_off, b_off + mul))
             spans.append((begin, len(dwmap) - begin))
-        gk, rows, chunks, trips, tiles, gt_index = [], [], [], [], [], []
+        return dwmap, spans, local
+
+    def _fwd_tables(self, device):
+        _, _, local = self._local_dw()
+        gk, rows = [], []
         for gi, k, row0, n, cols, out_col, g_off in self.blocks():
-            qs = self.qcols[(gi, k)]
-            c_begin, r, i = len(chunks), row0, 0
-            while i < len(qs):  # greedy: whole triples up to CHUNK_ROWS rows
-                j, width = i + 1, qs[i].mul
-                while j < len(qs) and width + qs[j].mul <= CHUNK_ROWS:
-                    width += qs[j].mul
-                    j += 1
-                off = 0
-                for q in qs[i:j]:
-                    trips.append((q.a_off, q.col_off, q.b_off, local.get(q.b_off, 0), q.mul, off,
-                                  0, 0))
-                    off += q.mul
-                chunks.append((len(trips) - (j - i), len(trips), r, width))
-                r += width
-                i = j
-            for q in qs:
+            for q in self.qcols[(gi, k)]:
                 rows.extend((q.a_off + u, q.col_off, q.b_off + u, local.get(q.b_off, 0) + u)
                             for u in range(q.mul))
-            gk.append((row0, row0 + n, cols, out_col, g_off, c_begin, len(chunks)) + spans[gi]
-                      + (int(k == 0), int(k == plan.groups[gi].ir.dim - 1), 0))
-            for r0 in range(0, n, DG_TILE_ROWS):
-                for c0 in range(0, cols, DG_TILE_COLS):
-                    tiles.append((row0 + r0, min(DG_TILE_ROWS, n - r0), c0,
-                                  min(DG_TILE_COLS, cols - c0), cols, g_off + r0 * cols, out_col,
-                                  0))
-            gt_index.append(g_off + (np.arange(n)[None, :] * cols
-                                     + np.arange(cols)[:, None]).reshape(-1))
+            gk.append((row0, row0 + n, cols, out_col, g_off) + (0,) * 7)
         i32 = lambda t: torch.tensor(t, dtype=torch.int32, device=device)  # noqa: E731
-        return (i32(gk), i32(rows), i32(chunks), i32(trips), i32(dwmap or [0]), i32(tiles),
-                torch.as_tensor(np.concatenate(gt_index), device=device),
-                max(n for _, n in spans), max(-(-g.cols // 4) * 4 for g in plan.groups),
-                max(c[3] for c in chunks))
+        return i32(gk), i32(rows)
+
+    def bwd_tables(self, device: torch.device) -> KronBwdTables:
+        """K8-B's tables on ``device`` in K2's layout, as its two launches
+        (csrc/dtp_lin_bwd.cu, k2::kron_dxdw_kernel and k2::kron_dG_kernel)
+        read them.
+
+        gk per (g, k), K2's 12 ints: its Kop rows n_k (the fan), cols,
+        output column, its G element offset (dG's too), triple range, the
+        offset of its packed G^T in ``gp_index``'s gather and its columns
+        padded to 16 (the mma K step), its group's dw span (begin in
+        ``dwmap``, length), first / last component of the group.  terms per
+        triple: x column, SH column, w column, its first Kop row in the (g,
+        k) block, mul, local dw column; coeffs all 1.  tiles: launch 2's dG
+        tiles, (gk row, 1, first Kop row, rows, first column, columns),
+        ``K2_FAN_TILE`` x ``K2_COL_TILE`` at most; together they cover every
+        element of G once.  ``gp_index`` gathers ``cat([G, 0])`` into each
+        (g, k)'s G^T [cols, n_k] in B-fragment order (``k2_pack_index``)."""
+        return self._on("bwd", device, lambda: self._bwd_tables(device))
+
+    def _bwd_tables(self, device):
+        dwmap, spans, local = self._local_dw()
+        gk, terms, tiles, index = [], [], [], []
+        gp_off = 0
+        for q, (gi, k, _, n, cols, out_col, g_off) in enumerate(self.blocks()):
+            t_begin, fc = len(terms), 0
+            for t in self.qcols[(gi, k)]:
+                terms.append((t.a_off, t.col_off, t.b_off, fc, t.mul, local.get(t.b_off, 0)))
+                fc += t.mul
+            gk.append((n, cols, out_col, g_off, t_begin, len(terms), gp_off,
+                       -(-cols // 16) * 16) + spans[gi]
+                      + (int(k == 0), int(k == self.plan.groups[gi].ir.dim - 1)))
+            for f0 in range(0, n, K2_FAN_TILE):
+                for j0 in range(0, cols, K2_COL_TILE):
+                    tiles.append((q, 1, f0, min(K2_FAN_TILE, n - f0), j0,
+                                  min(K2_COL_TILE, cols - j0)))
+            idx = k2_pack_index(n, n, cols, g_off, self.numel)
+            index.append(idx)
+            gp_off += idx.size
+        i32 = lambda t: torch.tensor(t, dtype=torch.int32, device=device)  # noqa: E731
+        return KronBwdTables(
+            i32(gk), i32(terms), torch.ones(len(terms), dtype=torch.float32, device=device),
+            i32(dwmap or [0]), i32(tiles), torch.as_tensor(np.concatenate(index), device=device),
+            max(n for _, n in spans), max(r[7] for r in gk), max(-(-r[0] // 8) * 8 for r in gk))
 
 
 def kron_meta(plan: DTPLinPlan) -> KronMeta:
@@ -333,9 +365,11 @@ def dtp_lin_kron_bwd(meta, x: torch.Tensor, sh: torch.Tensor, w, G: torch.Tensor
                      g: torch.Tensor, n_edges=None):
     """K8-B: (dx [E, d_x], dw [E, d_w] or None, dG [numel] float32) for the
     cotangent ``g`` [E, d_out] of ``dtp_lin_kron_fwd`` on the same
-    operands: one launch for dx and dw per edge tile, one for dG on tiles
-    that each walk a range of the edges in order, and the fixed-order sum of
-    the ranges' partial copies.  CPU tensors take
+    operands, on K2's two launches over ``meta.bwd_tables``
+    (``csrc/dtp_lin_bwd.cu``): dx and dw per 16-edge tile with dkop = g
+    G^T on the tensor cores (G^T packed in fragment order by one gather a
+    call), dG = Kop^T g per tile of G and edge range (``k2_ranges``), and the
+    fixed-order sum of the ranges' partial rows.  CPU tensors take
     ``dtp_lin_kron_bwd_plain``; CUDA tensors launch the kernels (float32 or
     bfloat16) or raise."""
     if x.device.type == "cpu":
@@ -345,10 +379,9 @@ def dtp_lin_kron_bwd(meta, x: torch.Tensor, sh: torch.Tensor, w, G: torch.Tensor
     if g.shape != (E, plan.d_out) or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"cotangent must be [{E}, {plan.d_out}] in x's dtype and device")
     g = g.contiguous()
-    n_edges = _check_n_edges(n_edges, E, x.device)
-    (gk, rows, chunks, trips, dwmap, tiles, gt_index, span_max, cols_pad_max,
-     chunk_max) = meta.device_tables(x.device)
     dev = x.device
+    n_edges = _check_n_edges(n_edges, E, dev)
+    kt = meta.bwd_tables(dev)
     dx = torch.empty((E, plan.d_x), dtype=x.dtype, device=dev)
     dw = None
     if w is not None:
@@ -357,16 +390,17 @@ def dtp_lin_kron_bwd(meta, x: torch.Tensor, sh: torch.Tensor, w, G: torch.Tensor
     dG = torch.empty((meta.numel,), dtype=torch.float32, device=dev)
     if E == 0:
         return dx, dw, dG.zero_()
-    n_split = dg_splits(tiles.shape[0], _sm_count(dev))
-    part = _workspace(dev, n_split * meta.numel) if n_split > 1 else dG
-    GT = G[gt_index]  # each (g, k) block of G transposed, for coalesced reads of G^T
+    Gp = torch.cat([G, G.new_zeros(1)])[kt.gp_index]
+    n_tiles = kt.tiles.shape[0]
+    n_ranges, range_len = k2_ranges(E, n_tiles, _sm_count(dev))
+    part = torch.empty((n_ranges, meta.numel), dtype=torch.float32, device=dev)
     err = _build.library().dtp_lin_kron_bwd(
         _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(w),
-        plan.d_w, _build.ptr(GT), _build.ptr(g), plan.d_out, _build.ptr(n_edges), E,
-        _build.ptr(gk), gk.shape[0], _build.ptr(rows), _build.ptr(chunks), _build.ptr(trips),
-        _build.ptr(dwmap), _build.ptr(dx), _build.ptr(dw), span_max, cols_pad_max, chunk_max,
-        _build.ptr(tiles), tiles.shape[0], n_split, _build.ptr(part), _build.ptr(dG),
-        meta.numel, _build.dtype_code(x), _build.stream_ptr(),
+        plan.d_w, _build.ptr(Gp), _build.ptr(g), plan.d_out, _build.ptr(n_edges), E,
+        _build.ptr(kt.gk), kt.gk.shape[0], _build.ptr(kt.terms), _build.ptr(kt.coeffs),
+        _build.ptr(kt.dwmap), _build.ptr(dx), _build.ptr(dw), kt.span_max, kt.cp_max,
+        kt.fd_max, _build.ptr(kt.tiles), n_tiles, _build.ptr(part), n_ranges, range_len,
+        _build.ptr(dG), meta.numel, _build.dtype_code(x), _build.stream_ptr(),
     )
     _build.check(err, "dtp_lin_kron_bwd")
     dtp_lin_kron_bwd.launches += 1
@@ -375,12 +409,6 @@ def dtp_lin_kron_bwd(meta, x: torch.Tensor, sh: torch.Tensor, w, G: torch.Tensor
 
 dtp_lin_kron_fwd.launches = 0
 dtp_lin_kron_bwd.launches = 0
-
-
-def dg_splits(n_tiles: int, n_sm: int) -> int:
-    """Edge ranges of K8-B's dG launch: enough tiles x ranges to fill the
-    card, each range summed into its own partial copy of dG."""
-    return max(1, min(MAX_DG_SPLITS, -(-DG_SPLITS_PER_SM * n_sm // n_tiles)))
 
 
 class _DTPLinKron(torch.autograd.Function):

@@ -2,8 +2,9 @@
 segment sum), K4 (the attention combine), K7-F (the radial-folded
 forward), K7-B (its backward), K5a (the force backward: dx, dsh and dw of
 the force models' fused op), K5b (its edge legs), K5c (its head-weight
-leg) and K7-Wr (the folded op's [Wr; offset] leg) of this package against
-another tree's, in turns, on one GPU.
+leg), K7-Wr and K7-LW (the folded op's [Wr; offset] and head-weight legs)
+and K8-B (the kron-basis backward) of this package against another tree's,
+in turns, on one GPU.
 
     python -m equiformer_tpu_torch.tools.kernel_ab [--against DIR [DIR ...]]
         [--kernels K1,K4] [--out FILE]
@@ -30,7 +31,10 @@ W, the edge-degree embedding with its row-broadcast x), K1 also at MD17
 L3's sep_act; K4 at QM9's [E, 4, 120] with and without the alpha-dropout
 multiplier, the padding edges masked; K7-F at the folded flagship's
 sep_act; K7-B at the folded flagship's sep_act and edge degree; K7-Wr (h's
-ones column 1) at the folded exp_l3's sep_act and edge degree; K5a with each caller's outputs (``K5A_NEEDS``), K5b's x, sh and
+ones column 1) and K7-LW at the folded exp_l3's sep_act and edge degree;
+K8-B at the kron flagship's three sites (G built by each side's
+``kron_meta``, this package's K2 on the same inputs beside it as
+``k2_ms``); K5a with each caller's outputs (``K5A_NEEDS``), K5b's x, sh and
 w legs (no w leg at sep_value, whose weights are shared) and K5c at MD17
 exp_l3's three sites (sep_act, sep_value, the edge degree), a leg's own
 operand None.  K5a's (dx, dw) runs beside K2's own launch 1 on the same
@@ -41,9 +45,10 @@ seed 0, the batch's real edges live.  Per shape and dtype (float32, bfloat16):
 * ``ms``: each side's wrapper, CUDA events (median of 5 runs of 5 calls);
   ``host_us`` (K3): its host time a call (median of 5 runs of 100 calls
   without a synchronize), which bounds ``ms`` at the small MD17 shapes;
-* ``device_ms`` (K3, K4, K5a-c, K7-B, K7-Wr): each side's device time per
-  call, all its kernels, ``kernel_ms`` the kernel alone (K5a-c, K7-B,
-  K7-Wr: their launches and sums) and ``by_kernel`` each of those by name,
+* ``device_ms`` (K3, K4, K5a-c, K7-B, K7-Wr, K7-LW, K8-B): each side's
+  device time per call, all its kernels, ``kernel_ms`` the kernel alone
+  (K5a-c, K7-B, K7-Wr, K7-LW, K8-B: their launches and sums) and
+  ``by_kernel`` each of those by name,
   from a profiler trace of 20 calls;
 * ``rel_err``: each side against this package's plain version (max |diff| /
   max |plain|); ``index_add_`` (K3's one-call equivalent, zeros + add: its
@@ -93,13 +98,17 @@ K4_KERNEL = "attn_combine_kernel"
 K5A_KERNELS = ("bwd3_kernel", "bwd3_sum_kernel")
 K5B_KERNELS = ("edge_leg_kernel", "sum_dx_kernel", "sh_leg_kernel", "bwd3_sum_kernel",
                "dtp_lin_leg_kernel")
-K5C_KERNELS = ("W_leg_kernel", "dtp_lin_legW_kernel", "sum_partial_rows_kernel")
-# K7-B's and K7-Wr's kernels, of this design (k2::) and of the first one
+K5C_KERNELS = ("W_leg_kernel", "sum_partial_rows_kernel")
+# K7-B's, K7-Wr's and K7-LW's kernels, of this design (k2::) and of the first one
 K7_KERNELS = {"K7B": ("rad_dxdw_kernel", "rad_dW_kernel", "sum_partial_rows_kernel",
                       "dtp_lin_bwd_kernel"),
               "K7Wr": ("edge_leg_kernel", "Wr_leg_kernel", "sum_partial_rows_kernel",
-                       "dtp_lin_leg_kernel")}
-SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K7B", "K5a", "K5b", "K5c", "K7Wr")
+                       "dtp_lin_leg_kernel"),
+              "K7LW": ("rad_W_leg_kernel", "sum_partial_rows_kernel", "dtp_lin_legW_kernel")}
+# K8-B's kernels, of this design (k2::, K2's launches) and of the first one
+K8B_KERNELS = ("kron_dxdw_kernel", "kron_dG_kernel", "sum_partial_rows_kernel",
+               "kron_bwd_dx_kernel")
+SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K7B", "K5a", "K5b", "K5c", "K7Wr", "K7LW", "K8B")
 # the outputs each caller of K5a asks for at MD17's sites: the force pass and
 # (dx, dw) the parameter pass of training
 K5A_NEEDS = {"md17-sep_act": (("x", "sh", "w"), ("x", "w")), "md17-sep_value": (("x", "sh"),),
@@ -366,10 +375,10 @@ def k5_section(key, sides, order, plans, rows, dev, report):
 
 
 def k7_section(key, sides, order, plans, rows, dev, report):
-    """K7-B (``key`` "K7B": dx, dh, d[Wr; offset], dW) or K7-Wr ("K7Wr",
-    h's ones column 1) at each folded site of ``plans[side]``, against
-    this package's plain version, both dtypes; h and [Wr; offset] random
-    from seed 1, made once per site and dtype."""
+    """K7-B (``key`` "K7B": dx, dh, d[Wr; offset], dW), K7-Wr ("K7Wr", h's
+    ones column 1) or K7-LW ("K7LW") at each folded site of ``plans[side]``,
+    against this package's plain version, both dtypes; h and [Wr; offset]
+    random from seed 1, made once per site and dtype."""
     for site, plan in plans["package"].items():
         E, n_live = rows[site]
         hd = plan.radial_fold
@@ -381,6 +390,8 @@ def k7_section(key, sides, order, plans, rows, dev, report):
             n = torch.tensor(n_live, dtype=torch.int32, device=dev)
             if key == "K7B":
                 want = kernels.dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, cot, n)
+            elif key == "K7LW":
+                want = (kernels.dtp_lin_rad_legW_plain(plan, cot, x, sh, h, Wrs, n),)
             else:
                 want = (kernels.dtp_lin_rad_legWr_plain(plan, cot, x, sh, h, W, n),)
             entry = {"E": E, "n_live": n_live, "runs": []}
@@ -389,6 +400,9 @@ def k7_section(key, sides, order, plans, rows, dev, report):
                 if key == "K7B":
                     call = lambda m=m, p=p: m.dtp_lin_rad_bwd(  # noqa: E731
                         p, x, sh, h, Wrs, W, cot, n)
+                elif key == "K7LW":
+                    call = lambda m=m, p=p: (m.dtp_lin_rad_legW(  # noqa: E731
+                        p, cot, x, sh, h, Wrs, n),)
                 else:
                     call = lambda m=m, p=p: (m.dtp_lin_rad_legWr(  # noqa: E731
                         p, cot, x, sh, h, W, n),)
@@ -400,6 +414,36 @@ def k7_section(key, sides, order, plans, rows, dev, report):
             name = f"{site}/{str(dt)[6:]}"
             report[key][name] = entry
             print(key, name, json.dumps(entry), flush=True)
+
+
+def k8b_section(sides, order, plans, rows, dev, report):
+    """K8-B at each kron site of ``plans[side]`` (G from each side's
+    ``kron_meta(plan).build_G``), against this package's plain version,
+    both dtypes, with this package's K2 on the same inputs (W in G's place)
+    as ``k2_ms``."""
+    for site, plan in plans["package"].items():
+        E, n_live = rows[site]
+        for dt in (torch.float32, torch.bfloat16):
+            x, sh, w, W, cot = dtp_operands(plan, site, E, dt, dev)
+            n = torch.tensor(n_live, dtype=torch.int32, device=dev)
+            meta = kernels.kron_meta(plan)
+            want = kernels.dtp_lin_kron_bwd_plain(meta, x, sh, w, meta.build_G(W), cot, n)
+            entry = {"E": E, "n_live": n_live, "numel": meta.numel, "runs": [],
+                     "k2_ms": device_time_ms(
+                         lambda: kernels.dtp_lin_bwd(plan, x, sh, w, W, cot, n), dev)}
+            for i, side in enumerate(order):
+                m, p = sides[side][0], plans[side][site]
+                G = m.kron_meta(p).build_G(W)
+                call = lambda m=m, p=p, G=G: m.dtp_lin_kron_bwd(  # noqa: E731
+                    m.kron_meta(p), x, sh, w, G, cot, n)
+                tag = f"K8B_{site}_{str(dt)[6:]}_{side}_{i}"
+                entry["runs"].append({
+                    "side": side, "ms": device_time_ms(call, dev),
+                    **traced_run(call, tag, K8B_KERNELS),
+                    "rel_err": max(rel(a, b) for a, b in zip(call(), want) if a is not None)})
+            name = f"{site}/{str(dt)[6:]}"
+            report["K8B"][name] = entry
+            print("K8B", name, json.dumps(entry), flush=True)
 
 
 def main(argv=None) -> dict:
@@ -483,6 +527,19 @@ def main(argv=None) -> dict:
             fold[side] = {f"md17-{k}": v for k, v in dtp_plans(m).items() if k != "sep_value"}
         md17_rows = {site: (mE, int(mmask.sum())) for site in fold["package"]}
         k7_section("K7Wr", sides, order, fold, md17_rows, dev, report)
+    if "K7LW" in want:
+        fold = {}
+        for side, (_, make) in sides.items():
+            m = make(MD17[0])(max_edges=mE, nodes_per_graph=MD17[2], seed=SEED, device=dev,
+                              radial_fold=True, radial_fold_ho=True)
+            fold[side] = {f"md17-{k}": v for k, v in dtp_plans(m).items() if k != "sep_value"}
+        md17_rows = {site: (mE, int(mmask.sum())) for site in fold["package"]}
+        k7_section("K7LW", sides, order, fold, md17_rows, dev, report)
+    if "K8B" in want:
+        kron = {side: dtp_plans(make(QM9[0])(max_edges=E, nodes_per_graph=QM9[2], seed=SEED,
+                                             device=dev, kron_g=True))
+                for side, (_, make) in sides.items()}
+        k8b_section(sides, order, kron, rows, dev, report)
 
     if {"K5a", "K5b", "K5c"} & set(want):
         mrows = {f"md17-{site}": (mE, int(mmask.sum())) for site in ("sep_act", "sep_value",

@@ -1,17 +1,20 @@
 """K8 (the kron-basis op) at the QM9 flagship's sites on one GPU, beside K1 / K2.
 
-    python -m equiformer_tpu_torch.tools.kron_ab [--against FILE.cu] [--out FILE]
+    python -m equiformer_tpu_torch.tools.kron_ab [--against FILE.cu ...] [--out FILE]
 
 Builds the flagship's sep_act (two heads, per-edge w) and sep_value (shared
 w folded into G) plans, makes random operands from seed 0 at E = 36352
 edges with 34000 live rows, and for float32 and bfloat16 times (CUDA
 events, median of 5 runs of 5 calls) K8-F and K8-B, each held against its
 plain version (max |kernel - plain| / max |plain|), and K1 and K2 on the
-same inputs (W in place of G).  With ``--against``, a second build of
-another ``dtp_lin_kron.cu`` source (compiled with the package's flags into
-``build/kron_ab/``) runs in turns with the package's kernels (package,
-other, other, package), so two versions compare within one call.  Prints
-the card's name and power limit, then the report as JSON.
+same inputs (W in place of G).  With ``--against``, a second build of K8's
+two sources (``dtp_lin_kron.cu``: K8-F; ``dtp_lin_bwd.cu``: K8-B on K2's
+launches), each replaced by a given file of the same name (compiled with
+the package's flags into ``build/kron_ab/``), runs in turns with the
+package's kernels (package, other, other, package), so two versions of the
+same C interface compare within one call (another tree's wrappers:
+``kernel_ab --kernels K8B``).  Prints the card's name and power limit,
+then the report as JSON.
 """
 
 from __future__ import annotations
@@ -46,14 +49,22 @@ def rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-class _Other:
-    """The K8 entry points of a second build, as ``_build.library()`` gives them."""
+SOURCES = ("dtp_lin_kron.cu", "dtp_lin_bwd.cu")  # K8-F's and K8-B's
 
-    def __init__(self, source: Path):
+
+class _Other:
+    """The K8 entry points of a second build of ``SOURCES``, each replaced by
+    the file of its name in ``sources``, as ``_build.library()`` gives them."""
+
+    def __init__(self, sources):
+        mine = {p.name: p for p in sources}
+        if not set(mine) <= set(SOURCES):
+            raise SystemExit(f"kron_ab: --against takes files named {' or '.join(SOURCES)}")
         out = _build.BUILD_ROOT.parent / "kron_ab" / "libkron_other.so"
         out.parent.mkdir(parents=True, exist_ok=True)
+        srcs = [str(mine.get(name, _build.CSRC / name)) for name in SOURCES]
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared",
-                        "-o", str(out), str(source)], check=True, capture_output=True, text=True)
+                        "-o", str(out), *srcs], check=True, capture_output=True, text=True)
         lib = ctypes.CDLL(str(out))
         for name in ("dtp_lin_kron_fwd", "dtp_lin_kron_bwd"):
             fn = getattr(lib, name)
@@ -63,8 +74,9 @@ class _Other:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--against", type=Path, default=None,
-                    help="another dtp_lin_kron.cu to time in turns with the package's")
+    ap.add_argument("--against", type=Path, nargs="+", default=None,
+                    help="another dtp_lin_kron.cu and / or dtp_lin_bwd.cu to time in turns "
+                         "with the package's")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():

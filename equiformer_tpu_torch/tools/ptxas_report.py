@@ -7,11 +7,12 @@ them, and the difference from another tree's sources.
 Compiles the package's ``csrc/*.cu`` (or the named ones) with the build's
 flags (``kernels/_build.py``: ``-Xptxas -v``, sm_90a) and prints one line
 per entry function: the demangled name, then the ``Used N registers`` and
-stack / spill lines.  With ``--against DIR`` (another tree's ``csrc``) the
-same sources are compiled from there too, and every kernel of the other
-tree is matched by name to this tree's and reported as equal, different,
-or not in this tree (a retired kernel); ``--match`` compares only the
-kernels whose names it finds.  The exit code is 1 if a kernel that both
+stack / spill lines.  With ``--against DIR`` (another tree's ``csrc``) that
+tree's sources are compiled too (all of its own, or those of the named
+ones it has), and every kernel of the other tree is matched by name to
+this tree's and reported as equal, different, or not in this tree (a
+retired kernel, also one whose source is gone); ``--match`` compares only
+the kernels whose names it finds.  The exit code is 1 if a kernel that both
 trees have differs.  Needs nvcc (the machine with the card).
 """
 
@@ -26,23 +27,32 @@ from pathlib import Path
 from ..kernels import _build
 
 def entries(csrc: Path, sources) -> dict:
-    """{demangled kernel name: [ptxas property lines]} of the sources."""
+    """{demangled kernel name: [ptxas property lines]} of the sources; a
+    kernel compiled in several sources with the same lines (a ``static``
+    one of a shared header) is listed once."""
     found = {}
-    for name in sources:
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-c", "-o", "/dev/null",
-               str(csrc / name)]
-        out = subprocess.run(cmd, capture_output=True, text=True, check=True)
-        cur = None
-        for ln in (out.stdout + out.stderr).splitlines():
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-c", "-o",
+                               "/dev/null", str(csrc / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name in sources]  # one nvcc a source, all started together
+    for proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise subprocess.CalledProcessError(proc.returncode, proc.args, out, err)
+        cur, mine = None, {}
+        for ln in (out + err).splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", ln)
             if m:
                 cur = m.group(1)
             elif cur and ("registers" in ln or "stack frame" in ln):
-                found.setdefault(cur, []).append(re.sub(r"^ptxas info\s*:\s*", "", ln.strip()))
+                mine.setdefault(cur, []).append(re.sub(r"^ptxas info\s*:\s*", "", ln.strip()))
+        for name, lines in mine.items():
+            found.setdefault(name, set()).add(tuple(lines))
     cufilt = Path(_build._nvcc()).with_name("cu++filt")
     names = subprocess.run([str(cufilt)], input="\n".join(found), capture_output=True,
                            text=True, check=True).stdout.splitlines()
-    return {_short(n): found[m] for n, m in zip(names, found)}
+    return {_short(n): [ln for lines in sorted(found[m]) for ln in lines]
+            for n, m in zip(names, found)}
 
 
 def _short(name: str) -> str:
@@ -55,6 +65,13 @@ def _short(name: str) -> str:
         if ch == "(" and depth == 0 and i > 0:
             return name[:i].removeprefix("void ")
     return name.removeprefix("void ")
+
+
+def _sources(csrc: Path, names) -> list:
+    """The named sources that ``csrc`` has, or all of its ``*.cu``."""
+    if names is None:
+        return sorted(p.name for p in csrc.glob("*.cu"))
+    return [n for n in names if (csrc / n).exists()]
 
 
 def compare(mine: dict, other: dict, match=None) -> dict:
@@ -78,13 +95,12 @@ def main(argv=None) -> int:
                     help="compare only the kernels whose names this regex finds")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
-    sources = args.sources or sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    mine = entries(_build.CSRC, sources)
+    mine = entries(_build.CSRC, _sources(_build.CSRC, args.sources))
     for name, lines in mine.items():
         print(f"{name}: {'; '.join(lines)}")
     report, differs = {"kernels": mine}, []
     if args.against is not None:
-        other = entries(args.against, sources)
+        other = entries(args.against, _sources(args.against, args.sources))
         res = compare(mine, other, args.match)
         for key, verdict in (("equal", "equal"), ("differ", "DIFFERS"),
                              ("not_here", "not in this tree"), ("new_here", "new in this tree")):

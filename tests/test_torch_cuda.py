@@ -852,12 +852,14 @@ def test_reduced_folded_units_on_card_match_cpu(dev):
 @pytest.mark.parametrize("plan_name", list(RAD_PLANS) + list(RAD_MD17_SITES))
 def test_radial_fold_leg_kernels_match_plain(dev, plan_name, dtype):
     """K7-L (each of the x, sh and h legs, without the operand of that leg),
-    K7-LW and K7-Wr (with h's ones column 1, and 0 as when h's slot holds a
-    cotangent) against their plain versions on the same operands, at small
-    plans and MD17 exp_l3's folded sites, with a row-broadcast x and n_edges
-    below E: rows past n_edges get zeros and add nothing to d[Wr; offset];
-    w columns of no live group get an exact 0; second calls give the same
-    bits."""
+    K7-LW (with [Wr; offset], and with [Wr; 0] as the grad-of-grad passes it
+    when h's slot holds a tangent: the offset is read from the operand, not
+    assumed, so the two differ) and K7-Wr (with h's ones column 1, and 0 as
+    when h's slot holds a cotangent) against their plain versions on the
+    same operands, at small plans and MD17 exp_l3's folded sites, with a
+    row-broadcast x and n_edges below E: rows past n_edges get zeros and add
+    nothing to d[Wr; offset]; w columns of no live group get an exact 0;
+    second calls give the same bits."""
     from equiformer_tpu_torch.kernels import (
         dtp_lin_rad_leg, dtp_lin_rad_leg_plain, dtp_lin_rad_legW, dtp_lin_rad_legW_plain,
         dtp_lin_rad_legWr, dtp_lin_rad_legWr_plain,
@@ -886,12 +888,16 @@ def test_radial_fold_leg_kernels_match_plain(dev, plan_name, dtype):
             assert _rel(k, p) < TOL[dtype], leg
             assert float(k[250:].abs().max()) == 0.0, leg
             assert torch.equal(k, call()), leg
-        k = dtp_lin_rad_legW(plan, cot, x, sh, h, Wrs, n)
-        p = dtp_lin_rad_legW_plain(plan, cot, x, sh, h, Wrs, n)
-        torch.cuda.synchronize()
-        assert k.dtype == torch.float32 and k.shape == (plan.w_numel,)
-        assert _rel(k, p) < TOL[dtype]
-        assert torch.equal(k, dtp_lin_rad_legW(plan, cot, x, sh, h, Wrs, n))
+        dWs = []
+        for Wl in (Wrs, torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])):
+            k = dtp_lin_rad_legW(plan, cot, x, sh, h, Wl, n)
+            p = dtp_lin_rad_legW_plain(plan, cot, x, sh, h, Wl, n)
+            torch.cuda.synchronize()
+            assert k.dtype == torch.float32 and k.shape == (plan.w_numel,)
+            assert _rel(k, p) < TOL[dtype]
+            assert torch.equal(k, dtp_lin_rad_legW(plan, cot, x, sh, h, Wl, n))
+            dWs.append(k)
+        assert not torch.equal(*dWs)
         dead = torch.ones(plan.d_w, dtype=torch.bool, device=dev)
         dead[plan.radial_cols(dev)] = False
         assert bool(dead.any()) == (plan_name == "dead-w-cols")
@@ -909,7 +915,7 @@ def test_radial_fold_leg_kernels_match_plain(dev, plan_name, dtype):
         assert torch.equal(dtp_lin_rad_legWr(plan, far, x, sh, h, W, n),
                            dtp_lin_rad_legWr(plan, cot, x, sh, h, W, n))
     assert (dtp_lin_rad_leg.launches, dtp_lin_rad_legW.launches,
-            dtp_lin_rad_legWr.launches) == (12, 4, 12)
+            dtp_lin_rad_legWr.launches) == (12, 8, 12)
 
 
 @pytest.mark.cuda
@@ -965,14 +971,23 @@ def test_reduced_folded_md17_train_step_on_card_matches_cpu(dev):
 
 
 # The kron-basis op (K8): Kop = sh x w times G, the CG coefficients folded
-# into the packed W.  (heads, shared weights, row-broadcast x) of the QM9
-# flagship's three sites at small widths, and a plan whose w columns partly
-# feed no head
+# into the packed W.  (irreps, SH, heads, shared weights, row-broadcast x)
+# of the QM9 flagship's three sites at small widths, a plan whose w columns
+# partly feed no head, plans whose muls and head columns are not multiples
+# of 8 (K8-B pads Kop rows and G columns to the mma steps), and the
+# flagship's sites at full width (the widest (g, k) 896 Kop rows by 352
+# columns)
 KRON_SITES = {
-    "sep_act": (["14x0e+4x1e+2x2e", "6x0e"], False, False),
-    "sep_value": (["14x0e+4x1e+2x2e"], True, False),
-    "edge_deg": (["14x0e+4x1e+2x2e"], False, True),
-    "dead-w-cols": (["5x0e+3x1e"], False, False),
+    "sep_act": (IRR, SH, ["14x0e+4x1e+2x2e", "6x0e"], False, False),
+    "sep_value": (IRR, SH, ["14x0e+4x1e+2x2e"], True, False),
+    "edge_deg": (IRR, SH, ["14x0e+4x1e+2x2e"], False, True),
+    "dead-w-cols": (IRR, SH, ["5x0e+3x1e"], False, False),
+    "odd-two-head": ("4x0e+2x1e", "1x0e+1x1e", ["4x0e+2x1e", "3x0e"], False, False),
+    "odd-shared-w": ("4x0e+2x1e", "1x0e+1x1e", ["3x0e+5x1e"], True, False),
+    "odd-broadcast-x": ("4x0e+2x1e", "1x0e+1x1e", ["4x0e+2x1e", "3x0e"], False, True),
+    "qm9-sep_act": ("128x0e+64x1e+32x2e", SH, ["224x0e+64x1e+32x2e", "128x0e"], False, False),
+    "qm9-sep_value": ("128x0e+64x1e+32x2e", SH, ["128x0e+64x1e+32x2e"], True, False),
+    "qm9-edge_deg": ("128x0e+64x1e+32x2e", SH, ["128x0e+64x1e+32x2e"], False, True),
 }
 
 
@@ -983,16 +998,17 @@ def test_kron_kernels_match_plain(dev, site, dtype):
     """K8-F and K8-B against dtp_lin_kron_plain and dtp_lin_kron_bwd_plain on
     the same operands (G from build_G), E = 300 with n_edges 250: out, dx,
     dw and dG within the dtype's bound, rows past n_edges zero (the last
-    live tile is partly dead, the tiles past it skipped), dG fp32 and the
-    same bits in a second call."""
+    live tile is partly dead, the tiles past it skipped), dG fp32, the same
+    bits in a second call and with the cotangent's rows past n_edges x 100
+    (they add nothing to dG)."""
     from equiformer_tpu_torch.kernels import (
         dtp_lin_kron_bwd, dtp_lin_kron_bwd_plain, dtp_lin_kron_fwd, dtp_lin_kron_plain, kron_meta,
     )
 
-    heads, shared, broadcast = KRON_SITES[site]
+    irr, sh_irr, heads, shared, broadcast = KRON_SITES[site]
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(4)
-    plan = DTPLinPlan(depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR)), heads,
+    plan = DTPLinPlan(depthwise_tp(Irreps(irr), Irreps(sh_irr), Irreps(irr)), heads,
                       shared_weights=shared)
     meta = kron_meta(plan)
     E = 300
@@ -1017,9 +1033,11 @@ def test_kron_kernels_match_plain(dev, site, dtype):
             assert _rel(a, b) < TOL[dtype]
             if a.shape[0] == E:
                 assert float(a[250:].abs().max()) == 0.0
-    again = dtp_lin_kron_bwd(meta, x, sh, w, G, cot, n)
-    assert all(a is None or torch.equal(a, b) for a, b in zip(k, again))
-    assert (dtp_lin_kron_fwd.launches, dtp_lin_kron_bwd.launches) == (1, 2)
+    far = torch.where(torch.arange(E, device=dev)[:, None] < 250, cot, 100 * cot)
+    for again in (dtp_lin_kron_bwd(meta, x, sh, w, G, cot, n),
+                  dtp_lin_kron_bwd(meta, x, sh, w, G, far, n)):
+        assert all(a is None or torch.equal(a, b) for a, b in zip(k, again))
+    assert (dtp_lin_kron_fwd.launches, dtp_lin_kron_bwd.launches) == (1, 3)
 
 
 @pytest.mark.cuda

@@ -798,22 +798,26 @@ def _emulate_k2_launch2(plan, x, sh, w, g, n_edges, sm_count=3, fold=None):
     workspace), with ``w`` None: K7-B's launch 2 (k2::rad_dW_kernel), each
     step's w fan slice rebuilt from h through the w packing and rounded to
     h's dtype (zero past the group's span), and the d[Wr; offset] tiles
-    (``_k7_wr_partials``) in the same grid and rows, after dW.  Returns (the
-    partial rows, how often each element was written)."""
+    (``_k7_wr_partials``) in the same grid and rows, after dW; with the
+    workspace None, K7-LW (k2::rad_W_leg_kernel): the w-rebuilding dW tiles
+    alone.  Returns (the partial rows, how often each element was
+    written)."""
     _, terms, coeffs, _, _, _, _ = plan.bwd_tables(torch.device("cpu"))
     kt = plan.k2_tables(torch.device("cpu"))
     terms, coeffs, gk = terms.tolist(), coeffs.tolist(), kt.gk.tolist()
     E = x.shape[0]
     n_tiles, width = kt.tiles.shape[0], plan.w_numel
+    wr_tiles = fold is not None and fold[2] is not None  # K7-B: the d[Wr; offset] tiles too
     if fold is not None:
         h, hd = fold[0], plan.radial_fold
         Wl, packs = _k7_packs(plan, fold[1])
+    if wr_tiles:
         n_tiles += k7_wr_tiles(hd, Wl.shape[1])
         width += (hd + 1) * Wl.shape[1]
     n_ranges, range_len = k2_ranges(E, n_tiles, sm_count)
     part = torch.zeros(n_ranges, width, dtype=x.dtype)
     writes = torch.zeros(n_ranges, width, dtype=torch.int64)
-    if fold is not None:
+    if wr_tiles:
         part[:, plan.w_numel :], writes[:, plan.w_numel :] = _k7_wr_partials(
             plan, h, fold[2], n_edges, True, range_len)
     for ri in range(n_ranges):
@@ -1625,6 +1629,15 @@ def _emulate_k7b(plan, x, sh, h, Wrs, W_flat, g, n_edges, sm_count=3):
                                        fold=(h, Wrs, dw))
     red = _sum_rows(part)
     return (dx, dh, _k7_dWrs(plan, red[plan.w_numel :]), red[: plan.w_numel]), writes
+
+
+def _emulate_k7lw(plan, g, x, sh, h, Wrs, n_edges, sm_count=3):
+    """K7-LW as it runs: K7-B's launch 2 without the d[Wr; offset] tiles
+    (``_emulate_k2_launch2`` with no dw workspace) and the row sum: dW_flat,
+    with how often each partial element was written."""
+    part, writes = _emulate_k2_launch2(plan, x, sh, None, g, n_edges, sm_count,
+                                       fold=(h, Wrs, None))
+    return _sum_rows(part), writes
 
 
 def _emulate_k7wr(plan, g, x, sh, h, W_flat, n_edges, ones=True, sm_count=3):

@@ -51,10 +51,16 @@ from equiformer_tpu_torch.kernels import (  # noqa: E402
     dtp_lin_kron_plain,
     kron_meta,
 )
-from equiformer_tpu_torch.kernels.dtp_lin_kron import dg_splits  # noqa: E402
+from equiformer_tpu_torch.kernels.dtp_lin import (  # noqa: E402
+    K2_COL_TILE,
+    K2_EDGES,
+    K2_FAN_TILE,
+    k2_ranges,
+)
 from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer as TModel  # noqa: E402
 from equiformer_tpu_torch.nn.tp_modules import KRON_OVERRIDES_FOLD  # noqa: E402
 from equiformer_tpu_torch.utils import params_from_jax, torch_name  # noqa: E402
+from tests.test_torch_kernels import _unpack_k2  # noqa: E402
 
 IRR = "8x0e+4x1e+2x2e"
 SH = "1x0e+1x1e+1x2e"
@@ -151,64 +157,106 @@ def _walk_fwd(meta, x, sh, w, G, n):
     return out
 
 
-def _walk_bwd(meta, x, sh, w, G, g, n):
-    """K8-B's two launches over their tables in torch: dx and dw per (g, k)
-    from dkop chunks of whole triples, dw flushed through dwmap at each
-    group's last component; dG by tiles over edge ranges, summed in order.
-    Every dG element is written by exactly one tile."""
-    (gk, rows, chunks, trips, dwmap, tiles, gt_index, span_max, cp_max,
-     ch_max) = meta.device_tables(torch.device("cpu"))
+def _packed_GT(meta, G, row):
+    """The G^T [round8(n_k), round16(cols)] of one gk row of
+    ``meta.bwd_tables`` from the packed ``cat([G, 0])[gp_index]``,
+    unpacked by the mma fragment layout (``_unpack_k2``): rows are Kop rows,
+    columns G's."""
+    kt = meta.bwd_tables(torch.device("cpu"))
+    n_k, cols, gp_off, cp = row[0], row[1], row[6], row[7]
+    Gp = torch.cat([G, G.new_zeros(1)])[kt.gp_index]
+    return _unpack_k2(Gp[gp_off : gp_off + -(-n_k // 8) * 8 * cp], n_k, cols)
+
+
+def _walk_bwd(meta, x, sh, w, G, g, n, sm_count=3, tile=16):
+    """K8-B's two launches (K2's, csrc/dtp_lin_bwd.cu) over
+    ``meta.bwd_tables`` in torch.  Launch 1, per 16-edge tile: per (g, k)
+    the cotangent slice padded to the K step, dkop through the packed G^T
+    (unpacked by the fragment layout), the triples' transposes into dx and
+    the group's dw, flushed through dwmap at its last component; tiles past
+    n zero.  Launch 2: per edge range (``k2_ranges``, whole steps of
+    K2_EDGES, stopped at n) and dG tile, Kop's rows of the tile rebuilt per
+    step from the triples that reach them, Kop^T g into the tile's
+    accumulator, written once to the range's partial row; the rows summed in
+    order.  Returns (dx, dw, dG, how often each partial element was
+    written)."""
+    kt = meta.bwd_tables(torch.device("cpu"))
     plan, E = meta.plan, x.shape[0]
-    g = g.clone()
-    g[n:] = 0
-    GT = G[gt_index]
+    gk, terms = kt.gk.tolist(), kt.terms.tolist()
+    dwmap = kt.dwmap.tolist()
+    assert bool((kt.coeffs == 1).all())
     dx = torch.zeros((E, plan.d_x), dtype=x.dtype)
     dw = None if w is None else torch.zeros((E, plan.d_w), dtype=x.dtype)
-    s_dw = torch.zeros((E, span_max), dtype=x.dtype)
-    assert cp_max % 4 == 0 and ch_max == int(chunks[:, 3].max())
-    for row0, row1, cols, oc, g_off, c0, c1, sb, sn, first, last, _ in gk.tolist():
-        n_k = row1 - row0
-        if first:
-            s_dw.zero_()
-        GTb = GT[g_off : g_off + cols * n_k].view(cols, n_k)
-        for t0, t1, crow, cn in chunks[c0:c1].tolist():
-            assert cn <= max(ch_max, 1) and row0 <= crow and crow + cn <= row1
-            dk = g[:, oc : oc + cols] @ GTb[:, crow - row0 : crow - row0 + cn]
+    GT = [_packed_GT(meta, G, row) for row in gk]
+    for e0 in range(0, E, tile):
+        n_live = max(0, min(tile, n - e0, E - e0))
+        rows = slice(e0, e0 + n_live)
+        if n_live == 0:
+            continue  # the wrapper's zeros stand for launch 1's
+        s_dx = torch.zeros(n_live, plan.d_x, dtype=x.dtype)
+        for q, (n_k, cols, oc, _, tb, te, _, cp, sb, sn, first, last) in enumerate(gk):
+            assert cp % 16 == 0 and cp <= kt.cp_max and -(-n_k // 8) * 8 <= kt.fd_max
+            if first:
+                s_dw = torch.zeros(n_live, max(kt.span_max, 1), dtype=x.dtype)
+                s_w = None if w is None else w[rows][:, dwmap[sb : sb + sn]]
+            s_g = torch.zeros(n_live, cp, dtype=x.dtype)
+            s_g[:, :cols] = g[rows, oc : oc + cols]
+            dkop = s_g @ GT[q].T  # [n_live, round8(n_k)]
             width = 0
-            for a, col, bw, bl, mul, off, _, _ in trips[t0:t1].tolist():
-                assert off == width
+            for a, col, _, fc, mul, bl in terms[tb:te]:
+                assert fc == width
                 width += mul
-                d = dk[:, off : off + mul] * sh[:, col : col + 1]
-                if w is None:
-                    dx[:, a : a + mul] += d
+                d = sh[rows, col : col + 1] * dkop[:, fc : fc + mul]
+                if s_w is None:
+                    s_dx[:, a : a + mul] += d
                 else:
-                    dx[:, a : a + mul] += d * w[:, bw : bw + mul]
-                    s_dw[:, bl : bl + mul] += d * x[:, a : a + mul]
-            assert width == cn
-        if last and w is not None:
-            dw[:, dwmap[sb : sb + sn].long()] = s_dw[:, :sn]
-    rows = rows.long()
-    n_split = dg_splits(tiles.shape[0], 132)
-    per = -(-(-(-E // n_split)) // 32) * 32
-    part = torch.zeros((n_split, meta.numel), dtype=x.dtype)
-    hit = torch.zeros(meta.numel, dtype=torch.int64)
-    for r0, nr, col0, nc, cols, g_elem, oc, _ in tiles.tolist():
-        r = rows[r0 : r0 + nr]
-        kop = sh[:, r[:, 1]] * x[:, r[:, 0]] * (1 if w is None else w[:, r[:, 2]])
-        idx = (g_elem + torch.arange(nr)[:, None] * cols + col0 + torch.arange(nc)).reshape(-1)
-        hit[idx] += 1
-        for s in range(n_split):
-            e0, e1 = s * per, min(n, s * per + per)
-            if e1 > e0:
-                part[s, idx] = (kop[e0:e1].T @ g[e0:e1, oc + col0 : oc + col0 + nc]).reshape(-1)
-    assert bool((hit == 1).all())
-    return dx, dw, part.sum(0)
+                    s_dx[:, a : a + mul] += d * s_w[:, bl : bl + mul]
+                    s_dw[:, bl : bl + mul] += d * x[rows, a : a + mul]
+            assert width == n_k
+            if last and w is not None:
+                dw[rows, dwmap[sb : sb + sn]] = s_dw[:, :sn]
+        dx[rows] = s_dx
+    n_ranges, range_len = k2_ranges(E, kt.tiles.shape[0], sm_count)
+    part = torch.zeros((n_ranges, meta.numel), dtype=x.dtype)
+    writes = torch.zeros((n_ranges, meta.numel), dtype=torch.int64)
+    for ri in range(n_ranges):
+        r_end = min(E, ri * range_len + range_len, n)
+        for q0, n_comp, f0, fm, j0, fn in kt.tiles.tolist():
+            assert n_comp == 1 and fm <= K2_FAN_TILE and fn <= K2_COL_TILE
+            n_k, cols, oc, g_off, tb, te = gk[q0][:6]
+            acc = torch.zeros(K2_FAN_TILE, K2_COL_TILE, dtype=x.dtype)
+            for e0 in range(ri * range_len, r_end, K2_EDGES):
+                live = slice(e0, min(r_end, e0 + K2_EDGES))
+                kop = torch.zeros(K2_EDGES, K2_FAN_TILE, dtype=x.dtype)
+                m = live.stop - live.start
+                for a, col, b, fc, mul, _ in terms[tb:te]:
+                    lo, hi = max(fc, f0), min(fc + mul, f0 + fm)
+                    if lo >= hi:
+                        continue
+                    u0, u1 = lo - fc, hi - fc
+                    v = sh[live, col : col + 1] * x[live, a + u0 : a + u1]
+                    if w is not None:
+                        v = v * w[live, b + u0 : b + u1]
+                    kop[:m, lo - f0 : hi - f0] = v
+                gs = torch.zeros(K2_EDGES, K2_COL_TILE, dtype=x.dtype)
+                gs[:m, :fn] = g[live, oc + j0 : oc + j0 + fn]
+                acc += kop.T @ gs
+            idx = (g_off + (f0 + torch.arange(fm))[:, None] * cols + j0
+                   + torch.arange(fn)).reshape(-1)
+            part[ri, idx] = acc[:fm, :fn].reshape(-1)
+            writes[ri, idx] += 1
+    dG = part[0].clone()
+    for row in part[1:]:
+        dG += row
+    return dx, dw, dG, writes
 
 
 @pytest.mark.parametrize("case", list(PLANS))
 def test_kernel_tables_drive_the_plain_math(case):
-    """Walking K8-F's and K8-B's tables the way csrc/dtp_lin_kron.cu does
-    gives the plain versions (fp64), rows past n_edges zero."""
+    """Walking K8-F's tables the way csrc/dtp_lin_kron.cu does, and K8-B's
+    the way K2's two launches in csrc/dtp_lin_bwd.cu do, gives the plain
+    versions (fp64), rows past n_edges zero, each dG element written once
+    per edge range."""
     heads, shared, broadcast = PLANS[case]
     plan = DTPLinPlan(depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR)), heads,
                       shared_weights=shared)
@@ -220,12 +268,42 @@ def test_kernel_tables_drive_the_plain_math(case):
     want = dtp_lin_kron_plain(meta, x, sh, w, G, nt)
     assert _rel(_walk_fwd(meta, x, sh, w, G, n), want) < 1e-13
     assert float(want[n:].abs().max()) == 0.0
-    got = _walk_bwd(meta, x, sh, w, G, g, n)
+    *got, writes = _walk_bwd(meta, x, sh, w, G, g, n)
+    assert bool((writes == 1).all())
     for a, b in zip(got, dtp_lin_kron_bwd_plain(meta, x, sh, w, G, g, nt)):
         assert (a is None) == (b is None)
         if a is not None:
             assert _rel(a, b) < 1e-13
     assert float(got[0][n:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", list(PLANS) + ["flagship-sep_act", "flagship-sep_value"])
+def test_kron_packed_GT_holds_each_element_once(case):
+    """K8-B's G^T packing (``gp_index``, B-fragment order): unpacked by the
+    mma fragment layout itself, each (g, k)'s slots hold G's block
+    transposed, every pad slot (Kop rows past n_k, columns past cols) is
+    zero, and every element of G is packed exactly once."""
+    if case.startswith("flagship"):
+        plan = _flagship_sites()[case.split("-")[1]][0]
+    else:
+        heads, shared, _ = PLANS[case]
+        plan = DTPLinPlan(depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR)), heads,
+                          shared_weights=shared)
+    meta = kron_meta(plan)
+    kt = meta.bwd_tables(torch.device("cpu"))
+    G = torch.arange(1, meta.numel + 1, dtype=torch.float64)
+    used = torch.zeros(meta.numel + 1, dtype=torch.int64)
+    used.index_add_(0, kt.gp_index, torch.ones_like(kt.gp_index))
+    assert bool((used[:-1] == 1).all())
+    gp_end = 0
+    for row, (_, _, _, n_k, cols, _, g_off) in zip(kt.gk.tolist(), meta.blocks()):
+        assert row[:2] == [n_k, cols] and row[3] == g_off and row[6] == gp_end
+        got = _packed_GT(meta, G, row)
+        want = torch.zeros_like(got)
+        want[:n_k, :cols] = G[g_off : g_off + n_k * cols].view(n_k, cols)
+        assert torch.equal(got, want)
+        gp_end += got.numel()
+    assert gp_end == kt.gp_index.numel()
 
 
 # ------------------------------------------------- against JAX's kron op

@@ -47,6 +47,7 @@ from tests.test_torch_kernels import (  # noqa: E402
     _k7_wr_partials,
     _sum_rows,
     _emulate_k7b,
+    _emulate_k7lw,
     _emulate_k7wr,
 )
 
@@ -611,23 +612,19 @@ def test_rad_kernel_tables_drive_the_plain_math(case):
 
 
 def _emulate_rad_leg(plan, leg, x, sh, h, Wrs, W_flat, g, n_edges, n_parts=3, tile=16):
-    """The folded legs of csrc/dtp_lin_leg.cu (K7-L's "x", "sh", "h") and
-    csrc/dtp_lin_legW.cu (K7-LW, "W") in torch: per tile the group's w
-    built from the local [Wr; offset] at its first component (x, sh and W
-    legs), then either the z recompute and the block's dW partial row (W)
-    or dz and the leg's term transpose, the group's dw tile contracted at
-    its last component (h: dh += dw Wr^T); ``n_parts`` blocks walk the
-    tiles, the W leg's partial rows summed in block order."""
+    """The folded legs of csrc/dtp_lin_leg.cu (K7-L's "x", "sh", "h") in
+    torch: per tile the group's w built from the local [Wr; offset] at its
+    first component (x and sh legs), then dz and the leg's term transpose,
+    the group's dw tile contracted at its last component (h: dh += dw
+    Wr^T); ``n_parts`` blocks walk the tiles."""
     cpu = torch.device("cpu")
-    tabs = plan.bwd_tables(cpu) if leg == "W" else kho.bwd3_tables(plan, cpu)
-    gk, terms, coeffs, _, wt_index, *_ = tabs
+    gk, terms, coeffs, _, wt_index, *_ = kho.bwd3_tables(plan, cpu)
     gk, terms, coeffs = gk.tolist(), terms.tolist(), coeffs.tolist()
     cols_loc = plan.radial_cols(cpu)
     Wl, hd = Wrs[:, cols_loc], plan.radial_fold
     WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
     E_ = g.shape[0]
-    out = torch.zeros(E_, {"x": plan.d_x, "sh": plan.d_sh, "h": hd}.get(leg, 0), dtype=g.dtype)
-    part = torch.zeros(n_parts, plan.w_numel, dtype=g.dtype)
+    out = torch.zeros(E_, {"x": plan.d_x, "sh": plan.d_sh, "h": hd}[leg], dtype=g.dtype)
     for b in range(n_parts):
         for t in range(b, -(-E_ // tile), n_parts):
             e0 = t * tile
@@ -637,19 +634,12 @@ def _emulate_rad_leg(plan, leg, x, sh, h, Wrs, W_flat, g, n_edges, n_parts=3, ti
             rows = slice(e0, e0 + n_live)
             for fs, cols, out_col, w_off, tb, te, wt_off, cp, sb, sn, first, last in gk:
                 if first:
-                    if leg in ("x", "sh", "W"):
+                    if leg in ("x", "sh"):
                         ws = _tile_w(Wl, hd, h[rows], sb, sn)
                     dws = torch.zeros(n_live, sn, dtype=g.dtype)
                 gt = torch.zeros(n_live, cp, dtype=g.dtype)
                 gt[:, :cols] = g[rows, out_col : out_col + cols]
                 tt = list(zip(terms[tb:te], coeffs[tb:te]))
-                if leg == "W":
-                    z = torch.zeros(n_live, fs, dtype=g.dtype)
-                    for (a, col, _, fc, mul, bl), c in tt:
-                        z[:, fc : fc + mul] += c * sh[rows, col : col + 1] \
-                            * x[rows, a : a + mul] * ws[:, bl : bl + mul]
-                    part[b, w_off : w_off + fs * cols] += (z.T @ gt[:, :cols]).reshape(-1)
-                    continue
                 dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
                 for (a, col, _, fc, mul, bl), c in tt:
                     d = c * dz[:, fc : fc + mul]
@@ -661,19 +651,19 @@ def _emulate_rad_leg(plan, leg, x, sh, h, Wrs, W_flat, g, n_edges, n_parts=3, ti
                         dws[:, bl : bl + mul] += sh[rows, col : col + 1] * d * x[rows, a : a + mul]
                 if last and leg == "h":
                     out[rows] += dws @ Wl[:hd, sb : sb + sn].T
-    if leg in ("x", "sh", "h"):
-        return out
-    return _sum_rows(part)
+    return out
 
 
 @pytest.mark.parametrize("case", list(HEADS))
 def test_rad_leg_kernel_tables_drive_the_plain_math(case):
-    """K7-L (x, sh, h legs) and K7-LW walk the tables with each group's w
-    and dw in local columns, K7-Wr (h's ones column 1 and 0) K5b's w leg on
-    K2's launch 1 and the d[Wr; offset] tiles over its edge ranges; walking
-    them in torch gives dtp_lin_rad_leg_plain, dtp_lin_rad_legW_plain and
+    """K7-L (x, sh, h legs) walks the tables with each group's w and dw in
+    local columns, K7-LW K2's launch 2 with each step's w rebuilt from h
+    (also with [Wr; 0], a tangent in h's slot: the offset comes from the
+    operand), K7-Wr (h's ones column 1 and 0) K5b's w leg on K2's launch 1
+    and the d[Wr; offset] tiles over its edge ranges; walking them in torch
+    gives dtp_lin_rad_leg_plain, dtp_lin_rad_legW_plain and
     dtp_lin_rad_legWr_plain (1e-6: the tables' fp32 CG coefficients), with
-    padded rows past n_edges."""
+    padded rows past n_edges and each dW element written once per range."""
     from equiformer_tpu_torch.kernels import (
         dtp_lin_rad_leg_plain, dtp_lin_rad_legW_plain, dtp_lin_rad_legWr_plain,
     )
@@ -685,8 +675,10 @@ def test_rad_leg_kernel_tables_drive_the_plain_math(case):
         want = dtp_lin_rad_leg_plain(plan, leg, g, ops["x"], ops["sh"], ops["h"], Wrs, W, n)
         got = _emulate_rad_leg(plan, leg, ops["x"], ops["sh"], ops["h"], Wrs, W, g, N_REAL)
         assert got.shape == want.shape and _rel(got, want) < 1e-6, leg
-    want = dtp_lin_rad_legW_plain(plan, g, x, sh, h, Wrs, n)
-    assert _rel(_emulate_rad_leg(plan, "W", x, sh, h, Wrs, W, g, N_REAL), want) < 1e-6
+    for Wl in (Wrs, torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])):
+        want = dtp_lin_rad_legW_plain(plan, g, x, sh, h, Wl, n)
+        got, writes = _emulate_k7lw(plan, g, x, sh, h, Wl, N_REAL)
+        assert bool((writes == 1).all()) and _rel(got, want) < 1e-6
     for ones in (True, False):
         want = dtp_lin_rad_legWr_plain(plan, g, x, sh, h, W, n, ones)
         got = _emulate_k7wr(plan, g, x, sh, h, W, N_REAL, ones)
