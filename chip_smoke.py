@@ -104,10 +104,11 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    bfloat16 CPU plain path's, with a floor of 2e-2 for the two scalars (one
    number of the CPU path can land near its float64 value by chance).
 
-10a. K7 kernels — the radial fold's K7-F (``dtp_lin_rad_fwd``) with K7-B
-   (``dtp_lin_rad_bwd``) at the QM9 sep_act and edge-degree sites and with
-   K7-B3 (``dtp_lin_rad_bwd3``) at the exp_l3 sep_act site, float32 and
-   bfloat16, against their plain versions with the tolerances of phase 3,
+10a. K7 kernels — the radial fold's K7-F (``dtp_lin_rad_fwd``; also with
+   [Wr; 0], and twice for equal bits) with K7-B (``dtp_lin_rad_bwd``) at the
+   QM9 sep_act and edge-degree sites and with K7-B3 (``dtp_lin_rad_bwd3``)
+   at the exp_l3 sep_act site, float32 and bfloat16, against their plain
+   versions with the tolerances of phase 3,
    each beside the unfolded pair on the same inputs (cuBLAS ``h @ Wr +
    offset`` then K1; K2, K5a then cuBLAS for dh and d[Wr; offset]).
 10b. fold — the QM9 flagship and the exp_l3 force model built with
@@ -117,14 +118,15 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    against the fused route's (ROUTE_RTOL), phase 5, and phase 6 (7 K7-F + 6
    K1, 7 K7-B3 + 6 K5a) against the fused phases' float64 references.
 10c. K7 legs — the fold's leg kernels K7-L (``dtp_lin_rad_leg``: the x, sh
-   and h legs), K7-LW (``dtp_lin_rad_legW``) and K7-Wr
-   (``dtp_lin_rad_legWr``) at the exp_l3 sep_act and edge-degree sites of
-   batch 0, float32 and bfloat16, against their plain versions with the
-   tolerances of phase 3, timed the same way, each beside the unfolded pair
-   on the same inputs (cuBLAS ``h @ Wr + offset`` then K5b or K5c; K5b's w
-   leg then cuBLAS ``dw Wr^T`` or ``[h, 1]^T dw``), with their bounds and
-   resident blocks per SM (K7-LW and K7-Wr run on K2's launches: K5c's dW
-   tiles with w rebuilt from h; K5b's w leg, then the d[Wr; offset] tiles).
+   and h legs, also with [Wr; 0], and twice for equal bits), K7-LW
+   (``dtp_lin_rad_legW``) and K7-Wr (``dtp_lin_rad_legWr``) at the exp_l3
+   sep_act and edge-degree sites of batch 0, float32 and bfloat16, against
+   their plain versions with the tolerances of phase 3, timed the same way,
+   each beside the unfolded pair on the same inputs (cuBLAS ``h @ Wr +
+   offset`` then K5b or K5c; K5b's w leg then cuBLAS ``dw Wr^T`` or ``[h,
+   1]^T dw``), with their bounds (all three run on K2's launches: K7-L K5b's
+   legs with w built or dh taken on chip; K7-LW K5c's dW tiles with w
+   rebuilt from h; K7-Wr K5b's w leg, then the d[Wr; offset] tiles).
 10d. fold md17 train — phase 9 with ``radial_fold`` and ``radial_fold_ho``
    (18 K1 + 27 K7-F, 6 K5a + 14 K7-B3, 12 K5b + 27 K7-L, 18 K5c + 27 K7-LW,
    27 K7-Wr, 38 K3 per step; FOLD_TIMED_STEPS timed steps; peak memory
@@ -256,7 +258,7 @@ SOURCES = {
     "dtp_lin_rad_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
     "dtp_lin_rad_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
-    "dtp_lin_rad_leg": "equiformer_tpu_torch/csrc/dtp_lin_leg.cu",
+    "dtp_lin_rad_leg": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_legW": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_legWr": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_kron_fwd": "equiformer_tpu_torch/csrc/dtp_lin_kron.cu",
@@ -1221,7 +1223,7 @@ def md17_train_kernel_phase(torch, model, batch, dev, records):
                 device_line(torch, "K5b", f"{site}-{leg}", dt_name, ms, call)
                 print(f"dtp_lin_leg {leg} {site} {dt_name}: {-(-E // 16)} tiles x "
                       f"{len(plan.groups)} irrep groups" + (
-                          f", {leg_occupancy(plan, dt, leg)} resident blocks per SM"
+                          f", {leg_occupancy(plan, dt)} resident blocks per SM"
                           if leg == "sh" else ""))
             call = lambda: dtp_lin_legW(plan, cot, x, sh, w, n_edges)  # noqa: E731
             k, p, again = call(), dtp_lin_legW_plain(plan, cot, x, sh, w, n_edges), call()
@@ -1355,7 +1357,9 @@ def routes_agree(pt, torch, make, max_edges, batch, dev,
 def k7_kernel_phase(torch, sites, dev, records):
     """K7-F with K7-B (QM9 sep_act and edge degree) or K7-B3 (MD17 L3
     sep_act) against their plain versions at one batch's shapes, fp32 and
-    bf16, timed as phase 3, beside the unfolded pair on the same inputs:
+    bf16 (K7-F also with [Wr; 0], as a tangent in h's slot gives it, and
+    twice for equal bits), timed as phase 3, beside the unfolded pair on the
+    same inputs:
     cuBLAS ``w = h @ Wr + offset`` then K1; K2 then cuBLAS ``dh = dw Wr^T``
     and ``d[Wr; offset] = [h, 1]^T dw``; K5a then ``dh = dw Wr^T``.
     ``sites``: name -> (folded plan, head modules, row-broadcast x, radial
@@ -1392,16 +1396,21 @@ def k7_kernel_phase(torch, sites, dev, records):
             tp_elems, macs = dtp_work(plan)
             rad_ops = 2 * n * (hd + 1) * plan.d_w  # one product with [Wr; offset]
 
-            k = dtp_lin_rad_fwd(plan, x, sh, h, Wrs, W, n_edges)
+            Wr0 = torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])  # [Wr; 0]: a tangent in h
+            k, again = (dtp_lin_rad_fwd(plan, x, sh, h, Wrs, W, n_edges) for _ in range(2))
             p = dtp_lin_rad_plain(plan, x, sh, h, Wrs, W, n_edges)
+            k0 = dtp_lin_rad_fwd(plan, x, sh, h, Wr0, W, n_edges)
+            p0 = dtp_lin_rad_plain(plan, x, sh, h, Wr0, W, n_edges)
             torch.cuda.synchronize()
+            if not torch.equal(k, again):
+                raise RuntimeError(f"K7-F at {site} {dt_name} repeats no bits")
             ms = cuda_time_ms(lambda: dtp_lin_rad_fwd(plan, x, sh, h, Wrs, W, n_edges), torch)
             plain_ms = cuda_time_ms(lambda: dtp_lin_rad_plain(plan, x, sh, h, Wrs, W, n_edges),
                                     torch)
             pair_ms = cuda_time_ms(lambda: dtp_lin_fwd(
                 unf, x, sh, torch.addmm(Wrs[-1], h, Wrs[:-1]), W, n_edges), torch)
-            record(records, "dtp_lin_rad_fwd", site, dt_name, shape, [rel_err(k, p)], ms,
-                   plain_ms, in_bytes + size * E * plan.d_out,
+            record(records, "dtp_lin_rad_fwd", site, dt_name, shape,
+                   [rel_err(k, p), rel_err(k0, p0)], ms, plain_ms, in_bytes + size * E * plan.d_out,
                    n * (2 * macs + 4 * tp_elems) + rad_ops, pair_ms=pair_ms)
 
             if bwd == "bwd":
@@ -1467,12 +1476,14 @@ def fold_sites(pt, make, max_edges, batch, md17_max_edges, md17_batch):
 def k7_leg_kernel_phase(torch, sites, dev, records):
     """K7-L (``dtp_lin_rad_leg``: the x, sh and h legs), K7-LW
     (``dtp_lin_rad_legW``) and K7-Wr (``dtp_lin_rad_legWr``) against their
-    plain versions at the exp_l3 shapes of one batch, fp32 and bf16, timed
-    as phase 3, each beside the unfolded pair on the same inputs: cuBLAS
-    ``w = h @ Wr + offset`` then K5b's leg (for h: K5b's w leg, then cuBLAS
-    ``dh = dw Wr^T``) or K5c; for K7-Wr K5b's w leg, then cuBLAS ``[h, 1]^T
-    dw``; with the resident blocks per SM of the folded kernel and of the
-    unfolded one.  ``sites``: name -> (folded plan, head modules,
+    plain versions at the exp_l3 shapes of one batch, fp32 and bf16 (K7-L
+    also with [Wr; 0], as a tangent in h's slot gives it, and twice for
+    equal bits), timed as phase 3, each beside the unfolded pair on the same
+    inputs: cuBLAS ``w = h @ Wr + offset`` then K5b's leg (for h: K5b's w
+    leg, then cuBLAS ``dh = dw Wr^T``) or K5c; for K7-Wr K5b's w leg, then
+    cuBLAS ``[h, 1]^T dw``; K7-L's legs run on K2's launch 1 cut by irrep
+    group, as K5b's do (K5b's sh leg's resident blocks per SM printed
+    beside).  ``sites``: name -> (folded plan, head modules,
     row-broadcast x, radial profile, batch geometry).  Bounds: every operand
     but the leg's own read once over the real edges, the leg written once;
     K5b's or K5c's operations plus 2 * (hd + 1) * d_w per real edge for the
@@ -1509,9 +1520,15 @@ def k7_leg_kernel_phase(torch, sites, dev, records):
                         "W": size * plan.w_numel}
             written = {"x": size * E * plan.d_x, "sh": size * E * plan.d_sh, "h": size * E * hd,
                        "W": 4 * plan.w_numel, "Wr": 4 * (hd + 1) * plan.d_w}
+            Wr0 = torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])  # [Wr; 0]: a tangent in h
             legs = {}  # name: (kernel, (kernel call, plain call, unfolded pair))
+            zero_offset = {}  # K7-L's leg: (kernel call, plain call) with [Wr; 0]
             for leg in ("x", "sh", "h"):
                 o = {"x": x, "sh": sh, "h": h, leg: None}
+                zero_offset[leg] = tuple(
+                    lambda o=o, leg=leg, f=f: f(plan, leg, cot, o["x"], o["sh"], o["h"], Wr0, W,
+                                                n_edges)
+                    for f in (dtp_lin_rad_leg, dtp_lin_rad_leg_plain))
                 legs[leg] = ("dtp_lin_rad_leg", (
                     lambda o=o, leg=leg: dtp_lin_rad_leg(plan, leg, cot, o["x"], o["sh"], o["h"],
                                                          Wrs, W, n_edges),
@@ -1532,21 +1549,24 @@ def k7_leg_kernel_phase(torch, sites, dev, records):
                 lambda: hx.t() @ dtp_lin_leg(unf, "w", cot, x, sh, None, W, n_edges)))
             for leg, (kernel, (call, plain, pair)) in legs.items():
                 k, p = call(), plain()
+                errs = [rel_err(k, p)]
+                if leg in zero_offset:
+                    again = call()
+                    torch.cuda.synchronize()
+                    if not torch.equal(k, again):
+                        raise RuntimeError(f"K7-L's {leg} leg at {site} {dt_name} repeats no bits")
+                    errs.append(rel_err(*(f() for f in zero_offset[leg])))
                 torch.cuda.synchronize()
                 ms = cuda_time_ms(call, torch)
                 plain_ms = cuda_time_ms(plain, torch, reps=3, inner=3)
                 pair_ms = cuda_time_ms(pair, torch)
                 nbytes = sum(v for key, v in op_bytes.items() if key != leg) + written[leg]
-                record(records, kernel, f"md17-{site}-{leg}", dt_name, shape, [rel_err(k, p)], ms,
-                       plain_ms, nbytes, ops, pair_ms=pair_ms)
-                if leg in ("W", "Wr"):  # K5c's dW tiles; K5b's w leg and the d[Wr; offset] tiles
-                    print(f"{kernel} {leg} {site} {dt_name}: runs on K2's launches, as the "
-                          "unfolded leg does")
-                    continue
-                unf_occ = (f"K5b's sh leg: {leg_occupancy(unf, dt, 'sh')}" if leg == "sh" else
-                           "the unfolded leg runs on K2's launches")
-                print(f"{kernel} {leg} {site} {dt_name}: {leg_occupancy(plan, dt, leg)} resident "
-                      f"blocks per SM ({unf_occ})")
+                record(records, kernel, f"md17-{site}-{leg}", dt_name, shape, errs, ms, plain_ms,
+                       nbytes, ops, pair_ms=pair_ms)
+                sh_occ = (f" (K5b's sh leg: {leg_occupancy(unf, dt)} resident blocks per SM)"
+                          if leg == "sh" else "")
+                print(f"{kernel} {leg} {site} {dt_name}: runs on K2's launches, as the unfolded "
+                      f"leg does{sh_occ}")
     for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
         fn.launches = saved[name]
 

@@ -62,207 +62,33 @@
 // No atomics: every output element has one writer, and the same inputs
 // give the same bits.
 //
-// The radial-folded variant (K7-F, dtp_lin_fwd_kernel<T, kRad = true>;
-// replaces the radial branch of _fwd_kernel, dtp_lin_pallas.py:604-611 with
-// _radial_w_fill :482) is still the first K1 design, kept instruction for
-// instruction until its own redesign; its kRad = false paths are no longer
-// instantiated.  It reads the radial hidden activation h [E, hd] in place
-// of w and builds each irrep group's w columns in shared memory before the
-// group's first component (csrc/radial.cuh), so w [E, d_w] never goes to
-// device memory.  It walks DTPLinPlan.bwd_tables (12 ints per (g, k), 6
-// per term: the group's w span and each term's local w column).  Shared
-// memory per block: z [32, fs_max], w [32, span_max] and h [32, hd] in
-// fp32, 106 KB at the QM9 sites (2 blocks per SM), 180 KB at MD17 L3 (1
-// block per SM).  One block of 256 threads per tile of 32 edges builds
-// z[g,k] in shared memory (a term maps flat index i to (row, u) by i /
-// mul) and multiplies it by W_g on the CUDA cores, each warp owning 4 edges
-// and each lane 2 columns per pass.
+// The radial fold (K7-F, dtp_lin_rad_fwd; replaces the radial branch of
+// _fwd_kernel, dtp_lin_pallas.py:604-611 with _radial_w_fill :482) is K1's
+// block with w built on chip: its operand is the radial MLP's last hidden
+// activation h [E, hd] and w = [h, 1] @ [Wr; offset].  Every w column feeds
+// one irrep group, and a group's fan column f is its local w column
+// (DTPLinPlan.k7_tables checks it), so a block builds only its group's w:
+// it stages h [tile, hd] in the dtype, and before the first component w_g
+// [tile, span] = h Wr_g + offset_g on mma.sync into shared memory, rounded
+// to the dtype as the plain version rounds it (Wr_g packed in B-fragment
+// order and the offsets in local order by the wrapper's one gather,
+// DTPLinPlan.k1_tables(fold=True)); the runs then read w there at their fan
+// column instead of device memory.  The z walk and the head product are
+// K1's.  Shared memory grows by the h and w tiles, so kernels/dtp_lin.py
+// (k1_tile, k1_x_global) keeps two blocks an SM: at QM9 sep_act in fp32 the
+// 16-edge tile (86 KB; the 32-edge tile's 172 KB, one block an SM, took
+// 1.45 ms against 1.02 on an H100 80GB HBM3 at 700 W), and at MD17 L3 in
+// fp32, where the 16-edge tile is 145 KB with x staged, x read through L2
+// (kXg: 91 KB; 0.33 ms against 0.48 staged).  The first design (one block
+// of 8 warps per 32-edge tile walking every (group, component), z W_g and
+// the w build on the CUDA cores) took 3.10 / 2.50 ms fp32 / bf16 at QM9
+// sep_act and 1.63 / 1.66 at MD17 L3 sep_act, this one 1.02 / 0.61 and 0.33
+// / 0.18.
 
 #include <stdint.h>
 
 #include "common.cuh"
 #include "mma.cuh"
-#include "radial.cuh"
-
-namespace {
-
-using eqt::from_f;
-using eqt::to_f;
-
-constexpr int kTile = 32;                      // edges per block
-constexpr int kThreads = 256;                  // 8 warps
-constexpr int kRows = kTile / (kThreads / 32); // edges per warp in the product
-constexpr int kColsPerLane = 2;
-constexpr int kColChunk = 32 * kColsPerLane;   // columns per pass of a warp
-// ints per (g, k) table entry and per term: the first K1's (kRad = false, no
-// longer instantiated), or with the fold DTPLinPlan.bwd_tables (fan stride,
-// cols, out col, W offset, term range, ...; the group's w span at 8-10; per
-// term a_off, sh col, b_off, fan col, mul, and its local w column at 5)
-constexpr int kGkFields = 8;
-constexpr int kTermFields = 5;
-constexpr int kRadGkFields = 12;
-constexpr int kRadTermFields = 6;
-
-template <typename T, bool kRad>
-__global__ void __launch_bounds__(kThreads)
-dtp_lin_fwd_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ sh, int d_sh,
-                   const T* __restrict__ w, int d_w, const T* __restrict__ W,
-                   T* __restrict__ out, int d_out, const int* __restrict__ n_edges_ptr,
-                   int E, const int* __restrict__ gk, int n_gk,
-                   const int* __restrict__ terms, const float* __restrict__ coeffs, int fs_max,
-                   const T* __restrict__ h, int hd, const T* __restrict__ Wl, int n_loc,
-                   int span_max) {
-  constexpr int kGk = kRad ? kRadGkFields : kGkFields;
-  constexpr int kTf = kRad ? kRadTermFields : kTermFields;
-  extern __shared__ float4 smem4[];
-  float* z = reinterpret_cast<float*>(smem4);
-  float* s_w = z + kTile * fs_max;        // kRad: [kTile, span] of the current group
-  float* s_h = s_w + kTile * span_max;    // kRad: [kTile, hd]
-  const int tid = threadIdx.x;
-  const int e0 = blockIdx.x * kTile;
-  const int n_rows = min(kTile, E - e0);  // rows of this tile inside [0, E)
-  const int n_live = max(0, min(n_rows, __ldg(n_edges_ptr) - e0));  // real edges
-
-  if (n_live == 0) {
-    for (int i = tid; i < n_rows * d_out; i += kThreads) {
-      const int r = i / d_out;
-      out[(long long)(e0 + r) * d_out + (i - r * d_out)] = from_f<T>(0.f);
-    }
-    return;
-  }
-  const int lane = tid & 31;
-  const int r0 = (tid >> 5) * kRows;
-  if constexpr (kRad) {
-    eqt::load_h<kTile, kThreads>(s_h, h, hd, e0, n_live);
-    __syncthreads();
-  }
-
-  for (int q = 0; q < n_gk; ++q) {
-    const int* g = gk + q * kGk;
-    const int fs = g[0], cols = g[1], out_col = g[2], w_off = g[3];
-    const int t_begin = g[4], t_end = g[5];
-    int span = 0;
-    if constexpr (kRad) {
-      span = g[9];
-      if (g[10])  // the group's first component: build its w columns
-        eqt::build_w<kTile, kThreads>(s_w, s_h, hd, Wl, n_loc, g[8], span, n_live);
-    }
-
-    for (int i = tid; i < kTile * fs; i += kThreads) z[i] = 0.f;
-    __syncthreads();
-
-    // ---- z[g,k] from the term table (rows >= n_live stay zero)
-    for (int t = t_begin; t < t_end; ++t) {
-      const int* tt = terms + t * kTf;
-      const int a = tt[0], col = tt[1], b = tt[2], fc = tt[3], mul = tt[4];
-      const float c = coeffs[t];
-      for (int i = tid; i < n_live * mul; i += kThreads) {
-        const int r = i / mul;
-        const int u = i - r * mul;
-        const long long e = e0 + r;
-        float v = c * to_f(sh[e * d_sh + col]) * to_f(x[e * sx + a + u]);
-        if constexpr (kRad) {
-          v *= s_w[r * span + tt[5] + u];
-        } else {
-          if (w != nullptr) v *= to_f(w[e * d_w + b + u]);
-        }
-        z[r * fs + fc + u] += v;
-      }
-    }
-    __syncthreads();
-
-    // ---- out tile = z[g,k] @ W_g
-    const T* Wg = W + w_off;
-    for (int c0 = 0; c0 < cols; c0 += kColChunk) {
-      float acc[kRows][kColsPerLane];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j) acc[r][j] = 0.f;
-
-      for (int f = 0; f < fs; f += 4) {
-        float4 zq[kRows];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          zq[r] = *reinterpret_cast<const float4*>(z + (r0 + r) * fs + f);
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j) {
-          const int c = c0 + lane + 32 * j;
-          if (c < cols) {
-            const T* wp = Wg + (long long)f * cols + c;
-            const float w0 = to_f(wp[0]);
-            const float w1 = to_f(wp[cols]);
-            const float w2 = to_f(wp[2 * cols]);
-            const float w3 = to_f(wp[3 * cols]);
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              float s = acc[r][j];
-              s = fmaf(zq[r].x, w0, s);
-              s = fmaf(zq[r].y, w1, s);
-              s = fmaf(zq[r].z, w2, s);
-              s = fmaf(zq[r].w, w3, s);
-              acc[r][j] = s;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int row = r0 + r;
-        if (row >= n_rows) continue;
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j) {
-          const int c = c0 + lane + 32 * j;
-          if (c < cols)
-            out[(long long)(e0 + row) * d_out + out_col + c] = from_f<T>(acc[r][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T, bool kRad>
-int launch(const void* x, long long sx, const void* sh, const void* w, const void* W,
-           void* out, const void* n_edges, int E, int d_sh, int d_w, int d_out,
-           const void* gk, int n_gk, const void* terms, const void* coeffs, int max_fs,
-           const void* h, int hd, const void* Wl, int n_loc, int span_max,
-           cudaStream_t stream) {
-  const int smem = kTile * (max_fs + (kRad ? span_max + hd : 0)) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      dtp_lin_fwd_kernel<T, kRad>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (E + kTile - 1) / kTile;
-  dtp_lin_fwd_kernel<T, kRad><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), sx, static_cast<const T*>(sh), d_sh,
-      static_cast<const T*>(w), d_w, static_cast<const T*>(W), static_cast<T*>(out), d_out,
-      static_cast<const int*>(n_edges), E, static_cast<const int*>(gk), n_gk,
-      static_cast<const int*>(terms), static_cast<const float*>(coeffs), max_fs,
-      static_cast<const T*>(h), hd, static_cast<const T*>(Wl), n_loc, kRad ? span_max : 0);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// K7-F: the forward with w = [h, 1] @ Wl built in the kernel.  gk / terms are
-// DTPLinPlan.bwd_tables'; Wl [hd + 1, n_loc] is [Wr; offset] with its columns
-// in the tables' local (dwmap) order.
-extern "C" int dtp_lin_rad_fwd(const void* x, long long sx, const void* sh, const void* W,
-                               void* out, const void* n_edges, int E, int d_sh, int d_out,
-                               const void* gk, int n_gk, const void* terms, const void* coeffs,
-                               int max_fs, const void* h, int hd, const void* Wl, int n_loc,
-                               int span_max, int dtype, void* stream) {
-  if (max_fs % 4 != 0 || hd % 4 != 0 || hd <= 0) return (int)cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == eqt::kFloat32)
-    return launch<float, true>(x, sx, sh, nullptr, W, out, n_edges, E, d_sh, 0, d_out, gk,
-                               n_gk, terms, coeffs, max_fs, h, hd, Wl, n_loc, span_max, s);
-  if (dtype == eqt::kBFloat16)
-    return launch<__nv_bfloat16, true>(x, sx, sh, nullptr, W, out, n_edges, E, d_sh, 0, d_out,
-                                       gk, n_gk, terms, coeffs, max_fs, h, hd, Wl, n_loc,
-                                       span_max, s);
-  return (int)cudaErrorInvalidValue;
-}
 
 // ======================================================================
 // K1: dtp_lin_fwd (design in the header note)
@@ -289,20 +115,38 @@ __host__ __device__ inline int ld_z(int fz_max) {
   return sizeof(T) == 4 ? stride_mod(fz_max, 32, 8) : stride_mod(fz_max, 64, 8);
 }
 
-// byte offsets of the shared memory: x (dtype), sh (fp32), z (dtype)
+// byte offsets of the shared memory: x (dtype), sh (fp32), z (dtype); with
+// the fold (hd > 0) also h [tile, ld_z(hd16)] and w [tile, ld_z(span_max8)]
+// (dtype), and with x_global no x (read through L2)
 struct Layout {
-  int x, sh, z, total;
+  int x, sh, z, h, w, total;
 };
 
 template <typename T>
-__host__ __device__ inline Layout layout(int tile, int d_x, int d_sh, int fz_max, bool x_rows) {
+__host__ __device__ inline Layout layout(int tile, int d_x, int d_sh, int fz_max, bool x_rows,
+                                         int hd = 0, int span_max = 0, bool x_global = false) {
   Layout l;
   l.x = 0;
-  l.sh = l.x + align16((x_rows ? tile : 1) * round_up(d_x, kRowPad) * (int)sizeof(T));
+  l.sh = l.x + (x_global ? 0
+                         : align16((x_rows ? tile : 1) * round_up(d_x, kRowPad) * (int)sizeof(T)));
   l.z = l.sh + align16(tile * d_sh * 4);
-  l.total = l.z + align16(tile * ld_z<T>(fz_max) * (int)sizeof(T));
+  l.h = l.z + align16(tile * ld_z<T>(fz_max) * (int)sizeof(T));
+  l.w = l.h + (hd ? align16(tile * ld_z<T>(round_up(hd, 16)) * (int)sizeof(T)) : 0);
+  l.total = l.w + (hd ? align16(tile * ld_z<T>(round_up(span_max, 8)) * (int)sizeof(T)) : 0);
   return l;
 }
+
+// the fold's operands of a block (K7-F): h [E, hd], the packed Wr and the
+// offsets (pk: each group's Wr in B-fragment order, K = hd, N = its span,
+// and the offsets in local column order), and per group rg [n_groups, 3]:
+// the offsets in pk of its packing and of its offsets, its span
+struct RadF {
+  const void* h;
+  int hd;
+  const void* pk;
+  const int* rg;
+  int span_max;
+};
 
 // V consecutive elements as fp32: one load of 4 (16 bytes fp32, 8 bf16), or one
 template <typename T, int V, bool kGlobal>
@@ -447,25 +291,36 @@ __device__ __forceinline__ void head_product(const T* __restrict__ s_z, int ldz,
     }
 }
 
+#define EQT_K1_PARAMS                                                                            \
+  const T *__restrict__ x, long long sx, int d_x, const T *__restrict__ sh, int d_sh,            \
+      const T *__restrict__ w, int d_w, const T *__restrict__ Wp, T *__restrict__ out,           \
+      int d_out, const int *__restrict__ n_edges_ptr, int E, const int *__restrict__ gk,         \
+      const int *__restrict__ groups, const int *__restrict__ runs,                              \
+      const int *__restrict__ terms, const float *__restrict__ coeffs, int fz_max
+#define EQT_K1_ARGS \
+  x, sx, d_x, sh, d_sh, w, d_w, Wp, out, d_out, n_edges_ptr, E, gk, groups, runs, terms, coeffs, fz_max
+
 // Block (edge tile of 16 kM edges, irrep group blockIdx.y): x and sh
 // staged, then per component z[g,k] in shared memory and out = z W_g on
 // the tensor cores.  V: the u elements a thread of the z walk takes at once
-// (4, or 1 where the tables' offsets are not multiples of 4).
-template <typename T, int kM, int V>
-__global__ void __launch_bounds__(kThreads, 2)
-fwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh, int d_sh,
-           const T* __restrict__ w, int d_w, const T* __restrict__ Wp, T* __restrict__ out,
-           int d_out, const int* __restrict__ n_edges_ptr, int E, const int* __restrict__ gk,
-           const int* __restrict__ groups, const int* __restrict__ runs,
-           const int* __restrict__ terms, const float* __restrict__ coeffs, int fz_max) {
+// (4, or 1 where the tables' offsets are not multiples of 4).  kRad (K7-F):
+// w null, h staged and the group's w built from it in shared memory before
+// the first component (the runs' w column is the group's local one); kXg:
+// x read through L2 instead of staged.
+template <typename T, int kM, int V, bool kRad = false, bool kXg = false>
+__device__ __forceinline__ void fwd_body(EQT_K1_PARAMS, const RadF rad = {}) {
   constexpr int kTile = 16 * kM;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  const Layout L = layout<T>(kTile, d_x, d_sh, fz_max, sx != 0);
+  const Layout L = layout<T>(kTile, d_x, d_sh, fz_max, sx != 0, rad.hd, rad.span_max, kXg);
   T* s_x = reinterpret_cast<T*>(smem + L.x);
   float* s_sh = reinterpret_cast<float*>(smem + L.sh);
   T* s_z = reinterpret_cast<T*>(smem + L.z);
+  T* s_h = reinterpret_cast<T*>(smem + L.h);
+  T* s_w = reinterpret_cast<T*>(smem + L.w);
   const int dxs = round_up(d_x, kRowPad), ldz = ld_z<T>(fz_max);
+  const int hd = rad.hd, hd16 = round_up(hd, 16), ldh = ld_z<T>(hd16);
+  const int ldw = ld_z<T>(round_up(rad.span_max, 8));
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -488,8 +343,9 @@ fwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__
 
   // ---- the tile's x (16-byte loads; one row for a row-broadcast x), sh in
   // fp32, and z's pad columns [fan, fan16), zero for every component
-  copy_rows<T, kThreads>(s_x, dxs, x + (long long)e0 * sx, sx, sx ? n_live : 1, d_x,
-                         d_x % kVec<T> == 0 && sx % kVec<T> == 0 && aligned16(x));
+  if constexpr (!kXg)
+    copy_rows<T, kThreads>(s_x, dxs, x + (long long)e0 * sx, sx, sx ? n_live : 1, d_x,
+                           d_x % kVec<T> == 0 && sx % kVec<T> == 0 && aligned16(x));
   for (int i = tid; i < n_live * d_sh; i += kThreads)
     s_sh[i] = to_f(sh[(long long)e0 * d_sh + i]);
   {
@@ -499,7 +355,42 @@ fwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__
       s_z[r * ldz + fan + (i - r * np)] = from_f<T>(0.f);
     }
   }
+  if constexpr (kRad) {  // the tile's h, zero past the real edges and hd
+    const T* h = static_cast<const T*>(rad.h);
+    for (int i = tid; i < kTile * hd16; i += kThreads) {
+      const int r = i / hd16, c = i - r * hd16;
+      s_h[r * ldh + c] = r < n_live && c < hd ? h[(long long)(e0 + r) * hd + c] : from_f<T>(0.f);
+    }
+  }
   __syncthreads();
+
+  if constexpr (kRad) {
+    // ---- w_g [tile, span] = h Wr_g + offset_g on the tensor cores, rounded
+    // to the dtype: per m-tile, warp i takes the span's n-tiles i, i + 8, ...
+    const int* rg = rad.rg + 3 * blockIdx.y;
+    const T* pk = static_cast<const T*>(rad.pk);
+    const T* Bp = pk + __ldg(rg);
+    const T* off = pk + __ldg(rg + 1);
+    const int span = __ldg(rg + 2), n_wt = round_up(span, 8) / 8;
+    const int gq = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int m = 0; m < kM; ++m)
+      for (int nt0 = warp; nt0 < n_wt; nt0 += kWarps * kNT) {
+        const int n_mine = min(kNT, (n_wt - nt0 + kWarps - 1) / kWarps);
+        float acc[kNT][4];
+        mma_tile<T, kNT>(acc, s_h + m * 16 * ldh, ldh, Bp, hd16 / 16, hd16 / 16, nt0, kWarps,
+                         n_mine, lane);
+#pragma unroll
+        for (int i = 0; i < kNT; ++i)
+          if (i < n_mine)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int r = m * 16 + gq + 8 * (u >> 1), c = (nt0 + i * kWarps) * 8 + 2 * q + (u & 1);
+              if (c < span) s_w[r * ldw + c] = from_f<T>(acc[i][u] + to_f(off[c]));
+            }
+      }
+    __syncthreads();
+  }
 
   for (int k = 0; k < n_comp; ++k) {
     const int* gr = gk + (q0 + k) * kGkFields;
@@ -522,19 +413,22 @@ fwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__
 #pragma unroll
         for (int j = 0; j < V; ++j) acc[j] = 0.f;
         if (r < n_live) {
-          const T* xr = s_x + (sx ? r : 0) * dxs + u;
+          const T* xr = kXg ? x + (long long)(e0 + r) * sx + u : s_x + (sx ? r : 0) * dxs + u;
           const float* shr = s_sh + r * d_sh;
           for (int t = t_begin; t < t_end; ++t) {
             const int* tt = terms + t * kTermFields;
             const float c = __ldg(coeffs + t) * shr[__ldg(tt + 1)];
             float xv[V];
-            load_v<T, V, false>(xr + __ldg(tt), xv);
+            load_v<T, V, kXg>(xr + __ldg(tt), xv);
 #pragma unroll
             for (int j = 0; j < V; ++j) acc[j] = fmaf(c, xv[j], acc[j]);
           }
-          if (w != nullptr) {
+          if (kRad || w != nullptr) {
             float wv[V];
-            load_v<T, V, true>(w + (long long)(e0 + r) * d_w + b + u, wv);
+            if constexpr (kRad)
+              load_v<T, V, false>(s_w + r * ldw + b + u, wv);
+            else
+              load_v<T, V, true>(w + (long long)(e0 + r) * d_w + b + u, wv);
 #pragma unroll
             for (int j = 0; j < V; ++j) acc[j] *= wv[j];
           }
@@ -564,6 +458,18 @@ fwd_kernel(const T* __restrict__ x, long long sx, int d_x, const T* __restrict__
   }
 }
 
+// K1
+template <typename T, int kM, int V>
+__global__ void __launch_bounds__(kThreads, 2) fwd_kernel(EQT_K1_PARAMS) {
+  fwd_body<T, kM, V>(EQT_K1_ARGS);
+}
+
+// K7-F: K1 with w built from h in the block (kXg: x through L2)
+template <typename T, int kM, int V, bool kXg>
+__global__ void __launch_bounds__(kThreads, 2) rad_fwd_kernel(EQT_K1_PARAMS, const RadF rad) {
+  fwd_body<T, kM, V, true, kXg>(EQT_K1_ARGS, rad);
+}
+
 struct Args {
   const void *x, *sh, *w, *Wp, *n_edges, *gk, *groups, *runs, *terms, *coeffs;
   long long sx;
@@ -571,29 +477,67 @@ struct Args {
   void* out;
 };
 
-template <typename T, int kM, int V>
-int launch(const Args& a, cudaStream_t stream) {
+// K1, or with kRad K7-F on the fold's operands
+template <typename T, int kM, int V, bool kRad = false, bool kXg = false>
+int launch(const Args& a, const RadF& r, cudaStream_t stream) {
   constexpr int kTile = 16 * kM;
-  const Layout L = layout<T>(kTile, a.d_x, a.d_sh, a.fz_max, a.sx != 0);
-  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, kM, V>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  const Layout L = layout<T>(kTile, a.d_x, a.d_sh, a.fz_max, a.sx != 0, kRad ? r.hd : 0,
+                             r.span_max, kXg);
+  const void* kernel;
+  if constexpr (kRad)
+    kernel = (const void*)&rad_fwd_kernel<T, kM, V, kXg>;
+  else
+    kernel = (const void*)&fwd_kernel<T, kM, V>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.E + kTile - 1) / kTile, a.n_groups);
-  fwd_kernel<T, kM, V><<<grid, kThreads, L.total, stream>>>(
-      static_cast<const T*>(a.x), a.sx, a.d_x, static_cast<const T*>(a.sh), a.d_sh,
-      static_cast<const T*>(a.w), a.d_w, static_cast<const T*>(a.Wp), static_cast<T*>(a.out),
-      a.d_out, static_cast<const int*>(a.n_edges), a.E, static_cast<const int*>(a.gk),
-      static_cast<const int*>(a.groups), static_cast<const int*>(a.runs),
-      static_cast<const int*>(a.terms), static_cast<const float*>(a.coeffs), a.fz_max);
+  const T* x = static_cast<const T*>(a.x);
+  const T* sh = static_cast<const T*>(a.sh);
+  const T* w = static_cast<const T*>(a.w);
+  const T* Wp = static_cast<const T*>(a.Wp);
+  T* out = static_cast<T*>(a.out);
+  const int* n_edges = static_cast<const int*>(a.n_edges);
+  const int* gk = static_cast<const int*>(a.gk);
+  const int* groups = static_cast<const int*>(a.groups);
+  const int* runs = static_cast<const int*>(a.runs);
+  const int* terms = static_cast<const int*>(a.terms);
+  const float* coeffs = static_cast<const float*>(a.coeffs);
+  if constexpr (kRad)
+    rad_fwd_kernel<T, kM, V, kXg><<<grid, kThreads, L.total, stream>>>(
+        x, a.sx, a.d_x, sh, a.d_sh, w, a.d_w, Wp, out, a.d_out, n_edges, a.E, gk, groups, runs,
+        terms, coeffs, a.fz_max, r);
+  else
+    fwd_kernel<T, kM, V><<<grid, kThreads, L.total, stream>>>(
+        x, a.sx, a.d_x, sh, a.d_sh, w, a.d_w, Wp, out, a.d_out, n_edges, a.E, gk, groups, runs,
+        terms, coeffs, a.fz_max);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_tile(int tile, int vec, const Args& a, cudaStream_t s) {
-  if (tile == 32 && vec == 4) return launch<T, 2, 4>(a, s);
-  if (tile == 32 && vec == 1) return launch<T, 2, 1>(a, s);
-  if (tile == 16 && vec == 4) return launch<T, 1, 4>(a, s);
-  if (tile == 16 && vec == 1) return launch<T, 1, 1>(a, s);
+  const RadF r{};
+  if (tile == 32 && vec == 4) return launch<T, 2, 4>(a, r, s);
+  if (tile == 32 && vec == 1) return launch<T, 2, 1>(a, r, s);
+  if (tile == 16 && vec == 4) return launch<T, 1, 4>(a, r, s);
+  if (tile == 16 && vec == 1) return launch<T, 1, 1>(a, r, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7-F: x through L2 (x_global) only with the 16-edge tile, where the x tile
+// is what keeps a second block off the SM
+template <typename T>
+int launch_rad_tile(int tile, int vec, bool x_global, const Args& a, const RadF& r,
+                    cudaStream_t s) {
+  if (x_global) {
+    if (tile == 16 && vec == 4) return launch<T, 1, 4, true, true>(a, r, s);
+    if (tile == 16 && vec == 1) return launch<T, 1, 1, true, true>(a, r, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (tile == 32 && vec == 4) return launch<T, 2, 4, true>(a, r, s);
+  if (tile == 32 && vec == 1) return launch<T, 2, 1, true>(a, r, s);
+  if (tile == 16 && vec == 4) return launch<T, 1, 4, true>(a, r, s);
+  if (tile == 16 && vec == 1) return launch<T, 1, 1, true>(a, r, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -617,5 +561,32 @@ extern "C" int dtp_lin_fwd(const void* x, long long sx, int d_x, const void* sh,
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == eqt::kFloat32) return k1::launch_tile<float>(tile, vec, a, s);
   if (dtype == eqt::kBFloat16) return k1::launch_tile<__nv_bfloat16>(tile, vec, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7-F: out [E, d_out] of the radial-folded op on dtp_lin_fwd's arguments (w
+// null) over DTPLinPlan.k1_tables(fold=True) (the runs' w column is the
+// group's local column), then h [E, hd], hd (a positive multiple of 4), pk
+// (each group's Wr packed in B-fragment order and the offsets in local
+// column order), rg [n_groups, 3] (per group the offsets in pk of its
+// packing and of its offsets, its span), span_max, and x_global (1: x read
+// through L2, with the 16-edge tile only).
+extern "C" int dtp_lin_rad_fwd(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                               const void* w, int d_w, const void* Wp, void* out, int d_out,
+                               const void* n_edges, int E, const void* gk, const void* groups,
+                               int n_groups, const void* runs, const void* terms,
+                               const void* coeffs, int fz_max, int tile, int vec, const void* h,
+                               int hd, const void* pk, const void* rg, int span_max,
+                               int x_global, int dtype, void* stream) {
+  if (fz_max % 16 != 0 || n_groups < 1 || w != nullptr || h == nullptr || pk == nullptr ||
+      rg == nullptr || hd <= 0 || hd % 4 != 0 || span_max < 1)
+    return (int)cudaErrorInvalidValue;
+  const k1::Args a{x,      sh, w,    Wp,  n_edges, gk,       groups, runs,   terms,
+                   coeffs, sx, d_x, d_sh, d_w,    d_out, E, n_groups, fz_max, out};
+  const k1::RadF r{h, hd, pk, static_cast<const int*>(rg), span_max};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32) return k1::launch_rad_tile<float>(tile, vec, x_global, a, r, s);
+  if (dtype == eqt::kBFloat16)
+    return k1::launch_rad_tile<__nv_bfloat16>(tile, vec, x_global, a, r, s);
   return (int)cudaErrorInvalidValue;
 }

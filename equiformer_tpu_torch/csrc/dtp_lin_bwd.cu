@@ -121,7 +121,7 @@
 // _bwd_body, dtp_lin_pallas.py:675-745, :754-756, :865-887, with
 // _radial_write_dw :497 and _radial_dh :521; K7-Wr, replaces
 // equiformer_tpu/kernels/dtp_lin_ho.py's _Wr_leg_kernel :344, built by
-// _leg_call :594-603).  The per-edge operand is h [E, hd], and w = [h, 1]
+// _leg_call :594-603; K7-LW and K7-L below).  The per-edge operand is h [E, hd], and w = [h, 1]
 // @ [Wr; offset] (Wl [hd + 1, n_loc], columns in the tables' local order,
 // row hd the offset).  Every w column feeds one group, and a group's fan
 // column f is its local w column sb + f (DTPLinPlan.k7_tables checks it),
@@ -149,6 +149,22 @@
 // - K7-Wr (dtp_lin_rad_legWr): K5b's w leg (k2::edge_leg_kernel<T, kLegW>,
 //   the instantiation K5b runs) writes dw [E, d_w] in T to a workspace;
 //   the d[Wr; offset] tiles alone (k2::Wr_leg_kernel) and the row sum.
+// - K7-L (dtp_lin_rad_leg; replaces equiformer_tpu/kernels/dtp_lin_ho.py's
+//   _edge_leg_kernel_rad :255, built by _leg_call :613-621): K5b's x, sh
+//   and w legs with the fold (k2::rad_leg_kernel<T, kLeg>: dxdw_body's
+//   kRad), a block per (16-edge tile, irrep group).  The x and sh legs
+//   build the group's w from the staged h as K7-B's launch 1 does (w never
+//   read); the fold's h leg is K5b's w leg with dw kept in shared memory
+//   and, at the group's last component, dh += dw_g Wr_g^T as K7-B adds it
+//   (dw never written, h never read).  dx, dsh and dh sum over groups, so
+//   each (tile, group) block writes fp32 partials and one launch sums them
+//   in split order, as K5b's x and sh legs do (whole tiles took 0.60 ms
+//   against 0.49 for the h leg at MD17's sep_act in fp32).  The fp32 dz
+//   product splits by masking.  On an H100 the x / sh / h legs took 0.51 /
+//   0.54 / 0.49 ms fp32 and 0.41 / 0.44 / 0.40 bf16 at MD17's sep_act; the
+//   first design (csrc/dtp_lin_leg.cu: 8 warps per 16-edge tile walking
+//   every group, dz and w on the CUDA cores) 1.72 / 2.07 / 1.85 and 1.65 /
+//   1.66 / 1.56.
 // - K7-LW (dtp_lin_rad_legW; replaces the radial branch of
 //   dtp_lin_ho.py's _W_leg_kernel :402-449, h :415, _radial_w_fill
 //   :439-440): K7-B's launch 2 without the d[Wr; offset] tiles
@@ -257,13 +273,23 @@ enum Leg1 : int { kLegX = 0, kLegSh = 1, kLegW = 2, kDxDw = 3, kBwd3 = 4, kRadB 
 __host__ __device__ constexpr bool sums_dsh(int leg) { return leg == kLegSh || leg == kBwd3; }
 // the legs that compute dx and dw together over whole tiles (K2, K7-B)
 __host__ __device__ constexpr bool pairs_dxdw(int leg) { return leg == kDxDw || leg == kRadB; }
+// with the radial fold (rad: K7-L's legs kLegX, kLegSh and kLegW, the last
+// one its h leg): the legs that build w from h (K7-B; the x and sh legs),
+// and those that contract dw into dh (K7-B; the h leg)
+__host__ __device__ constexpr bool builds_w(int leg, bool rad) {
+  return leg == kRadB || (rad && leg != kLegW);
+}
+__host__ __device__ constexpr bool sums_dh(int leg, bool rad) {
+  return leg == kRadB || (rad && leg == kLegW);
+}
 
-// the row stride of launch 1's w and dw tiles: multiples of 8 elements; K7-B
-// reads dw as the A operand of its dh product, K steps of 16, float2 a lane
-// (8 words mod 32: conflict-free)
-template <int kLeg>
+// the row stride of launch 1's w and dw tiles: multiples of 8 elements; the
+// dh legs read dw as the A operand of their dh product, K steps of 16,
+// float2 a lane (8 words mod 32: conflict-free)
+template <int kLeg, bool kRad = false>
 __host__ __device__ inline int span_stride(int span_max) {
-  return kLeg == kRadB ? stride_mod(round_up(span_max, 16), 32, 8) : round_up(span_max, kRowPad);
+  return sums_dh(kLeg, kRad) ? stride_mod(round_up(span_max, 16), 32, 8)
+                             : round_up(span_max, kRowPad);
 }
 
 // K5a's outputs asked for (bits of `need`)
@@ -295,8 +321,9 @@ __host__ __device__ inline int ld_dz1(int fd_max) { return stride_mod(fd_max, 32
 // (dtype), sh, dsh and the dsh slots (fp32), h (dtype) and dh (fp32); the x
 // leg keeps no dw and stages no x, the w leg keeps no dx and stages no w,
 // the sh leg keeps neither and stages no sh; K5a keeps what `need` asks for,
-// and with x_global reads x through L2 instead of staging it; only K7-B
-// keeps h and dh.  has_w: the plan has per-edge w.
+// and with x_global reads x through L2 instead of staging it; h where w is
+// built from it, dh where dw is contracted into it (builds_w, sums_dh).
+// has_w: the plan has per-edge w.
 struct Layout1 {
   int dx, dw, dz, g, x, w, sh, dsh, slot, h, dh, total;
 };
@@ -307,12 +334,12 @@ __host__ __device__ inline int ld_h(int hd) {
   return ld_g1<T>(round_up(hd, 16));
 }
 
-template <typename T, int kLeg = kDxDw>
+template <typename T, int kLeg = kDxDw, bool kRad = false>
 __host__ __device__ inline Layout1 layout1(int d_x, int d_sh, int span_max, int cp_max,
                                            int fd_max, bool has_w, bool x_rows,
                                            int need = kNeedAll, int slot_max = 0,
                                            bool x_global = false, int hd = 0) {
-  const int dxs = round_up(d_x, kRowPad), sps = span_stride<kLeg>(span_max);
+  const int dxs = round_up(d_x, kRowPad), sps = span_stride<kLeg, kRad>(span_max);
   const bool dsh = sums_dsh(kLeg) && (need & kNeedDsh);
   Layout1 l;
   l.dx = 0;
@@ -330,8 +357,8 @@ __host__ __device__ inline Layout1 layout1(int d_x, int d_sh, int span_max, int 
   l.dsh = l.sh + (kLeg != kLegSh ? align16(kTile * d_sh * 4) : 0);
   l.slot = l.dsh + (dsh ? align16(kTile * d_sh * 4) : 0);
   l.h = l.slot + (dsh ? align16(kTile * slot_max * 4) : 0);
-  l.dh = l.h + (kLeg == kRadB ? align16(kTile * ld_h<T>(hd) * (int)sizeof(T)) : 0);
-  l.total = l.dh + (kLeg == kRadB ? align16(2 * kTile * hd * 4) : 0);  // dh, its scratch
+  l.dh = l.h + (builds_w(kLeg, kRad) ? align16(kTile * ld_h<T>(hd) * (int)sizeof(T)) : 0);
+  l.total = l.dh + (sums_dh(kLeg, kRad) ? align16(2 * kTile * hd * 4) : 0);  // dh, its scratch
   return l;
 }
 
@@ -371,89 +398,6 @@ __host__ __device__ inline int wr_tiles(int hd, int n_loc) {
   return ((hd + kFanTile - 1) / kFanTile) * ((n_loc + kColTile - 1) / kColTile);
 }
 
-// the A fragment (m16n8k16 layout, fp32 values) of rows [0, 16) and K step
-// at column c0 = 16 ks + 2q of a row-major tile in shared memory (row stride
-// ld, even): a[s] = {A[g][k], A[g + 8][k], A[g][k + 1], A[g + 8][k + 1]}, k =
-// c0 + 8s
-template <typename TA>
-__device__ __forceinline__ void load_a(float (&a)[2][4], const TA* s_a, int ld, int c0, int gq) {
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const TA* lo = s_a + gq * ld + c0 + 8 * s;
-    const TA* hi = lo + 8 * ld;
-    if constexpr (sizeof(TA) == 4) {
-      const float2 l = *reinterpret_cast<const float2*>(lo);
-      const float2 h = *reinterpret_cast<const float2*>(hi);
-      a[s][0] = l.x;
-      a[s][1] = h.x;
-      a[s][2] = l.y;
-      a[s][3] = h.y;
-    } else {
-      const float2 l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(lo));
-      const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hi));
-      a[s][0] = l.x;
-      a[s][1] = h.x;
-      a[s][2] = l.y;
-      a[s][3] = h.y;
-    }
-  }
-}
-
-// a lane's B fragment of one (n-tile, K step) packed in fragment order
-// (b_fragment_index): 16 bytes in fp32, 8 in bf16, read through L2
-template <typename T>
-__device__ __forceinline__ void load_b(float (&b)[2][2], const T* __restrict__ p) {
-  if constexpr (sizeof(T) == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    b[0][0] = v.x;
-    b[0][1] = v.y;
-    b[1][0] = v.z;
-    b[1][1] = v.w;
-  } else {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    b[0][0] = lo.x;
-    b[0][1] = lo.y;
-    b[1][0] = hi.x;
-    b[1][1] = hi.y;
-  }
-}
-
-// one K step of C[i] += A B_i for the n-tiles i < n: bf16 operands, or fp32
-// as 3xTF32 split by masking
-template <typename T, int kN>
-__device__ __forceinline__ void mma_fold(float (&c)[kN][4], const float (&a)[2][4],
-                                         const float (&b)[kN][2][2], int n) {
-  if constexpr (sizeof(T) == 4)
-    mma16mn_tf32<1, kN>(reinterpret_cast<float (&)[1][kN][4]>(c),
-                        reinterpret_cast<const float (&)[1][2][4]>(a), b, n);
-  else
-    mma16n<T, kN>(c, a, b, n);
-}
-
-// out[16, n-tiles nt0 + i * step (i < n)] = A[16, K] B over n_ks K steps:
-// A a row-major tile in shared memory (row stride ld), B packed in fragment
-// order with ks_ld K steps an n-tile
-template <typename T, int kN, typename TA>
-__device__ __forceinline__ void mma_tile(float (&acc)[kN][4], const TA* s_a, int ld,
-                                         const T* __restrict__ Bp, int n_ks, int ks_ld, int nt0,
-                                         int step, int n, int lane) {
-#pragma unroll
-  for (int i = 0; i < kN; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int ks = 0; ks < n_ks; ++ks) {
-    float a[2][4], b[kN][2][2];
-    load_a(a, s_a, ld, ks * 16 + 2 * (lane & 3), lane >> 2);
-#pragma unroll
-    for (int i = 0; i < kN; ++i)
-      if (i < n) load_b(b[i], Bp + ((long long)((nt0 + i * step) * ks_ld + ks) * 32 + lane) * 4);
-    mma_fold<T, kN>(acc, a, b, n);
-  }
-}
-
 // ----------------------------------------------------------- launch 1
 // the gk rows of the irrep groups that split s of n_split takes: groups
 // [s * n / n_split, (s + 1) * n / n_split) of the plan's n (a group's rows
@@ -490,10 +434,15 @@ __device__ __forceinline__ void group_rows(const int* __restrict__ gk, int n_gk,
 // pass one thread per (row, column) adds its column's slots in term order;
 // cut in more than one split, dsh goes to part_sh [n_split, E, d_sh].  With
 // kXg K5a reads x through L2 (its fp32 tile does not fit beside the rest).
-// kMask: the fp32 dz product's 3xTF32 split by masking (mma_fold; K8-B),
-// else by conversion (mma16n; K2 and the instantiations that share its code).
+// kMask: the fp32 dz product's 3xTF32 split by masking (mma_fold; K8-B,
+// K7-L), else by conversion (mma16n; K2 and the instantiations that share
+// its code).  kRad: K7-L, the x, sh or w leg (kLegX, kLegSh, kLegW) of the
+// radial fold, w never read: the x and sh legs build each group's w from
+// the staged h as K7-B does; the w leg is the fold's h leg, which never
+// writes dw but adds dw Wr^T into its dh tile as K7-B does (cut in more
+// than one split: an fp32 dh partial to part [n_split, E, hd]).
 template <typename T, int kStage, int kLeg, bool kXg = false, int kNeed = kNeedAll,
-          bool kMask = false>
+          bool kMask = false, bool kRad = false>
 __device__ __forceinline__ void dxdw_body(
     const T* __restrict__ x, long long sx, int d_x, const T* __restrict__ sh, int d_sh,
     const T* __restrict__ w, int d_w, const T* __restrict__ Wp, const T* __restrict__ G,
@@ -504,17 +453,19 @@ __device__ __forceinline__ void dxdw_body(
     float* __restrict__ part_sh = nullptr, int slot_max = 0, const RadOps rad = {}) {
   constexpr int V = kVec<T>;
   constexpr bool kSh = sums_dsh(kLeg);
+  constexpr bool kBuildW = builds_w(kLeg, kRad), kDh = sums_dh(kLeg, kRad);
+  constexpr bool kHLeg = kRad && kLeg == kLegW;  // K7-L's h leg: dh, no dw
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  // the plan has per-edge w (K7-B: built from h)
-  const bool has_w = kLeg == kLegW || kLeg == kRadB || w != nullptr;
+  // the plan has per-edge w (K7-B, K7-L: built from h)
+  const bool has_w = kLeg == kLegW || kLeg == kRadB || kRad || w != nullptr;
   // what K5a keeps (the other legs: what their leg computes)
   constexpr int need = kLeg == kBwd3 ? kNeed : kNeedAll;
   constexpr bool keep_dx = kLeg == kBwd3 ? (kNeed & kNeedDx) != 0 : kLeg != kLegW && !kSh;
   constexpr bool keep_dw = kLeg == kBwd3 ? (kNeed & kNeedDw) != 0 : kLeg != kLegX && !kSh;
   constexpr bool keep_dsh = kSh && (need & kNeedDsh) != 0;
-  const Layout1 L = layout1<T, kLeg>(d_x, d_sh, span_max, cp_max, fd_max, has_w, sx != 0, need,
-                                     slot_max, kXg, rad.hd);
+  const Layout1 L = layout1<T, kLeg, kRad>(d_x, d_sh, span_max, cp_max, fd_max, has_w, sx != 0,
+                                           need, slot_max, kXg, rad.hd);
   float* s_dx = reinterpret_cast<float*>(smem + L.dx);
   float* s_dw = reinterpret_cast<float*>(smem + L.dw);
   float* s_dz = reinterpret_cast<float*>(smem + L.dz);
@@ -524,9 +475,9 @@ __device__ __forceinline__ void dxdw_body(
   float* s_sh = reinterpret_cast<float*>(smem + L.sh);
   float* s_dsh = reinterpret_cast<float*>(smem + L.dsh);
   float* s_slot = reinterpret_cast<float*>(smem + L.slot);
-  const int dxs = round_up(d_x, kRowPad), sps = span_stride<kLeg>(span_max);
+  const int dxs = round_up(d_x, kRowPad), sps = span_stride<kLeg, kRad>(span_max);
   const int ldg = ld_g1<T>(cp_max), ldz = ld_dz1(fd_max);
-  // K7-B: h [kTile, ldh] (dtype), dh and a scratch tile [kTile, hd] (fp32)
+  // the fold: h [kTile, ldh] (dtype), dh and a scratch tile [kTile, hd] (fp32)
   const int hd = rad.hd, hd16 = round_up(hd, 16), ldh = ld_h<T>(hd);
   T* s_h = reinterpret_cast<T*>(smem + L.h);
   float* s_dh = reinterpret_cast<float*>(smem + L.dh);
@@ -539,8 +490,8 @@ __device__ __forceinline__ void dxdw_body(
   const int n_live = max(0, min(n_rows, __ldg(n_edges_ptr) - e0));
   const bool dx_vec = d_x % V == 0 && aligned16(dx);
   const bool dw_vec = d_w % V == 0 && aligned16(dw) && aligned16(w);
-  // dx (and dsh) as fp32 partials
-  const bool split = (kLeg == kLegX || kSh) && gridDim.y > 1;
+  // dx (and dsh; dh of the h leg) as fp32 partials
+  const bool split = (kLeg == kLegX || kSh || kHLeg) && gridDim.y > 1;
 
   if (n_live == 0) {  // past the real edges: zero gradients
     if constexpr (kLeg == kRadB) {  // (no dw: the workspace's rows past *n_edges are not read)
@@ -549,6 +500,12 @@ __device__ __forceinline__ void dxdw_body(
       T* dh = static_cast<T*>(rad.dh);
       for (int i = tid; i < n_rows * hd; i += kThreads1)
         dh[(long long)e0 * hd + i] = from_f<T>(0.f);
+    } else if constexpr (kHLeg) {
+      if (!split) {  // else the sum of the partials writes them
+        T* dh = static_cast<T*>(rad.dh);
+        for (int i = tid; i < n_rows * hd; i += kThreads1)
+          dh[(long long)e0 * hd + i] = from_f<T>(0.f);
+      }
     } else if constexpr (kLeg == kDxDw) {
       for (int i = tid; i < n_rows * d_x; i += kThreads1)
         dx[(long long)e0 * d_x + i] = from_f<T>(0.f);
@@ -597,13 +554,17 @@ __device__ __forceinline__ void dxdw_body(
                             d_x % V == 0 && sx % V == 0 && aligned16(x));
   int q_begin = 0, q_end = n_gk;
   if constexpr (!pairs_dxdw(kLeg)) group_rows(gk, n_gk, blockIdx.y, gridDim.y, q_begin, q_end);
-  if constexpr (kLeg == kRadB) {  // the tile's h (zero past the real edges and hd), dh = 0
-    const T* h = static_cast<const T*>(rad.h);
-    for (int i = tid; i < kTile * hd16; i += kThreads1) {
-      const int r = i / hd16, c = i - r * hd16;
-      s_h[r * ldh + c] = r < n_live && c < hd ? h[(long long)(e0 + r) * hd + c] : from_f<T>(0.f);
+  if constexpr (kBuildW || kDh) {
+    if constexpr (kBuildW) {  // the tile's h (zero past the real edges and hd)
+      const T* h = static_cast<const T*>(rad.h);
+      for (int i = tid; i < kTile * hd16; i += kThreads1) {
+        const int r = i / hd16, c = i - r * hd16;
+        s_h[r * ldh + c] =
+            r < n_live && c < hd ? h[(long long)(e0 + r) * hd + c] : from_f<T>(0.f);
+      }
     }
-    for (int i = tid; i < kTile * hd; i += kThreads1) s_dh[i] = 0.f;
+    if constexpr (kDh)
+      for (int i = tid; i < kTile * hd; i += kThreads1) s_dh[i] = 0.f;
     __syncthreads();  // the w build reads s_h
   }
 
@@ -621,7 +582,7 @@ __device__ __forceinline__ void dxdw_body(
       } else if constexpr (kLeg != kLegX) {
         for (int i = tid; i < kTile * sps; i += kThreads1) s_dw[i] = 0.f;
       }
-      const int nv = kLeg != kLegW && kLeg != kRadB ? sps / V : 0;
+      const int nv = kLeg != kLegW && !kBuildW ? sps / V : 0;
       for (int i = tid; i < n_live * nv; i += kThreads1) {
         const int r = i / nv;
         const int jl = (i - r * nv) * V;
@@ -635,7 +596,7 @@ __device__ __forceinline__ void dxdw_body(
           for (int j = 0; j < V && jl + j < span; ++j) sw[j] = wr[__ldg(dwmap + sb + jl + j)];
         }
       }
-      if constexpr (kLeg == kRadB) {
+      if constexpr (kBuildW) {
         // w[16, span] = h Wr_g + offset_g on the tensor cores, rounded to the
         // dtype: warp w takes the span's n-tiles w, w + 16, ...
         const T* Bp = static_cast<const T*>(rad.pk) + __ldg(rad.rgk + 2 * qi);
@@ -889,25 +850,27 @@ __device__ __forceinline__ void dxdw_body(
     }
 
     if (kLeg != kLegX && (kSh ? keep_dw : true) && has_w && last) {  // the group's dw is complete
-      const int nv = sps / V;
-      for (int i = tid; i < n_rows * nv; i += kThreads1) {
-        const int r = i / nv;
-        const int jl = (i - r * nv) * V;
-        if (jl >= span) continue;
-        T* dr = dw + (long long)(e0 + r) * d_w;
-        const float* sd = s_dw + r * sps + jl;
-        if (span_chunk_vec<T>(dwmap, sb, jl, span, dw_vec)) {
-          uint4 u;
-          T* t = reinterpret_cast<T*>(&u);
+      if constexpr (!kHLeg) {
+        const int nv = sps / V;
+        for (int i = tid; i < n_rows * nv; i += kThreads1) {
+          const int r = i / nv;
+          const int jl = (i - r * nv) * V;
+          if (jl >= span) continue;
+          T* dr = dw + (long long)(e0 + r) * d_w;
+          const float* sd = s_dw + r * sps + jl;
+          if (span_chunk_vec<T>(dwmap, sb, jl, span, dw_vec)) {
+            uint4 u;
+            T* t = reinterpret_cast<T*>(&u);
 #pragma unroll
-          for (int j = 0; j < V; ++j) t[j] = from_f<T>(sd[j]);
-          *reinterpret_cast<uint4*>(dr + __ldg(dwmap + sb + jl)) = u;
-        } else {
-          for (int j = 0; j < V && jl + j < span; ++j)
-            dr[__ldg(dwmap + sb + jl + j)] = from_f<T>(sd[j]);
+            for (int j = 0; j < V; ++j) t[j] = from_f<T>(sd[j]);
+            *reinterpret_cast<uint4*>(dr + __ldg(dwmap + sb + jl)) = u;
+          } else {
+            for (int j = 0; j < V && jl + j < span; ++j)
+              dr[__ldg(dwmap + sb + jl + j)] = from_f<T>(sd[j]);
+          }
         }
       }
-      if constexpr (kLeg == kRadB) {
+      if constexpr (kDh) {
         // dh[16, hd] += dw_g Wr_g^T on the tensor cores: dh's n-tile i goes
         // to warps i and i + 8, which take the first and the second half of
         // the span's K steps; the second half's sum goes through a scratch
@@ -938,11 +901,17 @@ __device__ __forceinline__ void dxdw_body(
     }
   }
 
-  if constexpr (kLeg == kLegW) return;
-  if constexpr (kLeg == kRadB) {  // dh once a tile (rows past the real edges: zero dw, zero dh)
-    T* dh = static_cast<T*>(rad.dh);
-    for (int i = tid; i < n_rows * hd; i += kThreads1)
-      dh[(long long)e0 * hd + i] = from_f<T>(s_dh[i]);
+  if constexpr (kLeg == kLegW && !kHLeg) return;
+  if constexpr (kDh) {  // dh once a tile (rows past the real edges: zero dw, zero dh)
+    if (split) {  // this split's fp32 partial of dh (the h leg)
+      float* pr = part + ((long long)blockIdx.y * E + e0) * hd;
+      for (int i = tid; i < n_rows * hd; i += kThreads1) pr[i] = s_dh[i];
+    } else {
+      T* dh = static_cast<T*>(rad.dh);
+      for (int i = tid; i < n_rows * hd; i += kThreads1)
+        dh[(long long)e0 * hd + i] = from_f<T>(s_dh[i]);
+    }
+    if constexpr (kHLeg) return;
   }
   if constexpr (kSh) {
     if (keep_dsh) {
@@ -1034,6 +1003,16 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads1, 1)
 rad_dxdw_kernel(EQT_K2_DXDW_PARAMS, const RadOps rad) {
   dxdw_body<T, kFullStage, kRadB>(EQT_K2_DXDW_ARGS, nullptr, nullptr, nullptr, 0, rad);
+}
+
+// K7-L: the folded x, sh and h legs (kLegX, kLegSh and kLegW with the fold),
+// grid (tiles, splits); the fp32 products split by masking
+template <typename T, int kLeg>
+__global__ void __launch_bounds__(kThreads1, 1)
+rad_leg_kernel(EQT_K2_DXDW_PARAMS, float* __restrict__ part, T* __restrict__ dsh,
+               float* __restrict__ part_sh, int slot_max, const RadOps rad) {
+  dxdw_body<T, kFullStage, kLeg, false, kNeedAll, true, true>(EQT_K2_DXDW_ARGS, part, dsh,
+                                                              part_sh, slot_max, rad);
 }
 
 // the split partials of a leg launch summed in split order, rows at or past
@@ -1834,6 +1813,74 @@ int launch_legW_rad(const Args& a, RadOps r, cudaStream_t stream) {
                                     static_cast<float*>(a.dW), stream);
 }
 
+// K7-L: one folded edge leg on launch 1's code (kLegX, kLegSh, or kLegW for
+// the h leg), the tiles cut by irrep group into n_split; the splits' fp32
+// partials of dx, dsh or dh then summed in split order by one launch
+template <typename T, int kLeg>
+int launch_rad_leg(const Args& a, const DshArgs& d, const RadOps& r, int n_split,
+                   cudaStream_t stream) {
+  const int smem = layout1<T, kLeg, true>(a.d_x, a.d_sh, a.span_max, a.cp_max, a.fd_max, true,
+                                          a.sx != 0, kNeedAll, d.slot_max, false, r.hd)
+                       .total;
+  cudaError_t err = cudaFuncSetAttribute(rad_leg_kernel<T, kLeg>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  rad_leg_kernel<T, kLeg><<<dim3((a.E + kTile - 1) / kTile, n_split), kThreads1, smem,
+                            stream>>>(
+      static_cast<const T*>(a.x), a.sx, a.d_x, static_cast<const T*>(a.sh), a.d_sh, nullptr,
+      a.d_w, static_cast<const T*>(a.Wp), static_cast<const T*>(a.G), a.d_out,
+      static_cast<const int*>(a.n_edges), a.E, static_cast<const int*>(a.gk), a.n_gk,
+      static_cast<const int*>(a.terms), static_cast<const float*>(a.coeffs),
+      static_cast<const int*>(a.dwmap), static_cast<T*>(a.dx), nullptr, a.span_max, a.cp_max,
+      a.fd_max, static_cast<float*>(a.part), static_cast<T*>(d.dsh),
+      static_cast<float*>(d.part_sh), d.slot_max, r);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  const int width = kLeg == kLegX ? a.d_x : kLeg == kLegSh ? a.d_sh : r.hd;
+  const long long numel = (long long)a.E * width;
+  const unsigned blocks = (unsigned)((numel + eqt::kReduceThreads - 1) / eqt::kReduceThreads);
+  const int* n_edges = static_cast<const int*>(a.n_edges);
+  if constexpr (kLeg == kLegSh)
+    bwd3_sum_kernel<T><<<blocks, eqt::kReduceThreads, 0, stream>>>(
+        nullptr, 0, nullptr, static_cast<const float*>(d.part_sh), a.d_sh,
+        static_cast<T*>(d.dsh), n_split, a.E, n_edges);
+  else
+    sum_dx_kernel<T><<<blocks, eqt::kReduceThreads, 0, stream>>>(
+        static_cast<const float*>(a.part), n_split, a.E, width, n_edges,
+        static_cast<T*>(kLeg == kLegX ? a.dx : r.dh));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_rad_leg(int leg, const Args& a, const DshArgs& d, const RadOps& r, int n_split,
+                     cudaStream_t s) {
+  if (leg == kLegX) return launch_rad_leg<T, kLegX>(a, d, r, n_split, s);
+  if (leg == kLegSh) return launch_rad_leg<T, kLegSh>(a, d, r, n_split, s);
+  return launch_rad_leg<T, kLegW>(a, d, r, n_split, s);
+}
+
+// K7-L's operands: the leg's output (and its partials when the tiles are
+// cut), every operand but the leg's own, the fold's tables; w and dw null
+int run_rad_leg(int leg, int n_split, const Args& a, const DshArgs& d, const RadOps& r,
+                int dtype, void* stream) {
+  const bool cut = n_split > 1;
+  const bool outs =
+      leg == kLegX    ? a.dx != nullptr && a.sh != nullptr && (!cut || a.part != nullptr)
+      : leg == kLegSh ? d.dsh != nullptr && a.x != nullptr && d.slot_max >= 1 &&
+                            (!cut || d.part_sh != nullptr)
+      : leg == kLegW  ? r.dh != nullptr && a.x != nullptr && a.sh != nullptr &&
+                            (!cut || a.part != nullptr)
+                      : false;
+  const bool fold = r.hd > 0 && r.hd % 4 == 0 && r.n_loc > 0 && r.Wl != nullptr &&
+                    r.pk != nullptr && r.rgk != nullptr && (leg == kLegW || r.h != nullptr);
+  if (!outs || !fold || a.w != nullptr || a.dw != nullptr || a.cp_max % 16 != 0 || n_split < 1)
+    return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32) return dispatch_rad_leg<float>(leg, a, d, r, n_split, s);
+  if (dtype == eqt::kBFloat16) return dispatch_rad_leg<__nv_bfloat16>(leg, a, d, r, n_split, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // h with hd a positive multiple of 4 whose staged slice fits launch 2's G
 // buffer, and [Wr; offset] of n_loc local columns
 template <typename T>
@@ -2015,6 +2062,39 @@ extern "C" int dtp_lin_rad_legWr(const void* x, long long sx, int d_x, const voi
   k2::RadOps r{};
   r.h = h; r.hd = hd; r.n_loc = n_loc; r.one = (float)one;
   return k2::run_legWr(a, r, n_split, dtype, stream);
+}
+
+// K7-L: one edge leg of the radial-folded op, F_x(G, sh, h, [Wr; offset],
+// W), F_sh(G, x, h, ...) or F_h(G, x, sh, [Wr; offset], W), on
+// dtp_lin_bwd's arguments (w and dw null; tiles, n_tiles, n_ranges,
+// range_len, dW and w_numel unused), then h [E, hd] (null for the h leg),
+// hd, Wl [hd + 1, n_loc] ([Wr; offset] in local column order: the offset is
+// read from its row hd, 0 when h's slot holds a tangent), n_loc, pk and rgk
+// (DTPLinPlan.k7_tables), dh [E, hd], dsh [E, d_sh], part_sh, slot_max
+// (DTPLinPlan.k2_dsh_slots), the leg (0 x: dx, x null; 1 sh: dsh, sh null;
+// 2 h: dh) and n_split, the irrep-group splits of each tile; cut in more
+// than one, the x and h legs need part [n_split, E, d_x or hd] and the sh
+// leg part_sh [n_split, E, d_sh], fp32.
+extern "C" int dtp_lin_rad_leg(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                               const void* w, int d_w, const void* Wp, const void* G, int d_out,
+                               const void* n_edges, int E, const void* gk, int n_gk,
+                               const void* terms, const void* coeffs, const void* dwmap,
+                               void* dx, void* dw, int span_max, int cp_max, int fd_max,
+                               const void* tiles, int n_tiles, void* part, int n_ranges,
+                               int range_len, void* dW, int w_numel, const void* h, int hd,
+                               const void* Wl, int n_loc, const void* pk, const void* rgk,
+                               void* dh, void* dsh, void* part_sh, int slot_max, int leg,
+                               int n_split, int dtype, void* stream) {
+  const k2::Args a{x,      sh,     w,        Wp,       G,      n_edges,   gk,
+                   terms,  coeffs, dwmap,    tiles,    sx,     d_x,       d_sh,
+                   d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
+                   n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
+  k2::RadOps r{};
+  r.h = h; r.hd = hd; r.Wl = Wl; r.n_loc = n_loc; r.pk = pk;
+  r.rgk = static_cast<const int*>(rgk); r.dh = dh;
+  if (leg < 0 || leg > 2) return (int)cudaErrorInvalidValue;
+  return k2::run_rad_leg(leg == 2 ? k2::kLegW : leg, n_split, a,
+                         k2::DshArgs{dsh, part_sh, slot_max}, r, dtype, stream);
 }
 
 // K5b's x and w legs on dtp_lin_bwd's arguments (tiles, n_ranges, range_len,

@@ -1,7 +1,9 @@
 // Shared pieces of the kernels that run their products on the tensor cores
 // with mma.sync (K2, csrc/dtp_lin_bwd.cu; K1, csrc/dtp_lin.cu): the fragment
 // products in bf16 (m16n8k16) and in fp32 as 3xTF32 (two m16n8k8 halves),
-// and 16-byte staging of rows into shared memory.
+// a [16, K] tile in shared memory times a B packed in fragment order (the
+// radial fold's w build and dh product), and 16-byte staging of rows into
+// shared memory.
 #pragma once
 
 #include <stdint.h>
@@ -147,6 +149,90 @@ __device__ __forceinline__ void mma16mn_tf32(float (&c)[kM][kN][4], const float 
 #pragma unroll
       for (int i = 0; i < kN; ++i)
         if (i < n) mma_tf32(c[m][i], ah[m], bh[i][0], bh[i][1]);
+  }
+}
+
+// -------------------------------------------- tiles in shared memory
+// the A fragment (m16n8k16 layout, fp32 values) of rows [0, 16) and K step
+// at column c0 = 16 ks + 2q of a row-major tile in shared memory (row stride
+// ld, even): a[s] = {A[g][k], A[g + 8][k], A[g][k + 1], A[g + 8][k + 1]}, k =
+// c0 + 8s
+template <typename TA>
+__device__ __forceinline__ void load_a(float (&a)[2][4], const TA* s_a, int ld, int c0, int gq) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const TA* lo = s_a + gq * ld + c0 + 8 * s;
+    const TA* hi = lo + 8 * ld;
+    if constexpr (sizeof(TA) == 4) {
+      const float2 l = *reinterpret_cast<const float2*>(lo);
+      const float2 h = *reinterpret_cast<const float2*>(hi);
+      a[s][0] = l.x;
+      a[s][1] = h.x;
+      a[s][2] = l.y;
+      a[s][3] = h.y;
+    } else {
+      const float2 l = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(lo));
+      const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hi));
+      a[s][0] = l.x;
+      a[s][1] = h.x;
+      a[s][2] = l.y;
+      a[s][3] = h.y;
+    }
+  }
+}
+
+// a lane's B fragment of one (n-tile, K step) packed in fragment order
+// (b_fragment_index): 16 bytes in fp32, 8 in bf16, read through L2
+template <typename T>
+__device__ __forceinline__ void load_b(float (&b)[2][2], const T* __restrict__ p) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    b[0][0] = v.x;
+    b[0][1] = v.y;
+    b[1][0] = v.z;
+    b[1][1] = v.w;
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    b[0][0] = lo.x;
+    b[0][1] = lo.y;
+    b[1][0] = hi.x;
+    b[1][1] = hi.y;
+  }
+}
+
+// one K step of C[i] += A B_i for the n-tiles i < n: bf16 operands, or fp32
+// as 3xTF32 split by masking
+template <typename T, int kN>
+__device__ __forceinline__ void mma_fold(float (&c)[kN][4], const float (&a)[2][4],
+                                         const float (&b)[kN][2][2], int n) {
+  if constexpr (sizeof(T) == 4)
+    mma16mn_tf32<1, kN>(reinterpret_cast<float (&)[1][kN][4]>(c),
+                        reinterpret_cast<const float (&)[1][2][4]>(a), b, n);
+  else
+    mma16n<T, kN>(c, a, b, n);
+}
+
+// out[16, n-tiles nt0 + i * step (i < n)] = A[16, K] B over n_ks K steps:
+// A a row-major tile in shared memory (row stride ld), B packed in fragment
+// order with ks_ld K steps an n-tile
+template <typename T, int kN, typename TA>
+__device__ __forceinline__ void mma_tile(float (&acc)[kN][4], const TA* s_a, int ld,
+                                         const T* __restrict__ Bp, int n_ks, int ks_ld, int nt0,
+                                         int step, int n, int lane) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int ks = 0; ks < n_ks; ++ks) {
+    float a[2][4], b[kN][2][2];
+    load_a(a, s_a, ld, ks * 16 + 2 * (lane & 3), lane >> 2);
+#pragma unroll
+    for (int i = 0; i < kN; ++i)
+      if (i < n) load_b(b[i], Bp + ((long long)((nt0 + i * step) * ks_ld + ks) * 32 + lane) * 4);
+    mma_fold<T, kN>(acc, a, b, n);
   }
 }
 

@@ -1,13 +1,11 @@
-// The radial fold of the fused DTP kernels (K7): the pieces that the folded
-// variants of K1 (csrc/dtp_lin.cu), K5a (csrc/dtp_lin_bwd3.cu) and K5b
-// (csrc/dtp_lin_leg.cu) of the first designs add to their bodies (K7-B,
-// K7-Wr and K7-LW run on K2's launches, csrc/dtp_lin_bwd.cu, with their
-// products on the tensor cores).
+// The radial fold on the CUDA cores: the pieces that K7-B3 (csrc/dtp_lin_bwd3.cu,
+// the first K5a design's folded variant) adds to its body.  The other
+// folded kernels run their fold products on the tensor cores (K7-F on K1's
+// block, csrc/dtp_lin.cu; K7-B, K7-L, K7-Wr and K7-LW on K2's launches,
+// csrc/dtp_lin_bwd.cu).
 //
-// Replaces: equiformer_tpu/kernels/dtp_lin_pallas.py, _radial_h_packed /
-// _radial_w_fill (w built in the kernel); the dh output of
-// equiformer_tpu/kernels/dtp_lin_ho.py's _bwd3_kernel, and the w rebuild
-// and dh of its leg kernel _edge_leg_kernel_rad.
+// Replaces: equiformer_tpu/kernels/dtp_lin_ho.py's _bwd3_kernel (the w
+// rebuild and its dh output).
 //
 // With the fold, a kernel's per-edge operand is the radial MLP's last hidden
 // activation h [E, hd] instead of the TP weights w [E, d_w], and

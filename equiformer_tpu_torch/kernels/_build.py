@@ -130,12 +130,13 @@ _SIGNATURES = {
     # K7-B3: d_x (0 without dx), d_sh, span, cols_pad_max, max_fan_stride,
     # hd (> 0), dtype -> resident blocks per SM (or -cudaError_t)
     "dtp_lin_bwd3_occupancy": [_I, _I, _I, _I, _I, _I, _I],
-    # the radial fold (K7): h [E, hd] and Wl [hd + 1, n_loc] in place of w.
-    # K7-F: x, x_row_stride, sh, W, out, n_edges*, E, d_sh, d_out, gk table
-    # (bwd_tables'), n_gk, terms, coeffs, max_fan_stride, h, hd, Wl, n_loc,
-    # span_max, dtype, stream
-    "dtp_lin_rad_fwd": [_VP, _LL, _VP, _VP, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _I,
-                        _VP, _I, _VP, _I, _I, _I, _VP],
+    # the radial fold (K7): h [E, hd] in place of w.  K7-F: K1's arguments
+    # (w null; the packed W and [Wr; offset] of k1_tables(fold=True)), then
+    # h, hd, the packed Wr and offsets, their per-group offsets, span_max,
+    # x read through L2 (0 or 1), dtype, stream
+    "dtp_lin_rad_fwd": [_VP, _LL, _I, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I,
+                        _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP, _I, _VP, _VP, _I, _I,
+                        _I, _VP],
     # K7-B: K2's arguments (w null, dw the workspace, dW ++ d[Wr; offset]),
     # then h, hd, Wl, n_loc, the packed Wr (k7_tables), its gk offsets, dh
     # before the dtype
@@ -153,15 +154,11 @@ _SIGNATURES = {
     "dtp_lin_edge_leg": _K2 + [_I, _I, _I, _VP],
     # K5c: K2's arguments
     "dtp_lin_legW": _K2 + [_I, _VP],
-    # K7-L: leg (0 x, 1 sh, 3 h), d_x, d_sh, span_max,
-    # cols_pad_max, max_fan_stride, hd (> 0), dtype
-    # -> resident blocks per SM (or -cudaError_t)
-    "dtp_lin_leg_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I],
-    # K7-L: leg (0 x, 1 sh, 2 h), x, x_row_stride, d_x, sh, d_sh, W^T, g,
-    # d_out, n_edges*, E, gk table, n_gk, terms, coeffs, out, span_max,
-    # cols_pad_max, max_fan_stride, h, hd, Wl, n_loc, dtype, stream
-    "dtp_lin_rad_leg": [_I, _VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
-                        _VP, _I, _I, _I, _VP, _I, _VP, _I, _I, _VP],
+    # K7-L: K2's arguments (w and dw null), then h, hd, Wl, n_loc, the packed
+    # Wr (k7_tables) and its gk offsets, dh, dsh, its split partials, the dsh
+    # slots a row, the leg (0 x, 1 sh, 2 h) and the irrep-group splits of a
+    # tile before the dtype
+    "dtp_lin_rad_leg": _K2 + [_VP, _I, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     # K7-Wr: K2's arguments (w and dx null, dw the workspace, dW the d[Wr;
     # offset]), then h, hd, n_loc, one (0 or 1) and the w leg's irrep-group
     # splits before the dtype

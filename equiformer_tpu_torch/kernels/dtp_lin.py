@@ -31,9 +31,10 @@ The radial fold (K7, JAX's ``EQUIFORMER_TPU_FOLD_RADIAL``): a plan with
 ``radial_fold=hd`` takes, in place of ``w``, the radial MLP's last hidden
 activation ``h`` [E, hd] and ``Wrs = [Wr; offset]`` [hd + 1, d_w]
 (``pack_radial``), and the kernels build ``w = h @ Wr + offset`` on chip:
-K7-F ``dtp_lin_rad_fwd`` and K7-B ``dtp_lin_rad_bwd`` (dx, dh, d[Wr;
-offset], dW: K2's two launches with the fold a compile-time variant, w
-built on chip in both), with the plain versions ``dtp_lin_rad_plain`` and
+K7-F ``dtp_lin_rad_fwd`` (K1's block with the group's w built from h on the
+tensor cores) and K7-B ``dtp_lin_rad_bwd`` (dx, dh, d[Wr; offset], dW: K2's
+two launches with the fold a compile-time variant, w built on chip in both),
+with the plain versions ``dtp_lin_rad_plain`` and
 ``dtp_lin_rad_bwd_plain``.
 """
 
@@ -91,9 +92,24 @@ class K1Tables(NamedTuple):
     gk: torch.Tensor  # int32 [n_gk, 8]
     groups: torch.Tensor  # int32 [n_groups, 2]: first gk row, components
     runs: torch.Tensor  # int32 [n_runs, 5]
-    wp_index: torch.Tensor  # int64: the packed W as a gather of cat([W_flat, 0])
+    # int64: the packed W as a gather of cat([W_flat, 0]); with the fold of
+    # cat([W_flat, Wrs.reshape(-1), 0]), then each group's packed Wr and offsets
+    wp_index: torch.Tensor
     fz_max: int  # the widest group's fan padded to 16
     vec: int  # K1_VEC where every run and term offset is a multiple of it, else 1
+    # the fold (K7-F): per group the offsets of its packed Wr and of its
+    # offsets in the gather after pk_base, and its span; the widest span
+    rg: Optional[torch.Tensor] = None
+    pk_base: int = 0
+    span_max: int = 0
+
+
+class K7LegTables(NamedTuple):
+    # int64: K2's packed W, then k7_tables' packings, then Wl [hd + 1, n_loc]
+    # flat, as a gather of cat([W_flat, Wrs.reshape(-1), 0])
+    index: torch.Tensor
+    pk_off: int  # where k7_tables' packings start
+    wl_off: int  # where Wl starts
 
 
 def b_fragment_index(K: int, N: int, k_valid: int, n_valid: int, flat, zero: int) -> np.ndarray:
@@ -137,31 +153,54 @@ def _stride_mod(n: int, m: int, r: int) -> int:
     return n + ((r - n % m) + m) % m
 
 
-def k1_smem_bytes(plan: "DTPLinPlan", tile: int, itemsize: int, x_rows: bool) -> int:
+def k1_smem_bytes(plan: "DTPLinPlan", tile: int, itemsize: int, x_rows: bool,
+                  fold: bool = False, x_global: bool = False) -> int:
     """Shared memory of one K1 block (``k1::layout``): x [tile or 1, d_x
-    rounded to 8] in the dtype, sh [tile, d_sh] fp32, z [tile, ld] in the
-    dtype, each 16-byte aligned."""
+    rounded to 8] in the dtype (none with ``x_global``: read through L2), sh
+    [tile, d_sh] fp32, z [tile, ld] in the dtype; with ``fold`` (K7-F) also
+    h [tile, ld of hd] and w [tile, ld of the widest span] in the dtype;
+    each 16-byte aligned."""
     def a16(b):
         return -(-b // 16) * 16
 
+    def ld(n):  # k1::ld_z
+        return _stride_mod(n, 32, 8) if itemsize == 4 else _stride_mod(n, 64, 8)
+
     fz = max(-(-g.fan // 16) * 16 for g in plan.groups)
-    ldz = _stride_mod(fz, 32, 8) if itemsize == 4 else _stride_mod(fz, 64, 8)
-    return (a16((tile if x_rows else 1) * -(-plan.d_x // 8) * 8 * itemsize)
-            + a16(tile * plan.d_sh * 4) + a16(tile * ldz * itemsize))
+    total = (0 if x_global else a16((tile if x_rows else 1) * -(-plan.d_x // 8) * 8 * itemsize))
+    total += a16(tile * plan.d_sh * 4) + a16(tile * ld(fz) * itemsize)
+    if fold:
+        span = max(g.fan for g in plan.groups)  # a group's span is its fan (k7_tables)
+        total += (a16(tile * ld(-(-plan.radial_fold // 16) * 16) * itemsize)
+                  + a16(tile * ld(-(-span // 8) * 8) * itemsize))
+    return total
 
 
-def k1_tile(plan: "DTPLinPlan", itemsize: int, x_rows: bool, E: int, sm_count: int) -> int:
+def k1_tile(plan: "DTPLinPlan", itemsize: int, x_rows: bool, E: int, sm_count: int,
+            fold: bool = False) -> int:
     """K1's edge tile: 32 in fp32 where a block leaves room for a second on
     its SM and the grid (tiles x groups) fills the card's two blocks an SM
     ``K1_MIN_WAVES`` times (QM9), so that two m-tiles share each B
     fragment's 3xTF32 split; else 16 (MD17 L3's 864-wide x tile and its
     2944 edges in fp32; bf16, whose product is cheap and whose twice as
-    many 16-edge blocks run faster)."""
+    many 16-edge blocks run faster).  ``fold``: K7-F's block, whose h and w
+    tiles count too (the 16-edge tile at QM9 in fp32)."""
     tile = K1_TILES[0]
-    if (itemsize == 4 and k1_smem_bytes(plan, tile, itemsize, x_rows) <= K1_TWO_BLOCKS_SMEM
+    if (itemsize == 4
+            and k1_smem_bytes(plan, tile, itemsize, x_rows, fold) <= K1_TWO_BLOCKS_SMEM
             and -(-E // tile) * len(plan.groups) >= K1_MIN_WAVES * 2 * sm_count):
         return tile
     return K1_TILES[-1]
+
+
+def k1_x_global(plan: "DTPLinPlan", itemsize: int, x_rows: bool, tile: int) -> bool:
+    """Whether K7-F reads x through L2 instead of staging it: with the
+    16-edge tile where the staged x alone keeps a second block off the SM
+    (MD17 L3 in fp32: 145 KB a block, 91 KB without x; on an H100 0.33 ms a
+    call at its sep_act against 0.48 with x staged)."""
+    return (tile == K1_TILES[-1] and x_rows
+            and k1_smem_bytes(plan, tile, itemsize, x_rows, True) > K1_TWO_BLOCKS_SMEM
+            and k1_smem_bytes(plan, tile, itemsize, x_rows, True, True) <= K1_TWO_BLOCKS_SMEM)
 
 
 def k2_ranges(E: int, n_tiles: int, sm_count: int,
@@ -471,14 +510,11 @@ class DTPLinPlan:
         tabs = self._tables.get(key)
         if tabs is not None:
             return tabs
-        gk, terms, *_ = self.bwd_tables(torch.device("cpu"))
-        if not bool((terms[:, 3] == terms[:, 5]).all()):
-            raise ValueError("the fold's kernels need each group's fan columns in its local "
-                             "w column order")
+        gk = self._check_fold_order()
         n_loc = int(self.radial_cols(torch.device("cpu")).numel())
         zero = (hd + 1) * n_loc
         index, rgk, off = [], [], 0
-        for row in gk.tolist():
+        for row in gk:
             sb, span, first = row[8], row[9], row[10]
             if first:
                 wb = b_fragment_index(hd, span, hd, span, lambda k, n: k * n_loc + sb + n, zero)
@@ -503,7 +539,7 @@ class DTPLinPlan:
             self._tables["k2_dsh_slots"] = slots
         return slots
 
-    def k1_tables(self, device: torch.device) -> "K1Tables":
+    def k1_tables(self, device: torch.device, fold: bool = False) -> "K1Tables":
         """K1's tables on ``device``, as ``csrc/dtp_lin.cu`` (namespace k1)
         reads them; the terms and coefficients are ``device_tables'``.
 
@@ -515,10 +551,22 @@ class DTPLinPlan:
         by fan column in ``device_tables``), 5 ints: the fan column, mul, the
         w column, the term range; a run's elements are written once, so z
         needs no zeroing.  ``wp_index`` gathers ``cat([W_flat, 0])`` into
-        each group's W_g in B-fragment order (``k1_pack_index``)."""
-        key = ("k1", device)
+        each group's W_g in B-fragment order (``k1_pack_index``).
+
+        ``fold`` (K7-F, a plan with ``radial_fold``): a run's w column is
+        its column in the group's w tile, which is its fan column (the
+        fold's order, ``_check_fold_order``); ``wp_index`` gathers
+        ``cat([W_flat, Wrs.reshape(-1), 0])`` into the packed W, then from
+        ``pk_base`` on per group its columns of Wr in B-fragment order (K =
+        hd, N = the span) and its offsets in local column order; ``rg`` per
+        group the offsets of those two after ``pk_base``, and its span."""
+        key = ("k1f" if fold else "k1", device)
         tabs = self._tables.get(key)
         if tabs is not None:
+            return tabs
+        if fold:
+            tabs = self._k1_fold_tables(device)
+            self._tables[key] = tabs
             return tabs
         terms = self.device_tables(torch.device("cpu"))[0].tolist()
         gk_of = [loc[:2] for _, loc in self.terms]  # each term's (group, component)
@@ -555,6 +603,85 @@ class DTPLinPlan:
             max(-(-g.fan // 16) * 16 for g in self.groups),
             vec,
         )
+        self._tables[key] = tabs
+        return tabs
+
+    def _check_fold_order(self):
+        """The fold's kernels take a group's fan column f as its local w
+        column sb + f: each fan block is one TP path, and both orders
+        follow the paths.  Returns ``bwd_tables``' gk rows on the CPU."""
+        gk, terms, *_ = self.bwd_tables(torch.device("cpu"))
+        if not bool((terms[:, 3] == terms[:, 5]).all()):
+            raise ValueError("the fold's kernels need each group's fan columns in its local "
+                             "w column order")
+        return gk.tolist()
+
+    def _over_wrs(self, index: np.ndarray, wl: bool) -> np.ndarray:
+        """A gather of ``cat([W_flat, 0])`` (``wl`` False) or of
+        ``cat([Wl.reshape(-1), 0])`` (Wl = [Wr; offset] in local column
+        order, ``wl`` True) as the same gather of ``cat([W_flat,
+        Wrs.reshape(-1), 0])``, so that one gather packs W and [Wr; offset]
+        together."""
+        hd, d_w = self.radial_fold, self.d_w
+        zero = self.w_numel + (hd + 1) * d_w
+        if not wl:
+            return np.where(index == self.w_numel, zero, index)
+        cols = self.radial_cols(torch.device("cpu")).numpy()
+        n_loc = cols.size
+        k, c = np.divmod(np.minimum(index, (hd + 1) * n_loc - 1), n_loc)
+        return np.where(index == (hd + 1) * n_loc, zero, self.w_numel + k * d_w + cols[c])
+
+    def _k1_fold_tables(self, device: torch.device) -> "K1Tables":
+        """``k1_tables(device, fold=True)``."""
+        if self.radial_fold is None:
+            raise ValueError("the fold's tables need a plan with radial_fold")
+        hd, bgk = self.radial_fold, self._check_fold_order()
+        n_loc = int(self.radial_cols(torch.device("cpu")).numel())
+        base = self.k1_tables(torch.device("cpu"))
+        runs = base.runs.clone()
+        runs[:, 2] = runs[:, 0]  # the w column in the group's tile: the fan column
+        index = [self._over_wrs(base.wp_index.numpy(), False)]
+        pk_base = off = index[0].size
+        rg = []
+        for row in bgk:
+            sb, span = row[8], row[9]
+            if not row[10]:
+                continue
+            if span != self.groups[len(rg)].fan:
+                raise ValueError("a group's w span differs from its fan")
+            wb = b_fragment_index(hd, span, hd, span, lambda k, n: k * n_loc + sb + n,
+                                  (hd + 1) * n_loc)
+            offs = np.full(-(-span // 4) * 4, (hd + 1) * n_loc)  # 16-byte aligned segments
+            offs[:span] = hd * n_loc + sb + np.arange(span)
+            index += [self._over_wrs(wb, True), self._over_wrs(offs, True)]
+            rg.append((off - pk_base, off - pk_base + wb.size, span))
+            off += wb.size + offs.size
+        return base._replace(
+            runs=runs.to(device), gk=base.gk.to(device), groups=base.groups.to(device),
+            wp_index=torch.as_tensor(np.concatenate(index), device=device),
+            rg=torch.tensor(rg, dtype=torch.int32, device=device), pk_base=pk_base,
+            span_max=max(r[2] for r in rg))
+
+    def k7_leg_tables(self, device: torch.device) -> "K7LegTables":
+        """K7-L's gather (``kernels/dtp_lin_ho.py``, ``dtp_lin_rad_leg``):
+        ``index`` gathers ``cat([W_flat, Wrs.reshape(-1), 0])`` into K2's
+        packed W (``k2_tables``), then from ``pk_off`` on ``k7_tables``'
+        packings of each group's Wr (whose ``rgk`` offsets count from
+        there), then from ``wl_off`` on Wl = [Wr; offset] in local column
+        order [hd + 1, n_loc], whose row hd the w build reads the offset
+        from: one gather where three (W, Wl, the packings) were."""
+        key = ("k7l", device)
+        tabs = self._tables.get(key)
+        if tabs is not None:
+            return tabs
+        cpu = torch.device("cpu")
+        n_wl = (self.radial_fold + 1) * int(self.radial_cols(cpu).numel())
+        wp = self._over_wrs(self.k2_tables(cpu).wp_index.numpy(), False)
+        pk = self._over_wrs(self.k7_tables(cpu).index.numpy(), True)
+        tabs = K7LegTables(
+            torch.as_tensor(np.concatenate([wp, pk, self._over_wrs(np.arange(n_wl), True)]),
+                            device=device),
+            wp.size, wp.size + pk.size)
         self._tables[key] = tabs
         return tabs
 
@@ -756,13 +883,14 @@ def _check_n_edges(n_edges, E: int, device) -> torch.Tensor:
     return n_edges
 
 
-def _check_operands(plan: DTPLinPlan, x, sh, w, W_flat):
+def _check_operands(plan: DTPLinPlan, x, sh, w, W_flat, local: bool = True):
     """Shapes, dtypes and devices the kernels take; returns x with a row
     stride of 0 or d_x and contiguous sh / w / W_flat.  ``w`` is the
     per-edge w, None (shared weights), or the radial fold's ``(h, Wrs)``,
     returned as ``(h, Wl)``: Wl is [Wr; offset] with its columns in the
     backward tables' local order (``plan.radial_cols``), as the folded
-    kernels read it."""
+    kernels read it, or with ``local`` False Wrs itself (contiguous), for
+    the kernels whose wrapper gathers it with W in one index."""
     E = sh.shape[0]
     if x.dim() != 2 or x.shape != (E, plan.d_x) or sh.shape != (E, plan.d_sh):
         raise ValueError(f"bad shapes x {tuple(x.shape)} sh {tuple(sh.shape)}")
@@ -791,7 +919,8 @@ def _check_operands(plan: DTPLinPlan, x, sh, w, W_flat):
     if x.stride(1) != 1 or (x.stride(0) not in (0, plan.d_x)):
         x = x.contiguous()
     if folded:
-        w = (w[0].contiguous(), w[1][:, plan.radial_cols(x.device)].contiguous())
+        w = (w[0].contiguous(), w[1][:, plan.radial_cols(x.device)].contiguous() if local
+             else w[1].contiguous())
     elif w is not None:
         w = w.contiguous()
     return x, sh.contiguous(), w, W_flat.contiguous()
@@ -828,6 +957,18 @@ def dtp_lin_fwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat: 
     _build.check(err, "dtp_lin_fwd")
     dtp_lin_fwd.launches += 1
     return out
+
+
+def fold_gather(plan: DTPLinPlan, W_flat: torch.Tensor, Wrs: torch.Tensor,
+                index: torch.Tensor) -> torch.Tensor:
+    """``cat([W_flat, Wrs.reshape(-1), 0])[index]``: W and [Wr; offset]
+    packed together for a folded kernel (``k1_tables(fold=True)``,
+    ``k7_leg_tables``) in two launches; the zero is kept on the plan."""
+    key = ("zero", W_flat.device, W_flat.dtype)
+    zero = plan._tables.get(key)
+    if zero is None:
+        zero = plan._tables[key] = W_flat.new_zeros(1)
+    return torch.cat([W_flat, Wrs.reshape(-1), zero])[index]
 
 
 def k2_packed_W(plan: DTPLinPlan, W_flat: torch.Tensor) -> torch.Tensor:
@@ -957,27 +1098,50 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _k7f_launch_shape(plan: DTPLinPlan, x: torch.Tensor, E: int) -> Tuple[int, bool]:
+    """K7-F's edge tile and whether it reads x through L2 (``k1_tile``,
+    ``k1_x_global``), kept on the plan per dtype, row stride and E: the
+    folded force step calls K7-F 27 times, and its host time is its
+    limit."""
+    size, x_rows = x.element_size(), x.stride(0) != 0
+    key = ("k7f", size, x_rows, E)
+    shape = plan._tables.get(key)
+    if shape is None:
+        tile = k1_tile(plan, size, x_rows, E, _sm_count(x.device), fold=True)
+        shape = plan._tables[key] = (tile, k1_x_global(plan, size, x_rows, tile))
+    return shape
+
+
 def dtp_lin_rad_fwd(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, h: torch.Tensor,
                     Wrs: torch.Tensor, W_flat: torch.Tensor, n_edges=None) -> torch.Tensor:
     """K7-F: K1 with ``w = [h, 1] @ Wrs`` built in the kernel, [E, d_out].
     ``h`` [E, hd] is the radial MLP's last hidden activation and ``Wrs`` the
-    plan's ``pack_radial(Wr, offset)`` [hd + 1, d_w].  CPU tensors take
-    ``dtp_lin_rad_plain``; CUDA tensors launch the kernel (float32 or
-    bfloat16) or raise."""
+    plan's ``pack_radial(Wr, offset)`` [hd + 1, d_w].  K1's block per (edge
+    tile, irrep group) (``csrc/dtp_lin.cu``, ``k1::rad_fwd_kernel``) builds
+    its group's w from h on the tensor cores before the z walk, from W and
+    [Wr; offset] packed by one gather (``k1_tables(fold=True)``,
+    ``fold_gather``).  CPU tensors take ``dtp_lin_rad_plain``; CUDA tensors
+    launch the kernel (float32 or bfloat16) or raise."""
     if x.device.type == "cpu":
         return dtp_lin_rad_plain(plan, x, sh, h, Wrs, W_flat, n_edges)
     E = sh.shape[0]
-    x, sh, (h, Wl), W_flat = _check_operands(plan, x, sh, (h, Wrs), W_flat)
+    x, sh, (h, Wrs), W_flat = _check_operands(plan, x, sh, (h, Wrs), W_flat, local=False)
     n_edges = _check_n_edges(n_edges, E, x.device)
-    gk, terms, coeffs, _, _, span_max, _ = plan.bwd_tables(x.device)
+    terms, coeffs = plan.device_tables(x.device)
+    kt = plan.k1_tables(x.device, fold=True)
     out = torch.empty((E, plan.d_out), dtype=x.dtype, device=x.device)
     if E == 0:
         return out
+    packed = fold_gather(plan, W_flat, Wrs, kt.wp_index)
+    tile, x_global = _k7f_launch_shape(plan, x, E)
+    vec = kt.vec if not x_global or (x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0) else 1
     err = _build.library().dtp_lin_rad_fwd(
-        _build.ptr(x), x.stride(0), _build.ptr(sh), _build.ptr(W_flat), _build.ptr(out),
-        _build.ptr(n_edges), E, plan.d_sh, plan.d_out, _build.ptr(gk), gk.shape[0],
-        _build.ptr(terms), _build.ptr(coeffs), plan.max_fan_stride, _build.ptr(h),
-        plan.radial_fold, _build.ptr(Wl), Wl.shape[1], span_max, _build.dtype_code(x),
+        _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, None, 0,
+        _build.ptr(packed), _build.ptr(out), plan.d_out, _build.ptr(n_edges), E,
+        _build.ptr(kt.gk), _build.ptr(kt.groups), kt.groups.shape[0], _build.ptr(kt.runs),
+        _build.ptr(terms), _build.ptr(coeffs), kt.fz_max, tile, vec, _build.ptr(h),
+        plan.radial_fold, packed.data_ptr() + kt.pk_base * packed.element_size(),
+        _build.ptr(kt.rg), kt.span_max, int(x_global), _build.dtype_code(x),
         _build.stream_ptr(),
     )
     _build.check(err, "dtp_lin_rad_fwd")

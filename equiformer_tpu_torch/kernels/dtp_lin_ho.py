@@ -44,10 +44,12 @@ operand is ``(h, [Wr; offset])``, ``w = [h, 1] @ [Wr; offset]``, and the op
 is multilinear in six legs (``LEGS_RAD``: out, x, sh, h, Wr, W; the edge
 legs x, sh, h), as JAX's ``_LEGS_RAD`` extends ``_LEGS``.  The same
 ``_Leg`` / ``_Bwd3`` family carries it: the out leg is K7-F
-(``dtp_lin_rad_fwd``, ``csrc/dtp_lin.cu``), the x / sh / h legs K7-L
-(``dtp_lin_rad_leg``, ``csrc/dtp_lin_leg.cu``: dh = dw Wr^T with dw on
-chip), the W leg K7-LW (``dtp_lin_rad_legW``, ``csrc/dtp_lin_bwd.cu``: K5c's
-launch with each step's w rebuilt from h on the tensor cores), the Wr leg
+(``dtp_lin_rad_fwd``, ``csrc/dtp_lin.cu``: K1's block with w built from h
+on the tensor cores), the x / sh / h legs K7-L (``dtp_lin_rad_leg``,
+``csrc/dtp_lin_bwd.cu``: K5b's legs on K2's launch 1 with w built, or dh =
+dw Wr^T taken, on the tensor cores, dw on chip), the W leg K7-LW
+(``dtp_lin_rad_legW``, ``csrc/dtp_lin_bwd.cu``: K5c's launch with each
+step's w rebuilt from h on the tensor cores), the Wr leg
 K7-Wr (``dtp_lin_rad_legWr``, ``csrc/dtp_lin_bwd.cu``: K5b's w leg, then
 [h, 1]^T dw on the tensor cores over K2's edge ranges, their fp32 partial
 rows summed in order) and the three edge legs of one ``g`` together K7-B3
@@ -80,6 +82,7 @@ from .dtp_lin import (
     dtp_lin_fwd,
     dtp_lin_legW_plain,
     dtp_lin_rad_fwd,
+    fold_gather,
     fold_shared_weights,
     k2_packed_W,
     k7_wr_tiles,
@@ -105,9 +108,9 @@ DSH_LEGS = {"sh": 1, "bwd3": 4}
 
 def bwd3_tables(plan: DTPLinPlan, device: torch.device):
     """``plan.bwd_tables`` with the term rows of each (group, component)
-    stably sorted by SH column, so the running dsh sum of the first K5a /
-    K5b design (K7-B3, K7-L) is flushed once per column rather than once per
-    term: (gk, terms, coeffs, dwmap, wt_index, span_max, cols_pad_max)."""
+    stably sorted by SH column, so the running dsh sum of the first K5a
+    design (K7-B3) is flushed once per column rather than once per term:
+    (gk, terms, coeffs, dwmap, wt_index, span_max, cols_pad_max)."""
     key = ("bwd3", device)
     tabs = plan._tables.get(key)
     if tabs is not None:
@@ -389,15 +392,20 @@ def dtp_lin_legW(plan: DTPLinPlan, g: torch.Tensor, x: torch.Tensor, sh: torch.T
 dtp_lin_legW.launches = 0
 
 
-def _local_radial(plan: DTPLinPlan, Wrs: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+def _check_radial(plan: DTPLinPlan, Wrs: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """[Wr; offset] [hd + 1, d_w] checked against the plan and ``like``'s
-    dtype and device, its columns gathered into the tables' local order
-    (``plan.radial_cols``), as the folded kernels read it."""
+    dtype and device, contiguous (the TP's own column order)."""
     if (Wrs.shape != (plan.radial_fold + 1, plan.d_w) or Wrs.dtype != like.dtype
             or Wrs.device != like.device):
         raise ValueError(f"[Wr; offset] must be [{plan.radial_fold + 1}, {plan.d_w}] in g's "
                          f"dtype and device")
-    return Wrs[:, plan.radial_cols(like.device)].contiguous()
+    return Wrs.contiguous()
+
+
+def _local_radial(plan: DTPLinPlan, Wrs: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``_check_radial``'s [Wr; offset] with its columns gathered into the
+    tables' local order (``plan.radial_cols``), as K7-LW reads it."""
+    return _check_radial(plan, Wrs, like)[:, plan.radial_cols(like.device)].contiguous()
 
 
 def _check_rad_leg(plan: DTPLinPlan, out_leg: str) -> None:
@@ -440,32 +448,41 @@ def dtp_lin_rad_leg(plan: DTPLinPlan, out_leg: str, g: torch.Tensor, x, sh, h,
                     Wrs: torch.Tensor, W_flat: torch.Tensor, n_edges=None) -> torch.Tensor:
     """K7-L: one edge leg of the radial-folded op, ``F_x(g, sh, h, Wrs, W)``
     [E, d_x], ``F_sh(g, x, h, Wrs, W)`` [E, d_sh] or ``F_h(g, x, sh, Wrs, W)``
-    [E, hd]; w is built and dw contracted against Wr on chip.  The operand
-    of ``out_leg`` is not read (pass None).  CPU tensors take
+    [E, hd]; the operand of ``out_leg`` is not read (pass None).  K5b's leg
+    on K2's launch 1 with the fold (``k2::rad_leg_kernel``), a block per
+    (16-edge tile, irrep group): the x and sh legs build the group's w from
+    h on the tensor cores, the h leg contracts the group's dw into dh = dw
+    Wr^T there; dx, dsh and dh sum over groups, their per-group fp32
+    partials in group order (whole tiles took 22% longer for the h leg at
+    MD17's sep_act on an H100).  W and [Wr; offset] are packed by one
+    gather (``plan.k7_leg_tables``).  CPU tensors take
     ``dtp_lin_rad_leg_plain``; CUDA tensors launch the kernel (float32 or
     bfloat16) or raise."""
     if g.device.type == "cpu":
         return dtp_lin_rad_leg_plain(plan, out_leg, g, x, sh, h, Wrs, W_flat, n_edges)
     _check_rad_leg(plan, out_leg)
-    E, dev = g.shape[0], g.device
+    E, dev, hd = g.shape[0], g.device, plan.radial_fold
     g, x, sh, h, W_flat = _check_leg_operands(plan, out_leg, g, x, sh, h, W_flat)
-    Wl = _local_radial(plan, Wrs, g)
+    Wrs = _check_radial(plan, Wrs, g)
     n_edges = _check_n_edges(n_edges, E, dev)
-    gk, terms, coeffs, _, wt_index, span_max, cols_pad_max = bwd3_tables(plan, dev)
-    width = {"x": plan.d_x, "sh": plan.d_sh, "h": plan.radial_fold}[out_leg]
+    width = {"x": plan.d_x, "sh": plan.d_sh, "h": hd}[out_leg]
     out = torch.empty((E, width), dtype=g.dtype, device=dev)
     if E == 0:
         return out
-    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
-    err = _build.library().dtp_lin_rad_leg(
-        EDGE_LEGS_RAD.index(out_leg), _build.ptr(x), 0 if x is None else x.stride(0), plan.d_x,
-        _build.ptr(sh), plan.d_sh, _build.ptr(WT), _build.ptr(g), plan.d_out,
-        _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0], _build.ptr(terms),
-        _build.ptr(coeffs), _build.ptr(out), span_max, cols_pad_max, plan.max_fan_stride,
-        _build.ptr(h), plan.radial_fold, _build.ptr(Wl), Wl.shape[1], _build.dtype_code(g),
-        _build.stream_ptr(),
-    )
-    _build.check(err, "dtp_lin_rad_leg")
+    kl, kr = plan.k7_leg_tables(dev), plan.k7_tables(dev)
+    packed = fold_gather(plan, W_flat, Wrs, kl.index)
+    Wp, pk, Wl = packed[: kl.pk_off], packed[kl.pk_off : kl.wl_off], packed[kl.wl_off :]
+    n_split = len(plan.groups)
+    part = part_sh = None  # the splits' fp32 partials of the leg's output
+    if n_split > 1:
+        part = torch.empty((n_split, E, width), dtype=torch.float32, device=dev)
+        part, part_sh = (None, part) if out_leg == "sh" else (part, None)
+    _k2_call("dtp_lin_rad_leg", plan, g, x, sh, None, Wp, n_edges,
+             out if out_leg == "x" else None, None, None, part, _build.ptr(h), hd,
+             _build.ptr(Wl), Wl.numel() // (hd + 1), _build.ptr(pk), _build.ptr(kr.rgk),
+             _build.ptr(out if out_leg == "h" else None),
+             _build.ptr(out if out_leg == "sh" else None), _build.ptr(part_sh),
+             plan.k2_dsh_slots(), EDGE_LEGS_RAD.index(out_leg), n_split)
     dtp_lin_rad_leg.launches += 1
     return out
 
@@ -540,23 +557,11 @@ def dtp_lin_rad_legWr(plan: DTPLinPlan, g: torch.Tensor, x: torch.Tensor, sh: to
 dtp_lin_rad_legWr.launches = 0
 
 
-def leg_occupancy(plan: DTPLinPlan, dtype: torch.dtype, out_leg: str) -> int:
+def leg_occupancy(plan: DTPLinPlan, dtype: torch.dtype) -> int:
     """Resident blocks per SM at this plan's shared memory of K5b's sh leg
-    ("sh", on K2's launch 1), or on a radial-folded plan of K7-L's ("x",
-    "sh", "h").  Needs the card.  (K5b's x and w legs, K5c, K7-LW and K7-Wr
-    run on K2's launches: one 16-edge tile a block, and tiles by edge
-    ranges.)"""
+    (on K2's launch 1).  Needs the card."""
     code = _build.dtype_code(torch.empty((), dtype=dtype))
-    hd = plan.radial_fold or 0
-    if (not hd and out_leg != "sh") or out_leg in ("W", "Wr"):
-        raise ValueError(f"the {out_leg!r} leg runs on K2's launches")
-    *_, span_max, cols_pad_max = bwd3_tables(plan, torch.device("cpu"))
-    if not hd:
-        blocks = _dsh_occupancy(plan, DSH_LEGS["sh"], not plan.shared_weights, True, 7, code)
-    else:
-        blocks = _build.library().dtp_lin_leg_occupancy(
-            ("x", "sh", "w", "h").index(out_leg), plan.d_x, plan.d_sh, span_max,
-            cols_pad_max, plan.max_fan_stride, hd, code)
+    blocks = _dsh_occupancy(plan, DSH_LEGS["sh"], not plan.shared_weights, True, 7, code)
     if blocks < 0:
         _build.check(-blocks, "leg_occupancy")
     return blocks

@@ -2,8 +2,8 @@
 segment sum), K4 (the attention combine), K7-F (the radial-folded
 forward), K7-B (its backward), K5a (the force backward: dx, dsh and dw of
 the force models' fused op), K5b (its edge legs), K5c (its head-weight
-leg), K7-Wr and K7-LW (the folded op's [Wr; offset] and head-weight legs)
-and K8-B (the kron-basis backward) of this package against another tree's,
+leg), K7-L, K7-Wr and K7-LW (the folded op's x / sh / h, [Wr; offset] and
+head-weight legs) and K8-B (the kron-basis backward) of this package against another tree's,
 in turns, on one GPU.
 
     python -m equiformer_tpu_torch.tools.kernel_ab [--against DIR [DIR ...]]
@@ -30,8 +30,11 @@ flagship's three sites (sep_act, sep_value with shared weights folded into
 W, the edge-degree embedding with its row-broadcast x), K1 also at MD17
 L3's sep_act; K4 at QM9's [E, 4, 120] with and without the alpha-dropout
 multiplier, the padding edges masked; K7-F at the folded flagship's
-sep_act; K7-B at the folded flagship's sep_act and edge degree; K7-Wr (h's
-ones column 1) and K7-LW at the folded exp_l3's sep_act and edge degree;
+sep_act and the folded exp_l3's; K7-B at the folded flagship's sep_act and
+edge degree; K7-L's x, sh and h legs, K7-Wr (h's ones column 1) and K7-LW
+at the folded exp_l3's sep_act and edge degree (K7-F and K7-L with this
+package's unfolded pair beside them as ``pair_ms``: cuBLAS ``w = h @ Wr +
+offset`` then K1 or K5b's leg, or K5b's w leg then cuBLAS ``dw Wr^T``);
 K8-B at the kron flagship's three sites (G built by each side's
 ``kron_meta``, this package's K2 on the same inputs beside it as
 ``k2_ms``); K5a with each caller's outputs (``K5A_NEEDS``), K5b's x, sh and
@@ -45,9 +48,10 @@ seed 0, the batch's real edges live.  Per shape and dtype (float32, bfloat16):
 * ``ms``: each side's wrapper, CUDA events (median of 5 runs of 5 calls);
   ``host_us`` (K3): its host time a call (median of 5 runs of 100 calls
   without a synchronize), which bounds ``ms`` at the small MD17 shapes;
-* ``device_ms`` (K3, K4, K5a-c, K7-B, K7-Wr, K7-LW, K8-B): each side's
-  device time per call, all its kernels, ``kernel_ms`` the kernel alone
-  (K5a-c, K7-B, K7-Wr, K7-LW, K8-B: their launches and sums) and
+* ``device_ms`` (K3, K4, K5a-c, K7-F, K7-L, K7-B, K7-Wr, K7-LW, K8-B):
+  each side's device time per call, all its kernels (gathers too),
+  ``kernel_ms`` the kernel alone (K5a-c, K7-L, K7-B, K7-Wr, K7-LW, K8-B:
+  their launches and sums) and
   ``by_kernel`` each of those by name,
   from a profiler trace of 20 calls;
 * ``rel_err``: each side against this package's plain version (max |diff| /
@@ -99,8 +103,12 @@ K5A_KERNELS = ("bwd3_kernel", "bwd3_sum_kernel")
 K5B_KERNELS = ("edge_leg_kernel", "sum_dx_kernel", "sh_leg_kernel", "bwd3_sum_kernel",
                "dtp_lin_leg_kernel")
 K5C_KERNELS = ("W_leg_kernel", "sum_partial_rows_kernel")
-# K7-B's, K7-Wr's and K7-LW's kernels, of this design (k2::) and of the first one
-K7_KERNELS = {"K7B": ("rad_dxdw_kernel", "rad_dW_kernel", "sum_partial_rows_kernel",
+# K7-F's, K7-L's, K7-B's, K7-Wr's and K7-LW's kernels, of this design (k1::,
+# k2::) and of the first one
+K7_KERNELS = {"K7F": ("rad_fwd_kernel", "dtp_lin_fwd_kernel"),
+              "K7L": ("rad_leg_kernel", "sum_dx_kernel", "bwd3_sum_kernel",
+                      "dtp_lin_leg_kernel"),
+              "K7B": ("rad_dxdw_kernel", "rad_dW_kernel", "sum_partial_rows_kernel",
                       "dtp_lin_bwd_kernel"),
               "K7Wr": ("edge_leg_kernel", "Wr_leg_kernel", "sum_partial_rows_kernel",
                        "dtp_lin_leg_kernel"),
@@ -108,7 +116,8 @@ K7_KERNELS = {"K7B": ("rad_dxdw_kernel", "rad_dW_kernel", "sum_partial_rows_kern
 # K8-B's kernels, of this design (k2::, K2's launches) and of the first one
 K8B_KERNELS = ("kron_dxdw_kernel", "kron_dG_kernel", "sum_partial_rows_kernel",
                "kron_bwd_dx_kernel")
-SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K7B", "K5a", "K5b", "K5c", "K7Wr", "K7LW", "K8B")
+SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K7L", "K7B", "K5a", "K5b", "K5c", "K7Wr", "K7LW",
+            "K8B")
 # the outputs each caller of K5a asks for at MD17's sites: the force pass and
 # (dx, dw) the parameter pass of training
 K5A_NEEDS = {"md17-sep_act": (("x", "sh", "w"), ("x", "w")), "md17-sep_value": (("x", "sh"),),
@@ -374,11 +383,69 @@ def k5_section(key, sides, order, plans, rows, dev, report):
                 print(key, name, json.dumps(entry), flush=True)
 
 
+def k7_calls(key, m, p, ops, n):
+    """Side ``m``'s call(s) of K7 kernel ``key`` on plan ``p`` and ``ops`` =
+    (x, sh, h, Wrs, W, cot): name suffix -> a call returning a tuple."""
+    x, sh, h, Wrs, W, cot = ops
+    if key == "K7F":
+        return {"": lambda: (m.dtp_lin_rad_fwd(p, x, sh, h, Wrs, W, n),)}
+    if key == "K7L":
+        legs = {}
+        for leg in ("x", "sh", "h"):
+            o = {"x": x, "sh": sh, "h": h, leg: None}
+            legs[f"/{leg}"] = lambda o=o, leg=leg: (m.dtp_lin_rad_leg(
+                p, leg, cot, o["x"], o["sh"], o["h"], Wrs, W, n),)
+        return legs
+    if key == "K7B":
+        return {"": lambda: m.dtp_lin_rad_bwd(p, x, sh, h, Wrs, W, cot, n)}
+    if key == "K7LW":
+        return {"": lambda: (m.dtp_lin_rad_legW(p, cot, x, sh, h, Wrs, n),)}
+    return {"": lambda: (m.dtp_lin_rad_legWr(p, cot, x, sh, h, W, n),)}
+
+
+def k7_pairs(key, plan, ops, n):
+    """This package's unfolded pair of K7-F (cuBLAS ``w = h @ Wr + offset``,
+    then K1) or of K7-L's legs (cuBLAS w, then K5b's x or sh leg; K5b's w
+    leg, then cuBLAS ``dh = dw Wr^T``), by name suffix; none for the
+    others."""
+    x, sh, h, Wrs, W, cot = ops
+    unf = kernels.DTPLinPlan(plan.tp, plan.head_irreps)  # the same op, w given
+    w = lambda: torch.addmm(Wrs[-1], h, Wrs[:-1])  # noqa: E731
+    if key == "K7F":
+        return {"": lambda: kernels.dtp_lin_fwd(unf, x, sh, w(), W, n)}
+    if key != "K7L":
+        return {}
+    return {"/x": lambda: kernels.dtp_lin_leg(unf, "x", cot, None, sh, w(), W, n),
+            "/sh": lambda: kernels.dtp_lin_leg(unf, "sh", cot, x, None, w(), W, n),
+            "/h": lambda: kernels.dtp_lin_leg(unf, "w", cot, x, sh, None, W, n) @ Wrs[:-1].t()}
+
+
+def k7_wants(key, plan, ops, n):
+    """This package's plain versions, by name suffix (tuples)."""
+    x, sh, h, Wrs, W, cot = ops
+    if key == "K7F":
+        return {"": (dtp_lin_rad_plain(plan, x, sh, h, Wrs, W, n),)}
+    if key == "K7L":
+        want = {}
+        for leg in ("x", "sh", "h"):
+            o = {"x": x, "sh": sh, "h": h, leg: None}
+            want[f"/{leg}"] = (kernels.dtp_lin_rad_leg_plain(plan, leg, cot, o["x"], o["sh"],
+                                                             o["h"], Wrs, W, n),)
+        return want
+    if key == "K7B":
+        return {"": kernels.dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, cot, n)}
+    if key == "K7LW":
+        return {"": (kernels.dtp_lin_rad_legW_plain(plan, cot, x, sh, h, Wrs, n),)}
+    return {"": (kernels.dtp_lin_rad_legWr_plain(plan, cot, x, sh, h, W, n),)}
+
+
 def k7_section(key, sides, order, plans, rows, dev, report):
-    """K7-B (``key`` "K7B": dx, dh, d[Wr; offset], dW), K7-Wr ("K7Wr", h's
-    ones column 1) or K7-LW ("K7LW") at each folded site of ``plans[side]``,
-    against this package's plain version, both dtypes; h and [Wr; offset]
-    random from seed 1, made once per site and dtype."""
+    """K7-F (``key`` "K7F"), K7-L ("K7L": the x, sh and h legs, a leg's own
+    operand None), K7-B ("K7B": dx, dh, d[Wr; offset], dW), K7-Wr ("K7Wr",
+    h's ones column 1) or K7-LW ("K7LW") at each folded site of
+    ``plans[side]``, against this package's plain version, both dtypes, with
+    this package's unfolded pair (K7-F, K7-L) as ``pair_ms``; h and [Wr;
+    offset] random from seed 1, made once per site and dtype."""
     for site, plan in plans["package"].items():
         E, n_live = rows[site]
         hd = plan.radial_fold
@@ -388,32 +455,22 @@ def k7_section(key, sides, order, plans, rows, dev, report):
             h = torch.randn(E, hd, generator=g, device=dev).to(dt)
             Wrs = 0.1 * torch.randn(hd + 1, plan.d_w, generator=g, device=dev).to(dt)
             n = torch.tensor(n_live, dtype=torch.int32, device=dev)
-            if key == "K7B":
-                want = kernels.dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, cot, n)
-            elif key == "K7LW":
-                want = (kernels.dtp_lin_rad_legW_plain(plan, cot, x, sh, h, Wrs, n),)
-            else:
-                want = (kernels.dtp_lin_rad_legWr_plain(plan, cot, x, sh, h, W, n),)
-            entry = {"E": E, "n_live": n_live, "runs": []}
-            for i, side in enumerate(order):
-                m, p = sides[side][0], plans[side][site]
-                if key == "K7B":
-                    call = lambda m=m, p=p: m.dtp_lin_rad_bwd(  # noqa: E731
-                        p, x, sh, h, Wrs, W, cot, n)
-                elif key == "K7LW":
-                    call = lambda m=m, p=p: (m.dtp_lin_rad_legW(  # noqa: E731
-                        p, cot, x, sh, h, Wrs, n),)
-                else:
-                    call = lambda m=m, p=p: (m.dtp_lin_rad_legWr(  # noqa: E731
-                        p, cot, x, sh, h, W, n),)
-                tag = f"{key}_{site}_{str(dt)[6:]}_{side}_{i}"
-                entry["runs"].append({
-                    "side": side, "ms": device_time_ms(call, dev),
-                    **traced_run(call, tag, K7_KERNELS[key]),
-                    "rel_err": max(rel(a, b) for a, b in zip(call(), want))})
-            name = f"{site}/{str(dt)[6:]}"
-            report[key][name] = entry
-            print(key, name, json.dumps(entry), flush=True)
+            ops = (x, sh, h, Wrs, W, cot)
+            pairs = k7_pairs(key, plan, ops, n)
+            for suffix, want in k7_wants(key, plan, ops, n).items():
+                entry = {"E": E, "n_live": n_live, "runs": []}
+                if suffix in pairs:
+                    entry["pair_ms"] = device_time_ms(pairs[suffix], dev)
+                for i, side in enumerate(order):
+                    call = k7_calls(key, sides[side][0], plans[side][site], ops, n)[suffix]
+                    tag = f"{key}_{site}{suffix.replace('/', '_')}_{str(dt)[6:]}_{side}_{i}"
+                    entry["runs"].append({
+                        "side": side, "ms": device_time_ms(call, dev),
+                        **traced_run(call, tag, K7_KERNELS[key]),
+                        "rel_err": max(rel(a, b) for a, b in zip(call(), want))})
+                name = f"{site}{suffix}/{str(dt)[6:]}"
+                report[key][name] = entry
+                print(key, name, json.dumps(entry), flush=True)
 
 
 def k8b_section(sides, order, plans, rows, dev, report):
@@ -497,21 +554,15 @@ def main(argv=None) -> dict:
     if "K4" in want:
         k4_section(sides, order, cases["qm9-edge_deg"], dev, report)
     if "K7F" in want:
-        fold = {side: {"sep_act": make(QM9[0])(max_edges=E, nodes_per_graph=QM9[2], seed=SEED,
-                                               device=dev, radial_fold=True).block_0.ga
-                       .sep_act.plan} for side, (_, make) in sides.items()}
-
-        def rad_ops(p, o):  # h [E, hd] from x's generator, [Wr; offset] small
-            hd = p.radial_fold
-            g = torch.Generator(device=dev).manual_seed(SEED + 1)
-            h = torch.randn(o[0].shape[0], hd, generator=g, device=dev).to(o[0].dtype)
-            Wrs = 0.1 * torch.randn(hd + 1, p.d_w, generator=g, device=dev).to(o[0].dtype)
-            return h, Wrs
-
-        dtp_section("K7F", sides, order, fold, rows, dev, report, lambda m: (
-            lambda p, o, n: m.dtp_lin_rad_fwd(p, o[0], o[1], *rad_ops(p, o), o[3], n)),
-            lambda p, o, n: dtp_lin_rad_plain(p, o[0], o[1], *rad_ops(p, o), o[3], n))
-
+        fold = {}
+        for side, (_, make) in sides.items():
+            q = make(QM9[0])(max_edges=E, nodes_per_graph=QM9[2], seed=SEED, device=dev,
+                             radial_fold=True)
+            m = make(MD17[0])(max_edges=mE, nodes_per_graph=MD17[2], seed=SEED, device=dev,
+                              radial_fold=True, radial_fold_ho=True)
+            fold[side] = {"sep_act": q.block_0.ga.sep_act.plan,
+                          "md17-sep_act": m.block_0.ga.sep_act.plan}
+        k7_section("K7F", sides, order, fold, rows, dev, report)
     if "K7B" in want:
         fold = {}
         for side, (_, make) in sides.items():
@@ -519,6 +570,14 @@ def main(argv=None) -> dict:
                              radial_fold=True)
             fold[side] = {k: v for k, v in dtp_plans(m).items() if k != "sep_value"}
         k7_section("K7B", sides, order, fold, rows, dev, report)
+    if "K7L" in want:
+        fold = {}
+        for side, (_, make) in sides.items():
+            m = make(MD17[0])(max_edges=mE, nodes_per_graph=MD17[2], seed=SEED, device=dev,
+                              radial_fold=True, radial_fold_ho=True)
+            fold[side] = {f"md17-{k}": v for k, v in dtp_plans(m).items() if k != "sep_value"}
+        md17_rows = {site: (mE, int(mmask.sum())) for site in fold["package"]}
+        k7_section("K7L", sides, order, fold, md17_rows, dev, report)
     if "K7Wr" in want:
         fold = {}
         for side, (_, make) in sides.items():

@@ -41,8 +41,8 @@ bfloat16, per unit:
   from K2's, K1, K4, K5b's x and w legs and K5c apart from K2, K5a and its
   partial sum, K5b's sh leg, K7-Wr's d[Wr; offset] tiles (its dw is K5b's
   w leg), K7-LW's dW tiles, K8-B's two launches, K8-F, the first K5a
-  design, which K7-B3 still is, and the first K5b template, which K7-L
-  still is), and ``annotated``: [ms, calls]
+  design, which K7-B3 still is, K7-F on K1's block and K7-L's legs on K2's
+  launch 1), and ``annotated``: [ms, calls]
   per unit of the kernels inside each ``record_function`` range of
   ``ANNOTATIONS`` (K4's backward, torch ops);
 * ``idle_share``: 1 - device_busy_ms / wall_ms, the share of the unprofiled
@@ -91,7 +91,8 @@ KERNEL_GROUPS = ("k2::dxdw_kernel", "k2::dW_kernel", "sum_partial_rows_kernel",
                  "k2::sum_dx_kernel", "k2::W_leg_kernel", "k2::bwd3_kernel",
                  "k2::bwd3_sum_kernel", "k2::sh_leg_kernel", "k2::Wr_leg_kernel",
                  "k2::rad_W_leg_kernel", "k2::kron_dxdw_kernel", "k2::kron_dG_kernel",
-                 "kron_fwd_kernel<", "dtp_lin_bwd3_kernel<", "dtp_lin_leg_kernel<")
+                 "kron_fwd_kernel<", "dtp_lin_bwd3_kernel<", "k1::rad_fwd_kernel",
+                 "k2::rad_leg_kernel")
 ANNOTATIONS = (ATTN_BWD_RANGE,)
 
 

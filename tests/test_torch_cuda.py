@@ -12,6 +12,8 @@ intermediates (the TP output z and dz, the softmax weights) to bf16 and the
 kernels keep them in fp32.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -717,6 +719,7 @@ def test_reduced_unfused_md17_on_card_matches_cpu(dev):
 RAD_PLANS = {
     "two-head": (IRR, SH, ["14x0e+4x1e+2x2e", "6x0e"], 16),
     "dead-w-cols": (IRR, SH, ["5x0e+3x1e"], 8),
+    "one-group": (IRR, SH, ["6x0e"], 8),  # its tiles uncut: the legs write once
     "l3": (L3_IRR, L3_SH, ["36x0e+8x1e+8x2e+4x3e", "8x0e"], 16),
 }
 # the folded sites of the two paths at full width (hd 64): K7-B runs at
@@ -734,36 +737,53 @@ RAD_MD17_SITES = {
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(TOL))
-@pytest.mark.parametrize("plan_name", list(RAD_PLANS) + list(RAD_QM9_SITES))
-def test_radial_fold_kernels_match_plain(dev, plan_name, dtype):
+@pytest.mark.parametrize("plan_name",
+                         list(RAD_PLANS) + list(RAD_QM9_SITES) + ["md17-sep_act"])
+def test_radial_fold_kernels_match_plain(dev, plan_name, dtype, monkeypatch):
     """K7-F, K7-B and K7-B3 against dtp_lin_rad_plain, dtp_lin_rad_bwd_plain
-    and dtp_lin_rad_bwd3_plain on the same operands, at small plans and the
-    QM9 flagship's folded sites (the edge degree's x a broadcast row), with
-    n_edges below E (the padded rows get zeros and add nothing to d[Wr;
-    offset]) and, for K7-B3, without dx as at the broadcast edge-degree
-    site; two calls give the same bits."""
+    and dtp_lin_rad_bwd3_plain on the same operands, at small plans, the
+    QM9 flagship's folded sites (the edge degree's x a broadcast row) and
+    MD17 L3's sep_act, with n_edges below E (the padded rows get zeros and
+    add nothing to d[Wr; offset]) and, for K7-B3, without dx as at the
+    broadcast edge-degree site; K7-F also with [Wr; 0] (as a tangent in h's
+    slot gives it) and with x read through L2 wherever its wrapper would
+    stage it; two calls give the same bits.  (K7-B, the first-order
+    backward, runs on the QM9 paths only: its fp32 tile at MD17 L3's width
+    exceeds a block's shared memory.)"""
     from equiformer_tpu_torch.kernels import (
         dtp_lin_rad_bwd, dtp_lin_rad_bwd3, dtp_lin_rad_bwd3_plain, dtp_lin_rad_bwd_plain,
         dtp_lin_rad_fwd, dtp_lin_rad_plain,
     )
+    kdl = importlib.import_module("equiformer_tpu_torch.kernels.dtp_lin")
 
-    irr, sh_irr, heads, hd = {**RAD_PLANS, **RAD_QM9_SITES}[plan_name]
+    irr, sh_irr, heads, hd = {**RAD_PLANS, **RAD_QM9_SITES, **RAD_MD17_SITES}[plan_name]
     dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(3)
     plan = DTPLinPlan(depthwise_tp(Irreps(irr), Irreps(sh_irr), Irreps(irr)), heads,
                       radial_fold=hd)
-    assert plan.dw_has_dead_cols == (plan_name == "dead-w-cols")
+    assert plan.dw_has_dead_cols == (plan_name in ("dead-w-cols", "one-group"))
     E = 300
     rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
     x = rnd(1, plan.d_x).expand(E, plan.d_x) if plan_name.endswith("edge_deg") else \
         rnd(E, plan.d_x)
     sh, h, W, cot = rnd(E, plan.d_sh), rnd(E, hd), rnd(plan.w_numel), rnd(E, plan.d_out)
     Wrs = plan.pack_radial(0.3 * rnd(hd, plan.d_w), 0.3 * rnd(plan.d_w))
+    Wr0 = torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])
     n = torch.tensor(250, dtype=torch.int32, device=dev)
+    shape = kdl._k7f_launch_shape  # the wrapper's choice, and x through L2 regardless
+
+    def fwd_l2(Wl):
+        with monkeypatch.context() as m:
+            m.setattr(kdl, "_k7f_launch_shape", lambda *a: (16, True))
+            return dtp_lin_rad_fwd(plan, x, sh, h, Wl, W, n)
+
     reset_launch_counts()
     calls = {
         "fwd": (lambda: dtp_lin_rad_fwd(plan, x, sh, h, Wrs, W, n),
                 lambda: dtp_lin_rad_plain(plan, x, sh, h, Wrs, W, n)),
+        "fwd-Wr0": (lambda: dtp_lin_rad_fwd(plan, x, sh, h, Wr0, W, n),
+                    lambda: dtp_lin_rad_plain(plan, x, sh, h, Wr0, W, n)),
+        "fwd-x-L2": (lambda: fwd_l2(Wrs), lambda: dtp_lin_rad_plain(plan, x, sh, h, Wrs, W, n)),
         "bwd": (lambda: dtp_lin_rad_bwd(plan, x, sh, h, Wrs, W, cot, n),
                 lambda: dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, cot, n)),
         "bwd3": (lambda: dtp_lin_rad_bwd3(plan, x, sh, h, Wrs, W, cot, n),
@@ -772,6 +792,8 @@ def test_radial_fold_kernels_match_plain(dev, plan_name, dtype):
                        lambda: (None,) + dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, cot,
                                                                 n)[1:]),
     }
+    if plan_name.startswith("md17"):
+        del calls["bwd"]
     for name, (kernel, plain) in calls.items():
         k, p = kernel(), plain()
         torch.cuda.synchronize()
@@ -786,8 +808,9 @@ def test_radial_fold_kernels_match_plain(dev, plan_name, dtype):
         again = kernel()
         again = again if isinstance(again, tuple) else (again,)
         assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(k, again)), name
+    assert kdl._k7f_launch_shape is shape
     assert (dtp_lin_rad_fwd.launches, dtp_lin_rad_bwd.launches,
-            dtp_lin_rad_bwd3.launches) == (2, 2, 4)
+            dtp_lin_rad_bwd3.launches) == (6, 2 * ("bwd" in calls), 4)
 
 
 @pytest.mark.cuda
@@ -851,7 +874,8 @@ def test_reduced_folded_units_on_card_match_cpu(dev):
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("plan_name", list(RAD_PLANS) + list(RAD_MD17_SITES))
 def test_radial_fold_leg_kernels_match_plain(dev, plan_name, dtype):
-    """K7-L (each of the x, sh and h legs, without the operand of that leg),
+    """K7-L (each of the x, sh and h legs, without the operand of that leg,
+    with [Wr; offset] and with [Wr; 0]; a one-group plan's tiles whole),
     K7-LW (with [Wr; offset], and with [Wr; 0] as the grad-of-grad passes it
     when h's slot holds a tangent: the offset is read from the operand, not
     assumed, so the two differ) and K7-Wr (with h's ones column 1, and 0 as
@@ -876,18 +900,21 @@ def test_radial_fold_leg_kernels_match_plain(dev, plan_name, dtype):
     Wrs = plan.pack_radial(0.3 * rnd(hd, plan.d_w), 0.3 * rnd(plan.d_w))
     n = torch.tensor(250, dtype=torch.int32, device=dev)
     reset_launch_counts()
+    Wr0 = torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])
     for x in (rnd(E, plan.d_x), rnd(1, plan.d_x).expand(E, plan.d_x)):
         for leg in ("x", "sh", "h"):
             ops = {"x": x, "sh": sh, "h": h, leg: None}
-            call = lambda: dtp_lin_rad_leg(plan, leg, cot, ops["x"], ops["sh"], ops["h"],  # noqa: E731
-                                           Wrs, W, n)
-            k = call()
-            p = dtp_lin_rad_leg_plain(plan, leg, cot, ops["x"], ops["sh"], ops["h"], Wrs, W, n)
-            torch.cuda.synchronize()
-            assert k.dtype == dt and k.shape == p.shape, leg
-            assert _rel(k, p) < TOL[dtype], leg
-            assert float(k[250:].abs().max()) == 0.0, leg
-            assert torch.equal(k, call()), leg
+            for Wl in (Wrs, Wr0):
+                call = lambda: dtp_lin_rad_leg(plan, leg, cot, ops["x"], ops["sh"],  # noqa: E731
+                                               ops["h"], Wl, W, n)
+                k = call()
+                p = dtp_lin_rad_leg_plain(plan, leg, cot, ops["x"], ops["sh"], ops["h"], Wl, W,
+                                          n)
+                torch.cuda.synchronize()
+                assert k.dtype == dt and k.shape == p.shape, leg
+                assert _rel(k, p) < TOL[dtype], leg
+                assert float(k[250:].abs().max()) == 0.0, leg
+                assert torch.equal(k, call()), leg
         dWs = []
         for Wl in (Wrs, torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])):
             k = dtp_lin_rad_legW(plan, cot, x, sh, h, Wl, n)
@@ -900,7 +927,7 @@ def test_radial_fold_leg_kernels_match_plain(dev, plan_name, dtype):
         assert not torch.equal(*dWs)
         dead = torch.ones(plan.d_w, dtype=torch.bool, device=dev)
         dead[plan.radial_cols(dev)] = False
-        assert bool(dead.any()) == (plan_name == "dead-w-cols")
+        assert bool(dead.any()) == (plan_name in ("dead-w-cols", "one-group"))
         for ones in (True, False):
             k = dtp_lin_rad_legWr(plan, cot, x, sh, h, W, n, ones)
             p = dtp_lin_rad_legWr_plain(plan, cot, x, sh, h, W, n, ones)
@@ -915,7 +942,7 @@ def test_radial_fold_leg_kernels_match_plain(dev, plan_name, dtype):
         assert torch.equal(dtp_lin_rad_legWr(plan, far, x, sh, h, W, n),
                            dtp_lin_rad_legWr(plan, cot, x, sh, h, W, n))
     assert (dtp_lin_rad_leg.launches, dtp_lin_rad_legW.launches,
-            dtp_lin_rad_legWr.launches) == (12, 8, 12)
+            dtp_lin_rad_legWr.launches) == (24, 8, 12)
 
 
 @pytest.mark.cuda

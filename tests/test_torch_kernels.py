@@ -49,6 +49,7 @@ from equiformer_tpu_torch.kernels.dtp_lin import (  # noqa: E402
     K2_COL_TILE,
     K2_EDGES,
     K2_FAN_TILE,
+    fold_gather,
     k1_smem_bytes,
     k7_wr_tiles,
     k1_tile,
@@ -1067,24 +1068,40 @@ def test_k1_fragment_product_equals_z_W(site, kind):
         assert np.allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
-def _emulate_k1(plan, x, sh, w, W_flat, n_edges, tile=32):
+def _emulate_k1(plan, x, sh, w, W_flat, n_edges, tile=32, fold=None):
     """csrc/dtp_lin.cu's K1 in torch (fp64) from ``k1_tables``: per (edge
     tile, group) and component, z written run by run (each fan column once,
     rows past n_edges zero, the pad columns zero), then z times W_g unpacked
-    from the packed W.  Returns (out, how often each element was written)."""
+    from the packed W.  ``fold`` (h, [Wr; offset]): K7-F on
+    ``k1_tables(fold=True)``, ``w`` None: W and [Wr; offset] packed by the
+    wrapper's one gather (``fold_gather``), and per block its group's w
+    built from h, the group's Wr unpacked by the fragment layout and its
+    offsets, rounded to h's dtype; the runs read w at their column of that
+    tile.  Returns (out, how often each element was written)."""
     cpu = torch.device("cpu")
-    kt = plan.k1_tables(cpu)
+    kt = plan.k1_tables(cpu, fold=fold is not None)
     terms, coeffs = plan.device_tables(cpu)
     gk, runs, tt, cc = kt.gk.tolist(), kt.runs.tolist(), terms.tolist(), coeffs.tolist()
-    Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[kt.wp_index]
+    if fold is None:
+        Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[kt.wp_index]
+    else:
+        h, hd = fold[0], plan.radial_fold
+        Wp = fold_gather(plan, W_flat, fold[1], kt.wp_index)
+        pk = Wp[kt.pk_base :]
     E = sh.shape[0]
     out = torch.full((E, plan.d_out), float("nan"), dtype=torch.float64)
     writes = torch.zeros((E, plan.d_out), dtype=torch.int64)
-    for q0, n_comp in kt.groups.tolist():
+    for gi, (q0, n_comp) in enumerate(kt.groups.tolist()):
+        if fold is not None:
+            ob, oo, span = kt.rg[gi].tolist()
+            n_b = -(-span // 8) * 8 * -(-hd // 16) * 16
+            Wr_g = _unpack_k2(pk[ob : ob + n_b], span, hd)[:span, :hd].T
         for e0 in range(0, E, tile):
             n_rows = min(tile, E - e0)
             n_live = max(0, min(n_rows, n_edges - e0))
             live = slice(e0, e0 + n_live)
+            if fold is not None:
+                w_tile = (h[live] @ Wr_g + pk[oo : oo + span]).to(h.dtype)
             for k in range(n_comp):
                 f16, cols, out_col, wp_off, rb, re, n_nt, fan = gk[q0 + k]
                 z = torch.zeros((n_rows, f16), dtype=torch.float64)
@@ -1094,7 +1111,9 @@ def _emulate_k1(plan, x, sh, w, W_flat, n_edges, tile=32):
                     for t in range(t0, t1):
                         a, col = tt[t][:2]
                         acc += cc[t] * sh[live, col : col + 1] * x[live, a : a + mul]
-                    if w is not None:
+                    if fold is not None:
+                        acc *= w_tile[:, b : b + mul]
+                    elif w is not None:
                         acc *= w[live, b : b + mul]
                     z[:n_live, fc : fc + mul] = acc
                     seen[fc : fc + mul] += 1
@@ -1576,43 +1595,6 @@ def test_dtp_lin_ho_backward_runs_only_the_legs_asked_for(monkeypatch):
     assert not ho._SKIPPED_LEGS
 
 
-def _emulate_sh_leg_kernel(plan, x, w, W_flat, g, n_edges, tile=16, warps=8):
-    """csrc/dtp_lin_leg.cu's loop over ``bwd3_tables`` for the first design's
-    sh leg (K7-L's on an unfolded w), in
-    torch, one edge tile at a time: the staged slice of g, dz through the
-    packed W^T, then per row (warp) the terms in table order, the running
-    sum added to the row's dsh at each SH column change; sh is never read."""
-    from equiformer_tpu_torch.kernels.dtp_lin_ho import bwd3_tables
-
-    gk, terms, coeffs, _, wt_index, _, _ = bwd3_tables(plan, torch.device("cpu"))
-    gk, terms, coeffs = gk.tolist(), terms.tolist(), coeffs.tolist()
-    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
-    E = g.shape[0]
-    out = torch.zeros(E, plan.d_sh, dtype=g.dtype)
-    for e0 in range(0, min(E, n_edges), tile):
-        n_live = min(tile, n_edges - e0)
-        acc = torch.zeros(n_live, plan.d_sh, dtype=g.dtype)
-        for fs, cols, out_col, _, tb, te, wt_off, cp, *_ in gk:
-            gt = torch.zeros(n_live, cp, dtype=g.dtype)
-            gt[:, :cols] = g[e0 : e0 + n_live, out_col : out_col + cols]
-            dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
-            for r0 in range(warps):
-                for r in range(r0, n_live, warps):
-                    e, run, cur = e0 + r, 0.0, -1
-                    for (a, col, b, fc, mul, _), c in zip(terms[tb:te], coeffs[tb:te]):
-                        if col != cur:
-                            if cur >= 0:
-                                acc[r, cur] += run
-                            run, cur = 0.0, col
-                        wv = 1.0 if w is None else w[e, b : b + mul]
-                        run = run + float(torch.sum(c * x[e, a : a + mul] * wv
-                                                    * dz[r, fc : fc + mul]))
-                    if cur >= 0:
-                        acc[r, cur] += run
-        out[e0 : e0 + n_live] = acc
-    return out
-
-
 def _k2_dW(plan, x, sh, w, g, n_edges, sm_count=3):
     """K5c (and K2's dW) as csrc/dtp_lin_bwd.cu's launch 2 computes it: the
     ranges' partial rows summed in range order."""
@@ -1656,11 +1638,10 @@ def _emulate_k7wr(plan, g, x, sh, h, W_flat, n_edges, ones=True, sm_count=3):
 def test_dtp_lin_leg_tables_drive_the_plain_math(case):
     """The CUDA leg kernels cannot run here; their tables can.  Walking them
     the way K5b's x, w and sh legs run on K2's launch 1 (each without its own
-    operand, each tile whole and cut by irrep group), the sh leg on the
-    first design's ``bwd3_tables`` walk (csrc/dtp_lin_leg.cu, which K7-L
-    still is, here on an unfolded w), and K5c on K2's launch 2 (with fewer
-    blocks than ranges' steps) gives the plain versions' results (fp64
-    inputs, the tables' fp32 CG coefficients: 1e-6 relative)."""
+    operand, each tile whole and cut by irrep group) and K5c on K2's launch
+    2 (with fewer blocks than ranges' steps) gives the plain versions'
+    results (fp64 inputs, the tables' fp32 CG coefficients: 1e-6
+    relative)."""
     from equiformer_tpu_torch.kernels import dtp_lin_leg_plain, dtp_lin_legW_plain
 
     plan, x, sh, w, W, g = _bwd3_inputs(case, torch.float64, E=40, seed=6)
@@ -1674,8 +1655,6 @@ def test_dtp_lin_leg_tables_drive_the_plain_math(case):
             assert got.shape == want.shape
             assert _rel(got.numpy(), want.numpy()) < 1e-6, (leg, n_split)
     want = dtp_lin_leg_plain(plan, "sh", g, x, None, w, W, n)
-    got = _emulate_sh_leg_kernel(plan, x, w, W, g, 37)
-    assert got.shape == want.shape and _rel(got.numpy(), want.numpy()) < 1e-6
     for n_split in (1, len(plan.groups)):
         got = _emulate_k2_launch1(plan, x, None, w, W, g, 37, leg="sh", n_split=n_split)
         assert got.shape == want.shape and _rel(got.numpy(), want.numpy()) < 1e-6, n_split

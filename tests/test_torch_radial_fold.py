@@ -41,11 +41,23 @@ from equiformer_tpu_torch.kernels import (  # noqa: E402
 )
 from equiformer_tpu_torch.kernels.dtp_lin import radial_dWrs_plain  # noqa: E402
 from equiformer_tpu_torch.utils import params_from_jax, torch_name  # noqa: E402
+from equiformer_tpu_torch.kernels.dtp_lin import (  # noqa: E402
+    K1_TWO_BLOCKS_SMEM,
+    fold_gather,
+    k2_packed_W,
+    k1_smem_bytes,
+    k1_tile,
+    k1_x_global,
+)
 from tests.test_torch_kernels import (  # noqa: E402
+    _emulate_k1,
+    _group_rows,
+    _k2_dsh_slots,
     _k7_dWrs,
     _k7_packs,
     _k7_wr_partials,
     _sum_rows,
+    _unpack_k2,
     _emulate_k7b,
     _emulate_k7lw,
     _emulate_k7wr,
@@ -518,30 +530,19 @@ def test_plan_checks_the_fold():
 
 # ------------------------------------------- the kernels' tables in torch
 def _tile_w(Wl, hd, hs, sb, sn):
-    """K7's ``build_w``: a group's w columns of one tile."""
+    """The first K5a design's ``build_w`` (K7-B3): a group's w columns of
+    one tile."""
     return Wl[hd, sb : sb + sn] + hs @ Wl[:hd, sb : sb + sn]
 
 
-def _emulate_rad_fwd(plan, x, sh, h, Wrs, W_flat, n_edges, tile=32):
-    """csrc/dtp_lin.cu's folded loop over ``plan.bwd_tables``: per tile, the
-    group's w built from the local [Wr; offset] at its first component, z
-    from the terms (local w columns), z @ W_g."""
-    gk, terms, coeffs, *_ = plan.bwd_tables(torch.device("cpu"))
-    gk, terms, coeffs = gk.tolist(), terms.tolist(), coeffs.tolist()
-    Wl, hd = Wrs[:, plan.radial_cols(torch.device("cpu"))], plan.radial_fold
-    out = torch.zeros(x.shape[0], plan.d_out, dtype=x.dtype)
-    for e0 in range(0, min(x.shape[0], n_edges), tile):
-        rows = slice(e0, min(e0 + tile, n_edges))
-        for fs, cols, out_col, w_off, tb, te, _, _, sb, sn, first, _ in gk:
-            if first:
-                ws = _tile_w(Wl, hd, h[rows], sb, sn)
-            z = torch.zeros(rows.stop - e0, fs, dtype=x.dtype)
-            for (a, col, _, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
-                z[:, fc : fc + mul] += c * sh[rows, col : col + 1] * x[rows, a : a + mul] \
-                    * ws[:, bl : bl + mul]
-            out[rows, out_col : out_col + cols] = z @ W_flat[w_off : w_off + fs * cols].view(
-                fs, cols)
-    return out
+def _emulate_rad_fwd(plan, x, sh, h, Wrs, W_flat, n_edges, tile=16):
+    """csrc/dtp_lin.cu's K7-F (``k1::rad_fwd_kernel``): K1's block per (edge
+    tile, irrep group) over ``k1_tables(fold=True)``, W and [Wr; offset]
+    packed by one gather, the group's w built from h before its first
+    component and read by the runs at their local column
+    (``_emulate_k1``'s fold).  Returns (out, how often each element was
+    written)."""
+    return _emulate_k1(plan, x, sh, None, W_flat, n_edges, tile, fold=(h, Wrs))
 
 
 def _emulate_rad_bwd3(plan, x, sh, h, Wrs, W_flat, g, n_edges, n_parts=3, tile=16):
@@ -592,16 +593,24 @@ def _kernel_inputs(case, seed=4):
 
 @pytest.mark.parametrize("case", list(HEADS))
 def test_rad_kernel_tables_drive_the_plain_math(case):
-    """K7-F and K7-B3 walk DTPLinPlan.bwd_tables with each group's w columns
-    in local order, and K7-B K2's two launches with the fold (w built from
-    the packed Wr in both, dh on chip, dw through the workspace into the
-    d[Wr; offset] tiles, every partial element written once per range);
-    walking them in torch gives dtp_lin_rad_plain, dtp_lin_rad_bwd_plain
-    and dtp_lin_rad_bwd3_plain (1e-6: the tables' fp32 CG coefficients)."""
+    """K7-F walks K1's block per (edge tile, irrep group) over
+    ``k1_tables(fold=True)`` (16- and 32-edge tiles, each output element
+    written once, rows past n_edges zero; also with [Wr; 0]), K7-B3
+    DTPLinPlan.bwd_tables with each group's w columns in local order, and
+    K7-B K2's two launches with the fold (w built from the packed Wr in
+    both, dh on chip, dw through the workspace into the d[Wr; offset]
+    tiles, every partial element written once per range); walking them in
+    torch gives dtp_lin_rad_plain, dtp_lin_rad_bwd_plain and
+    dtp_lin_rad_bwd3_plain (1e-6: the tables' fp32 CG coefficients)."""
     plan, x, sh, h, Wrs, W, g = _kernel_inputs(case)
     n = torch.tensor(N_REAL, dtype=torch.int32)
-    assert _rel(_emulate_rad_fwd(plan, x, sh, h, Wrs, W, N_REAL),
-                dtp_lin_rad_plain(plan, x, sh, h, Wrs, W, n)) < 1e-6
+    Wr0 = torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])  # a tangent in h's slot
+    for tile in (16, 32):
+        for Wl in (Wrs, Wr0):
+            got, writes = _emulate_rad_fwd(plan, x, sh, h, Wl, W, N_REAL, tile)
+            assert bool((writes == 1).all())
+            assert _rel(got, dtp_lin_rad_plain(plan, x, sh, h, Wl, W, n)) < 1e-6, tile
+            assert float(got[N_REAL:].abs().max()) == 0.0
     got, writes = _emulate_k7b(plan, x, sh, h, Wrs, W, g, N_REAL)
     assert bool((writes == 1).all())
     for a, b in zip(got, dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, g, n)):
@@ -611,53 +620,88 @@ def test_rad_kernel_tables_drive_the_plain_math(case):
         assert a.shape == b.shape and _rel(a, b) < 1e-6
 
 
-def _emulate_rad_leg(plan, leg, x, sh, h, Wrs, W_flat, g, n_edges, n_parts=3, tile=16):
-    """The folded legs of csrc/dtp_lin_leg.cu (K7-L's "x", "sh", "h") in
-    torch: per tile the group's w built from the local [Wr; offset] at its
-    first component (x and sh legs), then dz and the leg's term transpose,
-    the group's dw tile contracted at its last component (h: dh += dw
-    Wr^T); ``n_parts`` blocks walk the tiles."""
-    cpu = torch.device("cpu")
-    gk, terms, coeffs, _, wt_index, *_ = kho.bwd3_tables(plan, cpu)
-    gk, terms, coeffs = gk.tolist(), terms.tolist(), coeffs.tolist()
-    cols_loc = plan.radial_cols(cpu)
-    Wl, hd = Wrs[:, cols_loc], plan.radial_fold
-    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
+def _emulate_rad_leg(plan, leg, x, sh, h, Wrs, W_flat, g, n_edges, n_split, tile=16):
+    """K7-L's legs ("x", "sh", "h") as csrc/dtp_lin_bwd.cu runs them
+    (``k2::rad_leg_kernel``: K2's launch 1 with the fold) in torch: W and
+    [Wr; offset] packed by the wrapper's one gather (``k7_leg_tables``), a
+    block per (16-edge tile, split of ``n_split``) over the split's irrep
+    groups (``_group_rows``) of ``k2_tables``: at a group's first component
+    the x and sh legs build its w from h (its Wr packing unpacked by the
+    fragment layout, the offset from Wl's row hd, rounded to h's dtype), the
+    h leg zeroes its dw tile; G staged, dz through the packed W, the leg's
+    term transposes (dsh through its slots, in term order); at the group's
+    last component the h leg adds dh += dw Wr_g^T from the dh packing, the
+    span's K steps in two halves added in turn.  Each block writes its fp32
+    partial [tile rows, width] once; the partials are summed in split order
+    below ``n_edges``, zeros past it (one split: the block's rows are the
+    output).  Returns (out, how often each partial element was written by
+    the blocks of tiles with real edges)."""
+    cpu, hd = torch.device("cpu"), plan.radial_fold
+    _, terms, coeffs, *_ = plan.bwd_tables(cpu)
+    terms, coeffs = terms.tolist(), coeffs.tolist()
+    gk = plan.k2_tables(cpu).gk.tolist()
+    kl, rgk = plan.k7_leg_tables(cpu), plan.k7_tables(cpu).rgk.tolist()
+    packed = fold_gather(plan, W_flat, Wrs, kl.index)
+    Wp, pk = packed[: kl.pk_off], packed[kl.pk_off : kl.wl_off]
+    Wl = packed[kl.wl_off :].view(hd + 1, -1)
     E_ = g.shape[0]
-    out = torch.zeros(E_, {"x": plan.d_x, "sh": plan.d_sh, "h": hd}[leg], dtype=g.dtype)
-    for b in range(n_parts):
-        for t in range(b, -(-E_ // tile), n_parts):
-            e0 = t * tile
-            n_live = max(0, min(tile, n_edges - e0, E_ - e0))
-            if n_live == 0:
-                continue
-            rows = slice(e0, e0 + n_live)
-            for fs, cols, out_col, w_off, tb, te, wt_off, cp, sb, sn, first, last in gk:
+    width = {"x": plan.d_x, "sh": plan.d_sh, "h": hd}[leg]
+    part = torch.full((n_split, E_, width), float("nan"), dtype=g.dtype)
+    writes = torch.zeros((n_split, E_, width), dtype=torch.int64)
+    for e0 in range(0, E_, tile):
+        n_rows, n_live = min(tile, E_ - e0), max(0, min(tile, E_ - e0, n_edges - e0))
+        if n_live == 0:
+            continue
+        rows = slice(e0, e0 + n_live)
+        for s in range(n_split):
+            acc = torch.zeros(tile, width, dtype=g.dtype)
+            for q in _group_rows(gk, n_split, s):
+                fs, cols, out_col, _, tb, te, wp_off, cp, sb, sn, first, last = gk[q]
+                ob, od = rgk[q]
                 if first:
-                    if leg in ("x", "sh"):
-                        ws = _tile_w(Wl, hd, h[rows], sb, sn)
-                    dws = torch.zeros(n_live, sn, dtype=g.dtype)
-                gt = torch.zeros(n_live, cp, dtype=g.dtype)
-                gt[:, :cols] = g[rows, out_col : out_col + cols]
-                tt = list(zip(terms[tb:te], coeffs[tb:te]))
-                dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
-                for (a, col, _, fc, mul, bl), c in tt:
-                    d = c * dz[:, fc : fc + mul]
+                    if leg != "h":
+                        n_b = -(-sn // 8) * 8 * -(-hd // 16) * 16
+                        Wr_g = _unpack_k2(pk[ob : ob + n_b], sn, hd)[:sn, :hd].T
+                        s_w = (h[rows] @ Wr_g + Wl[hd, sb : sb + sn]).to(h.dtype)
+                    s_dw = torch.zeros(n_live, sn, dtype=g.dtype)
+                s_g = torch.zeros(tile, cp, dtype=g.dtype)
+                s_g[:n_live, :cols] = g[rows, out_col : out_col + cols]
+                dz = s_g @ _unpack_k2(Wp[wp_off : wp_off + -(-fs // 8) * 8 * cp], fs, cols).T
+                if leg == "sh":  # the slots, then per (row, column) its terms' slots in order
+                    slots = _k2_dsh_slots(terms[tb:te], coeffs[tb:te], x[rows], s_w, dz, n_live)
+                    for col in range(plan.d_sh):
+                        for j, t in enumerate(terms[tb:te]):
+                            if t[1] == col:
+                                acc[:n_live, col] += slots[:, j]
+                    continue
+                for (a, col, _, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
+                    d = c * sh[rows, col : col + 1] * dz[:n_live, fc : fc + mul]
                     if leg == "x":
-                        out[rows, a : a + mul] += sh[rows, col : col + 1] * d * ws[:, bl : bl + mul]
-                    elif leg == "sh":
-                        out[rows, col] += (d * x[rows, a : a + mul] * ws[:, bl : bl + mul]).sum(1)
+                        acc[:n_live, a : a + mul] += d * s_w[:, bl : bl + mul]
                     else:
-                        dws[:, bl : bl + mul] += sh[rows, col : col + 1] * d * x[rows, a : a + mul]
-                if last and leg == "h":
-                    out[rows] += dws @ Wl[:hd, sb : sb + sn].T
-    return out
+                        s_dw[:, bl : bl + mul] += d * x[rows, a : a + mul]
+                if leg == "h" and last:  # the span's K steps in two halves, added in turn
+                    n_d = -(-hd // 8) * 8 * -(-sn // 16) * 16
+                    Wr_t = _unpack_k2(pk[od : od + n_d], hd, sn)[:hd, :sn]
+                    cut = min(sn, 16 * (-(-sn // 16) // 2))
+                    acc[:n_live] += s_dw[:, :cut] @ Wr_t[:, :cut].T
+                    acc[:n_live] += s_dw[:, cut:] @ Wr_t[:, cut:].T
+            part[s, e0 : e0 + n_rows] = acc[:n_rows]
+            writes[s, e0 : e0 + n_rows] += 1
+    out = torch.zeros(E_, width, dtype=g.dtype)
+    live = min(E_, n_edges)
+    for s in range(n_split):  # split order (one split: the block's rows themselves)
+        out[:live] += part[s, :live]
+    return out, writes[:, :live]
 
 
 @pytest.mark.parametrize("case", list(HEADS))
 def test_rad_leg_kernel_tables_drive_the_plain_math(case):
-    """K7-L (x, sh, h legs) walks the tables with each group's w and dw in
-    local columns, K7-LW K2's launch 2 with each step's w rebuilt from h
+    """K7-L (x, sh, h legs) walks K2's launch 1 with the fold, a block per
+    (tile, irrep group) or per whole tile, each partial written once and the
+    partials summed in group order (also with [Wr; 0], a tangent in h's
+    slot: the offset comes from the operand), K7-LW K2's launch 2 with each
+    step's w rebuilt from h
     (also with [Wr; 0], a tangent in h's slot: the offset comes from the
     operand), K7-Wr (h's ones column 1 and 0) K5b's w leg on K2's launch 1
     and the d[Wr; offset] tiles over its edge ranges; walking them in torch
@@ -670,11 +714,16 @@ def test_rad_leg_kernel_tables_drive_the_plain_math(case):
 
     plan, x, sh, h, Wrs, W, g = _kernel_inputs(case, seed=5)
     n = torch.tensor(N_REAL, dtype=torch.int32)
+    Wr0 = torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])  # a tangent in h's slot
     for leg in ("x", "sh", "h"):
         ops = {"x": x, "sh": sh, "h": h, leg: None}
-        want = dtp_lin_rad_leg_plain(plan, leg, g, ops["x"], ops["sh"], ops["h"], Wrs, W, n)
-        got = _emulate_rad_leg(plan, leg, ops["x"], ops["sh"], ops["h"], Wrs, W, g, N_REAL)
-        assert got.shape == want.shape and _rel(got, want) < 1e-6, leg
+        for Wl in (Wrs, Wr0):
+            want = dtp_lin_rad_leg_plain(plan, leg, g, ops["x"], ops["sh"], ops["h"], Wl, W, n)
+            for n_split in sorted({1, len(plan.groups)}):
+                got, writes = _emulate_rad_leg(plan, leg, ops["x"], ops["sh"], ops["h"], Wl, W,
+                                               g, N_REAL, n_split)
+                assert bool((writes == 1).all())
+                assert got.shape == want.shape and _rel(got, want) < 1e-6, (leg, n_split)
     for Wl in (Wrs, torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])):
         want = dtp_lin_rad_legW_plain(plan, g, x, sh, h, Wl, n)
         got, writes = _emulate_k7lw(plan, g, x, sh, h, Wl, N_REAL)
@@ -733,15 +782,50 @@ def test_k7_packed_Wr_unpacks_to_each_group(site):
     """The fold's packings of [Wr; offset] for K7-B (DTPLinPlan.k7_tables),
     unpacked by the mma fragment layout, are each group's columns of Wr in
     local order, for the w build (K = hd, N = span) and for dh (K = span, N
-    = hd); the plan's fan order is its local w order."""
+    = hd); the plan's fan order is its local w order.  K7-L's one gather of
+    W and [Wr; offset] (``k7_leg_tables``) gives K2's packed W, those
+    packings and Wl, each where its offsets say."""
+    cpu = torch.device("cpu")
     plan = _plan(HEADS["dead-w-cols"]) if site == "dead-w-cols" else _k7_plan(site)
-    Wrs = _t(np.random.default_rng(12).normal(size=(plan.radial_fold + 1, plan.d_w)))
+    rng = np.random.default_rng(12)
+    Wrs = _t(rng.normal(size=(plan.radial_fold + 1, plan.d_w)))
     Wl, packs = _k7_packs(plan, Wrs)
-    gk = plan.k2_tables(torch.device("cpu")).gk.tolist()
+    gk = plan.k2_tables(cpu).gk.tolist()
     assert sorted(packs) == [q for q, r in enumerate(gk) if r[10]]
     for q, (pw, pd) in packs.items():
         sb, sn = gk[q][8], gk[q][9]
         assert torch.equal(pw, Wl[:-1, sb : sb + sn]) and torch.equal(pd, Wl[:-1, sb : sb + sn])
+    W = _t(rng.normal(size=plan.w_numel))
+    kl = plan.k7_leg_tables(cpu)
+    packed = fold_gather(plan, W, Wrs, kl.index)
+    assert torch.equal(packed[: kl.pk_off], k2_packed_W(plan, W))
+    assert torch.equal(packed[kl.pk_off : kl.wl_off],
+                       torch.cat([Wl.reshape(-1), Wl.new_zeros(1)])[plan.k7_tables(cpu).index])
+    assert torch.equal(packed[kl.wl_off :], Wl.reshape(-1))
+
+
+@pytest.mark.parametrize("site, itemsize, E, tile, x_global", [
+    ("qm9-sep_act", 4, 36352, 16, False), ("qm9-sep_act", 2, 36352, 16, False),
+    ("qm9-edge_deg", 4, 36352, 32, False), ("qm9-edge_deg", 2, 36352, 16, False),
+    ("md17-sep_act", 4, 2944, 16, True), ("md17-sep_act", 2, 2944, 16, False),
+])
+def test_k7f_tile_fits_two_blocks_and_fills_the_card(site, itemsize, E, tile, x_global):
+    """K7-F's block is K1's with the fold's h and w tiles, which
+    ``k1_smem_bytes(fold=True)`` counts: at QM9 sep_act in fp32 the 32-edge
+    tile (172 KB) would hold one block an SM, so the 16-edge one (86 KB);
+    the edge degree's row-broadcast x leaves room for 32 (113 KB); at MD17
+    L3 sep_act in fp32 the 16-edge tile (145 KB) holds one block an SM with
+    x staged, so x is read through L2 (91 KB); bf16 takes the 16-edge tile
+    and stages x.  Every choice leaves room for a second block."""
+    plan = _k7_plan(site)
+    x_rows = site != "qm9-edge_deg"
+    assert k1_tile(plan, itemsize, x_rows, E, 132, fold=True) == tile
+    assert k1_x_global(plan, itemsize, x_rows, tile) == x_global
+    assert k1_smem_bytes(plan, tile, itemsize, x_rows, True, x_global) <= K1_TWO_BLOCKS_SMEM
+    assert k1_smem_bytes(plan, tile, itemsize, x_rows, True) > k1_smem_bytes(plan, tile, itemsize,
+                                                                              x_rows)
+    kt = plan.k1_tables(torch.device("cpu"), fold=True)
+    assert kt.span_max == max(g.fan for g in plan.groups) and kt.vec == 4
 
 
 def test_ctypes_signatures_match_the_c_entry_points():
