@@ -106,11 +106,13 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
 
 10a. K7 kernels — the radial fold's K7-F (``dtp_lin_rad_fwd``; also with
    [Wr; 0], and twice for equal bits) with K7-B (``dtp_lin_rad_bwd``) at the
-   QM9 sep_act and edge-degree sites and with K7-B3 (``dtp_lin_rad_bwd3``)
-   at the exp_l3 sep_act site, float32 and bfloat16, against their plain
-   versions with the tolerances of phase 3,
-   each beside the unfolded pair on the same inputs (cuBLAS ``h @ Wr +
-   offset`` then K1; K2, K5a then cuBLAS for dh and d[Wr; offset]).
+   QM9 sep_act and edge-degree sites and with K7-B3 (``dtp_lin_rad_bwd3``:
+   every set of two or three of dx, dsh and dh, twice for equal bits, the
+   three also with [Wr; 0]) at the exp_l3 sep_act and edge-degree sites,
+   float32 and bfloat16, against their plain versions with the tolerances
+   of phase 3, each beside the unfolded pair on the same inputs (cuBLAS
+   ``h @ Wr + offset`` then K1; K2, K5a with the same outputs then cuBLAS
+   for dh and d[Wr; offset]).
 10b. fold — the QM9 flagship and the exp_l3 force model built with
    ``radial_fold`` (and ``radial_fold_ho``): the eval forward (7 K7-F + 6
    K1, 1 K3, 6 K4; predictions against the fused route), phase 4 (7 K7-F +
@@ -159,7 +161,9 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    route's card distance to float64 (two samples of the model's bf16 noise,
    ~3e-2 of the largest value on either route).
 
-14. K8 kernels — the kron-basis op's K8-F (``dtp_lin_kron_fwd``) and K8-B
+14. K8 kernels — the kron-basis op's K8-F (``dtp_lin_kron_fwd``: K1's
+   product over the kron tables on a 64-edge tile, twice for equal bits)
+   and K8-B
    (``dtp_lin_kron_bwd``: dx, dw and dG on K2's two launches over the kron
    tables) at the QM9 flagship's three sites
    (batch 0 of phase 2, n_edges below E), float32 and bfloat16, against their
@@ -257,11 +261,11 @@ SOURCES = {
     "dtp_lin_legW": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
     "dtp_lin_rad_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
-    "dtp_lin_rad_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd3.cu",
+    "dtp_lin_rad_bwd3": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_leg": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_legW": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_lin_rad_legWr": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
-    "dtp_lin_kron_fwd": "equiformer_tpu_torch/csrc/dtp_lin_kron.cu",
+    "dtp_lin_kron_fwd": "equiformer_tpu_torch/csrc/dtp_lin.cu",
     "dtp_lin_kron_bwd": "equiformer_tpu_torch/csrc/dtp_lin_bwd.cu",
     "dtp_t": "equiformer_tpu_torch/csrc/dtp_t.cu",
     "dtp_r": "equiformer_tpu_torch/csrc/dtp_r.cu",
@@ -1356,10 +1360,10 @@ def routes_agree(pt, torch, make, max_edges, batch, dev,
 
 def k7_kernel_phase(torch, sites, dev, records):
     """K7-F with K7-B (QM9 sep_act and edge degree) or K7-B3 (MD17 L3
-    sep_act) against their plain versions at one batch's shapes, fp32 and
-    bf16 (K7-F also with [Wr; 0], as a tangent in h's slot gives it, and
-    twice for equal bits), timed as phase 3, beside the unfolded pair on the
-    same inputs:
+    sep_act and edge degree, every output set: ``k7b3_checks``) against
+    their plain versions at one batch's shapes, fp32 and bf16 (K7-F also
+    with [Wr; 0], as a tangent in h's slot gives it, and twice for equal
+    bits), timed as phase 3, beside the unfolded pair on the same inputs:
     cuBLAS ``w = h @ Wr + offset`` then K1; K2 then cuBLAS ``dh = dw Wr^T``
     and ``d[Wr; offset] = [h, 1]^T dw``; K5a then ``dh = dw Wr^T``.
     ``sites``: name -> (folded plan, head modules, row-broadcast x, radial
@@ -1367,11 +1371,9 @@ def k7_kernel_phase(torch, sites, dev, records):
     fold's products (2 * 65 * d_w operations per real edge for w, as many
     for each transpose) to the unfolded kernel's count."""
     from equiformer_tpu_torch.kernels import (
-        KERNEL_WRAPPERS, DTPLinPlan, dtp_lin_bwd, dtp_lin_bwd3, dtp_lin_fwd, dtp_lin_rad_bwd,
-        dtp_lin_rad_bwd3, dtp_lin_rad_bwd3_plain, dtp_lin_rad_bwd_plain, dtp_lin_rad_fwd,
-        dtp_lin_rad_plain,
+        KERNEL_WRAPPERS, DTPLinPlan, dtp_lin_bwd, dtp_lin_fwd, dtp_lin_rad_bwd,
+        dtp_lin_rad_bwd_plain, dtp_lin_rad_fwd, dtp_lin_rad_plain,
     )
-    from equiformer_tpu_torch.kernels.dtp_lin_ho import bwd3_occupancy
 
     saved = {k: fn.launches for k, fn in KERNEL_WRAPPERS.items()}
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
@@ -1413,51 +1415,99 @@ def k7_kernel_phase(torch, sites, dev, records):
                    [rel_err(k, p), rel_err(k0, p0)], ms, plain_ms, in_bytes + size * E * plan.d_out,
                    n * (2 * macs + 4 * tp_elems) + rad_ops, pair_ms=pair_ms)
 
-            if bwd == "bwd":
-                call = lambda: dtp_lin_rad_bwd(plan, x, sh, h, Wrs, W, cot, n_edges)  # noqa: E731
-                plain = lambda: dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, cot, n_edges)  # noqa: E731
+            if bwd == "bwd3":
+                k7b3_checks(torch, plan, unf, x, sh, h, Wrs, Wr0, w, W, cot, n_edges, n,
+                            broadcast_x, site, dt_name, shape, in_bytes, macs, tp_elems,
+                            rad_ops, records)
+                continue
+            call = lambda: dtp_lin_rad_bwd(plan, x, sh, h, Wrs, W, cot, n_edges)  # noqa: E731
+            plain = lambda: dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, cot, n_edges)  # noqa: E731
 
-                def pair():
-                    dx, dw, dW = dtp_lin_bwd(unf, x, sh, w, W, cot, n_edges)
-                    return dx, dw @ Wrs[:-1].t(), torch.cat([h, torch.ones_like(h[:, :1])],
-                                                            1).t() @ dw, dW
+            def pair():
+                dx, dw, dW = dtp_lin_bwd(unf, x, sh, w, W, cot, n_edges)
+                return dx, dw @ Wrs[:-1].t(), torch.cat([h, torch.ones_like(h[:, :1])],
+                                                        1).t() @ dw, dW
 
-                out_bytes = size * E * (plan.d_x + hd) + 4 * ((hd + 1) * plan.d_w + plan.w_numel)
-                ops = n * (4 * macs + 10 * tp_elems) + 3 * rad_ops
-                name = "dtp_lin_rad_bwd"
-            else:
-                need_dx = not broadcast_x
-                call = lambda: dtp_lin_rad_bwd3(plan, x, sh, h, Wrs, W, cot, n_edges,  # noqa: E731
-                                                need_dx=need_dx)
-                plain = lambda: dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, cot, n_edges)  # noqa: E731
-
-                def pair():
-                    dx, dsh, dw = dtp_lin_bwd3(unf, x, sh, w, W, cot, n_edges, need_dx=need_dx)
-                    return dx, dsh, dw @ Wrs[:-1].t()
-
-                outs = int(need_dx) + 2
-                out_bytes = size * E * ((plan.d_x if need_dx else 0) + plan.d_sh + hd)
-                ops = n * (2 * macs + 3 * outs * tp_elems) + 2 * rad_ops
-                name = "dtp_lin_rad_bwd3"
+            out_bytes = size * E * (plan.d_x + hd) + 4 * ((hd + 1) * plan.d_w + plan.w_numel)
             k, p = call(), plain()
             torch.cuda.synchronize()
             errs = [rel_err(a, b) for a, b in zip(k, p) if a is not None]
             ms = cuda_time_ms(call, torch)
             plain_ms = cuda_time_ms(plain, torch, reps=3, inner=3)
             pair_ms = cuda_time_ms(pair, torch)
-            record(records, name, site, dt_name, shape, errs, ms, plain_ms,
-                   in_bytes + size * n * plan.d_out + out_bytes, ops, pair_ms=pair_ms)
-            if bwd == "bwd3":
-                print(f"dtp_lin_rad_bwd3 {site} {dt_name}: "
-                      f"{bwd3_occupancy(plan, dt, need_dx, folded=True)} resident blocks per SM "
-                      f"(K5a: {bwd3_occupancy(unf, dt, need_dx)})")
+            record(records, "dtp_lin_rad_bwd", site, dt_name, shape, errs, ms, plain_ms,
+                   in_bytes + size * n * plan.d_out + out_bytes,
+                   n * (4 * macs + 10 * tp_elems) + 3 * rad_ops, pair_ms=pair_ms)
     for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
         fn.launches = saved[name]
 
 
+# K7-B3's output sets (two or three of dx, dsh, dh): the force pass's first
+# (no dx at the edge degree, whose x is a constant row), then the parameter
+# pass's (dx, dh) and the rest
+K7B3_NEEDS = (("x", "sh", "h"), ("x", "h"), ("sh", "h"), ("x", "sh"))
+
+
+def k7b3_checks(torch, plan, unf, x, sh, h, Wrs, Wr0, w, W, cot, n_edges, n, broadcast_x,
+                site, dt_name, shape, in_bytes, macs, tp_elems, rad_ops, records):
+    """K7-B3 (``dtp_lin_rad_bwd3``) at one folded site for every output set
+    (the force pass's first: its record keeps the site's name), each twice
+    for equal bits, the three outputs also with [Wr; 0], against the plain
+    version; each timed beside its unfolded pair on the same inputs (cuBLAS
+    ``w = h @ Wr + offset``, K5a with the same outputs, cuBLAS ``dh = dw
+    Wr^T``).  The bound adds the w build's and dh's products to K5a's
+    count."""
+    from equiformer_tpu_torch.kernels import dtp_lin_bwd3, dtp_lin_rad_bwd3, dtp_lin_rad_bwd3_plain
+    from equiformer_tpu_torch.kernels.dtp_lin_ho import bwd3_occupancy
+
+    dt, size, E, hd = x.dtype, x.element_size(), x.shape[0], plan.radial_fold
+    widths = {"x": plan.d_x, "sh": plan.d_sh, "h": hd}
+    first = ("sh", "h") if broadcast_x else K7B3_NEEDS[0]
+    p = dict(zip(widths, dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, cot, n_edges)))
+    p0 = dict(zip(widths, dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wr0, W, cot, n_edges)))
+    plain_ms = cuda_time_ms(lambda: dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, cot, n_edges),
+                            torch, reps=3, inner=3)
+    for need in (first,) + tuple(nd for nd in K7B3_NEEDS if nd != first):
+        flags = {f"need_d{key}": key in need for key in widths}
+        call = lambda Wl=Wrs, flags=flags: dtp_lin_rad_bwd3(  # noqa: E731
+            plan, x, sh, h, Wl, W, cot, n_edges, **flags)
+        k, again = dict(zip(widths, call())), call()
+        torch.cuda.synchronize()
+        if sorted(key for key, v in k.items() if v is not None) != sorted(need):
+            raise RuntimeError(f"K7-B3 at {site} returned other outputs than {need}")
+        if not all(torch.equal(k[key], b) for key, b in zip(widths, again) if key in need):
+            raise RuntimeError(f"K7-B3 at {site} {dt_name} {need} repeats no bits")
+        errs = [rel_err(k[key], p[key]) for key in need]
+        if len(need) == 3:  # [Wr; 0]: a tangent in h's slot, the offset read from the operand
+            k0 = dict(zip(widths, call(Wr0)))
+            errs += [rel_err(k0[key], p0[key]) for key in need]
+
+        def pair(flags=flags):
+            dx, dsh, dw = dtp_lin_bwd3(unf, x, sh, torch.addmm(Wrs[-1], h, Wrs[:-1]), W, cot,
+                                       n_edges, flags["need_dx"], flags["need_dsh"],
+                                       flags["need_dh"])
+            return dx, dsh, None if dw is None else dw @ Wrs[:-1].t()
+
+        ms = cuda_time_ms(call, torch)
+        pair_ms = cuda_time_ms(pair, torch)
+        record(records, "dtp_lin_rad_bwd3",
+               site + ("" if need == first else "-" + "".join("d" + key for key in need)),
+               dt_name, shape, errs, ms, plain_ms,
+               in_bytes + size * n * plan.d_out + size * E * sum(widths[key] for key in need),
+               n * (2 * macs + 3 * len(need) * tp_elems) + rad_ops * (1 + ("h" in need)),
+               pair_ms=pair_ms)
+        occ = bwd3_occupancy(plan, dt, "x" in need, "h" in need, folded=True,
+                             need_dsh="sh" in need, x_rows=not broadcast_x)
+        occ5 = bwd3_occupancy(unf, dt, "x" in need, "h" in need, need_dsh="sh" in need,
+                              x_rows=not broadcast_x)
+        print(f"dtp_lin_rad_bwd3 {site} {dt_name} {'/'.join(need)}: {occ} resident blocks per "
+              f"SM (K5a: {occ5}), {-(-E // 16)} tiles x {len(plan.groups)} irrep groups")
+
+
 def fold_sites(pt, make, max_edges, batch, md17_max_edges, md17_batch):
     """The folded call sites of k7_kernel_phase, from fp32 models built with
-    the fold: QM9 sep_act (block 0) and the edge degree, MD17 L3 sep_act."""
+    the fold: QM9 sep_act (block 0) and the edge degree, MD17 L3 sep_act and
+    its edge degree."""
     qm9 = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED, **FOLD)
     l3 = pt.model_entrypoint(MD17_MODEL)(max_edges=md17_max_edges, nodes_per_graph=MD17_SLOTS,
                                          seed=SEED, **FOLD_HO)
@@ -1470,6 +1520,8 @@ def fold_sites(pt, make, max_edges, batch, md17_max_edges, md17_batch):
                      qm9.edge_deg_embed.rad, geom, "bwd"),
         "md17-sep_act": (ga17.sep_act.plan, [ga17.sep_act.lin, ga17.sep_alpha], False,
                          ga17.sep_act.dtp_rad, geom17, "bwd3"),
+        "md17-edge_deg": (l3.edge_deg_embed.plan, [l3.edge_deg_embed.proj], True,
+                          l3.edge_deg_embed.rad, geom17, "bwd3"),
     }
 
 
@@ -1629,8 +1681,9 @@ def route_eval_phase(pt, torch, make, max_edges, gpu_batches, dev, out, tag="fol
 
 
 def k8_kernel_phase(torch, model, batch, dev, records):
-    """K8-F and K8-B against their plain versions at the three sites of a
-    kron model (batch 0's shapes, n_edges below E), fp32 and bf16, timed as
+    """K8-F (twice for equal bits) and K8-B against their plain versions at
+    the three sites of a kron model (batch 0's shapes, n_edges below E),
+    fp32 and bf16, timed as
     phase 3, each beside K1 or K2 on the same inputs (W in place of G).
     Bounds: x, sh, w and G read once over the real edges, the outputs
     written once (dG in fp32); 2 operations per G element and real edge
@@ -1660,9 +1713,11 @@ def k8_kernel_phase(torch, model, batch, dev, records):
                      f"G={meta.numel} rows={meta.n_rows}")
             kop_ops = (1 if w is None else 2) * meta.n_rows
 
-            k = dtp_lin_kron_fwd(meta, x, sh, w, G, n_edges)
+            k, again = (dtp_lin_kron_fwd(meta, x, sh, w, G, n_edges) for _ in range(2))
             p = dtp_lin_kron_plain(meta, x, sh, w, G, n_edges)
             torch.cuda.synchronize()
+            if not torch.equal(k, again):
+                raise RuntimeError(f"K8-F at {site} {dt_name} repeats no bits")
             ms = cuda_time_ms(lambda: dtp_lin_kron_fwd(meta, x, sh, w, G, n_edges), torch)
             plain_ms = cuda_time_ms(lambda: dtp_lin_kron_plain(meta, x, sh, w, G, n_edges), torch,
                                     reps=3, inner=3)

@@ -84,6 +84,38 @@
 // the w build on the CUDA cores) took 3.10 / 2.50 ms fp32 / bf16 at QM9
 // sep_act and 1.63 / 1.66 at MD17 L3 sep_act, this one 1.02 / 0.61 and 0.33
 // / 0.18.
+//
+// The kron route's forward (K8-F, dtp_lin_kron_fwd; replaces
+// equiformer_tpu/kernels/dtp_lin_kron.py, _fwd_kernel :191 with _fill_kop
+// :179 and _pair_val :167, built by fwd_call :385) is K1's function on
+// other tables: per (g, k)
+//   out[e, out_col(g,k) + c] = sum_r Kop[e, r] G[r, c],
+//   Kop[e, r] = sh[e, col_r] x[e, xi_r] w[e, wi_r]    (no w with a shared w in G),
+// which is K1's with each (g, k) a group of one component whose fan is its
+// Kop rows, each CG triple a run of one term of coefficient 1, and its block
+// of G the head weight (KronMeta.k1_tables; G packed in B-fragment order by
+// one gather a call).  What bounds it: 2 operations per G element and real
+// edge (453,632 elements at the QM9 flagship's sep_act, 2.17x K1's product),
+// so fp32 by operations (0.452 ms at QM9 sep_act), bf16 by bytes (0.044).
+// What K1's block does not cover is G's size: every edge tile reads all of G
+// from L2 (1.8 MB in fp32), 2272 x 1.8 MB a call with 16-edge tiles.  So
+// k1::kron_fwd_kernel is K1's product on a 64-edge tile: a block per (tile,
+// (g, k), chunk of 128 columns) builds Kop 32 rows at a time (the row
+// table, each Kop row's x / sh / w column and coefficient, made from the
+// runs in shared memory; x, sh and w read a quad of rows at a time through
+// L2) into one of two shared slices while the other slice goes through
+// the tensor cores (mma.sync; bf16 operands, fp32 as 3xTF32 split by
+// masking), and keeps out = Kop G in registers over the K walk: four
+// m-tiles share each B fragment, so G crosses L2 once per 64 edges.  A
+// chunk of 5-16 n-tiles gives a warp all four m-tiles and n-tiles w, w + 8;
+// of 3-4, two m-tiles and one n-tile; of 1-2, one of each.  Rows past the
+// real edges get a zero Kop, so a zero out.  On an H100 80GB HBM3 at 700 W
+// (wrapper, device time) at QM9 sep_act it took 1.40-1.41 / 0.96-0.98 ms
+// fp32 / bf16, against 2.18-2.23 / 0.99-1.00 for K1's block unchanged on
+// the same tables (16-edge tiles, Kop [16, 896] in shared memory) and
+// 2.76-2.77 / 2.93-2.99 for the first design (csrc/dtp_lin_kron.cu: 64-edge
+// tiles, the product on the fp32 CUDA cores); K1 on the same inputs 0.94 /
+// 0.49.
 
 #include <stdint.h>
 
@@ -470,6 +502,254 @@ __global__ void __launch_bounds__(kThreads, 2) rad_fwd_kernel(EQT_K1_PARAMS, con
   fwd_body<T, kM, V, true, kXg>(EQT_K1_ARGS, rad);
 }
 
+// ------------------------------------------------------------------ K8-F
+// (design in the header note) A block per (64-edge tile, (g, k), chunk of
+// 128 columns): Kop is built kKronKS rows at a time into one of two shared
+// slices (the next slice's x, sh and w loads in flight in registers during
+// the current slice's product), and out = Kop G is held in the warps'
+// registers across the K walk: four m-tiles share each B fragment (and its
+// 3xTF32 split), so G crosses L2 once per 64 edges.
+constexpr int kKronM = 4;        // m-tiles a block: 64 edges
+constexpr int kKronKS = 32;      // Kop rows a slice: two mma K steps
+constexpr int kKronCols = 128;   // output columns a block: 16 n-tiles
+
+// byte offsets of the shared memory: sh (fp32) of the tile, the row table
+// (x column, sh column, w column, coefficient bits) of the (g, k)'s Kop
+// rows, two Kop slices [64, ld_z(kKronKS)] in the dtype
+struct KronLayout {
+  int sh, rows, kop, total;
+};
+
+template <typename T>
+__host__ __device__ inline KronLayout kron_layout(int d_sh, int fz_max) {
+  KronLayout l;
+  l.sh = 0;
+  l.rows = l.sh + align16(16 * kKronM * d_sh * 4);
+  l.kop = l.rows + align16(fz_max * 16);
+  l.total = l.kop + align16(2 * 16 * kKronM * ld_z<T>(kKronKS) * (int)sizeof(T));
+  return l;
+}
+
+// the block's (g, k) row of gk and its column chunk: chunks of kKronCols
+// columns, (g, k) after (g, k)
+__device__ __forceinline__ void kron_chunk(const int* __restrict__ gk, int y, int& qi,
+                                           int& chunk) {
+  qi = 0;
+  chunk = y;
+  for (;; ++qi) {
+    const int n = (__ldg(gk + qi * kGkFields + 1) + kKronCols - 1) / kKronCols;
+    if (chunk < n) return;
+    chunk -= n;
+  }
+}
+
+// the K walk of one block: warp w takes kMW m-tiles from m0 and kN n-tiles
+// (its n-tile, + 8 for kN = 2) of the chunk's n_nt; each slice's V-wide row
+// quads built by the threads in turn
+template <typename T, int V, int kMW, int kN>
+__device__ __forceinline__ void kron_walk(const T* __restrict__ x, long long sx,
+                                          const T* __restrict__ w, int d_w,
+                                          const T* __restrict__ Gp, int n_ks, int nt_base,
+                                          int n_nt, int n_k, int e0, int n_live, int d_sh,
+                                          const float* __restrict__ s_sh,
+                                          const int4* __restrict__ s_rows, T* __restrict__ s_kop,
+                                          float (&acc)[kMW][kN][4]) {
+  constexpr int kTile = 16 * kKronM, kQuads = kKronKS / V;
+  constexpr int kItems = kTile * kQuads / kThreads;  // row quads a thread builds a slice
+  static_assert(kItems * kThreads == kTile * kQuads, "slice map");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int ldk = ld_z<T>(kKronKS), slice = kTile * ldk;
+  constexpr int kSlots = kKronM / kMW, kCols = kWarps / kSlots;  // m groups, n-tile lanes
+  const int nt0 = warp % kCols, m0 = (warp / kCols) * kMW;
+  const int n_mine = nt0 >= n_nt ? 0 : min(kN, (n_nt - nt0 + kCols - 1) / kCols);
+  const int n_slices = (n_k + kKronKS - 1) / kKronKS;
+#pragma unroll
+  for (int m = 0; m < kMW; ++m)
+#pragma unroll
+    for (int i = 0; i < kN; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.f;
+
+  // Kop[e, r .. r + V) of slice s, item it of this thread: coeff * sh * x * w
+  auto load = [&](int s, float (&v)[kItems][V]) {
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int i = tid + it * kThreads, e = i / kQuads, r = s * kKronKS + (i % kQuads) * V;
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[it][j] = 0.f;
+      if (e < n_live && r < n_k) {
+        const int4 rr = s_rows[r];
+        const float c = __int_as_float(rr.w) * s_sh[e * d_sh + rr.y];
+        float xv[V];
+        load_v<T, V, true>(x + (long long)(e0 + e) * sx + rr.x, xv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[it][j] = c * xv[j];
+        if (w != nullptr) {
+          float wv[V];
+          load_v<T, V, true>(w + (long long)(e0 + e) * d_w + rr.z, wv);
+#pragma unroll
+          for (int j = 0; j < V; ++j) v[it][j] *= wv[j];
+        }
+      }
+    }
+  };
+  auto store = [&](int buf, const float (&v)[kItems][V]) {
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int i = tid + it * kThreads, e = i / kQuads, c = (i % kQuads) * V;
+      store_v<T, V>(s_kop + buf * slice + e * ldk + c, v[it]);
+    }
+  };
+
+  {
+    float v[kItems][V];
+    load(0, v);
+    store(0, v);
+  }
+  __syncthreads();
+  for (int s = 0; s < n_slices; ++s) {
+    const bool more = s + 1 < n_slices;
+    float nv[kItems][V];
+    if (more) load(s + 1, nv);
+    const T* sk = s_kop + (s & 1) * slice;
+    if (n_mine > 0) {
+#pragma unroll
+      for (int kl = 0; kl < kKronKS / 16; ++kl) {
+        const int ks = s * (kKronKS / 16) + kl;
+        if (ks >= n_ks) break;
+        const int c0 = kl * 16 + 2 * q;
+        const T* bk = Gp + ((long long)((nt_base + nt0) * n_ks + ks) * 32 + lane) * 4;
+        const long long step = (long long)kCols * n_ks * 32 * 4;  // the warp's next n-tile
+        if constexpr (sizeof(T) == 4) {
+          float a[kMW][2][4], b[kN][2][2];
+#pragma unroll
+          for (int m = 0; m < kMW; ++m) load_a(a[m], sk + (m0 + m) * 16 * ldk, ldk, c0, gq);
+#pragma unroll
+          for (int i = 0; i < kN; ++i)
+            if (i < n_mine) load_b(b[i], bk + i * step);
+          mma16mn_tf32<kMW, kN>(acc, a, b, n_mine);
+        } else {
+          const uint32_t* k32 = reinterpret_cast<const uint32_t*>(sk);
+          uint32_t a[kMW][4];
+#pragma unroll
+          for (int m = 0; m < kMW; ++m) {
+            const int o = ((m0 + m) * 16 + gq) * ldk + c0;
+            a[m][0] = k32[o / 2];
+            a[m][1] = k32[(o + 8 * ldk) / 2];
+            a[m][2] = k32[(o + 8) / 2];
+            a[m][3] = k32[(o + 8 * ldk + 8) / 2];
+          }
+          uint2 bv[kN];
+#pragma unroll
+          for (int i = 0; i < kN; ++i)
+            if (i < n_mine) bv[i] = __ldg(reinterpret_cast<const uint2*>(bk + i * step));
+#pragma unroll
+          for (int m = 0; m < kMW; ++m)
+#pragma unroll
+            for (int i = 0; i < kN; ++i)
+              if (i < n_mine) mma_bf16(acc[m][i], a[m], bv[i].x, bv[i].y);
+        }
+      }
+    }
+    if (more) store((s + 1) & 1, nv);
+    __syncthreads();
+  }
+}
+
+// out[rows of the warp's m-tiles, its n-tiles' columns of the chunk] from
+// kron_walk's accumulators; rows at or past n_rows are not written
+template <int kMW, int kN, typename T>
+__device__ __forceinline__ void kron_store(const float (&acc)[kMW][kN][4], int n_nt,
+                                           T* __restrict__ o, int d_out, int n_rows, int ncol,
+                                           bool pair) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  constexpr int kSlots = kKronM / kMW, kCols = kWarps / kSlots;
+  const int nt0 = warp % kCols, m0 = (warp / kCols) * kMW;
+#pragma unroll
+  for (int m = 0; m < kMW; ++m)
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const int nt = nt0 + i * kCols;
+      if (nt >= n_nt) continue;
+      const int j = nt * 8 + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = (m0 + m) * 16 + gq + 8 * h;
+        if (row < n_rows)
+          store_pair<T>(o + (long long)row * d_out + j, acc[m][i][2 * h], acc[m][i][2 * h + 1],
+                        j, ncol, pair);
+      }
+    }
+}
+
+// K8-F: grid (64-edge tiles, the (g, k)'s column chunks)
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+kron_fwd_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ sh, int d_sh,
+                const T* __restrict__ w, int d_w, const T* __restrict__ Wp, T* __restrict__ out,
+                int d_out, const int* __restrict__ n_edges_ptr, int E,
+                const int* __restrict__ gk, const int* __restrict__ runs,
+                const int* __restrict__ terms, const float* __restrict__ coeffs, int fz_max) {
+  constexpr int kTile = 16 * kKronM;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const KronLayout L = kron_layout<T>(d_sh, fz_max);
+  float* s_sh = reinterpret_cast<float*>(smem + L.sh);
+  int4* s_rows = reinterpret_cast<int4*>(smem + L.rows);
+  T* s_kop = reinterpret_cast<T*>(smem + L.kop);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int e0 = blockIdx.x * kTile;
+  const int n_rows = min(kTile, E - e0);
+  const int n_live = max(0, min(n_rows, __ldg(n_edges_ptr) - e0));
+  int qi, chunk;
+  kron_chunk(gk, blockIdx.y, qi, chunk);
+  const int* gr = gk + qi * kGkFields;
+  const int f16 = __ldg(gr), cols = __ldg(gr + 1), out_col = __ldg(gr + 2);
+  const int wp_off = __ldg(gr + 3), run_begin = __ldg(gr + 4), run_end = __ldg(gr + 5);
+  const int n_k = __ldg(gr + 7);
+  const int j0 = chunk * kKronCols, ncol = min(kKronCols, cols - j0), n_nt = (ncol + 7) / 8;
+  T* o = out + (long long)e0 * d_out + out_col + j0;
+
+  if (n_live == 0) {  // past the real edges: the chunk's columns of the tile are zero
+    for (int i = tid; i < n_rows * ncol; i += kThreads) {
+      const int r = i / ncol;
+      o[(long long)r * d_out + (i - r * ncol)] = from_f<T>(0.f);
+    }
+    return;
+  }
+  for (int i = tid; i < n_live * d_sh; i += kThreads) s_sh[i] = to_f(sh[(long long)e0 * d_sh + i]);
+  for (int ri = run_begin + warp; ri < run_end; ri += kWarps) {  // each Kop row's operands
+    const int* rn = runs + ri * kRunFields;
+    const int fc = __ldg(rn), mul = __ldg(rn + 1), b = __ldg(rn + 2), t = __ldg(rn + 3);
+    const int a = __ldg(terms + t * kTermFields), col = __ldg(terms + t * kTermFields + 1);
+    const int c = __float_as_int(__ldg(coeffs + t));
+    for (int u = lane; u < mul; u += 32) s_rows[fc + u] = make_int4(a + u, col, b + u, c);
+  }
+  __syncthreads();
+
+  const T* Gp = Wp + wp_off;
+  const bool pair = ((d_out | (out_col + j0)) & 1) == 0;
+  const int n_ks = f16 / 16, nt_base = j0 / 8;
+  if (n_nt > 4) {
+    float acc[4][2][4];
+    kron_walk<T, V, 4, 2>(x, sx, w, d_w, Gp, n_ks, nt_base, n_nt, n_k, e0, n_live, d_sh, s_sh,
+                          s_rows, s_kop, acc);
+    kron_store<4, 2>(acc, n_nt, o, d_out, n_rows, ncol, pair);
+  } else if (n_nt > 2) {
+    float acc[2][1][4];
+    kron_walk<T, V, 2, 1>(x, sx, w, d_w, Gp, n_ks, nt_base, n_nt, n_k, e0, n_live, d_sh, s_sh,
+                          s_rows, s_kop, acc);
+    kron_store<2, 1>(acc, n_nt, o, d_out, n_rows, ncol, pair);
+  } else {
+    float acc[1][1][4];
+    kron_walk<T, V, 1, 1>(x, sx, w, d_w, Gp, n_ks, nt_base, n_nt, n_k, e0, n_live, d_sh, s_sh,
+                          s_rows, s_kop, acc);
+    kron_store<1, 1>(acc, n_nt, o, d_out, n_rows, ncol, pair);
+  }
+}
+
 struct Args {
   const void *x, *sh, *w, *Wp, *n_edges, *gk, *groups, *runs, *terms, *coeffs;
   long long sx;
@@ -522,6 +802,25 @@ int launch_tile(int tile, int vec, const Args& a, cudaStream_t s) {
   if (tile == 16 && vec == 4) return launch<T, 1, 4>(a, r, s);
   if (tile == 16 && vec == 1) return launch<T, 1, 1>(a, r, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K8-F: a block per (64-edge tile, column chunk of a (g, k)); n_chunks,
+// the grid's second dimension (K1's Args: groups and n_groups unused)
+template <typename T, int V>
+int launch_kron(const Args& a, int n_chunks, cudaStream_t stream) {
+  const KronLayout L = kron_layout<T>(a.d_sh, a.fz_max);
+  const auto kernel = &kron_fwd_kernel<T, V>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kTile = 16 * kKronM;
+  kernel<<<dim3((a.E + kTile - 1) / kTile, n_chunks), kThreads, L.total, stream>>>(
+      static_cast<const T*>(a.x), a.sx, static_cast<const T*>(a.sh), a.d_sh,
+      static_cast<const T*>(a.w), a.d_w, static_cast<const T*>(a.Wp), static_cast<T*>(a.out),
+      a.d_out, static_cast<const int*>(a.n_edges), a.E, static_cast<const int*>(a.gk),
+      static_cast<const int*>(a.runs), static_cast<const int*>(a.terms),
+      static_cast<const float*>(a.coeffs), a.fz_max);
+  return (int)cudaGetLastError();
 }
 
 // K7-F: x through L2 (x_global) only with the 16-edge tile, where the x tile
@@ -588,5 +887,32 @@ extern "C" int dtp_lin_rad_fwd(const void* x, long long sx, int d_x, const void*
   if (dtype == eqt::kFloat32) return k1::launch_rad_tile<float>(tile, vec, x_global, a, r, s);
   if (dtype == eqt::kBFloat16)
     return k1::launch_rad_tile<__nv_bfloat16>(tile, vec, x_global, a, r, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K8-F: out [E, d_out] of the kron-basis op for x (row stride sx: 0 or its
+// width), sh, w [E, d_w] (null when a shared w is folded into G) and Wp,
+// each (g, k)'s block of G in mma B-fragment order (KronMeta.k1_tables'
+// gp_index over the flat G), over k1_tables' gk [n_gk, 8], runs and terms
+// (K1's layout: each (g, k) a group of one component whose fan is its Kop
+// rows; each CG triple a run of one term of coefficient 1); fz_max the
+// most Kop rows of a (g, k) padded to 16; x, w and sh read through L2; vec
+// 4 (x and w 16-byte aligned, the tables' offsets multiples of 4) or 1;
+// n_chunks the (g, k)'s column chunks of 128 (k1_tables' n_chunks).
+extern "C" int dtp_lin_kron_fwd(const void* x, long long sx, const void* sh, int d_sh,
+                                const void* w, int d_w, const void* Wp, void* out, int d_out,
+                                const void* n_edges, int E, const void* gk, int n_gk,
+                                const void* runs, const void* terms, const void* coeffs,
+                                int fz_max, int vec, int n_chunks, int dtype, void* stream) {
+  if (fz_max % 16 != 0 || n_gk < 1 || n_chunks < n_gk) return (int)cudaErrorInvalidValue;
+  const k1::Args a{x,      sh, w,   Wp,   n_edges, gk,    nullptr, runs, terms,
+                   coeffs, sx, 0,   d_sh, d_w,     d_out, E,       n_gk, fz_max, out};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32)
+    return vec == 4 ? k1::launch_kron<float, 4>(a, n_chunks, s)
+                    : k1::launch_kron<float, 1>(a, n_chunks, s);
+  if (dtype == eqt::kBFloat16)
+    return vec == 4 ? k1::launch_kron<__nv_bfloat16, 4>(a, n_chunks, s)
+                    : k1::launch_kron<__nv_bfloat16, 1>(a, n_chunks, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -121,7 +121,7 @@
 // _bwd_body, dtp_lin_pallas.py:675-745, :754-756, :865-887, with
 // _radial_write_dw :497 and _radial_dh :521; K7-Wr, replaces
 // equiformer_tpu/kernels/dtp_lin_ho.py's _Wr_leg_kernel :344, built by
-// _leg_call :594-603; K7-LW and K7-L below).  The per-edge operand is h [E, hd], and w = [h, 1]
+// _leg_call :594-603; K7-L, K7-B3 and K7-LW below).  The per-edge operand is h [E, hd], and w = [h, 1]
 // @ [Wr; offset] (Wl [hd + 1, n_loc], columns in the tables' local order,
 // row hd the offset).  Every w column feeds one group, and a group's fan
 // column f is its local w column sb + f (DTPLinPlan.k7_tables checks it),
@@ -165,6 +165,25 @@
 //   first design (csrc/dtp_lin_leg.cu: 8 warps per 16-edge tile walking
 //   every group, dz and w on the CUDA cores) 1.72 / 2.07 / 1.85 and 1.65 /
 //   1.66 / 1.56.
+// - K7-B3 (dtp_lin_rad_bwd3; replaces the radial branch of
+//   dtp_lin_ho.py's _bwd3_kernel :451, :488-526: w rebuilt by
+//   _radial_w_fill, dh by _radial_dh; built by _bwd3_pallas, pallas_call
+//   :696): K5a with the fold (k2::rad_bwd3_kernel<T, kXg, kNeed>:
+//   dxdw_body's kBwd3 with kRad), a block per (16-edge tile, irrep group).
+//   Each group's w is built from the staged h as K7-B's launch 1 builds it,
+//   then K5a's dz product and term pass with its fixed-order dsh sum; with
+//   dh asked for (the dw bit of kNeed) dw stays in shared memory and, at the
+//   group's last component, dh += dw_g Wr_g^T as the h leg adds it.  The
+//   output set (two or three of dx, dsh, dh) is a template argument; dx,
+//   dsh and dh split partials are summed in group order by one launch
+//   (k2::split_sum_kernel); the fp32 products split by masking; x goes
+//   through L2 where the tile (with the h and dh tiles) would not fit the
+//   block (fp32 at MD17 L3: kXg).  The offset is read from Wl's row hd: 0
+//   when h's slot holds a tangent.  On an H100 at MD17 L3 sep_act (dx, dsh,
+//   dh) took 0.85-0.86 / 0.64 ms fp32 / bf16 (its unfolded pair, cuBLAS w +
+//   K5a + cuBLAS dh, 1.02-1.05 / 0.70-0.71), the first design (one
+//   256-thread block per 16-edge tile walking every group, dz on the CUDA
+//   cores, csrc/dtp_lin_bwd3.cu) 2.36-2.41 / 2.34-2.35.
 // - K7-LW (dtp_lin_rad_legW; replaces the radial branch of
 //   dtp_lin_ho.py's _W_leg_kernel :402-449, h :415, _radial_w_fill
 //   :439-440): K7-B's launch 2 without the d[Wr; offset] tiles
@@ -266,34 +285,36 @@ constexpr int kFullStage = 6;
 // what launch 1's code computes: an edge leg of the fused op (K5b, in
 // EDGE_LEGS' order of kernels/dtp_lin_ho.py: the x leg 0, the sh leg 1, the
 // w leg 2), K2's dx and dw together, K5a's dx, dsh and dw together (each
-// null when not asked for), or K7-B's dx, dw and dh with w built from h
+// null when not asked for; with the fold K7-B3's dx, dsh and dh), or K7-B's
+// dx, dw and dh with w built from h
 enum Leg1 : int { kLegX = 0, kLegSh = 1, kLegW = 2, kDxDw = 3, kBwd3 = 4, kRadB = 5 };
+
+// K5a's outputs asked for (bits of `need`; with the fold the dw bit is dh)
+constexpr int kNeedDx = 1, kNeedDsh = 2, kNeedDw = 4, kNeedAll = 7;
 
 // the legs with a dsh accumulator
 __host__ __device__ constexpr bool sums_dsh(int leg) { return leg == kLegSh || leg == kBwd3; }
 // the legs that compute dx and dw together over whole tiles (K2, K7-B)
 __host__ __device__ constexpr bool pairs_dxdw(int leg) { return leg == kDxDw || leg == kRadB; }
 // with the radial fold (rad: K7-L's legs kLegX, kLegSh and kLegW, the last
-// one its h leg): the legs that build w from h (K7-B; the x and sh legs),
-// and those that contract dw into dh (K7-B; the h leg)
+// one its h leg, and K7-B3, kBwd3): the legs that build w from h (K7-B; the
+// x and sh legs; K7-B3), and those that contract dw into dh (K7-B; the h
+// leg; K7-B3 when dh is asked for)
 __host__ __device__ constexpr bool builds_w(int leg, bool rad) {
   return leg == kRadB || (rad && leg != kLegW);
 }
-__host__ __device__ constexpr bool sums_dh(int leg, bool rad) {
-  return leg == kRadB || (rad && leg == kLegW);
+__host__ __device__ constexpr bool sums_dh(int leg, bool rad, int need = kNeedAll) {
+  return leg == kRadB || (rad && (leg == kLegW || (leg == kBwd3 && (need & kNeedDw))));
 }
 
 // the row stride of launch 1's w and dw tiles: multiples of 8 elements; the
 // dh legs read dw as the A operand of their dh product, K steps of 16,
 // float2 a lane (8 words mod 32: conflict-free)
 template <int kLeg, bool kRad = false>
-__host__ __device__ inline int span_stride(int span_max) {
-  return sums_dh(kLeg, kRad) ? stride_mod(round_up(span_max, 16), 32, 8)
-                             : round_up(span_max, kRowPad);
+__host__ __device__ inline int span_stride(int span_max, int need = kNeedAll) {
+  return sums_dh(kLeg, kRad, need) ? stride_mod(round_up(span_max, 16), 32, 8)
+                                   : round_up(span_max, kRowPad);
 }
-
-// K5a's outputs asked for (bits of `need`)
-constexpr int kNeedDx = 1, kNeedDsh = 2, kNeedDw = 4, kNeedAll = 7;
 
 // one term of the backward tables (DTPLinPlan.bwd_tables: a_off, sh col,
 // b_off, fan col, mul, local dw col) and its coefficient
@@ -339,7 +360,7 @@ __host__ __device__ inline Layout1 layout1(int d_x, int d_sh, int span_max, int 
                                            int fd_max, bool has_w, bool x_rows,
                                            int need = kNeedAll, int slot_max = 0,
                                            bool x_global = false, int hd = 0) {
-  const int dxs = round_up(d_x, kRowPad), sps = span_stride<kLeg, kRad>(span_max);
+  const int dxs = round_up(d_x, kRowPad), sps = span_stride<kLeg, kRad>(span_max, need);
   const bool dsh = sums_dsh(kLeg) && (need & kNeedDsh);
   Layout1 l;
   l.dx = 0;
@@ -358,7 +379,7 @@ __host__ __device__ inline Layout1 layout1(int d_x, int d_sh, int span_max, int 
   l.slot = l.dsh + (dsh ? align16(kTile * d_sh * 4) : 0);
   l.h = l.slot + (dsh ? align16(kTile * slot_max * 4) : 0);
   l.dh = l.h + (builds_w(kLeg, kRad) ? align16(kTile * ld_h<T>(hd) * (int)sizeof(T)) : 0);
-  l.total = l.dh + (sums_dh(kLeg, kRad) ? align16(2 * kTile * hd * 4) : 0);  // dh, its scratch
+  l.total = l.dh + (sums_dh(kLeg, kRad, need) ? align16(2 * kTile * hd * 4) : 0);  // dh, scratch
   return l;
 }
 
@@ -391,6 +412,7 @@ struct RadOps {
   const int* dwmap;     // local column -> dw column
   int n_dw_tiles, base, part_ld;
   float one;            // h's ones column: 1, or 0 for a tangent or cotangent in h's slot
+  float* part_dh;       // K7-B3 cut in more than one split: dh's partials [n_split, E, hd]
 };
 
 // the d[Wr; offset] tiles: 64 hd rows (kFanTile) by 128 local columns (kColTile)
@@ -440,7 +462,11 @@ __device__ __forceinline__ void group_rows(const int* __restrict__ gk, int n_gk,
 // radial fold, w never read: the x and sh legs build each group's w from
 // the staged h as K7-B does; the w leg is the fold's h leg, which never
 // writes dw but adds dw Wr^T into its dh tile as K7-B does (cut in more
-// than one split: an fp32 dh partial to part [n_split, E, hd]).
+// than one split: an fp32 dh partial to part [n_split, E, hd]).  kRad with
+// kBwd3: K7-B3, K5a with the fold: w built from h as K7-B builds it, dw
+// kept in shared memory (never written) and, with dh asked for (the dw bit
+// of kNeed), added into dh as the h leg adds it (cut in more than one
+// split: an fp32 dh partial to rad.part_dh [n_split, E, hd]).
 template <typename T, int kStage, int kLeg, bool kXg = false, int kNeed = kNeedAll,
           bool kMask = false, bool kRad = false>
 __device__ __forceinline__ void dxdw_body(
@@ -453,14 +479,14 @@ __device__ __forceinline__ void dxdw_body(
     float* __restrict__ part_sh = nullptr, int slot_max = 0, const RadOps rad = {}) {
   constexpr int V = kVec<T>;
   constexpr bool kSh = sums_dsh(kLeg);
-  constexpr bool kBuildW = builds_w(kLeg, kRad), kDh = sums_dh(kLeg, kRad);
+  // what K5a keeps (the other legs: what their leg computes)
+  constexpr int need = kLeg == kBwd3 ? kNeed : kNeedAll;
+  constexpr bool kBuildW = builds_w(kLeg, kRad), kDh = sums_dh(kLeg, kRad, need);
   constexpr bool kHLeg = kRad && kLeg == kLegW;  // K7-L's h leg: dh, no dw
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  // the plan has per-edge w (K7-B, K7-L: built from h)
+  // the plan has per-edge w (K7-B, K7-L, K7-B3: built from h)
   const bool has_w = kLeg == kLegW || kLeg == kRadB || kRad || w != nullptr;
-  // what K5a keeps (the other legs: what their leg computes)
-  constexpr int need = kLeg == kBwd3 ? kNeed : kNeedAll;
   constexpr bool keep_dx = kLeg == kBwd3 ? (kNeed & kNeedDx) != 0 : kLeg != kLegW && !kSh;
   constexpr bool keep_dw = kLeg == kBwd3 ? (kNeed & kNeedDw) != 0 : kLeg != kLegX && !kSh;
   constexpr bool keep_dsh = kSh && (need & kNeedDsh) != 0;
@@ -475,7 +501,7 @@ __device__ __forceinline__ void dxdw_body(
   float* s_sh = reinterpret_cast<float*>(smem + L.sh);
   float* s_dsh = reinterpret_cast<float*>(smem + L.dsh);
   float* s_slot = reinterpret_cast<float*>(smem + L.slot);
-  const int dxs = round_up(d_x, kRowPad), sps = span_stride<kLeg, kRad>(span_max);
+  const int dxs = round_up(d_x, kRowPad), sps = span_stride<kLeg, kRad>(span_max, need);
   const int ldg = ld_g1<T>(cp_max), ldz = ld_dz1(fd_max);
   // the fold: h [kTile, ldh] (dtype), dh and a scratch tile [kTile, hd] (fp32)
   const int hd = rad.hd, hd16 = round_up(hd, 16), ldh = ld_h<T>(hd);
@@ -490,8 +516,9 @@ __device__ __forceinline__ void dxdw_body(
   const int n_live = max(0, min(n_rows, __ldg(n_edges_ptr) - e0));
   const bool dx_vec = d_x % V == 0 && aligned16(dx);
   const bool dw_vec = d_w % V == 0 && aligned16(dw) && aligned16(w);
-  // dx (and dsh; dh of the h leg) as fp32 partials
+  // dx (and dsh; dh of the h leg and K7-B3) as fp32 partials
   const bool split = (kLeg == kLegX || kSh || kHLeg) && gridDim.y > 1;
+  float* part_dh = kHLeg ? part : rad.part_dh;
 
   if (n_live == 0) {  // past the real edges: zero gradients
     if constexpr (kLeg == kRadB) {  // (no dw: the workspace's rows past *n_edges are not read)
@@ -524,10 +551,16 @@ __device__ __forceinline__ void dxdw_body(
         if (keep_dsh)
           for (int i = tid; i < n_rows * d_sh; i += kThreads1)
             dsh[(long long)e0 * d_sh + i] = from_f<T>(0.f);
+        if constexpr (kDh) {  // K7-B3's dh
+          T* dh = static_cast<T*>(rad.dh);
+          for (int i = tid; i < n_rows * hd; i += kThreads1)
+            dh[(long long)e0 * hd + i] = from_f<T>(0.f);
+        }
       }
-      if (keep_dw && blockIdx.y == 0)
-        for (int i = tid; i < n_rows * d_w; i += kThreads1)
-          dw[(long long)e0 * d_w + i] = from_f<T>(0.f);
+      if constexpr (!kRad)
+        if (keep_dw && blockIdx.y == 0)
+          for (int i = tid; i < n_rows * d_w; i += kThreads1)
+            dw[(long long)e0 * d_w + i] = from_f<T>(0.f);
     } else {
       if (blockIdx.y == 0)
         for (int i = tid; i < n_rows * d_w; i += kThreads1)
@@ -850,7 +883,7 @@ __device__ __forceinline__ void dxdw_body(
     }
 
     if (kLeg != kLegX && (kSh ? keep_dw : true) && has_w && last) {  // the group's dw is complete
-      if constexpr (!kHLeg) {
+      if constexpr (!kRad) {  // (the fold's legs keep dw on chip)
         const int nv = sps / V;
         for (int i = tid; i < n_rows * nv; i += kThreads1) {
           const int r = i / nv;
@@ -903,8 +936,8 @@ __device__ __forceinline__ void dxdw_body(
 
   if constexpr (kLeg == kLegW && !kHLeg) return;
   if constexpr (kDh) {  // dh once a tile (rows past the real edges: zero dw, zero dh)
-    if (split) {  // this split's fp32 partial of dh (the h leg)
-      float* pr = part + ((long long)blockIdx.y * E + e0) * hd;
+    if (split) {  // this split's fp32 partial of dh (the h leg, K7-B3)
+      float* pr = part_dh + ((long long)blockIdx.y * E + e0) * hd;
       for (int i = tid; i < n_rows * hd; i += kThreads1) pr[i] = s_dh[i];
     } else {
       T* dh = static_cast<T*>(rad.dh);
@@ -990,6 +1023,17 @@ bwd3_kernel(EQT_K2_DXDW_PARAMS, float* __restrict__ part, T* __restrict__ dsh,
   dxdw_body<T, kFullStage, kBwd3, kXg, kNeed>(EQT_K2_DXDW_ARGS, part, dsh, part_sh, slot_max);
 }
 
+// K7-B3: K5a with the fold, the outputs in kNeed (two or three of dx, dsh
+// and dh, its dw bit; w and dw null), grid (tiles, splits); kXg: x read
+// through L2; the fp32 products split by masking
+template <typename T, bool kXg, int kNeed>
+__global__ void __launch_bounds__(kThreads1, 1)
+rad_bwd3_kernel(EQT_K2_DXDW_PARAMS, float* __restrict__ part, T* __restrict__ dsh,
+                float* __restrict__ part_sh, int slot_max, const RadOps rad) {
+  dxdw_body<T, kFullStage, kBwd3, kXg, kNeed, true, true>(EQT_K2_DXDW_ARGS, part, dsh, part_sh,
+                                                          slot_max, rad);
+}
+
 // K5b's sh leg: dsh alone (sh, dx and dw null), grid (tiles, splits)
 template <typename T>
 __global__ void __launch_bounds__(kThreads1, 1)
@@ -1016,43 +1060,59 @@ rad_leg_kernel(EQT_K2_DXDW_PARAMS, float* __restrict__ part, T* __restrict__ dsh
 }
 
 // the split partials of a leg launch summed in split order, rows at or past
-// *n_edges zeros (their tiles wrote no partial): out_a [E, d_a] from part_a
-// [n_split, E, d_a], then out_b [E, d_b] from part_b (each pair null when the
-// launch keeps no such output), one thread an element
+// *n_edges zeros (their tiles wrote no partial): out[k] [E, d[k]] from
+// part[k] [n_split, E, d[k]], k = 0, 1, 2 in turn (each pair null when the
+// launch keeps no such output), one thread an element.  (The kernel takes
+// them as separate arguments: a struct argument indexed by k went to a
+// 64-byte stack frame and the sums took ~2.5x as long on an H100.)
+struct SplitSums {
+  const float* part[3];
+  int d[3];
+  void* out[3];
+};
+
+// the elements of the outputs a SplitSums sums
+inline long long split_numel(const SplitSums& p, int E) {
+  long long n = 0;
+  for (int k = 0; k < 3; ++k) n += p.out[k] != nullptr ? (long long)E * p.d[k] : 0;
+  return n;
+}
+
+// dx of K5b's x leg; dx, dsh and dh of K5a and K7-B3, or dsh of the sh leg,
+// in one launch
 template <typename T>
-__device__ __forceinline__ void sum_split(const float* __restrict__ part_a, int d_a,
-                                          T* __restrict__ out_a, const float* __restrict__ part_b,
-                                          int d_b, T* __restrict__ out_b, int n_split, int E,
-                                          const int* __restrict__ n_edges_ptr) {
+__global__ void __launch_bounds__(eqt::kReduceThreads)
+split_sum_kernel(const float* __restrict__ part_a, int d_a, T* __restrict__ out_a,
+                 const float* __restrict__ part_b, int d_b, T* __restrict__ out_b,
+                 const float* __restrict__ part_c, int d_c, T* __restrict__ out_c, int n_split,
+                 int E, const int* __restrict__ n_edges_ptr) {
   const long long n_a = out_a != nullptr ? (long long)E * d_a : 0;
   const long long n_b = out_b != nullptr ? (long long)E * d_b : 0;
+  const long long n_c = out_c != nullptr ? (long long)E * d_c : 0;
   long long i = (long long)blockIdx.x * eqt::kReduceThreads + threadIdx.x;
-  if (i >= n_a + n_b) return;
-  const bool in_a = i < n_a;
-  const float* part = in_a ? part_a : part_b;
-  const long long numel = in_a ? n_a : n_b;
-  i -= in_a ? 0 : n_a;
+  if (i >= n_a + n_b + n_c) return;
+  const int k = i < n_a ? 0 : i < n_a + n_b ? 1 : 2;
+  const float* part = k == 0 ? part_a : k == 1 ? part_b : part_c;
+  T* out = k == 0 ? out_a : k == 1 ? out_b : out_c;
+  const long long numel = k == 0 ? n_a : k == 1 ? n_b : n_c;
+  i -= k == 0 ? 0 : k == 1 ? n_a : n_a + n_b;
   float acc = 0.f;
-  if (i / (in_a ? d_a : d_b) < __ldg(n_edges_ptr))
+  if (i / (k == 0 ? d_a : k == 1 ? d_b : d_c) < __ldg(n_edges_ptr))
     for (int s = 0; s < n_split; ++s) acc += part[s * numel + i];
-  (in_a ? out_a : out_b)[i] = from_f<T>(acc);
+  out[i] = from_f<T>(acc);
 }
 
-// dx of K5b's x leg
+// launch split_sum_kernel<T> over the outputs of p (none: nothing to do)
 template <typename T>
-__global__ void __launch_bounds__(eqt::kReduceThreads)
-sum_dx_kernel(const float* __restrict__ part, int n_split, int E, int d_x,
-              const int* __restrict__ n_edges_ptr, T* __restrict__ dx) {
-  sum_split<T>(part, d_x, dx, nullptr, 0, nullptr, n_split, E, n_edges_ptr);
-}
-
-// dx and dsh of K5a, or dsh of the sh leg, in one launch
-template <typename T>
-__global__ void __launch_bounds__(eqt::kReduceThreads)
-bwd3_sum_kernel(const float* __restrict__ part, int d_x, T* __restrict__ dx,
-                const float* __restrict__ part_sh, int d_sh, T* __restrict__ dsh, int n_split,
-                int E, const int* __restrict__ n_edges_ptr) {
-  sum_split<T>(part, d_x, dx, part_sh, d_sh, dsh, n_split, E, n_edges_ptr);
+int launch_split_sum(const SplitSums& p, int n_split, int E, const void* n_edges,
+                     cudaStream_t stream) {
+  const long long numel = split_numel(p, E);
+  if (numel == 0) return 0;
+  split_sum_kernel<T><<<(unsigned)((numel + eqt::kReduceThreads - 1) / eqt::kReduceThreads),
+                        eqt::kReduceThreads, 0, stream>>>(
+      p.part[0], p.d[0], static_cast<T*>(p.out[0]), p.part[1], p.d[1], static_cast<T*>(p.out[1]),
+      p.part[2], p.d[2], static_cast<T*>(p.out[2]), n_split, E, static_cast<const int*>(n_edges));
+  return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------- launch 2
@@ -1487,12 +1547,8 @@ int launch_leg(const Args& a, int n_split, cudaStream_t stream) {
       static_cast<float*>(a.part));
   err = cudaGetLastError();
   if (err != cudaSuccess || kLeg != kLegX || n_split == 1) return (int)err;
-  const long long numel = (long long)a.E * a.d_x;
-  sum_dx_kernel<T><<<(unsigned)((numel + eqt::kReduceThreads - 1) / eqt::kReduceThreads),
-                     eqt::kReduceThreads, 0, stream>>>(
-      static_cast<const float*>(a.part), n_split, a.E, a.d_x,
-      static_cast<const int*>(a.n_edges), static_cast<T*>(a.dx));
-  return (int)cudaGetLastError();
+  const SplitSums p{{static_cast<const float*>(a.part)}, {a.d_x}, {a.dx}};
+  return launch_split_sum<T>(p, n_split, a.E, a.n_edges, stream);
 }
 
 // the dsh legs' outputs and scratch: dsh [E, d_sh] (null: not asked for),
@@ -1502,49 +1558,55 @@ struct DshArgs {
   int slot_max;
 };
 
-// K5a's outputs asked for: the non-null ones
-int need_of(const Args& a, const DshArgs& d) {
+// K5a's (K7-B3's) outputs asked for: the non-null ones (K7-B3's dh for dw)
+int need_of(const Args& a, const DshArgs& d, const RadOps& r) {
   return (a.dx != nullptr ? kNeedDx : 0) | (d.dsh != nullptr ? kNeedDsh : 0) |
-         (a.dw != nullptr ? kNeedDw : 0);
+         (a.dw != nullptr || r.dh != nullptr ? kNeedDw : 0);
 }
 
 // the shared memory of a dsh leg's launch (kLegSh reads x, w and G, K5a
-// what kNeed asks for; x_global: K5a's x through L2)
-template <typename T, int kLeg, int kNeed>
-Layout1 dsh_layout(const Args& a, const DshArgs& d, bool x_global) {
-  return layout1<T, kLeg>(a.d_x, a.d_sh, a.span_max, a.cp_max, a.fd_max, a.w != nullptr,
-                          a.sx != 0, kNeed, d.slot_max, x_global);
+// what kNeed asks for; x_global: K5a's x through L2; kRad: K7-B3, h and
+// w built from it, dh's tiles with dh asked for)
+template <typename T, int kLeg, int kNeed, bool kRad>
+Layout1 dsh_layout(const Args& a, const DshArgs& d, bool x_global, int hd) {
+  return layout1<T, kLeg, kRad>(a.d_x, a.d_sh, a.span_max, a.cp_max, a.fd_max,
+                                kRad || a.w != nullptr, a.sx != 0, kNeed, d.slot_max, x_global,
+                                hd);
 }
 
-// K5a stages x in shared memory where the whole tile fits the block's limit
-// (bf16 at MD17's sites), else (fp32 at sep_act) reads it through L2
-template <typename T, int kLeg, int kNeed>
-bool x_global(const Args& a, const DshArgs& d) {
+// K5a and K7-B3 stage x in shared memory where the whole tile fits the
+// block's limit (bf16 at MD17's sites), else (fp32 at sep_act) read it
+// through L2
+template <typename T, int kLeg, int kNeed, bool kRad>
+bool x_global(const Args& a, const DshArgs& d, int hd) {
   if (kLeg != kBwd3) return false;
   int dev = 0, limit = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
     return false;  // the launch then reports the error
-  return dsh_layout<T, kLeg, kNeed>(a, d, false).total > limit;
+  return dsh_layout<T, kLeg, kNeed, kRad>(a, d, false, hd).total > limit;
 }
 
 // the kernel of a dsh leg's launch
-template <typename T, int kLeg, bool kXg, int kNeed>
+template <typename T, int kLeg, bool kXg, int kNeed, bool kRad>
 auto dsh_kernel() {
   if constexpr (kLeg == kLegSh)
     return &sh_leg_kernel<T>;
+  else if constexpr (kRad)
+    return &rad_bwd3_kernel<T, kXg, kNeed>;
   else
     return &bwd3_kernel<T, kXg, kNeed>;
 }
 
-// K5a (kBwd3) or the sh leg (kLegSh) on launch 1's code, the tiles cut by
-// irrep group into n_split (the dx and dsh partials then summed in split
-// order by one launch)
-template <typename T, int kLeg, bool kXg, int kNeed>
-int launch_dsh(const Args& a, const DshArgs& d, int n_split, cudaStream_t stream) {
-  const int smem = dsh_layout<T, kLeg, kNeed>(a, d, kXg).total;
-  cudaError_t err = cudaFuncSetAttribute(dsh_kernel<T, kLeg, kXg, kNeed>(),
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// K5a (kBwd3), K7-B3 (kBwd3 with kRad) or the sh leg (kLegSh) on launch 1's
+// code, the tiles cut by irrep group into n_split (the dx, dsh and dh
+// partials then summed in split order by one launch)
+template <typename T, int kLeg, bool kXg, int kNeed, bool kRad>
+int launch_dsh(const Args& a, const DshArgs& d, const RadOps& r, int n_split,
+               cudaStream_t stream) {
+  const int smem = dsh_layout<T, kLeg, kNeed, kRad>(a, d, kXg, r.hd).total;
+  const auto kernel = dsh_kernel<T, kLeg, kXg, kNeed, kRad>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.E + kTile - 1) / kTile, n_split);
   const T* x = static_cast<const T*>(a.x);
@@ -1565,6 +1627,11 @@ int launch_dsh(const Args& a, const DshArgs& d, int n_split, cudaStream_t stream
     sh_leg_kernel<T><<<grid, kThreads1, smem, stream>>>(
         x, a.sx, a.d_x, sh, a.d_sh, w, a.d_w, Wp, G, a.d_out, n_edges, a.E, gk, a.n_gk, terms,
         coeffs, dwmap, dx, dw, a.span_max, a.cp_max, a.fd_max, dsh, part_sh, d.slot_max);
+  else if constexpr (kRad)
+    rad_bwd3_kernel<T, kXg, kNeed><<<grid, kThreads1, smem, stream>>>(
+        x, a.sx, a.d_x, sh, a.d_sh, w, a.d_w, Wp, G, a.d_out, n_edges, a.E, gk, a.n_gk, terms,
+        coeffs, dwmap, dx, dw, a.span_max, a.cp_max, a.fd_max, static_cast<float*>(a.part), dsh,
+        part_sh, d.slot_max, r);
   else
     bwd3_kernel<T, kXg, kNeed><<<grid, kThreads1, smem, stream>>>(
         x, a.sx, a.d_x, sh, a.d_sh, w, a.d_w, Wp, G, a.d_out, n_edges, a.E, gk, a.n_gk, terms,
@@ -1572,43 +1639,44 @@ int launch_dsh(const Args& a, const DshArgs& d, int n_split, cudaStream_t stream
         part_sh, d.slot_max);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return (int)err;
-  const long long numel =
-      (long long)a.E * ((dx != nullptr ? a.d_x : 0) + (dsh != nullptr ? a.d_sh : 0));
-  if (numel == 0) return 0;
-  bwd3_sum_kernel<T><<<(unsigned)((numel + eqt::kReduceThreads - 1) / eqt::kReduceThreads),
-                       eqt::kReduceThreads, 0, stream>>>(
-      static_cast<const float*>(a.part), a.d_x, dx, part_sh, a.d_sh, dsh, n_split, a.E, n_edges);
-  return (int)cudaGetLastError();
+  const SplitSums p{{static_cast<const float*>(a.part), part_sh, r.part_dh},
+                    {a.d_x, a.d_sh, r.hd},
+                    {dx, dsh, kRad ? r.dh : nullptr}};
+  return launch_split_sum<T>(p, n_split, a.E, a.n_edges, stream);
 }
 
-template <typename T, int kLeg, int kNeed = kNeedAll>
-int dispatch_dsh(const Args& a, const DshArgs& d, int n_split, cudaStream_t s) {
+template <typename T, int kLeg, int kNeed = kNeedAll, bool kRad = false>
+int dispatch_dsh(const Args& a, const DshArgs& d, const RadOps& r, int n_split, cudaStream_t s) {
   if constexpr (kLeg == kBwd3)
-    if (x_global<T, kLeg, kNeed>(a, d)) return launch_dsh<T, kLeg, true, kNeed>(a, d, n_split, s);
-  return launch_dsh<T, kLeg, false, kNeed>(a, d, n_split, s);
+    if (x_global<T, kLeg, kNeed, kRad>(a, d, r.hd))
+      return launch_dsh<T, kLeg, true, kNeed, kRad>(a, d, r, n_split, s);
+  return launch_dsh<T, kLeg, false, kNeed, kRad>(a, d, r, n_split, s);
 }
 
-// K5a with the outputs asked for: each two- and three-output set on its own
-// compile-time code (one output alone is that edge leg's launch, which the
-// Python wrapper calls)
-template <typename T>
-int dispatch_bwd3(const Args& a, const DshArgs& d, int n_split, cudaStream_t s) {
-  switch (need_of(a, d)) {
-    case kNeedAll: return dispatch_dsh<T, kBwd3, kNeedAll>(a, d, n_split, s);
-    case kNeedDx | kNeedDsh: return dispatch_dsh<T, kBwd3, kNeedDx | kNeedDsh>(a, d, n_split, s);
-    case kNeedDsh | kNeedDw: return dispatch_dsh<T, kBwd3, kNeedDsh | kNeedDw>(a, d, n_split, s);
-    case kNeedDx | kNeedDw: return dispatch_dsh<T, kBwd3, kNeedDx | kNeedDw>(a, d, n_split, s);
+// K5a (K7-B3 with kRad) with the outputs asked for: each two- and
+// three-output set on its own compile-time code (one output alone is that
+// edge leg's launch, K5b's or K7-L's, which the Python wrapper calls)
+template <typename T, bool kRad = false>
+int dispatch_bwd3(const Args& a, const DshArgs& d, const RadOps& r, int n_split, cudaStream_t s) {
+  switch (need_of(a, d, r)) {
+    case kNeedAll: return dispatch_dsh<T, kBwd3, kNeedAll, kRad>(a, d, r, n_split, s);
+    case kNeedDx | kNeedDsh:
+      return dispatch_dsh<T, kBwd3, kNeedDx | kNeedDsh, kRad>(a, d, r, n_split, s);
+    case kNeedDsh | kNeedDw:
+      return dispatch_dsh<T, kBwd3, kNeedDsh | kNeedDw, kRad>(a, d, r, n_split, s);
+    case kNeedDx | kNeedDw:
+      return dispatch_dsh<T, kBwd3, kNeedDx | kNeedDw, kRad>(a, d, r, n_split, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // resident blocks per SM of a dsh leg's launch, or minus a cudaError_t
-template <typename T, int kLeg, int kNeed = kNeedAll>
-int dsh_occupancy(const Args& a, const DshArgs& d) {
-  const bool xg = x_global<T, kLeg, kNeed>(a, d);
-  const int smem = dsh_layout<T, kLeg, kNeed>(a, d, xg).total;
-  const auto kernel =
-      xg ? dsh_kernel<T, kLeg, true, kNeed>() : dsh_kernel<T, kLeg, false, kNeed>();
+template <typename T, int kLeg, int kNeed = kNeedAll, bool kRad = false>
+int dsh_occupancy(const Args& a, const DshArgs& d, int hd) {
+  const bool xg = x_global<T, kLeg, kNeed, kRad>(a, d, hd);
+  const int smem = dsh_layout<T, kLeg, kNeed, kRad>(a, d, xg, hd).total;
+  const auto kernel = xg ? dsh_kernel<T, kLeg, true, kNeed, kRad>()
+                         : dsh_kernel<T, kLeg, false, kNeed, kRad>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return -(int)err;
@@ -1617,13 +1685,13 @@ int dsh_occupancy(const Args& a, const DshArgs& d) {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-template <typename T>
-int occupancy_bwd3(const Args& a, const DshArgs& d) {
-  switch (need_of(a, d)) {
-    case kNeedAll: return dsh_occupancy<T, kBwd3, kNeedAll>(a, d);
-    case kNeedDx | kNeedDsh: return dsh_occupancy<T, kBwd3, kNeedDx | kNeedDsh>(a, d);
-    case kNeedDsh | kNeedDw: return dsh_occupancy<T, kBwd3, kNeedDsh | kNeedDw>(a, d);
-    case kNeedDx | kNeedDw: return dsh_occupancy<T, kBwd3, kNeedDx | kNeedDw>(a, d);
+template <typename T, bool kRad = false>
+int occupancy_bwd3(const Args& a, const DshArgs& d, const RadOps& r) {
+  switch (need_of(a, d, r)) {
+    case kNeedAll: return dsh_occupancy<T, kBwd3, kNeedAll, kRad>(a, d, r.hd);
+    case kNeedDx | kNeedDsh: return dsh_occupancy<T, kBwd3, kNeedDx | kNeedDsh, kRad>(a, d, r.hd);
+    case kNeedDsh | kNeedDw: return dsh_occupancy<T, kBwd3, kNeedDsh | kNeedDw, kRad>(a, d, r.hd);
+    case kNeedDx | kNeedDw: return dsh_occupancy<T, kBwd3, kNeedDx | kNeedDw, kRad>(a, d, r.hd);
   }
   return -(int)cudaErrorInvalidValue;
 }
@@ -1836,19 +1904,12 @@ int launch_rad_leg(const Args& a, const DshArgs& d, const RadOps& r, int n_split
       static_cast<float*>(d.part_sh), d.slot_max, r);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return (int)err;
-  const int width = kLeg == kLegX ? a.d_x : kLeg == kLegSh ? a.d_sh : r.hd;
-  const long long numel = (long long)a.E * width;
-  const unsigned blocks = (unsigned)((numel + eqt::kReduceThreads - 1) / eqt::kReduceThreads);
-  const int* n_edges = static_cast<const int*>(a.n_edges);
-  if constexpr (kLeg == kLegSh)
-    bwd3_sum_kernel<T><<<blocks, eqt::kReduceThreads, 0, stream>>>(
-        nullptr, 0, nullptr, static_cast<const float*>(d.part_sh), a.d_sh,
-        static_cast<T*>(d.dsh), n_split, a.E, n_edges);
-  else
-    sum_dx_kernel<T><<<blocks, eqt::kReduceThreads, 0, stream>>>(
-        static_cast<const float*>(a.part), n_split, a.E, width, n_edges,
-        static_cast<T*>(kLeg == kLegX ? a.dx : r.dh));
-  return (int)cudaGetLastError();
+  const SplitSums p =
+      kLeg == kLegSh ? SplitSums{{static_cast<const float*>(d.part_sh)}, {a.d_sh}, {d.dsh}}
+                     : SplitSums{{static_cast<const float*>(a.part)},
+                                 {kLeg == kLegX ? a.d_x : r.hd},
+                                 {kLeg == kLegX ? a.dx : r.dh}};
+  return launch_split_sum<T>(p, n_split, a.E, a.n_edges, stream);
 }
 
 template <typename T>
@@ -1955,22 +2016,54 @@ bool dsh_args_ok(int leg, int n_split, const Args& a, const DshArgs& d) {
 int run_dsh(int leg, int n_split, const Args& a, const DshArgs& d, int dtype, void* stream) {
   if (!dsh_args_ok(leg, n_split, a, d)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  const RadOps r{};
   if (dtype == eqt::kFloat32)
-    return leg == kLegSh ? dispatch_dsh<float, kLegSh>(a, d, n_split, s)
-                         : dispatch_bwd3<float>(a, d, n_split, s);
+    return leg == kLegSh ? dispatch_dsh<float, kLegSh>(a, d, r, n_split, s)
+                         : dispatch_bwd3<float>(a, d, r, n_split, s);
   if (dtype == eqt::kBFloat16)
-    return leg == kLegSh ? dispatch_dsh<__nv_bfloat16, kLegSh>(a, d, n_split, s)
-                         : dispatch_bwd3<__nv_bfloat16>(a, d, n_split, s);
+    return leg == kLegSh ? dispatch_dsh<__nv_bfloat16, kLegSh>(a, d, r, n_split, s)
+                         : dispatch_bwd3<__nv_bfloat16>(a, d, r, n_split, s);
   return (int)cudaErrorInvalidValue;
 }
 
-int run_dsh_occupancy(int leg, const Args& a, const DshArgs& d, int dtype) {
-  if (!dsh_args_ok(leg, 1, a, d)) return -(int)cudaErrorInvalidValue;
+// the operands K7-B3 takes: two or three of dx, dsh and dh (r.dh), x and sh
+// read, w and dw null, the fold's operands (h, hd a positive multiple of 4,
+// Wl, the packings), the partials of each output kept when the tiles are cut
+bool rad_bwd3_args_ok(int n_split, const Args& a, const DshArgs& d, const RadOps& r) {
+  const bool dsh = d.dsh != nullptr;
+  const int n_out = (int)dsh + (int)(a.dx != nullptr) + (int)(r.dh != nullptr);
+  const bool fold = r.h != nullptr && r.hd > 0 && r.hd % 4 == 0 && r.n_loc > 0 &&
+                    r.Wl != nullptr && r.pk != nullptr && r.rgk != nullptr;
+  return fold && n_out >= 2 && a.x != nullptr && a.sh != nullptr && a.w == nullptr &&
+         a.dw == nullptr && a.cp_max % 16 == 0 && n_split >= 1 && (!dsh || d.slot_max >= 1) &&
+         (n_split == 1 || ((a.dx == nullptr || a.part != nullptr) &&
+                           (!dsh || d.part_sh != nullptr) &&
+                           (r.dh == nullptr || r.part_dh != nullptr)));
+}
+
+int run_rad_bwd3(int n_split, const Args& a, const DshArgs& d, const RadOps& r, int dtype,
+                 void* stream) {
+  if (!rad_bwd3_args_ok(n_split, a, d, r)) return (int)cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32) return dispatch_bwd3<float, true>(a, d, r, n_split, s);
+  if (dtype == eqt::kBFloat16) return dispatch_bwd3<__nv_bfloat16, true>(a, d, r, n_split, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// resident blocks per SM of K5b's sh leg (leg kLegSh), K5a (kBwd3), or
+// with r.hd > 0 K7-B3, or minus a cudaError_t
+int run_dsh_occupancy(int leg, const Args& a, const DshArgs& d, const RadOps& r, int dtype) {
+  const bool rad = r.hd > 0;
+  if (rad ? leg != kBwd3 || !rad_bwd3_args_ok(1, a, d, r) : !dsh_args_ok(leg, 1, a, d))
+    return -(int)cudaErrorInvalidValue;
   if (dtype == eqt::kFloat32)
-    return leg == kLegSh ? dsh_occupancy<float, kLegSh>(a, d) : occupancy_bwd3<float>(a, d);
+    return leg == kLegSh ? dsh_occupancy<float, kLegSh>(a, d, 0)
+           : rad         ? occupancy_bwd3<float, true>(a, d, r)
+                         : occupancy_bwd3<float>(a, d, r);
   if (dtype == eqt::kBFloat16)
-    return leg == kLegSh ? dsh_occupancy<__nv_bfloat16, kLegSh>(a, d)
-                         : occupancy_bwd3<__nv_bfloat16>(a, d);
+    return leg == kLegSh ? dsh_occupancy<__nv_bfloat16, kLegSh>(a, d, 0)
+           : rad         ? occupancy_bwd3<__nv_bfloat16, true>(a, d, r)
+                         : occupancy_bwd3<__nv_bfloat16>(a, d, r);
   return -(int)cudaErrorInvalidValue;
 }
 
@@ -2200,19 +2293,58 @@ extern "C" int dtp_lin_bwd3(const void* x, long long sx, int d_x, const void* sh
   return k2::run_dsh(leg, n_split, a, k2::DshArgs{dsh, part_sh, slot_max}, dtype, stream);
 }
 
+// K7-B3: two or three of dx, dsh and dh [E, hd] (each null when not asked
+// for) for the cotangent G of dtp_lin_rad_fwd, on dtp_lin_bwd's arguments (w
+// and dw null; tiles, n_tiles, n_ranges, range_len, dW and w_numel unused),
+// then h [E, hd], hd, Wl [hd + 1, n_loc] ([Wr; offset] in local column
+// order: the offset is read from its row hd, 0 when h's slot holds a
+// tangent), n_loc, pk and rgk (DTPLinPlan.k7_tables), dh, dsh, part_sh,
+// slot_max (DTPLinPlan.k2_dsh_slots), part_dh and n_split, the irrep-group
+// splits of each tile; cut in more than one, dx needs part [n_split, E,
+// d_x], dsh part_sh [n_split, E, d_sh] and dh part_dh [n_split, E, hd] fp32.
+extern "C" int dtp_lin_rad_bwd3(const void* x, long long sx, int d_x, const void* sh, int d_sh,
+                                const void* w, int d_w, const void* Wp, const void* G, int d_out,
+                                const void* n_edges, int E, const void* gk, int n_gk,
+                                const void* terms, const void* coeffs, const void* dwmap,
+                                void* dx, void* dw, int span_max, int cp_max, int fd_max,
+                                const void* tiles, int n_tiles, void* part, int n_ranges,
+                                int range_len, void* dW, int w_numel, const void* h, int hd,
+                                const void* Wl, int n_loc, const void* pk, const void* rgk,
+                                void* dh, void* dsh, void* part_sh, int slot_max, void* part_dh,
+                                int n_split, int dtype, void* stream) {
+  const k2::Args a{x,      sh,     w,        Wp,       G,      n_edges,   gk,
+                   terms,  coeffs, dwmap,    tiles,    sx,     d_x,       d_sh,
+                   d_w,    d_out,  E,        n_gk,     span_max, cp_max,  fd_max,
+                   n_tiles, n_ranges, range_len, w_numel, dx,   dw,        part, dW};
+  k2::RadOps r{};
+  r.h = h; r.hd = hd; r.Wl = Wl; r.n_loc = n_loc; r.pk = pk;
+  r.rgk = static_cast<const int*>(rgk); r.dh = dh;
+  r.part_dh = static_cast<float*>(part_dh);
+  return k2::run_rad_bwd3(n_split, a, k2::DshArgs{dsh, part_sh, slot_max}, r, dtype, stream);
+}
+
 // Resident blocks per SM of dtp_lin_bwd3's launch at these widths (leg 4
 // K5a with the outputs in need: 1 dx, 2 dsh, 4 dw; leg 1 the sh leg), or
+// with hd > 0 of dtp_lin_rad_bwd3's (leg 4, need's 4 dh, has_w unused), or
 // minus a cudaError_t.
 extern "C" int dtp_lin_dsh_occupancy(int leg, int d_x, int d_sh, int span_max, int cp_max,
                                      int fd_max, int has_w, int x_rows, int need, int slot_max,
-                                     int dtype) {
+                                     int hd, int dtype) {
   void* some = reinterpret_cast<void*>(16);  // a non-null pointer: the operand exists
-  const bool k5a = leg == k2::kBwd3;
-  const k2::Args a{some, k5a ? some : nullptr, has_w ? some : nullptr, some, some, some, some,
-                   some, some, some, nullptr, x_rows ? (long long)d_x : 0, d_x, d_sh, 0, 0, 0,
-                   0, span_max, cp_max, fd_max, 0, 0, 0, 0,
+  const bool k5a = leg == k2::kBwd3, rad = hd > 0;
+  const k2::Args a{some, k5a ? some : nullptr, has_w && !rad ? some : nullptr, some, some, some,
+                   some, some, some, some, nullptr, x_rows ? (long long)d_x : 0, d_x, d_sh, 0, 0,
+                   0, 0, span_max, cp_max, fd_max, 0, 0, 0, 0,
                    k5a && (need & k2::kNeedDx) ? some : nullptr,
-                   k5a && (need & k2::kNeedDw) ? some : nullptr, some, nullptr};
+                   k5a && !rad && (need & k2::kNeedDw) ? some : nullptr, some, nullptr};
   const k2::DshArgs d{!k5a || (need & k2::kNeedDsh) ? some : nullptr, some, slot_max};
-  return k2::run_dsh_occupancy(leg, a, d, dtype);
+  k2::RadOps r{};
+  if (rad) {
+    r.h = r.Wl = r.pk = some;
+    r.rgk = static_cast<const int*>(some);
+    r.hd = hd;
+    r.n_loc = 1;
+    r.dh = need & k2::kNeedDw ? some : nullptr;
+  }
+  return k2::run_dsh_occupancy(leg, a, d, r, dtype);
 }

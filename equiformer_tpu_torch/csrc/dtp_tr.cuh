@@ -20,7 +20,7 @@
 // columns) sit in shared memory.  R is a reduction over u: a warp owns an
 // (edge, column), each lane keeps a running sum over the column's terms
 // (copies u = lane mod 32) and the warp adds the lanes with a fixed
-// butterfly of shuffles, as K5a's dsh does (csrc/dtp_lin_bwd3.cu).  No
+// butterfly of shuffles, as K5a's dsh does (csrc/dtp_lin_bwd.cu).  No
 // atomics anywhere.
 #pragma once
 

@@ -123,13 +123,11 @@ _SIGNATURES = {
     # the dsh slots a row, the leg (4 K5a, 1 sh) and the irrep-group splits
     # of a tile before the dtype
     "dtp_lin_bwd3": _K2 + [_VP, _VP, _I, _I, _I, _I, _VP],
-    # leg (4 K5a, 1 sh), d_x, d_sh, span_max, cp_max, fd_max, has_w, x rows
-    # (0 broadcast), need (1 dx, 2 dsh, 4 dw), dsh slots, dtype
-    # -> resident blocks per SM (or -cudaError_t)
-    "dtp_lin_dsh_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I],
-    # K7-B3: d_x (0 without dx), d_sh, span, cols_pad_max, max_fan_stride,
-    # hd (> 0), dtype -> resident blocks per SM (or -cudaError_t)
-    "dtp_lin_bwd3_occupancy": [_I, _I, _I, _I, _I, _I, _I],
+    # leg (4 K5a or K7-B3, 1 sh), d_x, d_sh, span_max, cp_max, fd_max, has_w,
+    # x rows (0 broadcast), need (1 dx, 2 dsh, 4 dw or K7-B3's dh), dsh
+    # slots, hd (0, or K7-B3's), dtype -> resident blocks per SM (or
+    # -cudaError_t)
+    "dtp_lin_dsh_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I],
     # the radial fold (K7): h [E, hd] in place of w.  K7-F: K1's arguments
     # (w null; the packed W and [Wr; offset] of k1_tables(fold=True)), then
     # h, hd, the packed Wr and offsets, their per-group offsets, span_max,
@@ -144,11 +142,12 @@ _SIGNATURES = {
     # K7-LW: K2's arguments (w null), then h, hd, Wl, n_loc, the packed Wr
     # (k7_tables) and its gk offsets before the dtype
     "dtp_lin_rad_legW": _K2 + [_VP, _I, _VP, _I, _VP, _VP, _I, _VP],
-    # K7-B3: x, x_row_stride, d_x, sh, d_sh, W^T, g, d_out, n_edges*, E, gk
-    # table, n_gk, terms, coeffs, dx, dsh (each may be null), span_max,
-    # cols_pad_max, max_fan_stride, h, hd, Wl, n_loc, dh, dtype, stream
-    "dtp_lin_rad_bwd3": [_VP, _LL, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
-                         _VP, _VP, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I, _VP],
+    # K7-B3: K2's arguments (w and dw null), then h, hd, Wl, n_loc, the packed
+    # Wr (k7_tables) and its gk offsets, dh, dsh, its split partials, the dsh
+    # slots a row, dh's split partials and the irrep-group splits of a tile
+    # before the dtype
+    "dtp_lin_rad_bwd3": _K2 + [_VP, _I, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _I,
+                               _VP],
     # K5b's x and w legs: K2's arguments, then the leg (0 x, 2 w) and the
     # irrep-group splits of a tile before the dtype
     "dtp_lin_edge_leg": _K2 + [_I, _I, _I, _VP],
@@ -174,10 +173,11 @@ _SIGNATURES = {
     # R's column ranges, terms, coeffs, dtype, stream
     "dtp_fused_bwd": [_VP, _LL, _VP, _I, _VP, _LL, _VP, _I, _VP, _I, _VP, _VP, _I, _I,
                       _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
-    # K8-F: x, x_row_stride, sh, d_sh, w, d_w, G, out, d_out, n_edges*, E, gk
-    # table, n_gk, rows, dtype, stream (KronMeta.device_tables)
-    "dtp_lin_kron_fwd": [_VP, _LL, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,
-                         _VP],
+    # K8-F: x, x_row_stride, sh, d_sh, w, d_w, packed G, out, d_out,
+    # n_edges*, E, gk table (KronMeta.k1_tables'), n_gk, runs, terms, coeffs,
+    # fz_max, vec (4 or 1), the (g, k)'s column chunks, dtype, stream
+    "dtp_lin_kron_fwd": [_VP, _LL, _VP, _I, _VP, _I, _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _VP,
+                         _VP, _I, _I, _I, _I, _VP],
     # K8-B: K2's arguments on KronMeta.bwd_tables (the packed G^T in the
     # packed W's place, dG and G's numel in dW's and w_numel's), dtype, stream
     "dtp_lin_kron_bwd": _K2 + [_I, _VP],

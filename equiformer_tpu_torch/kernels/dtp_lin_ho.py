@@ -53,9 +53,10 @@ step's w rebuilt from h on the tensor cores), the Wr leg
 K7-Wr (``dtp_lin_rad_legWr``, ``csrc/dtp_lin_bwd.cu``: K5b's w leg, then
 [h, 1]^T dw on the tensor cores over K2's edge ranges, their fp32 partial
 rows summed in order) and the three edge legs of one ``g`` together K7-B3
-(``dtp_lin_rad_bwd3``, ``csrc/dtp_lin_bwd3.cu``, the first K5a design);
-all but K7-Wr, which reads no [Wr; offset], build w from (h, [Wr;
-offset]) on chip.  Plain versions:
+(``dtp_lin_rad_bwd3``, ``csrc/dtp_lin_bwd.cu``: K5a's launch with the
+fold, ``k2::rad_bwd3_kernel``, w built and dh = dw Wr^T taken on the tensor
+cores, dw on chip); all but K7-Wr, which reads no [Wr; offset], build w
+from (h, [Wr; offset]) on chip.  Plain versions:
 ``dtp_lin_rad_leg_plain``, ``dtp_lin_rad_legW_plain``,
 ``dtp_lin_rad_legWr_plain``, ``dtp_lin_rad_bwd3_plain``.
 
@@ -106,26 +107,6 @@ LEGW_DW_BLOCKS_PER_SM = 32
 DSH_LEGS = {"sh": 1, "bwd3": 4}
 
 
-def bwd3_tables(plan: DTPLinPlan, device: torch.device):
-    """``plan.bwd_tables`` with the term rows of each (group, component)
-    stably sorted by SH column, so the running dsh sum of the first K5a
-    design (K7-B3) is flushed once per column rather than once per term:
-    (gk, terms, coeffs, dwmap, wt_index, span_max, cols_pad_max)."""
-    key = ("bwd3", device)
-    tabs = plan._tables.get(key)
-    if tabs is not None:
-        return tabs
-    gk, terms, coeffs, *rest = plan.bwd_tables(device)
-    order = []
-    for begin, end in gk[:, 4:6].tolist():
-        rows = list(range(begin, end))
-        order.extend(sorted(rows, key=lambda t: int(terms[t, 1])))
-    idx = torch.as_tensor(order, dtype=torch.int64, device=device)
-    tabs = (gk, terms[idx].contiguous(), coeffs[idx].contiguous(), *rest)
-    plan._tables[key] = tabs
-    return tabs
-
-
 def dtp_lin_bwd3_plain(plan: DTPLinPlan, x, sh, w, W_flat, g, n_edges=None):
     """Plain version of K5a: (dx [E, d_x], dsh [E, d_sh], dw [E, d_w] or None
     when ``w`` is None) for the cotangent ``g`` [E, d_out] of
@@ -164,7 +145,7 @@ def dtp_lin_bwd3(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, w, W_flat:
     launch 1 with a dsh accumulator (``csrc/dtp_lin_bwd.cu``,
     ``k2::bwd3_kernel``, compiled for each set of two or three outputs), a
     block per (16-edge tile, irrep group), then the dx and dsh partials
-    summed in group order (``k2::bwd3_sum_kernel``).  One output alone is
+    summed in group order (``k2::split_sum_kernel``).  One output alone is
     that edge leg of K5b (``dtp_lin_leg``, which counts the launch)."""
     need_dw = need_dw and w is not None
     if x.device.type == "cpu":
@@ -204,33 +185,30 @@ def bwd3_occupancy(plan: DTPLinPlan, dtype: torch.dtype, need_dx: bool = True,
                    x_rows: bool = True) -> int:
     """Resident blocks per SM of the K5a launch with the two or three
     outputs asked for (x a row-broadcast without ``x_rows``), or with
-    ``folded`` of K7-B3 (which always keeps the dw tile), at this plan's
-    shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); needs
-    the card."""
+    ``folded`` of K7-B3's (``need_dw`` its dh) on a radial-folded plan, at
+    this plan's shared memory (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    needs the card."""
     code = _build.dtype_code(torch.empty((), dtype=dtype))
-    if folded:
-        *_, span_max, cols_pad_max = bwd3_tables(plan, torch.device("cpu"))
-        blocks = _build.library().dtp_lin_bwd3_occupancy(
-            plan.d_x if need_dx else 0, plan.d_sh, span_max, cols_pad_max,
-            plan.max_fan_stride, plan.radial_fold, code)
-    else:
-        has_w = not plan.shared_weights
-        need = (int(need_dx) | 2 * int(need_dsh) | 4 * int(need_dw and has_w))
-        if need in (0, 1, 2, 4):
-            raise ValueError("K5a takes two or three outputs: one alone is K5b's edge leg")
-        blocks = _dsh_occupancy(plan, DSH_LEGS["bwd3"], has_w, x_rows, need, code)
+    if folded and plan.radial_fold is None:
+        raise ValueError("K7-B3 needs a plan with radial_fold")
+    has_w = folded or not plan.shared_weights
+    need = (int(need_dx) | 2 * int(need_dsh) | 4 * int(need_dw and has_w))
+    if need in (0, 1, 2, 4):
+        raise ValueError("K5a and K7-B3 take two or three outputs: one alone is an edge leg's")
+    blocks = _dsh_occupancy(plan, DSH_LEGS["bwd3"], has_w, x_rows, need, code,
+                            plan.radial_fold if folded else 0)
     if blocks < 0:
-        _build.check(-blocks, "dtp_lin_bwd3_occupancy")
+        _build.check(-blocks, "dtp_lin_dsh_occupancy")
     return blocks
 
 
 def _dsh_occupancy(plan: DTPLinPlan, leg: int, has_w: bool, x_rows: bool, need: int,
-                   code: int) -> int:
+                   code: int, hd: int = 0) -> int:
     span_max = plan.bwd_tables(torch.device("cpu"))[5]
     kt = plan.k2_tables(torch.device("cpu"))
     return _build.library().dtp_lin_dsh_occupancy(
         leg, plan.d_x, plan.d_sh, span_max, kt.cp_max, kt.fd_max, int(has_w), int(x_rows), need,
-        plan.k2_dsh_slots(), code)
+        plan.k2_dsh_slots(), hd, code)
 
 
 def dtp_lin_rad_bwd3_plain(plan: DTPLinPlan, x, sh, h, Wrs, W_flat, g, n_edges=None):
@@ -243,37 +221,54 @@ def dtp_lin_rad_bwd3_plain(plan: DTPLinPlan, x, sh, h, Wrs, W_flat, g, n_edges=N
 
 def dtp_lin_rad_bwd3(plan: DTPLinPlan, x: torch.Tensor, sh: torch.Tensor, h: torch.Tensor,
                      Wrs: torch.Tensor, W_flat: torch.Tensor, g: torch.Tensor, n_edges=None,
-                     need_dx: bool = True, need_dsh: bool = True):
+                     need_dx: bool = True, need_dsh: bool = True, need_dh: bool = True):
     """K7-B3: (dx, dsh, dh [E, hd]) for the cotangent ``g`` [E, d_out] of
-    ``dtp_lin_rad_fwd`` on the same operands, dx and dsh None when not
-    needed; w is rebuilt and dw contracted against Wr on chip.  CPU tensors
-    take ``dtp_lin_rad_bwd3_plain``; CUDA tensors launch the kernel (float32
-    or bfloat16) or raise.  One launch per call."""
+    ``dtp_lin_rad_fwd`` on the same operands, each None when not needed.
+    K5a's launch with the fold (``csrc/dtp_lin_bwd.cu``,
+    ``k2::rad_bwd3_kernel``, compiled for each set of two or three outputs),
+    a block per (16-edge tile, irrep group): the group's w built from h and
+    dh = dw Wr^T taken on the tensor cores, dw kept on chip; the dx, dsh and
+    dh partials summed in group order by one launch.  W and [Wr; offset]
+    are packed by one gather (``plan.k7_leg_tables``); the offset is read
+    from ``Wrs``' last row.  One output alone is that folded edge leg of
+    K7-L (``dtp_lin_rad_leg``, which counts the launch).  CPU tensors take
+    ``dtp_lin_rad_bwd3_plain``; CUDA tensors launch the kernel (float32 or
+    bfloat16) or raise."""
     if x.device.type == "cpu":
         dx, dsh, dh = dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W_flat, g, n_edges)
-        return dx if need_dx else None, dsh if need_dsh else None, dh
-    E = sh.shape[0]
-    x, sh, (h, Wl), W_flat = _check_operands(plan, x, sh, (h, Wrs), W_flat)
+        return dx if need_dx else None, dsh if need_dsh else None, dh if need_dh else None
+    E, hd = sh.shape[0], plan.radial_fold
+    x, sh, (h, Wrs), W_flat = _check_operands(plan, x, sh, (h, Wrs), W_flat, local=False)
     if g.shape != (E, plan.d_out) or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"cotangent must be [{E}, {plan.d_out}] in x's dtype and device")
     g = g.contiguous()
-    n_edges = _check_n_edges(n_edges, E, x.device)
-    gk, terms, coeffs, _, wt_index, span_max, cols_pad_max = bwd3_tables(plan, x.device)
-    empty = lambda d: torch.empty((E, d), dtype=x.dtype, device=x.device)  # noqa: E731
+    dev = x.device
+    n_edges = _check_n_edges(n_edges, E, dev)
+    empty = lambda d: torch.empty((E, d), dtype=x.dtype, device=dev)  # noqa: E731
     dx = empty(plan.d_x) if need_dx else None
     dsh = empty(plan.d_sh) if need_dsh else None
-    dh = empty(plan.radial_fold)
-    if E == 0:
+    dh = empty(hd) if need_dh else None
+    if E == 0 or not (need_dx or need_dsh or need_dh):
         return dx, dsh, dh
-    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
-    err = _build.library().dtp_lin_rad_bwd3(
-        _build.ptr(x), x.stride(0), plan.d_x, _build.ptr(sh), plan.d_sh, _build.ptr(WT),
-        _build.ptr(g), plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk), gk.shape[0],
-        _build.ptr(terms), _build.ptr(coeffs), _build.ptr(dx), _build.ptr(dsh), span_max,
-        cols_pad_max, plan.max_fan_stride, _build.ptr(h), plan.radial_fold, _build.ptr(Wl),
-        Wl.shape[1], _build.ptr(dh), _build.dtype_code(x), _build.stream_ptr(),
-    )
-    _build.check(err, "dtp_lin_rad_bwd3")
+    if need_dx + need_dsh + need_dh == 1:
+        leg = "x" if need_dx else "sh" if need_dsh else "h"
+        ops = {"x": x, "sh": sh, "h": h, leg: None}
+        out = dtp_lin_rad_leg(plan, leg, g, ops["x"], ops["sh"], ops["h"], Wrs, W_flat, n_edges)
+        return tuple(out if k == leg else None for k in EDGE_LEGS_RAD)
+    kl, kr = plan.k7_leg_tables(dev), plan.k7_tables(dev)
+    packed = fold_gather(plan, W_flat, Wrs, kl.index)
+    Wp, pk, Wl = packed[: kl.pk_off], packed[kl.pk_off : kl.wl_off], packed[kl.wl_off :]
+    n_split = len(plan.groups)
+    scratch = lambda out, width: (  # noqa: E731
+        torch.empty((n_split, E, width), dtype=torch.float32, device=dev)
+        if out is not None and n_split > 1 else None)
+    # the splits' fp32 partials, held until the launches are enqueued (a
+    # temporary's block would go back to the allocator at once)
+    part, part_sh, part_dh = scratch(dx, plan.d_x), scratch(dsh, plan.d_sh), scratch(dh, hd)
+    _k2_call("dtp_lin_rad_bwd3", plan, g, x, sh, None, Wp, n_edges, dx, None, None, part,
+             _build.ptr(h), hd, _build.ptr(Wl), Wl.numel() // (hd + 1), _build.ptr(pk),
+             _build.ptr(kr.rgk), _build.ptr(dh), _build.ptr(dsh), _build.ptr(part_sh),
+             plan.k2_dsh_slots(), _build.ptr(part_dh), n_split)
     dtp_lin_rad_bwd3.launches += 1
     return dx, dsh, dh
 
@@ -680,9 +675,8 @@ class _Bwd3(torch.autograd.Function):
         o = dict(zip(legs_of(plan)[0][1:], ops))
         if plan.radial_fold is None:
             return dtp_lin_bwd3(plan, o["x"], o["sh"], o["w"], o["W"], g, n_edges, *need)
-        dx, dsh, dh = dtp_lin_rad_bwd3(plan, o["x"], o["sh"], o["h"], o["Wr"], o["W"], g,
-                                       n_edges, *need[:2])
-        return dx, dsh, dh if need[2] else None
+        return dtp_lin_rad_bwd3(plan, o["x"], o["sh"], o["h"], o["Wr"], o["W"], g, n_edges,
+                                *need)
 
     @staticmethod
     def backward(ctx, *cots):

@@ -20,11 +20,12 @@ gather and one product in plain PyTorch, outside the autograd op, so
 autograd carries the op's dG back to W and, through ``fold_shared_weights``,
 to a shared w (JAX's ``build_G``, ``:143``).
 
-K8-F is ``csrc/dtp_lin_kron.cu`` over ``KronMeta.device_tables``.  K8-B is
-K2's two launches (``csrc/dtp_lin_bwd.cu``) over ``KronMeta.bwd_tables``:
-the kron op is K2's function with each (g, k) a group of one component,
-its Kop rows the fan and its block of G the heads' weight, each triple a
-term of coefficient 1.
+The kron op is K1's and K2's function with each (g, k) a group of one
+component, its Kop rows the fan and its block of G the heads' weight, each
+triple a term of coefficient 1.  So K8-F is K1's product over
+``KronMeta.k1_tables`` on a 64-edge tile (``csrc/dtp_lin.cu``,
+``k1::kron_fwd_kernel``), and K8-B K2's two launches
+(``csrc/dtp_lin_bwd.cu``) over ``KronMeta.bwd_tables``.
 
 The op has no dsh (JAX's kron plans are ``needs_dsh=False``) and is first
 order only: its backward is not differentiable, as JAX's ``custom_vjp``
@@ -48,6 +49,7 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 from .dtp_lin import (
+    K1_VEC,
     K2_COL_TILE,
     K2_FAN_TILE,
     DTPLinPlan,
@@ -55,9 +57,15 @@ from .dtp_lin import (
     _sm_count,
     _zero_past,
     fold_shared_weights,
+    k1_pack_index,
     k2_pack_index,
     k2_ranges,
 )
+
+
+# K8-F (csrc/dtp_lin.cu k1::kron_fwd_kernel): edges a block, output columns
+# a block
+KRON_TILE, KRON_COLS = 64, 128
 
 
 class Triple(NamedTuple):
@@ -67,6 +75,21 @@ class Triple(NamedTuple):
     coeff: float  # CG coefficient (with the fan-in rescale of external weights)
     fc: int  # first fan row of the group's packed W
     mul: int  # rows of G (columns of Kop) the triple takes
+
+
+class KronFwdTables(NamedTuple):
+    """K8-F's tables in K1's layout (``csrc/dtp_lin.cu``, k1::, as
+    ``DTPLinPlan.k1_tables`` and ``device_tables``): each (g, k) a group of
+    one component whose fan is its Kop rows, each CG triple a run of one
+    term of coefficient 1."""
+    gk: torch.Tensor  # int32 [n_gk, 8]
+    runs: torch.Tensor  # int32 [n_triples, 5]
+    terms: torch.Tensor  # int32 [n_triples, 5]
+    coeffs: torch.Tensor  # float32 [n_triples]: ones (G holds the CG coefficients)
+    gp_index: torch.Tensor  # int64: each (g, k)'s G block in B-fragment order, of cat([G, 0])
+    fz_max: int  # the most Kop rows of a (g, k), padded to 16
+    vec: int  # K1_VEC where every run and term offset is a multiple of it, else 1
+    n_chunks: int  # the (g, k)'s column chunks of KRON_COLS (the kernel's grid)
 
 
 class KronBwdTables(NamedTuple):
@@ -178,12 +201,44 @@ class KronMeta:
         return W_flat[idx] * coef
 
     # ------------------------------------------------------- device tables
-    def device_tables(self, device: torch.device):
-        """K8-F's int32 tables on ``device``, as csrc/dtp_lin_kron.cu reads
-        them: (gk [n_gk, 12], rows [n_rows, 4]).  gk per (g, k): first flat
-        row, end row, cols, output column, G element offset, then zeros.
-        rows: x, SH and w column and local dw column of each Kop column."""
-        return self._on("tables", device, lambda: self._fwd_tables(device))
+    def k1_tables(self, device: torch.device) -> KronFwdTables:
+        """K8-F's tables on ``device`` in K1's layout (``DTPLinPlan.k1_tables``),
+        as ``k1::kron_fwd_kernel`` (csrc/dtp_lin.cu) reads them.
+
+        gk per (g, k), K1's 8 ints: its Kop rows padded to 16, cols, output
+        column, the offset of its packed G block in ``gp_index``'s gather,
+        its run range, its column n-tiles, its Kop rows n_k.  runs: per
+        triple, its first Kop row in the (g, k) block, mul, w column, term
+        range (one term).  terms: per triple x column, SH column, w column,
+        first Kop row, mul; coeffs all 1.  ``gp_index`` gathers ``cat([G,
+        0])`` into each (g, k)'s block [n_k, cols] in B-fragment order
+        (``k1_pack_index``).  ``n_chunks``: the (g, k)'s column chunks of
+        ``KRON_COLS``, a block each per 64-edge tile."""
+        return self._on("k1", device, lambda: self._k1_tables(device))
+
+    def _k1_tables(self, device):
+        gk, runs, terms, index = [], [], [], []
+        gp_off, vec = 0, K1_VEC if self.plan.d_x % K1_VEC == 0 and self.plan.d_w % K1_VEC == 0 \
+            else 1
+        for q, (gi, k, _, n, cols, out_col, g_off) in enumerate(self.blocks()):
+            run_begin, fc = len(runs), 0
+            for t in self.qcols[(gi, k)]:
+                runs.append((fc, t.mul, t.b_off, len(terms), len(terms) + 1))
+                terms.append((t.a_off, t.col_off, t.b_off, fc, t.mul))
+                if (t.a_off | t.b_off | fc | t.mul) % K1_VEC:
+                    vec = 1
+                fc += t.mul
+            gk.append((-(-n // 16) * 16, cols, out_col, gp_off, run_begin, len(runs),
+                       -(-cols // 8), n))
+            idx = k1_pack_index(n, cols, g_off, self.numel)
+            index.append(idx)
+            gp_off += idx.size
+        i32 = lambda t: torch.tensor(t, dtype=torch.int32, device=device)  # noqa: E731
+        return KronFwdTables(
+            i32(gk), i32(runs), i32(terms),
+            torch.ones(len(terms), dtype=torch.float32, device=device),
+            torch.as_tensor(np.concatenate(index), device=device), max(r[0] for r in gk), vec,
+            sum(-(-r[1] // KRON_COLS) for r in gk))
 
     def _local_dw(self):
         """(dwmap, per group its dw span (begin in dwmap, length), per w
@@ -339,22 +394,33 @@ def dtp_lin_kron_fwd(meta, x: torch.Tensor, sh: torch.Tensor, w, G: torch.Tensor
     """K8-F: [E, d_out].  ``meta`` the plan's ``KronMeta``; x [E, d_x]
     (a row-broadcast ``expand`` is read with row stride 0), sh [E, d_sh], w
     [E, d_w] or None for a shared-weight plan (folded into G), G the flat
-    ``build_G``, ``n_edges`` an int32 device scalar or None.  CPU tensors
-    take ``dtp_lin_kron_plain``; CUDA tensors launch the kernel (float32 or
-    bfloat16) or raise."""
+    ``build_G``, ``n_edges`` an int32 device scalar or None.  A block per
+    (64-edge tile, 128-column chunk of a (g, k)) over ``meta.k1_tables``
+    (``csrc/dtp_lin.cu``, ``k1::kron_fwd_kernel``): Kop built 32 rows at a
+    time into shared memory, times the chunk of the (g, k)'s block of G on
+    the tensor cores into registers, G packed in B-fragment order by one
+    gather a call.  CPU tensors take ``dtp_lin_kron_plain``; CUDA tensors
+    launch the kernel (float32 or bfloat16) or raise."""
     if x.device.type == "cpu":
         return dtp_lin_kron_plain(meta, x, sh, w, G, n_edges)
     plan, E = meta.plan, sh.shape[0]
     x, sh, w, G = _check_operands(meta, x, sh, w, G)
     n_edges = _check_n_edges(n_edges, E, x.device)
-    gk, rows = meta.device_tables(x.device)[:2]
+    kt = meta.k1_tables(x.device)
     out = torch.empty((E, plan.d_out), dtype=x.dtype, device=x.device)
     if E == 0:
         return out
+    zero = meta._on(("zero", G.dtype), G.device, lambda: G.new_zeros(1))
+    Gp = torch.cat([G, zero])[kt.gp_index]
+    # x and w read a quad at a time through L2: both 16-byte aligned
+    aligned = x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0 and (w is None
+                                                                    or w.data_ptr() % 16 == 0)
     err = _build.library().dtp_lin_kron_fwd(
         _build.ptr(x), x.stride(0), _build.ptr(sh), plan.d_sh, _build.ptr(w), plan.d_w,
-        _build.ptr(G), _build.ptr(out), plan.d_out, _build.ptr(n_edges), E, _build.ptr(gk),
-        gk.shape[0], _build.ptr(rows), _build.dtype_code(x), _build.stream_ptr(),
+        _build.ptr(Gp), _build.ptr(out), plan.d_out, _build.ptr(n_edges), E, _build.ptr(kt.gk),
+        kt.gk.shape[0], _build.ptr(kt.runs), _build.ptr(kt.terms), _build.ptr(kt.coeffs),
+        kt.fz_max, kt.vec if aligned else 1, kt.n_chunks, _build.dtype_code(x),
+        _build.stream_ptr(),
     )
     _build.check(err, "dtp_lin_kron_fwd")
     dtp_lin_kron_fwd.launches += 1

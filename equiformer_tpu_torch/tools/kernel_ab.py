@@ -3,7 +3,8 @@ segment sum), K4 (the attention combine), K7-F (the radial-folded
 forward), K7-B (its backward), K5a (the force backward: dx, dsh and dw of
 the force models' fused op), K5b (its edge legs), K5c (its head-weight
 leg), K7-L, K7-Wr and K7-LW (the folded op's x / sh / h, [Wr; offset] and
-head-weight legs) and K8-B (the kron-basis backward) of this package against another tree's,
+head-weight legs), K7-B3 (its force backward), K8-F and K8-B (the
+kron-basis forward and backward) of this package against another tree's,
 in turns, on one GPU.
 
     python -m equiformer_tpu_torch.tools.kernel_ab [--against DIR [DIR ...]]
@@ -35,8 +36,11 @@ edge degree; K7-L's x, sh and h legs, K7-Wr (h's ones column 1) and K7-LW
 at the folded exp_l3's sep_act and edge degree (K7-F and K7-L with this
 package's unfolded pair beside them as ``pair_ms``: cuBLAS ``w = h @ Wr +
 offset`` then K1 or K5b's leg, or K5b's w leg then cuBLAS ``dw Wr^T``);
-K8-B at the kron flagship's three sites (G built by each side's
-``kron_meta``, this package's K2 on the same inputs beside it as
+K7-B3 at the folded exp_l3's sep_act and edge degree with each caller's
+outputs (``K7B3_NEEDS``), its unfolded pair beside it (cuBLAS w, K5a with
+the same outputs, cuBLAS ``dh = dw Wr^T``); K8-F and K8-B at the kron
+flagship's three sites (G built by each side's ``kron_meta``, this
+package's K1 or K2 on the same inputs beside it as ``k1_ms`` or
 ``k2_ms``); K5a with each caller's outputs (``K5A_NEEDS``), K5b's x, sh and
 w legs (no w leg at sep_value, whose weights are shared) and K5c at MD17
 exp_l3's three sites (sep_act, sep_value, the edge degree), a leg's own
@@ -48,10 +52,10 @@ seed 0, the batch's real edges live.  Per shape and dtype (float32, bfloat16):
 * ``ms``: each side's wrapper, CUDA events (median of 5 runs of 5 calls);
   ``host_us`` (K3): its host time a call (median of 5 runs of 100 calls
   without a synchronize), which bounds ``ms`` at the small MD17 shapes;
-* ``device_ms`` (K3, K4, K5a-c, K7-F, K7-L, K7-B, K7-Wr, K7-LW, K8-B):
-  each side's device time per call, all its kernels (gathers too),
-  ``kernel_ms`` the kernel alone (K5a-c, K7-L, K7-B, K7-Wr, K7-LW, K8-B:
-  their launches and sums) and
+* ``device_ms`` (K3, K4, K5a-c, K7-F, K7-L, K7-B, K7-B3, K7-Wr, K7-LW,
+  K8-F, K8-B): each side's device time per call, all its kernels (gathers
+  too), ``kernel_ms`` the kernel alone (K5a-c, K7-L, K7-B, K7-B3, K7-Wr,
+  K7-LW, K8-B: their launches and sums) and
   ``by_kernel`` each of those by name,
   from a profiler trace of 20 calls;
 * ``rel_err``: each side against this package's plain version (max |diff| /
@@ -98,30 +102,37 @@ MD17 = ("graph_attention_transformer_nonlinear_exp_l3_md17", 8, 21)
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 K3_KERNEL = "csr_segment_sum_kernel"
 K4_KERNEL = "attn_combine_kernel"
-# the K5a-c kernels of this design (k2::) and of the first one
-K5A_KERNELS = ("bwd3_kernel", "bwd3_sum_kernel")
-K5B_KERNELS = ("edge_leg_kernel", "sum_dx_kernel", "sh_leg_kernel", "bwd3_sum_kernel",
-               "dtp_lin_leg_kernel")
+# the K5a-c kernels of this design (k2::; the split partials' sum, named
+# sum_dx_kernel and bwd3_sum_kernel before K7-B3 shared it) and of the first
+# one
+SPLIT_SUMS = ("split_sum_kernel", "sum_dx_kernel", "bwd3_sum_kernel")
+K5A_KERNELS = ("bwd3_kernel", *SPLIT_SUMS)
+K5B_KERNELS = ("edge_leg_kernel", "sh_leg_kernel", *SPLIT_SUMS, "dtp_lin_leg_kernel")
 K5C_KERNELS = ("W_leg_kernel", "sum_partial_rows_kernel")
-# K7-F's, K7-L's, K7-B's, K7-Wr's and K7-LW's kernels, of this design (k1::,
-# k2::) and of the first one
+# K7-F's, K7-L's, K7-B's, K7-B3's, K7-Wr's and K7-LW's kernels, of this
+# design (k1::, k2::) and of the first one
 K7_KERNELS = {"K7F": ("rad_fwd_kernel", "dtp_lin_fwd_kernel"),
-              "K7L": ("rad_leg_kernel", "sum_dx_kernel", "bwd3_sum_kernel",
-                      "dtp_lin_leg_kernel"),
+              "K7L": ("rad_leg_kernel", *SPLIT_SUMS, "dtp_lin_leg_kernel"),
+              "K7B3": ("rad_bwd3_kernel", *SPLIT_SUMS, "dtp_lin_bwd3_kernel"),
               "K7B": ("rad_dxdw_kernel", "rad_dW_kernel", "sum_partial_rows_kernel",
                       "dtp_lin_bwd_kernel"),
               "K7Wr": ("edge_leg_kernel", "Wr_leg_kernel", "sum_partial_rows_kernel",
                        "dtp_lin_leg_kernel"),
               "K7LW": ("rad_W_leg_kernel", "sum_partial_rows_kernel", "dtp_lin_legW_kernel")}
-# K8-B's kernels, of this design (k2::, K2's launches) and of the first one
+# K8-B's kernels, of this design (k2::, K2's launches) and of the first one;
+# K8-F's (k1::, and the first design's, of one name)
 K8B_KERNELS = ("kron_dxdw_kernel", "kron_dG_kernel", "sum_partial_rows_kernel",
                "kron_bwd_dx_kernel")
+K8F_KERNEL = "kron_fwd_kernel"
 SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K7L", "K7B", "K5a", "K5b", "K5c", "K7Wr", "K7LW",
-            "K8B")
+            "K7B3", "K8F", "K8B")
 # the outputs each caller of K5a asks for at MD17's sites: the force pass and
 # (dx, dw) the parameter pass of training
 K5A_NEEDS = {"md17-sep_act": (("x", "sh", "w"), ("x", "w")), "md17-sep_value": (("x", "sh"),),
              "md17-edge_deg": (("sh", "w"), ("x", "w"))}
+# and of K7-B3 at the folded sites (dh for dw)
+K7B3_NEEDS = {"md17-sep_act": (("x", "sh", "h"), ("x", "h")),
+              "md17-edge_deg": (("sh", "h"), ("x", "h"))}
 
 
 def load_tree(root: Path, name: str):
@@ -398,9 +409,19 @@ def k7_calls(key, m, p, ops, n):
         return legs
     if key == "K7B":
         return {"": lambda: m.dtp_lin_rad_bwd(p, x, sh, h, Wrs, W, cot, n)}
+    if key == "K7B3":  # the outputs by flag: the parent's wrapper took no need_dh
+        return {"/" + "".join(need): lambda need=need: tuple(o for o in m.dtp_lin_rad_bwd3(
+            p, x, sh, h, Wrs, W, cot, n, need_dx="x" in need, need_dsh="sh" in need)
+            if o is not None) for need in K7B3_NEEDS[site_of(p, x)]}
     if key == "K7LW":
         return {"": lambda: (m.dtp_lin_rad_legW(p, cot, x, sh, h, Wrs, n),)}
     return {"": lambda: (m.dtp_lin_rad_legWr(p, cot, x, sh, h, W, n),)}
+
+
+def site_of(plan, x) -> str:
+    """The folded MD17 site of K7-B3's operands: the edge degree's x is a
+    row-broadcast."""
+    return "md17-edge_deg" if x.stride(0) == 0 else "md17-sep_act"
 
 
 def k7_pairs(key, plan, ops, n):
@@ -413,6 +434,14 @@ def k7_pairs(key, plan, ops, n):
     w = lambda: torch.addmm(Wrs[-1], h, Wrs[:-1])  # noqa: E731
     if key == "K7F":
         return {"": lambda: kernels.dtp_lin_fwd(unf, x, sh, w(), W, n)}
+    if key == "K7B3":
+        def pair(need):
+            dx, dsh, dw = kernels.dtp_lin_bwd3(unf, x, sh, w(), W, cot, n, "x" in need,
+                                               "sh" in need)
+            return tuple(o for o in (dx, dsh, dw @ Wrs[:-1].t()) if o is not None)
+
+        return {"/" + "".join(need): lambda need=need: pair(need)
+                for need in K7B3_NEEDS[site_of(plan, x)]}
     if key != "K7L":
         return {}
     return {"/x": lambda: kernels.dtp_lin_leg(unf, "x", cot, None, sh, w(), W, n),
@@ -434,6 +463,11 @@ def k7_wants(key, plan, ops, n):
         return want
     if key == "K7B":
         return {"": kernels.dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, cot, n)}
+    if key == "K7B3":
+        p = dict(zip(("x", "sh", "h"), kernels.dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W,
+                                                                     cot, n)))
+        return {"/" + "".join(need): tuple(p[k] for k in need)
+                for need in K7B3_NEEDS[site_of(plan, x)]}
     if key == "K7LW":
         return {"": (kernels.dtp_lin_rad_legW_plain(plan, cot, x, sh, h, Wrs, n),)}
     return {"": (kernels.dtp_lin_rad_legWr_plain(plan, cot, x, sh, h, W, n),)}
@@ -441,11 +475,12 @@ def k7_wants(key, plan, ops, n):
 
 def k7_section(key, sides, order, plans, rows, dev, report):
     """K7-F (``key`` "K7F"), K7-L ("K7L": the x, sh and h legs, a leg's own
-    operand None), K7-B ("K7B": dx, dh, d[Wr; offset], dW), K7-Wr ("K7Wr",
-    h's ones column 1) or K7-LW ("K7LW") at each folded site of
-    ``plans[side]``, against this package's plain version, both dtypes, with
-    this package's unfolded pair (K7-F, K7-L) as ``pair_ms``; h and [Wr;
-    offset] random from seed 1, made once per site and dtype."""
+    operand None), K7-B ("K7B": dx, dh, d[Wr; offset], dW), K7-B3 ("K7B3":
+    each caller's outputs), K7-Wr ("K7Wr", h's ones column 1) or K7-LW
+    ("K7LW") at each folded site of ``plans[side]``, against this package's
+    plain version, both dtypes, with this package's unfolded pair (K7-F,
+    K7-L, K7-B3) as ``pair_ms``; h and [Wr; offset] random from seed 1, made
+    once per site and dtype."""
     for site, plan in plans["package"].items():
         E, n_live = rows[site]
         hd = plan.radial_fold
@@ -471,6 +506,35 @@ def k7_section(key, sides, order, plans, rows, dev, report):
                 name = f"{site}{suffix}/{str(dt)[6:]}"
                 report[key][name] = entry
                 print(key, name, json.dumps(entry), flush=True)
+
+
+def k8f_section(sides, order, plans, rows, dev, report):
+    """K8-F at each kron site of ``plans[side]`` (G from each side's
+    ``kron_meta(plan).build_G``), against this package's plain version,
+    both dtypes, with this package's K1 on the same inputs (W in G's place)
+    as ``k1_ms``."""
+    for site, plan in plans["package"].items():
+        E, n_live = rows[site]
+        for dt in (torch.float32, torch.bfloat16):
+            x, sh, w, W, _ = dtp_operands(plan, site, E, dt, dev)
+            n = torch.tensor(n_live, dtype=torch.int32, device=dev)
+            meta = kernels.kron_meta(plan)
+            want = kernels.dtp_lin_kron_plain(meta, x, sh, w, meta.build_G(W), n)
+            entry = {"E": E, "n_live": n_live, "numel": meta.numel, "runs": [],
+                     "k1_ms": device_time_ms(
+                         lambda: kernels.dtp_lin_fwd(plan, x, sh, w, W, n), dev)}
+            for i, side in enumerate(order):
+                m, p = sides[side][0], plans[side][site]
+                G = m.kron_meta(p).build_G(W)
+                call = lambda m=m, p=p, G=G: m.dtp_lin_kron_fwd(  # noqa: E731
+                    m.kron_meta(p), x, sh, w, G, n)
+                tag = f"K8F_{site}_{str(dt)[6:]}_{side}_{i}"
+                entry["runs"].append({
+                    "side": side, "ms": device_time_ms(call, dev),
+                    **traced_run(call, tag, K8F_KERNEL), "rel_err": rel(call(), want)})
+            name = f"{site}/{str(dt)[6:]}"
+            report["K8F"][name] = entry
+            print("K8F", name, json.dumps(entry), flush=True)
 
 
 def k8b_section(sides, order, plans, rows, dev, report):
@@ -594,11 +658,22 @@ def main(argv=None) -> dict:
             fold[side] = {f"md17-{k}": v for k, v in dtp_plans(m).items() if k != "sep_value"}
         md17_rows = {site: (mE, int(mmask.sum())) for site in fold["package"]}
         k7_section("K7LW", sides, order, fold, md17_rows, dev, report)
-    if "K8B" in want:
+    if "K7B3" in want:
+        fold = {}
+        for side, (_, make) in sides.items():
+            m = make(MD17[0])(max_edges=mE, nodes_per_graph=MD17[2], seed=SEED, device=dev,
+                              radial_fold=True, radial_fold_ho=True)
+            fold[side] = {f"md17-{k}": v for k, v in dtp_plans(m).items() if k != "sep_value"}
+        md17_rows = {site: (mE, int(mmask.sum())) for site in fold["package"]}
+        k7_section("K7B3", sides, order, fold, md17_rows, dev, report)
+    if {"K8F", "K8B"} & set(want):
         kron = {side: dtp_plans(make(QM9[0])(max_edges=E, nodes_per_graph=QM9[2], seed=SEED,
                                              device=dev, kron_g=True))
                 for side, (_, make) in sides.items()}
-        k8b_section(sides, order, kron, rows, dev, report)
+        if "K8F" in want:
+            k8f_section(sides, order, kron, rows, dev, report)
+        if "K8B" in want:
+            k8b_section(sides, order, kron, rows, dev, report)
 
     if {"K5a", "K5b", "K5c"} & set(want):
         mrows = {f"md17-{site}": (mE, int(mmask.sum())) for site in ("sep_act", "sep_value",

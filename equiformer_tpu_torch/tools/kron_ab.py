@@ -8,12 +8,12 @@ edges with 34000 live rows, and for float32 and bfloat16 times (CUDA
 events, median of 5 runs of 5 calls) K8-F and K8-B, each held against its
 plain version (max |kernel - plain| / max |plain|), and K1 and K2 on the
 same inputs (W in place of G).  With ``--against``, a second build of K8's
-two sources (``dtp_lin_kron.cu``: K8-F; ``dtp_lin_bwd.cu``: K8-B on K2's
-launches), each replaced by a given file of the same name (compiled with
+two sources (``dtp_lin.cu``: K8-F on K1's block; ``dtp_lin_bwd.cu``: K8-B
+on K2's launches), each replaced by a given file of the same name (compiled with
 the package's flags into ``build/kron_ab/``), runs in turns with the
 package's kernels (package, other, other, package), so two versions of the
 same C interface compare within one call (another tree's wrappers:
-``kernel_ab --kernels K8B``).  Prints the card's name and power limit,
+``kernel_ab --kernels K8F,K8B``).  Prints the card's name and power limit,
 then the report as JSON.
 """
 
@@ -49,7 +49,7 @@ def rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-SOURCES = ("dtp_lin_kron.cu", "dtp_lin_bwd.cu")  # K8-F's and K8-B's
+SOURCES = ("dtp_lin.cu", "dtp_lin_bwd.cu")  # K8-F's and K8-B's
 
 
 class _Other:
@@ -75,7 +75,7 @@ class _Other:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, nargs="+", default=None,
-                    help="another dtp_lin_kron.cu and / or dtp_lin_bwd.cu to time in turns "
+                    help="another dtp_lin.cu and / or dtp_lin_bwd.cu to time in turns "
                          "with the package's")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()

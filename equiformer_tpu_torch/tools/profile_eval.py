@@ -40,9 +40,10 @@ bfloat16, per unit:
   sum that K2, K5c and the K7 kernels share, K3, K7-B's two launches apart
   from K2's, K1, K4, K5b's x and w legs and K5c apart from K2, K5a and its
   partial sum, K5b's sh leg, K7-Wr's d[Wr; offset] tiles (its dw is K5b's
-  w leg), K7-LW's dW tiles, K8-B's two launches, K8-F, the first K5a
-  design, which K7-B3 still is, K7-F on K1's block and K7-L's legs on K2's
-  launch 1), and ``annotated``: [ms, calls]
+  w leg), K7-LW's dW tiles, K8-B's two launches, K8-F on K1's block,
+  K7-B3 on K2's launch 1, K7-F on K1's block and K7-L's legs on K2's
+  launch 1; the split partials' sum of K5a, K5b, K7-L and K7-B3), and
+  ``annotated``: [ms, calls]
   per unit of the kernels inside each ``record_function`` range of
   ``ANNOTATIONS`` (K4's backward, torch ops);
 * ``idle_share``: 1 - device_busy_ms / wall_ms, the share of the unprofiled
@@ -88,11 +89,10 @@ TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 KERNEL_GROUPS = ("k2::dxdw_kernel", "k2::dW_kernel", "sum_partial_rows_kernel",
                  "csr_segment_sum_kernel", "k2::rad_dxdw_kernel", "k2::rad_dW_kernel",
                  "k1::fwd_kernel", "attn_combine_kernel", "k2::edge_leg_kernel",
-                 "k2::sum_dx_kernel", "k2::W_leg_kernel", "k2::bwd3_kernel",
-                 "k2::bwd3_sum_kernel", "k2::sh_leg_kernel", "k2::Wr_leg_kernel",
-                 "k2::rad_W_leg_kernel", "k2::kron_dxdw_kernel", "k2::kron_dG_kernel",
-                 "kron_fwd_kernel<", "dtp_lin_bwd3_kernel<", "k1::rad_fwd_kernel",
-                 "k2::rad_leg_kernel")
+                 "k2::split_sum_kernel", "k2::W_leg_kernel", "k2::bwd3_kernel",
+                 "k2::sh_leg_kernel", "k2::Wr_leg_kernel", "k2::rad_W_leg_kernel",
+                 "k2::kron_dxdw_kernel", "k2::kron_dG_kernel", "k1::kron_fwd_kernel",
+                 "k2::rad_bwd3_kernel", "k1::rad_fwd_kernel", "k2::rad_leg_kernel")
 ANNOTATIONS = (ATTN_BWD_RANGE,)
 
 

@@ -738,18 +738,18 @@ RAD_MD17_SITES = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("plan_name",
-                         list(RAD_PLANS) + list(RAD_QM9_SITES) + ["md17-sep_act"])
+                         list(RAD_PLANS) + list(RAD_QM9_SITES) + list(RAD_MD17_SITES))
 def test_radial_fold_kernels_match_plain(dev, plan_name, dtype, monkeypatch):
     """K7-F, K7-B and K7-B3 against dtp_lin_rad_plain, dtp_lin_rad_bwd_plain
     and dtp_lin_rad_bwd3_plain on the same operands, at small plans, the
     QM9 flagship's folded sites (the edge degree's x a broadcast row) and
-    MD17 L3's sep_act, with n_edges below E (the padded rows get zeros and
-    add nothing to d[Wr; offset]) and, for K7-B3, without dx as at the
-    broadcast edge-degree site; K7-F also with [Wr; 0] (as a tangent in h's
-    slot gives it) and with x read through L2 wherever its wrapper would
-    stage it; two calls give the same bits.  (K7-B, the first-order
-    backward, runs on the QM9 paths only: its fp32 tile at MD17 L3's width
-    exceeds a block's shared memory.)"""
+    MD17 L3's sep_act and edge degree, with n_edges below E (the padded rows
+    get zeros and add nothing to d[Wr; offset]); K7-B3 with every set of two
+    or three of dx, dsh and dh, and with [Wr; 0]; K7-F also with [Wr; 0]
+    (as a tangent in h's slot gives it) and with x read through L2 wherever
+    its wrapper would stage it; two calls give the same bits.  (K7-B, the
+    first-order backward, runs on the QM9 paths only: its fp32 tile at MD17
+    L3's width exceeds a block's shared memory.)"""
     from equiformer_tpu_torch.kernels import (
         dtp_lin_rad_bwd, dtp_lin_rad_bwd3, dtp_lin_rad_bwd3_plain, dtp_lin_rad_bwd_plain,
         dtp_lin_rad_fwd, dtp_lin_rad_plain,
@@ -788,10 +788,15 @@ def test_radial_fold_kernels_match_plain(dev, plan_name, dtype, monkeypatch):
                 lambda: dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, cot, n)),
         "bwd3": (lambda: dtp_lin_rad_bwd3(plan, x, sh, h, Wrs, W, cot, n),
                  lambda: dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, cot, n)),
-        "bwd3-no-dx": (lambda: dtp_lin_rad_bwd3(plan, x, sh, h, Wrs, W, cot, n, need_dx=False),
-                       lambda: (None,) + dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, cot,
-                                                                n)[1:]),
+        "bwd3-Wr0": (lambda: dtp_lin_rad_bwd3(plan, x, sh, h, Wr0, W, cot, n),
+                     lambda: dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wr0, W, cot, n)),
     }
+    for need in (("sh", "h"), ("x", "h"), ("x", "sh")):  # the two-output sets
+        flags = {f"need_d{k}": k in need for k in ("x", "sh", "h")}
+        calls["bwd3-" + "-".join(need)] = (
+            lambda flags=flags: dtp_lin_rad_bwd3(plan, x, sh, h, Wrs, W, cot, n, **flags),
+            lambda need=need: tuple(o if k in need else None for k, o in zip(
+                ("x", "sh", "h"), dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, cot, n))))
     if plan_name.startswith("md17"):
         del calls["bwd"]
     for name, (kernel, plain) in calls.items():
@@ -810,7 +815,7 @@ def test_radial_fold_kernels_match_plain(dev, plan_name, dtype, monkeypatch):
         assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(k, again)), name
     assert kdl._k7f_launch_shape is shape
     assert (dtp_lin_rad_fwd.launches, dtp_lin_rad_bwd.launches,
-            dtp_lin_rad_bwd3.launches) == (6, 2 * ("bwd" in calls), 4)
+            dtp_lin_rad_bwd3.launches) == (6, 2 * ("bwd" in calls), 10)
 
 
 @pytest.mark.cuda
@@ -1026,8 +1031,8 @@ def test_kron_kernels_match_plain(dev, site, dtype):
     the same operands (G from build_G), E = 300 with n_edges 250: out, dx,
     dw and dG within the dtype's bound, rows past n_edges zero (the last
     live tile is partly dead, the tiles past it skipped), dG fp32, the same
-    bits in a second call and with the cotangent's rows past n_edges x 100
-    (they add nothing to dG)."""
+    bits in a second call (K8-F's too) and with the cotangent's rows past
+    n_edges x 100 (they add nothing to dG)."""
     from equiformer_tpu_torch.kernels import (
         dtp_lin_kron_bwd, dtp_lin_kron_bwd_plain, dtp_lin_kron_fwd, dtp_lin_kron_plain, kron_meta,
     )
@@ -1050,6 +1055,7 @@ def test_kron_kernels_match_plain(dev, site, dtype):
     p = dtp_lin_kron_plain(meta, x, sh, w, G, n)
     torch.cuda.synchronize()
     assert _rel(k, p) < TOL[dtype] and float(k[250:].abs().max()) == 0.0
+    assert torch.equal(k, dtp_lin_kron_fwd(meta, x, sh, w, G, n))
     k = dtp_lin_kron_bwd(meta, x, sh, w, G, cot, n)
     p = dtp_lin_kron_bwd_plain(meta, x, sh, w, G, cot, n)
     torch.cuda.synchronize()
@@ -1064,7 +1070,7 @@ def test_kron_kernels_match_plain(dev, site, dtype):
     for again in (dtp_lin_kron_bwd(meta, x, sh, w, G, cot, n),
                   dtp_lin_kron_bwd(meta, x, sh, w, G, far, n)):
         assert all(a is None or torch.equal(a, b) for a, b in zip(k, again))
-    assert (dtp_lin_kron_fwd.launches, dtp_lin_kron_bwd.launches) == (1, 3)
+    assert (dtp_lin_kron_fwd.launches, dtp_lin_kron_bwd.launches) == (2, 3)
 
 
 @pytest.mark.cuda

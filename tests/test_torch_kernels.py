@@ -641,29 +641,37 @@ def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n
     order, per (group, component).  ``fold``: K7-B's launch 1
     (k2::rad_dxdw_kernel) on (h, [Wr; offset]) with ``w`` None: per tile
     the group's w built at its first component from the w packing, rounded
-    to h's dtype; at its last dw flushed through ``dwmap`` to the workspace
-    (rows past ``n_edges`` left unwritten, NaN here) and dh += dw Wr_g^T
-    from the dh packing, the span's K steps in two halves added in turn.  Returns (dx, dw), the leg's output, K5a's (dx,
-    dsh, dw) with None for what ``need`` leaves out, or K7-B's (dx, dw, dh)."""
+    to h's dtype (the offset from [Wr; offset]'s last row); at its last dw
+    flushed through ``dwmap`` to the workspace (rows past ``n_edges`` left
+    unwritten, NaN here) and dh += dw Wr_g^T from the dh packing, the span's
+    K steps in two halves added in turn.  ``fold`` with "bwd3": K7-B3
+    (k2::rad_bwd3_kernel), K5a with w built so and, with "h" in ``need``,
+    dw kept in the tile (never written) and added into dh so, dh's split
+    partials summed in split order as dx's.  Returns (dx, dw), the leg's
+    output, K5a's (dx, dsh, dw) or K7-B3's (dx, dsh, dh) with None for what
+    ``need`` leaves out, or K7-B's (dx, dw, dh)."""
     _, terms, coeffs, dwmap, _, span_max, _ = plan.bwd_tables(torch.device("cpu"))
     kt = plan.k2_tables(torch.device("cpu"))
     terms, coeffs, dwmap = terms.tolist(), coeffs.tolist(), dwmap.tolist()
     gk = kt.gk.tolist()
     Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[kt.wp_index]
     E = g.shape[0]
+    b3_fold = leg == "bwd3" and fold is not None  # K7-B3: dw on chip, dh for "h"
     if leg == "bwd3":
-        want_dx, want_dsh, want_dw = "x" in need, "sh" in need, "w" in need and w is not None
+        want_dx, want_dsh = "x" in need, "sh" in need
+        want_dw = "h" in need if b3_fold else "w" in need and w is not None
     else:
         want_dx, want_dsh = leg in (None, "x"), leg == "sh"
         want_dw = leg == "w" or (leg is None and (w is not None or fold is not None))
+    nan = lambda d: torch.full((E, d), float("nan"), dtype=g.dtype)  # noqa: E731
+    dh = None
     if fold is not None:
         h, hd = fold[0], plan.radial_fold
         Wl, packs = _k7_packs(plan, fold[1])
-        dh = torch.full((E, hd), float("nan"), dtype=g.dtype)
-    nan = lambda d: torch.full((E, d), float("nan"), dtype=g.dtype)  # noqa: E731
+        dh = nan(hd) if want_dw else None
     dx = nan(plan.d_x) if want_dx else None
     dsh = nan(plan.d_sh) if want_dsh else None
-    dw = nan(plan.d_w) if want_dw else None
+    dw = nan(plan.d_w) if want_dw and not b3_fold else None
     if want_dw and plan.dw_has_dead_cols and fold is None:
         dw.zero_()  # the wrapper's zeros: dead columns are never written
     for e0 in range(0, E, tile):
@@ -674,12 +682,12 @@ def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n
                 if out is not None:
                     out[e0 : e0 + n_rows] = 0.0
             continue
-        if fold is not None:
-            s_dh = torch.zeros(tile, hd, dtype=g.dtype)
-        parts, parts_sh = [], []
+        parts, parts_sh, parts_dh = [], [], []
         for s in range(n_split):
             s_dx = torch.zeros(tile, plan.d_x, dtype=g.dtype)
             s_dsh = torch.zeros(tile, plan.d_sh, dtype=g.dtype)
+            if fold is not None:
+                s_dh = torch.zeros(tile, hd, dtype=g.dtype)
             for q in _group_rows(gk, n_split, s):
                 fs, cols, out_col, w_off, tb, te, wp_off, cp, sb, sn, first, last = gk[q]
                 if first:
@@ -709,21 +717,24 @@ def _emulate_k2_launch1(plan, x, sh, w, W_flat, g, n_edges, tile=16, leg=None, n
                             if t[1] == col:
                                 s_dsh[:n_live, col] += slots[:, j]
                 if want_dw and last:
-                    dw[e0 : e0 + n_rows, dwmap[sb : sb + sn]] = s_dw[:n_rows, :sn]
+                    if not b3_fold:
+                        dw[e0 : e0 + n_rows, dwmap[sb : sb + sn]] = s_dw[:n_rows, :sn]
                     if fold is not None:  # the span's K steps in two halves, added in turn
                         cut = min(sn, 16 * (-(-sn // 16) // 2))
                         s_dh += s_dw[:, :cut] @ pd[:, :cut].T
                         s_dh += s_dw[:, cut:sn] @ pd[:, cut:].T
             parts.append(s_dx)
             parts_sh.append(s_dsh)
-        for out, ps in ((dx, parts), (dsh, parts_sh)):
+            if fold is not None:
+                parts_dh.append(s_dh)
+        for out, ps in ((dx, parts), (dsh, parts_sh), (dh, parts_dh)):
             if out is not None:
                 acc = ps[0]
                 for part in ps[1:]:
                     acc = acc + part
                 out[e0 : e0 + n_rows] = acc[:n_rows]
-        if fold is not None:
-            dh[e0 : e0 + n_rows] = s_dh[:n_rows]
+    if b3_fold:
+        return dx, dsh, dh
     if fold is not None:
         return dx, dw, dh
     if leg == "bwd3":
@@ -1068,7 +1079,7 @@ def test_k1_fragment_product_equals_z_W(site, kind):
         assert np.allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
-def _emulate_k1(plan, x, sh, w, W_flat, n_edges, tile=32, fold=None):
+def _emulate_k1(plan, x, sh, w, W_flat, n_edges, tile=32, fold=None, kron=None):
     """csrc/dtp_lin.cu's K1 in torch (fp64) from ``k1_tables``: per (edge
     tile, group) and component, z written run by run (each fan column once,
     rows past n_edges zero, the pad columns zero), then z times W_g unpacked
@@ -1077,13 +1088,20 @@ def _emulate_k1(plan, x, sh, w, W_flat, n_edges, tile=32, fold=None):
     wrapper's one gather (``fold_gather``), and per block its group's w
     built from h, the group's Wr unpacked by the fragment layout and its
     offsets, rounded to h's dtype; the runs read w at their column of that
-    tile.  Returns (out, how often each element was written)."""
+    tile.  ``kron`` (the plan's KronMeta, ``W_flat`` its flat G): K1's block
+    on K8-F's tables, ``kron.k1_tables`` in K1's layout, each (g, k) a group
+    of one component whose z is its Kop, G packed by its ``gp_index``.
+    Returns (out, how often each element was written)."""
     cpu = torch.device("cpu")
-    kt = plan.k1_tables(cpu, fold=fold is not None)
-    terms, coeffs = plan.device_tables(cpu)
+    if kron is not None:
+        kt = kron.k1_tables(cpu)
+        terms, coeffs, index = kt.terms, kt.coeffs, kt.gp_index
+    else:
+        kt = plan.k1_tables(cpu, fold=fold is not None)
+        (terms, coeffs), index = plan.device_tables(cpu), kt.wp_index
     gk, runs, tt, cc = kt.gk.tolist(), kt.runs.tolist(), terms.tolist(), coeffs.tolist()
     if fold is None:
-        Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[kt.wp_index]
+        Wp = torch.cat([W_flat, W_flat.new_zeros(1)])[index]
     else:
         h, hd = fold[0], plan.radial_fold
         Wp = fold_gather(plan, W_flat, fold[1], kt.wp_index)
@@ -1091,7 +1109,8 @@ def _emulate_k1(plan, x, sh, w, W_flat, n_edges, tile=32, fold=None):
     E = sh.shape[0]
     out = torch.full((E, plan.d_out), float("nan"), dtype=torch.float64)
     writes = torch.zeros((E, plan.d_out), dtype=torch.int64)
-    for gi, (q0, n_comp) in enumerate(kt.groups.tolist()):
+    groups = [(q, 1) for q in range(len(gk))] if kron is not None else kt.groups.tolist()
+    for gi, (q0, n_comp) in enumerate(groups):
         if fold is not None:
             ob, oo, span = kt.rg[gi].tolist()
             n_b = -(-span // 8) * 8 * -(-hd // 16) * 16
@@ -1297,74 +1316,17 @@ def test_dtp_lin_bwd3_plain_matches_pallas_interpret_vjp(case):
         assert _rel(t.grad.numpy(), j, rows=N_REAL_BWD3) < 1e-5
 
 
-def _emulate_bwd3_kernel(plan, x, sh, w, W_flat, g, n_edges, tile=16, warps=8):
-    """csrc/dtp_lin_bwd3.cu's loop over ``bwd3_tables`` (the first K5a
-    design, K7-B3's on an unfolded w), in torch, one edge
-    tile at a time: the staged cotangent, dz through the packed W^T, then
-    per row (warp) the terms in table order, with the running dsh sum added
-    to the row at each SH column change, and the per-group dw flush."""
-    from equiformer_tpu_torch.kernels.dtp_lin_ho import bwd3_tables
-
-    gk, terms, coeffs, dwmap, wt_index, span_max, _ = bwd3_tables(plan, torch.device("cpu"))
-    gk, terms, coeffs, dwmap = gk.tolist(), terms.tolist(), coeffs.tolist(), dwmap.tolist()
-    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
-    E = x.shape[0]
-    dx = torch.zeros(E, plan.d_x, dtype=x.dtype)
-    dsh = torch.zeros(E, plan.d_sh, dtype=x.dtype)
-    dw = None if w is None else torch.zeros(E, plan.d_w, dtype=x.dtype)
-    for e0 in range(0, min(E, n_edges), tile):
-        n_live = min(tile, n_edges - e0)
-        dxs = torch.zeros(n_live, plan.d_x, dtype=x.dtype)
-        dshs = torch.zeros(n_live, plan.d_sh, dtype=x.dtype)
-        dws = torch.zeros(n_live, max(span_max, 1), dtype=x.dtype)
-        for fs, cols, out_col, _, tb, te, wt_off, cp, sb, sn, first, last in gk:
-            if first:
-                dws.zero_()
-            gt = torch.zeros(n_live, cp, dtype=x.dtype)
-            gt[:, :cols] = g[e0 : e0 + n_live, out_col : out_col + cols]
-            dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
-            for r0 in range(warps):
-                for r in range(r0, n_live, warps):
-                    e, run, cur = e0 + r, 0.0, -1
-                    for (a, col, b, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
-                        if col != cur:
-                            if cur >= 0:
-                                dshs[r, cur] += run
-                            run, cur = 0.0, col
-                        d = dz[r, fc : fc + mul]
-                        xv = x[e, a : a + mul]
-                        wv = 1.0 if w is None else w[e, b : b + mul]
-                        dxs[r, a : a + mul] += c * sh[e, col] * wv * d
-                        if w is not None:
-                            dws[r, bl : bl + mul] += c * sh[e, col] * xv * d
-                        run = run + float(torch.sum(c * xv * wv * d))
-                    if cur >= 0:
-                        dshs[r, cur] += run
-            if w is not None and last:
-                dw[e0 : e0 + n_live, dwmap[sb : sb + sn]] = dws[:, :sn]
-        dx[e0 : e0 + n_live] = dxs
-        dsh[e0 : e0 + n_live] = dshs
-    return dx, dsh, dw
-
-
 @pytest.mark.parametrize("case", ["two-head", "shared-w", "broadcast-x", "dead-w-cols", "l3"])
 def test_dtp_lin_bwd3_tables_drive_the_plain_math(case):
     """The CUDA force backward cannot run here; its tables can.  Walking
     them the way K5a does on K2's launch 1 (k2::bwd3_kernel: every subset
-    of its outputs, each tile whole and cut by irrep group), and
-    ``bwd3_tables`` the way the first design does (csrc/dtp_lin_bwd3.cu,
-    which K7-B3 still is, here on an unfolded w), gives dtp_lin_bwd3_plain's
-    dx, dsh and dw (fp64 inputs, the tables' fp32 CG coefficients: 1e-6
-    relative)."""
+    of its outputs, each tile whole and cut by irrep group) gives
+    dtp_lin_bwd3_plain's dx, dsh and dw (fp64 inputs, the tables' fp32 CG
+    coefficients: 1e-6 relative)."""
     from equiformer_tpu_torch.kernels import dtp_lin_bwd3_plain
 
     plan, x, sh, w, W, g = _bwd3_inputs(case, torch.float64, E=40, seed=5)
     want = dtp_lin_bwd3_plain(plan, x, sh, w, W, g, torch.tensor(37, dtype=torch.int32))
-    got = _emulate_bwd3_kernel(plan, x, sh, w, W, g, 37)
-    for a, b in zip(got, want):
-        assert (a is None) == (b is None)
-        if a is not None:
-            assert _rel(a.numpy(), b.numpy()) < 1e-6
     for need in (("x", "sh", "w"), ("x", "sh"), ("sh", "w"), ("x", "w")):
         for n_split in (1, len(plan.groups)):
             got = _emulate_k2_launch1(plan, x, sh, w, W, g, 37, leg="bwd3", n_split=n_split,

@@ -7,7 +7,9 @@ so the two packages compare through the heads' weights, never through G.
 Here, on the CPU:
 
 * the port's ``KronMeta`` layout, and its kernel tables walked the way
-  ``csrc/dtp_lin_kron.cu`` walks them against the plain versions;
+  K8-F's kernel (``csrc/dtp_lin.cu``, K1's product on a 64-edge tile) and
+  K2's launches (K8-B) walk them against the plain versions, also at the
+  flagship's plans;
 * the port's op against JAX's ``make_fused_dtp_lin_kron`` in interpret mode
   (fp32, 1e-5 of max |JAX|: the two sum in another order);
 * the plain kron op against ``dtp_lin`` at the QM9 flagship's three plans
@@ -41,6 +43,7 @@ import equiformer_tpu_torch as pt  # noqa: E402
 import equiformer_tpu_torch.nn as tnn  # noqa: E402
 from equiformer_tpu_torch.core import Irreps, depthwise_tp  # noqa: E402
 from equiformer_tpu_torch.graph.batching import collate_dense as t_collate  # noqa: E402
+from equiformer_tpu_torch.kernels.dtp_lin_kron import KRON_COLS, KRON_TILE  # noqa: E402
 from equiformer_tpu_torch.kernels import (  # noqa: E402
     DTPLinPlan,
     KronMeta,
@@ -60,7 +63,7 @@ from equiformer_tpu_torch.kernels.dtp_lin import (  # noqa: E402
 from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer as TModel  # noqa: E402
 from equiformer_tpu_torch.nn.tp_modules import KRON_OVERRIDES_FOLD  # noqa: E402
 from equiformer_tpu_torch.utils import params_from_jax, torch_name  # noqa: E402
-from tests.test_torch_kernels import _unpack_k2  # noqa: E402
+from tests.test_torch_kernels import _emulate_k1, _unpack_k1, _unpack_k2  # noqa: E402
 
 IRR = "8x0e+4x1e+2x2e"
 SH = "1x0e+1x1e+1x2e"
@@ -144,17 +147,49 @@ def _operands(plan, E, dt=torch.float64, seed=0, broadcast=False):
     return x, rnd(E, plan.d_sh), w, rnd(plan.w_numel), rnd(E, plan.d_out)
 
 
-def _walk_fwd(meta, x, sh, w, G, n):
-    """K8-F's loops over its tables (gk, rows) in torch."""
-    gk, rows = meta.device_tables(torch.device("cpu"))[:2]
-    rows = rows.long()
-    out = torch.zeros((x.shape[0], meta.plan.d_out), dtype=x.dtype)
-    for row0, row1, cols, oc, g_off, *_ in gk.tolist():
-        r = rows[row0:row1]
-        kop = sh[:, r[:, 1]] * x[:, r[:, 0]] * (1 if w is None else w[:, r[:, 2]])
-        out[:, oc : oc + cols] = kop @ G[g_off : g_off + (row1 - row0) * cols].view(-1, cols)
-    out[n:] = 0
-    return out
+def _emulate_kron64(meta, x, sh, w, G, n_edges, ks=32):
+    """K8-F (csrc/dtp_lin.cu k1::kron_fwd_kernel) in torch
+    over ``meta.k1_tables``: a block per (64-edge tile, column chunk of
+    KRON_COLS of a (g, k), in order): the (g, k)'s row table built from its
+    runs (x, sh and w column, coefficient), then per slice of ``ks`` Kop rows
+    Kop (zero past n_k and the real edges) times the chunk's columns of G
+    unpacked from the packing by the fragment layout, added into the
+    block's accumulator, written once.  Returns (out, how often each element
+    was written)."""
+    kt = meta.k1_tables(torch.device("cpu"))
+    gk, runs, terms = kt.gk.tolist(), kt.runs.tolist(), kt.terms.tolist()
+    coeffs = kt.coeffs.tolist()
+    Gp = torch.cat([G, G.new_zeros(1)])[kt.gp_index]
+    E, plan = sh.shape[0], meta.plan
+    out = torch.full((E, plan.d_out), float("nan"), dtype=x.dtype)
+    writes = torch.zeros((E, plan.d_out), dtype=torch.int64)
+    chunks = [(q, j0) for q, r in enumerate(gk) for j0 in range(0, r[1], KRON_COLS)]
+    assert len(chunks) == kt.n_chunks
+    for e0 in range(0, E, KRON_TILE):
+        n_rows, n_live = min(KRON_TILE, E - e0), max(0, min(KRON_TILE, E - e0, n_edges - e0))
+        live = slice(e0, e0 + n_live)
+        for q, j0 in chunks:
+            f16, cols, out_col, gp_off, rb, re, n_nt, n_k = gk[q]
+            ncol = min(KRON_COLS, cols - j0)
+            acc = torch.zeros(n_rows, ncol, dtype=x.dtype)
+            if n_live:
+                rows = [None] * n_k
+                for fc, mul, b, t0, _ in runs[rb:re]:
+                    for u in range(mul):
+                        rows[fc + u] = (terms[t0][0] + u, terms[t0][1], b + u, coeffs[t0])
+                Gq = _unpack_k1(Gp[gp_off : gp_off + f16 * 8 * n_nt], n_k, cols)
+                for r0 in range(0, n_k, ks):
+                    kop = torch.zeros(n_rows, ks, dtype=x.dtype)
+                    for r in range(r0, min(n_k, r0 + ks)):
+                        xi, col, wi, c = rows[r]
+                        v = c * sh[live, col] * x[live, xi]
+                        kop[:n_live, r - r0] = v if w is None else v * w[live, wi]
+                    g = torch.zeros(ks, ncol, dtype=x.dtype)
+                    g[: min(ks, f16 - r0)] = Gq[r0 : r0 + ks, j0 : j0 + ncol]
+                    acc += kop @ g
+            out[e0 : e0 + n_rows, out_col + j0 : out_col + j0 + ncol] = acc
+            writes[e0 : e0 + n_rows, out_col + j0 : out_col + j0 + ncol] += 1
+    return out, writes
 
 
 def _packed_GT(meta, G, row):
@@ -253,10 +288,12 @@ def _walk_bwd(meta, x, sh, w, G, g, n, sm_count=3, tile=16):
 
 @pytest.mark.parametrize("case", list(PLANS))
 def test_kernel_tables_drive_the_plain_math(case):
-    """Walking K8-F's tables the way csrc/dtp_lin_kron.cu does, and K8-B's
-    the way K2's two launches in csrc/dtp_lin_bwd.cu do, gives the plain
-    versions (fp64), rows past n_edges zero, each dG element written once
-    per edge range."""
+    """Walking K8-F's tables (``k1_tables``, K1's layout) the way K1's block
+    in csrc/dtp_lin.cu walks K1's (16- and 32-edge tiles) and the way K8-F's
+    kernel does (``_emulate_kron64``), each output element written once, and
+    K8-B's the way K2's two launches in csrc/dtp_lin_bwd.cu do, gives the
+    plain versions (fp64), rows past n_edges zero, each dG element written
+    once per edge range."""
     heads, shared, broadcast = PLANS[case]
     plan = DTPLinPlan(depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR)), heads,
                       shared_weights=shared)
@@ -266,7 +303,13 @@ def test_kernel_tables_drive_the_plain_math(case):
     G = meta.build_G(W)
     nt = torch.tensor(n, dtype=torch.int32)
     want = dtp_lin_kron_plain(meta, x, sh, w, G, nt)
-    assert _rel(_walk_fwd(meta, x, sh, w, G, n), want) < 1e-13
+    for tile in (16, 32):
+        got, writes = _emulate_k1(plan, x, sh, w, G, n, tile, kron=meta)
+        assert bool((writes == 1).all())
+        assert _rel(got, want) < 1e-13 and float(got[n:].abs().max()) == 0.0
+    got, writes = _emulate_kron64(meta, x, sh, w, G, n)
+    assert bool((writes == 1).all())
+    assert _rel(got, want) < 1e-13 and float(got[n:].abs().max()) == 0.0
     assert float(want[n:].abs().max()) == 0.0
     *got, writes = _walk_bwd(meta, x, sh, w, G, g, n)
     assert bool((writes == 1).all())
@@ -304,6 +347,40 @@ def test_kron_packed_GT_holds_each_element_once(case):
         assert torch.equal(got, want)
         gp_end += got.numel()
     assert gp_end == kt.gp_index.numel()
+
+
+@pytest.mark.parametrize("case", list(PLANS) + ["flagship-sep_act", "flagship-sep_value"])
+def test_kron_packed_G_holds_each_element_once(case):
+    """K8-F's G packing (``k1_tables().gp_index``, B-fragment order, K1's
+    head-product layout): unpacked by the mma fragment layout itself, each
+    (g, k)'s slots hold G's block [n_k, cols], every pad slot (Kop rows past
+    n_k, columns past cols) is zero, and every element of G is packed
+    exactly once; the gk rows name each block's size, its offset in the
+    packing and a run per triple."""
+    if case.startswith("flagship"):
+        plan = _flagship_sites()[case.split("-")[1]][0]
+    else:
+        heads, shared, _ = PLANS[case]
+        plan = DTPLinPlan(depthwise_tp(Irreps(IRR), Irreps(SH), Irreps(IRR)), heads,
+                          shared_weights=shared)
+    meta = kron_meta(plan)
+    kt = meta.k1_tables(torch.device("cpu"))
+    G = torch.arange(1, meta.numel + 1, dtype=torch.float64)
+    used = torch.zeros(meta.numel + 1, dtype=torch.int64)
+    used.index_add_(0, kt.gp_index, torch.ones_like(kt.gp_index))
+    assert bool((used[:-1] == 1).all())
+    Gp = torch.cat([G, G.new_zeros(1)])[kt.gp_index]
+    gp_end = 0
+    for row, (gi, k, _, n_k, cols, out_col, g_off) in zip(kt.gk.tolist(), meta.blocks()):
+        f16, c, oc, gp_off, rb, re, n_nt, fan = row
+        assert (c, oc, fan, n_nt, gp_off) == (cols, out_col, n_k, -(-cols // 8), gp_end)
+        assert f16 == -(-n_k // 16) * 16 and re - rb == len(meta.qcols[(gi, k)])
+        got = _unpack_k1(Gp[gp_off : gp_off + f16 * 8 * n_nt], n_k, cols)
+        want = torch.zeros_like(got)
+        want[:n_k, :cols] = G[g_off : g_off + n_k * cols].view(n_k, cols)
+        assert torch.equal(got, want)
+        gp_end += got.numel()
+    assert gp_end == kt.gp_index.numel() and kt.fz_max == max(r[0] for r in kt.gk.tolist())
 
 
 # ------------------------------------------------- against JAX's kron op
@@ -411,6 +488,30 @@ def test_plain_kron_matches_dtp_lin_at_flagship_plans(site):
         res.append([out.detach()] + list(torch.autograd.grad((out * cot).sum(), leaves)))
     for a, b in zip(*res):
         assert _rel(b.numpy(), a.numpy()) < 1e-12
+
+
+@pytest.mark.parametrize("site", ["sep_act", "sep_value", "edge_deg"])
+def test_kron_k1_tables_drive_the_plain_math_at_flagship_plans(site):
+    """K8-F's tables (``k1_tables``) at the QM9 flagship's three plans (896
+    Kop rows at the widest (g, k); the edge degree's row-broadcast x,
+    sep_value's shared weights folded into G), walked in torch as K1's block
+    reads K1's tables (16-edge tile) and as K8-F's kernel walks them (64-edge
+    tile, 128-column chunks, 32-row Kop slices): ``dtp_lin_kron_plain``
+    within 1e-12 in fp64 on 20 edges of which 13 are real, each output
+    element written once, rows past n_edges zero; the tables take 4-wide
+    runs, and sep_act's 352-column 0e block three chunks."""
+    plan, broadcast = _flagship_sites()[site]
+    meta = kron_meta(plan)
+    E, n = 20, 13
+    x, sh, w, W, _ = _operands(plan, E, seed=14, broadcast=broadcast)
+    G = meta.build_G(W)
+    want = dtp_lin_kron_plain(meta, x, sh, w, G, torch.tensor(n, dtype=torch.int32))
+    for got, writes in (_emulate_k1(plan, x, sh, w, G, n, 16, kron=meta),
+                        _emulate_kron64(meta, x, sh, w, G, n)):
+        assert bool((writes == 1).all())
+        assert _rel(got, want) < 1e-12 and float(got[n:].abs().max()) == 0.0
+    kt = meta.k1_tables(torch.device("cpu"))
+    assert kt.vec == 4 and kt.n_chunks == len(meta.k_ranges) + 2 * (site == "sep_act")
 
 
 # ------------------------------------------------- the model against JAX

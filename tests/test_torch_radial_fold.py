@@ -51,6 +51,7 @@ from equiformer_tpu_torch.kernels.dtp_lin import (  # noqa: E402
 )
 from tests.test_torch_kernels import (  # noqa: E402
     _emulate_k1,
+    _emulate_k2_launch1,
     _group_rows,
     _k2_dsh_slots,
     _k7_dWrs,
@@ -368,8 +369,9 @@ def _flat_cot(plan, head_cots):
 
 @pytest.mark.parametrize("case", list(HEADS))
 def test_folded_leg_plains_match_jax_vjps(case):
-    """The folded legs' plain versions (K7-L: F_x, F_sh, F_h; K7-LW: F_W,
-    carried back to the heads' weights; K7-Wr: F_Wr) against jax.vjp of the
+    """The folded legs' plain versions (K7-L: F_x, F_sh, F_h; K7-B3: the
+    three together; K7-LW: F_W, carried back to the heads' weights; K7-Wr:
+    F_Wr) against jax.vjp of the
     unfolded composition ``w = h @ Wr + offset; lin(dtp(x, sh, w))``, fp64,
     1e-9, with a nonzero offset and padded rows past n_edges.  With the
     primal h in h's slot the offset row of F_Wr is doffset; with a tangent
@@ -402,8 +404,9 @@ def test_folded_leg_plains_match_jax_vjps(case):
             dsh = dtp_lin_rad_leg_plain(plan, "sh", g, x, None, h, Wh, W, n)
             dh = dtp_lin_rad_leg_plain(plan, "h", g, x, sh, None, Wh, W, n)
             dWrs = dtp_lin_rad_legWr_plain(plan, g, x, sh, h, W, n, ones)
+            b3 = dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wh, W, g, n)  # K7-B3's plain
         dW = dtp_lin_rad_legW_plain(plan, g, x, sh, h, Wh, n)
-        for got, want in ((dx, jdx), (dsh, jdsh), (dh, jdh)):
+        for got, want in ((dx, jdx), (dsh, jdsh), (dh, jdh)) + tuple(zip(b3, (jdx, jdsh, jdh))):
             assert _rel(got.numpy(), want) < TOL
             assert float(got[N_REAL:].abs().sum()) == 0.0  # padded rows
         assert _rel(dWrs[:-1].numpy(), jdWr) < TOL
@@ -529,12 +532,6 @@ def test_plan_checks_the_fold():
 
 
 # ------------------------------------------- the kernels' tables in torch
-def _tile_w(Wl, hd, hs, sb, sn):
-    """The first K5a design's ``build_w`` (K7-B3): a group's w columns of
-    one tile."""
-    return Wl[hd, sb : sb + sn] + hs @ Wl[:hd, sb : sb + sn]
-
-
 def _emulate_rad_fwd(plan, x, sh, h, Wrs, W_flat, n_edges, tile=16):
     """csrc/dtp_lin.cu's K7-F (``k1::rad_fwd_kernel``): K1's block per (edge
     tile, irrep group) over ``k1_tables(fold=True)``, W and [Wr; offset]
@@ -545,42 +542,30 @@ def _emulate_rad_fwd(plan, x, sh, h, Wrs, W_flat, n_edges, tile=16):
     return _emulate_k1(plan, x, sh, None, W_flat, n_edges, tile, fold=(h, Wrs))
 
 
-def _emulate_rad_bwd3(plan, x, sh, h, Wrs, W_flat, g, n_edges, n_parts=3, tile=16):
-    """csrc/dtp_lin_bwd3.cu's folded loop (K7-B3, the first K5a design): w
-    built per group, dz, the term transposes into the local dw tile, and at
-    the group's last component dh += dw Wr^T; ``n_parts`` persistent blocks
-    walking the tiles."""
-    gk, terms, coeffs, _, wt_index, *_ = kho.bwd3_tables(plan, torch.device("cpu"))
-    gk, terms, coeffs = gk.tolist(), terms.tolist(), coeffs.tolist()
-    cols_loc = plan.radial_cols(torch.device("cpu"))
-    Wl, hd = Wrs[:, cols_loc], plan.radial_fold
-    WT = torch.cat([W_flat, W_flat.new_zeros(1)])[wt_index]
-    E_ = x.shape[0]
-    dx, dsh, dh = (torch.zeros(E_, n, dtype=x.dtype) for n in (plan.d_x, plan.d_sh, hd))
-    for b in range(n_parts):
-        for t in range(b, -(-E_ // tile), n_parts):
-            e0 = t * tile
-            n_live = max(0, min(tile, n_edges - e0, E_ - e0))
-            if n_live == 0:
-                continue
-            rows = slice(e0, e0 + n_live)
-            hs = h[rows]
-            for fs, cols, out_col, w_off, tb, te, wt_off, cp, sb, sn, first, last in gk:
-                if first:
-                    ws = _tile_w(Wl, hd, hs, sb, sn)
-                    dws = torch.zeros(n_live, sn, dtype=x.dtype)
-                gt = torch.zeros(n_live, cp, dtype=x.dtype)
-                gt[:, :cols] = g[rows, out_col : out_col + cols]
-                dz = gt @ WT[wt_off : wt_off + cp * fs].reshape(cp, fs)
-                for (a, col, _, fc, mul, bl), c in zip(terms[tb:te], coeffs[tb:te]):
-                    d = c * dz[:, fc : fc + mul]
-                    xw = x[rows, a : a + mul] * ws[:, bl : bl + mul]
-                    dx[rows, a : a + mul] += sh[rows, col : col + 1] * d * ws[:, bl : bl + mul]
-                    dws[:, bl : bl + mul] += sh[rows, col : col + 1] * d * x[rows, a : a + mul]
-                    dsh[rows, col] += (d * xw).sum(1)
-                if last:
-                    dh[rows] += dws @ Wl[:hd, sb : sb + sn].T
-    return dx, dsh, dh
+# the output sets K7-B3 takes (two or three of dx, dsh, dh: one alone is K7-L's)
+B3_NEEDS = [("x", "sh", "h"), ("x", "h"), ("sh", "h"), ("x", "sh")]
+
+
+def _emulate_rad_bwd3(plan, x, sh, h, Wrs, W_flat, g, n_edges, need, n_split):
+    """csrc/dtp_lin_bwd.cu's K7-B3 (``k2::rad_bwd3_kernel``): K5a's launch
+    with the fold, a block per (16-edge tile, split of ``n_split``) over the
+    split's irrep groups, w built from h at a group's first component (the
+    offset from [Wr; offset]'s last row), dw kept in the tile and, with "h"
+    in ``need``, dh += dw Wr_g^T at its last; the dx, dsh and dh partials
+    summed in split order (``_emulate_k2_launch1``'s fold with "bwd3").
+    Returns (dx, dsh, dh), None for what ``need`` leaves out."""
+    return _emulate_k2_launch1(plan, x, sh, None, W_flat, g, n_edges, leg="bwd3",
+                               n_split=n_split, need=need, fold=(h, Wrs))
+
+
+def _check_bwd3(got, want, need, n_real):
+    """K7-B3's outputs against its plain version's, 1e-6 relative (the
+    tables' fp32 CG coefficients), rows past ``n_real`` exactly 0."""
+    for leg, a, b in zip(("x", "sh", "h"), got, want):
+        assert (a is None) == (leg not in need), (need, leg)
+        if a is not None:
+            assert a.shape == b.shape and _rel(a, b) < 1e-6, (need, leg)
+            assert float(a[n_real:].abs().max()) == 0.0
 
 
 def _kernel_inputs(case, seed=4):
@@ -599,9 +584,11 @@ def test_rad_kernel_tables_drive_the_plain_math(case):
     DTPLinPlan.bwd_tables with each group's w columns in local order, and
     K7-B K2's two launches with the fold (w built from the packed Wr in
     both, dh on chip, dw through the workspace into the d[Wr; offset]
-    tiles, every partial element written once per range); walking them in
-    torch gives dtp_lin_rad_plain, dtp_lin_rad_bwd_plain and
-    dtp_lin_rad_bwd3_plain (1e-6: the tables' fp32 CG coefficients)."""
+    tiles, every partial element written once per range), K7-B3 K5a's
+    launch with the fold (every output set, each tile whole and cut by
+    irrep group, also with [Wr; 0]); walking them in torch gives
+    dtp_lin_rad_plain, dtp_lin_rad_bwd_plain and dtp_lin_rad_bwd3_plain
+    (1e-6: the tables' fp32 CG coefficients)."""
     plan, x, sh, h, Wrs, W, g = _kernel_inputs(case)
     n = torch.tensor(N_REAL, dtype=torch.int32)
     Wr0 = torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])  # a tangent in h's slot
@@ -615,9 +602,12 @@ def test_rad_kernel_tables_drive_the_plain_math(case):
     assert bool((writes == 1).all())
     for a, b in zip(got, dtp_lin_rad_bwd_plain(plan, x, sh, h, Wrs, W, g, n)):
         assert a.shape == b.shape and _rel(a, b) < 1e-6
-    for a, b in zip(_emulate_rad_bwd3(plan, x, sh, h, Wrs, W, g, N_REAL),
-                    dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wrs, W, g, n)):
-        assert a.shape == b.shape and _rel(a, b) < 1e-6
+    for Wl in (Wrs, Wr0):
+        want = dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wl, W, g, n)
+        for need in B3_NEEDS:
+            for n_split in sorted({1, len(plan.groups)}):
+                _check_bwd3(_emulate_rad_bwd3(plan, x, sh, h, Wl, W, g, N_REAL, need, n_split),
+                            want, need, N_REAL)
 
 
 def _emulate_rad_leg(plan, leg, x, sh, h, Wrs, W_flat, g, n_edges, n_split, tile=16):
@@ -749,6 +739,37 @@ def _k7_plan(site):
     irr, sh_irr, heads = K7_PLANS[site]
     return DTPLinPlan(depthwise_tp(Irreps(irr), Irreps(sh_irr), Irreps(irr)), heads,
                       radial_fold=64)
+
+
+# K7-B3's full-width sites: MD17 exp_l3's sep_act and its edge degree (x a
+# row-broadcast of the constant feature)
+B3_SITES = {"md17-sep_act": False, "md17-edge_deg": True}
+
+
+@pytest.mark.parametrize("need", B3_NEEDS)
+@pytest.mark.parametrize("site", list(B3_SITES))
+def test_k7b3_walks_k5a_launch_at_md17_plans(site, need):
+    """K7-B3 (k2::rad_bwd3_kernel) as K2's launch 1 runs it with the fold at
+    MD17 exp_l3's full-width sites (hd 64), each tile's block cut by irrep
+    group as the wrapper launches it: 21 edges of which 13 real (a partial
+    tile and a tile past the real edges), every output set, and for the
+    three outputs also with [Wr; 0] (a tangent in h's slot: the offset comes
+    from the operand), against dtp_lin_rad_bwd3_plain within 1e-6 (fp64
+    inputs, the tables' fp32 CG coefficients); rows past n_edges 0."""
+    irr, sh_irr = "128x0e+64x1e+64x2e+32x3e", "1x0e+1x1e+1x2e+1x3e"
+    heads = K7_PLANS["md17-sep_act"][2] if site == "md17-sep_act" else [irr]
+    plan = DTPLinPlan(depthwise_tp(Irreps(irr), Irreps(sh_irr), Irreps(irr)), heads,
+                      radial_fold=64)
+    rng = np.random.default_rng(31)
+    rnd = lambda *s: _t(rng.normal(size=s))  # noqa: E731
+    x = rnd(1, plan.d_x).expand(21, plan.d_x) if B3_SITES[site] else rnd(21, plan.d_x)
+    sh, h, Wrs, W, g = rnd(21, plan.d_sh), rnd(21, 64), rnd(65, plan.d_w), rnd(plan.w_numel), \
+        rnd(21, plan.d_out)
+    n = torch.tensor(13, dtype=torch.int32)
+    Wr0 = torch.cat([Wrs[:-1], torch.zeros_like(Wrs[-1:])])
+    for Wl in (Wrs, Wr0) if len(need) == 3 else (Wrs,):
+        _check_bwd3(_emulate_rad_bwd3(plan, x, sh, h, Wl, W, g, 13, need, len(plan.groups)),
+                    dtp_lin_rad_bwd3_plain(plan, x, sh, h, Wl, W, g, n), need, 13)
 
 
 @pytest.mark.parametrize("n_ranges", [1, 2, 3])
