@@ -1259,7 +1259,9 @@ def k6_kernel_phase(torch, model, batch, dev, records, sites, prefix=""):
     """K6-T (the forward terms and the x and w legs' permutations), K6-R and
     K6-FB against their plain versions at one batch's shapes, at the named
     call sites, in float32 and bfloat16, timed as phase 3.  The route
-    computes every row, padding included, so the bounds count all E rows."""
+    computes every row, padding included, so the bounds count all E rows.
+    K6-T and K6-FB repeat their bits, and K6-FB's dx and dw are the bits of
+    K6-T's x and w legs (each element summed in the same order)."""
     from equiformer_tpu_torch.kernels import KERNEL_WRAPPERS
     from equiformer_tpu_torch.kernels import dtp as kd
 
@@ -1298,6 +1300,16 @@ def k6_kernel_phase(torch, model, batch, dev, records, sites, prefix=""):
                                   sum(rows.values()) + size * E * (tl.d_a + tl.d_col + tl.d_b),
                                   9 * elems),
             }
+            z, fb = kd.dtp_t(tl, x, sh, w), kd.dtp_fused_bwd(tl, x, sh, w, ct)
+            x_leg, w_leg = legs["dtp_t-x"][0](), legs["dtp_t-w"][0]()
+            fb2 = kd.dtp_fused_bwd(tl, x, sh, w, ct)
+            same = {"K6-T repeat": torch.equal(z, kd.dtp_t(tl, x, sh, w)),
+                    "K6-FB repeat": all(torch.equal(p, q) for p, q in zip(fb, fb2)),
+                    "K6-FB dx = K6-T x leg": torch.equal(fb[0], x_leg),
+                    "K6-FB dw = K6-T w leg": torch.equal(fb[2], w_leg)}
+            print(f"k6 {prefix}{site} {dt_name} bitwise: {same}", flush=True)
+            if not all(same.values()):
+                raise RuntimeError(f"K6 {prefix}{site} {dt_name}: bits differ: {same}")
             for leg, (call, plain, nbytes, flops) in legs.items():
                 k, p = call(), plain()
                 torch.cuda.synchronize()

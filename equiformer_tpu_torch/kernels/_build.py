@@ -162,17 +162,18 @@ _SIGNATURES = {
     # offset]), then h, hd, n_loc, one (0 or 1) and the w leg's irrep-group
     # splits before the dtype
     "dtp_lin_rad_legWr": _K2 + [_VP, _I, _I, _I, _I, _I, _VP],
-    # a, a_row_stride, col, d_col, b, b_row_stride, out, d_out, E, segments,
-    # n_seg, terms, coeffs, dtype, stream
-    "dtp_t": [_VP, _LL, _VP, _I, _VP, _LL, _VP, _I, _I, _VP, _I, _VP, _VP, _I, _VP],
+    # a, a_row_stride, col, d_col, b, b_row_stride, out, d_out, E, chunks,
+    # terms, items, run_items, n_runs (TermList.t_plan), vec, dtype, stream
+    "dtp_t": [_VP, _LL, _VP, _I, _VP, _LL, _VP, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     # a, a_row_stride, b, b_row_stride, d, d_d, out, d_col, E, column ranges,
     # terms, coeffs, dtype, stream
     "dtp_r": [_VP, _LL, _VP, _LL, _VP, _I, _VP, _I, _I, _VP, _VP, _VP, _I, _VP],
     # x, x_row_stride, sh, d_sh, w, w_row_stride, g, d_g, dx, d_x, dsh, dw,
-    # d_w, E, dx segments, n, terms, coeffs, dw segments, n, terms, coeffs,
-    # R's column ranges, terms, coeffs, dtype, stream
-    "dtp_fused_bwd": [_VP, _LL, _VP, _I, _VP, _LL, _VP, _I, _VP, _I, _VP, _VP, _I, _I,
-                      _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
+    # d_w, E, tile, stage_g, chunks, n_dx, dx terms, dw terms, n_dw_terms,
+    # n_slots, dsh ranges, dsh slots, items, n_items (TermList.fb_plan), vec,
+    # dtype, stream
+    "dtp_fused_bwd": [_VP, _LL, _VP, _I, _VP, _LL, _VP, _I, _VP, _I, _VP, _VP, _I, _I, _I, _I,
+                      _VP, _I, _VP, _VP, _I, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
     # K8-F: x, x_row_stride, sh, d_sh, w, d_w, packed G, out, d_out,
     # n_edges*, E, gk table (KronMeta.k1_tables'), n_gk, runs, terms, coeffs,
     # fz_max, vec (4 or 1), the (g, k)'s column chunks, dtype, stream

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -69,6 +69,13 @@ def skip_leg_grads(*legs: str):
         yield
     finally:
         _SKIPPED_LEGS.difference_update(added)
+
+
+# K6's launch shapes (csrc/dtp_t.cu, csrc/dtp_fused_bwd.cu)
+T_TILE = 32  # edges a K6-T block (kTile)
+T_BLOCKS = 1056  # K6-T's blocks to aim for: 8 blocks of 8 warps on each of the H100's 132 SMs
+T_ROW_GROUP = 4  # rows a K6-T run lists its items by
+FB_SMEM = 40 << 10  # K6-FB's shared memory a block: five blocks an SM
 
 
 class Term(NamedTuple):
@@ -145,20 +152,12 @@ class TermList:
         return tl
 
     # ------------------------------------------------------- device tables
-    def _term_rows(self, order, device):
-        terms = [self.terms[i] for i in order]
-        return (torch.tensor([(t.a_off, t.col_off, t.b_off, t.out_off, t.mul) for t in terms]
-                             or [(0,) * 5], dtype=torch.int32, device=device),
-                torch.tensor([t.coeff for t in terms] or [0.0], dtype=torch.float32,
-                             device=device))
-
-    def t_tables(self, device: torch.device):
-        """T's tables, as csrc/dtp_t.cu reads them: (segments int32 [n_seg,
-        4]: output column, width, term range; terms int32 [n, 5]: a_off,
-        col_off, b_off, out_off, mul; coeffs float32 [n]).  The terms are
-        sorted by output tile (stably); the segments cover every output
-        column once, those that no term writes with an empty range."""
-        key = ("t", device)
+    def _segments(self):
+        """(term order, segments): the terms sorted by output tile (stably)
+        and the segments (output column, width, term range) that cover
+        every output column once, those that no term writes with an empty
+        range."""
+        key = ("segments",)
         if key not in self._tables:
             order = sorted(range(len(self.terms)), key=lambda i: self.terms[i].out_off)
             segs, col, i = [], 0, 0
@@ -179,8 +178,146 @@ class TermList:
                 raise ValueError("an output tile runs past d_out")
             if col < self.d_out:
                 segs.append((col, self.d_out - col, len(order), len(order)))
+            self._tables[key] = (order, segs)
+        return self._tables[key]
+
+    def _term_rows(self, order, device):
+        terms = [self.terms[i] for i in order]
+        return (torch.tensor([(t.a_off, t.col_off, t.b_off, t.out_off, t.mul) for t in terms]
+                             or [(0,) * 5], dtype=torch.int32, device=device),
+                torch.tensor([t.coeff for t in terms] or [0.0], dtype=torch.float32,
+                             device=device))
+
+    def t_tables(self, device: torch.device):
+        """T's segment tables, as S1-A (csrc/dtp_t_variants.cu) reads them:
+        (segments int32 [n_seg, 4]: output column, width, term range; terms
+        int32 [n, 5]: a_off, col_off, b_off, out_off, mul; coeffs float32
+        [n]), the terms sorted by output tile (``_segments``)."""
+        key = ("t", device)
+        if key not in self._tables:
+            order, segs = self._segments()
             self._tables[key] = (torch.tensor(segs, dtype=torch.int32, device=device),
                                  *self._term_rows(order, device))
+        return self._tables[key]
+
+    def vec4(self) -> bool:
+        """Whether K6's lanes may own 4 consecutive columns: every lane
+        offset, width and row width is a multiple of 4 (the same for every
+        member of the family)."""
+        key = ("vec4",)
+        if key not in self._tables:
+            self._tables[key] = all(
+                v % 4 == 0 for t in self.terms for v in (t.a_off, t.b_off, t.out_off, t.mul)
+            ) and all(d % 4 == 0 for d in (self.d_a, self.d_b, self.d_out))
+        return self._tables[key]
+
+    def chunks(self, vec: int):
+        """K6's chunks of T's segments for lanes of ``vec`` columns: (chunk
+        records [(column, width | lg << 8 | du << 11, term begin, term end)],
+        term records [(a_off, col_off, b_off, coeff)] in ``_segments``'
+        order, each chunk's cost).  A segment is cut into chunks of at most
+        32 * vec columns (du: the chunk's column in its segment); 2^lg lanes
+        cover a chunk's row (csrc/dtp_tr.cuh, ``item_lane``)."""
+        key = ("chunks", vec)
+        if key not in self._tables:
+            order, segs = self._segments()
+            chunks, cost = [], []
+            for o, width, tb, te in segs:
+                for du in range(0, width, 32 * vec):
+                    wd = min(32 * vec, width - du)
+                    lg = (-(-wd // vec) - 1).bit_length()
+                    chunks.append((o + du, wd | lg << 8 | du << 11, tb, te))
+                    cost.append((te - tb + 1) * wd)
+            terms = [(t.a_off, t.col_off, t.b_off, t.coeff) for t in (self.terms[i] for i in order)]
+            self._tables[key] = chunks, terms, cost
+        return self._tables[key]
+
+    def t_runs(self, E: int, vec: int) -> int:
+        """K6-T's runs a tile (the grid's second dimension): 1 where the
+        edge tiles alone give T_BLOCKS blocks, else doubled up to 16 or
+        the chunk count."""
+        tiles, n = -(-E // T_TILE), len(self.chunks(vec)[0])
+        runs = 1
+        while tiles * runs < T_BLOCKS and runs * 2 <= min(n, 16):
+            runs *= 2
+        return runs
+
+    def t_plan(self, device: torch.device, vec: int, runs: int):
+        """K6-T's tables, as csrc/dtp_t.cu reads them: (chunks int32 [n, 4],
+        terms int32 [n_t, 4] with the coefficient's float32 bits last,
+        items int32 [n_i] (chunk << 8 | first row), run_items int32 [runs
+        + 1]).  The chunks are cut into ``runs`` contiguous runs of about
+        equal cost; a run's items are listed row group by row group
+        (T_ROW_GROUP rows, the run's chunks in order within a group)."""
+        key = ("t_plan", device, vec, runs)
+        if key not in self._tables:
+            chunks, terms, cost = self.chunks(vec)
+            total, acc, bounds = sum(cost), 0, [0]
+            for k, c in enumerate(cost):
+                acc += c
+                if len(bounds) < runs and acc * runs >= total * len(bounds):
+                    bounds.append(k + 1)
+            bounds += [len(chunks)] * (runs + 1 - len(bounds))
+            items, run_items = [], [0]
+            for lo, hi in zip(bounds, bounds[1:]):
+                keyed = []
+                for k in range(lo, hi):
+                    rpw = 32 >> ((chunks[k][1] >> 8) & 7)
+                    keyed += [((r // T_ROW_GROUP, k, r), k << 8 | r) for r in range(0, T_TILE, rpw)]
+                items += [it for _, it in sorted(keyed)]
+                run_items.append(len(items))
+            self._tables[key] = (_i32(chunks, 4, device), _term_records(terms, device),
+                                 _i32(items, 0, device), _i32(run_items, 0, device))
+        return self._tables[key]
+
+    def fb_tile(self, size: int, shared_x: bool, shared_w: bool, vec: int) -> Tuple[int, bool]:
+        """K6-FB's (edge tile, g staged): the largest of 8, 4 or 2 edges
+        whose x, w, g, sh rows and dsh slots fit FB_SMEM, else the largest
+        of 8, 4, 2 or 1 with g read through L1 / L2 (MD17 L3).  Many small
+        blocks an SM beat few large ones: at QM9 sep_act the 2-edge tile
+        with g took 0.450 ms fp32 against 0.564 for 4 edges and 0.818 for 8
+        (kernel_ab's layouts, H100).  ``size``: bytes an element."""
+        key = ("fb_tile", size, shared_x, shared_w, vec)
+        if key not in self._tables:
+            n_slots = self.fb_plan(torch.device("cpu"), vec, 1)[5]
+            fits = [(tile, gs) for tile, gs in [(8, True), (4, True), (2, True), (8, False),
+                                                (4, False), (2, False), (1, False)]
+                    if _fb_bytes(tile, size, shared_x, shared_w, gs, self.d_a, self.d_b,
+                                 self.d_out, self.d_col, n_slots) <= FB_SMEM]
+            if not fits:
+                raise ValueError("a row of x, w and sh does not fit K6-FB's shared memory")
+            self._tables[key] = fits[0]
+        return self._tables[key]
+
+    def fb_plan(self, device: torch.device, vec: int, tile: int):
+        """K6-FB's tables, as csrc/dtp_fused_bwd.cu reads them: (chunks
+        int32 [n_dx + n_dw, 4]: ``perm_a``'s chunks, then ``perm_b``'s; n_dx;
+        dx and dw term records int32 [n, 4]; n_dw_terms; n_slots, the dsh
+        slots a row (one a dw chunk's term and piece: slot = piece *
+        n_dw_terms + term); dsh ranges int32 [d_col, 2] into dsh slots int32
+        [n] (each SH column's slots, by term, then piece); items int32
+        (chunk << 8 | first row) in order of falling cost, so that the
+        warps' shares even out)."""
+        key = ("fb", device, vec, tile)
+        if key not in self._tables:
+            (cx, tx, _), (cw, tw, _) = perm_a(self).chunks(vec), perm_b(self).chunks(vec)
+            keyed = []  # (minus the item's terms, item)
+            for k, (_, y, tb, te) in enumerate(cx + cw):
+                keyed += [(tb - te - 1, k << 8 | r) for r in range(0, tile, 32 >> ((y >> 8) & 7))]
+            keyed.sort(key=lambda kv: kv[0])
+            by_col = [[] for _ in range(self.d_col)]
+            for _, y, tb, te in cw:
+                for t in range(tb, te):
+                    by_col[tw[t][1]].append((t, (y >> 11) // (32 * vec)))
+            n_slots = len(tw) * (1 + max((p for col in by_col for _, p in col), default=0))
+            ranges, slots = [], []
+            for col in by_col:
+                ranges.append((len(slots), len(slots) + len(col)))
+                slots += [p * len(tw) + t for t, p in sorted(col)]
+            plan = (_i32(cx + cw, 4, device), len(cx), _term_records(tx, device),
+                    _term_records(tw, device), len(tw), n_slots, _i32(ranges, 2, device),
+                    _i32(slots, 0, device), _i32([it for _, it in keyed], 0, device))
+            self._tables[key] = plan
         return self._tables[key]
 
     def r_tables(self, device: torch.device):
@@ -196,6 +333,32 @@ class TermList:
             self._tables[key] = (torch.tensor(ranges, dtype=torch.int32, device=device),
                                  *self._term_rows(order, device))
         return self._tables[key]
+
+
+def _i32(rows, width, device):
+    """int32 rows ([n, width]; width 0: a flat [n]), one zero row if empty."""
+    if not rows:
+        rows = [(0,) * width] if width else [0]
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def _term_records(terms, device):
+    """K6-T's 16-byte term records [n, 4]: a_off, col_off, b_off and the
+    coefficient's float32 bits."""
+    if not terms:
+        return torch.zeros((1, 4), dtype=torch.int32, device=device)
+    rec = torch.tensor([t[:3] for t in terms], dtype=torch.int32)
+    bits = torch.tensor([t[3] for t in terms], dtype=torch.float32).view(torch.int32)
+    return torch.cat([rec, bits[:, None]], 1).to(device)
+
+
+def _fb_bytes(tile, size, shared_x, shared_w, stage_g, d_x, d_w, d_g, d_sh, n_slots) -> int:
+    """K6-FB's shared memory a block (csrc/dtp_fused_bwd.cu, ``fb_layout``)."""
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    rows = lambda shared: 1 if shared else tile  # noqa: E731
+    return (a16(rows(shared_x) * d_x * size) + a16(rows(shared_w) * d_w * size)
+            + (a16(tile * d_g * size) if stage_g else 0) + a16(tile * d_sh * 4)
+            + tile * n_slots * 4)
 
 
 # The term permutations of JAX's transposes (dtp_pallas.py:185-190, :272-286).
@@ -312,6 +475,12 @@ def _edge_rows(t: torch.Tensor, E: int, width: int, like: torch.Tensor, name: st
     return t.contiguous()
 
 
+def _vec(tl: TermList, *ts) -> int:
+    """4 where K6's lanes may own 4 columns (``TermList.vec4``, every
+    operand 16-byte aligned), else 1."""
+    return 4 if tl.vec4() and all(t.data_ptr() % 16 == 0 for t in ts) else 1
+
+
 def dtp_t(tl: TermList, a: torch.Tensor, col: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K6-T: T(a, col, b) [E, d_out] in col's dtype; a [E or 1, d_a],
     col [E, d_col], b [E or 1, d_b] (one row is broadcast).  CPU tensors
@@ -327,11 +496,13 @@ def dtp_t(tl: TermList, a: torch.Tensor, col: torch.Tensor, b: torch.Tensor) -> 
     out = torch.empty((E, tl.d_out), dtype=col.dtype, device=col.device)
     if E == 0:
         return out
-    segs, terms, coeffs = tl.t_tables(col.device)
+    vec = _vec(tl, a, b, out)
+    runs = tl.t_runs(E, vec)
+    chunks, terms, items, run_items = tl.t_plan(col.device, vec, runs)
     err = _build.library().dtp_t(
         _build.ptr(a), sa, _build.ptr(col), tl.d_col, _build.ptr(b), sb, _build.ptr(out),
-        tl.d_out, E, _build.ptr(segs), segs.shape[0], _build.ptr(terms), _build.ptr(coeffs),
-        _build.dtype_code(col), _build.stream_ptr())
+        tl.d_out, E, _build.ptr(chunks), _build.ptr(terms), _build.ptr(items),
+        _build.ptr(run_items), runs, vec, _build.dtype_code(col), _build.stream_ptr())
     _build.check(err, "dtp_t")
     dtp_t.launches += 1
     return out
@@ -362,12 +533,14 @@ def dtp_r(tl: TermList, a: torch.Tensor, b: torch.Tensor, d: torch.Tensor) -> to
 
 
 def dtp_fused_bwd(tl: TermList, x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor,
-                  g: torch.Tensor):
+                  g: torch.Tensor, layout: Optional[Tuple[int, bool]] = None):
     """K6-FB: (dx [E, d_a], dsh [E, d_col], dw [E, d_b]) for the cotangent
     ``g`` [E, d_out] of T(x, sh, w) on ``tl``, in one launch; a broadcast x
-    or w gets its gradient per edge (the caller sums it).  CPU tensors take
-    ``dtp_fused_bwd_plain``; CUDA tensors launch the kernel (float32 or
-    bfloat16) or raise."""
+    or w gets its gradient per edge (the caller sums it).  ``layout``: the
+    (edge tile, g staged) to launch with instead of ``TermList.fb_tile``'s
+    (a measurement's choice; the results do not depend on it).  CPU tensors
+    take ``dtp_fused_bwd_plain``; CUDA tensors launch the kernel (float32
+    or bfloat16) or raise."""
     if g.device.type == "cpu":
         return dtp_fused_bwd_plain(tl, x, sh, w, g)
     E = g.shape[0]
@@ -380,16 +553,16 @@ def dtp_fused_bwd(tl: TermList, x: torch.Tensor, sh: torch.Tensor, w: torch.Tens
     dx, dsh, dw = empty(tl.d_a), empty(tl.d_col), empty(tl.d_b)
     if E == 0:
         return dx, dsh, dw
-    dxs, dxt, dxc = perm_a(tl).t_tables(g.device)
-    dws, dwt, dwc = perm_b(tl).t_tables(g.device)
-    rr, rt, rc = tl.r_tables(g.device)
+    vec = _vec(tl, x, w, g, dx, dw)
+    tile, stage_g = layout or tl.fb_tile(g.element_size(), sx == 0, sw == 0, vec)
+    chunks, n_dx, dxt, dwt, n_dwt, n_slots, ranges, slots, items = tl.fb_plan(
+        g.device, vec, tile)
     err = _build.library().dtp_fused_bwd(
         _build.ptr(x), sx, _build.ptr(sh), tl.d_col, _build.ptr(w), sw, _build.ptr(g), tl.d_out,
-        _build.ptr(dx), tl.d_a, _build.ptr(dsh), _build.ptr(dw), tl.d_b, E,
-        _build.ptr(dxs), dxs.shape[0], _build.ptr(dxt), _build.ptr(dxc),
-        _build.ptr(dws), dws.shape[0], _build.ptr(dwt), _build.ptr(dwc),
-        _build.ptr(rr), _build.ptr(rt), _build.ptr(rc), _build.dtype_code(g),
-        _build.stream_ptr())
+        _build.ptr(dx), tl.d_a, _build.ptr(dsh), _build.ptr(dw), tl.d_b, E, tile, int(stage_g),
+        _build.ptr(chunks), n_dx, _build.ptr(dxt), _build.ptr(dwt), n_dwt, n_slots,
+        _build.ptr(ranges), _build.ptr(slots), _build.ptr(items), items.shape[0], vec,
+        _build.dtype_code(g), _build.stream_ptr())
     _build.check(err, "dtp_fused_bwd")
     dtp_fused_bwd.launches += 1
     return dx, dsh, dw

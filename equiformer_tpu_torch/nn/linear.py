@@ -26,11 +26,11 @@ class IrrepsLinear(nn.Module):
         self.irreps_in = Irreps(irreps_in)
         self.irreps_out = Irreps(irreps_out)
         self.weight_init_scale = weight_init_scale
-        in_slices = self.irreps_in.slices()
-        self._blocks_per_out = []
+        self._in_dims = [mul * ir.dim for mul, ir in self.irreps_in]
+        self._blocks_per_out = []  # per output block: (input block, ir dim, mul_in)
         self._bias_blocks = []
         for oi, (mul_out, ir_out) in enumerate(self.irreps_out):
-            blocks = [(in_slices[ii], ir_in.dim, mul_in)
+            blocks = [(ii, ir_in.dim, mul_in)
                       for ii, (mul_in, ir_in) in enumerate(self.irreps_in)
                       if ir_in == ir_out]
             self._blocks_per_out.append(blocks)
@@ -73,10 +73,13 @@ class IrrepsLinear(nn.Module):
         return torch.cat(pieces, dim=-1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # one split, whose backward is one cat: a slice per block would cost
+        # a zero fill and an add of x's whole width each in the backward
+        parts = torch.split(x, self._in_dims, dim=-1)
         pieces = []
         for oi, (mul_out, ir_out) in enumerate(self.irreps_out):
-            blocks = [x[..., sl].reshape(x.shape[:-1] + (d, mul_in))
-                      for sl, d, mul_in in self._blocks_per_out[oi]]
+            blocks = [parts[ii].reshape(x.shape[:-1] + (d, mul_in))
+                      for ii, d, mul_in in self._blocks_per_out[oi]]
             if blocks:
                 inp = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=-1)
                 out = inp @ getattr(self, f"w{oi}").to(x.dtype)

@@ -4,8 +4,9 @@ forward), K7-B (its backward), K5a (the force backward: dx, dsh and dw of
 the force models' fused op), K5b (its edge legs), K5c (its head-weight
 leg), K7-L, K7-Wr and K7-LW (the folded op's x / sh / h, [Wr; offset] and
 head-weight legs), K7-B3 (its force backward), K8-F and K8-B (the
-kron-basis forward and backward) of this package against another tree's,
-in turns, on one GPU.
+kron-basis forward and backward), K6-T (the unfused route's T primitive)
+and K6-FB (its first-order backward in one launch) of this package against
+another tree's, in turns, on one GPU.
 
     python -m equiformer_tpu_torch.tools.kernel_ab [--against DIR [DIR ...]]
         [--kernels K1,K4] [--out FILE]
@@ -44,16 +45,21 @@ package's K1 or K2 on the same inputs beside it as ``k1_ms`` or
 ``k2_ms``); K5a with each caller's outputs (``K5A_NEEDS``), K5b's x, sh and
 w legs (no w leg at sep_value, whose weights are shared) and K5c at MD17
 exp_l3's three sites (sep_act, sep_value, the edge degree), a leg's own
-operand None.  K5a's (dx, dw) runs beside K2's own launch 1 on the same
-inputs (S3 ``dtp_lin_bwd_stage`` at ``DXDW_STAGE``: the compile-time dx /
-dw code, whole tiles), where its shared memory fits.  Random operands from
+operand None; K6-T (forward, x leg, w leg) and K6-FB at the unfused
+flagship's three sites and exp_l3's sep_act, every row live, each side on
+its own models' term lists, K6-FB beside the sum of its three parts on the
+same side (``parts_ms``: K6-T's x and w legs and K6-R) and ``bitwise`` the
+outputs equal in every bit to the first other tree's.  K5a's (dx, dw)
+runs beside K2's own launch 1 on the same inputs (S3 ``dtp_lin_bwd_stage``
+at ``DXDW_STAGE``: the compile-time dx / dw code, whole tiles), where its
+shared memory fits.  Random operands from
 seed 0, the batch's real edges live.  Per shape and dtype (float32, bfloat16):
 
 * ``ms``: each side's wrapper, CUDA events (median of 5 runs of 5 calls);
   ``host_us`` (K3): its host time a call (median of 5 runs of 100 calls
   without a synchronize), which bounds ``ms`` at the small MD17 shapes;
 * ``device_ms`` (K3, K4, K5a-c, K7-F, K7-L, K7-B, K7-B3, K7-Wr, K7-LW,
-  K8-F, K8-B): each side's device time per call, all its kernels (gathers
+  K8-F, K8-B, K6-T, K6-FB): each side's device time per call, all its kernels (gathers
   too), ``kernel_ms`` the kernel alone (K5a-c, K7-L, K7-B, K7-B3, K7-Wr,
   K7-LW, K8-B: their launches and sums) and
   ``by_kernel`` each of those by name,
@@ -124,8 +130,18 @@ K7_KERNELS = {"K7F": ("rad_fwd_kernel", "dtp_lin_fwd_kernel"),
 K8B_KERNELS = ("kron_dxdw_kernel", "kron_dG_kernel", "sum_partial_rows_kernel",
                "kron_bwd_dx_kernel")
 K8F_KERNEL = "kron_fwd_kernel"
+# K6-T's, K6-R's and K6-FB's kernels
+K6_KERNELS = {"K6T": "dtp_t_kernel", "K6R": "dtp_r_kernel", "K6FB": "dtp_fused_bwd_kernel"}
 SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K7L", "K7B", "K5a", "K5b", "K5c", "K7Wr", "K7LW",
-            "K7B3", "K8F", "K8B")
+            "K7B3", "K8F", "K8B", "K6T", "K6FB")
+# the (edge tile, g staged) layouts kernel_ab times K6-FB at
+FB_LAYOUTS = ((8, True), (4, True), (2, True), (8, False), (4, False), (2, False))
+FB_SMEM_MAX = 227 << 10  # a block's shared memory on the H100
+# K6-T's members at each site: name -> (the member of a TermList, its
+# operands (a, col, b) from the DTP's x, sh, w and the cotangent ct)
+K6T_MEMBERS = {"fwd": (lambda kd, tl: tl, lambda x, sh, w, ct: (x, sh, w)),
+               "x": (lambda kd, tl: kd.perm_a(tl), lambda x, sh, w, ct: (ct, sh, w)),
+               "w": (lambda kd, tl: kd.perm_b(tl), lambda x, sh, w, ct: (x, sh, ct))}
 # the outputs each caller of K5a asks for at MD17's sites: the force pass and
 # (dx, dw) the parameter pass of training
 K5A_NEEDS = {"md17-sep_act": (("x", "sh", "w"), ("x", "w")), "md17-sep_value": (("x", "sh"),),
@@ -567,6 +583,126 @@ def k8b_section(sides, order, plans, rows, dev, report):
             print("K8B", name, json.dumps(entry), flush=True)
 
 
+def k6_lists(sides, E, mE, dev):
+    """Each side's K6 term lists from its unfused models: {side: {site:
+    (TermList, x broadcast, w broadcast)}} at the QM9 flagship's three
+    sites and MD17 exp_l3's sep_act."""
+    lists = {}
+    for side, (_, make) in sides.items():
+        q = make(QM9[0])(max_edges=E, nodes_per_graph=QM9[2], seed=SEED, device=dev,
+                         fused_dtp_lin=False)
+        m = make(MD17[0])(max_edges=mE, nodes_per_graph=MD17[2], seed=SEED, device=dev,
+                          fused_dtp_lin=False)
+        ga = q.block_0.ga
+        lists[side] = {"sep_act": (ga.sep_act.dtp.terms, False, False),
+                       "sep_value": (ga.sep_value.dtp.terms, False, True),
+                       "edge_deg": (q.edge_deg_embed.dw.terms, True, False),
+                       "md17-sep_act": (m.block_0.ga.sep_act.dtp.terms, False, False)}
+    return lists
+
+
+def k6_operands(tl, shared_x, shared_w, E, dt, dev):
+    """Random (x, sh, w, cotangent) of one K6 site, seed 0, every row live
+    (the unfused route computes the padding rows too): the edge degree's x
+    an expanded row, sep_value's w one row."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)  # noqa: E731
+    x = rnd(1, tl.d_a).expand(E, tl.d_a) if shared_x else rnd(E, tl.d_a)
+    sh = rnd(E, tl.d_col)
+    w = rnd(1, tl.d_b) if shared_w else rnd(E, tl.d_b)
+    return x, sh, w, rnd(E, tl.d_out)
+
+
+def _bitwise(runs, outs, names):
+    """Each run's ``bitwise``: its outputs equal in every bit to those of
+    the first other tree's first run (None without another tree)."""
+    ref = next((o for run, o in zip(runs, outs) if run["side"] == names[0]), None) \
+        if names else None
+    for run, o in zip(runs, outs):
+        run["bitwise"] = None if ref is None else all(
+            torch.equal(a, b) for a, b in zip(o, ref))
+
+
+def k6t_section(sides, order, lists, rows, dev, report):
+    """K6-T's forward and x and w legs at each site of ``lists[side]``,
+    against this package's plain version, both dtypes; ``bitwise``: the
+    output equal to the first other tree's K6-T."""
+    names = [s for s in order if s != "package"]
+    for site, (tl, sx, sw) in lists["package"].items():
+        E = rows[site][0]
+        for dt in (torch.float32, torch.bfloat16):
+            x, sh, w, ct = k6_operands(tl, sx, sw, E, dt, dev)
+            for member, (perm, args) in K6T_MEMBERS.items():
+                ops = args(x, sh, w, ct)
+                want = kernels.dtp.dtp_t_plain(perm(kernels.dtp, tl), *ops)
+                entry, outs = {"E": E, "runs": []}, []
+                for i, side in enumerate(order):
+                    kd = sides[side][0].dtp
+                    m = perm(kd, lists[side][site][0])
+                    call = lambda kd=kd, m=m: kd.dtp_t(m, *ops)  # noqa: E731
+                    tag = f"K6T_{site}_{member}_{str(dt)[6:]}_{side}_{i}"
+                    outs.append((call(),))
+                    entry["runs"].append({
+                        "side": side, "ms": device_time_ms(call, dev),
+                        **traced_run(call, tag, K6_KERNELS["K6T"]),
+                        "rel_err": rel(outs[-1][0], want)})
+                _bitwise(entry["runs"], outs, names)
+                name = f"{site}-{member}/{str(dt)[6:]}"
+                report["K6T"][name] = entry
+                print("K6T", name, json.dumps(entry), flush=True)
+                del outs
+
+
+def k6fb_section(sides, order, lists, rows, dev, report):
+    """K6-FB at each site of ``lists[side]`` beside the sum of its three
+    parts on the same side (K6-T's x and w legs, K6-R), against this
+    package's plain version, both dtypes; ``legs_bitwise``: dx and dw equal
+    in every bit to the legs' outputs; ``bitwise``: all three to the first
+    other tree's K6-FB; ``layouts``: this package's K6-FB kernel ms at each
+    of ``FB_LAYOUTS`` that fits, and whether its outputs are the same bits
+    (the first design took no layout: none there)."""
+    names = [s for s in order if s != "package"]
+    for site, (tl, sx, sw) in lists["package"].items():
+        E = rows[site][0]
+        for dt in (torch.float32, torch.bfloat16):
+            x, sh, w, ct = k6_operands(tl, sx, sw, E, dt, dev)
+            want = kernels.dtp.dtp_fused_bwd_plain(tl, x, sh, w, ct)
+            entry, outs = {"E": E, "runs": []}, []
+            for i, side in enumerate(order):
+                kd, stl = sides[side][0].dtp, lists[side][site][0]
+                call = lambda kd=kd, stl=stl: kd.dtp_fused_bwd(stl, x, sh, w, ct)  # noqa: E731
+                parts = lambda kd=kd, stl=stl: (  # noqa: E731
+                    kd.dtp_t(kd.perm_a(stl), ct, sh, w), kd.dtp_r(stl, x, w, ct),
+                    kd.dtp_t(kd.perm_b(stl), x, sh, ct))
+                tag = f"K6FB_{site}_{str(dt)[6:]}_{side}_{i}"
+                outs.append(call())
+                legs = parts()
+                traced = traced_run(parts, f"{tag}_parts", (K6_KERNELS["K6T"], K6_KERNELS["K6R"]))
+                entry["runs"].append({
+                    "side": side, "ms": device_time_ms(call, dev),
+                    **traced_run(call, tag, K6_KERNELS["K6FB"]),
+                    "parts_ms": device_time_ms(parts, dev), "parts_kernel_ms": traced["kernel_ms"],
+                    "parts_by_kernel": traced["by_kernel"],
+                    "legs_bitwise": all(torch.equal(outs[-1][i], legs[i]) for i in (0, 2)),
+                    "rel_err": max(rel(a, b) for a, b in zip(outs[-1], want))})
+            _bitwise(entry["runs"], outs, names)
+            entry["layouts"] = {}  # this package's K6-FB at each (edge tile, g staged) that fits
+            n_slots = tl.fb_plan(torch.device("cpu"), 4, 1)[5]
+            for tile, gs in FB_LAYOUTS:
+                if kernels.dtp._fb_bytes(tile, x.element_size(), sx, sw, gs, tl.d_a, tl.d_b,
+                                         tl.d_out, tl.d_col, n_slots) > FB_SMEM_MAX:
+                    continue
+                call = lambda: kernels.dtp.dtp_fused_bwd(tl, x, sh, w, ct, (tile, gs))  # noqa: E731
+                same = all(torch.equal(a, b) for a, b in zip(call(), outs[0]))
+                entry["layouts"][f"{tile}{'g' if gs else ''}"] = [traced_run(
+                    call, f"K6FB_{site}_{str(dt)[6:]}_{tile}{gs}", K6_KERNELS["K6FB"])[
+                        "kernel_ms"], same]
+            name = f"{site}/{str(dt)[6:]}"
+            report["K6FB"][name] = entry
+            print("K6FB", name, json.dumps(entry), flush=True)
+            del outs
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, nargs="+", default=[],
@@ -674,6 +810,13 @@ def main(argv=None) -> dict:
             k8f_section(sides, order, kron, rows, dev, report)
         if "K8B" in want:
             k8b_section(sides, order, kron, rows, dev, report)
+
+    if {"K6T", "K6FB"} & set(want):
+        lists = k6_lists(sides, E, mE, dev)
+        if "K6T" in want:
+            k6t_section(sides, order, lists, rows, dev, report)
+        if "K6FB" in want:
+            k6fb_section(sides, order, lists, rows, dev, report)
 
     if {"K5a", "K5b", "K5c"} & set(want):
         mrows = {f"md17-{site}": (mE, int(mmask.sum())) for site in ("sep_act", "sep_value",

@@ -1,7 +1,7 @@
 """Where the time of an eval forward, a training step or a force evaluation goes, on one GPU.
 
     python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17 | --md17-train]
-        [--unfused | --radial-fold | --kron-g] [--out FILE]
+        [--unfused [--first-order-bwd] | --radial-fold | --kron-g] [--out FILE]
 
 Builds ``graph_attention_transformer_nonlinear_l2`` at full width with a
 seeded init, on 4 batches of 128 QM9-like graphs (30 node slots each,
@@ -18,10 +18,12 @@ and forces); with ``--md17-train`` the unit is one step of
 0.999: the forward, the force pass with ``create_graph=True`` and the
 grad-of-grad).  ``--unfused`` builds the model with ``fused_dtp_lin=False``:
 every DTP call site on the T / R primitives (K6) with the linear heads
-after it, instead of the fused DTP + linear op.  ``--radial-fold`` builds
-it with ``radial_fold=True`` (and for ``--md17`` and ``--md17-train`` also
-``radial_fold_ho``): the radial MLPs' final linear layers of the 7
-per-edge-weight sites run inside the fused op (K7-F forward; K7-B, or K7-B3
+after it, instead of the fused DTP + linear op; with ``--first-order-bwd``
+(QM9 training only: the force models differentiate twice) also
+``dtp_first_order_bwd=True``, each site's backward one K6-FB launch.
+``--radial-fold`` builds it with ``radial_fold=True`` (and for ``--md17``
+and ``--md17-train`` also ``radial_fold_ho``): the radial MLPs' final
+linear layers of the 7 per-edge-weight sites run inside the fused op (K7-F forward; K7-B, or K7-B3
 for the force pass, backward; in force training's grad-of-grad also the
 leg kernels K7-L, K7-LW and K7-Wr).  ``--kron-g`` (QM9 only: the force
 models ignore the switch) builds it with ``kron_g=True``: all 13 fused DTP
@@ -42,7 +44,8 @@ bfloat16, per unit:
   partial sum, K5b's sh leg, K7-Wr's d[Wr; offset] tiles (its dw is K5b's
   w leg), K7-LW's dW tiles, K8-B's two launches, K8-F on K1's block,
   K7-B3 on K2's launch 1, K7-F on K1's block and K7-L's legs on K2's
-  launch 1; the split partials' sum of K5a, K5b, K7-L and K7-B3), and
+  launch 1; the split partials' sum of K5a, K5b, K7-L and K7-B3; K6-T,
+  K6-R and K6-FB), and
   ``annotated``: [ms, calls]
   per unit of the kernels inside each ``record_function`` range of
   ``ANNOTATIONS`` (K4's backward, torch ops);
@@ -92,7 +95,8 @@ KERNEL_GROUPS = ("k2::dxdw_kernel", "k2::dW_kernel", "sum_partial_rows_kernel",
                  "k2::split_sum_kernel", "k2::W_leg_kernel", "k2::bwd3_kernel",
                  "k2::sh_leg_kernel", "k2::Wr_leg_kernel", "k2::rad_W_leg_kernel",
                  "k2::kron_dxdw_kernel", "k2::kron_dG_kernel", "k1::kron_fwd_kernel",
-                 "k2::rad_bwd3_kernel", "k1::rad_fwd_kernel", "k2::rad_leg_kernel")
+                 "k2::rad_bwd3_kernel", "k1::rad_fwd_kernel", "k2::rad_leg_kernel",
+                 "dtp_t_kernel", "dtp_r_kernel", "dtp_fused_bwd_kernel")
 ANNOTATIONS = (ATTN_BWD_RANGE,)
 
 
@@ -223,10 +227,15 @@ def main() -> int:
                                 "inside the fused op (K7)")
     route_arg.add_argument("--kron-g", action="store_true",
                            help="build the QM9 model with kron_g=True (the fused DTPs on K8)")
+    ap.add_argument("--first-order-bwd", action="store_true",
+                    help="with --unfused --train: dtp_first_order_bwd=True (each DTP's "
+                         "backward one K6-FB launch)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.kron_g and (args.md17 or args.md17_train):
         ap.error("--kron-g takes the QM9 model: the force models ignore kron_g")
+    if args.first_order_bwd and not (args.unfused and args.train):
+        ap.error("--first-order-bwd takes --unfused --train")
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -249,9 +258,11 @@ def main() -> int:
     make = model_entrypoint(model_name)
     unit = ("train" if args.train else "md17" if args.md17
             else "md17_train" if args.md17_train else "eval")
-    route = ("unfused" if args.unfused else "fold" if args.radial_fold
-             else "kron" if args.kron_g else "fused")
+    route = ("unfused_fb" if args.first_order_bwd else "unfused" if args.unfused
+             else "fold" if args.radial_fold else "kron" if args.kron_g else "fused")
     switches = {"fused_dtp_lin": not args.unfused, "kron_g": args.kron_g}
+    if args.first_order_bwd:
+        switches["dtp_first_order_bwd"] = True
     if args.radial_fold:
         switches.update(radial_fold=True, radial_fold_ho=md17)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,

@@ -558,8 +558,17 @@ def test_reduced_md17_train_step_on_card_matches_cpu(dev):
 
 
 # The unfused route's primitives (K6) on the DTP term lists of the QM9 and
-# L3 call sites at small widths: (node irreps, SH, fold_rescale)
-K6_PLANS = {"l2": (IRR, SH, True), "l2-shared-w": (IRR, SH, False), "l3": (L3_IRR, L3_SH, True)}
+# L3 call sites at small widths, and the QM9 flagship's: (node irreps, SH,
+# fold_rescale).  "l2" has 2-wide tiles (lanes of one column), "l3" and
+# "l2-flagship" lanes of 4 columns.
+K6_PLANS = {"l2": (IRR, SH, True), "l2-shared-w": (IRR, SH, False), "l3": (L3_IRR, L3_SH, True),
+            "l2-flagship": ("128x0e+64x1e+32x2e", SH, True)}
+# edge counts: none, one, a partial 32-edge tile either side of one, and
+# one that is a multiple of no tile the host picks
+K6_EDGES = (0, 1, 31, 33, 301)
+# a and b: per edge, one row (broadcast), or one row expanded (stride 0)
+K6_BROADCAST = {"none": (False, False), "a-row": (True, False), "b-row": (False, True),
+                "a-expand": ("expand", False), "b-expand": (False, "expand")}
 
 
 def _k6_operands(tl, dev, dt, shared_a=False, shared_b=False, E=300, seed=5):
@@ -570,41 +579,69 @@ def _k6_operands(tl, dev, dt, shared_a=False, shared_b=False, E=300, seed=5):
     return a, rnd(E, tl.d_col), b, rnd(E, tl.d_out)
 
 
+def _k6_broadcast(tl, dev, dt, case, E):
+    """Operands (a, col, b, d) with a or b per edge, one row, or one row
+    expanded over the edges."""
+    ca, cb = K6_BROADCAST[case]
+    a, col, b, d = _k6_operands(tl, dev, dt, E=E, seed=5 + E)
+    if ca:
+        a = a[:1].expand(E, tl.d_a) if ca == "expand" else a[:1]
+    if cb:
+        b = b[:1].expand(E, tl.d_b) if cb == "expand" else b[:1]
+    return a, col, b, d
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("plan", list(K6_PLANS))
 def test_dtp_t_r_and_fused_bwd_kernels_match_plain(dev, plan, dtype):
-    """K6-T on the DTP's terms and on each transpose's permutation, K6-R and
-    K6-FB against their plain versions on the same operands, with a
-    broadcast a (an expanded row) or b (one row) where the call sites have
-    them; second calls give the same bits (one writer per element, fixed
-    reduction order)."""
+    """K6-T on the DTP's terms and on every member of its family (each
+    transpose's permutation, the force grad-of-grad's), K6-R and K6-FB
+    against their plain versions on the same operands, at each of
+    ``K6_EDGES`` and with a or b broadcast (one row, or an expanded row);
+    second calls give the same bits (one writer per element, fixed
+    reduction order); K6-FB's dx and dw are the bits of K6-T's x and w legs
+    (the same sums in the same order)."""
     from equiformer_tpu_torch.kernels import dtp as kd
 
     irr, sh, fold = K6_PLANS[plan]
     dt = getattr(torch, dtype)
     tl = kd.TermList.for_plan(depthwise_tp(Irreps(irr), Irreps(sh), Irreps(irr)), fold)
+    members = (tl, kd.perm_a(tl), kd.perm_b(tl), kd.perm_r_a(tl), kd.perm_r_b(tl), kd.perm_r_d(tl),
+               kd.perm_a(kd.perm_r_a(tl)))
     reset_launch_counts()
-    n_t = n_r = 0
-    for sa, sb in ((False, False), (True, False), (False, True)):
-        a, col, b, d = _k6_operands(tl, dev, dt, sa, sb)
-        for member, ops in ((tl, (a, col, b)), (kd.perm_a(tl), (d, col, b)),
-                            (kd.perm_b(tl), (a, col, d)), (kd.perm_r_a(tl), (b, col, d))):
-            k = kd.dtp_t(member, *ops)
-            p = kd.dtp_t_plain(member, *ops)
-            torch.cuda.synchronize()
-            assert k.dtype == dt and k.shape == p.shape == (300, member.d_out)
-            assert _rel(k, p) < TOL[dtype], member.slots
-            assert torch.equal(k, kd.dtp_t(member, *ops))
-            n_t += 2
-        k = kd.dtp_r(tl, a, b, d)
-        assert _rel(k, kd.dtp_r_plain(tl, a, b, d)) < TOL[dtype]
-        assert k.shape == (300, tl.d_col) and torch.equal(k, kd.dtp_r(tl, a, b, d))
-        n_r += 2
-        k = kd.dtp_fused_bwd(tl, a, col, b, d)
-        for x, y in zip(k, kd.dtp_fused_bwd_plain(tl, a, col, b, d)):
-            assert x.dtype == dt and x.shape == y.shape and _rel(x, y) < TOL[dtype]
-    assert (kd.dtp_t.launches, kd.dtp_r.launches, kd.dtp_fused_bwd.launches) == (n_t, n_r, 3)
+    n = {"t": 0, "r": 0, "fb": 0}
+    for E in K6_EDGES:
+        for case in K6_BROADCAST if E == 301 else ("none", "a-row"):
+            a, col, b, d = _k6_broadcast(tl, dev, dt, case, E)
+            lanes = {0: a, 1: b, 2: d}  # the plan's lane operands x, w, z by slot
+            for member in members:
+                m_ops = (lanes[member.slots[0]], col, lanes[member.slots[1]])
+                k = kd.dtp_t(member, *m_ops)
+                p = kd.dtp_t_plain(member, *m_ops)
+                torch.cuda.synchronize()
+                assert k.dtype == dt and k.shape == p.shape == (E, member.d_out)
+                if E:
+                    assert _rel(k, p) < TOL[dtype], (member.slots, E, case)
+                    assert torch.equal(k, kd.dtp_t(member, *m_ops))
+                    n["t"] += 2
+            k = kd.dtp_r(tl, a, b, d)
+            assert k.shape == (E, tl.d_col)
+            fb = kd.dtp_fused_bwd(tl, a, col, b, d)
+            if not E:
+                continue
+            assert _rel(k, kd.dtp_r_plain(tl, a, b, d)) < TOL[dtype]
+            assert torch.equal(k, kd.dtp_r(tl, a, b, d))
+            for x, y in zip(fb, kd.dtp_fused_bwd_plain(tl, a, col, b, d)):
+                assert x.dtype == dt and x.shape == y.shape and _rel(x, y) < TOL[dtype]
+            assert all(torch.equal(x, y) for x, y in zip(fb, kd.dtp_fused_bwd(tl, a, col, b, d)))
+            assert torch.equal(fb[0], kd.dtp_t(kd.perm_a(tl), d, col, b)), (E, case)
+            assert torch.equal(fb[2], kd.dtp_t(kd.perm_b(tl), a, col, d)), (E, case)
+            n["t"] += 2
+            n["r"] += 2
+            n["fb"] += 2
+    assert (kd.dtp_t.launches, kd.dtp_r.launches, kd.dtp_fused_bwd.launches) == (
+        n["t"], n["r"], n["fb"])
 
 
 @pytest.mark.cuda

@@ -275,8 +275,8 @@ def test_t_matches_packed_pallas_dtp():
 
 
 def _walk_t(tl, a, col, b):
-    """T as csrc/dtp_tr.cuh's t_segment walks the tables: per segment, each
-    output element sums its terms in table order."""
+    """T over its segment tables as S1-A (csrc/dtp_t_variants.cu) walks
+    them: per segment, each output element sums its terms in table order."""
     segs, terms, coeffs = (t.numpy() for t in tl.t_tables(torch.device("cpu")))
     out = np.full((col.shape[0], tl.d_out), np.nan)
     assert segs[0, 0] == 0 and segs[-1, 0] + segs[-1, 1] == tl.d_out
@@ -304,40 +304,185 @@ def _walk_r(tl, a, b, d):
     return out
 
 
+def _t_lanes(item, chunk, vec):
+    """The rows and first columns of the live lanes of one K6 warp item, and
+    the chunk's column in its segment (csrc/dtp_tr.cuh, ``item_lane``)."""
+    y = chunk[1]
+    lg, lane = (y >> 8) & 7, np.arange(32)
+    rows, us = (item & 255) + (lane >> lg), (lane & ((1 << lg) - 1)) * vec
+    live = us < (y & 255)
+    return rows[live], us[live], y >> 11
+
+
+def _t_chunk(e, us, du, vec, records, t0, t1, col, a, b):
+    """One warp item's lanes summing a chunk's terms: [lanes, vec] values at
+    the lanes' columns u = us + 0..vec-1."""
+    u = us[:, None] + np.arange(vec)
+    coeffs = records[:, 3].copy().view(np.float32)
+    acc = np.zeros(u.shape)
+    for t in range(t0, t1):
+        ao, j, bo = records[t, :3]
+        acc += float(coeffs[t]) * col[e, j] * a[e, ao + du + u] * b[e, bo + du + u]
+    return u, acc
+
+
+def _walk_t_plan(tl, a, col, b, vec, runs):
+    """T as csrc/dtp_t.cu walks ``t_plan``: a block per (32-edge tile,
+    run), each warp item's lanes writing their columns; every output element
+    is written exactly once."""
+    chunks, records, items, run_items = (t.numpy() for t in tl.t_plan(torch.device("cpu"), vec,
+                                                                        runs))
+    E = col.shape[0]
+    a, b = np.broadcast_to(a, (E, tl.d_a)), np.broadcast_to(b, (E, tl.d_b))
+    out, hits = np.full((E, tl.d_out), np.nan), np.zeros((E, tl.d_out), int)
+    assert run_items.shape == (runs + 1,) and run_items[-1] == items.shape[0]
+    for e0 in range(0, E, kd.T_TILE):
+        for r in range(runs):
+            for it in items[run_items[r]:run_items[r + 1]]:
+                o, _, t0, t1 = chunk = chunks[it >> 8]
+                rows, us, du = _t_lanes(it, chunk, vec)
+                keep = (rows < kd.T_TILE) & (e0 + rows < E)
+                e = (e0 + rows[keep])[:, None]
+                u, acc = _t_chunk(e, us[keep], du, vec, records, t0, t1, col, a, b)
+                out[e, o + u] = acc
+                np.add.at(hits, (e, o + u), 1)
+    assert (hits == 1).all()
+    return out
+
+
+def _walk_fb(tl, x, sh, w, g, vec, tile):
+    """K6-FB as csrc/dtp_fused_bwd.cu walks ``fb_plan``: a block per edge
+    tile, each item a dx or a dw chunk of some rows, a dw chunk's lanes also
+    writing c * sum x g w of each term into their row's slot, then each
+    (row, SH column) summing its slots; every element of dx and dw and
+    every slot read is written exactly once."""
+    chunks, n_dx, dxt, dwt, n_dwt, n_slots, ranges, slots, items = (
+        t.numpy() if isinstance(t, torch.Tensor) else t
+        for t in tl.fb_plan(torch.device("cpu"), vec, tile))
+    E = g.shape[0]
+    x, w = np.broadcast_to(x, (E, tl.d_a)), np.broadcast_to(w, (E, tl.d_b))
+    outs = {k: np.full((E, d), np.nan) for k, d in (("dx", tl.d_a), ("dw", tl.d_b),
+                                                    ("dsh", tl.d_col))}
+    hits = {k: np.zeros(v.shape, int) for k, v in outs.items() if k != "dsh"}
+    coeffs = dwt[:, 3].copy().view(np.float32)
+    for e0 in range(0, E, tile):
+        part, part_hits = np.full((tile, n_slots), np.nan), np.zeros((tile, n_slots), int)
+        for it in items:
+            o, _, t0, t1 = chunk = chunks[it >> 8]
+            rows, us, du = _t_lanes(it, chunk, vec)
+            keep = (rows < tile) & (e0 + rows < E)
+            rows, e = rows[keep], (e0 + rows[keep])[:, None]
+            key, rec, a, b = ("dx", dxt, g, w) if it >> 8 < n_dx else ("dw", dwt, x, g)
+            u, acc = _t_chunk(e, us[keep], du, vec, rec, t0, t1, sh, a, b)
+            outs[key][e, o + u] = acc
+            np.add.at(hits[key], (e, o + u), 1)
+            if key == "dw":
+                for r in np.unique(rows):
+                    cols, er = u[rows == r].ravel(), e0 + r
+                    for t in range(t0, t1):
+                        ao, _, bo = dwt[t, :3]
+                        slot = du // (32 * vec) * n_dwt + t
+                        part[r, slot] = float(coeffs[t]) * np.sum(
+                            x[er, ao + du + cols] * g[er, bo + du + cols] * w[er, o + cols])
+                        part_hits[r, slot] += 1
+        for r in range(min(tile, E - e0)):
+            for j, (lo, hi) in enumerate(ranges):
+                assert (part_hits[r, slots[lo:hi]] == 1).all()
+                outs["dsh"][e0 + r, j] = part[r, slots[lo:hi]].sum()
+    assert all((h == 1).all() for h in hits.values())
+    return outs["dx"], outs["dsh"], outs["dw"]
+
+
 @pytest.mark.parametrize("perm", list(PERMS))
 def test_tables_drive_the_plain_math(perm):
-    """T's segments and R's column ranges, walked as the kernels walk them,
-    give the plain versions' results (within the tables' float32
-    coefficients); K6-FB's three tables (dx: the a <-> out
-    permutation with a = g, dw: the b <-> out one with b = g, dsh: R's) give
-    dtp_fused_bwd_plain's."""
+    """T's segments (S1-A's tables) and K6-T's plan (chunks, items, runs),
+    and R's column ranges, walked as the kernels walk them, give the plain
+    versions' results (within the tables' float32 coefficients); so does
+    K6-FB's plan (dx: the a <-> out permutation's chunks with a = g, dw:
+    the b <-> out one's with b = g, dsh: the dw chunks' slots), at tiles
+    of 8 and 3 edges, with 40 edges (a partial last tile) and a broadcast
+    b."""
     tl = PERMS[perm][0](_lists("l3")[0])
     rng = np.random.default_rng(6)
-    a, col = rng.normal(size=(5, tl.d_a)), rng.normal(size=(5, tl.d_col))
-    b, d = rng.normal(size=(1, tl.d_b)), rng.normal(size=(5, tl.d_out))
+    a, col = rng.normal(size=(40, tl.d_a)), rng.normal(size=(40, tl.d_col))
+    b, d = rng.normal(size=(1, tl.d_b)), rng.normal(size=(40, tl.d_out))
     t = kd.dtp_t_plain(tl, _tt(a), _tt(col), _tt(b)).numpy()
     assert _rel(_walk_t(tl, a, col, b), t) < WALK_TOL
+    for runs in (1, 2, 4):
+        assert _rel(_walk_t_plan(tl, a, col, b, 1, runs), t) < WALK_TOL
     assert _rel(_walk_r(tl, a, b, d), kd.dtp_r_plain(tl, _tt(a), _tt(b), _tt(d)).numpy()) < WALK_TOL
-    dx, dsh, dw = (v.numpy() for v in kd.dtp_fused_bwd_plain(tl, _tt(a), _tt(col), _tt(b),
-                                                              _tt(d)))
-    assert _rel(_walk_t(kd.perm_a(tl), d, col, b), dx) < WALK_TOL
-    assert _rel(_walk_t(kd.perm_b(tl), a, col, d), dw) < WALK_TOL
-    assert _rel(_walk_r(tl, a, b, d), dsh) < WALK_TOL
+    want = [v.numpy() for v in kd.dtp_fused_bwd_plain(tl, _tt(a), _tt(col), _tt(b), _tt(d))]
+    for tile in (8, 3):
+        for got, ref in zip(_walk_fb(tl, a, col, b, d, 1, tile), want):
+            assert _rel(got, ref) < WALK_TOL
 
 
-@pytest.mark.parametrize("irr,sh", [("128x0e+64x1e+32x2e", "1x0e+1x1e+1x2e"),
-                                    ("128x0e+64x1e+64x2e+32x3e", SH3)], ids=["qm9", "l3"])
-def test_full_width_tables_fit_the_kernels(irr, sh):
+FULL_WIDTH = {"qm9": ("128x0e+64x1e+32x2e", "1x0e+1x1e+1x2e", 36352),
+              "l3": ("128x0e+64x1e+64x2e+32x3e", SH3, 2944)}
+
+
+@pytest.mark.parametrize("plan", list(FULL_WIDTH))
+def test_full_width_tables_fit_the_kernels(plan):
     """At the model widths every family member's tables fit the launches:
     segments within the grid's y limit, SH columns within the kernels'
-    shared col tile, output tiles that never overlap."""
+    shared col tile, output tiles that never overlap; K6's lanes own 4
+    columns; K6-T's chunks keep their segment's terms in table order and
+    fit the records' fields, its runs fill the card at both models' edge
+    counts; K6-FB's tile keeps five blocks an SM in both dtypes, with g
+    staged at QM9."""
+    irr, sh, E = FULL_WIDTH[plan]
     tl = kd.TermList.for_plan(depthwise_tp(Irreps(irr), Irreps(sh), Irreps(irr)), True)
+    assert tl.vec4()
     for name in ("base", "perm_a", "perm_b", "perm_r_a", "perm_a.perm_r_a"):
         m = PERMS[name][0](tl)
         segs = m.t_tables(torch.device("cpu"))[0]
         assert 1 <= segs.shape[0] and segs.shape[0] + segs.shape[0] + m.d_col <= 65535
         assert int(segs[:, 1].sum()) == m.d_out
+        order, seg_list = m._segments()
+        for vec in (4, 1):
+            chunks, records, _ = m.chunks(vec)
+            assert len(chunks) < 1 << 20 and [tuple(r[:3]) for r in records] == [
+                (m.terms[i].a_off, m.terms[i].col_off, m.terms[i].b_off) for i in order]
+            for o, y, t0, t1 in chunks:
+                width, lg, du = y & 255, (y >> 8) & 7, y >> 11
+                assert width <= 32 * vec and lg <= 5 and (1 << lg) * vec >= width
+                seg = next(s for s in seg_list if s[0] <= o < s[0] + s[1])
+                assert (seg[0] + du, seg[2], seg[3]) == (o, t0, t1)
+                assert all(m.terms[order[t]].out_off == seg[0] for t in range(t0, t1))
+                assert order[t0:t1] == sorted(order[t0:t1])
+        runs = m.t_runs(E, 4)
+        assert runs <= 16 and (-(-E // kd.T_TILE) * runs >= kd.T_BLOCKS
+                               or runs == min(16, len(m.chunks(4)[0])))
+    n_slots = tl.fb_plan(torch.device("cpu"), 4, 1)[5]
+    assert n_slots == len(tl.terms)  # one chunk a segment: a slot a term
+    for size in (4, 2):
+        for sx, sw in SHARED.values():
+            tile, stage_g = tl.fb_tile(size, sx, sw, 4)
+            assert stage_g == (plan == "qm9") and tile >= 2 and kd._fb_bytes(
+                tile, size, sx, sw, stage_g, tl.d_a, tl.d_b, tl.d_out, tl.d_col,
+                n_slots) <= kd.FB_SMEM
     assert tl.d_col <= 64 and len(tl._family) <= 6
+
+
+@pytest.mark.parametrize("plan", list(FULL_WIDTH))
+def test_full_width_k6_plans_drive_the_plain_math(plan):
+    """K6-T's plans (lanes of 4 columns; the runs both models' edge counts
+    give) and K6-FB's (its tiles in both dtypes), walked at the model
+    widths over 37 edges (partial tiles), give the plain versions'
+    results, every output element written once."""
+    irr, sh, _ = FULL_WIDTH[plan]
+    tl = kd.TermList.for_plan(depthwise_tp(Irreps(irr), Irreps(sh), Irreps(irr)), True)
+    rng = np.random.default_rng(7)
+    x, sh_, w, g = (rng.normal(size=(37, n)) for n in (tl.d_a, tl.d_col, tl.d_b, tl.d_out))
+    runs = sorted({tl.t_runs(E, 4) for _, _, E in FULL_WIDTH.values()})
+    for m, (a, b) in ((tl, (x, w)), (kd.perm_a(tl), (g, w)), (kd.perm_b(tl), (x, g))):
+        want = kd.dtp_t_plain(m, _tt(a), _tt(sh_), _tt(b)).numpy()
+        for r in runs:
+            assert _rel(_walk_t_plan(m, a, sh_, b, 4, r), want) < WALK_TOL
+    want = [v.numpy() for v in kd.dtp_fused_bwd_plain(tl, _tt(x), _tt(sh_), _tt(w), _tt(g))]
+    for tile in sorted({tl.fb_tile(size, False, False, 4)[0] for size in (4, 2)}):
+        for got, ref in zip(_walk_fb(tl, x, sh_, w, g, 4, tile), want):
+            assert _rel(got, ref) < WALK_TOL
 
 
 # ------------------------------------------------------------------ modules
