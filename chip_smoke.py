@@ -37,7 +37,9 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    trace: K3's one launch, K4's with the shift's) is printed beside the
    wrapper's.  Each kernel's bound is the
    larger of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s
-   (bf16 inputs) or 67 TFLOP/s (fp32), counted for this run's real edges.
+   (bf16 inputs) or 67 TFLOP/s (fp32), counted for this run's real edges;
+   for the kernels whose bf16 operations run on the CUDA cores
+   (CUDA_CORE_KERNELS: the FMA probe's ``__hfma2``) over 134 TFLOP/s.
 4. train  — the same model in training mode through ``make_qm9_steps``
    (AdamW with the no-decay mask, ``cosine_warmup_schedule(5e-4, 100,
    100000)``, weight decay 5e-3, alpha dropout 0.2 drawn from a CUDA
@@ -143,7 +145,10 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    permutations (a broadcast x at the edge degree, a shared w at
    sep_value), K6-R (``dtp_r``) and K6-FB (``dtp_fused_bwd``), against their
    plain versions with the tolerances of phase 3, timed the same way; the
-   route computes every row, so the bounds count all E rows.
+   route computes every row, so the bounds count all E rows.  K6-T, K6-R
+   and K6-FB repeat their bits, K6-FB's dx and dw are K6-T's legs' bits and
+   K6-R's output is K6-FB's dsh ("K6-R = K6-FB dsh"), at every site and
+   dtype.
 12. unfused train — the QM9 flagship built with ``fused_dtp_lin=False``:
    the launch counts of one eval forward (13 K6-T, 1 K3, 6 K4), then phase
    4 on that route (39 K6-T, 13 K3, 6 K4 per step) and with
@@ -193,7 +198,8 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    in float32 and bfloat16: the probe at both of the script's shapes within
    1e-5 (fp32) and 1e-2 (bf16) of max |plain|, the floor and the staged T
    at kbench's shapes (E = 40960) with phase 3's tolerances (the dense
-   staged T also bitwise equal to K6-T), and ``dtp_lin_bwd_stage`` at the
+   staged T also bitwise equal to K6-T, and timed beside K6-T on the same
+   inputs), and ``dtp_lin_bwd_stage`` at the
    QM9 sep_act site: its full stage bitwise equal to ``dtp_lin_bwd``, its
    stages from the transposes on (K2's first launch whole) K2's dx and dw
    bitwise with dW = 0, the earlier stages zeros; timed as phase 3.
@@ -370,6 +376,12 @@ FMA_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 FMA_GRID, KBENCH_EDGES = 64, 40960  # the tools' default sizes
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# The CUDA cores' rates (NVIDIA H100 Tensor Core GPU Architecture whitepaper,
+# SXM5, non-tensor: 66.9 TFLOP/s fp32, 133.8 bf16: __hfma2 does two bf16
+# FMAs where fmaf does one fp32 FMA), for the kernels whose bf16 operations
+# run there and not on the tensor cores: S2's bf16 path.
+CUDA_CORE_FLOPS = {"float32": 67e12, "bfloat16": 134e12}
+CUDA_CORE_KERNELS = ("fma_probe",)
 
 
 def card_line() -> str:
@@ -406,10 +418,13 @@ def rel_err(a, b) -> tuple:
     return err, err / max(scale, 1e-30)
 
 
-def bound(nbytes: float, flops: float, dt_name: str) -> tuple:
-    """(ms, "bytes" or "operations"): the least time the card could take."""
+def bound(nbytes: float, flops: float, dt_name: str, kernel: str = "") -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take;
+    the operations at the CUDA cores' rate for CUDA_CORE_KERNELS, else at
+    PEAK_FLOPS."""
+    peak = CUDA_CORE_FLOPS if kernel in CUDA_CORE_KERNELS else PEAK_FLOPS
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dt_name] * 1e3
+    t_ops = flops / peak[dt_name] * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -427,7 +442,7 @@ def record(records, kernel, site, dt_name, shape, errs, ms, plain_ms, nbytes, fl
     the bound on the error relative to max |plain| (TOL by default)."""
     err = max(e for e, _ in errs)
     rel = max(r for _, r in errs)
-    b_ms, b_by = bound(nbytes, flops, dt_name)
+    b_ms, b_by = bound(nbytes, flops, dt_name, kernel)
     records.append(dict(kernel=kernel, site=site, dtype=dt_name, shape=shape,
                         max_abs_err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, pair_ms=pair_ms,
@@ -1260,8 +1275,9 @@ def k6_kernel_phase(torch, model, batch, dev, records, sites, prefix=""):
     K6-FB against their plain versions at one batch's shapes, at the named
     call sites, in float32 and bfloat16, timed as phase 3.  The route
     computes every row, padding included, so the bounds count all E rows.
-    K6-T and K6-FB repeat their bits, and K6-FB's dx and dw are the bits of
-    K6-T's x and w legs (each element summed in the same order)."""
+    K6-T, K6-R and K6-FB repeat their bits, K6-FB's dx and dw are the bits
+    of K6-T's x and w legs and K6-R's output is K6-FB's dsh (each element
+    summed in the same order)."""
     from equiformer_tpu_torch.kernels import KERNEL_WRAPPERS
     from equiformer_tpu_torch.kernels import dtp as kd
 
@@ -1303,10 +1319,13 @@ def k6_kernel_phase(torch, model, batch, dev, records, sites, prefix=""):
             z, fb = kd.dtp_t(tl, x, sh, w), kd.dtp_fused_bwd(tl, x, sh, w, ct)
             x_leg, w_leg = legs["dtp_t-x"][0](), legs["dtp_t-w"][0]()
             fb2 = kd.dtp_fused_bwd(tl, x, sh, w, ct)
+            r = kd.dtp_r(tl, x, w, ct)
             same = {"K6-T repeat": torch.equal(z, kd.dtp_t(tl, x, sh, w)),
                     "K6-FB repeat": all(torch.equal(p, q) for p, q in zip(fb, fb2)),
+                    "K6-R repeat": torch.equal(r, kd.dtp_r(tl, x, w, ct)),
                     "K6-FB dx = K6-T x leg": torch.equal(fb[0], x_leg),
-                    "K6-FB dw = K6-T w leg": torch.equal(fb[2], w_leg)}
+                    "K6-FB dw = K6-T w leg": torch.equal(fb[2], w_leg),
+                    "K6-R = K6-FB dsh": torch.equal(r, fb[1])}
             print(f"k6 {prefix}{site} {dt_name} bitwise: {same}", flush=True)
             if not all(same.values()):
                 raise RuntimeError(f"K6 {prefix}{site} {dt_name}: bits differ: {same}")
@@ -1837,7 +1856,9 @@ def measure_tools(torch, out):
     for r in peaks["dtp_t_floor"]:
         print(f"peak S1-F stream {r['dtype']}: {r['gb_per_s']:.1f} GB/s")
     print(f"published: {HBM_BYTES_PER_S / 1e9:.0f} GB/s, {PEAK_FLOPS['float32'] / 1e12:.0f} "
-          f"TFLOP/s fp32, {PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 (tensor cores)")
+          f"TFLOP/s fp32, {PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 (tensor cores), "
+          f"{CUDA_CORE_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 (CUDA cores, __hfma2: the "
+          f"bound of {', '.join(CUDA_CORE_KERNELS)})")
     for tool in ("kbench", "kbench-fp32"):
         rep = reports[tool]
         print(f"{tool} {rep['dtype']} E={rep['edges']}: " + ", ".join(
@@ -1912,6 +1933,9 @@ def measure_kernel_phase(torch, model, batch, dev, records):
                    3 * E_kb * sum(t.mul for t in tl.terms))
         same = torch.equal(dtp_t_staged(tl, x, sh, w), dtp_t(tl, x, sh, w))
         print(f"dtp_t_staged {dt_name} dense bitwise equal to K6-T: {same}", flush=True)
+        print(f"S1-A beside K6-T at kbench's shapes ({shape}), {dt_name}: S1-A dense "
+              f"{records[-2]['ms']:.4f} ms, slots {records[-1]['ms']:.4f} ms; K6-T "
+              f"{cuda_time_ms(lambda: dtp_t(tl, x, sh, w), torch):.4f} ms", flush=True)
         if not same:
             raise RuntimeError(f"dtp_t_staged {dt_name} (dense) differs from K6-T in its bits")
 

@@ -16,26 +16,27 @@
 // What bounds it: bytes, by construction: its time is K6-T's floor at
 // these shapes.
 //
-// S1-A, dtp_t_staged: T itself, on the term tables of K6-T (TermList's
-//   out[e, o+u] = sum over the terms of output segment o of
-//                 c * col[e, j] * a[e, i+u] * b[e, p+u]
-// in the same order, so the dense layout gives K6-T's bits).
+// S1-A, dtp_t_staged: T itself on K6-T's chunks and term records
+// (TermList.chunks), each output element summed in K6-T's table order, so
+// the dense layout gives K6-T's bits.
 // Replaces: scripts/kbench.py, aligned_kernel (aligned_call, both
-// layouts): stage the edge tile once, then compute.  A block takes kRows
-// edges, copies their a, b and col rows into shared memory once (16-byte
-// copies), and writes every output segment of the tile from there, where
-// K6-T's grid of (tile, segment) blocks re-reads a and b from L2 for each
-// segment (csrc/dtp_t.cu).  The segment table sets the output layout: the
-// dense z, or z in 128-column slots with zero padding (kbench's aligned
-// output); the TPU's 128-lane alignment of the staged rows is not carried
-// over.  What bounds it: bytes (K6-T's, see csrc/dtp_t.cu); shared memory
-// is kRows * (d_a + d_b) elements plus the col rows, 92 KB fp32 at the
-// flagship's widths: two blocks per SM.
+// layouts): stage the edge tile once, then compute.  A block takes `tile`
+// edges (2-4: the staged_tile of kernels/dtp_t_variants.py, several blocks
+// an SM), copies their a and b rows into shared memory once with cp.async
+// and their col rows as fp32, then its 8 warps take the tile's warp items
+// (chunk, first row) and run K6-T's lane (csrc/dtp_tr.cuh, t_lane) with a
+// and b read from shared memory, where K6-T reads them through L1 / L2 from
+// global memory (csrc/dtp_t.cu): the pair measures what staging a and b
+// buys.  The chunk table sets the output layout: K6-T's chunks for the
+// dense z, or each chunk at its tile's 128-column slot with chunks of no
+// terms writing the slots' zero padding (kbench's aligned output); the
+// TPU's 128-lane alignment of the staged rows is not carried over.  What
+// bounds it: bytes (K6-T's, see csrc/dtp_t.cu).
 
 #include <stdint.h>
 #include <string.h>
 
-#include "common.cuh"
+#include "dtp_tr.cuh"
 
 namespace {
 
@@ -45,9 +46,6 @@ using eqt::to_f;
 constexpr int kThreads = 256;
 constexpr int kLead = 128;        // S1-F: the columns of x and w that reach out
 constexpr int kFloorRows = 16;    // S1-F: edges per block
-constexpr int kRows = 16;         // S1-A: edges per block
-constexpr int kSegFields = 4;     // output column, width, term begin, term end
-constexpr int kTermFields = 5;    // a_off, col_off, b_off, out_off, mul
 
 template <typename T>
 struct Vec {
@@ -140,60 +138,43 @@ dtp_t_floor_kernel(const T* __restrict__ x, int d_x, const T* __restrict__ sh, i
   }
 }
 
-// Copies n elements of T from global p to shared s (both 16-byte aligned).
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ p, T* __restrict__ s, int n) {
-  constexpr int V = Vec<T>::n;
-  const int nv = n / V;
-  const uint4* pv = reinterpret_cast<const uint4*>(p);
-  uint4* sv = reinterpret_cast<uint4*>(s);
-  for (int i = threadIdx.x; i < nv; i += kThreads) sv[i] = pv[i];
-  for (int i = nv * V + threadIdx.x; i < n; i += kThreads) s[i] = p[i];
+// S1-A's shared memory: a rows, b rows, col rows (fp32).
+__host__ __device__ inline long long staged_bytes(int tile, int size, int d_a, int d_b,
+                                                  int d_col, long long* b_off,
+                                                  long long* col_off) {
+  *b_off = eqt::dtp::align16((long long)tile * d_a * size);
+  *col_off = *b_off + eqt::dtp::align16((long long)tile * d_b * size);
+  return *col_off + (long long)tile * d_col * 4;
 }
 
-__host__ __device__ inline int round16(int bytes) { return (bytes + 15) / 16 * 16; }
-
-template <typename T>
-__host__ __device__ inline int staged_smem(int d_a, int d_col, int d_b) {
-  return round16(kRows * d_col * (int)sizeof(float)) + round16(kRows * d_a * (int)sizeof(T)) +
-         round16(kRows * d_b * (int)sizeof(T));
-}
-
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 dtp_t_staged_kernel(const T* __restrict__ a, int d_a, const T* __restrict__ col, int d_col,
                     const T* __restrict__ b, int d_b, T* __restrict__ out, int d_out, int E,
-                    const int* __restrict__ segs, int n_seg, const int* __restrict__ terms,
-                    const float* __restrict__ coeffs) {
-  extern __shared__ float4 smem4[];
-  char* base = reinterpret_cast<char*>(smem4);
-  float* s_col = reinterpret_cast<float*>(base);
-  T* s_a = reinterpret_cast<T*>(base + round16(kRows * d_col * (int)sizeof(float)));
-  T* s_b = reinterpret_cast<T*>(reinterpret_cast<char*>(s_a) + round16(kRows * d_a * (int)sizeof(T)));
-
-  const long long e0 = (long long)blockIdx.x * kRows;
-  const int rows = min((long long)kRows, E - e0);
-  stage<T>(a + e0 * d_a, s_a, rows * d_a);
-  stage<T>(b + e0 * d_b, s_b, rows * d_b);
-  for (int i = threadIdx.x; i < rows * d_col; i += kThreads) s_col[i] = to_f(col[e0 * d_col + i]);
+                    int tile, const int4* __restrict__ chunks, const int4* __restrict__ terms,
+                    const int* __restrict__ items, int n_items) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long b_off, col_off;
+  staged_bytes(tile, sizeof(T), d_a, d_b, d_col, &b_off, &col_off);
+  T* s_a = reinterpret_cast<T*>(smem);
+  T* s_b = reinterpret_cast<T*>(smem + b_off);
+  float* s_col = reinterpret_cast<float*>(smem + col_off);
+  const int e0 = blockIdx.x * tile;
+  const int n_rows = min(tile, E - e0);
+  eqt::dtp::stage(s_a, a + (long long)e0 * d_a, (long long)n_rows * d_a);
+  eqt::dtp::stage(s_b, b + (long long)e0 * d_b, (long long)n_rows * d_b);
+  for (int i = threadIdx.x; i < n_rows * d_col; i += kThreads)
+    s_col[i] = to_f(col[(long long)e0 * d_col + i]);
+  eqt::dtp::stage_wait();
   __syncthreads();
-
-  for (int s = 0; s < n_seg; ++s) {
-    const int* seg = segs + s * kSegFields;
-    const int o = seg[0], width = seg[1], t_begin = seg[2], t_end = seg[3];
-    for (int i = threadIdx.x; i < rows * width; i += kThreads) {
-      const int r = i / width;
-      const int u = i - r * width;
-      const float* cr = s_col + r * d_col;
-      const T* ar = s_a + r * d_a + u;
-      const T* br = s_b + r * d_b + u;
-      float acc = 0.f;
-      for (int t = t_begin; t < t_end; ++t) {
-        const int* tt = terms + t * kTermFields;
-        acc = fmaf(coeffs[t] * cr[tt[1]] * to_f(ar[tt[0]]), to_f(br[tt[2]]), acc);
-      }
-      out[(e0 + r) * d_out + o + u] = from_f<T>(acc);
-    }
+  for (int it = threadIdx.x >> 5; it < n_items; it += kThreads / 32) {
+    const int item = __ldg(items + it);
+    const int4 ch = __ldg(chunks + (item >> 8));
+    const eqt::dtp::Lane l = eqt::dtp::item_lane<V>(item & 255, ch.y);
+    if (!l.live || l.row >= n_rows) continue;
+    const int u = (ch.y >> 11) + l.u;
+    eqt::dtp::t_lane<V>(s_a + l.row * d_a + u, s_b + l.row * d_b + u, s_col + l.row * d_col,
+                        terms, ch.z, ch.w, out + (long long)(e0 + l.row) * d_out + ch.x + l.u);
   }
 }
 
@@ -207,21 +188,31 @@ int launch_floor(const void* x, int d_x, const void* sh, int d_sh, const void* w
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int V>
 int launch_staged(const void* a, int d_a, const void* col, int d_col, const void* b, int d_b,
-                  void* out, int d_out, int E, const void* segs, int n_seg, const void* terms,
-                  const void* coeffs, cudaStream_t stream) {
-  const int smem = staged_smem<T>(d_a, d_col, d_b);
-  cudaError_t err = cudaFuncSetAttribute(dtp_t_staged_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (E + kRows - 1) / kRows;
-  dtp_t_staged_kernel<T><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(a), d_a, static_cast<const T*>(col), d_col,
-      static_cast<const T*>(b), d_b, static_cast<T*>(out), d_out, E,
-      static_cast<const int*>(segs), n_seg, static_cast<const int*>(terms),
-      static_cast<const float*>(coeffs));
-  return (int)cudaGetLastError();
+                  void* out, int d_out, int E, int tile, const void* chunks, const void* terms,
+                  const void* items, int n_items, cudaStream_t stream) {
+  static long long allowed = 48 << 10;  // this instantiation's dynamic shared memory limit
+  long long b_off, col_off;
+  const long long bytes = staged_bytes(tile, sizeof(T), d_a, d_b, d_col, &b_off, &col_off);
+  return eqt::dtp::launch_tiles(
+      dtp_t_staged_kernel<T, V>, allowed, bytes, E, tile, stream, static_cast<const T*>(a), d_a,
+      static_cast<const T*>(col), d_col, static_cast<const T*>(b), d_b, static_cast<T*>(out),
+      d_out, E, tile, static_cast<const int4*>(chunks), static_cast<const int4*>(terms),
+      static_cast<const int*>(items), n_items);
+}
+
+template <typename T>
+int launch_staged_vec(int vec, const void* a, int d_a, const void* col, int d_col, const void* b,
+                      int d_b, void* out, int d_out, int E, int tile, const void* chunks,
+                      const void* terms, const void* items, int n_items, cudaStream_t s) {
+  if (vec == 4)
+    return launch_staged<T, 4>(a, d_a, col, d_col, b, d_b, out, d_out, E, tile, chunks, terms,
+                               items, n_items, s);
+  if (vec == 1)
+    return launch_staged<T, 1>(a, d_a, col, d_col, b, d_b, out, d_out, E, tile, chunks, terms,
+                               items, n_items, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -241,19 +232,21 @@ extern "C" int dtp_t_floor(const void* x, int d_x, const void* sh, int d_sh, con
 }
 
 // a [E, d_a], col [E, d_col], b [E, d_b] contiguous and 16-byte aligned,
-// out [E, d_out]; segs [n_seg, 4], terms [n, 5], coeffs [n] from
-// kernels/dtp_t_variants.py (K6-T's tables, the segments laid out densely
-// or in 128-column slots).
+// out [E, d_out]; the edge tile (at most 255 rows); chunks [n, 4], terms
+// [n_t, 4] (K6-T's records) and items [n_items] (chunk << 8 | first row)
+// from kernels/dtp_t_variants.py (staged_plan: K6-T's chunks for the dense
+// z, or laid out in 128-column slots); vec 4 or 1.
 extern "C" int dtp_t_staged(const void* a, int d_a, const void* col, int d_col, const void* b,
-                            int d_b, void* out, int d_out, int E, const void* segs, int n_seg,
-                            const void* terms, const void* coeffs, int dtype, void* stream) {
-  if (E < 1 || n_seg < 1) return (int)cudaErrorInvalidValue;
+                            int d_b, void* out, int d_out, int E, int tile, const void* chunks,
+                            const void* terms, const void* items, int n_items, int vec,
+                            int dtype, void* stream) {
+  if (E < 1 || tile < 1 || tile > 255 || n_items < 1) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == eqt::kFloat32)
-    return launch_staged<float>(a, d_a, col, d_col, b, d_b, out, d_out, E, segs, n_seg, terms,
-                                coeffs, s);
+    return launch_staged_vec<float>(vec, a, d_a, col, d_col, b, d_b, out, d_out, E, tile, chunks,
+                                    terms, items, n_items, s);
   if (dtype == eqt::kBFloat16)
-    return launch_staged<__nv_bfloat16>(a, d_a, col, d_col, b, d_b, out, d_out, E, segs, n_seg,
-                                        terms, coeffs, s);
+    return launch_staged_vec<__nv_bfloat16>(vec, a, d_a, col, d_col, b, d_b, out, d_out, E, tile,
+                                            chunks, terms, items, n_items, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 // The bodies of the depthwise tensor product's sparse trilinear primitives
-// T and R (K6), shared by csrc/dtp_t.cu, csrc/dtp_r.cu and
-// csrc/dtp_fused_bwd.cu.  Term lists and tables:
-// equiformer_tpu_torch/kernels/dtp.py (TermList.t_plan, r_tables,
-// fb_plan).
+// T and R (K6), shared by csrc/dtp_t.cu, csrc/dtp_fused_bwd.cu, csrc/dtp_r.cu
+// (through csrc/dtp_fb.cuh) and S1-A in csrc/dtp_t_variants.cu.  Term lists
+// and tables: equiformer_tpu_torch/kernels/dtp.py (TermList.t_plan, fb_plan,
+// r_plan).
 //
 // Per edge e, over the terms (c, a_off i, col_off j, b_off p, out_off o, mul):
 //   T: out[e, o+u] += c * col[e, j] * a[e, i+u] * b[e, p+u]      (u < mul)
@@ -24,29 +24,42 @@
 // for any grid the host picks; V = 4 reads a and b with one 8- or 16-byte
 // load a term and writes out with one store.  A term is one 16-byte record
 // (a_off, col_off, b_off, coeff), read once a term by the whole warp (a
-// broadcast).  R is a reduction over u: a warp owns an (edge, column),
-// each lane keeps a running sum over the column's terms (copies u = lane
-// mod 32) and the warp adds the lanes with a fixed butterfly of shuffles,
-// as K5a's dsh does (csrc/dtp_lin_bwd.cu).  No atomics anywhere.
+// broadcast).  R is summed from the chunks of T's b <-> out permutation,
+// whose lanes each hold one column of b (csrc/dtp_fb.cuh).  No atomics
+// anywhere.
 #pragma once
+
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace eqt {
 namespace dtp {
 
-constexpr int kTile = 32;              // edges per block (T and R)
+constexpr int kTile = 32;              // edges per K6-T block
 constexpr int kThreads = 256;          // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCol = 64;            // widest col operand (SH up to l = 7)
-constexpr int kTermFields = 5;         // R: a_off, col_off, b_off, out_off, mul
 constexpr int kMaxGridY = 65535;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__host__ __device__ constexpr long long align16(long long n) { return (n + 15) & ~15LL; }
+
+// n elements from src to dst (dst 16-byte aligned): cp.async by 16 bytes
+// where src and n allow (the caller waits), else loads and stores.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, long long n) {
+  if (((uintptr_t)src & 15) == 0 && (n * sizeof(T)) % 16 == 0) {
+    const long long n16 = n * sizeof(T) / 16;
+    const unsigned base = (unsigned)__cvta_generic_to_shared(dst);
+    for (long long i = threadIdx.x; i < n16; i += kThreads)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(base + (unsigned)(i * 16)),
+                   "l"(reinterpret_cast<const uint4*>(src) + i));
+  } else {
+    for (long long i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+  }
 }
+
+__device__ __forceinline__ void stage_wait() { asm volatile("cp.async.wait_all;\n" ::); }
 
 // V consecutive elements at p as fp32 (p aligned to V elements).
 template <int V>
@@ -141,36 +154,23 @@ __device__ __forceinline__ void t_lane(const TA* ar, const TB* br, const float* 
   store_vec<V>(orow, acc);
 }
 
-// R for column j of the edge tile starting at e0: warp w takes rows w,
-// w + kWarps, ...  `ranges` holds each column's term range.
-template <typename T>
-__device__ __forceinline__ void r_column(const T* __restrict__ a, long long sa,
-                                         const T* __restrict__ b, long long sb,
-                                         const T* __restrict__ d, int d_d,
-                                         T* __restrict__ out, int d_col, int E, int e0, int j,
-                                         const int* __restrict__ ranges,
-                                         const int* __restrict__ terms,
-                                         const float* __restrict__ coeffs) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_rows = min(kTile, E - e0);
-  const int t_begin = ranges[2 * j], t_end = ranges[2 * j + 1];
-  for (int r = warp; r < n_rows; r += kWarps) {
-    const long long e = e0 + r;
-    float run = 0.f;  // this lane's part of col[e, j]
-    for (int t = t_begin; t < t_end; ++t) {
-      const int* tt = terms + t * kTermFields;
-      const float c = coeffs[t];
-      const int mul = tt[4];
-      const T* ar = a + e * sa + tt[0];
-      const T* br = b + e * sb + tt[2];
-      const T* dr = d + e * d_d + tt[3];
-      for (int u = lane; u < mul; u += 32)
-        run = fmaf(c * to_f(ar[u]) * to_f(br[u]), to_f(dr[u]), run);
+// Launches `kernel` with a block of kThreads per `tile` edges and `bytes`
+// of dynamic shared memory, raising the kernel's limit past the default 48 KB once where it
+// must (`allowed`: the instantiation's limit so far).
+template <typename K, typename... Args>
+int launch_tiles(K kernel, long long& allowed, long long bytes, int E, int tile,
+              cudaStream_t stream, Args... args) {
+  if (bytes > allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // not the next launch's error
+      return (int)err;
     }
-    const float v = warp_sum(run);
-    if (lane == 0) out[e * d_col + j] = from_f<T>(v);
+    allowed = bytes;
   }
+  kernel<<<(E + tile - 1) / tile, kThreads, bytes, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace dtp

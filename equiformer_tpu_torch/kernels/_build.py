@@ -165,9 +165,11 @@ _SIGNATURES = {
     # a, a_row_stride, col, d_col, b, b_row_stride, out, d_out, E, chunks,
     # terms, items, run_items, n_runs (TermList.t_plan), vec, dtype, stream
     "dtp_t": [_VP, _LL, _VP, _I, _VP, _LL, _VP, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-    # a, a_row_stride, b, b_row_stride, d, d_d, out, d_col, E, column ranges,
-    # terms, coeffs, dtype, stream
-    "dtp_r": [_VP, _LL, _VP, _LL, _VP, _I, _VP, _I, _I, _VP, _VP, _VP, _I, _VP],
+    # a, a_row_stride, b, b_row_stride, d, d_d, out, d_col, d_a, d_b, E, tile,
+    # chunks, terms, n_terms, n_slots, column ranges, slots, items, n_items
+    # (TermList.r_plan), vec, dtype, stream
+    "dtp_r": [_VP, _LL, _VP, _LL, _VP, _I, _VP, _I, _I, _I, _I, _I, _VP, _VP, _I, _I, _VP, _VP,
+              _VP, _I, _I, _I, _VP],
     # x, x_row_stride, sh, d_sh, w, w_row_stride, g, d_g, dx, d_x, dsh, dw,
     # d_w, E, tile, stage_g, chunks, n_dx, dx terms, dw terms, n_dw_terms,
     # n_slots, dsh ranges, dsh slots, items, n_items (TermList.fb_plan), vec,
@@ -184,9 +186,9 @@ _SIGNATURES = {
     "dtp_lin_kron_bwd": _K2 + [_I, _VP],
     # S1-F: x, d_x, sh, d_sh, w, d_w, out, d_out, E, dtype, stream
     "dtp_t_floor": [_VP, _I, _VP, _I, _VP, _I, _VP, _I, _I, _I, _VP],
-    # S1-A: a, d_a, col, d_col, b, d_b, out, d_out, E, segments, n_seg, terms,
-    # coeffs, dtype, stream
-    "dtp_t_staged": [_VP, _I, _VP, _I, _VP, _I, _VP, _I, _I, _VP, _I, _VP, _VP, _I, _VP],
+    # S1-A: a, d_a, col, d_col, b, d_b, out, d_out, E, tile, chunks, terms,
+    # items, n_items (dtp_t_variants.staged_plan), vec, dtype, stream
+    "dtp_t_staged": [_VP, _I, _VP, _I, _VP, _I, _VP, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
     # S2: x, out, n, k, m, c, dtype, stream
     "fma_probe": [_VP, _VP, _LL, _I, _F, _F, _I, _VP],
     # val, C, dst, dst's bytes per index (8 or 4), E, mask, out, N, vec (1 or

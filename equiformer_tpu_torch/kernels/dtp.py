@@ -19,10 +19,11 @@ edges (``shared``): the internal weight of a shared-weight DTP and the
 edge-degree embedding's constant feature; its gradient is summed over the
 edges outside the kernels, as JAX's ``_maybe_sum_shared`` does.
 
-On the card T is K6-T (``dtp_t``, ``csrc/dtp_t.cu``), R K6-R (``dtp_r``,
-``csrc/dtp_r.cu``), and the first-order backward of the DTP in one launch
-(dx, dsh, dw) K6-FB (``dtp_fused_bwd``, ``csrc/dtp_fused_bwd.cu``), the
-backward of ``first_order_dtp``.  CPU tensors take the plain versions
+On the card T is K6-T (``dtp_t``, ``csrc/dtp_t.cu``), the first-order
+backward of the DTP in one launch (dx, dsh, dw) K6-FB (``dtp_fused_bwd``,
+``csrc/dtp_fused_bwd.cu``), the backward of ``first_order_dtp``, and R
+K6-R (``dtp_r``, ``csrc/dtp_r.cu``): K6-FB's block with dsh alone, since
+R(a, b, d) is K6-FB's dsh for x = a, w = b, g = d.  CPU tensors take the plain versions
 (``dtp_t_plain``, ``dtp_r_plain``, ``dtp_fused_bwd_plain``): loops over the
 same term list.  JAX's lane-packed ``PackedPallasDTP`` computes the same
 function as T with 128 // mul edges side by side in the TPU's lanes, a
@@ -31,7 +32,6 @@ layout the port does not carry over: its counterpart is K6-T.
 
 from __future__ import annotations
 
-import bisect
 import contextlib
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -71,11 +71,16 @@ def skip_leg_grads(*legs: str):
         _SKIPPED_LEGS.difference_update(added)
 
 
-# K6's launch shapes (csrc/dtp_t.cu, csrc/dtp_fused_bwd.cu)
+# K6's launch shapes (csrc/dtp_t.cu, csrc/dtp_fused_bwd.cu, csrc/dtp_r.cu)
 T_TILE = 32  # edges a K6-T block (kTile)
 T_BLOCKS = 1056  # K6-T's blocks to aim for: 8 blocks of 8 warps on each of the H100's 132 SMs
 T_ROW_GROUP = 4  # rows a K6-T run lists its items by
-FB_SMEM = 40 << 10  # K6-FB's shared memory a block: five blocks an SM
+FB_SMEM = 40 << 10  # K6-FB's and K6-R's shared memory a block: five blocks an SM
+# K6-FB's (edge tile, g staged) layouts, in order: the first whose block
+# fits FB_SMEM
+FB_LAYOUTS = ((8, True), (4, True), (2, True), (8, False), (4, False), (2, False), (1, False))
+R_TILES = (8, 4, 2, 1)  # K6-R's edge tiles, largest first
+R_BLOCKS = 528  # K6-R's blocks to aim for: four blocks of 8 warps on each of the 132 SMs
 
 
 class Term(NamedTuple):
@@ -181,25 +186,6 @@ class TermList:
             self._tables[key] = (order, segs)
         return self._tables[key]
 
-    def _term_rows(self, order, device):
-        terms = [self.terms[i] for i in order]
-        return (torch.tensor([(t.a_off, t.col_off, t.b_off, t.out_off, t.mul) for t in terms]
-                             or [(0,) * 5], dtype=torch.int32, device=device),
-                torch.tensor([t.coeff for t in terms] or [0.0], dtype=torch.float32,
-                             device=device))
-
-    def t_tables(self, device: torch.device):
-        """T's segment tables, as S1-A (csrc/dtp_t_variants.cu) reads them:
-        (segments int32 [n_seg, 4]: output column, width, term range; terms
-        int32 [n, 5]: a_off, col_off, b_off, out_off, mul; coeffs float32
-        [n]), the terms sorted by output tile (``_segments``)."""
-        key = ("t", device)
-        if key not in self._tables:
-            order, segs = self._segments()
-            self._tables[key] = (torch.tensor(segs, dtype=torch.int32, device=device),
-                                 *self._term_rows(order, device))
-        return self._tables[key]
-
     def vec4(self) -> bool:
         """Whether K6's lanes may own 4 consecutive columns: every lane
         offset, width and row width is a multiple of 4 (the same for every
@@ -215,19 +201,11 @@ class TermList:
         """K6's chunks of T's segments for lanes of ``vec`` columns: (chunk
         records [(column, width | lg << 8 | du << 11, term begin, term end)],
         term records [(a_off, col_off, b_off, coeff)] in ``_segments``'
-        order, each chunk's cost).  A segment is cut into chunks of at most
-        32 * vec columns (du: the chunk's column in its segment); 2^lg lanes
-        cover a chunk's row (csrc/dtp_tr.cuh, ``item_lane``)."""
+        order, each chunk's cost), by ``cut_segments``."""
         key = ("chunks", vec)
         if key not in self._tables:
             order, segs = self._segments()
-            chunks, cost = [], []
-            for o, width, tb, te in segs:
-                for du in range(0, width, 32 * vec):
-                    wd = min(32 * vec, width - du)
-                    lg = (-(-wd // vec) - 1).bit_length()
-                    chunks.append((o + du, wd | lg << 8 | du << 11, tb, te))
-                    cost.append((te - tb + 1) * wd)
+            chunks, cost = cut_segments(segs, vec)
             terms = [(t.a_off, t.col_off, t.b_off, t.coeff) for t in (self.terms[i] for i in order)]
             self._tables[key] = chunks, terms, cost
         return self._tables[key]
@@ -271,17 +249,16 @@ class TermList:
         return self._tables[key]
 
     def fb_tile(self, size: int, shared_x: bool, shared_w: bool, vec: int) -> Tuple[int, bool]:
-        """K6-FB's (edge tile, g staged): the largest of 8, 4 or 2 edges
-        whose x, w, g, sh rows and dsh slots fit FB_SMEM, else the largest
-        of 8, 4, 2 or 1 with g read through L1 / L2 (MD17 L3).  Many small
+        """K6-FB's (edge tile, g staged): the first of FB_LAYOUTS (8, 4 or
+        2 edges with g, then 8, 4, 2 or 1 with g read through L1 / L2: MD17
+        L3) whose x, w, g, sh rows and dsh slots fit FB_SMEM.  Many small
         blocks an SM beat few large ones: at QM9 sep_act the 2-edge tile
         with g took 0.450 ms fp32 against 0.564 for 4 edges and 0.818 for 8
         (kernel_ab's layouts, H100).  ``size``: bytes an element."""
         key = ("fb_tile", size, shared_x, shared_w, vec)
         if key not in self._tables:
-            n_slots = self.fb_plan(torch.device("cpu"), vec, 1)[5]
-            fits = [(tile, gs) for tile, gs in [(8, True), (4, True), (2, True), (8, False),
-                                                (4, False), (2, False), (1, False)]
+            n_slots = self._fb_lists(vec, 1)[4]
+            fits = [(tile, gs) for tile, gs in FB_LAYOUTS
                     if _fb_bytes(tile, size, shared_x, shared_w, gs, self.d_a, self.d_b,
                                  self.d_out, self.d_col, n_slots) <= FB_SMEM]
             if not fits:
@@ -289,16 +266,31 @@ class TermList:
             self._tables[key] = fits[0]
         return self._tables[key]
 
-    def fb_plan(self, device: torch.device, vec: int, tile: int):
-        """K6-FB's tables, as csrc/dtp_fused_bwd.cu reads them: (chunks
-        int32 [n_dx + n_dw, 4]: ``perm_a``'s chunks, then ``perm_b``'s; n_dx;
-        dx and dw term records int32 [n, 4]; n_dw_terms; n_slots, the dsh
-        slots a row (one a dw chunk's term and piece: slot = piece *
-        n_dw_terms + term); dsh ranges int32 [d_col, 2] into dsh slots int32
-        [n] (each SH column's slots, by term, then piece); items int32
-        (chunk << 8 | first row) in order of falling cost, so that the
-        warps' shares even out)."""
-        key = ("fb", device, vec, tile)
+    def r_tile(self, E: int, size: int, shared_a: bool, vec: int) -> int:
+        """K6-R's edge tile: the largest of R_TILES whose a rows and slots
+        fit FB_SMEM and whose grid has R_BLOCKS blocks at E edges, else the
+        smallest that fits.  b and d are read through L1 / L2 (a lane reads
+        its column of b once an item, d's elements are read by the few
+        terms of their output tile): at every site the 8-edge tile without
+        them ran within 2% of the fastest layout at QM9, and the 4-edge one
+        in bf16 at MD17 L3 (0.092 ms against 0.103 with b staged), where 8
+        edges give 368 blocks and ran 0.154 (kernel_ab's layouts, H100).
+        ``size``: bytes an element."""
+        key = ("r_tile", E, size, shared_a, vec)
+        if key not in self._tables:
+            n_slots = self._fb_lists(vec, 1)[4]
+            fits = [t for t in R_TILES if _fb_bytes(t, size, shared_a, False, False, self.d_a, 0,
+                                                    self.d_out, 0, n_slots) <= FB_SMEM]
+            if not fits:
+                raise ValueError("a row of a and R's slots do not fit K6-R's shared memory")
+            self._tables[key] = next((t for t in fits if -(-E // t) >= R_BLOCKS), fits[-1])
+        return self._tables[key]
+
+    def _fb_lists(self, vec: int, tile: int):
+        """K6-FB's tables as lists: (dx chunks, dx term records, dw chunks,
+        dw term records, n_slots, dsh ranges, dsh slots, items in order of
+        falling cost)."""
+        key = ("fb_lists", vec, tile)
         if key not in self._tables:
             (cx, tx, _), (cw, tw, _) = perm_a(self).chunks(vec), perm_b(self).chunks(vec)
             keyed = []  # (minus the item's terms, item)
@@ -314,25 +306,60 @@ class TermList:
             for col in by_col:
                 ranges.append((len(slots), len(slots) + len(col)))
                 slots += [p * len(tw) + t for t, p in sorted(col)]
-            plan = (_i32(cx + cw, 4, device), len(cx), _term_records(tx, device),
-                    _term_records(tw, device), len(tw), n_slots, _i32(ranges, 2, device),
-                    _i32(slots, 0, device), _i32([it for _, it in keyed], 0, device))
-            self._tables[key] = plan
+            self._tables[key] = (cx, tx, cw, tw, n_slots, ranges, slots,
+                                 [it for _, it in keyed])
         return self._tables[key]
 
-    def r_tables(self, device: torch.device):
-        """R's tables, as csrc/dtp_r.cu reads them: (column ranges int32
-        [d_col, 2], terms int32 [n, 5], coeffs float32 [n]) with the terms
-        sorted by column (stably)."""
-        key = ("r", device)
+    def fb_plan(self, device: torch.device, vec: int, tile: int):
+        """K6-FB's tables, as csrc/dtp_fused_bwd.cu reads them: (chunks
+        int32 [n_dx + n_dw, 4]: ``perm_a``'s chunks, then ``perm_b``'s; n_dx;
+        dx and dw term records int32 [n, 4]; n_dw_terms; n_slots, the dsh
+        slots a row (one a dw chunk's term and piece: slot = piece *
+        n_dw_terms + term); dsh ranges int32 [d_col, 2] into dsh slots int32
+        [n] (each SH column's slots, by term, then piece); items int32
+        (chunk << 8 | first row) in order of falling cost, so that the
+        warps' shares even out)."""
+        key = ("fb", device, vec, tile)
         if key not in self._tables:
-            order = sorted(range(len(self.terms)), key=lambda i: self.terms[i].col_off)
-            cols = [self.terms[i].col_off for i in order]
-            ranges = [(bisect.bisect_left(cols, j), bisect.bisect_right(cols, j))
-                      for j in range(self.d_col)]
-            self._tables[key] = (torch.tensor(ranges, dtype=torch.int32, device=device),
-                                 *self._term_rows(order, device))
+            cx, tx, cw, tw, n_slots, ranges, slots, items = self._fb_lists(vec, tile)
+            self._tables[key] = (
+                _i32(cx + cw, 4, device), len(cx), _term_records(tx, device),
+                _term_records(tw, device), len(tw), n_slots, _i32(ranges, 2, device),
+                _i32(slots, 0, device), _i32(items, 0, device))
         return self._tables[key]
+
+    def r_plan(self, device: torch.device, vec: int, tile: int):
+        """K6-R's tables, as csrc/dtp_r.cu reads them: ``fb_plan``'s dsh
+        part alone (chunks int32 [n, 4]: ``perm_b``'s; their term records;
+        n_terms; n_slots; the column ranges into the slots; the items of
+        those chunks, in fb_plan's order), so that each slot and each
+        column's sum are K6-FB's."""
+        key = ("r", device, vec, tile)
+        if key not in self._tables:
+            cx, _, cw, tw, n_slots, ranges, slots, items = self._fb_lists(vec, tile)
+            n_dx = len(cx)
+            self._tables[key] = (
+                _i32(cw, 4, device), _term_records(tw, device), len(tw), n_slots,
+                _i32(ranges, 2, device), _i32(slots, 0, device),
+                _i32([it - (n_dx << 8) for it in items if it >> 8 >= n_dx], 0, device))
+        return self._tables[key]
+
+
+def cut_segments(segs, vec: int):
+    """Segments (output column, width, term begin, term end) cut into K6's
+    chunks for lanes of ``vec`` columns: (chunk records [(column, width |
+    lg << 8 | du << 11, term begin, term end)], each chunk's cost).  A
+    segment is cut into chunks of at most 32 * vec columns (du: the chunk's
+    column in its segment); 2^lg lanes cover a chunk's row
+    (csrc/dtp_tr.cuh, ``item_lane``)."""
+    chunks, cost = [], []
+    for o, width, tb, te in segs:
+        for du in range(0, width, 32 * vec):
+            wd = min(32 * vec, width - du)
+            lg = (-(-wd // vec) - 1).bit_length()
+            chunks.append((o + du, wd | lg << 8 | du << 11, tb, te))
+            cost.append((te - tb + 1) * wd)
+    return chunks, cost
 
 
 def _i32(rows, width, device):
@@ -353,7 +380,9 @@ def _term_records(terms, device):
 
 
 def _fb_bytes(tile, size, shared_x, shared_w, stage_g, d_x, d_w, d_g, d_sh, n_slots) -> int:
-    """K6-FB's shared memory a block (csrc/dtp_fused_bwd.cu, ``fb_layout``)."""
+    """K6-FB's shared memory a block (csrc/dtp_fb.cuh, ``fb_layout``); K6-R's
+    with R's a in x's place and d_w = d_sh = 0, g not staged (a rows and
+    slots alone)."""
     a16 = lambda n: -(-n // 16) * 16  # noqa: E731
     rows = lambda shared: 1 if shared else tile  # noqa: E731
     return (a16(rows(shared_x) * d_x * size) + a16(rows(shared_w) * d_w * size)
@@ -508,10 +537,14 @@ def dtp_t(tl: TermList, a: torch.Tensor, col: torch.Tensor, b: torch.Tensor) -> 
     return out
 
 
-def dtp_r(tl: TermList, a: torch.Tensor, b: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+def dtp_r(tl: TermList, a: torch.Tensor, b: torch.Tensor, d: torch.Tensor,
+          tile: Optional[int] = None) -> torch.Tensor:
     """K6-R: R(a, b, d) [E, d_col] in d's dtype; a [E or 1, d_a], b [E or 1,
-    d_b], d [E, d_out].  CPU tensors take ``dtp_r_plain``; CUDA tensors
-    launch the kernel (float32 or bfloat16) or raise."""
+    d_b], d [E, d_out]; K6-FB's dsh in every bit on the same operands.
+    ``tile``: the edge tile to launch with instead of ``TermList.r_tile``'s
+    (a measurement's choice; the results do not depend on it).  CPU tensors
+    take ``dtp_r_plain``; CUDA tensors launch the kernel (float32 or
+    bfloat16) or raise."""
     if d.device.type == "cpu":
         return dtp_r_plain(tl, a, b, d)
     E = d.shape[0]
@@ -522,11 +555,14 @@ def dtp_r(tl: TermList, a: torch.Tensor, b: torch.Tensor, d: torch.Tensor) -> to
     out = torch.empty((E, tl.d_col), dtype=d.dtype, device=d.device)
     if E == 0:
         return out
-    ranges, terms, coeffs = tl.r_tables(d.device)
+    vec = _vec(tl, a, b, d)
+    tile = tile or tl.r_tile(E, d.element_size(), sa == 0, vec)
+    chunks, terms, n_terms, n_slots, ranges, slots, items = tl.r_plan(d.device, vec, tile)
     err = _build.library().dtp_r(
         _build.ptr(a), sa, _build.ptr(b), sb, _build.ptr(d), tl.d_out, _build.ptr(out),
-        tl.d_col, E, _build.ptr(ranges), _build.ptr(terms), _build.ptr(coeffs),
-        _build.dtype_code(d), _build.stream_ptr())
+        tl.d_col, tl.d_a, tl.d_b, E, tile, _build.ptr(chunks), _build.ptr(terms),
+        n_terms, n_slots, _build.ptr(ranges), _build.ptr(slots), _build.ptr(items),
+        items.shape[0], vec, _build.dtype_code(d), _build.stream_ptr())
     _build.check(err, "dtp_r")
     dtp_r.launches += 1
     return out

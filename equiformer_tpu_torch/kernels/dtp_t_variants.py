@@ -8,10 +8,11 @@ Counterparts of the kernels of ``scripts/kbench.py``; the tool
   kernel loads every element of x, sh and w once and stores every element
   of out once, so its time is the byte floor of T at these shapes.
 * ``dtp_t_staged`` (S1-A, the script's ``aligned_call``): T on K6-T's
-  term tables, each block staging its edge tile's rows in shared memory
-  once and writing every output segment of the tile from there; z dense
-  (``aligned_call(False)``) or, given the z slots of ``make_layouts``, in
-  128-column slots with zero padding (``aligned_call(True)``).
+  chunks and term records, each block staging its edge tile's a, b and col
+  rows in shared memory once and running K6-T's lanes over them; z dense
+  (``aligned_call(False)``, K6-T's bits) or, given the z slots of
+  ``make_layouts``, in 128-column slots with zero padding
+  (``aligned_call(True)``).
 
 Both kernels are in ``csrc/dtp_t_variants.cu``.  CPU tensors take the plain
 versions (``dtp_t_floor_plain``, ``dtp_t_staged_plain``).
@@ -25,10 +26,12 @@ import torch
 
 from ..core.tensor_product import TensorProduct
 from . import _build
-from .dtp import TermList, _edge_rows, dtp_t_plain
+from .dtp import TermList, _edge_rows, _i32, _term_records, cut_segments, dtp_t_plain
 
 FLOOR_COLS = 128  # the columns of x and w that reach the floor's output
 SLOT = 128  # the aligned layout's slot width
+STAGED_TILES = (4, 2, 1)  # S1-A's edge tiles, largest first
+STAGED_SMEM = 16 << 10  # S1-A's shared memory a block
 
 Slots = Dict[int, Tuple[int, int]]  # flat offset -> (slot column, mul)
 
@@ -108,28 +111,53 @@ def dtp_t_floor(x: torch.Tensor, sh: torch.Tensor, w: torch.Tensor, d_out: int) 
 
 
 # ------------------------------------------------------------------ S1-A
-def staged_tables(tl: TermList, z_slots: Optional[Slots], device: torch.device):
-    """(segments int32 [n_seg, 4], terms, coeffs, d_out) as
-    csrc/dtp_t_variants.cu reads them.  ``z_slots`` None: K6-T's own tables
-    (``tl.t_tables``), the dense output.  Otherwise each output tile (o,
-    mul) of the terms goes to its slot's column, and the slot's columns past
-    mul to a zero segment: the output is [E, 128 * len(z_slots)]."""
-    segs, terms, coeffs = tl.t_tables(device)
-    if z_slots is None:
-        return segs, terms, coeffs, tl.d_out
-    key = ("staged-aligned", device)
+def _staged_bytes(tile: int, size: int, tl: TermList) -> int:
+    """S1-A's shared memory a block (csrc/dtp_t_variants.cu,
+    ``staged_bytes``): a and b rows, col rows in fp32."""
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    return a16(tile * tl.d_a * size) + a16(tile * tl.d_b * size) + tile * tl.d_col * 4
+
+
+def staged_tile(tl: TermList, size: int) -> int:
+    """S1-A's edge tile: the first of STAGED_TILES whose block fits
+    STAGED_SMEM, else 1.  At kbench's widths that is 2 edges fp32 and 4
+    bf16 (11.6 KB), the fastest of 1, 2, 4 and 8 in both dtypes (dense
+    0.272 ms against 0.282 for 4 edges fp32, 0.173 against 0.225 for 2
+    bf16; kernel_ab's tiles, H100).  ``size``: bytes an element."""
+    return next((t for t in STAGED_TILES if _staged_bytes(t, size, tl) <= STAGED_SMEM), 1)
+
+
+def staged_plan(tl: TermList, z_slots: Optional[Slots], device: torch.device, vec: int,
+                tile: int):
+    """(chunks int32 [n, 4], term records int32 [n_t, 4], items int32
+    [n_i], d_out) as csrc/dtp_t_variants.cu reads them.  ``z_slots`` None:
+    K6-T's own chunks (``tl.chunks``), the dense output.  Otherwise each
+    output tile (o, mul) of the terms is cut at its slot's column, and the
+    slot's columns past mul into chunks of no terms (zeros): the output is
+    [E, 128 * len(z_slots)].  Items (chunk << 8 | first row) cover every
+    chunk and the rows of a ``tile``-edge tile, in order of falling cost."""
+    key = ("staged", z_slots is not None, device, vec, tile)
     if key not in tl._tables:
-        runs = {o: (b, e) for o, _, b, e in segs.tolist() if e > b}
-        if not set(runs) <= set(z_slots):
-            raise ValueError("an output tile of the terms has no slot")
-        al = []
-        for o, (slot, mul) in sorted(z_slots.items(), key=lambda kv: kv[1][0]):
-            b, e = runs.get(o, (0, 0))
-            al.append((slot, mul, b, e))
-            if mul < SLOT:
-                al.append((slot + mul, SLOT - mul, e, e))
-        tl._tables[key] = torch.tensor(al, dtype=torch.int32, device=device)
-    return tl._tables[key], terms, coeffs, SLOT * len(z_slots)
+        chunks, terms, _ = tl.chunks(vec)
+        d_out = tl.d_out
+        if z_slots is not None:
+            runs = {o: (b, e) for o, _, b, e in tl._segments()[1] if e > b}
+            if not set(runs) <= set(z_slots):
+                raise ValueError("an output tile of the terms has no slot")
+            segs = []
+            for o, (slot, mul) in sorted(z_slots.items(), key=lambda kv: kv[1][0]):
+                b, e = runs.get(o, (0, 0))
+                segs.append((slot, mul, b, e))
+                if mul < SLOT:
+                    segs.append((slot + mul, SLOT - mul, e, e))
+            chunks = cut_segments(segs, vec)[0]
+            d_out = SLOT * len(z_slots)
+        keyed = sorted(((tb - te - 1, k << 8 | r)
+                        for k, (_, y, tb, te) in enumerate(chunks)
+                        for r in range(0, tile, 32 >> ((y >> 8) & 7))), key=lambda kv: kv[0])
+        tl._tables[key] = (_i32(chunks, 4, device), _term_records(terms, device),
+                           _i32([it for _, it in keyed], 0, device), d_out)
+    return tl._tables[key]
 
 
 def dtp_t_staged_plain(tl: TermList, a, col, b, z_slots: Optional[Slots] = None) -> torch.Tensor:
@@ -146,11 +174,13 @@ def dtp_t_staged_plain(tl: TermList, a, col, b, z_slots: Optional[Slots] = None)
 
 
 def dtp_t_staged(tl: TermList, a: torch.Tensor, col: torch.Tensor, b: torch.Tensor,
-                 z_slots: Optional[Slots] = None) -> torch.Tensor:
+                 z_slots: Optional[Slots] = None, tile: Optional[int] = None) -> torch.Tensor:
     """S1-A: T(a, col, b) with a [E, d_a], col [E, d_col], b [E, d_b] (no
     broadcast rows), dense [E, d_out] or in ``z_slots``' 128-column layout.
-    CPU tensors take ``dtp_t_staged_plain``; CUDA tensors launch the kernel
-    (float32 or bfloat16) or raise."""
+    ``tile``: the edge tile to launch with instead of ``staged_tile``'s (a
+    measurement's choice; the results do not depend on it).  CPU tensors
+    take ``dtp_t_staged_plain``; CUDA tensors launch the kernel (float32 or
+    bfloat16) or raise."""
     if col.device.type == "cpu":
         return dtp_t_staged_plain(tl, a, col, b, z_slots)
     E = col.shape[0]
@@ -158,14 +188,16 @@ def dtp_t_staged(tl: TermList, a: torch.Tensor, col: torch.Tensor, b: torch.Tens
     col = _aligned16(_edge_rows(col, E, tl.d_col, col, "col"))
     a = _aligned16(_edge_rows(a, E, tl.d_a, col, "a"))
     b = _aligned16(_edge_rows(b, E, tl.d_b, col, "b"))
-    segs, terms, coeffs, d_out = staged_tables(tl, z_slots, col.device)
+    vec = 4 if tl.vec4() else 1
+    tile = tile or staged_tile(tl, col.element_size())
+    chunks, terms, items, d_out = staged_plan(tl, z_slots, col.device, vec, tile)
     out = torch.empty((E, d_out), dtype=col.dtype, device=col.device)
     if E == 0:
         return out
     err = _build.library().dtp_t_staged(
         _build.ptr(a), tl.d_a, _build.ptr(col), tl.d_col, _build.ptr(b), tl.d_b, _build.ptr(out),
-        d_out, E, _build.ptr(segs), segs.shape[0], _build.ptr(terms), _build.ptr(coeffs), code,
-        _build.stream_ptr())
+        d_out, E, tile, _build.ptr(chunks), _build.ptr(terms), _build.ptr(items), items.shape[0],
+        vec, code, _build.stream_ptr())
     _build.check(err, "dtp_t_staged")
     dtp_t_staged.launches += 1
     return out

@@ -4,9 +4,10 @@ forward), K7-B (its backward), K5a (the force backward: dx, dsh and dw of
 the force models' fused op), K5b (its edge legs), K5c (its head-weight
 leg), K7-L, K7-Wr and K7-LW (the folded op's x / sh / h, [Wr; offset] and
 head-weight legs), K7-B3 (its force backward), K8-F and K8-B (the
-kron-basis forward and backward), K6-T (the unfused route's T primitive)
-and K6-FB (its first-order backward in one launch) of this package against
-another tree's, in turns, on one GPU.
+kron-basis forward and backward), K6-T (the unfused route's T primitive),
+K6-FB (its first-order backward in one launch), K6-R (its R primitive) and
+S1-A (kbench's staged T) of this package against another tree's, in
+turns, on one GPU.
 
     python -m equiformer_tpu_torch.tools.kernel_ab [--against DIR [DIR ...]]
         [--kernels K1,K4] [--out FILE]
@@ -49,7 +50,11 @@ operand None; K6-T (forward, x leg, w leg) and K6-FB at the unfused
 flagship's three sites and exp_l3's sep_act, every row live, each side on
 its own models' term lists, K6-FB beside the sum of its three parts on the
 same side (``parts_ms``: K6-T's x and w legs and K6-R) and ``bitwise`` the
-outputs equal in every bit to the first other tree's.  K5a's (dx, dw)
+outputs equal in every bit to the first other tree's; K6-R at the same
+sites with ``fb_dsh_bitwise`` (its output K6-FB's dsh in every bit) and its
+``layouts`` (as K6-FB's); S1-A at kbench's shapes (E = 40960), dense and in
+slots, beside this package's K6-T (``k6t_ms``, ``k6t_bitwise``) and at each
+edge tile (``tiles``).  K5a's (dx, dw)
 runs beside K2's own launch 1 on the same inputs (S3 ``dtp_lin_bwd_stage``
 at ``DXDW_STAGE``: the compile-time dx / dw code, whole tiles), where its
 shared memory fits.  Random operands from
@@ -59,7 +64,7 @@ seed 0, the batch's real edges live.  Per shape and dtype (float32, bfloat16):
   ``host_us`` (K3): its host time a call (median of 5 runs of 100 calls
   without a synchronize), which bounds ``ms`` at the small MD17 shapes;
 * ``device_ms`` (K3, K4, K5a-c, K7-F, K7-L, K7-B, K7-B3, K7-Wr, K7-LW,
-  K8-F, K8-B, K6-T, K6-FB): each side's device time per call, all its kernels (gathers
+  K8-F, K8-B, K6-T, K6-FB, K6-R, S1-A): each side's device time per call, all its kernels (gathers
   too), ``kernel_ms`` the kernel alone (K5a-c, K7-L, K7-B, K7-B3, K7-Wr,
   K7-LW, K8-B: their launches and sums) and
   ``by_kernel`` each of those by name,
@@ -77,6 +82,7 @@ Prints the card's name and power limit, then the report as JSON (also to
 from __future__ import annotations
 
 import argparse
+import importlib
 import importlib.util
 import json
 import statistics
@@ -132,11 +138,15 @@ K8B_KERNELS = ("kron_dxdw_kernel", "kron_dG_kernel", "sum_partial_rows_kernel",
 K8F_KERNEL = "kron_fwd_kernel"
 # K6-T's, K6-R's and K6-FB's kernels
 K6_KERNELS = {"K6T": "dtp_t_kernel", "K6R": "dtp_r_kernel", "K6FB": "dtp_fused_bwd_kernel"}
+S1A_KERNEL = "dtp_t_staged_kernel"
 SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K7L", "K7B", "K5a", "K5b", "K5c", "K7Wr", "K7LW",
-            "K7B3", "K8F", "K8B", "K6T", "K6FB")
-# the (edge tile, g staged) layouts kernel_ab times K6-FB at
-FB_LAYOUTS = ((8, True), (4, True), (2, True), (8, False), (4, False), (2, False))
+            "K7B3", "K8F", "K8B", "K6T", "K6FB", "K6R", "S1A")
+# the edge tiles kernel_ab times K6-R at (those whose block fits the card;
+# K6-FB's layouts are kernels.dtp.FB_LAYOUTS)
+R_TILES = (16, 8, 4, 2, 1)
 FB_SMEM_MAX = 227 << 10  # a block's shared memory on the H100
+S1A_EDGES = 40960  # kbench's edge count
+S1A_TILES = (1, 2, 4, 8)  # the edge tiles kernel_ab times S1-A at
 # K6-T's members at each site: name -> (the member of a TermList, its
 # operands (a, col, b) from the DTP's x, sh, w and the cotangent ct)
 K6T_MEMBERS = {"fwd": (lambda kd, tl: tl, lambda x, sh, w, ct: (x, sh, w)),
@@ -659,7 +669,7 @@ def k6fb_section(sides, order, lists, rows, dev, report):
     package's plain version, both dtypes; ``legs_bitwise``: dx and dw equal
     in every bit to the legs' outputs; ``bitwise``: all three to the first
     other tree's K6-FB; ``layouts``: this package's K6-FB kernel ms at each
-    of ``FB_LAYOUTS`` that fits, and whether its outputs are the same bits
+    of ``kernels.dtp.FB_LAYOUTS`` that fits, and whether its outputs are the same bits
     (the first design took no layout: none there)."""
     names = [s for s in order if s != "package"]
     for site, (tl, sx, sw) in lists["package"].items():
@@ -688,7 +698,7 @@ def k6fb_section(sides, order, lists, rows, dev, report):
             _bitwise(entry["runs"], outs, names)
             entry["layouts"] = {}  # this package's K6-FB at each (edge tile, g staged) that fits
             n_slots = tl.fb_plan(torch.device("cpu"), 4, 1)[5]
-            for tile, gs in FB_LAYOUTS:
+            for tile, gs in kernels.dtp.FB_LAYOUTS:
                 if kernels.dtp._fb_bytes(tile, x.element_size(), sx, sw, gs, tl.d_a, tl.d_b,
                                          tl.d_out, tl.d_col, n_slots) > FB_SMEM_MAX:
                     continue
@@ -700,6 +710,99 @@ def k6fb_section(sides, order, lists, rows, dev, report):
             name = f"{site}/{str(dt)[6:]}"
             report["K6FB"][name] = entry
             print("K6FB", name, json.dumps(entry), flush=True)
+            del outs
+
+
+def k6r_section(sides, order, lists, rows, dev, report):
+    """K6-R at each site of ``lists[side]`` against this package's plain
+    version, both dtypes; ``fb_dsh_bitwise``: its output equal in every bit
+    to K6-FB's dsh on the same side and operands; ``bitwise``: to the first
+    other tree's K6-R; ``layouts``: this package's K6-R kernel ms (traced)
+    and wrapper ms (CUDA events) at each of ``R_TILES`` that fits, and
+    whether its output is the same bits
+    (the first design took no layout: none there)."""
+    names = [s for s in order if s != "package"]
+    for site, (tl, sx, sw) in lists["package"].items():
+        E = rows[site][0]
+        for dt in (torch.float32, torch.bfloat16):
+            x, sh, w, ct = k6_operands(tl, sx, sw, E, dt, dev)
+            want = kernels.dtp.dtp_r_plain(tl, x, w, ct)
+            entry, outs = {"E": E, "runs": []}, []
+            for i, side in enumerate(order):
+                kd, stl = sides[side][0].dtp, lists[side][site][0]
+                call = lambda kd=kd, stl=stl: kd.dtp_r(stl, x, w, ct)  # noqa: E731
+                tag = f"K6R_{site}_{str(dt)[6:]}_{side}_{i}"
+                outs.append((call(),))
+                entry["runs"].append({
+                    "side": side, "ms": device_time_ms(call, dev),
+                    **traced_run(call, tag, K6_KERNELS["K6R"]),
+                    "fb_dsh_bitwise": torch.equal(outs[-1][0],
+                                                  kd.dtp_fused_bwd(stl, x, sh, w, ct)[1]),
+                    "rel_err": rel(outs[-1][0], want)})
+            _bitwise(entry["runs"], outs, names)
+            entry["layouts"] = {}  # this package's K6-R at each edge tile that fits
+            n_slots = tl.r_plan(torch.device("cpu"), 4, 1)[3]
+            for tile in R_TILES:
+                if kernels.dtp._fb_bytes(tile, x.element_size(), sx, False, False, tl.d_a, 0,
+                                         tl.d_out, 0, n_slots) > FB_SMEM_MAX:
+                    continue
+                call = lambda: kernels.dtp.dtp_r(tl, x, w, ct, tile)  # noqa: E731
+                entry["layouts"][str(tile)] = [traced_run(
+                    call, f"K6R_{site}_{str(dt)[6:]}_{tile}", K6_KERNELS["K6R"])[
+                        "kernel_ms"], device_time_ms(call, dev), torch.equal(call(), outs[0][0])]
+            name = f"{site}/{str(dt)[6:]}"
+            report["K6R"][name] = entry
+            print("K6R", name, json.dumps(entry), flush=True)
+            del outs
+
+
+def s1a_section(sides, order, dev, report):
+    """S1-A at kbench's shapes (the flagship's sep_act DTP, E = S1A_EDGES),
+    dense and in 128-column slots, against this package's plain version,
+    both dtypes, beside this package's K6-T on the same inputs (``k6t_ms``,
+    kernel device time); ``k6t_bitwise``: the dense output equal in every
+    bit to that K6-T's; ``bitwise``: to the first other tree's S1-A;
+    ``tiles``: this package's S1-A kernel ms (traced) and wrapper ms (CUDA
+    events) at each of ``S1A_TILES``, and whether its output is the same
+    bits (the first design took no tile)."""
+    from .kbench import flagship_tp
+
+    names = [s for s in order if s != "package"]
+    tp = flagship_tp()
+    tl = kernels.TermList.for_plan(tp, fold_rescale=True)
+    z_slots = kernels.make_layouts(tp)[4]
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        x, sh, w = (torch.randn(S1A_EDGES, d, generator=g, device=dev).to(dt)
+                    for d in (tl.d_a, tl.d_col, tl.d_b))
+        k6t = lambda: kernels.dtp_t(tl, x, sh, w)  # noqa: E731
+        for layout, slots in (("dense", None), ("slots", z_slots)):
+            want = kernels.dtp_t_staged_plain(tl, x, sh, w, slots)
+            entry, outs = {"E": S1A_EDGES, "runs": [], "k6t_ms": traced_run(
+                k6t, f"S1A_{layout}_{str(dt)[6:]}_k6t", K6_KERNELS["K6T"])["kernel_ms"]}, []
+            for i, side in enumerate(order):
+                m = sides[side][0]  # each side on its own term list and slots
+                stp = importlib.import_module(
+                    f"{m.__name__.rpartition('.')[0]}.tools.kbench").flagship_tp()
+                stl, ss = m.TermList.for_plan(stp, True), slots and m.make_layouts(stp)[4]
+                call = lambda m=m, stl=stl, ss=ss: m.dtp_t_staged(stl, x, sh, w, ss)  # noqa: E731
+                tag = f"S1A_{layout}_{str(dt)[6:]}_{side}_{i}"
+                outs.append((call(),))
+                entry["runs"].append({
+                    "side": side, "ms": device_time_ms(call, dev),
+                    **traced_run(call, tag, S1A_KERNEL), "rel_err": rel(outs[-1][0], want)})
+            _bitwise(entry["runs"], outs, names)
+            if slots is None:
+                entry["k6t_bitwise"] = torch.equal(outs[0][0], k6t())
+            entry["tiles"] = {}
+            for tile in S1A_TILES:
+                call = lambda: kernels.dtp_t_staged(tl, x, sh, w, slots, tile)  # noqa: E731
+                entry["tiles"][str(tile)] = [traced_run(
+                    call, f"S1A_{layout}_{str(dt)[6:]}_{tile}", S1A_KERNEL)["kernel_ms"],
+                    device_time_ms(call, dev), torch.equal(call(), outs[0][0])]
+            name = f"kbench-{layout}/{str(dt)[6:]}"
+            report["S1A"][name] = entry
+            print("S1A", name, json.dumps(entry), flush=True)
             del outs
 
 
@@ -811,12 +914,16 @@ def main(argv=None) -> dict:
         if "K8B" in want:
             k8b_section(sides, order, kron, rows, dev, report)
 
-    if {"K6T", "K6FB"} & set(want):
+    if {"K6T", "K6FB", "K6R"} & set(want):
         lists = k6_lists(sides, E, mE, dev)
         if "K6T" in want:
             k6t_section(sides, order, lists, rows, dev, report)
         if "K6FB" in want:
             k6fb_section(sides, order, lists, rows, dev, report)
+        if "K6R" in want:
+            k6r_section(sides, order, lists, rows, dev, report)
+    if "S1A" in want:
+        s1a_section(sides, order, dev, report)
 
     if {"K5a", "K5b", "K5c"} & set(want):
         mrows = {f"md17-{site}": (mE, int(mmask.sum())) for site in ("sep_act", "sep_value",

@@ -595,13 +595,14 @@ def _k6_broadcast(tl, dev, dt, case, E):
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("plan", list(K6_PLANS))
 def test_dtp_t_r_and_fused_bwd_kernels_match_plain(dev, plan, dtype):
-    """K6-T on the DTP's terms and on every member of its family (each
-    transpose's permutation, the force grad-of-grad's), K6-R and K6-FB
+    """K6-T and K6-R on the DTP's terms and on every member of its family
+    (each transpose's permutation, the force grad-of-grad's), and K6-FB,
     against their plain versions on the same operands, at each of
     ``K6_EDGES`` and with a or b broadcast (one row, or an expanded row);
     second calls give the same bits (one writer per element, fixed
     reduction order); K6-FB's dx and dw are the bits of K6-T's x and w legs
-    (the same sums in the same order)."""
+    and K6-R's output is K6-FB's dsh in every bit, on every member (the
+    same sums in the same order)."""
     from equiformer_tpu_torch.kernels import dtp as kd
 
     irr, sh, fold = K6_PLANS[plan]
@@ -625,20 +626,28 @@ def test_dtp_t_r_and_fused_bwd_kernels_match_plain(dev, plan, dtype):
                     assert _rel(k, p) < TOL[dtype], (member.slots, E, case)
                     assert torch.equal(k, kd.dtp_t(member, *m_ops))
                     n["t"] += 2
-            k = kd.dtp_r(tl, a, b, d)
-            assert k.shape == (E, tl.d_col)
+            for member in members:  # R's d is a whole [E, d_out] operand
+                r_ops = (lanes[member.slots[0]], lanes[member.slots[1]],
+                         lanes[member.slots[2]].expand(E, member.d_out))
+                k = kd.dtp_r(member, *r_ops)
+                assert k.dtype == dt and k.shape == (E, member.d_col)
+                if E:
+                    assert _rel(k, kd.dtp_r_plain(member, *r_ops)) < TOL[dtype], (member.slots,
+                                                                                  E, case)
+                    assert torch.equal(k, kd.dtp_r(member, *r_ops))
+                    fb_m = kd.dtp_fused_bwd(member, r_ops[0], col, r_ops[1], r_ops[2])
+                    assert torch.equal(k, fb_m[1]), (member.slots, E, case)
+                    n["r"] += 2
+                    n["fb"] += 1
             fb = kd.dtp_fused_bwd(tl, a, col, b, d)
             if not E:
                 continue
-            assert _rel(k, kd.dtp_r_plain(tl, a, b, d)) < TOL[dtype]
-            assert torch.equal(k, kd.dtp_r(tl, a, b, d))
             for x, y in zip(fb, kd.dtp_fused_bwd_plain(tl, a, col, b, d)):
                 assert x.dtype == dt and x.shape == y.shape and _rel(x, y) < TOL[dtype]
             assert all(torch.equal(x, y) for x, y in zip(fb, kd.dtp_fused_bwd(tl, a, col, b, d)))
             assert torch.equal(fb[0], kd.dtp_t(kd.perm_a(tl), d, col, b)), (E, case)
             assert torch.equal(fb[2], kd.dtp_t(kd.perm_b(tl), a, col, d)), (E, case)
             n["t"] += 2
-            n["r"] += 2
             n["fb"] += 2
     assert (kd.dtp_t.launches, kd.dtp_r.launches, kd.dtp_fused_bwd.launches) == (
         n["t"], n["r"], n["fb"])
@@ -1204,8 +1213,10 @@ def test_dtp_t_floor_matches_plain(dev, shape, dtype):
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("irreps", [IRR, L2_FLAGSHIP])
 def test_dtp_t_staged_matches_plain_and_k6t(dev, irreps, dtype):
-    """S1-A in both layouts against its plain version; the dense layout is
-    K6-T's function summed in K6-T's order: the same bits as dtp_t."""
+    """S1-A in both layouts against its plain version, at the small widths
+    and kbench's (the flagship's), 301 edges (a partial last tile); the
+    dense layout is K6-T's function summed in K6-T's order: the same bits
+    as dtp_t at every edge tile, and the slot layout's padding is zero."""
     from equiformer_tpu_torch.kernels import dtp as kd
     from equiformer_tpu_torch.kernels import dtp_t_staged, dtp_t_staged_plain, make_layouts
 
@@ -1213,7 +1224,7 @@ def test_dtp_t_staged_matches_plain_and_k6t(dev, irreps, dtype):
     tp = depthwise_tp(Irreps(irreps), Irreps(SH), Irreps(irreps))
     tl = kd.TermList.for_plan(tp, True)
     z_slots = make_layouts(tp)[4]
-    a, col, b, _ = _k6_operands(tl, dev, dt, seed=8)
+    a, col, b, _ = _k6_operands(tl, dev, dt, E=301, seed=8)
     reset_launch_counts()
     for slots in (None, z_slots):
         got = dtp_t_staged(tl, a, col, b, slots)
@@ -1221,8 +1232,14 @@ def test_dtp_t_staged_matches_plain_and_k6t(dev, irreps, dtype):
         torch.cuda.synchronize()
         assert got.shape == want.shape and _rel(got, want) < TOL[dtype]
     assert got.shape[1] == 128 * len(z_slots)
-    assert torch.equal(dtp_t_staged(tl, a, col, b), kd.dtp_t(tl, a, col, b))
-    assert dtp_t_staged.launches == 3
+    pad = torch.ones(got.shape[1], dtype=torch.bool)
+    for slot, mul in z_slots.values():
+        pad[slot:slot + mul] = False
+    assert float(got[:, pad.to(dev)].abs().max()) == 0.0
+    k6t = kd.dtp_t(tl, a, col, b)
+    for tile in (None, 1, 2, 4, 8):
+        assert torch.equal(dtp_t_staged(tl, a, col, b, tile=tile), k6t), tile
+    assert dtp_t_staged.launches == 7
 
 
 @pytest.mark.cuda

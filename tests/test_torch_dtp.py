@@ -53,9 +53,11 @@ from equiformer_tpu_torch.core import Irreps, depthwise_tp  # noqa: E402
 from equiformer_tpu_torch.data import md17_like_dataset  # noqa: E402
 from equiformer_tpu_torch.graph.batching import collate_dense as t_collate  # noqa: E402
 from equiformer_tpu_torch.kernels import dtp as kd  # noqa: E402
+from equiformer_tpu_torch.kernels import dtp_t_variants as kv  # noqa: E402
 from equiformer_tpu_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402
 from equiformer_tpu_torch.models import md17_models  # noqa: E402
 from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer as TModel  # noqa: E402
+from equiformer_tpu_torch.tools.kbench import flagship_tp  # noqa: E402
 from equiformer_tpu_torch.utils import params_from_jax, torch_name  # noqa: E402
 
 IRR, SH = "8x0e+4x1e+2x2e", "1x0e+1x1e+1x2e"
@@ -274,36 +276,6 @@ def test_t_matches_packed_pallas_dtp():
     assert _rel(g.numpy(), vjp(jnp.asarray(ct))[0]) < PRIM_TOL
 
 
-def _walk_t(tl, a, col, b):
-    """T over its segment tables as S1-A (csrc/dtp_t_variants.cu) walks
-    them: per segment, each output element sums its terms in table order."""
-    segs, terms, coeffs = (t.numpy() for t in tl.t_tables(torch.device("cpu")))
-    out = np.full((col.shape[0], tl.d_out), np.nan)
-    assert segs[0, 0] == 0 and segs[-1, 0] + segs[-1, 1] == tl.d_out
-    assert np.all(segs[1:, 0] == segs[:-1, 0] + segs[:-1, 1])  # every column once
-    for o, width, t0, t1 in segs:
-        acc = np.zeros((col.shape[0], width))
-        for t in range(t0, t1):
-            ao, j, bo, oo, mul = terms[t]
-            assert oo == o and mul == width
-            acc += float(coeffs[t]) * col[:, j:j + 1] * a[:, ao:ao + mul] * b[:, bo:bo + mul]
-        out[:, o:o + width] = acc
-    return out
-
-
-def _walk_r(tl, a, b, d):
-    ranges, terms, coeffs = (t.numpy() for t in tl.r_tables(torch.device("cpu")))
-    out = np.zeros((d.shape[0], tl.d_col))
-    assert ranges.shape == (tl.d_col, 2) and ranges[-1, 1] == len(tl.terms)
-    for j, (t0, t1) in enumerate(ranges):
-        for t in range(t0, t1):
-            ao, jj, bo, oo, mul = terms[t]
-            assert jj == j
-            out[:, j] += float(coeffs[t]) * (a[:, ao:ao + mul] * b[:, bo:bo + mul]
-                                             * d[:, oo:oo + mul]).sum(1)
-    return out
-
-
 def _t_lanes(item, chunk, vec):
     """The rows and first columns of the live lanes of one K6 warp item, and
     the chunk's column in its segment (csrc/dtp_tr.cuh, ``item_lane``)."""
@@ -347,6 +319,67 @@ def _walk_t_plan(tl, a, col, b, vec, runs):
                 out[e, o + u] = acc
                 np.add.at(hits, (e, o + u), 1)
     assert (hits == 1).all()
+    return out
+
+
+def _walk_staged(tl, a, col, b, vec, tile, z_slots=None):
+    """T as S1-A (csrc/dtp_t_variants.cu) walks ``staged_plan``: a block per
+    ``tile``-edge tile, each warp item's lanes writing their columns of the
+    dense z or of its 128-column slots (chunks of no terms: the padding's
+    zeros); every output element is written exactly once."""
+    chunks, records, items, d_out = kv.staged_plan(tl, z_slots, torch.device("cpu"), vec, tile)
+    chunks, records, items = chunks.numpy(), records.numpy(), items.numpy()
+    E = col.shape[0]
+    out, hits = np.full((E, d_out), np.nan), np.zeros((E, d_out), int)
+    for e0 in range(0, E, tile):
+        for it in items:
+            o, _, t0, t1 = chunk = chunks[it >> 8]
+            rows, us, du = _t_lanes(it, chunk, vec)
+            keep = (rows < tile) & (e0 + rows < E)
+            e = (e0 + rows[keep])[:, None]
+            u, acc = _t_chunk(e, us[keep], du, vec, records, t0, t1, col, a, b)
+            out[e, o + u] = acc
+            np.add.at(hits, (e, o + u), 1)
+    assert (hits == 1).all()
+    return out
+
+
+def _walk_r(tl, a, b, d, vec, tile):
+    """R as csrc/dtp_r.cu walks ``r_plan`` (K6-FB's dsh part): a block per
+    edge tile, each item a chunk of the b <-> out permutation over some
+    rows, its lanes writing c * sum a d b of each term into the row's slot,
+    then each (row, column) summing its slots; every slot a column reads is
+    written exactly once, and holds a term of that column."""
+    chunks, records, n_terms, n_slots, ranges, slots, items = (
+        t.numpy() if isinstance(t, torch.Tensor) else t
+        for t in tl.r_plan(torch.device("cpu"), vec, tile))
+    E = d.shape[0]
+    a, b = np.broadcast_to(a, (E, tl.d_a)), np.broadcast_to(b, (E, tl.d_b))
+    coeffs = records[:, 3].copy().view(np.float32)
+    assert ranges.shape == (tl.d_col, 2) and ranges[-1, 1] == len(slots)
+    for j, (lo, hi) in enumerate(ranges):
+        assert (records[slots[lo:hi] % n_terms, 1] == j).all()
+    out = np.full((E, tl.d_col), np.nan)
+    for e0 in range(0, E, tile):
+        part, part_hits = np.full((tile, n_slots), np.nan), np.zeros((tile, n_slots), int)
+        for it in items:
+            o, _, t0, t1 = chunk = chunks[it >> 8]
+            rows, us, du = _t_lanes(it, chunk, vec)
+            keep = (rows < tile) & (e0 + rows < E)
+            rows, us = rows[keep], us[keep]
+            u = us[:, None] + np.arange(vec)
+            for r in np.unique(rows):
+                cols, er = u[rows == r].ravel(), e0 + r
+                for t in range(t0, t1):
+                    ao, _, bo = records[t, :3]
+                    slot = du // (32 * vec) * n_terms + t
+                    part[r, slot] = float(coeffs[t]) * np.sum(
+                        a[er, ao + du + cols] * d[er, bo + du + cols] * b[er, o + cols])
+                    part_hits[r, slot] += 1
+        for r in range(min(tile, E - e0)):
+            for j, (lo, hi) in enumerate(ranges):
+                assert (part_hits[r, slots[lo:hi]] == 1).all()
+                out[e0 + r, j] = part[r, slots[lo:hi]].sum()
     return out
 
 
@@ -395,26 +428,85 @@ def _walk_fb(tl, x, sh, w, g, vec, tile):
 
 @pytest.mark.parametrize("perm", list(PERMS))
 def test_tables_drive_the_plain_math(perm):
-    """T's segments (S1-A's tables) and K6-T's plan (chunks, items, runs),
-    and R's column ranges, walked as the kernels walk them, give the plain
-    versions' results (within the tables' float32 coefficients); so does
-    K6-FB's plan (dx: the a <-> out permutation's chunks with a = g, dw:
-    the b <-> out one's with b = g, dsh: the dw chunks' slots), at tiles
-    of 8 and 3 edges, with 40 edges (a partial last tile) and a broadcast
-    b."""
+    """S1-A's plan (K6-T's chunks over a staged tile) and K6-T's plan
+    (chunks, items, runs), and K6-R's plan (K6-FB's dsh part), walked as the
+    kernels walk them, give the plain versions' results (within the tables'
+    float32 coefficients); so does K6-FB's plan (dx: the a <-> out
+    permutation's chunks with a = g, dw: the b <-> out one's with b = g,
+    dsh: the dw chunks' slots), at tiles of 8 and 3 edges, with 40 edges (a
+    partial last tile) and a broadcast b."""
     tl = PERMS[perm][0](_lists("l3")[0])
     rng = np.random.default_rng(6)
     a, col = rng.normal(size=(40, tl.d_a)), rng.normal(size=(40, tl.d_col))
     b, d = rng.normal(size=(1, tl.d_b)), rng.normal(size=(40, tl.d_out))
     t = kd.dtp_t_plain(tl, _tt(a), _tt(col), _tt(b)).numpy()
-    assert _rel(_walk_t(tl, a, col, b), t) < WALK_TOL
+    assert _rel(_walk_staged(tl, a, col, np.broadcast_to(b, (40, tl.d_b)), 1, 3), t) < WALK_TOL
     for runs in (1, 2, 4):
         assert _rel(_walk_t_plan(tl, a, col, b, 1, runs), t) < WALK_TOL
-    assert _rel(_walk_r(tl, a, b, d), kd.dtp_r_plain(tl, _tt(a), _tt(b), _tt(d)).numpy()) < WALK_TOL
     want = [v.numpy() for v in kd.dtp_fused_bwd_plain(tl, _tt(a), _tt(col), _tt(b), _tt(d))]
     for tile in (8, 3):
+        assert _rel(_walk_r(tl, a, b, d, 1, tile),
+                    kd.dtp_r_plain(tl, _tt(a), _tt(b), _tt(d)).numpy()) < WALK_TOL
         for got, ref in zip(_walk_fb(tl, a, col, b, d, 1, tile), want):
             assert _rel(got, ref) < WALK_TOL
+
+
+@pytest.mark.parametrize("perm", list(PERMS))
+def test_r_plan_is_k6fb_dsh_part(perm):
+    """K6-R's plan is K6-FB's dsh part: the b <-> out permutation's chunks
+    and term records, K6-FB's slots and column lists, and its dw items in
+    K6-FB's order; walked over 3-edge tiles (a partial last one) with a
+    broadcast a or b, in lanes of 4 columns and of 1 (tiles of 64 and 36
+    columns cut into pieces of 32: a term's slot a piece), it gives
+    ``dtp_r_plain``."""
+    irr = Irreps("64x0e+36x1e")
+    tl = PERMS[perm][0](kd.TermList.for_plan(depthwise_tp(irr, Irreps("1x0e+1x1e"), irr), True))
+    assert tl.vec4()
+    for vec, tile in ((4, 3), (4, 8), (1, 3)):
+        chunks, n_dx, _, dwt, n_dwt, n_slots, ranges, slots, items = tl.fb_plan(
+            torch.device("cpu"), vec, tile)
+        r = tl.r_plan(torch.device("cpu"), vec, tile)
+        assert torch.equal(r[0], chunks[n_dx:]) and torch.equal(r[1], dwt)
+        assert (r[2], r[3]) == (n_dwt, n_slots) and n_slots == (1 if vec == 4 else 2) * n_dwt
+        assert torch.equal(r[4], ranges) and torch.equal(r[5], slots)
+        assert torch.equal(r[6], items[items >> 8 >= n_dx] - (n_dx << 8))
+    rng = np.random.default_rng(9)
+    for shared_a, shared_b in ((True, False), (False, True)):
+        a = rng.normal(size=(1 if shared_a else 40, tl.d_a))
+        b = rng.normal(size=(1 if shared_b else 40, tl.d_b))
+        d = rng.normal(size=(40, tl.d_out))
+        want = kd.dtp_r_plain(tl, _tt(a), _tt(b), _tt(d)).numpy()
+        for vec in (4, 1):
+            assert _rel(_walk_r(tl, a, b, d, vec, 3), want) < WALK_TOL
+
+
+@pytest.mark.parametrize("layout", ["dense", "slots"])
+def test_staged_plan_drives_the_plain_math(layout):
+    """S1-A's plan at kbench's widths (the flagship's sep_act DTP, d_a 480,
+    d_col 9, z 3136 dense or 128-column slots), walked in lanes of 4 columns
+    over the tile the wrapper picks in fp32 and bf16 with 9 edges (a
+    partial last tile), gives ``dtp_t_staged_plain``: every element
+    written once, the slots' padding zero; the dense chunks are K6-T's."""
+    tp = flagship_tp()
+    tl = kd.TermList.for_plan(tp, True)
+    z_slots = kv.make_layouts(tp)[4] if layout == "slots" else None
+    rng = np.random.default_rng(10)
+    a, col, b = (rng.normal(size=(9, n)) for n in (tl.d_a, tl.d_col, tl.d_b))
+    want = kv.dtp_t_staged_plain(tl, _tt(a), _tt(col), _tt(b), z_slots).numpy()
+    tiles = {kv.staged_tile(tl, size) for size in (4, 2)}
+    assert tiles == {2, 4} and all(
+        kv._staged_bytes(kv.staged_tile(tl, size), size, tl) <= kv.STAGED_SMEM for size in (4, 2))
+    for tile in sorted(tiles):
+        got = _walk_staged(tl, a, col, b, 4, tile, z_slots)
+        assert got.shape == want.shape and _rel(got, want) < WALK_TOL
+        if z_slots is not None:
+            pad = np.ones(got.shape, bool)
+            for slot, mul in z_slots.values():
+                pad[:, slot:slot + mul] = False
+            assert (got[pad] == 0).all()
+    if z_slots is None:
+        chunks = kv.staged_plan(tl, None, torch.device("cpu"), 4, 4)[0]
+        assert chunks.tolist() == [list(c) for c in tl.chunks(4)[0]]
 
 
 FULL_WIDTH = {"qm9": ("128x0e+64x1e+32x2e", "1x0e+1x1e+1x2e", 36352),
@@ -424,7 +516,7 @@ FULL_WIDTH = {"qm9": ("128x0e+64x1e+32x2e", "1x0e+1x1e+1x2e", 36352),
 @pytest.mark.parametrize("plan", list(FULL_WIDTH))
 def test_full_width_tables_fit_the_kernels(plan):
     """At the model widths every family member's tables fit the launches:
-    segments within the grid's y limit, SH columns within the kernels'
+    segments that cover the output once, SH columns within the kernels'
     shared col tile, output tiles that never overlap; K6's lanes own 4
     columns; K6-T's chunks keep their segment's terms in table order and
     fit the records' fields, its runs fill the card at both models' edge
@@ -435,10 +527,8 @@ def test_full_width_tables_fit_the_kernels(plan):
     assert tl.vec4()
     for name in ("base", "perm_a", "perm_b", "perm_r_a", "perm_a.perm_r_a"):
         m = PERMS[name][0](tl)
-        segs = m.t_tables(torch.device("cpu"))[0]
-        assert 1 <= segs.shape[0] and segs.shape[0] + segs.shape[0] + m.d_col <= 65535
-        assert int(segs[:, 1].sum()) == m.d_out
         order, seg_list = m._segments()
+        assert 1 <= len(seg_list) and sum(s[1] for s in seg_list) == m.d_out
         for vec in (4, 1):
             chunks, records, _ = m.chunks(vec)
             assert len(chunks) < 1 << 20 and [tuple(r[:3]) for r in records] == [
@@ -483,6 +573,38 @@ def test_full_width_k6_plans_drive_the_plain_math(plan):
     for tile in sorted({tl.fb_tile(size, False, False, 4)[0] for size in (4, 2)}):
         for got, ref in zip(_walk_fb(tl, x, sh_, w, g, 4, tile), want):
             assert _rel(got, ref) < WALK_TOL
+
+
+@pytest.mark.parametrize("plan", list(FULL_WIDTH))
+def test_full_width_r_plans_drive_the_plain_math(plan):
+    """K6-R's plan on every family member at the model widths, walked over
+    37 edges (partial tiles) with the tile the wrapper picks in fp32 and
+    bf16 at the model's edge count and at 37 edges, gives ``dtp_r_plain``;
+    the tile's block (a rows and slots: b and d are read through L1 / L2)
+    fits FB_SMEM on every member, also where a is z (one z row is 37.6 KB
+    fp32 at MD17 L3), and the force pass's own list (a = x) fills the card
+    with R_BLOCKS blocks at the model's edge count."""
+    irr, sh, E = FULL_WIDTH[plan]
+    tl = kd.TermList.for_plan(depthwise_tp(Irreps(irr), Irreps(sh), Irreps(irr)), True)
+    rng = np.random.default_rng(11)
+    for name in PERMS:
+        m = PERMS[name][0](tl)
+        a, b, d = (rng.normal(size=(37, n)) for n in (m.d_a, m.d_b, m.d_out))
+        n_slots = m.r_plan(torch.device("cpu"), 4, 1)[3]
+        assert n_slots == len(m.terms)  # one chunk a segment: a slot a term
+        want = kd.dtp_r_plain(m, _tt(a), _tt(b), _tt(d)).numpy()
+        tiles = set()
+        for size in (4, 2):
+            for edges in (E, 37):
+                for sa in (False, True):
+                    tile = m.r_tile(edges, size, sa, 4)
+                    assert kd._fb_bytes(tile, size, sa, False, False, m.d_a, 0, m.d_out, 0,
+                                        n_slots) <= kd.FB_SMEM, (name, size, tile)
+                    tiles.add(tile)
+            if m.slots == (0, 1, 2):
+                assert -(-E // m.r_tile(E, size, False, 4)) >= kd.R_BLOCKS
+        for tile in sorted(tiles):
+            assert _rel(_walk_r(m, a, b, d, 4, tile), want) < WALK_TOL, (name, tile)
 
 
 # ------------------------------------------------------------------ modules
