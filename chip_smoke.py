@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's QM9 training and inference paths and its MD17
-energy + force evaluation and training once on one NVIDIA GPU, on the fused
-DTP + linear route, the unfused DTP route, the radial fold and (QM9) the
-kron-basis route.
+"""Drive the PyTorch port's QM9 training and inference paths, its MD17
+energy + force evaluation and training and its DeNS training once on one
+NVIDIA GPU, on the fused DTP + linear route, the unfused DTP route, the
+radial fold and (QM9) the kron-basis route.
 
     python3 chip_smoke.py
 
@@ -202,7 +202,34 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    inputs), and ``dtp_lin_bwd_stage`` at the
    QM9 sep_act site: its full stage bitwise equal to ``dtp_lin_bwd``, its
    stages from the transposes on (K2's first launch whole) K2's dx and dw
-   bitwise with dW = 0, the earlier stages zeros; timed as phase 3.
+   bitwise with dW = 0, the earlier stages zeros; timed as phase 3.  The
+   probe also gives its first design's output (``fma_probe_first``) in
+   every bit, at both shapes and in both dtypes.
+
+17. dens train (run after phase 10, on its batches) — the aspirin L3 recipe
+   (``models.dens.ASPIRIN_L3``, the model of
+   ``configs/md17_dens/equiformer_dens_l3.yml``; ``ASPIRIN_L3_TRAIN``,
+   ``bench.py --task dens``: e : f : dp = 1 : 80 : 5, noise std 0.05, probability
+   0.25, corrupt ratio 0.25, ``cosine_warmup_schedule(2e-4, 100, 100000)``,
+   weight decay 1e-6, EMA 0.999) at full width and depth from the registry
+   with a seeded init, through ``make_dens_steps`` on the md17 batches (8
+   molecules of 21 slots, ``max_edges`` 3456: every ordered pair (``every_pair_edges``),
+   as the radius graph is rebuilt from noised positions inside the step;
+   the noise drawn from a CUDA generator) in float32 and bfloat16: the
+   launch counts of one step (47 K1, 21 K5a, 40 K5b, 47 K5c, 41 K3; the
+   denoising head adds 2 K1 sites to the trunk's 13, whose backward runs in
+   the parameter pass only), finite ``loss``, ``loss_e``, ``loss_f``,
+   ``loss_dp`` and gradient norm, parameters and EMA that moved, trained
+   molecules/s (median over 10 steps after 3 warm-up steps), the peak
+   memory, and two first steps from one seed (weights and noise) giving
+   bitwise equal metrics and parameters.
+18. dens vs CPU — one full-width step of ``train_step.noised`` on
+   MD17_CPU_MOLECULES molecules, on the card and on the CPU plain path,
+   from the same weights and the same noise (drawn on the CPU from a seed
+   with probability 1, so that both force terms are live, then moved to the
+   card), held as phase 10 holds the MD17 step: float32 within 1e-3, bfloat16
+   no further from a float64 CPU step than MD17_BF16_FACTOR times the
+   bfloat16 CPU path (floor 2e-2 for the two scalars).
 
 Phases 3 and 7 also time the model's segment sums too narrow for K3
 (``fixed_order_segment_sum``, an ``index_put_`` that repeats its bits)
@@ -365,6 +392,19 @@ MD17_MODEL = "graph_attention_transformer_nonlinear_exp_l3_md17"
 MD17_BATCH, MD17_SLOTS = 8, 21
 EQUIV_TOL = 1e-3
 MD17_BF16_FACTOR = 2.0  # card / CPU distance to fp64: measured 1.1 (energies), 0.9 (forces)
+# DeNS at the aspirin L3 recipe (models/dens.py ASPIRIN_L3 and
+# ASPIRIN_L3_TRAIN: configs/md17_dens/equiformer_dens_l3.yml's model and
+# bench.py --task dens' training settings).  One step is the MD17 step's kernels plus the
+# denoising head's two DTP sites: their forward K1 and, in the parameter
+# pass only (the energy does not depend on them), K5a (dx, dw) + K5c at
+# sep_act, a K5b x leg + K5c at sep_value; K3 the head's attention sum and
+# the backward of its two message gathers (counted on the CPU with the
+# wrappers patched, 2 and 3 blocks of a reduced model whose sums take K3
+# where the full width's do).
+DENS_MODEL = "equiformer_md17_dens"
+EXPECTED_DENS_TRAIN = {**NONE, "dtp_lin_fwd": 47, "dtp_lin_bwd3": 21, "dtp_lin_leg": 40,
+                       "dtp_lin_legW": 47, "csr_segment_sum": 41}
+DENS_METRICS = {"loss", "loss_e", "loss_f", "loss_dp", "grad_norm"}
 # The measurement kernels (S1-S3) of the port's tools, each launched by the
 # tool named; no model path launches them.  The probe's plain version rounds
 # each product and sum where the kernel's FMA rounds once.
@@ -1157,6 +1197,18 @@ def md17_train_vs_cpu(pt, torch, dev, tag="md17_train", route=None, ref64=None):
         return ({k: float(v) for k, v in m.items()}, secs,
                 {n: p.detach().double().cpu() for n, p in model.named_parameters()})
 
+    return step_vs_cpu(torch, dev, tag, one_step, ref64,
+                       f"{MD17_CPU_MOLECULES} molecules, max_edges {max_edges}")
+
+
+def step_vs_cpu(torch, dev, tag, one_step, ref64, what):
+    """Hold one training step on the card against the CPU plain path:
+    ``one_step(device, dtype name, double=False)`` gives (metrics, seconds,
+    float64 copies of the updated parameters).  float32 within CPU_RTOL;
+    bfloat16 no further from the float64 CPU step (``ref64``, taken here when
+    None) than MD17_BF16_FACTOR times the bfloat16 CPU path, with a floor of
+    BF16_SCALAR_FLOOR for the two scalars.  Returns ``ref64``."""
+
     def dist(a, b):
         """Relative distance of the two scalars, and of the parameters
         against max |param|."""
@@ -1167,8 +1219,7 @@ def md17_train_vs_cpu(pt, torch, dev, tag="md17_train", route=None, ref64=None):
 
     if ref64 is None:
         ref64 = one_step("cpu", "float32", double=True)
-    print(f"{tag} float64 CPU step ({MD17_CPU_MOLECULES} molecules, max_edges "
-          f"{max_edges}): {ref64[1]:.1f} s, {ref64[0]}", flush=True)
+    print(f"{tag} float64 CPU step ({what}): {ref64[1]:.1f} s, {ref64[0]}", flush=True)
     for name in ("float32", "bfloat16"):
         card, cpu = one_step(dev, name), one_step("cpu", name)
         (errs, perr), (c64, pc64), (u64, pu64) = dist(card, cpu), dist(card, ref64), \
@@ -1189,8 +1240,121 @@ def md17_train_vs_cpu(pt, torch, dev, tag="md17_train", route=None, ref64=None):
               f"{pu64:.3e} ({rule}); step {card[1]:.2f} s card, {cpu[1]:.1f} s CPU",
               flush=True)
         if not ok:
-            raise RuntimeError(f"{name} force training step on the card disagrees with the CPU")
+            raise RuntimeError(f"{tag} {name} training step on the card disagrees with the CPU")
     return ref64
+
+
+def dens_train_setup(pt, model):
+    from equiformer_tpu_torch.models.dens import ASPIRIN_L3_TRAIN as recipe
+
+    opt = pt.create_optimizer(pt.cosine_warmup_schedule(*recipe["schedule"]),
+                              weight_decay=recipe["weight_decay"])
+    train_step, _ = pt.make_dens_steps(model, opt, **recipe["steps"])
+    return train_step, pt.TrainState.create(model, opt)
+
+
+def dens_train_phase(pt, torch, gpu_batches, dev, out, tag="dens_train",
+                     expected=EXPECTED_DENS_TRAIN):
+    """Full-width DeNS training steps at batch 8 in fp32 and bf16 on the
+    card (TIMED_STEPS timed after WARMUP_STEPS), the noise drawn from a
+    CUDA generator seeded with SEED."""
+    from equiformer_tpu_torch.models.dens import ASPIRIN_L3, ASPIRIN_L3_TRAIN, every_pair_edges
+
+    dp_weight = ASPIRIN_L3_TRAIN["dp_weight"]
+    make = pt.model_entrypoint(DENS_MODEL)  # on the card
+    for name in ("float32", "bfloat16"):
+        kw = dict(**ASPIRIN_L3, max_edges=every_pair_edges(MD17_BATCH, MD17_SLOTS),
+                  nodes_per_graph=MD17_SLOTS, seed=SEED,
+                  compute_dtype=None if name == "float32" else name)
+        runs = []
+        for _ in range(2):  # the second model from the same seed takes the same first step
+            model = make(**kw)
+            step, state = dens_train_setup(pt, model)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            (state, metrics), launches = counted(
+                torch, lambda: step(state, gpu_batches[0], gen, dp_weight))
+            runs.append(({k: float(v) for k, v in metrics.items()},
+                         [p.detach().clone() for p in model.parameters()]))
+        print(f"{tag} {name}: launches in one step: {launches}")
+        if launches != expected:
+            raise RuntimeError(f"launch counts {launches} != expected {expected}")
+        out[f"{tag}_launches"] = launches
+        (m1, p1), (m2, p2) = runs
+        if m1 != m2 or not all(torch.equal(a, b) for a, b in zip(p1, p2)):
+            raise RuntimeError(f"{name}: two first DeNS steps from one seed differ in their bits")
+        del runs, p1, p2
+        for i in range(1, WARMUP_STEPS):
+            state, metrics = step(state, gpu_batches[i % len(gpu_batches)], gen, dp_weight)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times, dp_live = [], 0
+        for i in range(TIMED_STEPS):
+            t = time.perf_counter()
+            state, metrics = step(state, gpu_batches[i % len(gpu_batches)], gen, dp_weight)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            dp_live += float(metrics["loss_dp"]) > 0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        out[f"{tag}_{name}_peak_mib"] = peak
+        vals = {k: float(v) for k, v in metrics.items()}
+        if set(vals) != DENS_METRICS or not all(
+                v == v and abs(v) < float("inf") for v in vals.values()):
+            raise RuntimeError(f"{name}: missing or non-finite DeNS metrics {vals}")
+        moved = max(float((p.detach() - before[n]).abs().max())
+                    for n, p in model.named_parameters())
+        ema_moved = max(float((state.ema[n] - before[n]).abs().max()) for n in before)
+        if not (moved > 0 and ema_moved > 0) or state.step != WARMUP_STEPS + TIMED_STEPS:
+            raise RuntimeError(f"{name}: parameters or EMA did not move ({moved}, {ema_moved})")
+        mps = MD17_BATCH / statistics.median(times)
+        out[f"{tag}_{name}"] = mps
+        print(f"{tag} {name}: {mps:.1f} molecules/s at batch {MD17_BATCH} (median of "
+              f"{TIMED_STEPS} steps after {WARMUP_STEPS} warm-up; step seconds "
+              f"{[round(t, 4) for t in times]}), peak memory {peak:.0f} MiB, last step "
+              f"{ {k: round(v, 4) for k, v in vals.items()} }, loss_dp > 0 in {dp_live} of "
+              f"{TIMED_STEPS} steps, max parameter move {moved:.3e}, two first steps from one "
+              f"seed bitwise equal", flush=True)
+        del model, state
+
+
+def dens_vs_cpu(pt, torch, dev, tag="dens_train"):
+    """One full-width DeNS step (``train_step.noised``) of
+    MD17_CPU_MOLECULES molecules on the card and on the CPU plain path, from
+    the same weights and the same noise: drawn on the CPU from a seed with
+    probability 1 and the recipe's corrupt ratio (both force terms live),
+    then moved to the card."""
+    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
+    from equiformer_tpu_torch.models.dens import ASPIRIN_L3, ASPIRIN_L3_TRAIN, every_pair_edges
+
+    recipe = ASPIRIN_L3_TRAIN["steps"]
+    data = md17_like_dataset(MD17_CPU_MOLECULES, num_atoms=MD17_SLOTS, seed=SEED)
+    batch = next(iter(GraphLoader(data, MD17_CPU_MOLECULES, MD17_SLOTS, shuffle=False,
+                                  with_forces=True)))
+    batch = pt.add_masked_gaussian_noise(
+        batch, torch.Generator().manual_seed(SEED), recipe["denoising_pos_std"], 1.0,
+        recipe["corrupt_ratio"])
+    noised = int(batch.extras["noise_mask"].sum())
+    max_edges = every_pair_edges(MD17_CPU_MOLECULES, MD17_SLOTS)
+    make = pt.model_entrypoint(DENS_MODEL)
+
+    def one_step(d, name, double=False):
+        model = make(**ASPIRIN_L3, max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
+                     device=d, compute_dtype="bfloat16" if name == "bfloat16" else None)
+        b = batch.to(d)
+        if double:
+            model, b = model.double(), b.to(dtype=torch.float64)
+        step, state = dens_train_setup(pt, model)
+        t = time.perf_counter()
+        state, m = step.noised(state, b, ASPIRIN_L3_TRAIN["dp_weight"])
+        if d != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        return ({k: float(v) for k, v in m.items()}, secs,
+                {n: p.detach().double().cpu() for n, p in model.named_parameters()})
+
+    return step_vs_cpu(torch, dev, tag, one_step, None,
+                       f"{MD17_CPU_MOLECULES} molecules, {noised} atoms noised, max_edges "
+                       f"{max_edges}")
 
 
 def md17_train_kernel_phase(torch, model, batch, dev, records):
@@ -1884,6 +2048,7 @@ def measure_kernel_phase(torch, model, batch, dev, records):
         fma_probe_plain, make_layouts,
     )
     from equiformer_tpu_torch.kernels.dtp_lin import DXDW_STAGE, FULL_STAGE
+    from equiformer_tpu_torch.kernels.peaks import fma_probe_first
     from equiformer_tpu_torch.tools.chip_peaks import FMA_SHAPES
     from equiformer_tpu_torch.tools.kbench import flagship_tp
 
@@ -1908,6 +2073,14 @@ def measure_kernel_phase(torch, model, batch, dev, records):
                    [rel_err(got, want)], cuda_time_ms(lambda: fma_probe(x, k), torch),
                    cuda_time_ms(lambda: fma_probe_plain(x, k), torch, reps=3, inner=3),
                    2 * size * x.numel(), 2 * k * x.numel(), tol=FMA_TOL[dt_name])
+            first = fma_probe_first(x, k)
+            same = torch.equal(got, first)
+            print(f"fma_probe {dt_name} {variant}: bitwise equal to the first design: {same}; "
+                  f"first design {cuda_time_ms(lambda: fma_probe_first(x, k), torch):.4f} ms",
+                  flush=True)
+            if not same:
+                raise RuntimeError(f"fma_probe {dt_name} {variant}: the kernel differs from the "
+                                   f"first design in its bits")
 
         x, sh, w = (torch.randn(E_kb, d, generator=g, device=dev).to(dt)
                     for d in (tl.d_a, tl.d_col, tl.d_b))
@@ -2040,6 +2213,14 @@ def run(torch, dev) -> int:
     t = time.time()
     md17_step64 = md17_train_vs_cpu(pt, torch, dev)
     print(f"md17 train vs CPU phase: {time.time() - t:.1f} s", flush=True)
+
+    # DeNS training (the aspirin L3 recipe) on the force kernels
+    t = time.time()
+    dens_train_phase(pt, torch, md17_batches, dev, out)
+    print(f"dens train phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    dens_vs_cpu(pt, torch, dev)
+    print(f"dens vs CPU phase: {time.time() - t:.1f} s", flush=True)
 
     # the radial fold (K7): kernels, QM9 eval and training, MD17 forces
     t = time.time()

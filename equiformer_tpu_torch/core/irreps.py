@@ -164,3 +164,7 @@ class Irreps(tuple):
 
     def __repr__(self) -> str:
         return "+".join(str(mi) for mi in self) if len(self) else "(empty)"
+
+    def filter_scalars_even(self) -> "Irreps":
+        """The even scalar (0e) blocks, in order."""
+        return Irreps([mi for mi in self if mi.ir.is_scalar()])

@@ -9,19 +9,29 @@
 // is what the DTP kernels' term loops spend.  Wrapper and plain version:
 // equiformer_tpu_torch/kernels/peaks.py.
 //
-// What bounds it on the card: operations.  Per element it reads and writes
-// one value and does 2K floating-point operations (K = 512: 256 fp32
-// operations per byte; the card's fp32 balance is ~20).
+// What bounds it on the card: operations at K = 512 (per element one read,
+// one write and 2K floating-point operations: 256 fp32 operations per
+// byte, the card's fp32 balance is ~20), bytes at K = 64 in bf16.
 //
-// Design: each thread owns kVecs 16-byte vectors of consecutive elements
-// (8 fp32 or 16 bf16), so each thread carries 8 independent dependency
-// chains (fp32: fmaf; bf16: __hfma2 on __nv_bfloat162 pairs, the CUDA
-// cores' bf16 rate): one chain a thread would measure the FMA's latency,
-// not its throughput.  m and c arrive as kernel arguments: a multiplier of
+// Design.  A thread carries kWords independent dependency chains of 32-bit
+// words (fp32: fmaf on a float; bf16: __hfma2 on an __nv_bfloat162 pair,
+// the CUDA cores' packed bf16 FMA): one chain a thread would measure the
+// FMA's latency, not its throughput.  fp32 carries 32 words a thread, bf16
+// 8 (the sweep of 8 / 16 / 32 words and of a persistent grid in PERF.md:
+// no other was faster).  A warp owns a chunk of 32 * kWords words, lane
+// l's q-th 16-byte vector at q * 32 + l, so each load and store
+// instruction of a warp covers 512 contiguous bytes; the grid covers the
+// chunks once, a warp a chunk.  The words after the last whole chunk run
+// element by element.  Every element's result is the same K-step chain of
+// FMAs in its dtype whatever the mapping, so the design gives the first
+// design's bits.
+//
+// The first design (`fma_probe_first`, kept as the bitwise reference) gave
+// each thread 2 vectors of consecutive elements (8 words) and covered the
+// tensor once.  m and c arrive as kernel arguments: a multiplier of
 // exactly 1 (JAX's weakly typed 1.000001 rounds to 1.0 in bf16) known at
-// compile time would be folded away, leaving an add chain.  Every result is
-// stored, so no iteration is dead.  A ragged tail of fewer than one
-// thread's elements runs element by element.
+// compile time would be folded away, leaving an add chain.  Every result
+// is stored, so no iteration is dead.
 
 #include <stdint.h>
 #include <string.h>
@@ -31,75 +41,120 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kVecs = 2;  // 16-byte vectors per thread
+constexpr int kVecs = 2;  // the first design's 16-byte vectors per thread
 
-__global__ void __launch_bounds__(kThreads)
-fma_f32_kernel(const float* __restrict__ x, float* __restrict__ out, long long n, int k,
-               float m, float c) {
-  constexpr int kPer = kVecs * 4;
-  const long long chunks = n / kPer;
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i < chunks) {
-    const float4* src = reinterpret_cast<const float4*>(x) + i * kVecs;
-    float v[kPer];
-#pragma unroll
-    for (int q = 0; q < kVecs; ++q) {
-      const float4 a = src[q];
-      v[4 * q + 0] = a.x;
-      v[4 * q + 1] = a.y;
-      v[4 * q + 2] = a.z;
-      v[4 * q + 3] = a.w;
-    }
+struct F32 {
+  using E = float;  // element
+  using W = float;  // 32-bit word: one chain
+  static constexpr int kPerWord = 1;
+  __device__ static W splat(float v) { return v; }
+  __device__ static W fma(W a, W m, W c) { return fmaf(a, m, c); }
+  __device__ static E fma1(E a, W m, W c) { return fmaf(a, m, c); }
+};
+
+struct BF16 {
+  using E = __nv_bfloat16;
+  using W = __nv_bfloat162;
+  static constexpr int kPerWord = 2;
+  __device__ static W splat(float v) { return __float2bfloat162_rn(v); }
+  __device__ static W fma(W a, W m, W c) { return __hfma2(a, m, c); }
+  __device__ static E fma1(E a, W m, W c) { return __hfma(a, m.x, c.x); }
+};
+
+// K rounds of the chain on every word of r
+template <class Tr, int kWords>
+__device__ __forceinline__ void chain(uint4 (&r)[kWords / 4], int k, typename Tr::W m,
+                                      typename Tr::W c) {
+  typename Tr::W v[kWords];
+  memcpy(v, r, sizeof(v));
 #pragma unroll 4
-    for (int it = 0; it < k; ++it)
+  for (int it = 0; it < k; ++it)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) v[j] = fmaf(v[j], m, c);
-    float4* dst = reinterpret_cast<float4*>(out) + i * kVecs;
+    for (int j = 0; j < kWords; ++j) v[j] = Tr::fma(v[j], m, c);
+  memcpy(r, v, sizeof(v));
+}
+
+template <class Tr, int kWords>
+__global__ void __launch_bounds__(kThreads)
+fma_kernel(const typename Tr::E* __restrict__ x, typename Tr::E* __restrict__ out, long long n,
+           int k, float mf, float cf) {
+  constexpr int kV = kWords / 4;
+  constexpr long long kChunkElems = 32LL * kWords * Tr::kPerWord;
+  const typename Tr::W m = Tr::splat(mf), c = Tr::splat(cf);
+  const long long chunks = n / kChunkElems;
+  const int lane = threadIdx.x & 31;
+  const long long warp = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  if (warp < chunks) {
+    const uint4* src = reinterpret_cast<const uint4*>(x) + warp * 32 * kV + lane;
+    uint4 r[kV];
 #pragma unroll
-    for (int q = 0; q < kVecs; ++q)
-      dst[q] = make_float4(v[4 * q + 0], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-  } else if (i - chunks < n - chunks * kPer) {  // the tail, one element a thread
-    const long long e = chunks * kPer + (i - chunks);
-    float v = x[e];
-    for (int it = 0; it < k; ++it) v = fmaf(v, m, c);
+    for (int q = 0; q < kV; ++q) r[q] = src[q * 32];
+    chain<Tr, kWords>(r, k, m, c);
+    uint4* dst = reinterpret_cast<uint4*>(out) + warp * 32 * kV + lane;
+#pragma unroll
+    for (int q = 0; q < kV; ++q) dst[q * 32] = r[q];
+  }
+  // the elements after the last whole chunk, one a thread
+  const long long threads = (long long)gridDim.x * kThreads;
+  for (long long e = chunks * kChunkElems + warp * 32 + lane; e < n; e += threads) {
+    typename Tr::E v = x[e];
+    for (int it = 0; it < k; ++it) v = Tr::fma1(v, m, c);
     out[e] = v;
   }
 }
 
+// The first design: each thread 2 vectors of consecutive elements, the
+// tensor covered once; the ragged tail one element a thread.
+template <class Tr>
 __global__ void __launch_bounds__(kThreads)
-fma_bf16_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
-                long long n, int k, float mf, float cf) {
-  constexpr int kPairs = kVecs * 4;  // __nv_bfloat162 pairs a thread
-  constexpr int kPer = 2 * kPairs;
-  const __nv_bfloat162 m = __float2bfloat162_rn(mf);
-  const __nv_bfloat162 c = __float2bfloat162_rn(cf);
+fma_first_kernel(const typename Tr::E* __restrict__ x, typename Tr::E* __restrict__ out,
+                 long long n, int k, float mf, float cf) {
+  constexpr int kWords = kVecs * 4;
+  constexpr int kPer = kWords * Tr::kPerWord;
+  const typename Tr::W m = Tr::splat(mf), c = Tr::splat(cf);
   const long long chunks = n / kPer;
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i < chunks) {
+    uint4 r[kVecs];
     const uint4* src = reinterpret_cast<const uint4*>(x) + i * kVecs;
-    __nv_bfloat162 v[kPairs];
 #pragma unroll
-    for (int q = 0; q < kVecs; ++q) {
-      const uint4 a = src[q];
-      memcpy(&v[4 * q], &a, sizeof(a));
-    }
-#pragma unroll 4
-    for (int it = 0; it < k; ++it)
-#pragma unroll
-      for (int j = 0; j < kPairs; ++j) v[j] = __hfma2(v[j], m, c);
+    for (int q = 0; q < kVecs; ++q) r[q] = src[q];
+    chain<Tr, kWords>(r, k, m, c);
     uint4* dst = reinterpret_cast<uint4*>(out) + i * kVecs;
 #pragma unroll
-    for (int q = 0; q < kVecs; ++q) {
-      uint4 a;
-      memcpy(&a, &v[4 * q], sizeof(a));
-      dst[q] = a;
-    }
+    for (int q = 0; q < kVecs; ++q) dst[q] = r[q];
   } else if (i - chunks < n - chunks * kPer) {
     const long long e = chunks * kPer + (i - chunks);
-    __nv_bfloat16 v = x[e];
-    for (int it = 0; it < k; ++it) v = __hfma(v, m.x, c.x);
+    typename Tr::E v = x[e];
+    for (int it = 0; it < k; ++it) v = Tr::fma1(v, m, c);
     out[e] = v;
   }
+}
+
+template <class Tr, int kWords>
+cudaError_t launch(const void* x, void* out, long long n, int k, float m, float c,
+                   cudaStream_t s) {
+  using E = typename Tr::E;
+  constexpr long long kChunkElems = 32LL * kWords * Tr::kPerWord;
+  const long long warps = n / kChunkElems + 1;  // + 1: the tail's threads
+  const long long blocks = (warps + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fma_kernel<Tr, kWords><<<(unsigned)blocks, kThreads, 0, s>>>(
+      static_cast<const E*>(x), static_cast<E*>(out), n, k, m, c);
+  return cudaGetLastError();
+}
+
+template <class Tr>
+cudaError_t launch_first(const void* x, void* out, long long n, int k, float m, float c,
+                         cudaStream_t s) {
+  using E = typename Tr::E;
+  const int per = kVecs * 4 * Tr::kPerWord;
+  const long long threads = n / per + n % per;  // one a chunk, one a tail element
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fma_first_kernel<Tr><<<(unsigned)blocks, kThreads, 0, s>>>(
+      static_cast<const E*>(x), static_cast<E*>(out), n, k, m, c);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -111,17 +166,19 @@ extern "C" int fma_probe(const void* x, void* out, long long n, int k, float m, 
   if (n < 0 || k < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
-  const int per = dtype == eqt::kFloat32 ? kVecs * 4 : kVecs * 8;
-  const long long threads = n / per + n % per;  // one a chunk, one a tail element
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (dtype == eqt::kFloat32)
-    fma_f32_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(static_cast<const float*>(x),
-                                                        static_cast<float*>(out), n, k, m, c);
-  else if (dtype == eqt::kBFloat16)
-    fma_bf16_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), n, k, m, c);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == eqt::kFloat32) return (int)launch<F32, 32>(x, out, n, k, m, c, s);
+  if (dtype == eqt::kBFloat16) return (int)launch<BF16, 8>(x, out, n, k, m, c, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The first design, on fma_probe's arguments: the reference its bits are
+// held to.
+extern "C" int fma_probe_first(const void* x, void* out, long long n, int k, float m, float c,
+                               int dtype, void* stream) {
+  if (n < 0 || k < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == eqt::kFloat32) return (int)launch_first<F32>(x, out, n, k, m, c, s);
+  if (dtype == eqt::kBFloat16) return (int)launch_first<BF16>(x, out, n, k, m, c, s);
+  return (int)cudaErrorInvalidValue;
 }

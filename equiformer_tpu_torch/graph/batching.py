@@ -26,6 +26,9 @@ class GraphsTuple:
       graph_mask [G]    bool
       y          [G]    float per-graph targets
       forces     [N, 3] float per-atom force targets (MD17), or None
+      extras     dict of further tensors by name (DeNS: ``force``,
+                 ``noise_mask``, ``denoising_pos_mask``, ``noise_vec``;
+                 ``models/dens.py``), empty by default
     """
 
     pos: torch.Tensor
@@ -35,9 +38,11 @@ class GraphsTuple:
     graph_mask: torch.Tensor
     y: Optional[torch.Tensor] = None
     forces: Optional[torch.Tensor] = None
+    extras: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     def to(self, device=None, dtype: Optional[torch.dtype] = None) -> "GraphsTuple":
-        """Move every tensor to ``device``; ``dtype`` recasts the float fields."""
+        """Move every tensor, the extras' too, to ``device``; ``dtype``
+        recasts the float fields (masks and indices keep theirs)."""
         def mv(t):
             if t is None:
                 return None
@@ -45,8 +50,9 @@ class GraphsTuple:
                 return t.to(device=device, dtype=dtype)
             return t.to(device=device)
 
-        return GraphsTuple(**{f.name: mv(getattr(self, f.name))
-                              for f in dataclasses.fields(self)})
+        fields = {f.name: mv(getattr(self, f.name)) for f in dataclasses.fields(self)
+                  if f.name != "extras"}
+        return GraphsTuple(**fields, extras={k: mv(v) for k, v in self.extras.items()})
 
 
 def collate_dense(
@@ -54,9 +60,14 @@ def collate_dense(
     max_nodes_per_graph: int,
     graph_capacity: Optional[int] = None,
     with_forces: bool = False,
+    extra_node_keys: Sequence[str] = (),
+    extra_graph_keys: Sequence[str] = (),
 ) -> GraphsTuple:
     """Pack graphs (dicts with 'pos', 'species', optional 'y', and 'forces'
-    when ``with_forces``) into G*M slots; padded slots get zero forces."""
+    when ``with_forces``) into G*M slots; padded slots get zero forces.
+    The arrays of ``extra_node_keys`` (one row an atom) and
+    ``extra_graph_keys`` (one a graph) go into ``extras`` in their own
+    dtypes, zero on the padding."""
     g_cap = graph_capacity if graph_capacity is not None else len(graphs)
     if len(graphs) > g_cap:
         raise ValueError(f"{len(graphs)} graphs > capacity {g_cap}")
@@ -68,6 +79,13 @@ def collate_dense(
     graph_mask = np.zeros((g_cap,), bool)
     y = np.zeros((g_cap,), np.float32)
     forces = np.zeros((n_cap, 3), np.float32) if with_forces else None
+    extras: Dict[str, np.ndarray] = {}
+    for k in extra_node_keys:
+        proto = np.asarray(graphs[0][k])
+        extras[k] = np.zeros((n_cap,) + proto.shape[1:], proto.dtype)
+    for k in extra_graph_keys:
+        proto = np.asarray(graphs[0][k])
+        extras[k] = np.zeros((g_cap,) + proto.shape, proto.dtype)
     for gi, g in enumerate(graphs):
         n = int(g["pos"].shape[0])
         if n > M:
@@ -81,6 +99,10 @@ def collate_dense(
             y[gi] = g["y"]
         if with_forces and "forces" in g:
             forces[i : i + n] = g["forces"]
+        for k in extra_node_keys:
+            extras[k][i : i + n] = g[k]
+        for k in extra_graph_keys:
+            extras[k][gi] = g[k]
     return GraphsTuple(
         pos=torch.from_numpy(pos),
         species=torch.from_numpy(species),
@@ -89,4 +111,5 @@ def collate_dense(
         graph_mask=torch.from_numpy(graph_mask),
         y=torch.from_numpy(y),
         forces=None if forces is None else torch.from_numpy(forces),
+        extras={k: torch.from_numpy(v) for k, v in extras.items()},
     )

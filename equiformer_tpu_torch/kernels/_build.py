@@ -189,8 +189,9 @@ _SIGNATURES = {
     # S1-A: a, d_a, col, d_col, b, d_b, out, d_out, E, tile, chunks, terms,
     # items, n_items (dtp_t_variants.staged_plan), vec, dtype, stream
     "dtp_t_staged": [_VP, _I, _VP, _I, _VP, _I, _VP, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _VP],
-    # S2: x, out, n, k, m, c, dtype, stream
+    # S2 and its first design: x, out, n, k, m, c, dtype, stream
     "fma_probe": [_VP, _VP, _LL, _I, _F, _F, _I, _VP],
+    "fma_probe_first": [_VP, _VP, _LL, _I, _F, _F, _I, _VP],
     # val, C, dst, dst's bytes per index (8 or 4), E, mask, out, N, vec (1 or
     # 16 bytes' worth), nodes per block, dtype, stream
     "csr_segment_sum": [_VP, _I, _VP, _I, _I, _VP, _VP, _I, _I, _I, _I, _VP],

@@ -8,6 +8,11 @@ DTP kernels' term loops spend.  ``fma_probe`` launches the kernel
 tensors.  ``m`` and ``c`` are rounded to the operand dtype first, as JAX
 rounds its weakly typed Python floats: in bf16 the default multiplier
 1.000001 is exactly 1.0.
+
+The kernel carries 32 independent FMA chains a thread in fp32 and 8 in
+bf16 (``csrc/peaks.cu``).  ``fma_probe_first`` launches the first design
+(2 vectors of consecutive elements a thread), the reference whose bits
+``fma_probe``'s must equal: every element runs the same chain of FMAs.
 """
 
 from __future__ import annotations
@@ -35,13 +40,7 @@ def fma_probe_plain(x: torch.Tensor, k: int, m: float = MULTIPLIER,
     return acc
 
 
-def fma_probe(x: torch.Tensor, k: int, m: float = MULTIPLIER, c: float = ADDEND) -> torch.Tensor:
-    """S2: K dependent FMAs on each element of ``x`` (float32 or bfloat16,
-    any shape), returned in a new tensor of x's shape and dtype.  CPU
-    tensors take ``fma_probe_plain``; CUDA tensors launch the kernel or
-    raise."""
-    if x.device.type == "cpu":
-        return fma_probe_plain(x, k, m, c)
+def _launch(entry: str, x: torch.Tensor, k: int, m: float, c: float) -> torch.Tensor:
     if k < 0:
         raise ValueError(f"k must be >= 0, got {k}")
     code = _build.dtype_code(x)
@@ -49,12 +48,33 @@ def fma_probe(x: torch.Tensor, k: int, m: float = MULTIPLIER, c: float = ADDEND)
     if x.data_ptr() % 16:
         x = x.clone()  # the kernel reads 16-byte vectors
     out = torch.empty_like(x)
-    err = _build.library().fma_probe(
+    err = getattr(_build.library(), entry)(
         _build.ptr(x), _build.ptr(out), x.numel(), k, _rounded(m, x.dtype), _rounded(c, x.dtype),
         code, _build.stream_ptr())
-    _build.check(err, "fma_probe")
+    _build.check(err, entry)
+    return out
+
+
+def fma_probe(x: torch.Tensor, k: int, m: float = MULTIPLIER, c: float = ADDEND) -> torch.Tensor:
+    """S2: K dependent FMAs on each element of ``x`` (float32 or bfloat16,
+    any shape), returned in a new tensor of x's shape and dtype.  CPU
+    tensors take ``fma_probe_plain``; CUDA tensors launch the kernel or
+    raise."""
+    if x.device.type == "cpu":
+        return fma_probe_plain(x, k, m, c)
+    out = _launch("fma_probe", x, k, m, c)
     fma_probe.launches += 1
     return out
 
 
 fma_probe.launches = 0
+
+
+def fma_probe_first(x: torch.Tensor, k: int, m: float = MULTIPLIER,
+                    c: float = ADDEND) -> torch.Tensor:
+    """``fma_probe`` by its first design: the same bits, the reference
+    that ``chip_smoke.py`` and the CUDA tests hold the kernel to.  CPU
+    tensors take ``fma_probe_plain``."""
+    if x.device.type == "cpu":
+        return fma_probe_plain(x, k, m, c)
+    return _launch("fma_probe_first", x, k, m, c)

@@ -37,9 +37,12 @@ model onto the kron-basis op (K8-F / K8-B); it is ignored with
 dropout on the attention weights, and the equivariant dropouts and drop path
 where their rates are nonzero (the QM9 entrypoints set only alpha dropout).
 Their randomness comes in explicitly as ``rng`` (``nn/dropout.py``).
-Remat, batched radial, the linear-message path, the attention head,
-dot-product attention, ``irreps_pre_attn`` and the other norms are not
-ported.
+``irreps_pre_attn`` (``GraphAttention``, ``TransBlock``,
+``GraphAttentionTransformer``) maps the attention's input to those irreps
+before its two DTPs (``merge_src`` / ``merge_dst``), as the DeNS model
+(``models/dens.py``) does; None keeps the input irreps.  Remat, batched
+radial, the linear-message path, the attention head, dot-product attention
+and the other norms are not ported.
 """
 
 from __future__ import annotations
@@ -85,15 +88,16 @@ class GraphAttention(nn.Module):
                  alpha_drop: float = 0.1, proj_drop: float = 0.1,
                  higher_order_grads: bool = True, fused_dtp_lin: bool = True,
                  dtp_first_order_bwd: bool = False, radial_fold: bool = False,
-                 radial_fold_ho: bool = False, kron_g: bool = False):
+                 radial_fold_ho: bool = False, kron_g: bool = False, irreps_pre_attn=None):
         super().__init__()
         self.alpha_drop = alpha_drop
         self.higher_order_grads = higher_order_grads
-        pre = Irreps(irreps_node_input)
+        irreps_in = Irreps(irreps_node_input)
+        pre = Irreps(irreps_pre_attn) if irreps_pre_attn else irreps_in
         self.irreps_head = Irreps(irreps_head)
         self.num_heads = H = num_heads
-        self.merge_src = IrrepsLinear(pre, pre, use_bias=True)
-        self.merge_dst = IrrepsLinear(pre, pre, use_bias=False)
+        self.merge_src = IrrepsLinear(irreps_in, pre, use_bias=True)
+        self.merge_dst = IrrepsLinear(irreps_in, pre, use_bias=False)
 
         irreps_attn_heads = heads_irreps(self.irreps_head, H)
         mul_alpha = irreps_attn_heads.count("0e")
@@ -170,7 +174,8 @@ class TransBlock(nn.Module):
                  irreps_mlp_mid=None, alpha_drop: float = 0.1, proj_drop: float = 0.1,
                  drop_path_rate: float = 0.0, higher_order_grads: bool = True,
                  fused_dtp_lin: bool = True, dtp_first_order_bwd: bool = False,
-                 radial_fold: bool = False, radial_fold_ho: bool = False, kron_g: bool = False):
+                 radial_fold: bool = False, radial_fold_ho: bool = False, kron_g: bool = False,
+                 irreps_pre_attn=None):
         super().__init__()
         irreps_in = Irreps(irreps_node_input)
         irreps_out = Irreps(irreps_node_output)
@@ -178,7 +183,7 @@ class TransBlock(nn.Module):
         self.ga = GraphAttention(irreps_in, irreps_edge_attr, irreps_in, fc_neurons,
                                  irreps_head, num_heads, alpha_drop, proj_drop,
                                  higher_order_grads, fused_dtp_lin, dtp_first_order_bwd,
-                                 radial_fold, radial_fold_ho, kron_g)
+                                 radial_fold, radial_fold_ho, kron_g, irreps_pre_attn)
         self.norm_2 = EquivariantLayerNorm(irreps_in)
         self.ffn = FeedForwardNetwork(irreps_in, irreps_node_attr, irreps_out, irreps_mlp_mid,
                                       proj_drop)
@@ -238,6 +243,7 @@ class GraphAttentionTransformer(nn.Module):
         radial_fold: bool = False,
         radial_fold_ho: bool = False,
         kron_g: bool = False,
+        irreps_pre_attn=None,
         seed: int = 0,
     ):
         super().__init__()
@@ -262,7 +268,7 @@ class GraphAttentionTransformer(nn.Module):
             self.add_module(f"block_{i}", TransBlock(
                 emb, "1x0e", self.irreps_sh, feat if i == num_layers - 1 else emb, fc,
                 irreps_head, num_heads, irreps_mlp_mid, alpha_drop, proj_drop, drop_path_rate,
-                *route))
+                *route, irreps_pre_attn))
         self.num_layers = num_layers
         self.norm = EquivariantLayerNorm(feat)
         self.out_dropout = EquivariantDropout(feat, out_drop) if out_drop != 0.0 else None

@@ -5,9 +5,9 @@ the force models' fused op), K5b (its edge legs), K5c (its head-weight
 leg), K7-L, K7-Wr and K7-LW (the folded op's x / sh / h, [Wr; offset] and
 head-weight legs), K7-B3 (its force backward), K8-F and K8-B (the
 kron-basis forward and backward), K6-T (the unfused route's T primitive),
-K6-FB (its first-order backward in one launch), K6-R (its R primitive) and
-S1-A (kbench's staged T) of this package against another tree's, in
-turns, on one GPU.
+K6-FB (its first-order backward in one launch), K6-R (its R primitive),
+S1-A (kbench's staged T) and S2 (``chip_peaks``' FMA probe) of this
+package against another tree's, in turns, on one GPU.
 
     python -m equiformer_tpu_torch.tools.kernel_ab [--against DIR [DIR ...]]
         [--kernels K1,K4] [--out FILE]
@@ -54,7 +54,10 @@ outputs equal in every bit to the first other tree's; K6-R at the same
 sites with ``fb_dsh_bitwise`` (its output K6-FB's dsh in every bit) and its
 ``layouts`` (as K6-FB's); S1-A at kbench's shapes (E = 40960), dense and in
 slots, beside this package's K6-T (``k6t_ms``, ``k6t_bitwise``) and at each
-edge tile (``tiles``).  K5a's (dx, dw)
+edge tile (``tiles``); S2 at ``chip_peaks``' two shapes (``FMA_SHAPES``, grid
+64) on 1 + 0.1 N(0, 1) inputs, ``bitwise`` against the first other tree,
+and the narrow shape also at K = ``S2_RATE_K``, where the loads and stores
+are a small share and the kernel time is the FMA rate.  K5a's (dx, dw)
 runs beside K2's own launch 1 on the same inputs (S3 ``dtp_lin_bwd_stage``
 at ``DXDW_STAGE``: the compile-time dx / dw code, whole tiles), where its
 shared memory fits.  Random operands from
@@ -139,8 +142,10 @@ K8F_KERNEL = "kron_fwd_kernel"
 # K6-T's, K6-R's and K6-FB's kernels
 K6_KERNELS = {"K6T": "dtp_t_kernel", "K6R": "dtp_r_kernel", "K6FB": "dtp_fused_bwd_kernel"}
 S1A_KERNEL = "dtp_t_staged_kernel"
+S2_KERNEL = "fma_"  # fma_kernel; the parent's fma_f32 / fma_bf16_kernel
+S2_RATE_K = 4096
 SECTIONS = ("K3", "K2", "K1", "K4", "K7F", "K7L", "K7B", "K5a", "K5b", "K5c", "K7Wr", "K7LW",
-            "K7B3", "K8F", "K8B", "K6T", "K6FB", "K6R", "S1A")
+            "K7B3", "K8F", "K8B", "K6T", "K6FB", "K6R", "S1A", "S2")
 # the edge tiles kernel_ab times K6-R at (those whose block fits the card;
 # K6-FB's layouts are kernels.dtp.FB_LAYOUTS)
 R_TILES = (16, 8, 4, 2, 1)
@@ -806,6 +811,38 @@ def s1a_section(sides, order, dev, report):
             del outs
 
 
+def s2_section(sides, order, dev, report):
+    """S2 (the FMA probe) at chip_peaks' shapes and, narrow, at K =
+    S2_RATE_K, both dtypes: each side in turns (wrapper ms by CUDA events,
+    kernel ms traced, ``rel_err`` against the plain version, ``bitwise``
+    against the first other tree)."""
+    from .chip_peaks import FMA_SHAPES
+    from ..kernels import peaks
+
+    names = [s for s in order if s != "package"]
+    cases = [(v, t, w, k) for v, t, w, k in FMA_SHAPES]
+    cases += [(f"{v}-k{S2_RATE_K}", t, w, S2_RATE_K) for v, t, w, _ in FMA_SHAPES if v == "narrow"]
+    for dt in (torch.float32, torch.bfloat16):
+        for variant, t, width, k in cases:
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            x = (1.0 + 0.1 * torch.randn(64 * t, width, generator=g, device=dev)).to(dt)
+            want = peaks.fma_probe_plain(x, k)
+            tag = f"S2_{variant}_{str(dt)[6:]}"
+            entry, outs = {"shape": [64 * t, width], "k": k, "runs": []}, []
+            for i, side in enumerate(order):
+                call = lambda m=sides[side][0]: m.fma_probe(x, k)  # noqa: E731
+                outs.append((call(),))
+                entry["runs"].append({
+                    "side": side, "ms": device_time_ms(call, dev),
+                    **traced_run(call, f"{tag}_{side}_{i}", S2_KERNEL),
+                    "rel_err": rel(outs[-1][0], want)})
+            _bitwise(entry["runs"], outs, names)
+            name = f"{variant}/{str(dt)[6:]}"
+            report["S2"][name] = entry
+            print("S2", name, json.dumps(entry), flush=True)
+            del outs
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", type=Path, nargs="+", default=[],
@@ -924,6 +961,8 @@ def main(argv=None) -> dict:
             k6r_section(sides, order, lists, rows, dev, report)
     if "S1A" in want:
         s1a_section(sides, order, dev, report)
+    if "S2" in want:
+        s2_section(sides, order, dev, report)
 
     if {"K5a", "K5b", "K5c"} & set(want):
         mrows = {f"md17-{site}": (mE, int(mmask.sum())) for site in ("sep_act", "sep_value",

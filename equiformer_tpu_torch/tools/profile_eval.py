@@ -1,6 +1,6 @@
 """Where the time of an eval forward, a training step or a force evaluation goes, on one GPU.
 
-    python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17 | --md17-train]
+    python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17 | --md17-train | --dens]
         [--unfused [--first-order-bwd] | --radial-fold | --kron-g] [--out FILE]
 
 Builds ``graph_attention_transformer_nonlinear_l2`` at full width with a
@@ -16,7 +16,14 @@ and forces); with ``--md17-train`` the unit is one step of
 ``make_md17_steps`` on the same model and batches (``energy_weight=1``,
 ``force_weight=80``, AdamW with weight decay 1e-6 and the same schedule, EMA
 0.999: the forward, the force pass with ``create_graph=True`` and the
-grad-of-grad).  ``--unfused`` builds the model with ``fused_dtp_lin=False``:
+grad-of-grad).  With ``--dens`` the model is ``equiformer_md17_dens`` at
+the aspirin L3 recipe (``models.dens.ASPIRIN_L3``) on the same batches
+(``max_edges`` every ordered pair of atoms, 3456: the radius graph is
+rebuilt from noised positions inside the step) and the unit one step of
+``make_dens_steps`` with the recipe's settings (``ASPIRIN_L3_TRAIN``: the
+noise drawn from a CUDA generator, the force pass and the grad-of-grad, the
+denoising head's first-order backward); only the fused route.
+``--unfused`` builds the model with ``fused_dtp_lin=False``:
 every DTP call site on the T / R primitives (K6) with the linear heads
 after it, instead of the fused DTP + linear op; with ``--first-order-bwd``
 (QM9 training only: the force models differentiate twice) also
@@ -72,10 +79,12 @@ from .. import (
     create_optimizer,
     evaluate,
     evaluate_md17,
+    make_dens_steps,
     make_md17_steps,
     make_qm9_steps,
     model_entrypoint,
 )
+from ..models.dens import ASPIRIN_L3, ASPIRIN_L3_TRAIN, every_pair_edges
 from ..data import GraphLoader, md17_like_dataset, qm9_like_dataset
 from ..train import TrainState
 from ..graph.radius_graph import radius_graph_dense
@@ -87,6 +96,7 @@ SEED = 0
 # model, graphs per batch, node slots per graph
 QM9 = ("graph_attention_transformer_nonlinear_l2", 128, 30)
 MD17 = ("graph_attention_transformer_nonlinear_exp_l3_md17", 8, 21)
+DENS = ("equiformer_md17_dens", 8, 21)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "profile"
 KERNEL_GROUPS = ("k2::dxdw_kernel", "k2::dW_kernel", "sum_partial_rows_kernel",
@@ -210,6 +220,15 @@ def md17_train_unit(model):
     return lambda b: step(state, b)
 
 
+def dens_train_unit(model):
+    opt = create_optimizer(cosine_warmup_schedule(*ASPIRIN_L3_TRAIN["schedule"]),
+                           weight_decay=ASPIRIN_L3_TRAIN["weight_decay"])
+    step, _ = make_dens_steps(model, opt, **ASPIRIN_L3_TRAIN["steps"])
+    state = TrainState.create(model, opt)
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(SEED)
+    return lambda b: step(state, b, gen, ASPIRIN_L3_TRAIN["dp_weight"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     unit_arg = ap.add_mutually_exclusive_group()
@@ -218,6 +237,8 @@ def main() -> int:
                           help="profile MD17 energy + force evaluations")
     unit_arg.add_argument("--md17-train", action="store_true",
                           help="profile MD17 energy + force training steps")
+    unit_arg.add_argument("--dens", action="store_true",
+                          help="profile DeNS training steps (the aspirin L3 recipe)")
     route_arg = ap.add_mutually_exclusive_group()
     route_arg.add_argument("--unfused", action="store_true",
                            help="build the model with fused_dtp_lin=False (the DTP on K6)")
@@ -236,6 +257,8 @@ def main() -> int:
         ap.error("--kron-g takes the QM9 model: the force models ignore kron_g")
     if args.first_order_bwd and not (args.unfused and args.train):
         ap.error("--first-order-bwd takes --unfused --train")
+    if args.dens and (args.unfused or args.radial_fold or args.kron_g):
+        ap.error("--dens profiles the fused route only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -244,8 +267,8 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
-    md17 = args.md17 or args.md17_train
-    model_name, batch, slots = MD17 if md17 else QM9
+    md17 = args.md17 or args.md17_train or args.dens
+    model_name, batch, slots = DENS if args.dens else MD17 if md17 else QM9
     if md17:
         data = md17_like_dataset(batch * N_BATCHES, num_atoms=slots, seed=SEED)
     else:
@@ -253,14 +276,16 @@ def main() -> int:
     batches = list(GraphLoader(data, batch, slots, shuffle=False, with_forces=md17))
     counts = [int(radius_graph_dense(b.pos, b.node_mask, batch, 5.0, batch * slots * slots)
                   .mask.sum()) for b in batches]
-    max_edges = -(-max(counts) // 128) * 128
+    max_edges = (every_pair_edges(batch, slots) if args.dens
+                 else -(-max(counts) // 128) * 128)
     gpu = [b.to(dev) for b in batches]
     make = model_entrypoint(model_name)
     unit = ("train" if args.train else "md17" if args.md17
-            else "md17_train" if args.md17_train else "eval")
+            else "md17_train" if args.md17_train else "dens_train" if args.dens else "eval")
     route = ("unfused_fb" if args.first_order_bwd else "unfused" if args.unfused
              else "fold" if args.radial_fold else "kron" if args.kron_g else "fused")
-    switches = {"fused_dtp_lin": not args.unfused, "kron_g": args.kron_g}
+    switches = (dict(ASPIRIN_L3) if args.dens
+                else {"fused_dtp_lin": not args.unfused, "kron_g": args.kron_g})
     if args.first_order_bwd:
         switches["dtp_first_order_bwd"] = True
     if args.radial_fold:
@@ -277,6 +302,8 @@ def main() -> int:
             run = md17_unit(model)
         elif args.md17_train:
             run = md17_train_unit(model)
+        elif args.dens:
+            run = dens_train_unit(model)
         else:
             run = eval_unit(model)
         report[name] = profile(run, gpu, f"{unit}_{route}_{name}")

@@ -2,7 +2,7 @@
 them, and the difference from another tree's sources.
 
     python -m equiformer_tpu_torch.tools.ptxas_report [--sources a.cu ...]
-        [--against DIR [--match REGEX]] [--out FILE]
+        [--against DIR [--match REGEX]] [--sass REGEX [--sass-out FILE]] [--out FILE]
 
 Compiles the package's ``csrc/*.cu`` (or the named ones) with the build's
 flags (``kernels/_build.py``: ``-Xptxas -v``, sm_90a) and prints one line
@@ -13,7 +13,13 @@ ones it has), and every kernel of the other tree is matched by name to
 this tree's and reported as equal, different, or not in this tree (a
 retired kernel, also one whose source is gone); ``--match`` compares only
 the kernels whose names it finds.  The exit code is 1 if a kernel that both
-trees have differs.  Needs nvcc (the machine with the card).
+trees have differs.  ``--sass REGEX`` also compiles the sources to
+cubins, disassembles them (``cuobjdump -sass``) and prints, for each
+kernel whose demangled name the regex finds, its instruction count by
+opcode (``HFMA2.BF16_V2``, ``FFMA``, ``LDG.E.128``, ...) and the
+instructions of its longest run without a branch, the unrolled body of its
+hottest loop; ``--sass-out`` keeps those kernels' whole listings.  Needs
+nvcc (the machine with the card).
 """
 
 from __future__ import annotations
@@ -74,6 +80,51 @@ def _sources(csrc: Path, names) -> list:
     return [n for n in names if (csrc / n).exists()]
 
 
+def sass(csrc: Path, sources, pattern: str) -> dict:
+    """{demangled kernel name: its SASS lines} of the kernels of the
+    sources whose names ``pattern`` finds."""
+    import tempfile
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    cufilt = Path(_build._nvcc()).with_name("cu++filt")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in sources:
+            cubin = Path(tmp) / (Path(name).stem + ".cubin")
+            subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-cubin", "-o",
+                            str(cubin), str(csrc / name)], capture_output=True, text=True,
+                           check=True)
+            text = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True,
+                                  text=True, check=True).stdout
+            for block in text.split("Function : ")[1:]:
+                mangled, _, body = block.partition("\n")
+                full = subprocess.run([str(cufilt)], input=mangled.strip(), capture_output=True,
+                                      text=True, check=True).stdout.strip()
+                if re.search(pattern, full):
+                    out[_short(full) + f" [{mangled.strip()}]"] = [
+                        ln.strip() for ln in body.splitlines() if re.match(r"\s*/\*[0-9a-f]{4}\*/", ln)]
+    return out
+
+
+def sass_summary(lines) -> dict:
+    """Instruction counts by opcode, and the longest run of instructions
+    without a branch (the unrolled body of the hottest loop)."""
+    ops, runs, cur = {}, [], []
+    for ln in lines:
+        m = re.match(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if not m:
+            continue
+        op = m.group(1)
+        ops[op] = ops.get(op, 0) + 1
+        cur.append(ln.split(";")[0])
+        if op.startswith(("BRA", "EXIT", "RET", "BSYNC", "WARPSYNC")):
+            runs.append(cur)
+            cur = []
+    runs.append(cur)
+    return {"opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+            "longest_straight_run": max(runs, key=len)}
+
+
 def compare(mine: dict, other: dict, match=None) -> dict:
     """The other tree's kernels (those whose names ``match`` finds) against
     this tree's, by name: {"equal", "differ", "not_here", "new_here"}, each
@@ -93,6 +144,9 @@ def main(argv=None) -> int:
     ap.add_argument("--against", type=Path, default=None, help="another tree's csrc directory")
     ap.add_argument("--match", default=None,
                     help="compare only the kernels whose names this regex finds")
+    ap.add_argument("--sass", default=None,
+                    help="disassemble the kernels whose names this regex finds")
+    ap.add_argument("--sass-out", type=Path, default=None, help="their whole SASS listings")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     mine = entries(_build.CSRC, _sources(_build.CSRC, args.sources))
@@ -109,6 +163,20 @@ def main(argv=None) -> int:
                 print(f"against {args.against}: {name}: {verdict}{there}")
         differs = res["differ"]
         report["against"] = {"dir": str(args.against), **res}
+    if args.sass is not None:
+        listings = sass(_build.CSRC, _sources(_build.CSRC, args.sources), args.sass)
+        report["sass"] = {}
+        for name, lines in listings.items():
+            summ = report["sass"][name] = sass_summary(lines)
+            print(f"sass {name}: {len(lines)} instructions, by opcode {summ['opcodes']}")
+            run = summ["longest_straight_run"]
+            print(f"sass {name}: longest run without a branch, {len(run)} instructions:")
+            for ln in run:
+                print(f"    {ln}")
+        if args.sass_out is not None:
+            args.sass_out.parent.mkdir(parents=True, exist_ok=True)
+            args.sass_out.write_text("".join(f"== {n}\n" + "\n".join(v) + "\n"
+                                             for n, v in listings.items()))
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1) + "\n")

@@ -7,7 +7,10 @@ forward plus the MAE sums over the real graphs of the batch.
 ``make_md17_steps``: energy + force training, the loss of ``forces =
 -dE/dpos`` differentiated with respect to the parameters (a grad-of-grad);
 ``evaluate_md17`` is its eval step: energies and forces plus their MAE sums.
-Data parallelism (``pmean_axis``) and the DeNS steps are not ported yet.
+``make_dens_steps``: DeNS training, the noise augmentation drawn inside the
+step and a three-term loss (energy, forces on the clean atoms, the noise
+vector on the noised ones).  Data parallelism (``pmean_axis``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from ..graph.batching import GraphsTuple
 from ..kernels.dtp import skip_leg_grads
+from ..models.dens import add_masked_gaussian_noise, dens_outputs
 from ..models.md17_models import energy_and_forces
 from .optim import ema_update
 from .state import TrainState
@@ -48,7 +52,10 @@ def evaluate_md17(model: torch.nn.Module, batch: GraphsTuple, task_mean: float =
     against ``batch.y`` and ``batch.forces``.  Differentiates with respect to
     the positions only (``energy_and_forces``), even under ``no_grad``."""
     model.eval()
-    energy, forces = energy_and_forces(model, batch)
+    return _force_sums(*energy_and_forces(model, batch), batch, task_mean, task_std)
+
+
+def _force_sums(energy, forces, batch, task_mean, task_std) -> Dict[str, torch.Tensor]:
     e_err = energy * task_std + task_mean - batch.y.to(energy.dtype)
     f_err = forces * task_std - batch.forces.to(forces.dtype)
     gm = batch.graph_mask.to(energy.dtype)
@@ -148,4 +155,65 @@ def make_md17_steps(model: torch.nn.Module, optimizer, task_mean: float = 0.0,
                        "grad_norm": grad_norm}
 
     eval_step = functools.partial(evaluate_md17, task_mean=task_mean, task_std=task_std)
+    return train_step, eval_step
+
+
+def make_dens_steps(model: torch.nn.Module, optimizer, task_mean: float = 0.0,
+                    task_std: float = 1.0, energy_weight: float = 1.0,
+                    force_weight: float = 80.0, denoising_pos_std: float = 0.05,
+                    denoising_pos_prob: float = 0.5, corrupt_ratio: Optional[float] = None,
+                    ema_decay: Optional[float] = 0.999):
+    """DeNS training steps (``models/dens.py``); returns ``(train_step,
+    eval_step)``.
+
+    ``train_step(state, batch, generator, dp_weight)`` draws the noise
+    augmentation from ``generator`` (a ``torch.Generator`` on the batch's
+    device; it also feeds the dropout sites of models that have them), then
+    runs ``train_step.noised(state, noised_batch, dp_weight, generator)``:
+    the training-mode forward and force pass (``dens_outputs(...,
+    create_graph=True)``), loss = energy_weight * L2MAE(E) + force_weight *
+    L2MAE(outputs - F) over the clean atoms + dp_weight * L2MAE(outputs -
+    noise / denoising_pos_std) over the noised ones (normalized units; a
+    term whose mask is empty is exactly 0), the parameter gradient, one
+    optimizer update and the EMA update, in place on ``state``.  Returns the
+    state and ``{"loss", "loss_e", "loss_f", "loss_dp", "grad_norm"}`` as
+    device scalars.  ``dp_weight`` is a number, so a schedule of it stays on
+    the host.  ``eval_step(model, batch)``: energies and forces of a batch
+    without noise and their MAE sums, as ``evaluate_md17``."""
+
+    def noised_step(state: TrainState, batch: GraphsTuple, dp_weight, generator=None):
+        state.model.train()
+        params = state.params
+        energy, outputs = dens_outputs(state.model, batch, create_graph=True, rng=generator)
+        noise_mask = batch.extras["noise_mask"]
+        clean_mask = batch.node_mask & ~noise_mask
+        loss_e = _l2mae(energy - (batch.y.to(energy.dtype) - task_mean) / task_std,
+                        batch.graph_mask)
+        loss_f = _l2mae(outputs - batch.forces.to(outputs.dtype) / task_std, clean_mask)
+        loss_dp = _l2mae(outputs - batch.extras["noise_vec"].to(outputs.dtype)
+                         / denoising_pos_std, noise_mask)
+        loss = energy_weight * loss_e + force_weight * loss_f + dp_weight * loss_dp
+        # sh depends on the positions alone: the DTP ops skip its sh leg here
+        with skip_leg_grads("sh"):
+            grads = torch.autograd.grad(loss, list(params.values()))
+        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        optimizer.update(params, grads, state.opt_state)
+        if state.ema is not None and ema_decay is not None:
+            ema_update(state.ema, params, ema_decay)
+        state.step += 1
+        return state, {"loss": loss.detach(), "loss_e": loss_e.detach(),
+                       "loss_f": loss_f.detach(), "loss_dp": loss_dp.detach(),
+                       "grad_norm": grad_norm}
+
+    def train_step(state: TrainState, batch: GraphsTuple, generator: torch.Generator,
+                   dp_weight):
+        noised = add_masked_gaussian_noise(batch, generator, denoising_pos_std,
+                                           denoising_pos_prob, corrupt_ratio)
+        return noised_step(state, noised, dp_weight, generator)
+
+    def eval_step(model: torch.nn.Module, batch: GraphsTuple) -> Dict[str, torch.Tensor]:
+        model.eval()
+        return _force_sums(*dens_outputs(model, batch), batch, task_mean, task_std)
+
+    train_step.noised = noised_step
     return train_step, eval_step

@@ -557,6 +557,53 @@ def test_reduced_md17_train_step_on_card_matches_cpu(dev):
     assert mg == mg2 and all(torch.equal(pg[n], pg2[n]) for n in pg)
 
 
+@pytest.mark.cuda
+def test_reduced_dens_step_on_card_matches_cpu(dev):
+    """One fp32 DeNS step (``train_step.noised``) of a reduced L3 model (2
+    blocks, a wide 32x0e+16x1e+16x2e+8x3e feature, the denoising head
+    through irreps_pre_attn) on the card against the CPU plain path, from
+    one noise draw made on the CPU: the four loss terms and the gradient
+    norm within 1e-3 relative, the parameters within 1e-3 of the largest;
+    the step's launches (the MD17 step's 17 K1, 8 K5a, 15 K5b and 17 K5c
+    plus the head's 2, 1, 1 and 2); two steps from one state give the same
+    bits."""
+    import copy
+
+    import equiformer_tpu_torch as pt
+    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
+    from equiformer_tpu_torch.kernels import launch_counts
+
+    cfg = dict(irreps_node_embedding=L3_IRR, num_layers=2, irreps_sh=L3_SH,
+               irreps_equivariant_inputs=L3_SH, number_of_basis=32, basis_type="exp",
+               fc_neurons=(16, 16), irreps_feature="32x0e+16x1e+16x2e+8x3e",
+               irreps_head="8x0e+4x1e+4x2e+2x3e", num_heads=4, irreps_pre_attn=L3_IRR,
+               irreps_mlp_mid="24x0e+12x1e+12x2e+6x3e", max_edges=1024, nodes_per_graph=21)
+    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, 21, shuffle=False,
+                                  with_forces=True)))
+    batch = pt.add_masked_gaussian_noise(batch, torch.Generator().manual_seed(1), 0.05, 1.0,
+                                         0.25)
+    assert 0 < int(batch.extras["noise_mask"].sum()) < int(batch.node_mask.sum())
+    results = []
+    for d in ("cpu", dev, dev):
+        model = pt.model_entrypoint("equiformer_md17_dens")(**cfg, device=d)
+        opt = pt.create_optimizer(pt.cosine_warmup_schedule(2e-4, 100, 100000), weight_decay=1e-6)
+        step, _ = pt.make_dens_steps(model, opt, denoising_pos_std=0.05)
+        reset_launch_counts()
+        _, m = step.noised(pt.TrainState.create(model, opt), batch.to(d), 5.0)
+        results.append(({k: float(v) for k, v in m.items()},
+                        copy.deepcopy({n: p.detach().cpu() for n, p in model.named_parameters()})))
+    counts = launch_counts()
+    assert (counts["dtp_lin_fwd"], counts["dtp_lin_bwd3"], counts["dtp_lin_leg"],
+            counts["dtp_lin_legW"], counts["dtp_lin_bwd"], counts["attn_combine"]) \
+        == (19, 9, 16, 19, 0, 0)
+    (mc, pc), (mg, pg), (mg2, pg2) = results
+    for k in ("loss", "loss_e", "loss_f", "loss_dp", "grad_norm"):
+        assert abs(mg[k] - mc[k]) < 1e-3 * abs(mc[k]), k
+    scale = max(float(p.abs().max()) for p in pc.values())
+    assert max(float((pg[n] - pc[n]).abs().max()) for n in pc) < 1e-3 * scale
+    assert mg == mg2 and all(torch.equal(pg[n], pg2[n]) for n in pg)
+
+
 # The unfused route's primitives (K6) on the DTP term lists of the QM9 and
 # L3 call sites at small widths, and the QM9 flagship's: (node irreps, SH,
 # fold_rescale).  "l2" has 2-wide tiles (lanes of one column), "l3" and
@@ -1182,6 +1229,26 @@ def test_fma_probe_matches_plain(dev, shape, dtype):
     assert got.shape == x.shape and got.dtype == dt
     assert _rel(got, want) < FMA_TOL[dtype]
     assert fma_probe.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("shape", [*FMA_SHAPES, "one-chunk-and-tail"])
+def test_fma_probe_gives_the_first_designs_bits(dev, shape, dtype):
+    """The kernel (32 chains a thread in fp32, 8 in bf16) in every bit
+    against the first design, itself against the plain version: each
+    element runs the same chain of FMAs whatever the mapping.  The odd
+    shapes leave a tail after the last whole chunk."""
+    from equiformer_tpu_torch.kernels import fma_probe, fma_probe_plain
+    from equiformer_tpu_torch.kernels.peaks import fma_probe_first
+
+    rows, width, k = FMA_SHAPES.get(shape, (3, 1100, 33))
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(7)
+    x = (1.0 + 0.1 * torch.randn(rows, width, generator=g)).to(dev, dt)
+    first = fma_probe_first(x, k)
+    assert _rel(first, fma_probe_plain(x, k)) < FMA_TOL[dtype]
+    assert torch.equal(fma_probe(x, k), first)
 
 
 @pytest.mark.cuda

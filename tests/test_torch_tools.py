@@ -84,3 +84,22 @@ def test_trace_summary_sums_the_kernels_inside_a_range(tmp_path):
     path.write_text(json.dumps({"traceEvents": events}))
     assert trace_summary(path, n_forwards=2)["annotated"][ATTN_BWD_RANGE] == pytest.approx(
         [8e-3, 1.5])
+
+
+def test_sass_summary_counts_opcodes_and_finds_the_hottest_loop():
+    """``ptxas_report.sass_summary``: instructions counted by opcode
+    (predicates dropped), and the longest run without a branch, the
+    unrolled body of the hottest loop."""
+    from equiformer_tpu_torch.tools.ptxas_report import sass_summary
+
+    lines = ["/*0000*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;",
+             "/*0010*/                   HFMA2.BF16_V2 R4, R4, R8, R9 ;",
+             "/*0020*/                   HFMA2.BF16_V2 R5, R5, R8, R9 ;",
+             "/*0030*/                   HFMA2.BF16_V2 R6, R6, R8, R9 ;",
+             "/*0040*/               @P0 BRA 0x10 ;",
+             "/*0050*/                   STG.E.128 desc[UR4][R2.64], R4 ;",
+             "/*0060*/                   EXIT ;"]
+    s = sass_summary(lines)
+    assert s["opcodes"] == {"HFMA2.BF16_V2": 3, "LDG.E.128.CONSTANT": 1, "BRA": 1,
+                            "STG.E.128": 1, "EXIT": 1}
+    assert len(s["longest_straight_run"]) == 5 and "BRA" in s["longest_straight_run"][-1]
