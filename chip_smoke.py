@@ -2,7 +2,9 @@
 """Drive the PyTorch port's QM9 training and inference paths, its MD17
 energy + force evaluation and training and its DeNS training once on one
 NVIDIA GPU, on the fused DTP + linear route, the unfused DTP route, the
-radial fold and (QM9) the kron-basis route.
+radial fold and (QM9) the kron-basis route, in the fixed-slot batch layout,
+and the QM9 step, MD17 force training and the DeNS step again in the packed
+layout that the JAX models default to and the CLIs load.
 
     python3 chip_smoke.py
 
@@ -224,14 +226,45 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    memory, and two first steps from one seed (weights and noise) giving
    bitwise equal metrics and parameters.
 18. dens vs CPU — one full-width step of ``train_step.noised`` on
-   MD17_CPU_MOLECULES molecules, on the card and on the CPU plain path,
+   MD17_CPU_MOLECULES molecules, its depth cut to DENS_CPU_LAYERS blocks
+   (the first and the wide last), on the card and on the CPU plain path,
    from the same weights and the same noise (drawn on the CPU from a seed
    with probability 1, so that both force terms are live, then moved to the
    card), held as phase 10 holds the MD17 step: float32 within 1e-3, bfloat16
    no further from a float64 CPU step than MD17_BF16_FACTOR times the
    bfloat16 CPU path (floor 2e-2 for the two scalars).
 
-Phases 3 and 7 also time the model's segment sums too narrow for K3
+19. packed — the QM9 flagship on the packed layout (``nodes_per_graph=0``:
+   ``collate`` by the port's ``GraphLoader(data, 128, 3840)``, the [N, N]
+   radius graph, the src side of the gathers' backward through the
+   src-sort plan) at the QM9 CLI's capacities (3840 node rows, ``max_edges``
+   65280: ``cli/train_qm9.py:58-59``) on the same molecules as phase 2: the
+   radius graph's time and memory beside the fixed-slot one's, the launch
+   counts of one eval forward (13 K1, 1 K3, 6 K4) and its float32
+   predictions against the fixed-slot layout's from the same weights
+   (within LAYOUT_PRED_RTOL of max |pred|, equal bits printed), phase 4 on
+   the packed batches (13 K1, 13 K2, 13 K3, 6 K4 a step), two first steps
+   from one seed bitwise equal, and phase 5 on a packed batch of 16 graphs
+   (480 node rows, 17 edges a row: 8192).
+20. packed md17 — the exp_l3 force model on the packed layout at the MD17
+   CLI's capacities (256 node rows, ``max_edges`` 5632:
+   ``cli/train_md17.py:83-84``): the launch counts of one force evaluation
+   (13 K1, 13 K5a, 19 K3), its float32 energies and forces against the
+   fixed-slot layout's (within LAYOUT_FORCE_RTOL of the largest, equal bits
+   printed), phase 9 (45 K1, 20 K5a, 39 K5b, 45 K5c, 38 K3 a step;
+   PACKED_TIMED_STEPS timed steps; two first steps bitwise equal) and phase
+   10 on a packed batch of 2 molecules (42 node rows, 22 edges a row: 1024)
+   against the fixed-slot phase's float64 CPU step (the same function).
+21. packed dens — the aspirin L3 DeNS recipe at full width and depth on the
+   packed layout (``max_edges`` 5632): the launch counts of one
+   ``make_dens_steps`` step with the noise drawn on the card (47 K1, 21 K5a,
+   40 K5b, 47 K5c, 41 K3), then one float32 ``train_step.noised`` of each
+   layout from one seed on the same noise (drawn on the fixed-slot batch 0,
+   then packed by ``collate``): metrics and updated parameters within
+   ROUTE_RTOL of each other, equal bits printed.
+
+The phases run in the order 1-10, 17-21, 10a-16.  Phases 3 and 7 also
+time the model's segment sums too narrow for K3
 (``fixed_order_segment_sum``, an ``index_put_`` that repeats its bits)
 against ``index_add_`` at the shapes of the readout and the softmax
 denominators, and print what the fixed order costs per QM9 step and per
@@ -405,6 +438,22 @@ DENS_MODEL = "equiformer_md17_dens"
 EXPECTED_DENS_TRAIN = {**NONE, "dtp_lin_fwd": 47, "dtp_lin_bwd3": 21, "dtp_lin_leg": 40,
                        "dtp_lin_legW": 47, "csr_segment_sum": 41}
 DENS_METRICS = {"loss", "loss_e", "loss_f", "loss_dp", "grad_norm"}
+DENS_CPU_LAYERS = 2  # phase 18's depth
+# The packed layout (``collate``, the [N, N] radius graph, the src side of
+# the gathers' backward through the src-sort plan): the JAX models' default
+# and what both CLIs load, at the CLIs' capacities: node rows 30 a graph and
+# 17 edges a node row for QM9 (cli/train_qm9.py:58-59: 3840 and 65280 at
+# batch 128), the atoms and atoms + 1 edges a node row for MD17 and DeNS
+# (cli/train_md17.py:83-84: 256 and 5632 at batch 8).  The paths launch the
+# fixed-slot layout's kernels as often: the src side's sums are K3 where the
+# twins' were (the message gathers, 480 or 864 columns) and narrow where
+# theirs were (edge_vectors' 3 columns).
+PACKED = {"nodes_per_graph": 0}
+QM9_EDGES_PER_NODE = 17
+LAYOUT_PRED_RTOL = 1e-5  # QM9 eval predictions, packed vs fixed-slot, fp32
+LAYOUT_FORCE_RTOL = 1e-3  # MD17 energies and forces, packed vs fixed-slot, fp32
+PACKED_TIMED_STEPS = 5  # the packed force training phase's timed steps (3 warm-up)
+DENS_NODE_KEYS = ("force", "noise_mask", "denoising_pos_mask", "noise_vec")
 # The measurement kernels (S1-S3) of the port's tools, each launched by the
 # tool named; no model path launches them.  The probe's plain version rounds
 # each product and sum where the kernel's FMA rounds once.
@@ -538,14 +587,11 @@ def dtp_sites(model):
 def batch_geometry(model, batch):
     """(edges, float32 SH, n_edges device scalar, its value) of a batch."""
     from equiformer_tpu_torch.core.spherical import spherical_harmonics_for_irreps
-    from equiformer_tpu_torch.graph.radius_graph import (
-        edge_vectors, radius_graph_dense, reverse_edge_perm_dense,
-    )
+    from equiformer_tpu_torch.graph.radius_graph import build_edges, edge_vectors
     from equiformer_tpu_torch.graph.segment import active_edge_bound
 
-    G = batch.graph_mask.shape[0]
-    edges = radius_graph_dense(batch.pos, batch.node_mask, G, model.max_radius, model.max_edges)
-    edges = edges._replace(rev=reverse_edge_perm_dense(edges, G, model.nodes_per_graph))
+    edges = build_edges(batch.pos, batch.batch, batch.node_mask, batch.graph_mask.shape[0],
+                        model.max_radius, model.max_edges, model.nodes_per_graph)
     vec, _ = edge_vectors(batch.pos, edges)
     n_edges = active_edge_bound(edges.mask)
     return edges, spherical_harmonics_for_irreps(model.irreps_sh, vec), n_edges, int(n_edges)
@@ -702,12 +748,37 @@ def counted(torch, fn):
 
 
 def max_edges_for(batches, graphs):
-    """The real edge count of the largest batch, rounded up to 128."""
+    """The real edge count of each fixed-slot batch, and the largest rounded
+    up to 128."""
     from equiformer_tpu_torch.graph.radius_graph import radius_graph_dense
 
     counts = [int(radius_graph_dense(b.pos, b.node_mask, graphs, 5.0, graphs * SLOTS * SLOTS)
                   .mask.sum()) for b in batches]
     return counts, -(-max(counts) // 128) * 128
+
+
+def with_route(route, **kw):
+    """Model keywords: ``kw`` with ``route``'s switches, the layout among
+    them, over it."""
+    return {**kw, **(route or {})}
+
+
+def cpu_batch(data, slots, route, edges_per_node, with_forces=False):
+    """One CPU batch of all of ``data`` in ``route``'s layout and its
+    ``max_edges``: packed into ``slots`` node rows a graph with the CLIs'
+    ``edges_per_node`` edges a row (the node rows not rounded up to 128,
+    which would triple the CPU step's edges at 2 molecules), or fixed-slot
+    with the real edge count rounded up to 128."""
+    from equiformer_tpu_torch.data import GraphLoader
+
+    if (route or {}).get("nodes_per_graph") == 0:
+        nodes = len(data) * slots
+        return next(iter(GraphLoader(data, len(data), nodes, shuffle=False,
+                                     with_forces=with_forces))), \
+            -(-nodes * edges_per_node // 128) * 128
+    batch = next(iter(GraphLoader(data, len(data), dense_slots=slots, shuffle=False,
+                                  with_forces=with_forces)))
+    return batch, max_edges_for([batch], len(data))[1]
 
 
 def train_setup(pt, model):
@@ -721,8 +792,8 @@ def train_phase(pt, torch, make, max_edges, gpu_batches, dev, out, tag="train",
     """Full-width training steps at batch 128 in bf16 and fp32 on the card;
     ``route`` holds the DTP switches the model is built with."""
     for name in ("bfloat16", "float32"):
-        model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED,
-                     compute_dtype=None if name == "float32" else name, **(route or {}))
+        model = make(**with_route(route, max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED,
+                                  compute_dtype=None if name == "float32" else name))
         step, state = train_setup(pt, model)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -763,18 +834,17 @@ def train_phase(pt, torch, make, max_edges, gpu_batches, dev, out, tag="train",
 
 def train_vs_cpu(pt, torch, make, data, dev, tag="train", route=None):
     """One full-width training step of CPU_GRAPHS graphs on the card and on the
-    CPU plain path, same weights and same injected dropout masks."""
-    from equiformer_tpu_torch.data import GraphLoader
-
-    batch = next(iter(GraphLoader(data[:CPU_GRAPHS], CPU_GRAPHS, SLOTS, shuffle=False)))
-    _, max_edges = max_edges_for([batch], CPU_GRAPHS)
+    CPU plain path, same weights and same injected dropout masks; the batch
+    in ``route``'s layout."""
+    batch, max_edges = cpu_batch(data[:CPU_GRAPHS], SLOTS, route, QM9_EDGES_PER_NODE)
     mask_gen = torch.Generator().manual_seed(SEED + 1)
     keep = None
     for name in ("float32", "bfloat16"):
         results = []
         for d in (dev, "cpu"):
-            model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED, device=d,
-                         compute_dtype=None if name == "float32" else name, **(route or {}))
+            model = make(**with_route(route, max_edges=max_edges, nodes_per_graph=SLOTS,
+                                      seed=SEED, device=d,
+                                      compute_dtype=None if name == "float32" else name))
             if keep is None:  # one alpha-dropout mask [E, H] per block
                 keep = [torch.rand(max_edges, model.block_0.ga.num_heads, generator=mask_gen)
                         < 0.8 for _ in range(model.num_layers)]
@@ -1005,7 +1075,8 @@ def md17_phase(pt, torch, dev, out, tag="md17", expected=EXPECTED_MD17, route=No
     from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
 
     data = md17_like_dataset(MD17_BATCH * N_BATCHES, num_atoms=MD17_SLOTS, seed=SEED)
-    batches = list(GraphLoader(data, MD17_BATCH, MD17_SLOTS, shuffle=False, with_forces=True))
+    batches = list(GraphLoader(data, MD17_BATCH, dense_slots=MD17_SLOTS, shuffle=False,
+                               with_forces=True))
     counts, max_edges = max_edges_for(batches, MD17_BATCH)
     print(f"md17: {N_BATCHES} x {MD17_BATCH} molecules of {MD17_SLOTS} atoms, real edges "
           f"{counts}, max_edges {max_edges}")
@@ -1118,8 +1189,8 @@ def md17_train_phase(pt, torch, max_edges, gpu_batches, dev, out, tag="md17_trai
     DTP switches."""
     make = pt.model_entrypoint(MD17_MODEL)  # on the card
     for name in ("float32", "bfloat16"):
-        kw = dict(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
-                  compute_dtype=None if name == "float32" else name, **(route or {}))
+        kw = with_route(route, max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
+                        compute_dtype=None if name == "float32" else name)
         model = make(**kw)
         step, state = md17_train_setup(pt, model)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -1172,19 +1243,19 @@ def md17_train_phase(pt, torch, max_edges, gpu_batches, dev, out, tag="md17_trai
 def md17_train_vs_cpu(pt, torch, dev, tag="md17_train", route=None, ref64=None):
     """One full-width force training step of MD17_CPU_MOLECULES molecules on
     the card and on the CPU plain path, from the same weights.  ``ref64``:
-    the float64 CPU step of an earlier call on another route (the same
-    function); returns the one this call used."""
-    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
+    the float64 CPU step of an earlier call on another route or layout (the
+    same function); returns the one this call used.  The batch is in
+    ``route``'s layout."""
+    from equiformer_tpu_torch.data import md17_like_dataset
 
     data = md17_like_dataset(MD17_CPU_MOLECULES, num_atoms=MD17_SLOTS, seed=SEED)
-    batch = next(iter(GraphLoader(data, MD17_CPU_MOLECULES, MD17_SLOTS, shuffle=False,
-                                  with_forces=True)))
-    _, max_edges = max_edges_for([batch], MD17_CPU_MOLECULES)
+    batch, max_edges = cpu_batch(data, MD17_SLOTS, route, MD17_SLOTS + 1, with_forces=True)
     make = pt.model_entrypoint(MD17_MODEL)
 
     def one_step(d, name, double=False):
-        model = make(max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED, device=d,
-                     compute_dtype="bfloat16" if name == "bfloat16" else None, **(route or {}))
+        model = make(**with_route(route, max_edges=max_edges, nodes_per_graph=MD17_SLOTS,
+                                  seed=SEED, device=d,
+                                  compute_dtype="bfloat16" if name == "bfloat16" else None))
         b = batch.to(d)
         if double:
             model, b = model.double(), b.to(dtype=torch.float64)
@@ -1322,14 +1393,16 @@ def dens_vs_cpu(pt, torch, dev, tag="dens_train"):
     MD17_CPU_MOLECULES molecules on the card and on the CPU plain path, from
     the same weights and the same noise: drawn on the CPU from a seed with
     probability 1 and the recipe's corrupt ratio (both force terms live),
-    then moved to the card."""
+    then moved to the card.  The model's depth is cut to DENS_CPU_LAYERS
+    blocks (the first and the wide last): the CPU's bfloat16 step at full
+    depth took ~68 s of the run's time limit."""
     from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
     from equiformer_tpu_torch.models.dens import ASPIRIN_L3, ASPIRIN_L3_TRAIN, every_pair_edges
 
     recipe = ASPIRIN_L3_TRAIN["steps"]
     data = md17_like_dataset(MD17_CPU_MOLECULES, num_atoms=MD17_SLOTS, seed=SEED)
-    batch = next(iter(GraphLoader(data, MD17_CPU_MOLECULES, MD17_SLOTS, shuffle=False,
-                                  with_forces=True)))
+    batch = next(iter(GraphLoader(data, MD17_CPU_MOLECULES, dense_slots=MD17_SLOTS,
+                                  shuffle=False, with_forces=True)))
     batch = pt.add_masked_gaussian_noise(
         batch, torch.Generator().manual_seed(SEED), recipe["denoising_pos_std"], 1.0,
         recipe["corrupt_ratio"])
@@ -1338,8 +1411,9 @@ def dens_vs_cpu(pt, torch, dev, tag="dens_train"):
     make = pt.model_entrypoint(DENS_MODEL)
 
     def one_step(d, name, double=False):
-        model = make(**ASPIRIN_L3, max_edges=max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED,
-                     device=d, compute_dtype="bfloat16" if name == "bfloat16" else None)
+        model = make(**{**ASPIRIN_L3, "num_layers": DENS_CPU_LAYERS}, max_edges=max_edges,
+                     nodes_per_graph=MD17_SLOTS, seed=SEED, device=d,
+                     compute_dtype="bfloat16" if name == "bfloat16" else None)
         b = batch.to(d)
         if double:
             model, b = model.double(), b.to(dtype=torch.float64)
@@ -1355,6 +1429,191 @@ def dens_vs_cpu(pt, torch, dev, tag="dens_train"):
     return step_vs_cpu(torch, dev, tag, one_step, None,
                        f"{MD17_CPU_MOLECULES} molecules, {noised} atoms noised, max_edges "
                        f"{max_edges}")
+
+
+def to_packed(batch, slots, node_capacity, node_keys=()):
+    """The packed batch of a fixed-slot one (``slots`` node slots a graph):
+    each graph's real atoms, forces, targets and the extras ``node_keys``,
+    collated by ``collate`` into ``node_capacity`` rows on the CPU."""
+    from equiformer_tpu_torch.graph.batching import collate
+
+    b = batch.to("cpu")
+    graphs = []
+    for g in range(b.graph_mask.shape[0]):
+        rows = slice(g * slots, (g + 1) * slots)
+        n = int(b.node_mask[rows].sum())
+        graph = {"pos": b.pos[rows][:n].numpy(), "species": b.species[rows][:n].numpy(),
+                 "y": float(b.y[g]), "forces": b.forces[rows][:n].numpy()}
+        graph.update({k: b.extras[k][rows][:n].numpy() for k in node_keys})
+        graphs.append(graph)
+    return collate(graphs, node_capacity, len(graphs), with_forces=True,
+                   extra_node_keys=node_keys)
+
+
+def packed_geometry(torch, build_edges, layouts, dev):
+    """Each layout's radius graph and backward plan (``build_edges``) on
+    batch 0: CUDA-event ms a call and the peak memory above the batch."""
+    for label, args in layouts.items():
+        fn = lambda: build_edges(*args)  # noqa: E731
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        print(f"{label} radius graph + backward plan at batch 0: {cuda_time_ms(fn, torch):.4f} ms "
+              f"a call, peak {peak:.1f} MiB above the batch", flush=True)
+
+
+def packed_qm9_phase(pt, torch, make, data, counts, dense_max_edges, dense_gpu, dev, out):
+    """Phase 19: the QM9 flagship on the packed layout at the CLI's
+    capacities: the radius graph's time and memory beside the fixed-slot
+    one's, the eval forward's launch counts and its predictions against the
+    fixed-slot layout's on the same molecules and weights, phase 4 on the
+    packed batches, two first steps from one seed bitwise equal, and
+    phase 5."""
+    from equiformer_tpu_torch.data import GraphLoader
+    from equiformer_tpu_torch.graph.batching import cli_capacities
+    from equiformer_tpu_torch.graph.radius_graph import build_edges
+
+    nodes, max_edges = cli_capacities(BATCH, SLOTS, QM9_EDGES_PER_NODE)
+    if max(counts) > max_edges:
+        raise RuntimeError(f"real edges {counts} exceed the packed capacity {max_edges}")
+    gpu = [b.to(dev) for b in GraphLoader(data, BATCH, nodes, shuffle=False)]
+    print(f"packed: {N_BATCHES} x {BATCH} graphs in {nodes} node rows, max_edges {max_edges} "
+          f"(real edges {counts})", flush=True)
+    b0, d0 = gpu[0], dense_gpu[0]
+    packed_geometry(torch, build_edges, {
+        "packed": (b0.pos, b0.batch, b0.node_mask, BATCH, 5.0, max_edges, 0),
+        "fixed-slot": (d0.pos, d0.batch, d0.node_mask, BATCH, 5.0, dense_max_edges, SLOTS)}, dev)
+
+    packed = make(max_edges=max_edges, nodes_per_graph=0, seed=SEED).eval()
+    fixed = make(max_edges=dense_max_edges, nodes_per_graph=SLOTS, seed=SEED).eval()
+    rp, launches = counted(torch, lambda: pt.evaluate(packed, b0))
+    print(f"packed eval: launches in one forward: {launches}")
+    if launches != EXPECTED_EVAL:
+        raise RuntimeError(f"launch counts {launches} != expected {EXPECTED_EVAL}")
+    out["packed_eval_launches"] = launches
+    pp, pd = rp["pred"].cpu(), pt.evaluate(fixed, d0)["pred"].cpu()
+    rel = float((pp - pd).abs().max()) / float(pd.abs().max())
+    print(f"packed vs fixed-slot eval float32, batch 0 ({BATCH} molecules, same weights): "
+          f"|diff| {rel:.3e} of max |pred| (bound {LAYOUT_PRED_RTOL:.0e}), bits equal: "
+          f"{torch.equal(pp, pd)}", flush=True)
+    if not (bool(pp.isfinite().all()) and rel <= LAYOUT_PRED_RTOL):
+        raise RuntimeError("the packed layout's predictions disagree with the fixed-slot ones")
+    del packed, fixed
+
+    train_phase(pt, torch, make, max_edges, gpu, dev, out, "packed_train", EXPECTED_TRAIN, PACKED)
+    for name in ("bfloat16", "float32"):
+        print(f"train {name}: packed {out[f'packed_train_{name}']:.1f} graphs/s, peak "
+              f"{out[f'packed_train_{name}_peak_mib']:.0f} MiB; fixed-slot "
+              f"{out[f'train_{name}']:.1f} graphs/s, peak {out[f'train_{name}_peak_mib']:.0f} MiB")
+    first_steps_bitwise(pt, torch, make, max_edges, b0, PACKED, "packed_train")
+    train_vs_cpu(pt, torch, make, data, dev, "packed_train", PACKED)
+
+
+def packed_md17_phase(pt, torch, dense_gpu, dense_max_edges, step64, dev, out):
+    """Phase 20: the exp_l3 force model on the packed layout at the MD17
+    CLI's capacities: the force evaluation's launch counts, its energies and
+    forces against the fixed-slot layout's on the same molecules and
+    weights, phase 9 (PACKED_TIMED_STEPS timed steps, two first steps
+    bitwise equal) and phase 10 against the fixed-slot phase's float64 CPU
+    step (the same function)."""
+    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset
+    from equiformer_tpu_torch.graph.batching import cli_capacities
+
+    data = md17_like_dataset(MD17_BATCH * N_BATCHES, num_atoms=MD17_SLOTS, seed=SEED)
+    nodes, max_edges = cli_capacities(MD17_BATCH, MD17_SLOTS, MD17_SLOTS + 1)
+    gpu = [b.to(dev) for b in GraphLoader(data, MD17_BATCH, nodes, shuffle=False,
+                                          with_forces=True)]
+    print(f"packed md17: {N_BATCHES} x {MD17_BATCH} molecules in {nodes} node rows, max_edges "
+          f"{max_edges}", flush=True)
+    entry = pt.model_entrypoint(MD17_MODEL)  # on the card
+    packed = entry(max_edges=max_edges, nodes_per_graph=0, seed=SEED)
+    fixed = entry(max_edges=dense_max_edges, nodes_per_graph=MD17_SLOTS, seed=SEED)
+    rp, launches = counted(torch, lambda: pt.evaluate_md17(packed, gpu[0]))
+    print(f"packed_md17: launches in one force evaluation: {launches}")
+    if launches != EXPECTED_MD17:
+        raise RuntimeError(f"launch counts {launches} != expected {EXPECTED_MD17}")
+    out["packed_md17_launches"] = launches
+    rd = pt.evaluate_md17(fixed, dense_gpu[0])
+    ep, ed = rp["energy"].cpu(), rd["energy"].cpu()
+    fp, fd = (r["forces"][b.node_mask].cpu() for r, b in ((rp, gpu[0]), (rd, dense_gpu[0])))
+    e_rel = float((ep - ed).abs().max()) / float(ed.abs().max())
+    f_rel = float((fp - fd).abs().max()) / float(fd.abs().max())
+    print(f"packed vs fixed-slot md17 float32, batch 0 (same molecules and weights): energies "
+          f"{e_rel:.3e} of max |E|, forces {f_rel:.3e} of max |F| (bound "
+          f"{LAYOUT_FORCE_RTOL:.0e}), bits equal: energies {torch.equal(ep, ed)}, forces "
+          f"{torch.equal(fp, fd)}", flush=True)
+    if not (bool(fp.isfinite().all()) and e_rel <= LAYOUT_FORCE_RTOL
+            and f_rel <= LAYOUT_FORCE_RTOL):
+        raise RuntimeError("the packed layout's energies or forces disagree with the fixed-slot "
+                           "ones")
+    del packed, fixed
+    md17_train_phase(pt, torch, max_edges, gpu, dev, out, "packed_md17_train",
+                     EXPECTED_MD17_TRAIN, PACKED, PACKED_TIMED_STEPS)
+    for name in ("float32", "bfloat16"):
+        print(f"md17 train {name}: packed {out[f'packed_md17_train_{name}']:.1f} molecules/s, "
+              f"peak {out[f'packed_md17_train_{name}_peak_mib']:.0f} MiB; fixed-slot "
+              f"{out[f'md17_train_{name}']:.1f} molecules/s, peak "
+              f"{out[f'md17_train_{name}_peak_mib']:.0f} MiB")
+    md17_train_vs_cpu(pt, torch, dev, "packed_md17_train", PACKED, step64)
+
+
+def packed_dens_phase(pt, torch, dense_gpu, dev, out):
+    """Phase 21: the aspirin L3 DeNS recipe on the packed layout
+    (``max_edges`` the MD17 CLI's 5632): the launch counts of one
+    ``make_dens_steps`` step with the noise drawn on the card, then one
+    float32 step of each layout from one seed on the same noise (drawn on
+    the fixed-slot batch 0, then packed): metrics and updated parameters
+    within ROUTE_RTOL of each other."""
+    from equiformer_tpu_torch.graph.batching import cli_capacities
+    from equiformer_tpu_torch.models.dens import ASPIRIN_L3, ASPIRIN_L3_TRAIN, every_pair_edges
+
+    recipe, dp_weight = ASPIRIN_L3_TRAIN["steps"], ASPIRIN_L3_TRAIN["dp_weight"]
+    nodes, max_edges = cli_capacities(MD17_BATCH, MD17_SLOTS, MD17_SLOTS + 1)
+    make = pt.model_entrypoint(DENS_MODEL)  # on the card
+    d0 = dense_gpu[0]
+    model = make(**ASPIRIN_L3, max_edges=max_edges, nodes_per_graph=0, seed=SEED)
+    step, state = dens_train_setup(pt, model)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p0 = to_packed(d0, MD17_SLOTS, nodes).to(dev)
+    (state, m), launches = counted(torch, lambda: step(state, p0, gen, dp_weight))
+    vals = {k: float(v) for k, v in m.items()}
+    print(f"packed_dens_train: launches in one step: {launches}; metrics {vals}", flush=True)
+    if launches != EXPECTED_DENS_TRAIN:
+        raise RuntimeError(f"launch counts {launches} != expected {EXPECTED_DENS_TRAIN}")
+    if set(vals) != DENS_METRICS or not all(v == v and abs(v) < float("inf")
+                                            for v in vals.values()):
+        raise RuntimeError(f"missing or non-finite packed DeNS metrics {vals}")
+    out["packed_dens_train_launches"] = launches
+    del model, state, step
+
+    noised = pt.add_masked_gaussian_noise(
+        d0, torch.Generator(device=dev).manual_seed(SEED + 3), recipe["denoising_pos_std"], 1.0,
+        recipe["corrupt_ratio"])
+    layouts = {"fixed-slot": (dict(max_edges=every_pair_edges(MD17_BATCH, MD17_SLOTS),
+                                   nodes_per_graph=MD17_SLOTS), noised),
+               "packed": (dict(max_edges=max_edges, nodes_per_graph=0),
+                          to_packed(noised, MD17_SLOTS, nodes, DENS_NODE_KEYS).to(dev))}
+    res = {}
+    for label, (kw, b) in layouts.items():
+        model = make(**ASPIRIN_L3, **kw, seed=SEED)
+        step, state = dens_train_setup(pt, model)
+        _, m = step.noised(state, b, dp_weight)
+        res[label] = ({k: float(v) for k, v in m.items()},
+                      [p.detach().clone() for p in model.parameters()])
+        del model, state, step
+    (mf, pf), (mp, pp) = res["fixed-slot"], res["packed"]
+    errs = {k: abs(mp[k] - mf[k]) / max(abs(mf[k]), 1e-30) for k in DENS_METRICS}
+    scale = max(float(p.abs().max()) for p in pf)
+    errs["params"] = max(float((p - q).abs().max()) for p, q in zip(pp, pf)) / scale
+    bits = mp == mf and all(torch.equal(p, q) for p, q in zip(pp, pf))
+    print(f"packed vs fixed-slot DeNS step float32 ({int(noised.extras['noise_mask'].sum())} "
+          f"atoms noised): packed {mp}, fixed-slot {mf}, rel {errs} (the updated parameters "
+          f"against max |param|; bound {ROUTE_RTOL:.0e}), bits equal: {bits}", flush=True)
+    if not all(e <= ROUTE_RTOL for e in errs.values()):
+        raise RuntimeError("the packed DeNS step disagrees with the fixed-slot one")
 
 
 def md17_train_kernel_phase(torch, model, batch, dev, records):
@@ -1946,8 +2205,9 @@ def first_steps_bitwise(pt, torch, make, max_edges, batch, route, tag):
     for name in ("bfloat16", "float32"):
         res = []
         for _ in range(2):
-            model = make(max_edges=max_edges, nodes_per_graph=SLOTS, seed=SEED,
-                         compute_dtype=None if name == "float32" else name, **route)
+            model = make(**with_route(route, max_edges=max_edges, nodes_per_graph=SLOTS,
+                                      seed=SEED, compute_dtype=None if name == "float32"
+                                      else name))
             keep = [torch.rand(max_edges, model.block_0.ga.num_heads,
                                generator=torch.Generator().manual_seed(SEED + 9 + i)) < 0.8
                     for i in range(model.num_layers)]
@@ -2173,7 +2433,7 @@ def run(torch, dev) -> int:
             print("ptxas:", ln.strip())
 
     data = qm9_like_dataset(BATCH * N_BATCHES, seed=SEED)
-    batches = list(GraphLoader(data, BATCH, SLOTS, shuffle=False))
+    batches = list(GraphLoader(data, BATCH, dense_slots=SLOTS, shuffle=False))
     counts, max_edges = max_edges_for(batches, BATCH)
     print(f"batches: {N_BATCHES} x {BATCH} graphs, real edges {counts}, max_edges {max_edges}")
     make = pt.model_entrypoint("graph_attention_transformer_nonlinear_l2")  # on the card
@@ -2221,6 +2481,17 @@ def run(torch, dev) -> int:
     t = time.time()
     dens_vs_cpu(pt, torch, dev)
     print(f"dens vs CPU phase: {time.time() - t:.1f} s", flush=True)
+
+    # the packed layout (collate, the [N, N] radius graph) at the CLIs' capacities
+    t = time.time()
+    packed_qm9_phase(pt, torch, make, data, counts, max_edges, gpu_batches, dev, out)
+    print(f"packed QM9 phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    packed_md17_phase(pt, torch, md17_batches, md17_max_edges, md17_step64, dev, out)
+    print(f"packed md17 phase: {time.time() - t:.1f} s", flush=True)
+    t = time.time()
+    packed_dens_phase(pt, torch, md17_batches, dev, out)
+    print(f"packed dens phase: {time.time() - t:.1f} s", flush=True)
 
     # the radial fold (K7): kernels, QM9 eval and training, MD17 forces
     t = time.time()

@@ -14,10 +14,14 @@ to run:
     perm(x, p)       backward: perm(g, p_inv)
 
 ``take_rows`` carries its own backward recipe as operands: ``t_ids`` are
-non-decreasing segment ids that sort the cotangent rows (dst of a dst-sorted
-edge list) and ``t_perm`` an optional involutive row permutation applied
-first (the reverse-twin trick: summing g over src equals summing g[rev] over
-dst).
+non-decreasing segment ids that sort the cotangent rows and ``t_perm`` an
+optional row permutation applied first, with ``t_perm_inv`` its inverse.
+Two recipes gather over src: the reverse-twin trick of the fixed-slot
+layout (``t_perm`` the involution rev, ``t_ids`` dst: summing g over src
+equals summing g[rev] over dst) and the packed layout's src sort
+(``t_perm`` a stable argsort of src, ``t_ids`` the sorted src).  The JAX
+package sums the packed src side with an unsorted scatter, which is XLA's
+and not a kernel; the sort gives the same function without float atomics.
 """
 
 from __future__ import annotations
@@ -54,17 +58,17 @@ def fixed_order_segment_sum(data, segment_ids, num_segments: int, mask=None):
 
 class _Take(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, idx, t_ids, t_perm):
+    def forward(ctx, x, idx, t_ids, t_perm, t_perm_inv):
         ctx.num_rows = x.shape[0]
-        ctx.save_for_backward(t_ids, t_perm)
+        ctx.save_for_backward(t_ids, t_perm, t_perm_inv)
         return x[idx]
 
     @staticmethod
     def backward(ctx, g):
-        t_ids, t_perm = ctx.saved_tensors
+        t_ids, t_perm, t_perm_inv = ctx.saved_tensors
         if t_perm is not None:
-            g = permute_rows(g, t_perm)  # an involution
-        return segsum_rows(g, t_ids, ctx.num_rows), None, None, None
+            g = permute_rows(g, t_perm, t_perm_inv)
+        return segsum_rows(g, t_ids, ctx.num_rows), None, None, None, None
 
 
 class _NarrowSegSum(torch.autograd.Function):
@@ -91,13 +95,15 @@ class _Perm(torch.autograd.Function):
         return permute_rows(g, perm_inv, perm), None, None
 
 
-def take_rows(x, idx, t_ids, t_perm=None):
+def take_rows(x, idx, t_ids, t_perm=None, t_perm_inv=None):
     """``x[idx]`` whose backward is the sorted segment sum
-    ``segsum_rows(g[t_perm], t_ids)``: ``idx`` is ``t_ids`` itself, or the
+    ``segsum_rows(g[t_perm], t_ids)``: ``idx`` is ``t_ids`` itself; or the
     src of a symmetric edge list with ``t_ids`` its dst and ``t_perm`` the
     reverse-twin permutation (an involution; rows whose cotangent is zero may
-    map anywhere)."""
-    return _Take.apply(x, idx, t_ids, t_perm)
+    map anywhere); or any ``idx`` with ``t_perm`` a stable argsort of it,
+    ``t_perm_inv`` that permutation's inverse and ``t_ids = idx[t_perm]``.
+    ``t_perm_inv`` defaults to ``t_perm``, an involution."""
+    return _Take.apply(x, idx, t_ids, t_perm, t_perm_inv)
 
 
 def masked_take(g, ids, mask):

@@ -7,9 +7,11 @@ grad-of-grad stay on the sorted lowerings: ``segment_sum`` takes the CSR
 kernel (``kernels/segment_csr.py``) under the JAX package's eligibility rule
 (rank 2 or 3, at least 128 flat columns) and ``fixed_order_segment_sum``
 below it; ``take_rows`` is a row gather whose backward is a sorted segment
-sum (the rev twin takes the src side there); ``gather_add`` is the message
-gather built from two of them.  The ids must be non-decreasing, as every
-caller's are (edges are dst-sorted, nodes graph-sorted).  The kernel module
+sum; ``take_src`` gathers over an edge list's src, whose backward sums over
+the rev twin (fixed-slot layout) or the src-sort plan (packed layout);
+``gather_add`` is the message gather built from two gathers.  The ids
+must be non-decreasing, as every caller's are (edges are dst-sorted, nodes
+graph-sorted, the src-sort plan's ids sorted).  The kernel module
 itself decides by device: CPU tensors run its plain version, CUDA tensors
 the kernel.
 """
@@ -77,23 +79,37 @@ def segment_softmax(scores, segment_ids, num_segments: int, mask=None,
     return ex / linear_prims.take_rows(denom, segment_ids, segment_ids)
 
 
-def take_rows(data, idx, dst, perm=None):
+def take_rows(data, idx, dst, perm=None, perm_inv=None):
     """``data[idx]`` (rows of ``data`` per edge) whose backward is a segment
     sum over the non-decreasing ``dst`` (the CSR kernel at >= 128 columns),
     not autograd's unsorted scatter-add, at every order of differentiation
-    (``linear_prims.take_rows``).  ``idx`` is ``dst`` itself, or the src of a
-    symmetric edge list with ``perm`` its reverse-twin permutation: summing g
-    over src equals summing g[perm] over dst.  Padded edges map through
-    ``perm`` arbitrarily; their cotangents must be zero."""
-    return linear_prims.take_rows(data, idx, dst, perm)
+    (``linear_prims.take_rows``).  ``idx`` is ``dst`` itself, or an index
+    that ``perm`` (with its inverse ``perm_inv``; ``perm`` itself when None,
+    an involution) sorts onto ``dst``.  For the reverse twin, padded edges
+    map through ``perm`` arbitrarily; their cotangents must be zero."""
+    return linear_prims.take_rows(data, idx, dst, perm, perm_inv)
 
 
-def gather_add(xs, xd, src, dst, num_nodes: int, rev):
+def take_src(data, src, dst, rev=None, src_plan=None):
+    """``data[src]`` for an edge list whose backward is a sorted segment sum:
+    over ``dst`` through the reverse twins ``rev`` (fixed-slot layout), or
+    over the sorted src of ``src_plan`` (``radius_graph.SrcSortPlan``, the
+    packed layout)."""
+    if rev is not None:
+        return take_rows(data, src, dst, rev)
+    if src_plan is not None:
+        return take_rows(data, src, src_plan.ids, src_plan.order, src_plan.order_inv)
+    raise ValueError("a gather over src needs the edge list's rev (reverse_edge_perm_dense, "
+                     "fixed-slot layout) or src_plan (src_sort_plan, packed layout)")
+
+
+def gather_add(xs, xd, src, dst, num_nodes: int, rev=None, src_plan=None):
     """``xs[src] + xd[dst]`` (``num_nodes`` rows each) whose backward is two
-    segment sums over the non-decreasing ``dst`` (``take_rows``)."""
+    sorted segment sums: over ``dst``, and over src through ``rev`` or
+    ``src_plan`` (``take_src``)."""
     if xs.shape[0] != num_nodes or xd.shape[0] != num_nodes:
         raise ValueError(f"gather_add takes [{num_nodes}, ...] node features")
-    return take_rows(xs, src, dst, rev) + take_rows(xd, dst, dst)
+    return take_src(xs, src, dst, rev, src_plan) + take_rows(xd, dst, dst)
 
 
 def active_edge_bound(mask: torch.Tensor) -> torch.Tensor:

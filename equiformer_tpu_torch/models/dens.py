@@ -30,7 +30,7 @@ from torch import nn
 from ..core.irreps import Irreps
 from ..core.spherical import spherical_harmonics_for_irreps
 from ..graph.batching import GraphsTuple
-from ..graph.radius_graph import edge_vectors, radius_graph_dense, reverse_edge_perm_dense
+from ..graph.radius_graph import build_edges, edge_vectors
 from ..graph.segment import active_edge_bound, scaled_scatter_sum
 from ..kernels.dtp import skip_leg_grads
 from ..nn.activation import Activation
@@ -61,19 +61,21 @@ ASPIRIN_L3_TRAIN = dict(
 
 
 def every_pair_edges(graphs: int, nodes_per_graph: int) -> int:
-    """``max_edges`` for a batch whose radius graph is rebuilt from noised
-    positions: every ordered pair of each graph's atoms, rounded up to 128,
-    so that no draw truncates the edge list (truncation would break the
-    reverse-edge twins)."""
+    """``max_edges`` for a fixed-slot batch whose radius graph is rebuilt
+    from noised positions: every ordered pair of each graph's atoms, rounded
+    up to 128, so that no draw truncates the edge list (truncation would
+    break the reverse-edge twins).  The packed layout needs no such bound:
+    its src-sort plan stays exact under truncation."""
     pairs = graphs * nodes_per_graph * (nodes_per_graph - 1)
     return -(-pairs // 128) * 128
 
 
 class EquiformerDeNS(nn.Module):
-    """The options keep the JAX package's names and defaults; only the
-    fixed-slot layout (``nodes_per_graph`` > 0), nonlinear messages, layer
-    norms and no degree rescaling are ported.  In training mode ``forward``
-    needs ``rng`` when a dropout rate is nonzero."""
+    """The options keep the JAX package's names and defaults; both layouts
+    (``nodes_per_graph`` 0, the packed default, or > 0, fixed-slot), and
+    only nonlinear messages, layer norms and no degree rescaling are
+    ported.  In training mode ``forward`` needs ``rng`` when a dropout rate
+    is nonzero."""
 
     def __init__(
         self,
@@ -108,8 +110,6 @@ class EquiformerDeNS(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        if nodes_per_graph <= 0:
-            raise NotImplementedError("only the fixed-slot (collate_dense) layout is ported")
         if rescale_degree or not nonlinear_message or norm_layer != "layer":
             raise NotImplementedError("ported: nonlinear messages, layer norms, no degree "
                                       "rescaling")
@@ -173,10 +173,8 @@ class EquiformerDeNS(nn.Module):
         pos = graphs.pos
         G = graphs.graph_mask.shape[0]
         N = pos.shape[0]
-        if N != G * self.nodes_per_graph:
-            raise ValueError(f"{N} nodes != {G} graphs x {self.nodes_per_graph} slots")
-        edges = radius_graph_dense(pos, graphs.node_mask, G, self.max_radius, self.max_edges)
-        edges = edges._replace(rev=reverse_edge_perm_dense(edges, G, self.nodes_per_graph))
+        edges = build_edges(pos, graphs.batch, graphs.node_mask, G, self.max_radius,
+                            self.max_edges, self.nodes_per_graph)
         edge_vec, edge_len = edge_vectors(pos, edges)
         edge_sh = spherical_harmonics_for_irreps(self.irreps_sh, edge_vec)
         feat_dtype = self.compute_dtype or pos.dtype

@@ -10,6 +10,12 @@ Counterpart of ``equiformer_tpu.models.equiformer``:
   (``basis_type``: gaussian, bessel or exp), embeddings, N blocks, norm,
   scalar head and scaled scatter per graph.
 
+``nodes_per_graph`` picks the batch layout, as in JAX: 0 (the default) the
+packed one of ``collate`` / ``GraphLoader`` with its [N, N] radius graph,
+> 0 the fixed-slot one of ``collate_dense`` / ``GraphLoader(dense_slots=)``
+with its per-graph radius graph (``graph.radius_graph.build_edges``).  The
+parameters do not depend on the layout.
+
 ``higher_order_grads`` (default True, as in JAX) routes the fused DTPs to
 the op that is differentiable to any order (``kernels/dtp_lin_ho.py``) and
 the attention tail to the composed segment softmax + sum: what a force
@@ -56,12 +62,7 @@ from torch import nn
 from ..core.irreps import Irreps
 from ..core.spherical import spherical_harmonics_for_irreps
 from ..graph.batching import GraphsTuple
-from ..graph.radius_graph import (
-    EdgeList,
-    edge_vectors,
-    radius_graph_dense,
-    reverse_edge_perm_dense,
-)
+from ..graph.radius_graph import EdgeList, build_edges, edge_vectors
 from ..graph.segment import active_edge_bound, gather_add, scaled_scatter_sum
 from ..nn.activation import Activation, normalized_activation
 from ..nn.attention_utils import heads2vec, heads_irreps, softmax_dropout_combine, vec2heads
@@ -128,7 +129,8 @@ class GraphAttention(nn.Module):
         num_nodes = node_input.shape[0]
         H = self.num_heads
         message = gather_add(self.merge_src(node_input), self.merge_dst(node_input),
-                             edges.src, edges.dst, num_nodes, rev=edges.rev)
+                             edges.src, edges.dst, num_nodes, rev=edges.rev,
+                             src_plan=edges.src_plan)
         w = self.sep_act.dtp_weights(edge_scalars)
         # one fused TP evaluates both heads on the unsimplified message: the
         # gate input and the attention scalars
@@ -235,7 +237,7 @@ class GraphAttentionTransformer(nn.Module):
         avg_num_nodes: float = _AVG_NUM_NODES,
         avg_degree: float = _AVG_DEGREE,
         max_edges: int = 8192,
-        nodes_per_graph: int = 30,
+        nodes_per_graph: int = 0,
         compute_dtype: Optional[str] = None,
         higher_order_grads: bool = True,
         fused_dtp_lin: bool = True,
@@ -247,8 +249,6 @@ class GraphAttentionTransformer(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        if nodes_per_graph <= 0:
-            raise NotImplementedError("only the fixed-slot (collate_dense) layout is ported")
         self.irreps_sh = Irreps(irreps_sh)
         self.max_radius = max_radius
         self.max_edges = max_edges
@@ -284,11 +284,8 @@ class GraphAttentionTransformer(nn.Module):
         pos = graphs.pos
         G = graphs.graph_mask.shape[0]
         N = pos.shape[0]
-        if N != G * self.nodes_per_graph:
-            raise ValueError(f"{N} nodes != {G} graphs x {self.nodes_per_graph} slots")
-        edges = radius_graph_dense(pos, graphs.node_mask, G, self.max_radius, self.max_edges)
-        # reverse twins: the message gather's src cotangent rides a sorted sum
-        edges = edges._replace(rev=reverse_edge_perm_dense(edges, G, self.nodes_per_graph))
+        edges = build_edges(pos, graphs.batch, graphs.node_mask, G, self.max_radius,
+                            self.max_edges, self.nodes_per_graph)
         edge_vec, edge_len = edge_vectors(pos, edges)
         edge_sh = spherical_harmonics_for_irreps(self.irreps_sh, edge_vec)
         # geometry runs in the position dtype; features in compute_dtype

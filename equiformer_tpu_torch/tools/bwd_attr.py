@@ -58,7 +58,7 @@ def qm9_sh(dev) -> torch.Tensor:
     from ..graph.radius_graph import edge_vectors, radius_graph_dense, reverse_edge_perm_dense
 
     data = qm9_like_dataset(4 * QM9_GRAPHS, seed=SEED)
-    batch = next(iter(GraphLoader(data, QM9_GRAPHS, QM9_SLOTS, shuffle=False))).to(dev)
+    batch = next(iter(GraphLoader(data, QM9_GRAPHS, dense_slots=QM9_SLOTS, shuffle=False))).to(dev)
     edges = radius_graph_dense(batch.pos, batch.node_mask, QM9_GRAPHS, QM9_RADIUS,
                                QM9_GRAPHS * QM9_SLOTS * QM9_SLOTS)
     edges = edges._replace(rev=reverse_edge_perm_dense(edges, QM9_GRAPHS, QM9_SLOTS))

@@ -179,7 +179,7 @@ def load_tree(root: Path, name: str):
 
 def geometry(dataset, graphs: int, slots: int, dev):
     """(dst, mask, N, max_edges) of batch 0, as chip_smoke.py builds it."""
-    batches = list(GraphLoader(dataset, graphs, slots, shuffle=False))
+    batches = list(GraphLoader(dataset, graphs, dense_slots=slots, shuffle=False))
     counts = [int(radius_graph_dense(b.pos, b.node_mask, graphs, 5.0, graphs * slots * slots)
                   .mask.sum()) for b in batches]
     max_edges = -(-max(counts) // 128) * 128

@@ -1,7 +1,7 @@
 """Where the time of an eval forward, a training step or a force evaluation goes, on one GPU.
 
     python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17 | --md17-train | --dens]
-        [--unfused [--first-order-bwd] | --radial-fold | --kron-g] [--out FILE]
+        [--unfused [--first-order-bwd] | --radial-fold | --kron-g] [--packed] [--out FILE]
 
 Builds ``graph_attention_transformer_nonlinear_l2`` at full width with a
 seeded init, on 4 batches of 128 QM9-like graphs (30 node slots each,
@@ -34,8 +34,14 @@ linear layers of the 7 per-edge-weight sites run inside the fused op (K7-F forwa
 for the force pass, backward; in force training's grad-of-grad also the
 leg kernels K7-L, K7-LW and K7-Wr).  ``--kron-g`` (QM9 only: the force
 models ignore the switch) builds it with ``kron_g=True``: all 13 fused DTP
-sites on the kron-basis op (K8-F forward, K8-B backward).  For float32 and
-bfloat16, per unit:
+sites on the kron-basis op (K8-F forward, K8-B backward).  ``--packed``
+takes the same molecules in the packed layout (``nodes_per_graph=0``:
+``collate``, the [N, N] radius graph, the src side of the gathers'
+backward through the src-sort plan) at the CLIs' capacities: node rows 30
+a graph and 17 edges a node row for QM9 (``cli/train_qm9.py:58-59``: 3840
+and 65280), the atoms and atoms + 1 edges a node row for the force models
+(``cli/train_md17.py:83-84``: 256 and 5632).  For float32 and bfloat16, per
+unit:
 
 * ``wall_ms``: one pass over the batches, ending in a synchronize, divided
   by the batch count (median of 5 passes, no profiler);
@@ -87,6 +93,7 @@ from .. import (
 from ..models.dens import ASPIRIN_L3, ASPIRIN_L3_TRAIN, every_pair_edges
 from ..data import GraphLoader, md17_like_dataset, qm9_like_dataset
 from ..train import TrainState
+from ..graph.batching import cli_capacities
 from ..graph.radius_graph import radius_graph_dense
 from ..kernels.attn_csr import ATTN_BWD_RANGE
 from ..utils.profiling import card_line
@@ -251,6 +258,8 @@ def main() -> int:
     ap.add_argument("--first-order-bwd", action="store_true",
                     help="with --unfused --train: dtp_first_order_bwd=True (each DTP's "
                          "backward one K6-FB launch)")
+    ap.add_argument("--packed", action="store_true",
+                    help="the packed layout (nodes_per_graph=0) at the CLIs' capacities")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.kron_g and (args.md17 or args.md17_train):
@@ -273,11 +282,16 @@ def main() -> int:
         data = md17_like_dataset(batch * N_BATCHES, num_atoms=slots, seed=SEED)
     else:
         data = qm9_like_dataset(batch * N_BATCHES, seed=SEED)
-    batches = list(GraphLoader(data, batch, slots, shuffle=False, with_forces=md17))
+    batches = list(GraphLoader(data, batch, dense_slots=slots, shuffle=False, with_forces=md17))
     counts = [int(radius_graph_dense(b.pos, b.node_mask, batch, 5.0, batch * slots * slots)
                   .mask.sum()) for b in batches]
     max_edges = (every_pair_edges(batch, slots) if args.dens
                  else -(-max(counts) // 128) * 128)
+    layout = slots
+    if args.packed:  # the same molecules at the CLIs' capacities
+        nodes, max_edges = cli_capacities(batch, slots, slots + 1 if md17 else 17)
+        batches = list(GraphLoader(data, batch, nodes, shuffle=False, with_forces=md17))
+        layout = 0
     gpu = [b.to(dev) for b in batches]
     make = model_entrypoint(model_name)
     unit = ("train" if args.train else "md17" if args.md17
@@ -292,9 +306,10 @@ def main() -> int:
         switches.update(radial_fold=True, radial_fold_ho=md17)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "model": model_name, "unit": unit, "route": route, "batch": batch, "batches": N_BATCHES,
-              "real_edges": counts, "max_edges": max_edges}
+              "layout": "packed" if args.packed else "fixed-slot", "real_edges": counts,
+              "max_edges": max_edges}
     for name in ("float32", "bfloat16"):
-        model = make(max_edges=max_edges, nodes_per_graph=slots, seed=SEED, device=dev,
+        model = make(max_edges=max_edges, nodes_per_graph=layout, seed=SEED, device=dev,
                      compute_dtype=None if name == "float32" else name, **switches)
         if args.train:
             run = train_unit(model)
@@ -306,7 +321,7 @@ def main() -> int:
             run = dens_train_unit(model)
         else:
             run = eval_unit(model)
-        report[name] = profile(run, gpu, f"{unit}_{route}_{name}")
+        report[name] = profile(run, gpu, f"{unit}_{route}{'_packed' * args.packed}_{name}")
         del model, run
     text = json.dumps(report, indent=1)
     print(text)

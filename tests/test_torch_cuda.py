@@ -141,8 +141,8 @@ def test_reduced_model_on_card_matches_cpu(dev):
     cfg = dict(irreps_node_embedding="16x0e+8x1e+4x2e", num_layers=2, number_of_basis=32,
                fc_neurons=(16, 16), irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e",
                num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", max_edges=1024,
-               higher_order_grads=False)
-    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, 30, shuffle=False)))
+               nodes_per_graph=30, higher_order_grads=False)
+    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, dense_slots=30, shuffle=False)))
     cpu = GraphAttentionTransformer(**cfg).eval()
     ref = pt.evaluate(cpu, batch)["pred"]
     gpu = GraphAttentionTransformer(**cfg).to(dev).eval()
@@ -223,8 +223,8 @@ def test_reduced_train_step_on_card_matches_cpu(dev):
     cfg = dict(irreps_node_embedding="16x0e+8x1e+4x2e", num_layers=2, number_of_basis=32,
                fc_neurons=(16, 16), irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e",
                num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", max_edges=1024,
-               higher_order_grads=False)
-    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, 30, shuffle=False)))
+               nodes_per_graph=30, higher_order_grads=False)
+    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, dense_slots=30, shuffle=False)))
     keep = [torch.rand(1024, 4, generator=torch.Generator().manual_seed(i)) < 0.8
             for i in range(2)]
     results = []
@@ -335,7 +335,7 @@ def test_reduced_md17_forces_on_card_match_cpu(dev):
                irreps_mlp_mid="24x0e+12x1e+12x2e+6x3e", alpha_drop=0.0, max_atom_type=64,
                avg_num_nodes=md17_models._AVG_NUM_NODES_MD17,
                avg_degree=md17_models._AVG_DEGREE_MD17, max_edges=1024, nodes_per_graph=21)
-    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, 21, shuffle=False,
+    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, dense_slots=21, shuffle=False,
                                   with_forces=True)))
     out = []
     for d in ("cpu", dev):
@@ -530,7 +530,7 @@ def test_reduced_md17_train_step_on_card_matches_cpu(dev):
                irreps_mlp_mid="24x0e+12x1e+12x2e+6x3e", alpha_drop=0.0, max_atom_type=64,
                avg_num_nodes=md17_models._AVG_NUM_NODES_MD17,
                avg_degree=md17_models._AVG_DEGREE_MD17, max_edges=1024, nodes_per_graph=21)
-    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, 21, shuffle=False,
+    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, dense_slots=21, shuffle=False,
                                   with_forces=True)))
     results = []
     for d in ("cpu", dev, dev):
@@ -578,7 +578,7 @@ def test_reduced_dens_step_on_card_matches_cpu(dev):
                fc_neurons=(16, 16), irreps_feature="32x0e+16x1e+16x2e+8x3e",
                irreps_head="8x0e+4x1e+4x2e+2x3e", num_heads=4, irreps_pre_attn=L3_IRR,
                irreps_mlp_mid="24x0e+12x1e+12x2e+6x3e", max_edges=1024, nodes_per_graph=21)
-    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, 21, shuffle=False,
+    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, dense_slots=21, shuffle=False,
                                   with_forces=True)))
     batch = pt.add_masked_gaussian_noise(batch, torch.Generator().manual_seed(1), 0.05, 1.0,
                                          0.25)
@@ -717,7 +717,7 @@ def test_k6_wrappers_reject_what_the_kernels_do_not_take(dev):
 QM9_SMALL = dict(irreps_node_embedding="16x0e+8x1e+4x2e", num_layers=2, number_of_basis=32,
                  fc_neurons=(16, 16), irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e",
                  num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", max_edges=1024,
-                 higher_order_grads=False)
+                 nodes_per_graph=30, higher_order_grads=False)
 
 
 @pytest.mark.cuda
@@ -733,7 +733,7 @@ def test_reduced_unfused_train_step_on_card_matches_cpu(dev, first_order):
     from equiformer_tpu_torch.kernels import launch_counts
     from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer
 
-    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, 30, shuffle=False)))
+    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, dense_slots=30, shuffle=False)))
     keep = [torch.rand(1024, 4, generator=torch.Generator().manual_seed(i)) < 0.8
             for i in range(2)]
     results = []
@@ -776,7 +776,7 @@ def test_reduced_unfused_md17_on_card_matches_cpu(dev):
                avg_num_nodes=md17_models._AVG_NUM_NODES_MD17,
                avg_degree=md17_models._AVG_DEGREE_MD17, max_edges=1024, nodes_per_graph=21,
                fused_dtp_lin=False)
-    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, 21, shuffle=False,
+    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, dense_slots=21, shuffle=False,
                                   with_forces=True)))
     forces, results = [], []
     for d in ("cpu", dev, dev):
@@ -933,7 +933,7 @@ def test_reduced_folded_units_on_card_match_cpu(dev):
                fc_neurons=(16, 16), irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e",
                num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", max_edges=512,
                nodes_per_graph=30, higher_order_grads=False, alpha_drop=0.0, radial_fold=True)
-    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, 30, shuffle=False)))
+    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, dense_slots=30, shuffle=False)))
     res = []
     for d in ("cpu", dev):
         m = TModel(**qm9).to(d)
@@ -953,7 +953,7 @@ def test_reduced_folded_units_on_card_match_cpu(dev):
                 irreps_mlp_mid="24x0e+12x1e+12x2e+6x3e", alpha_drop=0.0, max_atom_type=64,
                 max_edges=1536, nodes_per_graph=21, basis_type="exp", radial_fold=True,
                 radial_fold_ho=True)
-    mb = next(iter(GraphLoader(md17_like_dataset(4, num_atoms=21, seed=0), 4, 21,
+    mb = next(iter(GraphLoader(md17_like_dataset(4, num_atoms=21, seed=0), 4, dense_slots=21,
                                shuffle=False, with_forces=True)))
     out = []
     for d in ("cpu", dev):
@@ -1067,7 +1067,7 @@ def test_reduced_folded_md17_train_step_on_card_matches_cpu(dev):
                avg_num_nodes=md17_models._AVG_NUM_NODES_MD17,
                avg_degree=md17_models._AVG_DEGREE_MD17, max_edges=1024, nodes_per_graph=21,
                radial_fold=True, radial_fold_ho=True)
-    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, 21, shuffle=False,
+    batch = next(iter(GraphLoader(md17_like_dataset(4, seed=0), 4, dense_slots=21, shuffle=False,
                                   with_forces=True)))
     results = []
     for d in ("cpu", dev, dev):
@@ -1178,7 +1178,7 @@ def test_reduced_kron_train_step_on_card_matches_cpu(dev):
     from equiformer_tpu_torch.kernels import launch_counts
     from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer
 
-    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, 30, shuffle=False)))
+    batch = next(iter(GraphLoader(qm9_like_dataset(4, seed=0), 4, dense_slots=30, shuffle=False)))
     keep = [torch.rand(1024, 4, generator=torch.Generator().manual_seed(i)) < 0.8
             for i in range(2)]
     results = []
@@ -1546,3 +1546,139 @@ def test_attn_combine_at_the_qm9_shape(dev, case, dtype):
     assert _rel(out, attn_combine_plain(scores, value, dst.long(), N, mask, drop)) < TOL[dtype]
     if mask is not None:
         assert float(out[N - 1].abs().max()) == 0.0  # the padding node: all masked
+
+
+# ------------------------------------------------------- the packed layout
+
+def _packed_qm9_batch(graphs, seed):
+    """A packed batch at the QM9 CLI's capacities (cli/train_qm9.py:58-59)
+    and its ``max_edges``."""
+    from equiformer_tpu_torch.data import GraphLoader, qm9_like_dataset
+    from equiformer_tpu_torch.graph.batching import cli_capacities
+
+    nodes, max_edges = cli_capacities(graphs, 30, 17)
+    batch = next(iter(GraphLoader(qm9_like_dataset(graphs, seed=seed), graphs, nodes,
+                                  shuffle=False)))
+    return batch, max_edges
+
+
+@pytest.mark.cuda
+def test_packed_radius_graph_on_card_equals_cpu_at_qm9_capacity(dev):
+    """The [N, N] radius graph of 128 graphs in 3840 node rows and 65280
+    edge slots: src, dst, mask and the src-sort plan on the card equal the
+    CPU's element by element, with no truncation."""
+    from equiformer_tpu_torch.graph.radius_graph import radius_graph, src_sort_plan
+
+    b, max_edges = _packed_qm9_batch(128, 0)
+    assert (b.pos.shape[0], max_edges) == (3840, 65280)
+    cpu = radius_graph(b.pos, b.batch, b.node_mask, 5.0, max_edges)
+    g = b.to(dev)
+    card = radius_graph(g.pos, g.batch, g.node_mask, 5.0, max_edges)
+    for k in ("src", "dst", "mask"):
+        assert torch.equal(getattr(card, k).cpu(), getattr(cpu, k)), k
+    for a, c in zip(src_sort_plan(card), src_sort_plan(cpu)):
+        assert torch.equal(a.cpu(), c)
+    assert 30000 < int(cpu.mask.sum()) < max_edges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_src_plan_backward_runs_k3_and_repeats_its_bits(dev, dtype):
+    """The gather over src of a packed edge list truncated below its real
+    edges: its backward is one K3 over the sorted src, the same bits in two
+    calls, within the dtype's bound of ``index_add_`` over the unsorted
+    src."""
+    from equiformer_tpu_torch.graph.radius_graph import radius_graph, src_sort_plan
+    from equiformer_tpu_torch.graph.segment import take_src
+
+    b, _ = _packed_qm9_batch(16, 1)
+    edges = radius_graph(b.pos, b.batch, b.node_mask, 5.0, 2048)
+    assert bool(edges.mask.all())  # more real edges than slots
+    plan = src_sort_plan(edges)
+    src, dst = edges.src.to(dev), edges.dst.to(dev)
+    plan = type(plan)(*(t.to(dev) for t in plan))
+    gen = torch.Generator().manual_seed(3)
+    dt = getattr(torch, dtype)
+    x = torch.randn(b.pos.shape[0], 480, generator=gen).to(dev, dt).requires_grad_(True)
+    cot = torch.randn(2048, 480, generator=gen).to(dev, dt)
+
+    def grad():
+        (gx,) = torch.autograd.grad(take_src(x, src, dst, src_plan=plan), x, cot)
+        return gx
+
+    reset_launch_counts()
+    a, c = grad(), grad()
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches == 2
+    assert torch.equal(a, c)
+    plain = torch.zeros(x.shape, dtype=torch.float32, device=dev).index_add_(0, src, cot.float())
+    assert _rel(a, plain) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_src_plan_gives_the_reverse_twins_bits_on_fixed_slots(dev, dtype):
+    """On an untruncated fixed-slot edge list the src-sort plan's ids are
+    dst and its order is the reverse-twin permutation on the real edges, so
+    its K3 sums the rows that the twin route sums, in the same order: equal
+    bits at first and second order.  (Where ``max_edges`` truncates the
+    list the two differ, and the fixed-slot layout keeps the twins, which
+    are the JAX package's function there.)"""
+    from equiformer_tpu_torch.data import GraphLoader, qm9_like_dataset
+    from equiformer_tpu_torch.graph.radius_graph import (
+        radius_graph_dense, reverse_edge_perm_dense, src_sort_plan,
+    )
+    from equiformer_tpu_torch.graph.segment import take_src
+
+    b = next(iter(GraphLoader(qm9_like_dataset(16, seed=4), 16, dense_slots=30,
+                              shuffle=False)))
+    edges = radius_graph_dense(b.pos, b.node_mask, 16, 5.0, 16 * 30 * 30)
+    rev, plan = reverse_edge_perm_dense(edges, 16, 30), src_sort_plan(edges)
+    real = edges.mask
+    assert torch.equal(plan.ids, edges.dst) and torch.equal(plan.order[real], rev[real])
+    src, dst, rev = edges.src.to(dev), edges.dst.to(dev), rev.to(dev)
+    plan = type(plan)(*(t.to(dev) for t in plan))
+    real = real.to(dev)[:, None]
+    gen = torch.Generator().manual_seed(5)
+    dt = getattr(torch, dtype)
+    x = torch.randn(b.pos.shape[0], 256, generator=gen).to(dev, dt).requires_grad_(True)
+    w = torch.randn(src.shape[0], 256, generator=gen).to(dev, dt)
+
+    def grads(**route):
+        y = torch.where(real, torch.sin(take_src(x, src, dst, **route)) * w, torch.zeros_like(w))
+        (g,) = torch.autograd.grad(y.float().sum(), x, create_graph=True)
+        (gg,) = torch.autograd.grad((g.float() ** 2).sum(), x)
+        return g, gg
+
+    twins = grads(rev=rev)
+    reset_launch_counts()
+    planned = grads(src_plan=plan)
+    assert csr_segment_sum.launches >= 2
+    for a, c in zip(planned, twins):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_packed_step_gradients_match_fixed_slot_on_card(dev):
+    """A reduced QM9 model's fp32 training loss on the card (alpha dropout
+    off): the parameter gradients on the packed layout within 1e-5 of the
+    fixed-slot layout's on the same molecules and weights."""
+    from equiformer_tpu_torch.data import GraphLoader, qm9_like_dataset
+    from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer
+
+    cfg = dict(irreps_node_embedding="16x0e+8x1e+4x2e", num_layers=2, number_of_basis=32,
+               fc_neurons=(16, 16), irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e",
+               num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", higher_order_grads=False,
+               alpha_drop=0.0)
+    packed, packed_edges = _packed_qm9_batch(8, 2)
+    dense = next(iter(GraphLoader(qm9_like_dataset(8, seed=2), 8, dense_slots=30,
+                                  shuffle=False)))
+    grads = []
+    for batch, kw in ((packed, dict(max_edges=packed_edges, nodes_per_graph=0)),
+                      (dense, dict(max_edges=8 * 30 * 30, nodes_per_graph=30))):
+        model = GraphAttentionTransformer(**cfg, **kw, seed=7).to(dev).train()
+        b = batch.to(dev)
+        loss = (model(b) - b.y).abs().mean()
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+    scale = max(float(g.abs().max()) for g in grads[1])
+    assert max(float((p - q).abs().max()) for p, q in zip(*grads)) <= 1e-5 * scale

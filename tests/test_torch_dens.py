@@ -291,7 +291,7 @@ def _ga_inputs(size, npdt, tdt):
     d_in = Irreps(size.cfg["irreps_feature"]).dim
     x = rng.standard_normal((tb.pos.shape[0], d_in)).astype(npdt)
     scal = rng.standard_normal((edges.dst.shape[0], 16)).astype(npdt)
-    jedges = JEdgeList(*(np.asarray(t.numpy()) for t in edges))
+    jedges = JEdgeList(*(np.asarray(t.numpy()) for t in edges[:len(JEdgeList._fields)]))
     return x, sh.numpy(), scal, edges, jedges
 
 
@@ -647,8 +647,8 @@ def test_noise_semantics_and_repeatability():
 # ------------------------------------------------------- entry points
 
 def test_entrypoint_defaults_and_parameter_leaves(sizes):
-    """equiformer_md17_dens takes JAX's defaults and builds on the CPU only
-    when asked (the layout needs nodes_per_graph); params_from_jax maps
+    """equiformer_md17_dens takes JAX's defaults, and builds with them (the
+    packed layout), on the CPU only when asked; params_from_jax maps
     every leaf of the flax tree, the same count on both sides;
     make_dens_steps has JAX's defaults, without pmean_axis."""
     jsig = inspect.signature(jdens.EquiformerDeNS).parameters
@@ -657,8 +657,7 @@ def test_entrypoint_defaults_and_parameter_leaves(sizes):
         if k != "seed":
             want = jsig[k].default
             assert str(p.default) == str(want) if k.startswith("irreps") else p.default == want, k
-    with pytest.raises(NotImplementedError):
-        EquiformerDeNS()
+    assert EquiformerDeNS().nodes_per_graph == 0
     jsteps = inspect.signature(jeng.make_dens_steps).parameters
     tsteps = inspect.signature(pt.make_dens_steps).parameters
     assert set(jsteps) - set(tsteps) == {"pmean_axis"}

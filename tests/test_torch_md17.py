@@ -238,7 +238,7 @@ def test_md17_like_data_and_collation_match_jax():
     for k in ("pos", "species", "batch", "node_mask", "graph_mask", "y", "forces"):
         assert np.array_equal(getattr(tb, k).numpy(), np.asarray(getattr(jb, k))), k
     assert t_collate(data, SLOTS).forces is None
-    loader = GraphLoader(data, 2, SLOTS, shuffle=False, with_forces=True)
+    loader = GraphLoader(data, 2, dense_slots=SLOTS, shuffle=False, with_forces=True)
     first = next(iter(loader))
     assert first.to("cpu").forces.shape == (2 * SLOTS, 3)
     assert np.array_equal(first.forces.numpy(), tb.forces.numpy()[: 2 * SLOTS])

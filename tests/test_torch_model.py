@@ -151,6 +151,7 @@ def test_cpu_forward_launches_no_kernel_and_eval_only(reduced):
 
 def test_flagship_parameter_count_and_leaves():
     tm = pt.model_entrypoint("graph_attention_transformer_nonlinear_l2")(max_edges=1024,
+                                                                     nodes_per_graph=30,
                                                                      device="cpu")
     assert sum(p.numel() for p in tm.parameters()) == FLAGSHIP_PARAMS
     jm = j_entry("graph_attention_transformer_nonlinear_l2")(max_edges=1024, nodes_per_graph=30)
@@ -174,6 +175,7 @@ def test_full_width_flagship_matches_jax(dt):
     jm = j_entry("graph_attention_transformer_nonlinear_l2")(max_edges=1024, nodes_per_graph=30)
     tree = _jax_init(jm, data)
     tm = pt.model_entrypoint("graph_attention_transformer_nonlinear_l2")(max_edges=1024, seed=5,
+                                                                     nodes_per_graph=30,
                                                                      device="cpu")
     params_from_jax(tm, tree)
     p = jax.tree_util.tree_map(lambda a: np.asarray(a, npdt), tree)

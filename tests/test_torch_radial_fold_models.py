@@ -246,7 +246,7 @@ def test_reduced_units_call_the_folded_kernels(qm9, monkeypatch):
                      **dict.fromkeys(names_train, 0)}
     calls.update(dict.fromkeys(calls, 0))
     tm = TModel(**MD17_REDUCED, radial_fold=True, radial_fold_ho=True)
-    mb = next(iter(GraphLoader(md17_like_dataset(2, num_atoms=21, seed=0), 2, 21,
+    mb = next(iter(GraphLoader(md17_like_dataset(2, num_atoms=21, seed=0), 2, dense_slots=21,
                                with_forces=True)))
     pt.evaluate_md17(tm, mb)
     assert calls == {"dtp_lin_fwd": 2, "dtp_lin_bwd": 0, "dtp_lin_bwd3": 2,

@@ -127,6 +127,7 @@ def test_no_weight_decay_mask_matches_leaf_by_leaf():
     jmask = jopt.no_weight_decay_mask(tree)
     flat = jax.tree_util.tree_flatten_with_path(jmask["params"])[0]
     tm = pt.model_entrypoint("graph_attention_transformer_nonlinear_l2")(max_edges=1024,
+                                                                         nodes_per_graph=30,
                                                                          device="cpu")
     mask = no_weight_decay_mask(tm)
     assert len(flat) == len(mask) == 276
