@@ -3,8 +3,9 @@
 energy + force evaluation and training and its DeNS training once on one
 NVIDIA GPU, on the fused DTP + linear route, the unfused DTP route, the
 radial fold and (QM9) the kron-basis route, in the fixed-slot batch layout,
-and the QM9 step, MD17 force training and the DeNS step again in the packed
-layout that the JAX models default to and the CLIs load.
+the QM9 step, MD17 force training and the DeNS step again in the packed
+layout that the JAX models default to and the CLIs load, and the CLIs'
+training recipe there (remat, a binding gradient clip, checkpoints).
 
     python3 chip_smoke.py
 
@@ -262,8 +263,27 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    layout from one seed on the same noise (drawn on the fixed-slot batch 0,
    then packed by ``collate``): metrics and updated parameters within
    ROUTE_RTOL of each other, equal bits printed.
+22. recipe — the CLIs' training recipe on the packed batches of phases 19
+   and 20: the QM9 flagship with ``task_mean`` / ``task_std`` set and the
+   exp_l3 force model, each with ``remat=True`` (every TransBlock under
+   ``torch.utils.checkpoint``, its dropout masks replayed) and a
+   ``grad_clip_norm`` that binds (CLIP_SHARE of the un-rematted step's
+   gradient norm; the clip factor printed), in float32 and bfloat16: one
+   step against the un-rematted step from one seed (metrics and parameters
+   within ROUTE_RTOL, equal bits printed, the generators in one state), the
+   launch counts of a rematted step (EXPECTED_REMAT_TRAIN: 25 K1, 13 K2, 13
+   K3, 12 K4; EXPECTED_REMAT_MD17_TRAIN: 69 K1, 20 K5a, 39 K5b, 45 K5c, 50
+   K3), how often block_0 runs a step (the forward and its recomputes), the
+   peak memory above the model and state with and without remat, and
+   PACKED_TIMED_STEPS timed rematted steps.  Then checkpoints on the card:
+   ``CheckpointManager`` saves the QM9 rematted fp32 state after step 2 and
+   restores it into a fresh state (other weights), and step 3 on both gives
+   equal bits in the metrics, parameters, Adam moments, EMA and step; the
+   EMA written by ``save_params`` (JAX's npz) and read by ``load_params``
+   into a CPU model predicts CPU_GRAPHS graphs within CPU_RTOL of the card's
+   model loaded from the same file.
 
-The phases run in the order 1-10, 17-21, 10a-16.  Phases 3 and 7 also
+The phases run in the order 1-10, 17-22, 10a-16.  Phases 3 and 7 also
 time the model's segment sums too narrow for K3
 (``fixed_order_segment_sum``, an ``index_put_`` that repeats its bits)
 against ``index_add_`` at the shapes of the readout and the softmax
@@ -454,6 +474,17 @@ LAYOUT_PRED_RTOL = 1e-5  # QM9 eval predictions, packed vs fixed-slot, fp32
 LAYOUT_FORCE_RTOL = 1e-3  # MD17 energies and forces, packed vs fixed-slot, fp32
 PACKED_TIMED_STEPS = 5  # the packed force training phase's timed steps (3 warm-up)
 DENS_NODE_KEYS = ("force", "noise_mask", "denoising_pos_mask", "noise_vec")
+# The CLIs' training recipe (phase 22): remat=True (each TransBlock's forward
+# recomputed in the backward; the QM9 step's backward runs it once more:
+# the blocks' 12 K1 and 6 K4; force training twice, in the force pass and in
+# the parameter pass: the blocks' 12 K1 and 6 K3 twice more), task_mean /
+# task_std on the model, a grad_clip_norm that binds (CLIP_SHARE of the
+# un-rematted step's gradient norm), on the packed batches of phases 19-20
+EXPECTED_REMAT_TRAIN = {**EXPECTED_TRAIN, "dtp_lin_fwd": 13 + 12, "attn_combine": 6 + 6}
+EXPECTED_REMAT_MD17_TRAIN = {**EXPECTED_MD17_TRAIN, "dtp_lin_fwd": 45 + 24,
+                             "csr_segment_sum": 38 + 12}
+CLIP_SHARE = 0.5
+QM9_MEAN, QM9_STD = 0.3, 1.7
 # The measurement kernels (S1-S3) of the port's tools, each launched by the
 # tool named; no model path launches them.  The probe's plain version rounds
 # each product and sum where the kernel's FMA rounds once.
@@ -1616,6 +1647,185 @@ def packed_dens_phase(pt, torch, dense_gpu, dev, out):
         raise RuntimeError("the packed DeNS step disagrees with the fixed-slot one")
 
 
+def recipe_setup(pt, model, clip, md17=False):
+    """The CLIs' step on ``model``: AdamW with the no-decay mask and
+    ``grad_clip_norm`` ``clip``, the target statistics the model holds."""
+    if md17:
+        opt = pt.create_optimizer(pt.cosine_warmup_schedule(5e-4, 100, 100000),
+                                  weight_decay=1e-6, grad_clip_norm=clip)
+        step, _ = pt.make_md17_steps(model, opt, model.task_mean, model.task_std,
+                                     energy_weight=1.0, force_weight=80.0, ema_decay=0.999)
+    else:
+        opt = pt.create_optimizer(pt.cosine_warmup_schedule(5e-4, 100, 100000),
+                                  weight_decay=5e-3, grad_clip_norm=clip)
+        step, _ = pt.make_qm9_steps(model, opt, model.task_mean, model.task_std, "l1",
+                                    ema_decay=0.999)
+    return step, pt.TrainState.create(model, opt)
+
+
+def recipe_step(pt, torch, make, kw, batch, dev, clip, md17):
+    """One step of a fresh model (``make(**kw)``) with generator seed SEED:
+    (metrics, parameters, the generator's state, launches, peak MiB, block
+    runs: block_0's forward calls, its recomputes included)."""
+    model = make(**kw)
+    step, state = recipe_setup(pt, model, clip, md17)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    runs = []
+    model.block_0.register_forward_pre_hook(lambda *_: runs.append(1))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (state, m), launches = counted(torch, lambda: step(state, batch, gen))
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    return ({k: float(v) for k, v in m.items()}, [p.detach().clone() for p in model.parameters()],
+            gen.get_state(), launches, peak, len(runs))
+
+
+def remat_vs_plain(pt, torch, make, kw, gpu, dev, out, tag, expected, md17):
+    """Phase 22's model check for one dtype: the un-rematted step without a
+    clip gives the gradient norm, CLIP_SHARE of it is the clip; then one
+    step with that clip without and with remat from one seed: metrics and
+    parameters within ROUTE_RTOL (bits printed), the generators in one
+    state, launches, peak memory above the model and state, and the block
+    runs a step; then PACKED_TIMED_STEPS timed rematted steps.  Returns the
+    clip."""
+    probe = recipe_step(pt, torch, make, kw, gpu[0], dev, None, md17)
+    clip = CLIP_SHARE * probe[0]["grad_norm"]
+    plain = recipe_step(pt, torch, make, kw, gpu[0], dev, clip, md17)
+    remat = recipe_step(pt, torch, make, {**kw, "remat": True}, gpu[0], dev, clip, md17)
+    (m0, p0, g0, l0, peak0, r0), (m1, p1, g1, l1, peak1, r1) = plain, remat
+    print(f"{tag}: launches in one step without remat { {k: v for k, v in l0.items() if v} }, "
+          f"with remat { {k: v for k, v in l1.items() if v} }; block_0 runs a "
+          f"step {r0} / {r1} (the forward and {r1 - 1} recompute(s))", flush=True)
+    if l1 != expected:
+        raise RuntimeError(f"remat launch counts {l1} != expected {expected}")
+    out[f"{tag}_launches"] = l1
+    errs = {k: abs(m1[k] - m0[k]) / max(abs(m0[k]), 1e-30) for k in m0}
+    scale = max(float(p.abs().max()) for p in p0)
+    errs["params"] = max(float((a - b).abs().max()) for a, b in zip(p0, p1)) / scale
+    bits = m0 == m1 and all(torch.equal(a, b) for a, b in zip(p0, p1))
+    factor = min(1.0, clip / m0["grad_norm"])
+    print(f"{tag}: clip {clip:.6g} ({CLIP_SHARE} x the unclipped grad norm "
+          f"{probe[0]['grad_norm']:.6g}), clip factor {factor:.6f}; remat vs no remat, one step "
+          f"from one seed: {m1} / {m0}, rel {errs} (bound {ROUTE_RTOL:.0e}), bits equal: {bits}, "
+          f"generators in one state: {torch.equal(g0, g1)}; peak memory above the model and "
+          f"state: remat {peak1:.0f} MiB, no remat {peak0:.0f} MiB", flush=True)
+    out[f"{tag}_peak_mib"], out[f"{tag}_plain_peak_mib"] = peak1, peak0
+    if not (all(e <= ROUTE_RTOL for e in errs.values()) and torch.equal(g0, g1)
+            and factor < 1.0):
+        raise RuntimeError(f"{tag}: the rematted step disagrees with the un-rematted one")
+    model = make(**kw, remat=True)
+    step, state = recipe_setup(pt, model, clip, md17)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for i in range(WARMUP_STEPS):
+        step(state, gpu[i % len(gpu)], gen)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(PACKED_TIMED_STEPS):
+        t = time.perf_counter()
+        _, metrics = step(state, gpu[i % len(gpu)], gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    vals = {k: float(v) for k, v in metrics.items()}
+    if not all(v == v and abs(v) < float("inf") for v in vals.values()):
+        raise RuntimeError(f"{tag}: non-finite metrics {vals}")
+    rate = int(gpu[0].graph_mask.shape[0]) / statistics.median(times)
+    out[tag] = rate
+    print(f"{tag}: {rate:.1f} {'molecules' if md17 else 'graphs'}/s (median of "
+          f"{PACKED_TIMED_STEPS} steps after "
+          f"{WARMUP_STEPS} warm-up; step seconds {[round(t, 4) for t in times]}), last step "
+          f"{ {k: round(v, 4) for k, v in vals.items()} }", flush=True)
+    return clip
+
+
+def recipe_phase(pt, torch, make, data, md17_data, dev, out):
+    """Phase 22: the CLIs' training recipe on the packed batches at the
+    CLIs' capacities: ``remat=True``, ``task_mean`` / ``task_std`` (QM9),
+    a binding ``grad_clip_norm``; the QM9 flagship and the exp_l3 force
+    model each against its un-rematted step in fp32 and bf16
+    (``remat_vs_plain``); then ``CheckpointManager`` resume on the card
+    (the QM9 rematted fp32 state saved after step 2 and restored into a
+    fresh state: step 3 on both in equal bits) and the EMA's npz in a CPU
+    model (eval predictions within CPU_RTOL of the card's)."""
+    import os
+    import shutil
+    import tempfile
+
+    from equiformer_tpu_torch.data import GraphLoader
+    from equiformer_tpu_torch.graph.batching import cli_capacities
+    from equiformer_tpu_torch.train import CheckpointManager, load_params, save_params
+    from equiformer_tpu_torch.utils import params_to_jax
+
+    nodes, max_edges = cli_capacities(BATCH, SLOTS, QM9_EDGES_PER_NODE)
+    gpu = [b.to(dev) for b in GraphLoader(data, BATCH, nodes, shuffle=False)]
+    qm9_kw = dict(max_edges=max_edges, nodes_per_graph=0, seed=SEED, task_mean=QM9_MEAN,
+                  task_std=QM9_STD)
+    m_nodes, m_edges = cli_capacities(MD17_BATCH, MD17_SLOTS, MD17_SLOTS + 1)
+    md17_gpu = [b.to(dev) for b in GraphLoader(md17_data, MD17_BATCH, m_nodes, shuffle=False,
+                                                with_forces=True)]
+    md17_make = pt.model_entrypoint(MD17_MODEL)  # on the card
+    clips = {}
+    for name in ("float32", "bfloat16"):
+        dt = {"compute_dtype": None if name == "float32" else name}
+        clips[name] = remat_vs_plain(pt, torch, make, {**qm9_kw, **dt}, gpu, dev, out,
+                                     f"remat_train_{name}", EXPECTED_REMAT_TRAIN, False)
+        remat_vs_plain(pt, torch, md17_make, dict(max_edges=m_edges, nodes_per_graph=0,
+                                                  seed=SEED, **dt),
+                       md17_gpu, dev, out, f"remat_md17_train_{name}",
+                       EXPECTED_REMAT_MD17_TRAIN, True)
+
+    # resume: steps 1-2, save, step 3; a fresh state restored from step 2, step 3
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(directory, max_to_keep=2)
+        kw = {**qm9_kw, "remat": True}
+        model = make(**kw)
+        step, state = recipe_setup(pt, model, clips["float32"])
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for i in range(2):
+            step(state, gpu[i], gen)
+        mgr.save(2, state, {"gen": gen.get_state().tolist()})
+        _, m3 = step(state, gpu[2], gen)
+        twin = make(**{**kw, "seed": SEED + 1})
+        twin_step, twin_state = recipe_setup(pt, twin, clips["float32"])
+        twin_state, meta = mgr.restore(twin_state)
+        twin_gen = torch.Generator(device=dev)
+        twin_gen.set_state(torch.tensor(meta["gen"], dtype=torch.uint8))
+        _, t3 = twin_step(twin_state, gpu[2], twin_gen)
+        torch.cuda.synchronize()
+        same = {"metrics": {k: float(v) for k, v in m3.items()}
+                == {k: float(v) for k, v in t3.items()},
+                "params": all(torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                                twin.parameters())),
+                "moments": all(torch.equal(state.opt_state[k][n], twin_state.opt_state[k][n])
+                               for k in ("mu", "nu") for n in state.opt_state[k]),
+                "ema": all(torch.equal(state.ema[n], twin_state.ema[n]) for n in state.ema),
+                "step": state.step == twin_state.step == 3}
+        print(f"resume on the card (fp32, remat, clip): step 3 after a restore of step 2 "
+              f"against the uninterrupted step 3, bits equal: {same}", flush=True)
+        if not all(same.values()):
+            raise RuntimeError("the resumed step 3 differs from the uninterrupted one")
+
+        # the card's EMA as JAX's npz, into a CPU model
+        path = os.path.join(directory, "best_val.npz")
+        save_params(path, {"params": params_to_jax(model, state.ema)})
+        batch, cpu_edges = cpu_batch(data[:CPU_GRAPHS], SLOTS, PACKED, QM9_EDGES_PER_NODE)
+        preds = {}
+        for d in (dev, "cpu"):
+            m = make(**{**qm9_kw, "max_edges": cpu_edges, "seed": SEED + 2}, device=d)
+            load_params(path, m)
+            preds[str(d)] = pt.evaluate(m, batch.to(d))["pred"].cpu()
+        pg, pc = preds[str(dev)], preds["cpu"]
+        rel = float((pg - pc).abs().max()) / float(pc.abs().max())
+        print(f"EMA npz (save_params on the card, load_params into a CPU model): eval "
+              f"predictions of {CPU_GRAPHS} graphs {rel:.3e} of max |pred| from the card's "
+              f"(bound {CPU_RTOL['float32']:.0e})", flush=True)
+        if not (bool(pg.isfinite().all()) and rel <= CPU_RTOL["float32"]):
+            raise RuntimeError("the EMA loaded on the CPU predicts otherwise than on the card")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
 def md17_train_kernel_phase(torch, model, batch, dev, records):
     """K5b's three legs and K5c against their plain versions at the exp_l3
     shapes of one batch of 8 md17-like molecules, at the three call sites;
@@ -2419,7 +2629,7 @@ def main() -> int:
 
 def run(torch, dev) -> int:
     import equiformer_tpu_torch as pt
-    from equiformer_tpu_torch.data import GraphLoader, qm9_like_dataset
+    from equiformer_tpu_torch.data import GraphLoader, md17_like_dataset, qm9_like_dataset
     from equiformer_tpu_torch.kernels import _build
 
     card = card_line()
@@ -2492,6 +2702,13 @@ def run(torch, dev) -> int:
     t = time.time()
     packed_dens_phase(pt, torch, md17_batches, dev, out)
     print(f"packed dens phase: {time.time() - t:.1f} s", flush=True)
+
+    # the CLIs' recipe: remat, task statistics, a binding clip, checkpoints
+    t = time.time()
+    recipe_phase(pt, torch, make, data, md17_like_dataset(MD17_BATCH * N_BATCHES,
+                                                          num_atoms=MD17_SLOTS, seed=SEED),
+                 dev, out)
+    print(f"recipe phase: {time.time() - t:.1f} s", flush=True)
 
     # the radial fold (K7): kernels, QM9 eval and training, MD17 forces
     t = time.time()

@@ -10,12 +10,16 @@ of the MD17 energy + force evaluation and training (DeNS too) are hand-written C
 from . import core, data, graph, kernels, models, nn, train, utils  # noqa: F401
 from .models import add_masked_gaussian_noise, dens_outputs, energy_and_forces, model_entrypoint
 from .train import (
+    CheckpointManager,
     TrainState,
     cosine_warmup_schedule,
     create_optimizer,
     evaluate,
     evaluate_md17,
+    load_params,
     make_dens_steps,
     make_md17_steps,
     make_qm9_steps,
+    multistep_warmup_schedule,
+    save_params,
 )

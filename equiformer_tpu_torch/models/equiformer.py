@@ -46,27 +46,39 @@ Their randomness comes in explicitly as ``rng`` (``nn/dropout.py``).
 ``irreps_pre_attn`` (``GraphAttention``, ``TransBlock``,
 ``GraphAttentionTransformer``) maps the attention's input to those irreps
 before its two DTPs (``merge_src`` / ``merge_dst``), as the DeNS model
-(``models/dens.py``) does; None keeps the input irreps.  Remat, batched
-radial, the linear-message path, the attention head, dot-product attention
-and the other norms are not ported.
+(``models/dens.py``) does; None keeps the input irreps.
+
+``remat`` (JAX's ``nn.remat(TransBlock)``, default False; both CLIs set it)
+runs each block under ``torch.utils.checkpoint`` (non-reentrant, the form
+that ``torch.autograd.grad`` and a double backward go through): the backward
+recomputes the block's forward, kernels included, instead of keeping its
+activations.  The block's dropout masks go through ``nn.dropout.MaskReplay``,
+so the recompute reuses the forward's masks and the generator (or the
+iterator of injected masks) advances as it does without remat.
+``task_mean`` and ``task_std`` are kept on the model and unused by its
+forward, as in JAX; ``atomref`` adds the per-graph sum of
+``atomref[species]`` over the real atoms to the prediction.  Batched radial,
+the linear-message path, the attention head, dot-product attention and the
+other norms are not ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.irreps import Irreps
 from ..core.spherical import spherical_harmonics_for_irreps
 from ..graph.batching import GraphsTuple
 from ..graph.radius_graph import EdgeList, build_edges, edge_vectors
-from ..graph.segment import active_edge_bound, gather_add, scaled_scatter_sum
+from ..graph.segment import active_edge_bound, gather_add, scaled_scatter_sum, segment_sum
 from ..nn.activation import Activation, normalized_activation
 from ..nn.attention_utils import heads2vec, heads_irreps, softmax_dropout_combine, vec2heads
-from ..nn.dropout import EquivariantDropout, GraphDropPath
+from ..nn.dropout import EquivariantDropout, GraphDropPath, MaskReplay
 from ..nn.linear import IrrepsLinear, init_parameters
 from ..nn.norms import EquivariantLayerNorm
 from ..nn.radial import make_rbf
@@ -246,10 +258,17 @@ class GraphAttentionTransformer(nn.Module):
         radial_fold_ho: bool = False,
         kron_g: bool = False,
         irreps_pre_attn=None,
+        remat: bool = False,
+        task_mean: float = 0.0,
+        task_std: float = 1.0,
+        atomref: Optional[Sequence[float]] = None,
         seed: int = 0,
     ):
         super().__init__()
         self.irreps_sh = Irreps(irreps_sh)
+        self.remat = remat
+        self.task_mean, self.task_std = task_mean, task_std
+        self.atomref = None if atomref is None else tuple(float(a) for a in atomref)
         self.max_radius = max_radius
         self.max_edges = max_edges
         self.nodes_per_graph = nodes_per_graph
@@ -298,12 +317,30 @@ class GraphAttentionTransformer(nn.Module):
         node_attr = torch.ones((N, 1), dtype=feat_dtype, device=pos.device)
         n_edges = active_edge_bound(edges.mask)
         for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x, node_attr, edges, edge_sh, edge_scalars, n_edges,
-                                            graphs.batch, G, rng)
+            args = (x, node_attr, edges, edge_sh, edge_scalars, n_edges, graphs.batch, G)
+            block = getattr(self, f"block_{i}")
+            if self.remat and torch.is_grad_enabled():
+                x = remat_block(block, args, rng)
+            else:
+                x = block(*args, rng)
         x = self.norm(x)
         if self.out_dropout is not None:
             x = self.out_dropout(x, rng)
         x = self.head_lin2(self.head_act(self.head_lin1(x)))
         x = x.to(pos.dtype)  # accumulate the readout in the position dtype
         out = scaled_scatter_sum(x, graphs.batch, G, self.avg_num_nodes, mask=graphs.node_mask)
+        if self.atomref is not None:
+            ref = torch.tensor(self.atomref, dtype=pos.dtype, device=pos.device)[graphs.species]
+            out = out + segment_sum(ref[:, None], graphs.batch, G, mask=graphs.node_mask)
         return out[:, 0]
+
+
+def remat_block(block: nn.Module, args: tuple, rng) -> torch.Tensor:
+    """``block(*args, rng)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant) from the same dropout masks:
+    ``MaskReplay`` records what the forward draws from ``rng`` and replays
+    it on each recompute.  Nothing on the block's path draws from the
+    default generators, so their state is not saved."""
+    masks = MaskReplay(rng)
+    return checkpoint(lambda *a: block(*a, masks.start()), *args, use_reentrant=False,
+                      preserve_rng_state=False)

@@ -67,10 +67,18 @@ def energy_and_forces(model: torch.nn.Module, batch: GraphsTuple, create_graph: 
 def _md17(radius, num_basis, *, basis="gaussian", alpha_drop=0.2,
           irreps_node_embedding="128x0e+64x1e+32x2e", irreps_sh="1x0e+1x1e+1x2e",
           irreps_head="32x0e+16x1e+8x2e", irreps_mlp_mid="384x0e+192x1e+96x2e",
-          device=None, **kwargs):
+          device=None, irreps_in=None, task_mean=None, task_std=None, atomref=None,
+          **kwargs):
     """The MD17 trunk (``md17_models._md17`` of the JAX package, nonlinear
     messages), built on ``device``: CUDA unless the caller names another
-    device; raises when there is no GPU."""
+    device; raises when there is no GPU.  The reference-compat arguments as
+    JAX's ``_md17`` takes them: ``task_mean`` / ``task_std`` kept on the
+    model, ``irreps_in`` and ``atomref`` dropped."""
+    del irreps_in, atomref
+    if task_mean is not None:
+        kwargs.setdefault("task_mean", float(task_mean))
+    if task_std is not None:
+        kwargs.setdefault("task_std", float(task_std))
     model = GraphAttentionTransformer(
         irreps_node_embedding=irreps_node_embedding,
         num_layers=6,

@@ -12,6 +12,8 @@ They act in training mode (``module.training``, JAX's
 ``torch.Generator`` on the tensors' device, or an iterator of keep masks
 that are used in call order instead of drawing (tests inject the same masks
 into both packages, since ``jax.random`` and torch draw different bits).
+``MaskReplay`` wraps either for a block that autograd recomputes (remat):
+the forward's masks are drawn once and replayed on every recompute.
 """
 
 from __future__ import annotations
@@ -29,12 +31,48 @@ def keep_mask(rng, shape, keep: float, device) -> torch.Tensor:
     ``rng`` (an iterator of given masks)."""
     if rng is None:
         raise ValueError("dropout in training mode needs a torch.Generator (or injected masks)")
+    if isinstance(rng, MaskReplay):
+        return rng.draw(shape, keep, device)
     if isinstance(rng, torch.Generator):
         return torch.rand(shape, generator=rng, device=device) < keep
     m = next(rng)
     if tuple(m.shape) != tuple(shape):
         raise ValueError(f"injected mask has shape {tuple(m.shape)}, the site needs {tuple(shape)}")
     return m.to(device=device, dtype=torch.bool)
+
+
+class MaskReplay:
+    """The keep masks of one recomputed block (``torch.utils.checkpoint``).
+    Each run of the block starts with ``start()``: the first run draws its
+    masks from ``rng`` (a generator or an iterator of masks, as
+    ``keep_mask`` takes it) and records them, every later run (autograd's
+    recompute, once or more per backward) replays them in order.  So the
+    recompute sees the forward's masks, and ``rng`` advances as far as it
+    does without remat; ``runs`` counts the runs.  Checkpointing's own
+    ``preserve_rng_state`` saves only the default generators, which no
+    dropout site draws from."""
+
+    def __init__(self, rng):
+        self.rng = rng
+        self.masks = []
+        self.runs = 0
+        self._replay = None
+
+    def start(self) -> "MaskReplay":
+        self._replay = iter(self.masks) if self.runs else None
+        self.runs += 1
+        return self
+
+    def draw(self, shape, keep: float, device) -> torch.Tensor:
+        if self._replay is None:
+            m = keep_mask(self.rng, shape, keep, device)
+            self.masks.append(m)
+            return m
+        m = next(self._replay)
+        if tuple(m.shape) != tuple(shape):
+            raise RuntimeError(f"the recompute asks for a mask of {tuple(shape)}, the forward "
+                               f"drew {tuple(m.shape)}")
+        return m
 
 
 def dropout_multiplier(rng, shape, p: float, dtype, device) -> torch.Tensor:

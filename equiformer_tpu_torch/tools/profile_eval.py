@@ -1,7 +1,8 @@
 """Where the time of an eval forward, a training step or a force evaluation goes, on one GPU.
 
     python -m equiformer_tpu_torch.tools.profile_eval [--train | --md17 | --md17-train | --dens]
-        [--unfused [--first-order-bwd] | --radial-fold | --kron-g] [--packed] [--out FILE]
+        [--unfused [--first-order-bwd] | --radial-fold | --kron-g] [--packed] [--remat]
+        [--out FILE]
 
 Builds ``graph_attention_transformer_nonlinear_l2`` at full width with a
 seeded init, on 4 batches of 128 QM9-like graphs (30 node slots each,
@@ -40,8 +41,11 @@ takes the same molecules in the packed layout (``nodes_per_graph=0``:
 backward through the src-sort plan) at the CLIs' capacities: node rows 30
 a graph and 17 edges a node row for QM9 (``cli/train_qm9.py:58-59``: 3840
 and 65280), the atoms and atoms + 1 edges a node row for the force models
-(``cli/train_md17.py:83-84``: 256 and 5632).  For float32 and bfloat16, per
-unit:
+(``cli/train_md17.py:83-84``: 256 and 5632).  ``--remat`` (not with
+``--dens``: the DeNS model has no remat, as in JAX) builds the model with
+``remat=True``, as both CLIs do: each TransBlock's forward runs again in the
+backward (twice in force training: in the force pass and in the parameter
+pass).  For float32 and bfloat16, per unit:
 
 * ``wall_ms``: one pass over the batches, ending in a synchronize, divided
   by the batch count (median of 5 passes, no profiler);
@@ -260,14 +264,17 @@ def main() -> int:
                          "backward one K6-FB launch)")
     ap.add_argument("--packed", action="store_true",
                     help="the packed layout (nodes_per_graph=0) at the CLIs' capacities")
+    ap.add_argument("--remat", action="store_true",
+                    help="build the model with remat=True (the CLIs' setting): the blocks' "
+                         "forwards recomputed in the backward")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
     if args.kron_g and (args.md17 or args.md17_train):
         ap.error("--kron-g takes the QM9 model: the force models ignore kron_g")
     if args.first_order_bwd and not (args.unfused and args.train):
         ap.error("--first-order-bwd takes --unfused --train")
-    if args.dens and (args.unfused or args.radial_fold or args.kron_g):
-        ap.error("--dens profiles the fused route only")
+    if args.dens and (args.unfused or args.radial_fold or args.kron_g or args.remat):
+        ap.error("--dens profiles the fused route only, without remat")
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -304,10 +311,12 @@ def main() -> int:
         switches["dtp_first_order_bwd"] = True
     if args.radial_fold:
         switches.update(radial_fold=True, radial_fold_ho=md17)
+    if args.remat:
+        switches["remat"] = True
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
               "model": model_name, "unit": unit, "route": route, "batch": batch, "batches": N_BATCHES,
-              "layout": "packed" if args.packed else "fixed-slot", "real_edges": counts,
-              "max_edges": max_edges}
+              "layout": "packed" if args.packed else "fixed-slot", "remat": args.remat,
+              "real_edges": counts, "max_edges": max_edges}
     for name in ("float32", "bfloat16"):
         model = make(max_edges=max_edges, nodes_per_graph=layout, seed=SEED, device=dev,
                      compute_dtype=None if name == "float32" else name, **switches)
@@ -321,7 +330,8 @@ def main() -> int:
             run = dens_train_unit(model)
         else:
             run = eval_unit(model)
-        report[name] = profile(run, gpu, f"{unit}_{route}{'_packed' * args.packed}_{name}")
+        tag = f"{unit}_{route}{'_packed' * args.packed}{'_remat' * args.remat}_{name}"
+        report[name] = profile(run, gpu, tag)
         del model, run
     text = json.dumps(report, indent=1)
     print(text)

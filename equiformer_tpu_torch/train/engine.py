@@ -2,7 +2,8 @@
 
 Counterpart of ``equiformer_tpu.train.engine``.  ``make_qm9_steps``: L1 (or
 L2) loss on the normalized targets, masked over the padded graph slots,
-AdamW, EMA, and the MAE.  ``evaluate`` is its eval step: the eval-mode
+the optimizer (any of ``create_optimizer``'s, with its gradient clip), EMA,
+and the MAE.  ``evaluate`` is its eval step: the eval-mode
 forward plus the MAE sums over the real graphs of the batch.
 ``make_md17_steps``: energy + force training, the loss of ``forces =
 -dE/dpos`` differentiated with respect to the parameters (a grad-of-grad);
@@ -75,7 +76,8 @@ def make_qm9_steps(model: torch.nn.Module, optimizer, task_mean: float = 0.0,
     device, or an iterator of injected keep masks), the backward, one
     optimizer update and the EMA update, all in place on ``state``; returns
     the state and ``{"loss", "mae", "grad_norm"}`` as device scalars (no
-    host sync).  ``eval_step(model, batch)`` is ``evaluate`` with the task
+    host sync; ``grad_norm`` the norm before the optimizer's clip, as in
+    JAX).  ``eval_step(model, batch)`` is ``evaluate`` with the task
     normalization bound."""
     if loss_type not in ("l1", "l2"):
         raise ValueError(loss_type)

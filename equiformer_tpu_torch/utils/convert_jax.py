@@ -3,8 +3,9 @@
 ``params_from_jax(model, tree)`` maps the nested dicts of arrays that
 ``equiformer_tpu``'s ``model.init`` returns onto ``model``'s parameters;
 ``ema_from_jax(state, tree)`` does the same for a ``TrainState``'s EMA copy;
-``flax_paths(model)`` gives each port parameter's flax path (the weight
-decay mask reads it).
+``params_to_jax(model)`` is the inverse (the module's parameters, or a dict
+of named tensors such as the EMA copy, as a JAX tree); ``flax_paths(model)``
+gives each port parameter's flax path (the weight decay mask reads it).
 Module and parameter names follow the flax scopes, so the mapping is
 mechanical:
 
@@ -20,7 +21,7 @@ Every leaf must be used exactly once and every port parameter set.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -101,6 +102,30 @@ def load_jax_tree(targets: Dict[str, torch.Tensor], tree: Mapping) -> int:
 def params_from_jax(model: torch.nn.Module, tree: Mapping) -> int:
     """Load a JAX parameter tree into ``model``'s parameters."""
     return load_jax_tree(dict(model.named_parameters()), tree)
+
+
+def params_to_jax(model: torch.nn.Module,
+                  tensors: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Any]:
+    """The nested dict of numpy arrays that JAX's ``model.init`` gives under
+    its ``params`` root: ``model``'s parameters, or ``tensors`` (named as
+    they are, e.g. ``TrainState.ema``) on ``model``'s flax paths, each in its
+    own dtype, each ``kernel`` back to [in, out].  ``params_from_jax`` of the
+    result restores the same bits."""
+    values = dict(model.named_parameters()) if tensors is None else tensors
+    paths = flax_paths(model)
+    if set(values) != set(paths):
+        raise ValueError(f"tensors {sorted(set(values) ^ set(paths))} are not the module's "
+                         f"parameters")
+    tree: Dict[str, Any] = {}
+    for name, path in paths.items():
+        arr = values[name].detach().cpu().numpy()
+        if path[-1] == "kernel":
+            arr = np.ascontiguousarray(arr.T)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return tree
 
 
 def ema_from_jax(state, tree: Mapping) -> int:

@@ -1682,3 +1682,92 @@ def test_packed_step_gradients_match_fixed_slot_on_card(dev):
         grads.append(torch.autograd.grad(loss, list(model.parameters())))
     scale = max(float(g.abs().max()) for g in grads[1])
     assert max(float((p - q).abs().max()) for p, q in zip(*grads)) <= 1e-5 * scale
+
+
+def _remat_qm9_setup(dev, remat, clip=None, dtype=None):
+    """A reduced packed QM9 model with every dropout site on, its training
+    step (AdamW, ``grad_clip_norm`` ``clip``) and state, on the card."""
+    import equiformer_tpu_torch as pt
+    from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer
+
+    cfg = dict(irreps_node_embedding="16x0e+8x1e+4x2e", num_layers=2, number_of_basis=32,
+               fc_neurons=(16, 16), irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e",
+               num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", higher_order_grads=False,
+               alpha_drop=0.2, proj_drop=0.1, drop_path_rate=0.1)
+    batch, edges = _packed_qm9_batch(8, 2)
+    model = GraphAttentionTransformer(**cfg, max_edges=edges, remat=remat, seed=7,
+                                      compute_dtype=dtype).to(dev)
+    opt = pt.create_optimizer(pt.cosine_warmup_schedule(5e-4, 100, 100000),
+                              grad_clip_norm=clip)
+    step, _ = pt.make_qm9_steps(model, opt)
+    return model, step, pt.TrainState.create(model, opt), batch.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_qm9_step_matches_the_unrematted_step_on_card(dev, dtype):
+    """One reduced QM9 step with remat and without, from one seed, dropout
+    drawn from one CUDA generator seed: metrics and updated parameters
+    within 1e-6 of each other (bits printed), the generators in the same
+    state, and the recompute's launches on top (K1 twice per block's
+    forward more)."""
+    from equiformer_tpu_torch.kernels import dtp_lin_fwd
+
+    res = []
+    for remat in (False, True):
+        model, step, state, batch = _remat_qm9_setup(dev, remat, dtype=None if dtype == "float32"
+                                                     else dtype)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        reset_launch_counts()
+        _, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        res.append(({k: float(v) for k, v in m.items()},
+                    [p.detach().clone() for p in model.parameters()], gen.get_state(),
+                    dtp_lin_fwd.launches))
+    (m0, p0, g0, k0), (m1, p1, g1, k1) = res
+    bits = m0 == m1 and all(torch.equal(a, b) for a, b in zip(p0, p1))
+    print(f"remat vs no remat, reduced QM9 step {dtype}: {m1} / {m0}, bits equal: {bits}, "
+          f"K1 launches {k1} / {k0}")
+    assert torch.equal(g0, g1)
+    assert all(abs(m1[k] - m0[k]) <= 1e-6 * abs(m0[k]) for k in m0)
+    scale = max(float(p.abs().max()) for p in p0)
+    assert max(float((a - b).abs().max()) for a, b in zip(p0, p1)) <= 1e-6 * scale
+    assert k1 == k0 + 2 * 2  # the two blocks' two K1 sites, once more
+
+
+def _sync_warnings(fn):
+    """The number of synchronizing CUDA calls ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.cuda
+def test_grad_clip_adds_no_host_sync(dev):
+    """A warm training step with a binding ``grad_clip_norm`` makes no more
+    synchronizing calls than the same step without a clip; where the step
+    makes none, it also runs under ``set_sync_debug_mode("error")``."""
+    counts = {}
+    for clip in (None, 1e-3):
+        model, step, state, batch = _remat_qm9_setup(dev, True, clip)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        step(state, batch, gen)  # the first step builds the kernels' tables
+        torch.cuda.synchronize()
+        counts[clip] = _sync_warnings(lambda: step(state, batch, gen))
+        torch.cuda.synchronize()
+        if counts[clip] == 0:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step(state, batch, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    print(f"synchronizing calls a step: no clip {counts[None]}, clip {counts[1e-3]}")
+    assert counts[1e-3] <= counts[None]
