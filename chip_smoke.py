@@ -4,8 +4,9 @@ energy + force evaluation and training and its DeNS training once on one
 NVIDIA GPU, on the fused DTP + linear route, the unfused DTP route, the
 radial fold and (QM9) the kron-basis route, in the fixed-slot batch layout,
 the QM9 step, MD17 force training and the DeNS step again in the packed
-layout that the JAX models default to and the CLIs load, and the CLIs'
-training recipe there (remat, a binding gradient clip, checkpoints).
+layout that the JAX models default to and the CLIs load, the CLIs'
+training recipe there (remat, a binding gradient clip, checkpoints), and
+the training CLIs themselves through their ``main``s.
 
     python3 chip_smoke.py
 
@@ -283,7 +284,31 @@ Phases (any failure exits nonzero; nothing is caught and turned into success):
    into a CPU model predicts CPU_GRAPHS graphs within CPU_RTOL of the card's
    model loaded from the same file.
 
-The phases run in the order 1-10, 17-22, 10a-16.  Phases 3 and 7 also
+23. cli — the training CLIs through their ``main``s on the card, each with
+   every launch count set to 0 just before and read just after, each
+   train step's launches read too (the step maker wrapped): ``train_qm9
+   --synthetic --epochs 1`` at the defaults (the flagship at full width,
+   batch 128, the CLI's capacities 3840 / 65280, remat, bf16, AdamW with EMA:
+   4 steps of phase 22's rematted counts, then val and test, 2 eval
+   forwards of phase 2's counts), its epoch's graphs/s from its own log
+   line, the three npz files, and ``final.npz`` loaded by ``load_params``
+   into a CPU model, which predicts CPU_GRAPHS graphs within CPU_RTOL of
+   the card; ``train_qm9`` on a copy of ``tests/fixtures/qm9_raw`` with the
+   bessel entrypoint (2 steps at batch 4; the 11 molecules all fall into
+   train, so no evaluation: ``--eval-interval 2``); the e3 entrypoint at
+   full width (4 steps), then K1 and K2 at its odd-parity sep_act site
+   against their plain versions with phase 3's tolerances; ``train_md17``
+   on ``tests/fixtures/md17_raw`` with the attention head (2 force training
+   steps of EXPECTED_ATTN_MD17_TRAIN, val and test), then K1, K5a, K5b and
+   K5c at the head's sep_act site (512x0e in) as phases 7 and 8 check
+   them; one exp_l3_e3 force training step and the same checks at its
+   sep_act site; ``train_md17 --use-dens --config-yml
+   configs/md17_dens/equiformer_dens_l3.yml`` (the port's YAML reader) with
+   the linear decay: 2 steps of phase 21's counts, ``dp_weight`` 1.0 and
+   0.5 logged per epoch; ``compute_stats`` on the MD17 fixture: the native
+   ``radius_stats`` equal to numpy's ``compute_stats``.
+
+The phases run in the order 1-10, 17-23, 10a-16.  Phases 3 and 7 also
 time the model's segment sums too narrow for K3
 (``fixed_order_segment_sum``, an ``index_put_`` that repeats its bits)
 against ``index_add_`` at the shapes of the readout and the softmax
@@ -504,11 +529,16 @@ CUDA_CORE_FLOPS = {"float32": 67e12, "bfloat16": 134e12}
 CUDA_CORE_KERNELS = ("fma_probe",)
 
 
+CARD = ""  # the card's name and power limit, set by card_line(), printed beside the numbers
+
+
 def card_line() -> str:
+    global CARD
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    CARD = out.stdout.strip().splitlines()[0]
+    return CARD
 
 
 def cuda_time_ms(fn, torch, reps: int = 7, inner: int = 10) -> float:
@@ -576,7 +606,7 @@ def report_kernels(records):
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         if r["pair_ms"] is not None:
             lib += f", {r['pair']} {r['pair_ms']:.4f} ms"
-        print(f"kernel {r['kernel']:16s} {r['site']:17s} {r['dtype']:8s} {r['shape']}: "
+        print(f"{CARD}: kernel {r['kernel']:16s} {r['site']:17s} {r['dtype']:8s} {r['shape']}: "
               f"max_abs_err {r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}) "
               f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms{lib}; bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
@@ -650,8 +680,11 @@ def dtp_operands(torch, plan, heads, broadcast_x, E, n, dt, g, dev):
     return x, w, W, cot, in_bytes
 
 
-def kernel_phase(torch, model, batch, dev, records):
-    """Each kernel against its plain version at the flagship's shapes."""
+def kernel_phase(torch, model, batch, dev, records, sites=None, prefix="", dtp_only=False):
+    """Each kernel against its plain version at the flagship's shapes.
+    ``sites`` (name -> site, ``dtp_sites``' by default) picks the DTP call
+    sites, their records named ``prefix + name``; ``dtp_only`` checks K1 and
+    K2 there and nothing else."""
     from equiformer_tpu_torch.kernels import (
         KERNEL_WRAPPERS, attn_combine_fwd, attn_combine_plain, attn_den_plain,
         csr_segment_sum, dtp_lin_bwd, dtp_lin_bwd_plain, dtp_lin_fwd, dtp_lin_plain,
@@ -669,7 +702,8 @@ def kernel_phase(torch, model, batch, dev, records):
         dt = getattr(torch, dt_name)
         size = torch.finfo(dt).bits // 8
         sh = sh32.to(dt)
-        for site, (plan, heads, broadcast_x) in dtp_sites(model).items():
+        for site, (plan, heads, broadcast_x) in (sites or dtp_sites(model)).items():
+            site = prefix + site
             x, w, W, cot, in_bytes = dtp_operands(torch, plan, heads, broadcast_x, E, n, dt, g,
                                                   dev)
             shape = f"E={E} d_x={plan.d_x} d_w={plan.d_w} d_out={plan.d_out}"
@@ -701,6 +735,8 @@ def kernel_phase(torch, model, batch, dev, records):
             record(records, "dtp_lin_bwd", site, dt_name, shape, errs, ms, plain_ms,
                    in_bytes + size * n * plan.d_out + out_bytes,
                    n * (4 * macs + 10 * tp_elems))
+        if dtp_only:
+            continue
 
         C = 480
         val = torch.randn(E, C, generator=g, device=dev).to(dt)
@@ -761,6 +797,8 @@ def kernel_phase(torch, model, batch, dev, records):
     for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
         fn.launches = saved[name]
     report_kernels(records)
+    if dtp_only:
+        return
     # the step's one narrow sum: the readout [N, 1] by graph
     readout = torch.randn(N, 1, generator=g, device=dev)
     narrow_sums(torch, "QM9 step", {"qm9-readout": (
@@ -982,11 +1020,13 @@ def narrow_sums(torch, unit, cases):
             raise RuntimeError(f"the fixed-order narrow sum {site} disagrees or repeats no bits")
 
 
-def md17_kernel_phase(torch, model, batch, dev, records):
+def md17_kernel_phase(torch, model, batch, dev, records, sites=None, prefix="md17-",
+                      dtp_only=False):
     """K1 and K5a against their plain versions at the exp_l3 shapes of one
     batch of 8 md17-like molecules, at the three call sites; K3 at the
     path's width in its edge-degree, attention and gather-backward forms;
-    the narrow sums."""
+    the narrow sums.  ``sites``, ``prefix`` and ``dtp_only`` as in
+    ``kernel_phase`` (K1 and K5a alone)."""
     from equiformer_tpu_torch.kernels import (
         KERNEL_WRAPPERS, csr_segment_sum, dtp_lin_bwd3, dtp_lin_bwd3_plain, dtp_lin_fwd,
         dtp_lin_plain, segment_sum_plain,
@@ -1004,7 +1044,7 @@ def md17_kernel_phase(torch, model, batch, dev, records):
         dt = getattr(torch, dt_name)
         size = torch.finfo(dt).bits // 8
         sh = sh32.to(dt)
-        for site, (plan, heads, broadcast_x) in dtp_sites(model).items():
+        for site, (plan, heads, broadcast_x) in (sites or dtp_sites(model)).items():
             x, w, W, cot, in_bytes = dtp_operands(torch, plan, heads, broadcast_x, E, n, dt, g,
                                                   dev)
             shape = f"E={E} d_x={plan.d_x} d_w={plan.d_w} d_out={plan.d_out}"
@@ -1015,7 +1055,7 @@ def md17_kernel_phase(torch, model, batch, dev, records):
             torch.cuda.synchronize()
             ms = cuda_time_ms(lambda: dtp_lin_fwd(plan, x, sh, w, W, n_edges), torch)
             plain_ms = cuda_time_ms(lambda: dtp_lin_plain(plan, x, sh, w, W, n_edges), torch)
-            record(records, "dtp_lin_fwd", "md17-" + site, dt_name, shape, [rel_err(k, p)], ms,
+            record(records, "dtp_lin_fwd", prefix + site, dt_name, shape, [rel_err(k, p)], ms,
                    plain_ms, in_bytes + size * E * plan.d_out, n * (2 * macs + 4 * tp_elems))
 
             plain = lambda: dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n_edges)  # noqa: E731
@@ -1037,7 +1077,7 @@ def md17_kernel_phase(torch, model, batch, dev, records):
                 ms = cuda_time_ms(call, torch)
                 # dz product, then 3 operations per term element for each output
                 record(records, "dtp_lin_bwd3",
-                       f"md17-{site}" + ("" if need == K5A_NEEDS[site][0] else
+                       f"{prefix}{site}" + ("" if need == K5A_NEEDS[site][0] else
                                          "-" + "".join("d" + key for key in need)),
                        dt_name, shape, errs, ms, plain_ms,
                        in_bytes + size * n * plan.d_out
@@ -1048,6 +1088,8 @@ def md17_kernel_phase(torch, model, batch, dev, records):
                 print(f"dtp_lin_bwd3 {site} {dt_name} {'/'.join(need)}: {occ} resident blocks "
                       f"per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
                       f"{-(-E // 16)} tiles x {len(plan.groups)} irrep groups")
+        if dtp_only:
+            continue
 
         # K3: the edge-degree scatter [E, C] and the attention sums [E, H, D]
         # (reshaped to [E, H*D] as segment_sum does), masked; the gathers'
@@ -1076,6 +1118,8 @@ def md17_kernel_phase(torch, model, batch, dev, records):
                         lambda: csr_segment_sum(flat, edges.dst, N, mask), lib_ms, lib)
     for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
         fn.launches = saved[name]
+    if dtp_only:
+        return
 
     # the readout [N, 1] by graph (position dtype) and the 6 softmax
     # denominators [E, H] (feature dtype) of one force evaluation
@@ -1826,9 +1870,10 @@ def recipe_phase(pt, torch, make, data, md17_data, dev, out):
         shutil.rmtree(directory, ignore_errors=True)
 
 
-def md17_train_kernel_phase(torch, model, batch, dev, records):
+def md17_train_kernel_phase(torch, model, batch, dev, records, sites=None, prefix="md17-"):
     """K5b's three legs and K5c against their plain versions at the exp_l3
-    shapes of one batch of 8 md17-like molecules, at the three call sites;
+    shapes of one batch of 8 md17-like molecules, at the three call sites
+    (or ``sites``, their records named ``prefix + name``);
     each call's device time beside its wrapper time, and two calls for
     equal bits (no float atomics: the dW partials and the x leg's split
     partials are summed in a fixed order)."""
@@ -1845,7 +1890,7 @@ def md17_train_kernel_phase(torch, model, batch, dev, records):
         dt = getattr(torch, dt_name)
         size = torch.finfo(dt).bits // 8
         sh = sh32.to(dt)
-        for site, (plan, heads, broadcast_x) in dtp_sites(model).items():
+        for site, (plan, heads, broadcast_x) in (sites or dtp_sites(model)).items():
             x, w, W, cot, _ = dtp_operands(torch, plan, heads, broadcast_x, E, n, dt, g, dev)
             shape = f"E={E} d_x={plan.d_x} d_w={plan.d_w} d_out={plan.d_out}"
             tp_elems, macs = dtp_work(plan)
@@ -1870,9 +1915,9 @@ def md17_train_kernel_phase(torch, model, batch, dev, records):
                 # the dz product, then 3 operations per term element
                 nbytes = sum(v for key, v in op_bytes.items() if key != leg) \
                     + size * E * widths[leg]
-                record(records, "dtp_lin_leg", f"md17-{site}-{leg}", dt_name, shape,
+                record(records, "dtp_lin_leg", f"{prefix}{site}-{leg}", dt_name, shape,
                        [rel_err(k, p)], ms, plain_ms, nbytes, n * (2 * macs + 3 * tp_elems))
-                device_line(torch, "K5b", f"{site}-{leg}", dt_name, ms, call)
+                device_line(torch, "K5b", f"{prefix}{site}-{leg}", dt_name, ms, call)
                 print(f"dtp_lin_leg {leg} {site} {dt_name}: {-(-E // 16)} tiles x "
                       f"{len(plan.groups)} irrep groups" + (
                           f", {leg_occupancy(plan, dt)} resident blocks per SM"
@@ -1887,9 +1932,9 @@ def md17_train_kernel_phase(torch, model, batch, dev, records):
                                     torch, reps=3, inner=3)
             # the z recompute (3 operations per term element), then z^T g; dW in fp32
             nbytes = sum(v for key, v in op_bytes.items() if key != "W") + 4 * plan.w_numel
-            record(records, "dtp_lin_legW", f"md17-{site}", dt_name, shape, [rel_err(k, p)], ms,
+            record(records, "dtp_lin_legW", f"{prefix}{site}", dt_name, shape, [rel_err(k, p)], ms,
                    plain_ms, nbytes, n * (2 * macs + 3 * tp_elems))
-            device_line(torch, "K5c", site, dt_name, ms, call)
+            device_line(torch, "K5c", prefix + site, dt_name, ms, call)
     for name, fn in KERNEL_WRAPPERS.items():  # comparison launches do not count
         fn.launches = saved[name]
 
@@ -2615,6 +2660,236 @@ def measure_kernel_phase(torch, model, batch, dev, records):
         fn.launches = saved[name]
 
 
+# The training CLIs (phase 23), each driven through its ``main`` as a user
+# runs it: the QM9 CLI's steps are phase 22's rematted step (the e3 and the
+# bessel entrypoints too: parity and basis change no launch), its eval
+# forward phase 2's; the attention head adds one GraphAttention, not
+# rematted, at the 512x0e feature: its per-edge-w sep_act site and its
+# shared-weight sep_value site launch what a block's two sites launch in a
+# force training step (K1 4 + 3, K5a 2 + 1, K5b 4 + 2, K5c 4 + 3) and its
+# attention sum and two message gathers 6 K3, as a block's.  DeNS has no
+# remat (phase 21's step).
+CLI_QM9_MODEL = "graph_attention_transformer_nonlinear_l2"
+CLI_BESSEL_MODEL = "graph_attention_transformer_nonlinear_bessel_l2"
+CLI_E3_MODEL = "graph_attention_transformer_nonlinear_l2_e3"
+CLI_ATTN_MODEL = "graph_attention_transformer_nonlinear_attn_exp_l3_md17"
+CLI_E3_MD17_MODEL = "graph_attention_transformer_nonlinear_exp_l3_e3_md17"
+CLI_DENS_YML = "configs/md17_dens/equiformer_dens_l3.yml"
+EXPECTED_ATTN_MD17_TRAIN = {**EXPECTED_REMAT_MD17_TRAIN, "dtp_lin_fwd": 69 + 7,
+                            "dtp_lin_bwd3": 20 + 3, "dtp_lin_leg": 39 + 6,
+                            "dtp_lin_legW": 45 + 7, "csr_segment_sum": 50 + 6}
+CLI_DIR = ROOT / "build" / "cli_smoke"
+
+
+def cli_run(torch, card, module, maker_name, argv, tag):
+    """``module.main`` (a training CLI) on ``argv`` with every launch count
+    set to 0 just before and read just after; ``module.<maker_name>`` (the
+    step maker it calls) wrapped so that each train step's launches are
+    read too.  Returns (the CLI's state, each step's counts, the run's
+    counts, its epoch log lines)."""
+    from equiformer_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    per_step = []
+    maker = getattr(module, maker_name)
+
+    def counting_maker(*a, **kw):
+        step, eval_step = maker(*a, **kw)
+
+        def counted_step(*sa):
+            before = launch_counts()
+            result = step(*sa)
+            after = launch_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+            return result
+        return counted_step, eval_step
+
+    args = module.get_args(argv)
+    setattr(module, maker_name, counting_maker)
+    try:
+        t = time.time()
+        reset_launch_counts()
+        state = module.main(args)
+        torch.cuda.synchronize()
+        total = launch_counts()
+    finally:
+        setattr(module, maker_name, maker)
+    lines = [ln for ln in (Path(args.output_dir) / "debug.log").read_text().splitlines()
+             if " epoch " in f" {ln.split(' - ', 1)[-1]}"]
+    print(f"{card}: cli {tag}: {len(per_step)} steps in {time.time() - t:.1f} s", flush=True)
+    for ln in lines:
+        print(f"{card}: cli {tag}: {ln.split(' - ', 1)[-1]}", flush=True)
+    return state, per_step, total, lines
+
+
+def check_steps(per_step, expected, n, tag):
+    if len(per_step) != n:
+        raise RuntimeError(f"cli {tag}: {len(per_step)} steps, expected {n}")
+    for i, c in enumerate(per_step):
+        if c != expected:
+            diff = {k: (c[k], expected[k]) for k in c if c[k] != expected[k]}
+            raise RuntimeError(f"cli {tag} step {i}: launch counts (got, expected) {diff}")
+    print(f"{CARD}: cli {tag}: launches a step "
+          f"{ {k: v for k, v in per_step[0].items() if v} }", flush=True)
+
+
+def check_outputs(state, outdir, files, tag):
+    written = sorted(p.name for p in Path(outdir).glob("*.npz"))
+    if written != sorted(files):
+        raise RuntimeError(f"cli {tag}: wrote {written}, expected {sorted(files)}")
+    if not all(bool(p.isfinite().all()) for p in state.model.parameters()):
+        raise RuntimeError(f"cli {tag}: non-finite parameters")
+
+
+def graphs_per_s(lines, tag):
+    import re
+
+    rates = [float(m.group(1)) for m in (re.search(r"([0-9.]+) graphs/s", ln) for ln in lines)
+             if m]
+    if not rates or not all(r > 0 for r in rates):
+        raise RuntimeError(f"cli {tag}: no graphs/s in the epoch lines {lines}")
+    return rates
+
+
+def head_sites(model):
+    """The attention head's per-edge-w call site (``dtp_sites``' layout)."""
+    ga = model.attn_head
+    return {"sep_act": (ga.sep_act.plan, [ga.sep_act.lin, ga.sep_alpha], False)}
+
+
+def cli_phase(pt, torch, dev, card, out):
+    """Phase 23: the QM9 and MD17 training CLIs on the card, through their
+    ``main``s, and ``compute_stats``."""
+    import shutil
+
+    from equiformer_tpu_torch import native
+    from equiformer_tpu_torch.cli import compute_stats as cs, train_md17, train_qm9
+    from equiformer_tpu_torch.data import GraphLoader, compute_stats, load_md17, qm9_like_dataset
+    from equiformer_tpu_torch.data.qm9 import load_qm9
+    from equiformer_tpu_torch.graph.batching import cli_capacities
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    qm9_root = shutil.copytree(ROOT / "tests" / "fixtures" / "qm9_raw", CLI_DIR / "qm9")
+    md17_root = shutil.copytree(ROOT / "tests" / "fixtures" / "md17_raw", CLI_DIR / "md17")
+    records = []
+
+    # 1. the QM9 CLI's defaults on synthetic molecules: 4 steps, val, test
+    d = CLI_DIR / "qm9_synthetic"
+    state, steps, total, lines = cli_run(torch, card, train_qm9, "make_qm9_steps", [
+        "--synthetic", "--epochs", "1", "--output-dir", str(d)], "qm9")
+    check_steps(steps, EXPECTED_REMAT_TRAIN, 4, "qm9")
+    want = {k: 4 * EXPECTED_REMAT_TRAIN[k] + 2 * EXPECTED_EVAL[k] for k in total}
+    if total != want:
+        raise RuntimeError(f"cli qm9: the run launched {total}, expected {want}")
+    check_outputs(state, d, ["best_val.npz", "best_test.npz", "final.npz"], "qm9")
+    out["cli_qm9_graphs_per_s"] = graphs_per_s(lines, "qm9")[0]
+    out["cli_qm9_launches"] = steps[0]
+    nodes, edges = cli_capacities(CPU_GRAPHS, 30, QM9_EDGES_PER_NODE)
+    batch = next(iter(GraphLoader(qm9_like_dataset(512, seed=1)[:CPU_GRAPHS], CPU_GRAPHS,
+                                  nodes, shuffle=False)))
+    cpu = pt.model_entrypoint(CLI_QM9_MODEL)(max_edges=edges, compute_dtype="bfloat16",
+                                             device="cpu")
+    pt.load_params(str(d / "final.npz"), cpu)
+    with torch.no_grad():
+        got = state.model.eval()(batch.to(dev)).cpu()
+        ref = cpu.eval()(batch)
+    err, rel = rel_err(got, ref)
+    print(f"{card}: cli qm9: final.npz on the CPU vs the card, {CPU_GRAPHS} graphs bfloat16: "
+          f"max_abs_err {err:.3e} (rel {rel:.3e}, limit {CPU_RTOL['bfloat16']})", flush=True)
+    if not rel <= CPU_RTOL["bfloat16"]:
+        raise RuntimeError("cli qm9: final.npz on the CPU disagrees with the card")
+    del state, cpu
+
+    # 2. the real QM9 parse path (the fixture: 11 molecules, all in train)
+    d = CLI_DIR / "qm9_fixture"
+    state, steps, _, lines = cli_run(torch, card, train_qm9, "make_qm9_steps", [
+        "--data-path", str(qm9_root), "--batch-size", "4", "--eval-interval", "2",
+        "--epochs", "1", "--model-name", CLI_BESSEL_MODEL, "--output-dir", str(d)], "bessel")
+    check_steps(steps, EXPECTED_REMAT_TRAIN, 2, "bessel")
+    check_outputs(state, d, ["final.npz"], "bessel")
+    if len(load_qm9(str(qm9_root))[0]) != 11:
+        raise RuntimeError("cli bessel: the fixture did not parse into 11 molecules")
+    del state
+
+    # 3. the e3 entrypoint at full width: its step, K1 and K2 at its sep_act site
+    d = CLI_DIR / "qm9_e3"
+    state, steps, _, lines = cli_run(torch, card, train_qm9, "make_qm9_steps", [
+        "--synthetic", "--epochs", "1", "--eval-interval", "2", "--model-name", CLI_E3_MODEL,
+        "--output-dir", str(d)], "e3")
+    check_steps(steps, EXPECTED_REMAT_TRAIN, 4, "e3")
+    check_outputs(state, d, ["final.npz"], "e3")
+    out["cli_e3_graphs_per_s"] = graphs_per_s(lines, "e3")[0]
+    out["cli_e3_launches"] = steps[0]
+    nodes, _ = cli_capacities(BATCH, 30, QM9_EDGES_PER_NODE)
+    batch = next(iter(GraphLoader(qm9_like_dataset(512, seed=1), BATCH, nodes,
+                                  shuffle=False))).to(dev)
+    sites = {"sep_act": dtp_sites(state.model)["sep_act"]}
+    if "0o" not in str(state.model.block_0.ga.sep_act.dtp.irreps_out):
+        raise RuntimeError("cli e3: the sep_act site holds no odd parity")
+    kernel_phase(torch, state.model, batch, dev, records, sites, "e3-", dtp_only=True)
+    md17_records = []
+    del state
+
+    # 4. MD17 on the fixture: the attention head's force training steps, its
+    # sep_act site's K1, K5a, K5b and K5c
+    d = CLI_DIR / "md17_attn"
+    state, steps, _, lines = cli_run(torch, card, train_md17, "make_md17_steps", [
+        "--data-path", str(md17_root), "--train-size", "16", "--val-size", "8",
+        "--epochs", "1", "--model-name", CLI_ATTN_MODEL, "--output-dir", str(d)], "attn")
+    check_steps(steps, EXPECTED_ATTN_MD17_TRAIN, 2, "attn")
+    check_outputs(state, d, ["best_val.npz", "best_test.npz", "final.npz"], "attn")
+    out["cli_attn_launches"] = steps[0]
+    nodes, _ = cli_capacities(MD17_BATCH, MD17_SLOTS, MD17_SLOTS + 1)
+    train = load_md17(str(md17_root), "aspirin", "train", 16, 8)[0]
+    batch = next(iter(GraphLoader(train, MD17_BATCH, nodes, shuffle=False,
+                                  with_forces=True))).to(dev)
+    md17_kernel_phase(torch, state.model, batch, dev, md17_records, head_sites(state.model),
+                      "attn-", dtp_only=True)
+    md17_train_kernel_phase(torch, state.model, batch, dev, md17_records,
+                            head_sites(state.model), "attn-")
+    del state
+
+    # 5. one exp_l3_e3 force training step, K1, K5a, K5b, K5c at its sep_act site
+    d = CLI_DIR / "md17_e3"
+    state, steps, _, lines = cli_run(torch, card, train_md17, "make_md17_steps", [
+        "--data-path", str(md17_root), "--train-size", "8", "--val-size", "8",
+        "--epochs", "1", "--eval-interval", "2", "--model-name", CLI_E3_MD17_MODEL,
+        "--output-dir", str(d)], "e3_md17")
+    check_steps(steps, EXPECTED_REMAT_MD17_TRAIN, 1, "e3_md17")
+    check_outputs(state, d, ["final.npz"], "e3_md17")
+    out["cli_e3_md17_launches"] = steps[0]
+    sites = {"sep_act": dtp_sites(state.model)["sep_act"]}
+    md17_kernel_phase(torch, state.model, batch, dev, md17_records, sites, "e3md17-",
+                      dtp_only=True)
+    md17_train_kernel_phase(torch, state.model, batch, dev, md17_records, sites, "e3md17-")
+    del state
+    report_kernels(md17_records)
+
+    # 6. DeNS through --config-yml (the port's YAML reader), dp_weight decayed per epoch
+    d = CLI_DIR / "dens"
+    state, steps, _, lines = cli_run(torch, card, train_md17, "make_dens_steps", [
+        "--use-dens", "--config-yml", str(ROOT / CLI_DENS_YML),
+        "--use-denoising-pos-weight-linear-decay", "--data-path", str(md17_root),
+        "--train-size", "8", "--val-size", "8", "--epochs", "2", "--eval-interval", "2",
+        "--output-dir", str(d)], "dens")
+    check_steps(steps, EXPECTED_DENS_TRAIN, 2, "dens")
+    check_outputs(state, d, ["best_val.npz", "best_test.npz", "final.npz"], "dens")
+    weights = [ln.split("dp_weight ")[1] for ln in lines if "dp_weight" in ln]
+    if weights != ["1.000000", "0.500000"]:
+        raise RuntimeError(f"cli dens: dp_weight per epoch {weights}, expected 1.0 and 0.5")
+    del state
+
+    # 7. compute_stats: the native radius_stats against numpy's compute_stats
+    if not native.HAVE_NATIVE:
+        raise RuntimeError("compute_stats: no native library (no C++ compiler)")
+    got = cs.main(cs.get_args(["--dataset", "md17", "--data-path", str(md17_root)]))
+    graphs = load_md17(str(md17_root), "aspirin", "train")[0]
+    want = {k: round(float(v), 6) for k, v in compute_stats(graphs, 5.0).items()}
+    print(f"{CARD}: compute_stats md17 fixture: native {got}, numpy {want}", flush=True)
+    if got != want:
+        raise RuntimeError("compute_stats: the native radius_stats differ from numpy's")
+    return records + md17_records
+
+
 def main() -> int:
     import torch
 
@@ -2709,6 +2984,11 @@ def run(torch, dev) -> int:
                                                           num_atoms=MD17_SLOTS, seed=SEED),
                  dev, out)
     print(f"recipe phase: {time.time() - t:.1f} s", flush=True)
+
+    # the training CLIs through their mains, and compute_stats
+    t = time.time()
+    cli_records = cli_phase(pt, torch, dev, card, out)
+    print(f"{card}: cli phase: {time.time() - t:.1f} s", flush=True)
 
     # the radial fold (K7): kernels, QM9 eval and training, MD17 forces
     t = time.time()
@@ -2845,7 +3125,7 @@ def run(torch, dev) -> int:
                 "dtp_lin_kron_bwd": "kron_train_launches",
                 **dict.fromkeys(MEASURE_KERNELS, "measure_launches")}.get(name, "train_launches")
         r = next(r for r in records + md17_records + md17_train_records + k6_records
-                 + k7_records + k7_leg_records + k8_records + measure_records
+                 + k7_records + k7_leg_records + k8_records + measure_records + cli_records
                  if r["kernel"] == name and r["dtype"] == "bfloat16")
         table.append({"name": name, "route": "cuda", "source": SOURCES[name],
                       "replaces": TPU_KERNELS[name], "launches": out[path][name],

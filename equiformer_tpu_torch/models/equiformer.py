@@ -54,12 +54,18 @@ that ``torch.autograd.grad`` and a double backward go through): the backward
 recomputes the block's forward, kernels included, instead of keeping its
 activations.  The block's dropout masks go through ``nn.dropout.MaskReplay``,
 so the recompute reuses the forward's masks and the generator (or the
-iterator of injected masks) advances as it does without remat.
+iterator of injected masks) advances as it does without remat.  Remat
+applies in training mode only: an eval-mode force evaluation reads detached
+copies of the parameters (``md17_models.energy_and_forces``), which a
+recompute in the backward would not see, and keeps its activations.
 ``task_mean`` and ``task_std`` are kept on the model and unused by its
 forward, as in JAX; ``atomref`` adds the per-graph sum of
-``atomref[species]`` over the real atoms to the prediction.  Batched radial,
-the linear-message path, the attention head, dot-product attention and the
-other norms are not ported.
+``atomref[species]`` over the real atoms to the prediction.
+``use_attn_head`` (the MD17 attention-head variant) replaces the two-linear
+head by a ``GraphAttention`` from the feature to ``1x0e``, ``attn_head``,
+with the blocks' heads, ``irreps_pre_attn``, dropouts and route.  Batched
+radial, the linear-message path, dot-product attention and the other norms
+are not ported.
 """
 
 from __future__ import annotations
@@ -258,6 +264,7 @@ class GraphAttentionTransformer(nn.Module):
         radial_fold_ho: bool = False,
         kron_g: bool = False,
         irreps_pre_attn=None,
+        use_attn_head: bool = False,
         remat: bool = False,
         task_mean: float = 0.0,
         task_std: float = 1.0,
@@ -291,9 +298,15 @@ class GraphAttentionTransformer(nn.Module):
         self.num_layers = num_layers
         self.norm = EquivariantLayerNorm(feat)
         self.out_dropout = EquivariantDropout(feat, out_drop) if out_drop != 0.0 else None
-        self.head_lin1 = IrrepsLinear(feat, feat)
-        self.head_act = Activation(feat, ["silu"])
-        self.head_lin2 = IrrepsLinear(feat, Irreps("1x0e"))
+        self.use_attn_head = use_attn_head
+        if use_attn_head:
+            self.attn_head = GraphAttention(feat, self.irreps_sh, "1x0e", fc, irreps_head,
+                                            num_heads, alpha_drop, proj_drop, *route,
+                                            irreps_pre_attn)
+        else:
+            self.head_lin1 = IrrepsLinear(feat, feat)
+            self.head_act = Activation(feat, ["silu"])
+            self.head_lin2 = IrrepsLinear(feat, Irreps("1x0e"))
         init_parameters(self, seed)
 
     def forward(self, graphs: GraphsTuple, rng=None) -> torch.Tensor:
@@ -319,14 +332,17 @@ class GraphAttentionTransformer(nn.Module):
         for i in range(self.num_layers):
             args = (x, node_attr, edges, edge_sh, edge_scalars, n_edges, graphs.batch, G)
             block = getattr(self, f"block_{i}")
-            if self.remat and torch.is_grad_enabled():
+            if self.remat and self.training and torch.is_grad_enabled():
                 x = remat_block(block, args, rng)
             else:
                 x = block(*args, rng)
         x = self.norm(x)
         if self.out_dropout is not None:
             x = self.out_dropout(x, rng)
-        x = self.head_lin2(self.head_act(self.head_lin1(x)))
+        if self.use_attn_head:
+            x = self.attn_head(x, edges, edge_sh, edge_scalars, n_edges, rng)
+        else:
+            x = self.head_lin2(self.head_act(self.head_lin1(x)))
         x = x.to(pos.dtype)  # accumulate the readout in the position dtype
         out = scaled_scatter_sum(x, graphs.batch, G, self.avg_num_nodes, mask=graphs.node_mask)
         if self.atomref is not None:

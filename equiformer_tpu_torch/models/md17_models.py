@@ -4,8 +4,9 @@ Counterpart of ``equiformer_tpu.models.md17_models``: the trunk is the QM9
 Equiformer's, with raw atomic numbers as types (64 of them), the MD17 graph
 statistics and the exp or bessel radial basis; forces are minus the gradient
 of the energy with respect to the positions (``energy_and_forces``).  The
-registered entrypoints are the nonlinear MLP-attention ones; the
-linear-message, attention-head and dot-product variants are not ported.
+registered entrypoints are the nonlinear MLP-attention ones, the
+attention-head variant among them; the linear-message and dot-product
+variants are not ported.
 """
 
 from __future__ import annotations
@@ -147,6 +148,13 @@ def graph_attention_transformer_nonlinear_exp_l2_md17(radius=5.0, num_basis=128,
 def graph_attention_transformer_nonlinear_exp_l3_md17(radius=5.0, num_basis=128, **kw):
     """The headline force model (``bench.py --task md17`` of the JAX package)."""
     return _md17(radius, num_basis, basis="exp", alpha_drop=0.0, **_L3, **kw)
+
+
+@register_model
+def graph_attention_transformer_nonlinear_attn_exp_l3_md17(radius=5.0, num_basis=128, **kw):
+    """The exp L3 model with a ``GraphAttention`` as its output head."""
+    return _md17(radius, num_basis, basis="exp", alpha_drop=0.0, use_attn_head=True, **_L3,
+                 **kw)
 
 
 @register_model

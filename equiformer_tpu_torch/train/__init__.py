@@ -1,5 +1,6 @@
 from .checkpoint import CheckpointManager, load_params, save_params
 from .engine import (
+    AverageMeter,
     evaluate,
     evaluate_md17,
     make_dens_steps,

@@ -29,6 +29,22 @@ from .optim import ema_update
 from .state import TrainState
 
 
+class AverageMeter:
+    """Streaming average of host numbers."""
+
+    def __init__(self):
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, value, n=1):
+        self.sum += float(value) * n
+        self.count += n
+
+    @property
+    def avg(self):
+        return self.sum / max(self.count, 1)
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mask = mask.to(x.dtype)
     return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -1,3 +1,4 @@
+from .config import apply_overrides, build_config, load_config
 from .convert_jax import (
     ema_from_jax,
     flax_paths,
@@ -6,4 +7,6 @@ from .convert_jax import (
     params_to_jax,
     torch_name,
 )
+from .logger import FileLogger, MetricsWriter
 from .profiling import StepTimer, trace
+from .seeding import set_seed

@@ -14,7 +14,10 @@ mechanical:
 * flax ``Dense`` ``kernel`` [in, out] -> torch ``Linear`` ``weight`` [out, in];
 * flax ``LayerNorm`` ``scale`` -> torch ``LayerNorm`` ``weight``;
 * the auto-named RBF scopes ``GaussianRadialBasis_0`` and
-  ``BesselRadialBasis_0`` -> ``rbf`` (the exp basis has no parameters).
+  ``BesselRadialBasis_0`` -> ``rbf`` (the exp basis has no parameters);
+* the MD17 attention head (``use_attn_head``) is the subtree ``attn_head``
+  with a block's ``GraphAttention`` names, in place of ``head_lin1`` /
+  ``head_lin2``.
 
 Every leaf must be used exactly once and every port parameter set.
 """

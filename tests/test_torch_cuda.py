@@ -1771,3 +1771,141 @@ def test_grad_clip_adds_no_host_sync(dev):
                 torch.cuda.set_sync_debug_mode("default")
     print(f"synchronizing calls a step: no clip {counts[None]}, clip {counts[1e-3]}")
     assert counts[1e-3] <= counts[None]
+
+
+# The new shapes of the training CLIs' paths: the e3 entrypoints' odd parity
+# (the QM9 e3 pattern at a reduced width: odd SH at l=1, 0o / 1o / 2o
+# channels) and the attention head's site (a 512x0e feature in the
+# entrypoint, here 32x0e, into the head's DTP with L3 SH)
+E3_IRR = "8x0e+4x0o+4x1e+4x1o+2x2e+2x2o"
+E3_SH = "1x0e+1x1o+1x2e"
+E3_HEAD = "4x0e+2x0o+2x1e+2x1o+1x2e+1x2o"
+ATTN_FEAT = "32x0e"
+ATTN_HEAD = "4x0e+2x1e+2x2e+1x3e"
+
+
+def _sep_act_site(dev, irr, sh, out, head, ho):
+    """(plan, heads) of a reduced GraphAttention's sep_act site on the card."""
+    from equiformer_tpu_torch.models.equiformer import GraphAttention
+    from equiformer_tpu_torch.nn.linear import init_parameters
+
+    ga = GraphAttention(irr, sh, out, (16, 16, 16), head, 2, higher_order_grads=ho)
+    init_parameters(ga, 0)
+    ga = ga.to(dev)
+    return ga.sep_act.plan, [ga.sep_act.lin, ga.sep_alpha]
+
+
+def _site_operands(plan, heads, dev, dt, seed, E=300):
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev, dt)  # noqa: E731
+    W = plan.pack_weights([[None if t is None else t.detach().to(dt) for t in h.weight_list()]
+                           for h in heads])
+    return rnd(E, plan.d_x), rnd(E, plan.d_sh), rnd(E, plan.d_w), W, rnd(E, plan.d_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_k1_k2_at_an_odd_parity_sep_act_site_match_plain(dev, dtype):
+    """K1 and K2 at the sep_act site of an e3 block (QM9's first-order
+    route) against their plain versions: the odd-parity CG terms and irrep
+    groups of DTPLinPlan; rows past n_edges give zeros; K2 repeats its
+    bits."""
+    plan, heads = _sep_act_site(dev, E3_IRR, E3_SH, E3_IRR, E3_HEAD, False)
+    assert any(ir.p == -1 for _, ir in plan.tp.irreps_out)
+    dt = getattr(torch, dtype)
+    x, sh, w, W, cot = _site_operands(plan, heads, dev, dt, 11)
+    n = torch.tensor(250, dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    k = dtp_lin_fwd(plan, x, sh, w, W, n)
+    p = dtp_lin_plain(plan, x, sh, w, W, n)
+    torch.cuda.synchronize()
+    assert _rel(k, p) < TOL[dtype]
+    assert float(k[250:].abs().max()) == 0.0
+    kb = dtp_lin_bwd(plan, x, sh, w, W, cot, n)
+    pb = dtp_lin_bwd_plain(plan, x, sh, w, W, cot, n)
+    torch.cuda.synchronize()
+    for a, b in zip(kb, pb):
+        assert _rel(a, b) < TOL[dtype]
+    assert all(torch.equal(a, b) for a, b in zip(kb, dtp_lin_bwd(plan, x, sh, w, W, cot, n)))
+    assert (dtp_lin_fwd.launches, dtp_lin_bwd.launches) == (1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("site", ["attn_head", "e3"])
+def test_force_kernels_at_the_attention_head_and_e3_sites_match_plain(dev, site, dtype):
+    """K1, K5a (every subset of dx, dsh, dw), K5b's three legs and K5c at
+    the attention head's sep_act site (a scalar-only input into L3 SH) and
+    at an odd-parity sep_act site, against their plain versions; rows past
+    n_edges give zeros; second calls repeat their bits."""
+    from equiformer_tpu_torch.kernels import (
+        dtp_lin_bwd3_plain, dtp_lin_leg, dtp_lin_leg_plain, dtp_lin_legW, dtp_lin_legW_plain,
+    )
+
+    args = ((ATTN_FEAT, L3_SH, "1x0e", ATTN_HEAD) if site == "attn_head"
+            else (E3_IRR, E3_SH, E3_IRR, E3_HEAD))
+    plan, heads = _sep_act_site(dev, *args, True)
+    dt = getattr(torch, dtype)
+    x, sh, w, W, cot = _site_operands(plan, heads, dev, dt, 12)
+    n = torch.tensor(250, dtype=torch.int32, device=dev)
+    k = dtp_lin_fwd(plan, x, sh, w, W, n)
+    torch.cuda.synchronize()
+    assert _rel(k, dtp_lin_plain(plan, x, sh, w, W, n)) < TOL[dtype]
+    p = dict(zip(("x", "sh", "w"), dtp_lin_bwd3_plain(plan, x, sh, w, W, cot, n)))
+    for need, call in _k5a_cases(plan, x, sh, w, W, cot, n):
+        got, again = dict(zip(("x", "sh", "w"), call())), dict(zip(("x", "sh", "w"), call()))
+        torch.cuda.synchronize()
+        for key in need:
+            assert _rel(got[key], p[key]) < TOL[dtype], (need, key)
+            assert float(got[key][250:].abs().max()) == 0.0
+            assert torch.equal(got[key], again[key])
+    for leg in ("x", "sh", "w"):
+        ops = {"x": x, "sh": sh, "w": w, leg: None}
+        call = lambda: dtp_lin_leg(plan, leg, cot, ops["x"], ops["sh"], ops["w"], W, n)  # noqa: E731
+        kl = call()
+        pl = dtp_lin_leg_plain(plan, leg, cot, ops["x"], ops["sh"], ops["w"], W, n)
+        torch.cuda.synchronize()
+        assert _rel(kl, pl) < TOL[dtype], leg
+        assert torch.equal(kl, call())
+    kw = dtp_lin_legW(plan, cot, x, sh, w, n)
+    torch.cuda.synchronize()
+    assert _rel(kw, dtp_lin_legW_plain(plan, cot, x, sh, w, n)) < TOL[dtype]
+    assert torch.equal(kw, dtp_lin_legW(plan, cot, x, sh, w, n))
+
+
+@pytest.mark.cuda
+def test_native_arena_batch_runs_the_qm9_step_in_the_numpy_batchs_bits(dev):
+    """A batch collated by the native GraphArena, moved to the card, runs one
+    QM9 training step (fp32, alpha dropout from one seed) with the same
+    bits as the numpy-collated batch: the batches are equal field by field,
+    and so are the updated parameters and the metrics."""
+    import equiformer_tpu_torch as pt
+    from equiformer_tpu_torch import native
+    from equiformer_tpu_torch.data import GraphLoader, qm9_like_dataset
+    from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer
+
+    if not native.HAVE_NATIVE:
+        pytest.skip("no C++ compiler for the native host library")
+    data = qm9_like_dataset(6, seed=4)
+    loaders = [GraphLoader(data, 6, dense_slots=30, shuffle=False, use_native=u)
+               for u in (True, False)]
+    assert loaders[0]._arena is not None and loaders[1]._arena is None
+    batches = [next(iter(ld)) for ld in loaders]
+    for f in ("pos", "species", "batch", "node_mask", "graph_mask", "y"):
+        a, b = getattr(batches[0], f), getattr(batches[1], f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    cfg = dict(irreps_node_embedding="16x0e+8x1e+4x2e", num_layers=2, number_of_basis=32,
+               fc_neurons=(16, 16), irreps_feature="32x0e", irreps_head="8x0e+4x1e+4x2e",
+               num_heads=4, irreps_mlp_mid="24x0e+12x1e+6x2e", max_edges=1536,
+               nodes_per_graph=30, higher_order_grads=False, seed=5)
+    results = []
+    for b in batches:
+        model = GraphAttentionTransformer(**cfg).to(dev)
+        opt = pt.create_optimizer(pt.cosine_warmup_schedule(5e-4, 100, 100000))
+        step, _ = pt.make_qm9_steps(model, opt)
+        _, m = step(pt.TrainState.create(model, opt), b.to(dev),
+                    torch.Generator(device=dev).manual_seed(1))
+        results.append((m, [p.detach().clone() for p in model.parameters()]))
+    (m0, p0), (m1, p1) = results
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))

@@ -44,6 +44,8 @@ from equiformer_tpu_torch.kernels import launch_counts, reset_launch_counts  # n
 from equiformer_tpu_torch.models import md17_models  # noqa: E402
 from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer as TModel  # noqa: E402
 from equiformer_tpu_torch.utils import params_from_jax  # noqa: E402
+from test_torch_jax_ref import fast_jit  # noqa: E402
+
 
 SLOTS, GRAPHS = 21, 4
 REDUCED = dict(
@@ -102,7 +104,8 @@ def _jax_ref(basis, dt):
     """JAX's (energy, forces) of the reduced model in ``dt``."""
     jm, _, tree, data = _reduced(basis)
     npdt = DTYPES[dt][0]
-    out = jax.jit(lambda p, b: j_energy_and_forces(jm, p, b))(
+    jit = fast_jit if dt == "fp64" else jax.jit
+    out = jit(lambda p, b: j_energy_and_forces(jm, p, b))(
         _cast(tree, npdt), _jax_batch(data, npdt))
     return tuple(np.asarray(a) for a in out)
 
@@ -118,46 +121,6 @@ def _close(got, ref, dt):
 @pytest.fixture(scope="module")
 def reduced_exp():
     return _reduced("exp")
-
-
-def _port_ef(tm, data, tdt):
-    return pt.energy_and_forces(tm.to(tdt), _torch_batch(data, tdt))
-
-
-@pytest.mark.parametrize("basis, dt", [("exp", "fp64"), ("exp", "fp32"), ("bessel", "fp64"),
-                                       pytest.param("bessel", "fp32", marks=pytest.mark.slow)])
-def test_reduced_energy_and_forces_match_jax(basis, dt):
-    _, tm, _, data = _reduced(basis)
-    ref = {d: _jax_ref(basis, d) for d in (("fp64",) if dt == "fp64" else DTYPES)}
-    te, tf = _port_ef(tm, data, DTYPES[dt][1])
-    assert te.shape == (GRAPHS,) and tf.shape == (GRAPHS * SLOTS, 3)
-    assert tf.dtype == DTYPES[dt][1]
-    assert _close(te.numpy(), {k: v[0] for k, v in ref.items()}, dt)
-    assert _close(tf.numpy(), {k: v[1] for k, v in ref.items()}, dt)
-    assert float(tf.abs().max()) > 0.0
-
-
-@pytest.mark.parametrize("basis", ["exp", pytest.param("bessel", marks=pytest.mark.slow)])
-def test_reduced_bfloat16_energy_and_forces_match_jax(basis):
-    """compute_dtype='bfloat16' in both packages, fp32 weights and positions.
-    JAX's own bf16 forces lie 3.3e-2 (exp) and 2.8e-2 (bessel) of the
-    largest force from its fp64 ones: bf16 features meet the bases'
-    cancelling derivatives.  The two packages round at different points, so
-    each is held to the fp64 values, the port within BF16_FACTOR times JAX's
-    own bf16 error.  The run must be in bf16: it moves off JAX's fp32
-    results by more than BF16_MIN_SHIFT."""
-    jm, _, tree, data = _reduced(basis)
-    ref = {"fp64": _jax_ref(basis, "fp64"), "fp32": _jax_ref(basis, "fp32")}
-    jb = jax.jit(lambda p, b: j_energy_and_forces(jm.clone(compute_dtype="bfloat16"), p, b))(
-        _cast(tree, np.float32), _jax_batch(data, np.float32))
-    tm16 = TModel(**REDUCED, basis_type=basis, compute_dtype="bfloat16", seed=4).eval()
-    params_from_jax(tm16, tree)
-    got = pt.energy_and_forces(tm16, _torch_batch(data, torch.float32))
-    for i, t in enumerate(got):
-        assert t.dtype == torch.float32
-        jerr = _rel(jb[i], ref["fp64"][i])
-        assert _rel(t.numpy(), ref["fp64"][i]) <= BF16_FACTOR * jerr
-        assert _rel(t.numpy(), ref["fp32"][i]) > BF16_MIN_SHIFT
 
 
 def test_forces_are_equivariant(reduced_exp):
@@ -202,7 +165,7 @@ def test_evaluate_md17_matches_eval_step(reduced_exp):
     jm, tm, tree, data = reduced_exp
     mean, std = 0.5, 2.0
     _, eval_step = make_md17_steps(jm, optax.sgd(0.1), task_mean=mean, task_std=std)
-    j = jax.jit(eval_step)(_cast(tree, np.float64), _jax_batch(data, np.float64))
+    j = fast_jit(eval_step)(_cast(tree, np.float64), _jax_batch(data, np.float64))
     with torch.no_grad():  # evaluate_md17 differentiates whatever the caller's mode
         t = pt.evaluate_md17(tm.double(), _torch_batch(data, torch.float64), mean, std)
     for k in ("mae_e_sum", "mae_f_sum"):

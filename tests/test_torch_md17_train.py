@@ -49,6 +49,8 @@ from equiformer_tpu_torch.kernels import launch_counts, reset_launch_counts  # n
 from equiformer_tpu_torch.models import md17_models  # noqa: E402
 from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer as TModel  # noqa: E402
 from equiformer_tpu_torch.utils import params_from_jax, torch_name  # noqa: E402
+from test_torch_jax_ref import fast_jit  # noqa: E402
+
 
 SLOTS, GRAPHS = 21, 4
 REDUCED = dict(
@@ -137,7 +139,7 @@ def jax_steps(reduced):
             step, _ = jeng.make_md17_steps(jm, opt, task_mean=MEAN, task_std=STD,
                                            energy_weight=E_WEIGHT, force_weight=F_WEIGHT,
                                            ema_decay=EMA)
-            step = jax.jit(step)
+            step = fast_jit(step) if dt == "fp64" else jax.jit(step)
             st = jstate.TrainState.create(
                 jax.tree_util.tree_map(lambda a: np.asarray(a, npdt), tree), opt)
             jb, metrics = _jax_batch(data, npdt), []

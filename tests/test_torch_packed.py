@@ -16,7 +16,7 @@ the force models at one block, fp64) 1e-9 of the largest JAX value; the port's t
 weights 1e-12.  The weights are the port's seeded init written into a flax
 tree (checked leaf by leaf against the JAX model's ``init`` traced by
 ``jax.eval_shape``), so no JAX init is compiled; each JAX function is
-compiled once (``_compiled``), the MD17 forces and step in one.
+compiled once (``fast_jit``), the MD17 forces and step in one.
 """
 
 import dataclasses
@@ -47,6 +47,7 @@ from equiformer_tpu_torch.models import md17_models  # noqa: E402
 from equiformer_tpu_torch.models.dens import EquiformerDeNS  # noqa: E402
 from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer as TModel  # noqa: E402
 from equiformer_tpu_torch.utils import flax_paths, params_from_jax, torch_name  # noqa: E402
+from test_torch_jax_ref import fast_jit  # noqa: E402
 
 # the JAX package's graph/__init__ re-exports a function named radius_graph
 jr = importlib.import_module("equiformer_tpu.graph.radius_graph")
@@ -151,14 +152,6 @@ def _params_close(got, want):
     assert set(got) == set(want)
     scale = max(np.abs(v).max() for v in want.values())
     assert max(np.abs(got[n] - want[n]).max() for n in got) < TOL * scale
-
-
-def _compiled(fn, *args):
-    """``jax.jit(fn)`` compiled for ``args`` without XLA's backend
-    optimization passes: the JAX package's compiles are most of this
-    file's time, those passes take much of a compile, and they change
-    only the rounding."""
-    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})
 
 
 def _optimizers(wd):
@@ -422,7 +415,7 @@ def cases():
 def test_packed_qm9_forward_matches_jax(cases):
     c = cases("qm9")
     fwd = lambda p, b: c.jm.apply(p, b, deterministic=True)  # noqa: E731
-    j = c.jax("forward", lambda: _compiled(fwd, c.tree, c.jbatch)(c.tree, c.jbatch))
+    j = c.jax("forward", lambda: fast_jit(fwd)(c.tree, c.jbatch))
     t = c.loaded().eval()(c.batch()).detach().numpy()
     assert t.shape == (4,) and _rel(t, j) < TOL
 
@@ -438,7 +431,7 @@ def test_packed_qm9_training_steps_match_make_qm9_steps(cases):
     def run_jax():
         step, _ = jeng.make_qm9_steps(c.jm, jopt_, task_mean=MEAN, task_std=STD, ema_decay=EMA)
         st, metrics = jstate.TrainState.create(c.tree, jopt_), []
-        step = _compiled(step, st, c.jbatch, jax.random.PRNGKey(0))
+        step = fast_jit(step)
         for i in range(3):
             st, m = step(st, c.jbatch, jax.random.PRNGKey(i))
             metrics.append({k: float(m[k]) for k in ("loss", "mae", "grad_norm")})
@@ -470,7 +463,7 @@ def test_packed_md17_forces_and_training_step_match_jax(cases):
         step, _ = jeng.make_md17_steps(c.jm, jopt_, **kw)
         args = (jstate.TrainState.create(c.tree, jopt_), c.jbatch, jax.random.PRNGKey(0))
         both = lambda st, b, k: (j_energy_and_forces(c.jm, st.params, b), step(st, b, k))  # noqa: E731
-        (e, f), (st, m) = _compiled(both, *args)(*args)
+        (e, f), (st, m) = fast_jit(both)(*args)
         return e, f, {k: float(m[k]) for k in keys}, _leaves(st.params)
 
     je, jf, jmet, jp = c.jax("forces and step", run_jax)
@@ -500,7 +493,7 @@ def test_packed_dens_training_step_matches_make_dens_steps(cases):
     def run_jax():
         step, _ = jeng.make_dens_steps(c.jm, jopt_, **kw)
         args = (jstate.TrainState.create(c.tree, jopt_), c.jbatch, rng, np.asarray(5.0))
-        st, m = _compiled(step, *args)(*args)
+        st, m = fast_jit(step)(*args)
         return {k: float(m[k]) for k in keys}, _leaves(st.params)
 
     jmet, jp = c.jax("step", run_jax)

@@ -32,6 +32,8 @@ from equiformer_tpu_torch.graph.batching import collate_dense as t_collate  # no
 from equiformer_tpu_torch.models import md17_models  # noqa: E402
 from equiformer_tpu_torch.models.equiformer import GraphAttentionTransformer as TModel  # noqa: E402
 from equiformer_tpu_torch.utils import params_from_jax, torch_name  # noqa: E402
+from test_torch_jax_ref import fast_jit  # noqa: E402
+
 
 # the modules (the package's names dtp_lin / dtp_lin_ho are the functions)
 kdl = importlib.import_module("equiformer_tpu_torch.kernels.dtp_lin")
@@ -121,7 +123,7 @@ def test_reduced_qm9_training_steps_fold_match_make_qm9_steps(qm9):
     jm, tree, data = qm9
     opt = jopt.create_optimizer(jopt.cosine_warmup_schedule(LR, WARMUP, TOTAL), weight_decay=WD)
     j_step, _ = jeng.make_qm9_steps(jm, opt, task_mean=MEAN, task_std=STD, ema_decay=EMA)
-    j_step = jax.jit(j_step)
+    j_step = fast_jit(j_step)
     jst = jstate.TrainState.create(tree, opt)
     jb = _qm9_batch(data, np.float64)
     tm = _qm9_port(tree, radial_fold=True)
@@ -140,17 +142,24 @@ def test_reduced_qm9_training_steps_fold_match_make_qm9_steps(qm9):
         assert np.abs(_flip(n, p.detach().numpy()) - want[n]).max() < TOL * scale, n
 
 
-def test_reduced_md17_fold_forces_match_jax():
-    """A reduced exp-L3 force model with ``radial_fold`` and
-    ``radial_fold_ho`` (K7-F / K7-B3 plain versions): energies and forces
-    against JAX's unfolded force model, fp64, 1e-9 of the largest value."""
+@pytest.fixture(scope="module")
+def md17_reduced():
+    """The reduced MD17 force model's molecules, JAX module, batch and init
+    tree (fp64), shared by the forces and the training-step cases."""
     data = j_md17_like(4, seed=0)
     jm = JModel(**_jcfg(MD17_REDUCED), nonlinear_message=True, higher_order_grads=True)
     jb = j_collate(data, 21, with_forces=True)
-    jb64 = jb.__class__(**{**jb.__dict__, "pos": np.asarray(jb.pos, np.float64)})
     tree = jax.jit(lambda b: jm.init(jax.random.PRNGKey(1), b, deterministic=True))(jb)
-    tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
-    je, jf = jax.jit(lambda p, b: j_energy_and_forces(jm, p, b))(tree, jb64)
+    return data, jm, jb, jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
+
+
+def test_reduced_md17_fold_forces_match_jax(md17_reduced):
+    """A reduced exp-L3 force model with ``radial_fold`` and
+    ``radial_fold_ho`` (K7-F / K7-B3 plain versions): energies and forces
+    against JAX's unfolded force model, fp64, 1e-9 of the largest value."""
+    data, jm, jb, tree = md17_reduced
+    jb64 = jb.__class__(**{**jb.__dict__, "pos": np.asarray(jb.pos, np.float64)})
+    je, jf = fast_jit(lambda p, b: j_energy_and_forces(jm, p, b))(tree, jb64)
     tm = TModel(**MD17_REDUCED, radial_fold=True, radial_fold_ho=True).double()
     params_from_jax(tm, tree)
     assert tm.edge_deg_embed.plan.radial_fold == 16
@@ -164,7 +173,7 @@ MD17_LR, MD17_WD, MD17_EMA, MD17_MEAN, MD17_STD = 2e-3, 1e-6, 0.5, 0.5, 2.0
 METRICS = ("loss", "loss_e", "loss_f", "mae_e", "mae_f", "grad_norm")
 
 
-def test_reduced_md17_fold_training_steps_match_make_md17_steps():
+def test_reduced_md17_fold_training_steps_match_make_md17_steps(md17_reduced):
     """Three force training steps of a reduced exp-L3 model with
     ``radial_fold`` and ``radial_fold_ho`` (the folded force op's
     grad-of-grad on the plain versions of K7-F, K7-B3, K7-L, K7-LW and
@@ -173,18 +182,14 @@ def test_reduced_md17_fold_training_steps_match_make_md17_steps():
     fp64: the six metrics of every step within 1e-9, then every parameter
     and the EMA within 1e-9 of max |param|; the steps move the parameters.
     The counterpart of ``tests/test_torch_md17_train.py``'s fast case."""
-    data = j_md17_like(4, seed=0)
-    jm = JModel(**_jcfg(MD17_REDUCED), nonlinear_message=True, higher_order_grads=True)
-    jb = j_collate(data, 21, with_forces=True)
-    tree = jax.jit(lambda b: jm.init(jax.random.PRNGKey(1), b, deterministic=True))(jb)
-    tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
+    data, jm, jb, tree = md17_reduced
     jb64 = jb.__class__(**{**jb.__dict__, **{k: np.asarray(getattr(jb, k), np.float64)
                                             for k in ("pos", "y", "forces")}})
     kw = dict(task_mean=MD17_MEAN, task_std=MD17_STD, energy_weight=1.0, force_weight=80.0,
               ema_decay=MD17_EMA)
     jopt_ = jopt.create_optimizer(jopt.cosine_warmup_schedule(MD17_LR, WARMUP, TOTAL),
                                   weight_decay=MD17_WD)
-    j_step = jax.jit(jeng.make_md17_steps(jm, jopt_, **kw)[0])
+    j_step = fast_jit(jeng.make_md17_steps(jm, jopt_, **kw)[0])
     jst = jstate.TrainState.create(tree, jopt_)
     tm = TModel(**MD17_REDUCED, radial_fold=True, radial_fold_ho=True).double()
     assert params_from_jax(tm, tree) == len(jax.tree_util.tree_leaves(tree))

@@ -42,6 +42,7 @@ from equiformer_tpu_torch.nn.radial import make_rbf  # noqa: E402
 from equiformer_tpu_torch.train import CheckpointManager, load_params, save_params  # noqa: E402
 from equiformer_tpu_torch.train import optim as topt  # noqa: E402
 from equiformer_tpu_torch.utils import params_from_jax, params_to_jax  # noqa: E402
+from test_torch_jax_ref import fast_jit  # noqa: E402
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(2)
@@ -76,14 +77,6 @@ class Leafy(torch.nn.Module):
                 p.copy_(torch.randn(p.shape, generator=gen))
             self.lin.b0.zero_()  # a zero tensor: the trust ratios' zero-norm branch
         self.double()
-
-
-def _compiled(fn, *args):
-    """``jax.jit(fn)`` compiled for ``args`` without XLA's backend
-    optimization passes (they take most of a compile and change no
-    rounding here): a third of the time of optax's op-by-op dispatch,
-    which compiles every primitive at every leaf shape."""
-    return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})
 
 
 def _tree_map(fn, *trees):
@@ -133,7 +126,7 @@ def test_optimizer_matches_optax(name, clip):
     # fromage's float32 scalar 1 / sqrt(1 + lr^2) is correctly rounded
     # op by op, as the port computes it; compiled, XLA takes its float32
     # rsqrt, one ulp away at about half of all learning rates
-    update = jo.update if name == "fromage" else _compiled(jo.update, grads[0], js, jp)
+    update = jo.update if name == "fromage" else fast_jit(jo.update)
     for g in grads:
         upd, js = update(g, js, jp)
         jp = _tree_map(lambda a, u: np.asarray(a + u), jp, upd)
@@ -159,7 +152,7 @@ def test_radam_rectified_branch_matches_optax():
     to = pt.create_optimizer(pt.cosine_warmup_schedule(LR, WARMUP, TOTAL), **kw)
     jp, js, state = tree, jo.init(tree), to.init(model)
     params = dict(model.named_parameters())
-    update = _compiled(jo.update, _grads(tree, 0), js, jp)
+    update = fast_jit(jo.update)
     for s in range(8):
         g = _grads(tree, s)
         upd, js = update(g, js, jp)
